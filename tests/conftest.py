@@ -17,3 +17,10 @@ jax.config.update("jax_enable_x64", False)
 # NOTE: do not enable jax_compilation_cache_dir here — serializing the large
 # interpret-mode Pallas executables segfaults the CPU backend (observed at
 # compilation_cache.put_executable_and_time).
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA GPU and nvcc (the PyTorch port's CUDA kernels); "
+        "skips where torch.cuda.is_available() is false")
