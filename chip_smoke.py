@@ -2,34 +2,50 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path — ``render(prepared, camera, cfg)`` with the
-default RenderConfig, the 3DGS raster frame — and checks it:
+Drives the port's two main paths — the 3DGS raster frame, ``render(prepared,
+camera, cfg)`` with the default RenderConfig, and the training step,
+``train_step`` (render, loss, backward, Adam) — and checks them:
 
-1. builds the CUDA tile blender (csrc/rasterize_fwd.cu) from the checkout
-   and prints the card's name and power limit;
-2. golden gate: the checked-in trained scene at 256x192 through the kernel,
-   PSNR > 45 dB against assets/golden/golden_view0.npy, and the kernel
-   against its plain PyTorch twin over the whole frame;
-3. full size: 1,000,000 splats at SH degree 3 (96.9 / 2.5 / 0.6 % small /
-   mid / large scales) at 1920x1080, made on the card from a seeded
-   generator; 8 jittered frames through ``render``, with the kernel's launch
-   count read around them; the exact expansion (max_pairs = 2^22), which
-   must not overflow; a bit-equal repeat frame; 64 sampled tiles against
-   the twin;
-4. CUDA-event timings after warm-up: project, bin, blend and the whole
-   frame, and the kernel against the twin at the frame's shape;
-5. a torch.profiler trace of three frames per expansion: kernels and
-   kernel time per stage, the six costliest kernels, and the device's idle
-   share over the frames.
+1. builds the CUDA kernels from the checkout, one nvcc per source, all at
+   once: the tile blender K1 (csrc/rasterize_fwd.cu) and its backward K2
+   (csrc/rasterize_bwd.cu); prints their -Xptxas -v reports and the
+   card's name and power limit;
+2. golden gate: the checked-in trained scene at 256x192 through K1, PSNR
+   > 45 dB against assets/golden/golden_view0.npy, and K1 against its plain
+   PyTorch twin over the whole frame; golden gradients at 128x96, SH 0: K2
+   against the twin backward over the whole frame (``bwd_gate``, which
+   must also reject the twin on two broken contexts), and a central
+   difference of 4 high-gradient opacities through ``render`` on the card;
+3. forward at full size: 1,000,000 splats at SH degree 3 (96.9 / 2.5 / 0.6 %
+   small / mid / large scales) at 1920x1080, made on the card from a seeded
+   generator; 8 jittered frames through ``render``, with K1's launch count
+   read around them; the exact expansion (max_pairs = 2^22), which must not
+   overflow; a bit-equal repeat frame; 64 sampled tiles against the twin;
+4. training at full size: the same scene is the target, the start has
+   seeded jitter on means and sh_dc; 5 ``train_step``s with both kernels'
+   launch counts read around them, a falling finite loss and finite
+   gradients; one exact-expansion step; K2 against the twin backward on 64
+   sampled tiles; a bit-equal repeat backward;
+5. CUDA-event timings after warm-up: project, bin, blend and the whole
+   frame; K1 and K2 against their twins at the frame's shape; fwd_bwd and
+   train_step; the (pixel, pair) evaluations and hits that both kernels'
+   bounds count;
+6. torch.profiler traces of three ``render`` calls per expansion and of
+   three ``train_step`` calls: kernels and kernel time per stage (the
+   entry points' own spans), the six costliest kernels, and the device's
+   idle share.
 
 Without a CUDA device it raises and prints no result. The last line is
 ``{"ok": true, "device": {...}}``; the line before it holds the kernel
-report as JSON. Every number printed was measured in this run.
+report as JSON, and the line before that the card's name and power limit.
+Every number printed was measured in this run; each kernel's bound is
+computed from this run's inputs (``kernel_bound``).
 """
 
 from __future__ import annotations
 
 import collections
+import concurrent.futures
 import dataclasses
 import json
 import math
@@ -60,15 +76,53 @@ from vk_gaussian_splatting_tpu_torch.render.pipelines import (  # noqa: E402
 from vk_gaussian_splatting_tpu_torch.scene.splat_set import random_splats  # noqa: E402
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+FIELDS = ("means", "scales", "quats", "opacities", "sh_dc", "sh_rest")
 GOLDEN = os.path.join(HERE, "assets", "golden")
-KERNEL_SOURCE = "vk_gaussian_splatting_tpu_torch/csrc/rasterize_fwd.cu"
-REPLACES = "vk_gaussian_splatting_tpu/ops/rasterize_pallas.py:202"
+KERNELS = {  # name: (source, the TPU kernel it replaces)
+    "rasterize_fwd": ("vk_gaussian_splatting_tpu_torch/csrc/rasterize_fwd.cu",
+                      "vk_gaussian_splatting_tpu/ops/rasterize_pallas.py:202"),
+    "rasterize_bwd": ("vk_gaussian_splatting_tpu_torch/csrc/rasterize_bwd.cu",
+                      "vk_gaussian_splatting_tpu/ops/rasterize_pallas.py:367"),
+}
+WIDTH, HEIGHT, SPLATS = 1920, 1080, 1_000_000  # the headline cell
 FRAMES = 8
+TRAIN_STEPS = 5
 # Kernel against twin on one device: alphas agree bit for bit (-fmad=false,
 # exact expf); transmittance products run in another order, and a pixel at
 # T ~ min_transmittance (1e-4) may freeze one blend step apart.
 KERNEL_ATOL = 1e-4
 ID_AGREE = 0.999
+# K2 against the twin backward, two gates (``bwd_gate``). Alphas agree bit
+# for bit; T, the running colour sum and the sums over a tile's pixels run
+# in other orders. The suffix S_total - s_run cancels to ~ulp(S_total) at a
+# pixel's last pairs and is divided by 1 - alpha, down to 1 - alpha_clamp =
+# 1e-3: up to ~1.2e-4 of S_total per pair-pixel. So each gradient row must
+# lie within 1e-4 of the row's max abs (measured up to 1.9e-5 on the golden
+# frame, whose cotangents all share one sign). The rows have long tails (at
+# 1080p a conic row's median nonzero value is ~3e-7 of its max), so that
+# bound cannot see a row's ordinary values. Hence the second gate: in each
+# row, at least 99.9 % of values within 1e-2 of their own size plus the
+# row's median nonzero size (the 99.9th percentile of that ratio measured
+# up to 1.5e-3 on the golden frame and 8.6e-5 at 1080p). Each run also
+# shows that the gates reject the twin on a broken context: one warp of
+# every tile with a zero cotangent (a warp that drops out), and S_total
+# zeroed (a wrong suffix).
+BWD_RTOL = 1e-4
+BWD_ELEM_RTOL, BWD_ELEM_SHARE = 1e-2, 0.999
+# The bound: f32 operations, each add, multiply, compare, select and exp
+# counted as one, as the kernels' sources spell them. Every (pixel, pair)
+# evaluation costs the alpha test (17: offsets 2, quadratic form 9, scale,
+# exp, opacity, 2 cutoffs, clamp); a hit, an evaluation whose alpha passes
+# the cutoffs, adds the blend in K1 (10: weight, 3 colour multiply-adds,
+# T update, depth pick) and in K2 about 44 for the gradient and 9 adds to
+# reduce the nine gradients over the tile (``ops/rasterize.blend_work``
+# counts both).
+OPS_ALPHA = 17
+OPS_PER_HIT = {"rasterize_fwd": 10, "rasterize_bwd": 53}
+# the stage spans that render_3dgs and train_step open, in step order
+STAGES = ("prepare", "project", "bin", "blend", "assemble", "loss", "backward", "optimizer")
+PEAK_F32_OPS = 67e12   # H100 SXM, f32 outside the tensor cores
+PEAK_BYTES = 3.35e12   # H100 SXM HBM3
 
 
 def log(*a):
@@ -121,6 +175,78 @@ def compare_kernel_with_twin(bins, st, tiles=None):
     return err, same.float().mean().item()
 
 
+def row_typical(mag):
+    """(rows, 1) median nonzero value of each row of ``mag`` (0 if none)."""
+    return torch.stack([r[r > 0].median() if bool((r > 0).any()) else r.new_zeros(())
+                        for r in mag])[:, None]
+
+
+def bwd_gate(d_k, d_r):
+    """(passes, max abs err, max err / row max, least share over the rows
+    of values inside the elementwise limit, each row's 99.9th percentile
+    of |err| / (|ref| + row median)) of gradient rows ``d_k`` against
+    reference rows ``d_r``."""
+    diff, mag = (d_k - d_r).abs(), d_r.abs()
+    rel = (diff / mag.amax(dim=1, keepdim=True).clamp_min(1e-30)).max().item()
+    ratio = diff / (mag + row_typical(mag)).clamp_min(1e-30)
+    share = (ratio <= BWD_ELEM_RTOL).float().mean(dim=1).min().item()
+    p999 = torch.quantile(ratio, 0.999, dim=1).tolist()
+    return rel <= BWD_RTOL and share >= BWD_ELEM_SHARE, diff.max().item(), rel, share, p999
+
+
+def compare_bwd_with_twin(bins, st, ctx, tiles=None):
+    """(max abs err, max err relative to each row's max) of K2 against the
+    twin backward, on the pairs of ``tiles`` (all by default). Fails unless
+    ``bwd_gate`` passes, and unless it rejects the twin on two broken
+    contexts."""
+    if tiles is None:
+        tiles = torch.arange(st.tiles_x * st.tiles_y, device=ctx.device)
+
+    def twin(c):
+        return tr.rasterize_tiles_bwd_ref(bins.attrs, bins.tile_start, bins.tile_count, c,
+                                          st, tiles=tiles)
+
+    pairs = torch.cat([torch.arange(a, a + n, device=ctx.device) for a, n in
+                       zip(bins.tile_start[tiles].tolist(), bins.tile_count[tiles].tolist())])
+    d_k = tr.rasterize_tiles_bwd(bins.attrs, bins.tile_start, bins.tile_count, ctx, st)
+    d_k, d_r = d_k[:, pairs], twin(ctx)[:, pairs]
+    check(bool((d_k[tr.GRAD_ROWS:] == 0).all()), "K2 wrote the depth row")
+    d_k, d_r = d_k[:tr.GRAD_ROWS], d_r[:tr.GRAD_ROWS]
+    ok, abs_err, rel_err, share, p999 = bwd_gate(d_k, d_r)
+    typical = row_typical(d_r.abs()) / d_r.abs().amax(dim=1, keepdim=True).clamp_min(1e-30)
+    log(f"  K2 vs twin on {d_r.shape[1]} pairs: max err / row max {rel_err:.3e} "
+        f"(gate {BWD_RTOL:g}); least share per row within {BWD_ELEM_RTOL:g} (|ref| + "
+        f"row median) {share:.6f} (gate {BWD_ELEM_SHARE}); per row, p99.9 of that ratio: "
+        + " ".join(f"{x:.2e}" for x in p999) + "; median nonzero |ref| / row max: "
+        + " ".join(f"{x:.2e}" for x in typical.flatten().tolist()))
+    check(ok, f"K2 vs twin outside the gates: {rel_err} / {share}")
+    warp_out, no_suffix = ctx.clone(), ctx.clone()
+    warp_out[:, :, 96:128] = 0.0
+    no_suffix[:, 3] = 0.0
+    for what, bad in (("one warp's cotangent zeroed", warp_out), ("S_total zeroed", no_suffix)):
+        ok, _, bad_rel, bad_share, _ = bwd_gate(twin(bad)[:tr.GRAD_ROWS, pairs], d_r)
+        log(f"  gate self-check, twin with {what}: max err / row max {bad_rel:.3e}, "
+            f"share within {bad_share:.6f}, rejected={not ok}")
+        check(not ok, f"the K2 gate passed a twin with {what}")
+    return abs_err, rel_err
+
+
+def sample_tiles(bins, st, dev, seed):
+    """48 busy tiles and 16 random ones, from a seeded generator."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    busy = torch.nonzero(bins.tile_count > 0).flatten()
+    return torch.cat([busy[torch.randperm(busy.numel(), generator=g, device=dev)[:48]],
+                      torch.randperm(st.tiles_x * st.tiles_y, generator=g, device=dev)[:16]])
+
+
+def kernel_bound(name: str, evals: int, hits: int, bytes_moved: int):
+    """(bound ms, what bounds it): the larger of the f32 operations over the
+    card's f32 peak and the bytes over its memory rate."""
+    t_ops = (evals * OPS_ALPHA + hits * OPS_PER_HIT[name]) / PEAK_F32_OPS * 1e3
+    t_bytes = bytes_moved / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
 def bins_of(prepared, cam, cfg, max_pairs=0):
     proj = project_splats(prepared, cam, cfg)
     rows, ids = gs_attr_rows(proj)
@@ -129,7 +255,8 @@ def bins_of(prepared, cam, cfg, max_pairs=0):
 
 def frame_stages(prepared, cam, cfg, max_pairs=0):
     """render_3dgs's stages as (name, step) pairs, each step reading what
-    the one before it left in the returned dict."""
+    the one before it left in the returned dict: for per-stage CUDA-event
+    timings and for the blend's own inputs and outputs."""
     st = raster_statics(cfg)
     c = {}
 
@@ -144,62 +271,75 @@ def frame_stages(prepared, cam, cfg, max_pairs=0):
         c["out"] = tr.rasterize_bins(c["bins"], st)
 
     def assemble():
-        tr.assemble_image(*c["out"], st.tiles_x, st.tiles_y, cfg.width, cfg.height,
-                          cfg.background)
+        c["image"] = tr.assemble_image(*c["out"], st.tiles_x, st.tiles_y, cfg.width,
+                                       cfg.height, cfg.background)[0]
 
     return [("project", project), ("bin", bin_), ("blend", blend),
             ("assemble", assemble)], c
 
 
-def profile_frames(name, stages, card, frames=3):
-    """Device busy and idle share over `frames` staged frames, from the
-    torch.profiler trace: busy is the union of kernel intervals, the span
-    runs from the first kernel's start to the last one's end. Each kernel
-    belongs to the stage whose device-side annotation holds it."""
-    def frame():
-        for stage, step in stages:
-            with torch.profiler.record_function(stage):
-                step()
-
-    frame()  # warm-up
+def profile_calls(name, call, card, calls=3):
+    """Device busy and idle share over `calls` calls of an entry point, from
+    the torch.profiler trace: busy is the union of kernel intervals, the
+    span runs from the first kernel's start to the last one's end. Each
+    kernel belongs to the stage span (STAGES, opened by render_3dgs and
+    train_step themselves) that holds its launch call, matched by the
+    trace's correlation id, so the kernels autograd launches from its own
+    thread count in the backward stage."""
+    call()  # warm-up
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(frames):
-            frame()
+        for _ in range(calls):
+            call()
         torch.cuda.synchronize()
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "trace.json")
         prof.export_chrome_trace(path)
         events = json.load(open(path))["traceEvents"]
-    kernels = sorted((e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
+    kernels = sorted((e["ts"], e["ts"] + e["dur"], e["name"],
+                      e.get("args", {}).get("correlation")) for e in events
                      if e.get("cat") == "kernel")
-    annotations = [(e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
-                   if e.get("cat") == "gpu_user_annotation"]
+    launched_at = {e["args"]["correlation"]: e["ts"] for e in events
+                   if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                   and "correlation" in e.get("args", {})}
+    spans = [(e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
+             if e.get("cat") == "user_annotation" and e["name"] in STAGES]
     if not kernels:
         log(f"profile {name}: the profiler traced no kernels; idle share not measured")
         return
-    busy, (cur_s, cur_e, _) = 0.0, kernels[0]
-    for s, e, _ in kernels[1:]:
+    busy, (cur_s, cur_e, _, _) = 0.0, kernels[0]
+    for s, e, _, _ in kernels[1:]:
         if s > cur_e:
             busy, cur_s = busy + cur_e - cur_s, s
         cur_e = max(cur_e, e)
     busy += cur_e - cur_s
-    span = max(e for _, e, _ in kernels) - kernels[0][0]
-    log(f"profile {name} ({card}): {frames} frames, {len(kernels)} kernels, device span "
+    span = max(k[1] for k in kernels) - kernels[0][0]
+    log(f"profile {name} ({card}): {calls} calls, {len(kernels)} kernels, device span "
         f"{span / 1e3:.3f} ms, kernel-busy {busy / 1e3:.3f} ms, idle share "
         f"{1 - busy / span:.4f}")
-    for stage, _ in stages:
-        spans = [(a, b) for a, b, n in annotations if n == stage]
-        inside = [e - s for s, e, _ in kernels if any(a <= s and e <= b + 1 for a, b in spans)]
-        log(f"profile {name} stage {stage}: kernels/frame={len(inside) / frames:.1f} "
-            f"kernel_ms/frame={sum(inside) / 1e3 / frames:.4f} "
-            f"span_ms/frame={sum(b - a for a, b in spans) / 1e3 / frames:.4f}")
+
+    def stage_of(corr):
+        t = launched_at.get(corr)
+        return next((n for a, b, n in spans if t is not None and a <= t <= b), None)
+
+    per_stage = collections.defaultdict(list)
+    for s, e, _, corr in kernels:
+        per_stage[stage_of(corr)].append(e - s)
+    for stage in (*STAGES, None):
+        inside = per_stage.get(stage, [])
+        host = sum(b - a for a, b, n in spans if n == stage)
+        if not inside and not host:
+            continue
+        log(f"profile {name} stage {stage or 'unattributed'}: "
+            f"kernels/call={len(inside) / calls:.1f} "
+            f"kernel_ms/call={sum(inside) / 1e3 / calls:.4f} "
+            f"host_span_ms/call={host / 1e3 / calls:.4f}")
     by_name = collections.Counter()
-    for s, e, kname in kernels:
+    for s, e, kname, _ in kernels:
         by_name[kname[:72]] += e - s
     for kname, us in by_name.most_common(6):
-        log(f"profile {name} kernel: ms/frame={us / 1e3 / frames:.4f} {kname}")
+        log(f"profile {name} kernel: ms/call={us / 1e3 / calls:.4f} {kname}")
 
 
 def golden_gate(dev):
@@ -223,7 +363,53 @@ def golden_gate(dev):
     return err
 
 
-def bench_scene(dev, n: int, seed: int):
+def golden_gradients(dev):
+    """The golden scene at 128x96, SH 0 (tests/test_golden.py:93-119): K2
+    against the twin backward over the whole frame, for the cotangent of
+    sum(image^2); then a central difference of 4 high-gradient opacities
+    through ``render`` on the card (the sum taken in float64, so the
+    quotient sees the image's rounding, not the sum's)."""
+    cfg = gt.RenderConfig(width=128, height=96, sh_degree=0)
+    cam = gt.look_at([0, -1.5, -7.0], [0, 0.5, 0], [0, 1, 0], cfg.width, cfg.height,
+                     fov_y_rad=0.9, device=dev)
+    splats = load_ply(os.path.join(GOLDEN, "golden_scene.ply"), device=dev)
+    st = raster_statics(cfg)
+    bins = bins_of(splats.prepare(), cam, cfg)
+    out, out_id = tr.rasterize_bins(bins, st)
+    out = out.requires_grad_()
+    image = tr.assemble_image(out, out_id, st.tiles_x, st.tiles_y, cfg.width, cfg.height,
+                              cfg.background)[0]
+    (g_out,) = torch.autograd.grad((image ** 2).sum(), out)
+    abs_err, rel_err = compare_bwd_with_twin(bins, st, tr.bwd_context(out.detach(), g_out))
+
+    def loss(op):
+        s = dataclasses.replace(splats, opacities=op)
+        return torch.sum(render(s.prepare(), cam, cfg).image.double() ** 2)
+
+    op0 = splats.opacities.clone().requires_grad_()
+    loss(op0).backward()
+    g = op0.grad
+    big = torch.nonzero(g.abs() > torch.quantile(g.abs(), 0.99)).flatten()
+    idx = big[torch.randperm(big.numel(), generator=torch.Generator(device=dev).manual_seed(0),
+                             device=dev)[:4]]
+    eps, worst = 1e-2, 0.0
+    with torch.no_grad():
+        for i in idx.tolist():
+            op = splats.opacities.clone()
+            op[i] += eps
+            lp = loss(op).item()
+            op[i] -= 2 * eps
+            lm = loss(op).item()
+            fd, gi = (lp - lm) / (2 * eps), g[i].item()
+            worst = max(worst, abs(fd - gi) / max(abs(fd), abs(gi), 1.0))
+    log(f"golden gradients: 128x96 K2_vs_twin_max_abs={abs_err:.3e} "
+        f"max_rel_to_row_max={rel_err:.3e} central_difference_worst_rel={worst:.3e}")
+    check(rel_err <= BWD_RTOL, f"golden K2 vs twin {rel_err} > {BWD_RTOL}")
+    check(worst < 2e-2, f"golden central difference off by {worst}")
+    return abs_err
+
+
+def bench_scene(dev, n: int, seed: int) -> gt.SplatSet:
     """The repository's headline scene: small / mid / large splats in a
     96.9 / 2.5 / 0.6 % mix, SH degree 3, made on the card."""
     n_s, n_m = int(n * 0.969), int(n * 0.025)
@@ -234,7 +420,7 @@ def bench_scene(dev, n: int, seed: int):
         parts.append(random_splats(g, count, sh_degree=3, extent=4.0, scale_range=scales))
     fields = {f: torch.cat([getattr(p, f) for p in parts]) for f in
               ("means", "scales", "quats", "opacities", "sh_dc", "sh_rest")}
-    return gt.SplatSet(**fields).prepare()
+    return gt.SplatSet(**fields)
 
 
 def jitter(cam, i: int):
@@ -244,11 +430,12 @@ def jitter(cam, i: int):
     return dataclasses.replace(cam, viewmat=vm)
 
 
-def full_size(dev, card: str, seed: int):
-    cfg = gt.RenderConfig(width=1920, height=1080, sh_degree=3)
+def full_size(dev, card: str, prepared, seed: int):
+    """The forward path at 1080p with 1M splats; returns K1's report entry
+    and both kernels' bounds at this frame."""
+    cfg = gt.RenderConfig(width=WIDTH, height=HEIGHT, sh_degree=3)
     cam = gt.look_at([0, 0, -7], [0, 0, 0], [0, 1, 0], cfg.width, cfg.height,
                      fov_y_rad=0.9, device=dev)
-    prepared = bench_scene(dev, 1_000_000, seed)
     torch.cuda.synchronize()
 
     # ---- the main path: FRAMES frames through render(), launches counted
@@ -289,16 +476,24 @@ def full_size(dev, card: str, seed: int):
     # ---- kernel against twin on 64 sampled tiles of the slots frame
     st = raster_statics(cfg)
     bins = bins_of(prepared, cam, cfg)
-    g = torch.Generator(device=dev).manual_seed(seed)
-    n_tiles = st.tiles_x * st.tiles_y
-    busy = torch.nonzero(bins.tile_count > 0).flatten()
-    tiles = torch.cat([busy[torch.randperm(busy.numel(), generator=g, device=dev)[:48]],
-                       torch.randperm(n_tiles, generator=g, device=dev)[:16]])
+    tiles = sample_tiles(bins, st, dev, seed)
     err, agree = compare_kernel_with_twin(bins, st, tiles=tiles)
     log(f"64 sampled tiles: kernel_vs_twin_max_abs={err:.3e} id_agree={agree:.6f} "
         f"max_tile_pairs={int(bins.tile_count.max())}")
     check(err <= KERNEL_ATOL, f"1080p tiles kernel vs twin {err} > {KERNEL_ATOL}")
     check(agree >= ID_AGREE, f"1080p tiles id agreement {agree}")
+
+    # ---- the bound of both kernels at this frame's shape and data
+    evals, hits = tr.blend_work(bins.attrs, bins.tile_start, bins.tile_count, st)
+    n_pairs, n_tiles = int(bins.num_pairs), st.tiles_x * st.tiles_y
+    bytes_fwd = n_pairs * (10 * 4 + 4) + n_tiles * (2 * 4 + tr.PIX * (tr.OUT_ROWS * 4 + 4))
+    bytes_bwd = n_pairs * 2 * tr.GRAD_ROWS * 4 + n_tiles * (2 * 4 + tr.PIX * tr.CTX_ROWS * 4)
+    bounds = {"rasterize_fwd": kernel_bound("rasterize_fwd", evals, hits, bytes_fwd),
+              "rasterize_bwd": kernel_bound("rasterize_bwd", evals, hits, bytes_bwd)}
+    log(f"bound 1080p/1M slots: live_pairs={n_pairs} pixel_pair_evaluations={evals} "
+        f"hits={hits} hit_share={hits / max(evals, 1):.4f} "
+        + " ".join(f"{k}_bound_ms={v[0]:.4f} ({v[1]})" for k, v in bounds.items()))
+    del bins
 
     # ---- timings (CUDA events; medians over 10 after 2 warm-up), stages in order
     stages, c = frame_stages(prepared, cam, cfg)
@@ -313,11 +508,114 @@ def full_size(dev, card: str, seed: int):
         bins.attrs, bins.pair_id, bins.tile_start, bins.tile_count, st), 3, warmup=1))
     log(f"timing rasterize_fwd 1080p/1M ({card}): kernel_ms={t['blend']:.4f} "
         f"plain_twin_ms={t_plain:.4f}")
-    del bins
+    del bins, c
 
-    profile_frames("slots", stages, card)
-    profile_frames("exact", frame_stages(prepared, cam, exact_cfg, max_pairs=1 << 22)[0], card)
-    return launches, err, t["blend"], t_plain
+    profile_calls("slots", lambda: render(prepared, cam, cfg), card)
+    profile_calls("exact", lambda: render(prepared, cam, exact_cfg, max_pairs=1 << 22), card)
+    return dict(launches=launches, max_abs_err=err, ms=t["blend"], plain_ms=t_plain), bounds
+
+
+def grads_of(splats):
+    return [getattr(splats, f).grad for f in FIELDS]
+
+
+def train_full_size(dev, card: str, truth: gt.SplatSet, seed: int):
+    """The training path at 1080p with 1M splats: the scene renders its own
+    target; training starts from seeded jitter on means and sh_dc."""
+    cfg = gt.RenderConfig(width=WIDTH, height=HEIGHT, sh_degree=3)
+    cam = gt.look_at([0, 0, -7], [0, 0, 0], [0, 1, 0], cfg.width, cfg.height,
+                     fov_y_rad=0.9, device=dev)
+    tc = gt.TrainConfig(scene_extent=4.0)
+    with torch.no_grad():
+        target = render(truth.prepare(), cam, cfg).image
+    g = torch.Generator(device=dev).manual_seed(seed + 100)
+    fields = {f: getattr(truth, f).detach().clone() for f in FIELDS}
+    fields["means"] += 1e-3 * torch.randn(fields["means"].shape, generator=g, device=dev)
+    fields["sh_dc"] += 0.3 * torch.randn(fields["sh_dc"].shape, generator=g, device=dev)
+    splats = gt.SplatSet(**fields)
+    opt = gt.make_optimizer(splats, tc)
+    torch.cuda.synchronize()
+
+    # ---- the training path: TRAIN_STEPS steps, both kernels' launches counted
+    tr.rasterize_tiles.launches = tr.rasterize_tiles_bwd.launches = 0
+    steps = [gt.train_step(splats, opt, cam, target, cfg, 0, tc) for _ in range(TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    launches = (tr.rasterize_tiles.launches, tr.rasterize_tiles_bwd.launches)
+    losses = [loss.item() for loss, _ in steps]
+    log(f"training path: {TRAIN_STEPS} steps, rasterize_fwd launches={launches[0]} "
+        f"rasterize_bwd launches={launches[1]}")
+    log(f"train losses: {' '.join(f'{x:.6f}' for x in losses)} overflow="
+        f"{[bool(o) for _, o in steps]} (slots truncates wide splats by design)")
+    check(launches == (TRAIN_STEPS, TRAIN_STEPS),
+          f"{launches} kernel launches for {TRAIN_STEPS} train steps")
+    check(all(math.isfinite(x) for x in losses), "non-finite training loss")
+    check(losses[-1] < losses[0], f"the loss did not fall: {losses}")
+    check(all(bool(torch.isfinite(x).all()) for x in grads_of(splats)),
+          "non-finite gradient in the last train step")
+
+    exact_cfg = cfg.replace(raster=gt.RasterConfig(expansion="exact"))
+    opt.zero_grad(set_to_none=True)
+    ex = render(splats.prepare(), cam, exact_cfg, max_pairs=1 << 22)
+    gt.rgb_loss(ex.image, target, tc.ssim_lambda).backward()
+    torch.cuda.synchronize()
+    log(f"exact fwd+bwd: overflow={bool(ex.overflow)} finite_grads="
+        f"{all(bool(torch.isfinite(x).all()) for x in grads_of(splats))}")
+    check(not bool(ex.overflow), "exact training frame overflowed")
+    check(all(bool(torch.isfinite(x).all()) for x in grads_of(splats)),
+          "non-finite gradient in the exact step")
+    del ex
+
+    def fwd_bwd():
+        opt.zero_grad(set_to_none=True)
+        out = render(splats.prepare(), cam, cfg)
+        gt.rgb_loss(out.image, target, tc.ssim_lambda).backward()
+
+    # ---- a repeat backward is bit-equal (slots frame, no step between)
+    fwd_bwd()
+    first = [x.clone() for x in grads_of(splats)]
+    fwd_bwd()
+    torch.cuda.synchronize()
+    same = [torch.equal(a, b) for a, b in zip(first, grads_of(splats))]
+    bit_equal = all(same)
+    log(f"repeat backward bit-equal (six fields): {bit_equal} "
+        f"{dict(zip(FIELDS, same))}")
+    check(bit_equal, "repeat backward differs")
+    del first
+
+    # ---- K2 against the twin backward on 64 sampled tiles, with the loss's
+    # own cotangent at the blend
+    st = raster_statics(cfg)
+    stages, c = frame_stages(splats.prepare(), cam, cfg)
+    for _, step in stages:
+        step()
+    (g_out,) = torch.autograd.grad(gt.rgb_loss(c["image"], target, tc.ssim_lambda),
+                                   c["out"][0])
+    out = c["out"][0].detach()
+    ctx = tr.bwd_context(out, g_out)
+    bins = c["bins"]
+    abs_err, rel_err = compare_bwd_with_twin(bins, st, ctx,
+                                             tiles=sample_tiles(bins, st, dev, seed))
+    log(f"64 sampled tiles: K2_vs_twin_max_abs={abs_err:.3e} "
+        f"max_rel_to_row_max={rel_err:.3e}")
+    check(rel_err <= BWD_RTOL, f"1080p tiles K2 vs twin {rel_err} > {BWD_RTOL}")
+
+    # ---- timings (CUDA events, medians after warm-up)
+    attrs = bins.attrs.detach()
+    t_k2 = median(time_ms(lambda: tr.rasterize_tiles_bwd(
+        attrs, bins.tile_start, bins.tile_count, ctx, st), 10))
+    t_twin = median(time_ms(lambda: tr.rasterize_tiles_bwd_ref(
+        attrs, bins.tile_start, bins.tile_count, ctx, st), 2, warmup=1))
+    log(f"timing rasterize_bwd 1080p/1M ({card}): kernel_ms={t_k2:.4f} "
+        f"plain_twin_ms={t_twin:.4f}")
+    del stages, c, bins, attrs, ctx, out, g_out
+    t_fb = median(time_ms(fwd_bwd, 10))
+    t_step = median(time_ms(lambda: gt.train_step(splats, opt, cam, target, cfg, 0, tc), 10))
+    log(f"timing training 1080p/1M slots ({card}): fwd_bwd_ms={t_fb:.4f} "
+        f"train_step_ms={t_step:.4f}")
+
+    profile_calls("train_step", lambda: gt.train_step(splats, opt, cam, target, cfg, 0, tc),
+                  card)
+    return dict(launches=launches[1], max_abs_err=abs_err, ms=t_k2, plain_ms=t_twin)
 
 
 def main() -> int:
@@ -325,25 +623,41 @@ def main() -> int:
         raise RuntimeError("no CUDA device: chip_smoke.py runs only on a card")
     dev = torch.device("cuda", 0)
     t0 = time.perf_counter()
-    was_built = _build.library_path("rasterize_fwd").exists()
-    _build.load("rasterize_fwd")
-    log(f"{'loaded prebuilt' if was_built else 'built'} "
-        f"{_build.library_path('rasterize_fwd').name} in {time.perf_counter() - t0:.1f} s")
-    log_file = str(_build.library_path("rasterize_fwd")) + ".log"
-    if os.path.exists(log_file):
-        log(open(log_file).read().strip())
+    was_built = {name: _build.library_path(name).exists() for name in KERNELS}
+    with concurrent.futures.ThreadPoolExecutor(len(KERNELS)) as pool:
+        list(pool.map(_build.load, KERNELS))  # one nvcc per source, all at once
+    for name in KERNELS:
+        log(f"{'loaded prebuilt' if was_built[name] else 'built'} "
+            f"{_build.library_path(name).name}")
+        log_file = str(_build.library_path(name)) + ".log"
+        if os.path.exists(log_file):
+            log(open(log_file).read().strip())
+    log(f"kernels ready in {time.perf_counter() - t0:.1f} s (one nvcc per source, in parallel)")
     card = gpu_name_and_limit()
     log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
     log(f"card: {card}")
+    t_span = time.perf_counter()
+    for _ in range(10000):
+        with torch.profiler.record_function("project"):
+            pass
+    log(f"host cost of one stage span, profiler off: "
+        f"{(time.perf_counter() - t_span) * 1e2:.3f} us")
 
     err_golden = golden_gate(dev)
-    launches, err_tiles, t_kernel, t_plain = full_size(dev, card, seed=0)
+    err_golden_bwd = golden_gradients(dev)
+    truth = bench_scene(dev, SPLATS, seed=0)
+    fwd, bounds = full_size(dev, card, truth.prepare(), seed=0)
+    fwd["max_abs_err"] = max(fwd["max_abs_err"], err_golden)
+    bwd = train_full_size(dev, card, truth, seed=0)
+    bwd["max_abs_err"] = max(bwd["max_abs_err"], err_golden_bwd)
 
     report = {"kernels": [{
-        "name": "rasterize_fwd", "route": "cuda", "source": KERNEL_SOURCE,
-        "replaces": REPLACES, "launches": launches,
-        "max_abs_err": max(err_golden, err_tiles), "ms": t_kernel, "plain_ms": t_plain,
-    }]}
+        "name": name, "route": "cuda", "source": KERNELS[name][0],
+        "replaces": KERNELS[name][1], **res,
+        "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
+        "library_ms": None,  # no single PyTorch call computes a tile blend
+    } for name, res in (("rasterize_fwd", fwd), ("rasterize_bwd", bwd))]}
+    log(f"total {time.perf_counter() - t0:.1f} s")
     print(card, flush=True)
     print(json.dumps(report), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -45,7 +45,8 @@ CASES = {
 def bin_both(name):
     seed, n, scale_range, raster_kw, max_pairs, _ = CASES[name]
     d = interop.random_splat_arrays(seed, n, sh_degree=0, scale_range=scale_range)
-    cam_t = tcam.look_at([0.2, -0.3, -9.0], [0, 0, 0], [0, 1, 0], W, H, fov_y_rad=0.9)
+    cam_t = tcam.look_at([0.2, -0.3, -9.0], [0, 0, 0], [0, 1, 0], W, H, fov_y_rad=0.9,
+                          device="cpu")
     cam_j = jcam.make_camera(**interop.camera_to_numpy(cam_t))
     cj = jc.RenderConfig(width=W, height=H, raster=jc.RasterConfig(**raster_kw))
     ct = tc.RenderConfig(width=W, height=H, raster=tc.RasterConfig(**raster_kw))
@@ -57,7 +58,7 @@ def bin_both(name):
         return jbin.bin_splats(proj, j_rows(proj), wide_id=True, **kw)
 
     bj = jax.jit(j_fn)(jss.SplatSet(**{k: jnp.asarray(v) for k, v in d.items()}), cam_j)
-    proj = t_project(interop.splat_set_from_numpy(d).prepare(), cam_t, ct)
+    proj = t_project(interop.splat_set_from_numpy(d, "cpu").prepare(), cam_t, ct)
     rows, ids = t_rows(proj)
     bt = tbin.bin_splats(proj, rows, ids, **kw)
     return bj, bt, rows

@@ -52,7 +52,7 @@ def scene():
     d = interop.random_splat_arrays(11, 3000, sh_degree=3, extent=4.0,
                                     scale_range=(-4.0, -1.0))
     cam_t = tcam.look_at([0.3, -0.5, -9.0], [0, 0, 0], [0, 1, 0], 128, 96,
-                         fov_y_rad=0.9)
+                         fov_y_rad=0.9, device="cpu")
     cam_j = jcam.make_camera(**interop.camera_to_numpy(cam_t))
     return d, cam_t, cam_j
 
@@ -89,7 +89,7 @@ def test_project_splats_matches(scene, name):
     pj = jax.jit(lambda s, c: jproj.project_splats(
         s.prepare(jc.ShFormat[fmt]), c, cj))(sj, cam_j)
     pt = tproj.project_splats(
-        interop.splat_set_from_numpy(d).prepare(tc.ShFormat[fmt]), cam_t, ct)
+        interop.splat_set_from_numpy(d, "cpu").prepare(tc.ShFormat[fmt]), cam_t, ct)
     valid = np.asarray(pj.valid)
     np.testing.assert_array_equal(valid, pt.valid.numpy())
     np.testing.assert_array_equal(np.asarray(pj.radius), pt.radius.numpy())

@@ -54,7 +54,8 @@ def jax_bins_and_blend(name):
     seed, n, scale_range, sh = SCENES[name]
     d = interop.random_splat_arrays(seed, n, sh_degree=sh, scale_range=scale_range)
     cam = jcam.make_camera(**interop.camera_to_numpy(
-        tcam.look_at([0.2, -0.3, -9.0], [0, 0, 0], [0, 1, 0], W, H, fov_y_rad=0.9)))
+        tcam.look_at([0.2, -0.3, -9.0], [0, 0, 0], [0, 1, 0], W, H, fov_y_rad=0.9,
+                      device="cpu")))
     cfg = jc.RenderConfig(width=W, height=H, sh_degree=sh)
     st = j_statics(cfg, interpret=True)
 
@@ -113,6 +114,30 @@ def test_tile_subset_matches_full(blended):
     sub, sub_id = tr.rasterize_tiles_ref(*args, statics(), tiles=tiles)
     np.testing.assert_array_equal(sub.numpy(), out_t[tiles].numpy())
     np.testing.assert_array_equal(sub_id.numpy(), id_t[tiles].numpy())
+
+
+def test_blend_work_counts(blended):
+    """blend_work's (evaluations, hits), which the kernels' bounds count:
+    with no pixel frozen every pixel of a tile evaluates every pair of its
+    range, and the hits are the pair-pixels whose alpha passes the cutoffs;
+    the freeze only takes work away."""
+    name, _, _, (attrs, _, start, count), (out_t, _) = blended
+    st = statics()
+    evals, hits = tr.blend_work(attrs, start, count, st)
+    px, py = tr._tile_pixel_coords(torch.arange(start.shape[0]), st.tiles_x)
+    all_hits = 0
+    for t, (a, n) in enumerate(zip(start.tolist(), count.tolist())):
+        block = attrs[None, :, a:a + n]
+        alpha = tresp.gs2d_alpha(block, px[t:t + 1], py[t:t + 1], torch.tensor(True), st)
+        all_hits += int((alpha > 0).sum())
+    full = tr.PIX * int(count.sum())
+    assert 0 < hits <= evals
+    if name == "dense":
+        assert out_t[:, 3].min() <= st.min_transmittance
+        assert evals < full and hits < all_hits
+    else:
+        assert out_t[:, 3].min() > st.min_transmittance
+        assert (evals, hits) == (full, all_hits)
 
 
 def test_empty_tiles_are_background():

@@ -56,13 +56,13 @@ def render_both(name):
     if name == "empty_behind_camera":
         d["means"][:, 2] = -20.0 - np.abs(d["means"][:, 2])
     cam_t = gt.look_at([0.2, -0.3, -9.0], [0, 0, 0], [0, 1, 0], base["width"],
-                       base["height"], fov_y_rad=0.9)
+                       base["height"], fov_y_rad=0.9, device="cpu")
     cam_j = jcam.make_camera(**interop.camera_to_numpy(cam_t))
     cj = jc.RenderConfig(**base, raster=jc.RasterConfig(**raster_kw))
     ct = tc.RenderConfig(**base, raster=tc.RasterConfig(**raster_kw))
     sj = jss.SplatSet(**{k: jnp.asarray(v) for k, v in d.items()})
     oj = j_render(sj.prepare(), cam_j, cj, max_pairs=max_pairs)
-    ot = render(interop.splat_set_from_numpy(d).prepare(), cam_t, ct,
+    ot = render(interop.splat_set_from_numpy(d, "cpu").prepare(), cam_t, ct,
                    max_pairs=max_pairs)
     return oj, ot
 
@@ -100,11 +100,12 @@ def test_render_matches_jax(name):
 
 
 def test_golden_gate_on_cpu_twin():
-    splats = load_ply(os.path.join(GOLDEN, "golden_scene.ply"))
+    splats = load_ply(os.path.join(GOLDEN, "golden_scene.ply"), device="cpu")
     meta = json.load(open(os.path.join(GOLDEN, "meta.json")))
     w, h = meta["recipe"]["res"]
     cfg = gt.RenderConfig(width=w, height=h, sh_degree=0)
-    cam = gt.look_at([0, -1.5, -7.0], [0, 0.5, 0], [0, 1, 0], w, h, fov_y_rad=0.9)
+    cam = gt.look_at([0, -1.5, -7.0], [0, 0.5, 0], [0, 1, 0], w, h, fov_y_rad=0.9,
+                     device="cpu")
     ref = np.load(os.path.join(GOLDEN, "golden_view0.npy")).astype(np.float32)
     out = render(splats.prepare(), cam, cfg)
     img = np.clip(out.image.numpy(), 0, 1)
@@ -114,9 +115,10 @@ def test_golden_gate_on_cpu_twin():
 
 def test_repeat_render_is_bit_equal():
     d = interop.random_splat_arrays(5, 800, sh_degree=1, scale_range=(-3.5, -1.5))
-    prep = interop.splat_set_from_numpy(d).prepare()
+    prep = interop.splat_set_from_numpy(d, "cpu").prepare()
     cfg = gt.RenderConfig(width=64, height=48, sh_degree=1)
-    cam = gt.look_at([0, 0, -9.0], [0, 0, 0], [0, 1, 0], 64, 48, fov_y_rad=0.9)
+    cam = gt.look_at([0, 0, -9.0], [0, 0, 0], [0, 1, 0], 64, 48, fov_y_rad=0.9,
+                     device="cpu")
     a, b = render(prep, cam, cfg), render(prep, cam, cfg)
     for f in ("image", "transmittance", "depth", "splat_id"):
         assert torch.equal(getattr(a, f), getattr(b, f))
@@ -139,8 +141,8 @@ UNPORTED = {
 @pytest.fixture(scope="module")
 def tiny():
     d = interop.random_splat_arrays(6, 50, sh_degree=0)
-    cam = gt.look_at([0, 0, -9.0], [0, 0, 0], [0, 1, 0], 32, 32)
-    return interop.splat_set_from_numpy(d).prepare(), cam
+    cam = gt.look_at([0, 0, -9.0], [0, 0, 0], [0, 1, 0], 32, 32, device="cpu")
+    return interop.splat_set_from_numpy(d, "cpu").prepare(), cam
 
 
 @pytest.mark.parametrize("name", list(UNPORTED))

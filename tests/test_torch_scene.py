@@ -63,7 +63,7 @@ def to_jax(d):
 @pytest.mark.parametrize("fmt", ["FLOAT32", "FLOAT16", "UINT8"])
 def test_prepared_splats_match(arrays, fmt):
     pj = jax.jit(lambda s: s.prepare(JShFormat[fmt]))(to_jax(arrays))
-    pt = interop.splat_set_from_numpy(arrays).prepare(ShFormat[fmt])
+    pt = interop.splat_set_from_numpy(arrays, "cpu").prepare(ShFormat[fmt])
     assert_cov_close(pj.cov3d, pt.cov3d.numpy())
     for f in ("means", "color", "scales_log", "quats"):
         assert_rows_close(getattr(pj, f), getattr(pt, f).numpy())
@@ -87,7 +87,7 @@ def test_covariance_scale_multiplier(arrays):
 def test_convert_coordinates_match(arrays, src, dst):
     j = to_jax(arrays).convert_coordinates(jss.CoordinateSystem[src],
                                            jss.CoordinateSystem[dst])
-    t = interop.splat_set_from_numpy(arrays).convert_coordinates(
+    t = interop.splat_set_from_numpy(arrays, "cpu").convert_coordinates(
         tss.CoordinateSystem[src], tss.CoordinateSystem[dst])
     for k, v in interop.splat_set_to_numpy(t).items():
         np.testing.assert_array_equal(np.asarray(getattr(j, k)), v)
@@ -100,7 +100,7 @@ def test_convert_coordinates_match(arrays, src, dst):
                                          ([2.0, 1.0, 5.0], 1920, 1080, 0.6)])
 def test_camera_matches(eye, w, h, fov):
     cj = jcam.look_at(eye, [0, 0, 0], [0, 1, 0], w, h, fov_y_rad=fov)
-    ct = tcam.look_at(eye, [0, 0, 0], [0, 1, 0], w, h, fov_y_rad=fov)
+    ct = tcam.look_at(eye, [0, 0, 0], [0, 1, 0], w, h, fov_y_rad=fov, device="cpu")
     for k, v in interop.camera_to_numpy(ct).items():
         np.testing.assert_array_equal(np.asarray(getattr(cj, k)), v)
     np.testing.assert_allclose(ct.position.numpy(), np.asarray(cj.position),
@@ -108,11 +108,11 @@ def test_camera_matches(eye, w, h, fov):
     # the round trip through interop feeds the JAX constructor the same numbers
     cj2 = jcam.make_camera(**interop.camera_to_numpy(ct))
     np.testing.assert_array_equal(np.asarray(cj2.viewmat), np.asarray(cj.viewmat))
-    assert interop.camera_from_numpy(interop.camera_to_numpy(ct)).fx == ct.fx
+    assert interop.camera_from_numpy(interop.camera_to_numpy(ct), "cpu").fx == ct.fx
 
 
 def test_view_transform_matches(arrays):
-    ct = tcam.look_at([0.3, -0.5, -10.0], [0, 0, 0], [0, 1, 0], 64, 48)
+    ct = tcam.look_at([0.3, -0.5, -10.0], [0, 0, 0], [0, 1, 0], 64, 48, device="cpu")
     cj = jcam.make_camera(**interop.camera_to_numpy(ct))
     pj = jax.jit(jcam.view_transform_points)(cj.viewmat, jnp.asarray(arrays["means"]))
     pt = tcam.view_transform_points(ct.viewmat, torch.from_numpy(arrays["means"]))
@@ -121,11 +121,11 @@ def test_view_transform_matches(arrays):
 
 def test_load_ply_matches():
     j = j_load_ply(GOLDEN_PLY)
-    t = load_scene(GOLDEN_PLY)
+    t = load_scene(GOLDEN_PLY, device="cpu")
     for k, v in interop.splat_set_to_numpy(t).items():
         np.testing.assert_array_equal(np.asarray(getattr(j, k)), v)
     assert t.num_splats == 27627 and t.max_sh_degree == j.max_sh_degree
-    raw = load_ply(GOLDEN_PLY, to_rub=False)
+    raw = load_ply(GOLDEN_PLY, to_rub=False, device="cpu")
     np.testing.assert_array_equal(raw.means[:, 1:].numpy(), -t.means[:, 1:].numpy())
 
 
@@ -146,3 +146,23 @@ def test_random_splats_seeded_and_shaped():
     assert float(a.means.abs().max()) <= 3.0
     assert -5.0 <= float(a.scales.min()) and float(a.scales.max()) <= -3.0
     assert tss.random_splats(torch.Generator(), 4, sh_degree=0).sh_rest.shape == (4, 0, 3)
+
+
+NO_DEVICE_ENTRY_POINTS = {
+    "make_camera": lambda: tcam.make_camera(np.eye(4), 100.0, 100.0, 32.0, 24.0),
+    "look_at": lambda: tcam.look_at([0, 0, -5], [0, 0, 0], [0, 1, 0], 64, 48),
+    "load_ply": lambda: load_ply(GOLDEN_PLY),
+    "splat_set_from_numpy": lambda: interop.splat_set_from_numpy(
+        interop.random_splat_arrays(0, 4, sh_degree=0)),
+    "camera_from_numpy": lambda: interop.camera_from_numpy(interop.camera_to_numpy(
+        tcam.look_at([0, 0, -5], [0, 0, 0], [0, 1, 0], 64, 48, device="cpu"))),
+}
+
+
+@pytest.mark.parametrize("name", list(NO_DEVICE_ENTRY_POINTS))
+def test_entry_points_default_to_the_card(monkeypatch, name):
+    """With no device given, an entry point uses the card; where there is
+    none it raises instead of quietly using the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        NO_DEVICE_ENTRY_POINTS[name]()

@@ -4,19 +4,24 @@ The JAX package beside this one is the reference; this package keeps its
 module layout and public names, so each module's counterpart is found at
 the same path. It imports torch and numpy, never JAX.
 
-Ported so far: the 3DGS raster forward frame, ``render(prepared, camera,
-cfg)`` in ``vk_gaussian_splatting_tpu_torch.render``, for the VERT/MESH
-pipelines with pair binning. Plain tensor code runs on any torch device;
-the tile blender is a hand-written CUDA kernel (csrc/rasterize_fwd.cu,
-built for sm_90a at first use) on a CUDA device and its plain PyTorch twin
-on the CPU. The names exported here are the JAX package's.
+Ported so far: the 3DGS raster frame, forward and backward —
+``render(prepared, camera, cfg)`` in ``vk_gaussian_splatting_tpu_torch.render``
+for the VERT/MESH pipelines with pair binning — and the training step
+(``train_step``, Adam, the loss, densification, checkpoints). Plain tensor
+code runs on any torch device; the tile blender and its backward are
+hand-written CUDA kernels (csrc/rasterize_fwd.cu, csrc/rasterize_bwd.cu,
+built for sm_90a at first use) on a CUDA device and plain PyTorch twins on
+the CPU. Entry points that make tensors use the card unless given another
+device. The names exported here are the JAX package's.
 
 Layout:
   io/      PLY loader
   scene/   SplatSet / PreparedSplats, pinhole cameras
-  ops/     SH, EWA projection, depth keys, tile binning, gs2d response,
-           tile blender (kernel wrapper + twin), kernel build
+  ops/     SH, EWA projection, depth keys, tile binning (with its
+           sort-based backward), gs2d response, tile blender (kernel
+           wrappers, twins, autograd Function), kernel build
   render/  render_3dgs and the pipeline dispatch
+  train.py loss, Adam, train_step, densify / prune, checkpoints
   csrc/    CUDA sources
 """
 
@@ -34,6 +39,19 @@ from vk_gaussian_splatting_tpu_torch.config import (
 )
 from vk_gaussian_splatting_tpu_torch.scene.cameras import Camera, look_at, make_camera
 from vk_gaussian_splatting_tpu_torch.scene.splat_set import SplatSet, PreparedSplats
+from vk_gaussian_splatting_tpu_torch.train import (
+    TrainConfig,
+    densify_split,
+    l1_loss,
+    load_checkpoint,
+    make_optimizer,
+    prune_splats,
+    reset_opacities,
+    rgb_loss,
+    save_checkpoint,
+    ssim,
+    train_step,
+)
 
 __all__ = [
     "Camera",
@@ -47,6 +65,17 @@ __all__ = [
     "ShutterType",
     "SplatSet",
     "StochasticMode",
+    "TrainConfig",
+    "densify_split",
+    "l1_loss",
+    "load_checkpoint",
     "look_at",
     "make_camera",
+    "make_optimizer",
+    "prune_splats",
+    "reset_opacities",
+    "rgb_loss",
+    "save_checkpoint",
+    "ssim",
+    "train_step",
 ]

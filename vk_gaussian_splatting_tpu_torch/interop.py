@@ -13,6 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from vk_gaussian_splatting_tpu_torch.devices import resolve_device
 from vk_gaussian_splatting_tpu_torch.scene.cameras import Camera, make_camera
 from vk_gaussian_splatting_tpu_torch.scene.splat_set import SplatSet
 
@@ -41,7 +42,9 @@ def random_splat_arrays(seed: int, n: int, sh_degree: int = 3,
 
 
 def splat_set_from_numpy(d: dict, device: torch.device | str | None = None) -> SplatSet:
-    """SplatSet from a dict of numpy arrays keyed by SPLAT_FIELDS."""
+    """SplatSet from a dict of numpy arrays keyed by SPLAT_FIELDS, on
+    ``device`` (default: the card)."""
+    device = resolve_device(device)
     return SplatSet(**{k: torch.as_tensor(np.asarray(d[k], np.float32), device=device)
                        for k in SPLAT_FIELDS})
 
@@ -51,7 +54,8 @@ def splat_set_to_numpy(s: SplatSet) -> dict:
 
 
 def camera_from_numpy(d: dict, device: torch.device | str | None = None) -> Camera:
-    """Camera from a dict of numpy values keyed by CAMERA_FIELDS."""
+    """Camera from a dict of numpy values keyed by CAMERA_FIELDS, on
+    ``device`` (default: the card)."""
     return make_camera(**{k: d[k] for k in CAMERA_FIELDS}, device=device)
 
 

@@ -14,6 +14,7 @@ import io as _io
 import numpy as np
 import torch
 
+from vk_gaussian_splatting_tpu_torch.devices import resolve_device
 from vk_gaussian_splatting_tpu_torch.scene.splat_set import CoordinateSystem, SplatSet
 
 _PLY_DTYPES = {
@@ -59,6 +60,8 @@ def _parse_header(f) -> tuple[str, int, list[tuple[str, str]]]:
 
 def load_ply(path: str, to_rub: bool = True,
              device: torch.device | str | None = None) -> SplatSet:
+    """Read a 3DGS PLY into a SplatSet on ``device`` (default: the card)."""
+    device = resolve_device(device)
     with open(path, "rb") as f:
         fmt, n, props = _parse_header(f)
         names = [p[0] for p in props]

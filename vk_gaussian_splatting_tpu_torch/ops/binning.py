@@ -19,13 +19,22 @@ orders the pairs, the attribute rows and ids are gathered by the
 permutation, and a searchsorted gives each tile its ``[start, start+count)``
 range. Invalid slots carry tile id ``num_tiles`` and sort last.
 
+The gather of the attribute rows by the permutation is differentiable with
+the JAX package's sort-based backward (``_bin_slots``' VJP,
+binning.py:445-511), not autograd's ``index_add_`` (atomics on a card, so
+not bit-stable): the pair gradients are un-permuted to emit order (each
+position written once), summed over each splat's run of emit positions,
+and put back in splat order. Slots sum by a reshape per rank region; the
+exact expansion, whose runs vary in length, by differences of a float64
+prefix sum. Both are deterministic. Tile and slot assignment is discrete:
+no gradient reaches ``proj`` through it, only through the rows.
+
 What the JAX package has and this port drops: the packed blend-schedule
 words (they exist because dynamic-trip loops deadlock the TPU runtime; the
 CUDA blender loops over each tile's range itself) and with them the
 schedule cap, whose truncation can also set ``overflow`` in JAX. That cap
 does not bind at the sizes this package renders (at 1080p with 1M splats,
 7.75 M slot pairs against a cap of about 10.5 M), so it is not modelled.
-The binning VJP waits for the training slice.
 """
 
 from __future__ import annotations
@@ -35,6 +44,7 @@ import dataclasses
 import torch
 
 from vk_gaussian_splatting_tpu_torch.ops.projection import ProjectedSplats
+from vk_gaussian_splatting_tpu_torch.ops.response import GS_DEPTH
 from vk_gaussian_splatting_tpu_torch.ops.sort import encode_minmax_f32
 
 
@@ -49,6 +59,63 @@ class TileBins:
     tile_count: torch.Tensor  # (T,) i32 pairs of each tile
     num_pairs: torch.Tensor   # () i64 live pair count
     overflow: torch.Tensor    # () bool — slot or pair budget truncated coverage
+
+
+@dataclasses.dataclass
+class EmitLayout:
+    """Which splat each emit position (pair before the sort) came from.
+
+    slots: ``regions`` lists (splats, slots each) per rank region in emit
+    order; region rows are splats ``order[lo:hi]`` (the rank ladder), or
+    ``0..n`` when ``order`` is None (no ladder). exact: splat s owns emit
+    positions ``[seg_start[s], seg_end[s])``; the positions past the live
+    pairs belong to none (no tile's range holds them, so the blend gives
+    them no gradient).
+    """
+
+    n: int
+    regions: tuple[tuple[int, int], ...] = ()
+    order: torch.Tensor | None = None
+    seg_start: torch.Tensor | None = None
+    seg_end: torch.Tensor | None = None
+
+    def splat_sums(self, d_emit: torch.Tensor) -> torch.Tensor:
+        """(R, E) per-emit-position values -> (R, n) per-splat sums."""
+        if self.seg_start is not None:
+            prefix = torch.cumsum(d_emit.to(torch.float64), dim=1)
+            prefix = torch.cat([prefix.new_zeros((d_emit.shape[0], 1)), prefix], dim=1)
+            return (prefix[:, self.seg_end] - prefix[:, self.seg_start]).to(d_emit.dtype)
+        r, off, parts = d_emit.shape[0], 0, []
+        for m, k in self.regions:
+            parts.append(d_emit[:, off:off + m * k].reshape(r, m, k).sum(dim=2))
+            off += m * k
+        d_sorted = torch.cat(parts, dim=1)
+        if self.order is None:
+            return d_sorted
+        return torch.empty_like(d_sorted).index_copy_(1, self.order, d_sorted)
+
+
+class _GatherPairs(torch.autograd.Function):
+    """``rows[:, src[perm]]`` with the sort-based backward (module docstring).
+
+    Only rows before the depth row get gradients: the blend's backward gives
+    the depth row none (ops/rasterize.py), as in the JAX package."""
+
+    @staticmethod
+    def forward(ctx, rows, src_sorted, perm, layout):
+        ctx.save_for_backward(perm)
+        ctx.layout = layout
+        ctx.num_rows = rows.shape[0]
+        return rows.index_select(1, src_sorted)
+
+    @staticmethod
+    def backward(ctx, g):
+        (perm,) = ctx.saved_tensors
+        g = g[:GS_DEPTH]
+        d_emit = torch.empty_like(g).index_copy_(1, perm, g)  # each position once
+        sums = ctx.layout.splat_sums(d_emit)
+        zeros = sums.new_zeros((ctx.num_rows - GS_DEPTH, ctx.layout.n))
+        return torch.cat([sums, zeros]), None, None, None
 
 
 def tile_rect(xy: torch.Tensor, radius: torch.Tensor, tile_size: int,
@@ -100,7 +167,8 @@ def _window(x0, y0, x1, y1, cx, cy, gate, k: int, tiles_x: int, num_tiles: int):
 
 def _expand_slots(x0, y0, x1, y1, xy, valid0, *, tile_size, tiles_x,
                   num_tiles, slots_k):
-    """Rank-ladder slot expansion -> (pair_tile, pair_src, num_pairs, overflow)."""
+    """Rank-ladder slot expansion -> (pair_tile, pair_src, num_pairs,
+    overflow, EmitLayout)."""
     n = x0.shape[0]
     dev = x0.device
     k_m = slots_k
@@ -119,7 +187,8 @@ def _expand_slots(x0, y0, x1, y1, xy, valid0, *, tile_size, tiles_x,
         # no ladder: every splat gets the same K-slot window
         tile, sv, trunc = win(slice(None), k_m)
         src = torch.arange(n, device=dev)[:, None].expand(n, k_m)
-        return tile.reshape(-1), src.reshape(-1), sv.sum(), trunc.any()
+        return (tile.reshape(-1), src.reshape(-1), sv.sum(), trunc.any(),
+                EmitLayout(n, regions=((n, k_m),)))
 
     # ladder rank: largest tile coverage first, ties by (valid, cx, cy) — the
     # JAX package's packed key, widened to int64 so no image size limits it
@@ -132,20 +201,24 @@ def _expand_slots(x0, y0, x1, y1, xy, valid0, *, tile_size, tiles_x,
     tiles, srcs = [], []
     num_pairs = torch.zeros((), dtype=torch.int64, device=dev)
     overflow = torch.zeros((), dtype=torch.bool, device=dev)
-    for lo, hi, k in ((0, cap_g, k_g), (cap_g, cap_m, k_m), (cap_m, n, k_a)):
+    regions = ((0, cap_g, k_g), (cap_g, cap_m, k_m), (cap_m, n, k_a))
+    for lo, hi, k in regions:
         idx = order[lo:hi]
         tile, sv, trunc = win(idx, k)
         tiles.append(tile.reshape(-1))
         srcs.append(idx[:, None].expand(hi - lo, k).reshape(-1))
         num_pairs = num_pairs + sv.sum()
         overflow = overflow | trunc.any()
-    return torch.cat(tiles), torch.cat(srcs), num_pairs, overflow
+    layout = EmitLayout(n, regions=tuple((hi - lo, k) for lo, hi, k in regions),
+                        order=order)
+    return torch.cat(tiles), torch.cat(srcs), num_pairs, overflow, layout
 
 
 def _expand_exact(x0, y0, x1, y1, valid0, *, tiles_x, num_tiles, chunk,
                   max_pairs):
     """Exact rectangle expansion into a max_pairs budget ->
-    (pair_tile, pair_src, num_pairs, overflow)."""
+    (pair_tile, pair_src, num_pairs, overflow, EmitLayout). Each splat's
+    pairs are one contiguous run of emit positions."""
     if max_pairs <= 0:
         raise ValueError("exact expansion needs a max_pairs budget")
     n = x0.shape[0]
@@ -163,7 +236,9 @@ def _expand_exact(x0, y0, x1, y1, valid0, *, tiles_x, num_tiles, chunk,
     tx = x0[s] + rank % ws
     ty = y0[s] + rank // ws
     tile = torch.where(p < total, ty * tiles_x + tx, num_tiles)
-    return tile, s, torch.clamp(total, max=p_total), total > p_total
+    layout = EmitLayout(n, seg_start=starts.clamp(max=p_total),
+                        seg_end=ends.clamp(max=p_total))
+    return tile, s, torch.clamp(total, max=p_total), total > p_total, layout
 
 
 def bin_splats(proj: ProjectedSplats, rows: torch.Tensor, ids: torch.Tensor, *,
@@ -172,20 +247,21 @@ def bin_splats(proj: ProjectedSplats, rows: torch.Tensor, ids: torch.Tensor, *,
                expansion: str = "slots") -> TileBins:
     """Expand, sort and range the (splat, tile) pairs.
 
-    rows: (R, N) f32 per-splat attribute rows; ids: (N,) i32 splat ids.
-    max_pairs: the pair budget of the exact expansion (unused by slots).
+    rows: (R, N) f32 per-splat attribute rows, differentiable (the gather's
+    backward is sort-based, see the module docstring); ids: (N,) i32 splat
+    ids. max_pairs: the pair budget of the exact expansion (unused by slots).
     """
     num_tiles = tiles_x * tiles_y
-    dkey = torch.where(proj.valid, proj.depth, float("inf"))
+    dkey = torch.where(proj.valid, proj.depth.detach(), float("inf"))
     x0, y0, x1, y1 = tile_rect(proj.xy, proj.radius, tile_size, tiles_x, tiles_y)
     valid0 = (proj.valid & (proj.radius.amax(dim=1) > 0)
               & (x1 > x0) & (y1 > y0))
     if expansion == "slots":
-        tile, src, num_pairs, overflow = _expand_slots(
+        tile, src, num_pairs, overflow, layout = _expand_slots(
             x0, y0, x1, y1, proj.xy, valid0, tile_size=tile_size,
             tiles_x=tiles_x, num_tiles=num_tiles, slots_k=slots_k)
     elif expansion == "exact":
-        tile, src, num_pairs, overflow = _expand_exact(
+        tile, src, num_pairs, overflow, layout = _expand_exact(
             x0, y0, x1, y1, valid0, tiles_x=tiles_x, num_tiles=num_tiles,
             chunk=chunk, max_pairs=max_pairs)
     else:
@@ -193,13 +269,13 @@ def bin_splats(proj: ProjectedSplats, rows: torch.Tensor, ids: torch.Tensor, *,
 
     key = (tile << 32) | encode_minmax_f32(dkey[src])
     skey, perm = torch.sort(key, stable=True)
-    src = src[perm]
+    src_sorted = src[perm]
     tile_sorted = skey >> 32
     bounds = torch.searchsorted(
         tile_sorted, torch.arange(num_tiles + 1, device=tile_sorted.device))
     return TileBins(
-        attrs=rows.index_select(1, src),
-        pair_id=ids.index_select(0, src),
+        attrs=_GatherPairs.apply(rows, src_sorted, perm, layout),
+        pair_id=ids.index_select(0, src_sorted),
         pair_valid=tile_sorted < num_tiles,
         tile_start=bounds[:-1].to(torch.int32),
         tile_count=(bounds[1:] - bounds[:-1]).to(torch.int32),

@@ -13,7 +13,8 @@ import torch
 
 
 def encode_minmax_f32(val: torch.Tensor) -> torch.Tensor:
-    """fp32 -> order-preserving unsigned 32-bit key, held in int64."""
-    bits = val.to(torch.float32).contiguous().view(torch.int32)
+    """fp32 -> order-preserving unsigned 32-bit key, held in int64. A sort
+    key is discrete: it carries no gradient."""
+    bits = val.detach().to(torch.float32).contiguous().view(torch.int32)
     flipped = bits ^ ((bits >> 31) | -2147483648)  # 0x80000000
     return flipped.to(torch.int64) & 0xFFFFFFFF

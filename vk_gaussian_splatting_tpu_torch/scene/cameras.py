@@ -13,6 +13,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from vk_gaussian_splatting_tpu_torch.devices import resolve_device
+
 
 @dataclasses.dataclass
 class Camera:
@@ -41,6 +43,9 @@ class Camera:
 
 def make_camera(viewmat, fx, fy, cx, cy, near=0.01, far=1e4,
                 device: torch.device | str | None = None) -> Camera:
+    """Camera from pixel-space intrinsics, on ``device`` (default: the card)."""
+    device = resolve_device(device)
+
     def f32(v):
         return torch.as_tensor(np.asarray(v, np.float32), device=device)
 
@@ -53,7 +58,8 @@ def look_at(eye, center, up, width: int, height: int, fov_y_rad: float = 0.8,
             device: torch.device | str | None = None) -> Camera:
     """Build a pinhole camera looking from eye at center (OpenCV axes: y down).
 
-    Float64 numpy up to the final cast, exactly as the JAX package does."""
+    Float64 numpy up to the final cast, exactly as the JAX package does.
+    On ``device``, by default the card."""
     eye = np.asarray(eye, np.float64)
     center = np.asarray(center, np.float64)
     up = np.asarray(up, np.float64)
