@@ -1,0 +1,454 @@
+"""The bucket path (``RasterConfig.method="bucket"``) of the PyTorch port on
+the CPU, where its twins blend: the bucket-grid integers, the frame and its
+gradients against the JAX package (interpret-mode kernels), the port's
+bucket path against its own pair path, the twin backward against autograd,
+and a training step.
+
+Tolerances, each with its reason:
+- bucket-grid integers: exactly; both packages get one ProjectedSplats.
+  The scenes are 128 px wide: narrow enough that the port's one repair of
+  ``assign_buckets`` (a mid splat at the mid grid's edge keeps no coarse
+  slot, ops/bucket_grid.py) changes nothing; a wider case pins the repair.
+- frame against JAX: image and transmittance 5e-5 max abs, picked depth
+  1e-5 where both picked the same splat, ids on >= 99.9 % of pixels,
+  num_pairs and overflow exactly (as tests/test_torch_render.py). The two
+  merges order exactly equal depths differently; these random scenes have
+  none within a tile's window.
+- gradients of the six SplatSet fields against ``jax.grad``: 1e-5 of each
+  field's max (as tests/test_torch_train.py).
+- the port's bucket path against its pair path: the gates of
+  tests/test_bucket.py, which hold the JAX package's two paths to each
+  other. The paths freeze a pixel at different lanes (bucket_chunk 384
+  against chunk 128) and truncate differently.
+- twin backward against autograd of the twin forward: 1e-5 of each row's
+  max (as tests/test_torch_rasterize_bwd.py).
+
+JAX programs built here: seven bucket frames and two bucket gradients.
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import vk_gaussian_splatting_tpu.config as jc
+from vk_gaussian_splatting_tpu.ops import bucket_grid as jbg
+from vk_gaussian_splatting_tpu.ops.projection import ProjectedSplats as JProjected
+from vk_gaussian_splatting_tpu.render.pipelines import gs_attr_rows as j_rows
+from vk_gaussian_splatting_tpu.render.pipelines import render_3dgs as j_render
+from vk_gaussian_splatting_tpu.scene import cameras as jcam
+from vk_gaussian_splatting_tpu.scene import splat_set as jss
+import vk_gaussian_splatting_tpu_torch as gt
+import vk_gaussian_splatting_tpu_torch.config as tc
+from vk_gaussian_splatting_tpu_torch import interop
+from vk_gaussian_splatting_tpu_torch import train as tt
+from vk_gaussian_splatting_tpu_torch.ops import _build
+from vk_gaussian_splatting_tpu_torch.ops import bucket_grid as tbg
+from vk_gaussian_splatting_tpu_torch.ops import raster_bucket as rb
+from vk_gaussian_splatting_tpu_torch.ops import rasterize as tr
+from vk_gaussian_splatting_tpu_torch.ops.projection import ProjectedSplats, project_splats
+from vk_gaussian_splatting_tpu_torch.render import render
+from vk_gaussian_splatting_tpu_torch.render.pipelines import bucket_statics, gs_attr_rows
+
+torch.set_num_threads(2)
+
+IMG_ATOL = 5e-5
+DEPTH_ATOL = 1e-5
+ID_AGREE = 0.999
+GRAD_RTOL = 1e-5
+W, H = 128, 96
+
+# name: (seed, n, scale_range) — fine: small splats only; mixed: every class,
+# so all six spans hold candidates; big: mid, coarse and global splats
+SCENES = {"fine": (0, 2500, (-3.5, -1.5)), "mixed": (5, 300, (-5.0, 1.5)),
+          "big": (6, 150, (-1.5, 1.5))}
+
+
+def scene_arrays(name):
+    seed, n, scale_range = SCENES[name]
+    return interop.random_splat_arrays(seed, n, sh_degree=1, scale_range=scale_range)
+
+
+def cam_pair(w=W, h=H, eye=(0.2, -0.3, -9.0)):
+    cam_t = gt.look_at(list(eye), [0, 0, 0], [0, 1, 0], w, h, fov_y_rad=0.9, device="cpu")
+    return cam_t, jcam.make_camera(**interop.camera_to_numpy(cam_t))
+
+
+def bucket_raster(caps, pkg):
+    return pkg.RasterConfig(method="bucket", bucket_caps=tuple(caps))
+
+
+@pytest.fixture(scope="module", params=list(SCENES))
+def projected(request):
+    """One ProjectedSplats for both packages (the port's projection, as
+    numpy), so bucket integers can be compared exactly."""
+    cfg = tc.RenderConfig(width=W, height=H, sh_degree=1)
+    cam_t, _ = cam_pair()
+    p = project_splats(interop.splat_set_from_numpy(scene_arrays(request.param),
+                                                    "cpu").prepare(), cam_t, cfg)
+    arrays = {f.name: getattr(p, f.name).numpy() for f in dataclasses.fields(p)}
+    spec_t = tbg.BucketGridSpec.build(W // 16, H // 16)
+    spec_j = jbg.BucketGridSpec.build(W // 16, H // 16)
+    return (p, JProjected(**{k: jnp.asarray(v) for k, v in arrays.items()}), spec_t, spec_j,
+            request.param)
+
+
+def test_bucket_grid_spec_matches_jax():
+    for tx, ty in ((8, 6), (120, 68), (1, 1), (5, 13)):
+        assert (dataclasses.asdict(tbg.BucketGridSpec.build(tx, ty))
+                == dataclasses.asdict(jbg.BucketGridSpec.build(tx, ty)))
+
+
+@pytest.mark.parametrize("tiles", [(8, 6), (120, 68), (5, 13)])
+def test_window_span_table_matches_jax(tiles):
+    spec_t, spec_j = tbg.BucketGridSpec.build(*tiles), jbg.BucketGridSpec.build(*tiles)
+    np.testing.assert_array_equal(tbg.window_span_table(spec_t).numpy(),
+                                  np.asarray(jbg.window_span_table(spec_j)))
+
+
+def test_assign_buckets_matches_jax(projected):
+    p_t, p_j, spec_t, spec_j, name = projected
+    slots = tbg.assign_buckets(p_t, spec_t).numpy()
+    np.testing.assert_array_equal(slots, np.asarray(jbg.assign_buckets(p_j, spec_j)))
+    live = slots[slots < spec_t.num_buckets - 1]
+    classes = np.searchsorted(spec_t.offsets, live, side="right") - 1
+    want = {"fine": {0}, "mixed": {0, 1, 2, 3}, "big": {1, 2, 3}}[name]
+    assert want <= set(classes.tolist()), set(classes.tolist())
+
+
+def test_bucket_starts_and_caps_match_jax(projected):
+    """bucket_starts, num_valid, span_lengths, required_window_caps,
+    measure_required_caps, fit_caps and window_overflow, integer for
+    integer."""
+    p_t, p_j, spec_t, spec_j, _ = projected
+    rows, ids = gs_attr_rows(p_t)
+    caps = (256, 128, 128, 128)
+    b_t = tbg.bucket_splats(p_t, rows, ids, tiles_x=spec_t.tiles_x, tiles_y=spec_t.tiles_y,
+                            caps=caps)
+    b_j = jbg.bucket_splats(p_j, j_rows(p_j), tiles_x=spec_j.tiles_x, tiles_y=spec_j.tiles_y,
+                            caps=caps)
+    np.testing.assert_array_equal(b_t.bucket_starts.numpy(), np.asarray(b_j.bucket_starts))
+    assert int(b_t.num_valid) == int(b_j.num_valid) > 0
+    np.testing.assert_array_equal(tbg.span_lengths(b_t.bucket_starts, spec_t).numpy(),
+                                  np.asarray(jbg.span_lengths(b_j.bucket_starts, spec_j)))
+    req_t = tbg.required_window_caps(b_t.bucket_starts, spec_t).numpy()
+    np.testing.assert_array_equal(req_t, np.asarray(jbg.required_window_caps(
+        b_j.bucket_starts, spec_j)))
+    np.testing.assert_array_equal(tbg.measure_required_caps(p_t, spec_t).numpy(), req_t)
+    np.testing.assert_array_equal(np.asarray(jbg.measure_required_caps(p_j, spec_j)), req_t)
+    assert tbg.fit_caps(req_t) == jbg.fit_caps(req_t)
+    for c in (caps, tbg.fit_caps(req_t), tuple(int(x) for x in req_t)):
+        assert (bool(tbg.window_overflow(b_t.bucket_starts, spec_t, c))
+                == bool(jbg.window_overflow(b_j.bucket_starts, spec_j, c)))
+    # the live slots' depth rows: each bucket in depth order (sentinel slots,
+    # all at +inf, come after them in any order)
+    live = int(b_t.num_valid)
+    np.testing.assert_array_equal(b_t.attrs.detach().numpy()[9, :live],
+                                  np.asarray(b_j.attrs)[:, 9, :].reshape(-1)[:live])
+
+
+def test_mid_splat_at_the_grid_edge_keeps_no_coarse_slot():
+    """The repair of assign_buckets: at 320 px the coarse grid has three
+    cells, so a mid splat in the mid grid's last cell keeps, in the JAX
+    package, the coarse pair bucket it got first as its slot 1. The port
+    leaves that slot unused; every other slot agrees."""
+    spec_t, spec_j = tbg.BucketGridSpec.build(20, 6), jbg.BucketGridSpec.build(20, 6)
+    arrays = dict(xy=np.array([[300.0, 40.0], [150.0, 40.0], [10.0, 50.0]], np.float32),
+                  conic=np.full((3, 3), 0.01, np.float32), depth=np.full(3, 5.0, np.float32),
+                  radius=np.array([[20.0, 20.0], [20.0, 20.0], [90.0, 90.0]], np.float32),
+                  color=np.ones((3, 3), np.float32), alpha=np.ones(3, np.float32),
+                  valid=np.ones(3, bool))
+    slots_t = tbg.assign_buckets(ProjectedSplats(**{k: torch.from_numpy(v)
+                                                    for k, v in arrays.items()}), spec_t).numpy()
+    slots_j = np.array(jbg.assign_buckets(JProjected(**{k: jnp.asarray(v)
+                                                          for k, v in arrays.items()}), spec_j))
+    sentinel, coarse = spec_t.num_buckets - 1, spec_t.offsets[2]
+    assert coarse <= slots_j[1, 0] < spec_t.offsets[3]      # the mid splat, twice in JAX
+    assert slots_t[1, 0] == sentinel
+    slots_j[1, 0] = sentinel
+    np.testing.assert_array_equal(slots_t, slots_j)
+
+
+@pytest.mark.parametrize("required", [[516, 240, 434, 148], [0, 0, 0, 0], [1, 129, 4000, 77]])
+def test_fit_caps_matches_jax(required):
+    assert tbg.fit_caps(required) == jbg.fit_caps(required)
+    assert tbg.fit_caps(required, margin=1.0) == jbg.fit_caps(required, margin=1.0)
+
+
+# name: (scene, n override, caps, render kw, overflow)
+FRAMES = {
+    "default_caps_fine": ("fine", None, (512, 256, 512, 256), {}, False),
+    "mixed_all_spans": ("mixed", None, (384, 256, 384, 128), {}, False),
+    "big_splats": ("big", None, (256, 256, 256, 256), {}, False),
+    "odd_size_background": ("fine", 1500, (512, 256, 512, 256),
+                            dict(width=120, height=90, background=(0.1, 0.2, 0.3)), False),
+    "empty_scene": ("behind", None, (512, 256, 512, 256), {}, False),
+    "overflow_at_128": ("dense", None, (128, 128, 128, 128), {}, True),
+    "no_overflow_at_512": ("dense", None, (512, 128, 128, 128), {}, False),
+}
+
+
+def frame_arrays(scene, n):
+    if scene == "dense":  # tests/test_bucket.py:142-149's scene: fine spans ~200
+        return interop.random_splat_arrays(2, 4000, sh_degree=1, scale_range=(-5.5, -4.0))
+    if scene == "behind":  # every splat behind the camera
+        d = interop.random_splat_arrays(3, 500, sh_degree=1, scale_range=(-3.5, -1.5))
+        d["means"][:, 2] = -20.0 - np.abs(d["means"][:, 2])
+        return d
+    seed, n0, scale_range = SCENES[scene]
+    return interop.random_splat_arrays(seed, n or n0, sh_degree=1, scale_range=scale_range)
+
+
+@pytest.mark.parametrize("name", list(FRAMES))
+def test_bucket_frame_matches_jax(name):
+    scene, n, caps, kw, overflow = FRAMES[name]
+    base = {**dict(width=W, height=H, sh_degree=1), **kw}
+    d = frame_arrays(scene, n)
+    cam_t, cam_j = cam_pair(base["width"], base["height"])
+    cj = jc.RenderConfig(**base, raster=bucket_raster(caps, jc))
+    ct = tc.RenderConfig(**base, raster=bucket_raster(caps, tc))
+    oj = j_render(jss.SplatSet(**{k: jnp.asarray(v) for k, v in d.items()}).prepare(),
+                  cam_j, cj)
+    ot = render(interop.splat_set_from_numpy(d, "cpu").prepare(), cam_t, ct)
+    assert bool(oj.overflow) == bool(ot.overflow) == overflow
+    assert int(oj.num_pairs) == int(ot.num_pairs)
+    img_j, img_t = np.asarray(oj.image), ot.image.numpy()
+    assert img_t.shape == img_j.shape == (base["height"], base["width"], 3)
+    np.testing.assert_allclose(img_t, img_j, rtol=0, atol=IMG_ATOL)
+    np.testing.assert_allclose(ot.transmittance.numpy(), np.asarray(oj.transmittance),
+                               rtol=0, atol=IMG_ATOL)
+    id_j, id_t = np.asarray(oj.splat_id), ot.splat_id.numpy()
+    same = id_j == id_t
+    assert same.mean() >= ID_AGREE, same.mean()
+    both = same & (id_j >= 0)
+    np.testing.assert_allclose(ot.depth.numpy()[both], np.asarray(oj.depth)[both],
+                               rtol=0, atol=DEPTH_ATOL)
+    if name == "empty_scene":
+        assert int(ot.num_pairs) == 0
+        assert (ot.transmittance == 1).all() and (ot.splat_id == -1).all()
+    elif name == "odd_size_background":
+        uncovered = ot.transmittance.numpy() == 1
+        assert uncovered.any()
+        np.testing.assert_array_equal(img_t[uncovered], np.broadcast_to(
+            [0.1, 0.2, 0.3], img_t[uncovered].shape).astype(np.float32))
+    else:
+        assert float(ot.transmittance.min()) < 0.5
+
+
+def to_jax(d):
+    return jss.SplatSet(**{k: jnp.asarray(v) for k, v in d.items()})
+
+
+@pytest.mark.parametrize("caps", [(512, 128, 128, 128), (384, 128, 128, 128)])
+def test_bucket_gradients_match_jax(caps):
+    """Weighted image plus weighted transmittance through both bucket paths."""
+    d = interop.random_splat_arrays(0, 500, sh_degree=1, scale_range=(-4.0, -1.5))
+    w, h = 64, 48
+    rng = np.random.default_rng(7)
+    wimg = rng.normal(size=(h, w, 3)).astype(np.float32)
+    wt = rng.normal(size=(h, w)).astype(np.float32)
+    cam_t, cam_j = cam_pair(w, h)
+    cj = jc.RenderConfig(width=w, height=h, sh_degree=1, raster=bucket_raster(caps, jc))
+    ct = tc.RenderConfig(width=w, height=h, sh_degree=1, raster=bucket_raster(caps, tc))
+
+    def loss_j(s):
+        o = j_render(s.prepare(), cam_j, cj)
+        return jnp.sum(o.image * wimg) + jnp.sum(o.transmittance * wt)
+
+    g_j = jax.jit(jax.grad(loss_j))(to_jax(d))
+    s = interop.splat_set_from_numpy(d, "cpu")
+    for f in interop.SPLAT_FIELDS:
+        getattr(s, f).requires_grad_()
+    o = render(s.prepare(), cam_t, ct)
+    assert not bool(o.overflow)
+    (torch.sum(o.image * torch.from_numpy(wimg))
+     + torch.sum(o.transmittance * torch.from_numpy(wt))).backward()
+    for f in interop.SPLAT_FIELDS:
+        a = getattr(s, f).grad.numpy().astype(np.float64)
+        b = np.asarray(getattr(g_j, f), np.float64)
+        assert np.abs(b).max() > 0, f
+        assert np.abs(a - b).max() <= GRAD_RTOL * np.abs(b).max(), f
+
+
+# ---- the port's bucket path against its own pair path (no JAX) -----------
+
+def pair_and_bucket(seed, n, scale_range, caps, w=W, h=H, eye=(0.0, 0.0, -6.0), grads=False,
+                    x_spread=1.0):
+    """tests/test_bucket.py's _scene: extent 2.5 (times x_spread along x),
+    camera at z = -6."""
+    d = interop.random_splat_arrays(seed, n, sh_degree=1, extent=2.5, scale_range=scale_range)
+    d["means"][:, 0] *= x_spread
+    cam = gt.look_at(list(eye), [0, 0, 0], [0, 1, 0], w, h, fov_y_rad=0.9, device="cpu")
+    outs = []
+    for raster in (tc.RasterConfig(expansion="exact"), bucket_raster(caps, tc)):
+        s = interop.splat_set_from_numpy(d, "cpu")
+        if grads:
+            for f in interop.SPLAT_FIELDS:
+                getattr(s, f).requires_grad_()
+        o = render(s.prepare(), cam, tc.RenderConfig(width=w, height=h, sh_degree=1,
+                                                      raster=raster), max_pairs=1 << 18)
+        if grads:
+            (torch.sum(o.image ** 2) + torch.sum(o.transmittance ** 2)).backward()
+            o = [getattr(s, f).grad.numpy() for f in interop.SPLAT_FIELDS]
+        outs.append(o)
+    return outs
+
+
+# name: (seed, n, scale_range, caps, image atol, share of pixels beyond 1e-3,
+#        width, x spread); "wide_mid_edges" has mid splats in the edge cells
+#        of the mid grid of an image whose coarse grid has three cells per row
+AGAINST_PAIRS = {
+    "fine": (0, 600, (-3.0, -1.2), (512, 512, 128, 128), 2e-5, 0.0, W, 1.0),
+    "big_splats": (7, 150, (-1.5, 0.2), (256, 256, 256, 256), 2e-4, 0.0, W, 1.0),
+    "merge_path": (2, 300, (-5.0, 0.5), (1024, 256, 256, 256), 2e-2, 0.01, W, 1.0),
+    "nonpow2_caps": (2, 300, (-5.0, 0.5), (384, 256, 384, 128), 2e-2, 0.01, W, 1.0),
+    "wide_mid_edges": (3, 400, (-2.5, -1.5), (512, 512, 256, 128), 2e-4, 0.0, 320, 5.0),
+}
+
+
+@pytest.mark.parametrize("name", list(AGAINST_PAIRS))
+def test_bucket_matches_pair_path(name):
+    seed, n, scale_range, caps, atol, far_share, w, x_spread = AGAINST_PAIRS[name]
+    ref, out = pair_and_bucket(seed, n, scale_range, caps, w=w, x_spread=x_spread)
+    assert not bool(out.overflow) and not bool(ref.overflow)
+    diff = (out.image - ref.image).abs()
+    assert diff.max().item() < atol, diff.max().item()
+    assert (diff > 1e-3).float().mean().item() <= far_share
+    if name == "fine":
+        assert (out.transmittance - ref.transmittance).abs().max().item() < atol
+        both = (out.splat_id >= 0) & (ref.splat_id >= 0)
+        assert (out.splat_id[both] == ref.splat_id[both]).float().mean().item() > 0.99
+
+
+def test_bucket_overflow_flags_truncation():
+    """A fine-dominated scene: the 128 fine cap truncates, 512 holds it."""
+    d = interop.random_splat_arrays(2, 4000, sh_degree=1, extent=2.5, scale_range=(-5.5, -4.0))
+    cam = gt.look_at([0, 0, -6], [0, 0, 0], [0, 1, 0], W, H, fov_y_rad=0.9, device="cpu")
+    prep = interop.splat_set_from_numpy(d, "cpu").prepare()
+    flags = [bool(render(prep, cam, tc.RenderConfig(width=W, height=H, sh_degree=1,
+                                                     raster=bucket_raster(c, tc))).overflow)
+             for c in ((128, 128, 128, 128), (512, 128, 128, 128))]
+    assert flags == [True, False]
+
+
+def test_bucket_empty_scene_looking_away():
+    d = interop.random_splat_arrays(0, 64, sh_degree=1, extent=2.5, scale_range=(-3.0, -1.2))
+    cam = gt.look_at([0, 0, -6], [0, 0, -12], [0, 1, 0], W, H, fov_y_rad=0.9, device="cpu")
+    out = render(interop.splat_set_from_numpy(d, "cpu").prepare(), cam,
+                 tc.RenderConfig(width=W, height=H, sh_degree=1,
+                                 raster=bucket_raster((512, 512, 128, 128), tc)))
+    assert (out.transmittance == 1).all() and int(out.num_pairs) == 0
+
+
+@pytest.mark.parametrize("seed, n, scale_range, caps", [
+    (11, 250, (-3.0, -1.2), (512, 512, 128, 128)),
+    (13, 200, (-4.5, -0.5), (512, 128, 128, 128)),
+    (12, 150, (-3.0, -1.2), (384, 128, 128, 128)),
+])
+def test_bucket_gradients_match_pair_path(seed, n, scale_range, caps):
+    """tests/test_bucket.py's gradient cases, on the six SplatSet fields:
+    2e-5 of each field's max."""
+    g_ref, g_bkt = pair_and_bucket(seed, n, scale_range, caps, w=64, h=48, grads=True)
+    for f, a, b in zip(interop.SPLAT_FIELDS, g_ref, g_bkt):
+        scale = np.abs(a).max() + 1e-12
+        np.testing.assert_allclose(b / scale, a / scale, atol=2e-5, err_msg=f)
+
+
+# ---- the twins and the wrappers ---------------------------------------------
+
+def small_bins(caps=(384, 256, 384, 128), chunk=128, seed=4, n=300, scale_range=(-5.0, 0.5)):
+    cfg = tc.RenderConfig(width=64, height=48, sh_degree=1, raster=tc.RasterConfig(
+        method="bucket", bucket_caps=caps, bucket_chunk=chunk))
+    cam, _ = cam_pair(64, 48)
+    d = interop.random_splat_arrays(seed, n, sh_degree=1, scale_range=scale_range)
+    proj = project_splats(interop.splat_set_from_numpy(d, "cpu").prepare(), cam, cfg)
+    rows, ids = gs_attr_rows(proj)
+    st = bucket_statics(cfg)
+    bins = tbg.bucket_splats(proj, rows.detach(), ids, tiles_x=st.tiles_x,
+                             tiles_y=st.tiles_y, caps=caps)
+    return bins, st, caps
+
+
+@pytest.mark.parametrize("chunk", [128, 384])
+def test_bucket_twin_backward_matches_autograd(chunk):
+    bins, st, caps = small_bins(chunk=chunk)
+    attrs = bins.attrs.detach().clone().requires_grad_()
+    out, _ = rb.rasterize_buckets_ref(attrs, bins.ids, bins.bucket_starts, st, caps)
+    g = torch.from_numpy(np.random.default_rng(3).normal(size=out.shape).astype(np.float32))
+    g[:, 4] = 0.0  # the picked depth is not differentiated
+    (d_auto,) = torch.autograd.grad((out * g).sum(), attrs)
+    d_twin = rb.rasterize_buckets_bwd_ref(bins.attrs.detach(), bins.bucket_starts,
+                                          tr.bwd_context(out.detach(), g), st, caps)
+    assert out[:, 3].min().item() < st.min_transmittance  # pixels froze
+    for r in range(tr.GRAD_ROWS):
+        scale = d_auto[r].abs().max().item()
+        assert scale > 0, r
+        assert (d_twin[r] - d_auto[r]).abs().max().item() <= GRAD_RTOL * scale, r
+    assert (d_twin[tr.GRAD_ROWS:] == 0).all()
+
+
+def test_bucket_twin_on_tile_subsets():
+    """The twins on a subset of tiles give those tiles' rows of the whole,
+    and the column gradients of their tiles alone sum to the whole's."""
+    bins, st, caps = small_bins()
+    out, out_id = rb.rasterize_buckets_ref(bins.attrs, bins.ids, bins.bucket_starts, st, caps)
+    tiles = torch.tensor([3, 0, 7, 11])
+    sub, sub_id = rb.rasterize_buckets_ref(bins.attrs, bins.ids, bins.bucket_starts, st, caps,
+                                           tiles=tiles)
+    assert torch.equal(sub, out[tiles]) and torch.equal(sub_id, out_id[tiles])
+    ctx = tr.bwd_context(out, torch.ones_like(out))
+    whole = rb.rasterize_buckets_bwd_ref(bins.attrs, bins.bucket_starts, ctx, st, caps)
+    n_t = st.tiles_x * st.tiles_y
+    parts = sum(rb.rasterize_buckets_bwd_ref(bins.attrs, bins.bucket_starts, ctx, st, caps,
+                                             tiles=torch.arange(a, min(a + 5, n_t)))
+                for a in range(0, n_t, 5))
+    assert (parts - whole).abs().max().item() <= 1e-6 * whole.abs().max().item()
+
+
+def test_bucket_work_counts():
+    bins, st, caps = small_bins()
+    work = rb.bucket_work(bins.attrs, bins.bucket_starts, st, caps)
+    spec = tbg.BucketGridSpec.build(st.tiles_x, st.tiles_y)
+    assert not bool(bins.overflow)
+    lengths = tbg.span_lengths(bins.bucket_starts, spec)
+    assert work.live == int(lengths.sum()) and work.shared == int(lengths[:, 1:].sum())
+    assert 0 < work.hits < work.evals <= work.live * tr.PIX
+    assert work.comparisons > work.live
+
+
+@pytest.mark.parametrize("caps", [(500, 256, 512, 256), (512, 0, 512, 256), (512, 256, 512)])
+def test_bucket_caps_must_be_multiples_of_128(caps):
+    bins, st, _ = small_bins()
+    with pytest.raises(ValueError, match="multiples of 128"):
+        rb.rasterize_buckets(bins, st, caps)
+
+
+def test_train_step_on_bucket_path_lowers_the_loss():
+    d = interop.random_splat_arrays(0, 400, sh_degree=0, scale_range=(-4.0, -1.5))
+    init = dict(d, sh_dc=d["sh_dc"] + np.random.default_rng(1).normal(
+        scale=0.3, size=d["sh_dc"].shape).astype(np.float32))
+    cfg = tc.RenderConfig(width=64, height=48, sh_degree=0,
+                          raster=bucket_raster((512, 128, 128, 128), tc))
+    cam, _ = cam_pair(64, 48)
+    with torch.no_grad():
+        target = render(interop.splat_set_from_numpy(d, "cpu").prepare(), cam, cfg).image
+    splats = interop.splat_set_from_numpy(init, "cpu")
+    tcfg = tt.TrainConfig(scene_extent=3.0)
+    opt = tt.make_optimizer(splats, tcfg)
+    before = rb.rasterize_buckets.launches, rb.rasterize_buckets_bwd.launches
+    losses = [float(tt.train_step(splats, opt, cam, target, cfg, 0, tcfg)[0]) for _ in range(3)]
+    assert losses[-1] < losses[0], losses
+    assert (rb.rasterize_buckets.launches, rb.rasterize_buckets_bwd.launches) == before
+
+
+def test_library_path_hashes_the_shared_header(tmp_path, monkeypatch):
+    (tmp_path / "k.cu").write_text('#include "h.cuh"\n')
+    (tmp_path / "h.cuh").write_text("// one\n")
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    first = _build.library_path("k")
+    (tmp_path / "h.cuh").write_text("// two\n")
+    assert _build.library_path("k") != first
+    assert first.name.startswith("libk-")

@@ -218,3 +218,160 @@ def test_render_on_card_has_grad_fn_and_launches_bwd_once(cuda):
     assert tr.rasterize_tiles_bwd.launches == before + 1
     assert all(bool(torch.isfinite(getattr(s, f).grad).all()) for f in interop.SPLAT_FIELDS)
     assert s.opacities.grad.abs().max().item() > 0
+
+
+# ---- the bucket-grid rasterizer: K3 (forward) and K4 (backward) ----------
+#
+# K3 against its twin: the same gates as K1 (1e-4 max abs on rgb and T, ids
+# on at least 99.9 % of pixels): both merge the spans by (depth, span,
+# position), alphas agree bit for bit, and T multiplies in another order.
+# K4 against its twin: 1e-4 of each row's max, plus the per-row elementwise
+# gate, as K2; the twin sums a shared column over its tiles through a
+# float64 prefix sum, the kernel in f32 in a fixed order.
+
+from vk_gaussian_splatting_tpu_torch.ops import raster_bucket as rb  # noqa: E402
+from vk_gaussian_splatting_tpu_torch.ops.bucket_grid import bucket_splats  # noqa: E402
+from vk_gaussian_splatting_tpu_torch.render.pipelines import bucket_statics  # noqa: E402
+
+
+def bucket_bins_on(device, cfg, seed=0, n=3000, scale_range=(-5.0, 0.0)):
+    d = interop.random_splat_arrays(seed, n, sh_degree=1, scale_range=scale_range)
+    cam = gt.look_at([0.2, -0.3, -9.0], [0, 0, 0], [0, 1, 0], cfg.width,
+                     cfg.height, fov_y_rad=0.9, device=device)
+    proj = project_splats(interop.splat_set_from_numpy(d, device).prepare(), cam, cfg)
+    rows, ids = gs_attr_rows(proj)
+    st = bucket_statics(cfg)
+    return bucket_splats(proj, rows, ids, tiles_x=st.tiles_x, tiles_y=st.tiles_y,
+                         caps=cfg.raster.bucket_caps), st
+
+
+def bucket_cfg(w=128, h=96, caps=(512, 256, 512, 256), chunk=384):
+    return gt.RenderConfig(width=w, height=h, sh_degree=1, raster=gt.RasterConfig(
+        method="bucket", bucket_caps=caps, bucket_chunk=chunk))
+
+
+def assert_k3_matches_twin(bins, st, caps):
+    out_k, id_k = rb.rasterize_buckets(bins, st, caps)
+    out_r, id_r = rb.rasterize_buckets_ref(bins.attrs, bins.ids, bins.bucket_starts, st, caps)
+    torch.cuda.synchronize()
+    err = (out_k[:, :4] - out_r[:, :4]).abs().max().item()
+    assert err <= ATOL, err
+    same = id_k == id_r
+    assert same.float().mean().item() >= ID_AGREE
+    assert torch.equal(out_k[:, 4][same], out_r[:, 4][same])
+    return out_k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("caps, chunk", [((512, 256, 512, 256), 384),
+                                         ((384, 256, 384, 128), 128),
+                                         ((256, 128, 128, 128), 1024)])
+def test_bucket_kernel_matches_twin(cuda, caps, chunk):
+    cfg = bucket_cfg(caps=caps, chunk=chunk)
+    bins, st = bucket_bins_on(cuda, cfg)
+    out = assert_k3_matches_twin(bins, st, caps)
+    assert out[:, 3].min().item() < st.min_transmittance  # pixels froze
+
+
+@pytest.mark.cuda
+def test_bucket_kernels_count_launches_and_repeat_bit_equal(cuda):
+    cfg = bucket_cfg(w=120, h=90)
+    caps = cfg.raster.bucket_caps
+    bins, st = bucket_bins_on(cuda, cfg, seed=1, n=1500)
+    before = (rb.rasterize_buckets.launches, rb.rasterize_buckets_bwd.launches)
+    a = rb.rasterize_buckets(bins, st, caps)
+    b = rb.rasterize_buckets(bins, st, caps)
+    g = torch.randn(a[0].shape, generator=torch.Generator(device=cuda).manual_seed(0),
+                    device=cuda)
+    ctx = tr.bwd_context(a[0], g)
+    da = rb.rasterize_buckets_bwd(bins.attrs, bins.bucket_starts, ctx, st, caps)
+    db = rb.rasterize_buckets_bwd(bins.attrs, bins.bucket_starts, ctx, st, caps)
+    torch.cuda.synchronize()
+    assert (rb.rasterize_buckets.launches, rb.rasterize_buckets_bwd.launches) == (
+        before[0] + 2, before[1] + 2)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    assert torch.equal(da, db)
+
+
+@pytest.mark.cuda
+def test_bucket_bwd_kernel_matches_twin(cuda):
+    cfg = bucket_cfg(caps=(384, 256, 384, 128))
+    caps = cfg.raster.bucket_caps
+    bins, st = bucket_bins_on(cuda, cfg)
+    out, _ = rb.rasterize_buckets(bins, st, caps)
+    g = torch.randn(out.shape, generator=torch.Generator(device=cuda).manual_seed(0),
+                    device=cuda)
+    ctx = tr.bwd_context(out, g)
+    d_k = rb.rasterize_buckets_bwd(bins.attrs, bins.bucket_starts, ctx, st, caps)
+    d_r = rb.rasterize_buckets_bwd_ref(bins.attrs, bins.bucket_starts, ctx, st, caps)
+    torch.cuda.synchronize()
+    for r in range(tr.GRAD_ROWS):
+        scale = d_r[r].abs().max().item()
+        assert scale > 0
+        assert (d_k[r] - d_r[r]).abs().max().item() <= BWD_RTOL * scale, r
+    for k, ref in zip(d_k[:tr.GRAD_ROWS], d_r[:tr.GRAD_ROWS]):
+        limit = 1e-2 * (ref.abs() + ref.abs()[ref != 0].median())
+        assert ((k - ref).abs() <= limit).float().mean().item() >= 0.999
+    assert (d_k[tr.GRAD_ROWS:] == 0).all()
+    assert out[:, 3].min().item() < st.min_transmittance  # pixels froze
+
+
+@pytest.mark.cuda
+def test_bucket_kernels_empty_tiles(cuda):
+    cfg = bucket_cfg(w=64, h=48)
+    st = bucket_statics(cfg)
+    caps = cfg.raster.bucket_caps
+    spec = rb.BucketGridSpec.build(st.tiles_x, st.tiles_y)
+    attrs = torch.zeros((10, 0), device=cuda)
+    starts = torch.zeros((spec.num_buckets + 1,), dtype=torch.int32, device=cuda)
+    bins = rb.BucketBins(attrs, torch.zeros((0,), dtype=torch.int32, device=cuda), starts,
+                         torch.zeros((), dtype=torch.int64), torch.zeros((), dtype=torch.bool))
+    out, out_id = rb.rasterize_buckets(bins, st, caps)
+    assert (out[:, :3] == 0).all() and (out[:, 3] == 1).all()
+    assert (out[:, 4] == 0).all() and (out_id == -1).all()
+    ctx = torch.ones((st.tiles_x * st.tiles_y, tr.CTX_ROWS, tr.PIX), device=cuda)
+    assert rb.rasterize_buckets_bwd(attrs, starts, ctx, st, caps).shape == (10, 0)
+
+
+@pytest.mark.cuda
+def test_bucket_caps_above_48kb_of_shared_memory(cuda):
+    """Golden-tiled caps: 8,448 lanes, 67.6 KB of keys and lane indices."""
+    caps = (4608, 1536, 256, 256)
+    cfg = bucket_cfg(caps=caps)
+    bins, st = bucket_bins_on(cuda, cfg)
+    assert rb._fn("raster_bucket_fwd", "_smem")(sum(rb._span_sizes(caps)), st.chunk) > 48 << 10
+    out = assert_k3_matches_twin(bins, st, caps)
+    ctx = tr.bwd_context(out, torch.ones_like(out))
+    d_k = rb.rasterize_buckets_bwd(bins.attrs, bins.bucket_starts, ctx, st, caps)
+    d_r = rb.rasterize_buckets_bwd_ref(bins.attrs, bins.bucket_starts, ctx, st, caps)
+    for r in range(tr.GRAD_ROWS):
+        assert (d_k[r] - d_r[r]).abs().max().item() <= BWD_RTOL * d_r[r].abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("caps, match", [((65536, 128, 128, 128), "shared memory"),
+                                         ((500, 256, 512, 256), "multiples of 128"),
+                                         ((512, 256, 0, 256), "multiples of 128")])
+def test_bucket_caps_the_card_cannot_take_raise(cuda, caps, match):
+    cfg = bucket_cfg(w=64, h=48, caps=(512, 256, 512, 256))
+    bins, st = bucket_bins_on(cuda, cfg, n=200)
+    with pytest.raises(ValueError, match=match):
+        rb.rasterize_buckets(bins, st, caps)
+    ctx = torch.zeros((st.tiles_x * st.tiles_y, tr.CTX_ROWS, tr.PIX), device=cuda)
+    with pytest.raises(ValueError, match=match):
+        rb.rasterize_buckets_bwd(bins.attrs, bins.bucket_starts, ctx, st, caps)
+
+
+@pytest.mark.cuda
+def test_bucket_render_on_card_launches_k3_and_k4_once(cuda):
+    cfg = bucket_cfg(w=120, h=90)
+    cam = gt.look_at([0.2, -0.3, -9.0], [0, 0, 0], [0, 1, 0], 120, 90, fov_y_rad=0.9,
+                     device=cuda)
+    s = splats_on(cuda, seed=1, n=1500)
+    before = (rb.rasterize_buckets.launches, rb.rasterize_buckets_bwd.launches)
+    out = render(s.prepare(), cam, cfg)
+    gt.rgb_loss(out.image, torch.full_like(out.image, 0.5)).backward()
+    torch.cuda.synchronize()
+    assert (rb.rasterize_buckets.launches, rb.rasterize_buckets_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert all(bool(torch.isfinite(getattr(s, f).grad).all()) for f in interop.SPLAT_FIELDS)

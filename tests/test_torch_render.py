@@ -125,7 +125,7 @@ def test_repeat_render_is_bit_equal():
 
 
 UNPORTED = {
-    "bucket": dict(raster=tc.RasterConfig(method="bucket")),
+    "bucket_packed": dict(raster=tc.RasterConfig(method="bucket", pair_format="packed")),
     "stochastic": dict(stochastic=tc.StochasticMode.SPLAT),
     "temporal": dict(temporal_samples=2),
     "packed": dict(raster=tc.RasterConfig(pair_format="packed")),
@@ -158,6 +158,13 @@ def test_host_order_raises(tiny):
     with pytest.raises(NotImplementedError, match="host_order"):
         render_3dgs(prep, cam, tc.RenderConfig(width=32, height=32),
                        host_order=torch.arange(50))
+
+
+def test_bucket_host_order_raises(tiny):
+    prep, cam = tiny
+    cfg = tc.RenderConfig(width=32, height=32, raster=tc.RasterConfig(method="bucket"))
+    with pytest.raises(NotImplementedError, match="host_order"):
+        render_3dgs(prep, cam, cfg, host_order=torch.arange(50))
 
 
 @pytest.mark.parametrize("raster", [dict(tile_size=8), dict(method="cells"),

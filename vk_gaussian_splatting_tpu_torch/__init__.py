@@ -6,20 +6,23 @@ the same path. It imports torch and numpy, never JAX.
 
 Ported so far: the 3DGS raster frame, forward and backward —
 ``render(prepared, camera, cfg)`` in ``vk_gaussian_splatting_tpu_torch.render``
-for the VERT/MESH pipelines with pair binning — and the training step
-(``train_step``, Adam, the loss, densification, checkpoints). Plain tensor
-code runs on any torch device; the tile blender and its backward are
-hand-written CUDA kernels (csrc/rasterize_fwd.cu, csrc/rasterize_bwd.cu,
-built for sm_90a at first use) on a CUDA device and plain PyTorch twins on
-the CPU. Entry points that make tensors use the card unless given another
-device. The names exported here are the JAX package's.
+for the VERT/MESH pipelines with pair binning (``RasterConfig.method=
+"pairs"``, the default) or bucket-grid binning (``method="bucket"``) — and
+the training step (``train_step``, Adam, the loss, densification,
+checkpoints). Plain tensor code runs on any torch device; the two tile
+blenders and their backwards are hand-written CUDA kernels
+(csrc/rasterize_{fwd,bwd}.cu, csrc/raster_bucket_{fwd,bwd}.cu, built for
+sm_90a at first use) on a CUDA device and plain PyTorch twins on the CPU.
+Entry points that make tensors use the card unless given another device.
+The names exported here are the JAX package's.
 
 Layout:
   io/      PLY loader
   scene/   SplatSet / PreparedSplats, pinhole cameras
-  ops/     SH, EWA projection, depth keys, tile binning (with its
-           sort-based backward), gs2d response, tile blender (kernel
-           wrappers, twins, autograd Function), kernel build
+  ops/     SH, EWA projection, depth keys, pair binning and bucket-grid
+           binning (each with its sort-based backward), gs2d response,
+           the pair blender and the bucket rasterizer (kernel wrappers,
+           twins, autograd Functions), kernel build
   render/  render_3dgs and the pipeline dispatch
   train.py loss, Adam, train_step, densify / prune, checkpoints
   csrc/    CUDA sources

@@ -1,11 +1,12 @@
 """Build and load the CUDA kernels in ``csrc/``.
 
-Each ``csrc/<name>.cu`` exposes a plain C entry point. At first use it is
+Each ``csrc/<name>.cu`` exposes plain C entry points. At first use it is
 compiled with ``nvcc`` for Hopper (``sm_90a``) into a shared library under
-``build/kernels/`` at the repository root, named by a hash of the source and
-the flags, and loaded with ctypes. A later call, or a later process, reuses
-the library while the source is unchanged. Any failure raises: there is no
-fallback to another implementation.
+``build/kernels/`` at the repository root, named by a hash of the source,
+the shared headers ``csrc/*.cuh`` and the flags, and loaded with ctypes. A
+later call, or a later process, reuses the library while those are
+unchanged. Any failure raises: there is no fallback to another
+implementation.
 """
 
 from __future__ import annotations
@@ -35,10 +36,13 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where the library built from csrc/<name>.cu goes for its current source."""
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    """Where the library built from csrc/<name>.cu goes for its current
+    source and headers (a header edit must not load a stale library)."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 @functools.lru_cache(maxsize=None)
@@ -58,3 +62,12 @@ def load(name: str) -> ctypes.CDLL:
         Path(str(out) + ".log").write_text(res.stdout + res.stderr)
         os.replace(tmp, out)  # atomic: a concurrent build never sees half a file
     return ctypes.CDLL(str(out))
+
+
+def entry(name: str, symbol: str, argtypes):
+    """The C function ``symbol`` of csrc/<name>.cu's library, typed; every
+    entry point returns an int (a cudaError_t or a byte count)."""
+    fn = getattr(load(name), symbol)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return fn

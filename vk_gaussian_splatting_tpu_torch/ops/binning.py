@@ -70,7 +70,8 @@ class EmitLayout:
     ``0..n`` when ``order`` is None (no ladder). exact: splat s owns emit
     positions ``[seg_start[s], seg_end[s])``; the positions past the live
     pairs belong to none (no tile's range holds them, so the blend gives
-    them no gradient).
+    them no gradient). bucket slots (ops/bucket_grid.py): ``streams``
+    slot-major runs of n positions, position ``s * n + i`` is splat i.
     """
 
     n: int
@@ -78,9 +79,12 @@ class EmitLayout:
     order: torch.Tensor | None = None
     seg_start: torch.Tensor | None = None
     seg_end: torch.Tensor | None = None
+    streams: int = 0
 
     def splat_sums(self, d_emit: torch.Tensor) -> torch.Tensor:
         """(R, E) per-emit-position values -> (R, n) per-splat sums."""
+        if self.streams:
+            return d_emit.reshape(d_emit.shape[0], self.streams, self.n).sum(dim=1)
         if self.seg_start is not None:
             prefix = torch.cumsum(d_emit.to(torch.float64), dim=1)
             prefix = torch.cat([prefix.new_zeros((d_emit.shape[0], 1)), prefix], dim=1)

@@ -1,0 +1,407 @@
+"""Bucket-grid tile rasterizer, forward and backward: the CUDA kernels'
+wrappers, their plain PyTorch twins and the autograd Function that joins
+them.
+
+Counterpart of ``vk_gaussian_splatting_tpu/ops/raster_bucket.py``: K3
+(``_make_kernel``, :469) and K4 (``_make_bwd_kernel``, :927, with the slot
+reduction of ``_br_bwd``, :1367) for the gs2d model. The CUDA kernels are
+``csrc/raster_bucket_fwd.cu`` and ``csrc/raster_bucket_bwd.cu``; they share
+``csrc/raster_bucket.cuh``.
+
+Each 16x16 tile reads its six window spans of the bucket-sorted slot array
+(ops/bucket_grid.py): its own fine bucket, two mid rows, two coarse rows and
+the global bucket. Span i holds ``n_eff = min(len, cap_i - start % 128)``
+candidates, the TPU kernel's capacity with its 128-alignment head, and the
+spans' depth-sorted runs are merged into one list ordered by (depth, span,
+position in span). Then the tile blends that list front to back with the
+pair blender's math (ops/rasterize.py), in steps of ``st.chunk`` lanes
+(``RasterConfig.bucket_chunk``): live candidate k sits at lane
+``n_head + k``, where ``n_head`` sums the heads of the non-empty spans, so a
+pixel freezes at the same lanes as in the TPU kernel, whose merged buffer
+holds the dead head lanes first.
+
+The twins lay each tile's merged list out in its own region of a flat pair
+array, starting at a multiple of the chunk, and run the pair twins'
+sweep (``rasterize._blend_steps``) over it: one sweep serves all four
+twins. The backward sums each (tile, lane) gradient into its slot column.
+
+On CUDA tensors the forward launches K3 and the backward K4; on CPU
+tensors both run the twins; nothing else decides which. A failed build or
+launch raises. What the port drops of the TPU kernels: the tiles-per-step
+interleave, the 4x4-tile cell grid, the DMA staging and the odd-even merge
+network (a merged lane's rank is a binary-search count here).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import functools
+import typing
+
+import torch
+
+from vk_gaussian_splatting_tpu_torch.ops import _build
+from vk_gaussian_splatting_tpu_torch.ops.binning import EmitLayout
+from vk_gaussian_splatting_tpu_torch.ops.bucket_grid import (
+    HEAD_ALIGN,
+    NUM_SPANS,
+    BucketBins,
+    BucketGridSpec,
+    window_span_table,
+)
+from vk_gaussian_splatting_tpu_torch.ops.rasterize import (
+    CTX_ROWS,
+    GRAD_ROWS,
+    OUT_ROWS,
+    PIX,
+    RasterStatics,
+    _check,
+    blend_work,
+    bwd_context,
+    rasterize_tiles_bwd_ref,
+    rasterize_tiles_ref,
+)
+from vk_gaussian_splatting_tpu_torch.ops.response import GS_DEPTH, GS_ROWS
+
+MAX_BUCKET_CHUNK = 1024  # csrc/raster_bucket_{fwd,bwd}.cu stage at most this many lanes
+READER_SEGMENT = 64      # K4's reduce sums a shared column over at most this many tiles per pass
+
+
+def _span_sizes(caps: tuple) -> list[int]:
+    """Per-span capacities: [fine, mid x2, coarse x2, global]."""
+    return [caps[0]] + [caps[1]] * 2 + [caps[2]] * 2 + [caps[3]]
+
+
+def check_caps(caps) -> tuple:
+    """The four class caps as ints; raises unless each is a positive
+    multiple of 128 (the head accounting needs cap >= 128)."""
+    caps = tuple(caps)
+    if len(caps) != 4 or any(int(c) != c or c <= 0 or c % HEAD_ALIGN for c in caps):
+        raise ValueError(f"bucket caps must be four positive multiples of {HEAD_ALIGN}, "
+                         f"got {caps}")
+    return tuple(int(c) for c in caps)
+
+
+@functools.lru_cache(maxsize=16)
+def _span_table(tiles_x: int, tiles_y: int, device: torch.device) -> torch.Tensor:
+    """(T, 6, 2) i32 window span buckets per tile, kept on ``device``."""
+    spec = BucketGridSpec.build(tiles_x, tiles_y)
+    return window_span_table(spec, device).to(torch.int32).contiguous()
+
+
+class _Readers(typing.NamedTuple):
+    """Which tiles read each bucket through a shared span (1-5): K4's reduce
+    order. All i32 on the device."""
+
+    code: torch.Tensor        # (E,) tile * 8 + span, in (bucket, tile, span) order
+    seg_bucket: torch.Tensor  # (S,) the bucket of each segment of <= READER_SEGMENT readers
+    seg_first: torch.Tensor   # (S,) its readers [seg_first, seg_last) in ``code``
+    seg_last: torch.Tensor
+    bucket_seg: torch.Tensor  # (num_buckets + 1,) bucket b owns segments
+                              # [bucket_seg[b], bucket_seg[b + 1])
+
+
+@functools.lru_cache(maxsize=16)
+def _readers(tiles_x: int, tiles_y: int, device: torch.device) -> _Readers:
+    """The reader table of an image size (static), from window_span_table."""
+    spec = BucketGridSpec.build(tiles_x, tiles_y)
+    table = window_span_table(spec, device)[:, 1:]                 # (T, 5, 2)
+    n_t = table.shape[0]
+    tile = torch.arange(n_t, device=device)[:, None].expand(n_t, NUM_SPANS - 1)
+    span = torch.arange(1, NUM_SPANS, device=device)[None, :].expand(n_t, NUM_SPANS - 1)
+    ok = table[..., 1] > table[..., 0]                              # not past the grid
+    bucket = table[..., 0][ok]
+    order = torch.sort(bucket, stable=True).indices
+    code = (tile * 8 + span)[ok][order]
+    start = torch.searchsorted(bucket[order],
+                               torch.arange(spec.num_buckets + 1, device=device))
+    n_seg = -(-(start[1:] - start[:-1]) // READER_SEGMENT)
+    bucket_seg = torch.cat([n_seg.new_zeros(1), torch.cumsum(n_seg, 0)])
+    seg_bucket = torch.repeat_interleave(torch.arange(spec.num_buckets, device=device), n_seg)
+    seg_first = (start[seg_bucket] + READER_SEGMENT
+                 * (torch.arange(seg_bucket.shape[0], device=device) - bucket_seg[seg_bucket]))
+    seg_last = torch.minimum(seg_first + READER_SEGMENT, start[seg_bucket + 1])
+    return _Readers(*(x.to(torch.int32).contiguous() for x in (
+        code, seg_bucket, seg_first, seg_last, bucket_seg)))
+
+
+def _tile_spans(bucket_starts: torch.Tensor, st: RasterStatics, caps: tuple,
+                tiles: torch.Tensor):
+    """(first column, live count) of each window span, (n, 6) i64, and the
+    alignment head before the first live lane, (n,) i64, of the given
+    tiles (raster_bucket._tile_spans and the kernel's n_eff / n_head)."""
+    table = _span_table(st.tiles_x, st.tiles_y, bucket_starts.device)[tiles].to(torch.int64)
+    bs = bucket_starts.to(torch.int64)
+    start = bs[table[..., 0]]
+    length = (bs[table[..., 1]] - start).clamp(min=0)
+    head = start % HEAD_ALIGN
+    cap = torch.tensor(_span_sizes(caps), dtype=torch.int64, device=bs.device)
+    n_eff = torch.minimum(length, cap - head)
+    n_head = torch.where(n_eff > 0, head, 0).sum(dim=1)
+    return start, n_eff, n_head
+
+
+@dataclasses.dataclass
+class _TileLists:
+    """The merged candidate lists of some tiles, laid out as a pair array."""
+
+    cols: torch.Tensor        # (n * L,) i64 source column of each lane, -1 for none
+    tile_start: torch.Tensor  # (T,) i32 first live lane of each listed tile
+    tile_count: torch.Tensor  # (T,) i32 its live lanes
+    n_eff: torch.Tensor       # (n, 6) i64 live candidates per span
+
+
+def _tile_lists(attrs: torch.Tensor, bucket_starts: torch.Tensor, st: RasterStatics,
+                caps: tuple, tiles: torch.Tensor) -> _TileLists:
+    """Merge each tile's six spans by (depth, span, position in span): one
+    stable sort of the depth keys laid out span after span. Tile b's region
+    starts at lane b * L, L a multiple of the chunk, and live candidate k
+    sits at b * L + n_head + k, so the chunk boundaries fall at the TPU
+    kernel's lanes."""
+    dev = attrs.device
+    start, n_eff, n_head = _tile_spans(bucket_starts, st, caps, tiles)
+    sizes = torch.tensor(_span_sizes(caps), device=dev)
+    span = torch.repeat_interleave(torch.arange(NUM_SPANS, device=dev), sizes)
+    pos = torch.arange(span.shape[0], device=dev) - (torch.cumsum(sizes, 0) - sizes)[span]
+    col = start[:, span] + pos                                      # (n, c_total)
+    live = pos < n_eff[:, span]
+    depth = attrs[GS_DEPTH].detach()
+    key = depth[col.clamp(0, depth.shape[0] - 1)] if depth.numel() else col.float()
+    key = torch.where(live, key, float("inf"))
+    merged = torch.gather(torch.where(live, col, -1), 1,
+                          torch.sort(key, dim=1, stable=True).indices)
+    n = tiles.shape[0]
+    n_live = n_eff.sum(dim=1)
+    c = st.chunk
+    span_len = int((n_head + n_live).max()) if n else 0
+    lanes = -(-span_len // c) * c
+    k_max = int(n_live.max()) if n else 0
+    k = torch.arange(k_max, device=dev)
+    keep = k[None, :] < n_live[:, None]
+    dst = torch.arange(n, device=dev)[:, None] * lanes + n_head[:, None] + k
+    cols = torch.full((n * lanes,), -1, dtype=torch.int64, device=dev)
+    cols[dst[keep]] = merged[:, :k_max][keep]
+    num_tiles = st.tiles_x * st.tiles_y
+    tile_start = torch.zeros((num_tiles,), dtype=torch.int32, device=dev)
+    tile_count = torch.zeros((num_tiles,), dtype=torch.int32, device=dev)
+    tile_start[tiles] = (torch.arange(n, device=dev) * lanes + n_head).to(torch.int32)
+    tile_count[tiles] = n_live.to(torch.int32)
+    return _TileLists(cols, tile_start, tile_count, n_eff)
+
+
+def _all_tiles(st: RasterStatics, device, tiles):
+    if tiles is None:
+        return torch.arange(st.tiles_x * st.tiles_y, device=device)
+    return tiles
+
+
+def rasterize_buckets_ref(attrs: torch.Tensor, ids: torch.Tensor,
+                          bucket_starts: torch.Tensor, st: RasterStatics, caps: tuple,
+                          tiles: torch.Tensor | None = None):
+    """Plain PyTorch twin of K3: the pair twin over the merged lists.
+
+    Returns ((n, 5, 256) f32, (n, 256) i32) for the tiles of ``tiles`` (all
+    by default, in that order). Differentiable in ``attrs``."""
+    tiles = _all_tiles(st, attrs.device, tiles)
+    lists = _tile_lists(attrs, bucket_starts, st, caps, tiles)
+    c = lists.cols.clamp(min=0)
+    return rasterize_tiles_ref(attrs[:, c], ids[c], lists.tile_start, lists.tile_count,
+                               st, tiles)
+
+
+def rasterize_buckets_bwd_ref(attrs: torch.Tensor, bucket_starts: torch.Tensor,
+                              ctx: torch.Tensor, st: RasterStatics, caps: tuple,
+                              tiles: torch.Tensor | None = None) -> torch.Tensor:
+    """Plain PyTorch twin of K4: (GS_ROWS, P) d_attrs.
+
+    The pair twin backward over the merged lists (``rasterize_tiles_bwd_ref``),
+    then each (tile, lane) gradient summed into its slot column, by
+    differences of a float64 prefix sum over the lanes sorted by column.
+    ``tiles`` restricts the sweep to a subset of tiles (all by default);
+    columns only the other tiles read stay zero."""
+    tiles = _all_tiles(st, attrs.device, tiles)
+    lists = _tile_lists(attrs, bucket_starts, st, caps, tiles)
+    d_lanes = rasterize_tiles_bwd_ref(attrs[:, lists.cols.clamp(min=0)], lists.tile_start,
+                                      lists.tile_count, ctx, st, tiles)
+    live = lists.cols >= 0
+    cols, order = torch.sort(lists.cols[live], stable=True)
+    p = attrs.shape[1]
+    bounds = torch.searchsorted(cols, torch.arange(p + 1, device=attrs.device))
+    layout = EmitLayout(p, seg_start=bounds[:-1], seg_end=bounds[1:])
+    return layout.splat_sums(d_lanes[:, live][:, order])
+
+
+class BucketWork(typing.NamedTuple):
+    """What the bucket kernels' bounds count (``bucket_work``)."""
+
+    evals: int        # (pixel, lane) alpha evaluations up to each pixel's freeze
+    hits: int         # those whose alpha passes the cutoffs
+    live: int         # live candidates read, summed over the tiles
+    shared: int       # the live candidates of shared spans (mid, coarse, global)
+    comparisons: int  # key comparisons of the merges
+
+
+@torch.no_grad()
+def bucket_work(attrs: torch.Tensor, bucket_starts: torch.Tensor, st: RasterStatics,
+                caps: tuple, tiles: torch.Tensor | None = None) -> BucketWork:
+    """The work of the given tiles (all by default): the alpha evaluations
+    both kernels make and the hits (``rasterize.blend_work`` over the merged
+    lists), the live candidates, and the merge's key comparisons, where each
+    live lane binary-searches the five other spans (ceil(log2(m + 1)) steps
+    for a span of m)."""
+    tiles = _all_tiles(st, attrs.device, tiles)
+    lists = _tile_lists(attrs, bucket_starts, st, caps, tiles)
+    evals, hits = blend_work(attrs[:, lists.cols.clamp(min=0)], lists.tile_start,
+                             lists.tile_count, st, tiles)
+    steps = torch.ceil(torch.log2(lists.n_eff.double() + 1))
+    others = steps.sum(dim=1, keepdim=True) - steps
+    return BucketWork(evals, hits, int(lists.n_eff.sum()), int(lists.n_eff[:, 1:].sum()),
+                      int((lists.n_eff * others).sum()))
+
+
+def _check_inputs(attrs, bucket_starts, st, caps, ids=None, ctx=None) -> int:
+    """Validate the blend inputs; returns the slot count P."""
+    spec = BucketGridSpec.build(st.tiles_x, st.tiles_y)
+    dev = attrs.device
+    p = attrs.shape[1] if attrs.dim() == 2 else -1
+    _check("attrs", attrs, torch.float32, (GS_ROWS, p), dev)
+    if ids is not None:
+        _check("ids", ids, torch.int32, (p,), dev)
+    _check("bucket_starts", bucket_starts, torch.int32, (spec.num_buckets + 1,), dev)
+    if ctx is not None:
+        _check("ctx", ctx, torch.float32, (st.tiles_x * st.tiles_y, CTX_ROWS, PIX), dev)
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"no bucket blender for device {dev}")
+    if dev.type == "cuda" and not 1 <= st.chunk <= MAX_BUCKET_CHUNK:
+        raise ValueError(f"bucket chunk {st.chunk} outside [1, {MAX_BUCKET_CHUNK}]")
+    return p
+
+
+def _check_shared_memory(name: str, caps: tuple, chunk: int) -> None:
+    """Raise unless one block of kernel ``name`` fits the current card's
+    shared memory at these caps (all six spans' keys and lane indices plus
+    one chunk's staged rows)."""
+    need = _fn(name, "_smem")(sum(_span_sizes(caps)), chunk)
+    limit = _fn(name, "_smem_limit")()
+    if need > limit:
+        raise ValueError(f"bucket caps {caps} with chunk {chunk} need {need} B of shared "
+                         f"memory per block; the card allows {limit} B")
+
+
+def _bucket_fwd(attrs, ids, bucket_starts, st, caps):
+    """K3 on CUDA tensors (one launch counted), the twin on CPU tensors."""
+    caps = check_caps(caps)
+    p = _check_inputs(attrs, bucket_starts, st, caps, ids=ids)
+    dev = attrs.device
+    if dev.type == "cpu":
+        return rasterize_buckets_ref(attrs, ids, bucket_starts, st, caps)
+    num_tiles = st.tiles_x * st.tiles_y
+    spans = _span_table(st.tiles_x, st.tiles_y, dev)
+    out = torch.empty((num_tiles, OUT_ROWS, PIX), dtype=torch.float32, device=dev)
+    out_id = torch.empty((num_tiles, PIX), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        _check_shared_memory("raster_bucket_fwd", caps, st.chunk)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = _fn("raster_bucket_fwd")(
+            attrs.data_ptr(), p, ids.data_ptr(), bucket_starts.data_ptr(), spans.data_ptr(),
+            num_tiles, st.tiles_x, *caps, st.chunk, st.alpha_min, st.alpha_clamp, st.qmax,
+            st.min_transmittance, st.depth_iso, out.data_ptr(), out_id.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"raster_bucket_fwd launch failed: cudaError {err}")
+    rasterize_buckets.launches += 1
+    return out, out_id
+
+
+def rasterize_buckets_bwd(attrs: torch.Tensor, bucket_starts: torch.Tensor,
+                          ctx: torch.Tensor, st: RasterStatics, caps: tuple) -> torch.Tensor:
+    """(GS_ROWS, P) d_attrs from the (T, 5, 256) ``bwd_context``.
+
+    CUDA tensors launch csrc/raster_bucket_bwd.cu and count one launch in
+    ``rasterize_buckets_bwd.launches``; CPU tensors run the plain twin. The
+    kernel stores each fine column's gradient once; the gradients of a
+    shared span's lanes go to a per-tile scratch that two more passes sum
+    over each column's reading tiles in a fixed order (``_readers``). No
+    atomics: the result repeats bit for bit."""
+    caps = check_caps(caps)
+    p = _check_inputs(attrs, bucket_starts, st, caps, ctx=ctx)
+    dev = attrs.device
+    if dev.type == "cpu":
+        return rasterize_buckets_bwd_ref(attrs, bucket_starts, ctx, st, caps)
+    spec = BucketGridSpec.build(st.tiles_x, st.tiles_y)
+    num_tiles = st.tiles_x * st.tiles_y
+    spans = _span_table(st.tiles_x, st.tiles_y, dev)
+    readers = _readers(st.tiles_x, st.tiles_y, dev)
+    n_seg = readers.seg_bucket.shape[0]
+    shared_lanes = sum(_span_sizes(caps)[1:])
+    with torch.cuda.device(dev):
+        _check_shared_memory("raster_bucket_bwd", caps, st.chunk)
+        d_attrs = torch.zeros_like(attrs)  # the kernels write live columns only
+        scratch = torch.empty((GRAD_ROWS, num_tiles * shared_lanes), dtype=torch.float32,
+                              device=dev)
+        partial = torch.empty((GRAD_ROWS, n_seg, max(caps[1:])), dtype=torch.float32,
+                              device=dev)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = _fn("raster_bucket_bwd")(
+            attrs.data_ptr(), p, bucket_starts.data_ptr(), spans.data_ptr(),
+            *(x.data_ptr() for x in readers), n_seg, ctx.data_ptr(), num_tiles, st.tiles_x,
+            *caps, spec.offsets[1], spec.offsets[3], st.chunk, st.alpha_min, st.alpha_clamp,
+            st.qmax, st.min_transmittance, scratch.data_ptr(), partial.data_ptr(),
+            d_attrs.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"raster_bucket_bwd launch failed: cudaError {err}")
+    rasterize_buckets_bwd.launches += 1
+    return d_attrs
+
+
+rasterize_buckets_bwd.launches = 0
+
+
+class _RasterizeBuckets(torch.autograd.Function):
+    """The bucket blend with its backward kernel (raster_bucket.bucket_render's
+    custom VJP): K3 / K4 on CUDA tensors, the twins on CPU tensors."""
+
+    @staticmethod
+    def forward(ctx, attrs, ids, bucket_starts, st, caps):
+        out, out_id = _bucket_fwd(attrs, ids, bucket_starts, st, caps)
+        ctx.mark_non_differentiable(out_id)
+        ctx.save_for_backward(attrs, bucket_starts, out)
+        ctx.st, ctx.caps = st, caps
+        return out, out_id
+
+    @staticmethod
+    def backward(ctx, g_out, g_id):
+        attrs, bucket_starts, out = ctx.saved_tensors
+        d_attrs = rasterize_buckets_bwd(attrs, bucket_starts, bwd_context(out, g_out),
+                                        ctx.st, ctx.caps)
+        return d_attrs, None, None, None, None
+
+
+def rasterize_buckets(bins: BucketBins, st: RasterStatics, caps: tuple):
+    """Blend bucketed splats into per-tile outputs.
+
+    bins: from ops/bucket_grid.bucket_splats at the same tiles_x/y; st: the
+    blend statics with ``chunk`` = the bucket blend chunk; caps: the four
+    class caps. Returns ((T, 5, 256) f32 rows r, g, b, T, depth; (T, 256)
+    i32 ids), every tile written. CUDA tensors launch
+    csrc/raster_bucket_fwd.cu and count one launch in
+    ``rasterize_buckets.launches``; CPU tensors run the plain twin.
+    Gradients reach ``bins.attrs`` through rgb and T."""
+    return _RasterizeBuckets.apply(bins.attrs, bins.ids, bins.bucket_starts, st, caps)
+
+
+rasterize_buckets.launches = 0
+
+_P, _L, _I, _F = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
+_ARGTYPES = {  # the C entry points' parameters, in order (csrc/raster_bucket_*.cu)
+    "raster_bucket_fwd": [_P, _L, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                          _F, _F, _F, _F, _F, _P, _P, _P],
+    "raster_bucket_bwd": [_P, _L, _P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I,
+                          _I, _I, _I, _F, _F, _F, _F, _P, _P, _P, _P],
+    "_smem": [_I, _I],
+    "_smem_limit": [],
+}
+
+
+def _fn(name: str, suffix: str = ""):
+    return _build.entry(name, name + suffix, _ARGTYPES[suffix or name])

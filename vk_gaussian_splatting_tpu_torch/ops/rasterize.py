@@ -174,13 +174,14 @@ def rasterize_tiles_ref(attrs: torch.Tensor, ids: torch.Tensor,
 
 @torch.no_grad()
 def blend_work(attrs: torch.Tensor, tile_start: torch.Tensor, tile_count: torch.Tensor,
-               st: RasterStatics) -> tuple[int, int]:
+               st: RasterStatics, tiles: torch.Tensor | None = None) -> tuple[int, int]:
     """(evaluations, hits) of a frame: the (pixel, pair) alpha evaluations
     both kernels make (every pair of each step a pixel enters live), and
     those whose alpha passes the cutoffs, where the kernels do the blend
-    or gradient work. What a kernel's bound counts."""
+    or gradient work. What a kernel's bound counts. ``tiles`` restricts
+    the count to a subset of tiles (all by default)."""
     evals = hits = 0
-    for s in _blend_steps(attrs, tile_start, tile_count, st, _all_tiles(tile_start, None))[2]:
+    for s in _blend_steps(attrs, tile_start, tile_count, st, _all_tiles(tile_start, tiles))[2]:
         evals += int(s.live.sum())
         hits += int((s.alpha > 0).sum())
     return evals, hits
@@ -371,10 +372,7 @@ _ARGTYPES = {  # the C entry points' parameters, in order (csrc/*.cu)
 
 
 def _kernel(name: str):
-    fn = getattr(_build.load(name), name)
-    fn.argtypes = _ARGTYPES[name]
-    fn.restype = ctypes.c_int
-    return fn
+    return _build.entry(name, name, _ARGTYPES[name])
 
 
 def rasterize_bins(bins, st: RasterStatics):
