@@ -5,14 +5,17 @@
 Drives the port's main paths — the 3DGS raster frame, ``render(prepared,
 camera, cfg)``, and the training step, ``train_step`` (render, loss,
 backward, Adam), each by the pair path (the default RenderConfig) and by
-the bucket path (``RasterConfig(method="bucket")``) — and checks them:
+the bucket path (``RasterConfig(method="bucket")``); then the 3DGUT and
+3DGRT raster frames (``Pipeline.MESH_3DGUT``, ``Pipeline.RTX``) and 3DGUT
+training on both paths — and checks them:
 
 1. builds the CUDA kernels from the checkout, one nvcc per source, all at
    once: the pair blender K1 (csrc/rasterize_fwd.cu) and its backward K2
    (csrc/rasterize_bwd.cu), the bucket rasterizer K3
    (csrc/raster_bucket_fwd.cu) and its backward K4
-   (csrc/raster_bucket_bwd.cu); prints their -Xptxas -v reports and the
-   card's name and power limit;
+   (csrc/raster_bucket_bwd.cu), each source holding the gs2d and the gut3d
+   form of its kernel (csrc/response.cuh); prints their -Xptxas -v reports
+   and the card's name and power limit;
 2. golden gate: the checked-in trained scene at 256x192 through K1, PSNR
    > 45 dB against assets/golden/golden_view0.npy, and K1 against its plain
    PyTorch twin over the whole frame; golden gradients at 128x96, SH 0: K2
@@ -42,12 +45,26 @@ the bucket path (``RasterConfig(method="bucket")``) — and checks them:
    no overflow, within 1e-4 of the pair frame, K3 against its twin over the
    frame; golden gradients, K4 against its twin (``bwd_gate``) and a
    central difference through ``render``; at full size, caps derived over
-   the 8 jittered frames with margin 1.25 (doubled once if a frame still
+   the 8 jittered frames with margin 1.25 from the EWA and the UT
+   projections (bench.py:164-183; doubled once if a frame still
    overflows), 8 frames with K3's launches counted, a bit-equal repeat,
    64 sampled tiles against the twin, the share of pixels within 2e-4 of
    the exact pair frame; 5 train steps with K3's and K4's launches
    counted, K4 against its twin on 64 sampled tiles, a bit-equal repeat
-   backward; timings and profiles as above.
+   backward; timings and profiles as above;
+8. the gut3d forms K1g-K4g (3DGUT, 3DGRT): golden-size 3DGUT frames on
+   both paths, K1g and K3g against their twins over the frame, bucket
+   against pair, the card against the CPU twin (flip-aware, with the
+   flipped pair-pixels counted); golden gradients, K2g and K4g against
+   their twins over the frame and a central difference of 4 opacities on
+   each path; one golden-size frame with fisheye, rolling shutter and DoF
+   at temporal_samples=4; at full size, 8 frames of 3DGUT and of 3DGRT on
+   each path with the gut3d launches counted, overflow reported, a
+   bit-equal repeat, frame_ms, K1g and K3g against twins on 64 sampled
+   tiles; 3DGUT training on each path (5 steps, launches counted, loss
+   falling, bit-equal repeat backward, K2g and K4g against twins on 64
+   sampled tiles, fwd_bwd_ms, train_step_ms); profiles of a 3DGUT frame
+   and train step by stage. The gut3d gates are flip-aware (``GUT_*``).
 
 Without a CUDA device it raises and prints no result. The last line is
 ``{"ok": true, "device": {...}}``; the line before it holds the kernel
@@ -88,20 +105,26 @@ from vk_gaussian_splatting_tpu_torch.ops.bucket_grid import (  # noqa: E402
     measure_required_caps,
     span_lengths,
 )
-from vk_gaussian_splatting_tpu_torch.ops.projection import project_splats  # noqa: E402
+from vk_gaussian_splatting_tpu_torch.ops.projection import (  # noqa: E402
+    project_splats,
+    ut_project_splats,
+)
 from vk_gaussian_splatting_tpu_torch.render import render  # noqa: E402
 from vk_gaussian_splatting_tpu_torch.render.pipelines import (  # noqa: E402
     bin_for_cfg,
+    blend_bins,
     bucket_statics,
     gs_attr_rows,
+    gut_bin,
     raster_statics,
 )
+from vk_gaussian_splatting_tpu_torch.render.rays import build_tile_rays  # noqa: E402
 from vk_gaussian_splatting_tpu_torch.scene.splat_set import random_splats  # noqa: E402
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 FIELDS = ("means", "scales", "quats", "opacities", "sh_dc", "sh_rest")
 GOLDEN = os.path.join(HERE, "assets", "golden")
-KERNELS = {  # name: (source, the TPU kernel it replaces)
+_SOURCES = {  # library: (source, the TPU kernel it replaces)
     "rasterize_fwd": ("vk_gaussian_splatting_tpu_torch/csrc/rasterize_fwd.cu",
                       "vk_gaussian_splatting_tpu/ops/rasterize_pallas.py:202"),
     "rasterize_bwd": ("vk_gaussian_splatting_tpu_torch/csrc/rasterize_bwd.cu",
@@ -111,6 +134,10 @@ KERNELS = {  # name: (source, the TPU kernel it replaces)
     "raster_bucket_bwd": ("vk_gaussian_splatting_tpu_torch/csrc/raster_bucket_bwd.cu",
                           "vk_gaussian_splatting_tpu/ops/raster_bucket.py:927"),
 }
+# report name: (library, source, the TPU kernel it replaces); the gut3d form
+# of each kernel is another entry point of the same source
+KERNELS = {name + suffix: (name, *_SOURCES[name])
+           for suffix in ("", "_gut3d") for name in _SOURCES}
 WIDTH, HEIGHT, SPLATS = 1920, 1080, 1_000_000  # the headline cell
 FRAMES = 8
 TRAIN_STEPS = 5
@@ -136,27 +163,37 @@ ID_AGREE = 0.999
 # zeroed (a wrong suffix).
 BWD_RTOL = 1e-4
 BWD_ELEM_RTOL, BWD_ELEM_SHARE = 1e-2, 0.999
-# The bound: f32 operations, each add, multiply, compare, select and exp
-# counted as one, as the kernels' sources spell them. Every (pixel, pair)
-# evaluation costs the alpha test (17: offsets 2, quadratic form 9, scale,
-# exp, opacity, 2 cutoffs, clamp); a hit, an evaluation whose alpha passes
-# the cutoffs, adds the blend in K1 (10: weight, 3 colour multiply-adds,
-# T update, depth pick) and in K2 about 44 for the gradient and 9 adds to
-# reduce the nine gradients over the tile (``ops/rasterize.blend_work``
-# counts both). The bucket kernels K3 and K4 do the same per evaluation and
-# hit, over each tile's merged window (``ops/raster_bucket.bucket_work``),
-# plus one operation per key comparison of the merge and, in K4, one add
-# per (row, tile, shared lane) of the reduce over the reading tiles.
-OPS_ALPHA = 17
+# The bound: f32 operations, each add, multiply, compare, select, exp,
+# sqrt and rsqrt counted as one, as the kernels' sources spell them
+# (csrc/response.cuh). Every (pixel, pair) evaluation costs the alpha test:
+# gs2d 17 (offsets 2, quadratic form 9, scale, exp, opacity, 2 cutoffs,
+# clamp), gut3d 68 (o - p 3, R^T (o - p) and R^T d 30, the two scalings 6,
+# the norm 6, rsqrt, normalising 3, the cross product 9, its square 5,
+# the degree-2 response 2, opacity, 2 cutoffs). A hit, an evaluation whose
+# alpha passes the cutoffs, adds the blend in K1 (10: weight, 3 colour
+# multiply-adds, T update, depth pick) and in K2 the blend's backward and
+# the model's VJP plus one add per gradient row to reduce it over the
+# tile: gs2d 44 + 9 = 53; gut3d 20 (dalpha, colours, T) + 176 (the VJP:
+# cross products 18, normalisation 37, R and the scales 45, position 18,
+# quaternion 58) + 14 = 210 (``ops/rasterize.blend_work`` counts
+# evaluations and hits). The bucket kernels K3 and K4 do the same per
+# evaluation and hit, over each tile's merged window
+# (``ops/raster_bucket.bucket_work``), plus one operation per key
+# comparison of the merge and, in K4, one add per (row, tile, shared lane)
+# of the reduce over the reading tiles.
+OPS_ALPHA = {"gs2d": 17, "gut3d": 68}
 OPS_PER_HIT = {"rasterize_fwd": 10, "rasterize_bwd": 53,
-               "raster_bucket_fwd": 10, "raster_bucket_bwd": 53}
+               "raster_bucket_fwd": 10, "raster_bucket_bwd": 53,
+               "rasterize_fwd_gut3d": 10, "rasterize_bwd_gut3d": 210,
+               "raster_bucket_fwd_gut3d": 10, "raster_bucket_bwd_gut3d": 210}
 # the bucket frame against the exact pair frame: they freeze pixels at
 # different lanes (bucket_chunk 384 against chunk 128) and may order exactly
 # equal depths apart, so a share of pixels, not the max
 BUCKET_VS_PAIR_ATOL, BUCKET_VS_PAIR_SHARE = 2e-4, 0.999
 TWIN_BATCH = 1024  # tiles per twin call at 1080p: a (1024, 256, 384) f32 step is 0.4 GB
 # the stage spans that render_3dgs and train_step open, in step order
-STAGES = ("prepare", "project", "bin", "blend", "assemble", "loss", "backward", "optimizer")
+STAGES = ("prepare", "project", "bin", "rays", "blend", "assemble", "loss", "backward",
+          "optimizer")
 PEAK_F32_OPS = 67e12   # H100 SXM, f32 outside the tensor cores
 PEAK_BYTES = 3.35e12   # H100 SXM HBM3
 
@@ -217,31 +254,32 @@ def row_typical(mag):
                         for r in mag])[:, None]
 
 
-def bwd_gate(d_k, d_r):
+def bwd_gate(d_k, d_r, rtol=BWD_RTOL):
     """(passes, max abs err, max err / row max, least share over the rows
     of values inside the elementwise limit, each row's 99.9th percentile
     of |err| / (|ref| + row median)) of gradient rows ``d_k`` against
-    reference rows ``d_r``."""
+    reference rows ``d_r``; ``rtol`` bounds the max err / row max."""
     diff, mag = (d_k - d_r).abs(), d_r.abs()
     rel = (diff / mag.amax(dim=1, keepdim=True).clamp_min(1e-30)).max().item()
     ratio = diff / (mag + row_typical(mag)).clamp_min(1e-30)
     share = (ratio <= BWD_ELEM_RTOL).float().mean(dim=1).min().item()
     p999 = torch.quantile(ratio, 0.999, dim=1).tolist()
-    return rel <= BWD_RTOL and share >= BWD_ELEM_SHARE, diff.max().item(), rel, share, p999
+    return rel <= rtol and share >= BWD_ELEM_SHARE, diff.max().item(), rel, share, p999
 
 
-def gate_bwd_against_twin(label, d_k, twin, ctx, cols):
+def gate_bwd_against_twin(label, d_k, twin, ctx, cols, grad_rows=tr.GRAD_ROWS,
+                          rtol=BWD_RTOL):
     """(max abs err, max err relative to each row's max) of a backward
-    kernel's d_attrs ``d_k`` against ``twin(ctx)`` on the columns ``cols``.
-    Fails unless ``bwd_gate`` passes, and unless it rejects the twin on two
-    broken contexts."""
+    kernel's d_attrs ``d_k`` against ``twin(ctx)`` on the columns ``cols``,
+    over its ``grad_rows`` gradient rows. Fails unless ``bwd_gate`` passes
+    (at ``rtol``), and unless it rejects the twin on two broken contexts."""
     d_k, d_r = d_k[:, cols], twin(ctx)[:, cols]
-    check(bool((d_k[tr.GRAD_ROWS:] == 0).all()), f"{label} wrote the depth row")
-    d_k, d_r = d_k[:tr.GRAD_ROWS], d_r[:tr.GRAD_ROWS]
-    ok, abs_err, rel_err, share, p999 = bwd_gate(d_k, d_r)
+    check(bool((d_k[grad_rows:] == 0).all()), f"{label} wrote the depth row")
+    d_k, d_r = d_k[:grad_rows], d_r[:grad_rows]
+    ok, abs_err, rel_err, share, p999 = bwd_gate(d_k, d_r, rtol)
     typical = row_typical(d_r.abs()) / d_r.abs().amax(dim=1, keepdim=True).clamp_min(1e-30)
     log(f"  {label} vs twin on {d_r.shape[1]} columns: max err / row max {rel_err:.3e} "
-        f"(gate {BWD_RTOL:g}); least share per row within {BWD_ELEM_RTOL:g} (|ref| + "
+        f"(gate {rtol:g}); least share per row within {BWD_ELEM_RTOL:g} (|ref| + "
         f"row median) {share:.6f} (gate {BWD_ELEM_SHARE}); per row, p99.9 of that ratio: "
         + " ".join(f"{x:.2e}" for x in p999) + "; median nonzero |ref| / row max: "
         + " ".join(f"{x:.2e}" for x in typical.flatten().tolist()))
@@ -250,7 +288,7 @@ def gate_bwd_against_twin(label, d_k, twin, ctx, cols):
     warp_out[:, :, 96:128] = 0.0
     no_suffix[:, 3] = 0.0
     for what, bad in (("one warp's cotangent zeroed", warp_out), ("S_total zeroed", no_suffix)):
-        ok, _, bad_rel, bad_share, _ = bwd_gate(twin(bad)[:tr.GRAD_ROWS, cols], d_r)
+        ok, _, bad_rel, bad_share, _ = bwd_gate(twin(bad)[:grad_rows, cols], d_r, rtol)
         log(f"  gate self-check, twin with {what}: max err / row max {bad_rel:.3e}, "
             f"share within {bad_share:.6f}, rejected={not ok}")
         check(not ok, f"the {label} gate passed a twin with {what}")
@@ -284,7 +322,8 @@ def sample_tiles(bins, st, dev, seed):
 def kernel_bound(name: str, evals: int, hits: int, bytes_moved: int, extra_ops: int = 0):
     """(bound ms, what bounds it): the larger of the f32 operations over the
     card's f32 peak and the bytes over its memory rate."""
-    t_ops = (evals * OPS_ALPHA + hits * OPS_PER_HIT[name] + extra_ops) / PEAK_F32_OPS * 1e3
+    per_eval = OPS_ALPHA["gut3d" if name.endswith("_gut3d") else "gs2d"]
+    t_ops = (evals * per_eval + hits * OPS_PER_HIT[name] + extra_ops) / PEAK_F32_OPS * 1e3
     t_bytes = bytes_moved / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -752,11 +791,12 @@ def sample_bucket_tiles(bins, st, dev, seed):
 
 def fitted_caps(prepared, cams, cfg, margin=1.25):
     """(caps, required): the per-class requirement measured over ``cams``
-    from the EWA projection (bench.py:164-183; 3DGUT is not ported, so its
-    projection is not measured), fitted with ``margin``."""
+    from both the EWA and the UT projection (bench.py:164-183: EWA feeds
+    3DGS, UT feeds 3DGUT and 3DGRT), fitted with ``margin``."""
     spec = BucketGridSpec.build(-(-cfg.width // 16), -(-cfg.height // 16))
-    req = torch.stack([measure_required_caps(project_splats(prepared, c, cfg), spec)
-                       for c in cams]).amax(dim=0)
+    req = torch.stack([measure_required_caps(project(prepared, c, cfg), spec)
+                       for c in cams for project in (project_splats, ut_project_splats)]
+                      ).amax(dim=0)
     req = [int(x) for x in req.tolist()]
     return fit_caps(req, margin=margin), req
 
@@ -847,7 +887,7 @@ def bucket_full_size(dev, card: str, prepared, seed: int):
     if bumped:  # bench.py:225-235: double once, never quietly truncate
         caps = tuple(2 * c for c in caps)
         bcfg = bucket_cfg(cfg, caps)
-    log(f"bucket caps 1080p/1M (EWA projection only; 3DGUT not ported): required={req} "
+    log(f"bucket caps 1080p/1M (EWA and UT projections): required={req} "
         f"fitted={list(caps)} caps_bumped={bumped}")
     torch.cuda.synchronize()
 
@@ -1010,15 +1050,545 @@ def bucket_train_full_size(dev, card: str, truth: gt.SplatSet, caps, seed: int):
     return dict(launches=launches[1], max_abs_err=abs_err, ms=t_k4, plain_ms=t_twin)
 
 
+# ---- the gut3d model: 3DGUT (MESH_3DGUT) and 3DGRT (RTX), K1g-K4g --------
+
+# Kernel against twin, card against CPU, gut3d (tests/test_torch_cuda.py,
+# verify SKILL): alphas are rounded alike, but a ray-response cutoff
+# (resp > kernel_min_response) that one side's rounding flips drops a whole
+# pair-pixel, moving the pixel by up to about kernel_min_response *
+# opacity ~ 1.1e-2. So a share within KERNEL_ATOL and a cap, never the max
+# alone; gradient rows within 2e-3 of the row's max plus the elementwise
+# gate. Each comparison logs how far the flips went.
+GUT_SHARE, GUT_MAX, GUT_BWD_RTOL = 0.999, 1.2e-2, 2e-3
+GUT_TAIL, GUT_CUT_ALPHA_MIN = 2e-2, 0.02  # gut_bucket_vs_pairs
+GUT_TWIN_BATCH = 256  # tiles per gut3d twin call at 1080p
+GUT_PIPELINES = (("3dgut", gt.Pipeline.MESH_3DGUT), ("3dgrt", gt.Pipeline.RTX))
+GRAD_ROWS_GUT = 14
+
+
+def gut_cfg(cfg, pipeline=gt.Pipeline.MESH_3DGUT, method="pairs", caps=None, **kw):
+    raster = dataclasses.replace(cfg.raster, method=method,
+                                 bucket_caps=tuple(caps or cfg.raster.bucket_caps))
+    return cfg.replace(pipeline=pipeline, raster=raster, **kw)
+
+
+def gut_stages(prepared, cam, cfg, max_pairs=0):
+    """render_3dgut's / render_3dgrt's stages for one temporal sample, as
+    ``frame_stages``: project, bin, rays, blend, assemble."""
+    c = {}
+    grt = cfg.pipeline == gt.Pipeline.RTX
+
+    def project():
+        c["proj"] = ut_project_splats(prepared, cam, cfg)
+
+    def bin_():
+        c["bins"], c["st"] = gut_bin(prepared, c["proj"], cam, cfg, max_pairs, radial_order=grt)
+
+    def rays():
+        c["pix"] = build_tile_rays(cam, cfg)
+
+    def blend():
+        c["out"] = blend_bins(c["bins"], cfg, c["st"], c["pix"])
+
+    def assemble():
+        c["image"] = tr.assemble_image(*c["out"], c["st"].tiles_x, c["st"].tiles_y, cfg.width,
+                                       cfg.height, cfg.background)[0]
+
+    return [("project", project), ("bin", bin_), ("rays", rays), ("blend", blend),
+            ("assemble", assemble)], c
+
+
+def run_stages(stages):
+    for _, step in stages:
+        step()
+
+
+def blend_st(c, cfg):
+    """The statics the blend ran with (the bucket chunk on the bucket path)."""
+    if cfg.raster.method == "bucket":
+        return dataclasses.replace(c["st"], chunk=cfg.raster.bucket_chunk)
+    return c["st"]
+
+
+def tile_batches(st, dev, tiles=None):
+    """``tiles`` (all by default) in batches of GUT_TWIN_BATCH: a gut3d
+    twin keeps about 80 (tiles, 256, chunk) f32 intermediates."""
+    if tiles is None:
+        tiles = torch.arange(st.tiles_x * st.tiles_y, device=dev)
+    return [tiles[a:a + GUT_TWIN_BATCH] for a in range(0, tiles.shape[0], GUT_TWIN_BATCH)]
+
+
+@torch.no_grad()
+def gut_twin(c, cfg, tiles=None):
+    """K1g's or K3g's twin over ``tiles`` (all by default), in batches."""
+    bins, st, pix = c["bins"], blend_st(c, cfg), c["pix"]
+    parts = []
+    for t in tile_batches(st, pix.device, tiles):
+        if cfg.raster.method == "bucket":
+            parts.append(rb.rasterize_buckets_ref(bins.attrs.detach(), bins.ids,
+                                                  bins.bucket_starts, st, cfg.raster.bucket_caps,
+                                                  tiles=t, pix_ctx=pix))
+        else:
+            parts.append(tr.rasterize_tiles_ref(bins.attrs.detach(), bins.pair_id,
+                                                bins.tile_start, bins.tile_count, st, tiles=t,
+                                                pix_ctx=pix))
+    return torch.cat([o for o, _ in parts]), torch.cat([i for _, i in parts])
+
+
+@torch.no_grad()
+def gut_twin_bwd(c, cfg, ctx, tiles=None):
+    """K2g's or K4g's twin over ``tiles`` (all by default), in batches."""
+    bins, st, pix = c["bins"], blend_st(c, cfg), c["pix"]
+    total = 0
+    for t in tile_batches(st, pix.device, tiles):
+        if cfg.raster.method == "bucket":
+            total = total + rb.rasterize_buckets_bwd_ref(
+                bins.attrs.detach(), bins.bucket_starts, ctx, st, cfg.raster.bucket_caps,
+                tiles=t, pix_ctx=pix)
+        else:
+            total = total + tr.rasterize_tiles_bwd_ref(
+                bins.attrs.detach(), bins.tile_start, bins.tile_count, ctx, st, tiles=t,
+                pix_ctx=pix)
+    return total
+
+
+def gut_kernel_bwd(c, cfg, ctx):
+    bins, st, pix = c["bins"], blend_st(c, cfg), c["pix"]
+    if cfg.raster.method == "bucket":
+        return rb.rasterize_buckets_bwd(bins.attrs.detach(), bins.bucket_starts, ctx, st,
+                                        cfg.raster.bucket_caps, pix)
+    return tr.rasterize_tiles_bwd(bins.attrs.detach(), bins.tile_start, bins.tile_count, ctx,
+                                  st, pix)
+
+
+def gut_fwd_gate(label, out_k, id_k, out_r, id_r):
+    """(max abs err, share within KERNEL_ATOL, id agreement) of a gut3d
+    forward against a reference, flip-aware; fails outside the gates."""
+    diff = (out_k[:, :4] - out_r[:, :4]).abs()
+    err = diff.max().item() if diff.numel() else 0.0
+    share = (diff <= KERNEL_ATOL).float().mean().item() if diff.numel() else 1.0
+    agree = (id_k == id_r).float().mean().item()
+    log(f"  {label}: max abs {err:.3e}, share within {KERNEL_ATOL:g} {share:.6f} (gate "
+        f"{GUT_SHARE}, cap {GUT_MAX:g}), values beyond {int((diff > KERNEL_ATOL).sum())}, "
+        f"id agreement {agree:.6f}")
+    check(share >= GUT_SHARE and err <= GUT_MAX, f"{label} outside the gut3d gates")
+    check(agree >= ID_AGREE, f"{label} id agreement {agree}")
+    return err
+
+
+def compare_gut_kernel(label, c, cfg, tiles=None):
+    """K1g or K3g (the blend ``c`` ran) against its twin on ``tiles``."""
+    out_k, id_k = c["out"]
+    out_r, id_r = gut_twin(c, cfg, tiles)
+    if tiles is not None:
+        out_k, id_k = out_k[tiles], id_k[tiles]
+    torch.cuda.synchronize()
+    return gut_fwd_gate(label, out_k.detach(), id_k, out_r, id_r)
+
+
+def compare_gut_bwd(label, c, cfg, ctx, tiles=None):
+    """K2g or K4g against its twin on the columns ``tiles`` read (all by
+    default; the context zeroed outside them, as compare_k4_with_twin)."""
+    if tiles is not None:
+        keep = torch.zeros(ctx.shape[0], dtype=torch.bool, device=ctx.device)
+        keep[tiles] = True
+        ctx = ctx * keep[:, None, None]
+    d_k = gut_kernel_bwd(c, cfg, ctx)
+
+    def twin(cx):
+        return gut_twin_bwd(c, cfg, cx, tiles)
+
+    cols = ((d_k != 0) | (twin(ctx) != 0)).any(dim=0)
+    return gate_bwd_against_twin(label, d_k, twin, ctx, cols, GRAD_ROWS_GUT, GUT_BWD_RTOL)
+
+
+@torch.no_grad()
+def count_flips(c, n_tiles=64):
+    """(flipped, hits) pair-pixels of a gut3d pair frame: alpha > 0 on the
+    card but not on the CPU twin or the reverse, over the first tiles with
+    pairs, from the same attributes and rays."""
+    bins, st, pix = c["bins"], c["st"], c["pix"]
+    tiles = torch.nonzero(bins.tile_count > 0).flatten()[:n_tiles]
+    flipped = hits = 0
+    steps = [tr._blend_steps(bins.attrs.detach().to(dev), bins.tile_start.to(dev),
+                             bins.tile_count.to(dev), st, tiles.to(dev), pix.to(dev))[1]
+             for dev in (pix.device, torch.device("cpu"))]
+    for a, b in zip(*steps):
+        flipped += int(((a.alpha > 0).cpu() != (b.alpha > 0)).sum())
+        hits += int((b.alpha > 0).sum())
+    return flipped, hits
+
+
+def golden_gut(dev):
+    """3DGUT on the golden scene: 256x192 frames on both paths, K1g and K3g
+    against their twins over the frame, bucket against pair; at 128x96 the
+    card against the CPU twin (flip-aware; flipped pair-pixels counted), K2g
+    and K4g against their twins over the frame with the cotangent of
+    sum(image^2), and a central difference of 4 opacities on each path."""
+    meta = json.load(open(os.path.join(GOLDEN, "meta.json")))
+    w, h = meta["recipe"]["res"]
+    splats = load_ply(os.path.join(GOLDEN, "golden_scene.ply"), device=dev)
+    prepared = splats.prepare()
+    base = gt.RenderConfig(width=w, height=h, sh_degree=0)
+    cam = gt.look_at([0, -1.5, -7.0], [0, 0.5, 0], [0, 1, 0], w, h, fov_y_rad=0.9, device=dev)
+    caps, req = fitted_caps(prepared, [cam], base)
+    errs = {}
+    frames = {}
+    for method in ("pairs", "bucket"):
+        cfg = gut_cfg(base, method=method, caps=caps)
+        stages, c = gut_stages(prepared, cam, cfg)
+        run_stages(stages)
+        frames[method] = render(prepared, cam, cfg)
+        check(not bool(frames[method].overflow) or method == "pairs",
+              "golden 3DGUT bucket frame overflowed")
+        errs[method] = compare_gut_kernel(f"golden 3DGUT {method}: kernel vs twin over the frame",
+                                          c, cfg)
+    ref = torch.from_numpy(np.load(os.path.join(GOLDEN, "golden_view0.npy"))
+                           .astype(np.float32)).to(dev)
+    mse = torch.mean((frames["pairs"].image.clamp(0, 1) - ref) ** 2).item()
+    diff = (frames["bucket"].image - frames["pairs"].image).abs()
+    share = (diff <= BUCKET_VS_PAIR_ATOL).float().mean().item()
+    log(f"golden 3DGUT: {w}x{h} caps={list(caps)} required={req} psnr_vs_3dgs_golden_db="
+        f"{10 * math.log10(1.0 / max(mse, 1e-12)):.3f} (informative: 3DGUT of a 3DGS-trained "
+        f"scene) bucket_vs_pair share within {BUCKET_VS_PAIR_ATOL:g} {share:.6f} max "
+        f"{diff.max().item():.3e}")
+    check(share >= BUCKET_VS_PAIR_SHARE and diff.max().item() <= GUT_MAX,
+          f"golden 3DGUT bucket vs pair frame: share {share}")
+
+    # gradients and the card against the CPU at 128x96
+    cfg_s = gt.RenderConfig(width=128, height=96, sh_degree=0)
+    cam_s = gt.look_at([0, -1.5, -7.0], [0, 0.5, 0], [0, 1, 0], 128, 96, fov_y_rad=0.9,
+                       device=dev)
+    caps_s, _ = fitted_caps(prepared, [cam_s], cfg_s)
+    cpu_splats = load_ply(os.path.join(GOLDEN, "golden_scene.ply"), device="cpu")
+    cam_cpu = gt.look_at([0, -1.5, -7.0], [0, 0.5, 0], [0, 1, 0], 128, 96, fov_y_rad=0.9,
+                         device="cpu")
+    bwd_errs = {}
+    for method in ("pairs", "bucket"):
+        cfg = gut_cfg(cfg_s, method=method, caps=caps_s)
+        card = render(prepared, cam_s, cfg)
+        cpu = render(cpu_splats.prepare(), cam_cpu, cfg)
+        d = (card.image.cpu() - cpu.image).abs().flatten()
+        n_far = int((d > 5e-5).sum())
+        log(f"golden 3DGUT {method} 128x96, card vs CPU twin: max abs {d.max().item():.3e}, "
+            f"channels beyond 5e-5 {n_far} of {d.numel()}, ids agree "
+            f"{(card.splat_id.cpu() == cpu.splat_id).float().mean().item():.6f}")
+        check(n_far <= d.numel() // 1000 and d.max().item() <= GUT_MAX,
+              f"golden 3DGUT {method} card vs CPU outside the flip-aware gate")
+        stages, c = gut_stages(prepared, cam_s, cfg)
+        run_stages(stages)
+        if method == "pairs":
+            flipped, hits = count_flips(c)
+            log(f"golden 3DGUT pairs, card twin vs CPU twin alphas on 64 tiles: {flipped} "
+                f"flipped pair-pixels of {hits} hits")
+        out = c["out"][0].detach().requires_grad_()
+        image = tr.assemble_image(out, c["out"][1], c["st"].tiles_x, c["st"].tiles_y,
+                                  cfg.width, cfg.height, cfg.background)[0]
+        (g_out,) = torch.autograd.grad((image ** 2).sum(), out)
+        label = "K2g" if method == "pairs" else "K4g"
+        bwd_errs[method], rel = compare_gut_bwd(f"golden {label}", c, cfg,
+                                                tr.bwd_context(out.detach(), g_out))
+
+        def loss(op):
+            s = dataclasses.replace(splats, opacities=op)
+            return torch.sum(render(s.prepare(), cam_s, cfg).image.double() ** 2)
+
+        op0 = splats.opacities.clone().requires_grad_()
+        loss(op0).backward()
+        g = op0.grad
+        big = torch.nonzero(g.abs() > torch.quantile(g.abs(), 0.99)).flatten()
+        idx = big[torch.randperm(big.numel(), device=dev,
+                                 generator=torch.Generator(device=dev).manual_seed(0))[:4]]
+        eps, worst = 1e-2, 0.0
+        with torch.no_grad():
+            for i in idx.tolist():
+                op = splats.opacities.clone()
+                op[i] += eps
+                lp = loss(op).item()
+                op[i] -= 2 * eps
+                lm = loss(op).item()
+                fd, gi = (lp - lm) / (2 * eps), g[i].item()
+                worst = max(worst, abs(fd - gi) / max(abs(fd), abs(gi), 1.0))
+        log(f"golden 3DGUT gradients {method} 128x96: {label}_vs_twin_max_abs="
+            f"{bwd_errs[method]:.3e} max_rel_to_row_max={rel:.3e} "
+            f"central_difference_worst_rel={worst:.3e}")
+        check(worst < 2e-2, f"golden 3DGUT {method} central difference off by {worst}")
+    return errs, bwd_errs
+
+
+def gut_camera_effects(dev):
+    """One golden-size 3DGUT frame with a fisheye camera, a rolling shutter
+    (the end pose 0.3 to the right) and thin-lens DoF at temporal_samples=4:
+    finite, one K1g launch per sample, and changed by the aperture."""
+    meta = json.load(open(os.path.join(GOLDEN, "meta.json")))
+    w, h = meta["recipe"]["res"]
+    prepared = load_ply(os.path.join(GOLDEN, "golden_scene.ply"), device=dev).prepare()
+    cfg = gut_cfg(gt.RenderConfig(width=w, height=h, sh_degree=0,
+                                  camera_type=gt.CameraType.FISHEYE,
+                                  shutter=gt.ShutterType.ROLLING_TOP_TO_BOTTOM,
+                                  temporal_samples=4))
+    cam = gt.look_at([0, -1.5, -7.0], [0, 0.5, 0], [0, 1, 0], w, h, fov_y_rad=0.9, device=dev)
+    vm_end = cam.viewmat.clone()
+    vm_end[0, 3] -= 0.3
+    cam = dataclasses.replace(cam, viewmat_end=vm_end)
+    dof = dataclasses.replace(cam, aperture=torch.tensor(0.15, device=dev),
+                              focus_dist=torch.tensor(7.0, device=dev))
+    tr.rasterize_tiles.launches_gut3d = 0
+    sharp, blurred = render(prepared, cam, cfg), render(prepared, dof, cfg)
+    torch.cuda.synchronize()
+    launches = tr.rasterize_tiles.launches_gut3d
+    change = (sharp.image - blurred.image).abs().max().item()
+    log(f"golden 3DGUT fisheye + rolling shutter + DoF, temporal_samples=4: launches={launches} "
+        f"(2 frames), finite={bool(torch.isfinite(blurred.image).all())}, max change by the "
+        f"aperture {change:.4e}, covered_frac={(blurred.transmittance < 0.5).float().mean().item():.4f}")
+    check(launches == 8, f"{launches} K1g launches for 2 frames of 4 samples")
+    check(bool(torch.isfinite(blurred.image).all()), "non-finite DoF frame")
+    check(change > 1e-3, "the aperture did not change the frame")
+
+
+@torch.no_grad()
+def gut_work(c, cfg):
+    """(evals, hits, BucketWork or None) of a gut3d frame, in tile batches."""
+    bins, st, pix = c["bins"], blend_st(c, cfg), c["pix"]
+    if cfg.raster.method == "bucket":
+        parts = [rb.bucket_work(bins.attrs.detach(), bins.bucket_starts, st,
+                                cfg.raster.bucket_caps, tiles=t, pix_ctx=pix)
+                 for t in tile_batches(st, pix.device)]
+        work = rb.BucketWork(*(sum(p[i] for p in parts) for i in range(len(parts[0]))))
+        return work.evals, work.hits, work
+    evals = hits = 0
+    for t in tile_batches(st, pix.device):
+        e, h_ = tr.blend_work(bins.attrs.detach(), bins.tile_start, bins.tile_count, st, tiles=t,
+                              pix_ctx=pix)
+        evals, hits = evals + e, hits + h_
+    return evals, hits, None
+
+
+def gut_bounds(c, cfg):
+    """The gut3d kernels' bounds at this frame (both directions)."""
+    evals, hits, work = gut_work(c, cfg)
+    n_tiles = c["st"].tiles_x * c["st"].tiles_y
+    rays = n_tiles * tr.PIX * 6 * 4
+    if work is None:
+        n_pairs = int(c["bins"].num_pairs)
+        fwd = n_pairs * (15 * 4 + 4) + n_tiles * (8 + tr.PIX * (tr.OUT_ROWS * 4 + 4)) + rays
+        bwd = n_pairs * 2 * GRAD_ROWS_GUT * 4 + n_tiles * (8 + tr.PIX * tr.CTX_ROWS * 4) + rays
+        bounds = {"rasterize_fwd_gut3d": kernel_bound("rasterize_fwd_gut3d", evals, hits, fwd),
+                  "rasterize_bwd_gut3d": kernel_bound("rasterize_bwd_gut3d", evals, hits, bwd)}
+        log(f"bound gut3d pairs: live_pairs={n_pairs} pixel_pair_evaluations={evals} "
+            f"hits={hits} hit_share={hits / max(evals, 1):.4f} "
+            + " ".join(f"{k}_bound_ms={v[0]:.4f} ({v[1]})" for k, v in bounds.items()))
+        return bounds
+    p = c["bins"].attrs.shape[1]
+    head = n_tiles * (12 * 4 + 12 * 4)
+    fwd = work.live * (15 * 4 + 4) + head + n_tiles * tr.PIX * (tr.OUT_ROWS * 4 + 4) + rays
+    bwd = (work.live * GRAD_ROWS_GUT * 4 + head + n_tiles * tr.PIX * tr.CTX_ROWS * 4 + rays
+           + p * GRAD_ROWS_GUT * 4)
+    bounds = {"raster_bucket_fwd_gut3d": kernel_bound("raster_bucket_fwd_gut3d", evals, hits,
+                                                      fwd, work.comparisons),
+              "raster_bucket_bwd_gut3d": kernel_bound("raster_bucket_bwd_gut3d", evals, hits,
+                                                      bwd, work.comparisons
+                                                      + work.shared * GRAD_ROWS_GUT)}
+    log(f"bound gut3d bucket: live_candidates={work.live} shared={work.shared} "
+        f"pixel_lane_evaluations={evals} hits={hits} hit_share={hits / max(evals, 1):.4f} "
+        f"merge_comparisons={work.comparisons} "
+        + " ".join(f"{k}_bound_ms={v[0]:.4f} ({v[1]})" for k, v in bounds.items()))
+    return bounds
+
+
+def gut_bucket_vs_pairs(prepared, cam, cfg, bucket_out):
+    """The 3DGUT bucket frame against the exact pair frame. The pair path
+    blends a splat only in the tiles of its UT rect, which bounds the
+    extent where opacity * response >= 0.01; the bucket path blends every
+    candidate of a tile's window, so it also adds a mid or coarse splat's
+    tail beyond its rect, where alpha lies between alpha_min (1/255) and
+    about 0.01. So at the default alpha_min the frames differ by up to
+    about 0.01 per tail (gate: >= 99.9 % of pixels within GUT_TAIL); with
+    the tails cut (alpha_min 0.02 on both paths) they must agree as the
+    gs2d paths do (BUCKET_VS_PAIR_ATOL on >= 99.9 % of pixels)."""
+    exact_cfg = cfg.replace(raster=dataclasses.replace(cfg.raster, method="pairs",
+                                                       expansion="exact"))
+    for alpha_min in (cfg.raster.alpha_min, GUT_CUT_ALPHA_MIN):
+        def with_alpha_min(c):
+            return c.replace(raster=dataclasses.replace(c.raster, alpha_min=alpha_min))
+
+        bucket = (bucket_out if alpha_min == cfg.raster.alpha_min
+                  else render(prepared, cam, with_alpha_min(cfg)))
+        exact = render(prepared, cam, with_alpha_min(exact_cfg), max_pairs=1 << 22)
+        diff = (bucket.image - exact.image).abs().amax(dim=-1)
+        atol = GUT_TAIL if alpha_min == cfg.raster.alpha_min else BUCKET_VS_PAIR_ATOL
+        share = (diff <= atol).float().mean().item()
+        log(f"3dgut bucket vs exact pair frame, alpha_min {alpha_min:.6g}: share of pixels "
+            f"within {BUCKET_VS_PAIR_ATOL:g} {(diff <= BUCKET_VS_PAIR_ATOL).float().mean().item():.6f}"
+            f", within {atol:g} {share:.6f} (gate {BUCKET_VS_PAIR_SHARE}), max abs "
+            f"{diff.max().item():.4e}, exact overflow={bool(exact.overflow)}")
+        check(not bool(exact.overflow) and share >= BUCKET_VS_PAIR_SHARE,
+              f"3dgut bucket vs pair at alpha_min {alpha_min}: share {share}")
+
+
+def gut_full_size(dev, card: str, prepared, caps, seed: int):
+    """3DGUT and 3DGRT frames at 1080p with 1M splats on both paths, at the
+    caps derived over both projections; returns K1g's and K3g's report
+    entries and the four gut3d kernels' bounds."""
+    base = gt.RenderConfig(width=WIDTH, height=HEIGHT, sh_degree=3)
+    cam = gt.look_at([0, 0, -7], [0, 0, 0], [0, 1, 0], WIDTH, HEIGHT, fov_y_rad=0.9, device=dev)
+    entries, bounds = {}, {}
+    for label, pipeline in GUT_PIPELINES:
+        for method in ("pairs", "bucket"):
+            cfg = gut_cfg(base, pipeline, method, caps)
+            fwd = rb.rasterize_buckets if method == "bucket" else tr.rasterize_tiles
+            torch.cuda.synchronize()
+            # ---- the main path: FRAMES frames through render(), launches counted
+            fwd.launches = fwd.launches_gut3d = 0
+            outs = [render(prepared, jitter(cam, i), cfg) for i in range(FRAMES)]
+            torch.cuda.synchronize()
+            launches = (fwd.launches_gut3d, fwd.launches)
+            log(f"{label} {method} main path: {FRAMES} frames, gut3d launches={launches[0]} "
+                f"gs2d launches={launches[1]}")
+            check(launches == (FRAMES, 0), f"{launches} launches for {FRAMES} {label} frames")
+            for o in outs:
+                check(tuple(o.image.shape) == (HEIGHT, WIDTH, 3), f"{label} image shape")
+                check(bool(torch.isfinite(o.image).all()), f"non-finite {label} image")
+                check(bool(((o.transmittance >= 0) & (o.transmittance <= 1)).all()),
+                      f"{label} transmittance outside [0, 1]")
+                check(method == "pairs" or not bool(o.overflow),
+                      f"a {label} bucket frame overflowed at the derived caps")
+            o0 = outs[0]
+            del outs
+            again = render(prepared, jitter(cam, 0), cfg)
+            torch.cuda.synchronize()
+            bit_equal = all(torch.equal(getattr(again, f), getattr(o0, f))
+                            for f in ("image", "transmittance", "depth", "splat_id"))
+            covered = (o0.transmittance < 0.5).float().mean().item()
+            log(f"{label} {method} frame: overflow={bool(o0.overflow)} num_pairs="
+                f"{int(o0.num_pairs)} covered_frac={covered:.4f} repeat bit-equal: {bit_equal}")
+            check(bit_equal, f"repeat {label} {method} render differs")
+            check(covered > 0.05, f"the {label} frame covers almost nothing")
+            if label == "3dgut" and method == "bucket":
+                gut_bucket_vs_pairs(prepared, jitter(cam, 0), cfg, o0)
+            del again, o0
+            t_frame = median(time_ms(lambda: render(prepared, cam, cfg), 10))
+            log(f"timing 1080p/1M {label} {method} ({card}): frame_ms={t_frame:.4f}")
+            if label != "3dgut":
+                continue
+            # ---- the kernel against its twin on 64 sampled tiles, stages, bounds
+            stages, c = gut_stages(prepared, cam, cfg)
+            t = {stage: median(time_ms(step, 10)) for stage, step in stages}
+            log(f"timing 1080p/1M 3dgut {method} stages ({card}): "
+                + " ".join(f"{k}_ms={v:.4f}" for k, v in t.items()))
+            if method == "bucket":
+                tiles = sample_bucket_tiles(c["bins"], c["st"], dev, seed)
+            else:
+                tiles = sample_tiles(c["bins"], c["st"], dev, seed)
+            kname = "K3g" if method == "bucket" else "K1g"
+            err = compare_gut_kernel(f"{kname} vs twin on {tiles.numel()} sampled 1080p tiles",
+                                     c, cfg, tiles)
+            bounds.update(gut_bounds(c, cfg))
+            t_plain = median(time_ms(lambda: gut_twin(c, cfg), 1, warmup=1))
+            log(f"timing {kname} 1080p/1M ({card}): kernel_ms={t['blend']:.4f} "
+                f"plain_twin_ms={t_plain:.4f}")
+            name = "raster_bucket_fwd_gut3d" if method == "bucket" else "rasterize_fwd_gut3d"
+            entries[name] = dict(launches=launches[0], max_abs_err=err, ms=t["blend"],
+                                 plain_ms=t_plain)
+            del stages, c
+            if method == "pairs":
+                profile_calls("3dgut pairs", lambda: render(prepared, cam, cfg), card)
+    return entries, bounds
+
+
+def gut_train_full_size(dev, card: str, truth: gt.SplatSet, caps, seed: int):
+    """3DGUT training at 1080p with 1M splats on both paths: the scene
+    renders its own target; training starts from seeded jitter on means and
+    sh_dc. Returns K2g's and K4g's report entries."""
+    base = gt.RenderConfig(width=WIDTH, height=HEIGHT, sh_degree=3)
+    cam = gt.look_at([0, 0, -7], [0, 0, 0], [0, 1, 0], WIDTH, HEIGHT, fov_y_rad=0.9, device=dev)
+    tc = gt.TrainConfig(scene_extent=4.0)
+    entries = {}
+    for method in ("pairs", "bucket"):
+        cfg = gut_cfg(base, method=method, caps=caps)
+        fwd = rb.rasterize_buckets if method == "bucket" else tr.rasterize_tiles
+        bwd = rb.rasterize_buckets_bwd if method == "bucket" else tr.rasterize_tiles_bwd
+        with torch.no_grad():
+            target = render(truth.prepare(), cam, cfg).image
+        g = torch.Generator(device=dev).manual_seed(seed + 100)
+        fields = {f: getattr(truth, f).detach().clone() for f in FIELDS}
+        fields["means"] += 1e-3 * torch.randn(fields["means"].shape, generator=g, device=dev)
+        fields["sh_dc"] += 0.3 * torch.randn(fields["sh_dc"].shape, generator=g, device=dev)
+        splats = gt.SplatSet(**fields)
+        opt = gt.make_optimizer(splats, tc)
+        torch.cuda.synchronize()
+
+        # ---- the training path: TRAIN_STEPS steps, the gut3d launches counted
+        fwd.launches_gut3d = bwd.launches_gut3d = 0
+        steps = [gt.train_step(splats, opt, cam, target, cfg, 0, tc) for _ in range(TRAIN_STEPS)]
+        torch.cuda.synchronize()
+        launches = (fwd.launches_gut3d, bwd.launches_gut3d)
+        losses = [loss.item() for loss, _ in steps]
+        log(f"3dgut {method} training path: {TRAIN_STEPS} steps, fwd launches={launches[0]} "
+            f"bwd launches={launches[1]}; losses {' '.join(f'{x:.6f}' for x in losses)} "
+            f"overflow={[bool(o) for _, o in steps]}")
+        check(launches == (TRAIN_STEPS, TRAIN_STEPS),
+              f"{launches} gut3d launches for {TRAIN_STEPS} train steps")
+        check(all(math.isfinite(x) for x in losses), "non-finite 3DGUT training loss")
+        check(losses[-1] < losses[0], f"the 3DGUT {method} loss did not fall: {losses}")
+        check(all(bool(torch.isfinite(x).all()) for x in grads_of(splats)),
+              "non-finite gradient in the last 3DGUT train step")
+
+        def fwd_bwd():
+            opt.zero_grad(set_to_none=True)
+            out = render(splats.prepare(), cam, cfg)
+            gt.rgb_loss(out.image, target, tc.ssim_lambda).backward()
+
+        fwd_bwd()
+        first = [x.clone() for x in grads_of(splats)]
+        fwd_bwd()
+        torch.cuda.synchronize()
+        same = [torch.equal(a, b) for a, b in zip(first, grads_of(splats))]
+        log(f"3dgut {method} repeat backward bit-equal (six fields): {all(same)} "
+            f"{dict(zip(FIELDS, same))}")
+        check(all(same), f"repeat 3DGUT {method} backward differs")
+        del first
+
+        # ---- the backward kernel against its twin on 64 sampled tiles, with
+        # the loss's own cotangent at the blend
+        stages, c = gut_stages(splats.prepare(), cam, cfg)
+        run_stages(stages)
+        (g_out,) = torch.autograd.grad(gt.rgb_loss(c["image"], target, tc.ssim_lambda),
+                                       c["out"][0])
+        ctx = tr.bwd_context(c["out"][0].detach(), g_out)
+        if method == "bucket":
+            tiles = sample_bucket_tiles(c["bins"], c["st"], dev, seed)
+        else:
+            tiles = sample_tiles(c["bins"], c["st"], dev, seed)
+        kname = "K4g" if method == "bucket" else "K2g"
+        abs_err, rel_err = compare_gut_bwd(f"{kname} on {tiles.numel()} sampled 1080p tiles",
+                                           c, cfg, ctx, tiles)
+        t_k = median(time_ms(lambda: gut_kernel_bwd(c, cfg, ctx), 10))
+        t_twin = median(time_ms(lambda: gut_twin_bwd(c, cfg, ctx), 1, warmup=1))
+        log(f"timing {kname} 1080p/1M ({card}): kernel_ms={t_k:.4f} plain_twin_ms={t_twin:.4f}")
+        del stages, c, ctx, g_out
+        t_fb = median(time_ms(fwd_bwd, 10))
+        t_step = median(time_ms(lambda: gt.train_step(splats, opt, cam, target, cfg, 0, tc), 10))
+        log(f"timing training 1080p/1M 3dgut {method} ({card}): fwd_bwd_ms={t_fb:.4f} "
+            f"train_step_ms={t_step:.4f}")
+        if method == "pairs":
+            profile_calls("3dgut train_step",
+                          lambda: gt.train_step(splats, opt, cam, target, cfg, 0, tc), card)
+        name = "raster_bucket_bwd_gut3d" if method == "bucket" else "rasterize_bwd_gut3d"
+        entries[name] = dict(launches=launches[1], max_abs_err=abs_err, ms=t_k, plain_ms=t_twin)
+        del splats, opt, target
+    return entries
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: chip_smoke.py runs only on a card")
     dev = torch.device("cuda", 0)
     t0 = time.perf_counter()
-    was_built = {name: _build.library_path(name).exists() for name in KERNELS}
-    with concurrent.futures.ThreadPoolExecutor(len(KERNELS)) as pool:
-        list(pool.map(_build.load, KERNELS))  # one nvcc per source, all at once
-    for name in KERNELS:
+    was_built = {name: _build.library_path(name).exists() for name in _SOURCES}
+    with concurrent.futures.ThreadPoolExecutor(len(_SOURCES)) as pool:
+        list(pool.map(_build.load, _SOURCES))  # one nvcc per source, all at once
+    for name in _SOURCES:
         log(f"{'loaded prebuilt' if was_built[name] else 'built'} "
             f"{_build.library_path(name).name}")
         log_file = str(_build.library_path(name)) + ".log"
@@ -1050,14 +1620,30 @@ def main() -> int:
     k4 = bucket_train_full_size(dev, card, truth, caps, seed=0)
     k4["max_abs_err"] = max(k4["max_abs_err"], err_golden_k4)
     bounds.update(bucket_bounds)
+    results = {"rasterize_fwd": fwd, "rasterize_bwd": bwd, "raster_bucket_fwd": k3,
+               "raster_bucket_bwd": k4}
+
+    golden_fwd, golden_bwd = golden_gut(dev)
+    gut_camera_effects(dev)
+    gut_fwd, gut_bounds_ = gut_full_size(dev, card, truth.prepare(), caps, seed=0)
+    gut_bwd = gut_train_full_size(dev, card, truth, caps, seed=0)
+    for method, fwd_name, bwd_name in (("pairs", "rasterize_fwd_gut3d", "rasterize_bwd_gut3d"),
+                                       ("bucket", "raster_bucket_fwd_gut3d",
+                                        "raster_bucket_bwd_gut3d")):
+        gut_fwd[fwd_name]["max_abs_err"] = max(gut_fwd[fwd_name]["max_abs_err"],
+                                               golden_fwd[method])
+        gut_bwd[bwd_name]["max_abs_err"] = max(gut_bwd[bwd_name]["max_abs_err"],
+                                               golden_bwd[method])
+    results.update(gut_fwd)
+    results.update(gut_bwd)
+    bounds.update(gut_bounds_)
 
     report = {"kernels": [{
-        "name": name, "route": "cuda", "source": KERNELS[name][0],
-        "replaces": KERNELS[name][1], **res,
+        "name": name, "route": "cuda", "source": KERNELS[name][1],
+        "replaces": KERNELS[name][2], **results[name],
         "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
         "library_ms": None,  # no single PyTorch call computes a tile blend
-    } for name, res in (("rasterize_fwd", fwd), ("rasterize_bwd", bwd),
-                        ("raster_bucket_fwd", k3), ("raster_bucket_bwd", k4))]}
+    } for name in KERNELS]}
     log(f"total {time.perf_counter() - t0:.1f} s")
     print(card, flush=True)
     print(json.dumps(report), flush=True)

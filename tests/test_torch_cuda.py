@@ -1,5 +1,6 @@
-"""The CUDA tile blenders (forward K1, backward K2) on a card, against
-their plain PyTorch twins.
+"""The CUDA tile blenders (pair blender K1, K2; bucket rasterizer K3, K4;
+each for the gs2d and the gut3d response model) on a card, against their
+plain PyTorch twins.
 
 Every test here is marked ``cuda`` and skips without a card. The file
 imports no JAX, so it also runs where only the port is installed:
@@ -28,6 +29,8 @@ the row's median nonzero size (measured on an H100: the 99.9th percentile
 of that ratio up to 1.5e-3 on the golden frame). chip_smoke.py holds K2 to
 the same two gates.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -182,7 +185,7 @@ def test_bwd_kernel_matches_twin(cuda):
     for k, ref in zip(d_k[:tr.GRAD_ROWS], d_r[:tr.GRAD_ROWS]):
         limit = 1e-2 * (ref.abs() + ref.abs()[ref != 0].median())
         assert ((k - ref).abs() <= limit).float().mean().item() >= 0.999
-    assert (d_k[tr.GS_ROWS - 1] == 0).all()
+    assert (d_k[tr.GRAD_ROWS] == 0).all()  # the depth row
     assert out[:, 3].min().item() < st.min_transmittance  # pixels froze
 
 
@@ -375,3 +378,145 @@ def test_bucket_render_on_card_launches_k3_and_k4_once(cuda):
     assert (rb.rasterize_buckets.launches, rb.rasterize_buckets_bwd.launches) == (
         before[0] + 1, before[1] + 1)
     assert all(bool(torch.isfinite(getattr(s, f).grad).all()) for f in interop.SPLAT_FIELDS)
+
+
+# ---- the gut3d model (3DGUT, 3DGRT): K1-K4 with the per-tile rays ----------
+#
+# Kernel against twin on one card, flip-aware: the kernels round each alpha
+# as the twins do (-fmad=false, rsqrtf and expf as torch's CUDA ops), but a
+# ray-response cutoff (resp > kernel_min_response) that one side's rounding
+# flips drops a whole pair-pixel, moving a pixel by up to about
+# kernel_min_response * opacity ~ 1.1e-2 (verify SKILL). So: rgb and T
+# within 1e-4 on >= 99.9 % of values and none beyond 1.2e-2, ids on >= 99.9
+# % of pixels; each gradient row >= 99.9 % within 1e-2 (|ref| + the row's
+# median nonzero |ref|) and none beyond 2e-3 of the row's max.
+
+from vk_gaussian_splatting_tpu_torch.ops.projection import ut_project_splats  # noqa: E402
+from vk_gaussian_splatting_tpu_torch.render.pipelines import (  # noqa: E402
+    gut_attr_rows,
+    gut_statics,
+)
+from vk_gaussian_splatting_tpu_torch.render.rays import build_tile_rays  # noqa: E402
+
+GUT_SHARE, GUT_MAX, GUT_BWD_MAX = 0.999, 1.2e-2, 2e-3
+
+
+def gut_setup(device, method="pairs", degree=2, fisheye=False, w=128, h=96, seed=0, n=1500):
+    """Bins, statics, caps and rays of a 3DGUT frame on ``device``."""
+    raster = gt.RasterConfig(method=method, bucket_caps=(512, 256, 512, 256))
+    cfg = gt.RenderConfig(width=w, height=h, sh_degree=1, pipeline=gt.Pipeline.MESH_3DGUT,
+                          camera_type=gt.CameraType.FISHEYE if fisheye else gt.CameraType.PINHOLE,
+                          rt=gt.RtConfig(kernel_degree=degree), raster=raster)
+    d = interop.random_splat_arrays(seed, n, sh_degree=1, scale_range=(-3.5, -1.5))
+    cam = gt.look_at([0.2, -0.3, -9.0], [0, 0, 0], [0, 1, 0], w, h, fov_y_rad=0.9,
+                     device=device)
+    prep = interop.splat_set_from_numpy(d, device).prepare()
+    proj = ut_project_splats(prep, cam, cfg)
+    rows, ids = gut_attr_rows(prep, proj, cfg)
+    st = gut_statics(raster_statics(cfg), cfg)
+    if method == "bucket":
+        st = dataclasses.replace(st, chunk=cfg.raster.bucket_chunk)
+        bins = bucket_splats(proj, rows.detach(), ids, tiles_x=st.tiles_x, tiles_y=st.tiles_y,
+                             caps=raster.bucket_caps, grad_rows=14)
+    else:
+        bins = bin_for_cfg(proj, rows.detach(), ids, cfg, 0, st)
+    return bins, st, raster.bucket_caps, build_tile_rays(cam, cfg)
+
+
+def gut_fwd(bins, st, caps, pix, twin=False):
+    if isinstance(bins, rb.BucketBins):
+        if twin:
+            return rb.rasterize_buckets_ref(bins.attrs, bins.ids, bins.bucket_starts, st, caps,
+                                            pix_ctx=pix)
+        return rb.rasterize_buckets(bins, st, caps, pix)
+    if twin:
+        return tr.rasterize_tiles_ref(bins.attrs, bins.pair_id, bins.tile_start,
+                                      bins.tile_count, st, pix_ctx=pix)
+    return tr.rasterize_bins(bins, st, pix)
+
+
+def gut_bwd(bins, st, caps, ctx, pix, twin=False):
+    if isinstance(bins, rb.BucketBins):
+        fn = rb.rasterize_buckets_bwd_ref if twin else rb.rasterize_buckets_bwd
+        return fn(bins.attrs, bins.bucket_starts, ctx, st, caps, pix_ctx=pix)
+    fn = tr.rasterize_tiles_bwd_ref if twin else tr.rasterize_tiles_bwd
+    return fn(bins.attrs, bins.tile_start, bins.tile_count, ctx, st, pix_ctx=pix)
+
+
+def assert_gut_fwd_matches(out_k, id_k, out_r, id_r):
+    diff = (out_k[:, :4] - out_r[:, :4]).abs()
+    assert (diff <= ATOL).float().mean().item() >= GUT_SHARE
+    assert diff.max().item() <= GUT_MAX, diff.max().item()
+    assert (id_k == id_r).float().mean().item() >= ID_AGREE
+
+
+def assert_gut_bwd_matches(d_k, d_r):
+    for r in range(14):
+        k, ref = d_k[r], d_r[r]
+        scale = ref.abs().max().item()
+        assert scale > 0, r
+        assert (k - ref).abs().max().item() <= GUT_BWD_MAX * scale, r
+        limit = 1e-2 * (ref.abs() + ref.abs()[ref != 0].median())
+        assert ((k - ref).abs() <= limit).float().mean().item() >= 0.999, r
+    assert (d_k[14] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method, degree, fisheye", [
+    ("pairs", 2, False), ("pairs", 3, False), ("pairs", 2, True),
+    ("bucket", 2, False), ("bucket", 8, False), ("bucket", 2, True)])
+def test_gut3d_kernels_match_twins(cuda, method, degree, fisheye):
+    bins, st, caps, pix = gut_setup(cuda, method, degree, fisheye)
+    out_k, id_k = gut_fwd(bins, st, caps, pix)
+    out_r, id_r = gut_fwd(bins, st, caps, pix, twin=True)
+    torch.cuda.synchronize()
+    assert_gut_fwd_matches(out_k, id_k, out_r, id_r)
+    assert out_k[:, 3].min().item() < 1e-3  # opaque pixels
+    g = torch.randn(out_k.shape, generator=torch.Generator(device=cuda).manual_seed(0),
+                    device=cuda)
+    ctx = tr.bwd_context(out_k, g)
+    d_k = gut_bwd(bins, st, caps, ctx, pix)
+    d_r = gut_bwd(bins, st, caps, ctx, pix, twin=True)
+    torch.cuda.synchronize()
+    assert_gut_bwd_matches(d_k, d_r)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["pairs", "bucket"])
+def test_gut3d_kernels_count_launches_and_repeat_bit_equal(cuda, method):
+    bins, st, caps, pix = gut_setup(cuda, method, w=120, h=90, seed=1)
+    fwd = rb.rasterize_buckets if method == "bucket" else tr.rasterize_tiles
+    bwd = rb.rasterize_buckets_bwd if method == "bucket" else tr.rasterize_tiles_bwd
+    before = (fwd.launches, fwd.launches_gut3d, bwd.launches, bwd.launches_gut3d)
+    a = gut_fwd(bins, st, caps, pix)
+    b = gut_fwd(bins, st, caps, pix)
+    ctx = tr.bwd_context(a[0], torch.ones_like(a[0]))
+    da = gut_bwd(bins, st, caps, ctx, pix)
+    db = gut_bwd(bins, st, caps, ctx, pix)
+    torch.cuda.synchronize()
+    assert (fwd.launches, fwd.launches_gut3d, bwd.launches, bwd.launches_gut3d) == (
+        before[0], before[1] + 2, before[2], before[3] + 2)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]) and torch.equal(da, db)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pipeline, method", [("MESH_3DGUT", "pairs"), ("MESH_3DGUT", "bucket"),
+                                              ("RTX", "pairs"), ("RTX", "bucket")])
+def test_gut_render_on_card_launches_once_per_sample(cuda, pipeline, method):
+    cfg = gt.RenderConfig(width=120, height=90, sh_degree=1, pipeline=gt.Pipeline[pipeline],
+                          temporal_samples=2, raster=gt.RasterConfig(method=method))
+    cam = gt.look_at([0.2, -0.3, -9.0], [0, 0, 0], [0, 1, 0], 120, 90, fov_y_rad=0.9,
+                     device=cuda)
+    cam = dataclasses.replace(cam, aperture=torch.tensor(0.2, device=cuda),
+                              focus_dist=torch.tensor(9.0, device=cuda))
+    s = splats_on(cuda, seed=1, n=1500)
+    fwd = rb.rasterize_buckets if method == "bucket" else tr.rasterize_tiles
+    bwd = rb.rasterize_buckets_bwd if method == "bucket" else tr.rasterize_tiles_bwd
+    before = (fwd.launches_gut3d, bwd.launches_gut3d, fwd.launches)
+    out = render(s.prepare(), cam, cfg)
+    gt.rgb_loss(out.image, torch.full_like(out.image, 0.5)).backward()
+    torch.cuda.synchronize()
+    assert (fwd.launches_gut3d, bwd.launches_gut3d, fwd.launches) == (
+        before[0] + 2, before[1] + 2, before[2])
+    assert all(bool(torch.isfinite(getattr(s, f).grad).all()) for f in interop.SPLAT_FIELDS)
+    assert s.means.grad.abs().max().item() > 0 and s.quats.grad.abs().max().item() > 0

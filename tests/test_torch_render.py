@@ -124,15 +124,22 @@ def test_repeat_render_is_bit_equal():
         assert torch.equal(getattr(a, f), getattr(b, f))
 
 
+# MESH_3DGUT and RTX render now (tests/test_torch_gut.py), and so does a
+# fisheye camera_type on 3DGS (pinhole EWA, as in the JAX package); what
+# those pipelines still refuse stands under their old names
 UNPORTED = {
     "bucket_packed": dict(raster=tc.RasterConfig(method="bucket", pair_format="packed")),
     "stochastic": dict(stochastic=tc.StochasticMode.SPLAT),
     "temporal": dict(temporal_samples=2),
     "packed": dict(raster=tc.RasterConfig(pair_format="packed")),
     "atrous": dict(denoise="atrous"),
-    "fisheye": dict(camera_type=tc.CameraType.FISHEYE),
-    "rtx": dict(pipeline=tc.Pipeline.RTX),
-    "gut": dict(pipeline=tc.Pipeline.MESH_3DGUT),
+    "fisheye": dict(pipeline=tc.Pipeline.HYBRID_3DGUT, camera_type=tc.CameraType.FISHEYE),
+    "rtx": dict(pipeline=tc.Pipeline.RTX, raster=tc.RasterConfig(pair_format="packed")),
+    "gut": dict(pipeline=tc.Pipeline.MESH_3DGUT, stochastic=tc.StochasticMode.SPLAT),
+    "gut_bucket_packed": dict(pipeline=tc.Pipeline.MESH_3DGUT, raster=tc.RasterConfig(
+        method="bucket", pair_format="packed")),
+    "gut_atrous": dict(pipeline=tc.Pipeline.MESH_3DGUT, denoise="atrous"),
+    "rtx_stochastic": dict(pipeline=tc.Pipeline.RTX, stochastic=tc.StochasticMode.ANYHIT),
     "hybrid": dict(pipeline=tc.Pipeline.HYBRID),
     "hybrid_gut": dict(pipeline=tc.Pipeline.HYBRID_3DGUT),
 }

@@ -4,26 +4,31 @@ The JAX package beside this one is the reference; this package keeps its
 module layout and public names, so each module's counterpart is found at
 the same path. It imports torch and numpy, never JAX.
 
-Ported so far: the 3DGS raster frame, forward and backward —
-``render(prepared, camera, cfg)`` in ``vk_gaussian_splatting_tpu_torch.render``
-for the VERT/MESH pipelines with pair binning (``RasterConfig.method=
-"pairs"``, the default) or bucket-grid binning (``method="bucket"``) — and
-the training step (``train_step``, Adam, the loss, densification,
-checkpoints). Plain tensor code runs on any torch device; the two tile
-blenders and their backwards are hand-written CUDA kernels
-(csrc/rasterize_{fwd,bwd}.cu, csrc/raster_bucket_{fwd,bwd}.cu, built for
-sm_90a at first use) on a CUDA device and plain PyTorch twins on the CPU.
+Ported so far: the 3DGS, 3DGUT and 3DGRT raster frames, forward and
+backward — ``render(prepared, camera, cfg)`` in
+``vk_gaussian_splatting_tpu_torch.render`` for the VERT/MESH, MESH_3DGUT
+and RTX pipelines with pair binning (``RasterConfig.method="pairs"``, the
+default) or bucket-grid binning (``method="bucket"``) — and the training
+step (``train_step``, Adam, the loss, densification, checkpoints). Plain
+tensor code runs on any torch device; the two tile blenders and their
+backwards are hand-written CUDA kernels (csrc/rasterize_{fwd,bwd}.cu,
+csrc/raster_bucket_{fwd,bwd}.cu, each for the gs2d and the gut3d response
+model of csrc/response.cuh, built for sm_90a at first use) on a CUDA
+device and plain PyTorch twins on the CPU.
 Entry points that make tensors use the card unless given another device.
 The names exported here are the JAX package's.
 
 Layout:
   io/      PLY loader
-  scene/   SplatSet / PreparedSplats, pinhole cameras
-  ops/     SH, EWA projection, depth keys, pair binning and bucket-grid
-           binning (each with its sort-based backward), gs2d response,
-           the pair blender and the bucket rasterizer (kernel wrappers,
-           twins, autograd Functions), kernel build
-  render/  render_3dgs and the pipeline dispatch
+  scene/   SplatSet / PreparedSplats, cameras (pinhole and fisheye
+           parameters, DoF, distortion, rolling shutter)
+  ops/     SH, EWA and UT projections, depth keys, pair binning and
+           bucket-grid binning (each with its sort-based backward), the
+           gs2d and gut3d responses, the pair blender and the bucket
+           rasterizer (kernel wrappers, twins, autograd Functions), kernel
+           build
+  render/  render_3dgs, render_3dgut, render_3dgrt, the per-tile rays and
+           the pipeline dispatch
   train.py loss, Adam, train_step, densify / prune, checkpoints
   csrc/    CUDA sources
 """

@@ -81,7 +81,7 @@ class RasterConfig:
     # binning architecture: "pairs" materializes (splat, tile) pairs and
     # sorts them (ops/binning.py); "bucket" sorts splats into class-pyramid
     # buckets and merges per tile (ops/bucket_grid.py, ops/raster_bucket.py;
-    # ported for the gs2d f32 layout, forward and backward)
+    # ported for the gs2d and gut3d f32 layouts, forward and backward)
     method: str = "pairs"
     # per-class window-span capacities of the bucket kernel (method="bucket")
     bucket_caps: tuple = (512, 256, 512, 256)

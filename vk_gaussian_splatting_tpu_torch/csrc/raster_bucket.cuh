@@ -15,7 +15,9 @@
 // chunks end.
 //
 // The merge orders the live candidates by (depth, span, position in span),
-// the order the plain twin's stable sort gives (ops/raster_bucket.py).
+// the order the plain twin's stable sort gives (ops/raster_bucket.py); the
+// depth is the response model's depth row (csrc/response.cuh), which holds
+// the radial distance on the 3DGRT bucket path.
 // Each span is ascending in depth, so a candidate's rank is its position
 // in its own span plus, for every other span, the count of that span's
 // keys before it: keys <= its own for a lower span index, keys < its own
@@ -33,7 +35,6 @@ constexpr int PIX = TILE * TILE;   // threads per block, pixels per tile
 constexpr int NUM_SPANS = 6;
 constexpr int HEAD_ALIGN = 128;
 constexpr int MAX_CHUNK = 1024;    // largest blend step staged at once
-constexpr int DEPTH_ROW = 9;       // gs2d rows, ops/response.py
 
 struct Spans {
   int start[NUM_SPANS];     // first column of each span
@@ -47,7 +48,7 @@ __host__ __device__ inline int span_cap(int i, int cap0, int cap1, int cap2, int
 }
 
 // Shared memory one block needs: keys and merged lane indices for every
-// lane the caps allow, plus `rows` staged f32 rows and `extra` int arrays
+// lane the caps allow, plus `rows` staged f32 slots and `extra` int arrays
 // of one chunk.
 __host__ __device__ inline int smem_bytes(int c_total, int chunk, int rows, int extra) {
   return (int)(2 * sizeof(int) * (size_t)c_total + (rows + extra) * sizeof(int) * (size_t)chunk);

@@ -1,10 +1,15 @@
-// Bucket-grid tile rasterizer, backward (gs2d response model): K4.
+// Bucket-grid tile rasterizer, backward, for the gs2d and gut3d response
+// models: K4.
 //
 // Replaces the Pallas kernel raster_bucket._make_bwd_kernel
 // (vk_gaussian_splatting_tpu/ops/raster_bucket.py:927) and the slot
 // reduction of its custom VJP (_br_bwd, :1367): the gradient of the
-// blended rgb and transmittance with respect to the rows x, y, conic
-// a/b/c, opacity and r/g/b of every slot column the tiles read.
+// blended rgb and transmittance with respect to the rows of every slot
+// column the tiles read (gs2d: x, y, conic a/b/c, opacity, r/g/b; gut3d:
+// position, scale, r/g/b, quaternion, opacity). The model is a template
+// parameter (csrc/response.cuh: its staged slots, alpha and hand-derived
+// VJP, which the TPU kernel takes with in-kernel jax.vjp); one C entry
+// point per model.
 //
 // Two kernels, one launch of the wrapper:
 // 1. raster_bucket_bwd_tiles: one thread block per 16x16 tile, one thread
@@ -12,16 +17,16 @@
 //    (csrc/raster_bucket.cuh), then the pair backward's one sweep
 //    (csrc/rasterize_bwd.cu): alpha and T recomputed front to back with
 //    the forward's per-step freeze, the colour still to come as
-//    S_total - s_run, the gs2d VJP, and each lane's nine gradients summed
-//    over the tile's pixels by warp shuffles and a fixed-order pass over
-//    the warps. Each merged lane knows its source column, so nothing has to
+//    S_total - s_run, the model's VJP, and each lane's gradients (9 rows
+//    for gs2d, 14 for gut3d) summed over the tile's pixels by warp
+//    shuffles and a fixed-order pass over the warps. Each merged lane knows its source column, so nothing has to
 //    be un-merged (the TPU kernel replays its merge network backwards and
 //    sorts by id). A lane of the tile's own fine bucket belongs to this
 //    tile alone: its gradient is stored in d_attrs once. A lane of a shared
 //    span (mid, coarse, global) is read by other tiles too: its gradient
-//    goes to this tile's slot in a scratch buffer, (9, T * S) f32 with S
-//    the shared spans' caps summed, and lanes past the block's early exit
-//    get zeros there.
+//    goes to this tile's slot in a scratch buffer, (GRAD_ROWS, T * S) f32
+//    with S the shared spans' caps summed, and lanes past the block's
+//    early exit get zeros there.
 // 2. raster_bucket_bwd_partial and raster_bucket_bwd_reduce sum each
 //    shared column's scratch slots over the tiles that read it, in a fixed
 //    order: the reader table (static per image size, from
@@ -36,25 +41,24 @@
 // columns no tile reads live (truncated tails, sentinel slots) stay zero,
 // and so does the depth row.
 //
-// What bounds it on the H100: per (pixel, lane) the forward's alpha plus
-// about 35 f32 operations of gradient and a 9-value reduction over the
-// tile, as K2, on every candidate of the tile's window rather than its
-// pairs; then the scratch (written once per (tile, shared lane), read once
-// by the reduce).
+// What bounds it on the H100: per (pixel, lane) the forward's alpha plus,
+// per hit, the model's gradient and a per-lane reduction over the tile, as
+// K2, on every candidate of the tile's window rather than its pairs; then
+// the scratch (written once per (tile, shared lane), read once by the
+// reduce).
 // Built like the forward with exact expf, no fast math and -fmad=false.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "raster_bucket.cuh"
+#include "response.cuh"
 
 namespace {
 
 using bucket::NUM_SPANS;
 using bucket::PIX;
-using bucket::TILE;
 constexpr int WARPS = PIX / 32;
-constexpr int GRAD_ROWS = 9;       // x, y, conic a/b/c, opacity, r, g, b
 constexpr int CTX_ROWS = 5;        // g_r, g_g, g_b, S_total, g_T * T_final
 constexpr int SUB = 32;            // lanes per shared-memory reduction batch
 constexpr int REDUCE_THREADS = 256;
@@ -73,20 +77,22 @@ __device__ __forceinline__ int shared_slot(int i, int k, int cap1, int cap2) {
   return base + k;
 }
 
+template <class M>
 __global__ void __launch_bounds__(PIX)
 raster_bucket_bwd_tiles(const float* __restrict__ attrs, long long stride,
                         const int* __restrict__ bucket_starts,
                         const int* __restrict__ span_buckets,
-                        const float* __restrict__ ctx, int tiles_x, int c_total, int cap0,
-                        int cap1, int cap2, int cap3, int chunk, float alpha_min,
-                        float alpha_clamp, float qmax, float min_transmittance,
+                        const float* __restrict__ ctx, const float* __restrict__ pix_ctx,
+                        int tiles_x, int c_total, int cap0, int cap1, int cap2, int cap3,
+                        int chunk, response::Params prm, float min_transmittance,
                         float* __restrict__ scratch, long long scratch_stride,
                         float* __restrict__ d_attrs) {
+  constexpr int GRAD_ROWS = M::GRAD_ROWS;
   extern __shared__ float smem[];
   float* keys = smem;                                    // [c_total]
   int* order = (int*)(keys + c_total);                   // [c_total]
-  float* s_attr = (float*)(order + c_total);             // [GRAD_ROWS][chunk]
-  int* s_col = (int*)(s_attr + GRAD_ROWS * chunk);       // [chunk] fine column or -1
+  float* s_attr = (float*)(order + c_total);             // [BWD_SLOTS][chunk]
+  int* s_col = (int*)(s_attr + M::BWD_SLOTS * chunk);    // [chunk] fine column or -1
   int* s_slot = s_col + chunk;                           // [chunk] scratch slot or -1
   __shared__ float s_part[WARPS][GRAD_ROWS][SUB];
   __shared__ bucket::Spans sp;
@@ -97,10 +103,9 @@ raster_bucket_bwd_tiles(const float* __restrict__ attrs, long long stride,
   const int warp = i >> 5;
   if (i == 0) bucket::tile_spans(sp, bucket_starts, span_buckets, t, cap0, cap1, cap2, cap3);
   __syncthreads();
-  bucket::merge_spans(sp, attrs + bucket::DEPTH_ROW * stride, keys, order);
+  bucket::merge_spans(sp, attrs + M::DEPTH_ROW * stride, keys, order);
 
-  const float px = (float)((t % tiles_x) * TILE + i % TILE) + 0.5f;
-  const float py = (float)((t / tiles_x) * TILE + i / TILE) + 0.5f;
+  const response::Pixel pix = response::load_pixel(t, tiles_x, i, pix_ctx);
   const int n_head = sp.n_head;
   const int n_live = sp.off[NUM_SPANS];
   const int end = n_head + n_live;
@@ -112,7 +117,7 @@ raster_bucket_bwd_tiles(const float* __restrict__ attrs, long long stride,
   const float gb = c[2 * PIX + i];
   const float s_total = c[3 * PIX + i];
   const float gt_tn = c[4 * PIX + i];
-  const float q_min = 1.0f - alpha_clamp;
+  const float q_min = 1.0f - prm.alpha_clamp;
 
   float T = 1.0f, s_run = 0.0f;
   int s = n_head - n_head % chunk;
@@ -122,17 +127,16 @@ raster_bucket_bwd_tiles(const float* __restrict__ attrs, long long stride,
     const int n = e - lo;
     for (int j = i; j < n; j += PIX) {
       const int g = order[lo - n_head + j];
-      if (g < 0) {  // no lane: an alpha of 0, no gradient stored
+      if (g < 0) {  // no lane: zero slots, an alpha of 0, no gradient stored
         #pragma unroll
-        for (int r = 0; r < GRAD_ROWS; ++r) s_attr[r * chunk + j] = 0.0f;
+        for (int r = 0; r < M::BWD_SLOTS; ++r) s_attr[r * chunk + j] = 0.0f;
         s_col[j] = s_slot[j] = -1;
         continue;
       }
       const int sp_i = bucket::span_of(sp, g);
       const int k = g - sp.off[sp_i];
       const long long col = sp.start[sp_i] + k;
-      #pragma unroll
-      for (int r = 0; r < GRAD_ROWS; ++r) s_attr[r * chunk + j] = attrs[r * stride + col];
+      M::stage_bwd(attrs, stride, col, s_attr, chunk, j);
       s_col[j] = sp_i == 0 ? (int)col : -1;
       s_slot[j] = sp_i == 0 ? -1 : shared_slot(sp_i, k, cap1, cap2);
     }
@@ -146,36 +150,23 @@ raster_bucket_bwd_tiles(const float* __restrict__ attrs, long long stride,
         #pragma unroll
         for (int r = 0; r < GRAD_ROWS; ++r) g[r] = 0.0f;
         bool hit = false;
-        if (live) {
-          const float ca = s_attr[2 * chunk + j], cb = s_attr[3 * chunk + j];
-          const float cc = s_attr[4 * chunk + j];
-          const float dx = px - s_attr[0 * chunk + j];
-          const float dy = py - s_attr[1 * chunk + j];
-          const float d = ca * dx * dx + 2.0f * cb * dx * dy + cc * dy * dy;
-          const float gauss = expf(-0.5f * d);
-          const float a_raw = s_attr[5 * chunk + j] * gauss;
-          if (d <= qmax && a_raw >= alpha_min) {
-            hit = true;
-            const float a = fminf(a_raw, alpha_clamp);
-            const float w = a * T;
-            const float cgv = gr * s_attr[6 * chunk + j] + gg * s_attr[7 * chunk + j] +
-                              gb * s_attr[8 * chunk + j];
-            s_run += w * cgv;
-            const float q = 1.0f - a;
-            const float dalpha = T * cgv - ((s_total - s_run) + gt_tn) / fmaxf(q, q_min);
-            const float da = a_raw <= alpha_clamp ? dalpha : 0.0f;
-            const float dd = -0.5f * da * a_raw;
-            g[0] = -(dd * (2.0f * ca * dx + 2.0f * cb * dy));
-            g[1] = -(dd * (2.0f * cb * dx + 2.0f * cc * dy));
-            g[2] = dd * dx * dx;
-            g[3] = 2.0f * dd * dx * dy;
-            g[4] = dd * dy * dy;
-            g[5] = da * gauss;
-            g[6] = gr * w;
-            g[7] = gg * w;
-            g[8] = gb * w;
-            T *= q;
-          }
+        float a_raw;
+        typename M::Hit h;
+        if (live && M::eval(s_attr, chunk, j, pix, prm, a_raw, h)) {
+          hit = true;
+          const float a = fminf(a_raw, prm.alpha_clamp);
+          const float w = a * T;
+          const float cgv = gr * s_attr[6 * chunk + j] + gg * s_attr[7 * chunk + j] +
+                            gb * s_attr[8 * chunk + j];
+          s_run += w * cgv;
+          const float q = 1.0f - a;
+          const float dalpha = T * cgv - ((s_total - s_run) + gt_tn) / fmaxf(q, q_min);
+          const float da = a_raw <= prm.alpha_clamp ? dalpha : 0.0f;
+          M::vjp(s_attr, chunk, j, pix, prm, h, a_raw, da, g);
+          g[6] = gr * w;
+          g[7] = gg * w;
+          g[8] = gb * w;
+          T *= q;
         }
         // a warp none of whose pixels the lane touches adds exact zeros
         if (__any_sync(0xffffffffu, hit)) {
@@ -235,7 +226,8 @@ __device__ __forceinline__ int shared_neff(const int* __restrict__ bucket_starts
 }
 
 // One block per (reader segment, row): thread p sums the segment's scratch
-// slots of the bucket's candidate p, in reader order.
+// slots of the bucket's candidate p, in reader order. (Row-generic: the
+// grid's y extent is the model's GRAD_ROWS.)
 __global__ void __launch_bounds__(REDUCE_THREADS)
 raster_bucket_bwd_partial(const int* __restrict__ bucket_starts,
                           const int* __restrict__ reader_code,
@@ -286,64 +278,101 @@ raster_bucket_bwd_reduce(const int* __restrict__ bucket_starts,
   }
 }
 
-}  // namespace
-
-// Dynamic shared memory one tile block takes for `c_total` lanes (the six
-// spans' caps summed) and blend steps of `chunk` lanes.
-extern "C" int raster_bucket_bwd_smem(int c_total, int chunk) {
-  return bucket::smem_bytes(c_total, chunk, GRAD_ROWS, 2);
+template <class M>
+int smem_of(int c_total, int chunk) {
+  return bucket::smem_bytes(c_total, chunk, M::BWD_SLOTS, 2);
 }
 
-// The most dynamic shared memory a tile block may take on the current device.
-extern "C" int raster_bucket_bwd_smem_limit() {
-  return bucket::dynamic_smem_limit((const void*)raster_bucket_bwd_tiles);
+template <class M>
+int smem_limit_of() {
+  return bucket::dynamic_smem_limit((const void*)raster_bucket_bwd_tiles<M>);
 }
 
-// Launches the tile kernel (one block per tile) and the two reduce passes on
-// `stream`; returns cudaGetLastError(). The reader table: reader_code
-// (tile * 8 + span) in (bucket, tile, span) order, cut into num_segments
-// segments [seg_first, seg_last) of bucket seg_bucket; bucket b owns
-// segments [bucket_seg[b], bucket_seg[b + 1]). d_attrs must hold zeros on
-// entry; scratch is (9, num_tiles * (2 cap1 + 2 cap2 + cap3)) f32 and
-// partial (9, num_segments, max(cap1, cap2, cap3)) f32, no initial values.
-extern "C" int raster_bucket_bwd(const float* attrs, long long stride,
-                                 const int* bucket_starts, const int* span_buckets,
-                                 const int* reader_code, const int* seg_bucket,
-                                 const int* seg_first, const int* seg_last,
-                                 const int* bucket_seg, int num_segments, const float* ctx,
-                                 int num_tiles, int tiles_x, int cap0, int cap1, int cap2,
-                                 int cap3, int first_bucket, int global_bucket, int chunk,
-                                 float alpha_min, float alpha_clamp, float qmax,
-                                 float min_transmittance, float* scratch, float* partial,
-                                 float* d_attrs, void* stream) {
+template <class M>
+int launch(const float* attrs, long long stride, const int* bucket_starts,
+           const int* span_buckets, const int* reader_code, const int* seg_bucket,
+           const int* seg_first, const int* seg_last, const int* bucket_seg, int num_segments,
+           const float* ctx, const float* pix_ctx, int num_tiles, int tiles_x, int cap0,
+           int cap1, int cap2, int cap3, int first_bucket, int global_bucket, int chunk,
+           float alpha_min, float alpha_clamp, float qmax, float min_response, int degree,
+           float min_transmittance, float* scratch, float* partial, float* d_attrs,
+           void* stream) {
   if (chunk < 1 || chunk > bucket::MAX_CHUNK) return (int)cudaErrorInvalidValue;
   const int c_total = cap0 + 2 * cap1 + 2 * cap2 + cap3;
-  const int smem = raster_bucket_bwd_smem(c_total, chunk);
-  if (smem > raster_bucket_bwd_smem_limit()) return (int)cudaErrorInvalidValue;
+  const int smem = smem_of<M>(c_total, chunk);
+  if (smem > smem_limit_of<M>()) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      raster_bucket_bwd_tiles, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      raster_bucket_bwd_tiles<M>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
+  const response::Params prm{alpha_min, alpha_clamp, qmax, min_response, degree};
   const long long scratch_stride = (long long)num_tiles * (2 * cap1 + 2 * cap2 + cap3);
   if (num_tiles > 0) {
-    raster_bucket_bwd_tiles<<<num_tiles, PIX, smem, (cudaStream_t)stream>>>(
-        attrs, stride, bucket_starts, span_buckets, ctx, tiles_x, c_total, cap0, cap1, cap2,
-        cap3, chunk, alpha_min, alpha_clamp, qmax, min_transmittance, scratch,
-        scratch_stride, d_attrs);
+    raster_bucket_bwd_tiles<M><<<num_tiles, PIX, smem, (cudaStream_t)stream>>>(
+        attrs, stride, bucket_starts, span_buckets, ctx, pix_ctx, tiles_x, c_total, cap0, cap1,
+        cap2, cap3, chunk, prm, min_transmittance, scratch, scratch_stride, d_attrs);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     const int partial_lanes = max(cap1, max(cap2, cap3));
     if (num_segments > 0) {
-      raster_bucket_bwd_partial<<<dim3(num_segments, GRAD_ROWS), REDUCE_THREADS, 0,
+      raster_bucket_bwd_partial<<<dim3(num_segments, M::GRAD_ROWS), REDUCE_THREADS, 0,
                                   (cudaStream_t)stream>>>(
           bucket_starts, reader_code, seg_bucket, seg_first, seg_last, num_segments, cap1,
           cap2, cap3, scratch, scratch_stride, partial, partial_lanes);
       err = cudaGetLastError();
       if (err != cudaSuccess) return (int)err;
     }
-    raster_bucket_bwd_reduce<<<dim3(global_bucket - first_bucket + 1, GRAD_ROWS),
+    raster_bucket_bwd_reduce<<<dim3(global_bucket - first_bucket + 1, M::GRAD_ROWS),
                                REDUCE_THREADS, 0, (cudaStream_t)stream>>>(
         bucket_starts, reader_code, seg_first, bucket_seg, first_bucket, num_segments, cap1,
         cap2, cap3, partial, partial_lanes, stride, d_attrs);
   }
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// Dynamic shared memory one tile block takes for `c_total` lanes (the six
+// spans' caps summed) and blend steps of `chunk` lanes, per model.
+extern "C" int raster_bucket_bwd_smem(int c_total, int chunk) {
+  return smem_of<response::Gs2d>(c_total, chunk);
+}
+extern "C" int raster_bucket_bwd_gut3d_smem(int c_total, int chunk) {
+  return smem_of<response::Gut3d>(c_total, chunk);
+}
+
+// The most dynamic shared memory a tile block may take on the current device.
+extern "C" int raster_bucket_bwd_smem_limit() { return smem_limit_of<response::Gs2d>(); }
+extern "C" int raster_bucket_bwd_gut3d_smem_limit() { return smem_limit_of<response::Gut3d>(); }
+
+// Launch the tile kernel (one block per tile) and the two reduce passes on
+// `stream`; return cudaGetLastError(). The reader table: reader_code
+// (tile * 8 + span) in (bucket, tile, span) order, cut into num_segments
+// segments [seg_first, seg_last) of bucket seg_bucket; bucket b owns
+// segments [bucket_seg[b], bucket_seg[b + 1]). d_attrs must hold zeros on
+// entry; scratch is (GRAD_ROWS, num_tiles * (2 cap1 + 2 cap2 + cap3)) f32
+// and partial (GRAD_ROWS, num_segments, max(cap1, cap2, cap3)) f32, no
+// initial values; GRAD_ROWS is 9 for gs2d, 14 for gut3d. gs2d reads no
+// pixel context (pix_ctx may be null); gut3d reads the (T, 8, 256) one.
+#define RASTER_BUCKET_BWD_PARAMS                                                             \
+  const float *attrs, long long stride, const int *bucket_starts, const int *span_buckets,  \
+      const int *reader_code, const int *seg_bucket, const int *seg_first,                  \
+      const int *seg_last, const int *bucket_seg, int num_segments, const float *ctx,       \
+      const float *pix_ctx, int num_tiles, int tiles_x, int cap0, int cap1, int cap2,       \
+      int cap3, int first_bucket, int global_bucket, int chunk, float alpha_min,            \
+      float alpha_clamp, float qmax, float min_response, int degree,                        \
+      float min_transmittance, float *scratch, float *partial, float *d_attrs, void *stream
+#define RASTER_BUCKET_BWD_ARGS                                                               \
+  attrs, stride, bucket_starts, span_buckets, reader_code, seg_bucket, seg_first, seg_last, \
+      bucket_seg, num_segments, ctx, pix_ctx, num_tiles, tiles_x, cap0, cap1, cap2, cap3,   \
+      first_bucket, global_bucket, chunk, alpha_min, alpha_clamp, qmax, min_response,       \
+      degree, min_transmittance, scratch, partial, d_attrs, stream
+
+extern "C" int raster_bucket_bwd(RASTER_BUCKET_BWD_PARAMS) {
+  pix_ctx = nullptr;
+  return launch<response::Gs2d>(RASTER_BUCKET_BWD_ARGS);
+}
+
+extern "C" int raster_bucket_bwd_gut3d(RASTER_BUCKET_BWD_PARAMS) {
+  if (pix_ctx == nullptr) return (int)cudaErrorInvalidValue;
+  return launch<response::Gut3d>(RASTER_BUCKET_BWD_ARGS);
 }

@@ -1,0 +1,303 @@
+// The response models the tile blenders evaluate, as compile-time
+// parameters of the four kernels (csrc/rasterize_{fwd,bwd}.cu,
+// csrc/raster_bucket_{fwd,bwd}.cu): one definition of each model's alpha
+// and of its hand-derived VJP, so K1 and K3 share the forward math and K2
+// and K4 the backward. The plain PyTorch reference of the same math, term
+// for term, is ops/response.py; the JAX package's is
+// vk_gaussian_splatting_tpu/ops/response.py (gs2d_alpha :131, gut3d_alpha
+// :395), whose kernels take the VJP with in-kernel jax.vjp.
+//
+// A model stages each lane's rows in shared memory as "slots", slot-major
+// (slot k of lane j at s[k * ss + j]); a model may stage values derived per
+// lane instead of raw rows where the arithmetic stays the twin's, term for
+// term. The colour slots are 6-8 in every model. Then, per (pixel, lane):
+//   eval: a_raw and whether the pair passes the model's cutoffs (alpha =
+//         min(a_raw, alpha_clamp) where it does, else 0), keeping what the
+//         VJP reads in a Hit;
+//   vjp:  from da = dL/dalpha (zero where the clamp binds), the gradients
+//         of the geometry rows into g[row] (the colour rows are the
+//         blend's, the depth row gets none).
+//
+// gs2d (threedgs_raster.frag.slang:236-255): rows 0 x, 1 y, 2-4 conic
+// (a, b, c), 5 opacity, 6-8 rgb, 9 depth; staged as they are.
+//   d = a dx^2 + 2 b dx dy + c dy^2, a_raw = opacity exp(-d/2), kept where
+//   d <= qmax and a_raw >= alpha_min.
+// gut3d (threedgrt.h.slang:57-127): rows 0-2 position p, 3-5 scale s, 6-8
+// rgb, 9-12 the unit quaternion q (w, x, y, z), 13 opacity, 14 depth; each
+// thread's pixel brings its ray (unit direction d, origin o) from the
+// per-tile pixel context. Staged per lane: p, 1/max(s, 1e-12), rgb, R(q)
+// (the world-from-canonical rotation, nine entries), opacity, and the depth
+// (forward) or q and the scale chain factor -1/max(s,1e-12)^2 (0 below the
+// floor; backward). Then
+//   u = R^T (o - p), v = R^T d, oc = u / s, dc = v / s,
+//   dh = dc rsqrt(|dc|^2 + 1e-30), D = |dh x oc|^2,
+//   resp = K_degree(D), a_raw = opacity resp,
+//   kept where a_raw > alpha_min and resp > kernel_min_response.
+// Built without fast math and with -fmad=false (ops/_build.py): expf,
+// sqrtf, rsqrtf and IEEE division, each operation rounded where the twin
+// rounds it (constants are the twin's Python doubles cast to float), so a
+// kernel and its twin on one card agree bit for bit on every alpha.
+
+#pragma once
+
+#include <cuda_runtime.h>
+
+namespace response {
+
+constexpr int TILE = 16;
+constexpr int PIX = TILE * TILE;   // threads per block, pixels per tile
+constexpr int PIX_ROWS = 8;        // pixel-context rows per tile: 0-2 d, 3-5 o
+
+// The cutoffs: qmax is gs2d's, min_response and degree are gut3d's.
+struct Params {
+  float alpha_min, alpha_clamp, qmax, min_response;
+  int degree;
+};
+
+// What a thread knows of its pixel: its center, and its ray (gut3d).
+struct Pixel {
+  float px, py;
+  float d[3], o[3];
+};
+
+// Pixel i of tile t; the ray from the pixel context when there is one.
+__device__ inline Pixel load_pixel(int t, int tiles_x, int i, const float* __restrict__ pix_ctx) {
+  Pixel p;
+  p.px = (float)((t % tiles_x) * TILE + i % TILE) + 0.5f;
+  p.py = (float)((t / tiles_x) * TILE + i / TILE) + 0.5f;
+  const float* c = pix_ctx == nullptr ? nullptr : pix_ctx + (size_t)t * PIX_ROWS * PIX + i;
+  #pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    p.d[k] = c == nullptr ? 0.0f : c[k * PIX];
+    p.o[k] = c == nullptr ? 0.0f : c[(3 + k) * PIX];
+  }
+  return p;
+}
+
+struct Gs2d {
+  static constexpr int ROWS = 10;       // f32 attribute rows
+  static constexpr int DEPTH_ROW = 9;   // aux pick and bucket merge key
+  static constexpr int GRAD_ROWS = 9;   // rows 0-8 get gradients
+  static constexpr int FWD_SLOTS = 10;  // the rows as they are
+  static constexpr int BWD_SLOTS = 9;   // without the depth
+  static constexpr int DEPTH_SLOT = 9;
+
+  struct Hit {
+    float dx, dy, gauss;
+  };
+
+  __device__ static void stage_fwd(const float* __restrict__ attrs, long long stride,
+                                   long long col, float* s, int ss, int j) {
+    #pragma unroll
+    for (int r = 0; r < FWD_SLOTS; ++r) s[r * ss + j] = attrs[r * stride + col];
+  }
+
+  __device__ static void stage_bwd(const float* __restrict__ attrs, long long stride,
+                                   long long col, float* s, int ss, int j) {
+    #pragma unroll
+    for (int r = 0; r < BWD_SLOTS; ++r) s[r * ss + j] = attrs[r * stride + col];
+  }
+
+  __device__ static bool eval(const float* s, int ss, int j, const Pixel& p, const Params& prm,
+                              float& a_raw, Hit& h) {
+    h.dx = p.px - s[0 * ss + j];
+    h.dy = p.py - s[1 * ss + j];
+    const float d = s[2 * ss + j] * h.dx * h.dx + 2.0f * s[3 * ss + j] * h.dx * h.dy +
+                    s[4 * ss + j] * h.dy * h.dy;
+    h.gauss = expf(-0.5f * d);
+    a_raw = s[5 * ss + j] * h.gauss;
+    return d <= prm.qmax && a_raw >= prm.alpha_min;
+  }
+
+  // With a = opacity * gauss: da/dopacity = gauss, da/dd = -a/2.
+  __device__ static void vjp(const float* s, int ss, int j, const Pixel&, const Params&,
+                             const Hit& h, float a_raw, float da, float* g) {
+    const float ca = s[2 * ss + j], cb = s[3 * ss + j], cc = s[4 * ss + j];
+    const float dd = -0.5f * da * a_raw;
+    g[0] = -(dd * (2.0f * ca * h.dx + 2.0f * cb * h.dy));
+    g[1] = -(dd * (2.0f * cb * h.dx + 2.0f * cc * h.dy));
+    g[2] = dd * h.dx * h.dx;
+    g[3] = 2.0f * dd * h.dx * h.dy;
+    g[4] = dd * h.dy * h.dy;
+    g[5] = da * h.gauss;
+  }
+};
+
+// The generalized Gaussian of degree n (threedgrt.h.slang:83-127) and its
+// slope dK/dD (where the degree-0 kernel is above its floor, as the cutoff
+// resp > min_response >= 0 ensures).
+__device__ inline float kernel_response(float d, int degree) {
+  switch (degree) {
+    case 8: return expf(static_cast<float>(-0.000685871056241) * (d * d) * (d * d));
+    case 5: return expf(static_cast<float>(-0.0185185185185) * d * d * sqrtf(d));
+    case 4: return expf(static_cast<float>(-0.0555555555556) * d * d);
+    case 3: return expf(static_cast<float>(-0.166666666667) * d * sqrtf(d));
+    case 1: return expf(-1.5f * sqrtf(d));
+    case 0: return fmaxf(1.0f - static_cast<float>(0.329630334487) * sqrtf(d), 0.0f);
+    default: return expf(-0.5f * d);
+  }
+}
+
+__device__ inline float kernel_response_slope(float d, float resp, int degree) {
+  switch (degree) {
+    case 8: return resp * (static_cast<float>(-0.000685871056241 * 4.0) * (d * d) * d);
+    case 5: return resp * (static_cast<float>(-0.0185185185185 * 2.5) * d * sqrtf(d));
+    case 4: return resp * (static_cast<float>(-0.0555555555556 * 2.0) * d);
+    case 3: return resp * (static_cast<float>(-0.166666666667 * 1.5) * sqrtf(d));
+    case 1: return resp * (-0.75f / sqrtf(d));
+    case 0: return static_cast<float>(-0.1648151672435) / sqrtf(d);
+    default: return -0.5f * resp;
+  }
+}
+
+struct Gut3d {
+  static constexpr int ROWS = 15;
+  static constexpr int DEPTH_ROW = 14;
+  static constexpr int GRAD_ROWS = 14;  // rows 0-13; rows 6-8 from the blend
+  // slots: 0-2 p, 3-5 1/max(s, 1e-12), 6-8 rgb, 9-17 R row-major, 18
+  // opacity; forward 19 depth; backward 19-22 q, 23-25 the scale factor
+  static constexpr int S_POS = 0, S_INV = 3, S_R = 9, S_OP = 18, S_Q = 19, S_DS = 23;
+  static constexpr int FWD_SLOTS = 20;
+  static constexpr int BWD_SLOTS = 26;
+  static constexpr int DEPTH_SLOT = 19;
+  // the row indices of ops/response.py
+  static constexpr int R_SCALE = 3, R_QUAT = 9, R_OPACITY = 13;
+
+  struct Hit {
+    float e[3], u[3], v[3], oc[3], dc[3], dn, dh[3], cr[3], dist, resp;
+  };
+
+  // R(q)[i][c], row i, column c, in the twin's order of operations
+  __device__ static void rotation(float qw, float qx, float qy, float qz, float* r) {
+    r[0] = 1.0f - 2.0f * (qy * qy + qz * qz);
+    r[1] = 2.0f * (qx * qy - qw * qz);
+    r[2] = 2.0f * (qx * qz + qw * qy);
+    r[3] = 2.0f * (qx * qy + qw * qz);
+    r[4] = 1.0f - 2.0f * (qx * qx + qz * qz);
+    r[5] = 2.0f * (qy * qz - qw * qx);
+    r[6] = 2.0f * (qx * qz - qw * qy);
+    r[7] = 2.0f * (qy * qz + qw * qx);
+    r[8] = 1.0f - 2.0f * (qx * qx + qy * qy);
+  }
+
+  // slots 0-18, common to both directions
+  __device__ static void stage_common(const float* __restrict__ attrs, long long stride,
+                                      long long col, float* s, int ss, int j) {
+    #pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      s[(S_POS + k) * ss + j] = attrs[k * stride + col];
+      s[(S_INV + k) * ss + j] =
+          1.0f / fmaxf(attrs[(R_SCALE + k) * stride + col], static_cast<float>(1e-12));
+      s[(6 + k) * ss + j] = attrs[(6 + k) * stride + col];
+    }
+    float r[9];
+    rotation(attrs[R_QUAT * stride + col], attrs[(R_QUAT + 1) * stride + col],
+             attrs[(R_QUAT + 2) * stride + col], attrs[(R_QUAT + 3) * stride + col], r);
+    #pragma unroll
+    for (int k = 0; k < 9; ++k) s[(S_R + k) * ss + j] = r[k];
+    s[S_OP * ss + j] = attrs[R_OPACITY * stride + col];
+  }
+
+  __device__ static void stage_fwd(const float* __restrict__ attrs, long long stride,
+                                   long long col, float* s, int ss, int j) {
+    stage_common(attrs, stride, col, s, ss, j);
+    s[DEPTH_SLOT * ss + j] = attrs[DEPTH_ROW * stride + col];
+  }
+
+  __device__ static void stage_bwd(const float* __restrict__ attrs, long long stride,
+                                   long long col, float* s, int ss, int j) {
+    stage_common(attrs, stride, col, s, ss, j);
+    #pragma unroll
+    for (int k = 0; k < 4; ++k) s[(S_Q + k) * ss + j] = attrs[(R_QUAT + k) * stride + col];
+    #pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      const float inv = s[(S_INV + k) * ss + j];
+      s[(S_DS + k) * ss + j] =
+          attrs[(R_SCALE + k) * stride + col] > static_cast<float>(1e-12) ? -(inv * inv) : 0.0f;
+    }
+  }
+
+  __device__ static float rot(const float* s, int ss, int j, int i, int c) {
+    return s[(S_R + 3 * i + c) * ss + j];
+  }
+
+  __device__ static bool eval(const float* s, int ss, int j, const Pixel& p, const Params& prm,
+                              float& a_raw, Hit& h) {
+    #pragma unroll
+    for (int k = 0; k < 3; ++k) h.e[k] = p.o[k] - s[(S_POS + k) * ss + j];
+    #pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      const float r0 = rot(s, ss, j, 0, c), r1 = rot(s, ss, j, 1, c), r2 = rot(s, ss, j, 2, c);
+      h.u[c] = r0 * h.e[0] + r1 * h.e[1] + r2 * h.e[2];
+      h.v[c] = r0 * p.d[0] + r1 * p.d[1] + r2 * p.d[2];
+      const float inv = s[(S_INV + c) * ss + j];
+      h.oc[c] = h.u[c] * inv;
+      h.dc[c] = h.v[c] * inv;
+    }
+    h.dn = rsqrtf(h.dc[0] * h.dc[0] + h.dc[1] * h.dc[1] + h.dc[2] * h.dc[2] +
+                  static_cast<float>(1e-30));
+    #pragma unroll
+    for (int k = 0; k < 3; ++k) h.dh[k] = h.dc[k] * h.dn;
+    h.cr[0] = h.dh[1] * h.oc[2] - h.dh[2] * h.oc[1];
+    h.cr[1] = h.dh[2] * h.oc[0] - h.dh[0] * h.oc[2];
+    h.cr[2] = h.dh[0] * h.oc[1] - h.dh[1] * h.oc[0];
+    h.dist = h.cr[0] * h.cr[0] + h.cr[1] * h.cr[1] + h.cr[2] * h.cr[2];
+    h.resp = kernel_response(h.dist, prm.degree);
+    a_raw = s[S_OP * ss + j] * h.resp;
+    return a_raw > prm.alpha_min && h.resp > prm.min_response;
+  }
+
+  // ops/response.gut3d_alpha_vjp, per pixel, in its order of operations
+  __device__ static void vjp(const float* s, int ss, int j, const Pixel& p, const Params& prm,
+                             const Hit& h, float, float da, float* g) {
+    const float d_op = da * h.resp;
+    const float d_dist =
+        da * s[S_OP * ss + j] * kernel_response_slope(h.dist, h.resp, prm.degree);
+    float gc[3];
+    #pragma unroll
+    for (int k = 0; k < 3; ++k) gc[k] = 2.0f * h.cr[k] * d_dist;
+    // cr = dh x oc: d dh = oc x gc, d oc = gc x dh
+    const float d_dh[3] = {h.oc[1] * gc[2] - h.oc[2] * gc[1], h.oc[2] * gc[0] - h.oc[0] * gc[2],
+                           h.oc[0] * gc[1] - h.oc[1] * gc[0]};
+    const float d_oc[3] = {gc[1] * h.dh[2] - gc[2] * h.dh[1], gc[2] * h.dh[0] - gc[0] * h.dh[2],
+                           gc[0] * h.dh[1] - gc[1] * h.dh[0]};
+    // dh = dc rsqrt(|dc|^2 + eps)
+    const float proj = d_dh[0] * h.dc[0] + d_dh[1] * h.dc[1] + d_dh[2] * h.dc[2];
+    const float dn3 = h.dn * h.dn * h.dn;
+    float d_u[3], d_v[3];
+    #pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      const float d_dc = h.dn * d_dh[c] - dn3 * proj * h.dc[c];
+      const float inv = s[(S_INV + c) * ss + j];
+      const float d_inv = d_oc[c] * h.u[c] + d_dc * h.v[c];
+      d_u[c] = d_oc[c] * inv;
+      d_v[c] = d_dc * inv;
+      g[R_SCALE + c] = d_inv * s[(S_DS + c) * ss + j];
+    }
+    // d R[i][c] = d_u[c] (o_i - p_i) + d_v[c] d_i;  d p_i = -sum_c d_u[c] R[i][c]
+    float gr[3][3];
+    #pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      #pragma unroll
+      for (int c = 0; c < 3; ++c) gr[i][c] = d_u[c] * h.e[i] + d_v[c] * p.d[i];
+      g[i] = -(d_u[0] * rot(s, ss, j, i, 0) + d_u[1] * rot(s, ss, j, i, 1) +
+               d_u[2] * rot(s, ss, j, i, 2));
+    }
+    const float qw = s[S_Q * ss + j], qx = s[(S_Q + 1) * ss + j];
+    const float qy = s[(S_Q + 2) * ss + j], qz = s[(S_Q + 3) * ss + j];
+    g[R_QUAT] = 2.0f * (-qz * gr[0][1] + qy * gr[0][2] + qz * gr[1][0] - qx * gr[1][2] -
+                        qy * gr[2][0] + qx * gr[2][1]);
+    g[R_QUAT + 1] = 2.0f * (qy * gr[0][1] + qz * gr[0][2] + qy * gr[1][0] -
+                            2.0f * qx * gr[1][1] - qw * gr[1][2] + qz * gr[2][0] +
+                            qw * gr[2][1] - 2.0f * qx * gr[2][2]);
+    g[R_QUAT + 2] = 2.0f * (-2.0f * qy * gr[0][0] + qx * gr[0][1] + qw * gr[0][2] +
+                            qx * gr[1][0] + qz * gr[1][2] - qw * gr[2][0] + qz * gr[2][1] -
+                            2.0f * qy * gr[2][2]);
+    g[R_QUAT + 3] = 2.0f * (-2.0f * qz * gr[0][0] - qw * gr[0][1] + qx * gr[0][2] +
+                            qw * gr[1][0] - 2.0f * qz * gr[1][1] + qy * gr[1][2] +
+                            qx * gr[2][0] + qy * gr[2][1]);
+    g[R_OPACITY] = d_op;
+  }
+};
+
+}  // namespace response

@@ -18,7 +18,8 @@ from vk_gaussian_splatting_tpu_torch.scene.cameras import Camera, make_camera
 from vk_gaussian_splatting_tpu_torch.scene.splat_set import SplatSet
 
 SPLAT_FIELDS = ("means", "scales", "quats", "opacities", "sh_dc", "sh_rest")
-CAMERA_FIELDS = ("viewmat", "fx", "fy", "cx", "cy", "near", "far")
+CAMERA_FIELDS = ("viewmat", "fx", "fy", "cx", "cy", "near", "far", "focus_dist", "aperture",
+                 "distortion", "viewmat_end")
 
 
 def random_splat_arrays(seed: int, n: int, sh_degree: int = 3,

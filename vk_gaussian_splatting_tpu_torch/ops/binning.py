@@ -102,24 +102,26 @@ class EmitLayout:
 class _GatherPairs(torch.autograd.Function):
     """``rows[:, src[perm]]`` with the sort-based backward (module docstring).
 
-    Only rows before the depth row get gradients: the blend's backward gives
-    the depth row none (ops/rasterize.py), as in the JAX package."""
+    Only the first ``grad_rows`` rows, those before the response model's
+    depth row, get gradients: the blend's backward gives the depth row none
+    (ops/rasterize.py), as in the JAX package."""
 
     @staticmethod
-    def forward(ctx, rows, src_sorted, perm, layout):
+    def forward(ctx, rows, src_sorted, perm, layout, grad_rows):
         ctx.save_for_backward(perm)
         ctx.layout = layout
         ctx.num_rows = rows.shape[0]
+        ctx.grad_rows = grad_rows
         return rows.index_select(1, src_sorted)
 
     @staticmethod
     def backward(ctx, g):
         (perm,) = ctx.saved_tensors
-        g = g[:GS_DEPTH]
+        g = g[:ctx.grad_rows]
         d_emit = torch.empty_like(g).index_copy_(1, perm, g)  # each position once
         sums = ctx.layout.splat_sums(d_emit)
-        zeros = sums.new_zeros((ctx.num_rows - GS_DEPTH, ctx.layout.n))
-        return torch.cat([sums, zeros]), None, None, None
+        zeros = sums.new_zeros((ctx.num_rows - ctx.grad_rows, ctx.layout.n))
+        return torch.cat([sums, zeros]), None, None, None, None
 
 
 def tile_rect(xy: torch.Tensor, radius: torch.Tensor, tile_size: int,
@@ -248,15 +250,20 @@ def _expand_exact(x0, y0, x1, y1, valid0, *, tiles_x, num_tiles, chunk,
 def bin_splats(proj: ProjectedSplats, rows: torch.Tensor, ids: torch.Tensor, *,
                tile_size: int, tiles_x: int, tiles_y: int, chunk: int = 128,
                slots_k: int = 16, max_pairs: int = 0,
-               expansion: str = "slots") -> TileBins:
+               expansion: str = "slots", grad_rows: int = GS_DEPTH,
+               sort_depth: torch.Tensor | None = None) -> TileBins:
     """Expand, sort and range the (splat, tile) pairs.
 
-    rows: (R, N) f32 per-splat attribute rows, differentiable (the gather's
-    backward is sort-based, see the module docstring); ids: (N,) i32 splat
-    ids. max_pairs: the pair budget of the exact expansion (unused by slots).
+    rows: (R, N) f32 per-splat attribute rows, differentiable in their
+    first ``grad_rows`` rows (the gather's backward is sort-based, see the
+    module docstring); ids: (N,) i32 splat ids. max_pairs: the pair budget
+    of the exact expansion (unused by slots). sort_depth: (N,) a depth that
+    replaces ``proj.depth`` in the sort key alone (3DGRT's radial distance,
+    as the JAX ``bin_for_cfg``'s depth_override); the rows are not touched.
     """
     num_tiles = tiles_x * tiles_y
-    dkey = torch.where(proj.valid, proj.depth.detach(), float("inf"))
+    depth = proj.depth if sort_depth is None else sort_depth
+    dkey = torch.where(proj.valid, depth.detach(), float("inf"))
     x0, y0, x1, y1 = tile_rect(proj.xy, proj.radius, tile_size, tiles_x, tiles_y)
     valid0 = (proj.valid & (proj.radius.amax(dim=1) > 0)
               & (x1 > x0) & (y1 > y0))
@@ -278,7 +285,7 @@ def bin_splats(proj: ProjectedSplats, rows: torch.Tensor, ids: torch.Tensor, *,
     bounds = torch.searchsorted(
         tile_sorted, torch.arange(num_tiles + 1, device=tile_sorted.device))
     return TileBins(
-        attrs=_GatherPairs.apply(rows, src_sorted, perm, layout),
+        attrs=_GatherPairs.apply(rows, src_sorted, perm, layout, grad_rows),
         pair_id=ids.index_select(0, src_sorted),
         pair_valid=tile_sorted < num_tiles,
         tile_start=bounds[:-1].to(torch.int32),

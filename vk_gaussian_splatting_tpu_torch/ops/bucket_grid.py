@@ -52,6 +52,7 @@ import torch
 
 from vk_gaussian_splatting_tpu_torch.ops.binning import EmitLayout, _GatherPairs, tile_rect
 from vk_gaussian_splatting_tpu_torch.ops.projection import ProjectedSplats
+from vk_gaussian_splatting_tpu_torch.ops.response import GS_DEPTH
 from vk_gaussian_splatting_tpu_torch.ops.sort import encode_minmax_f32
 
 # pyramid cell sizes (px); class radius bound = cell/2 (the fine bound of
@@ -244,23 +245,29 @@ def window_overflow(bucket_starts: torch.Tensor, spec: BucketGridSpec,
 
 def bucket_splats(proj: ProjectedSplats, rows: torch.Tensor, ids: torch.Tensor, *,
                   tiles_x: int, tiles_y: int,
-                  caps: tuple = (512, 256, 512, 256)) -> BucketBins:
+                  caps: tuple = (512, 256, 512, 256), grad_rows: int = GS_DEPTH,
+                  sort_depth: torch.Tensor | None = None) -> BucketBins:
     """Bucket and depth-sort the splats for the bucket tile rasterizer.
 
-    rows: (R, N) f32 per-splat attribute rows (ops/response.py), which get
-    gradients through the sort-based backward; ids: (N,) i32 splat ids.
-    caps: per-class window-span capacities (fine, mid row, coarse row,
-    global), which only decide ``overflow`` here."""
+    rows: (R, N) f32 per-splat attribute rows (ops/response.py), whose first
+    ``grad_rows`` get gradients through the sort-based backward; ids: (N,)
+    i32 splat ids. caps: per-class window-span capacities (fine, mid row,
+    coarse row, global), which only decide ``overflow`` here. sort_depth:
+    (N,) a depth that replaces ``proj.depth`` in the sort key (the JAX
+    ``_bucket_impl``'s depth_override); the kernel merges on the model's
+    depth row, so the caller puts the same depth there."""
     spec = BucketGridSpec.build(tiles_x, tiles_y)
     n = proj.xy.shape[0]
     bucket = assign_buckets(proj, spec).reshape(-1)          # slot-major (4N,)
+    depth = proj.depth if sort_depth is None else sort_depth
     dkey = torch.where(bucket < spec.num_buckets - 1,
-                       proj.depth.detach().repeat(NUM_SLOTS), float("inf"))
+                       depth.detach().repeat(NUM_SLOTS), float("inf"))
     skey, perm = torch.sort((bucket << 32) | encode_minmax_f32(dkey), stable=True)
     src_sorted = perm % max(n, 1)
     starts = _segment_starts(skey >> 32, spec)
     return BucketBins(
-        attrs=_GatherPairs.apply(rows, src_sorted, perm, EmitLayout(n, streams=NUM_SLOTS)),
+        attrs=_GatherPairs.apply(rows, src_sorted, perm, EmitLayout(n, streams=NUM_SLOTS),
+                                 grad_rows),
         ids=ids.index_select(0, src_sorted),
         bucket_starts=starts,
         num_valid=starts[spec.num_buckets - 1].to(torch.int64),

@@ -1,5 +1,5 @@
-"""EWA splat projection, the 3DGS path (counterpart of
-``vk_gaussian_splatting_tpu/ops/projection.py:36-212``).
+"""Splat projection: EWA for 3DGS and the unscented transform for 3DGUT and
+3DGRT (counterpart of ``vk_gaussian_splatting_tpu/ops/projection.py:36-429``).
 
 Per-splat math of the reference's raster shaders, vectorized over all
 splats:
@@ -12,19 +12,29 @@ splats:
   (dist.comp.slang:64-133)
 
 The tile blender consumes the *conic* (inverse 2D covariance) directly.
-Everything is column arithmetic in the JAX package's order, so both
-packages round alike. The unscented-transform (3DGUT) half is not ported yet.
+``ut_project_splats`` projects seven sigma points through the sensor model
+of ``RenderConfig.camera_type`` (pinhole with OpenCV distortion, or the
+fisheye theta polynomial), with the rolling-shutter fixed point, for the
+binning of the gut3d pipelines. ``project_splats`` is pinhole EWA whatever
+``camera_type`` says, as in the JAX package. Everything is column
+arithmetic in the JAX package's order, so both packages round alike.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
-from vk_gaussian_splatting_tpu_torch.config import RenderConfig
+from vk_gaussian_splatting_tpu_torch.config import CameraType, RenderConfig, ShutterType
 from vk_gaussian_splatting_tpu_torch.ops.sh import eval_sh_radiance
-from vk_gaussian_splatting_tpu_torch.scene.cameras import Camera, view_transform_points
+from vk_gaussian_splatting_tpu_torch.scene.cameras import (
+    Camera,
+    shutter_time,
+    shutter_transform_cols,
+    view_transform_points,
+)
 from vk_gaussian_splatting_tpu_torch.scene.splat_set import PreparedSplats, dequantize_sh
 
 
@@ -160,11 +170,17 @@ def project_splats(prepared: PreparedSplats, cam: Camera,
             / torch.clamp(torch.abs(depth), min=1e-4)
         valid = valid & (extent_px >= rc.size_culling_min_px)
 
-    # color = activated base + SH radiance along camera->splat dir
-    # (threedgs_raster.mesh.slang:238-243)
+    radius = torch.where(valid[:, None], radius, 0.0)
+    return ProjectedSplats(xy=xy, conic=conic, depth=depth, radius=radius,
+                           color=splat_rgb(prepared, cam, cfg), alpha=alpha, valid=valid)
+
+
+def splat_rgb(prepared: PreparedSplats, cam: Camera, cfg: RenderConfig) -> torch.Tensor:
+    """(N,3) color = activated base + SH radiance along camera->splat dir
+    (threedgs_raster.mesh.slang:238-243), for both projections."""
     rgb = prepared.color[:, :3]
     if cfg.sh_degree >= 1 and prepared.sh.shape[1] > 0:
-        dirs = means - cam.position
+        dirs = prepared.means - cam.position
         dirs = dirs / torch.linalg.norm(dirs, dim=-1, keepdim=True).clamp_min(1e-12)
         sh_rad = eval_sh_radiance(dequantize_sh(prepared.sh), dirs, cfg.sh_degree)
         if cfg.show_sh_only:
@@ -172,7 +188,174 @@ def project_splats(prepared: PreparedSplats, cam: Camera,
         else:
             rgb = rgb + sh_rad
         rgb = torch.clamp(rgb, min=0.0)
+    return rgb
 
-    radius = torch.where(valid[:, None], radius, 0.0)
-    return ProjectedSplats(xy=xy, conic=conic, depth=depth, radius=radius,
-                           color=rgb, alpha=alpha, valid=valid)
+
+# ---------------------------------------------------------------------------
+# 3DGUT: unscented-transform projection (threedgut.h.slang:29-121 + camera
+# projections threedgut_camera_projections.h.slang:149-171)
+# ---------------------------------------------------------------------------
+
+GUT_DELTA = 1.7320508075688772  # sqrt(3) = sqrt(alpha^2 (D + kappa)), D=3
+GUT_ALPHA_THRESHOLD = 0.01
+GUT_MARGIN = 0.1                # GUT_IN_IMAGE_MARGIN_FACTOR
+GUT_DILATION = 0.3
+SHUTTER_ITERATIONS = 5          # projectPointWithShutter's fixed point
+
+
+def fisheye_max_angle(width, height, cx, cy, fx, fy):
+    """threedgut_camera_models.h.slang:89-120 computeMaxAngle."""
+    mx = torch.maximum(cx, width - cx)
+    my = torch.maximum(cy, height - cy)
+    max_radius = torch.sqrt(mx * mx + my * my)
+    return torch.maximum(max_radius / fx, max_radius / fy)
+
+
+def project_point_cols(cam: Camera, x, y, z, cfg: RenderConfig, margin: float = GUT_MARGIN):
+    """Column core of the sensor projection: (x, y, z) -> (u, v, valid), for
+    columns of any shape."""
+    d = cam.distortion
+    if cfg.camera_type == CameraType.PINHOLE:
+        zs = torch.where(z <= 1e-8, 1e-8, z)
+        un = x / zs
+        vn = y / zs
+        r2 = un * un + vn * vn
+        a1 = 2.0 * un * vn
+        a2 = r2 + 2.0 * un * un
+        a3 = r2 + 2.0 * vn * vn
+        num = 1.0 + r2 * (d[0] + r2 * (d[1] + r2 * d[2]))
+        den = 1.0 + r2 * (d[3] + r2 * (d[4] + r2 * d[5]))
+        icd = num / torch.where(den == 0, 1.0, den)
+        du = d[6] * a1 + d[7] * a2 + r2 * (d[8] + r2 * d[9])
+        dv = d[6] * a3 + d[7] * a1 + r2 * (d[10] + r2 * d[11])
+        und = icd * un + du
+        vnd = icd * vn + dv
+        valid_radial = (icd > 0.8) & (icd < 1.2)
+        # out-of-limits: push to the clipping radius along the undistorted
+        # direction (camera_projections:127-137)
+        roi = float(np.sqrt(np.float32(cfg.width ** 2 + cfg.height ** 2)))
+        rsafe = torch.sqrt(torch.clamp(r2, min=1e-12))
+        u = torch.where(valid_radial, cam.fx * und + cam.cx, (roi / rsafe) * un + cam.cx)
+        v = torch.where(valid_radial, cam.fy * vnd + cam.cy, (roi / rsafe) * vn + cam.cy)
+        valid = (z > 0) & valid_radial
+    else:
+        rho = torch.sqrt(torch.clamp(x * x + y * y, min=1e-14))
+        theta_full = torch.atan2(rho, z)
+        auto_angle = fisheye_max_angle(cfg.width, cfg.height, cam.cx, cam.cy, cam.fx, cam.fy)
+        max_angle = torch.where(d[16] > 0, d[16], auto_angle)
+        theta = torch.minimum(theta_full, max_angle)
+        # theta * (1 + poly(theta^2) * theta^2) / rho (Horner,
+        # camera_projections:159-165)
+        t2 = theta * theta
+        poly = d[12] + t2 * (d[13] + t2 * (d[14] + t2 * d[15]))
+        delta = theta * (poly * t2 + 1.0) / rho
+        u = cam.fx * x * delta + cam.cx
+        v = cam.fy * y * delta + cam.cy
+        valid = theta_full < max_angle
+    tol_x = cfg.width * margin
+    tol_y = cfg.height * margin
+    valid = valid & (u > -tol_x) & (v > -tol_y) & (u < cfg.width + tol_x) & (v < cfg.height + tol_y)
+    return u, v, valid
+
+
+def camera_project_points(cam: Camera, p_cam: torch.Tensor, cfg: RenderConfig,
+                          margin: float = GUT_MARGIN):
+    """Project camera-space points through the configured sensor model.
+
+    p_cam (..., 3) -> (uv (..., 2), valid (...,)). Full OpenCV models
+    (projectPointPinhole / projectPointFisheye, camera_projections:91-171):
+    pinhole with rational radial + tangential + thin-prism distortion (valid
+    while 0.8 < icD < 1.2, out-of-limits points clipped outward); fisheye
+    with the theta-polynomial and maxAngle FOV cone. All-zero distortion
+    (the default) reduces to the ideal models."""
+    u, v, valid = project_point_cols(cam, p_cam[..., 0], p_cam[..., 1], p_cam[..., 2], cfg,
+                                     margin)
+    return torch.stack([u, v], -1), valid
+
+
+def ut_project_splats(prepared: PreparedSplats, cam: Camera,
+                      cfg: RenderConfig) -> ProjectedSplats:
+    """Unscented-transform projection (threedgutParticleProjection).
+
+    Seven sigma points (mean, mean ± sqrt(3)·s_i·R[:,i]) project through the
+    sensor model; the UT weights collapse to w_mean = 0, w_i = 1/6 for the
+    center and w0_cov = 2 for the covariance (lambda = 0, alpha=1, beta=2 —
+    threedgut_definitions.h.slang:44-51). Under a rolling shutter each point
+    re-projects 5 times at the pose of its previous iterate's scan time
+    (threedgut_camera_projections.h.slang:226-236). The seven points ride
+    one (7, N) batch: elementwise, the same operations as seven columns.
+    ``radius`` is the per-axis (N, 2) rect of the opacity-bounded extent
+    (threedgutProjectedExtentConicOpacity)."""
+    rc = cfg.raster
+    means = prepared.means
+    mx, my, mz = means[:, 0], means[:, 1], means[:, 2]
+    q = prepared.quats / torch.linalg.norm(prepared.quats, dim=-1, keepdim=True).clamp_min(1e-12)
+    qw, qx, qy, qz = q[:, 0], q[:, 1], q[:, 2], q[:, 3]
+    # rotation columns (world-from-canonical R): rcol[i] = i-th column of R
+    rcol = (
+        (1 - 2 * (qy * qy + qz * qz), 2 * (qx * qy + qw * qz), 2 * (qx * qz - qw * qy)),
+        (2 * (qx * qy - qw * qz), 1 - 2 * (qx * qx + qz * qz), 2 * (qy * qz + qw * qx)),
+        (2 * (qx * qz + qw * qy), 2 * (qy * qz - qw * qx), 1 - 2 * (qx * qx + qy * qy)),
+    )
+    s = torch.exp(prepared.scales_log) * cfg.splat_scale       # (N,3)
+
+    # 7 sigma points: mean, mean ± sqrt(3)·s_i·R[:,i]
+    cols = [[mx], [my], [mz]]
+    for i in range(3):
+        for j in range(3):
+            ax = GUT_DELTA * s[:, i] * rcol[i][j]
+            cols[j] += [means[:, j] + ax, means[:, j] - ax]
+    px, py, pz = (torch.stack(c) for c in cols)                # (7, N) each
+
+    vm = cam.viewmat
+    cxx = vm[0, 0] * px + vm[0, 1] * py + vm[0, 2] * pz + vm[0, 3]
+    cyy = vm[1, 0] * px + vm[1, 1] * py + vm[1, 2] * pz + vm[1, 3]
+    czz = vm[2, 0] * px + vm[2, 1] * py + vm[2, 2] * pz + vm[2, 3]
+    u, v, ok = project_point_cols(cam, cxx, cyy, czz, cfg)
+    if cfg.shutter != ShutterType.GLOBAL:
+        for _ in range(SHUTTER_ITERATIONS):
+            t = shutter_time(cfg.shutter, u, v, cfg.width, cfg.height)
+            cxx, cyy, czz = shutter_transform_cols(cam, t, px, py, pz)
+            u, v, ok = project_point_cols(cam, cxx, cyy, czz, cfg)
+    depth = czz[0]
+
+    w_i = 1.0 / 6.0
+    cu = w_i * (u[1] + u[2] + u[3] + u[4] + u[5] + u[6])      # mean weight = 0
+    cv = w_i * (v[1] + v[2] + v[3] + v[4] + v[5] + v[6])
+    w0_cov = 2.0  # lambda/(D+lambda) + (1 - alpha^2 + beta)
+    cov_a = cov_b = cov_c = 0.0
+    for idx in range(7):
+        du = u[idx] - cu
+        dv = v[idx] - cv
+        wgt = w0_cov if idx == 0 else w_i
+        cov_a = cov_a + wgt * du * du
+        cov_b = cov_b + wgt * du * dv
+        cov_c = cov_c + wgt * dv * dv
+
+    a = cov_a + GUT_DILATION
+    b = cov_b
+    c = cov_c + GUT_DILATION
+    det = a * c - b * b
+    det_safe = torch.where(det == 0, 1.0, det)
+    conic = torch.stack([c / det_safe, -b / det_safe, a / det_safe], -1)
+
+    alpha = prepared.color[:, 3] * cfg.opacity_gain
+    if rc.ms_antialiasing:
+        det_orig = cov_a * cov_c - cov_b * cov_b
+        alpha = alpha * torch.sqrt(torch.clamp(det_orig / det_safe, min=2.5e-5))
+
+    # tight opacity-bounded rect extent (threedgutProjectedExtentConicOpacity)
+    max_power = torch.log(torch.clamp(alpha, min=GUT_ALPHA_THRESHOLD) / GUT_ALPHA_THRESHOLD)
+    extent_factor = torch.clamp(torch.sqrt(2.0 * max_power), max=3.33)
+    mid = 0.5 * (a + c)
+    lam = mid + torch.sqrt(torch.clamp(mid * mid - det, min=0.01))
+    radius = extent_factor * torch.sqrt(lam)
+    rx = torch.minimum(extent_factor * torch.sqrt(torch.clamp(a, min=0.0)), radius)
+    ry = torch.minimum(extent_factor * torch.sqrt(torch.clamp(c, min=0.0)), radius)
+    rect = torch.ceil(torch.stack([rx, ry], -1))
+
+    valid = ok.any(dim=0) & (det != 0) & (alpha >= GUT_ALPHA_THRESHOLD) & (radius > 0)
+    rect = torch.where(valid[:, None], rect, 0.0)
+    return ProjectedSplats(xy=torch.stack([cu, cv], -1), conic=conic, depth=depth,
+                           radius=rect, color=splat_rgb(prepared, cam, cfg), alpha=alpha,
+                           valid=valid)

@@ -4,16 +4,18 @@ them.
 
 Counterpart of ``vk_gaussian_splatting_tpu/ops/raster_bucket.py``: K3
 (``_make_kernel``, :469) and K4 (``_make_bwd_kernel``, :927, with the slot
-reduction of ``_br_bwd``, :1367) for the gs2d model. The CUDA kernels are
-``csrc/raster_bucket_fwd.cu`` and ``csrc/raster_bucket_bwd.cu``; they share
-``csrc/raster_bucket.cuh``.
+reduction of ``_br_bwd``, :1367) for the gs2d and gut3d response models
+(``RasterStatics.model``). The CUDA kernels are ``csrc/raster_bucket_fwd.cu``
+and ``csrc/raster_bucket_bwd.cu``, one entry point per model in each; they
+share ``csrc/raster_bucket.cuh`` and ``csrc/response.cuh``.
 
 Each 16x16 tile reads its six window spans of the bucket-sorted slot array
 (ops/bucket_grid.py): its own fine bucket, two mid rows, two coarse rows and
 the global bucket. Span i holds ``n_eff = min(len, cap_i - start % 128)``
 candidates, the TPU kernel's capacity with its 128-alignment head, and the
 spans' depth-sorted runs are merged into one list ordered by (depth, span,
-position in span). Then the tile blends that list front to back with the
+position in span), the depth being the model's depth row (KEY_ROW of the
+JAX kernel: for 3DGRT the radial distance render/pipelines puts there). Then the tile blends that list front to back with the
 pair blender's math (ops/rasterize.py), in steps of ``st.chunk`` lanes
 (``RasterConfig.bucket_chunk``): live candidate k sits at lane
 ``n_head + k``, where ``n_head`` sums the heads of the non-empty spans, so a
@@ -27,7 +29,8 @@ twins. The backward sums each (tile, lane) gradient into its slot column.
 
 On CUDA tensors the forward launches K3 and the backward K4; on CPU
 tensors both run the twins; nothing else decides which. A failed build or
-launch raises. What the port drops of the TPU kernels: the tiles-per-step
+launch raises. gut3d reads the per-tile pixel context (T, 8, 256), which
+gets no gradient (the JAX VJP returns zeros for it). What the port drops of the TPU kernels: the tiles-per-step
 interleave, the 4x4-tile cell grid, the DMA staging and the odd-even merge
 network (a merged lane's rank is a binary-search count here).
 """
@@ -52,17 +55,21 @@ from vk_gaussian_splatting_tpu_torch.ops.bucket_grid import (
 )
 from vk_gaussian_splatting_tpu_torch.ops.rasterize import (
     CTX_ROWS,
-    GRAD_ROWS,
     OUT_ROWS,
     PIX,
     RasterStatics,
     _check,
+    _ptr,
     blend_work,
     bwd_context,
+    check_pix_ctx,
+    count_launch,
+    entry_name,
+    model_args,
     rasterize_tiles_bwd_ref,
     rasterize_tiles_ref,
 )
-from vk_gaussian_splatting_tpu_torch.ops.response import GS_DEPTH, GS_ROWS
+from vk_gaussian_splatting_tpu_torch.ops.response import model_of
 
 MAX_BUCKET_CHUNK = 1024  # csrc/raster_bucket_{fwd,bwd}.cu stage at most this many lanes
 READER_SEGMENT = 64      # K4's reduce sums a shared column over at most this many tiles per pass
@@ -166,7 +173,7 @@ def _tile_lists(attrs: torch.Tensor, bucket_starts: torch.Tensor, st: RasterStat
     pos = torch.arange(span.shape[0], device=dev) - (torch.cumsum(sizes, 0) - sizes)[span]
     col = start[:, span] + pos                                      # (n, c_total)
     live = pos < n_eff[:, span]
-    depth = attrs[GS_DEPTH].detach()
+    depth = attrs[model_of(st).depth_row].detach()
     key = depth[col.clamp(0, depth.shape[0] - 1)] if depth.numel() else col.float()
     key = torch.where(live, key, float("inf"))
     merged = torch.gather(torch.where(live, col, -1), 1,
@@ -198,22 +205,25 @@ def _all_tiles(st: RasterStatics, device, tiles):
 
 def rasterize_buckets_ref(attrs: torch.Tensor, ids: torch.Tensor,
                           bucket_starts: torch.Tensor, st: RasterStatics, caps: tuple,
-                          tiles: torch.Tensor | None = None):
+                          tiles: torch.Tensor | None = None,
+                          pix_ctx: torch.Tensor | None = None):
     """Plain PyTorch twin of K3: the pair twin over the merged lists.
 
     Returns ((n, 5, 256) f32, (n, 256) i32) for the tiles of ``tiles`` (all
-    by default, in that order). Differentiable in ``attrs``."""
+    by default, in that order). Differentiable in ``attrs``. ``pix_ctx``:
+    the (T, 8, 256) pixel context of gut3d."""
     tiles = _all_tiles(st, attrs.device, tiles)
     lists = _tile_lists(attrs, bucket_starts, st, caps, tiles)
     c = lists.cols.clamp(min=0)
     return rasterize_tiles_ref(attrs[:, c], ids[c], lists.tile_start, lists.tile_count,
-                               st, tiles)
+                               st, tiles, pix_ctx)
 
 
 def rasterize_buckets_bwd_ref(attrs: torch.Tensor, bucket_starts: torch.Tensor,
                               ctx: torch.Tensor, st: RasterStatics, caps: tuple,
-                              tiles: torch.Tensor | None = None) -> torch.Tensor:
-    """Plain PyTorch twin of K4: (GS_ROWS, P) d_attrs.
+                              tiles: torch.Tensor | None = None,
+                              pix_ctx: torch.Tensor | None = None) -> torch.Tensor:
+    """Plain PyTorch twin of K4: (rows, P) d_attrs.
 
     The pair twin backward over the merged lists (``rasterize_tiles_bwd_ref``),
     then each (tile, lane) gradient summed into its slot column, by
@@ -223,7 +233,7 @@ def rasterize_buckets_bwd_ref(attrs: torch.Tensor, bucket_starts: torch.Tensor,
     tiles = _all_tiles(st, attrs.device, tiles)
     lists = _tile_lists(attrs, bucket_starts, st, caps, tiles)
     d_lanes = rasterize_tiles_bwd_ref(attrs[:, lists.cols.clamp(min=0)], lists.tile_start,
-                                      lists.tile_count, ctx, st, tiles)
+                                      lists.tile_count, ctx, st, tiles, pix_ctx)
     live = lists.cols >= 0
     cols, order = torch.sort(lists.cols[live], stable=True)
     p = attrs.shape[1]
@@ -244,7 +254,8 @@ class BucketWork(typing.NamedTuple):
 
 @torch.no_grad()
 def bucket_work(attrs: torch.Tensor, bucket_starts: torch.Tensor, st: RasterStatics,
-                caps: tuple, tiles: torch.Tensor | None = None) -> BucketWork:
+                caps: tuple, tiles: torch.Tensor | None = None,
+                pix_ctx: torch.Tensor | None = None) -> BucketWork:
     """The work of the given tiles (all by default): the alpha evaluations
     both kernels make and the hits (``rasterize.blend_work`` over the merged
     lists), the live candidates, and the merge's key comparisons, where each
@@ -253,19 +264,20 @@ def bucket_work(attrs: torch.Tensor, bucket_starts: torch.Tensor, st: RasterStat
     tiles = _all_tiles(st, attrs.device, tiles)
     lists = _tile_lists(attrs, bucket_starts, st, caps, tiles)
     evals, hits = blend_work(attrs[:, lists.cols.clamp(min=0)], lists.tile_start,
-                             lists.tile_count, st, tiles)
+                             lists.tile_count, st, tiles, pix_ctx)
     steps = torch.ceil(torch.log2(lists.n_eff.double() + 1))
     others = steps.sum(dim=1, keepdim=True) - steps
     return BucketWork(evals, hits, int(lists.n_eff.sum()), int(lists.n_eff[:, 1:].sum()),
                       int((lists.n_eff * others).sum()))
 
 
-def _check_inputs(attrs, bucket_starts, st, caps, ids=None, ctx=None) -> int:
+def _check_inputs(attrs, bucket_starts, st, caps, ids=None, ctx=None, pix_ctx=None) -> int:
     """Validate the blend inputs; returns the slot count P."""
     spec = BucketGridSpec.build(st.tiles_x, st.tiles_y)
     dev = attrs.device
     p = attrs.shape[1] if attrs.dim() == 2 else -1
-    _check("attrs", attrs, torch.float32, (GS_ROWS, p), dev)
+    _check("attrs", attrs, torch.float32, (model_of(st).rows, p), dev)
+    check_pix_ctx(pix_ctx, st, dev)
     if ids is not None:
         _check("ids", ids, torch.int32, (p,), dev)
     _check("bucket_starts", bucket_starts, torch.int32, (spec.num_buckets + 1,), dev)
@@ -278,83 +290,87 @@ def _check_inputs(attrs, bucket_starts, st, caps, ids=None, ctx=None) -> int:
     return p
 
 
-def _check_shared_memory(name: str, caps: tuple, chunk: int) -> None:
-    """Raise unless one block of kernel ``name`` fits the current card's
-    shared memory at these caps (all six spans' keys and lane indices plus
-    one chunk's staged rows)."""
-    need = _fn(name, "_smem")(sum(_span_sizes(caps)), chunk)
-    limit = _fn(name, "_smem_limit")()
+def _check_shared_memory(name: str, caps: tuple, st: RasterStatics) -> None:
+    """Raise unless one block of kernel ``name`` for ``st.model`` fits the
+    current card's shared memory at these caps (all six spans' keys and
+    lane indices plus one chunk's staged lanes, whose size is the
+    model's)."""
+    need = _fn(name, "_smem", st)(sum(_span_sizes(caps)), st.chunk)
+    limit = _fn(name, "_smem_limit", st)()
     if need > limit:
-        raise ValueError(f"bucket caps {caps} with chunk {chunk} need {need} B of shared "
-                         f"memory per block; the card allows {limit} B")
+        raise ValueError(f"bucket caps {caps} with chunk {st.chunk} need {need} B of shared "
+                         f"memory per {st.model} block; the card allows {limit} B")
 
 
-def _bucket_fwd(attrs, ids, bucket_starts, st, caps):
+def _bucket_fwd(attrs, ids, bucket_starts, st, caps, pix_ctx):
     """K3 on CUDA tensors (one launch counted), the twin on CPU tensors."""
     caps = check_caps(caps)
-    p = _check_inputs(attrs, bucket_starts, st, caps, ids=ids)
+    p = _check_inputs(attrs, bucket_starts, st, caps, ids=ids, pix_ctx=pix_ctx)
     dev = attrs.device
     if dev.type == "cpu":
-        return rasterize_buckets_ref(attrs, ids, bucket_starts, st, caps)
+        return rasterize_buckets_ref(attrs, ids, bucket_starts, st, caps, pix_ctx=pix_ctx)
     num_tiles = st.tiles_x * st.tiles_y
     spans = _span_table(st.tiles_x, st.tiles_y, dev)
     out = torch.empty((num_tiles, OUT_ROWS, PIX), dtype=torch.float32, device=dev)
     out_id = torch.empty((num_tiles, PIX), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
-        _check_shared_memory("raster_bucket_fwd", caps, st.chunk)
+        _check_shared_memory("raster_bucket_fwd", caps, st)
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _fn("raster_bucket_fwd")(
+        err = _fn("raster_bucket_fwd", st=st)(
             attrs.data_ptr(), p, ids.data_ptr(), bucket_starts.data_ptr(), spans.data_ptr(),
-            num_tiles, st.tiles_x, *caps, st.chunk, st.alpha_min, st.alpha_clamp, st.qmax,
+            _ptr(pix_ctx), num_tiles, st.tiles_x, *caps, st.chunk, *model_args(st),
             st.min_transmittance, st.depth_iso, out.data_ptr(), out_id.data_ptr(), stream)
     if err != 0:
-        raise RuntimeError(f"raster_bucket_fwd launch failed: cudaError {err}")
-    rasterize_buckets.launches += 1
+        raise RuntimeError(f"raster_bucket_fwd ({st.model}) launch failed: cudaError {err}")
+    count_launch(rasterize_buckets, st)
     return out, out_id
 
 
 def rasterize_buckets_bwd(attrs: torch.Tensor, bucket_starts: torch.Tensor,
-                          ctx: torch.Tensor, st: RasterStatics, caps: tuple) -> torch.Tensor:
-    """(GS_ROWS, P) d_attrs from the (T, 5, 256) ``bwd_context``.
+                          ctx: torch.Tensor, st: RasterStatics, caps: tuple,
+                          pix_ctx: torch.Tensor | None = None) -> torch.Tensor:
+    """(rows, P) d_attrs from the (T, 5, 256) ``bwd_context``.
 
-    CUDA tensors launch csrc/raster_bucket_bwd.cu and count one launch in
-    ``rasterize_buckets_bwd.launches``; CPU tensors run the plain twin. The
-    kernel stores each fine column's gradient once; the gradients of a
-    shared span's lanes go to a per-tile scratch that two more passes sum
-    over each column's reading tiles in a fixed order (``_readers``). No
-    atomics: the result repeats bit for bit."""
+    CUDA tensors launch csrc/raster_bucket_bwd.cu's entry for ``st.model``
+    and count one launch in ``rasterize_buckets_bwd.launches`` (gs2d) or
+    ``.launches_gut3d``; CPU tensors run the plain twin. The kernel stores
+    each fine column's gradient once; the gradients of a shared span's
+    lanes go to a per-tile scratch that two more passes sum over each
+    column's reading tiles in a fixed order (``_readers``). No atomics: the
+    result repeats bit for bit."""
     caps = check_caps(caps)
-    p = _check_inputs(attrs, bucket_starts, st, caps, ctx=ctx)
+    p = _check_inputs(attrs, bucket_starts, st, caps, ctx=ctx, pix_ctx=pix_ctx)
     dev = attrs.device
     if dev.type == "cpu":
-        return rasterize_buckets_bwd_ref(attrs, bucket_starts, ctx, st, caps)
+        return rasterize_buckets_bwd_ref(attrs, bucket_starts, ctx, st, caps, pix_ctx=pix_ctx)
     spec = BucketGridSpec.build(st.tiles_x, st.tiles_y)
     num_tiles = st.tiles_x * st.tiles_y
     spans = _span_table(st.tiles_x, st.tiles_y, dev)
     readers = _readers(st.tiles_x, st.tiles_y, dev)
     n_seg = readers.seg_bucket.shape[0]
     shared_lanes = sum(_span_sizes(caps)[1:])
+    grad_rows = model_of(st).grad_rows
     with torch.cuda.device(dev):
-        _check_shared_memory("raster_bucket_bwd", caps, st.chunk)
+        _check_shared_memory("raster_bucket_bwd", caps, st)
         d_attrs = torch.zeros_like(attrs)  # the kernels write live columns only
-        scratch = torch.empty((GRAD_ROWS, num_tiles * shared_lanes), dtype=torch.float32,
+        scratch = torch.empty((grad_rows, num_tiles * shared_lanes), dtype=torch.float32,
                               device=dev)
-        partial = torch.empty((GRAD_ROWS, n_seg, max(caps[1:])), dtype=torch.float32,
+        partial = torch.empty((grad_rows, n_seg, max(caps[1:])), dtype=torch.float32,
                               device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _fn("raster_bucket_bwd")(
+        err = _fn("raster_bucket_bwd", st=st)(
             attrs.data_ptr(), p, bucket_starts.data_ptr(), spans.data_ptr(),
-            *(x.data_ptr() for x in readers), n_seg, ctx.data_ptr(), num_tiles, st.tiles_x,
-            *caps, spec.offsets[1], spec.offsets[3], st.chunk, st.alpha_min, st.alpha_clamp,
-            st.qmax, st.min_transmittance, scratch.data_ptr(), partial.data_ptr(),
-            d_attrs.data_ptr(), stream)
+            *(x.data_ptr() for x in readers), n_seg, ctx.data_ptr(), _ptr(pix_ctx), num_tiles,
+            st.tiles_x, *caps, spec.offsets[1], spec.offsets[3], st.chunk, *model_args(st),
+            st.min_transmittance, scratch.data_ptr(), partial.data_ptr(), d_attrs.data_ptr(),
+            stream)
     if err != 0:
-        raise RuntimeError(f"raster_bucket_bwd launch failed: cudaError {err}")
-    rasterize_buckets_bwd.launches += 1
+        raise RuntimeError(f"raster_bucket_bwd ({st.model}) launch failed: cudaError {err}")
+    count_launch(rasterize_buckets_bwd, st)
     return d_attrs
 
 
-rasterize_buckets_bwd.launches = 0
+rasterize_buckets_bwd.launches = rasterize_buckets_bwd.launches_gut3d = 0
 
 
 class _RasterizeBuckets(torch.autograd.Function):
@@ -362,46 +378,53 @@ class _RasterizeBuckets(torch.autograd.Function):
     custom VJP): K3 / K4 on CUDA tensors, the twins on CPU tensors."""
 
     @staticmethod
-    def forward(ctx, attrs, ids, bucket_starts, st, caps):
-        out, out_id = _bucket_fwd(attrs, ids, bucket_starts, st, caps)
+    def forward(ctx, attrs, ids, bucket_starts, pix_ctx, st, caps):
+        out, out_id = _bucket_fwd(attrs, ids, bucket_starts, st, caps, pix_ctx)
         ctx.mark_non_differentiable(out_id)
-        ctx.save_for_backward(attrs, bucket_starts, out)
+        ctx.save_for_backward(attrs, bucket_starts, pix_ctx, out)
         ctx.st, ctx.caps = st, caps
         return out, out_id
 
     @staticmethod
     def backward(ctx, g_out, g_id):
-        attrs, bucket_starts, out = ctx.saved_tensors
+        attrs, bucket_starts, pix_ctx, out = ctx.saved_tensors
         d_attrs = rasterize_buckets_bwd(attrs, bucket_starts, bwd_context(out, g_out),
-                                        ctx.st, ctx.caps)
-        return d_attrs, None, None, None, None
+                                        ctx.st, ctx.caps, pix_ctx)
+        return d_attrs, None, None, None, None, None
 
 
-def rasterize_buckets(bins: BucketBins, st: RasterStatics, caps: tuple):
+def rasterize_buckets(bins: BucketBins, st: RasterStatics, caps: tuple,
+                      pix_ctx: torch.Tensor | None = None):
     """Blend bucketed splats into per-tile outputs.
 
-    bins: from ops/bucket_grid.bucket_splats at the same tiles_x/y; st: the
-    blend statics with ``chunk`` = the bucket blend chunk; caps: the four
-    class caps. Returns ((T, 5, 256) f32 rows r, g, b, T, depth; (T, 256)
-    i32 ids), every tile written. CUDA tensors launch
-    csrc/raster_bucket_fwd.cu and count one launch in
-    ``rasterize_buckets.launches``; CPU tensors run the plain twin.
-    Gradients reach ``bins.attrs`` through rgb and T."""
-    return _RasterizeBuckets.apply(bins.attrs, bins.ids, bins.bucket_starts, st, caps)
+    bins: from ops/bucket_grid.bucket_splats at the same tiles_x/y, rows of
+    ``st.model``; st: the blend statics with ``chunk`` = the bucket blend
+    chunk; caps: the four class caps; pix_ctx: the (T, 8, 256) pixel
+    context of gut3d (None for gs2d). Returns ((T, 5, 256) f32 rows r, g,
+    b, T, depth; (T, 256) i32 ids), every tile written. CUDA tensors launch
+    csrc/raster_bucket_fwd.cu's entry for the model and count one launch in
+    ``rasterize_buckets.launches`` (gs2d) or ``.launches_gut3d``; CPU
+    tensors run the plain twin. Gradients reach ``bins.attrs`` through rgb
+    and T."""
+    return _RasterizeBuckets.apply(bins.attrs, bins.ids, bins.bucket_starts, pix_ctx, st, caps)
 
 
-rasterize_buckets.launches = 0
+rasterize_buckets.launches = rasterize_buckets.launches_gut3d = 0
 
 _P, _L, _I, _F = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
+_MODEL = [_F, _F, _F, _F, _I]  # alpha_min, alpha_clamp, qmax, kernel_min_response, degree
 _ARGTYPES = {  # the C entry points' parameters, in order (csrc/raster_bucket_*.cu)
-    "raster_bucket_fwd": [_P, _L, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                          _F, _F, _F, _F, _F, _P, _P, _P],
-    "raster_bucket_bwd": [_P, _L, _P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I,
-                          _I, _I, _I, _F, _F, _F, _F, _P, _P, _P, _P],
+    "raster_bucket_fwd": [_P, _L, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, *_MODEL,
+                          _F, _F, _P, _P, _P],
+    "raster_bucket_bwd": [_P, _L, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I,
+                          _I, _I, _I, _I, *_MODEL, _F, _P, _P, _P, _P],
     "_smem": [_I, _I],
     "_smem_limit": [],
 }
 
 
-def _fn(name: str, suffix: str = ""):
-    return _build.entry(name, name + suffix, _ARGTYPES[suffix or name])
+def _fn(name: str, suffix: str = "", st: RasterStatics | None = None):
+    """The C function of csrc/<name>.cu for ``st.model`` (gs2d without
+    ``st``), or its ``_smem`` / ``_smem_limit`` query with ``suffix``."""
+    symbol = (name if st is None else entry_name(name, st)) + suffix
+    return _build.entry(name, symbol, _ARGTYPES[suffix or name])

@@ -4,9 +4,15 @@ their plain PyTorch twins, the autograd Function that joins them, and
 
 Counterpart of ``vk_gaussian_splatting_tpu/ops/rasterize_pallas.py``: K1
 (``_make_fwd_kernel``, :202-364) and K2 (``_make_bwd_kernel``, :367-483,
-wrapped by ``_rt_bwd``, :599-633) for the gs2d model, and
-``assemble_image`` (:645-680). The CUDA kernels are ``csrc/rasterize_fwd.cu``
-and ``csrc/rasterize_bwd.cu``.
+wrapped by ``_rt_bwd``, :599-633) for the gs2d and gut3d response models
+(``RasterStatics.model``, ops/response.py), and ``assemble_image``
+(:645-680). The CUDA kernels are ``csrc/rasterize_fwd.cu`` and
+``csrc/rasterize_bwd.cu``, one entry point per model in each.
+
+The gut3d model reads a per-tile pixel context ``pix_ctx``, (T, 8, 256) f32
+rays (render/rays.py); it gets no gradient, as in the JAX package, where
+the rays depend on the camera alone. Its attributes are 15 f32 rows,
+gs2d's 10 (ops/response.py).
 
 Per tile the output is rows ``(r, g, b, T, depth)`` over the tile's 256
 pixels, ``(T, 5, 256)`` f32, plus the picked splat ids ``(T, 256)`` int32 —
@@ -17,7 +23,8 @@ written: an empty tile is rgb 0, T 1, depth 0, id -1.
 picked depth and id are not differentiated (as in the JAX package). On CUDA
 tensors the forward launches K1 and the backward K2; on CPU tensors both
 run the plain twins; nothing else decides which. A failed build or launch
-raises.
+raises. Each wrapper counts its launches per model: ``launches`` for gs2d,
+``launches_gut3d`` for gut3d.
 """
 
 from __future__ import annotations
@@ -32,18 +39,20 @@ from vk_gaussian_splatting_tpu_torch.ops import _build
 from vk_gaussian_splatting_tpu_torch.ops.response import (
     ATTR_B,
     ATTR_R,
-    GS_DEPTH,
-    GS_ROWS,
-    gs2d_alpha,
-    gs2d_alpha_vjp,
+    PIX_ROWS,
+    alpha,
+    alpha_vjp,
+    model_of,
 )
 
 TILE = 16
 PIX = TILE * TILE  # 256 pixels per tile
 OUT_ROWS = 5       # r, g, b, T, depth
 CTX_ROWS = 5       # backward context: g_r, g_g, g_b, S_total, g_T * T_final
-GRAD_ROWS = ATTR_B + 1  # rows 0-8 get gradients; the depth row gets none
+GRAD_ROWS = ATTR_B + 1  # gs2d: rows 0-8 get gradients; the depth row gets none
 MAX_CHUNK = 256    # csrc/rasterize_{fwd,bwd}.cu stage at most this many pairs
+# the launch counter of each model, an attribute of each kernel's wrapper
+LAUNCH_COUNTER = {"gs2d": "launches", "gut3d": "launches_gut3d"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -58,6 +67,9 @@ class RasterStatics:
     qmax: float = 8.0
     min_transmittance: float = 1e-4
     depth_iso: float = 0.7       # depth-pick transmittance threshold
+    model: str = "gs2d"          # response model (ops/response.py)
+    kernel_degree: int = 2       # gut3d generalized-Gaussian degree
+    kernel_min_response: float = 0.0113  # gut3d response cutoff
 
 
 def _tile_pixel_coords(tiles: torch.Tensor, tiles_x: int):
@@ -86,25 +98,34 @@ class _Step(typing.NamedTuple):
     pc: torch.Tensor         # (n, c) the same, clamped to a valid column
     lane_live: torch.Tensor  # (n, c) the lane lies in its tile's [start, end)
     live: torch.Tensor       # (n, 256, c) lane live and pixel not frozen
-    block: torch.Tensor      # (n, GS_ROWS, c) the lanes' attribute rows
+    block: torch.Tensor      # (n, rows, c) the lanes' attribute rows
     alpha: torch.Tensor      # (n, 256, c), 0 where not live or cut off
     q: torch.Tensor          # 1 - alpha
     excl: torch.Tensor       # exclusive product of q along the lanes
     tcol: torch.Tensor       # (n, 256, 1) T at the step's start
 
 
-def _blend_steps(attrs, tile_start, tile_count, st: RasterStatics, tiles):
+class _Pixels(typing.NamedTuple):
+    """What the alpha of the given tiles reads of their pixels."""
+
+    px: torch.Tensor         # (n, 256, 1) pixel centers
+    py: torch.Tensor
+    pix: torch.Tensor | None  # (n, 8, 256) pixel context (gut3d), else None
+
+
+def _blend_steps(attrs, tile_start, tile_count, st: RasterStatics, tiles, pix_ctx=None):
     """The front-to-back sweep both twins walk, one ``_Step`` per blend
     step, with the TPU kernel's chunk semantics.
 
     For tile t, step k covers the global chunk ``first_block[t] + k``, masked
     to the tile's ``[start, end)``. A pixel is frozen for a whole step when
     its T at the step's start is <= min_transmittance. T advances after each
-    step is yielded. Returns (px, py) too: the (n, 256, 1) pixel centers."""
+    step is yielded. Returns the tiles' ``_Pixels`` too."""
     c = st.chunk
     start, end, first_block, nsteps = _tile_steps(tile_start, tile_count, tiles, c)
     n = tiles.shape[0]
     px, py = _tile_pixel_coords(tiles, st.tiles_x)
+    pixels = _Pixels(px, py, pix_ctx[tiles] if model_of(st).uses_pix else None)
     lane = torch.arange(c, device=attrs.device)
     p_max = max(attrs.shape[1] - 1, 0)
 
@@ -116,14 +137,14 @@ def _blend_steps(attrs, tile_start, tile_count, st: RasterStatics, tiles):
             live = lane_live[:, None, :] & (tcol > st.min_transmittance)
             pc = p.clamp(max=p_max)
             block = attrs[:, pc].permute(1, 0, 2)                       # (n, R, c)
-            alpha = gs2d_alpha(block, px, py, live, st)                 # (n, 256, c)
-            q = 1.0 - alpha
+            a = alpha(block, px, py, pixels.pix, live, st)              # (n, 256, c)
+            q = 1.0 - a
             incl = torch.cumprod(q, dim=-1)
             excl = torch.cat([torch.ones_like(q[..., :1]), incl[..., :-1]], dim=-1)
-            yield _Step(p, pc, lane_live, live, block, alpha, q, excl, tcol)
+            yield _Step(p, pc, lane_live, live, block, a, q, excl, tcol)
             tcol = tcol * excl[..., -1:] * q[..., -1:]
 
-    return px, py, steps()
+    return pixels, steps()
 
 
 def _all_tiles(tile_start, tiles):
@@ -134,15 +155,18 @@ def _all_tiles(tile_start, tiles):
 
 def rasterize_tiles_ref(attrs: torch.Tensor, ids: torch.Tensor,
                         tile_start: torch.Tensor, tile_count: torch.Tensor,
-                        st: RasterStatics, tiles: torch.Tensor | None = None):
+                        st: RasterStatics, tiles: torch.Tensor | None = None,
+                        pix_ctx: torch.Tensor | None = None):
     """Plain PyTorch twin of the kernel, with the TPU kernel's chunk semantics.
 
     Each step of the sweep (``_blend_steps``) is an ``(n, 256, chunk)``
-    alpha block with an exclusive product along the lanes. ``tiles`` selects
-    a subset of tiles (all by default); the result rows follow it.
+    alpha block of ``st.model`` with an exclusive product along the lanes.
+    ``tiles`` selects a subset of tiles (all by default); the result rows
+    follow it. ``pix_ctx``: the (T, 8, 256) pixel context of gut3d.
     """
     c = st.chunk
     dev = attrs.device
+    depth_row = model_of(st).depth_row
     tiles = _all_tiles(tile_start, tiles)
     n = tiles.shape[0]
     lane = torch.arange(c, device=dev)
@@ -151,7 +175,7 @@ def rasterize_tiles_ref(attrs: torch.Tensor, ids: torch.Tensor,
     pick_d = torch.zeros((n, PIX), dtype=torch.float32, device=dev)
     pick_id = torch.full((n, PIX), -1, dtype=torch.int32, device=dev)
     picked = torch.zeros((n, PIX), dtype=torch.bool, device=dev)
-    for s in _blend_steps(attrs, tile_start, tile_count, st, tiles)[2]:
+    for s in _blend_steps(attrs, tile_start, tile_count, st, tiles, pix_ctx)[1]:
         w = s.alpha * s.excl * s.tcol
         acc = acc + torch.stack(
             [(w * s.block[:, ch:ch + 1, :]).sum(-1) for ch in range(ATTR_R, ATTR_B + 1)],
@@ -162,7 +186,7 @@ def rasterize_tiles_ref(attrs: torch.Tensor, ids: torch.Tensor,
         first = torch.where(cond, lane, c).amin(dim=-1)             # (n, 256)
         upd = (first < c) & ~picked
         fl = first.clamp(max=c - 1)
-        d_sel = torch.gather(s.block[:, GS_DEPTH, :], 1, fl)
+        d_sel = torch.gather(s.block[:, depth_row, :], 1, fl)
         id_sel = ids[torch.gather(s.pc, 1, fl)]
         pick_d = torch.where(upd, d_sel, pick_d)
         pick_id = torch.where(upd, id_sel, pick_id)
@@ -174,14 +198,16 @@ def rasterize_tiles_ref(attrs: torch.Tensor, ids: torch.Tensor,
 
 @torch.no_grad()
 def blend_work(attrs: torch.Tensor, tile_start: torch.Tensor, tile_count: torch.Tensor,
-               st: RasterStatics, tiles: torch.Tensor | None = None) -> tuple[int, int]:
+               st: RasterStatics, tiles: torch.Tensor | None = None,
+               pix_ctx: torch.Tensor | None = None) -> tuple[int, int]:
     """(evaluations, hits) of a frame: the (pixel, pair) alpha evaluations
     both kernels make (every pair of each step a pixel enters live), and
     those whose alpha passes the cutoffs, where the kernels do the blend
     or gradient work. What a kernel's bound counts. ``tiles`` restricts
     the count to a subset of tiles (all by default)."""
     evals = hits = 0
-    for s in _blend_steps(attrs, tile_start, tile_count, st, _all_tiles(tile_start, tiles))[2]:
+    for s in _blend_steps(attrs, tile_start, tile_count, st, _all_tiles(tile_start, tiles),
+                          pix_ctx)[1]:
         evals += int(s.live.sum())
         hits += int((s.alpha > 0).sum())
     return evals, hits
@@ -200,8 +226,9 @@ def bwd_context(out: torch.Tensor, g_out: torch.Tensor) -> torch.Tensor:
 
 def rasterize_tiles_bwd_ref(attrs: torch.Tensor, tile_start: torch.Tensor,
                             tile_count: torch.Tensor, ctx: torch.Tensor,
-                            st: RasterStatics, tiles: torch.Tensor | None = None):
-    """Plain PyTorch twin of the backward kernel: (GS_ROWS, P) d_attrs.
+                            st: RasterStatics, tiles: torch.Tensor | None = None,
+                            pix_ctx: torch.Tensor | None = None):
+    """Plain PyTorch twin of the backward kernel: (rows, P) d_attrs.
 
     Hand-derived, vectorized like the forward twin: the same forward-order
     sweep (``_blend_steps``) with the same per-step freeze. With T_k the
@@ -211,12 +238,13 @@ def rasterize_tiles_bwd_ref(attrs: torch.Tensor, tile_start: torch.Tensor,
         dalpha_k = T_k (g_rgb . c_k) - (suffix_k + g_T T_final) / max(1 - alpha_k, 1 - alpha_clamp)
         dcolor_k = sum_pix g_rgb w_k,   w_k = alpha_k T_k
 
-    and the gs2d VJP (ops/response.gs2d_alpha_vjp) takes dalpha to the
+    and the model's VJP (ops/response.alpha_vjp) takes dalpha to the
     geometry rows. Each pair lies in one tile's range, so its gradient is
     written once. The depth row and pairs no tile visits stay zero. ``tiles``
     restricts the sweep to a subset of tiles (all by default); pairs of the
     other tiles then stay zero too.
     """
+    model = model_of(st)
     tiles = _all_tiles(tile_start, tiles)
     pctx = ctx[tiles]
     g_rgb = pctx[:, 0:3].transpose(1, 2)                              # (n, 256, 3)
@@ -225,7 +253,7 @@ def rasterize_tiles_bwd_ref(attrs: torch.Tensor, tile_start: torch.Tensor,
 
     d_attrs = torch.zeros_like(attrs)
     s_run = torch.zeros_like(s_total)
-    px, py, steps = _blend_steps(attrs, tile_start, tile_count, st, tiles)
+    pixels, steps = _blend_steps(attrs, tile_start, tile_count, st, tiles, pix_ctx)
     for s in steps:
         t_k = s.excl * s.tcol
         w = s.alpha * t_k
@@ -237,11 +265,12 @@ def rasterize_tiles_bwd_ref(attrs: torch.Tensor, tile_start: torch.Tensor,
         suffix = s_total - (s_run + torch.cumsum(wcg, dim=-1))
         qsafe = torch.clamp(s.q, min=1.0 - st.alpha_clamp)
         dalpha = t_k * cg - (suffix + gt_tn) / qsafe
-        d_geo = gs2d_alpha_vjp(blk, px, py, s.live, st, dalpha)     # (n, 6, c)
-        dcol = torch.stack([(g_rgb[..., ch:ch + 1] * w).sum(dim=1) for ch in range(3)],
-                           dim=1)                                   # (n, 3, c)
-        d_blk = torch.cat([d_geo, dcol], dim=1).permute(1, 0, 2)    # (9, n, c)
-        d_attrs[:GRAD_ROWS, s.p[s.lane_live]] = d_blk[:, s.lane_live]
+        d_blk = blk.new_zeros((blk.shape[0], model.grad_rows, blk.shape[2]))
+        d_blk[:, list(model.geo_rows)] = alpha_vjp(blk, pixels.px, pixels.py, pixels.pix,
+                                                   s.live, st, dalpha)
+        d_blk[:, ATTR_R:ATTR_B + 1] = torch.stack(
+            [(g_rgb[..., ch:ch + 1] * w).sum(dim=1) for ch in range(3)], dim=1)
+        d_attrs[:model.grad_rows, s.p[s.lane_live]] = d_blk.permute(1, 0, 2)[:, s.lane_live]
         s_run = s_run + wcg.sum(dim=-1, keepdim=True)
     return d_attrs
 
@@ -256,16 +285,28 @@ def _check(name, x, dtype, shape, device):
         raise ValueError(f"{name} must be contiguous")
 
 
-def _check_pairs(attrs, tile_start, tile_count, st, ids=None) -> int:
+def check_pix_ctx(pix_ctx, st, device) -> None:
+    """The (T, 8, 256) f32 pixel context a gut3d blend needs; none for gs2d."""
+    if model_of(st).uses_pix:
+        if pix_ctx is None:
+            raise ValueError(f"the {st.model} model needs a pixel context")
+        _check("pix_ctx", pix_ctx, torch.float32, (st.tiles_x * st.tiles_y, PIX_ROWS, PIX),
+               device)
+    elif pix_ctx is not None:
+        raise ValueError(f"the {st.model} model takes no pixel context")
+
+
+def _check_pairs(attrs, tile_start, tile_count, st, ids=None, pix_ctx=None) -> int:
     """Validate the blend inputs; returns the pair count P."""
     num_tiles = st.tiles_x * st.tiles_y
     dev = attrs.device
     p = attrs.shape[1] if attrs.dim() == 2 else -1
-    _check("attrs", attrs, torch.float32, (GS_ROWS, p), dev)
+    _check("attrs", attrs, torch.float32, (model_of(st).rows, p), dev)
     if ids is not None:
         _check("ids", ids, torch.int32, (p,), dev)
     _check("tile_start", tile_start, torch.int32, (num_tiles,), dev)
     _check("tile_count", tile_count, torch.int32, (num_tiles,), dev)
+    check_pix_ctx(pix_ctx, st, dev)
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"no blender for device {dev}")
     if dev.type == "cuda" and not 1 <= st.chunk <= MAX_CHUNK:
@@ -273,112 +314,140 @@ def _check_pairs(attrs, tile_start, tile_count, st, ids=None) -> int:
     return p
 
 
-def _blend_fwd(attrs, ids, tile_start, tile_count, st):
+def count_launch(wrapper, st) -> None:
+    """One more launch of ``wrapper``'s kernel for ``st.model``."""
+    name = LAUNCH_COUNTER[st.model]
+    setattr(wrapper, name, getattr(wrapper, name) + 1)
+
+
+def model_args(st):
+    """The C entry points' model arguments after the chunk: alpha_min,
+    alpha_clamp, qmax, kernel_min_response, kernel_degree."""
+    return (st.alpha_min, st.alpha_clamp, st.qmax, st.kernel_min_response, st.kernel_degree)
+
+
+def _blend_fwd(attrs, ids, tile_start, tile_count, st, pix_ctx):
     """K1 on CUDA tensors (one launch counted), the twin on CPU tensors."""
-    p = _check_pairs(attrs, tile_start, tile_count, st, ids)
+    p = _check_pairs(attrs, tile_start, tile_count, st, ids, pix_ctx)
     dev = attrs.device
     if dev.type == "cpu":
-        return rasterize_tiles_ref(attrs, ids, tile_start, tile_count, st)
+        return rasterize_tiles_ref(attrs, ids, tile_start, tile_count, st, pix_ctx=pix_ctx)
     num_tiles = st.tiles_x * st.tiles_y
-    fn = _kernel("rasterize_fwd")
+    fn = _kernel("rasterize_fwd", st)
     out = torch.empty((num_tiles, OUT_ROWS, PIX), dtype=torch.float32, device=dev)
     out_id = torch.empty((num_tiles, PIX), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(attrs.data_ptr(), p, ids.data_ptr(), tile_start.data_ptr(),
-                 tile_count.data_ptr(), num_tiles, st.tiles_x, st.chunk,
-                 st.alpha_min, st.alpha_clamp, st.qmax, st.min_transmittance,
-                 st.depth_iso, out.data_ptr(), out_id.data_ptr(), stream)
+                 tile_count.data_ptr(), _ptr(pix_ctx), num_tiles, st.tiles_x, st.chunk,
+                 *model_args(st), st.min_transmittance, st.depth_iso,
+                 out.data_ptr(), out_id.data_ptr(), stream)
     if err != 0:
-        raise RuntimeError(f"rasterize_fwd launch failed: cudaError {err}")
-    rasterize_tiles.launches += 1
+        raise RuntimeError(f"rasterize_fwd ({st.model}) launch failed: cudaError {err}")
+    count_launch(rasterize_tiles, st)
     return out, out_id
 
 
 def rasterize_tiles_bwd(attrs: torch.Tensor, tile_start: torch.Tensor,
                         tile_count: torch.Tensor, ctx: torch.Tensor,
-                        st: RasterStatics) -> torch.Tensor:
-    """(GS_ROWS, P) d_attrs from the (T, 5, 256) ``bwd_context``.
+                        st: RasterStatics, pix_ctx: torch.Tensor | None = None) -> torch.Tensor:
+    """(rows, P) d_attrs from the (T, 5, 256) ``bwd_context``.
 
-    CUDA tensors launch csrc/rasterize_bwd.cu and count one launch in
-    ``rasterize_tiles_bwd.launches``; CPU tensors run the plain twin. The
-    kernel writes each visited pair's gradient once with a plain store, in
-    a fixed reduction order, so its result repeats bit for bit."""
-    p = _check_pairs(attrs, tile_start, tile_count, st)
+    CUDA tensors launch csrc/rasterize_bwd.cu's entry for ``st.model`` and
+    count one launch in ``rasterize_tiles_bwd.launches`` (gs2d) or
+    ``.launches_gut3d``; CPU tensors run the plain twin. The kernel writes
+    each visited pair's gradient once with a plain store, in a fixed
+    reduction order, so its result repeats bit for bit."""
+    p = _check_pairs(attrs, tile_start, tile_count, st, pix_ctx=pix_ctx)
     dev = attrs.device
     num_tiles = st.tiles_x * st.tiles_y
     _check("ctx", ctx, torch.float32, (num_tiles, CTX_ROWS, PIX), dev)
     if dev.type == "cpu":
-        return rasterize_tiles_bwd_ref(attrs, tile_start, tile_count, ctx, st)
-    fn = _kernel("rasterize_bwd")
+        return rasterize_tiles_bwd_ref(attrs, tile_start, tile_count, ctx, st, pix_ctx=pix_ctx)
+    fn = _kernel("rasterize_bwd", st)
     d_attrs = torch.zeros_like(attrs)  # the kernel writes visited pairs only
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(attrs.data_ptr(), p, tile_start.data_ptr(), tile_count.data_ptr(),
-                 ctx.data_ptr(), num_tiles, st.tiles_x, st.chunk, st.alpha_min,
-                 st.alpha_clamp, st.qmax, st.min_transmittance, d_attrs.data_ptr(),
-                 stream)
+                 ctx.data_ptr(), _ptr(pix_ctx), num_tiles, st.tiles_x, st.chunk,
+                 *model_args(st), st.min_transmittance, d_attrs.data_ptr(), stream)
     if err != 0:
-        raise RuntimeError(f"rasterize_bwd launch failed: cudaError {err}")
-    rasterize_tiles_bwd.launches += 1
+        raise RuntimeError(f"rasterize_bwd ({st.model}) launch failed: cudaError {err}")
+    count_launch(rasterize_tiles_bwd, st)
     return d_attrs
 
 
-rasterize_tiles_bwd.launches = 0
+rasterize_tiles_bwd.launches = rasterize_tiles_bwd.launches_gut3d = 0
 
 
 class _RasterizeTiles(torch.autograd.Function):
     """The blend with its backward kernel (rasterize_pallas.rasterize_tiles'
-    custom VJP): K1 / K2 on CUDA tensors, the twins on CPU tensors."""
+    custom VJP): K1 / K2 on CUDA tensors, the twins on CPU tensors. The
+    pixel context gets no gradient (the JAX VJP returns zeros for it)."""
 
     @staticmethod
-    def forward(ctx, attrs, ids, tile_start, tile_count, st):
-        out, out_id = _blend_fwd(attrs, ids, tile_start, tile_count, st)
+    def forward(ctx, attrs, ids, tile_start, tile_count, pix_ctx, st):
+        out, out_id = _blend_fwd(attrs, ids, tile_start, tile_count, st, pix_ctx)
         ctx.mark_non_differentiable(out_id)
-        ctx.save_for_backward(attrs, ids, tile_start, tile_count, out)
+        ctx.save_for_backward(attrs, tile_start, tile_count, pix_ctx, out)
         ctx.st = st
         return out, out_id
 
     @staticmethod
     def backward(ctx, g_out, g_id):
-        attrs, _, tile_start, tile_count, out = ctx.saved_tensors
+        attrs, tile_start, tile_count, pix_ctx, out = ctx.saved_tensors
         d_attrs = rasterize_tiles_bwd(attrs, tile_start, tile_count,
-                                      bwd_context(out, g_out), ctx.st)
-        return d_attrs, None, None, None, None
+                                      bwd_context(out, g_out), ctx.st, pix_ctx)
+        return d_attrs, None, None, None, None, None
 
 
 def rasterize_tiles(attrs: torch.Tensor, ids: torch.Tensor,
                     tile_start: torch.Tensor, tile_count: torch.Tensor,
-                    st: RasterStatics):
+                    st: RasterStatics, pix_ctx: torch.Tensor | None = None):
     """Blend sorted pair attributes into per-tile outputs.
 
-    attrs: (GS_ROWS, P) f32 gs2d rows in (tile, depth) order; ids: (P,) i32;
-    tile_start, tile_count: (T,) i32, T = tiles_x * tiles_y.
+    attrs: (rows, P) f32 rows of ``st.model`` in (tile, depth) order; ids:
+    (P,) i32; tile_start, tile_count: (T,) i32, T = tiles_x * tiles_y;
+    pix_ctx: the (T, 8, 256) f32 pixel context of gut3d (None for gs2d).
     Returns ((T, 5, 256) f32 rows r, g, b, T, depth; (T, 256) i32 ids).
-    CUDA tensors launch csrc/rasterize_fwd.cu and count one launch in
-    ``rasterize_tiles.launches``; CPU tensors run the plain twin. Gradients
-    reach ``attrs`` through rgb and T (``rasterize_tiles_bwd``).
+    CUDA tensors launch csrc/rasterize_fwd.cu's entry for the model and
+    count one launch in ``rasterize_tiles.launches`` (gs2d) or
+    ``.launches_gut3d``; CPU tensors run the plain twin. Gradients reach
+    ``attrs`` through rgb and T (``rasterize_tiles_bwd``).
     """
-    return _RasterizeTiles.apply(attrs, ids, tile_start, tile_count, st)
+    return _RasterizeTiles.apply(attrs, ids, tile_start, tile_count, pix_ctx, st)
 
 
-rasterize_tiles.launches = 0
+rasterize_tiles.launches = rasterize_tiles.launches_gut3d = 0
 
 _P, _L, _I, _F = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
+_MODEL = [_F, _F, _F, _F, _I]  # alpha_min, alpha_clamp, qmax, kernel_min_response, degree
 _ARGTYPES = {  # the C entry points' parameters, in order (csrc/*.cu)
-    "rasterize_fwd": [_P, _L, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _F, _P, _P, _P],
-    "rasterize_bwd": [_P, _L, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _P, _P],
+    "rasterize_fwd": [_P, _L, _P, _P, _P, _P, _I, _I, _I, *_MODEL, _F, _F, _P, _P, _P],
+    "rasterize_bwd": [_P, _L, _P, _P, _P, _P, _I, _I, _I, *_MODEL, _F, _P, _P],
 }
 
 
-def _kernel(name: str):
-    return _build.entry(name, name, _ARGTYPES[name])
+def entry_name(name: str, st) -> str:
+    """The C entry point of kernel ``name`` for ``st.model``: ``name`` for
+    gs2d, ``name + "_gut3d"`` for gut3d (the same source, another
+    instantiation of its model template)."""
+    model_of(st)
+    return name if st.model == "gs2d" else f"{name}_{st.model}"
 
 
-def rasterize_bins(bins, st: RasterStatics):
+def _kernel(name: str, st):
+    return _build.entry(name, entry_name(name, st), _ARGTYPES[name])
+
+
+def _ptr(t: torch.Tensor | None):
+    return None if t is None else t.data_ptr()
+
+
+def rasterize_bins(bins, st: RasterStatics, pix_ctx: torch.Tensor | None = None):
     """Convenience wrapper over a TileBins (ops/binning.py)."""
     return rasterize_tiles(bins.attrs, bins.pair_id, bins.tile_start,
-                           bins.tile_count, st)
+                           bins.tile_count, st, pix_ctx)
 
 
 def assemble_image(out: torch.Tensor, out_id: torch.Tensor, tiles_x: int,

@@ -1,21 +1,38 @@
-"""The gs2d response model (counterpart of
-``vk_gaussian_splatting_tpu/ops/response.py:31-42,131-154``).
+"""The response models the tile blenders evaluate, gs2d and gut3d
+(counterpart of ``vk_gaussian_splatting_tpu/ops/response.py:31-51,112-154,
+395-445`` and ``ops/raytrace.py:135-141``).
 
-Projected 2D conic Gaussian (threedgs_raster.frag.slang:236-255):
-d = (p-mu)' conic (p-mu), response = exp(-0.5 d), discard d > qmax, keep
-only alpha >= alpha_min, clamp at alpha_clamp. This module is the plain
-reference of the math that the CUDA tile blenders (csrc/rasterize_fwd.cu,
-and its backward csrc/rasterize_bwd.cu) inline, with the hand-derived VJP
-the backward needs; the other response models are not ported yet.
+- ``gs2d``: projected 2D conic Gaussian (threedgs_raster.frag.slang:236-255):
+  d = (p-mu)' conic (p-mu), response = exp(-0.5 d), discard d > qmax, keep
+  only alpha >= alpha_min, clamp at alpha_clamp.
+- ``gut3d``: the exact 3D ray-particle response of 3DGUT rasterization and
+  3DGRT (threedgrt.h.slang:57-127): the pixel's camera ray transforms into
+  the particle's canonical frame, and the generalized-Gaussian kernel of
+  ``kernel_degree`` evaluates at the ray's minimum squared distance; keep
+  only alpha > alpha_min and response > kernel_min_response.
 
-Attribute rows of the gs2d layout, shape (GS_ROWS, P) f32:
-  0 x, 1 y, 2-4 conic (a, b, c), 5 opacity, 6-8 rgb, 9 depth
-The splat id does not ride as a float row (the JAX layout's two f32 id
-rows): it travels beside the rows as its own int32 array, which is exact
-for every id.
+This module is the plain reference of the math that the CUDA tile blenders
+(csrc/response.cuh, used by csrc/rasterize_{fwd,bwd}.cu and
+csrc/raster_bucket_{fwd,bwd}.cu) evaluate, with the hand-derived VJPs their
+backwards need. The JAX kernels take those VJPs with in-kernel ``jax.vjp``.
+The packed, clip and triangle models are not ported yet.
+
+Attribute rows, shape (rows, P) f32:
+  gs2d : 0 x, 1 y, 2-4 conic (a, b, c), 5 opacity, 6-8 rgb, 9 depth
+  gut3d: 0-2 position, 3-5 scale (linear), 6-8 rgb, 9-12 quat (w, x, y, z,
+         unit), 13 opacity, 14 depth
+Color rows are 6-8 in both (the blender contracts them); the depth row is
+the aux pick and the bucket merge key, and gets no gradient. The splat id
+does not ride as a float row (the JAX layouts' f32 id rows): it travels
+beside the rows as its own int32 array, exact for every id.
+
+The gut3d model reads a per-tile pixel context (T, 8, 256): rows 0-2 the
+unit ray direction, 3-5 the ray origin (render/rays.py); rows 6-7 unused.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -23,6 +40,46 @@ GS_X, GS_Y, GS_CA, GS_CB, GS_CC, GS_OPACITY = 0, 1, 2, 3, 4, 5
 ATTR_R, ATTR_G, ATTR_B = 6, 7, 8
 GS_DEPTH = 9
 GS_ROWS = 10
+
+GUT_PX, GUT_PY, GUT_PZ = 0, 1, 2
+GUT_SX, GUT_SY, GUT_SZ = 3, 4, 5
+GUT_QW, GUT_QX, GUT_QY, GUT_QZ = 9, 10, 11, 12
+GUT_OPACITY, GUT_DEPTH = 13, 14
+GUT_ROWS = 15
+
+# pixel-context rows, in the (8, 256) per-tile block
+RAY_DX, RAY_DY, RAY_DZ, RAY_OX, RAY_OY, RAY_OZ = 0, 1, 2, 3, 4, 5
+PIX_ROWS = 8
+
+KERNEL_DEGREES = (0, 1, 2, 3, 4, 5, 8)
+
+
+@dataclasses.dataclass(frozen=True)
+class Model:
+    """A response model's row layout."""
+
+    rows: int              # f32 attribute rows
+    depth_row: int         # aux depth pick and bucket merge key
+    geo_rows: tuple        # rows the model's VJP fills, in its output order
+    uses_pix: bool         # reads the per-tile pixel context
+
+    @property
+    def grad_rows(self) -> int:
+        """Rows 0 .. grad_rows-1 get gradients: all before the depth row."""
+        return self.depth_row
+
+
+MODELS = {
+    "gs2d": Model(GS_ROWS, GS_DEPTH, (0, 1, 2, 3, 4, 5), False),
+    "gut3d": Model(GUT_ROWS, GUT_DEPTH, (0, 1, 2, 3, 4, 5, 9, 10, 11, 12, 13), True),
+}
+
+
+def model_of(st) -> Model:
+    if st.model not in MODELS:
+        raise NotImplementedError(f"response model {st.model!r} is not ported yet "
+                                  "(ROADMAP.md queue 2)")
+    return MODELS[st.model]
 
 
 def _row(block: torch.Tensor, r: int) -> torch.Tensor:
@@ -77,3 +134,191 @@ def gs2d_alpha_vjp(block: torch.Tensor, px: torch.Tensor, py: torch.Tensor,
         da * g,                                    # opacity
     )
     return torch.stack([r.sum(dim=-2) for r in rows], dim=-2)
+
+
+# ---- gut3d ------------------------------------------------------------------
+
+def kernel_response(ray_dist_sq: torch.Tensor, degree: int) -> torch.Tensor:
+    """Generalized Gaussian of degree n, scale s = -4.5/3^n
+    (threedgrt.h.slang:83-127). ray_dist_sq is the squared canonical distance."""
+    d = ray_dist_sq
+    if degree == 8:
+        return torch.exp(-0.000685871056241 * (d * d) * (d * d))
+    if degree == 5:
+        return torch.exp(-0.0185185185185 * d * d * torch.sqrt(d))
+    if degree == 4:
+        return torch.exp(-0.0555555555556 * d * d)
+    if degree == 3:
+        return torch.exp(-0.166666666667 * d * torch.sqrt(d))
+    if degree == 1:
+        return torch.exp(-1.5 * torch.sqrt(d))
+    if degree == 0:
+        return torch.clamp(1.0 - 0.329630334487 * torch.sqrt(d), min=0.0)
+    return torch.exp(-0.5 * d)  # degree 2 (default quadratic)
+
+
+def kernel_response_slope(d: torch.Tensor, resp: torch.Tensor, degree: int) -> torch.Tensor:
+    """d kernel_response / d ray_dist_sq at d, given resp = kernel_response(d)
+    (where the degree-0 kernel is above its floor, which the cutoff
+    resp > kernel_min_response >= 0 ensures wherever it is used)."""
+    if degree == 8:
+        return resp * (-0.000685871056241 * 4.0 * (d * d) * d)
+    if degree == 5:
+        return resp * (-0.0185185185185 * 2.5 * d * torch.sqrt(d))
+    if degree == 4:
+        return resp * (-0.0555555555556 * 2.0 * d)
+    if degree == 3:
+        return resp * (-0.166666666667 * 1.5 * torch.sqrt(d))
+    if degree == 1:
+        return resp * (-0.75 / torch.sqrt(d))
+    if degree == 0:
+        return -0.1648151672435 / torch.sqrt(d)
+    return -0.5 * resp
+
+
+def deg0_min_response(rt) -> float:
+    """Degree-0 support cull from the proxy scale (splat_set_vk.cpp
+    kernelScale): the linear kernel 1 - 0.3296*sqrt(d) is culled beyond
+    sqrt(d) = rt.kernel_scale_deg0 (a copy of the JAX package's
+    ``ops/raytrace._deg0_min_response``)."""
+    if rt.kernel_degree == 0:
+        return max(0.0, 1.0 - 0.329630334487 * rt.kernel_scale_deg0)
+    return 0.0
+
+
+def _pix(pix: torch.Tensor, r: int) -> torch.Tensor:
+    """Row r of a (..., 8, 256) pixel context as a (..., 256, 1) column."""
+    return pix[..., r, :, None]
+
+
+@dataclasses.dataclass
+class _GutEval:
+    """The gut3d forward's intermediates, which its VJP reads."""
+
+    r: list          # R[i][j], (..., 1, C) rows
+    inv_s: list      # 1 / max(s_j, 1e-12)
+    e: list          # o_i - p_i, (..., 256, C)
+    d: list          # ray direction columns, (..., 256, 1)
+    u: list          # u_j = R[:, j] . (o - p)
+    v: list          # v_j = R[:, j] . d
+    oc: list         # canonical origin u_j * inv_s_j
+    dc: list         # canonical direction v_j * inv_s_j
+    dn: torch.Tensor  # rsqrt(|dc|^2 + 1e-30)
+    dh: list         # unit canonical direction
+    cr: list         # dh x oc
+    dist: torch.Tensor  # |dh x oc|^2
+    resp: torch.Tensor
+    a_raw: torch.Tensor
+    mask: torch.Tensor  # the cutoffs and ``live``
+
+
+def _gut3d_eval(block: torch.Tensor, pix: torch.Tensor, live: torch.Tensor, st) -> _GutEval:
+    """The JAX model's operations, term for term, in its order."""
+    pos = [_row(block, i) for i in (GUT_PX, GUT_PY, GUT_PZ)]
+    scl = [_row(block, i) for i in (GUT_SX, GUT_SY, GUT_SZ)]
+    qw, qx, qy, qz = (_row(block, i) for i in (GUT_QW, GUT_QX, GUT_QY, GUT_QZ))
+    # rotation matrix entries (world-from-canonical R); R^T transforms into
+    # the canonical frame (quatToMat3Transpose, threedgrt.h.slang:48-49)
+    r = [
+        [1 - 2 * (qy * qy + qz * qz), 2 * (qx * qy - qw * qz), 2 * (qx * qz + qw * qy)],
+        [2 * (qx * qy + qw * qz), 1 - 2 * (qx * qx + qz * qz), 2 * (qy * qz - qw * qx)],
+        [2 * (qx * qz - qw * qy), 2 * (qy * qz + qw * qx), 1 - 2 * (qx * qx + qy * qy)],
+    ]
+    inv_s = [1.0 / torch.clamp(s, min=1e-12) for s in scl]
+    d_pix = [_pix(pix, i) for i in (RAY_DX, RAY_DY, RAY_DZ)]
+    e = [_pix(pix, o) - p for o, p in zip((RAY_OX, RAY_OY, RAY_OZ), pos)]
+    # canonical ray (threedgrt.h.slang:57-75): v_c = (R^T v) / s
+    u = [r[0][j] * e[0] + r[1][j] * e[1] + r[2][j] * e[2] for j in range(3)]
+    v = [r[0][j] * d_pix[0] + r[1][j] * d_pix[1] + r[2][j] * d_pix[2] for j in range(3)]
+    oc = [u[j] * inv_s[j] for j in range(3)]
+    dc = [v[j] * inv_s[j] for j in range(3)]
+    dn = torch.rsqrt(dc[0] * dc[0] + dc[1] * dc[1] + dc[2] * dc[2] + 1e-30)
+    dh = [x * dn for x in dc]
+    # min squared distance = |d x o|^2 (threedgrt.h.slang:77-81)
+    cr = [dh[1] * oc[2] - dh[2] * oc[1], dh[2] * oc[0] - dh[0] * oc[2],
+          dh[0] * oc[1] - dh[1] * oc[0]]
+    dist = cr[0] * cr[0] + cr[1] * cr[1] + cr[2] * cr[2]
+    resp = kernel_response(dist, st.kernel_degree)
+    a_raw = _row(block, GUT_OPACITY) * resp
+    mask = (a_raw > st.alpha_min) & (resp > st.kernel_min_response) & live
+    return _GutEval(r, inv_s, e, d_pix, u, v, oc, dc, dn, dh, cr, dist, resp, a_raw, mask)
+
+
+def gut3d_alpha(block: torch.Tensor, pix: torch.Tensor, live: torch.Tensor, st) -> torch.Tensor:
+    """(..., 256, C) alpha from a (..., GUT_ROWS, C) attribute block and the
+    (..., 8, 256) pixel context of its tile: each pixel's ray (unit
+    direction, origin; already in the splat set's frame) against each
+    splat's canonical frame. live as in :func:`gs2d_alpha`; st: the cutoffs
+    (alpha_min, alpha_clamp, kernel_min_response) and kernel_degree."""
+    f = _gut3d_eval(block, pix, live, st)
+    return torch.where(f.mask, torch.clamp(f.a_raw, max=st.alpha_clamp), 0.0)
+
+
+def gut3d_alpha_vjp(block: torch.Tensor, pix: torch.Tensor, live: torch.Tensor, st,
+                    d_alpha: torch.Tensor) -> torch.Tensor:
+    """Hand-derived VJP of :func:`gut3d_alpha`, summed over the pixel axis.
+
+    Returns (..., 11, C): the gradients of rows position x, y, z, scale x,
+    y, z, quat w, x, y, z and opacity (``MODELS["gut3d"].geo_rows``). None
+    where the cutoffs drop a pair-pixel or the clamp binds, and none through
+    max(s, 1e-12) below the floor. With resp = K(D), D = |dh x oc|^2:
+
+      d opacity = da resp,  dD = da opacity K'(D),  d cr = 2 cr dD,
+      d dh = oc x d cr,  d oc = d cr x dh,
+      d dc = dn d dh - dn^3 (d dh . dc) dc        (the rsqrt normalisation),
+      oc_j = u_j inv_s_j, dc_j = v_j inv_s_j,  u = R^T (o - p), v = R^T d:
+      d inv_s_j = d oc_j u_j + d dc_j v_j,  d s_j = -inv_s_j^2 d inv_s_j,
+      d R[i][j] = d oc_j inv_s_j (o_i - p_i) + d dc_j inv_s_j d_i,
+      d p_i = -sum_j d oc_j inv_s_j R[i][j],
+    and the quaternion's from d R through R(q). Per pixel, then summed.
+    """
+    f = _gut3d_eval(block, pix, live, st)
+    da = torch.where(f.mask & (f.a_raw <= st.alpha_clamp), d_alpha, 0.0)
+    d_op = da * f.resp
+    d_dist = da * _row(block, GUT_OPACITY) * kernel_response_slope(f.dist, f.resp,
+                                                                  st.kernel_degree)
+    g = [2.0 * c * d_dist for c in f.cr]
+    oc, dh, dc = f.oc, f.dh, f.dc
+    d_dh = [oc[1] * g[2] - oc[2] * g[1], oc[2] * g[0] - oc[0] * g[2],
+            oc[0] * g[1] - oc[1] * g[0]]
+    d_oc = [g[1] * dh[2] - g[2] * dh[1], g[2] * dh[0] - g[0] * dh[2],
+            g[0] * dh[1] - g[1] * dh[0]]
+    proj = d_dh[0] * dc[0] + d_dh[1] * dc[1] + d_dh[2] * dc[2]
+    dn3 = f.dn * f.dn * f.dn
+    d_dc = [f.dn * d_dh[j] - dn3 * proj * dc[j] for j in range(3)]
+    d_inv_s = [d_oc[j] * f.u[j] + d_dc[j] * f.v[j] for j in range(3)]
+    d_u = [d_oc[j] * f.inv_s[j] for j in range(3)]
+    d_v = [d_dc[j] * f.inv_s[j] for j in range(3)]
+    gr = [[d_u[j] * f.e[i] + d_v[j] * f.d[i] for j in range(3)] for i in range(3)]
+    d_p = [-(d_u[0] * f.r[i][0] + d_u[1] * f.r[i][1] + d_u[2] * f.r[i][2]) for i in range(3)]
+    d_s = []
+    for j, s in enumerate(_row(block, i) for i in (GUT_SX, GUT_SY, GUT_SZ)):
+        d_s.append(d_inv_s[j] * torch.where(s > 1e-12, -(f.inv_s[j] * f.inv_s[j]), 0.0))
+    qw, qx, qy, qz = (_row(block, i) for i in (GUT_QW, GUT_QX, GUT_QY, GUT_QZ))
+    d_qw = 2.0 * (-qz * gr[0][1] + qy * gr[0][2] + qz * gr[1][0] - qx * gr[1][2]
+                  - qy * gr[2][0] + qx * gr[2][1])
+    d_qx = 2.0 * (qy * gr[0][1] + qz * gr[0][2] + qy * gr[1][0] - 2.0 * qx * gr[1][1]
+                  - qw * gr[1][2] + qz * gr[2][0] + qw * gr[2][1] - 2.0 * qx * gr[2][2])
+    d_qy = 2.0 * (-2.0 * qy * gr[0][0] + qx * gr[0][1] + qw * gr[0][2] + qx * gr[1][0]
+                  + qz * gr[1][2] - qw * gr[2][0] + qz * gr[2][1] - 2.0 * qy * gr[2][2])
+    d_qz = 2.0 * (-2.0 * qz * gr[0][0] - qw * gr[0][1] + qx * gr[0][2] + qw * gr[1][0]
+                  - 2.0 * qz * gr[1][1] + qy * gr[1][2] + qx * gr[2][0] + qy * gr[2][1])
+    rows = (*d_p, *d_s, d_qw, d_qx, d_qy, d_qz, d_op)
+    return torch.stack([x.sum(dim=-2) for x in rows], dim=-2)
+
+
+# ---- dispatch on the model --------------------------------------------------
+
+def alpha(block, px, py, pix, live, st) -> torch.Tensor:
+    """The alpha block of ``st.model``; gs2d reads px, py, gut3d the pixel
+    context ``pix``."""
+    if model_of(st).uses_pix:
+        return gut3d_alpha(block, pix, live, st)
+    return gs2d_alpha(block, px, py, live, st)
+
+
+def alpha_vjp(block, px, py, pix, live, st, d_alpha) -> torch.Tensor:
+    """The VJP of :func:`alpha`: (..., len(geo_rows), C)."""
+    if model_of(st).uses_pix:
+        return gut3d_alpha_vjp(block, pix, live, st, d_alpha)
+    return gs2d_alpha_vjp(block, px, py, live, st, d_alpha)
