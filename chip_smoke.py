@@ -7,15 +7,18 @@ camera, cfg)``, and the training step, ``train_step`` (render, loss,
 backward, Adam), each by the pair path (the default RenderConfig) and by
 the bucket path (``RasterConfig(method="bucket")``); then the 3DGUT and
 3DGRT raster frames (``Pipeline.MESH_3DGUT``, ``Pipeline.RTX``) and 3DGUT
-training on both paths — and checks them:
+training on both paths; and the design probes P1-P3 through their own
+entry points — and checks them:
 
 1. builds the CUDA kernels from the checkout, one nvcc per source, all at
    once: the pair blender K1 (csrc/rasterize_fwd.cu) and its backward K2
    (csrc/rasterize_bwd.cu), the bucket rasterizer K3
    (csrc/raster_bucket_fwd.cu) and its backward K4
    (csrc/raster_bucket_bwd.cu), each source holding the gs2d and the gut3d
-   form of its kernel (csrc/response.cuh); prints their -Xptxas -v reports
-   and the card's name and power limit;
+   form of its kernel (csrc/response.cuh), and the probe kernels P1
+   (csrc/bench_roll.cu), P3 (csrc/bench_sort_stage.cu, three variants)
+   and P2 (csrc/bench_radix_ab.cu); prints their -Xptxas -v reports and
+   the card's name and power limit;
 2. golden gate: the checked-in trained scene at 256x192 through K1, PSNR
    > 45 dB against assets/golden/golden_view0.npy, and K1 against its plain
    PyTorch twin over the whole frame; golden gradients at 128x96, SH 0: K2
@@ -64,13 +67,28 @@ training on both paths — and checks them:
    tiles; 3DGUT training on each path (5 steps, launches counted, loss
    falling, bit-equal repeat backward, K2g and K4g against twins on 64
    sampled tiles, fwd_bwd_ms, train_step_ms); profiles of a 3DGUT frame
-   and train step by stage. The gut3d gates are flip-aware (``GUT_*``).
+   and train step by stage. The gut3d gates are flip-aware (``GUT_*``);
+9. the probes (vk_gaussian_splatting_tpu_torch/probes): each probe's entry
+   point at its script's default arguments (``bench_roll.run``,
+   ``bench_sort_stage.run`` per variant, ``bench_radix_ab.run``: their
+   lines are printed), with every probe's launch count zeroed before and
+   read after; then each probe kernel against its twin, bit for bit (they
+   only compare, select and copy): P1 at a small size, at one 16 x 2048
+   tile sorted 200 times and at 8160 tiles; each P3 variant at two small
+   sizes (a cut and a repeated schedule) and at the default (4096 blocks);
+   P2's output at every W for one block and for 256, and every copied
+   block of a 4-step check run against the twin's; each timed with CUDA
+   events beside its twin, a library yardstick (torch.sort +
+   take_along_dim of the key rows, or index_select of the same blocks)
+   and its bound (``roofline``; P2's ``copy_bound``: its offsets reach 8 MB
+   of the source, and every copy lands in shared memory).
 
 Without a CUDA device it raises and prints no result. The last line is
 ``{"ok": true, "device": {...}}``; the line before it holds the kernel
 report as JSON, and the line before that the card's name and power limit.
 Every number printed was measured in this run; each kernel's bound is
-computed from this run's inputs (``kernel_bound``).
+computed from this run's inputs (``kernel_bound``, ``roofline``,
+``copy_bound``).
 """
 
 from __future__ import annotations
@@ -109,6 +127,10 @@ from vk_gaussian_splatting_tpu_torch.ops.projection import (  # noqa: E402
     project_splats,
     ut_project_splats,
 )
+from vk_gaussian_splatting_tpu_torch.probes import bench_radix_ab as probe_radix  # noqa: E402
+from vk_gaussian_splatting_tpu_torch.probes import bench_roll as probe_roll  # noqa: E402
+from vk_gaussian_splatting_tpu_torch.probes import bench_sort_stage as probe_stage  # noqa: E402
+from vk_gaussian_splatting_tpu_torch.timing import call_ms, device_label  # noqa: E402
 from vk_gaussian_splatting_tpu_torch.render import render  # noqa: E402
 from vk_gaussian_splatting_tpu_torch.render.pipelines import (  # noqa: E402
     bin_for_cfg,
@@ -133,11 +155,30 @@ _SOURCES = {  # library: (source, the TPU kernel it replaces)
                           "vk_gaussian_splatting_tpu/ops/raster_bucket.py:469"),
     "raster_bucket_bwd": ("vk_gaussian_splatting_tpu_torch/csrc/raster_bucket_bwd.cu",
                           "vk_gaussian_splatting_tpu/ops/raster_bucket.py:927"),
+    "bench_roll": ("vk_gaussian_splatting_tpu_torch/csrc/bench_roll.cu",
+                   "scripts/bench_roll.py:32"),
+    "bench_sort_stage": ("vk_gaussian_splatting_tpu_torch/csrc/bench_sort_stage.cu",
+                         "scripts/bench_sort_stage.py:115"),
+    "bench_radix_ab": ("vk_gaussian_splatting_tpu_torch/csrc/bench_radix_ab.cu",
+                       "scripts/bench_radix_ab.py:89"),
 }
+
+
+def stage_name(variant: str) -> str:
+    """The report name of one variant of the sort-stage probe P3."""
+    return "bench_sort_stage_" + variant.replace("-", "_")
+
+
+RASTER = ("rasterize_fwd", "rasterize_bwd", "raster_bucket_fwd", "raster_bucket_bwd")
 # report name: (library, source, the TPU kernel it replaces); the gut3d form
-# of each kernel is another entry point of the same source
+# of each raster kernel is another entry point of the same source, and so
+# is each variant of the sort-stage probe
 KERNELS = {name + suffix: (name, *_SOURCES[name])
-           for suffix in ("", "_gut3d") for name in _SOURCES}
+           for suffix in ("", "_gut3d") for name in RASTER}
+KERNELS.update({"bench_roll": ("bench_roll", *_SOURCES["bench_roll"])})
+KERNELS.update({stage_name(v): ("bench_sort_stage", *_SOURCES["bench_sort_stage"])
+                for v in probe_stage.VARIANTS})
+KERNELS.update({"bench_radix_ab": ("bench_radix_ab", *_SOURCES["bench_radix_ab"])})
 WIDTH, HEIGHT, SPLATS = 1920, 1080, 1_000_000  # the headline cell
 FRAMES = 8
 TRAIN_STEPS = 5
@@ -196,17 +237,20 @@ STAGES = ("prepare", "project", "bin", "rays", "blend", "assemble", "loss", "bac
           "optimizer")
 PEAK_F32_OPS = 67e12   # H100 SXM, f32 outside the tensor cores
 PEAK_BYTES = 3.35e12   # H100 SXM HBM3
+# shared memory fills at 128 B per clock on each SM (32 banks of 4 B): 132
+# SMs at the 1.98 GHz boost clock of the H100 SXM (NVIDIA's specifications)
+SM_COUNT, SMEM_BYTES_PER_CLOCK, BOOST_HZ = 132, 128, 1.98e9
+# The probes P1 and P3 (phase 9): per column and stage, the operations of the
+# stage as csrc/bitonic.cuh and the sub8 kernel spell them: want_min
+# (lane-iota: an and and a compare; from the mask table: one compare) and
+# the take test (two key compares and a select); plus, for each column that
+# takes its partner on this data (the kernels rewrite only those), one
+# select per row. P2 moves bytes and counts none.
+PROBE_OPS_PER_COLUMN = {"lane-iota": 5, "lane-const": 4, "sub8": 4}
 
 
 def log(*a):
     print(*a, flush=True)
-
-
-def gpu_name_and_limit() -> str:
-    res = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True)
-    return res.stdout.strip().splitlines()[0]
 
 
 def check(cond: bool, what: str):
@@ -216,17 +260,7 @@ def check(cond: bool, what: str):
 
 def time_ms(fn, iters: int, warmup: int = 2) -> list[float]:
     """Per-call device milliseconds from CUDA events, after warm-up."""
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(iters):
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return times
+    return call_ms(fn, torch.device("cuda", 0), iters, warmup)
 
 
 def median(xs):
@@ -323,9 +357,23 @@ def kernel_bound(name: str, evals: int, hits: int, bytes_moved: int, extra_ops: 
     """(bound ms, what bounds it): the larger of the f32 operations over the
     card's f32 peak and the bytes over its memory rate."""
     per_eval = OPS_ALPHA["gut3d" if name.endswith("_gut3d") else "gs2d"]
-    t_ops = (evals * per_eval + hits * OPS_PER_HIT[name] + extra_ops) / PEAK_F32_OPS * 1e3
-    t_bytes = bytes_moved / PEAK_BYTES * 1e3
+    return roofline(evals * per_eval + hits * OPS_PER_HIT[name] + extra_ops, bytes_moved)
+
+
+def roofline(ops: float, bytes_moved: float):
+    """(bound ms, what bounds it): the larger of the f32 operations over the
+    card's f32 peak and the bytes over its memory rate."""
+    t_ops, t_bytes = ops / PEAK_F32_OPS * 1e3, bytes_moved / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def copy_bound(fresh_bytes: float, landed_bytes: float):
+    """(bound ms, "bytes") of copies into shared memory: the larger of the
+    bytes that must come from device memory (each distinct source byte read
+    once, the output written once) over its rate, and every copied byte
+    landing in shared memory over the card's fill rate."""
+    fill = SM_COUNT * SMEM_BYTES_PER_CLOCK * BOOST_HZ
+    return max(fresh_bytes / PEAK_BYTES, landed_bytes / fill) * 1e3, "bytes"
 
 
 def bin_stage(proj, cfg, max_pairs=0):
@@ -1580,6 +1628,187 @@ def gut_train_full_size(dev, card: str, truth: gt.SplatSet, caps, seed: int):
     return entries
 
 
+def bit_equal(label: str, got: torch.Tensor, want: torch.Tensor) -> float:
+    """Max abs difference of a probe kernel's output against its twin's;
+    fails unless they are equal bit for bit (the probes only compare,
+    select and copy)."""
+    torch.cuda.synchronize()
+    check(got.shape == want.shape and torch.equal(got, want), f"{label}: kernel and twin differ")
+    return (got - want).abs().max().item() if got.numel() else 0.0
+
+
+def zero_probe_counts():
+    probe_roll.bitonic_sort.launches = 0
+    probe_radix.dma_copies.launches = 0
+    for v in probe_stage.VARIANTS:
+        probe_stage.sort_stages.launches[v] = 0
+
+
+def probe_counts() -> dict:
+    return {"bench_roll": probe_roll.bitonic_sort.launches,
+            "bench_radix_ab": probe_radix.dma_copies.launches,
+            **{stage_name(v): probe_stage.sort_stages.launches[v]
+               for v in probe_stage.VARIANTS}}
+
+
+def probe_main_paths() -> dict:
+    """Each probe's entry point at its script's default arguments, all probe
+    launch counts zeroed just before and read just after: the probe's own
+    kernel ran, and no other."""
+    paths = [("bench_roll", probe_roll.run)]
+    paths += [(stage_name(v), lambda v=v: probe_stage.run(v)) for v in probe_stage.VARIANTS]
+    paths += [("bench_radix_ab", probe_radix.run)]
+    launches = {}
+    for name, path in paths:
+        zero_probe_counts()
+        path()
+        torch.cuda.synchronize()
+        counts = probe_counts()
+        launches[name] = counts.pop(name)
+        log(f"main path {name}: launches={launches[name]}")
+        check(launches[name] > 0, f"the {name} probe never launched its kernel")
+        check(not any(counts.values()), f"the {name} probe launched other kernels: {counts}")
+    return launches
+
+
+def probe_roll_phase(dev, card: str):
+    """P1: bit-equal to the twin at a small size, at the script's (one 16 x
+    2048 tile, 200 sorts) and at the frame's 8160 tiles sorted once, the
+    launch this report times."""
+    err = bit_equal("bench_roll small", probe_roll.bitonic_sort(
+        probe_roll.tiles_of(3, 4, 128, dev), 3), probe_roll.bitonic_sort_ref(
+        probe_roll.tiles_of(3, 4, 128, dev), 3))
+    one = probe_roll.tiles_of(1, 16, 2048, dev)
+    err = max(err, bit_equal("bench_roll default", probe_roll.bitonic_sort(one, probe_roll.REPS),
+                             probe_roll.bitonic_sort_ref(one, probe_roll.REPS)))
+    x = probe_roll.tiles_of(probe_roll.FRAME_TILES, 16, 2048, dev, seed=1)
+    sched = probe_stage.full_schedule(2048)
+    err = max(err, bit_equal("bench_roll 8160 tiles", probe_roll.bitonic_sort(x, 1),
+                             probe_roll.bitonic_sort_ref(x, 1)))
+    t_k = median(time_ms(lambda: probe_roll.bitonic_sort(x, 1), 10))
+    t_twin = median(time_ms(lambda: probe_roll.bitonic_sort_ref(x, 1), 3, warmup=1))
+
+    def library():  # one sort of the key rows, one gather of the payload
+        order = torch.sort(x[:, 0], dim=-1).indices
+        return torch.take_along_dim(x, order[:, None], dim=-1)
+
+    t_lib = median(time_ms(library, 10))
+    takes = probe_stage.taking_columns(x, None, "lane-iota", sched, 0)
+    columns = x.shape[0] * x.shape[2] * len(sched)
+    bound = roofline(columns * PROBE_OPS_PER_COLUMN["lane-iota"] + takes * x.shape[1],
+                     2 * x.numel() * 4)
+    log(f"probe bench_roll {x.shape[0]} x (16, 2048), 66 stages ({card}): kernel_ms={t_k:.4f} "
+        f"plain_twin_ms={t_twin:.4f} library_ms (torch.sort + torch.take_along_dim)={t_lib:.4f} "
+        f"bound_ms={bound[0]:.4f} ({bound[1]}); columns taking their partner {takes} of "
+        f"{columns}; max_abs_err={err}")
+    return dict(max_abs_err=err, ms=t_k, plain_ms=t_twin), bound, t_lib
+
+
+def probe_stage_phase(dev, card: str, variant: str):
+    """P3, one variant: bit-equal to the twin at a small size (a cut and a
+    repeated schedule) and at the script's default (16 rows, 55 stages, 2
+    tiles in each of 4096 blocks), the launch this report times. The twin
+    and the library call run on the 4096 x 2 tiles the kernel sorts."""
+    err = 0.0
+    for rows, n_stages, tpt in ((4, 20, 2), (8, 70, 3)):
+        x, m, sched = probe_stage.inputs(variant, rows, n_stages, tpt, dev, seed=7)
+        err = max(err, bit_equal(f"{variant} small", probe_stage.sort_stages(
+            x, m, variant, sched, rows - 1, blocks=3), probe_stage.sort_stages_ref(
+            x, m, variant, sched, rows - 1)))
+    rows, steps = 16, probe_stage.STEPS
+    x, m, sched = probe_stage.inputs(variant, rows, 55, 2, dev)
+    err = max(err, bit_equal(f"{variant} default", probe_stage.sort_stages(
+        x, m, variant, sched, rows - 1, blocks=steps), probe_stage.sort_stages_ref(
+        x, m, variant, sched, rows - 1)))
+    t_k = median(time_ms(lambda: probe_stage.sort_stages(x, m, variant, sched, rows - 1,
+                                                         blocks=steps), 10))
+    batch = x.repeat(steps, *([1] * (x.dim() - 1)))
+    t_twin = median(time_ms(lambda: probe_stage.sort_stages_ref(batch, m, variant, sched,
+                                                                rows - 1), 3, warmup=1))
+    flat = batch.reshape(batch.shape[0], rows, -1)
+
+    def library():  # one sort of the key rows, one gather of the payload
+        order = torch.sort(flat[:, rows - 1], dim=-1).indices
+        return torch.take_along_dim(flat, order[:, None], dim=-1)
+
+    t_lib = median(time_ms(library, 10))
+    del batch, flat
+    takes = steps * probe_stage.taking_columns(x, m, variant, sched, rows - 1)
+    columns = steps * x.shape[0] * probe_stage.C * len(sched)
+    bound = roofline(columns * PROBE_OPS_PER_COLUMN[variant] + takes * rows,
+                     2 * x.numel() * 4 + (0 if m is None else m.numel() * 4))
+    log(f"probe {variant} {steps} blocks x 2 x ({rows}, 1024), 55 stages ({card}): "
+        f"kernel_ms={t_k:.4f} plain_twin_ms={t_twin:.4f} library_ms (torch.sort + "
+        f"torch.take_along_dim)={t_lib:.4f} bound_ms={bound[0]:.4f} ({bound[1]}); ns per "
+        f"stage and tile {t_k * 1e6 / steps / 55 / 2:.3f}; columns taking their partner "
+        f"{takes} of {columns}; max_abs_err={err}")
+    return dict(max_abs_err=err, ms=t_k, plain_ms=t_twin), bound, t_lib
+
+
+def probe_radix_phase(dev, card: str, w: int = 16):
+    """P2: at the script's 256 steps x 64 copies, for each W, the output of
+    one block and of 256 blocks against the block the last copy into ring
+    slot 0 brought; at 4 steps x 64 copies every copied block against the
+    twin's copies; the launch this report times: W = 16 across the card."""
+    g = torch.Generator(device=dev).manual_seed(3)
+    src = torch.randn((probe_radix.SRC_BLOCKS, *probe_radix.BLOCK), generator=g, device=dev)
+    n_steps, n_copies = probe_radix.N_STEPS, probe_radix.N_COPIES
+    last = ((n_steps - 1) * n_copies + (n_copies - 1) // 8 * 8) % probe_radix.OFFSET_CYCLE
+    err = 0.0
+    for width in probe_radix.WIDTHS:
+        for spb in (None, 1):
+            err = max(err, bit_equal(f"bench_radix_ab W={width}", probe_radix.dma_copies(
+                src, n_steps, n_copies, width, spb), src[last:last + 1]))
+        out, copies = probe_radix.dma_copies(src, 4, n_copies, width, 3, trace=True)
+        ref_out, ref_copies = probe_radix.dma_copies_ref(src, 4, n_copies, width, trace=True)
+        err = max(err, bit_equal(f"bench_radix_ab W={width} output", out, ref_out),
+                  bit_equal(f"bench_radix_ab W={width} every copy", copies, ref_copies))
+        del copies, ref_copies
+    t_k = median(time_ms(lambda: probe_radix.dma_copies(src, n_steps, n_copies, w, 1), 10))
+    t_twin = median(time_ms(lambda: probe_radix.dma_copies_ref(src, n_steps, n_copies, w), 3,
+                            warmup=1))
+    idx = torch.tensor([o + b for o in probe_radix.copy_offsets(n_steps, n_copies)
+                        for b in range(w)], device=dev)
+    t_lib = median(time_ms(lambda: torch.index_select(src, 0, idx), 10))
+    copied = n_steps * n_copies * w * probe_radix.BLOCK_BYTES
+    # the distinct source blocks the offsets reach, and the output block
+    fresh = (min(n_steps * n_copies, probe_radix.OFFSET_CYCLE) - 1 + w + 1) \
+        * probe_radix.BLOCK_BYTES
+    bound = copy_bound(fresh, copied)
+    props = torch.cuda.get_device_properties(dev)
+    log(f"probe bench_radix_ab W={w}, {n_steps} blocks x {n_copies} copies ({card}): "
+        f"kernel_ms={t_k:.4f} plain_twin_ms={t_twin:.4f} library_ms (torch.index_select)="
+        f"{t_lib:.4f} bound_ms={bound[0]:.4f} ({bound[1]}: {fresh} B from device memory, "
+        f"{copied} B into shared memory at {SM_COUNT} SMs x {SMEM_BYTES_PER_CLOCK} B x "
+        f"{BOOST_HZ / 1e9} GHz; the card reports {props.multi_processor_count} SMs, "
+        f"max SM clock {max_sm_clock()}); {copied / t_k / 1e6:.1f} GB/s; max_abs_err={err}")
+    return dict(max_abs_err=err, ms=t_k, plain_ms=t_twin), bound, t_lib
+
+
+def max_sm_clock() -> str:
+    res = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60, check=True)
+    return res.stdout.strip().splitlines()[0]
+
+
+def probes(dev, card: str):
+    """Phase 9: the probes P1-P3. Returns their report entries, bounds and
+    library times."""
+    t0 = time.perf_counter()
+    launches = probe_main_paths()
+    entries, bounds, library = {}, {}, {}
+    phases = [("bench_roll", lambda: probe_roll_phase(dev, card))]
+    phases += [(stage_name(v), lambda v=v: probe_stage_phase(dev, card, v))
+               for v in probe_stage.VARIANTS]
+    phases += [("bench_radix_ab", lambda: probe_radix_phase(dev, card))]
+    for name, phase in phases:
+        entry, bounds[name], library[name] = phase()
+        entries[name] = dict(launches=launches[name], **entry)
+        torch.cuda.empty_cache()
+    log(f"probes phase {time.perf_counter() - t0:.1f} s")
+    return entries, bounds, library
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: chip_smoke.py runs only on a card")
@@ -1595,7 +1824,7 @@ def main() -> int:
         if os.path.exists(log_file):
             log(open(log_file).read().strip())
     log(f"kernels ready in {time.perf_counter() - t0:.1f} s (one nvcc per source, in parallel)")
-    card = gpu_name_and_limit()
+    card = device_label(dev)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
     log(f"card: {card}")
     t_span = time.perf_counter()
@@ -1637,12 +1866,16 @@ def main() -> int:
     results.update(gut_fwd)
     results.update(gut_bwd)
     bounds.update(gut_bounds_)
+    probe_entries, probe_bounds, library = probes(dev, card)
+    results.update(probe_entries)
+    bounds.update(probe_bounds)
 
     report = {"kernels": [{
         "name": name, "route": "cuda", "source": KERNELS[name][1],
         "replaces": KERNELS[name][2], **results[name],
         "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
-        "library_ms": None,  # no single PyTorch call computes a tile blend
+        # no single PyTorch call computes a tile blend; the probes have one
+        "library_ms": library.get(name),
     } for name in KERNELS]}
     log(f"total {time.perf_counter() - t0:.1f} s")
     print(card, flush=True)

@@ -1,6 +1,7 @@
 """The CUDA tile blenders (pair blender K1, K2; bucket rasterizer K3, K4;
-each for the gs2d and the gut3d response model) on a card, against their
-plain PyTorch twins.
+each for the gs2d and the gut3d response model) and the probe kernels P1-P3
+(vk_gaussian_splatting_tpu_torch/probes) on a card, against their plain
+PyTorch twins.
 
 Every test here is marked ``cuda`` and skips without a card. The file
 imports no JAX, so it also runs where only the port is installed:
@@ -28,6 +29,9 @@ at least 99.9 % of values must also lie within 1e-2 of their own size plus
 the row's median nonzero size (measured on an H100: the 99.9th percentile
 of that ratio up to 1.5e-3 on the golden frame). chip_smoke.py holds K2 to
 the same two gates.
+
+The probe kernels only compare, select and copy, so each must equal its
+twin bit for bit.
 """
 
 import dataclasses
@@ -520,3 +524,84 @@ def test_gut_render_on_card_launches_once_per_sample(cuda, pipeline, method):
         before[0] + 2, before[1] + 2, before[2])
     assert all(bool(torch.isfinite(getattr(s, f).grad).all()) for f in interop.SPLAT_FIELDS)
     assert s.means.grad.abs().max().item() > 0 and s.quats.grad.abs().max().item() > 0
+
+
+# ---- the probes P1-P3: bitonic sort (csrc/bench_roll.cu), sort stages
+# (csrc/bench_sort_stage.cu), pipelined bulk copies (csrc/bench_radix_ab.cu)
+
+from vk_gaussian_splatting_tpu_torch.probes import bench_radix_ab as pa  # noqa: E402
+from vk_gaussian_splatting_tpu_torch.probes import bench_roll as pr  # noqa: E402
+from vk_gaussian_splatting_tpu_torch.probes import bench_sort_stage as ps  # noqa: E402
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t, r, c, reps", [(3, 4, 128, 3), (1, 16, 2048, 2), (5, 3, 2, 1),
+                                           (2, 5, 4096, 1), (0, 4, 64, 1)])
+def test_probe_bitonic_sort_matches_twin(cuda, t, r, c, reps):
+    x = pr.tiles_of(t, r, c, cuda)
+    before = pr.bitonic_sort.launches
+    out = pr.bitonic_sort(x, reps)
+    torch.cuda.synchronize()
+    assert pr.bitonic_sort.launches == before + (t > 0)
+    assert torch.equal(out, pr.bitonic_sort_ref(x, reps))
+    if t:
+        assert torch.equal(out[:, 0], torch.sort(x[:, 0], dim=-1).values)
+
+
+@pytest.mark.cuda
+def test_probe_bitonic_sort_with_ties_and_limits(cuda):
+    x = torch.floor(pr.tiles_of(4, 6, 256, cuda) * 5)   # five key values: many ties
+    assert torch.equal(pr.bitonic_sort(x, 2), pr.bitonic_sort_ref(x, 2))
+    with pytest.raises(ValueError, match="shared memory"):
+        pr.bitonic_sort(pr.tiles_of(1, 32, 4096, cuda))
+    with pytest.raises(ValueError, match="power of two"):
+        pr.bitonic_sort(pr.tiles_of(1, 4, 96, cuda))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ps.VARIANTS)
+@pytest.mark.parametrize("rows, n_stages, tpt", [(4, 55, 2), (16, 20, 2), (8, 70, 5),
+                                                 (1, 55, 3), (16, 55, 2)])
+def test_probe_sort_stages_match_twin(cuda, variant, rows, n_stages, tpt):
+    x, m, sched = ps.inputs(variant, rows, n_stages, tpt, cuda)
+    before = ps.sort_stages.launches[variant]
+    out = ps.sort_stages(x, m, variant, sched, rows - 1, blocks=7)
+    torch.cuda.synchronize()
+    assert ps.sort_stages.launches[variant] == before + 1
+    assert torch.equal(out, ps.sort_stages_ref(x, m, variant, sched, rows - 1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ps.VARIANTS)
+def test_probe_sort_stages_ties_and_limits(cuda, variant):
+    x, m, sched = ps.inputs(variant, 4, 55, 2, cuda)
+    x = torch.floor(x * 2)
+    assert torch.equal(ps.sort_stages(x, m, variant, sched, 3, blocks=3),
+                       ps.sort_stages_ref(x, m, variant, sched, 3))
+    if variant == "sub8":
+        with pytest.raises(ValueError, match="registers"):
+            ps.sort_stages(*ps.inputs(variant, 3, 5, 1, cuda)[:2], variant, sched[:5], 2)
+    else:
+        big, bm, bs = ps.inputs(variant, 16, 5, 4, cuda)   # 256 KB of tiles
+        with pytest.raises(ValueError, match="shared memory"):
+            ps.sort_stages(big, bm, variant, bs, 15)
+        y = ps.inputs(variant, 5, 55, 3, cuda)[0]
+        assert torch.equal(ps.sort_stages(y, m, variant, sched, 0),
+                           ps.sort_stages_ref(y, m, variant, sched, 0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w", pa.WIDTHS)
+@pytest.mark.parametrize("n_steps, n_copies, steps_per_block", [(2, 9, None), (3, 20, 1),
+                                                                (1, 5, 1), (4, 64, 3)])
+def test_probe_copies_match_twin(cuda, w, n_steps, n_copies, steps_per_block):
+    g = torch.Generator(device=cuda).manual_seed(w)
+    src = torch.randn((pa.SRC_BLOCKS, *pa.BLOCK), generator=g, device=cuda)
+    before = pa.dma_copies.launches
+    out, copies = pa.dma_copies(src, n_steps, n_copies, w, steps_per_block, trace=True)
+    out_only = pa.dma_copies(src, n_steps, n_copies, w, steps_per_block)
+    torch.cuda.synchronize()
+    assert pa.dma_copies.launches == before + 2
+    ref_out, ref_copies = pa.dma_copies_ref(src, n_steps, n_copies, w, trace=True)
+    assert torch.equal(out, ref_out) and torch.equal(out_only, ref_out)
+    assert torch.equal(copies, ref_copies)

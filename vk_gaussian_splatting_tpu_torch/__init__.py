@@ -30,6 +30,7 @@ Layout:
   render/  render_3dgs, render_3dgut, render_3dgrt, the per-tile rays and
            the pipeline dispatch
   train.py loss, Adam, train_step, densify / prune, checkpoints
+  probes/  the design probes P1-P3 (the scripts/ Pallas probes) on the card
   csrc/    CUDA sources
 """
 

@@ -53,6 +53,7 @@
 
 #include "raster_bucket.cuh"
 #include "response.cuh"
+#include "smem.cuh"
 
 namespace {
 
@@ -285,7 +286,7 @@ int smem_of(int c_total, int chunk) {
 
 template <class M>
 int smem_limit_of() {
-  return bucket::dynamic_smem_limit((const void*)raster_bucket_bwd_tiles<M>);
+  return dynamic_smem_limit((const void*)raster_bucket_bwd_tiles<M>);
 }
 
 template <class M>

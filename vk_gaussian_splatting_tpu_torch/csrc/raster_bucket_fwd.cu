@@ -44,6 +44,7 @@
 
 #include "raster_bucket.cuh"
 #include "response.cuh"
+#include "smem.cuh"
 
 namespace {
 
@@ -141,7 +142,7 @@ int smem_of(int c_total, int chunk) {
 
 template <class M>
 int smem_limit_of() {
-  return bucket::dynamic_smem_limit((const void*)raster_bucket_fwd_kernel<M>);
+  return dynamic_smem_limit((const void*)raster_bucket_fwd_kernel<M>);
 }
 
 template <class M>

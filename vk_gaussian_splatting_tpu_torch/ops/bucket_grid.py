@@ -243,6 +243,24 @@ def window_overflow(bucket_starts: torch.Tensor, spec: BucketGridSpec,
     return torch.any(required_window_caps(bucket_starts, spec) > cap_t)
 
 
+def sort_slots(bucket: torch.Tensor, depth: torch.Tensor, rows: torch.Tensor,
+               ids: torch.Tensor, sentinel: int, *, streams: int = NUM_SLOTS,
+               grad_rows: int = GS_DEPTH):
+    """The bin stage's sort: ``streams`` slot-major runs of N slots
+    (bucket (streams * N,) int64, slot ``s * N + i`` is splat i) in one
+    stable sort of ``bucket << 32 | encode_minmax_f32(depth)``, slots in
+    the ``sentinel`` bucket or above at +inf depth; then the gather of the
+    (R, N) rows (differentiable, ``binning._GatherPairs``) and the (N,) ids
+    into sorted order. Returns (sorted keys, rows, ids)."""
+    n = rows.shape[1]
+    dkey = torch.where(bucket < sentinel, depth.detach().repeat(streams), float("inf"))
+    skey, perm = torch.sort((bucket << 32) | encode_minmax_f32(dkey), stable=True)
+    src_sorted = perm % max(n, 1)
+    attrs = _GatherPairs.apply(rows, src_sorted, perm, EmitLayout(n, streams=streams),
+                               grad_rows)
+    return skey, attrs, ids.index_select(0, src_sorted)
+
+
 def bucket_splats(proj: ProjectedSplats, rows: torch.Tensor, ids: torch.Tensor, *,
                   tiles_x: int, tiles_y: int,
                   caps: tuple = (512, 256, 512, 256), grad_rows: int = GS_DEPTH,
@@ -257,18 +275,14 @@ def bucket_splats(proj: ProjectedSplats, rows: torch.Tensor, ids: torch.Tensor, 
     ``_bucket_impl``'s depth_override); the kernel merges on the model's
     depth row, so the caller puts the same depth there."""
     spec = BucketGridSpec.build(tiles_x, tiles_y)
-    n = proj.xy.shape[0]
     bucket = assign_buckets(proj, spec).reshape(-1)          # slot-major (4N,)
     depth = proj.depth if sort_depth is None else sort_depth
-    dkey = torch.where(bucket < spec.num_buckets - 1,
-                       depth.detach().repeat(NUM_SLOTS), float("inf"))
-    skey, perm = torch.sort((bucket << 32) | encode_minmax_f32(dkey), stable=True)
-    src_sorted = perm % max(n, 1)
+    skey, attrs, ids_sorted = sort_slots(bucket, depth, rows, ids, spec.num_buckets - 1,
+                                         grad_rows=grad_rows)
     starts = _segment_starts(skey >> 32, spec)
     return BucketBins(
-        attrs=_GatherPairs.apply(rows, src_sorted, perm, EmitLayout(n, streams=NUM_SLOTS),
-                                 grad_rows),
-        ids=ids.index_select(0, src_sorted),
+        attrs=attrs,
+        ids=ids_sorted,
         bucket_starts=starts,
         num_valid=starts[spec.num_buckets - 1].to(torch.int64),
         overflow=window_overflow(starts, spec, caps),
