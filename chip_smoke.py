@@ -54,7 +54,13 @@ entry points — and checks them:
    64 sampled tiles against the twin, the share of pixels within 2e-4 of
    the exact pair frame; 5 train steps with K3's and K4's launches
    counted, K4 against its twin on 64 sampled tiles, a bit-equal repeat
-   backward; timings and profiles as above;
+   backward; timings and profiles as above. K4's per-tile cull, on the
+   headline frame: its kept-lane counter against the plain predicate's
+   count (``ops/raster_bucket.tile_may_hit``, within 1e-4 of the live
+   lanes), the kept share, and an audit of all its tiles for culled lanes
+   that hit (none allowed); K4's bound counts the kept lanes (``k4_bound``,
+   the all-lane figure beside it); K4's three launches timed apart by the
+   profiler;
 8. the gut3d forms K1g-K4g (3DGUT, 3DGRT): golden-size 3DGUT frames on
    both paths, K1g and K3g against their twins over the frame, bucket
    against pair, the card against the CPU twin (flip-aware, with the
@@ -64,10 +70,12 @@ entry points — and checks them:
    at temporal_samples=4; at full size, 8 frames of 3DGUT and of 3DGRT on
    each path with the gut3d launches counted, overflow reported, a
    bit-equal repeat, frame_ms, K1g and K3g against twins on 64 sampled
-   tiles; 3DGUT training on each path (5 steps, launches counted, loss
-   falling, bit-equal repeat backward, K2g and K4g against twins on 64
-   sampled tiles, fwd_bwd_ms, train_step_ms); profiles of a 3DGUT frame
-   and train step by stage. The gut3d gates are flip-aware (``GUT_*``);
+   tiles, K4g's cull checked on the 3DGUT bucket frame as K4's; 3DGUT
+   training on each path (5 steps, launches counted, loss falling,
+   bit-equal repeat backward, K2g and K4g against twins on 64 sampled
+   tiles, fwd_bwd_ms, train_step_ms, K4g's three launches);
+   profiles of a 3DGUT frame and train step by stage. The gut3d gates are
+   flip-aware (``GUT_*``);
 9. the probes (vk_gaussian_splatting_tpu_torch/probes): each probe's entry
    point at its script's default arguments (``bench_roll.run``,
    ``bench_sort_stage.run`` per variant, ``bench_radix_ab.run``: their
@@ -221,8 +229,17 @@ BWD_ELEM_RTOL, BWD_ELEM_SHARE = 1e-2, 0.999
 # evaluation and hit, over each tile's merged window
 # (``ops/raster_bucket.bucket_work``), plus one operation per key
 # comparison of the merge and, in K4, one add per (row, tile, shared lane)
-# of the reduce over the reading tiles.
+# of the reduce over the reading tiles. K4 evaluates only the lanes its
+# cull keeps (``k4_bound``), and the cull (csrc/response.cuh may_hit) costs
+# f64 operations, as its source spells them without the conversions: per
+# tested (tile, lane) gs2d 45 (finiteness 7, the conic's tests 5, the
+# rounding term 7, the opacity test 1, tau 5, the two radii 12, the box 8),
+# gut3d 96 (|q|^2 7, finiteness 19, the thresholds 5, the scales 12, the
+# distances to the cone 41, the cut distance 5, the radius 6, the test 1);
+# and per pixel of a tile gut3d's TileBound, 67 (|d|^2 5, finiteness 7, the
+# warp sums 30, rho 8, cos theta 7, the warp max and min 10).
 OPS_ALPHA = {"gs2d": 17, "gut3d": 68}
+OPS_CULL, OPS_TILE_BOUND = {"gs2d": 45, "gut3d": 96}, {"gs2d": 0, "gut3d": 67}
 OPS_PER_HIT = {"rasterize_fwd": 10, "rasterize_bwd": 53,
                "raster_bucket_fwd": 10, "raster_bucket_bwd": 53,
                "rasterize_fwd_gut3d": 10, "rasterize_bwd_gut3d": 210,
@@ -236,6 +253,7 @@ TWIN_BATCH = 1024  # tiles per twin call at 1080p: a (1024, 256, 384) f32 step i
 STAGES = ("prepare", "project", "bin", "rays", "blend", "assemble", "loss", "backward",
           "optimizer")
 PEAK_F32_OPS = 67e12   # H100 SXM, f32 outside the tensor cores
+PEAK_F64_OPS = 34e12   # H100 SXM, f64 outside the tensor cores (NVIDIA's data sheet)
 PEAK_BYTES = 3.35e12   # H100 SXM HBM3
 # shared memory fills at 128 B per clock on each SM (32 banks of 4 B): 132
 # SMs at the 1.98 GHz boost clock of the H100 SXM (NVIDIA's specifications)
@@ -353,17 +371,34 @@ def sample_tiles(bins, st, dev, seed):
                       torch.randperm(st.tiles_x * st.tiles_y, generator=g, device=dev)[:16]])
 
 
-def kernel_bound(name: str, evals: int, hits: int, bytes_moved: int, extra_ops: int = 0):
-    """(bound ms, what bounds it): the larger of the f32 operations over the
-    card's f32 peak and the bytes over its memory rate."""
+def kernel_bound(name: str, evals: int, hits: int, bytes_moved: int, extra_ops: int = 0,
+                 f64_ops: int = 0):
+    """(bound ms, what bounds it): the larger of the operations over the
+    card's peak for their type and the bytes over its memory rate."""
     per_eval = OPS_ALPHA["gut3d" if name.endswith("_gut3d") else "gs2d"]
-    return roofline(evals * per_eval + hits * OPS_PER_HIT[name] + extra_ops, bytes_moved)
+    return roofline(evals * per_eval + hits * OPS_PER_HIT[name] + extra_ops, bytes_moved,
+                    f64_ops)
 
 
-def roofline(ops: float, bytes_moved: float):
-    """(bound ms, what bounds it): the larger of the f32 operations over the
-    card's f32 peak and the bytes over its memory rate."""
-    t_ops, t_bytes = ops / PEAK_F32_OPS * 1e3, bytes_moved / PEAK_BYTES * 1e3
+def k4_bound(name: str, work, hits: int, bytes_moved: int, grad_rows: int, n_tiles: int):
+    """(K4's bound, the all-lane figure), each (ms, what bounds it). K4
+    evaluates the lanes its cull keeps (``work.kept_evals``), and the cull
+    costs its own f64 operations per tested lane and, for gut3d, per pixel
+    (OPS_CULL, OPS_TILE_BOUND). The all-lane figure prices every live lane's
+    evaluations, as the sweep before the cull made them."""
+    model = "gut3d" if name.endswith("_gut3d") else "gs2d"
+    extra = work.comparisons + work.shared * grad_rows
+    cull = work.tested * OPS_CULL[model] + n_tiles * tr.PIX * OPS_TILE_BOUND[model]
+    return (kernel_bound(name, work.kept_evals, hits, bytes_moved, extra, cull),
+            kernel_bound(name, work.evals, hits, bytes_moved, extra))
+
+
+def roofline(ops: float, bytes_moved: float, f64_ops: float = 0.0):
+    """(bound ms, what bounds it): the larger of the operations over the
+    card's peak for their type (f32, and f64 where given) and the bytes over
+    its memory rate."""
+    t_ops = (ops / PEAK_F32_OPS + f64_ops / PEAK_F64_OPS) * 1e3
+    t_bytes = bytes_moved / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
@@ -416,14 +451,10 @@ def frame_stages(prepared, cam, cfg, max_pairs=0):
             ("assemble", assemble)], c
 
 
-def profile_calls(name, call, card, calls=3):
-    """Device busy and idle share over `calls` calls of an entry point, from
-    the torch.profiler trace: busy is the union of kernel intervals, the
-    span runs from the first kernel's start to the last one's end. Each
-    kernel belongs to the stage span (STAGES, opened by render_3dgs and
-    train_step themselves) that holds its launch call, matched by the
-    trace's correlation id, so the kernels autograd launches from its own
-    thread count in the backward stage."""
+def traced_events(call, calls):
+    """The torch.profiler trace events of ``calls`` calls of ``call``, after
+    one warm-up call, and its kernels as sorted (start us, end us, name,
+    correlation id)."""
     call()  # warm-up
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -438,6 +469,35 @@ def profile_calls(name, call, card, calls=3):
     kernels = sorted((e["ts"], e["ts"] + e["dur"], e["name"],
                       e.get("args", {}).get("correlation")) for e in events
                      if e.get("cat") == "kernel")
+    return events, kernels
+
+
+# K4's wrapper launches three kernels (csrc/raster_bucket_bwd.cu)
+K4_KERNELS = ("raster_bucket_bwd_tiles", "raster_bucket_bwd_partial", "raster_bucket_bwd_reduce")
+
+
+def kernel_split(call, names=K4_KERNELS, calls=7):
+    """{name: median device ms per call} of the kernels whose names hold
+    each of ``names``, from the profiler's per-kernel durations over
+    ``calls`` calls (each call launching each kernel once)."""
+    _, kernels = traced_events(call, calls)
+    split = {}
+    for name in names:
+        durs = [(e - s) / 1e3 for s, e, kname, _ in kernels if name in kname]
+        check(len(durs) == calls, f"{len(durs)} launches of {name} in {calls} calls")
+        split[name] = median(durs)
+    return split
+
+
+def profile_calls(name, call, card, calls=3):
+    """Device busy and idle share over `calls` calls of an entry point, from
+    the torch.profiler trace: busy is the union of kernel intervals, the
+    span runs from the first kernel's start to the last one's end. Each
+    kernel belongs to the stage span (STAGES, opened by render_3dgs and
+    train_step themselves) that holds its launch call, matched by the
+    trace's correlation id, so the kernels autograd launches from its own
+    thread count in the backward stage."""
+    events, kernels = traced_events(call, calls)
     launched_at = {e["args"]["correlation"]: e["ts"] for e in events
                    if e.get("cat") in ("cuda_runtime", "cuda_driver")
                    and "correlation" in e.get("args", {})}
@@ -657,6 +717,16 @@ def grads_of(splats):
     return [getattr(splats, f).grad for f in FIELDS]
 
 
+def jittered_start(truth: gt.SplatSet, dev, seed: int) -> gt.SplatSet:
+    """Where training starts: the scene with seeded jitter on means (1e-3)
+    and sh_dc (0.3)."""
+    g = torch.Generator(device=dev).manual_seed(seed + 100)
+    fields = {f: getattr(truth, f).detach().clone() for f in FIELDS}
+    fields["means"] += 1e-3 * torch.randn(fields["means"].shape, generator=g, device=dev)
+    fields["sh_dc"] += 0.3 * torch.randn(fields["sh_dc"].shape, generator=g, device=dev)
+    return gt.SplatSet(**fields)
+
+
 def train_full_size(dev, card: str, truth: gt.SplatSet, seed: int):
     """The training path at 1080p with 1M splats: the scene renders its own
     target; training starts from seeded jitter on means and sh_dc."""
@@ -666,11 +736,7 @@ def train_full_size(dev, card: str, truth: gt.SplatSet, seed: int):
     tc = gt.TrainConfig(scene_extent=4.0)
     with torch.no_grad():
         target = render(truth.prepare(), cam, cfg).image
-    g = torch.Generator(device=dev).manual_seed(seed + 100)
-    fields = {f: getattr(truth, f).detach().clone() for f in FIELDS}
-    fields["means"] += 1e-3 * torch.randn(fields["means"].shape, generator=g, device=dev)
-    fields["sh_dc"] += 0.3 * torch.randn(fields["sh_dc"].shape, generator=g, device=dev)
-    splats = gt.SplatSet(**fields)
+    splats = jittered_start(truth, dev, seed)
     opt = gt.make_optimizer(splats, tc)
     torch.cuda.synchronize()
 
@@ -794,6 +860,51 @@ def bucket_work(bins, st, caps):
     return rb.BucketWork(*(sum(p[i] for p in parts) for i in range(len(rb.BucketWork._fields))))
 
 
+def check_cull(label: str, work, k4, model: str, bins, st, caps, batches, pix=None):
+    """K4's cull on a whole frame. Its kept-lane counter after one launch
+    ``k4(ctx)`` (any cotangent: what the cull keeps reads the rows and the
+    freeze alone) against the plain predicate's count (``work``, from
+    ops/raster_bucket.bucket_work): within 0.01 % of the live lanes, as the
+    card rounds its square roots and logs in its own way and a pixel at T ~
+    min_transmittance may freeze one step apart. Then, over every tile in
+    ``batches``, the lanes the plain predicate culls that the twin's alpha
+    passes at some pixel of the tile (ops/raster_bucket.tile_lane_hits,
+    frozen pixels too): none allowed."""
+    n_tiles = st.tiles_x * st.tiles_y
+    k4(torch.ones((n_tiles, tr.CTX_ROWS, tr.PIX), device=bins.attrs.device))
+    torch.cuda.synchronize()
+    kept = int(getattr(rb.rasterize_buckets_bwd, rb.KEPT_COUNTER[model]))
+    log(f"{label} cull 1080p/1M: kept={kept} of live={work.live} (kept share "
+        f"{kept / work.live:.4f}), tested={work.tested}; tile_may_hit over the steps each tile "
+        f"enters {work.kept} (differ by {abs(kept - work.kept)}, "
+        f"{abs(kept - work.kept) / work.live:.2e} of live; gate 1e-4); kept lanes' pixel "
+        f"evaluations {work.kept_evals} of {work.evals}")
+    check(abs(kept - work.kept) <= 1e-4 * work.live,
+          f"{label} kept {kept} lanes, the plain predicate {work.kept}")
+    may = hit = bad = 0
+    attrs = bins.attrs.detach()
+    for tiles in batches:
+        m = rb.tile_may_hit(attrs, bins.bucket_starts, st, caps, tiles, pix)
+        h = rb.tile_lane_hits(attrs, bins.bucket_starts, st, caps, tiles, pix)
+        may, hit, bad = may + int(m.sum()), hit + int(h.sum()), bad + int((h & ~m).sum())
+    log(f"  {label} cull audit on all {sum(b.numel() for b in batches)} tiles: {may} lanes "
+        f"kept, {hit} hit some pixel, culled lanes that hit: {bad}")
+    check(bad == 0, f"{label}: the cull dropped {bad} lanes that hit")
+
+
+def k4_launches(k4, model: str, bins, st, caps) -> str:
+    """K4's three launches (``kernel_split``) and the kept share of its last
+    launch, as a log fragment."""
+    split = kernel_split(k4)
+    torch.cuda.synchronize()
+    kept = int(getattr(rb.rasterize_buckets_bwd, rb.KEPT_COUNTER[model]))
+    live = int(rb._tile_spans(bins.bucket_starts, st, caps,
+                              torch.arange(st.tiles_x * st.tiles_y, device="cuda"))[1].sum())
+    return (" ".join(f"{k}_ms={v:.4f}" for k, v in split.items())
+            + f" (median of 7 profiled calls) kept={kept} of live={live} "
+            f"(kept share {kept / live:.4f})")
+
+
 def compare_k3_with_twin(bins, st, caps, tiles=None):
     """(max abs err on rgb+T, id agreement) of K3 against its twin."""
     out_k, id_k = rb.rasterize_buckets(bins, st, caps)
@@ -847,6 +958,21 @@ def fitted_caps(prepared, cams, cfg, margin=1.25):
                       ).amax(dim=0)
     req = [int(x) for x in req.tolist()]
     return fit_caps(req, margin=margin), req
+
+
+def headline_caps(prepared, cam, cfg):
+    """The bucket caps of the headline cell: fitted over the FRAMES jittered
+    frames from both projections, doubled once if a frame still overflows
+    (bench.py:225-235: never quietly truncate)."""
+    caps, req = fitted_caps(prepared, [jitter(cam, i) for i in range(FRAMES)], cfg)
+    bumped = any(bool(render(prepared, jitter(cam, i), bucket_cfg(cfg, caps)).overflow)
+                 for i in range(FRAMES))
+    if bumped:
+        caps = tuple(2 * c for c in caps)
+    log(f"bucket caps 1080p/1M (EWA and UT projections): required={req} "
+        f"fitted={list(caps)} caps_bumped={bumped}")
+    torch.cuda.synchronize()
+    return caps
 
 
 def golden_bucket(dev):
@@ -929,15 +1055,8 @@ def bucket_full_size(dev, card: str, prepared, seed: int):
     cfg = gt.RenderConfig(width=WIDTH, height=HEIGHT, sh_degree=3)
     cam = gt.look_at([0, 0, -7], [0, 0, 0], [0, 1, 0], cfg.width, cfg.height,
                      fov_y_rad=0.9, device=dev)
-    caps, req = fitted_caps(prepared, [jitter(cam, i) for i in range(FRAMES)], cfg)
+    caps = headline_caps(prepared, cam, cfg)
     bcfg = bucket_cfg(cfg, caps)
-    bumped = any(bool(render(prepared, jitter(cam, i), bcfg).overflow) for i in range(FRAMES))
-    if bumped:  # bench.py:225-235: double once, never quietly truncate
-        caps = tuple(2 * c for c in caps)
-        bcfg = bucket_cfg(cfg, caps)
-    log(f"bucket caps 1080p/1M (EWA and UT projections): required={req} "
-        f"fitted={list(caps)} caps_bumped={bumped}")
-    torch.cuda.synchronize()
 
     # ---- the main path: FRAMES frames through render(), K3's launches counted
     rb.rasterize_buckets.launches = 0
@@ -984,19 +1103,22 @@ def bucket_full_size(dev, card: str, prepared, seed: int):
     bytes_fwd = work.live * (10 * 4 + 4) + head_bytes + n_tiles * tr.PIX * (tr.OUT_ROWS * 4 + 4)
     bytes_bwd = (work.live * tr.GRAD_ROWS * 4 + head_bytes + n_tiles * tr.PIX * tr.CTX_ROWS * 4
                  + p * tr.GRAD_ROWS * 4)
-    bounds = {
-        "raster_bucket_fwd": kernel_bound("raster_bucket_fwd", work.evals, work.hits,
-                                          bytes_fwd, work.comparisons),
-        "raster_bucket_bwd": kernel_bound("raster_bucket_bwd", work.evals, work.hits,
-                                          bytes_bwd, work.comparisons
-                                          + work.shared * tr.GRAD_ROWS)}
+    bounds = {"raster_bucket_fwd": kernel_bound("raster_bucket_fwd", work.evals, work.hits,
+                                                bytes_fwd, work.comparisons)}
+    bounds["raster_bucket_bwd"], all_lanes = k4_bound("raster_bucket_bwd", work, work.hits,
+                                                      bytes_bwd, tr.GRAD_ROWS, n_tiles)
     log(f"bound 1080p/1M bucket: live_candidates={work.live} shared={work.shared} "
         f"per_tile={work.live / n_tiles:.1f} pixel_lane_evaluations={work.evals} "
         f"hits={work.hits} hit_share={work.hits / max(work.evals, 1):.4f} "
         f"merge_comparisons={work.comparisons} "
         + " ".join(f"{k}_bound_ms={v[0]:.4f} ({v[1]})" for k, v in bounds.items())
-        + f" (rows read once per slot, not per tile: "
+        + f" (K4: the kept lanes; every live lane's evaluations: "
+        f"raster_bucket_bwd_all_lane_bound_ms={all_lanes[0]:.4f} ({all_lanes[1]})) "
+        f"(rows read once per slot, not per tile: "
         f"{int(bins.num_valid) * 44 / PEAK_BYTES * 1e3:.4f} ms)")
+    check_cull("K4", work, lambda ctx: rb.rasterize_buckets_bwd(
+        bins.attrs.detach(), bins.bucket_starts, ctx, st, caps), "gs2d", bins, st, caps,
+        twin_tiles(st, dev))
     del bins
 
     # ---- timings (CUDA events; medians over 10 after 2 warm-up), stages in order
@@ -1025,11 +1147,7 @@ def bucket_train_full_size(dev, card: str, truth: gt.SplatSet, caps, seed: int):
     tc = gt.TrainConfig(scene_extent=4.0)
     with torch.no_grad():
         target = render(truth.prepare(), cam, cfg).image
-    g = torch.Generator(device=dev).manual_seed(seed + 100)
-    fields = {f: getattr(truth, f).detach().clone() for f in FIELDS}
-    fields["means"] += 1e-3 * torch.randn(fields["means"].shape, generator=g, device=dev)
-    fields["sh_dc"] += 0.3 * torch.randn(fields["sh_dc"].shape, generator=g, device=dev)
-    splats = gt.SplatSet(**fields)
+    splats = jittered_start(truth, dev, seed)
     opt = gt.make_optimizer(splats, tc)
     torch.cuda.synchronize()
 
@@ -1076,18 +1194,22 @@ def bucket_train_full_size(dev, card: str, truth: gt.SplatSet, caps, seed: int):
                                    c["out"][0])
     ctx = tr.bwd_context(c["out"][0].detach(), g_out)
     bins = c["bins"]
-    abs_err, rel_err = compare_k4_with_twin(bins, st, caps, ctx,
-                                            tiles=sample_bucket_tiles(bins, st, dev, seed))
+    tiles = sample_bucket_tiles(bins, st, dev, seed)
+    abs_err, rel_err = compare_k4_with_twin(bins, st, caps, ctx, tiles=tiles)
     log(f"bucket 64 sampled tiles: K4_vs_twin_max_abs={abs_err:.3e} "
         f"max_rel_to_row_max={rel_err:.3e}")
 
-    # ---- timings (CUDA events, medians after warm-up)
+    # ---- timings (CUDA events, medians after warm-up; the profiler's
+    # per-kernel durations for K4's three launches)
     attrs = bins.attrs.detach()
-    t_k4 = median(time_ms(lambda: rb.rasterize_buckets_bwd(
-        attrs, bins.bucket_starts, ctx, st, caps), 10))
+
+    def k4():
+        return rb.rasterize_buckets_bwd(attrs, bins.bucket_starts, ctx, st, caps)
+
+    t_k4 = median(time_ms(k4, 10))
     t_twin = median(time_ms(lambda: bucket_twin_bwd(bins, st, caps, ctx), 1, warmup=1))
     log(f"timing raster_bucket_bwd 1080p/1M ({card}): kernel_ms={t_k4:.4f} "
-        f"plain_twin_ms={t_twin:.4f}")
+        f"plain_twin_ms={t_twin:.4f} " + k4_launches(k4, "gs2d", bins, st, caps))
     del stages, c, bins, attrs, ctx, g_out
     t_fb = median(time_ms(fwd_bwd, 10))
     t_step = median(time_ms(lambda: gt.train_step(splats, opt, cam, target, cfg, 0, tc), 10))
@@ -1433,14 +1555,18 @@ def gut_bounds(c, cfg):
     bwd = (work.live * GRAD_ROWS_GUT * 4 + head + n_tiles * tr.PIX * tr.CTX_ROWS * 4 + rays
            + p * GRAD_ROWS_GUT * 4)
     bounds = {"raster_bucket_fwd_gut3d": kernel_bound("raster_bucket_fwd_gut3d", evals, hits,
-                                                      fwd, work.comparisons),
-              "raster_bucket_bwd_gut3d": kernel_bound("raster_bucket_bwd_gut3d", evals, hits,
-                                                      bwd, work.comparisons
-                                                      + work.shared * GRAD_ROWS_GUT)}
+                                                      fwd, work.comparisons)}
+    bounds["raster_bucket_bwd_gut3d"], all_lanes = k4_bound(
+        "raster_bucket_bwd_gut3d", work, hits, bwd, GRAD_ROWS_GUT, n_tiles)
     log(f"bound gut3d bucket: live_candidates={work.live} shared={work.shared} "
         f"pixel_lane_evaluations={evals} hits={hits} hit_share={hits / max(evals, 1):.4f} "
         f"merge_comparisons={work.comparisons} "
-        + " ".join(f"{k}_bound_ms={v[0]:.4f} ({v[1]})" for k, v in bounds.items()))
+        + " ".join(f"{k}_bound_ms={v[0]:.4f} ({v[1]})" for k, v in bounds.items())
+        + f" (K4g: the kept lanes; every live lane's evaluations: raster_bucket_bwd_gut3d_"
+        f"all_lane_bound_ms={all_lanes[0]:.4f} ({all_lanes[1]}))")
+    st = blend_st(c, cfg)
+    check_cull("K4g", work, lambda ctx: gut_kernel_bwd(c, cfg, ctx), "gut3d", c["bins"], st,
+               cfg.raster.bucket_caps, tile_batches(st, c["pix"].device), c["pix"])
     return bounds
 
 
@@ -1558,11 +1684,7 @@ def gut_train_full_size(dev, card: str, truth: gt.SplatSet, caps, seed: int):
         bwd = rb.rasterize_buckets_bwd if method == "bucket" else tr.rasterize_tiles_bwd
         with torch.no_grad():
             target = render(truth.prepare(), cam, cfg).image
-        g = torch.Generator(device=dev).manual_seed(seed + 100)
-        fields = {f: getattr(truth, f).detach().clone() for f in FIELDS}
-        fields["means"] += 1e-3 * torch.randn(fields["means"].shape, generator=g, device=dev)
-        fields["sh_dc"] += 0.3 * torch.randn(fields["sh_dc"].shape, generator=g, device=dev)
-        splats = gt.SplatSet(**fields)
+        splats = jittered_start(truth, dev, seed)
         opt = gt.make_optimizer(splats, tc)
         torch.cuda.synchronize()
 
@@ -1613,7 +1735,12 @@ def gut_train_full_size(dev, card: str, truth: gt.SplatSet, caps, seed: int):
                                            c, cfg, ctx, tiles)
         t_k = median(time_ms(lambda: gut_kernel_bwd(c, cfg, ctx), 10))
         t_twin = median(time_ms(lambda: gut_twin_bwd(c, cfg, ctx), 1, warmup=1))
-        log(f"timing {kname} 1080p/1M ({card}): kernel_ms={t_k:.4f} plain_twin_ms={t_twin:.4f}")
+        split = ""
+        if method == "bucket":
+            split = k4_launches(lambda: gut_kernel_bwd(c, cfg, ctx), "gut3d", c["bins"],
+                                blend_st(c, cfg), caps)
+        log(f"timing {kname} 1080p/1M ({card}): kernel_ms={t_k:.4f} plain_twin_ms={t_twin:.4f} "
+            + split)
         del stages, c, ctx, g_out
         t_fb = median(time_ms(fwd_bwd, 10))
         t_step = median(time_ms(lambda: gt.train_step(splats, opt, cam, target, cfg, 0, tc), 10))

@@ -27,6 +27,7 @@ JAX programs built here: seven bucket frames and two bucket gradients.
 """
 
 import dataclasses
+import os
 
 import jax
 import jax.numpy as jnp
@@ -50,6 +51,7 @@ from vk_gaussian_splatting_tpu_torch.ops import bucket_grid as tbg
 from vk_gaussian_splatting_tpu_torch.ops import raster_bucket as rb
 from vk_gaussian_splatting_tpu_torch.ops import rasterize as tr
 from vk_gaussian_splatting_tpu_torch.ops.projection import ProjectedSplats, project_splats
+from vk_gaussian_splatting_tpu_torch.io import load_ply
 from vk_gaussian_splatting_tpu_torch.render import render
 from vk_gaussian_splatting_tpu_torch.render.pipelines import bucket_statics, gs_attr_rows
 
@@ -60,6 +62,7 @@ DEPTH_ATOL = 1e-5
 ID_AGREE = 0.999
 GRAD_RTOL = 1e-5
 W, H = 128, 96
+GOLDEN = os.path.join(os.path.dirname(__file__), "..", "assets", "golden")
 
 # name: (seed, n, scale_range) — fine: small splats only; mixed: every class,
 # so all six spans hold candidates; big: mid, coarse and global splats
@@ -417,6 +420,100 @@ def test_bucket_work_counts():
     assert work.live == int(lengths.sum()) and work.shared == int(lengths[:, 1:].sum())
     assert 0 < work.hits < work.evals <= work.live * tr.PIX
     assert work.comparisons > work.live
+    assert 0 < work.kept < work.tested <= work.live
+    assert work.hits <= work.kept_evals < work.evals
+
+
+# ---- K4's per-tile cull: the plain predicate ---------------------------------
+
+def assert_cull_is_exact(attrs, bucket_starts, st, caps, pix_ctx=None, min_culled=0.0):
+    """``tile_may_hit`` keeps every lane that the model's alpha passes at
+    some pixel of its tile (``tile_lane_hits``, frozen pixels too), and
+    culls at least ``min_culled`` of the live lanes; the hit test itself
+    sees every hit of the twin's sweep. Returns (kept, hit, live) masks."""
+    may = rb.tile_may_hit(attrs, bucket_starts, st, caps, pix_ctx=pix_ctx)
+    hit = rb.tile_lane_hits(attrs, bucket_starts, st, caps, pix_ctx=pix_ctx)
+    tiles = torch.arange(st.tiles_x * st.tiles_y)
+    lists = rb._tile_lists(attrs, bucket_starts, st, caps, tiles)
+    live = lists.cols >= 0
+    assert may.shape == hit.shape == live.shape
+    assert not (may & ~live).any() and not (hit & ~live).any()
+    assert int((hit & ~may).sum()) == 0, "the cull dropped a lane that hits"
+    swept = torch.zeros_like(live)
+    for s in tr._blend_steps(attrs[:, lists.cols.clamp(min=0)], lists.tile_start,
+                             lists.tile_count, st, tiles, pix_ctx)[1]:
+        swept[s.pc[(s.alpha > 0).any(dim=1)]] = True
+    assert not (swept & ~hit).any()
+    assert 1.0 - may.sum().item() / live.sum().item() >= min_culled
+    return may, hit, live
+
+
+def test_cull_is_exact_on_the_golden_scene():
+    splats = load_ply(os.path.join(GOLDEN, "golden_scene.ply"), device="cpu")
+    cam = gt.look_at([0, -1.5, -7.0], [0, 0.5, 0], [0, 1, 0], W, H, fov_y_rad=0.9,
+                     device="cpu")
+    proj = project_splats(splats.prepare(), cam, tc.RenderConfig(width=W, height=H,
+                                                                 sh_degree=0))
+    spec = tbg.BucketGridSpec.build(W // 16, H // 16)
+    caps = tbg.fit_caps([int(x) for x in tbg.measure_required_caps(proj, spec)])
+    cfg = tc.RenderConfig(width=W, height=H, sh_degree=0, raster=bucket_raster(caps, tc))
+    rows, ids = gs_attr_rows(proj)
+    st = bucket_statics(cfg)
+    bins = tbg.bucket_splats(proj, rows.detach(), ids, tiles_x=st.tiles_x, tiles_y=st.tiles_y,
+                             caps=caps)
+    assert not bool(bins.overflow)
+    may, hit, live = assert_cull_is_exact(bins.attrs, bins.bucket_starts, st, caps,
+                                          min_culled=0.05)
+    assert hit.sum() > 0
+
+
+def test_cull_drops_lanes_of_spans_wider_than_their_splats():
+    """Mid and coarse splats read by many tiles: most of their lanes touch
+    none of a reading tile's pixels, and the predicate culls them."""
+    bins, st, caps = small_bins(n=300, scale_range=(-3.0, 0.0))
+    may, hit, live = assert_cull_is_exact(bins.attrs, bins.bucket_starts, st, caps)
+    tiles = torch.arange(st.tiles_x * st.tiles_y)
+    lists = rb._tile_lists(bins.attrs, bins.bucket_starts, st, caps, tiles)
+    assert int(lists.n_eff[:, 1:5].sum()) > int(lists.n_eff[:, 0].sum())  # mostly mid, coarse
+    assert 1.0 - may.sum().item() / live.sum().item() > 0.3
+
+
+def f32_next(x, toward):
+    return float(np.nextafter(np.float32(x), np.float32(toward)))
+
+
+def test_cull_on_adversarial_gs2d_rows():
+    """Opacity at alpha_min and one ulp either side, centred on a pixel of a
+    reading tile; near-singular, indefinite, negative-definite and zero
+    conics; NaN and inf rows. Nothing that hits is culled, and every
+    non-finite or non-positive-definite row is kept."""
+    bins, st, caps = small_bins(n=300, scale_range=(-5.0, -1.0))
+    tiles = torch.arange(st.tiles_x * st.tiles_y)
+    lists = rb._tile_lists(bins.attrs, bins.bucket_starts, st, caps, tiles)
+    lanes = lists.cols.view(tiles.shape[0], -1)
+    amin = float(np.float32(st.alpha_min))
+    nan, inf = float("nan"), float("inf")
+    # (opacity, conic a, b, c, x offset); x, y on a pixel centre of a reading tile
+    rows = [(amin, 0.5, 0.0, 0.5, 0), (f32_next(amin, 1), 0.5, 0.0, 0.5, 0),
+            (f32_next(amin, 0), 0.5, 0.0, 0.5, 0), (0.9, 0.5, 0.4999999, 0.5, 0),
+            (0.9, 2.0, 1.9999999, 2.0, 30), (0.9, 0.5, 0.8, 0.5, 30),
+            (0.9, -0.5, 0.0, -0.5, 30), (0.9, 0.0, 0.0, 0.0, 30), (0.9, 0.5, 0.0, 0.5, nan),
+            (nan, 0.5, 0.0, 0.5, 0), (inf, 0.5, 0.0, 0.5, 40), (0.9, inf, 0.0, 0.5, 0),
+            (0.9, 0.5, nan, 0.5, 0), (f32_next(amin, 0), 1e-30, 0.0, 1e-30, 0)]
+    attrs = bins.attrs.clone()
+    picked = torch.unique(lists.cols[lists.cols >= 0])[:len(rows)]
+    for col, (op, a, b, c, dx) in zip(picked.tolist(), rows):
+        t = int(torch.nonzero((lanes == col).any(dim=1))[0])
+        attrs[0, col] = (t % st.tiles_x) * 16 + 3.5 + dx
+        attrs[1, col] = (t // st.tiles_x) * 16 + 5.5
+        attrs[2:6, col] = torch.tensor([a, b, c, op])
+    may, hit, _ = assert_cull_is_exact(attrs, bins.bucket_starts, st, caps)
+    at = lists.cols[:, None] == picked[None, :]                     # (lanes, rows)
+    kept = [bool(may[at[:, k]].all()) for k in range(len(rows))]
+    hits = [bool(hit[at[:, k]].any()) for k in range(len(rows))]
+    assert hits[0] and hits[1] and not hits[2]                       # alpha_min is inclusive
+    assert kept[0] and kept[1] and not kept[2]
+    assert all(kept[3:13]), kept                                     # degenerate or not finite
 
 
 @pytest.mark.parametrize("caps", [(500, 256, 512, 256), (512, 0, 512, 256), (512, 256, 512)])

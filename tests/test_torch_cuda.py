@@ -30,6 +30,10 @@ the row's median nonzero size (measured on an H100: the 99.9th percentile
 of that ratio up to 1.5e-3 on the golden frame). chip_smoke.py holds K2 to
 the same two gates.
 
+K4's per-tile cull must change nothing: K4 and K4g against their twins
+(which sweep every lane) on scenes with rows at the predicate's edges, and
+the kernel's kept-lane counter against the plain predicate's count.
+
 The probe kernels only compare, select and copy, so each must equal its
 twin bit for bit.
 """
@@ -405,15 +409,28 @@ from vk_gaussian_splatting_tpu_torch.render.rays import build_tile_rays  # noqa:
 GUT_SHARE, GUT_MAX, GUT_BWD_MAX = 0.999, 1.2e-2, 2e-3
 
 
-def gut_setup(device, method="pairs", degree=2, fisheye=False, w=128, h=96, seed=0, n=1500):
-    """Bins, statics, caps and rays of a 3DGUT frame on ``device``."""
+def gut_setup(device, method="pairs", degree=2, fisheye=False, w=128, h=96, seed=0, n=1500,
+              camera="pinhole", scale_range=(-3.5, -1.5)):
+    """Bins, statics, caps and rays of a 3DGUT frame on ``device``; camera
+    "fisheye", "rolling" (top to bottom, the end pose 0.4 to the right) or
+    "dof" (aperture 0.3 focused at 9) instead of the pinhole."""
+    fisheye = fisheye or camera == "fisheye"
     raster = gt.RasterConfig(method=method, bucket_caps=(512, 256, 512, 256))
+    shutter = (gt.ShutterType.ROLLING_TOP_TO_BOTTOM if camera == "rolling"
+               else gt.ShutterType.GLOBAL)
     cfg = gt.RenderConfig(width=w, height=h, sh_degree=1, pipeline=gt.Pipeline.MESH_3DGUT,
                           camera_type=gt.CameraType.FISHEYE if fisheye else gt.CameraType.PINHOLE,
-                          rt=gt.RtConfig(kernel_degree=degree), raster=raster)
-    d = interop.random_splat_arrays(seed, n, sh_degree=1, scale_range=(-3.5, -1.5))
+                          shutter=shutter, rt=gt.RtConfig(kernel_degree=degree), raster=raster)
+    d = interop.random_splat_arrays(seed, n, sh_degree=1, scale_range=scale_range)
     cam = gt.look_at([0.2, -0.3, -9.0], [0, 0, 0], [0, 1, 0], w, h, fov_y_rad=0.9,
                      device=device)
+    if camera == "rolling":
+        vm_end = cam.viewmat.clone()
+        vm_end[0, 3] -= 0.4
+        cam = dataclasses.replace(cam, viewmat_end=vm_end)
+    if camera == "dof":
+        cam = dataclasses.replace(cam, aperture=torch.tensor(0.3, device=device),
+                                  focus_dist=torch.tensor(9.0, device=device))
     prep = interop.splat_set_from_numpy(d, device).prepare()
     proj = ut_project_splats(prep, cam, cfg)
     rows, ids = gut_attr_rows(prep, proj, cfg)
@@ -524,6 +541,141 @@ def test_gut_render_on_card_launches_once_per_sample(cuda, pipeline, method):
         before[0] + 2, before[1] + 2, before[2])
     assert all(bool(torch.isfinite(getattr(s, f).grad).all()) for f in interop.SPLAT_FIELDS)
     assert s.means.grad.abs().max().item() > 0 and s.quats.grad.abs().max().item() > 0
+
+
+# ---- K4's per-tile cull (csrc/response.cuh may_hit) on the card ------------
+#
+# K4 and K4g against their twins, which sweep every lane, on scenes with
+# rows at the predicate's edges; the kept counter against the plain
+# predicate (ops/raster_bucket.bucket_work) within 1e-4 of the live lanes
+# (at least one lane): the card rounds its logs and square roots, and a
+# pixel at T ~ min_transmittance may freeze one step apart; the repeat
+# bit-equal, counter included. Rows stay finite where a hit could turn the
+# VJP's arithmetic into NaN in both (tests/test_torch_bucket.py and
+# tests/test_torch_gut.py hold the predicate on inf rows).
+
+
+def f32_next(x, toward):
+    return float(np.nextafter(np.float32(x), np.float32(toward)))
+
+
+def with_rows(bins, st, caps, edits, pix=None):
+    """``bins`` with the first live columns' rows rewritten, one ``edits``
+    dict {row: value} per column; a "centre" key puts the column's x, y on
+    a pixel centre of a tile that reads it."""
+    tiles = torch.arange(st.tiles_x * st.tiles_y, device=bins.attrs.device)
+    lists = rb._tile_lists(bins.attrs, bins.bucket_starts, st, caps, tiles)
+    lanes = lists.cols.view(tiles.shape[0], -1)
+    attrs = bins.attrs.clone()
+    picked = torch.unique(lists.cols[lists.cols >= 0])[:len(edits)]
+    for col, edit in zip(picked.tolist(), edits):
+        edit = dict(edit)
+        if edit.pop("centre", False):
+            t = int(torch.nonzero((lanes == col).any(dim=1))[0])
+            attrs[0, col] = (t % st.tiles_x) * 16 + 3.5
+            attrs[1, col] = (t // st.tiles_x) * 16 + 5.5
+        for row, value in edit.items():
+            attrs[row, col] = value
+    return dataclasses.replace(bins, attrs=attrs)
+
+
+def gs2d_edge_rows(st):
+    """(rows that may hit, rows that cannot) at the gs2d predicate's edges,
+    each centred on a pixel of a tile that reads it."""
+    amin, nan = float(np.float32(st.alpha_min)), float("nan")
+    rows = [{5: amin}, {5: f32_next(amin, 1)}, {5: f32_next(amin, 0)},
+            {2: 0.5, 3: 0.4999999, 4: 0.5}, {2: 0.5, 3: 0.8, 4: 0.5},
+            {2: -0.01, 3: 0.0, 4: -0.01}, {2: 0.0, 3: 0.0, 4: 0.0}, {5: 3e38}]
+    never = [{0: nan}, {5: nan}, {3: nan}]
+    return [dict(r, centre=True) for r in rows], [dict(r, centre=True) for r in never]
+
+
+def quiet(edits, never, opacity_row):
+    """``edits`` followed by the rows ``never``, which cannot hit (NaN, or a
+    scale at the 1e-12 floor), each replaced by its column's own row with
+    opacity 0, which cannot hit either. The kernel runs the VJP on hits
+    alone and stores zeros for such a row; the twin's masked VJP can give
+    NaN there (0 x NaN, 0 x inf), and its float64 prefix sum over the
+    columns carries that into every later column. So the twin runs on the
+    quiet rows."""
+    return list(edits) + [{opacity_row: 0.0} for _ in never]
+
+
+def assert_kept_matches_plain(model, work, live):
+    kept = int(getattr(rb.rasterize_buckets_bwd, rb.KEPT_COUNTER[model]))
+    assert 0 < kept < live
+    assert abs(kept - work.kept) <= max(1.0, 1e-4 * live), (kept, work.kept)
+    return kept
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scale_range", [(-5.0, 0.0), (-3.0, 0.5)])
+def test_bucket_bwd_kernel_culls_exactly_on_edge_rows(cuda, scale_range):
+    """Both gates of K4 against its twin on the scene of
+    test_bucket_bwd_kernel_matches_twin's density; on the denser one
+    (splats up to e^0.5, most lanes mid or coarse) the row gate alone: its
+    opacity row has 0.13 % of values beyond the elementwise limit, with
+    the kernel before the cull too, bit for bit (an H100, PERF.md §6)."""
+    cfg = bucket_cfg(caps=(512, 256, 512, 256))
+    caps = cfg.raster.bucket_caps
+    plain, st = bucket_bins_on(cuda, cfg, n=1500, scale_range=scale_range)
+    edits, never = gs2d_edge_rows(st)
+    bins = with_rows(plain, st, caps, edits + never)
+    quiet_attrs = with_rows(plain, st, caps, quiet(edits, never, 5)).attrs
+    out, _ = rb.rasterize_buckets(bins, st, caps)
+    g = torch.randn(out.shape, generator=torch.Generator(device=cuda).manual_seed(0),
+                    device=cuda)
+    ctx = tr.bwd_context(out, g)
+    d_k = rb.rasterize_buckets_bwd(bins.attrs, bins.bucket_starts, ctx, st, caps)
+    d_r = rb.rasterize_buckets_bwd_ref(quiet_attrs, bins.bucket_starts, ctx, st, caps)
+    torch.cuda.synchronize()
+    assert torch.isfinite(d_k).all() and torch.isfinite(d_r).all()
+    for r in range(tr.GRAD_ROWS):
+        scale = d_r[r].abs().max().item()
+        assert (d_k[r] - d_r[r]).abs().max().item() <= BWD_RTOL * scale, r
+        if scale_range[1] <= 0.0:
+            limit = 1e-2 * (d_r[r].abs() + d_r[r].abs()[d_r[r] != 0].median())
+            assert ((d_k[r] - d_r[r]).abs() <= limit).float().mean().item() >= 0.999, r
+    work = rb.bucket_work(bins.attrs, bins.bucket_starts, st, caps)
+    kept = assert_kept_matches_plain("gs2d", work, work.live)
+    hit = rb.tile_lane_hits(bins.attrs, bins.bucket_starts, st, caps)
+    may = rb.tile_may_hit(bins.attrs, bins.bucket_starts, st, caps)
+    assert int((hit & ~may).sum()) == 0
+    again = rb.rasterize_buckets_bwd(bins.attrs, bins.bucket_starts, ctx, st, caps)
+    torch.cuda.synchronize()
+    assert torch.equal(d_k, again) and int(rb.rasterize_buckets_bwd.kept) == kept
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("degree, camera", [(0, "pinhole"), (1, "fisheye"), (2, "rolling"),
+                                            (3, "dof"), (4, "pinhole"), (5, "rolling"),
+                                            (8, "dof")])
+def test_gut3d_bwd_kernel_culls_exactly(cuda, degree, camera):
+    plain, st, caps, pix = gut_setup(cuda, "bucket", degree, camera=camera, n=1200,
+                                     scale_range=(-3.5, -0.5))
+    amin = float(np.float32(st.alpha_min))
+    nan = float("nan")
+    edits = [{13: amin}, {13: f32_next(amin, 1)}, {13: f32_next(amin, 0)}, {9: 1.5}]
+    never = [{3: 1e-12}, {3: 1e-12, 4: 1e-12, 5: 1e-12}, {0: nan}, {13: nan}]
+    bins = with_rows(plain, st, caps, edits + never)
+    quiet_bins = with_rows(plain, st, caps, quiet(edits, never, 13))
+    out, _ = rb.rasterize_buckets(bins, st, caps, pix)
+    g = torch.randn(out.shape, generator=torch.Generator(device=cuda).manual_seed(0),
+                    device=cuda)
+    ctx = tr.bwd_context(out, g)
+    d_k = gut_bwd(bins, st, caps, ctx, pix)
+    d_r = gut_bwd(quiet_bins, st, caps, ctx, pix, twin=True)
+    torch.cuda.synchronize()
+    assert torch.isfinite(d_k).all() and torch.isfinite(d_r).all()
+    assert_gut_bwd_matches(d_k, d_r)
+    work = rb.bucket_work(bins.attrs, bins.bucket_starts, st, caps, pix_ctx=pix)
+    kept = assert_kept_matches_plain("gut3d", work, work.live)
+    hit = rb.tile_lane_hits(bins.attrs, bins.bucket_starts, st, caps, pix_ctx=pix)
+    may = rb.tile_may_hit(bins.attrs, bins.bucket_starts, st, caps, pix_ctx=pix)
+    assert int((hit & ~may).sum()) == 0
+    again = gut_bwd(bins, st, caps, ctx, pix)
+    torch.cuda.synchronize()
+    assert torch.equal(d_k, again) and int(rb.rasterize_buckets_bwd.kept_gut3d) == kept
 
 
 # ---- the probes P1-P3: bitonic sort (csrc/bench_roll.cu), sort stages

@@ -598,3 +598,78 @@ def test_bucket_path_adds_the_tails_beyond_the_ut_rect():
         worst.append((outs[0].image - outs[1].image).abs().max().item())
     assert 1e-3 < worst[0] < 2e-2, worst
     assert worst[1] < 2e-4, worst
+
+
+# ---- K4g's per-tile cull: the plain predicate --------------------------------
+
+# name: (config keywords by name, camera keywords, rolling shift)
+CULL_CAMERAS = {
+    "pinhole": ({}, {}, 0.0),
+    "fisheye": (dict(camera_type="FISHEYE"), {}, 0.0),
+    "rolling": (dict(shutter="ROLLING_TOP_TO_BOTTOM"), {}, 0.4),
+    "dof": ({}, dict(focus_dist=8.0, aperture=0.3), 0.0),
+}
+
+
+def cull_inputs(degree, camera, seed=4, n=300):
+    """A 3DGUT bucket scene of mixed scales (tests/test_gut.py's scene, with
+    mid and coarse splats) and its rays under ``camera``."""
+    cfg_kw, cam_kw, shift = CULL_CAMERAS[camera]
+    _, cfg = named_cfgs(dict(cfg_kw, pipeline="MESH_3DGUT", rt=dict(kernel_degree=degree),
+                             raster=dict(method="bucket", bucket_caps=(512, 256, 256, 128),
+                                         bucket_chunk=128)))
+    cam, _ = cameras(shift=shift, **cam_kw)
+    d = interop.random_splat_arrays(seed, n, sh_degree=1, extent=3.0, scale_range=(-3.5, -0.5))
+    prep = interop.splat_set_from_numpy(d, "cpu").prepare()
+    proj = ut_project_splats(prep, cam, cfg)
+    rows, ids = tp.gut_attr_rows(prep, proj, cfg)
+    st = tp.gut_statics(tp.raster_statics(cfg), cfg)
+    bins = tp.bin_for_cfg(proj, rows.detach(), ids, cfg, 0, st)
+    st = dataclasses.replace(st, chunk=cfg.raster.bucket_chunk)
+    return bins.attrs, bins.bucket_starts, st, cfg.raster.bucket_caps, trays.build_tile_rays(
+        cam, cfg)
+
+
+def assert_gut_cull_is_exact(attrs, starts, st, caps, pix):
+    """``tile_may_hit`` keeps every lane whose alpha passes the cutoffs at
+    some pixel of its tile (tests/test_torch_bucket.py's check)."""
+    may = rb.tile_may_hit(attrs, starts, st, caps, pix_ctx=pix)
+    hit = rb.tile_lane_hits(attrs, starts, st, caps, pix_ctx=pix)
+    assert hit.any()
+    assert int((hit & ~may).sum()) == 0, "the cull dropped a lane that hits"
+    return may, hit
+
+
+@pytest.mark.parametrize("camera", list(CULL_CAMERAS))
+@pytest.mark.parametrize("degree", tresp.KERNEL_DEGREES)
+def test_gut3d_cull_is_exact(degree, camera):
+    attrs, starts, st, caps, pix = cull_inputs(degree, camera)
+    may, hit = assert_gut_cull_is_exact(attrs, starts, st, caps, pix)
+    lists = rb._tile_lists(attrs, starts, st, caps, torch.arange(st.tiles_x * st.tiles_y))
+    assert 0 < int(may.sum()) <= 0.7 * int((lists.cols >= 0).sum())  # mid, coarse lanes culled
+    work = rb.bucket_work(attrs, starts, st, caps, pix_ctx=pix)
+    assert work.hits <= work.kept_evals < work.evals and work.kept < work.tested <= work.live
+
+
+def test_gut3d_cull_on_adversarial_rows():
+    """Scales at the 1e-12 floor, opacity at alpha_min and one ulp either
+    side, NaN and inf rows, a quaternion off the unit sphere: nothing that
+    hits is culled, and the non-finite and floored rows are kept."""
+    attrs, starts, st, caps, pix = cull_inputs(2, "rolling")
+    tiles = torch.arange(st.tiles_x * st.tiles_y)
+    lists = rb._tile_lists(attrs, starts, st, caps, tiles)
+    amin = float(np.float32(st.alpha_min))
+    nan, inf = float("nan"), float("inf")
+    edits = [{13: amin}, {13: float(np.nextafter(np.float32(amin), np.float32(1)))},
+             {13: float(np.nextafter(np.float32(amin), np.float32(0)))},
+             {3: 1e-12}, {3: 1e-12, 4: 1e-12, 5: 1e-12}, {3: 0.0}, {0: nan}, {13: nan},
+             {4: inf}, {9: 2.0}, {5: nan}]
+    attrs = attrs.clone()
+    picked = torch.unique(lists.cols[lists.cols >= 0])[:len(edits)]
+    for col, edit in zip(picked.tolist(), edits):
+        for row, value in edit.items():
+            attrs[row, col] = value
+    may, _ = assert_gut_cull_is_exact(attrs, starts, st, caps, pix)
+    at = lists.cols[:, None] == picked[None, :]
+    kept = [bool(may[at[:, k]].all()) for k in range(len(edits))]
+    assert all(kept[3:9]), kept

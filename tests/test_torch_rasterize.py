@@ -140,6 +140,27 @@ def test_blend_work_counts(blended):
         assert (evals, hits) == (full, all_hits)
 
 
+def test_blend_work_counts_a_cull(blended):
+    """blend_work with a cull's ``keep`` mask: (tested, kept, kept
+    evaluations) over the steps a tile enters. Keeping every pair keeps
+    what is tested and every evaluation; keeping none keeps nothing; and
+    keeping every other pair splits the tested pairs and evaluations."""
+    name, _, _, (attrs, _, start, count), _ = blended
+    st = statics()
+    evals, hits = tr.blend_work(attrs, start, count, st)
+    everyone = torch.ones(attrs.shape[1], dtype=torch.bool)
+    e, h, tested, kept, kept_evals = tr.blend_work(attrs, start, count, st, keep=everyone)
+    assert (e, h) == (evals, hits) and kept == tested and kept_evals == evals
+    assert 0 < tested <= int(count.sum())
+    if name != "dense":  # no tile freezes: every pair is tested
+        assert tested == int(count.sum())
+    assert tr.blend_work(attrs, start, count, st, keep=~everyone)[2:] == (tested, 0, 0)
+    odd = torch.arange(attrs.shape[1]) % 2 == 1
+    _, _, _, kept_odd, evals_odd = tr.blend_work(attrs, start, count, st, keep=odd)
+    _, _, _, kept_even, evals_even = tr.blend_work(attrs, start, count, st, keep=~odd)
+    assert (kept_odd + kept_even, evals_odd + evals_even) == (tested, evals)
+
+
 def test_empty_tiles_are_background():
     st = statics()
     n_t = st.tiles_x * st.tiles_y

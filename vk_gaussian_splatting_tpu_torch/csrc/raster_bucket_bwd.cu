@@ -25,8 +25,8 @@
 //    tile alone: its gradient is stored in d_attrs once. A lane of a shared
 //    span (mid, coarse, global) is read by other tiles too: its gradient
 //    goes to this tile's slot in a scratch buffer, (GRAD_ROWS, T * S) f32
-//    with S the shared spans' caps summed, and lanes past the block's
-//    early exit get zeros there.
+//    with S the shared spans' caps summed; lanes the cull drops and lanes
+//    past the block's early exit get zeros there.
 // 2. raster_bucket_bwd_partial and raster_bucket_bwd_reduce sum each
 //    shared column's scratch slots over the tiles that read it, in a fixed
 //    order: the reader table (static per image size, from
@@ -43,9 +43,18 @@
 //
 // What bounds it on the H100: per (pixel, lane) the forward's alpha plus,
 // per hit, the model's gradient and a per-lane reduction over the tile, as
-// K2, on every candidate of the tile's window rather than its pairs; then
-// the scratch (written once per (tile, shared lane), read once by the
-// reduce).
+// K2; then the scratch (written once per (tile, shared lane), read once by
+// the reduce). The window's mid, coarse and global spans are read by 32, up
+// to 512 and all tiles, so most of a tile's candidates touch none of its
+// pixels: a lane that hits no pixel adds exact zeros, yet cost 256 alpha
+// evaluations (and, with any hit in a warp, the warp sums). So each blend
+// step first culls its lanes by the model's exact per-tile predicate
+// (response.cuh may_hit: false only where eval fails at every pixel of the
+// tile) and runs the sweep over the kept lanes alone, compacted in merged
+// order. The steps' boundaries, the per-step freeze and the early exit stay
+// where they were, and a culled lane changes no T, s_run or sum: d_attrs is
+// bit for bit what the uncompacted sweep gives (its plain twin,
+// ops/raster_bucket.rasterize_buckets_bwd_ref, sweeps every lane).
 // Built like the forward with exact expf, no fast math and -fmad=false.
 
 #include <cuda_runtime.h>
@@ -87,7 +96,7 @@ raster_bucket_bwd_tiles(const float* __restrict__ attrs, long long stride,
                         int tiles_x, int c_total, int cap0, int cap1, int cap2, int cap3,
                         int chunk, response::Params prm, float min_transmittance,
                         float* __restrict__ scratch, long long scratch_stride,
-                        float* __restrict__ d_attrs) {
+                        float* __restrict__ d_attrs, int* __restrict__ kept) {
   constexpr int GRAD_ROWS = M::GRAD_ROWS;
   extern __shared__ float smem[];
   float* keys = smem;                                    // [c_total]
@@ -96,7 +105,9 @@ raster_bucket_bwd_tiles(const float* __restrict__ attrs, long long stride,
   int* s_col = (int*)(s_attr + M::BWD_SLOTS * chunk);    // [chunk] fine column or -1
   int* s_slot = s_col + chunk;                           // [chunk] scratch slot or -1
   __shared__ float s_part[WARPS][GRAD_ROWS][SUB];
+  __shared__ int s_count[2][WARPS];                      // kept lanes per warp, by round
   __shared__ bucket::Spans sp;
+  __shared__ typename M::TileBound bound;
 
   const int t = blockIdx.x;
   const int i = threadIdx.x;
@@ -107,6 +118,7 @@ raster_bucket_bwd_tiles(const float* __restrict__ attrs, long long stride,
   bucket::merge_spans(sp, attrs + M::DEPTH_ROW * stride, keys, order);
 
   const response::Pixel pix = response::load_pixel(t, tiles_x, i, pix_ctx);
+  M::tile_bound(bound, t, tiles_x, pix);
   const int n_head = sp.n_head;
   const int n_live = sp.off[NUM_SPANS];
   const int end = n_head + n_live;
@@ -121,30 +133,61 @@ raster_bucket_bwd_tiles(const float* __restrict__ attrs, long long stride,
   const float q_min = 1.0f - prm.alpha_clamp;
 
   float T = 1.0f, s_run = 0.0f;
+  int n_kept_tile = 0;
   int s = n_head - n_head % chunk;
   while (s < end) {
     const int e = min(end, (s / chunk + 1) * chunk);  // next chunk boundary
     const int lo = max(s, n_head);
     const int n = e - lo;
-    for (int j = i; j < n; j += PIX) {
-      const int g = order[lo - n_head + j];
-      if (g < 0) {  // no lane: zero slots, an alpha of 0, no gradient stored
-        #pragma unroll
-        for (int r = 0; r < M::BWD_SLOTS; ++r) s_attr[r * chunk + j] = 0.0f;
-        s_col[j] = s_slot[j] = -1;
-        continue;
+    // Stage the step's kept lanes, compacted in their merged order: thread i
+    // takes lane r0 + i of each round of PIX lanes, stages it in registers
+    // and asks may_hit; a warp ballot, the warps' counts and the rounds
+    // before give each kept lane its place. A culled lane adds exact zeros
+    // to T, s_run and every sum: a fine one keeps the zero d_attrs holds, a
+    // shared one writes zeros to its scratch slot here.
+    int n_kept = 0;
+    for (int r0 = 0; r0 < n; r0 += PIX) {
+      const int j = r0 + i;
+      float lane_slots[M::BWD_SLOTS];
+      int col = -1, slot = -1;
+      bool keep = false;
+      const int g = j < n ? order[lo - n_head + j] : -1;  // -1: no lane, no gradient
+      if (g >= 0) {
+        const int sp_i = bucket::span_of(sp, g);
+        const int k = g - sp.off[sp_i];
+        const long long c = sp.start[sp_i] + k;
+        M::stage_bwd(attrs, stride, c, lane_slots, 1, 0);
+        keep = M::may_hit(lane_slots, 1, 0, bound, prm);
+        col = sp_i == 0 ? (int)c : -1;
+        slot = sp_i == 0 ? -1 : shared_slot(sp_i, k, cap1, cap2);
+        if (!keep && slot >= 0) {
+          #pragma unroll
+          for (int row = 0; row < GRAD_ROWS; ++row)
+            scratch[row * scratch_stride + slot0 + slot] = 0.0f;
+        }
       }
-      const int sp_i = bucket::span_of(sp, g);
-      const int k = g - sp.off[sp_i];
-      const long long col = sp.start[sp_i] + k;
-      M::stage_bwd(attrs, stride, col, s_attr, chunk, j);
-      s_col[j] = sp_i == 0 ? (int)col : -1;
-      s_slot[j] = sp_i == 0 ? -1 : shared_slot(sp_i, k, cap1, cap2);
+      const unsigned ballot = __ballot_sync(0xffffffffu, keep);
+      int* count = s_count[(r0 / PIX) & 1];  // two buffers: one barrier per round
+      if (lane == 0) count[warp] = __popc(ballot);
+      __syncthreads();
+      int before = n_kept + __popc(ballot & ((1u << lane) - 1u));
+      #pragma unroll
+      for (int w = 0; w < WARPS; ++w) {
+        before += w < warp ? count[w] : 0;
+        n_kept += count[w];
+      }
+      if (keep) {
+        #pragma unroll
+        for (int r = 0; r < M::BWD_SLOTS; ++r) s_attr[r * chunk + before] = lane_slots[r];
+        s_col[before] = col;
+        s_slot[before] = slot;
+      }
     }
+    n_kept_tile += n_kept;
     __syncthreads();
     const bool live = T > min_transmittance;  // per-step freeze, as the forward
-    for (int j0 = 0; j0 < n; j0 += SUB) {
-      const int m = min(SUB, n - j0);
+    for (int j0 = 0; j0 < n_kept; j0 += SUB) {
+      const int m = min(SUB, n_kept - j0);
       for (int jj = 0; jj < m; ++jj) {
         const int j = j0 + jj;
         float g[GRAD_ROWS];
@@ -214,6 +257,7 @@ raster_bucket_bwd_tiles(const float* __restrict__ attrs, long long stride,
     #pragma unroll
     for (int row = 0; row < GRAD_ROWS; ++row) scratch[row * scratch_stride + at] = 0.0f;
   }
+  if (i == 0 && n_kept_tile > 0) atomicAdd(kept, n_kept_tile);  // integers: deterministic
 }
 
 // Live candidates of shared bucket b, read through spans of class `span`
@@ -296,7 +340,7 @@ int launch(const float* attrs, long long stride, const int* bucket_starts,
            const float* ctx, const float* pix_ctx, int num_tiles, int tiles_x, int cap0,
            int cap1, int cap2, int cap3, int first_bucket, int global_bucket, int chunk,
            float alpha_min, float alpha_clamp, float qmax, float min_response, int degree,
-           float min_transmittance, float* scratch, float* partial, float* d_attrs,
+           float min_transmittance, float* scratch, float* partial, float* d_attrs, int* kept,
            void* stream) {
   if (chunk < 1 || chunk > bucket::MAX_CHUNK) return (int)cudaErrorInvalidValue;
   const int c_total = cap0 + 2 * cap1 + 2 * cap2 + cap3;
@@ -310,7 +354,7 @@ int launch(const float* attrs, long long stride, const int* bucket_starts,
   if (num_tiles > 0) {
     raster_bucket_bwd_tiles<M><<<num_tiles, PIX, smem, (cudaStream_t)stream>>>(
         attrs, stride, bucket_starts, span_buckets, ctx, pix_ctx, tiles_x, c_total, cap0, cap1,
-        cap2, cap3, chunk, prm, min_transmittance, scratch, scratch_stride, d_attrs);
+        cap2, cap3, chunk, prm, min_transmittance, scratch, scratch_stride, d_attrs, kept);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     const int partial_lanes = max(cap1, max(cap2, cap3));
@@ -354,6 +398,8 @@ extern "C" int raster_bucket_bwd_gut3d_smem_limit() { return smem_limit_of<respo
 // and partial (GRAD_ROWS, num_segments, max(cap1, cap2, cap3)) f32, no
 // initial values; GRAD_ROWS is 9 for gs2d, 14 for gut3d. gs2d reads no
 // pixel context (pix_ctx may be null); gut3d reads the (T, 8, 256) one.
+// kept must hold 0 on entry: each tile block adds the number of lanes its
+// cull kept, over the blend steps it entered (one integer atomic each).
 #define RASTER_BUCKET_BWD_PARAMS                                                             \
   const float *attrs, long long stride, const int *bucket_starts, const int *span_buckets,  \
       const int *reader_code, const int *seg_bucket, const int *seg_first,                  \
@@ -361,12 +407,13 @@ extern "C" int raster_bucket_bwd_gut3d_smem_limit() { return smem_limit_of<respo
       const float *pix_ctx, int num_tiles, int tiles_x, int cap0, int cap1, int cap2,       \
       int cap3, int first_bucket, int global_bucket, int chunk, float alpha_min,            \
       float alpha_clamp, float qmax, float min_response, int degree,                        \
-      float min_transmittance, float *scratch, float *partial, float *d_attrs, void *stream
+      float min_transmittance, float *scratch, float *partial, float *d_attrs, int *kept,  \
+      void *stream
 #define RASTER_BUCKET_BWD_ARGS                                                               \
   attrs, stride, bucket_starts, span_buckets, reader_code, seg_bucket, seg_first, seg_last, \
       bucket_seg, num_segments, ctx, pix_ctx, num_tiles, tiles_x, cap0, cap1, cap2, cap3,   \
       first_bucket, global_bucket, chunk, alpha_min, alpha_clamp, qmax, min_response,       \
-      degree, min_transmittance, scratch, partial, d_attrs, stream
+      degree, min_transmittance, scratch, partial, d_attrs, kept, stream
 
 extern "C" int raster_bucket_bwd(RASTER_BUCKET_BWD_PARAMS) {
   pix_ctx = nullptr;

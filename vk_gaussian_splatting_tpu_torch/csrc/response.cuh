@@ -37,6 +37,20 @@
 // sqrtf, rsqrtf and IEEE division, each operation rounded where the twin
 // rounds it (constants are the twin's Python doubles cast to float), so a
 // kernel and its twin on one card agree bit for bit on every alpha.
+//
+// The per-tile cull of the bucket backward (csrc/raster_bucket_bwd.cu):
+// each model's TileBound is computed once per block (tile_bound, called by
+// all PIX threads), and may_hit(s, ss, j, bound, prm) reads a lane's staged
+// backward slots and answers false only where eval provably fails at every
+// pixel of the tile. Its geometry runs in double from the f32 slots eval
+// reads. A NaN, an inf or a degenerate shape answers true: every test is
+// written so that a NaN falls to "keep". Margins: each radius grows by
+// CULL_REL = 1e-3 of itself plus an absolute term (gs2d 1e-2 px; gut3d
+// 1e-7 of the distance from the tile's rays), the cutoffs are loosened by
+// 1e-3 (gs2d, in the quadratic form) and 1e-5 (gut3d, in -ln of the
+// response), and on top each model adds a bound of eval's f32 rounding
+// (below), so rounding can never turn a culled lane into a hit. The plain
+// twin, term for term, is ops/raster_bucket.tile_may_hit.
 
 #pragma once
 
@@ -47,6 +61,20 @@ namespace response {
 constexpr int TILE = 16;
 constexpr int PIX = TILE * TILE;   // threads per block, pixels per tile
 constexpr int PIX_ROWS = 8;        // pixel-context rows per tile: 0-2 d, 3-5 o
+constexpr double CULL_REL = 1e-3;  // relative growth of every cull radius
+
+__device__ inline bool finite_all(const double* v, int n) {
+  bool ok = true;
+  #pragma unroll
+  for (int k = 0; k < n; ++k) ok = ok && isfinite(v[k]);
+  return ok;
+}
+
+__device__ inline double warp_sum_d(double v) {
+  #pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
 
 // The cutoffs: qmax is gs2d's, min_response and degree are gut3d's.
 struct Params {
@@ -120,6 +148,51 @@ struct Gs2d {
     g[3] = 2.0f * dd * h.dx * h.dy;
     g[4] = dd * h.dy * h.dy;
     g[5] = da * h.gauss;
+  }
+
+  // The rectangle of the tile's pixel centres.
+  struct TileBound {
+    double x0, x1, y0, y1;
+  };
+
+  __device__ static void tile_bound(TileBound& b, int t, int tiles_x, const Pixel&) {
+    if (threadIdx.x == 0) {
+      b.x0 = (double)((t % tiles_x) * TILE) + 0.5;
+      b.y0 = (double)((t / tiles_x) * TILE) + 0.5;
+      b.x1 = b.x0 + (TILE - 1);
+      b.y1 = b.y0 + (TILE - 1);
+    }
+    __syncthreads();
+  }
+
+  // A hit needs d <= qmax and opacity exp(-d/2) >= alpha_min, so d <= tau =
+  // min(qmax, 2 ln(opacity / alpha_min)). For a positive-definite conic (a >
+  // 0, det = ac - b^2 > 0) d >= 0, so opacity < alpha_min never hits; else
+  // the ellipse d <= tau has the bounding half-widths sqrt(tau c / det),
+  // sqrt(tau a / det), and a box that misses the tile's pixel centres culls.
+  // eval's f32 d is within 4e-7 (a dx^2 + 2|b dx dy| + c dy^2) of the exact
+  // form (six roundings and those of dx, dy), which is at most err = 1e-6 K
+  // of the form with K = (a + |b| + c)^2 / det; so tau grows by 1e-3 (the
+  // rounding of exp and of the product, ~1e-6 in d, and more) and the
+  // radii by CULL_REL + err, with conics of err > 0.25 kept.
+  __device__ static bool may_hit(const float* s, int ss, int j, const TileBound& b,
+                                 const Params& prm) {
+    const double v[6] = {s[0 * ss + j], s[1 * ss + j], s[2 * ss + j],
+                         s[3 * ss + j], s[4 * ss + j], s[5 * ss + j]};
+    const double x = v[0], y = v[1], ca = v[2], cb = v[3], cc = v[4], op = v[5];
+    const double amin = prm.alpha_min;
+    if (!(finite_all(v, 6) && amin > 0.0)) return true;
+    const double det = ca * cc - cb * cb;
+    if (!(ca > 0.0 && det > 0.0)) return true;
+    const double sum = ca + fabs(cb) + cc;
+    const double err = 1e-6 * (sum * sum / det);
+    if (!(err <= 0.25)) return true;
+    if (op < amin) return false;  // d >= 0: a_raw <= opacity
+    const double tau = fmin((double)prm.qmax, 2.0 * log(op / amin)) + 1e-3;
+    const double grow = 1.0 + CULL_REL + err;
+    const double rx = sqrt(tau * cc / det) * grow + 1e-2;
+    const double ry = sqrt(tau * ca / det) * grow + 1e-2;
+    return !(x + rx < b.x0 || x - rx > b.x1 || y + ry < b.y0 || y - ry > b.y1);
   }
 };
 
@@ -297,6 +370,139 @@ struct Gut3d {
                             qw * gr[1][0] - 2.0f * qz * gr[1][1] + qy * gr[1][2] +
                             qx * gr[2][0] + qy * gr[2][1]);
     g[R_OPACITY] = d_op;
+  }
+
+  // The tile's rays in one bound: the mean origin c and the origin radius
+  // rho = max |o_i - c|; a unit axis a, the normalised sum of the d_i, and
+  // the widest angle theta from it, cos_t = min d_i . a / |d_i|. valid: every
+  // ray finite with |d_i| > 0.
+  struct TileBound {
+    double c[3], a[3], rho, cos_t, sin_t;
+    bool valid;
+  };
+
+  // A block reduction over the PIX pixel rays, in double, in a fixed order
+  // (warp shuffles, then the warps in order).
+  __device__ static void tile_bound(TileBound& b, int, int, const Pixel& p) {
+    __shared__ double part[PIX / 32][6];
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    double v[6] = {p.o[0], p.o[1], p.o[2], p.d[0], p.d[1], p.d[2]};
+    const double dd = v[3] * v[3] + v[4] * v[4] + v[5] * v[5];
+    const bool ok = finite_all(v, 6) && dd > 0.0;
+    #pragma unroll
+    for (int k = 0; k < 6; ++k) v[k] = warp_sum_d(v[k]);
+    if (lane == 0) {
+      #pragma unroll
+      for (int k = 0; k < 6; ++k) part[warp][k] = v[k];
+    }
+    const bool valid = __syncthreads_and(ok);
+    if (threadIdx.x == 0) {
+      double sum[6] = {0.0, 0.0, 0.0, 0.0, 0.0, 0.0};
+      for (int w = 0; w < PIX / 32; ++w) {
+        #pragma unroll
+        for (int k = 0; k < 6; ++k) sum[k] += part[w][k];
+      }
+      const double n = sqrt(sum[3] * sum[3] + sum[4] * sum[4] + sum[5] * sum[5]);
+      #pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        b.c[k] = sum[k] / PIX;
+        b.a[k] = sum[3 + k] / n;
+      }
+      b.valid = valid;
+    }
+    __syncthreads();
+    const double e[3] = {p.o[0] - b.c[0], p.o[1] - b.c[1], p.o[2] - b.c[2]};
+    double r2 = e[0] * e[0] + e[1] * e[1] + e[2] * e[2];
+    double cs = (p.d[0] * b.a[0] + p.d[1] * b.a[1] + p.d[2] * b.a[2]) / sqrt(dd);
+    #pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      r2 = fmax(r2, __shfl_xor_sync(0xffffffffu, r2, o));
+      cs = fmin(cs, __shfl_xor_sync(0xffffffffu, cs, o));
+    }
+    if (lane == 0) {  // thread 0 read part before the barrier above
+      part[warp][0] = r2;
+      part[warp][1] = cs;
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      for (int w = 0; w < PIX / 32; ++w) {
+        r2 = fmax(r2, part[w][0]);
+        cs = fmin(cs, part[w][1]);
+      }
+      b.rho = sqrt(r2);
+      b.cos_t = cs;
+      b.sin_t = sqrt(fmax(0.0, 1.0 - cs * cs));
+    }
+    __syncthreads();
+  }
+
+  // The canonical distance sqrt(D) below which K_degree(D) > thr (0 < thr <
+  // 1), kernel_response inverted, with -ln thr (or, degree 0, 1 - thr)
+  // raised by 1e-5 of itself plus 1e-5: more than the f32 rounding of the
+  // response, its exponent and the cutoffs' products.
+  __device__ static double cut_distance(double thr, int degree) {
+    const double g = -log(thr) * (1.0 + 1e-5) + 1e-5;
+    switch (degree) {
+      case 8: return pow(g / 0.000685871056241, 0.125);
+      case 5: return pow(g / 0.0185185185185, 0.2);
+      case 4: return pow(g / 0.0555555555556, 0.25);
+      case 3: return pow(g / 0.166666666667, 1.0 / 3.0);
+      case 1: return g / 1.5;
+      case 0: return (1.0 - thr + 1e-5) / 0.329630334487;
+      default: return sqrt(2.0 * g);
+    }
+  }
+
+  // A hit needs resp > thr = max(min_response, alpha_min / opacity), and
+  // resp <= 1: opacity <= alpha_min or thr >= 1 never hits. Else it needs
+  // sqrt(D) < cut_distance(thr). The canonical map S^-1 R^T shrinks no
+  // length by more than min(1/s) sigma_min(R), and sigma_min(R(q)) >= 1 -
+  // 2 | |q|^2 - 1 | (R(q) = |q|^2 rot + (1 - |q|^2) I), less 1e-5 for R's f32
+  // entries; so a hit needs the world distance from p to the pixel's ray
+  // line below r = sqrt(D) / (min(1/s) sigma_min). eval's f32 sqrt(D) lies
+  // within err = 4e-6 (kappa + 1) |o - p| max(1/s) of the exact one (kappa =
+  // max(1/s) / min(1/s): the f32 direction dc errs by ~7e-7 kappa, oc by
+  // ~7e-7 |o - p| max(1/s)), and a tile's rays all pass at least
+  // |v x a| cos_t - |v . a| sin_t - rho from p (v = p - c: the angle from v
+  // to any ray line is at least the angle to a less theta, and the origins
+  // lie within rho of c). Kept where min(1/s) sigma_min < 1e-10 (the rsqrt's
+  // 1e-30 would then shorten dh) or sigma_min < 0.5.
+  __device__ static bool may_hit(const float* s, int ss, int j, const TileBound& b,
+                                 const Params& prm) {
+    double v[17];
+    #pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      v[k] = s[(S_POS + k) * ss + j];
+      v[3 + k] = s[(S_INV + k) * ss + j];
+    }
+    #pragma unroll
+    for (int k = 0; k < 9; ++k) v[6 + k] = s[(S_R + k) * ss + j];
+    v[15] = s[S_OP * ss + j];
+    const double qw = s[S_Q * ss + j], qx = s[(S_Q + 1) * ss + j];
+    const double qy = s[(S_Q + 2) * ss + j], qz = s[(S_Q + 3) * ss + j];
+    v[16] = qw * qw + qx * qx + qy * qy + qz * qz;
+    const double op = v[15], amin = prm.alpha_min;
+    if (!(b.valid && finite_all(v, 17) && amin >= 0.0)) return true;
+    if (op <= amin) return false;  // resp <= 1: a_raw <= opacity
+    double thr = amin / op;
+    if ((double)prm.min_response > thr) thr = prm.min_response;
+    if (thr >= 1.0) return false;  // resp <= 1
+    const double inv_min = fmin(v[3], fmin(v[4], v[5]));
+    const double inv_max = fmax(v[3], fmax(v[4], v[5]));
+    const double sig = 1.0 - 2.0 * fabs(v[16] - 1.0) - 1e-5;
+    const double shrink = inv_min * sig;
+    if (!(sig >= 0.5 && shrink >= 1e-10)) return true;
+    const double w[3] = {v[0] - b.c[0], v[1] - b.c[1], v[2] - b.c[2]};
+    const double along = fabs(w[0] * b.a[0] + w[1] * b.a[1] + w[2] * b.a[2]);
+    const double x0 = w[1] * b.a[2] - w[2] * b.a[1], x1 = w[2] * b.a[0] - w[0] * b.a[2];
+    const double x2 = w[0] * b.a[1] - w[1] * b.a[0];
+    const double across = sqrt(x0 * x0 + x1 * x1 + x2 * x2);
+    const double reach = sqrt(w[0] * w[0] + w[1] * w[1] + w[2] * w[2]) + b.rho;
+    const double err = 4e-6 * (inv_max / inv_min + 1.0) * reach * inv_max;
+    const double r = (cut_distance(thr, prm.degree) * (1.0 + 1e-5) + err) / shrink *
+                         (1.0 + CULL_REL) + 1e-7 * reach;
+    const double nearest = fmax(0.0, across * b.cos_t - along * b.sin_t) - b.rho;
+    return !(nearest > r);
   }
 };
 

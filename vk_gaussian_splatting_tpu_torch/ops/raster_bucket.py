@@ -57,9 +57,11 @@ from vk_gaussian_splatting_tpu_torch.ops.rasterize import (
     CTX_ROWS,
     OUT_ROWS,
     PIX,
+    TILE,
     RasterStatics,
     _check,
     _ptr,
+    _tile_pixel_coords,
     blend_work,
     bwd_context,
     check_pix_ctx,
@@ -69,10 +71,13 @@ from vk_gaussian_splatting_tpu_torch.ops.rasterize import (
     rasterize_tiles_bwd_ref,
     rasterize_tiles_ref,
 )
-from vk_gaussian_splatting_tpu_torch.ops.response import model_of
+from vk_gaussian_splatting_tpu_torch.ops.response import alpha, model_of
 
 MAX_BUCKET_CHUNK = 1024  # csrc/raster_bucket_{fwd,bwd}.cu stage at most this many lanes
 READER_SEGMENT = 64      # K4's reduce sums a shared column over at most this many tiles per pass
+# the kept-lane count of K4's last launch, an attribute of its wrapper, per model
+KEPT_COUNTER = {"gs2d": "kept", "gut3d": "kept_gut3d"}
+CULL_REL = 1e-3          # csrc/response.cuh: relative growth of every cull radius
 
 
 def _span_sizes(caps: tuple) -> list[int]:
@@ -242,6 +247,157 @@ def rasterize_buckets_bwd_ref(attrs: torch.Tensor, bucket_starts: torch.Tensor,
     return layout.splat_sums(d_lanes[:, live][:, order])
 
 
+# ---- the per-tile cull of K4 (csrc/response.cuh may_hit), plainly ----------
+
+def _f32(x: float) -> float:
+    """A statics value as the C entry points get it (an f32 argument)."""
+    return float(torch.tensor(x, dtype=torch.float32))
+
+
+def _gs2d_may_hit(blk: torch.Tensor, tiles: torch.Tensor, st: RasterStatics) -> torch.Tensor:
+    """Gs2d::may_hit over (rows, n, L) f32 lane rows of the tiles ``tiles``
+    (n,), term for term in double: False only where the conic is positive
+    definite and either opacity < alpha_min or the bounding box of d <= tau
+    (inflated) misses the tile's pixel centres."""
+    v = blk[:6].double()
+    x, y, ca, cb, cc, op = v
+    amin = _f32(st.alpha_min)
+    x0 = ((tiles % st.tiles_x) * TILE).double()[:, None] + 0.5
+    y0 = ((tiles // st.tiles_x) * TILE).double()[:, None] + 0.5
+    x1, y1 = x0 + (TILE - 1), y0 + (TILE - 1)
+    det = ca * cc - cb * cb
+    total = ca + cb.abs() + cc
+    err = 1e-6 * (total * total / det)
+    sure = torch.isfinite(v).all(dim=0) & (amin > 0) & (ca > 0) & (det > 0) & (err <= 0.25)
+    tau = torch.fmin(torch.tensor(_f32(st.qmax), dtype=torch.float64),
+                     2.0 * torch.log(op / amin)) + 1e-3
+    grow = 1.0 + CULL_REL + err
+    rx = torch.sqrt(tau * cc / det) * grow + 1e-2
+    ry = torch.sqrt(tau * ca / det) * grow + 1e-2
+    miss = (x + rx < x0) | (x - rx > x1) | (y + ry < y0) | (y - ry > y1)
+    return ~(sure & ((op < amin) | miss))
+
+
+def _gut3d_tile_bound(pix: torch.Tensor):
+    """Gut3d::tile_bound of (n, 8, 256) pixel contexts: (valid (n,), mean
+    origin c (n, 3), axis a (n, 3), rho, cos_t, sin_t (n,)), in double."""
+    d, o = pix[:, 0:3].double(), pix[:, 3:6].double()
+    dd = (d * d).sum(dim=1)                                          # (n, 256)
+    valid = (torch.isfinite(d).all(dim=1) & torch.isfinite(o).all(dim=1) & (dd > 0)).all(dim=1)
+    c = o.sum(dim=2) / PIX
+    ds = d.sum(dim=2)
+    a = ds / torch.sqrt((ds * ds).sum(dim=1, keepdim=True))
+    rho = torch.sqrt(((o - c[..., None]) ** 2).sum(dim=1).amax(dim=1))
+    cos_t = ((d * a[..., None]).sum(dim=1) / torch.sqrt(dd)).amin(dim=1)
+    sin_t = torch.sqrt(torch.clamp(1.0 - cos_t * cos_t, min=0.0))
+    return valid, c, a, rho, cos_t, sin_t
+
+
+def _cut_distance(thr: torch.Tensor, degree: int) -> torch.Tensor:
+    """Gut3d::cut_distance: sqrt(D) below which K_degree(D) > thr."""
+    g = -torch.log(thr) * (1.0 + 1e-5) + 1e-5
+    power = {8: (0.000685871056241, 0.125), 5: (0.0185185185185, 0.2),
+             4: (0.0555555555556, 0.25), 3: (0.166666666667, 1.0 / 3.0)}
+    if degree in power:
+        k, e = power[degree]
+        return torch.pow(g / k, e)
+    if degree == 1:
+        return g / 1.5
+    if degree == 0:
+        return (1.0 - thr + 1e-5) / 0.329630334487
+    return torch.sqrt(2.0 * g)
+
+
+def _gut3d_may_hit(blk: torch.Tensor, tiles: torch.Tensor, st: RasterStatics,
+                   pix_ctx: torch.Tensor) -> torch.Tensor:
+    """Gut3d::may_hit over (rows, n, L) f32 lane rows, term for term: the
+    staged slots (1/max(s, 1e-12) and R(q) in f32, as Gut3d::stage_common),
+    then the distance from the splat to the tile's cone of rays against the
+    cut distance in world units, in double."""
+    p = blk[0:3]
+    inv = 1.0 / torch.clamp(blk[3:6], min=1e-12)
+    qw, qx, qy, qz = blk[9:13]
+    rot = torch.stack([
+        1.0 - 2.0 * (qy * qy + qz * qz), 2.0 * (qx * qy - qw * qz), 2.0 * (qx * qz + qw * qy),
+        2.0 * (qx * qy + qw * qz), 1.0 - 2.0 * (qx * qx + qz * qz), 2.0 * (qy * qz - qw * qx),
+        2.0 * (qx * qz - qw * qy), 2.0 * (qy * qz + qw * qx), 1.0 - 2.0 * (qx * qx + qy * qy)])
+    q = blk[9:13].double()
+    qn = (q * q).sum(dim=0)
+    v = torch.cat([p.double(), inv.double(), rot.double(), blk[13:14].double(), qn[None]])
+    op = v[15]
+    amin, mr = _f32(st.alpha_min), _f32(st.kernel_min_response)
+    valid, c, a, rho, cos_t, sin_t = (x[:, None] if x.dim() == 1 else x[:, :, None]
+                                      for x in _gut3d_tile_bound(pix_ctx[tiles]))
+    sure = valid & torch.isfinite(v).all(dim=0) & (amin >= 0)
+    thr = amin / op
+    thr = torch.where(mr > thr, torch.full_like(thr, mr), thr)
+    inv_d = v[3:6]
+    inv_min, inv_max = inv_d.amin(dim=0), inv_d.amax(dim=0)
+    sig = 1.0 - 2.0 * (v[16] - 1.0).abs() - 1e-5
+    shrink = inv_min * sig
+    w = v[0:3] - c.permute(1, 0, 2)                                  # (3, n, L)
+    ax = a.permute(1, 0, 2)
+    along = (w * ax).sum(dim=0).abs()
+    across = torch.linalg.cross(w, ax.expand_as(w), dim=0).norm(dim=0)
+    reach = w.norm(dim=0) + rho
+    err = 4e-6 * (inv_max / inv_min + 1.0) * reach * inv_max
+    r = ((_cut_distance(thr, st.kernel_degree) * (1.0 + 1e-5) + err) / shrink
+         * (1.0 + CULL_REL) + 1e-7 * reach)
+    nearest = torch.clamp(across * cos_t - along * sin_t, min=0.0) - rho
+    far = (sig >= 0.5) & (shrink >= 1e-10) & (nearest > r)
+    return ~(sure & ((op <= amin) | (thr >= 1.0) | far))
+
+
+def _lanes_may_hit(attrs, lists: _TileLists, st: RasterStatics, tiles, pix_ctx):
+    """The predicate over ``lists``' lanes, flat (n * L,), False where no
+    lane lies."""
+    n = tiles.shape[0]
+    cols = lists.cols.view(n, -1) if n else lists.cols.view(0, 0)
+    blk = attrs.detach()[:, cols.clamp(min=0)]                       # (rows, n, L)
+    if model_of(st).uses_pix:
+        may = _gut3d_may_hit(blk, tiles, st, pix_ctx)
+    else:
+        may = _gs2d_may_hit(blk, tiles, st)
+    return (may & (cols >= 0)).flatten()
+
+
+@torch.no_grad()
+def tile_may_hit(attrs: torch.Tensor, bucket_starts: torch.Tensor, st: RasterStatics,
+                 caps: tuple, tiles: torch.Tensor | None = None,
+                 pix_ctx: torch.Tensor | None = None) -> torch.Tensor:
+    """Plain twin of K4's per-tile cull (csrc/response.cuh ``may_hit``,
+    term for term, with the same margins): for each lane of the tiles'
+    merged lists, laid out as ``_tile_lists`` lays them (tile b's region
+    of L lanes at b * L), whether the lane may hit a pixel of its tile.
+    Returns (n * L,) bool, False where no lane lies; True wherever the
+    model's alpha can pass its cutoffs at some pixel of the tile (and for
+    NaN, inf or degenerate rows)."""
+    tiles = _all_tiles(st, attrs.device, tiles)
+    lists = _tile_lists(attrs, bucket_starts, st, caps, tiles)
+    return _lanes_may_hit(attrs, lists, st, tiles, pix_ctx)
+
+
+@torch.no_grad()
+def tile_lane_hits(attrs: torch.Tensor, bucket_starts: torch.Tensor, st: RasterStatics,
+                   caps: tuple, tiles: torch.Tensor | None = None,
+                   pix_ctx: torch.Tensor | None = None) -> torch.Tensor:
+    """Whether the model's alpha (ops/response.alpha) passes its cutoffs at
+    some pixel of its tile, for each lane of ``tile_may_hit``'s layout,
+    every pixel counted, frozen or not: what the cull must never drop."""
+    tiles = _all_tiles(st, attrs.device, tiles)
+    lists = _tile_lists(attrs, bucket_starts, st, caps, tiles)
+    n, c = tiles.shape[0], st.chunk
+    cols = lists.cols.view(n, -1) if n else lists.cols.view(0, 0)
+    px, py = _tile_pixel_coords(tiles, st.tiles_x)
+    pix = pix_ctx[tiles] if model_of(st).uses_pix else None
+    hits = []
+    for k in range(0, cols.shape[1], c):
+        part = cols[:, k:k + c]
+        block = attrs.detach()[:, part.clamp(min=0)].permute(1, 0, 2)  # (n, rows, c)
+        hits.append((alpha(block, px, py, pix, (part >= 0)[:, None, :], st) > 0).any(dim=1))
+    return torch.cat(hits, dim=1).flatten() if hits else lists.cols >= 0
+
+
 class BucketWork(typing.NamedTuple):
     """What the bucket kernels' bounds count (``bucket_work``)."""
 
@@ -250,6 +406,9 @@ class BucketWork(typing.NamedTuple):
     live: int         # live candidates read, summed over the tiles
     shared: int       # the live candidates of shared spans (mid, coarse, global)
     comparisons: int  # key comparisons of the merges
+    tested: int       # lanes K4's cull tests: the live lanes of the blend steps each tile enters
+    kept: int         # the lanes of those it keeps
+    kept_evals: int   # the evaluations of those lanes up to each pixel's freeze
 
 
 @torch.no_grad()
@@ -257,18 +416,22 @@ def bucket_work(attrs: torch.Tensor, bucket_starts: torch.Tensor, st: RasterStat
                 caps: tuple, tiles: torch.Tensor | None = None,
                 pix_ctx: torch.Tensor | None = None) -> BucketWork:
     """The work of the given tiles (all by default): the alpha evaluations
-    both kernels make and the hits (``rasterize.blend_work`` over the merged
-    lists), the live candidates, and the merge's key comparisons, where each
-    live lane binary-searches the five other spans (ceil(log2(m + 1)) steps
-    for a span of m)."""
+    both kernels make and the hits (as ``rasterize.blend_work`` counts them
+    over the merged lists), the live candidates, the merge's key
+    comparisons, where each live lane binary-searches the five other spans
+    (ceil(log2(m + 1)) steps for a span of m), and the lanes K4's cull
+    tests and keeps (``tile_may_hit``) with the kept lanes' evaluations. A
+    tile enters a blend step while some pixel is not frozen at its start
+    (the kernels' early exit)."""
     tiles = _all_tiles(st, attrs.device, tiles)
     lists = _tile_lists(attrs, bucket_starts, st, caps, tiles)
-    evals, hits = blend_work(attrs[:, lists.cols.clamp(min=0)], lists.tile_start,
-                             lists.tile_count, st, tiles, pix_ctx)
+    evals, hits, tested, kept, kept_evals = blend_work(
+        attrs[:, lists.cols.clamp(min=0)], lists.tile_start, lists.tile_count, st, tiles,
+        pix_ctx, keep=_lanes_may_hit(attrs, lists, st, tiles, pix_ctx))
     steps = torch.ceil(torch.log2(lists.n_eff.double() + 1))
     others = steps.sum(dim=1, keepdim=True) - steps
     return BucketWork(evals, hits, int(lists.n_eff.sum()), int(lists.n_eff[:, 1:].sum()),
-                      int((lists.n_eff * others).sum()))
+                      int((lists.n_eff * others).sum()), tested, kept, kept_evals)
 
 
 def _check_inputs(attrs, bucket_starts, st, caps, ids=None, ctx=None, pix_ctx=None) -> int:
@@ -336,8 +499,13 @@ def rasterize_buckets_bwd(attrs: torch.Tensor, bucket_starts: torch.Tensor,
     ``.launches_gut3d``; CPU tensors run the plain twin. The kernel stores
     each fine column's gradient once; the gradients of a shared span's
     lanes go to a per-tile scratch that two more passes sum over each
-    column's reading tiles in a fixed order (``_readers``). No atomics: the
-    result repeats bit for bit."""
+    column's reading tiles in a fixed order (``_readers``). No float
+    atomics: the result repeats bit for bit. The kernel sweeps only the
+    lanes its per-tile cull keeps (``tile_may_hit``) and leaves in
+    ``rasterize_buckets_bwd.kept`` (gs2d) or ``.kept_gut3d`` a one-element
+    int32 tensor on the card: the (tile, lane) pairs it kept over the blend
+    steps it entered (``BucketWork.kept``), to be read with ``int()``
+    after a synchronise."""
     caps = check_caps(caps)
     p = _check_inputs(attrs, bucket_starts, st, caps, ctx=ctx, pix_ctx=pix_ctx)
     dev = attrs.device
@@ -357,20 +525,23 @@ def rasterize_buckets_bwd(attrs: torch.Tensor, bucket_starts: torch.Tensor,
                               device=dev)
         partial = torch.empty((grad_rows, n_seg, max(caps[1:])), dtype=torch.float32,
                               device=dev)
+        kept = torch.zeros((1,), dtype=torch.int32, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = _fn("raster_bucket_bwd", st=st)(
             attrs.data_ptr(), p, bucket_starts.data_ptr(), spans.data_ptr(),
             *(x.data_ptr() for x in readers), n_seg, ctx.data_ptr(), _ptr(pix_ctx), num_tiles,
             st.tiles_x, *caps, spec.offsets[1], spec.offsets[3], st.chunk, *model_args(st),
             st.min_transmittance, scratch.data_ptr(), partial.data_ptr(), d_attrs.data_ptr(),
-            stream)
+            kept.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"raster_bucket_bwd ({st.model}) launch failed: cudaError {err}")
     count_launch(rasterize_buckets_bwd, st)
+    setattr(rasterize_buckets_bwd, KEPT_COUNTER[st.model], kept)
     return d_attrs
 
 
 rasterize_buckets_bwd.launches = rasterize_buckets_bwd.launches_gut3d = 0
+rasterize_buckets_bwd.kept = rasterize_buckets_bwd.kept_gut3d = 0
 
 
 class _RasterizeBuckets(torch.autograd.Function):
@@ -417,7 +588,7 @@ _ARGTYPES = {  # the C entry points' parameters, in order (csrc/raster_bucket_*.
     "raster_bucket_fwd": [_P, _L, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, *_MODEL,
                           _F, _F, _P, _P, _P],
     "raster_bucket_bwd": [_P, _L, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I,
-                          _I, _I, _I, _I, *_MODEL, _F, _P, _P, _P, _P],
+                          _I, _I, _I, _I, *_MODEL, _F, _P, _P, _P, _P, _P],
     "_smem": [_I, _I],
     "_smem_limit": [],
 }

@@ -199,18 +199,29 @@ def rasterize_tiles_ref(attrs: torch.Tensor, ids: torch.Tensor,
 @torch.no_grad()
 def blend_work(attrs: torch.Tensor, tile_start: torch.Tensor, tile_count: torch.Tensor,
                st: RasterStatics, tiles: torch.Tensor | None = None,
-               pix_ctx: torch.Tensor | None = None) -> tuple[int, int]:
+               pix_ctx: torch.Tensor | None = None,
+               keep: torch.Tensor | None = None) -> tuple[int, ...]:
     """(evaluations, hits) of a frame: the (pixel, pair) alpha evaluations
     both kernels make (every pair of each step a pixel enters live), and
     those whose alpha passes the cutoffs, where the kernels do the blend
     or gradient work. What a kernel's bound counts. ``tiles`` restricts
-    the count to a subset of tiles (all by default)."""
-    evals = hits = 0
+    the count to a subset of tiles (all by default).
+
+    ``keep``, a bool per pair (a kernel's cull), adds three counts over the
+    steps a tile enters (some pixel live at the step's start): (tested,
+    kept, kept evaluations), the pairs the cull tests, those it keeps, and
+    the kept pairs' evaluations."""
+    evals = hits = tested = kept = kept_evals = 0
     for s in _blend_steps(attrs, tile_start, tile_count, st, _all_tiles(tile_start, tiles),
                           pix_ctx)[1]:
         evals += int(s.live.sum())
         hits += int((s.alpha > 0).sum())
-    return evals, hits
+        if keep is not None:
+            lanes = s.lane_live & s.live.flatten(1).any(dim=1)[:, None]  # (n, c)
+            tested += int(lanes.sum())
+            kept += int((lanes & keep[s.pc]).sum())
+            kept_evals += int((s.live & keep[s.pc][:, None, :]).sum())
+    return (evals, hits) if keep is None else (evals, hits, tested, kept, kept_evals)
 
 
 def bwd_context(out: torch.Tensor, g_out: torch.Tensor) -> torch.Tensor:
