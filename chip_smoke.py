@@ -51,16 +51,16 @@ entry points — and checks them:
    the 8 jittered frames with margin 1.25 from the EWA and the UT
    projections (bench.py:164-183; doubled once if a frame still
    overflows), 8 frames with K3's launches counted, a bit-equal repeat,
-   64 sampled tiles against the twin, the share of pixels within 2e-4 of
-   the exact pair frame; 5 train steps with K3's and K4's launches
-   counted, K4 against its twin on 64 sampled tiles, a bit-equal repeat
-   backward; timings and profiles as above. K4's per-tile cull, on the
-   headline frame: its kept-lane counter against the plain predicate's
-   count (``ops/raster_bucket.tile_may_hit``, within 1e-4 of the live
-   lanes), the kept share, and an audit of all its tiles for culled lanes
-   that hit (none allowed); K4's bound counts the kept lanes (``k4_bound``,
-   the all-lane figure beside it); K4's three launches timed apart by the
-   profiler;
+   64 sampled tiles and every tile against the twin, the share of pixels
+   within 2e-4 of the exact pair frame; 5 train steps with K3's and K4's
+   launches counted, K4 against its twin on 64 sampled tiles, a bit-equal
+   repeat backward; timings and profiles as above. The per-tile cull of K3
+   and K4, on the headline frame: each kernel's kept-lane counter against
+   the plain predicate's count (``ops/raster_bucket.tile_may_hit``, within
+   1e-4 of the live lanes) and the two equal, the kept share, and an audit
+   of all its tiles for culled lanes that hit (none allowed); K3's and K4's
+   bounds count the kept lanes (``bucket_bound``, the all-lane figures
+   beside them); K4's three launches timed apart by the profiler;
 8. the gut3d forms K1g-K4g (3DGUT, 3DGRT): golden-size 3DGUT frames on
    both paths, K1g and K3g against their twins over the frame, bucket
    against pair, the card against the CPU twin (flip-aware, with the
@@ -70,7 +70,8 @@ entry points — and checks them:
    at temporal_samples=4; at full size, 8 frames of 3DGUT and of 3DGRT on
    each path with the gut3d launches counted, overflow reported, a
    bit-equal repeat, frame_ms, K1g and K3g against twins on 64 sampled
-   tiles, K4g's cull checked on the 3DGUT bucket frame as K4's; 3DGUT
+   tiles (K3g on every tile too), K3g's and K4g's cull checked on the 3DGUT
+   bucket frame as K3's and K4's; 3DGUT
    training on each path (5 steps, launches counted, loss falling,
    bit-equal repeat backward, K2g and K4g against twins on 64 sampled
    tiles, fwd_bwd_ms, train_step_ms, K4g's three launches);
@@ -229,9 +230,10 @@ BWD_ELEM_RTOL, BWD_ELEM_SHARE = 1e-2, 0.999
 # evaluation and hit, over each tile's merged window
 # (``ops/raster_bucket.bucket_work``), plus one operation per key
 # comparison of the merge and, in K4, one add per (row, tile, shared lane)
-# of the reduce over the reading tiles. K4 evaluates only the lanes its
-# cull keeps (``k4_bound``), and the cull (csrc/response.cuh may_hit) costs
-# f64 operations, as its source spells them without the conversions: per
+# of the reduce over the reading tiles. K3 and K4 evaluate only the lanes
+# their cull keeps (``bucket_bound``), and the cull (csrc/response.cuh
+# may_hit) costs f64 operations, as its source spells them without the
+# conversions: per
 # tested (tile, lane) gs2d 45 (finiteness 7, the conic's tests 5, the
 # rounding term 7, the opacity test 1, tau 5, the two radii 12, the box 8),
 # gut3d 96 (|q|^2 7, finiteness 19, the thresholds 5, the scales 12, the
@@ -380,17 +382,29 @@ def kernel_bound(name: str, evals: int, hits: int, bytes_moved: int, extra_ops: 
                     f64_ops)
 
 
-def k4_bound(name: str, work, hits: int, bytes_moved: int, grad_rows: int, n_tiles: int):
-    """(K4's bound, the all-lane figure), each (ms, what bounds it). K4
-    evaluates the lanes its cull keeps (``work.kept_evals``), and the cull
-    costs its own f64 operations per tested lane and, for gut3d, per pixel
-    (OPS_CULL, OPS_TILE_BOUND). The all-lane figure prices every live lane's
+def bucket_bound(model: str, work, bytes_fwd: int, bytes_bwd: int, grad_rows: int,
+                 n_tiles: int):
+    """({name: (ms, what bounds it)} of K3 and K4 at one frame, a log
+    fragment with those and the all-lane figures). Both kernels evaluate
+    the lanes their cull keeps (``work.kept_evals``) and blend the hits,
+    plus the merge's comparisons and, in K4, the reduce; the cull costs its
+    own f64 operations per tested lane and, for gut3d, per pixel (OPS_CULL,
+    OPS_TILE_BOUND). The all-lane figure prices every live lane's
     evaluations, as the sweep before the cull made them."""
-    model = "gut3d" if name.endswith("_gut3d") else "gs2d"
-    extra = work.comparisons + work.shared * grad_rows
+    suffix = "_gut3d" if model == "gut3d" else ""
     cull = work.tested * OPS_CULL[model] + n_tiles * tr.PIX * OPS_TILE_BOUND[model]
-    return (kernel_bound(name, work.kept_evals, hits, bytes_moved, extra, cull),
-            kernel_bound(name, work.evals, hits, bytes_moved, extra))
+    bounds, all_lanes = {}, {}
+    for base, bytes_moved, extra in (
+            ("raster_bucket_fwd", bytes_fwd, work.comparisons),
+            ("raster_bucket_bwd", bytes_bwd, work.comparisons + work.shared * grad_rows)):
+        name = base + suffix
+        bounds[name] = kernel_bound(name, work.kept_evals, work.hits, bytes_moved, extra, cull)
+        all_lanes[name] = kernel_bound(name, work.evals, work.hits, bytes_moved, extra)
+    text = (" ".join(f"{k}_bound_ms={v[0]:.4f} ({v[1]})" for k, v in bounds.items())
+            + " (the kept lanes; every live lane's evaluations: "
+            + " ".join(f"{k}_all_lane_bound_ms={v[0]:.4f} ({v[1]})" for k, v in all_lanes.items())
+            + ")")
+    return bounds, text
 
 
 def roofline(ops: float, bytes_moved: float, f64_ops: float = 0.0):
@@ -860,27 +874,34 @@ def bucket_work(bins, st, caps):
     return rb.BucketWork(*(sum(p[i] for p in parts) for i in range(len(rb.BucketWork._fields))))
 
 
-def check_cull(label: str, work, k4, model: str, bins, st, caps, batches, pix=None):
-    """K4's cull on a whole frame. Its kept-lane counter after one launch
-    ``k4(ctx)`` (any cotangent: what the cull keeps reads the rows and the
-    freeze alone) against the plain predicate's count (``work``, from
+def check_cull(label: str, work, k3, k4, model: str, bins, st, caps, batches, pix=None) -> int:
+    """The cull of K3 and K4 on a whole frame; returns the kept-lane count.
+    Each kernel's kept-lane counter after one launch, ``k3()`` and ``k4(ctx)``
+    (any cotangent: what the cull keeps reads the rows and the freeze
+    alone), against the plain predicate's count (``work``, from
     ops/raster_bucket.bucket_work): within 0.01 % of the live lanes, as the
     card rounds its square roots and logs in its own way and a pixel at T ~
-    min_transmittance may freeze one step apart. Then, over every tile in
-    ``batches``, the lanes the plain predicate culls that the twin's alpha
-    passes at some pixel of the tile (ops/raster_bucket.tile_lane_hits,
-    frozen pixels too): none allowed."""
+    min_transmittance may freeze one step apart; and the two counts equal,
+    since both kernels run one predicate over the same steps and freeze.
+    Then, over every tile in ``batches``, the lanes the plain predicate
+    culls that the twin's alpha passes at some pixel of the tile
+    (ops/raster_bucket.tile_lane_hits, frozen pixels too): none allowed."""
     n_tiles = st.tiles_x * st.tiles_y
+    g = "g" if model == "gut3d" else ""
+    k3()
     k4(torch.ones((n_tiles, tr.CTX_ROWS, tr.PIX), device=bins.attrs.device))
     torch.cuda.synchronize()
-    kept = int(getattr(rb.rasterize_buckets_bwd, rb.KEPT_COUNTER[model]))
-    log(f"{label} cull 1080p/1M: kept={kept} of live={work.live} (kept share "
-        f"{kept / work.live:.4f}), tested={work.tested}; tile_may_hit over the steps each tile "
-        f"enters {work.kept} (differ by {abs(kept - work.kept)}, "
-        f"{abs(kept - work.kept) / work.live:.2e} of live; gate 1e-4); kept lanes' pixel "
-        f"evaluations {work.kept_evals} of {work.evals}")
-    check(abs(kept - work.kept) <= 1e-4 * work.live,
-          f"{label} kept {kept} lanes, the plain predicate {work.kept}")
+    kept = {f"K3{g}": int(getattr(rb.rasterize_buckets, rb.KEPT_COUNTER[model])),
+            f"K4{g}": int(getattr(rb.rasterize_buckets_bwd, rb.KEPT_COUNTER[model]))}
+    for kname, n in kept.items():
+        log(f"{kname} cull 1080p/1M: kept={n} of live={work.live} (kept share "
+            f"{n / work.live:.4f}), tested={work.tested}; tile_may_hit over the steps each "
+            f"tile enters {work.kept} (differ by {abs(n - work.kept)}, "
+            f"{abs(n - work.kept) / work.live:.2e} of live; gate 1e-4); kept lanes' pixel "
+            f"evaluations {work.kept_evals} of {work.evals}")
+        check(abs(n - work.kept) <= 1e-4 * work.live,
+              f"{kname} kept {n} lanes, the plain predicate {work.kept}")
+    check(len(set(kept.values())) == 1, f"{label}: the kernels kept {kept}")
     may = hit = bad = 0
     attrs = bins.attrs.detach()
     for tiles in batches:
@@ -890,6 +911,7 @@ def check_cull(label: str, work, k4, model: str, bins, st, caps, batches, pix=No
     log(f"  {label} cull audit on all {sum(b.numel() for b in batches)} tiles: {may} lanes "
         f"kept, {hit} hit some pixel, culled lanes that hit: {bad}")
     check(bad == 0, f"{label}: the cull dropped {bad} lanes that hit")
+    return kept[f"K3{g}"]
 
 
 def k4_launches(k4, model: str, bins, st, caps) -> str:
@@ -1103,25 +1125,21 @@ def bucket_full_size(dev, card: str, prepared, seed: int):
     bytes_fwd = work.live * (10 * 4 + 4) + head_bytes + n_tiles * tr.PIX * (tr.OUT_ROWS * 4 + 4)
     bytes_bwd = (work.live * tr.GRAD_ROWS * 4 + head_bytes + n_tiles * tr.PIX * tr.CTX_ROWS * 4
                  + p * tr.GRAD_ROWS * 4)
-    bounds = {"raster_bucket_fwd": kernel_bound("raster_bucket_fwd", work.evals, work.hits,
-                                                bytes_fwd, work.comparisons)}
-    bounds["raster_bucket_bwd"], all_lanes = k4_bound("raster_bucket_bwd", work, work.hits,
-                                                      bytes_bwd, tr.GRAD_ROWS, n_tiles)
+    bounds, text = bucket_bound("gs2d", work, bytes_fwd, bytes_bwd, tr.GRAD_ROWS, n_tiles)
     log(f"bound 1080p/1M bucket: live_candidates={work.live} shared={work.shared} "
         f"per_tile={work.live / n_tiles:.1f} pixel_lane_evaluations={work.evals} "
+        f"kept_lane_evaluations={work.kept_evals} "
         f"hits={work.hits} hit_share={work.hits / max(work.evals, 1):.4f} "
-        f"merge_comparisons={work.comparisons} "
-        + " ".join(f"{k}_bound_ms={v[0]:.4f} ({v[1]})" for k, v in bounds.items())
-        + f" (K4: the kept lanes; every live lane's evaluations: "
-        f"raster_bucket_bwd_all_lane_bound_ms={all_lanes[0]:.4f} ({all_lanes[1]})) "
-        f"(rows read once per slot, not per tile: "
+        f"merge_comparisons={work.comparisons} {text} (rows read once per slot, not per tile: "
         f"{int(bins.num_valid) * 44 / PEAK_BYTES * 1e3:.4f} ms)")
-    check_cull("K4", work, lambda ctx: rb.rasterize_buckets_bwd(
-        bins.attrs.detach(), bins.bucket_starts, ctx, st, caps), "gs2d", bins, st, caps,
-        twin_tiles(st, dev))
+    kept = check_cull("K3, K4", work, lambda: rb.rasterize_buckets(bins, st, caps),
+                      lambda ctx: rb.rasterize_buckets_bwd(bins.attrs.detach(),
+                                                           bins.bucket_starts, ctx, st, caps),
+                      "gs2d", bins, st, caps, twin_tiles(st, dev))
     del bins
 
-    # ---- timings (CUDA events; medians over 10 after 2 warm-up), stages in order
+    # ---- timings (CUDA events; medians over 10 after 2 warm-up), stages in
+    # order; K3 against its twin over every tile of the frame
     stages, c = frame_stages(prepared, cam, bcfg)
     t = {stage: median(time_ms(step, 10)) for stage, step in stages}
     t_frame = median(time_ms(lambda: render(prepared, cam, bcfg), 10))
@@ -1129,12 +1147,18 @@ def bucket_full_size(dev, card: str, prepared, seed: int):
         f"bin_ms={t['bin']:.4f} blend_ms={t['blend']:.4f} assemble_ms={t['assemble']:.4f} "
         f"frame_ms={t_frame:.4f}")
     bins = c["bins"]
+    err_all, agree_all = compare_k3_with_twin(bins, st, caps)
+    log(f"bucket all {n_tiles} tiles: K3_vs_twin_max_abs={err_all:.3e} "
+        f"id_agree={agree_all:.6f}")
+    check(err_all <= KERNEL_ATOL, f"1080p frame K3 vs twin {err_all} > {KERNEL_ATOL}")
+    check(agree_all >= ID_AGREE, f"1080p frame K3 id agreement {agree_all}")
     t_plain = median(time_ms(lambda: bucket_twin(bins, st, caps), 2, warmup=1))
     log(f"timing raster_bucket_fwd 1080p/1M ({card}): kernel_ms={t['blend']:.4f} "
         f"plain_twin_ms={t_plain:.4f}")
     del bins, c
     profile_calls("bucket", lambda: render(prepared, cam, bcfg), card)
-    return caps, dict(launches=launches, max_abs_err=err, ms=t["blend"], plain_ms=t_plain), bounds
+    return caps, dict(launches=launches, max_abs_err=max(err, err_all), ms=t["blend"],
+                      plain_ms=t_plain, kept_share=kept / work.live), bounds
 
 
 def bucket_train_full_size(dev, card: str, truth: gt.SplatSet, caps, seed: int):
@@ -1535,7 +1559,8 @@ def gut_work(c, cfg):
 
 
 def gut_bounds(c, cfg):
-    """The gut3d kernels' bounds at this frame (both directions)."""
+    """(the gut3d kernels' bounds at this frame, both directions; on the
+    bucket path the kept share of K3g's and K4g's cull, else None)."""
     evals, hits, work = gut_work(c, cfg)
     n_tiles = c["st"].tiles_x * c["st"].tiles_y
     rays = n_tiles * tr.PIX * 6 * 4
@@ -1548,26 +1573,21 @@ def gut_bounds(c, cfg):
         log(f"bound gut3d pairs: live_pairs={n_pairs} pixel_pair_evaluations={evals} "
             f"hits={hits} hit_share={hits / max(evals, 1):.4f} "
             + " ".join(f"{k}_bound_ms={v[0]:.4f} ({v[1]})" for k, v in bounds.items()))
-        return bounds
+        return bounds, None
     p = c["bins"].attrs.shape[1]
     head = n_tiles * (12 * 4 + 12 * 4)
     fwd = work.live * (15 * 4 + 4) + head + n_tiles * tr.PIX * (tr.OUT_ROWS * 4 + 4) + rays
     bwd = (work.live * GRAD_ROWS_GUT * 4 + head + n_tiles * tr.PIX * tr.CTX_ROWS * 4 + rays
            + p * GRAD_ROWS_GUT * 4)
-    bounds = {"raster_bucket_fwd_gut3d": kernel_bound("raster_bucket_fwd_gut3d", evals, hits,
-                                                      fwd, work.comparisons)}
-    bounds["raster_bucket_bwd_gut3d"], all_lanes = k4_bound(
-        "raster_bucket_bwd_gut3d", work, hits, bwd, GRAD_ROWS_GUT, n_tiles)
+    bounds, text = bucket_bound("gut3d", work, fwd, bwd, GRAD_ROWS_GUT, n_tiles)
     log(f"bound gut3d bucket: live_candidates={work.live} shared={work.shared} "
-        f"pixel_lane_evaluations={evals} hits={hits} hit_share={hits / max(evals, 1):.4f} "
-        f"merge_comparisons={work.comparisons} "
-        + " ".join(f"{k}_bound_ms={v[0]:.4f} ({v[1]})" for k, v in bounds.items())
-        + f" (K4g: the kept lanes; every live lane's evaluations: raster_bucket_bwd_gut3d_"
-        f"all_lane_bound_ms={all_lanes[0]:.4f} ({all_lanes[1]}))")
-    st = blend_st(c, cfg)
-    check_cull("K4g", work, lambda ctx: gut_kernel_bwd(c, cfg, ctx), "gut3d", c["bins"], st,
-               cfg.raster.bucket_caps, tile_batches(st, c["pix"].device), c["pix"])
-    return bounds
+        f"pixel_lane_evaluations={evals} kept_lane_evaluations={work.kept_evals} hits={hits} "
+        f"hit_share={hits / max(evals, 1):.4f} merge_comparisons={work.comparisons} {text}")
+    st, caps, pix = blend_st(c, cfg), cfg.raster.bucket_caps, c["pix"]
+    kept = check_cull("K3g, K4g", work, lambda: rb.rasterize_buckets(c["bins"], st, caps, pix),
+                      lambda ctx: gut_kernel_bwd(c, cfg, ctx), "gut3d", c["bins"], st, caps,
+                      tile_batches(st, pix.device), pix)
+    return bounds, kept / work.live
 
 
 def gut_bucket_vs_pairs(prepared, cam, cfg, bucket_out):
@@ -1657,13 +1677,18 @@ def gut_full_size(dev, card: str, prepared, caps, seed: int):
             kname = "K3g" if method == "bucket" else "K1g"
             err = compare_gut_kernel(f"{kname} vs twin on {tiles.numel()} sampled 1080p tiles",
                                      c, cfg, tiles)
-            bounds.update(gut_bounds(c, cfg))
+            if method == "bucket":
+                err = max(err, compare_gut_kernel("K3g vs twin on all 1080p tiles", c, cfg))
+            frame_bounds, kept_share = gut_bounds(c, cfg)
+            bounds.update(frame_bounds)
             t_plain = median(time_ms(lambda: gut_twin(c, cfg), 1, warmup=1))
             log(f"timing {kname} 1080p/1M ({card}): kernel_ms={t['blend']:.4f} "
                 f"plain_twin_ms={t_plain:.4f}")
             name = "raster_bucket_fwd_gut3d" if method == "bucket" else "rasterize_fwd_gut3d"
             entries[name] = dict(launches=launches[0], max_abs_err=err, ms=t["blend"],
                                  plain_ms=t_plain)
+            if kept_share is not None:
+                entries[name]["kept_share"] = kept_share
             del stages, c
             if method == "pairs":
                 profile_calls("3dgut pairs", lambda: render(prepared, cam, cfg), card)
@@ -1975,6 +2000,7 @@ def main() -> int:
     k3["max_abs_err"] = max(k3["max_abs_err"], err_golden_k3)
     k4 = bucket_train_full_size(dev, card, truth, caps, seed=0)
     k4["max_abs_err"] = max(k4["max_abs_err"], err_golden_k4)
+    k4["kept_share"] = k3["kept_share"]  # the same lanes on the headline frame (check_cull)
     bounds.update(bucket_bounds)
     results = {"rasterize_fwd": fwd, "rasterize_bwd": bwd, "raster_bucket_fwd": k3,
                "raster_bucket_bwd": k4}
@@ -1983,6 +2009,9 @@ def main() -> int:
     gut_camera_effects(dev)
     gut_fwd, gut_bounds_ = gut_full_size(dev, card, truth.prepare(), caps, seed=0)
     gut_bwd = gut_train_full_size(dev, card, truth, caps, seed=0)
+    # K4g's cull keeps the lanes K3g's keeps on the same frame (check_cull)
+    gut_bwd["raster_bucket_bwd_gut3d"]["kept_share"] = gut_fwd["raster_bucket_fwd_gut3d"][
+        "kept_share"]
     for method, fwd_name, bwd_name in (("pairs", "rasterize_fwd_gut3d", "rasterize_bwd_gut3d"),
                                        ("bucket", "raster_bucket_fwd_gut3d",
                                         "raster_bucket_bwd_gut3d")):

@@ -448,7 +448,8 @@ def assert_cull_is_exact(attrs, bucket_starts, st, caps, pix_ctx=None, min_culle
     return may, hit, live
 
 
-def test_cull_is_exact_on_the_golden_scene():
+def golden_bins():
+    """The golden scene at W x H on the bucket path, caps fitted to it."""
     splats = load_ply(os.path.join(GOLDEN, "golden_scene.ply"), device="cpu")
     cam = gt.look_at([0, -1.5, -7.0], [0, 0.5, 0], [0, 1, 0], W, H, fov_y_rad=0.9,
                      device="cpu")
@@ -462,6 +463,11 @@ def test_cull_is_exact_on_the_golden_scene():
     bins = tbg.bucket_splats(proj, rows.detach(), ids, tiles_x=st.tiles_x, tiles_y=st.tiles_y,
                              caps=caps)
     assert not bool(bins.overflow)
+    return bins, st, caps
+
+
+def test_cull_is_exact_on_the_golden_scene():
+    bins, st, caps = golden_bins()
     may, hit, live = assert_cull_is_exact(bins.attrs, bins.bucket_starts, st, caps,
                                           min_culled=0.05)
     assert hit.sum() > 0
@@ -482,11 +488,11 @@ def f32_next(x, toward):
     return float(np.nextafter(np.float32(x), np.float32(toward)))
 
 
-def test_cull_on_adversarial_gs2d_rows():
-    """Opacity at alpha_min and one ulp either side, centred on a pixel of a
-    reading tile; near-singular, indefinite, negative-definite and zero
-    conics; NaN and inf rows. Nothing that hits is culled, and every
-    non-finite or non-positive-definite row is kept."""
+def adversarial_gs2d_bins():
+    """(bins, st, caps, picked columns, rows): small_bins with its first live
+    columns rewritten, each centred on a pixel of a reading tile (x offset
+    aside): opacity at alpha_min and one ulp either side; near-singular,
+    indefinite, negative-definite and zero conics; NaN and inf rows."""
     bins, st, caps = small_bins(n=300, scale_range=(-5.0, -1.0))
     tiles = torch.arange(st.tiles_x * st.tiles_y)
     lists = rb._tile_lists(bins.attrs, bins.bucket_starts, st, caps, tiles)
@@ -507,13 +513,71 @@ def test_cull_on_adversarial_gs2d_rows():
         attrs[0, col] = (t % st.tiles_x) * 16 + 3.5 + dx
         attrs[1, col] = (t // st.tiles_x) * 16 + 5.5
         attrs[2:6, col] = torch.tensor([a, b, c, op])
-    may, hit, _ = assert_cull_is_exact(attrs, bins.bucket_starts, st, caps)
+    return dataclasses.replace(bins, attrs=attrs), st, caps, picked, rows
+
+
+def test_cull_on_adversarial_gs2d_rows():
+    """Nothing that hits is culled, and every non-finite or
+    non-positive-definite row is kept."""
+    bins, st, caps, picked, rows = adversarial_gs2d_bins()
+    lists = rb._tile_lists(bins.attrs, bins.bucket_starts, st, caps,
+                           torch.arange(st.tiles_x * st.tiles_y))
+    may, hit, _ = assert_cull_is_exact(bins.attrs, bins.bucket_starts, st, caps)
     at = lists.cols[:, None] == picked[None, :]                     # (lanes, rows)
     kept = [bool(may[at[:, k]].all()) for k in range(len(rows))]
     hits = [bool(hit[at[:, k]].any()) for k in range(len(rows))]
     assert hits[0] and hits[1] and not hits[2]                       # alpha_min is inclusive
     assert kept[0] and kept[1] and not kept[2]
     assert all(kept[3:13]), kept                                     # degenerate or not finite
+
+
+# ---- K3's per-tile cull: the twin's sweep without the culled lanes ----------
+
+def culled_sweep(attrs, ids, bucket_starts, st, caps, pix_ctx=None, drop=None):
+    """K3's twin over every tile, as ``rasterize_buckets_ref`` runs it, with
+    the lanes of ``drop`` (``tile_may_hit``'s layout) made "no lane" in
+    place: zero rows, whose alpha fails the cutoffs in every model, and id
+    -1. The sweep the kernel runs, which stages only the kept lanes."""
+    tiles = torch.arange(st.tiles_x * st.tiles_y)
+    lists = rb._tile_lists(attrs, bucket_starts, st, caps, tiles)
+    c = lists.cols.clamp(min=0)
+    lane_attrs, lane_ids = attrs[:, c], ids[c]
+    if drop is not None:
+        lane_attrs[:, drop] = 0.0
+        lane_ids[drop] = -1
+    return tr.rasterize_tiles_ref(lane_attrs, lane_ids, lists.tile_start, lists.tile_count, st,
+                                  tiles, pix_ctx)
+
+
+def assert_culled_sweep_changes_nothing(attrs, ids, bucket_starts, st, caps, pix_ctx=None):
+    """The twin, and the twin with every lane ``tile_may_hit`` culls taken
+    out, give the same rgb, T, depth and id bit for bit. Returns the share
+    of the live lanes culled."""
+    out, out_id = rb.rasterize_buckets_ref(attrs, ids, bucket_starts, st, caps, pix_ctx=pix_ctx)
+    same, same_id = culled_sweep(attrs, ids, bucket_starts, st, caps, pix_ctx)
+    assert torch.equal(same, out) and torch.equal(same_id, out_id)   # the helper is the twin
+    live = rb._tile_lists(attrs, bucket_starts, st, caps,
+                          torch.arange(st.tiles_x * st.tiles_y)).cols >= 0
+    drop = live & ~rb.tile_may_hit(attrs, bucket_starts, st, caps, pix_ctx=pix_ctx)
+    got, got_id = culled_sweep(attrs, ids, bucket_starts, st, caps, pix_ctx, drop)
+    assert torch.isfinite(out).all() and (out_id >= 0).any()
+    assert torch.equal(got, out), (got - out).abs().max().item()
+    assert torch.equal(got_id, out_id)
+    return drop.sum().item() / live.sum().item()
+
+
+@pytest.mark.parametrize("scene", ["golden", "adversarial"])
+def test_culled_sweep_changes_nothing_gs2d(scene):
+    """K3 stages only the lanes the cull keeps: on the golden frame and on
+    the adversarial rows (test_cull_on_adversarial_gs2d_rows), the sweep
+    without the culled lanes equals the twin's bit for bit."""
+    if scene == "golden":
+        bins, st, caps = golden_bins()
+    else:
+        bins, st, caps, _, _ = adversarial_gs2d_bins()
+    culled = assert_culled_sweep_changes_nothing(bins.attrs, bins.ids, bins.bucket_starts, st,
+                                                 caps)
+    assert culled > 0.05
 
 
 @pytest.mark.parametrize("caps", [(500, 256, 512, 256), (512, 0, 512, 256), (512, 256, 512)])

@@ -30,9 +30,10 @@ the row's median nonzero size (measured on an H100: the 99.9th percentile
 of that ratio up to 1.5e-3 on the golden frame). chip_smoke.py holds K2 to
 the same two gates.
 
-K4's per-tile cull must change nothing: K4 and K4g against their twins
-(which sweep every lane) on scenes with rows at the predicate's edges, and
-the kernel's kept-lane counter against the plain predicate's count.
+The per-tile cull of K3 and K4 must change nothing: K3, K3g, K4 and K4g
+against their twins (which sweep every lane) on scenes with rows at the
+predicate's edges, and each kernel's kept-lane counter against the plain
+predicate's count, K3's equal to K4's.
 
 The probe kernels only compare, select and copy, so each must equal its
 twin bit for bit.
@@ -601,8 +602,10 @@ def quiet(edits, never, opacity_row):
     return list(edits) + [{opacity_row: 0.0} for _ in never]
 
 
-def assert_kept_matches_plain(model, work, live):
-    kept = int(getattr(rb.rasterize_buckets_bwd, rb.KEPT_COUNTER[model]))
+def assert_kept_matches_plain(model, work, live, wrapper=rb.rasterize_buckets_bwd):
+    """The kept count of ``wrapper``'s last launch (K4's by default) against
+    the plain predicate's; returns it."""
+    kept = int(getattr(wrapper, rb.KEPT_COUNTER[model]))
     assert 0 < kept < live
     assert abs(kept - work.kept) <= max(1.0, 1e-4 * live), (kept, work.kept)
     return kept
@@ -676,6 +679,68 @@ def test_gut3d_bwd_kernel_culls_exactly(cuda, degree, camera):
     again = gut_bwd(bins, st, caps, ctx, pix)
     torch.cuda.synchronize()
     assert torch.equal(d_k, again) and int(rb.rasterize_buckets_bwd.kept_gut3d) == kept
+
+
+# ---- K3's per-tile cull on the card -------------------------------------------
+#
+# K3 and K3g, which stage only the lanes the cull keeps, against their twins
+# (which sweep every lane) on the edge-row scenes above, with the forward
+# gates; K3's kept counter against the plain predicate's count (within 1e-4
+# of the live lanes, as K4's) and equal to K4's on the same bins (one
+# predicate, csrc/response.cuh may_hit, over the same steps and freeze,
+# since the compaction both use lives in csrc/raster_bucket.cuh); repeats
+# bit-equal, counters included.
+
+
+def assert_fwd_cull(bins, st, caps, work, model, pix=None):
+    """K3's kept count against the plain predicate's, its repeat and K4's
+    count on the same bins; returns K3's count."""
+    out, out_id = rb.rasterize_buckets(bins, st, caps, pix)
+    torch.cuda.synchronize()
+    kept = assert_kept_matches_plain(model, work, work.live, rb.rasterize_buckets)
+    again, again_id = rb.rasterize_buckets(bins, st, caps, pix)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again) and torch.equal(out_id, again_id)
+    assert int(getattr(rb.rasterize_buckets, rb.KEPT_COUNTER[model])) == kept
+    ctx = tr.bwd_context(out, torch.ones_like(out))
+    rb.rasterize_buckets_bwd(bins.attrs, bins.bucket_starts, ctx, st, caps, pix)
+    torch.cuda.synchronize()
+    assert int(getattr(rb.rasterize_buckets_bwd, rb.KEPT_COUNTER[model])) == kept
+    return kept
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scale_range", [(-5.0, 0.0), (-3.0, 0.5)])
+def test_bucket_fwd_kernel_culls_exactly_on_edge_rows(cuda, scale_range):
+    cfg = bucket_cfg(caps=(512, 256, 512, 256))
+    caps = cfg.raster.bucket_caps
+    plain, st = bucket_bins_on(cuda, cfg, n=1500, scale_range=scale_range)
+    edits, never = gs2d_edge_rows(st)
+    bins = with_rows(plain, st, caps, edits + never)
+    out = assert_k3_matches_twin(bins, st, caps)
+    assert out[:, 3].min().item() < st.min_transmittance  # pixels froze
+    work = rb.bucket_work(bins.attrs, bins.bucket_starts, st, caps)
+    assert_fwd_cull(bins, st, caps, work, "gs2d")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("degree, camera", [(0, "pinhole"), (1, "fisheye"), (2, "rolling"),
+                                            (3, "dof"), (8, "pinhole")])
+def test_gut3d_fwd_kernel_culls_exactly(cuda, degree, camera):
+    plain, st, caps, pix = gut_setup(cuda, "bucket", degree, camera=camera, n=1200,
+                                     scale_range=(-3.5, -0.5))
+    amin = float(np.float32(st.alpha_min))
+    nan = float("nan")
+    edits = [{13: amin}, {13: f32_next(amin, 1)}, {13: f32_next(amin, 0)}, {9: 1.5},
+             {3: 1e-12}, {3: 1e-12, 4: 1e-12, 5: 1e-12}, {0: nan}, {13: nan}]
+    bins = with_rows(plain, st, caps, edits)
+    out_k, id_k = gut_fwd(bins, st, caps, pix)
+    out_r, id_r = gut_fwd(bins, st, caps, pix, twin=True)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out_k).all() and torch.isfinite(out_r).all()
+    assert_gut_fwd_matches(out_k, id_k, out_r, id_r)
+    work = rb.bucket_work(bins.attrs, bins.bucket_starts, st, caps, pix_ctx=pix)
+    assert_fwd_cull(bins, st, caps, work, "gut3d", pix)
 
 
 # ---- the probes P1-P3: bitonic sort (csrc/bench_roll.cu), sort stages

@@ -65,6 +65,7 @@ from vk_gaussian_splatting_tpu_torch.render import pipelines as tp
 from vk_gaussian_splatting_tpu_torch.render import rays as trays
 from vk_gaussian_splatting_tpu_torch.render import render
 from vk_gaussian_splatting_tpu_torch.scene import cameras as tcam
+from test_torch_bucket import assert_culled_sweep_changes_nothing
 
 torch.set_num_threads(2)
 
@@ -170,7 +171,8 @@ UT_CASES = {
 
 def named_cfgs(name_kw, **extra):
     """(JAX, port) RenderConfigs with enum fields given by name."""
-    kw = dict(width=W, height=H, sh_degree=1, **extra)
+    kw = dict(width=W, height=H, sh_degree=1)
+    kw.update(extra)
     cj, ct = dict(kw), dict(kw)
     for field, enum in (("camera_type", "CameraType"), ("shutter", "ShutterType"),
                         ("pipeline", "Pipeline")):
@@ -611,14 +613,14 @@ CULL_CAMERAS = {
 }
 
 
-def cull_inputs(degree, camera, seed=4, n=300):
+def cull_inputs(degree, camera, seed=4, n=300, w=W, h=H):
     """A 3DGUT bucket scene of mixed scales (tests/test_gut.py's scene, with
-    mid and coarse splats) and its rays under ``camera``."""
+    mid and coarse splats) and its rays under ``camera``, at w x h."""
     cfg_kw, cam_kw, shift = CULL_CAMERAS[camera]
     _, cfg = named_cfgs(dict(cfg_kw, pipeline="MESH_3DGUT", rt=dict(kernel_degree=degree),
                              raster=dict(method="bucket", bucket_caps=(512, 256, 256, 128),
-                                         bucket_chunk=128)))
-    cam, _ = cameras(shift=shift, **cam_kw)
+                                         bucket_chunk=128)), width=w, height=h)
+    cam, _ = cameras(w, h, shift=shift, **cam_kw)
     d = interop.random_splat_arrays(seed, n, sh_degree=1, extent=3.0, scale_range=(-3.5, -0.5))
     prep = interop.splat_set_from_numpy(d, "cpu").prepare()
     proj = ut_project_splats(prep, cam, cfg)
@@ -673,3 +675,15 @@ def test_gut3d_cull_on_adversarial_rows():
     at = lists.cols[:, None] == picked[None, :]
     kept = [bool(may[at[:, k]].all()) for k in range(len(edits))]
     assert all(kept[3:9]), kept
+
+
+@pytest.mark.parametrize("camera", ["pinhole", "fisheye", "rolling"])
+@pytest.mark.parametrize("degree", [0, 1, 2])
+def test_gut3d_culled_sweep_changes_nothing(degree, camera):
+    """K3g stages only the lanes the cull keeps: at 128x96 the twin's sweep
+    without the culled lanes equals the twin's bit for bit
+    (tests/test_torch_bucket.py's check)."""
+    attrs, starts, st, caps, pix = cull_inputs(degree, camera, n=2500, w=128, h=96)
+    ids = torch.arange(attrs.shape[1], dtype=torch.int32)  # each slot its own id
+    culled = assert_culled_sweep_changes_nothing(attrs, ids, starts, st, caps, pix)
+    assert culled > 0.3

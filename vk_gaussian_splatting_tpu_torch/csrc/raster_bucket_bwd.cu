@@ -68,7 +68,7 @@ namespace {
 
 using bucket::NUM_SPANS;
 using bucket::PIX;
-constexpr int WARPS = PIX / 32;
+using bucket::WARPS;
 constexpr int CTX_ROWS = 5;        // g_r, g_g, g_b, S_total, g_T * T_final
 constexpr int SUB = 32;            // lanes per shared-memory reduction batch
 constexpr int REDUCE_THREADS = 256;
@@ -105,7 +105,7 @@ raster_bucket_bwd_tiles(const float* __restrict__ attrs, long long stride,
   int* s_col = (int*)(s_attr + M::BWD_SLOTS * chunk);    // [chunk] fine column or -1
   int* s_slot = s_col + chunk;                           // [chunk] scratch slot or -1
   __shared__ float s_part[WARPS][GRAD_ROWS][SUB];
-  __shared__ int s_count[2][WARPS];                      // kept lanes per warp, by round
+  __shared__ int s_count[2][WARPS];                      // bucket::kept_place's buffers
   __shared__ bucket::Spans sp;
   __shared__ typename M::TileBound bound;
 
@@ -141,10 +141,10 @@ raster_bucket_bwd_tiles(const float* __restrict__ attrs, long long stride,
     const int n = e - lo;
     // Stage the step's kept lanes, compacted in their merged order: thread i
     // takes lane r0 + i of each round of PIX lanes, stages it in registers
-    // and asks may_hit; a warp ballot, the warps' counts and the rounds
-    // before give each kept lane its place. A culled lane adds exact zeros
-    // to T, s_run and every sum: a fine one keeps the zero d_attrs holds, a
-    // shared one writes zeros to its scratch slot here.
+    // and asks may_hit; bucket::kept_place gives each kept lane its place.
+    // A culled lane adds exact zeros to T, s_run and every sum: a fine one
+    // keeps the zero d_attrs holds, a shared one writes zeros to its
+    // scratch slot here.
     int n_kept = 0;
     for (int r0 = 0; r0 < n; r0 += PIX) {
       const int j = r0 + i;
@@ -166,16 +166,7 @@ raster_bucket_bwd_tiles(const float* __restrict__ attrs, long long stride,
             scratch[row * scratch_stride + slot0 + slot] = 0.0f;
         }
       }
-      const unsigned ballot = __ballot_sync(0xffffffffu, keep);
-      int* count = s_count[(r0 / PIX) & 1];  // two buffers: one barrier per round
-      if (lane == 0) count[warp] = __popc(ballot);
-      __syncthreads();
-      int before = n_kept + __popc(ballot & ((1u << lane) - 1u));
-      #pragma unroll
-      for (int w = 0; w < WARPS; ++w) {
-        before += w < warp ? count[w] : 0;
-        n_kept += count[w];
-      }
+      const int before = bucket::kept_place(keep, r0 / PIX, s_count, n_kept);
       if (keep) {
         #pragma unroll
         for (int r = 0; r < M::BWD_SLOTS; ++r) s_attr[r * chunk + before] = lane_slots[r];

@@ -19,23 +19,35 @@
 //    caps allow: 24 KB at 3,072).
 // 3. The block blends the list front to back in steps that end at the
 //    merged lanes n_head + r that are multiples of `chunk` (the bucket
-//    blend chunk, 384 by default): each step's lanes are gathered into
-//    shared memory as the model's slots, with the int32 id, and every
-//    pixel (gut3d: its ray from the pixel context, in registers) runs the
-//    pair blender's math (csrc/rasterize_fwd.cu), with its per-step freeze
-//    and its first-crossing depth and id pick. The block stops once all
-//    256 pixels froze. Every tile is written: empty ones as rgb 0, T 1,
-//    depth 0, id -1.
+//    blend chunk, 384 by default). Each step first culls its lanes by the
+//    model's exact per-tile predicate (csrc/response.cuh may_hit, as K4
+//    culls: false only where the alpha fails the cutoffs at every pixel of
+//    the tile): thread i stages lane r0 + i of each round of 256 in
+//    registers as the model's backward slots, which may_hit reads, and asks
+//    it; bucket::kept_place compacts the kept lanes in merged order, and
+//    only they are written to shared memory as the model's forward slots
+//    (the backward slots before the depth, then the depth row) with the
+//    int32 id. Then every pixel (gut3d: its ray from the pixel context, in
+//    registers) runs the pair blender's math (csrc/rasterize_fwd.cu) over
+//    the kept lanes, with its per-step freeze and its first-crossing depth
+//    and id pick. A culled lane changes no T, colour or pick, so the
+//    outputs are bit for bit those of the sweep over every lane (the plain
+//    twin's); the step boundaries stay where they were, and a step whose
+//    lanes are all culled still counts as a step. The block stops once all
+//    256 pixels froze, and adds its kept lanes to a counter (one integer
+//    atomic). Every tile is written: empty ones as rgb 0, T 1, depth 0,
+//    id -1.
 //
-// What bounds it on the H100: f32 operations per (pixel, lane), as K1 (about
-// 17 for gs2d, 68 for gut3d); but a tile blends its whole window (its own
-// fine bucket and the mid, coarse and global spans that neighbouring tiles
-// also read), so each tile re-reads its shared spans' rows from device
-// memory (mostly from L2) and the merge costs five binary searches per
-// lane. The merge and the row gathers are what K1 does not pay. Built with
-// exact expf, without fast math and with -fmad=false (ops/_build.py), so
-// its alphas equal the plain twin's bit for bit. Caps whose lanes exceed the
-// card's shared memory are refused (raster_bucket_fwd*_smem_limit), never
+// What bounds it on the H100: f32 operations per (pixel, kept lane), as K1
+// (about 17 for gs2d, 68 for gut3d), plus the cull's f64 operations per
+// tested lane; but a tile reads its whole window (its own fine bucket and
+// the mid, coarse and global spans that neighbouring tiles also read), so
+// each tile re-reads its shared spans' rows from device memory (mostly
+// from L2) and the merge costs five binary searches per lane. The merge
+// and the row gathers are what K1 does not pay. Built with exact expf,
+// without fast math and with -fmad=false (ops/_build.py), so its alphas
+// equal the plain twin's bit for bit. Caps whose lanes exceed the card's
+// shared memory are refused (raster_bucket_fwd*_smem_limit), never
 // truncated. Making it fast (sharing a cell's spans, TMA staging) is later
 // work.
 
@@ -60,13 +72,19 @@ raster_bucket_fwd_kernel(const float* __restrict__ attrs, long long stride,
                          const float* __restrict__ pix_ctx, int tiles_x, int c_total,
                          int cap0, int cap1, int cap2, int cap3, int chunk,
                          response::Params prm, float min_transmittance, float depth_iso,
-                         float* __restrict__ out, int* __restrict__ out_id) {
+                         float* __restrict__ out, int* __restrict__ out_id,
+                         int* __restrict__ kept) {
+  // the forward slots are the backward slots before DEPTH_SLOT, then the depth
+  static_assert(M::FWD_SLOTS == M::DEPTH_SLOT + 1 && M::DEPTH_SLOT <= M::BWD_SLOTS,
+                "forward slots are not the backward ones plus the depth");
   extern __shared__ float smem[];
   float* keys = smem;                                    // [c_total]
   int* order = (int*)(keys + c_total);                   // [c_total]
   float* s_attr = (float*)(order + c_total);             // [FWD_SLOTS][chunk]
   int* s_id = (int*)(s_attr + M::FWD_SLOTS * chunk);     // [chunk]
+  __shared__ int s_count[2][bucket::WARPS];              // bucket::kept_place's buffers
   __shared__ bucket::Spans sp;
+  __shared__ typename M::TileBound bound;
 
   const int t = blockIdx.x;
   const int i = threadIdx.x;
@@ -75,12 +93,14 @@ raster_bucket_fwd_kernel(const float* __restrict__ attrs, long long stride,
   bucket::merge_spans(sp, attrs + M::DEPTH_ROW * stride, keys, order);
 
   const response::Pixel pix = response::load_pixel(t, tiles_x, i, pix_ctx);
+  M::tile_bound(bound, t, tiles_x, pix);
   const int n_head = sp.n_head;
   const int end = n_head + sp.off[bucket::NUM_SPANS];
 
   float T = 1.0f, cr = 0.0f, cg = 0.0f, cb = 0.0f, depth = 0.0f;
   int pick = -1;
   bool picked = false;
+  int n_kept_tile = 0;
 
   // chunks wholly inside the dead head lanes change nothing: start at the
   // chunk that holds lane n_head
@@ -88,22 +108,34 @@ raster_bucket_fwd_kernel(const float* __restrict__ attrs, long long stride,
     const int e = min(end, (s / chunk + 1) * chunk);  // next chunk boundary
     const int lo = max(s, n_head);
     const int n = e - lo;
-    for (int j = i; j < n; j += PIX) {
-      const int g = order[lo - n_head + j];
-      if (g < 0) {  // no lane: zero slots, an alpha of 0 in every model
-        #pragma unroll
-        for (int r = 0; r < M::FWD_SLOTS; ++r) s_attr[r * chunk + j] = 0.0f;
-        s_id[j] = -1;
-        continue;
+    // Stage the step's kept lanes, compacted in their merged order. A lane
+    // whose alpha fails at every pixel of the tile (and a merged lane
+    // where no candidate landed) would change nothing: it is not staged.
+    int n_kept = 0;
+    for (int r0 = 0; r0 < n; r0 += PIX) {
+      const int j = r0 + i;
+      float lane_slots[M::BWD_SLOTS];
+      long long col = -1;
+      bool keep = false;
+      const int g = j < n ? order[lo - n_head + j] : -1;
+      if (g >= 0) {
+        const int sp_i = bucket::span_of(sp, g);
+        col = sp.start[sp_i] + (g - sp.off[sp_i]);
+        M::stage_bwd(attrs, stride, col, lane_slots, 1, 0);
+        keep = M::may_hit(lane_slots, 1, 0, bound, prm);
       }
-      const int sp_i = bucket::span_of(sp, g);
-      const long long col = sp.start[sp_i] + (g - sp.off[sp_i]);
-      M::stage_fwd(attrs, stride, col, s_attr, chunk, j);
-      s_id[j] = ids[col];
+      const int at = bucket::kept_place(keep, r0 / PIX, s_count, n_kept);
+      if (keep) {
+        #pragma unroll
+        for (int r = 0; r < M::DEPTH_SLOT; ++r) s_attr[r * chunk + at] = lane_slots[r];
+        s_attr[M::DEPTH_SLOT * chunk + at] = attrs[M::DEPTH_ROW * stride + col];
+        s_id[at] = ids[col];
+      }
     }
+    n_kept_tile += n_kept;
     __syncthreads();
     if (T > min_transmittance) {  // per-step freeze, rasterize_pallas.py:286
-      for (int j = 0; j < n; ++j) {
+      for (int j = 0; j < n_kept; ++j) {
         float a;
         typename M::Hit h;
         if (!M::eval(s_attr, chunk, j, pix, prm, a, h)) continue;  // alpha = 0
@@ -133,6 +165,7 @@ raster_bucket_fwd_kernel(const float* __restrict__ attrs, long long stride,
   o[3 * PIX + i] = T;
   o[4 * PIX + i] = depth;
   out_id[(size_t)t * PIX + i] = pick;
+  if (i == 0 && n_kept_tile > 0) atomicAdd(kept, n_kept_tile);  // integers: deterministic
 }
 
 template <class M>
@@ -150,7 +183,7 @@ int launch(const float* attrs, long long stride, const int* ids, const int* buck
            const int* span_buckets, const float* pix_ctx, int num_tiles, int tiles_x, int cap0,
            int cap1, int cap2, int cap3, int chunk, float alpha_min, float alpha_clamp,
            float qmax, float min_response, int degree, float min_transmittance,
-           float depth_iso, float* out, int* out_id, void* stream) {
+           float depth_iso, float* out, int* out_id, int* kept, void* stream) {
   if (chunk < 1 || chunk > bucket::MAX_CHUNK) return (int)cudaErrorInvalidValue;
   const int c_total = cap0 + 2 * cap1 + 2 * cap2 + cap3;
   const int smem = smem_of<M>(c_total, chunk);
@@ -162,7 +195,7 @@ int launch(const float* attrs, long long stride, const int* ids, const int* buck
   if (num_tiles > 0) {
     raster_bucket_fwd_kernel<M><<<num_tiles, PIX, smem, (cudaStream_t)stream>>>(
         attrs, stride, ids, bucket_starts, span_buckets, pix_ctx, tiles_x, c_total, cap0,
-        cap1, cap2, cap3, chunk, prm, min_transmittance, depth_iso, out, out_id);
+        cap1, cap2, cap3, chunk, prm, min_transmittance, depth_iso, out, out_id, kept);
   }
   return (int)cudaGetLastError();
 }
@@ -184,31 +217,25 @@ extern "C" int raster_bucket_fwd_gut3d_smem_limit() { return smem_limit_of<respo
 
 // Launch one block per tile on `stream`; return cudaGetLastError(). gs2d
 // reads no pixel context (pix_ctx may be null); gut3d reads the (T, 8, 256)
-// one.
-extern "C" int raster_bucket_fwd(const float* attrs, long long stride, const int* ids,
-                                 const int* bucket_starts, const int* span_buckets,
-                                 const float* pix_ctx, int num_tiles, int tiles_x, int cap0,
-                                 int cap1, int cap2, int cap3, int chunk, float alpha_min,
-                                 float alpha_clamp, float qmax, float min_response, int degree,
-                                 float min_transmittance, float depth_iso, float* out,
-                                 int* out_id, void* stream) {
-  return launch<response::Gs2d>(attrs, stride, ids, bucket_starts, span_buckets, nullptr,
-                                num_tiles, tiles_x, cap0, cap1, cap2, cap3, chunk, alpha_min,
-                                alpha_clamp, qmax, min_response, degree, min_transmittance,
-                                depth_iso, out, out_id, stream);
+// one. kept must hold 0 on entry: each tile block adds the number of lanes
+// its cull kept, over the blend steps it entered (one integer atomic each).
+#define RASTER_BUCKET_FWD_PARAMS                                                             \
+  const float *attrs, long long stride, const int *ids, const int *bucket_starts,          \
+      const int *span_buckets, const float *pix_ctx, int num_tiles, int tiles_x, int cap0, \
+      int cap1, int cap2, int cap3, int chunk, float alpha_min, float alpha_clamp,          \
+      float qmax, float min_response, int degree, float min_transmittance,                  \
+      float depth_iso, float *out, int *out_id, int *kept, void *stream
+#define RASTER_BUCKET_FWD_ARGS                                                               \
+  attrs, stride, ids, bucket_starts, span_buckets, pix_ctx, num_tiles, tiles_x, cap0, cap1, \
+      cap2, cap3, chunk, alpha_min, alpha_clamp, qmax, min_response, degree,                \
+      min_transmittance, depth_iso, out, out_id, kept, stream
+
+extern "C" int raster_bucket_fwd(RASTER_BUCKET_FWD_PARAMS) {
+  pix_ctx = nullptr;
+  return launch<response::Gs2d>(RASTER_BUCKET_FWD_ARGS);
 }
 
-extern "C" int raster_bucket_fwd_gut3d(const float* attrs, long long stride, const int* ids,
-                                       const int* bucket_starts, const int* span_buckets,
-                                       const float* pix_ctx, int num_tiles, int tiles_x,
-                                       int cap0, int cap1, int cap2, int cap3, int chunk,
-                                       float alpha_min, float alpha_clamp, float qmax,
-                                       float min_response, int degree, float min_transmittance,
-                                       float depth_iso, float* out, int* out_id,
-                                       void* stream) {
+extern "C" int raster_bucket_fwd_gut3d(RASTER_BUCKET_FWD_PARAMS) {
   if (pix_ctx == nullptr) return (int)cudaErrorInvalidValue;
-  return launch<response::Gut3d>(attrs, stride, ids, bucket_starts, span_buckets, pix_ctx,
-                                 num_tiles, tiles_x, cap0, cap1, cap2, cap3, chunk, alpha_min,
-                                 alpha_clamp, qmax, min_response, degree, min_transmittance,
-                                 depth_iso, out, out_id, stream);
+  return launch<response::Gut3d>(RASTER_BUCKET_FWD_ARGS);
 }

@@ -38,13 +38,16 @@
 // rounds it (constants are the twin's Python doubles cast to float), so a
 // kernel and its twin on one card agree bit for bit on every alpha.
 //
-// The per-tile cull of the bucket backward (csrc/raster_bucket_bwd.cu):
-// each model's TileBound is computed once per block (tile_bound, called by
-// all PIX threads), and may_hit(s, ss, j, bound, prm) reads a lane's staged
+// The per-tile cull of the bucket kernels, forward and backward
+// (csrc/raster_bucket_fwd.cu, K3; csrc/raster_bucket_bwd.cu, K4): each
+// model's TileBound is computed once per block (tile_bound, called by all
+// PIX threads), and may_hit(s, ss, j, bound, prm) reads a lane's staged
 // backward slots and answers false only where eval provably fails at every
-// pixel of the tile. Its geometry runs in double from the f32 slots eval
-// reads. A NaN, an inf or a degenerate shape answers true: every test is
-// written so that a NaN falls to "keep". Margins: each radius grows by
+// pixel of the tile. K3 stages those slots in registers for the test and
+// stores the forward slots from them: the backward slots before
+// DEPTH_SLOT, then the depth. may_hit's geometry runs in double from the
+// f32 slots eval reads. A NaN, an inf or a degenerate shape answers true:
+// every test is written so that a NaN falls to "keep". Margins: each radius grows by
 // CULL_REL = 1e-3 of itself plus an absolute term (gs2d 1e-2 px; gut3d
 // 1e-7 of the distance from the tile's rays), the cutoffs are loosened by
 // 1e-3 (gs2d, in the quadratic form) and 1e-5 (gut3d, in -ln of the

@@ -75,7 +75,8 @@ from vk_gaussian_splatting_tpu_torch.ops.response import alpha, model_of
 
 MAX_BUCKET_CHUNK = 1024  # csrc/raster_bucket_{fwd,bwd}.cu stage at most this many lanes
 READER_SEGMENT = 64      # K4's reduce sums a shared column over at most this many tiles per pass
-# the kept-lane count of K4's last launch, an attribute of its wrapper, per model
+# the kept-lane count of the last launch of K3 and of K4, an attribute of
+# each wrapper (rasterize_buckets, rasterize_buckets_bwd), per model
 KEPT_COUNTER = {"gs2d": "kept", "gut3d": "kept_gut3d"}
 CULL_REL = 1e-3          # csrc/response.cuh: relative growth of every cull radius
 
@@ -247,7 +248,7 @@ def rasterize_buckets_bwd_ref(attrs: torch.Tensor, bucket_starts: torch.Tensor,
     return layout.splat_sums(d_lanes[:, live][:, order])
 
 
-# ---- the per-tile cull of K4 (csrc/response.cuh may_hit), plainly ----------
+# ---- the per-tile cull of K3 and K4 (csrc/response.cuh may_hit), plainly ---
 
 def _f32(x: float) -> float:
     """A statics value as the C entry points get it (an f32 argument)."""
@@ -365,7 +366,7 @@ def _lanes_may_hit(attrs, lists: _TileLists, st: RasterStatics, tiles, pix_ctx):
 def tile_may_hit(attrs: torch.Tensor, bucket_starts: torch.Tensor, st: RasterStatics,
                  caps: tuple, tiles: torch.Tensor | None = None,
                  pix_ctx: torch.Tensor | None = None) -> torch.Tensor:
-    """Plain twin of K4's per-tile cull (csrc/response.cuh ``may_hit``,
+    """Plain twin of K3's and K4's per-tile cull (csrc/response.cuh ``may_hit``,
     term for term, with the same margins): for each lane of the tiles'
     merged lists, laid out as ``_tile_lists`` lays them (tile b's region
     of L lanes at b * L), whether the lane may hit a pixel of its tile.
@@ -406,7 +407,7 @@ class BucketWork(typing.NamedTuple):
     live: int         # live candidates read, summed over the tiles
     shared: int       # the live candidates of shared spans (mid, coarse, global)
     comparisons: int  # key comparisons of the merges
-    tested: int       # lanes K4's cull tests: the live lanes of the blend steps each tile enters
+    tested: int       # lanes the cull (K3, K4) tests: the live lanes of the steps each tile enters
     kept: int         # the lanes of those it keeps
     kept_evals: int   # the evaluations of those lanes up to each pixel's freeze
 
@@ -419,10 +420,10 @@ def bucket_work(attrs: torch.Tensor, bucket_starts: torch.Tensor, st: RasterStat
     both kernels make and the hits (as ``rasterize.blend_work`` counts them
     over the merged lists), the live candidates, the merge's key
     comparisons, where each live lane binary-searches the five other spans
-    (ceil(log2(m + 1)) steps for a span of m), and the lanes K4's cull
-    tests and keeps (``tile_may_hit``) with the kept lanes' evaluations. A
-    tile enters a blend step while some pixel is not frozen at its start
-    (the kernels' early exit)."""
+    (ceil(log2(m + 1)) steps for a span of m), and the lanes the cull of K3
+    and K4 tests and keeps (``tile_may_hit``) with the kept lanes'
+    evaluations. A tile enters a blend step while some pixel is not frozen
+    at its start (the kernels' early exit)."""
     tiles = _all_tiles(st, attrs.device, tiles)
     lists = _tile_lists(attrs, bucket_starts, st, caps, tiles)
     evals, hits, tested, kept, kept_evals = blend_work(
@@ -466,7 +467,9 @@ def _check_shared_memory(name: str, caps: tuple, st: RasterStatics) -> None:
 
 
 def _bucket_fwd(attrs, ids, bucket_starts, st, caps, pix_ctx):
-    """K3 on CUDA tensors (one launch counted), the twin on CPU tensors."""
+    """K3 on CUDA tensors (one launch counted, its kept-lane count left in
+    ``rasterize_buckets.kept`` or ``.kept_gut3d``), the twin on CPU
+    tensors."""
     caps = check_caps(caps)
     p = _check_inputs(attrs, bucket_starts, st, caps, ids=ids, pix_ctx=pix_ctx)
     dev = attrs.device
@@ -478,14 +481,17 @@ def _bucket_fwd(attrs, ids, bucket_starts, st, caps, pix_ctx):
     out_id = torch.empty((num_tiles, PIX), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         _check_shared_memory("raster_bucket_fwd", caps, st)
+        kept = torch.zeros((1,), dtype=torch.int32, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = _fn("raster_bucket_fwd", st=st)(
             attrs.data_ptr(), p, ids.data_ptr(), bucket_starts.data_ptr(), spans.data_ptr(),
             _ptr(pix_ctx), num_tiles, st.tiles_x, *caps, st.chunk, *model_args(st),
-            st.min_transmittance, st.depth_iso, out.data_ptr(), out_id.data_ptr(), stream)
+            st.min_transmittance, st.depth_iso, out.data_ptr(), out_id.data_ptr(),
+            kept.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"raster_bucket_fwd ({st.model}) launch failed: cudaError {err}")
     count_launch(rasterize_buckets, st)
+    setattr(rasterize_buckets, KEPT_COUNTER[st.model], kept)
     return out, out_id
 
 
@@ -575,18 +581,23 @@ def rasterize_buckets(bins: BucketBins, st: RasterStatics, caps: tuple,
     b, T, depth; (T, 256) i32 ids), every tile written. CUDA tensors launch
     csrc/raster_bucket_fwd.cu's entry for the model and count one launch in
     ``rasterize_buckets.launches`` (gs2d) or ``.launches_gut3d``; CPU
-    tensors run the plain twin. Gradients reach ``bins.attrs`` through rgb
-    and T."""
+    tensors run the plain twin. The kernel blends only the lanes its
+    per-tile cull keeps (``tile_may_hit``; the outputs are bit for bit the
+    sweep over every lane) and leaves the kept count in
+    ``rasterize_buckets.kept`` or ``.kept_gut3d``, as
+    ``rasterize_buckets_bwd`` does. Gradients reach ``bins.attrs`` through
+    rgb and T."""
     return _RasterizeBuckets.apply(bins.attrs, bins.ids, bins.bucket_starts, pix_ctx, st, caps)
 
 
 rasterize_buckets.launches = rasterize_buckets.launches_gut3d = 0
+rasterize_buckets.kept = rasterize_buckets.kept_gut3d = 0
 
 _P, _L, _I, _F = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
 _MODEL = [_F, _F, _F, _F, _I]  # alpha_min, alpha_clamp, qmax, kernel_min_response, degree
 _ARGTYPES = {  # the C entry points' parameters, in order (csrc/raster_bucket_*.cu)
     "raster_bucket_fwd": [_P, _L, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, *_MODEL,
-                          _F, _F, _P, _P, _P],
+                          _F, _F, _P, _P, _P, _P],
     "raster_bucket_bwd": [_P, _L, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I,
                           _I, _I, _I, _I, *_MODEL, _F, _P, _P, _P, _P, _P],
     "_smem": [_I, _I],
