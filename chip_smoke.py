@@ -33,8 +33,15 @@ entry points — and checks them:
 4. training at full size: the same scene is the target, the start has
    seeded jitter on means and sh_dc; 5 ``train_step``s with both kernels'
    launch counts read around them, a falling finite loss and finite
-   gradients; one exact-expansion step; K2 against the twin backward on 64
-   sampled tiles; a bit-equal repeat backward;
+   gradients; one exact-expansion step; a bit-equal repeat backward; K2
+   against the twin backward over every tile of the training frame, in
+   tile batches; K2's per-tile cull of the pair lists on that frame: its
+   kept-pair counter against the plain predicate's count
+   (``ops/rasterize.pair_may_hit`` over the steps each tile enters,
+   exactly), the kept share, and an audit of every tile
+   for culled pairs that hit (``pair_hits``; none allowed); K2's bound
+   counts the kept pairs and the cull (``pair_bound``, the all-pair figure
+   beside it);
 5. CUDA-event timings after warm-up: project, bin, blend and the whole
    frame; K1 and K2 against their twins at the frame's shape; fwd_bwd and
    train_step; the (pixel, pair) evaluations and hits that both kernels'
@@ -73,8 +80,10 @@ entry points — and checks them:
    tiles (K3g on every tile too), K3g's and K4g's cull checked on the 3DGUT
    bucket frame as K3's and K4's; 3DGUT
    training on each path (5 steps, launches counted, loss falling,
-   bit-equal repeat backward, K2g and K4g against twins on 64 sampled
-   tiles, fwd_bwd_ms, train_step_ms, K4g's three launches);
+   bit-equal repeat backward, K2g against its twin over every tile and
+   K4g on 64 sampled tiles, K2g's kept counter (it culls no pair: equal
+   to the tested pairs), fwd_bwd_ms, train_step_ms,
+   K4g's three launches);
    profiles of a 3DGUT frame and train step by stage. The gut3d gates are
    flip-aware (``GUT_*``);
 9. the probes (vk_gaussian_splatting_tpu_torch/probes): each probe's entry
@@ -136,6 +145,7 @@ from vk_gaussian_splatting_tpu_torch.ops.projection import (  # noqa: E402
     project_splats,
     ut_project_splats,
 )
+from vk_gaussian_splatting_tpu_torch.ops.response import MODELS, model_of  # noqa: E402
 from vk_gaussian_splatting_tpu_torch.probes import bench_radix_ab as probe_radix  # noqa: E402
 from vk_gaussian_splatting_tpu_torch.probes import bench_roll as probe_roll  # noqa: E402
 from vk_gaussian_splatting_tpu_torch.probes import bench_sort_stage as probe_stage  # noqa: E402
@@ -349,20 +359,73 @@ def gate_bwd_against_twin(label, d_k, twin, ctx, cols, grad_rows=tr.GRAD_ROWS,
     return abs_err, rel_err
 
 
-def compare_bwd_with_twin(bins, st, ctx, tiles=None):
-    """K2 against the twin backward on the pairs of ``tiles`` (all by
-    default): ``gate_bwd_against_twin``."""
-    if tiles is None:
-        tiles = torch.arange(st.tiles_x * st.tiles_y, device=ctx.device)
+def compare_bwd_with_twin(bins, st, ctx):
+    """K2 against the twin backward over every tile (in batches of
+    TWIN_BATCH tiles, each writing its own tiles' pairs): ``gate_bwd_against_twin``."""
+    attrs = bins.attrs.detach()
 
+    @torch.no_grad()
     def twin(c):
-        return tr.rasterize_tiles_bwd_ref(bins.attrs, bins.tile_start, bins.tile_count, c,
-                                          st, tiles=tiles)
+        return sum(tr.rasterize_tiles_bwd_ref(attrs, bins.tile_start, bins.tile_count, c, st,
+                                              tiles=t)
+                   for t in twin_tiles(st, ctx.device))
 
-    pairs = torch.cat([torch.arange(a, a + n, device=ctx.device) for a, n in
-                       zip(bins.tile_start[tiles].tolist(), bins.tile_count[tiles].tolist())])
-    d_k = tr.rasterize_tiles_bwd(bins.attrs, bins.tile_start, bins.tile_count, ctx, st)
+    d_k = tr.rasterize_tiles_bwd(attrs, bins.tile_start, bins.tile_count, ctx, st)
+    pairs = torch.arange(int(bins.num_pairs), device=ctx.device)
     return gate_bwd_against_twin("K2", d_k, twin, ctx, pairs)
+
+
+def check_pair_cull(label: str, bins, st, batches, pix=None):
+    """K2's or K2g's kept-pair counter on a whole frame, after a launch of
+    it on that frame: (blend_work's (evaluations, hits, tested, kept, kept
+    evaluations) over ``batches`` of tiles, the counter). Where the model
+    culls its pair lists (``Model.cull_pairs``), ``kept`` counts the pairs
+    ``ops/rasterize.pair_may_hit`` keeps over the steps each tile enters and
+    the counter must equal it; then, over every tile in ``batches``, the
+    pairs the plain predicate culls that the twin's alpha passes at some
+    pixel of the tile (``pair_hits``, frozen pixels too): none allowed.
+    Where it does not cull, the counter must equal the tested pairs."""
+    culls = model_of(st).cull_pairs
+    attrs = bins.attrs.detach()
+    args = (attrs, bins.tile_start, bins.tile_count, st)
+    every = torch.ones(attrs.shape[1], dtype=torch.bool, device=attrs.device)
+    work, may, hit, bad = [0] * 5, 0, 0, 0
+    for tiles in batches:
+        m = tr.pair_may_hit(*args, tiles, pix) if culls else every
+        if culls:
+            h = tr.pair_hits(*args, tiles, pix)
+            may, hit, bad = may + int(m.sum()), hit + int(h.sum()), bad + int((h & ~m).sum())
+        work = [a + b for a, b in zip(work, tr.blend_work(*args, tiles, pix, keep=m))]
+    torch.cuda.synchronize()
+    kept = int(getattr(tr.rasterize_tiles_bwd, tr.KEPT_COUNTER[st.model]))
+    log(f"{label} cull 1080p/1M: kept={kept} of tested={work[2]} (kept share "
+        f"{kept / work[2]:.4f}; the model culls: {culls}); the plain count over the steps "
+        f"each tile enters: {work[3]} (must be equal); kept pairs' pixel evaluations "
+        f"{work[4]} of {work[0]}")
+    check(kept == work[3], f"{label} kept {kept} pairs, the plain count {work[3]}")
+    if culls:
+        log(f"  {label} cull audit on all {sum(b.numel() for b in batches)} tiles: {may} "
+            f"pairs kept, {hit} hit some pixel, culled pairs that hit: {bad}")
+        check(bad == 0, f"{label}: the cull dropped {bad} pairs that hit")
+    return work, kept
+
+
+def pair_bound(name: str, work, bytes_moved: int, n_tiles: int):
+    """((ms, what bounds it) of K2 or K2g at one frame, a log fragment with
+    it and the all-pair figure). Where the model culls its pair lists, the
+    kernel evaluates the kept pairs (``work[4]``) and blends the hits, and
+    the cull costs its own f64 operations per tested pair (OPS_CULL) and,
+    for gut3d, per pixel (OPS_TILE_BOUND); the all-pair figure prices every
+    pair's evaluations, as the sweep before the cull made them."""
+    evals, hits, tested, _, kept_evals = work
+    model = "gut3d" if name.endswith("_gut3d") else "gs2d"
+    all_pairs = kernel_bound(name, evals, hits, bytes_moved)
+    if not MODELS[model].cull_pairs:
+        return all_pairs, f"{name}_bound_ms={all_pairs[0]:.4f} ({all_pairs[1]}; no cull)"
+    cull = tested * OPS_CULL[model] + n_tiles * tr.PIX * OPS_TILE_BOUND[model]
+    bound = kernel_bound(name, kept_evals, hits, bytes_moved, f64_ops=cull)
+    return bound, (f"{name}_bound_ms={bound[0]:.4f} ({bound[1]}; the kept pairs) "
+                   f"{name}_all_pair_bound_ms={all_pairs[0]:.4f} ({all_pairs[1]})")
 
 
 def sample_tiles(bins, st, dev, seed):
@@ -466,19 +529,24 @@ def frame_stages(prepared, cam, cfg, max_pairs=0):
 
 
 def traced_events(call, calls):
-    """The torch.profiler trace events of ``calls`` calls of ``call``, after
-    one warm-up call, and its kernels as sorted (start us, end us, name,
-    correlation id)."""
-    call()  # warm-up
-    torch.cuda.synchronize()
+    """The torch.profiler trace events of ``calls`` calls of ``call`` and
+    its kernels as sorted (start us, end us, name, correlation id). The
+    profiler's schedule traces one warm-up call first and throws it away:
+    on an H100 a window without that step has lost the records of its
+    first one to three kernels (PERF.md §6, PR 9)."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(calls):
-            call()
-        torch.cuda.synchronize()
+    once = torch.profiler.schedule(wait=0, warmup=1, active=1, repeat=1)
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "trace.json")
-        prof.export_chrome_trace(path)
+        with torch.profiler.profile(activities=acts, schedule=once,
+                                    on_trace_ready=lambda p: p.export_chrome_trace(path)) as prof:
+            call()  # warm-up
+            torch.cuda.synchronize()
+            prof.step()
+            for _ in range(calls):
+                call()
+            torch.cuda.synchronize()
+            prof.step()
         events = json.load(open(path))["traceEvents"]
     kernels = sorted((e["ts"], e["ts"] + e["dur"], e["name"],
                       e.get("args", {}).get("correlation")) for e in events
@@ -490,15 +558,21 @@ def traced_events(call, calls):
 K4_KERNELS = ("raster_bucket_bwd_tiles", "raster_bucket_bwd_partial", "raster_bucket_bwd_reduce")
 
 
-def kernel_split(call, names=K4_KERNELS, calls=7):
+def kernel_split(call, counter, names=K4_KERNELS, calls=7):
     """{name: median device ms per call} of the kernels whose names hold
     each of ``names``, from the profiler's per-kernel durations over
-    ``calls`` calls (each call launching each kernel once)."""
+    ``calls`` calls, each launching each kernel once. ``counter()`` reads
+    the wrapper's launch count: it must advance by exactly the calls and
+    the warm-up, and the trace must hold a record of every kernel of every
+    call."""
+    before = counter()
     _, kernels = traced_events(call, calls)
+    launched = counter() - before
+    check(launched == calls + 1, f"kernel_split: {launched} launches in {calls + 1} calls")
     split = {}
     for name in names:
         durs = [(e - s) / 1e3 for s, e, kname, _ in kernels if name in kname]
-        check(len(durs) == calls, f"{len(durs)} launches of {name} in {calls} calls")
+        check(len(durs) == calls, f"{len(durs)} records of {name} in {calls} calls")
         split[name] = median(durs)
     return split
 
@@ -644,7 +718,7 @@ def jitter(cam, i: int):
 
 def full_size(dev, card: str, prepared, seed: int):
     """The forward path at 1080p with 1M splats; returns K1's report entry
-    and both kernels' bounds at this frame."""
+    and its bound at this frame."""
     cfg = gt.RenderConfig(width=WIDTH, height=HEIGHT, sh_degree=3)
     cam = gt.look_at([0, 0, -7], [0, 0, 0], [0, 1, 0], cfg.width, cfg.height,
                      fov_y_rad=0.9, device=dev)
@@ -695,13 +769,11 @@ def full_size(dev, card: str, prepared, seed: int):
     check(err <= KERNEL_ATOL, f"1080p tiles kernel vs twin {err} > {KERNEL_ATOL}")
     check(agree >= ID_AGREE, f"1080p tiles id agreement {agree}")
 
-    # ---- the bound of both kernels at this frame's shape and data
+    # ---- K1's bound at this frame's shape and data (K2's: the training frame)
     evals, hits = tr.blend_work(bins.attrs, bins.tile_start, bins.tile_count, st)
     n_pairs, n_tiles = int(bins.num_pairs), st.tiles_x * st.tiles_y
     bytes_fwd = n_pairs * (10 * 4 + 4) + n_tiles * (2 * 4 + tr.PIX * (tr.OUT_ROWS * 4 + 4))
-    bytes_bwd = n_pairs * 2 * tr.GRAD_ROWS * 4 + n_tiles * (2 * 4 + tr.PIX * tr.CTX_ROWS * 4)
-    bounds = {"rasterize_fwd": kernel_bound("rasterize_fwd", evals, hits, bytes_fwd),
-              "rasterize_bwd": kernel_bound("rasterize_bwd", evals, hits, bytes_bwd)}
+    bounds = {"rasterize_fwd": kernel_bound("rasterize_fwd", evals, hits, bytes_fwd)}
     log(f"bound 1080p/1M slots: live_pairs={n_pairs} pixel_pair_evaluations={evals} "
         f"hits={hits} hit_share={hits / max(evals, 1):.4f} "
         + " ".join(f"{k}_bound_ms={v[0]:.4f} ({v[1]})" for k, v in bounds.items()))
@@ -743,7 +815,8 @@ def jittered_start(truth: gt.SplatSet, dev, seed: int) -> gt.SplatSet:
 
 def train_full_size(dev, card: str, truth: gt.SplatSet, seed: int):
     """The training path at 1080p with 1M splats: the scene renders its own
-    target; training starts from seeded jitter on means and sh_dc."""
+    target; training starts from seeded jitter on means and sh_dc. Returns
+    K2's report entry and its bound at the training frame."""
     cfg = gt.RenderConfig(width=WIDTH, height=HEIGHT, sh_degree=3)
     cam = gt.look_at([0, 0, -7], [0, 0, 0], [0, 1, 0], cfg.width, cfg.height,
                      fov_y_rad=0.9, device=dev)
@@ -800,8 +873,8 @@ def train_full_size(dev, card: str, truth: gt.SplatSet, seed: int):
     check(bit_equal, "repeat backward differs")
     del first
 
-    # ---- K2 against the twin backward on 64 sampled tiles, with the loss's
-    # own cotangent at the blend
+    # ---- K2 against the twin backward over every tile, with the loss's own
+    # cotangent at the blend; its cull and bound on this frame
     st = raster_statics(cfg)
     stages, c = frame_stages(splats.prepare(), cam, cfg)
     for _, step in stages:
@@ -811,11 +884,17 @@ def train_full_size(dev, card: str, truth: gt.SplatSet, seed: int):
     out = c["out"][0].detach()
     ctx = tr.bwd_context(out, g_out)
     bins = c["bins"]
-    abs_err, rel_err = compare_bwd_with_twin(bins, st, ctx,
-                                             tiles=sample_tiles(bins, st, dev, seed))
-    log(f"64 sampled tiles: K2_vs_twin_max_abs={abs_err:.3e} "
+    n_pairs, n_tiles = int(bins.num_pairs), st.tiles_x * st.tiles_y
+    abs_err, rel_err = compare_bwd_with_twin(bins, st, ctx)
+    log(f"all {n_tiles} tiles: K2_vs_twin_max_abs={abs_err:.3e} "
         f"max_rel_to_row_max={rel_err:.3e}")
-    check(rel_err <= BWD_RTOL, f"1080p tiles K2 vs twin {rel_err} > {BWD_RTOL}")
+    check(rel_err <= BWD_RTOL, f"1080p frame K2 vs twin {rel_err} > {BWD_RTOL}")
+    work, kept = check_pair_cull("K2", bins, st, twin_tiles(st, dev))
+    bytes_bwd = n_pairs * 2 * tr.GRAD_ROWS * 4 + n_tiles * (2 * 4 + tr.PIX * tr.CTX_ROWS * 4)
+    bound, text = pair_bound("rasterize_bwd", work, bytes_bwd, n_tiles)
+    log(f"bound 1080p/1M slots training frame: live_pairs={n_pairs} "
+        f"pixel_pair_evaluations={work[0]} kept_pair_evaluations={work[4]} hits={work[1]} "
+        + text)
 
     # ---- timings (CUDA events, medians after warm-up)
     attrs = bins.attrs.detach()
@@ -833,7 +912,8 @@ def train_full_size(dev, card: str, truth: gt.SplatSet, seed: int):
 
     profile_calls("train_step", lambda: gt.train_step(splats, opt, cam, target, cfg, 0, tc),
                   card)
-    return dict(launches=launches[1], max_abs_err=abs_err, ms=t_k2, plain_ms=t_twin)
+    return dict(launches=launches[1], max_abs_err=abs_err, ms=t_k2, plain_ms=t_twin,
+                kept_share=kept / work[2]), bound
 
 
 # ---- the bucket path (RasterConfig.method="bucket"): K3 and K4 ----------
@@ -917,7 +997,7 @@ def check_cull(label: str, work, k3, k4, model: str, bins, st, caps, batches, pi
 def k4_launches(k4, model: str, bins, st, caps) -> str:
     """K4's three launches (``kernel_split``) and the kept share of its last
     launch, as a log fragment."""
-    split = kernel_split(k4)
+    split = kernel_split(k4, lambda: getattr(rb.rasterize_buckets_bwd, tr.LAUNCH_COUNTER[model]))
     torch.cuda.synchronize()
     kept = int(getattr(rb.rasterize_buckets_bwd, rb.KEPT_COUNTER[model]))
     live = int(rb._tile_spans(bins.bucket_starts, st, caps,
@@ -1559,17 +1639,16 @@ def gut_work(c, cfg):
 
 
 def gut_bounds(c, cfg):
-    """(the gut3d kernels' bounds at this frame, both directions; on the
-    bucket path the kept share of K3g's and K4g's cull, else None)."""
+    """(the gut3d kernels' bounds at this frame: K1g's on the pair path
+    (K2g's comes from the training frame), K3g's and K4g's on the bucket
+    path; there the kept share of their cull, else None)."""
     evals, hits, work = gut_work(c, cfg)
     n_tiles = c["st"].tiles_x * c["st"].tiles_y
     rays = n_tiles * tr.PIX * 6 * 4
     if work is None:
         n_pairs = int(c["bins"].num_pairs)
         fwd = n_pairs * (15 * 4 + 4) + n_tiles * (8 + tr.PIX * (tr.OUT_ROWS * 4 + 4)) + rays
-        bwd = n_pairs * 2 * GRAD_ROWS_GUT * 4 + n_tiles * (8 + tr.PIX * tr.CTX_ROWS * 4) + rays
-        bounds = {"rasterize_fwd_gut3d": kernel_bound("rasterize_fwd_gut3d", evals, hits, fwd),
-                  "rasterize_bwd_gut3d": kernel_bound("rasterize_bwd_gut3d", evals, hits, bwd)}
+        bounds = {"rasterize_fwd_gut3d": kernel_bound("rasterize_fwd_gut3d", evals, hits, fwd)}
         log(f"bound gut3d pairs: live_pairs={n_pairs} pixel_pair_evaluations={evals} "
             f"hits={hits} hit_share={hits / max(evals, 1):.4f} "
             + " ".join(f"{k}_bound_ms={v[0]:.4f} ({v[1]})" for k, v in bounds.items()))
@@ -1698,11 +1777,12 @@ def gut_full_size(dev, card: str, prepared, caps, seed: int):
 def gut_train_full_size(dev, card: str, truth: gt.SplatSet, caps, seed: int):
     """3DGUT training at 1080p with 1M splats on both paths: the scene
     renders its own target; training starts from seeded jitter on means and
-    sh_dc. Returns K2g's and K4g's report entries."""
+    sh_dc. Returns K2g's and K4g's report entries and K2g's bound at the
+    pair path's training frame."""
     base = gt.RenderConfig(width=WIDTH, height=HEIGHT, sh_degree=3)
     cam = gt.look_at([0, 0, -7], [0, 0, 0], [0, 1, 0], WIDTH, HEIGHT, fov_y_rad=0.9, device=dev)
     tc = gt.TrainConfig(scene_extent=4.0)
-    entries = {}
+    entries, bounds = {}, {}
     for method in ("pairs", "bucket"):
         cfg = gut_cfg(base, method=method, caps=caps)
         fwd = rb.rasterize_buckets if method == "bucket" else tr.rasterize_tiles
@@ -1744,8 +1824,9 @@ def gut_train_full_size(dev, card: str, truth: gt.SplatSet, caps, seed: int):
         check(all(same), f"repeat 3DGUT {method} backward differs")
         del first
 
-        # ---- the backward kernel against its twin on 64 sampled tiles, with
-        # the loss's own cotangent at the blend
+        # ---- the backward kernel against its twin (K4g on 64 sampled tiles,
+        # K2g over every tile), with the loss's own cotangent at the blend;
+        # K2g's cull and bound on this frame
         stages, c = gut_stages(splats.prepare(), cam, cfg)
         run_stages(stages)
         (g_out,) = torch.autograd.grad(gt.rgb_loss(c["image"], target, tc.ssim_lambda),
@@ -1753,11 +1834,20 @@ def gut_train_full_size(dev, card: str, truth: gt.SplatSet, caps, seed: int):
         ctx = tr.bwd_context(c["out"][0].detach(), g_out)
         if method == "bucket":
             tiles = sample_bucket_tiles(c["bins"], c["st"], dev, seed)
+            abs_err, _ = compare_gut_bwd(f"K4g on {tiles.numel()} sampled 1080p tiles", c, cfg,
+                                         ctx, tiles)
         else:
-            tiles = sample_tiles(c["bins"], c["st"], dev, seed)
+            bins, st = c["bins"], c["st"]
+            n_pairs, n_tiles = int(bins.num_pairs), st.tiles_x * st.tiles_y
+            abs_err, _ = compare_gut_bwd(f"K2g on all {n_tiles} 1080p tiles", c, cfg, ctx)
+            work, kept = check_pair_cull("K2g", bins, st, tile_batches(st, dev), c["pix"])
+            bwd = (n_pairs * 2 * GRAD_ROWS_GUT * 4 + n_tiles * (8 + tr.PIX * tr.CTX_ROWS * 4)
+                   + n_tiles * tr.PIX * 6 * 4)
+            bounds["rasterize_bwd_gut3d"], text = pair_bound("rasterize_bwd_gut3d", work, bwd,
+                                                             n_tiles)
+            log(f"bound gut3d pairs training frame: live_pairs={n_pairs} "
+                f"pixel_pair_evaluations={work[0]} hits={work[1]} " + text)
         kname = "K4g" if method == "bucket" else "K2g"
-        abs_err, rel_err = compare_gut_bwd(f"{kname} on {tiles.numel()} sampled 1080p tiles",
-                                           c, cfg, ctx, tiles)
         t_k = median(time_ms(lambda: gut_kernel_bwd(c, cfg, ctx), 10))
         t_twin = median(time_ms(lambda: gut_twin_bwd(c, cfg, ctx), 1, warmup=1))
         split = ""
@@ -1776,8 +1866,10 @@ def gut_train_full_size(dev, card: str, truth: gt.SplatSet, caps, seed: int):
                           lambda: gt.train_step(splats, opt, cam, target, cfg, 0, tc), card)
         name = "raster_bucket_bwd_gut3d" if method == "bucket" else "rasterize_bwd_gut3d"
         entries[name] = dict(launches=launches[1], max_abs_err=abs_err, ms=t_k, plain_ms=t_twin)
+        if method == "pairs":
+            entries[name]["kept_share"] = kept / work[2]
         del splats, opt, target
-    return entries
+    return entries, bounds
 
 
 def bit_equal(label: str, got: torch.Tensor, want: torch.Tensor) -> float:
@@ -1991,7 +2083,7 @@ def main() -> int:
     truth = bench_scene(dev, SPLATS, seed=0)
     fwd, bounds = full_size(dev, card, truth.prepare(), seed=0)
     fwd["max_abs_err"] = max(fwd["max_abs_err"], err_golden)
-    bwd = train_full_size(dev, card, truth, seed=0)
+    bwd, bounds["rasterize_bwd"] = train_full_size(dev, card, truth, seed=0)
     bwd["max_abs_err"] = max(bwd["max_abs_err"], err_golden_bwd)
 
     err_golden_k3 = golden_bucket(dev)
@@ -2008,7 +2100,7 @@ def main() -> int:
     golden_fwd, golden_bwd = golden_gut(dev)
     gut_camera_effects(dev)
     gut_fwd, gut_bounds_ = gut_full_size(dev, card, truth.prepare(), caps, seed=0)
-    gut_bwd = gut_train_full_size(dev, card, truth, caps, seed=0)
+    gut_bwd, gut_bwd_bounds = gut_train_full_size(dev, card, truth, caps, seed=0)
     # K4g's cull keeps the lanes K3g's keeps on the same frame (check_cull)
     gut_bwd["raster_bucket_bwd_gut3d"]["kept_share"] = gut_fwd["raster_bucket_fwd_gut3d"][
         "kept_share"]
@@ -2022,6 +2114,7 @@ def main() -> int:
     results.update(gut_fwd)
     results.update(gut_bwd)
     bounds.update(gut_bounds_)
+    bounds.update(gut_bwd_bounds)
     probe_entries, probe_bounds, library = probes(dev, card)
     results.update(probe_entries)
     bounds.update(probe_bounds)

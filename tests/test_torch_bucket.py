@@ -488,24 +488,31 @@ def f32_next(x, toward):
     return float(np.nextafter(np.float32(x), np.float32(toward)))
 
 
-def adversarial_gs2d_bins():
-    """(bins, st, caps, picked columns, rows): small_bins with its first live
-    columns rewritten, each centred on a pixel of a reading tile (x offset
+def adversarial_gs2d_rows(st):
+    """(opacity, conic a, b, c, x offset) rows at the gs2d predicate's edges,
+    each to be put on a pixel centre of a tile that reads it (x offset
     aside): opacity at alpha_min and one ulp either side; near-singular,
-    indefinite, negative-definite and zero conics; NaN and inf rows."""
-    bins, st, caps = small_bins(n=300, scale_range=(-5.0, -1.0))
-    tiles = torch.arange(st.tiles_x * st.tiles_y)
-    lists = rb._tile_lists(bins.attrs, bins.bucket_starts, st, caps, tiles)
-    lanes = lists.cols.view(tiles.shape[0], -1)
+    indefinite, negative-definite and zero conics; NaN and inf rows. Rows
+    0-1 hit, row 2 cannot and is culled, rows 3-12 must be kept."""
     amin = float(np.float32(st.alpha_min))
     nan, inf = float("nan"), float("inf")
-    # (opacity, conic a, b, c, x offset); x, y on a pixel centre of a reading tile
-    rows = [(amin, 0.5, 0.0, 0.5, 0), (f32_next(amin, 1), 0.5, 0.0, 0.5, 0),
+    return [(amin, 0.5, 0.0, 0.5, 0), (f32_next(amin, 1), 0.5, 0.0, 0.5, 0),
             (f32_next(amin, 0), 0.5, 0.0, 0.5, 0), (0.9, 0.5, 0.4999999, 0.5, 0),
             (0.9, 2.0, 1.9999999, 2.0, 30), (0.9, 0.5, 0.8, 0.5, 30),
             (0.9, -0.5, 0.0, -0.5, 30), (0.9, 0.0, 0.0, 0.0, 30), (0.9, 0.5, 0.0, 0.5, nan),
             (nan, 0.5, 0.0, 0.5, 0), (inf, 0.5, 0.0, 0.5, 40), (0.9, inf, 0.0, 0.5, 0),
             (0.9, 0.5, nan, 0.5, 0), (f32_next(amin, 0), 1e-30, 0.0, 1e-30, 0)]
+
+
+def adversarial_gs2d_bins():
+    """(bins, st, caps, picked columns, rows): small_bins with its first live
+    columns rewritten to ``adversarial_gs2d_rows``, each centred on a pixel
+    of a reading tile (x offset aside)."""
+    bins, st, caps = small_bins(n=300, scale_range=(-5.0, -1.0))
+    tiles = torch.arange(st.tiles_x * st.tiles_y)
+    lists = rb._tile_lists(bins.attrs, bins.bucket_starts, st, caps, tiles)
+    lanes = lists.cols.view(tiles.shape[0], -1)
+    rows = adversarial_gs2d_rows(st)
     attrs = bins.attrs.clone()
     picked = torch.unique(lists.cols[lists.cols >= 0])[:len(rows)]
     for col, (op, a, b, c, dx) in zip(picked.tolist(), rows):

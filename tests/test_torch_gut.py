@@ -32,6 +32,12 @@ Tolerances, each with its reason:
   2e-3 (tests/test_gut.py:136's bound): a flipped cutoff moves one
   pair-pixel's whole gradient.
 
+The per-tile cull of the gut3d pair lists (K2g's instance does not cull,
+``Model.cull_pairs``): ``pair_may_hit`` keeps every pair that hits, and the
+backward twin with the culled pairs taken out equals the full sweep bit for
+bit, at degrees 0, 1 and 2 under pinhole, fisheye and rolling-shutter
+cameras.
+
 JAX programs built here: five frames and two gradients (seven Pallas
 interpret programs), plus plain XLA programs for projections, rays and the
 response model.
@@ -66,6 +72,7 @@ from vk_gaussian_splatting_tpu_torch.render import rays as trays
 from vk_gaussian_splatting_tpu_torch.render import render
 from vk_gaussian_splatting_tpu_torch.scene import cameras as tcam
 from test_torch_bucket import assert_culled_sweep_changes_nothing
+from test_torch_rasterize import assert_culled_backward_changes_nothing, assert_pair_cull_is_exact
 
 torch.set_num_threads(2)
 
@@ -687,3 +694,38 @@ def test_gut3d_culled_sweep_changes_nothing(degree, camera):
     ids = torch.arange(attrs.shape[1], dtype=torch.int32)  # each slot its own id
     culled = assert_culled_sweep_changes_nothing(attrs, ids, starts, st, caps, pix)
     assert culled > 0.3
+
+
+# ---- K2g's per-tile cull of the pair lists -----------------------------------
+
+def pair_cull_inputs(degree, camera, seed=4, n=1000, w=W, h=H):
+    """cull_inputs' scene of mixed scales on the pair path (slots binning):
+    (TileBins, statics, rays) at w x h."""
+    cfg_kw, cam_kw, shift = CULL_CAMERAS[camera]
+    _, cfg = named_cfgs(dict(cfg_kw, pipeline="MESH_3DGUT", rt=dict(kernel_degree=degree)),
+                        width=w, height=h)
+    cam, _ = cameras(w, h, shift=shift, **cam_kw)
+    d = interop.random_splat_arrays(seed, n, sh_degree=1, extent=3.0, scale_range=(-3.5, -0.5))
+    prep = interop.splat_set_from_numpy(d, "cpu").prepare()
+    proj = ut_project_splats(prep, cam, cfg)
+    rows, ids = tp.gut_attr_rows(prep, proj, cfg)
+    st = tp.gut_statics(tp.raster_statics(cfg), cfg)
+    return tp.bin_for_cfg(proj, rows.detach(), ids, cfg, 0, st), st, trays.build_tile_rays(cam, cfg)
+
+
+@pytest.mark.parametrize("camera", ["pinhole", "fisheye", "rolling"])
+@pytest.mark.parametrize("degree", [0, 1, 2])
+def test_gut3d_pair_cull_is_exact(degree, camera):
+    bins, st, pix = pair_cull_inputs(degree, camera)
+    may, _, live = assert_pair_cull_is_exact(bins, st, pix)
+    assert may.sum() < live.sum()  # the UT rects are opacity-bounded: few pairs culled
+
+
+@pytest.mark.parametrize("camera", ["pinhole", "fisheye", "rolling"])
+@pytest.mark.parametrize("degree", [0, 1, 2])
+def test_gut3d_culled_pair_backward_changes_nothing(degree, camera):
+    """The pairs the cull drops change no gradient: the backward twin
+    with them taken out equals the full sweep bit for bit, the culled
+    columns exactly zero."""
+    bins, st, pix = pair_cull_inputs(degree, camera)
+    assert assert_culled_backward_changes_nothing(bins, st, pix) > 0.0

@@ -8,8 +8,17 @@ TPU kernel's log-shift scan multiply in different orders, and XLA's exp
 differs from torch's in the last ulp); picked depth 1e-5 where both picked
 the same splat; picked id equal on at least 99.9% of pixels (a transmittance
 within an ulp of depth_iso may pick one pair later or earlier).
+
+K2's per-tile cull of the pair lists (``pair_may_hit``) must keep every
+pair that hits (``pair_hits``), and the backward twin with the culled
+pairs taken out (zero rows) must equal the full sweep bit for bit. The batched reduction of
+csrc/rasterize_bwd.cu is modelled in numpy against the per-row warp sums it
+replaced, bit for bit.
 """
 
+
+import dataclasses
+import os
 
 import jax
 import jax.numpy as jnp
@@ -31,8 +40,12 @@ from vk_gaussian_splatting_tpu_torch import interop
 from vk_gaussian_splatting_tpu_torch.ops import _build
 from vk_gaussian_splatting_tpu_torch.ops import rasterize as tr
 from vk_gaussian_splatting_tpu_torch.ops import response as tresp
+from vk_gaussian_splatting_tpu_torch.io import load_ply
+from vk_gaussian_splatting_tpu_torch.ops.projection import project_splats
+from vk_gaussian_splatting_tpu_torch.render.pipelines import bin_for_cfg, gs_attr_rows
 from vk_gaussian_splatting_tpu_torch.render.pipelines import raster_statics as t_statics
 from vk_gaussian_splatting_tpu_torch.scene import cameras as tcam
+from test_torch_bucket import adversarial_gs2d_rows
 
 torch.set_num_threads(2)
 
@@ -245,3 +258,174 @@ def test_library_path_is_keyed_by_source():
     assert path == _build.library_path("rasterize_fwd")
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     assert "--use_fast_math" not in _build.NVCC_FLAGS
+
+
+# ---- K2's per-tile cull of the pair lists ------------------------------------
+
+GOLDEN = os.path.join(os.path.dirname(__file__), "..", "assets", "golden")
+
+
+def port_pair_bins(scene):
+    """(TileBins, statics) of the port's own projection and slot binning at
+    W x H: the golden scene (27,627 trained splats, SH 0) or 3,000 random
+    splats ("dense")."""
+    cfg = tc.RenderConfig(width=W, height=H, sh_degree=0 if scene == "golden" else 1)
+    if scene == "golden":
+        splats = load_ply(os.path.join(GOLDEN, "golden_scene.ply"), device="cpu")
+        eye, target = [0, -1.5, -7.0], [0, 0.5, 0]
+    else:
+        d = interop.random_splat_arrays(0, 3000, sh_degree=1, scale_range=(-3.5, -1.5))
+        splats = interop.splat_set_from_numpy(d, "cpu")
+        eye, target = [0.2, -0.3, -9.0], [0, 0, 0]
+    cam = tcam.look_at(eye, target, [0, 1, 0], W, H, fov_y_rad=0.9, device="cpu")
+    proj = project_splats(splats.prepare(), cam, cfg)
+    rows, ids = gs_attr_rows(proj)
+    return bin_for_cfg(proj, rows.detach(), ids, cfg, 0), t_statics(cfg)
+
+
+def adversarial_pair_bins():
+    """(bins, st, picked pairs, rows): the dense scene with the first pair of
+    each of the first busy tiles rewritten to ``adversarial_gs2d_rows``,
+    centred on a pixel of that pair's own tile (x offset aside)."""
+    bins, st = port_pair_bins("dense")
+    rows = adversarial_gs2d_rows(st)
+    busy = torch.nonzero(bins.tile_count > 0).flatten()[:len(rows)]
+    attrs = bins.attrs.clone()
+    for t, (op, a, b, c, dx) in zip(busy.tolist(), rows):
+        col = int(bins.tile_start[t])
+        attrs[0, col] = (t % st.tiles_x) * 16 + 3.5 + dx
+        attrs[1, col] = (t // st.tiles_x) * 16 + 5.5
+        attrs[2:6, col] = torch.tensor([a, b, c, op])
+    return dataclasses.replace(bins, attrs=attrs), st, bins.tile_start[busy].long(), rows
+
+
+def pair_cull_bins(scene):
+    if scene == "adversarial":
+        return adversarial_pair_bins()[:2]
+    return port_pair_bins(scene)
+
+
+def assert_pair_cull_is_exact(bins, st, pix_ctx=None):
+    """``pair_may_hit`` keeps every pair whose alpha passes the cutoffs at
+    some pixel of its tile (``pair_hits``, frozen pixels too), and marks no
+    pair outside the tiles' lists; the hit test sees every hit of the
+    twin's sweep. Returns (kept, hit, live) masks."""
+    args = (bins.attrs, bins.tile_start, bins.tile_count, st)
+    may = tr.pair_may_hit(*args, pix_ctx=pix_ctx)
+    hit = tr.pair_hits(*args, pix_ctx=pix_ctx)
+    live = torch.arange(bins.attrs.shape[1]) < int(bins.num_pairs)
+    assert may.shape == hit.shape == live.shape
+    assert not (may & ~live).any() and not (hit & ~live).any()
+    assert hit.any()
+    assert int((hit & ~may).sum()) == 0, "the cull dropped a pair that hits"
+    swept = torch.zeros_like(live)
+    tiles = torch.arange(st.tiles_x * st.tiles_y)
+    for s in tr._blend_steps(*args, tiles, pix_ctx)[1]:
+        swept[s.pc[(s.alpha > 0).any(dim=1)]] = True
+    assert not (swept & ~hit).any()
+    return may, hit, live
+
+
+@pytest.mark.parametrize("scene", ["golden", "dense", "adversarial"])
+def test_pair_cull_is_exact(scene):
+    bins, st = pair_cull_bins(scene)
+    may, hit, live = assert_pair_cull_is_exact(bins, st)
+    assert 1.0 - may.sum().item() / live.sum().item() > 0.05  # the square rects lose pairs
+
+
+def test_pair_cull_on_adversarial_gs2d_rows():
+    """Nothing that hits is culled, the opacity one ulp below alpha_min is,
+    and every non-finite or non-positive-definite row is kept."""
+    bins, st, picked, rows = adversarial_pair_bins()
+    may, hit, _ = assert_pair_cull_is_exact(bins, st)
+    kept, hits = may[picked].tolist(), hit[picked].tolist()
+    assert hits[0] and hits[1] and not hits[2]                       # alpha_min is inclusive
+    assert kept[0] and kept[1] and not kept[2]
+    assert all(kept[3:13]), kept                                     # degenerate or not finite
+
+
+def culled_backward(bins, st, ctx, pix_ctx=None, drop=None):
+    """The backward twin over every pair, with the pairs of ``drop`` made
+    "no pair" in place: zero rows, whose alpha fails the cutoffs in every
+    model. The sweep K2 runs where it culls, which stages only the kept
+    pairs and stores nothing for the others."""
+    attrs = bins.attrs.clone()
+    if drop is not None:
+        attrs[:, drop] = 0.0
+    return tr.rasterize_tiles_bwd_ref(attrs, bins.tile_start, bins.tile_count, ctx, st,
+                                      pix_ctx=pix_ctx)
+
+
+def assert_culled_backward_changes_nothing(bins, st, pix_ctx=None):
+    """The backward twin, and the twin with every pair ``pair_may_hit``
+    culls taken out, on the cotangent of a seeded normal: equal bit for bit
+    (NaN where a non-finite row makes both NaN), the culled pairs' columns
+    exactly zero in both. Returns the share of the pairs culled."""
+    args = (bins.attrs, bins.tile_start, bins.tile_count)
+    out, _ = tr.rasterize_tiles_ref(bins.attrs, bins.pair_id, bins.tile_start,
+                                    bins.tile_count, st, pix_ctx=pix_ctx)
+    g = torch.from_numpy(np.random.default_rng(5).normal(size=out.shape).astype(np.float32))
+    ctx = tr.bwd_context(out, g)
+    full = tr.rasterize_tiles_bwd_ref(*args, ctx, st, pix_ctx=pix_ctx)
+    torch.testing.assert_close(culled_backward(bins, st, ctx, pix_ctx), full, rtol=0, atol=0,
+                               equal_nan=True)                       # the helper is the twin
+    live = torch.arange(bins.attrs.shape[1]) < int(bins.num_pairs)
+    drop = live & ~tr.pair_may_hit(*args, st, pix_ctx=pix_ctx)
+    got = culled_backward(bins, st, ctx, pix_ctx, drop)
+    torch.testing.assert_close(got, full, rtol=0, atol=0, equal_nan=True)
+    assert (got[:, drop] == 0).all() and (full[:, drop] == 0).all()
+    assert (torch.nan_to_num(full) != 0).any()
+    return drop.sum().item() / live.sum().item()
+
+
+@pytest.mark.parametrize("scene", ["golden", "dense", "adversarial"])
+def test_culled_backward_changes_nothing_gs2d(scene):
+    """K2 stages only the pairs the cull keeps: on the golden frame, the
+    dense scene and the adversarial rows, the backward twin without the
+    culled pairs equals the full twin bit for bit."""
+    bins, st = pair_cull_bins(scene)
+    assert assert_culled_backward_changes_nothing(bins, st) > 0.05
+
+
+def butterfly(v: np.ndarray) -> np.ndarray:
+    """(N,) per-value warp sums of (32 lanes, N) f32 values, as lane 0 of a
+    warp_sum per value gets them: v += shfl_xor(v, h) for h = 16, 8, 4, 2, 1."""
+    lanes = np.arange(32)
+    for h in (16, 8, 4, 2, 1):
+        v = v + v[lanes ^ h]
+    return v[0]
+
+
+def reduce_scatter(v: np.ndarray) -> np.ndarray:
+    """(32,) numpy model of csrc/rasterize_bwd.cu's reduce_scatter over (32
+    lanes, N) f32 values, N = 32 or 16: what lane l holds at the end."""
+    lanes, n = np.arange(32), v.shape[1]
+    for h in (16, 8, 4, 2, 1):
+        if h >= n:
+            v = v + v[lanes ^ h]
+        else:
+            upper = ((lanes & h) != 0)[:, None]
+            send = np.where(upper, v[:, :h], v[:, h:2 * h])
+            keep = np.where(upper, v[:, h:2 * h], v[:, :h])
+            v = keep + send[lanes ^ h]
+    return v[:, 0]
+
+
+@pytest.mark.parametrize("n", [32, 16])
+@pytest.mark.parametrize("seed", [0, 1, 2, 3])
+def test_reduce_scatter_sums_as_the_warp_sums_bit_for_bit(seed, n):
+    """Lane l ends with the warp sum of value l % n, the same bits as a
+    butterfly warp_sum of that value: each is summed by the same tree (the
+    pairs at xor 16 first, then 8, 4, 2, 1), and an f32 add commutes. The
+    values span magnitudes and half are zero (pixels that do not hit), so
+    another summation order differs somewhere."""
+    rng = np.random.default_rng(seed)
+    v = (rng.normal(size=(32, n)) * 10.0 ** rng.uniform(-3, 3, (32, n))).astype(np.float32)
+    v[rng.random((32, n)) < 0.5] = 0.0
+    got = reduce_scatter(v)
+    want = butterfly(v)[np.arange(32) % n]
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+    serial = np.zeros(n, np.float32)
+    for lane in range(32):
+        serial = serial + v[lane]
+    assert (serial != butterfly(v)).any()

@@ -1,7 +1,8 @@
 // What the bucket-grid tile kernels share (csrc/raster_bucket_fwd.cu, K3,
-// and csrc/raster_bucket_bwd.cu, K4): a tile's six window spans, the merge
-// of their depth-sorted runs into one list, in shared memory, and the
-// compaction of the lanes each blend step's per-tile cull keeps.
+// and csrc/raster_bucket_bwd.cu, K4): a tile's six window spans and the
+// merge of their depth-sorted runs into one list, in shared memory. (The
+// compaction of the lanes each blend step's cull keeps, which K2 shares
+// too, is response::kept_place.)
 //
 // Spans (ops/bucket_grid.window_span_table): 0 the tile's own fine bucket,
 // 1-2 the mid rows, 3-4 the coarse rows, 5 the global bucket, each one
@@ -110,28 +111,6 @@ __device__ inline void merge_spans(const Spans& sp, const float* __restrict__ de
     if (rank < n) order[rank] = g;
   }
   __syncthreads();
-}
-
-// One round of a blend step's cull: thread i holds lane r0 + i of the step
-// (round r0 / PIX), in merged order, and `keep` says whether the model's
-// may_hit kept it. Returns the lane's place among the step's kept lanes, in
-// merged order (meaningful where keep), and adds the round's kept lanes to
-// n_kept in every thread: a warp ballot, the warps' counts and the rounds
-// before. Rounds alternate between the two buffers of `count`, so one
-// barrier per round suffices. All threads call it, once per round.
-__device__ inline int kept_place(bool keep, int round, int (*count)[WARPS], int& n_kept) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const unsigned ballot = __ballot_sync(0xffffffffu, keep);
-  int* c = count[round & 1];
-  if (lane == 0) c[warp] = __popc(ballot);
-  __syncthreads();
-  int before = n_kept + __popc(ballot & ((1u << lane) - 1u));
-  #pragma unroll
-  for (int w = 0; w < WARPS; ++w) {
-    before += w < warp ? c[w] : 0;
-    n_kept += c[w];
-  }
-  return before;
 }
 
 }  // namespace bucket

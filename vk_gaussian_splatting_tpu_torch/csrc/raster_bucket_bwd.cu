@@ -105,7 +105,7 @@ raster_bucket_bwd_tiles(const float* __restrict__ attrs, long long stride,
   int* s_col = (int*)(s_attr + M::BWD_SLOTS * chunk);    // [chunk] fine column or -1
   int* s_slot = s_col + chunk;                           // [chunk] scratch slot or -1
   __shared__ float s_part[WARPS][GRAD_ROWS][SUB];
-  __shared__ int s_count[2][WARPS];                      // bucket::kept_place's buffers
+  __shared__ int s_count[2][WARPS];                      // response::kept_place's buffers
   __shared__ bucket::Spans sp;
   __shared__ typename M::TileBound bound;
 
@@ -141,7 +141,7 @@ raster_bucket_bwd_tiles(const float* __restrict__ attrs, long long stride,
     const int n = e - lo;
     // Stage the step's kept lanes, compacted in their merged order: thread i
     // takes lane r0 + i of each round of PIX lanes, stages it in registers
-    // and asks may_hit; bucket::kept_place gives each kept lane its place.
+    // and asks may_hit; response::kept_place gives each kept lane its place.
     // A culled lane adds exact zeros to T, s_run and every sum: a fine one
     // keeps the zero d_attrs holds, a shared one writes zeros to its
     // scratch slot here.
@@ -166,7 +166,7 @@ raster_bucket_bwd_tiles(const float* __restrict__ attrs, long long stride,
             scratch[row * scratch_stride + slot0 + slot] = 0.0f;
         }
       }
-      const int before = bucket::kept_place(keep, r0 / PIX, s_count, n_kept);
+      const int before = response::kept_place(keep, r0 / PIX, s_count, n_kept);
       if (keep) {
         #pragma unroll
         for (int r = 0; r < M::BWD_SLOTS; ++r) s_attr[r * chunk + before] = lane_slots[r];

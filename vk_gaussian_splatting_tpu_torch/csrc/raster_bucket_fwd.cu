@@ -24,7 +24,7 @@
 //    culls: false only where the alpha fails the cutoffs at every pixel of
 //    the tile): thread i stages lane r0 + i of each round of 256 in
 //    registers as the model's backward slots, which may_hit reads, and asks
-//    it; bucket::kept_place compacts the kept lanes in merged order, and
+//    it; response::kept_place compacts the kept lanes in merged order, and
 //    only they are written to shared memory as the model's forward slots
 //    (the backward slots before the depth, then the depth row) with the
 //    int32 id. Then every pixel (gut3d: its ray from the pixel context, in
@@ -82,7 +82,7 @@ raster_bucket_fwd_kernel(const float* __restrict__ attrs, long long stride,
   int* order = (int*)(keys + c_total);                   // [c_total]
   float* s_attr = (float*)(order + c_total);             // [FWD_SLOTS][chunk]
   int* s_id = (int*)(s_attr + M::FWD_SLOTS * chunk);     // [chunk]
-  __shared__ int s_count[2][bucket::WARPS];              // bucket::kept_place's buffers
+  __shared__ int s_count[2][bucket::WARPS];              // response::kept_place's buffers
   __shared__ bucket::Spans sp;
   __shared__ typename M::TileBound bound;
 
@@ -124,7 +124,7 @@ raster_bucket_fwd_kernel(const float* __restrict__ attrs, long long stride,
         M::stage_bwd(attrs, stride, col, lane_slots, 1, 0);
         keep = M::may_hit(lane_slots, 1, 0, bound, prm);
       }
-      const int at = bucket::kept_place(keep, r0 / PIX, s_count, n_kept);
+      const int at = response::kept_place(keep, r0 / PIX, s_count, n_kept);
       if (keep) {
         #pragma unroll
         for (int r = 0; r < M::DEPTH_SLOT; ++r) s_attr[r * chunk + at] = lane_slots[r];

@@ -39,21 +39,24 @@
 // kernel and its twin on one card agree bit for bit on every alpha.
 //
 // The per-tile cull of the bucket kernels, forward and backward
-// (csrc/raster_bucket_fwd.cu, K3; csrc/raster_bucket_bwd.cu, K4): each
-// model's TileBound is computed once per block (tile_bound, called by all
-// PIX threads), and may_hit(s, ss, j, bound, prm) reads a lane's staged
-// backward slots and answers false only where eval provably fails at every
-// pixel of the tile. K3 stages those slots in registers for the test and
-// stores the forward slots from them: the backward slots before
-// DEPTH_SLOT, then the depth. may_hit's geometry runs in double from the
-// f32 slots eval reads. A NaN, an inf or a degenerate shape answers true:
-// every test is written so that a NaN falls to "keep". Margins: each radius grows by
-// CULL_REL = 1e-3 of itself plus an absolute term (gs2d 1e-2 px; gut3d
-// 1e-7 of the distance from the tile's rays), the cutoffs are loosened by
-// 1e-3 (gs2d, in the quadratic form) and 1e-5 (gut3d, in -ln of the
-// response), and on top each model adds a bound of eval's f32 rounding
-// (below), so rounding can never turn a culled lane into a hit. The plain
-// twin, term for term, is ops/raster_bucket.tile_may_hit.
+// (csrc/raster_bucket_fwd.cu, K3; csrc/raster_bucket_bwd.cu, K4), and of
+// the pair backward (csrc/rasterize_bwd.cu, K2): each model's TileBound is
+// computed once per block (tile_bound, called by all PIX threads), and
+// may_hit(s, ss, j, bound, prm) reads a lane's staged backward slots and
+// answers false only where eval provably fails at every pixel of the tile;
+// kept_place (below) compacts each blend step's kept lanes in list order.
+// K2 and K3 stage those slots in registers for the test (K3 stores the
+// forward slots from them: the backward slots before DEPTH_SLOT, then the
+// depth). may_hit's geometry runs in double from the f32 slots eval reads.
+// A NaN, an inf or a degenerate shape answers true: every test is written
+// so that a NaN falls to "keep". Margins: each radius grows by CULL_REL =
+// 1e-3 of itself plus an absolute term (gs2d 1e-2 px; gut3d 1e-7 of the
+// distance from the tile's rays), the cutoffs are loosened by 1e-3 (gs2d,
+// in the quadratic form) and 1e-5 (gut3d, in -ln of the response), and on
+// top each model adds a bound of eval's f32 rounding (below), so rounding
+// can never turn a culled lane into a hit. The plain twin, term for term,
+// is ops/response.may_hit (per lane of a bucket window:
+// ops/raster_bucket.tile_may_hit; per pair: ops/rasterize.pair_may_hit).
 
 #pragma once
 
@@ -63,6 +66,7 @@ namespace response {
 
 constexpr int TILE = 16;
 constexpr int PIX = TILE * TILE;   // threads per block, pixels per tile
+constexpr int WARPS = PIX / 32;
 constexpr int PIX_ROWS = 8;        // pixel-context rows per tile: 0-2 d, 3-5 o
 constexpr double CULL_REL = 1e-3;  // relative growth of every cull radius
 
@@ -106,6 +110,10 @@ __device__ inline Pixel load_pixel(int t, int tiles_x, int i, const float* __res
 }
 
 struct Gs2d {
+  // K2 (csrc/rasterize_bwd.cu) culls the pair lists (may_hit, below) and
+  // reduces 3 pairs' 9 gradient rows at once
+  static constexpr bool CULL_PAIRS = true;
+  static constexpr int PAIR_GROUP = 3;
   static constexpr int ROWS = 10;       // f32 attribute rows
   static constexpr int DEPTH_ROW = 9;   // aux pick and bucket merge key
   static constexpr int GRAD_ROWS = 9;   // rows 0-8 get gradients
@@ -227,6 +235,13 @@ __device__ inline float kernel_response_slope(float d, float resp, int degree) {
 }
 
 struct Gut3d {
+  // K2 neither culls gut3d's pair lists nor reduces more than one pair at
+  // once: the UT rect that cuts the lists already bounds the opacity (the
+  // cull keeps 96 % of the pairs at 1080p), and on an H100 both made K2g
+  // slower, the cull by its f64 tests, two pairs by the registers the
+  // first pair's 14 rows hold through the second's VJP (PERF.md §6).
+  static constexpr bool CULL_PAIRS = false;
+  static constexpr int PAIR_GROUP = 1;
   static constexpr int ROWS = 15;
   static constexpr int DEPTH_ROW = 14;
   static constexpr int GRAD_ROWS = 14;  // rows 0-13; rows 6-8 from the blend
@@ -508,5 +523,27 @@ struct Gut3d {
     return !(nearest > r);
   }
 };
+
+// One round of a blend step's cull: thread i holds lane r0 + i of the step
+// (round r0 / PIX), in list order, and `keep` says whether the model's
+// may_hit kept it. Returns the lane's place among the step's kept lanes, in
+// list order (meaningful where keep), and adds the round's kept lanes to
+// n_kept in every thread: a warp ballot, the warps' counts and the rounds
+// before. Rounds alternate between the two buffers of `count`, so one
+// barrier per round suffices. All threads call it, once per round.
+__device__ inline int kept_place(bool keep, int round, int (*count)[WARPS], int& n_kept) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const unsigned ballot = __ballot_sync(0xffffffffu, keep);
+  int* c = count[round & 1];
+  if (lane == 0) c[warp] = __popc(ballot);
+  __syncthreads();
+  int before = n_kept + __popc(ballot & ((1u << lane) - 1u));
+  #pragma unroll
+  for (int w = 0; w < WARPS; ++w) {
+    before += w < warp ? c[w] : 0;
+    n_kept += c[w];
+  }
+  return before;
+}
 
 }  // namespace response

@@ -55,9 +55,9 @@ from vk_gaussian_splatting_tpu_torch.ops.bucket_grid import (
 )
 from vk_gaussian_splatting_tpu_torch.ops.rasterize import (
     CTX_ROWS,
+    KEPT_COUNTER,
     OUT_ROWS,
     PIX,
-    TILE,
     RasterStatics,
     _check,
     _ptr,
@@ -71,14 +71,10 @@ from vk_gaussian_splatting_tpu_torch.ops.rasterize import (
     rasterize_tiles_bwd_ref,
     rasterize_tiles_ref,
 )
-from vk_gaussian_splatting_tpu_torch.ops.response import alpha, model_of
+from vk_gaussian_splatting_tpu_torch.ops.response import alpha, may_hit, model_of, tile_bound
 
 MAX_BUCKET_CHUNK = 1024  # csrc/raster_bucket_{fwd,bwd}.cu stage at most this many lanes
 READER_SEGMENT = 64      # K4's reduce sums a shared column over at most this many tiles per pass
-# the kept-lane count of the last launch of K3 and of K4, an attribute of
-# each wrapper (rasterize_buckets, rasterize_buckets_bwd), per model
-KEPT_COUNTER = {"gs2d": "kept", "gut3d": "kept_gut3d"}
-CULL_REL = 1e-3          # csrc/response.cuh: relative growth of every cull radius
 
 
 def _span_sizes(caps: tuple) -> list[int]:
@@ -248,106 +244,7 @@ def rasterize_buckets_bwd_ref(attrs: torch.Tensor, bucket_starts: torch.Tensor,
     return layout.splat_sums(d_lanes[:, live][:, order])
 
 
-# ---- the per-tile cull of K3 and K4 (csrc/response.cuh may_hit), plainly ---
-
-def _f32(x: float) -> float:
-    """A statics value as the C entry points get it (an f32 argument)."""
-    return float(torch.tensor(x, dtype=torch.float32))
-
-
-def _gs2d_may_hit(blk: torch.Tensor, tiles: torch.Tensor, st: RasterStatics) -> torch.Tensor:
-    """Gs2d::may_hit over (rows, n, L) f32 lane rows of the tiles ``tiles``
-    (n,), term for term in double: False only where the conic is positive
-    definite and either opacity < alpha_min or the bounding box of d <= tau
-    (inflated) misses the tile's pixel centres."""
-    v = blk[:6].double()
-    x, y, ca, cb, cc, op = v
-    amin = _f32(st.alpha_min)
-    x0 = ((tiles % st.tiles_x) * TILE).double()[:, None] + 0.5
-    y0 = ((tiles // st.tiles_x) * TILE).double()[:, None] + 0.5
-    x1, y1 = x0 + (TILE - 1), y0 + (TILE - 1)
-    det = ca * cc - cb * cb
-    total = ca + cb.abs() + cc
-    err = 1e-6 * (total * total / det)
-    sure = torch.isfinite(v).all(dim=0) & (amin > 0) & (ca > 0) & (det > 0) & (err <= 0.25)
-    tau = torch.fmin(torch.tensor(_f32(st.qmax), dtype=torch.float64),
-                     2.0 * torch.log(op / amin)) + 1e-3
-    grow = 1.0 + CULL_REL + err
-    rx = torch.sqrt(tau * cc / det) * grow + 1e-2
-    ry = torch.sqrt(tau * ca / det) * grow + 1e-2
-    miss = (x + rx < x0) | (x - rx > x1) | (y + ry < y0) | (y - ry > y1)
-    return ~(sure & ((op < amin) | miss))
-
-
-def _gut3d_tile_bound(pix: torch.Tensor):
-    """Gut3d::tile_bound of (n, 8, 256) pixel contexts: (valid (n,), mean
-    origin c (n, 3), axis a (n, 3), rho, cos_t, sin_t (n,)), in double."""
-    d, o = pix[:, 0:3].double(), pix[:, 3:6].double()
-    dd = (d * d).sum(dim=1)                                          # (n, 256)
-    valid = (torch.isfinite(d).all(dim=1) & torch.isfinite(o).all(dim=1) & (dd > 0)).all(dim=1)
-    c = o.sum(dim=2) / PIX
-    ds = d.sum(dim=2)
-    a = ds / torch.sqrt((ds * ds).sum(dim=1, keepdim=True))
-    rho = torch.sqrt(((o - c[..., None]) ** 2).sum(dim=1).amax(dim=1))
-    cos_t = ((d * a[..., None]).sum(dim=1) / torch.sqrt(dd)).amin(dim=1)
-    sin_t = torch.sqrt(torch.clamp(1.0 - cos_t * cos_t, min=0.0))
-    return valid, c, a, rho, cos_t, sin_t
-
-
-def _cut_distance(thr: torch.Tensor, degree: int) -> torch.Tensor:
-    """Gut3d::cut_distance: sqrt(D) below which K_degree(D) > thr."""
-    g = -torch.log(thr) * (1.0 + 1e-5) + 1e-5
-    power = {8: (0.000685871056241, 0.125), 5: (0.0185185185185, 0.2),
-             4: (0.0555555555556, 0.25), 3: (0.166666666667, 1.0 / 3.0)}
-    if degree in power:
-        k, e = power[degree]
-        return torch.pow(g / k, e)
-    if degree == 1:
-        return g / 1.5
-    if degree == 0:
-        return (1.0 - thr + 1e-5) / 0.329630334487
-    return torch.sqrt(2.0 * g)
-
-
-def _gut3d_may_hit(blk: torch.Tensor, tiles: torch.Tensor, st: RasterStatics,
-                   pix_ctx: torch.Tensor) -> torch.Tensor:
-    """Gut3d::may_hit over (rows, n, L) f32 lane rows, term for term: the
-    staged slots (1/max(s, 1e-12) and R(q) in f32, as Gut3d::stage_common),
-    then the distance from the splat to the tile's cone of rays against the
-    cut distance in world units, in double."""
-    p = blk[0:3]
-    inv = 1.0 / torch.clamp(blk[3:6], min=1e-12)
-    qw, qx, qy, qz = blk[9:13]
-    rot = torch.stack([
-        1.0 - 2.0 * (qy * qy + qz * qz), 2.0 * (qx * qy - qw * qz), 2.0 * (qx * qz + qw * qy),
-        2.0 * (qx * qy + qw * qz), 1.0 - 2.0 * (qx * qx + qz * qz), 2.0 * (qy * qz - qw * qx),
-        2.0 * (qx * qz - qw * qy), 2.0 * (qy * qz + qw * qx), 1.0 - 2.0 * (qx * qx + qy * qy)])
-    q = blk[9:13].double()
-    qn = (q * q).sum(dim=0)
-    v = torch.cat([p.double(), inv.double(), rot.double(), blk[13:14].double(), qn[None]])
-    op = v[15]
-    amin, mr = _f32(st.alpha_min), _f32(st.kernel_min_response)
-    valid, c, a, rho, cos_t, sin_t = (x[:, None] if x.dim() == 1 else x[:, :, None]
-                                      for x in _gut3d_tile_bound(pix_ctx[tiles]))
-    sure = valid & torch.isfinite(v).all(dim=0) & (amin >= 0)
-    thr = amin / op
-    thr = torch.where(mr > thr, torch.full_like(thr, mr), thr)
-    inv_d = v[3:6]
-    inv_min, inv_max = inv_d.amin(dim=0), inv_d.amax(dim=0)
-    sig = 1.0 - 2.0 * (v[16] - 1.0).abs() - 1e-5
-    shrink = inv_min * sig
-    w = v[0:3] - c.permute(1, 0, 2)                                  # (3, n, L)
-    ax = a.permute(1, 0, 2)
-    along = (w * ax).sum(dim=0).abs()
-    across = torch.linalg.cross(w, ax.expand_as(w), dim=0).norm(dim=0)
-    reach = w.norm(dim=0) + rho
-    err = 4e-6 * (inv_max / inv_min + 1.0) * reach * inv_max
-    r = ((_cut_distance(thr, st.kernel_degree) * (1.0 + 1e-5) + err) / shrink
-         * (1.0 + CULL_REL) + 1e-7 * reach)
-    nearest = torch.clamp(across * cos_t - along * sin_t, min=0.0) - rho
-    far = (sig >= 0.5) & (shrink >= 1e-10) & (nearest > r)
-    return ~(sure & ((op <= amin) | (thr >= 1.0) | far))
-
+# ---- the per-tile cull of K3 and K4 over their windows (ops/response.may_hit) ---
 
 def _lanes_may_hit(attrs, lists: _TileLists, st: RasterStatics, tiles, pix_ctx):
     """The predicate over ``lists``' lanes, flat (n * L,), False where no
@@ -355,10 +252,7 @@ def _lanes_may_hit(attrs, lists: _TileLists, st: RasterStatics, tiles, pix_ctx):
     n = tiles.shape[0]
     cols = lists.cols.view(n, -1) if n else lists.cols.view(0, 0)
     blk = attrs.detach()[:, cols.clamp(min=0)]                       # (rows, n, L)
-    if model_of(st).uses_pix:
-        may = _gut3d_may_hit(blk, tiles, st, pix_ctx)
-    else:
-        may = _gs2d_may_hit(blk, tiles, st)
+    may = may_hit(blk, tile_bound(st, tiles, pix_ctx), st)
     return (may & (cols >= 0)).flatten()
 
 

@@ -39,20 +39,25 @@ from vk_gaussian_splatting_tpu_torch.ops import _build
 from vk_gaussian_splatting_tpu_torch.ops.response import (
     ATTR_B,
     ATTR_R,
+    PIX,
     PIX_ROWS,
+    TILE,
     alpha,
     alpha_vjp,
+    may_hit,
     model_of,
+    tile_bound,
 )
 
-TILE = 16
-PIX = TILE * TILE  # 256 pixels per tile
 OUT_ROWS = 5       # r, g, b, T, depth
 CTX_ROWS = 5       # backward context: g_r, g_g, g_b, S_total, g_T * T_final
 GRAD_ROWS = ATTR_B + 1  # gs2d: rows 0-8 get gradients; the depth row gets none
 MAX_CHUNK = 256    # csrc/rasterize_{fwd,bwd}.cu stage at most this many pairs
 # the launch counter of each model, an attribute of each kernel's wrapper
 LAUNCH_COUNTER = {"gs2d": "launches", "gut3d": "launches_gut3d"}
+# the kept count of the last launch of each culling kernel (K2, K3, K4), an
+# attribute of its wrapper, per model
+KEPT_COUNTER = {"gs2d": "kept", "gut3d": "kept_gut3d"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -113,30 +118,38 @@ class _Pixels(typing.NamedTuple):
     pix: torch.Tensor | None  # (n, 8, 256) pixel context (gut3d), else None
 
 
-def _blend_steps(attrs, tile_start, tile_count, st: RasterStatics, tiles, pix_ctx=None):
-    """The front-to-back sweep both twins walk, one ``_Step`` per blend
-    step, with the TPU kernel's chunk semantics.
-
-    For tile t, step k covers the global chunk ``first_block[t] + k``, masked
-    to the tile's ``[start, end)``. A pixel is frozen for a whole step when
-    its T at the step's start is <= min_transmittance. T advances after each
-    step is yielded. Returns the tiles' ``_Pixels`` too."""
+def _chunks(attrs, tile_start, tile_count, st: RasterStatics, tiles):
+    """Each blend step's pairs of the given tiles, vectorized over tiles:
+    (p, pc, in_range, rows): the (n, c) global pair index of each lane, the
+    same clamped to a valid column, whether it lies in its tile's [start,
+    end), and the lanes' (rows, n, c) attribute rows. For tile t, step k
+    covers the global chunk ``first_block[t] + k``."""
     c = st.chunk
     start, end, first_block, nsteps = _tile_steps(tile_start, tile_count, tiles, c)
+    lane = torch.arange(c, device=attrs.device)
+    p_max = max(attrs.shape[1] - 1, 0)
+    for k in range(int(nsteps.max()) if tiles.shape[0] else 0):
+        p = (first_block + k)[:, None] * c + lane                       # (n, c)
+        pc = p.clamp(max=p_max)
+        yield p, pc, (p >= start[:, None]) & (p < end[:, None]), attrs[:, pc]
+
+
+def _blend_steps(attrs, tile_start, tile_count, st: RasterStatics, tiles, pix_ctx=None):
+    """The front-to-back sweep both twins walk, one ``_Step`` per blend
+    step (``_chunks``), with the TPU kernel's chunk semantics.
+
+    A pixel is frozen for a whole step when its T at the step's start is
+    <= min_transmittance. T advances after each step is yielded. Returns
+    the tiles' ``_Pixels`` too."""
     n = tiles.shape[0]
     px, py = _tile_pixel_coords(tiles, st.tiles_x)
     pixels = _Pixels(px, py, pix_ctx[tiles] if model_of(st).uses_pix else None)
-    lane = torch.arange(c, device=attrs.device)
-    p_max = max(attrs.shape[1] - 1, 0)
 
     def steps():
         tcol = torch.ones((n, PIX, 1), dtype=torch.float32, device=attrs.device)
-        for k in range(int(nsteps.max()) if n else 0):
-            p = (first_block + k)[:, None] * c + lane                   # (n, c)
-            lane_live = (p >= start[:, None]) & (p < end[:, None])
+        for p, pc, lane_live, rows in _chunks(attrs, tile_start, tile_count, st, tiles):
             live = lane_live[:, None, :] & (tcol > st.min_transmittance)
-            pc = p.clamp(max=p_max)
-            block = attrs[:, pc].permute(1, 0, 2)                       # (n, R, c)
+            block = rows.permute(1, 0, 2)                               # (n, R, c)
             a = alpha(block, px, py, pixels.pix, live, st)              # (n, 256, c)
             q = 1.0 - a
             incl = torch.cumprod(q, dim=-1)
@@ -222,6 +235,41 @@ def blend_work(attrs: torch.Tensor, tile_start: torch.Tensor, tile_count: torch.
             kept += int((lanes & keep[s.pc]).sum())
             kept_evals += int((s.live & keep[s.pc][:, None, :]).sum())
     return (evals, hits) if keep is None else (evals, hits, tested, kept, kept_evals)
+
+
+@torch.no_grad()
+def pair_may_hit(attrs: torch.Tensor, tile_start: torch.Tensor, tile_count: torch.Tensor,
+                 st: RasterStatics, tiles: torch.Tensor | None = None,
+                 pix_ctx: torch.Tensor | None = None) -> torch.Tensor:
+    """Plain twin of K2's per-tile cull (csrc/response.cuh ``may_hit``, term
+    for term, with the same margins; ops/response.may_hit): (P,) bool,
+    whether each pair may hit a pixel of the tile whose list holds it. True
+    wherever the model's alpha can pass its cutoffs at some pixel of the
+    tile (and for NaN, inf or degenerate rows); False for pairs outside the
+    ranges of ``tiles`` (all by default)."""
+    tiles = _all_tiles(tile_start, tiles)
+    bound = tile_bound(st, tiles, pix_ctx)
+    keep = torch.zeros(attrs.shape[1], dtype=torch.bool, device=attrs.device)
+    for p, _, in_range, rows in _chunks(attrs.detach(), tile_start, tile_count, st, tiles):
+        keep[p[in_range]] = may_hit(rows, bound, st)[in_range]
+    return keep
+
+
+@torch.no_grad()
+def pair_hits(attrs: torch.Tensor, tile_start: torch.Tensor, tile_count: torch.Tensor,
+              st: RasterStatics, tiles: torch.Tensor | None = None,
+              pix_ctx: torch.Tensor | None = None) -> torch.Tensor:
+    """(P,) bool: whether each pair's alpha (ops/response.alpha) passes the
+    cutoffs at some pixel of its tile, every pixel counted, frozen or not:
+    what ``pair_may_hit`` must never drop. False outside ``tiles``' ranges."""
+    tiles = _all_tiles(tile_start, tiles)
+    px, py = _tile_pixel_coords(tiles, st.tiles_x)
+    pix = pix_ctx[tiles] if model_of(st).uses_pix else None
+    hits = torch.zeros(attrs.shape[1], dtype=torch.bool, device=attrs.device)
+    for p, _, in_range, rows in _chunks(attrs.detach(), tile_start, tile_count, st, tiles):
+        a = alpha(rows.permute(1, 0, 2), px, py, pix, in_range[:, None, :], st)
+        hits[p[in_range]] = (a > 0).any(dim=1)[in_range]
+    return hits
 
 
 def bwd_context(out: torch.Tensor, g_out: torch.Tensor) -> torch.Tensor:
@@ -368,7 +416,13 @@ def rasterize_tiles_bwd(attrs: torch.Tensor, tile_start: torch.Tensor,
     count one launch in ``rasterize_tiles_bwd.launches`` (gs2d) or
     ``.launches_gut3d``; CPU tensors run the plain twin. The kernel writes
     each visited pair's gradient once with a plain store, in a fixed
-    reduction order, so its result repeats bit for bit."""
+    reduction order, so its result repeats bit for bit. Where it culls the
+    model's pair lists (``Model.cull_pairs``: gs2d) it sweeps only the
+    pairs its per-tile cull keeps (``pair_may_hit``). It leaves in
+    ``rasterize_tiles_bwd.kept`` (gs2d) or ``.kept_gut3d`` a one-element
+    int32 tensor on the card: the pairs it kept (all, where it does not
+    cull) over the blend steps it entered (``blend_work``'s ``kept``, or
+    ``tested``), to be read with ``int()`` after a synchronise."""
     p = _check_pairs(attrs, tile_start, tile_count, st, pix_ctx=pix_ctx)
     dev = attrs.device
     num_tiles = st.tiles_x * st.tiles_y
@@ -376,19 +430,23 @@ def rasterize_tiles_bwd(attrs: torch.Tensor, tile_start: torch.Tensor,
     if dev.type == "cpu":
         return rasterize_tiles_bwd_ref(attrs, tile_start, tile_count, ctx, st, pix_ctx=pix_ctx)
     fn = _kernel("rasterize_bwd", st)
-    d_attrs = torch.zeros_like(attrs)  # the kernel writes visited pairs only
+    d_attrs = torch.zeros_like(attrs)  # the kernel writes visited, kept pairs only
     with torch.cuda.device(dev):
+        kept = torch.zeros((1,), dtype=torch.int32, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(attrs.data_ptr(), p, tile_start.data_ptr(), tile_count.data_ptr(),
                  ctx.data_ptr(), _ptr(pix_ctx), num_tiles, st.tiles_x, st.chunk,
-                 *model_args(st), st.min_transmittance, d_attrs.data_ptr(), stream)
+                 *model_args(st), st.min_transmittance, d_attrs.data_ptr(), kept.data_ptr(),
+                 stream)
     if err != 0:
         raise RuntimeError(f"rasterize_bwd ({st.model}) launch failed: cudaError {err}")
     count_launch(rasterize_tiles_bwd, st)
+    setattr(rasterize_tiles_bwd, KEPT_COUNTER[st.model], kept)
     return d_attrs
 
 
 rasterize_tiles_bwd.launches = rasterize_tiles_bwd.launches_gut3d = 0
+rasterize_tiles_bwd.kept = rasterize_tiles_bwd.kept_gut3d = 0
 
 
 class _RasterizeTiles(torch.autograd.Function):
@@ -435,7 +493,7 @@ _P, _L, _I, _F = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_floa
 _MODEL = [_F, _F, _F, _F, _I]  # alpha_min, alpha_clamp, qmax, kernel_min_response, degree
 _ARGTYPES = {  # the C entry points' parameters, in order (csrc/*.cu)
     "rasterize_fwd": [_P, _L, _P, _P, _P, _P, _I, _I, _I, *_MODEL, _F, _F, _P, _P, _P],
-    "rasterize_bwd": [_P, _L, _P, _P, _P, _P, _I, _I, _I, *_MODEL, _F, _P, _P],
+    "rasterize_bwd": [_P, _L, _P, _P, _P, _P, _I, _I, _I, *_MODEL, _F, _P, _P, _P],
 }
 
 

@@ -14,7 +14,9 @@
 This module is the plain reference of the math that the CUDA tile blenders
 (csrc/response.cuh, used by csrc/rasterize_{fwd,bwd}.cu and
 csrc/raster_bucket_{fwd,bwd}.cu) evaluate, with the hand-derived VJPs their
-backwards need. The JAX kernels take those VJPs with in-kernel ``jax.vjp``.
+backwards need, and of the per-tile cull K2, K3 and K4 share
+(``tile_bound``, ``may_hit``). The JAX kernels take those VJPs with
+in-kernel ``jax.vjp``.
 The packed, clip and triangle models are not ported yet.
 
 Attribute rows, shape (rows, P) f32:
@@ -50,6 +52,8 @@ GUT_ROWS = 15
 # pixel-context rows, in the (8, 256) per-tile block
 RAY_DX, RAY_DY, RAY_DZ, RAY_OX, RAY_OY, RAY_OZ = 0, 1, 2, 3, 4, 5
 PIX_ROWS = 8
+TILE = 16
+PIX = TILE * TILE  # 256 pixels per tile
 
 KERNEL_DEGREES = (0, 1, 2, 3, 4, 5, 8)
 
@@ -62,6 +66,7 @@ class Model:
     depth_row: int         # aux depth pick and bucket merge key
     geo_rows: tuple        # rows the model's VJP fills, in its output order
     uses_pix: bool         # reads the per-tile pixel context
+    cull_pairs: bool       # K2 culls its pair lists (csrc/response.cuh CULL_PAIRS)
 
     @property
     def grad_rows(self) -> int:
@@ -70,8 +75,8 @@ class Model:
 
 
 MODELS = {
-    "gs2d": Model(GS_ROWS, GS_DEPTH, (0, 1, 2, 3, 4, 5), False),
-    "gut3d": Model(GUT_ROWS, GUT_DEPTH, (0, 1, 2, 3, 4, 5, 9, 10, 11, 12, 13), True),
+    "gs2d": Model(GS_ROWS, GS_DEPTH, (0, 1, 2, 3, 4, 5), False, True),
+    "gut3d": Model(GUT_ROWS, GUT_DEPTH, (0, 1, 2, 3, 4, 5, 9, 10, 11, 12, 13), True, False),
 }
 
 
@@ -322,3 +327,129 @@ def alpha_vjp(block, px, py, pix, live, st, d_alpha) -> torch.Tensor:
     if model_of(st).uses_pix:
         return gut3d_alpha_vjp(block, pix, live, st, d_alpha)
     return gs2d_alpha_vjp(block, px, py, live, st, d_alpha)
+
+
+# ---- the per-tile cull (csrc/response.cuh tile_bound, may_hit), plainly ----
+#
+# K2 culls the pairs of each tile's list, K3 and K4 the lanes of each tile's
+# bucket window, by one predicate per model: false only where the model's
+# alpha provably fails its cutoffs at every pixel of the tile. Term for
+# term as the CUDA source spells it, in double, with the same margins.
+
+CULL_REL = 1e-3  # relative growth of every cull radius
+
+
+def _f32(x: float) -> float:
+    """A statics value as the C entry points get it (an f32 argument)."""
+    return float(torch.tensor(x, dtype=torch.float32))
+
+
+def tile_bound(st, tiles: torch.Tensor, pix_ctx: torch.Tensor | None = None) -> tuple:
+    """The model's TileBound of each tile of ``tiles`` (n,), in double, as
+    (n, 1) columns: gs2d the box of the tile's pixel centres (x0, y0, x1,
+    y1); gut3d the cone of its rays from the (T, 8, 256) ``pix_ctx``
+    (``gut3d_tile_bound``)."""
+    if model_of(st).uses_pix:
+        return tuple(x[:, None] if x.dim() == 1 else x[:, :, None]
+                     for x in gut3d_tile_bound(pix_ctx[tiles]))
+    x0 = ((tiles % st.tiles_x) * TILE).double()[:, None] + 0.5
+    y0 = ((tiles // st.tiles_x) * TILE).double()[:, None] + 0.5
+    return x0, y0, x0 + (TILE - 1), y0 + (TILE - 1)
+
+
+def may_hit(blk: torch.Tensor, bound: tuple, st) -> torch.Tensor:
+    """The model's may_hit over (rows, n, L) f32 lane rows, lane k of row b
+    belonging to the tile whose ``tile_bound`` is row b of ``bound``:
+    (n, L) bool, True wherever the alpha can pass its cutoffs at some pixel
+    of the tile (and for NaN, inf or degenerate rows)."""
+    if model_of(st).uses_pix:
+        return gut3d_may_hit(blk, bound, st)
+    return gs2d_may_hit(blk, bound, st)
+
+
+def gs2d_may_hit(blk: torch.Tensor, bound: tuple, st) -> torch.Tensor:
+    """Gs2d::may_hit: False only where the conic is positive definite and
+    either opacity < alpha_min or the bounding box of d <= tau (inflated)
+    misses the tile's pixel centres."""
+    v = blk[:6].double()
+    x, y, ca, cb, cc, op = v
+    amin = _f32(st.alpha_min)
+    x0, y0, x1, y1 = bound
+    det = ca * cc - cb * cb
+    total = ca + cb.abs() + cc
+    err = 1e-6 * (total * total / det)
+    sure = torch.isfinite(v).all(dim=0) & (amin > 0) & (ca > 0) & (det > 0) & (err <= 0.25)
+    tau = torch.fmin(torch.tensor(_f32(st.qmax), dtype=torch.float64),
+                     2.0 * torch.log(op / amin)) + 1e-3
+    grow = 1.0 + CULL_REL + err
+    rx = torch.sqrt(tau * cc / det) * grow + 1e-2
+    ry = torch.sqrt(tau * ca / det) * grow + 1e-2
+    miss = (x + rx < x0) | (x - rx > x1) | (y + ry < y0) | (y - ry > y1)
+    return ~(sure & ((op < amin) | miss))
+
+
+def gut3d_tile_bound(pix: torch.Tensor):
+    """Gut3d::tile_bound of (n, 8, 256) pixel contexts: (valid (n,), mean
+    origin c (n, 3), axis a (n, 3), rho, cos_t, sin_t (n,)), in double."""
+    d, o = pix[:, 0:3].double(), pix[:, 3:6].double()
+    dd = (d * d).sum(dim=1)                                          # (n, 256)
+    valid = (torch.isfinite(d).all(dim=1) & torch.isfinite(o).all(dim=1) & (dd > 0)).all(dim=1)
+    c = o.sum(dim=2) / PIX
+    ds = d.sum(dim=2)
+    a = ds / torch.sqrt((ds * ds).sum(dim=1, keepdim=True))
+    rho = torch.sqrt(((o - c[..., None]) ** 2).sum(dim=1).amax(dim=1))
+    cos_t = ((d * a[..., None]).sum(dim=1) / torch.sqrt(dd)).amin(dim=1)
+    sin_t = torch.sqrt(torch.clamp(1.0 - cos_t * cos_t, min=0.0))
+    return valid, c, a, rho, cos_t, sin_t
+
+
+def _cut_distance(thr: torch.Tensor, degree: int) -> torch.Tensor:
+    """Gut3d::cut_distance: sqrt(D) below which K_degree(D) > thr."""
+    g = -torch.log(thr) * (1.0 + 1e-5) + 1e-5
+    power = {8: (0.000685871056241, 0.125), 5: (0.0185185185185, 0.2),
+             4: (0.0555555555556, 0.25), 3: (0.166666666667, 1.0 / 3.0)}
+    if degree in power:
+        k, e = power[degree]
+        return torch.pow(g / k, e)
+    if degree == 1:
+        return g / 1.5
+    if degree == 0:
+        return (1.0 - thr + 1e-5) / 0.329630334487
+    return torch.sqrt(2.0 * g)
+
+
+def gut3d_may_hit(blk: torch.Tensor, bound: tuple, st) -> torch.Tensor:
+    """Gut3d::may_hit: the staged slots (1/max(s, 1e-12) and R(q) in f32,
+    as Gut3d::stage_common), then the distance from the splat to the tile's
+    cone of rays against the cut distance in world units, in double."""
+    p = blk[0:3]
+    inv = 1.0 / torch.clamp(blk[3:6], min=1e-12)
+    qw, qx, qy, qz = blk[9:13]
+    rot = torch.stack([
+        1.0 - 2.0 * (qy * qy + qz * qz), 2.0 * (qx * qy - qw * qz), 2.0 * (qx * qz + qw * qy),
+        2.0 * (qx * qy + qw * qz), 1.0 - 2.0 * (qx * qx + qz * qz), 2.0 * (qy * qz - qw * qx),
+        2.0 * (qx * qz - qw * qy), 2.0 * (qy * qz + qw * qx), 1.0 - 2.0 * (qx * qx + qy * qy)])
+    q = blk[9:13].double()
+    qn = (q * q).sum(dim=0)
+    v = torch.cat([p.double(), inv.double(), rot.double(), blk[13:14].double(), qn[None]])
+    op = v[15]
+    amin, mr = _f32(st.alpha_min), _f32(st.kernel_min_response)
+    valid, c, a, rho, cos_t, sin_t = bound
+    sure = valid & torch.isfinite(v).all(dim=0) & (amin >= 0)
+    thr = amin / op
+    thr = torch.where(mr > thr, torch.full_like(thr, mr), thr)
+    inv_d = v[3:6]
+    inv_min, inv_max = inv_d.amin(dim=0), inv_d.amax(dim=0)
+    sig = 1.0 - 2.0 * (v[16] - 1.0).abs() - 1e-5
+    shrink = inv_min * sig
+    w = v[0:3] - c.permute(1, 0, 2)                                  # (3, n, L)
+    ax = a.permute(1, 0, 2)
+    along = (w * ax).sum(dim=0).abs()
+    across = torch.linalg.cross(w, ax.expand_as(w), dim=0).norm(dim=0)
+    reach = w.norm(dim=0) + rho
+    err = 4e-6 * (inv_max / inv_min + 1.0) * reach * inv_max
+    r = ((_cut_distance(thr, st.kernel_degree) * (1.0 + 1e-5) + err) / shrink
+         * (1.0 + CULL_REL) + 1e-7 * reach)
+    nearest = torch.clamp(across * cos_t - along * sin_t, min=0.0) - rho
+    far = (sig >= 0.5) & (shrink >= 1e-10) & (nearest > r)
+    return ~(sure & ((op <= amin) | (thr >= 1.0) | far))
