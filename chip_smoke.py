@@ -29,7 +29,13 @@ entry points — and checks them:
    small / mid / large scales) at 1920x1080, made on the card from a seeded
    generator; 8 jittered frames through ``render``, with K1's launch count
    read around them; the exact expansion (max_pairs = 2^22), which must not
-   overflow; a bit-equal repeat frame; 64 sampled tiles against the twin;
+   overflow; a bit-equal repeat frame; K1 against the twin over every tile;
+   K1's per-warp cull on that frame: its kept (warp, pair) counter equal to
+   the plain count (``ops/rasterize.pair_warp_may_hit`` over the steps each
+   tile enters), the kept share, and an audit of every tile for culled
+   (warp, pair)s that hit some pixel of the warp (``pair_hits(per_warp=
+   True)``; none allowed); K1's bound counts the kept evaluations and the
+   cull (``warp_cull_bound``, the all-pair figure beside it);
 4. training at full size: the same scene is the target, the start has
    seeded jitter on means and sh_dc; 5 ``train_step``s with both kernels'
    launch counts read around them, a falling finite loss and finite
@@ -76,15 +82,17 @@ entry points — and checks them:
    each path; one golden-size frame with fisheye, rolling shutter and DoF
    at temporal_samples=4; at full size, 8 frames of 3DGUT and of 3DGRT on
    each path with the gut3d launches counted, overflow reported, a
-   bit-equal repeat, frame_ms, K1g and K3g against twins on 64 sampled
-   tiles (K3g on every tile too), K3g's and K4g's cull checked on the 3DGUT
-   bucket frame as K3's and K4's; 3DGUT
+   bit-equal repeat, frame_ms, K1g against its twin over every tile of the
+   3DGUT and 3DGRT pair frames with its per-warp cull checked as K1's, K3g
+   on 64 sampled tiles and on every tile, K3g's and K4g's cull checked on
+   the 3DGUT bucket frame as K3's and K4's; 3DGUT
    training on each path (5 steps, launches counted, loss falling,
    bit-equal repeat backward, K2g against its twin over every tile and
    K4g on 64 sampled tiles, K2g's kept counter (it culls no pair: equal
    to the tested pairs), fwd_bwd_ms, train_step_ms,
    K4g's three launches);
-   profiles of a 3DGUT frame and train step by stage. The gut3d gates are
+   profiles of a 3DGUT and a 3DGRT pair frame and a 3DGUT train step by
+   stage (each frame's kernel-busy time). The gut3d gates are
    flip-aware (``GUT_*``);
 9. the probes (vk_gaussian_splatting_tpu_torch/probes): each probe's entry
    point at its script's default arguments (``bench_roll.run``,
@@ -250,8 +258,18 @@ BWD_ELEM_RTOL, BWD_ELEM_SHARE = 1e-2, 0.999
 # distances to the cone 41, the cut distance 5, the radius 6, the test 1);
 # and per pixel of a tile gut3d's TileBound, 67 (|d|^2 5, finiteness 7, the
 # warp sums 30, rho 8, cos theta 7, the warp max and min 10).
+# K1 and K1g split the cull: per tested pair the pair's part (reach: gs2d
+# 37, the box's 8 less; gut3d 52: |q|^2 7, finiteness 19, the thresholds
+# 5, the scales 12, kappa 3, the cut distance with its margin 6), per
+# tested (warp, pair) the test against the warp's bound (reach_hits: gs2d
+# the box 8; gut3d 45: the bound's validity 1, the distances to the cone
+# 31, the radius with its rounding term 7, the nearest distance 5, the
+# test 1); and per pixel gut3d's warp bound, 79 (the tile bound's 67, and
+# the centre and axis, which every lane computes, 12).
 OPS_ALPHA = {"gs2d": 17, "gut3d": 68}
 OPS_CULL, OPS_TILE_BOUND = {"gs2d": 45, "gut3d": 96}, {"gs2d": 0, "gut3d": 67}
+OPS_REACH, OPS_WARP_TEST = {"gs2d": 37, "gut3d": 52}, {"gs2d": 8, "gut3d": 45}
+OPS_WARP_BOUND = {"gs2d": 0, "gut3d": 79}
 OPS_PER_HIT = {"rasterize_fwd": 10, "rasterize_bwd": 53,
                "raster_bucket_fwd": 10, "raster_bucket_bwd": 53,
                "rasterize_fwd_gut3d": 10, "rasterize_bwd_gut3d": 210,
@@ -297,13 +315,15 @@ def median(xs):
     return float(np.median(np.asarray(xs)))
 
 
-def compare_kernel_with_twin(bins, st, tiles=None):
-    """(max abs err on rgb+T, id agreement) of the kernel against the twin."""
+@torch.no_grad()
+def compare_kernel_with_twin(bins, st):
+    """(max abs err on rgb+T, id agreement) of K1 against the twin over every
+    tile, the twin in batches of TWIN_BATCH tiles."""
     out_k, id_k = tr.rasterize_bins(bins, st)
-    out_r, id_r = tr.rasterize_tiles_ref(bins.attrs, bins.pair_id, bins.tile_start,
-                                         bins.tile_count, st, tiles=tiles)
-    if tiles is not None:
-        out_k, id_k = out_k[tiles], id_k[tiles]
+    parts = [tr.rasterize_tiles_ref(bins.attrs.detach(), bins.pair_id, bins.tile_start,
+                                    bins.tile_count, st, tiles=t)
+             for t in twin_tiles(st, bins.attrs.device)]
+    out_r, id_r = torch.cat([o for o, _ in parts]), torch.cat([i for _, i in parts])
     torch.cuda.synchronize()
     err = (out_k[:, :4] - out_r[:, :4]).abs().max().item() if out_k.numel() else 0.0
     same = id_k == id_r
@@ -410,6 +430,54 @@ def check_pair_cull(label: str, bins, st, batches, pix=None):
     return work, kept
 
 
+def check_warp_cull(label: str, bins, st, batches, pix=None):
+    """K1's or K1g's kept (warp, pair) counter on a whole frame, after a
+    launch of it on that frame: (blend_work's (evaluations, hits, tested,
+    kept, kept evaluations) over ``batches`` of tiles with the plain per-warp
+    predicate ``ops/rasterize.pair_warp_may_hit``, the counter). The counter
+    must equal the plain count of kept (warp, pair) bits over the steps each
+    tile enters; and over every tile in ``batches``, the (warp, pair)s the
+    plain predicate culls that the twin's alpha passes at some pixel of the
+    warp (``pair_hits(per_warp=True)``, frozen pixels too): none allowed."""
+    attrs = bins.attrs.detach()
+    args = (attrs, bins.tile_start, bins.tile_count, st)
+    work, may, hit, bad = [0] * 5, 0, 0, 0
+    for tiles in batches:
+        m = tr.pair_warp_may_hit(*args, tiles, pix)
+        h = tr.pair_hits(*args, tiles, pix, per_warp=True)
+        may, hit, bad = may + int(m.sum()), hit + int(h.sum()), bad + int((h & ~m).sum())
+        work = [a + b for a, b in zip(work, tr.blend_work(*args, tiles, pix, keep=m))]
+    torch.cuda.synchronize()
+    kept = int(getattr(tr.rasterize_tiles, tr.KEPT_COUNTER[st.model]))
+    log(f"{label} per-warp cull 1080p/1M: kept (warp, pair)s={kept} of tested pairs "
+        f"{work[2]} x {tr.WARPS} warps (kept share {kept / (tr.WARPS * work[2]):.4f}); the "
+        f"plain count over the steps each tile enters: {work[3]} (must be equal); kept "
+        f"evaluations {work[4]} of {work[0]} ({work[4] / work[0]:.4f}), hits {work[1]}")
+    check(kept == work[3], f"{label} kept {kept} (warp, pair)s, the plain count {work[3]}")
+    log(f"  {label} per-warp cull audit on all {sum(b.numel() for b in batches)} tiles: {may} "
+        f"(warp, pair)s kept, {hit} hit some pixel of the warp, culled ones that hit: {bad}")
+    check(bad == 0, f"{label}: the cull dropped {bad} (warp, pair)s that hit")
+    return work, kept
+
+
+def warp_cull_bound(name: str, work, bytes_moved: int, n_tiles: int):
+    """((ms, what bounds it) of K1 or K1g at one frame, a log fragment with
+    it and the all-pair figure). The kernel evaluates the (pixel, pair)s of
+    the (warp, pair)s it keeps (``work[4]``) and blends the hits; its cull
+    costs f64 operations per tested pair (OPS_REACH), per tested (warp,
+    pair) (OPS_WARP_TEST) and, for gut3d, per pixel (OPS_WARP_BOUND). The
+    all-pair figure prices every live (pixel, pair), as the sweep before the
+    cull made them."""
+    evals, hits, tested, _, kept_evals = work
+    model = "gut3d" if name.endswith("_gut3d") else "gs2d"
+    all_pairs = kernel_bound(name, evals, hits, bytes_moved)
+    cull = (tested * (OPS_REACH[model] + tr.WARPS * OPS_WARP_TEST[model])
+            + n_tiles * tr.PIX * OPS_WARP_BOUND[model])
+    bound = kernel_bound(name, kept_evals, hits, bytes_moved, f64_ops=cull)
+    return bound, (f"{name}_bound_ms={bound[0]:.4f} ({bound[1]}; the kept (warp, pair)s) "
+                   f"{name}_all_pair_bound_ms={all_pairs[0]:.4f} ({all_pairs[1]})")
+
+
 def pair_bound(name: str, work, bytes_moved: int, n_tiles: int):
     """((ms, what bounds it) of K2 or K2g at one frame, a log fragment with
     it and the all-pair figure). Where the model culls its pair lists, the
@@ -426,14 +494,6 @@ def pair_bound(name: str, work, bytes_moved: int, n_tiles: int):
     bound = kernel_bound(name, kept_evals, hits, bytes_moved, f64_ops=cull)
     return bound, (f"{name}_bound_ms={bound[0]:.4f} ({bound[1]}; the kept pairs) "
                    f"{name}_all_pair_bound_ms={all_pairs[0]:.4f} ({all_pairs[1]})")
-
-
-def sample_tiles(bins, st, dev, seed):
-    """48 busy tiles and 16 random ones, from a seeded generator."""
-    g = torch.Generator(device=dev).manual_seed(seed)
-    busy = torch.nonzero(bins.tile_count > 0).flatten()
-    return torch.cat([busy[torch.randperm(busy.numel(), generator=g, device=dev)[:48]],
-                      torch.randperm(st.tiles_x * st.tiles_y, generator=g, device=dev)[:16]])
 
 
 def kernel_bound(name: str, evals: int, hits: int, bytes_moved: int, extra_ops: int = 0,
@@ -759,24 +819,24 @@ def full_size(dev, card: str, prepared, seed: int):
     check(bool(torch.isfinite(ex.image).all()), "non-finite exact image")
     del ex, again
 
-    # ---- kernel against twin on 64 sampled tiles of the slots frame
+    # ---- K1 against its twin over every tile of the slots frame; its
+    # per-warp cull and its bound at this frame's shape and data (K2's: the
+    # training frame)
     st = raster_statics(cfg)
     bins = bins_of(prepared, cam, cfg)
-    tiles = sample_tiles(bins, st, dev, seed)
-    err, agree = compare_kernel_with_twin(bins, st, tiles=tiles)
-    log(f"64 sampled tiles: kernel_vs_twin_max_abs={err:.3e} id_agree={agree:.6f} "
+    n_pairs, n_tiles = int(bins.num_pairs), st.tiles_x * st.tiles_y
+    err, agree = compare_kernel_with_twin(bins, st)
+    log(f"all {n_tiles} tiles: kernel_vs_twin_max_abs={err:.3e} id_agree={agree:.6f} "
         f"max_tile_pairs={int(bins.tile_count.max())}")
     check(err <= KERNEL_ATOL, f"1080p tiles kernel vs twin {err} > {KERNEL_ATOL}")
     check(agree >= ID_AGREE, f"1080p tiles id agreement {agree}")
-
-    # ---- K1's bound at this frame's shape and data (K2's: the training frame)
-    evals, hits = tr.blend_work(bins.attrs, bins.tile_start, bins.tile_count, st)
-    n_pairs, n_tiles = int(bins.num_pairs), st.tiles_x * st.tiles_y
+    work, kept = check_warp_cull("K1", bins, st, twin_tiles(st, dev))
     bytes_fwd = n_pairs * (10 * 4 + 4) + n_tiles * (2 * 4 + tr.PIX * (tr.OUT_ROWS * 4 + 4))
-    bounds = {"rasterize_fwd": kernel_bound("rasterize_fwd", evals, hits, bytes_fwd)}
-    log(f"bound 1080p/1M slots: live_pairs={n_pairs} pixel_pair_evaluations={evals} "
-        f"hits={hits} hit_share={hits / max(evals, 1):.4f} "
-        + " ".join(f"{k}_bound_ms={v[0]:.4f} ({v[1]})" for k, v in bounds.items()))
+    bound, text = warp_cull_bound("rasterize_fwd", work, bytes_fwd, n_tiles)
+    bounds = {"rasterize_fwd": bound}
+    log(f"bound 1080p/1M slots: live_pairs={n_pairs} pixel_pair_evaluations={work[0]} "
+        f"kept_evaluations={work[4]} hits={work[1]} hit_share={work[1] / max(work[0], 1):.4f} "
+        + text)
     del bins
 
     # ---- timings (CUDA events; medians over 10 after 2 warm-up), stages in order
@@ -796,7 +856,8 @@ def full_size(dev, card: str, prepared, seed: int):
 
     profile_calls("slots", lambda: render(prepared, cam, cfg), card)
     profile_calls("exact", lambda: render(prepared, cam, exact_cfg, max_pairs=1 << 22), card)
-    return dict(launches=launches, max_abs_err=err, ms=t["blend"], plain_ms=t_plain), bounds
+    return dict(launches=launches, max_abs_err=err, ms=t["blend"], plain_ms=t_plain,
+                kept_share=kept / (tr.WARPS * work[2])), bounds
 
 
 def grads_of(splats):
@@ -1620,39 +1681,35 @@ def gut_camera_effects(dev):
     check(change > 1e-3, "the aperture did not change the frame")
 
 
+def gut_pair_bounds(label, c):
+    """({K1g's bound at this pair frame}, the kept share of its per-warp
+    cull), after the cull's checks (``check_warp_cull``; K2g's bound comes
+    from the training frame)."""
+    st, pix = c["st"], c["pix"]
+    work, kept = check_warp_cull(f"{label} K1g", c["bins"], st, tile_batches(st, pix.device),
+                                 pix)
+    n_tiles, n_pairs = st.tiles_x * st.tiles_y, int(c["bins"].num_pairs)
+    fwd = (n_pairs * (15 * 4 + 4) + n_tiles * (8 + tr.PIX * (tr.OUT_ROWS * 4 + 4))
+           + n_tiles * tr.PIX * 6 * 4)
+    bound, text = warp_cull_bound("rasterize_fwd_gut3d", work, fwd, n_tiles)
+    log(f"bound {label} pairs: live_pairs={n_pairs} pixel_pair_evaluations={work[0]} "
+        f"kept_evaluations={work[4]} hits={work[1]} hit_share={work[1] / max(work[0], 1):.4f} "
+        + text)
+    return {"rasterize_fwd_gut3d": bound}, kept / (tr.WARPS * work[2])
+
+
 @torch.no_grad()
-def gut_work(c, cfg):
-    """(evals, hits, BucketWork or None) of a gut3d frame, in tile batches."""
-    bins, st, pix = c["bins"], blend_st(c, cfg), c["pix"]
-    if cfg.raster.method == "bucket":
-        parts = [rb.bucket_work(bins.attrs.detach(), bins.bucket_starts, st,
-                                cfg.raster.bucket_caps, tiles=t, pix_ctx=pix)
-                 for t in tile_batches(st, pix.device)]
-        work = rb.BucketWork(*(sum(p[i] for p in parts) for i in range(len(parts[0]))))
-        return work.evals, work.hits, work
-    evals = hits = 0
-    for t in tile_batches(st, pix.device):
-        e, h_ = tr.blend_work(bins.attrs.detach(), bins.tile_start, bins.tile_count, st, tiles=t,
-                              pix_ctx=pix)
-        evals, hits = evals + e, hits + h_
-    return evals, hits, None
-
-
 def gut_bounds(c, cfg):
-    """(the gut3d kernels' bounds at this frame: K1g's on the pair path
-    (K2g's comes from the training frame), K3g's and K4g's on the bucket
-    path; there the kept share of their cull, else None)."""
-    evals, hits, work = gut_work(c, cfg)
+    """(K3g's and K4g's bounds at a 3DGUT bucket frame, the kept share of
+    their cull)."""
+    bins, st, pix = c["bins"], blend_st(c, cfg), c["pix"]
+    parts = [rb.bucket_work(bins.attrs.detach(), bins.bucket_starts, st, cfg.raster.bucket_caps,
+                            tiles=t, pix_ctx=pix)
+             for t in tile_batches(st, pix.device)]
+    work = rb.BucketWork(*(sum(p[i] for p in parts) for i in range(len(parts[0]))))
+    evals, hits = work.evals, work.hits
     n_tiles = c["st"].tiles_x * c["st"].tiles_y
     rays = n_tiles * tr.PIX * 6 * 4
-    if work is None:
-        n_pairs = int(c["bins"].num_pairs)
-        fwd = n_pairs * (15 * 4 + 4) + n_tiles * (8 + tr.PIX * (tr.OUT_ROWS * 4 + 4)) + rays
-        bounds = {"rasterize_fwd_gut3d": kernel_bound("rasterize_fwd_gut3d", evals, hits, fwd)}
-        log(f"bound gut3d pairs: live_pairs={n_pairs} pixel_pair_evaluations={evals} "
-            f"hits={hits} hit_share={hits / max(evals, 1):.4f} "
-            + " ".join(f"{k}_bound_ms={v[0]:.4f} ({v[1]})" for k, v in bounds.items()))
-        return bounds, None
     p = c["bins"].attrs.shape[1]
     head = n_tiles * (12 * 4 + 12 * 4)
     fwd = work.live * (15 * 4 + 4) + head + n_tiles * tr.PIX * (tr.OUT_ROWS * 4 + 4) + rays
@@ -1742,32 +1799,40 @@ def gut_full_size(dev, card: str, prepared, caps, seed: int):
             del again, o0
             t_frame = median(time_ms(lambda: render(prepared, cam, cfg), 10))
             log(f"timing 1080p/1M {label} {method} ({card}): frame_ms={t_frame:.4f}")
-            if label != "3dgut":
+            if label != "3dgut" and method == "bucket":
                 continue
-            # ---- the kernel against its twin on 64 sampled tiles, stages, bounds
+            # ---- the kernel against its twin (K3g on 64 sampled tiles too),
+            # stages, bounds; K1g on every tile of the 3DGUT and 3DGRT frames
             stages, c = gut_stages(prepared, cam, cfg)
-            t = {stage: median(time_ms(step, 10)) for stage, step in stages}
-            log(f"timing 1080p/1M 3dgut {method} stages ({card}): "
-                + " ".join(f"{k}_ms={v:.4f}" for k, v in t.items()))
+            if label == "3dgut":
+                t = {stage: median(time_ms(step, 10)) for stage, step in stages}
+                log(f"timing 1080p/1M 3dgut {method} stages ({card}): "
+                    + " ".join(f"{k}_ms={v:.4f}" for k, v in t.items()))
+            else:
+                run_stages(stages)
             if method == "bucket":
                 tiles = sample_bucket_tiles(c["bins"], c["st"], dev, seed)
-            else:
-                tiles = sample_tiles(c["bins"], c["st"], dev, seed)
-            kname = "K3g" if method == "bucket" else "K1g"
-            err = compare_gut_kernel(f"{kname} vs twin on {tiles.numel()} sampled 1080p tiles",
-                                     c, cfg, tiles)
-            if method == "bucket":
+                err = compare_gut_kernel(f"K3g vs twin on {tiles.numel()} sampled 1080p tiles",
+                                         c, cfg, tiles)
                 err = max(err, compare_gut_kernel("K3g vs twin on all 1080p tiles", c, cfg))
-            frame_bounds, kept_share = gut_bounds(c, cfg)
+                frame_bounds, kept_share = gut_bounds(c, cfg)
+            else:
+                err = compare_gut_kernel(f"{label} K1g vs twin on all 1080p tiles", c, cfg)
+                frame_bounds, kept_share = gut_pair_bounds(label, c)
+            if label != "3dgut":  # the 3DGRT pairs frame: K1g's gates and cull, no entry
+                entries["rasterize_fwd_gut3d"]["max_abs_err"] = max(
+                    entries["rasterize_fwd_gut3d"]["max_abs_err"], err)
+                del stages, c
+                profile_calls("3dgrt pairs", lambda: render(prepared, cam, cfg), card)
+                continue
             bounds.update(frame_bounds)
+            kname = "K3g" if method == "bucket" else "K1g"
             t_plain = median(time_ms(lambda: gut_twin(c, cfg), 1, warmup=1))
             log(f"timing {kname} 1080p/1M ({card}): kernel_ms={t['blend']:.4f} "
                 f"plain_twin_ms={t_plain:.4f}")
             name = "raster_bucket_fwd_gut3d" if method == "bucket" else "rasterize_fwd_gut3d"
             entries[name] = dict(launches=launches[0], max_abs_err=err, ms=t["blend"],
-                                 plain_ms=t_plain)
-            if kept_share is not None:
-                entries[name]["kept_share"] = kept_share
+                                 plain_ms=t_plain, kept_share=kept_share)
             del stages, c
             if method == "pairs":
                 profile_calls("3dgut pairs", lambda: render(prepared, cam, cfg), card)

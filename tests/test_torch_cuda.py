@@ -35,7 +35,10 @@ K4g against their twins (which sweep every lane), K2 and K2g against
 theirs (which cull alike and equal the full sweep bit for bit,
 tests/test_torch_rasterize.py), on scenes with rows at the predicate's
 edges, and each kernel's kept counter against the plain predicate's count,
-K3's equal to K4's.
+K3's equal to K4's. K1's and K1g's per-warp cull likewise: the kernels
+against their twins (which sweep every pair) on the edge rows at every
+chunk the tests use, the kept (warp, pair) counter equal to the plain
+count, no culled (warp, pair) that hits, repeats bit-equal.
 
 The probe kernels only compare, select and copy, so each must equal its
 twin bit for bit.
@@ -853,6 +856,71 @@ def test_gut3d_pair_bwd_kernel_culls_exactly(cuda, degree, camera, chunk):
     again = gut_bwd(bins, st, caps, ctx, pix)
     torch.cuda.synchronize()
     assert torch.equal(d_k, again) and int(tr.rasterize_tiles_bwd.kept_gut3d) == kept
+
+
+# ---- K1's per-warp cull of the pair lists on the card ------------------------
+#
+# K1 and K1g skip, per warp, the pairs their cull drops (csrc/response.cuh
+# reach against each warp's bound): against their twins, which sweep every
+# pair, on the edge rows above put on pair columns, at chunk 1, 32, 64, 128
+# and 256; the kept (warp, pair) counter equal to the plain count
+# (blend_work over pair_warp_may_hit's mask); no culled (warp, pair) that
+# hits (pair_hits per warp); repeats bit-equal, counter included.
+
+
+def assert_warp_kept_matches_plain(bins, st, model, pix=None):
+    """K1's kept (warp, pair) count of its last launch against the plain
+    count, and no culled (warp, pair) that hits; returns the count."""
+    args = (bins.attrs, bins.tile_start, bins.tile_count, st)
+    may = tr.pair_warp_may_hit(*args, pix_ctx=pix)
+    _, _, tested, kept_plain, _ = tr.blend_work(*args, pix_ctx=pix, keep=may)
+    kept = int(getattr(tr.rasterize_tiles, tr.KEPT_COUNTER[model]))
+    assert 0 < kept < tr.WARPS * tested
+    assert kept == kept_plain, (kept, kept_plain)
+    assert int((tr.pair_hits(*args, pix_ctx=pix, per_warp=True) & ~may).sum()) == 0
+    return kept
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk", [1, 32, 64, 128, 256])
+def test_pair_fwd_kernel_culls_exactly_on_edge_rows(cuda, chunk):
+    cfg = gt.RenderConfig(width=128, height=96, sh_degree=1,
+                          raster=gt.RasterConfig(chunk=chunk))
+    st = raster_statics(cfg)
+    edits, never = gs2d_edge_rows(st)
+    bins = with_pair_rows(bins_on(cuda, cfg, n=3000), st, edits + never)
+    out, out_id = assert_kernel_matches_twin(bins, st)
+    assert out[:, 3].min().item() < st.min_transmittance  # pixels froze
+    kept = assert_warp_kept_matches_plain(bins, st, "gs2d")
+    again, again_id = tr.rasterize_bins(bins, st)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again) and torch.equal(out_id, again_id)
+    assert int(tr.rasterize_tiles.kept) == kept
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("degree, camera, chunk", [(0, "pinhole", 1), (1, "fisheye", 32),
+                                                   (2, "rolling", 128), (3, "dof", 256),
+                                                   (8, "pinhole", 64)])
+def test_gut3d_pair_fwd_kernel_culls_exactly(cuda, degree, camera, chunk):
+    plain, st, caps, pix = gut_setup(cuda, "pairs", degree, camera=camera, n=1200,
+                                     scale_range=(-3.5, -0.5))
+    st = dataclasses.replace(st, chunk=chunk)  # slots binning does not depend on it
+    amin = float(np.float32(st.alpha_min))
+    nan = float("nan")
+    edits = [{13: amin}, {13: f32_next(amin, 1)}, {13: f32_next(amin, 0)}, {9: 1.5},
+             {3: 1e-12}, {3: 1e-12, 4: 1e-12, 5: 1e-12}, {0: nan}, {13: nan}]
+    bins = with_pair_rows(plain, st, edits)
+    out_k, id_k = gut_fwd(bins, st, caps, pix)
+    out_r, id_r = gut_fwd(bins, st, caps, pix, twin=True)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out_k).all() and torch.isfinite(out_r).all()
+    assert_gut_fwd_matches(out_k, id_k, out_r, id_r)
+    kept = assert_warp_kept_matches_plain(bins, st, "gut3d", pix)
+    again, again_id = gut_fwd(bins, st, caps, pix)
+    torch.cuda.synchronize()
+    assert torch.equal(out_k, again) and torch.equal(id_k, again_id)
+    assert int(tr.rasterize_tiles.kept_gut3d) == kept
 
 
 # ---- the probes P1-P3: bitonic sort (csrc/bench_roll.cu), sort stages

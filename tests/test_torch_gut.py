@@ -36,7 +36,10 @@ The per-tile cull of the gut3d pair lists (K2g's instance does not cull,
 ``Model.cull_pairs``): ``pair_may_hit`` keeps every pair that hits, and the
 backward twin with the culled pairs taken out equals the full sweep bit for
 bit, at degrees 0, 1 and 2 under pinhole, fisheye and rolling-shutter
-cameras.
+cameras. K1g's per-warp cull (``pair_warp_may_hit``) keeps every (warp,
+pair) that hits at every degree under every camera of the cull tests, the
+forward twin without the culled (warp, pair)s equals the full sweep bit for
+bit, and the predicate's tile answers are those of its unfactored form.
 
 JAX programs built here: five frames and two gradients (seven Pallas
 interpret programs), plus plain XLA programs for projections, rays and the
@@ -72,7 +75,13 @@ from vk_gaussian_splatting_tpu_torch.render import rays as trays
 from vk_gaussian_splatting_tpu_torch.render import render
 from vk_gaussian_splatting_tpu_torch.scene import cameras as tcam
 from test_torch_bucket import assert_culled_sweep_changes_nothing
-from test_torch_rasterize import assert_culled_backward_changes_nothing, assert_pair_cull_is_exact
+from test_torch_rasterize import (
+    assert_culled_backward_changes_nothing,
+    assert_may_hit_unchanged,
+    assert_pair_cull_is_exact,
+    assert_pair_warp_cull_is_exact,
+    assert_warp_culled_sweep_changes_nothing,
+)
 
 torch.set_num_threads(2)
 
@@ -729,3 +738,33 @@ def test_gut3d_culled_pair_backward_changes_nothing(degree, camera):
     columns exactly zero."""
     bins, st, pix = pair_cull_inputs(degree, camera)
     assert assert_culled_backward_changes_nothing(bins, st, pix) > 0.0
+
+
+# ---- K1g's per-warp cull of the pair lists -----------------------------------
+
+@pytest.mark.parametrize("camera", list(CULL_CAMERAS))
+@pytest.mark.parametrize("degree", tresp.KERNEL_DEGREES)
+def test_gut3d_pair_warp_cull_is_exact(degree, camera):
+    """No (warp, pair) that hits some pixel of the warp is culled, and the
+    cone of a warp's 32 rays culls a share of the (warp, pair)s: a fifth or
+    more, but with DoF, whose lens spreads the rays' origins, less."""
+    bins, st, pix = pair_cull_inputs(degree, camera)
+    may, hit = assert_pair_warp_cull_is_exact(bins, st, pix)
+    live = int(bins.num_pairs) * tresp.WARPS
+    assert int(hit.sum()) <= int(may.sum()) < (1.0 if camera == "dof" else 0.8) * live
+
+
+@pytest.mark.parametrize("camera", ["pinhole", "fisheye", "rolling"])
+@pytest.mark.parametrize("degree", [0, 1, 2])
+def test_gut3d_warp_culled_sweep_changes_nothing(degree, camera):
+    """K1g's warps skip the (warp, pair)s the cull drops: the forward twin
+    without them equals the full twin bit for bit."""
+    bins, st, pix = pair_cull_inputs(degree, camera)
+    _, culled = assert_warp_culled_sweep_changes_nothing(bins, st, pix)
+    assert culled > 0.2
+
+
+@pytest.mark.parametrize("degree, camera", [(0, "pinhole"), (2, "fisheye"), (5, "rolling"),
+                                            (8, "pinhole")])
+def test_gut3d_may_hit_tile_answers_unchanged(degree, camera):
+    assert_may_hit_unchanged(*pair_cull_inputs(degree, camera))

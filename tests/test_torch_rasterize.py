@@ -14,11 +14,20 @@ pair that hits (``pair_hits``), and the backward twin with the culled
 pairs taken out (zero rows) must equal the full sweep bit for bit. The batched reduction of
 csrc/rasterize_bwd.cu is modelled in numpy against the per-row warp sums it
 replaced, bit for bit.
+
+K1's per-warp cull (``pair_warp_may_hit``: each pair against each of the
+tile's eight 8x4 warp blocks, ``WARP_PIXELS``) must keep every (warp, pair)
+that hits some pixel of the warp, and the forward twin with the culled
+(warp, pair)s taken out must equal the full sweep bit for bit (and so the
+JAX kernel, at the tolerances above). The predicate's tile answers
+(``may_hit``, shared by K2, K3 and K4) must be those of its unfactored
+form, ``unfactored_may_hit`` below.
 """
 
 
 import dataclasses
 import os
+import types
 
 import jax
 import jax.numpy as jnp
@@ -429,3 +438,216 @@ def test_reduce_scatter_sums_as_the_warp_sums_bit_for_bit(seed, n):
     for lane in range(32):
         serial = serial + v[lane]
     assert (serial != butterfly(v)).any()
+
+
+# ---- K1's per-warp cull of the pair lists -------------------------------------
+
+def unfactored_may_hit(blk, bound, st):
+    """The per-tile predicate as one function per model, as written before
+    it was split into the lane's part (``pair_reach``) and the test against
+    a bound (``reach_may_hit``); the factored twin must answer as it does."""
+    amin = tresp._f32(st.alpha_min)
+    if st.model == "gs2d":
+        v = blk[:6].double()
+        x, y, ca, cb, cc, op = v
+        x0, y0, x1, y1 = bound
+        det = ca * cc - cb * cb
+        total = ca + cb.abs() + cc
+        err = 1e-6 * (total * total / det)
+        sure = torch.isfinite(v).all(dim=0) & (amin > 0) & (ca > 0) & (det > 0) & (err <= 0.25)
+        tau = torch.fmin(torch.tensor(tresp._f32(st.qmax), dtype=torch.float64),
+                         2.0 * torch.log(op / amin)) + 1e-3
+        grow = 1.0 + tresp.CULL_REL + err
+        rx = torch.sqrt(tau * cc / det) * grow + 1e-2
+        ry = torch.sqrt(tau * ca / det) * grow + 1e-2
+        miss = (x + rx < x0) | (x - rx > x1) | (y + ry < y0) | (y - ry > y1)
+        return ~(sure & ((op < amin) | miss))
+    p = blk[0:3]
+    inv = 1.0 / torch.clamp(blk[3:6], min=1e-12)
+    qw, qx, qy, qz = blk[9:13]
+    rot = torch.stack([
+        1.0 - 2.0 * (qy * qy + qz * qz), 2.0 * (qx * qy - qw * qz), 2.0 * (qx * qz + qw * qy),
+        2.0 * (qx * qy + qw * qz), 1.0 - 2.0 * (qx * qx + qz * qz), 2.0 * (qy * qz - qw * qx),
+        2.0 * (qx * qz - qw * qy), 2.0 * (qy * qz + qw * qx), 1.0 - 2.0 * (qx * qx + qy * qy)])
+    q = blk[9:13].double()
+    v = torch.cat([p.double(), inv.double(), rot.double(), blk[13:14].double(),
+                   (q * q).sum(dim=0)[None]])
+    op, mr = v[15], tresp._f32(st.kernel_min_response)
+    valid, c, a, rho, cos_t, sin_t = bound
+    sure = valid & torch.isfinite(v).all(dim=0) & (amin >= 0)
+    thr = amin / op
+    thr = torch.where(mr > thr, torch.full_like(thr, mr), thr)
+    inv_min, inv_max = v[3:6].amin(dim=0), v[3:6].amax(dim=0)
+    sig = 1.0 - 2.0 * (v[16] - 1.0).abs() - 1e-5
+    shrink = inv_min * sig
+    w = v[0:3] - c.permute(1, 0, 2)
+    ax = a.permute(1, 0, 2)
+    along = (w * ax).sum(dim=0).abs()
+    across = torch.linalg.cross(w, ax.expand_as(w), dim=0).norm(dim=0)
+    reach = w.norm(dim=0) + rho
+    err = 4e-6 * (inv_max / inv_min + 1.0) * reach * inv_max
+    r = ((tresp._cut_distance(thr, st.kernel_degree) * (1.0 + 1e-5) + err) / shrink
+         * (1.0 + tresp.CULL_REL) + 1e-7 * reach)
+    nearest = torch.clamp(across * cos_t - along * sin_t, min=0.0) - rho
+    far = (sig >= 0.5) & (shrink >= 1e-10) & (nearest > r)
+    return ~(sure & ((op <= amin) | (thr >= 1.0) | far))
+
+
+def assert_may_hit_unchanged(bins, st, pix_ctx=None):
+    """``pair_may_hit``'s tile answers equal ``unfactored_may_hit``'s on
+    every pair of ``bins``."""
+    tiles = torch.arange(st.tiles_x * st.tiles_y)
+    bound = tresp.tile_bound(st, tiles, pix_ctx)
+    args = (bins.attrs, bins.tile_start, bins.tile_count, st)
+    want = torch.zeros(bins.attrs.shape[1], dtype=torch.bool)
+    for p, _, in_range, rows in tr._chunks(*args, tiles):
+        want[p[in_range]] = unfactored_may_hit(rows, bound, st)[in_range]
+    got = tr.pair_may_hit(*args, pix_ctx=pix_ctx)
+    assert torch.equal(got, want)
+    assert 0 < int(got.sum()) < int(bins.num_pairs)
+
+
+def assert_pair_warp_cull_is_exact(bins, st, pix_ctx=None):
+    """``pair_warp_may_hit`` keeps every (warp, pair) whose alpha passes the
+    cutoffs at some pixel of the warp (``pair_hits(per_warp=True)``, frozen
+    pixels too), marks nothing outside the tiles' lists, and the per-warp
+    hits are the tile's hits split by ``WARP_PIXELS``. Returns (kept, hit)
+    (P, 8) masks."""
+    args = (bins.attrs, bins.tile_start, bins.tile_count, st)
+    may = tr.pair_warp_may_hit(*args, pix_ctx=pix_ctx)
+    hit = tr.pair_hits(*args, pix_ctx=pix_ctx, per_warp=True)
+    live = torch.arange(bins.attrs.shape[1]) < int(bins.num_pairs)
+    assert may.shape == hit.shape == (bins.attrs.shape[1], tresp.WARPS)
+    assert not may[~live].any() and hit.any()
+    assert torch.equal(hit.any(dim=1), tr.pair_hits(*args, pix_ctx=pix_ctx))
+    assert int((hit & ~may).sum()) == 0, "the cull dropped a (warp, pair) that hits"
+    return may, hit
+
+
+def culled_forward(bins, st, pix_ctx=None, keep=None):
+    """The forward twin over every pair, each warp's pixels taken from a
+    sweep in which the pairs ``keep`` (P, 8) drops for that warp are made
+    "no pair" (zero rows, whose alpha fails the cutoffs in every model): the
+    sweep K1 runs, whose warps skip the (warp, pair)s their cull drops."""
+    out, out_id = tr.rasterize_tiles_ref(bins.attrs, bins.pair_id, bins.tile_start,
+                                         bins.tile_count, st, pix_ctx=pix_ctx)
+    if keep is None:
+        return out, out_id
+    out, out_id = out.clone(), out_id.clone()
+    for w in range(tresp.WARPS):
+        attrs = bins.attrs.clone()
+        attrs[:, ~keep[:, w]] = 0.0
+        o, i = tr.rasterize_tiles_ref(attrs, bins.pair_id, bins.tile_start, bins.tile_count, st,
+                                      pix_ctx=pix_ctx)
+        px = tresp.WARP_PIXELS[w]
+        out[:, :, px], out_id[:, px] = o[:, :, px], i[:, px]
+    return out, out_id
+
+
+def assert_warp_culled_sweep_changes_nothing(bins, st, pix_ctx=None):
+    """The forward twin, and the twin with every (warp, pair) that
+    ``pair_warp_may_hit`` culls taken out, give the same rgb, T, depth and
+    id bit for bit. Returns (the culled sweep, the share of the live
+    (warp, pair)s culled)."""
+    args = (bins.attrs, bins.tile_start, bins.tile_count, st)
+    full, full_id = culled_forward(bins, st, pix_ctx)
+    keep = tr.pair_warp_may_hit(*args, pix_ctx=pix_ctx)
+    live = torch.arange(bins.attrs.shape[1]) < int(bins.num_pairs)
+    keep[~live] = True                   # pairs past num_pairs lie in no tile's range
+    got, got_id = culled_forward(bins, st, pix_ctx, keep)
+    torch.testing.assert_close(got, full, rtol=0, atol=0, equal_nan=True)
+    assert torch.equal(got_id, full_id) and (full_id >= 0).any()
+    return (got, got_id), 1.0 - keep[live].float().mean().item()
+
+
+@pytest.mark.parametrize("scene", ["golden", "dense", "adversarial"])
+def test_pair_warp_cull_is_exact(scene):
+    """No (warp, pair) that hits is culled; each warp keeps no pair the
+    tile cull drops (a warp's pixel centres lie in the tile's box); and the
+    warps keep far fewer evaluations than the tile cull."""
+    bins, st = pair_cull_bins(scene)
+    may, _ = assert_pair_warp_cull_is_exact(bins, st)
+    tile = tr.pair_may_hit(bins.attrs, bins.tile_start, bins.tile_count, st)
+    assert not (may & ~tile[:, None]).any()
+    assert may.sum().item() < 0.5 * tresp.WARPS * tile.sum().item()
+
+
+@pytest.mark.parametrize("scene", ["golden", "dense", "adversarial"])
+def test_warp_culled_sweep_changes_nothing_gs2d(scene):
+    """K1's warps skip the (warp, pair)s the cull drops: on the golden
+    frame, the dense scene and the adversarial rows the forward twin
+    without them equals the full twin bit for bit."""
+    bins, st = pair_cull_bins(scene)
+    _, culled = assert_warp_culled_sweep_changes_nothing(bins, st)
+    assert culled > 0.5
+
+
+def test_warp_culled_sweep_matches_jax_kernel(blended):
+    """On the JAX package's scenes (one of them freezing pixels over
+    several steps), the warp-culled forward twin equals the twin bit for
+    bit and so meets the JAX kernel at the twin's tolerances."""
+    _, bins_j, out_j, (attrs, ids, start, count), (out_t, id_t) = blended
+    st = statics()
+    bins = types.SimpleNamespace(attrs=attrs, pair_id=ids, tile_start=start, tile_count=count,
+                                 num_pairs=attrs.shape[1])
+    (got, got_id), culled = assert_warp_culled_sweep_changes_nothing(bins, st)
+    assert torch.equal(got, out_t) and torch.equal(got_id, id_t) and culled > 0.5
+    img_j, t_j = (np.asarray(a) for a in jr.assemble_image(
+        out_j, bins_j.seg_counts, st.tiles_x, st.tiles_y, W, H, with_aux=True)[:2])
+    img_t, t_t = (a.numpy() for a in tr.assemble_image(got, got_id, st.tiles_x, st.tiles_y,
+                                                        W, H)[:2])
+    np.testing.assert_allclose(img_t, img_j, rtol=0, atol=IMG_ATOL)
+    np.testing.assert_allclose(t_t, t_j, rtol=0, atol=IMG_ATOL)
+
+
+def test_warp_pixels_cover_each_pixel_once():
+    """K1's thread order (csrc/response.cuh warp_pixel): each pixel of the
+    tile belongs to exactly one warp, each warp to an 8x4 block, and
+    WARP_OF_PIXEL inverts the map."""
+    px = tresp.WARP_PIXELS
+    assert px.shape == (tresp.WARPS, 32)
+    assert torch.equal(px.flatten().sort().values, torch.arange(tr.PIX))
+    for w in range(tresp.WARPS):
+        x, y = px[w] % 16, px[w] // 16
+        assert (x.max() - x.min(), y.max() - y.min()) == (7, 3)
+        assert (x.min(), y.min()) == (8 * (w % 2), 4 * (w // 2))
+        assert torch.equal(px[w, :8], px[w, 0] + torch.arange(8))     # lanes run along x
+    assert torch.equal(tresp.WARP_OF_PIXEL[px], torch.arange(tresp.WARPS)[:, None].expand(-1, 32))
+
+
+def test_blend_work_counts_a_warp_cull(blended):
+    """blend_work with a (P, 8) ``keep``: kept counts (warp, pair) bits over
+    the steps a tile enters and kept evaluations the live (pixel, pair)s
+    whose warp keeps the pair. Every bit keeps 8 per tested pair and every
+    evaluation; none keeps nothing; the eight one-warp masks split both."""
+    _, _, _, (attrs, _, start, count), _ = blended
+    st = statics()
+    evals, hits, tested, _, _ = tr.blend_work(attrs, start, count, st,
+                                              keep=torch.ones(attrs.shape[1], dtype=torch.bool))
+    every = torch.ones((attrs.shape[1], tresp.WARPS), dtype=torch.bool)
+    assert tr.blend_work(attrs, start, count, st, keep=every) == (
+        evals, hits, tested, tresp.WARPS * tested, evals)
+    assert tr.blend_work(attrs, start, count, st, keep=~every)[2:] == (tested, 0, 0)
+    parts = []
+    for w in range(tresp.WARPS):
+        one_warp = torch.zeros_like(every)
+        one_warp[:, w] = True
+        parts.append(tr.blend_work(attrs, start, count, st, keep=one_warp)[3:])
+        assert parts[-1][0] == tested and 0 < parts[-1][1] < evals
+    assert sum(k for _, k in parts) == evals
+
+
+@pytest.mark.parametrize("scene", ["golden", "dense", "adversarial"])
+def test_may_hit_tile_answers_unchanged_gs2d(scene):
+    assert_may_hit_unchanged(*pair_cull_bins(scene))
+
+
+def test_warp_sum_twin_adds_as_the_butterfly():
+    """ops/response._warp_sum, which gut3d's warp bound sums with, gives
+    lane 0's bits of csrc/response.cuh warp_sum_d, modelled by
+    ``butterfly`` above (in double here), and differs from a serial sum."""
+    rng = np.random.default_rng(7)
+    v = rng.normal(size=(32, 64)) * 10.0 ** rng.uniform(-3, 3, (32, 64))
+    got = tresp._warp_sum(torch.from_numpy(v.T.copy())).numpy()
+    np.testing.assert_array_equal(got.view(np.uint64), butterfly(v).view(np.uint64))
+    assert (got != np.cumsum(v, axis=0)[-1]).any()

@@ -10,32 +10,61 @@
 // the TPU. The model is a template parameter (csrc/response.cuh); one C
 // entry point per model.
 //
-// Design: one thread block per 16x16 tile, one thread per pixel. A thread
-// holds its pixel's center and, for gut3d, its ray (six floats of the
-// per-tile pixel context, read once per tile into registers). The block
-// walks its tile's [start, end) range of depth-sorted pairs in steps that
-// end at the blend-chunk boundaries of the global pair index
-// (p % chunk == 0) and at the tile's end. Each step's lanes are staged in
-// shared memory as the model's slots (gs2d: its ten rows; gut3d: position,
-// 1/scale, rgb, the rotation's nine entries, opacity, depth), the splat id
-// as int32 beside them; then every pixel blends them front to back:
-//   a = the model's alpha (0 where its cutoffs drop the pair), clamped;
-//   rgb += a*T*color;  T *= 1 - a;
-//   depth and id are picked at the first pair with T < depth_iso and a > 0.
-// A pixel freezes (contributes nothing more) when its T at the start of a
-// step is <= min_transmittance, exactly the TPU kernel's per-step freeze,
-// and the block stops once all 256 pixels are frozen (__syncthreads_or).
-// Every tile is written, empty tiles as rgb 0, T 1, depth 0, id -1.
+// Design: two launches, each one thread block per 16x16 tile with one
+// thread per pixel and the block's eight warps each on an 8x4 block of the
+// tile's pixels (response::warp_pixel). A thread holds its pixel's center
+// and, for gut3d, its ray (six floats of the per-tile pixel context, read
+// once per tile into registers).
+// 1. The per-warp cull (warp_mask_kernel). Each warp computes the bound of
+//    its 32 pixels (warp_bound: the rectangle of their centres, or the cone
+//    of their rays). Threads 2k and 2k + 1 take pair k of each round of 128
+//    of the tile's [start, end) range, stage it in registers as the model's
+//    backward slots, compute the pair's part of the model's per-tile
+//    predicate once (csrc/response.cuh reach: gs2d's inflated box, gut3d's
+//    cut distance and scales) and test it against half of the warps' bounds
+//    each (reach_hits, the test may_hit runs against a tile's bound): the
+//    pair's 8-bit mask, bit w set where warp w may be hit, is one byte of
+//    `masks`. No barrier holds these f64 tests back.
+// 2. The blend (rasterize_fwd_kernel). The block walks its tile's range of
+//    depth-sorted pairs in steps that end at the blend-chunk boundaries of
+//    the global pair index (p % chunk == 0) and at the tile's end. Each
+//    step reads its pairs' masks, and response::kept_place compacts the
+//    pairs with a nonzero mask, in pair order, into shared memory: the
+//    model's forward slots (stage_fwd), lane-major and padded to a multiple
+//    of 4 floats, the int32 id and the mask. Then each warp walks the kept
+//    pairs whose bit it holds, 32 at a time by a ballot of their masks (the
+//    skip is warp-uniform), and each of its live pixels blends them front
+//    to back, a pair's slots coming into registers by float4 broadcast
+//    loads (5 for gut3d, where 16 loads of one float bound the loop before):
+//      a = the model's alpha (0 where its cutoffs drop the pair), clamped;
+//      rgb += a*T*color;  T *= 1 - a;
+//      depth and id are picked at the first pair with T < depth_iso, a > 0.
+// A culled (warp, pair) fails eval at every pixel of the warp (the
+// predicate's margins cover eval's rounding), so it would change no T,
+// colour or pick: the outputs are bit for bit those of the sweep over every
+// pair. A pixel freezes (contributes nothing more) when its T at the start
+// of a step is <= min_transmittance, exactly the TPU kernel's per-step
+// freeze; a warp whose pixels all froze skips the step; a step whose pairs
+// are all culled still counts as a step; and the block stops once all 256
+// pixels are frozen (__syncthreads_or). Every tile is written, empty tiles
+// as rgb 0, T 1, depth 0, id -1, row-major over the tile's pixels whatever
+// thread holds them. Each block adds its kept (warp, pair) bits over the
+// steps it entered to a counter (one integer atomic).
 //
-// What bounds it on the H100: f32 operations per (pixel, pair), about 17
-// for gs2d and 68 for gut3d (the canonical ray, an rsqrtf and an expf),
-// plus the blend per hit; the attribute reads are amortised over the
-// tile's 256 pixels through shared memory (broadcast reads, no bank
-// conflicts), and gut3d's per-lane rotation is built once per lane, not
-// per pixel. Built with exact expf, without fast math and with -fmad=false
-// (ops/_build.py): the cutoffs flip whole contributions, so each alpha is
-// rounded op for op as the plain PyTorch twin rounds it. wgmma and TMA are
-// not used yet: making this kernel fast is later work.
+// What bounds it on the H100: f32 operations per (pixel, pair) evaluation,
+// about 17 for gs2d and 68 for gut3d (the canonical ray, an rsqrtf and an
+// expf), plus the blend per hit; only 7-8 % of the evaluations of a tile's
+// list hit, and the per-warp cull keeps 22 % (3DGS) and 33 % (3DGUT) of
+// them at the headline frames for f64 operations per pair and per (warp,
+// pair). Measured on an H100 (PERF.md §6): the cull inside the
+// blend's steps, behind their barriers, ran 0.02 ms slower in both models
+// than this separate pass. The attribute reads are amortised over a warp's
+// 32 pixels through shared memory (broadcast reads, no bank conflicts), and
+// gut3d's per-lane rotation is built once per lane, not per pixel. Built
+// with exact expf, without fast math and with -fmad=false (ops/_build.py):
+// the cutoffs flip whole contributions, so each alpha is rounded op for op
+// as the plain PyTorch twin rounds it (K2 recomputes these alphas bit for
+// bit). wgmma and TMA are not used.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -45,54 +74,136 @@
 namespace {
 
 using response::PIX;
-constexpr int MAX_CHUNK = 256;     // largest blend step staged at once
+using response::WARPS;
+constexpr int MAX_CHUNK = 256;     // largest blend step staged at once: one pair per thread
 constexpr int OUT_ROWS = 5;        // rgb, T, depth
+// Blocks per SM both kernels are built for: at most 40 registers a thread,
+// a few spilled in gut3d's cull. On an H100 6 blocks ran faster than 4 or 5
+// in both kernels and both models (PERF.md §6).
+constexpr int MIN_BLOCKS = 6;
+
+// A kept pair's forward slots are staged lane-major, padded to a multiple
+// of four floats, and read into registers with float4 broadcast loads.
+template <class M>
+constexpr int LANE_STRIDE = (M::FWD_SLOTS + 3) / 4 * 4;
 
 template <class M>
-__global__ void __launch_bounds__(PIX)
+__global__ void __launch_bounds__(PIX, MIN_BLOCKS)
+warp_mask_kernel(const float* __restrict__ attrs, long long pair_stride,
+                 const int* __restrict__ tile_start, const int* __restrict__ tile_count,
+                 const float* __restrict__ pix_ctx, int tiles_x, response::Params prm,
+                 unsigned char* __restrict__ masks) {
+  static_assert(WARPS <= 8, "a mask byte holds one bit per warp");
+  constexpr int HALF = WARPS / 2;            // bounds each thread of a pair tests
+  __shared__ typename M::TileBound bound[WARPS];
+
+  const int t = blockIdx.x;
+  const int i = threadIdx.x;
+  const response::Pixel pix =
+      response::load_pixel(t, tiles_x, response::warp_pixel(i), pix_ctx);
+  M::warp_bound(bound[i >> 5], t, tiles_x, pix);
+  __syncthreads();
+  const int start = tile_start[t];
+  const int count = tile_count[t];
+  const int part = i % 2;
+  for (int r0 = 0; r0 < count; r0 += PIX / 2) {  // uniform trip count: the shuffle below
+    const int j = r0 + i / 2;
+    unsigned mask = 0;
+    if (j < count) {
+      float slots[M::BWD_SLOTS];
+      M::stage_bwd(attrs, pair_stride, start + j, slots, 1, 0);
+      const typename M::Reach r = M::reach(slots, 1, 0, prm);
+      #pragma unroll
+      for (int k = 0; k < HALF; ++k) {
+        if (M::reach_hits(r, bound[part * HALF + k])) mask |= 1u << (part * HALF + k);
+      }
+    }
+    mask |= __shfl_xor_sync(0xffffffffu, mask, 1);  // the pair's other half
+    if (part == 0 && j < count) masks[start + j] = (unsigned char)mask;
+  }
+}
+
+template <class M>
+__global__ void __launch_bounds__(PIX, MIN_BLOCKS)
 rasterize_fwd_kernel(const float* __restrict__ attrs, long long pair_stride,
                      const int* __restrict__ ids,
                      const int* __restrict__ tile_start,
                      const int* __restrict__ tile_count,
+                     const unsigned char* __restrict__ masks,
                      const float* __restrict__ pix_ctx, int tiles_x, int chunk,
                      response::Params prm, float min_transmittance,
                      float depth_iso, float* __restrict__ out,
-                     int* __restrict__ out_id) {
-  __shared__ float s_attr[M::FWD_SLOTS * MAX_CHUNK];
+                     int* __restrict__ out_id, int* __restrict__ kept) {
+  constexpr int LS = LANE_STRIDE<M>;
+  __shared__ __align__(16) float s_attr[MAX_CHUNK * LS];  // pair j's slots at j * LS
   __shared__ int s_id[MAX_CHUNK];
+  __shared__ unsigned s_mask[MAX_CHUNK];     // bit w: warp w may be hit
+  __shared__ int s_count[2][WARPS];          // response::kept_place's buffers
+  __shared__ int s_kept;
 
   const int t = blockIdx.x;
   const int i = threadIdx.x;
-  const response::Pixel pix = response::load_pixel(t, tiles_x, i, pix_ctx);
+  const int lane = i & 31;
+  const int warp = i >> 5;
+  const int px = response::warp_pixel(i);    // this thread's pixel in the tile
+  const response::Pixel pix = response::load_pixel(t, tiles_x, px, pix_ctx);
+  if (i == 0) s_kept = 0;
   const int start = tile_start[t];
   const int end = start + tile_count[t];
 
   float T = 1.0f, cr = 0.0f, cg = 0.0f, cb = 0.0f, depth = 0.0f;
   int pick = -1;
   bool picked = false;
+  int n_bits = 0;  // kept (warp, pair) bits of the pairs this thread staged
 
   for (int s = start; s < end;) {
     const int e = min(end, (s / chunk + 1) * chunk);  // next chunk boundary
     const int n = e - s;
-    for (int j = i; j < n; j += PIX) {
-      M::stage_fwd(attrs, pair_stride, s + j, s_attr, MAX_CHUNK, j);
-      s_id[j] = ids[s + j];
+    // Stage the step's pairs that some warp may need, compacted in pair
+    // order: thread i takes pair s + r0 + i of each round of PIX pairs (one
+    // round, as n <= PIX).
+    int n_kept = 0;
+    for (int r0 = 0; r0 < n; r0 += PIX) {
+      const int j = r0 + i;
+      const unsigned mask = j < n ? masks[s + j] : 0u;
+      const int at = response::kept_place(mask != 0, r0 / PIX, s_count, n_kept);
+      if (mask != 0) {
+        M::stage_fwd(attrs, pair_stride, s + j, s_attr, 1, at * LS);
+        s_id[at] = ids[s + j];
+        s_mask[at] = mask;
+        n_bits += __popc(mask);
+      }
     }
     __syncthreads();
-    if (T > min_transmittance) {  // per-step freeze, rasterize_pallas.py:286
-      for (int j = 0; j < n; ++j) {
+    const bool live = T > min_transmittance;  // per-step freeze, rasterize_pallas.py:286
+    const bool warp_live = __any_sync(0xffffffffu, live);
+    for (int j0 = 0; warp_live && j0 < n_kept; j0 += 32) {
+      const int jl = j0 + lane;
+      unsigned bits = __ballot_sync(0xffffffffu, jl < n_kept && ((s_mask[jl] >> warp) & 1u));
+      for (; bits != 0; bits &= bits - 1) {
+        const int j = j0 + __ffs(bits) - 1;
+        if (!live) continue;
+        float v[LS];
+        #pragma unroll
+        for (int k = 0; k < LS / 4; ++k) {
+          const float4 q = reinterpret_cast<const float4*>(s_attr + j * LS)[k];
+          v[4 * k] = q.x;
+          v[4 * k + 1] = q.y;
+          v[4 * k + 2] = q.z;
+          v[4 * k + 3] = q.w;
+        }
         float a;
         typename M::Hit h;
-        if (!M::eval(s_attr, MAX_CHUNK, j, pix, prm, a, h)) continue;  // alpha = 0
+        if (!M::eval(v, 1, 0, pix, prm, a, h)) continue;  // alpha = 0
         a = fminf(a, prm.alpha_clamp);
         const float w = a * T;
-        cr += w * s_attr[6 * MAX_CHUNK + j];
-        cg += w * s_attr[7 * MAX_CHUNK + j];
-        cb += w * s_attr[8 * MAX_CHUNK + j];
+        cr += w * v[6];
+        cg += w * v[7];
+        cb += w * v[8];
         T *= 1.0f - a;
         if (!picked && T < depth_iso) {
           picked = true;
-          depth = s_attr[M::DEPTH_SLOT * MAX_CHUNK + j];
+          depth = v[M::DEPTH_SLOT];
           pick = s_id[j];
         }
       }
@@ -104,55 +215,66 @@ rasterize_fwd_kernel(const float* __restrict__ attrs, long long pair_stride,
   }
 
   float* o = out + (size_t)t * OUT_ROWS * PIX;
-  o[0 * PIX + i] = cr;
-  o[1 * PIX + i] = cg;
-  o[2 * PIX + i] = cb;
-  o[3 * PIX + i] = T;
-  o[4 * PIX + i] = depth;
-  out_id[(size_t)t * PIX + i] = pick;
+  o[0 * PIX + px] = cr;
+  o[1 * PIX + px] = cg;
+  o[2 * PIX + px] = cb;
+  o[3 * PIX + px] = T;
+  o[4 * PIX + px] = depth;
+  out_id[(size_t)t * PIX + px] = pick;
+  // integers: the count is the same whatever the order of the adds
+  n_bits = __reduce_add_sync(0xffffffffu, n_bits);
+  __syncthreads();  // thread 0's reset of s_kept is seen, also in a block with no pairs
+  if (lane == 0 && n_bits > 0) atomicAdd(&s_kept, n_bits);
+  __syncthreads();
+  if (i == 0 && s_kept > 0) atomicAdd(kept, s_kept);
 }
 
 template <class M>
 int launch(const float* attrs, long long pair_stride, const int* ids, const int* tile_start,
            const int* tile_count, const float* pix_ctx, int num_tiles, int tiles_x, int chunk,
            float alpha_min, float alpha_clamp, float qmax, float min_response, int degree,
-           float min_transmittance, float depth_iso, float* out, int* out_id, void* stream) {
+           float min_transmittance, float depth_iso, float* out, int* out_id, int* kept,
+           unsigned char* masks, void* stream) {
   if (chunk < 1 || chunk > MAX_CHUNK) return (int)cudaErrorInvalidValue;
   const response::Params prm{alpha_min, alpha_clamp, qmax, min_response, degree};
   if (num_tiles > 0) {
+    warp_mask_kernel<M><<<num_tiles, PIX, 0, (cudaStream_t)stream>>>(
+        attrs, pair_stride, tile_start, tile_count, pix_ctx, tiles_x, prm, masks);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
     rasterize_fwd_kernel<M><<<num_tiles, PIX, 0, (cudaStream_t)stream>>>(
-        attrs, pair_stride, ids, tile_start, tile_count, pix_ctx, tiles_x, chunk, prm,
-        min_transmittance, depth_iso, out, out_id);
+        attrs, pair_stride, ids, tile_start, tile_count, masks, pix_ctx, tiles_x, chunk, prm,
+        min_transmittance, depth_iso, out, out_id, kept);
   }
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Launch one block per tile on `stream`; return cudaGetLastError(). gs2d
-// reads no pixel context (pix_ctx may be null); gut3d reads the (T, 8, 256)
-// one.
-extern "C" int rasterize_fwd(const float* attrs, long long pair_stride, const int* ids,
-                             const int* tile_start, const int* tile_count,
-                             const float* pix_ctx, int num_tiles, int tiles_x, int chunk,
-                             float alpha_min, float alpha_clamp, float qmax,
-                             float min_response, int degree, float min_transmittance,
-                             float depth_iso, float* out, int* out_id, void* stream) {
-  return launch<response::Gs2d>(attrs, pair_stride, ids, tile_start, tile_count, nullptr,
-                                num_tiles, tiles_x, chunk, alpha_min, alpha_clamp, qmax,
-                                min_response, degree, min_transmittance, depth_iso, out,
-                                out_id, stream);
+// Launch the per-warp cull and the blend, one block per tile each, on
+// `stream`; return cudaGetLastError(). gs2d reads no pixel context (pix_ctx
+// may be null); gut3d reads the (T, 8, 256) one. masks: a byte per pair
+// (pair_stride of them), scratch the cull writes for the pairs of the
+// tiles' ranges and the blend reads. kept must hold 0 on entry: each block
+// of the blend adds the (warp, pair) bits it kept, over the blend steps it
+// entered (one integer atomic each).
+#define RASTERIZE_FWD_PARAMS                                                                  \
+  const float *attrs, long long pair_stride, const int *ids, const int *tile_start,          \
+      const int *tile_count, const float *pix_ctx, int num_tiles, int tiles_x, int chunk,    \
+      float alpha_min, float alpha_clamp, float qmax, float min_response, int degree,        \
+      float min_transmittance, float depth_iso, float *out, int *out_id, int *kept,          \
+      unsigned char *masks, void *stream
+#define RASTERIZE_FWD_ARGS                                                                    \
+  attrs, pair_stride, ids, tile_start, tile_count, pix_ctx, num_tiles, tiles_x, chunk,       \
+      alpha_min, alpha_clamp, qmax, min_response, degree, min_transmittance, depth_iso, out,  \
+      out_id, kept, masks, stream
+
+extern "C" int rasterize_fwd(RASTERIZE_FWD_PARAMS) {
+  pix_ctx = nullptr;
+  return launch<response::Gs2d>(RASTERIZE_FWD_ARGS);
 }
 
-extern "C" int rasterize_fwd_gut3d(const float* attrs, long long pair_stride, const int* ids,
-                                   const int* tile_start, const int* tile_count,
-                                   const float* pix_ctx, int num_tiles, int tiles_x, int chunk,
-                                   float alpha_min, float alpha_clamp, float qmax,
-                                   float min_response, int degree, float min_transmittance,
-                                   float depth_iso, float* out, int* out_id, void* stream) {
+extern "C" int rasterize_fwd_gut3d(RASTERIZE_FWD_PARAMS) {
   if (pix_ctx == nullptr) return (int)cudaErrorInvalidValue;
-  return launch<response::Gut3d>(attrs, pair_stride, ids, tile_start, tile_count, pix_ctx,
-                                 num_tiles, tiles_x, chunk, alpha_min, alpha_clamp, qmax,
-                                 min_response, degree, min_transmittance, depth_iso, out,
-                                 out_id, stream);
+  return launch<response::Gut3d>(RASTERIZE_FWD_ARGS);
 }

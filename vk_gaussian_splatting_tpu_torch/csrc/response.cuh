@@ -45,6 +45,12 @@
 // may_hit(s, ss, j, bound, prm) reads a lane's staged backward slots and
 // answers false only where eval provably fails at every pixel of the tile;
 // kept_place (below) compacts each blend step's kept lanes in list order.
+// may_hit is reach (the lane's part, from its slots alone) followed by
+// reach_hits (the test against one bound). The pair forward
+// (csrc/rasterize_fwd.cu, K1) tests each lane's Reach against the bounds of
+// the block's eight warps (warp_bound: the same bound over the warp's 32
+// pixels, warp_pixel), so a warp skips the pairs that cannot touch its
+// pixels; the margins below hold for any set of pixel centres or rays.
 // K2 and K3 stage those slots in registers for the test (K3 stores the
 // forward slots from them: the backward slots before DEPTH_SLOT, then the
 // depth). may_hit's geometry runs in double from the f32 slots eval reads.
@@ -69,6 +75,17 @@ constexpr int PIX = TILE * TILE;   // threads per block, pixels per tile
 constexpr int WARPS = PIX / 32;
 constexpr int PIX_ROWS = 8;        // pixel-context rows per tile: 0-2 d, 3-5 o
 constexpr double CULL_REL = 1e-3;  // relative growth of every cull radius
+constexpr int WARP_W = 8, WARP_H = 4;  // K1's warps: 8x4 pixel blocks
+
+// The pixel, row-major in its tile, of thread i of a K1 block: warp w = i /
+// 32 covers the 8x4 block at x = 8 (w % 2), y = 4 (w / 2), lane l the pixel
+// (l % 8, l / 8) of it. A compact block keeps a warp's rays and centres
+// close together, so its bound culls far more than a 16x2 strip's.
+__device__ inline int warp_pixel(int i) {
+  const int w = i >> 5, l = i & 31;
+  constexpr int ACROSS = TILE / WARP_W;  // warp blocks per row of the tile
+  return (WARP_H * (w / ACROSS) + l / WARP_W) * TILE + WARP_W * (w % ACROSS) + l % WARP_W;
+}
 
 __device__ inline bool finite_all(const double* v, int n) {
   bool ok = true;
@@ -176,6 +193,19 @@ struct Gs2d {
     __syncthreads();
   }
 
+  // The rectangle of the centres of the calling warp's pixels (warp_pixel),
+  // written by its lane 0; no barrier.
+  __device__ static void warp_bound(TileBound& b, int t, int tiles_x, const Pixel&) {
+    const int w = threadIdx.x >> 5;
+    constexpr int ACROSS = TILE / WARP_W;
+    if ((threadIdx.x & 31) == 0) {
+      b.x0 = (double)((t % tiles_x) * TILE + WARP_W * (w % ACROSS)) + 0.5;
+      b.y0 = (double)((t / tiles_x) * TILE + WARP_H * (w / ACROSS)) + 0.5;
+      b.x1 = b.x0 + (WARP_W - 1);
+      b.y1 = b.y0 + (WARP_H - 1);
+    }
+  }
+
   // A hit needs d <= qmax and opacity exp(-d/2) >= alpha_min, so d <= tau =
   // min(qmax, 2 ln(opacity / alpha_min)). For a positive-definite conic (a >
   // 0, det = ac - b^2 > 0) d >= 0, so opacity < alpha_min never hits; else
@@ -185,25 +215,44 @@ struct Gs2d {
   // form (six roundings and those of dx, dy), which is at most err = 1e-6 K
   // of the form with K = (a + |b| + c)^2 / det; so tau grows by 1e-3 (the
   // rounding of exp and of the product, ~1e-6 in d, and more) and the
-  // radii by CULL_REL + err, with conics of err > 0.25 kept.
-  __device__ static bool may_hit(const float* s, int ss, int j, const TileBound& b,
-                                 const Params& prm) {
+  // radii by CULL_REL + err, with conics of err > 0.25 kept. Nothing here
+  // depends on which pixel centres the box holds.
+  // The lane's part: a fixed answer, or the centre and inflated half-widths.
+  struct Reach {
+    double x, y, rx, ry;
+    bool fixed, answer;
+  };
+
+  __device__ static Reach reach(const float* s, int ss, int j, const Params& prm) {
     const double v[6] = {s[0 * ss + j], s[1 * ss + j], s[2 * ss + j],
                          s[3 * ss + j], s[4 * ss + j], s[5 * ss + j]};
     const double x = v[0], y = v[1], ca = v[2], cb = v[3], cc = v[4], op = v[5];
     const double amin = prm.alpha_min;
-    if (!(finite_all(v, 6) && amin > 0.0)) return true;
+    Reach r{x, y, 0.0, 0.0, true, true};
+    if (!(finite_all(v, 6) && amin > 0.0)) return r;
     const double det = ca * cc - cb * cb;
-    if (!(ca > 0.0 && det > 0.0)) return true;
+    if (!(ca > 0.0 && det > 0.0)) return r;
     const double sum = ca + fabs(cb) + cc;
     const double err = 1e-6 * (sum * sum / det);
-    if (!(err <= 0.25)) return true;
-    if (op < amin) return false;  // d >= 0: a_raw <= opacity
+    if (!(err <= 0.25)) return r;
+    r.answer = false;
+    if (op < amin) return r;  // d >= 0: a_raw <= opacity
     const double tau = fmin((double)prm.qmax, 2.0 * log(op / amin)) + 1e-3;
     const double grow = 1.0 + CULL_REL + err;
-    const double rx = sqrt(tau * cc / det) * grow + 1e-2;
-    const double ry = sqrt(tau * ca / det) * grow + 1e-2;
-    return !(x + rx < b.x0 || x - rx > b.x1 || y + ry < b.y0 || y - ry > b.y1);
+    r.rx = sqrt(tau * cc / det) * grow + 1e-2;
+    r.ry = sqrt(tau * ca / det) * grow + 1e-2;
+    r.fixed = false;
+    return r;
+  }
+
+  __device__ static bool reach_hits(const Reach& r, const TileBound& b) {
+    if (r.fixed) return r.answer;
+    return !(r.x + r.rx < b.x0 || r.x - r.rx > b.x1 || r.y + r.ry < b.y0 || r.y - r.ry > b.y1);
+  }
+
+  __device__ static bool may_hit(const float* s, int ss, int j, const TileBound& b,
+                                 const Params& prm) {
+    return reach_hits(reach(s, ss, j, prm), b);
   }
 };
 
@@ -399,14 +448,55 @@ struct Gut3d {
     bool valid;
   };
 
+  // A ray's six values (origin, direction) in v, |d|^2 in dd; whether it is
+  // usable (finite, |d| > 0).
+  __device__ static bool ray_of(const Pixel& p, double* v, double& dd) {
+    #pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      v[k] = p.o[k];
+      v[3 + k] = p.d[k];
+    }
+    dd = v[3] * v[3] + v[4] * v[4] + v[5] * v[5];
+    return finite_all(v, 6) && dd > 0.0;
+  }
+
+  // The centre and axis from the six sums over n_rays rays.
+  __device__ static void centre_axis(TileBound& b, const double* sum, double n_rays) {
+    const double n = sqrt(sum[3] * sum[3] + sum[4] * sum[4] + sum[5] * sum[5]);
+    #pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      b.c[k] = sum[k] / n_rays;
+      b.a[k] = sum[3 + k] / n;
+    }
+  }
+
+  // The warp's largest squared origin distance from c and least cosine to
+  // a, in every lane.
+  __device__ static void warp_spread(const TileBound& b, const Pixel& p, double dd, double& r2,
+                                     double& cs) {
+    const double e[3] = {p.o[0] - b.c[0], p.o[1] - b.c[1], p.o[2] - b.c[2]};
+    r2 = e[0] * e[0] + e[1] * e[1] + e[2] * e[2];
+    cs = (p.d[0] * b.a[0] + p.d[1] * b.a[1] + p.d[2] * b.a[2]) / sqrt(dd);
+    #pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      r2 = fmax(r2, __shfl_xor_sync(0xffffffffu, r2, o));
+      cs = fmin(cs, __shfl_xor_sync(0xffffffffu, cs, o));
+    }
+  }
+
+  __device__ static void spread_to(TileBound& b, double r2, double cs) {
+    b.rho = sqrt(r2);
+    b.cos_t = cs;
+    b.sin_t = sqrt(fmax(0.0, 1.0 - cs * cs));
+  }
+
   // A block reduction over the PIX pixel rays, in double, in a fixed order
   // (warp shuffles, then the warps in order).
   __device__ static void tile_bound(TileBound& b, int, int, const Pixel& p) {
     __shared__ double part[PIX / 32][6];
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    double v[6] = {p.o[0], p.o[1], p.o[2], p.d[0], p.d[1], p.d[2]};
-    const double dd = v[3] * v[3] + v[4] * v[4] + v[5] * v[5];
-    const bool ok = finite_all(v, 6) && dd > 0.0;
+    double v[6], dd;
+    const bool ok = ray_of(p, v, dd);
     #pragma unroll
     for (int k = 0; k < 6; ++k) v[k] = warp_sum_d(v[k]);
     if (lane == 0) {
@@ -420,23 +510,12 @@ struct Gut3d {
         #pragma unroll
         for (int k = 0; k < 6; ++k) sum[k] += part[w][k];
       }
-      const double n = sqrt(sum[3] * sum[3] + sum[4] * sum[4] + sum[5] * sum[5]);
-      #pragma unroll
-      for (int k = 0; k < 3; ++k) {
-        b.c[k] = sum[k] / PIX;
-        b.a[k] = sum[3 + k] / n;
-      }
+      centre_axis(b, sum, PIX);
       b.valid = valid;
     }
     __syncthreads();
-    const double e[3] = {p.o[0] - b.c[0], p.o[1] - b.c[1], p.o[2] - b.c[2]};
-    double r2 = e[0] * e[0] + e[1] * e[1] + e[2] * e[2];
-    double cs = (p.d[0] * b.a[0] + p.d[1] * b.a[1] + p.d[2] * b.a[2]) / sqrt(dd);
-    #pragma unroll
-    for (int o = 16; o > 0; o >>= 1) {
-      r2 = fmax(r2, __shfl_xor_sync(0xffffffffu, r2, o));
-      cs = fmin(cs, __shfl_xor_sync(0xffffffffu, cs, o));
-    }
+    double r2, cs;
+    warp_spread(b, p, dd, r2, cs);
     if (lane == 0) {  // thread 0 read part before the barrier above
       part[warp][0] = r2;
       part[warp][1] = cs;
@@ -447,11 +526,33 @@ struct Gut3d {
         r2 = fmax(r2, part[w][0]);
         cs = fmin(cs, part[w][1]);
       }
-      b.rho = sqrt(r2);
-      b.cos_t = cs;
-      b.sin_t = sqrt(fmax(0.0, 1.0 - cs * cs));
+      spread_to(b, r2, cs);
     }
     __syncthreads();
+  }
+
+  // The same bound over the calling warp's 32 rays alone (the mean over 32),
+  // written by its lane 0; no barrier. Every lane holds the same sums (each
+  // butterfly round adds a pair of values in either order), so the same c
+  // and a.
+  __device__ static void warp_bound(TileBound& b, int, int, const Pixel& p) {
+    double v[6], dd;
+    const bool valid = __all_sync(0xffffffffu, ray_of(p, v, dd));
+    #pragma unroll
+    for (int k = 0; k < 6; ++k) v[k] = warp_sum_d(v[k]);
+    TileBound w;
+    centre_axis(w, v, 32);
+    double r2, cs;
+    warp_spread(w, p, dd, r2, cs);
+    if ((threadIdx.x & 31) == 0) {
+      #pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        b.c[k] = w.c[k];
+        b.a[k] = w.a[k];
+      }
+      b.valid = valid;
+      spread_to(b, r2, cs);
+    }
   }
 
   // The canonical distance sqrt(D) below which K_degree(D) > thr (0 < thr <
@@ -484,9 +585,15 @@ struct Gut3d {
   // |v x a| cos_t - |v . a| sin_t - rho from p (v = p - c: the angle from v
   // to any ray line is at least the angle to a less theta, and the origins
   // lie within rho of c). Kept where min(1/s) sigma_min < 1e-10 (the rsqrt's
-  // 1e-30 would then shorten dh) or sigma_min < 0.5.
-  __device__ static bool may_hit(const float* s, int ss, int j, const TileBound& b,
-                                 const Params& prm) {
+  // 1e-30 would then shorten dh) or sigma_min < 0.5. Nothing here depends on
+  // which rays the bound holds.
+  // The lane's part: a fixed answer, or what the test against a bound reads.
+  struct Reach {
+    double p[3], kappa, inv_max, cut, shrink;  // kappa: 4e-6 (max(1/s) / min(1/s) + 1)
+    bool fixed, answer;
+  };
+
+  __device__ static Reach reach(const float* s, int ss, int j, const Params& prm) {
     double v[17];
     #pragma unroll
     for (int k = 0; k < 3; ++k) {
@@ -499,28 +606,44 @@ struct Gut3d {
     const double qw = s[S_Q * ss + j], qx = s[(S_Q + 1) * ss + j];
     const double qy = s[(S_Q + 2) * ss + j], qz = s[(S_Q + 3) * ss + j];
     v[16] = qw * qw + qx * qx + qy * qy + qz * qz;
+    Reach r{{v[0], v[1], v[2]}, 0.0, 0.0, 0.0, 0.0, true, true};
     const double op = v[15], amin = prm.alpha_min;
-    if (!(b.valid && finite_all(v, 17) && amin >= 0.0)) return true;
-    if (op <= amin) return false;  // resp <= 1: a_raw <= opacity
+    if (!(finite_all(v, 17) && amin >= 0.0)) return r;
+    r.answer = false;
+    if (op <= amin) return r;  // resp <= 1: a_raw <= opacity
     double thr = amin / op;
     if ((double)prm.min_response > thr) thr = prm.min_response;
-    if (thr >= 1.0) return false;  // resp <= 1
+    if (thr >= 1.0) return r;  // resp <= 1
     const double inv_min = fmin(v[3], fmin(v[4], v[5]));
-    const double inv_max = fmax(v[3], fmax(v[4], v[5]));
+    r.inv_max = fmax(v[3], fmax(v[4], v[5]));
     const double sig = 1.0 - 2.0 * fabs(v[16] - 1.0) - 1e-5;
-    const double shrink = inv_min * sig;
-    if (!(sig >= 0.5 && shrink >= 1e-10)) return true;
-    const double w[3] = {v[0] - b.c[0], v[1] - b.c[1], v[2] - b.c[2]};
+    r.shrink = inv_min * sig;
+    r.answer = true;
+    if (!(sig >= 0.5 && r.shrink >= 1e-10)) return r;
+    r.kappa = 4e-6 * (r.inv_max / inv_min + 1.0);
+    r.cut = cut_distance(thr, prm.degree) * (1.0 + 1e-5);
+    r.fixed = false;
+    return r;
+  }
+
+  __device__ static bool reach_hits(const Reach& r, const TileBound& b) {
+    if (!b.valid) return true;
+    if (r.fixed) return r.answer;
+    const double w[3] = {r.p[0] - b.c[0], r.p[1] - b.c[1], r.p[2] - b.c[2]};
     const double along = fabs(w[0] * b.a[0] + w[1] * b.a[1] + w[2] * b.a[2]);
     const double x0 = w[1] * b.a[2] - w[2] * b.a[1], x1 = w[2] * b.a[0] - w[0] * b.a[2];
     const double x2 = w[0] * b.a[1] - w[1] * b.a[0];
     const double across = sqrt(x0 * x0 + x1 * x1 + x2 * x2);
-    const double reach = sqrt(w[0] * w[0] + w[1] * w[1] + w[2] * w[2]) + b.rho;
-    const double err = 4e-6 * (inv_max / inv_min + 1.0) * reach * inv_max;
-    const double r = (cut_distance(thr, prm.degree) * (1.0 + 1e-5) + err) / shrink *
-                         (1.0 + CULL_REL) + 1e-7 * reach;
+    const double extent = sqrt(w[0] * w[0] + w[1] * w[1] + w[2] * w[2]) + b.rho;
+    const double err = r.kappa * extent * r.inv_max;
+    const double radius = (r.cut + err) / r.shrink * (1.0 + CULL_REL) + 1e-7 * extent;
     const double nearest = fmax(0.0, across * b.cos_t - along * b.sin_t) - b.rho;
-    return !(nearest > r);
+    return !(nearest > radius);
+  }
+
+  __device__ static bool may_hit(const float* s, int ss, int j, const TileBound& b,
+                                 const Params& prm) {
+    return reach_hits(reach(s, ss, j, prm), b);
   }
 };
 

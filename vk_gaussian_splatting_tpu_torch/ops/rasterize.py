@@ -42,11 +42,18 @@ from vk_gaussian_splatting_tpu_torch.ops.response import (
     PIX,
     PIX_ROWS,
     TILE,
+    WARP_OF_PIXEL,
+    WARP_PIXELS,
+    WARPS,
     alpha,
     alpha_vjp,
+    bound_of_warp,
     may_hit,
     model_of,
+    pair_reach,
+    reach_may_hit,
     tile_bound,
+    warp_bound,
 )
 
 OUT_ROWS = 5       # r, g, b, T, depth
@@ -55,8 +62,8 @@ GRAD_ROWS = ATTR_B + 1  # gs2d: rows 0-8 get gradients; the depth row gets none
 MAX_CHUNK = 256    # csrc/rasterize_{fwd,bwd}.cu stage at most this many pairs
 # the launch counter of each model, an attribute of each kernel's wrapper
 LAUNCH_COUNTER = {"gs2d": "launches", "gut3d": "launches_gut3d"}
-# the kept count of the last launch of each culling kernel (K2, K3, K4), an
-# attribute of its wrapper, per model
+# the kept count of the last launch of each culling kernel (K1, K2, K3, K4),
+# an attribute of its wrapper, per model
 KEPT_COUNTER = {"gs2d": "kept", "gut3d": "kept_gut3d"}
 
 
@@ -223,7 +230,10 @@ def blend_work(attrs: torch.Tensor, tile_start: torch.Tensor, tile_count: torch.
     ``keep``, a bool per pair (a kernel's cull), adds three counts over the
     steps a tile enters (some pixel live at the step's start): (tested,
     kept, kept evaluations), the pairs the cull tests, those it keeps, and
-    the kept pairs' evaluations."""
+    the kept pairs' evaluations. A (P, WARPS) ``keep`` (K1's per-warp cull,
+    ``pair_warp_may_hit``) counts the kept (warp, pair) bits instead, and
+    as kept evaluations the live (pixel, pair)s whose warp keeps the pair
+    (``WARP_OF_PIXEL``)."""
     evals = hits = tested = kept = kept_evals = 0
     for s in _blend_steps(attrs, tile_start, tile_count, st, _all_tiles(tile_start, tiles),
                           pix_ctx)[1]:
@@ -232,8 +242,14 @@ def blend_work(attrs: torch.Tensor, tile_start: torch.Tensor, tile_count: torch.
         if keep is not None:
             lanes = s.lane_live & s.live.flatten(1).any(dim=1)[:, None]  # (n, c)
             tested += int(lanes.sum())
-            kept += int((lanes & keep[s.pc]).sum())
-            kept_evals += int((s.live & keep[s.pc][:, None, :]).sum())
+            k = keep[s.pc]                                              # (n, c[, WARPS])
+            if keep.dim() == 2:
+                kept += int((lanes[..., None] & k).sum())
+                kept_evals += int((s.live & k[..., WARP_OF_PIXEL.to(k.device)]
+                                   .transpose(1, 2)).sum())
+            else:
+                kept += int((lanes & k).sum())
+                kept_evals += int((s.live & k[:, None, :]).sum())
     return (evals, hits) if keep is None else (evals, hits, tested, kept, kept_evals)
 
 
@@ -256,19 +272,49 @@ def pair_may_hit(attrs: torch.Tensor, tile_start: torch.Tensor, tile_count: torc
 
 
 @torch.no_grad()
+def pair_warp_may_hit(attrs: torch.Tensor, tile_start: torch.Tensor, tile_count: torch.Tensor,
+                      st: RasterStatics, tiles: torch.Tensor | None = None,
+                      pix_ctx: torch.Tensor | None = None) -> torch.Tensor:
+    """Plain twin of K1's per-warp cull (csrc/rasterize_fwd.cu: each pair's
+    csrc/response.cuh ``reach`` against each warp's ``warp_bound``, term for
+    term; ops/response.pair_reach, reach_may_hit): (P, WARPS) bool, whether
+    each pair may hit a pixel of each warp of the tile whose list holds it
+    (warp w's pixels ``WARP_PIXELS[w]``). True wherever the model's alpha
+    can pass its cutoffs at some pixel of the warp (and for NaN, inf or
+    degenerate rows); False for pairs outside the ranges of ``tiles`` (all
+    by default)."""
+    tiles = _all_tiles(tile_start, tiles)
+    bound = warp_bound(st, tiles, pix_ctx)
+    keep = torch.zeros((attrs.shape[1], WARPS), dtype=torch.bool, device=attrs.device)
+    for p, _, in_range, rows in _chunks(attrs.detach(), tile_start, tile_count, st, tiles):
+        reach = pair_reach(rows, st)
+        m = torch.stack([reach_may_hit(reach, bound_of_warp(bound, w), st)
+                         for w in range(WARPS)], dim=-1)                # (n, c, WARPS)
+        keep[p[in_range]] = m[in_range]
+    return keep
+
+
+@torch.no_grad()
 def pair_hits(attrs: torch.Tensor, tile_start: torch.Tensor, tile_count: torch.Tensor,
               st: RasterStatics, tiles: torch.Tensor | None = None,
-              pix_ctx: torch.Tensor | None = None) -> torch.Tensor:
+              pix_ctx: torch.Tensor | None = None, per_warp: bool = False) -> torch.Tensor:
     """(P,) bool: whether each pair's alpha (ops/response.alpha) passes the
     cutoffs at some pixel of its tile, every pixel counted, frozen or not:
-    what ``pair_may_hit`` must never drop. False outside ``tiles``' ranges."""
+    what ``pair_may_hit`` must never drop. False outside ``tiles``' ranges.
+    ``per_warp``: (P, WARPS), at some pixel of each of K1's warps
+    (``WARP_PIXELS``): what ``pair_warp_may_hit`` must never drop."""
     tiles = _all_tiles(tile_start, tiles)
     px, py = _tile_pixel_coords(tiles, st.tiles_x)
     pix = pix_ctx[tiles] if model_of(st).uses_pix else None
-    hits = torch.zeros(attrs.shape[1], dtype=torch.bool, device=attrs.device)
+    shape = (attrs.shape[1], WARPS) if per_warp else (attrs.shape[1],)
+    hits = torch.zeros(shape, dtype=torch.bool, device=attrs.device)
     for p, _, in_range, rows in _chunks(attrs.detach(), tile_start, tile_count, st, tiles):
-        a = alpha(rows.permute(1, 0, 2), px, py, pix, in_range[:, None, :], st)
-        hits[p[in_range]] = (a > 0).any(dim=1)[in_range]
+        a = alpha(rows.permute(1, 0, 2), px, py, pix, in_range[:, None, :], st) > 0
+        if per_warp:                                                    # (n, WARPS, 32, c)
+            a = a[:, WARP_PIXELS.flatten().to(a.device)].unflatten(1, (WARPS, 32))
+            hits[p[in_range]] = a.any(dim=2).transpose(1, 2)[in_range]
+        else:
+            hits[p[in_range]] = a.any(dim=1)[in_range]
     return hits
 
 
@@ -386,7 +432,8 @@ def model_args(st):
 
 
 def _blend_fwd(attrs, ids, tile_start, tile_count, st, pix_ctx):
-    """K1 on CUDA tensors (one launch counted), the twin on CPU tensors."""
+    """K1 on CUDA tensors (its cull and blend kernels, one launch counted),
+    the twin on CPU tensors."""
     p = _check_pairs(attrs, tile_start, tile_count, st, ids, pix_ctx)
     dev = attrs.device
     if dev.type == "cpu":
@@ -395,15 +442,18 @@ def _blend_fwd(attrs, ids, tile_start, tile_count, st, pix_ctx):
     fn = _kernel("rasterize_fwd", st)
     out = torch.empty((num_tiles, OUT_ROWS, PIX), dtype=torch.float32, device=dev)
     out_id = torch.empty((num_tiles, PIX), dtype=torch.int32, device=dev)
+    masks = torch.empty((p,), dtype=torch.uint8, device=dev)  # the cull's byte per pair
     with torch.cuda.device(dev):
+        kept = torch.zeros((1,), dtype=torch.int32, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(attrs.data_ptr(), p, ids.data_ptr(), tile_start.data_ptr(),
                  tile_count.data_ptr(), _ptr(pix_ctx), num_tiles, st.tiles_x, st.chunk,
                  *model_args(st), st.min_transmittance, st.depth_iso,
-                 out.data_ptr(), out_id.data_ptr(), stream)
+                 out.data_ptr(), out_id.data_ptr(), kept.data_ptr(), masks.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"rasterize_fwd ({st.model}) launch failed: cudaError {err}")
     count_launch(rasterize_tiles, st)
+    setattr(rasterize_tiles, KEPT_COUNTER[st.model], kept)
     return out, out_id
 
 
@@ -481,18 +531,24 @@ def rasterize_tiles(attrs: torch.Tensor, ids: torch.Tensor,
     Returns ((T, 5, 256) f32 rows r, g, b, T, depth; (T, 256) i32 ids).
     CUDA tensors launch csrc/rasterize_fwd.cu's entry for the model and
     count one launch in ``rasterize_tiles.launches`` (gs2d) or
-    ``.launches_gut3d``; CPU tensors run the plain twin. Gradients reach
+    ``.launches_gut3d``; CPU tensors run the plain twin. The kernel's warps
+    skip the pairs its per-warp cull drops (``pair_warp_may_hit``), and it
+    leaves in ``rasterize_tiles.kept`` (gs2d) or ``.kept_gut3d`` a
+    one-element int32 tensor on the card: the kept (warp, pair) bits over
+    the blend steps it entered (``blend_work``'s ``kept`` with that mask),
+    to be read with ``int()`` after a synchronise. Gradients reach
     ``attrs`` through rgb and T (``rasterize_tiles_bwd``).
     """
     return _RasterizeTiles.apply(attrs, ids, tile_start, tile_count, pix_ctx, st)
 
 
 rasterize_tiles.launches = rasterize_tiles.launches_gut3d = 0
+rasterize_tiles.kept = rasterize_tiles.kept_gut3d = 0
 
 _P, _L, _I, _F = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
 _MODEL = [_F, _F, _F, _F, _I]  # alpha_min, alpha_clamp, qmax, kernel_min_response, degree
 _ARGTYPES = {  # the C entry points' parameters, in order (csrc/*.cu)
-    "rasterize_fwd": [_P, _L, _P, _P, _P, _P, _I, _I, _I, *_MODEL, _F, _F, _P, _P, _P],
+    "rasterize_fwd": [_P, _L, _P, _P, _P, _P, _I, _I, _I, *_MODEL, _F, _F, _P, _P, _P, _P, _P],
     "rasterize_bwd": [_P, _L, _P, _P, _P, _P, _I, _I, _I, *_MODEL, _F, _P, _P, _P],
 }
 

@@ -15,8 +15,9 @@ This module is the plain reference of the math that the CUDA tile blenders
 (csrc/response.cuh, used by csrc/rasterize_{fwd,bwd}.cu and
 csrc/raster_bucket_{fwd,bwd}.cu) evaluate, with the hand-derived VJPs their
 backwards need, and of the per-tile cull K2, K3 and K4 share
-(``tile_bound``, ``may_hit``). The JAX kernels take those VJPs with
-in-kernel ``jax.vjp``.
+(``tile_bound``, ``may_hit``) and K1 asks per warp (``warp_bound``,
+``WARP_PIXELS``). The JAX kernels take those VJPs with in-kernel
+``jax.vjp``.
 The packed, clip and triangle models are not ported yet.
 
 Attribute rows, shape (rows, P) f32:
@@ -333,10 +334,30 @@ def alpha_vjp(block, px, py, pix, live, st, d_alpha) -> torch.Tensor:
 #
 # K2 culls the pairs of each tile's list, K3 and K4 the lanes of each tile's
 # bucket window, by one predicate per model: false only where the model's
-# alpha provably fails its cutoffs at every pixel of the tile. Term for
-# term as the CUDA source spells it, in double, with the same margins.
+# alpha provably fails its cutoffs at every pixel of the tile. K1 asks the
+# same predicate of each of its eight warps' pixels (``warp_bound``). Term
+# for term as the CUDA source spells it, in double, with the same margins:
+# ``pair_reach`` is the lane's part (csrc/response.cuh ``reach``),
+# ``reach_may_hit`` the test against one bound (``reach_hits``).
 
 CULL_REL = 1e-3  # relative growth of every cull radius
+WARPS = PIX // 32
+WARP_W, WARP_H = 8, 4  # K1's warps: 8x4 pixel blocks (csrc/response.cuh warp_pixel)
+
+
+def _warp_pixels() -> torch.Tensor:
+    """(WARPS, 32): the pixel, row-major in its tile, of each lane of each
+    of K1's warps: warp w covers the 8x4 block at x = 8 (w % 2), y = 4 (w //
+    2), lane l its pixel (l % 8, l // 8)."""
+    w, lane = torch.arange(WARPS)[:, None], torch.arange(32)[None, :]
+    across = TILE // WARP_W
+    return ((WARP_H * (w // across) + lane // WARP_W) * TILE
+            + WARP_W * (w % across) + lane % WARP_W)
+
+
+WARP_PIXELS = _warp_pixels()
+WARP_OF_PIXEL = torch.empty(PIX, dtype=torch.long)  # (256,): the warp of each pixel
+WARP_OF_PIXEL[WARP_PIXELS.flatten()] = torch.arange(WARPS).repeat_interleave(32)
 
 
 def _f32(x: float) -> float:
@@ -357,24 +378,58 @@ def tile_bound(st, tiles: torch.Tensor, pix_ctx: torch.Tensor | None = None) -> 
     return x0, y0, x0 + (TILE - 1), y0 + (TILE - 1)
 
 
+def warp_bound(st, tiles: torch.Tensor, pix_ctx: torch.Tensor | None = None) -> tuple:
+    """The model's bound over each of K1's warps (csrc/response.cuh
+    ``warp_bound``) for each tile of ``tiles`` (n,), in double, the warp on
+    the last axis: gs2d the box of the warp's 32 pixel centres, (n, WARPS)
+    each; gut3d the cone of its 32 rays (``gut3d_warp_bound``). Warp w's
+    bound, shaped as ``tile_bound``'s: ``bound_of_warp``."""
+    if model_of(st).uses_pix:
+        return gut3d_warp_bound(pix_ctx[tiles])
+    w = torch.arange(WARPS, device=tiles.device)
+    across = TILE // WARP_W
+    x0 = ((tiles % st.tiles_x)[:, None] * TILE + WARP_W * (w % across)).double() + 0.5
+    y0 = ((tiles // st.tiles_x)[:, None] * TILE + WARP_H * (w // across)).double() + 0.5
+    return x0, y0, x0 + (WARP_W - 1), y0 + (WARP_H - 1)
+
+
+def bound_of_warp(bound: tuple, w: int) -> tuple:
+    """Warp w's bound from ``warp_bound``'s, shaped as ``tile_bound``'s."""
+    return tuple(x[..., w:w + 1] for x in bound)
+
+
+def pair_reach(blk: torch.Tensor, st) -> tuple:
+    """The model's reach (the lane's part of may_hit) over (rows, n, L) f32
+    lane rows."""
+    if model_of(st).uses_pix:
+        return gut3d_reach(blk, st)
+    return gs2d_reach(blk, st)
+
+
+def reach_may_hit(reach: tuple, bound: tuple, st) -> torch.Tensor:
+    """(n, L) bool: ``pair_reach``'s lanes tested against one bound per row
+    (``tile_bound``'s shape), as csrc/response.cuh reach_hits."""
+    if model_of(st).uses_pix:
+        return gut3d_reach_may_hit(reach, bound)
+    return gs2d_reach_may_hit(reach, bound)
+
+
 def may_hit(blk: torch.Tensor, bound: tuple, st) -> torch.Tensor:
     """The model's may_hit over (rows, n, L) f32 lane rows, lane k of row b
     belonging to the tile whose ``tile_bound`` is row b of ``bound``:
     (n, L) bool, True wherever the alpha can pass its cutoffs at some pixel
     of the tile (and for NaN, inf or degenerate rows)."""
-    if model_of(st).uses_pix:
-        return gut3d_may_hit(blk, bound, st)
-    return gs2d_may_hit(blk, bound, st)
+    return reach_may_hit(pair_reach(blk, st), bound, st)
 
 
-def gs2d_may_hit(blk: torch.Tensor, bound: tuple, st) -> torch.Tensor:
-    """Gs2d::may_hit: False only where the conic is positive definite and
-    either opacity < alpha_min or the bounding box of d <= tau (inflated)
-    misses the tile's pixel centres."""
+def gs2d_reach(blk: torch.Tensor, st) -> tuple:
+    """Gs2d::reach: (x, y, rx, ry, sure, never): the centre, the half-widths
+    of the inflated box of d <= tau, whether the conic is positive definite
+    and its box testable, and whether opacity < alpha_min culls it
+    anywhere."""
     v = blk[:6].double()
     x, y, ca, cb, cc, op = v
     amin = _f32(st.alpha_min)
-    x0, y0, x1, y1 = bound
     det = ca * cc - cb * cb
     total = ca + cb.abs() + cc
     err = 1e-6 * (total * total / det)
@@ -384,8 +439,17 @@ def gs2d_may_hit(blk: torch.Tensor, bound: tuple, st) -> torch.Tensor:
     grow = 1.0 + CULL_REL + err
     rx = torch.sqrt(tau * cc / det) * grow + 1e-2
     ry = torch.sqrt(tau * ca / det) * grow + 1e-2
+    return x, y, rx, ry, sure, op < amin
+
+
+def gs2d_reach_may_hit(reach: tuple, bound: tuple) -> torch.Tensor:
+    """Gs2d::reach_hits: False only where the conic is positive definite and
+    either opacity < alpha_min or the box misses the bound's pixel
+    centres."""
+    x, y, rx, ry, sure, never = reach
+    x0, y0, x1, y1 = bound
     miss = (x + rx < x0) | (x - rx > x1) | (y + ry < y0) | (y - ry > y1)
-    return ~(sure & ((op < amin) | miss))
+    return ~(sure & (never | miss))
 
 
 def gut3d_tile_bound(pix: torch.Tensor):
@@ -403,6 +467,40 @@ def gut3d_tile_bound(pix: torch.Tensor):
     return valid, c, a, rho, cos_t, sin_t
 
 
+def _warp_sum(x: torch.Tensor) -> torch.Tensor:
+    """(...,) sums of (..., 32) values over the last axis, added as
+    csrc/response.cuh warp_sum_d adds them (v += shfl_xor(v, h) for h = 16,
+    8, 4, 2, 1; lane 0's sum), so the same bits."""
+    lanes = torch.arange(32, device=x.device)
+    for h in (16, 8, 4, 2, 1):
+        x = x + x[..., lanes ^ h]
+    return x[..., 0]
+
+
+def _dot3(u, v):
+    """u0 v0 + u1 v1 + u2 v2 over the first axis, in that order."""
+    return u[0] * v[0] + u[1] * v[1] + u[2] * v[2]
+
+
+def gut3d_warp_bound(pix: torch.Tensor):
+    """Gut3d::warp_bound of (n, 8, 256) pixel contexts, per warp: (valid
+    (n, WARPS), c (n, 3, WARPS), a (n, 3, WARPS), rho, cos_t, sin_t (n,
+    WARPS)), in double: the tile bound over the warp's 32 rays, the mean
+    over 32, each operation as the CUDA source orders it (the sums as the
+    butterfly adds them)."""
+    ctx = pix[:, 0:6][:, :, WARP_PIXELS].double().permute(1, 0, 2, 3)  # (6, n, WARPS, 32)
+    d, o = ctx[0:3], ctx[3:6]
+    dd = _dot3(d, d)
+    valid = (torch.isfinite(ctx).all(dim=0) & (dd > 0)).all(dim=-1)
+    sum_o, sum_d = _warp_sum(o), _warp_sum(d)                         # (3, n, WARPS)
+    c, a = sum_o / 32, sum_d / torch.sqrt(_dot3(sum_d, sum_d))
+    e = o - c[..., None]
+    rho = torch.sqrt(_dot3(e, e).amax(dim=-1))
+    cos_t = (_dot3(d, a[..., None]) / torch.sqrt(dd)).amin(dim=-1)
+    sin_t = torch.sqrt(torch.clamp(1.0 - cos_t * cos_t, min=0.0))
+    return valid, c.permute(1, 0, 2), a.permute(1, 0, 2), rho, cos_t, sin_t
+
+
 def _cut_distance(thr: torch.Tensor, degree: int) -> torch.Tensor:
     """Gut3d::cut_distance: sqrt(D) below which K_degree(D) > thr."""
     g = -torch.log(thr) * (1.0 + 1e-5) + 1e-5
@@ -418,10 +516,14 @@ def _cut_distance(thr: torch.Tensor, degree: int) -> torch.Tensor:
     return torch.sqrt(2.0 * g)
 
 
-def gut3d_may_hit(blk: torch.Tensor, bound: tuple, st) -> torch.Tensor:
-    """Gut3d::may_hit: the staged slots (1/max(s, 1e-12) and R(q) in f32,
-    as Gut3d::stage_common), then the distance from the splat to the tile's
-    cone of rays against the cut distance in world units, in double."""
+def gut3d_reach(blk: torch.Tensor, st) -> tuple:
+    """Gut3d::reach: the staged slots (1/max(s, 1e-12) and R(q) in f32, as
+    Gut3d::stage_common), then in double (p, kappa, inv_max, cut, shrink,
+    sure, never, testable): the position, the rounding term's factor 4e-6
+    (max(1/s) / min(1/s) + 1), max(1/s), the cut distance with its margin,
+    min(1/s) sigma_min; whether the rows are finite, whether they cull
+    anywhere (opacity <= alpha_min, thr >= 1), and whether the distance test
+    applies (sigma_min >= 0.5, shrink >= 1e-10)."""
     p = blk[0:3]
     inv = 1.0 / torch.clamp(blk[3:6], min=1e-12)
     qw, qx, qy, qz = blk[9:13]
@@ -434,22 +536,32 @@ def gut3d_may_hit(blk: torch.Tensor, bound: tuple, st) -> torch.Tensor:
     v = torch.cat([p.double(), inv.double(), rot.double(), blk[13:14].double(), qn[None]])
     op = v[15]
     amin, mr = _f32(st.alpha_min), _f32(st.kernel_min_response)
-    valid, c, a, rho, cos_t, sin_t = bound
-    sure = valid & torch.isfinite(v).all(dim=0) & (amin >= 0)
+    sure = torch.isfinite(v).all(dim=0) & (amin >= 0)
     thr = amin / op
     thr = torch.where(mr > thr, torch.full_like(thr, mr), thr)
     inv_d = v[3:6]
     inv_min, inv_max = inv_d.amin(dim=0), inv_d.amax(dim=0)
     sig = 1.0 - 2.0 * (v[16] - 1.0).abs() - 1e-5
     shrink = inv_min * sig
-    w = v[0:3] - c.permute(1, 0, 2)                                  # (3, n, L)
+    kappa = 4e-6 * (inv_max / inv_min + 1.0)
+    cut = _cut_distance(thr, st.kernel_degree) * (1.0 + 1e-5)
+    return (v[0:3], kappa, inv_max, cut, shrink, sure, (op <= amin) | (thr >= 1.0),
+            (sig >= 0.5) & (shrink >= 1e-10))
+
+
+def gut3d_reach_may_hit(reach: tuple, bound: tuple) -> torch.Tensor:
+    """Gut3d::reach_hits: the distance from the splat to the bound's cone of
+    rays against the cut distance in world units."""
+    p, kappa, inv_max, cut, shrink, sure, never, testable = reach
+    valid, c, a, rho, cos_t, sin_t = bound
+    w = p - c.permute(1, 0, 2)                                       # (3, n, L)
     ax = a.permute(1, 0, 2)
-    along = (w * ax).sum(dim=0).abs()
-    across = torch.linalg.cross(w, ax.expand_as(w), dim=0).norm(dim=0)
-    reach = w.norm(dim=0) + rho
-    err = 4e-6 * (inv_max / inv_min + 1.0) * reach * inv_max
-    r = ((_cut_distance(thr, st.kernel_degree) * (1.0 + 1e-5) + err) / shrink
-         * (1.0 + CULL_REL) + 1e-7 * reach)
+    along = _dot3(w, ax).abs()
+    x = (w[1] * ax[2] - w[2] * ax[1], w[2] * ax[0] - w[0] * ax[2], w[0] * ax[1] - w[1] * ax[0])
+    across = torch.sqrt(_dot3(x, x))
+    extent = torch.sqrt(_dot3(w, w)) + rho
+    err = kappa * extent * inv_max
+    r = (cut + err) / shrink * (1.0 + CULL_REL) + 1e-7 * extent
     nearest = torch.clamp(across * cos_t - along * sin_t, min=0.0) - rho
-    far = (sig >= 0.5) & (shrink >= 1e-10) & (nearest > r)
-    return ~(sure & ((op <= amin) | (thr >= 1.0) | far))
+    far = testable & (nearest > r)
+    return ~(valid & sure & (never | far))
