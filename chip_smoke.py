@@ -69,8 +69,8 @@ entry points — and checks them:
    launches counted, K4 against its twin on 64 sampled tiles, a bit-equal
    repeat backward; timings and profiles as above. The per-tile cull of K3
    and K4, on the headline frame: each kernel's kept-lane counter against
-   the plain predicate's count (``ops/raster_bucket.tile_may_hit``, within
-   1e-4 of the live lanes) and the two equal, the kept share, and an audit
+   the plain predicate's count (``ops/raster_bucket.tile_may_hit``,
+   exactly) and the two equal, the kept share, and an audit
    of all its tiles for culled lanes that hit (none allowed); K3's and K4's
    bounds count the kept lanes (``bucket_bound``, the all-lane figures
    beside them); K4's three launches timed apart by the profiler;
@@ -99,15 +99,20 @@ entry points — and checks them:
    ``bench_sort_stage.run`` per variant, ``bench_radix_ab.run``: their
    lines are printed), with every probe's launch count zeroed before and
    read after; then each probe kernel against its twin, bit for bit (they
-   only compare, select and copy): P1 at a small size, at one 16 x 2048
-   tile sorted 200 times and at 8160 tiles; each P3 variant at two small
-   sizes (a cut and a repeated schedule) and at the default (4096 blocks);
-   P2's output at every W for one block and for 256, and every copied
-   block of a 4-step check run against the twin's; each timed with CUDA
-   events beside its twin, a library yardstick (torch.sort +
-   take_along_dim of the key rows, or index_select of the same blocks)
-   and its bound (``roofline``; P2's ``copy_bound``: its offsets reach 8 MB
-   of the source, and every copy lands in shared memory).
+   only compare, select and copy; NaN keys compared by their bits): P1 at
+   a small size (also with ties, signed zeros and NaN keys), at one 16 x
+   2048 tile sorted 200 times and at 8160 tiles; each P3 variant at two
+   small sizes (a cut and a repeated schedule; ties, signed zeros and NaN
+   keys; a mask table that duplicates columns) and at the default (4096
+   blocks); P2's output at every W for one block and for 256, and every
+   copied block of a 4-step check run against the twin's; each timed with
+   CUDA events beside its twin, a library yardstick (torch.sort +
+   take_along_dim of the key rows, or index_select of the same blocks),
+   the key network alone (P1 and P3 at 2 rows) and its bound
+   (``probe_bound``: the (key, index) network and one permutation, the
+   bound of the row-moving form logged beside it, and the share of the
+   bound; P2's ``copy_bound``: its offsets reach 8 MB of the source, and
+   every copy lands in shared memory).
 
 Without a CUDA device it raises and prints no result. The last line is
 ``{"ok": true, "device": {...}}``; the line before it holds the kernel
@@ -288,13 +293,19 @@ PEAK_BYTES = 3.35e12   # H100 SXM HBM3
 # shared memory fills at 128 B per clock on each SM (32 banks of 4 B): 132
 # SMs at the 1.98 GHz boost clock of the H100 SXM (NVIDIA's specifications)
 SM_COUNT, SMEM_BYTES_PER_CLOCK, BOOST_HZ = 132, 128, 1.98e9
-# The probes P1 and P3 (phase 9): per column and stage, the operations of the
-# stage as csrc/bitonic.cuh and the sub8 kernel spell them: want_min
-# (lane-iota: an and and a compare; from the mask table: one compare) and
-# the take test (two key compares and a select); plus, for each column that
-# takes its partner on this data (the kernels rewrite only those), one
-# select per row. P2 moves bytes and counts none.
-PROBE_OPS_PER_COLUMN = {"lane-iota": 5, "lane-const": 4, "sub8": 4}
+# The probes P1 and P3 (phase 9), the least work of the function: per column
+# and stage the network's want_min (lane-iota: an and and a compare; from
+# the mask table: one compare), its take test (two key compares and a
+# select) and the move of the (key, index) pair (two selects); plus one
+# permutation, each payload element read and written once (2). The bytes:
+# each input read once, each output written once. The count of the
+# row-moving form, which moves every row of each column that takes its
+# partner at every stage, is logged beside it (PROBE_OPS_ROW_FORM, plus one select per row
+# for each take on this data). P2 moves bytes and counts none.
+PROBE_OPS_PER_COLUMN = {"lane-iota": 7, "lane-const": 6, "sub8": 6}
+PROBE_OPS_PER_ELEMENT = 2
+PROBE_OPS_ROW_FORM = {"lane-iota": 5, "lane-const": 4, "sub8": 4}
+KEY_NETWORK_ROWS = 2  # the key network alone: the key row and one payload row
 
 
 def log(*a):
@@ -1020,10 +1031,10 @@ def check_cull(label: str, work, k3, k4, model: str, bins, st, caps, batches, pi
     Each kernel's kept-lane counter after one launch, ``k3()`` and ``k4(ctx)``
     (any cotangent: what the cull keeps reads the rows and the freeze
     alone), against the plain predicate's count (``work``, from
-    ops/raster_bucket.bucket_work): within 0.01 % of the live lanes, as the
-    card rounds its square roots and logs in its own way and a pixel at T ~
-    min_transmittance may freeze one step apart; and the two counts equal,
-    since both kernels run one predicate over the same steps and freeze.
+    ops/raster_bucket.bucket_work): equal, as K1's and K2's are (the
+    predicate is in double with margins, and every card run of the
+    counters has given the plain count); and the two counts equal, since both kernels run one
+    predicate over the same steps and freeze.
     Then, over every tile in ``batches``, the lanes the plain predicate
     culls that the twin's alpha passes at some pixel of the tile
     (ops/raster_bucket.tile_lane_hits, frozen pixels too): none allowed."""
@@ -1037,11 +1048,9 @@ def check_cull(label: str, work, k3, k4, model: str, bins, st, caps, batches, pi
     for kname, n in kept.items():
         log(f"{kname} cull 1080p/1M: kept={n} of live={work.live} (kept share "
             f"{n / work.live:.4f}), tested={work.tested}; tile_may_hit over the steps each "
-            f"tile enters {work.kept} (differ by {abs(n - work.kept)}, "
-            f"{abs(n - work.kept) / work.live:.2e} of live; gate 1e-4); kept lanes' pixel "
-            f"evaluations {work.kept_evals} of {work.evals}")
-        check(abs(n - work.kept) <= 1e-4 * work.live,
-              f"{kname} kept {n} lanes, the plain predicate {work.kept}")
+            f"tile enters {work.kept} (differ by {n - work.kept}; gate: equal); kept lanes' "
+            f"pixel evaluations {work.kept_evals} of {work.evals}")
+        check(n == work.kept, f"{kname} kept {n} lanes, the plain predicate {work.kept}")
     check(len(set(kept.values())) == 1, f"{label}: the kernels kept {kept}")
     may = hit = bad = 0
     attrs = bins.attrs.detach()
@@ -1938,12 +1947,39 @@ def gut_train_full_size(dev, card: str, truth: gt.SplatSet, caps, seed: int):
 
 
 def bit_equal(label: str, got: torch.Tensor, want: torch.Tensor) -> float:
-    """Max abs difference of a probe kernel's output against its twin's;
-    fails unless they are equal bit for bit (the probes only compare,
-    select and copy)."""
+    """Max abs difference of a probe kernel's output against its twin's, 0:
+    fails unless they are equal bit for bit, NaN keys included (the probes
+    only compare, select and copy)."""
     torch.cuda.synchronize()
-    check(got.shape == want.shape and torch.equal(got, want), f"{label}: kernel and twin differ")
-    return (got - want).abs().max().item() if got.numel() else 0.0
+    check(got.shape == want.shape and torch.equal(got.view(torch.int32), want.view(torch.int32)),
+          f"{label}: kernel and twin differ")
+    return 0.0
+
+
+def probe_bound(label: str, columns: int, elements: int, bytes_moved: int, variant: str,
+                takes: int, rows: int, t_k: float):
+    """The probe's bound (``roofline``) over its least work: the (key,
+    index) network's operations per column and stage and one permutation
+    of the payload; logs it with the share the kernel reaches and the
+    bound of the row-moving form beside it."""
+    bound = roofline(columns * PROBE_OPS_PER_COLUMN[variant] + elements * PROBE_OPS_PER_ELEMENT,
+                     bytes_moved)
+    row_form = roofline(columns * PROBE_OPS_ROW_FORM[variant] + takes * rows, bytes_moved)
+    log(f"probe {label} bound: {bound[0]:.4f} ms ({bound[1]}), share of bound "
+        f"{bound[0] / t_k:.4f}; the row form's count {row_form[0]:.4f} ms ({row_form[1]}), "
+        f"columns taking their partner {takes} of {columns}")
+    return bound
+
+
+def ties_nan(x: torch.Tensor, key_row: int) -> torch.Tensor:
+    """x with its key row drawn from {0, 1, -0, NaN}: ties, signed zeros and
+    keys that never compare."""
+    x = x.clone()
+    g = torch.Generator(device=x.device).manual_seed(9)
+    pick = torch.randint(0, 4, x[:, key_row].shape, generator=g, device=x.device)
+    vals = torch.tensor([0.0, 1.0, -0.0, float("nan")], device=x.device)
+    x[:, key_row] = vals[pick]
+    return x
 
 
 def zero_probe_counts():
@@ -1981,12 +2017,14 @@ def probe_main_paths() -> dict:
 
 
 def probe_roll_phase(dev, card: str):
-    """P1: bit-equal to the twin at a small size, at the script's (one 16 x
-    2048 tile, 200 sorts) and at the frame's 8160 tiles sorted once, the
-    launch this report times."""
-    err = bit_equal("bench_roll small", probe_roll.bitonic_sort(
-        probe_roll.tiles_of(3, 4, 128, dev), 3), probe_roll.bitonic_sort_ref(
-        probe_roll.tiles_of(3, 4, 128, dev), 3))
+    """P1: bit-equal to the twin at small sizes (3 sorts; ties, signed zeros
+    and NaN keys), at the script's (one 16 x 2048 tile, 200 sorts) and at
+    the frame's 8160 tiles sorted once, the launch this report times; the
+    key network alone at 8160 x (2, 2048)."""
+    small = probe_roll.tiles_of(3, 4, 128, dev)
+    err = max(bit_equal(f"bench_roll small {name}", probe_roll.bitonic_sort(y, 3),
+                        probe_roll.bitonic_sort_ref(y, 3))
+              for name, y in (("", small), ("ties and NaN", ties_nan(small, 0))))
     one = probe_roll.tiles_of(1, 16, 2048, dev)
     err = max(err, bit_equal("bench_roll default", probe_roll.bitonic_sort(one, probe_roll.REPS),
                              probe_roll.bitonic_sort_ref(one, probe_roll.REPS)))
@@ -2002,28 +2040,51 @@ def probe_roll_phase(dev, card: str):
         return torch.take_along_dim(x, order[:, None], dim=-1)
 
     t_lib = median(time_ms(library, 10))
+    keys = x[:, :KEY_NETWORK_ROWS].contiguous()
+    t_net = median(time_ms(lambda: probe_roll.bitonic_sort(keys, 1), 10))
+    del keys
     takes = probe_stage.taking_columns(x, None, "lane-iota", sched, 0)
     columns = x.shape[0] * x.shape[2] * len(sched)
-    bound = roofline(columns * PROBE_OPS_PER_COLUMN["lane-iota"] + takes * x.shape[1],
-                     2 * x.numel() * 4)
-    log(f"probe bench_roll {x.shape[0]} x (16, 2048), 66 stages ({card}): kernel_ms={t_k:.4f} "
-        f"plain_twin_ms={t_twin:.4f} library_ms (torch.sort + torch.take_along_dim)={t_lib:.4f} "
-        f"bound_ms={bound[0]:.4f} ({bound[1]}); columns taking their partner {takes} of "
-        f"{columns}; max_abs_err={err}")
-    return dict(max_abs_err=err, ms=t_k, plain_ms=t_twin), bound, t_lib
+    label = f"bench_roll {x.shape[0]} x (16, 2048), 66 stages"
+    bound = probe_bound(label, columns, x.numel(), 2 * x.numel() * 4, "lane-iota", takes,
+                        x.shape[1], t_k)
+    log(f"probe {label} ({card}): kernel_ms={t_k:.4f} plain_twin_ms={t_twin:.4f} library_ms "
+        f"(torch.sort + torch.take_along_dim)={t_lib:.4f} bound_ms={bound[0]:.4f} "
+        f"({bound[1]}); key network alone (8160 x (2, 2048)) {t_net:.4f} ms; "
+        f"max_abs_err={err}")
+    return dict(max_abs_err=err, ms=t_k, plain_ms=t_twin, share_of_bound=bound[0] / t_k,
+                key_network_ms=t_net), bound, t_lib
+
+
+def duplicating_table(m: torch.Tensor, sched) -> torch.Tensor:
+    """The mask table with want_min(e ^ j) = want_min(e) for every low
+    column e with e % 3 == 0: both columns of such a pair want one side, so
+    one may take the other's column and duplicate it."""
+    flat = m.clone().reshape(2 * len(sched), -1)
+    e = torch.arange(flat.shape[1], device=m.device)
+    for s, (_, j) in enumerate(sched):
+        lo = e[((e & j) == 0) & (e % 3 == 0)]
+        flat[2 * s + 1, lo | j] = flat[2 * s + 1, lo]
+    return flat.reshape(m.shape)
 
 
 def probe_stage_phase(dev, card: str, variant: str):
-    """P3, one variant: bit-equal to the twin at a small size (a cut and a
-    repeated schedule) and at the script's default (16 rows, 55 stages, 2
-    tiles in each of 4096 blocks), the launch this report times. The twin
-    and the library call run on the 4096 x 2 tiles the kernel sorts."""
+    """P3, one variant: bit-equal to the twin at small sizes (a cut and a
+    repeated schedule; ties, signed zeros and NaN keys; a mask table that
+    duplicates columns) and at the script's default (16 rows, 55 stages, 2
+    tiles in each of 4096 blocks), the launch this report times; the key
+    network alone at 2 rows. The twin and the library call run on the 4096
+    x 2 tiles the kernel sorts."""
     err = 0.0
     for rows, n_stages, tpt in ((4, 20, 2), (8, 70, 3)):
         x, m, sched = probe_stage.inputs(variant, rows, n_stages, tpt, dev, seed=7)
-        err = max(err, bit_equal(f"{variant} small", probe_stage.sort_stages(
-            x, m, variant, sched, rows - 1, blocks=3), probe_stage.sort_stages_ref(
-            x, m, variant, sched, rows - 1)))
+        cases = [("", x, m), ("ties and NaN", ties_nan(x, rows - 1), m)]
+        if m is not None:
+            cases.append(("duplicating table", x, duplicating_table(m, sched)))
+        for name, y, table in cases:
+            err = max(err, bit_equal(f"{variant} small {name}", probe_stage.sort_stages(
+                y, table, variant, sched, rows - 1, blocks=3), probe_stage.sort_stages_ref(
+                y, table, variant, sched, rows - 1)))
     rows, steps = 16, probe_stage.STEPS
     x, m, sched = probe_stage.inputs(variant, rows, 55, 2, dev)
     err = max(err, bit_equal(f"{variant} default", probe_stage.sort_stages(
@@ -2042,16 +2103,21 @@ def probe_stage_phase(dev, card: str, variant: str):
 
     t_lib = median(time_ms(library, 10))
     del batch, flat
+    keys = x[:, rows - KEY_NETWORK_ROWS:].contiguous()
+    t_net = median(time_ms(lambda: probe_stage.sort_stages(
+        keys, m, variant, sched, KEY_NETWORK_ROWS - 1, blocks=steps), 10))
     takes = steps * probe_stage.taking_columns(x, m, variant, sched, rows - 1)
     columns = steps * x.shape[0] * probe_stage.C * len(sched)
-    bound = roofline(columns * PROBE_OPS_PER_COLUMN[variant] + takes * rows,
-                     2 * x.numel() * 4 + (0 if m is None else m.numel() * 4))
-    log(f"probe {variant} {steps} blocks x 2 x ({rows}, 1024), 55 stages ({card}): "
-        f"kernel_ms={t_k:.4f} plain_twin_ms={t_twin:.4f} library_ms (torch.sort + "
-        f"torch.take_along_dim)={t_lib:.4f} bound_ms={bound[0]:.4f} ({bound[1]}); ns per "
-        f"stage and tile {t_k * 1e6 / steps / 55 / 2:.3f}; columns taking their partner "
-        f"{takes} of {columns}; max_abs_err={err}")
-    return dict(max_abs_err=err, ms=t_k, plain_ms=t_twin), bound, t_lib
+    label = f"{variant} {steps} blocks x 2 x ({rows}, 1024), 55 stages"
+    bound = probe_bound(label, columns, steps * x.numel(),
+                        2 * x.numel() * 4 + (0 if m is None else m.numel() * 4), variant, takes,
+                        rows, t_k)
+    log(f"probe {label} ({card}): kernel_ms={t_k:.4f} plain_twin_ms={t_twin:.4f} library_ms "
+        f"(torch.sort + torch.take_along_dim)={t_lib:.4f} bound_ms={bound[0]:.4f} "
+        f"({bound[1]}); ns per stage and tile {t_k * 1e6 / steps / 55 / 2:.3f}; key network "
+        f"alone (2 rows) {t_net:.4f} ms; max_abs_err={err}")
+    return dict(max_abs_err=err, ms=t_k, plain_ms=t_twin, share_of_bound=bound[0] / t_k,
+                key_network_ms=t_net), bound, t_lib
 
 
 def probe_radix_phase(dev, card: str, w: int = 16):

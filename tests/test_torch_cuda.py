@@ -553,9 +553,8 @@ def test_gut_render_on_card_launches_once_per_sample(cuda, pipeline, method):
 #
 # K4 and K4g against their twins, which sweep every lane, on scenes with
 # rows at the predicate's edges; the kept counter against the plain
-# predicate (ops/raster_bucket.bucket_work) within 1e-4 of the live lanes
-# (at least one lane): the card rounds its logs and square roots, and a
-# pixel at T ~ min_transmittance may freeze one step apart; the repeat
+# predicate (ops/raster_bucket.bucket_work) exactly, as K1's and K2's
+# (the predicate runs in double with margins for the card's roundings); the repeat
 # bit-equal, counter included. Rows stay finite where a hit could turn the
 # VJP's arithmetic into NaN in both (tests/test_torch_bucket.py and
 # tests/test_torch_gut.py hold the predicate on inf rows).
@@ -612,7 +611,7 @@ def assert_kept_matches_plain(model, work, live, wrapper=rb.rasterize_buckets_bw
     the plain predicate's; returns it."""
     kept = int(getattr(wrapper, rb.KEPT_COUNTER[model]))
     assert 0 < kept < live
-    assert abs(kept - work.kept) <= max(1.0, 1e-4 * live), (kept, work.kept)
+    assert kept == work.kept, (kept, work.kept)
     return kept
 
 
@@ -690,8 +689,8 @@ def test_gut3d_bwd_kernel_culls_exactly(cuda, degree, camera):
 #
 # K3 and K3g, which stage only the lanes the cull keeps, against their twins
 # (which sweep every lane) on the edge-row scenes above, with the forward
-# gates; K3's kept counter against the plain predicate's count (within 1e-4
-# of the live lanes, as K4's) and equal to K4's on the same bins (one
+# gates; K3's kept counter against the plain predicate's count (exactly, as
+# K4's) and equal to K4's on the same bins (one
 # predicate, csrc/response.cuh may_hit, over the same steps and freeze,
 # since the compaction both use lives in csrc/raster_bucket.cuh); repeats
 # bit-equal, counters included.
@@ -858,6 +857,84 @@ def test_gut3d_pair_bwd_kernel_culls_exactly(cuda, degree, camera, chunk):
     assert torch.equal(d_k, again) and int(tr.rasterize_tiles_bwd.kept_gut3d) == kept
 
 
+# ---- the two cases below the elementwise gate, against float64 ---------------
+#
+# K4 on the dense edge-row scene and K2g at degree 8 hold less than 99.9 % of
+# their opacity row within the elementwise limit of the f32 twin. Which side
+# is off: the kernel's f32 rows and the f32 twin's, each against the twins
+# run in float64 on the CPU (the forward twin in float64 gives the
+# context). Measured on an H100: the opacity row's share within the limit
+# of float64 is 0.99800 for K4 and 0.99833 for its f32 twin, 0.99759 for
+# K2g and 0.99787 for its twin: f32 itself lies that far from exact
+# arithmetic, the kernel no further than the twin. So the cases keep their
+# gates (ROADMAP queue 3, a divergence), and the test holds the kernel's
+# share of float64 to the twin's, less 5e-4, in every row.
+
+
+def elementwise_share(k, ref):
+    """The share of ``k`` within 1e-2 (|ref| + the row's median nonzero
+    |ref|) of ``ref``, the per-row gate of K2 and K4."""
+    limit = 1e-2 * (ref.abs() + ref.abs()[ref != 0].median())
+    return ((k - ref).abs() <= limit).double().mean().item()
+
+
+def low_case(dev, name):
+    """(bins, the twin's bins, statics, caps, pixel context, gradient rows,
+    opacity row) of the K4 dense scene ("k4_dense") or the K2g degree-8
+    scene ("k2g_deg8") on ``dev``, as the edge-row tests above build them."""
+    if name == "k4_dense":
+        cfg = bucket_cfg(caps=(512, 256, 512, 256))
+        caps = cfg.raster.bucket_caps
+        plain, st = bucket_bins_on(dev, cfg, n=1500, scale_range=(-3.0, 0.5))
+        edits, never = gs2d_edge_rows(st)
+        bins = with_rows(plain, st, caps, edits + never)
+        return (bins, with_rows(plain, st, caps, quiet(edits, never, 5)), st, caps, None,
+                tr.GRAD_ROWS, 5)
+    plain, st, caps, pix = gut_setup(dev, "pairs", 8, camera="pinhole", n=1200,
+                                     scale_range=(-3.5, -0.5))
+    amin = float(np.float32(st.alpha_min))
+    edits = [{13: amin}, {13: f32_next(amin, 1)}, {13: f32_next(amin, 0)}, {9: 1.5}]
+    never = [{0: float("nan")}, {13: float("nan")}]
+    bins = with_pair_rows(plain, st, edits + never)
+    return (bins, with_pair_rows(plain, st, quiet(edits, never, 13)), st, caps, pix, 14, 13)
+
+
+def float64_twin_bwd(bins, st, caps, pix, g):
+    """The twins' d_attrs of ``bins`` in float64 on the CPU, the context
+    from the float64 forward twin and the cotangent ``g``."""
+    cpu = dataclasses.replace(bins, **{f.name: getattr(bins, f.name).cpu()
+                                       for f in dataclasses.fields(bins)
+                                       if torch.is_tensor(getattr(bins, f.name))})
+    cpu = dataclasses.replace(cpu, attrs=cpu.attrs.double())
+    pix64 = None if pix is None else pix.cpu().double()
+    out64, _ = gut_fwd(cpu, st, caps, pix64, twin=True)
+    return gut_bwd(cpu, st, caps, tr.bwd_context(out64, g.cpu().double()), pix64, twin=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["k4_dense", "k2g_deg8"])
+def test_low_gradient_cases_against_float64(cuda, name):
+    bins, quiet_bins, st, caps, pix, grad_rows, opacity = low_case(cuda, name)
+    out, _ = gut_fwd(bins, st, caps, pix)
+    g = torch.randn(out.shape, generator=torch.Generator(device=cuda).manual_seed(0),
+                    device=cuda)
+    ctx = tr.bwd_context(out, g)
+    d_k = gut_bwd(bins, st, caps, ctx, pix).cpu().double()
+    d_r = gut_bwd(quiet_bins, st, caps, ctx, pix, twin=True).cpu().double()
+    d64 = float64_twin_bwd(quiet_bins, st, caps, pix, g)
+    assert torch.isfinite(d_k).all() and torch.isfinite(d64).all()
+    for r in range(grad_rows):
+        k64, r64 = elementwise_share(d_k[r], d64[r]), elementwise_share(d_r[r], d64[r])
+        scale = d64[r].abs().max().item()
+        err_k = (d_k[r] - d64[r]).abs().max().item() / scale
+        err_r = (d_r[r] - d64[r]).abs().max().item() / scale
+        print(f"{name} row {r}: share of float64: kernel {k64:.5f}, f32 twin {r64:.5f}; "
+              f"max |diff| / row max: kernel {err_k:.3e}, f32 twin {err_r:.3e}")
+        assert k64 >= r64 - 5e-4, (r, k64, r64)
+        assert max(err_k, err_r) <= BWD_RTOL, (r, err_k, err_r)
+    assert elementwise_share(d_r[opacity], d64[opacity]) < 0.999
+
+
 # ---- K1's per-warp cull of the pair lists on the card ------------------------
 #
 # K1 and K1g skip, per warp, the pairs their cull drops (csrc/response.cuh
@@ -931,10 +1008,36 @@ from vk_gaussian_splatting_tpu_torch.probes import bench_roll as pr  # noqa: E40
 from vk_gaussian_splatting_tpu_torch.probes import bench_sort_stage as ps  # noqa: E402
 
 
+def same_bits(a, b) -> bool:
+    """Equal bit for bit, NaN included."""
+    return a.shape == b.shape and torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def with_keys(x, key_row, keys):
+    """x with the key row replaced: "equal" keys, "binary" keys from {0, 1},
+    or "zeros_nan" keys from {+0, -0, NaN, 1}."""
+    x = x.clone()
+    g = torch.Generator(device=x.device).manual_seed(4)
+    shape = x[:, key_row].shape
+    if keys == "equal":
+        x[:, key_row] = 0.25
+    elif keys == "binary":
+        x[:, key_row] = torch.randint(0, 2, shape, generator=g, device=x.device).float()
+    else:
+        vals = torch.tensor([0.0, -0.0, float("nan"), 1.0], device=x.device)
+        x[:, key_row] = vals[torch.randint(0, 4, shape, generator=g, device=x.device)]
+    return x
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("t, r, c, reps", [(3, 4, 128, 3), (1, 16, 2048, 2), (5, 3, 2, 1),
-                                           (2, 5, 4096, 1), (0, 4, 64, 1)])
+                                           (2, 5, 4096, 1), (0, 4, 64, 1), (133, 16, 2048, 1),
+                                           (2, 4, 128, 200), (7, 3, 2, 3), (4, 1, 256, 3),
+                                           (1, 16, 2048, 200), (5, 6, 16384, 1)])
 def test_probe_bitonic_sort_matches_twin(cuda, t, r, c, reps):
+    """P1 against its twin: reps 1, 3 and 200 (the index carried across the
+    reps), T = 133 (not a multiple of the blocks on an SM), C from 2 (rows
+    loaded by hand) to 16384 (16 pairs a thread), one row (no payload)."""
     x = pr.tiles_of(t, r, c, cuda)
     before = pr.bitonic_sort.launches
     out = pr.bitonic_sort(x, reps)
@@ -946,11 +1049,14 @@ def test_probe_bitonic_sort_matches_twin(cuda, t, r, c, reps):
 
 
 @pytest.mark.cuda
-def test_probe_bitonic_sort_with_ties_and_limits(cuda):
-    x = torch.floor(pr.tiles_of(4, 6, 256, cuda) * 5)   # five key values: many ties
-    assert torch.equal(pr.bitonic_sort(x, 2), pr.bitonic_sort_ref(x, 2))
-    with pytest.raises(ValueError, match="shared memory"):
-        pr.bitonic_sort(pr.tiles_of(1, 32, 4096, cuda))
+@pytest.mark.parametrize("keys", ["floor", "equal", "binary", "zeros_nan"])
+def test_probe_bitonic_sort_with_ties_and_limits(cuda, keys):
+    x = pr.tiles_of(4, 6, 256, cuda)
+    x = torch.floor(x * 5) if keys == "floor" else with_keys(x, 0, keys)  # ties, NaN
+    for reps in (1, 3):
+        assert same_bits(pr.bitonic_sort(x, reps), pr.bitonic_sort_ref(x, reps))
+    with pytest.raises(ValueError, match="shared memory"):   # 12 C bytes: 384 KB
+        pr.bitonic_sort(pr.tiles_of(1, 2, 32768, cuda))
     with pytest.raises(ValueError, match="power of two"):
         pr.bitonic_sort(pr.tiles_of(1, 4, 96, cuda))
 
@@ -958,7 +1064,8 @@ def test_probe_bitonic_sort_with_ties_and_limits(cuda):
 @pytest.mark.cuda
 @pytest.mark.parametrize("variant", ps.VARIANTS)
 @pytest.mark.parametrize("rows, n_stages, tpt", [(4, 55, 2), (16, 20, 2), (8, 70, 5),
-                                                 (1, 55, 3), (16, 55, 2)])
+                                                 (1, 55, 3), (16, 55, 2), (2, 20, 2),
+                                                 (32, 70, 2), (4, 55, 1)])
 def test_probe_sort_stages_match_twin(cuda, variant, rows, n_stages, tpt):
     x, m, sched = ps.inputs(variant, rows, n_stages, tpt, cuda)
     before = ps.sort_stages.launches[variant]
@@ -968,20 +1075,38 @@ def test_probe_sort_stages_match_twin(cuda, variant, rows, n_stages, tpt):
     assert torch.equal(out, ps.sort_stages_ref(x, m, variant, sched, rows - 1))
 
 
+def duplicating(masks, sched):
+    """The table with want_min(e ^ j) = want_min(e) for the low columns e
+    with e % 3 == 0: such a pair's two columns want one side, so one may
+    take the other's column (a duplicate) or neither takes."""
+    m = masks.clone().reshape(2 * len(sched), -1)
+    e = torch.arange(m.shape[1], device=m.device)
+    for s, (_, j) in enumerate(sched):
+        lo = e[((e & j) == 0) & (e % 3 == 0)]
+        m[2 * s + 1, lo | j] = m[2 * s + 1, lo]
+    return m.reshape(masks.shape)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("variant", ps.VARIANTS)
 def test_probe_sort_stages_ties_and_limits(cuda, variant):
     x, m, sched = ps.inputs(variant, 4, 55, 2, cuda)
-    x = torch.floor(x * 2)
-    assert torch.equal(ps.sort_stages(x, m, variant, sched, 3, blocks=3),
-                       ps.sort_stages_ref(x, m, variant, sched, 3))
+    for y in (torch.floor(x * 2), *(with_keys(x, 3, k) for k in ("equal", "binary",
+                                                                  "zeros_nan"))):
+        assert same_bits(ps.sort_stages(y, m, variant, sched, 3, blocks=3),
+                         ps.sort_stages_ref(y, m, variant, sched, 3))
+    if variant != "lane-iota":   # a table whose pairs may both take, or neither
+        dup = duplicating(m, sched)
+        out = ps.sort_stages(x, dup, variant, sched, 3, blocks=3)
+        assert same_bits(out, ps.sort_stages_ref(x, dup, variant, sched, 3))
+        assert len(torch.unique(out.reshape(2, 4, -1)[0, 3])) < 1024   # duplicated columns
+    big, bm, bs = ps.inputs(variant, 4 if variant == "sub8" else 3, 5, 32, cuda)
+    with pytest.raises(ValueError, match="shared memory"):   # 32 tiles' pairs: 256 KB
+        ps.sort_stages(big, bm, variant, bs, big.shape[1] - 1)
     if variant == "sub8":
         with pytest.raises(ValueError, match="registers"):
             ps.sort_stages(*ps.inputs(variant, 3, 5, 1, cuda)[:2], variant, sched[:5], 2)
     else:
-        big, bm, bs = ps.inputs(variant, 16, 5, 4, cuda)   # 256 KB of tiles
-        with pytest.raises(ValueError, match="shared memory"):
-            ps.sort_stages(big, bm, variant, bs, 15)
         y = ps.inputs(variant, 5, 55, 3, cuda)[0]
         assert torch.equal(ps.sort_stages(y, m, variant, sched, 0),
                            ps.sort_stages_ref(y, m, variant, sched, 0))

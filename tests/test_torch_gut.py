@@ -74,7 +74,8 @@ from vk_gaussian_splatting_tpu_torch.render import pipelines as tp
 from vk_gaussian_splatting_tpu_torch.render import rays as trays
 from vk_gaussian_splatting_tpu_torch.render import render
 from vk_gaussian_splatting_tpu_torch.scene import cameras as tcam
-from test_torch_bucket import assert_culled_sweep_changes_nothing
+from test_torch_bucket import assert_culled_sweep_changes_nothing, small_bins
+from test_torch_cuda import elementwise_share, float64_twin_bwd, low_case
 from test_torch_rasterize import (
     assert_culled_backward_changes_nothing,
     assert_may_hit_unchanged,
@@ -768,3 +769,105 @@ def test_gut3d_warp_culled_sweep_changes_nothing(degree, camera):
                                             (8, "pinhole")])
 def test_gut3d_may_hit_tile_answers_unchanged(degree, camera):
     assert_may_hit_unchanged(*pair_cull_inputs(degree, camera))
+
+
+# ---- the backward twins in float64 -------------------------------------------
+#
+# Two card cases sit under the elementwise gate of 99.9 % (K4 on the dense
+# edge-row scene, K2g at degree 8; tests/test_torch_cuda.py
+# test_low_gradient_cases_against_float64). The twins run in their input's
+# dtype, so float64 gives the exact function's gradients: checked here
+# against jax.grad at x64 of each tile's front-to-back blend with the JAX
+# package's alpha model (1e-9 of each row's max; the two differ only in the
+# order of their float64 sums), on scenes where no pixel's T falls to
+# min_transmittance, so that no step freezes and the blend is the whole
+# list's. Then the finding: on the two cases' own scenes the f32 twin
+# itself leaves values of the opacity row beyond the elementwise limit of
+# float64 (all within 1e-4 of each row's max), as the kernels do on the
+# card: the divergence is f32's, not the kernels'.
+
+
+def jax_blend_grad(attrs64, lists, st, pix, g):
+    """jax.grad at x64 of sum(g_rgb . rgb) + sum(g_T T) over the tiles of
+    ``lists`` ((tile, attribute columns front to back), ...), each blended
+    without a freeze by the JAX package's alpha of ``st.model``; ``g`` the
+    (T, 5, 256) cotangent."""
+    sj = jr.RasterStatics(**dataclasses.asdict(st))
+    alpha_fn = jresp.ALPHA_FNS[st.model]
+    tiles = torch.tensor([t for t, _ in lists])
+    px, py = (c.numpy() for c in tr._tile_pixel_coords(tiles, st.tiles_x, torch.float64))
+    with jax.enable_x64(True):
+        def loss(a):
+            total = 0.0
+            for b, (t, cols) in enumerate(lists):
+                blk = a[:, cols]
+                p = None if pix is None else jnp.asarray(pix[t].T.numpy(), jnp.float64)
+                alpha = alpha_fn(blk, p, px[b], py[b], jnp.ones((1, len(cols)), bool), sj)
+                q = 1.0 - alpha
+                excl = jnp.concatenate([jnp.ones_like(q[:, :1]), jnp.cumprod(q, axis=1)[:, :-1]],
+                                       axis=1)
+                rgb = (alpha * excl) @ blk[tresp.ATTR_R:tresp.ATTR_B + 1].T
+                total = total + jnp.sum(g[t, 0:3].T * rgb) + jnp.sum(g[t, 3] * jnp.prod(q, 1))
+            return total
+
+        return np.asarray(jax.jit(jax.grad(loss))(jnp.asarray(attrs64.numpy())))
+
+
+def float64_case(name):
+    """(twin's float64 d_attrs, jax.grad's, gradient rows, min T) of a
+    sparse gs2d bucket scene or a sparse gut3d pair scene at degree 8."""
+    g = np.random.default_rng(11).normal(size=(12, 5, 256))
+    if name == "bucket_gs2d":
+        bins, st, caps = small_bins(n=150, seed=4, scale_range=(-5.0, -1.0))
+        a64, pix = bins.attrs.double(), None
+        lists = rb._tile_lists(a64, bins.bucket_starts, st, caps,
+                               torch.arange(st.tiles_x * st.tiles_y))
+        per_tile = lists.cols.view(st.tiles_x * st.tiles_y, -1)
+        cols = [(t, c[c >= 0].numpy()) for t, c in enumerate(per_tile)]
+        out, _ = rb.rasterize_buckets_ref(a64, bins.ids, bins.bucket_starts, st, caps)
+        d = rb.rasterize_buckets_bwd_ref(a64, bins.bucket_starts,
+                                         tr.bwd_context(out, torch.from_numpy(g)), st, caps)
+        rows = tr.GRAD_ROWS
+    else:
+        bins, st, _, pix = gut_bins("pairs", n=60, degree=8)
+        a64, pix = bins.attrs.double(), pix.double()
+        args = (bins.tile_start, bins.tile_count)
+        cols = [(t, np.arange(int(s), int(s) + int(n))) for t, (s, n) in
+                enumerate(zip(*args)) if int(n) > 0]
+        out, _ = tr.rasterize_tiles_ref(a64, bins.pair_id, *args, st, pix_ctx=pix)
+        d = tr.rasterize_tiles_bwd_ref(a64, *args, tr.bwd_context(out, torch.from_numpy(g)), st,
+                                       pix_ctx=pix)
+        rows = tresp.MODELS["gut3d"].grad_rows
+    assert out.shape[0] == g.shape[0] and d.dtype == torch.float64
+    cols = [(t, c) for t, c in cols if len(c)]
+    return d.numpy(), jax_blend_grad(a64, cols, st, pix, g), rows, out[:, 3].min().item()
+
+
+@pytest.mark.parametrize("name", ["bucket_gs2d", "pairs_gut3d"])
+def test_float64_twin_backward_matches_jax_x64(name):
+    d_twin, d_jax, rows, t_min = float64_case(name)
+    assert t_min > tr.RasterStatics(1, 1).min_transmittance  # no step freezes
+    for r in range(rows):
+        scale = np.abs(d_jax[r]).max()
+        assert scale > 0, r
+        assert np.abs(d_twin[r] - d_jax[r]).max() <= 1e-9 * scale, r
+
+
+@pytest.mark.parametrize("name", ["k4_dense", "k2g_deg8"])
+def test_f32_twin_backward_against_float64(name):
+    _, bins, st, caps, pix, rows, opacity = low_case(torch.device("cpu"), name)
+    g = torch.from_numpy(np.random.default_rng(0).normal(
+        size=(st.tiles_x * st.tiles_y, 5, 256)).astype(np.float32))
+    out, _ = (rb.rasterize_buckets_ref(bins.attrs, bins.ids, bins.bucket_starts, st, caps)
+              if pix is None else tr.rasterize_tiles_ref(bins.attrs, bins.pair_id,
+                                                         bins.tile_start, bins.tile_count, st,
+                                                         pix_ctx=pix))
+    ctx = tr.bwd_context(out, g)
+    d32 = (rb.rasterize_buckets_bwd_ref(bins.attrs, bins.bucket_starts, ctx, st, caps)
+           if pix is None else tr.rasterize_tiles_bwd_ref(bins.attrs, bins.tile_start,
+                                                          bins.tile_count, ctx, st,
+                                                          pix_ctx=pix)).double()
+    d64 = float64_twin_bwd(bins, st, caps, pix, g)
+    for r in range(rows):
+        assert (d32[r] - d64[r]).abs().max().item() <= 1e-4 * d64[r].abs().max().item(), r
+    assert elementwise_share(d32[opacity], d64[opacity]) < 1.0

@@ -6,8 +6,9 @@ package's Pallas probes in scripts/ run in interpret mode
 Tolerance: none. The probes only compare, select and copy, so every twin
 must equal its JAX script bit for bit.
 
-JAX programs built here: P3 at five (variant, stages) cases, P1 at two
-sizes, P2's copy kernel at W = 1 and 4 and its sort stage: ten.
+JAX programs built here: P3 at eight (variant, stages, table) cases, P1
+at two sizes, P2's copy kernel at W = 1 and 4 and its sort stage:
+thirteen.
 """
 
 import functools
@@ -25,6 +26,7 @@ from jax.experimental import pallas as pl
 from vk_gaussian_splatting_tpu_torch.probes import bench_radix_ab as pa
 from vk_gaussian_splatting_tpu_torch.probes import bench_roll as pr
 from vk_gaussian_splatting_tpu_torch.probes import bench_sort_stage as ps
+from test_torch_cuda import duplicating, same_bits, with_keys
 
 SCRIPTS = Path(__file__).resolve().parent.parent / "scripts"
 
@@ -70,11 +72,69 @@ def test_sort_stages_match_jax(interpret, variant, n_stages):
     want = np.asarray(jax.jit(mod.make_call(variant))(x.numpy(), masks))
     got = ps.sort_stages(x, m, variant, sched, rows - 1)
     assert np.array_equal(got.numpy(), want)
+    assert np.array_equal(ps.sort_stages_by_index(x, m, variant, sched, rows - 1).numpy(), want)
     if n_stages == 55:  # the full schedule of 1024 sorts each tile by its key row
         flat = x.reshape(tpt, rows, 1024)
         order = torch.argsort(flat[:, rows - 1], dim=-1)
         assert torch.equal(got.reshape(tpt, rows, 1024),
                            torch.take_along_dim(flat, order[:, None], dim=-1))
+
+
+# ---- the (key, index) form of P1 and P3: the network on (key, column
+# index) pairs, then one gather of every row (what csrc/bench_roll.cu and
+# csrc/bench_sort_stage.cu run), against the twins bit for bit
+
+# id: (variant, rows, stages, tiles, keys, table, against the JAX script too)
+INDEX_CASES = {
+    "lane-iota": ("lane-iota", 4, 55, 2, None, None, False),
+    "lane-const": ("lane-const", 4, 55, 2, None, None, False),
+    "sub8": ("sub8", 4, 55, 2, None, None, False),
+    "lane-iota-cut": ("lane-iota", 2, 20, 3, None, None, False),
+    "lane-const-wrapped": ("lane-const", 4, 70, 2, None, None, False),
+    "sub8-wrapped": ("sub8", 2, 70, 3, None, None, False),
+    "lane-iota-equal-keys": ("lane-iota", 3, 55, 2, "equal", None, False),
+    "lane-const-binary-keys": ("lane-const", 4, 55, 2, "binary", None, False),
+    "sub8-binary-keys": ("sub8", 1, 55, 2, "binary", None, False),
+    "lane-iota-zeros-nan": ("lane-iota", 4, 55, 2, "zeros_nan", None, True),
+    "sub8-zeros-nan": ("sub8", 4, 70, 2, "zeros_nan", None, False),
+    "lane-const-duplicating": ("lane-const", 4, 55, 2, None, "duplicating", True),
+    "sub8-duplicating": ("sub8", 8, 40, 2, "binary", "duplicating", True),
+    "roll-c128": ("roll", 3, 1, 128, None, None, False),
+    "roll-c256-reps3-binary": ("roll", 5, 3, 256, "binary", None, False),
+    "roll-c2-reps2": ("roll", 3, 2, 2, None, None, False),
+    "roll-c64-reps2-zeros-nan": ("roll", 4, 2, 64, "zeros_nan", None, False),
+}
+
+
+@pytest.mark.parametrize("case", list(INDEX_CASES))
+def test_index_form_is_the_twin(interpret, case):
+    variant, rows, stages, size, keys, table, jax_too = INDEX_CASES[case]
+    if variant == "roll":   # P1: stages are reps, size the width C
+        x = pr.tiles_of(4, rows, size, "cpu", seed=2)
+        x = with_keys(x, 0, keys) if keys else x
+        got = pr.bitonic_sort_by_index(x, stages)
+        assert same_bits(got, pr.bitonic_sort_ref(x, stages))
+        assert same_bits(got, pr.bitonic_sort(x, stages))
+        return
+    x, m, sched = ps.inputs(variant, rows, stages, size, "cpu", seed=6)
+    if keys:
+        x = with_keys(x, rows - 1, keys)
+    if table == "duplicating":
+        m = duplicating(m, sched)
+    got = ps.sort_stages_by_index(x, m, variant, sched, rows - 1)
+    assert same_bits(got, ps.sort_stages_ref(x, m, variant, sched, rows - 1))
+    if table == "duplicating":   # some columns now hold the same input column twice
+        flat = got.reshape(size, rows, 1024)
+        assert any(len(torch.unique(flat[t, rows - 1])) < 1024 for t in range(size))
+    if jax_too:
+        mod = load_script("bench_sort_stage", ["bench_sort_stage.py", variant, str(rows),
+                                               str(stages), str(size)])
+        mod.STEPS = 1
+        masks = mod.np_masks() if m is None else m.numpy()
+        if variant == "sub8":
+            masks = masks.reshape(2 * stages, 8, 128)
+        want = np.asarray(jax.jit(mod.make_call(variant))(x.numpy(), masks))
+        assert np.array_equal(got.numpy().view(np.int32), want.view(np.int32))
 
 
 def test_schedule_cut_and_repeated():
@@ -134,6 +194,7 @@ def test_bitonic_sort_matches_jax(interpret, r, c):
     x = torch.from_numpy(np.array(g["x"]))
     got = pr.bitonic_sort(x[None].contiguous(), pr.REPS)[0]
     assert np.array_equal(got.numpy(), np.asarray(g["r"]))
+    assert torch.equal(pr.bitonic_sort_by_index(x[None].contiguous(), pr.REPS)[0], got)
     assert torch.equal(got, x[:, torch.argsort(x[0])])
 
 

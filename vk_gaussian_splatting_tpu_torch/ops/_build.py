@@ -45,22 +45,26 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
+def compile_source(source: Path, out: Path) -> None:
+    """Compile ``source`` with NVCC_FLAGS into the library ``out``, its
+    register and shared-memory report (-Xptxas -v) beside it as
+    ``<out>.log``."""
+    out.parent.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)],
+                         capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {source}:\n{res.stdout}{res.stderr}")
+    Path(str(out) + ".log").write_text(res.stdout + res.stderr)
+    os.replace(tmp, out)  # atomic: a concurrent build never sees half a file
+
+
 @functools.lru_cache(maxsize=None)
 def load(name: str) -> ctypes.CDLL:
-    """Compile csrc/<name>.cu if its library is missing, then load it.
-
-    The compiler's register and shared-memory report (-Xptxas -v) is kept
-    beside the library as ``<library>.log``."""
+    """Compile csrc/<name>.cu if its library is missing, then load it."""
     out = library_path(name)
     if not out.exists():
-        out.parent.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {name}.cu:\n{res.stdout}{res.stderr}")
-        Path(str(out) + ".log").write_text(res.stdout + res.stderr)
-        os.replace(tmp, out)  # atomic: a concurrent build never sees half a file
+        compile_source(CSRC / f"{name}.cu", out)
     return ctypes.CDLL(str(out))
 
 

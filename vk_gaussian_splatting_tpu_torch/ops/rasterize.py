@@ -84,13 +84,13 @@ class RasterStatics:
     kernel_min_response: float = 0.0113  # gut3d response cutoff
 
 
-def _tile_pixel_coords(tiles: torch.Tensor, tiles_x: int):
+def _tile_pixel_coords(tiles: torch.Tensor, tiles_x: int, dtype=torch.float32):
     """Pixel-center coordinates of the given tiles as (n, 256, 1) columns."""
     pix = torch.arange(PIX, device=tiles.device)
     tx = (tiles % tiles_x)[:, None]
     ty = (tiles // tiles_x)[:, None]
-    px = (tx * TILE + pix % TILE).to(torch.float32) + 0.5
-    py = (ty * TILE + pix // TILE).to(torch.float32) + 0.5
+    px = (tx * TILE + pix % TILE).to(dtype) + 0.5
+    py = (ty * TILE + pix // TILE).to(dtype) + 0.5
     return px[..., None], py[..., None]
 
 
@@ -153,7 +153,7 @@ def _blend_steps(attrs, tile_start, tile_count, st: RasterStatics, tiles, pix_ct
     pixels = _Pixels(px, py, pix_ctx[tiles] if model_of(st).uses_pix else None)
 
     def steps():
-        tcol = torch.ones((n, PIX, 1), dtype=torch.float32, device=attrs.device)
+        tcol = torch.ones((n, PIX, 1), dtype=attrs.dtype, device=attrs.device)
         for p, pc, lane_live, rows in _chunks(attrs, tile_start, tile_count, st, tiles):
             live = lane_live[:, None, :] & (tcol > st.min_transmittance)
             block = rows.permute(1, 0, 2)                               # (n, R, c)
@@ -190,9 +190,9 @@ def rasterize_tiles_ref(attrs: torch.Tensor, ids: torch.Tensor,
     tiles = _all_tiles(tile_start, tiles)
     n = tiles.shape[0]
     lane = torch.arange(c, device=dev)
-    acc = torch.zeros((n, PIX, 3), dtype=torch.float32, device=dev)
-    tcol = torch.ones((n, PIX, 1), dtype=torch.float32, device=dev)
-    pick_d = torch.zeros((n, PIX), dtype=torch.float32, device=dev)
+    acc = torch.zeros((n, PIX, 3), dtype=attrs.dtype, device=dev)
+    tcol = torch.ones((n, PIX, 1), dtype=attrs.dtype, device=dev)
+    pick_d = torch.zeros((n, PIX), dtype=attrs.dtype, device=dev)
     pick_id = torch.full((n, PIX), -1, dtype=torch.int32, device=dev)
     picked = torch.zeros((n, PIX), dtype=torch.bool, device=dev)
     for s in _blend_steps(attrs, tile_start, tile_count, st, tiles, pix_ctx)[1]:

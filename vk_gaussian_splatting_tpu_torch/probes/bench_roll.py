@@ -5,8 +5,8 @@ at :52), with the kernel csrc/bench_roll.cu: the full bitonic network of C
 (the stages of ``bench_sort_stage.full_schedule(C)``, want_min by index
 math, key row 0) sorts an (R, C) f32 tile, every column moving with its
 key, REPS = 200 times over. The kernel takes a batch (T, R, C): each block
-loads one tile into shared memory once, sorts it ``reps`` times, and
-writes it back.
+sorts one tile's (key, column index) pairs ``reps`` times and then moves
+its rows once, by the final index.
 
 Usage: python -m vk_gaussian_splatting_tpu_torch.probes.bench_roll [R] [C]
 
@@ -26,7 +26,11 @@ import torch
 
 from vk_gaussian_splatting_tpu_torch.devices import resolve_device
 from vk_gaussian_splatting_tpu_torch.ops import _build
-from vk_gaussian_splatting_tpu_torch.probes.bench_sort_stage import full_schedule, sort_stages_ref
+from vk_gaussian_splatting_tpu_torch.probes.bench_sort_stage import (
+    full_schedule,
+    sort_stages_by_index,
+    sort_stages_ref,
+)
 from vk_gaussian_splatting_tpu_torch.timing import call_ms, device_label
 
 REPS = 200
@@ -40,13 +44,22 @@ def bitonic_sort_ref(x: torch.Tensor, reps: int = 1) -> torch.Tensor:
     return sort_stages_ref(x, None, "lane-iota", full_schedule(x.shape[-1]) * reps, 0)
 
 
+def bitonic_sort_by_index(x: torch.Tensor, reps: int = 1) -> torch.Tensor:
+    """The form the kernel implements: the ``reps`` networks on (key,
+    column index) pairs, the index carried across, then one gather of each
+    tile's rows; bit-equal to ``bitonic_sort_ref``."""
+    return sort_stages_by_index(x, None, "lane-iota", full_schedule(x.shape[-1]) * reps, 0)
+
+
 def bitonic_sort(x: torch.Tensor, reps: int = 1) -> torch.Tensor:
     """Sort each (R, C) tile of x (T, R, C) f32 by row 0, ``reps`` times.
 
-    CUDA tensors launch csrc/bench_roll.cu (one block per tile) and count one
-    launch in ``bitonic_sort.launches``; CPU tensors run the twin. C must be
-    a power of two, and a tile must fit one block's shared memory (128 KB
-    at 16 x 2048), else ValueError."""
+    CUDA tensors launch csrc/bench_roll.cu (one block per tile: the
+    network on (key, column index) pairs, then one permutation of the
+    rows) and count one launch in ``bitonic_sort.launches``; CPU tensors
+    run the twin. C must be a power of two, and a block's pairs and one
+    row slot must fit its shared memory (12 C bytes: C up to 16384), else
+    ValueError."""
     if x.dtype != torch.float32 or x.dim() != 3 or not x.is_contiguous():
         raise ValueError(f"x must be a contiguous (T, R, C) float32 tensor, got "
                          f"{tuple(x.shape)} {x.dtype}")
@@ -62,10 +75,11 @@ def bitonic_sort(x: torch.Tensor, reps: int = 1) -> torch.Tensor:
     if tiles == 0:
         return x.clone()
     with torch.cuda.device(x.device):
-        need, limit = rows * c * 4, _fn("bench_roll_smem_limit", [])()
+        need = _fn("bench_roll_smem_need", [_I, _I])(rows, c)
+        limit = _fn("bench_roll_smem_limit", [])()
         if need > limit:
-            raise ValueError(f"a ({rows}, {c}) f32 tile needs {need} B of shared memory; the "
-                             f"card allows {limit} B")
+            raise ValueError(f"a block on ({rows}, {c}) f32 tiles needs {need} B of shared "
+                             f"memory; the card allows {limit} B")
         out = torch.empty_like(x)
         err = _fn("bench_roll", [_P, _I, _I, _I, _I, _P, _P])(
             x.data_ptr(), tiles, rows, c, reps, out.data_ptr(),

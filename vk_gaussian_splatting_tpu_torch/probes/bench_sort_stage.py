@@ -9,9 +9,12 @@ schedule of 1024 (55 stages), cut short or repeated. Variants:
 
   lane-iota    want_min from the column index
   lane-const   want_min from a (2S, 1024) f32 table the caller passes
-  sub8         the table again; each thread holds its column in registers
-               and exchanges partners within a warp (j < 32) by shuffles,
-               through shared memory only for j >= 32
+  sub8         the table again; each thread holds four columns in
+               registers and exchanges partners within a warp (j < 128) by
+               shuffles, through shared memory only for j >= 128
+
+Every variant runs the stages on (key, column index) pairs and moves the
+rows once at the end, by the final index.
 
 Usage: python -m vk_gaussian_splatting_tpu_torch.probes.bench_sort_stage
        [variant] [rows] [stages] [tpt]
@@ -38,7 +41,7 @@ from vk_gaussian_splatting_tpu_torch.timing import call_ms, device_label
 C = 1024
 STEPS = 4096
 VARIANTS = ("lane-iota", "lane-const", "sub8")
-SUB8_ROWS = (1, 2, 4, 8, 16, 32)  # sub8 holds a column of each tile in registers
+SUB8_ROWS = (1, 2, 4, 8, 16, 32)  # the rows sub8 takes, keyed by the last
 
 
 def full_schedule(c: int) -> list[tuple[int, int]]:
@@ -109,6 +112,36 @@ def sort_stages_ref(x: torch.Tensor, masks: torch.Tensor | None, variant: str, s
     return _stages(x, masks, variant, sched, key_row)
 
 
+def network_by_index(keys: torch.Tensor, masks: torch.Tensor | None, variant: str,
+                     sched) -> torch.Tensor:
+    """The stages ``sched`` on (key, column index) pairs, as the kernels run
+    them: each column takes its partner e ^ j's pair by its own test (the
+    twin's, want_min by index math or from ``masks``' odd rows). keys (...,
+    C); returns the (..., C) int64 column of the input each column holds."""
+    e = torch.arange(keys.shape[-1], device=keys.device)
+    idx = e.expand(keys.shape)
+    for s, (k, j) in enumerate(sched):
+        if variant == "lane-iota":
+            want_min = ((e & j) == 0) == ((e & k) == 0)
+        else:
+            want_min = masks[2 * s + 1].reshape(-1) > 0.5
+        key_part, idx_part = keys[..., e ^ j], idx[..., e ^ j]
+        take = torch.where(want_min, key_part < keys, key_part > keys)
+        keys, idx = torch.where(take, key_part, keys), torch.where(take, idx_part, idx)
+    return idx
+
+
+def sort_stages_by_index(x: torch.Tensor, masks: torch.Tensor | None, variant: str, sched,
+                         key_row: int) -> torch.Tensor:
+    """The form csrc/bench_sort_stage.cu and csrc/bench_roll.cu implement:
+    the network on (key, column index) pairs, then one gather of every row
+    by the final index. Equals ``sort_stages_ref`` bit for bit, whatever the
+    schedule, the table or the ties."""
+    flat = x.reshape(*x.shape[:2], -1)      # sub8's (rows, 8, 128) in flat order
+    idx = network_by_index(flat[:, key_row], masks, variant, sched)
+    return torch.take_along_dim(flat, idx[:, None, :], dim=-1).reshape(x.shape)
+
+
 def taking_columns(x, masks, variant, sched, key_row) -> int:
     """How many (column, stage) pairs of ``x`` take their partner's column:
     the moves the kernel makes on this data."""
@@ -145,8 +178,9 @@ def _check(x, masks, variant, sched, key_row) -> tuple[int, int]:
             raise ValueError(f"{variant} needs a contiguous (2S, {', '.join(map(str, tail))}) "
                              f"float32 mask table on {x.device}")
     if variant == "sub8" and (rows not in SUB8_ROWS or key_row != rows - 1):
-        raise ValueError(f"sub8 keeps a column in registers: rows must be one of {SUB8_ROWS} "
-                         f"and the key row rows - 1, got rows {rows}, key row {key_row}")
+        raise ValueError(f"sub8 keeps the key row's pairs in registers: rows must be one of "
+                         f"{SUB8_ROWS} and the key row rows - 1, got rows {rows}, key row "
+                         f"{key_row}")
     return tiles, rows
 
 
@@ -156,10 +190,12 @@ def sort_stages(x: torch.Tensor, masks: torch.Tensor | None, variant: str, sched
     (sub8: (rows, 8, 128)), keyed by row ``key_row``.
 
     CUDA tensors launch csrc/bench_sort_stage.cu's entry for ``variant`` with
-    ``blocks`` blocks, each sorting its own copy of the tiles in shared
-    memory (block 0 writes the result), and count one launch in
+    ``blocks`` blocks, each running the stages on its own copy of the
+    tiles' (key, column index) pairs and permuting every row once (block 0
+    writes the result), and count one launch in
     ``sort_stages.launches[variant]``; CPU tensors run the twin. Tiles
-    that need more shared memory than the card has raise ValueError."""
+    whose pairs need more shared memory than the card has (8 KB a tile
+    beside 32 KB of rows) raise ValueError."""
     tiles, rows = _check(x, masks, variant, sched, key_row)
     if blocks < 1:
         raise ValueError(f"blocks must be positive, got {blocks}")
@@ -170,11 +206,10 @@ def sort_stages(x: torch.Tensor, masks: torch.Tensor | None, variant: str, sched
     if tiles == 0:
         return x.clone()
     with torch.cuda.device(x.device):
-        if variant != "sub8":
-            need, limit = tiles * rows * C * 4, _fn("_smem_limit")()
-            if need > limit:
-                raise ValueError(f"{tiles} tiles of ({rows}, {C}) f32 need {need} B of shared "
-                                 f"memory per block; the card allows {limit} B")
+        need, limit = _fn("_smem_need")(tiles), _fn("_smem_limit")()
+        if need > limit:
+            raise ValueError(f"{tiles} tiles of ({rows}, {C}) f32 need {need} B of shared "
+                             f"memory per block; the card allows {limit} B")
         out = torch.empty_like(x)
         table = _sched_tensor(tuple(sched), str(x.device))
         err = _fn(variant.replace("-", "_"))(
@@ -194,7 +229,8 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 
 def _fn(suffix: str):
     """The C function bench_sort_stage_<suffix> of csrc/bench_sort_stage.cu."""
-    argtypes = [] if suffix == "_smem_limit" else [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P]
+    argtypes = {"_smem_limit": [], "_smem_need": [_I]}.get(
+        suffix, [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P])
     sep = "" if suffix.startswith("_") else "_"
     return _build.entry("bench_sort_stage", f"bench_sort_stage{sep}{suffix}", argtypes)
 
