@@ -105,10 +105,10 @@ entry points — and checks them:
    small sizes (a cut and a repeated schedule; ties, signed zeros and NaN
    keys; a mask table that duplicates columns) and at the default (4096
    blocks); P2's output at every W for one block and for 256, and every
-   copied block of a 4-step check run against the twin's; each timed with
-   CUDA events beside its twin, a library yardstick (torch.sort +
-   take_along_dim of the key rows, or index_select of the same blocks),
-   the key network alone (P1 and P3 at 2 rows) and its bound
+   copied block of 4-step check runs (one block, two) against the twin's;
+   each timed with CUDA events beside its twin, a library yardstick
+   (torch.sort + take_along_dim of the key rows, or index_select of the
+   same blocks), the key network alone (P1 and P3 at 2 rows) and its bound
    (``probe_bound``: the (key, index) network and one permutation, the
    bound of the row-moving form logged beside it, and the share of the
    bound; P2's ``copy_bound``: its offsets reach 8 MB of the source, and
@@ -2123,8 +2123,9 @@ def probe_stage_phase(dev, card: str, variant: str):
 def probe_radix_phase(dev, card: str, w: int = 16):
     """P2: at the script's 256 steps x 64 copies, for each W, the output of
     one block and of 256 blocks against the block the last copy into ring
-    slot 0 brought; at 4 steps x 64 copies every copied block against the
-    twin's copies; the launch this report times: W = 16 across the card."""
+    slot 0 brought; at 4 steps x 64 copies, in one block and in two, every
+    copied block against the twin's copies; the launch this report times:
+    W = 16 across the card."""
     g = torch.Generator(device=dev).manual_seed(3)
     src = torch.randn((probe_radix.SRC_BLOCKS, *probe_radix.BLOCK), generator=g, device=dev)
     n_steps, n_copies = probe_radix.N_STEPS, probe_radix.N_COPIES
@@ -2134,11 +2135,13 @@ def probe_radix_phase(dev, card: str, w: int = 16):
         for spb in (None, 1):
             err = max(err, bit_equal(f"bench_radix_ab W={width}", probe_radix.dma_copies(
                 src, n_steps, n_copies, width, spb), src[last:last + 1]))
-        out, copies = probe_radix.dma_copies(src, 4, n_copies, width, 3, trace=True)
         ref_out, ref_copies = probe_radix.dma_copies_ref(src, 4, n_copies, width, trace=True)
-        err = max(err, bit_equal(f"bench_radix_ab W={width} output", out, ref_out),
-                  bit_equal(f"bench_radix_ab W={width} every copy", copies, ref_copies))
-        del copies, ref_copies
+        for spb in (None, 3):   # the one-block ring and the card's
+            out, copies = probe_radix.dma_copies(src, 4, n_copies, width, spb, trace=True)
+            err = max(err, bit_equal(f"bench_radix_ab W={width} output", out, ref_out),
+                      bit_equal(f"bench_radix_ab W={width} every copy", copies, ref_copies))
+            del copies
+        del ref_copies
     t_k = median(time_ms(lambda: probe_radix.dma_copies(src, n_steps, n_copies, w, 1), 10))
     t_twin = median(time_ms(lambda: probe_radix.dma_copies_ref(src, n_steps, n_copies, w), 3,
                             warmup=1))

@@ -1006,6 +1006,7 @@ def test_gut3d_pair_fwd_kernel_culls_exactly(cuda, degree, camera, chunk):
 from vk_gaussian_splatting_tpu_torch.probes import bench_radix_ab as pa  # noqa: E402
 from vk_gaussian_splatting_tpu_torch.probes import bench_roll as pr  # noqa: E402
 from vk_gaussian_splatting_tpu_torch.probes import bench_sort_stage as ps  # noqa: E402
+from vk_gaussian_splatting_tpu_torch.probes import l2_fill as lf  # noqa: E402
 
 
 def same_bits(a, b) -> bool:
@@ -1113,9 +1114,11 @@ def test_probe_sort_stages_ties_and_limits(cuda, variant):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("w", pa.WIDTHS)
-@pytest.mark.parametrize("n_steps, n_copies, steps_per_block", [(2, 9, None), (3, 20, 1),
-                                                                (1, 5, 1), (4, 64, 3)])
+@pytest.mark.parametrize("w", sorted(pa.WIDTHS + (3, 5, 17)))   # 17: uneven pieces
+@pytest.mark.parametrize("n_steps, n_copies, steps_per_block", [
+    (2, 9, None), (3, 20, 1), (1, 5, 1), (4, 64, 3),
+    (300, 9, 1),                   # more blocks than the plan's two an SM on 132 SMs
+    (6, 1, None), (5, 1, 2)])      # one copy a step
 def test_probe_copies_match_twin(cuda, w, n_steps, n_copies, steps_per_block):
     g = torch.Generator(device=cuda).manual_seed(w)
     src = torch.randn((pa.SRC_BLOCKS, *pa.BLOCK), generator=g, device=cuda)
@@ -1127,3 +1130,16 @@ def test_probe_copies_match_twin(cuda, w, n_steps, n_copies, steps_per_block):
     ref_out, ref_copies = pa.dma_copies_ref(src, n_steps, n_copies, w, trace=True)
     assert torch.equal(out, ref_out) and torch.equal(out_only, ref_out)
     assert torch.equal(copies, ref_copies)
+
+
+@pytest.mark.cuda
+def test_l2_fill_launches_and_refuses(cuda):
+    src = torch.randn((pa.SRC_BLOCKS, *pa.BLOCK), device=cuda)
+    for cfg in (dict(method="bulk", grid=4, per_sm=2, copies=64, w=16, piece=2, depth=3),
+                dict(method="bulk", grid=1, per_sm=1, copies=64, w=1, depth=16, lanes=8),
+                dict(method="vector", grid=4, per_sm=2, copies=64, w=16, u=8),
+                dict(method="cpasync", grid=4, per_sm=3, copies=64, w=16, u=2, stages=4)):
+        lf.fill(src, **cfg)
+    torch.cuda.synchronize()
+    with pytest.raises(RuntimeError, match="cudaError"):   # a 512 KB ring
+        lf.fill(src, method="bulk", grid=4, per_sm=1, copies=64, w=16, piece=8, depth=8)

@@ -26,6 +26,7 @@ from jax.experimental import pallas as pl
 from vk_gaussian_splatting_tpu_torch.probes import bench_radix_ab as pa
 from vk_gaussian_splatting_tpu_torch.probes import bench_roll as pr
 from vk_gaussian_splatting_tpu_torch.probes import bench_sort_stage as ps
+from vk_gaussian_splatting_tpu_torch.probes import l2_fill as lf
 from test_torch_cuda import duplicating, same_bits, with_keys
 
 SCRIPTS = Path(__file__).resolve().parent.parent / "scripts"
@@ -241,8 +242,54 @@ def test_copies_twin_trace_and_ring():
     assert torch.equal(copies, want)
     assert torch.equal(out[0], src[2 * 20 + 16])   # the last copy into slot 0: i = 16
     assert torch.equal(pa.dma_copies(src, 40, 64, 1)[0], src[(39 * 64 + 56) % 1024])
-    assert pa.ring_of(1) == (1, 1, 8 * 8192)
-    assert pa.ring_of(4) == (3, 2, 8 * 3 * 8192) and pa.ring_of(64) == (3, 22, 8 * 3 * 8192)
+    assert pa.ring_of(1) == (1, 1, 4, 4 * 8192, 1)
+    assert (pa.ring_of(4, 1) == (4, 1, 7, 7 * 4 * 8192, 7)
+            and pa.ring_of(64, 1) == (8, 8, 3, 3 * 8 * 8192, 3))
+
+
+@pytest.mark.parametrize("per_sm", [1, 2, 3, 4])
+@pytest.mark.parametrize("w", [1, 2, 3, 4, 5, 16, 17, 64])
+def test_ring_plan(w, per_sm):
+    plan = pa.ring_of(w, per_sm)
+    pieces = pa.pieces_of(w, plan.slot_blocks)
+    assert len(pieces) == plan.pieces
+    covered = [b for start, n in pieces for b in range(start, start + n)]
+    assert covered == list(range(w))                       # every block once, in order
+    sizes = [n for _, n in pieces]
+    assert max(sizes) == plan.slot_blocks and max(sizes) - min(sizes) <= 1
+    assert plan.ring_bytes == plan.depth * plan.slot_blocks * pa.BLOCK_BYTES
+    assert 1 <= plan.depth <= (pa.MAX_SLOTS if per_sm == 1 else pa.CARD_DEPTH)
+    assert plan.ring_bytes * per_sm <= 232448               # 227 KB: the SM's share for blocks
+    # the fewest pieces: one piece fewer would need a larger slot than the plan allows
+    most = (min(pa.ONE_PIECE_BLOCKS, pa.ring_budget(1) // pa.BLOCK_BYTES // pa.MIN_DEPTH)
+            if per_sm == 1 else pa.CARD_PIECE_BLOCKS)
+    assert plan.slot_blocks <= most
+    assert plan.pieces == 1 or -(-w // (plan.pieces - 1)) > most
+    if per_sm == 1:
+        assert plan.depth >= pa.MIN_DEPTH
+    # the lanes divide the slots, so one producer and one consumer lane own each
+    assert plan.depth % plan.lanes == 0
+    assert plan.lanes == 1 or (per_sm == 1 and plan.lanes <= pa.ONE_BLOCK_LANES)
+
+
+@pytest.mark.parametrize("sms", [132, 114])
+def test_l2_fill_sweep_fits_and_moves_p2s_bytes(sms):
+    cfgs = lf.configs(sms)
+    assert {c["method"] for c in cfgs} == {"bulk", "vector", "cpasync"}
+    for c in cfgs:
+        assert c["grid"] in (1, pa.N_STEPS, c["per_sm"] * sms)   # one block, P2's grid, full SMs
+        if c["grid"] > 1:   # P2's 2.15 GB at W = 16
+            assert (c["copies"], c["w"]) == (pa.N_STEPS * pa.N_COPIES, 16)
+        if c["method"] == "bulk":
+            assert c["w"] % c["piece"] == 0 and 1 <= c["lanes"] <= c["depth"] <= 32
+            assert c["depth"] * c["piece"] * pa.BLOCK_BYTES * c["per_sm"] <= 232448
+        else:
+            assert c["w"] * pa.BLOCK_BYTES % (c["threads"] * c["u"] * 16) == 0
+
+
+def test_l2_fill_needs_the_card():
+    with pytest.raises(RuntimeError, match="no CPU form"):
+        lf.run(device="cpu")
 
 
 def test_copies_reject_bad_inputs():
@@ -325,5 +372,5 @@ def test_probe_entry_points_on_the_cpu(monkeypatch, capsys):
         assert res["ms"] > 0
     res = pa.run([0.01], device="cpu")
     text = capsys.readouterr().out
-    assert "ring 8 x 24 KB, 2 piece(s) per copy" in text and "torch sort stage" in text
+    assert "4 piece(s) per copy: one block (ring 7 x 32 KB)" in text and "torch sort stage" in text
     assert text.count("passB(") == 3 and set(res["per_copy_ns"]) == {1, 4}

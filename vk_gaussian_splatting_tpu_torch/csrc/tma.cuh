@@ -2,7 +2,7 @@
 // Memory Accelerator's cp.async.bulk), their completion counted in bytes on
 // an mbarrier in shared memory: one thread issues a copy, any thread waits
 // for it. Shared by the probes P1 (csrc/bench_roll.cu) and P2
-// (csrc/bench_radix_ab.cu).
+// (csrc/bench_radix_ab.cu) and by csrc/l2_fill.cu.
 
 #pragma once
 
@@ -24,6 +24,27 @@ __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
                : "memory");
 }
 
+// one arrival, no bytes: a consumer's "this slot is free again"
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_addr(bar)) : "memory");
+}
+
+// whether the phase of `parity` has completed, without waiting
+__device__ __forceinline__ bool mbar_test(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "mbarrier.test_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n"
+      "}\n"
+      : "=r"(done)
+      : "r"(smem_addr(bar)), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+// waits for the phase of `parity`; the thread may be suspended meanwhile
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   uint32_t done = 0;
   do {

@@ -3,12 +3,14 @@
 Counterpart of ``scripts/bench_radix_ab.py`` (its Pallas ``_dma_kernel``,
 :89, built by ``dma_bench_call``, :116). Three parts, as in the script:
 
-1. the copy probe, kernel csrc/bench_radix_ab.cu: per-copy cost of 8-deep
+1. the copy probe, kernel csrc/bench_radix_ab.cu: per-copy cost of
    pipelined bulk copies of W x (16, 128) f32 blocks (W = 1, 4, 16, 64)
-   from device memory into shared memory, 256 steps x 64 copies at block
-   offsets (j * 64 + i) % 1024; one block runs the steps in order (one copy
-   engine, as the JAX grid runs on one core), then 256 blocks run one step
-   each (the whole card);
+   into shared memory, 256 steps x 64 copies at block offsets (j * 64 + i)
+   % 1024; one block runs the steps in order (one copy engine, as the JAX
+   grid runs on one core), then 256 blocks run one step each (the whole
+   card). The offsets reach the first 8 MB of the 16 MB source, which L2
+   holds after the first pass: the copies are served from L2, not from
+   device memory;
 2. the port's own bucket sort stage, ops/bucket_grid.sort_slots as
    bucket_splats calls it: the int64 key (bucket << 32) |
    encode_minmax_f32(depth) of 4 slot-major slots per splat, a stable
@@ -18,7 +20,7 @@ Counterpart of ``scripts/bench_radix_ab.py`` (its Pallas ``_dma_kernel``,
 3. the run statistics of the same keys: how many contiguous (chunk,
    coarse-digit) runs pass B of a counting sort would copy, and the
    projected pass-B cost from the measured per-copy time and the card's
-   memory rate.
+   memory rate (the per-copy time is that of the L2-served copies).
 
 Usage: python -m vk_gaussian_splatting_tpu_torch.probes.bench_radix_ab
        [rows_millions ...]   (default 1 4 16)
@@ -28,6 +30,7 @@ from __future__ import annotations
 
 import ctypes
 import sys
+from typing import NamedTuple
 
 import torch
 
@@ -42,20 +45,76 @@ BLOCK_BYTES = R_PAYLOAD * 128 * 4
 SRC_BLOCKS = 2048                      # the probe's (2048, 16, 128) source, 16 MB
 OFFSET_CYCLE = 1024                    # copy offsets cycle over this many blocks
 N_BUCKETS = 13000                      # make_keys' buckets; the last is the sentinel
-RING = 8                               # ring slots: the script's; the kernel's pieces in flight
-PIECE_BLOCKS = 3                       # most blocks per ring slot of the kernel: 8 x 24 KB
+RING = 8                               # the script's ring slots; the output is its slot 0
 WIDTHS = (1, 4, 16, 64)
 N_STEPS, N_COPIES = 256, 64
 CARD_BYTES_PER_S = 3.35e12             # H100 SXM HBM3 (NVIDIA data sheet)
+# the kernel's ring (csrc/bench_radix_ab.cu keeps the same numbers)
+MAX_SLOTS = 28                         # most slots of a launch of one block
+BLOCKS_PER_SM = 2                      # blocks an SM of a launch of more than one block
+SM_SHARED = 233472                     # an SM's shared memory, 228 KB
+BLOCK_RESERVED = 1024                  # shared memory the system keeps per block
+BARRIER_BYTES = 2 * MAX_SLOTS * 8      # a full and an empty mbarrier per slot
+# Measured (PERF.md, §6, P2; probes/l2_fill.py): across the card L2 sets the
+# rate and more bytes in flight only queue behind it, so each block keeps
+# CARD_DEPTH pieces of at most CARD_PIECE_BLOCKS blocks in flight; one lane
+# issues a bulk copy only every 100-200 ns and one SM takes in at most
+# about 105 B a clock, so one block alone issues from up to ONE_BLOCK_LANES
+# lanes at once, in pieces of up to ONE_PIECE_BLOCKS blocks, at least
+# MIN_DEPTH of them
+CARD_PIECE_BLOCKS, CARD_DEPTH = 1, 4
+ONE_PIECE_BLOCKS, MIN_DEPTH = 8, 3
+ONE_BLOCK_LANES = 16
 
 
-def ring_of(w: int) -> tuple[int, int, int]:
-    """(blocks per ring slot, pieces per copy, ring bytes) of the kernel at
-    copies of w blocks: a copy goes out in pieces of at most PIECE_BLOCKS
-    blocks, so that 8 pieces in flight fit a block's shared memory. The
-    kernel takes the pieces' size from here."""
-    per = min(w, PIECE_BLOCKS)
-    return per, -(-w // per), RING * per * BLOCK_BYTES
+class RingPlan(NamedTuple):
+    slot_blocks: int                   # blocks a slot holds: the largest piece
+    pieces: int                        # pieces a copy
+    depth: int                         # slots of the ring
+    ring_bytes: int                    # shared memory of the ring
+    lanes: int                         # lanes of each warp: producers, and consumers
+
+
+def ring_budget(per_sm: int) -> int:
+    """Ring bytes a block may take when ``per_sm`` blocks share an SM."""
+    return SM_SHARED // per_sm - BLOCK_RESERVED - BARRIER_BYTES
+
+
+def ring_of(w: int, per_sm: int = BLOCKS_PER_SM) -> RingPlan:
+    """The kernel's ring for copies of w blocks at ``per_sm`` blocks an SM
+    (1: a launch of one block, which has an SM to itself). A copy goes out
+    in the fewest pieces of at most ONE_PIECE_BLOCKS blocks that leave room
+    for MIN_DEPTH slots (one block) or of at most CARD_PIECE_BLOCKS (more),
+    their sizes differing by at most one block (``pieces_of``); the ring
+    holds as many slots of the largest piece as the block's share of the SM
+    takes, at most MAX_SLOTS (one block) or CARD_DEPTH; one block issues
+    and consumes with as many lanes at once as divide the depth, at most
+    ONE_BLOCK_LANES, more blocks with one. The kernel takes ``slot_blocks``
+    and sizes its ring the same way."""
+    fit = ring_budget(per_sm) // BLOCK_BYTES
+    if per_sm == 1:
+        most, cap = min(ONE_PIECE_BLOCKS, fit // MIN_DEPTH), MAX_SLOTS
+    else:
+        most, cap = CARD_PIECE_BLOCKS, CARD_DEPTH
+    pieces = -(-w // most)
+    slot = -(-w // pieces)
+    depth = min(cap, fit // slot)
+    lanes = max(n for n in range(1, min(ONE_BLOCK_LANES, depth) + 1) if depth % n == 0) \
+        if per_sm == 1 else 1
+    return RingPlan(slot, pieces, depth, depth * slot * BLOCK_BYTES, lanes)
+
+
+def pieces_of(w: int, slot_blocks: int) -> list[tuple[int, int]]:
+    """(first block, blocks) of each piece of a copy of w blocks in slots
+    of ``slot_blocks``, as the kernel cuts it."""
+    n = -(-w // slot_blocks)
+    base, rem = divmod(w, n)
+    return [(p * base + min(p, rem), base + (p < rem)) for p in range(n)]
+
+
+def per_sm_of(n_steps: int, steps_per_block: int) -> int:
+    """Blocks an SM the kernel plans for: 1 for a launch of one block."""
+    return 1 if steps_per_block >= n_steps else BLOCKS_PER_SM
 
 
 def copy_offsets(n_steps: int, n_copies: int) -> list[int]:
@@ -65,8 +124,8 @@ def copy_offsets(n_steps: int, n_copies: int) -> list[int]:
 
 def dma_copies_ref(src: torch.Tensor, n_steps: int, n_copies: int, w: int,
                    trace: bool = False):
-    """The plain twin of the copy probe: every copy made in order into an
-    8-slot ring of w blocks (copy i of a step into slot i % 8). Returns the
+    """The plain twin of the copy probe: every copy made in order into the
+    script's 8-slot ring of w blocks (copy i of a step into slot i % 8). Returns the
     first block of ring slot 0 at the end, (1, 16, 128), and with ``trace``
     also every copy, (n_steps, n_copies, w, 16, 128)."""
     ring = src.new_empty((RING, w, *BLOCK))
@@ -117,7 +176,8 @@ def dma_copies(src: torch.Tensor, n_steps: int, n_copies: int, w: int,
                               device=src.device) if trace else None)
         err = _build.entry("bench_radix_ab", "bench_radix_ab",
                            [_P, _I, _I, _I, _I, _I, _P, _P, _P])(
-            src.data_ptr(), n_steps, steps_per_block, n_copies, w, ring_of(w)[0], out.data_ptr(),
+            src.data_ptr(), n_steps, steps_per_block, n_copies, w,
+            ring_of(w, per_sm_of(n_steps, steps_per_block)).slot_blocks, out.data_ptr(),
             0 if copies is None else copies.data_ptr(),
             torch.cuda.current_stream(src.device).cuda_stream)
     if err != 0:
@@ -171,21 +231,24 @@ def dma_microbench(dev) -> dict:
     """Per-copy ns at each W: one block (one copy engine), then one block
     per step across the card. Returns {w: (ns one block, ns card-wide)}."""
     src = torch.zeros((SRC_BLOCKS, *BLOCK), dtype=torch.float32, device=dev)
-    print(f"# copy microbench: 8-deep pipelined bulk copies (device -> shared memory) of "
-          f"W x ({R_PAYLOAD},128) f32 blocks, {N_STEPS} steps x {N_COPIES} copies", flush=True)
+    print(f"# copy microbench: pipelined bulk copies (L2 -> shared memory: the offsets' "
+          f"{OFFSET_CYCLE * BLOCK_BYTES >> 20} MB stay in L2) of W x ({R_PAYLOAD},128) f32 "
+          f"blocks, {N_STEPS} steps x {N_COPIES} copies", flush=True)
     res = {}
     n = N_STEPS * N_COPIES
     for w in WIDTHS:
-        per, pieces, _ = ring_of(w)
+        one_plan, card_plan = ring_of(w, 1), ring_of(w)
         one = min(call_ms(lambda: dma_copies(src, N_STEPS, N_COPIES, w), dev, 5, warmup=2))
         card = min(call_ms(lambda: dma_copies(src, N_STEPS, N_COPIES, w, steps_per_block=1),
                            dev, 5, warmup=2))
         gb = n * w * BLOCK_BYTES / 1e9
         res[w] = (one * 1e6 / n, card * 1e6 / n)
-        print(f"W={w:3d} blocks ({w * BLOCK_BYTES // 1024:5d} KB), ring {RING} x "
-              f"{per * BLOCK_BYTES // 1024} KB, {pieces} piece(s) per copy: one block "
-              f"{res[w][0]:7.1f} ns/copy ({gb / one * 1e3:6.1f} GB/s effective); "
-              f"{N_STEPS} blocks {res[w][1]:7.2f} ns/copy ({gb / card * 1e3:7.1f} GB/s)",
+        print(f"W={w:3d} blocks ({w * BLOCK_BYTES // 1024:5d} KB), {card_plan.pieces} piece(s) "
+              f"per copy: one block (ring {one_plan.depth} x "
+              f"{one_plan.slot_blocks * BLOCK_BYTES // 1024} KB) {res[w][0]:7.1f} ns/copy "
+              f"({gb / one * 1e3:6.1f} GB/s effective); {N_STEPS} blocks (ring "
+              f"{card_plan.depth} x {card_plan.slot_blocks * BLOCK_BYTES // 1024} KB, "
+              f"{BLOCKS_PER_SM} an SM) {res[w][1]:7.2f} ns/copy ({gb / card * 1e3:7.1f} GB/s)",
               flush=True)
     return res
 
@@ -218,7 +281,8 @@ def run(sizes_m=(1, 4, 16), device=None) -> dict:
             lat_one, lat_card = (runs * ns * 1e-6 for ns in per_copy[w_near])
             bw_ms = n * R_PAYLOAD * 4 * 2 / CARD_BYTES_PER_S * 1e3
             print(f"  passB(chunk={chunk}, digit>>{shift}, {whole} rows): {runs} runs, mean "
-                  f"{mean_len:.1f} rows -> projected >= {lat_one:.3f} ms latency (one block) "
+                  f"{mean_len:.1f} rows -> projected from L2-served copies >= {lat_one:.3f} ms "
+                  f"latency (one block) "
                   f"or {lat_card:.3f} ms (card-wide) + {bw_ms:.3f} ms bytes "
                   f"(x2 passes for full order)", flush=True)
     return {"per_copy_ns": per_copy, "sort_ms": sort_ms}
