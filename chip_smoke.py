@@ -7,8 +7,9 @@ camera, cfg)``, and the training step, ``train_step`` (render, loss,
 backward, Adam), each by the pair path (the default RenderConfig) and by
 the bucket path (``RasterConfig(method="bucket")``); then the 3DGUT and
 3DGRT raster frames (``Pipeline.MESH_3DGUT``, ``Pipeline.RTX``) and 3DGUT
-training on both paths; and the design probes P1-P3 through their own
-entry points — and checks them:
+training on both paths; the packed tier of all three
+(``RasterConfig(pair_format="packed")``, forward only); and the design
+probes P1-P3 through their own entry points — and checks them:
 
 1. builds the CUDA kernels from the checkout, one nvcc per source, all at
    once: the pair blender K1 (csrc/rasterize_fwd.cu) and its backward K2
@@ -94,6 +95,22 @@ entry points — and checks them:
    profiles of a 3DGUT and a 3DGRT pair frame and a 3DGUT train step by
    stage (each frame's kernel-busy time). The gut3d gates are
    flip-aware (``GUT_*``);
+10. the packed tier, the forward-only forms K1p, K1gp (csrc/rasterize_fwd.cu
+   ``rasterize_fwd_gs2dp``, ``_gut3dp``), K3p and K3gp
+   (csrc/raster_bucket_fwd.cu): the golden scene at 256x192, 3DGS and 3DGUT
+   on both paths, against the port's f32 frame (> 55 dB, ids > 99 %), the
+   PSNR against golden_view0.npy beside the f32 frame's, each packed kernel
+   against its twin over the frame; at the headline cell and caps, 3DGS and
+   3DGUT on both paths and 3DGRT on the pair path (4 frames): the main path
+   with every launch counter of the wrapper zeroed and read (only the
+   packed one moves, one launch a frame), a bit-equal repeat, packed
+   against f32, packed rows made on the card bit-equal to the CPU's from
+   the same f32 quantities, each packed kernel against its twin over every
+   tile (K3gp on 64 sampled tiles too), its kept count against the plain
+   predicate's and the audit of every tile, its bound (the kept lanes and
+   the unpacking, packed bytes: ``OPS_UNPACK``), its plain twin's time, and
+   the stage and frame times of the packed frame and each packed kernel
+   alone beside the f32 frame's and kernel's, in turns (``packed_timings``);
 9. the probes (vk_gaussian_splatting_tpu_torch/probes): each probe's entry
    point at its script's default arguments (``bench_roll.run``,
    ``bench_sort_stage.run`` per variant, ``bench_radix_ab.run``: their
@@ -149,7 +166,6 @@ from vk_gaussian_splatting_tpu_torch.ops import raster_bucket as rb  # noqa: E40
 from vk_gaussian_splatting_tpu_torch.ops import rasterize as tr  # noqa: E402
 from vk_gaussian_splatting_tpu_torch.ops.bucket_grid import (  # noqa: E402
     BucketGridSpec,
-    bucket_splats,
     fit_caps,
     measure_required_caps,
     span_lengths,
@@ -158,7 +174,7 @@ from vk_gaussian_splatting_tpu_torch.ops.projection import (  # noqa: E402
     project_splats,
     ut_project_splats,
 )
-from vk_gaussian_splatting_tpu_torch.ops.response import MODELS, model_of  # noqa: E402
+from vk_gaussian_splatting_tpu_torch.ops.response import MODELS, model_of, pack_rows  # noqa: E402
 from vk_gaussian_splatting_tpu_torch.probes import bench_radix_ab as probe_radix  # noqa: E402
 from vk_gaussian_splatting_tpu_torch.probes import bench_roll as probe_roll  # noqa: E402
 from vk_gaussian_splatting_tpu_torch.probes import bench_sort_stage as probe_stage  # noqa: E402
@@ -169,7 +185,10 @@ from vk_gaussian_splatting_tpu_torch.render.pipelines import (  # noqa: E402
     blend_bins,
     bucket_statics,
     gs_attr_rows,
+    gs_attr_rows_packed,
+    gut_attr_rows,
     gut_bin,
+    packed,
     raster_statics,
 )
 from vk_gaussian_splatting_tpu_torch.render.rays import build_tile_rays  # noqa: E402
@@ -207,6 +226,12 @@ RASTER = ("rasterize_fwd", "rasterize_bwd", "raster_bucket_fwd", "raster_bucket_
 # is each variant of the sort-stage probe
 KERNELS = {name + suffix: (name, *_SOURCES[name])
            for suffix in ("", "_gut3d") for name in RASTER}
+# the packed tier's forms of K1 and K3 (forward only): entries <name>_gs2dp,
+# <name>_gut3dp of the same sources
+PACKED_KERNELS = {f"{name}_{model}": (name, *_SOURCES[name])
+                  for name in ("rasterize_fwd", "raster_bucket_fwd")
+                  for model in ("gs2dp", "gut3dp")}
+KERNELS.update(PACKED_KERNELS)
 KERNELS.update({"bench_roll": ("bench_roll", *_SOURCES["bench_roll"])})
 KERNELS.update({stage_name(v): ("bench_sort_stage", *_SOURCES["bench_sort_stage"])
                 for v in probe_stage.VARIANTS})
@@ -279,6 +304,14 @@ OPS_PER_HIT = {"rasterize_fwd": 10, "rasterize_bwd": 53,
                "raster_bucket_fwd": 10, "raster_bucket_bwd": 53,
                "rasterize_fwd_gut3d": 10, "rasterize_bwd_gut3d": 210,
                "raster_bucket_fwd_gut3d": 10, "raster_bucket_bwd_gut3d": 210}
+OPS_PER_HIT.update({name: 10 for name in PACKED_KERNELS})
+# The packed forms do their parent's work on the unpacked slots, plus the
+# unpacking once per pair or lane their staging reads (the least work; K1
+# and K3 stage a kept lane twice, for the cull and for the blend): gs2dp 9
+# (a mask or a shift for each of 5 bf16 halves, the u16's mask, convert and
+# scale, 1 more mask), gut3dp 26 (7 bf16 halves, the u16's 3, 3 more, and
+# the quaternion's renormalisation: 4 squares, 4 adds, rsqrt, 4 scalings).
+OPS_UNPACK = {"gs2dp": 9, "gut3dp": 26}
 # the bucket frame against the exact pair frame: they freeze pixels at
 # different lanes (bucket_chunk 384 against chunk 128) and may order exactly
 # equal depths apart, so a share of pixels, not the max
@@ -471,6 +504,16 @@ def check_warp_cull(label: str, bins, st, batches, pix=None):
     return work, kept
 
 
+def model_of_name(name: str) -> str:
+    """The response model of a raster kernel's report name."""
+    return next((m for m in ("gut3dp", "gs2dp", "gut3d") if name.endswith("_" + m)), "gs2d")
+
+
+def f32_of_name(name: str) -> str:
+    """The f32 model (gs2d or gut3d) whose operations a raster kernel does."""
+    return MODELS[model_of_name(name)].parent or model_of_name(name)
+
+
 def warp_cull_bound(name: str, work, bytes_moved: int, n_tiles: int):
     """((ms, what bounds it) of K1 or K1g at one frame, a log fragment with
     it and the all-pair figure). The kernel evaluates the (pixel, pair)s of
@@ -480,11 +523,12 @@ def warp_cull_bound(name: str, work, bytes_moved: int, n_tiles: int):
     all-pair figure prices every live (pixel, pair), as the sweep before the
     cull made them."""
     evals, hits, tested, _, kept_evals = work
-    model = "gut3d" if name.endswith("_gut3d") else "gs2d"
-    all_pairs = kernel_bound(name, evals, hits, bytes_moved)
+    model = f32_of_name(name)
+    unpack = tested * OPS_UNPACK.get(model_of_name(name), 0)
+    all_pairs = kernel_bound(name, evals, hits, bytes_moved, unpack)
     cull = (tested * (OPS_REACH[model] + tr.WARPS * OPS_WARP_TEST[model])
             + n_tiles * tr.PIX * OPS_WARP_BOUND[model])
-    bound = kernel_bound(name, kept_evals, hits, bytes_moved, f64_ops=cull)
+    bound = kernel_bound(name, kept_evals, hits, bytes_moved, unpack, f64_ops=cull)
     return bound, (f"{name}_bound_ms={bound[0]:.4f} ({bound[1]}; the kept (warp, pair)s) "
                    f"{name}_all_pair_bound_ms={all_pairs[0]:.4f} ({all_pairs[1]})")
 
@@ -497,7 +541,7 @@ def pair_bound(name: str, work, bytes_moved: int, n_tiles: int):
     for gut3d, per pixel (OPS_TILE_BOUND); the all-pair figure prices every
     pair's evaluations, as the sweep before the cull made them."""
     evals, hits, tested, _, kept_evals = work
-    model = "gut3d" if name.endswith("_gut3d") else "gs2d"
+    model = f32_of_name(name)
     all_pairs = kernel_bound(name, evals, hits, bytes_moved)
     if not MODELS[model].cull_pairs:
         return all_pairs, f"{name}_bound_ms={all_pairs[0]:.4f} ({all_pairs[1]}; no cull)"
@@ -511,26 +555,32 @@ def kernel_bound(name: str, evals: int, hits: int, bytes_moved: int, extra_ops: 
                  f64_ops: int = 0):
     """(bound ms, what bounds it): the larger of the operations over the
     card's peak for their type and the bytes over its memory rate."""
-    per_eval = OPS_ALPHA["gut3d" if name.endswith("_gut3d") else "gs2d"]
+    per_eval = OPS_ALPHA[f32_of_name(name)]
     return roofline(evals * per_eval + hits * OPS_PER_HIT[name] + extra_ops, bytes_moved,
                     f64_ops)
 
 
-def bucket_bound(model: str, work, bytes_fwd: int, bytes_bwd: int, grad_rows: int,
+def bucket_bound(model: str, work, bytes_fwd: int, bytes_bwd: int | None, grad_rows: int,
                  n_tiles: int):
-    """({name: (ms, what bounds it)} of K3 and K4 at one frame, a log
-    fragment with those and the all-lane figures). Both kernels evaluate
-    the lanes their cull keeps (``work.kept_evals``) and blend the hits,
-    plus the merge's comparisons and, in K4, the reduce; the cull costs its
-    own f64 operations per tested lane and, for gut3d, per pixel (OPS_CULL,
+    """({name: (ms, what bounds it)} of K3 and K4 (K3 alone for a packed,
+    forward-only model, ``bytes_bwd`` None) at one frame, a log fragment
+    with those and the all-lane figures). Both kernels evaluate the lanes
+    their cull keeps (``work.kept_evals``) and blend the hits, plus the
+    merge's comparisons (and a packed model's unpacking per tested lane,
+    OPS_UNPACK) and, in K4, the reduce; the cull costs its own f64
+    operations per tested lane and, for gut3d, per pixel (OPS_CULL,
     OPS_TILE_BOUND). The all-lane figure prices every live lane's
     evaluations, as the sweep before the cull made them."""
-    suffix = "_gut3d" if model == "gut3d" else ""
-    cull = work.tested * OPS_CULL[model] + n_tiles * tr.PIX * OPS_TILE_BOUND[model]
+    suffix = "" if model == "gs2d" else "_" + model
+    f32_model = MODELS[model].parent or model
+    cull = work.tested * OPS_CULL[f32_model] + n_tiles * tr.PIX * OPS_TILE_BOUND[f32_model]
+    unpack = work.tested * OPS_UNPACK.get(model, 0)
     bounds, all_lanes = {}, {}
     for base, bytes_moved, extra in (
-            ("raster_bucket_fwd", bytes_fwd, work.comparisons),
+            ("raster_bucket_fwd", bytes_fwd, work.comparisons + unpack),
             ("raster_bucket_bwd", bytes_bwd, work.comparisons + work.shared * grad_rows)):
+        if bytes_moved is None:
+            continue
         name = base + suffix
         bounds[name] = kernel_bound(name, work.kept_evals, work.hits, bytes_moved, extra, cull)
         all_lanes[name] = kernel_bound(name, work.evals, work.hits, bytes_moved, extra)
@@ -560,13 +610,10 @@ def copy_bound(fresh_bytes: float, landed_bytes: float):
 
 
 def bin_stage(proj, cfg, max_pairs=0):
-    """render_3dgs's bin stage for either method: TileBins or BucketBins."""
-    rows, ids = gs_attr_rows(proj)
-    if cfg.raster.method == "bucket":
-        st = bucket_statics(cfg)
-        return bucket_splats(proj, rows, ids, tiles_x=st.tiles_x, tiles_y=st.tiles_y,
-                             caps=cfg.raster.bucket_caps)
-    return bin_for_cfg(proj, rows, ids, cfg, max_pairs)
+    """render_3dgs's bin stage for either method and pair format: TileBins
+    or BucketBins."""
+    rows, ids = (gs_attr_rows_packed if packed(cfg) else gs_attr_rows)(proj)
+    return bin_for_cfg(proj, rows, ids, cfg, max_pairs, raster_statics(cfg))
 
 
 def bins_of(prepared, cam, cfg, max_pairs=0):
@@ -629,13 +676,15 @@ def traced_events(call, calls):
 K4_KERNELS = ("raster_bucket_bwd_tiles", "raster_bucket_bwd_partial", "raster_bucket_bwd_reduce")
 
 
-def kernel_split(call, counter, names=K4_KERNELS, calls=7):
+def kernel_split(call, counter, names=K4_KERNELS, calls=7, min_records=None):
     """{name: median device ms per call} of the kernels whose names hold
     each of ``names``, from the profiler's per-kernel durations over
     ``calls`` calls, each launching each kernel once. ``counter()`` reads
     the wrapper's launch count: it must advance by exactly the calls and
     the warm-up, and the trace must hold a record of every kernel of every
-    call."""
+    call, or of ``min_records`` calls at least where given (a window can
+    lose records even after its warm-up step, PERF.md §7; the median is
+    then over the records it kept)."""
     before = counter()
     _, kernels = traced_events(call, calls)
     launched = counter() - before
@@ -643,7 +692,8 @@ def kernel_split(call, counter, names=K4_KERNELS, calls=7):
     split = {}
     for name in names:
         durs = [(e - s) / 1e3 for s, e, kname, _ in kernels if name in kname]
-        check(len(durs) == calls, f"{len(durs)} records of {name} in {calls} calls")
+        check((min_records or calls) <= len(durs) <= calls,
+              f"{len(durs)} records of {name} in {calls} calls")
         split[name] = median(durs)
     return split
 
@@ -1030,21 +1080,23 @@ def check_cull(label: str, work, k3, k4, model: str, bins, st, caps, batches, pi
     """The cull of K3 and K4 on a whole frame; returns the kept-lane count.
     Each kernel's kept-lane counter after one launch, ``k3()`` and ``k4(ctx)``
     (any cotangent: what the cull keeps reads the rows and the freeze
-    alone), against the plain predicate's count (``work``, from
-    ops/raster_bucket.bucket_work): equal, as K1's and K2's are (the
-    predicate is in double with margins, and every card run of the
-    counters has given the plain count); and the two counts equal, since both kernels run one
-    predicate over the same steps and freeze.
+    alone; ``k4`` None for a packed, forward-only model), against the plain
+    predicate's count (``work``, from ops/raster_bucket.bucket_work): equal,
+    as K1's and K2's are (the predicate is in double with margins, and
+    every card run of the counters has given the plain count); and the two
+    counts equal, since both kernels run one predicate over the same steps
+    and freeze.
     Then, over every tile in ``batches``, the lanes the plain predicate
     culls that the twin's alpha passes at some pixel of the tile
     (ops/raster_bucket.tile_lane_hits, frozen pixels too): none allowed."""
     n_tiles = st.tiles_x * st.tiles_y
-    g = "g" if model == "gut3d" else ""
+    g = {"gs2d": "", "gut3d": "g", "gs2dp": "p", "gut3dp": "gp"}[model]
     k3()
-    k4(torch.ones((n_tiles, tr.CTX_ROWS, tr.PIX), device=bins.attrs.device))
-    torch.cuda.synchronize()
-    kept = {f"K3{g}": int(getattr(rb.rasterize_buckets, rb.KEPT_COUNTER[model])),
-            f"K4{g}": int(getattr(rb.rasterize_buckets_bwd, rb.KEPT_COUNTER[model]))}
+    kept = {f"K3{g}": int(getattr(rb.rasterize_buckets, rb.KEPT_COUNTER[model]))}
+    if k4 is not None:
+        k4(torch.ones((n_tiles, tr.CTX_ROWS, tr.PIX), device=bins.attrs.device))
+        torch.cuda.synchronize()
+        kept[f"K4{g}"] = int(getattr(rb.rasterize_buckets_bwd, rb.KEPT_COUNTER[model]))
     for kname, n in kept.items():
         log(f"{kname} cull 1080p/1M: kept={n} of live={work.live} (kept share "
             f"{n / work.live:.4f}), tested={work.tested}; tile_may_hit over the steps each "
@@ -1464,10 +1516,13 @@ def tile_batches(st, dev, tiles=None):
 
 @torch.no_grad()
 def gut_twin(c, cfg, tiles=None):
-    """K1g's or K3g's twin over ``tiles`` (all by default), in batches."""
+    """The twin of the blend ``c`` ran (K1g's, K3g's, or a packed form's)
+    over ``tiles`` (all by default), in batches (of TWIN_BATCH tiles
+    without a pixel context, as the gs2d twins run)."""
     bins, st, pix = c["bins"], blend_st(c, cfg), c["pix"]
     parts = []
-    for t in tile_batches(st, pix.device, tiles):
+    batches = twin_tiles if pix is None else tile_batches
+    for t in batches(st, bins.attrs.device, tiles):
         if cfg.raster.method == "bucket":
             parts.append(rb.rasterize_buckets_ref(bins.attrs.detach(), bins.ids,
                                                   bins.bucket_starts, st, cfg.raster.bucket_caps,
@@ -1946,6 +2001,290 @@ def gut_train_full_size(dev, card: str, truth: gt.SplatSet, caps, seed: int):
     return entries, bounds
 
 
+# ---- the packed tier (pair_format="packed"): K1p, K1gp, K3p, K3gp ----------
+
+PACKED_FRAMES = (("3dgs", gt.Pipeline.MESH, "pairs"), ("3dgs", gt.Pipeline.MESH, "bucket"),
+                 ("3dgut", gt.Pipeline.MESH_3DGUT, "pairs"),
+                 ("3dgut", gt.Pipeline.MESH_3DGUT, "bucket"), ("3dgrt", gt.Pipeline.RTX, "pairs"))
+PACKED_PSNR_DB, PACKED_ID_AGREE = 55.0, 0.99  # against f32 (tests/test_rasterize.py:178)
+PACKED_GRT_FRAMES = FRAMES // 2  # 3DGRT at a smaller depth: the same kernel as 3DGUT pairs
+ALONE_CALLS = 9  # profiled calls per kernel-alone time; up to 3 records may be lost
+# the kernels each blend wrapper launches, by the names the profiler records
+BLEND_KERNELS = {"pairs": ("warp_mask_kernel", "rasterize_fwd_kernel"),
+                 "bucket": ("raster_bucket_fwd_kernel",)}
+
+
+def with_format(cfg, pair_format):
+    return cfg.replace(raster=dataclasses.replace(cfg.raster, pair_format=pair_format))
+
+
+def packed_name(method: str, model: str) -> str:
+    return ("raster_bucket_fwd_" if method == "bucket" else "rasterize_fwd_") + model
+
+
+def psnr_against(a: torch.Tensor, ref: torch.Tensor) -> float:
+    """PSNR of ``a`` against ``ref`` with the peak max(ref.max(), 1), as the
+    JAX package's packed test takes it."""
+    mse = torch.mean((a - ref) ** 2).item()
+    peak = max(ref.max().item(), 1.0)
+    return 10 * math.log10(peak * peak / max(mse, 1e-12))
+
+
+def frame_stages_of(prepared, cam, cfg):
+    """The stages of ``cfg``'s pipeline, for one frame (one temporal sample)."""
+    if cfg.pipeline == gt.Pipeline.MESH:
+        stages, c = frame_stages(prepared, cam, cfg)
+        c["st"], c["pix"] = raster_statics(cfg), None  # as gut_stages leaves them
+        return stages, c
+    return gut_stages(prepared, cam, cfg)
+
+
+def blend_of(c, cfg):
+    """A call of the blend ``c`` ran: (call, its statics, pixel context)."""
+    st, pix = blend_st(c, cfg), c["pix"]
+    if cfg.raster.method == "bucket":
+        return lambda: rb.rasterize_buckets(c["bins"], st, cfg.raster.bucket_caps, pix), st, pix
+    return lambda: tr.rasterize_bins(c["bins"], st, pix), st, pix
+
+
+def compare_packed_kernel(label, c, cfg, tiles=None):
+    """A packed kernel (the blend ``c`` ran) against its twin on ``tiles``
+    (all by default): gs2dp at KERNEL_ATOL with the same depth where the
+    same splat was picked, gut3dp at the flip-aware gut3d gates; ids at
+    ID_AGREE either way. Returns the max abs error."""
+    out_k, id_k = c["out"]
+    out_r, id_r = gut_twin(c, cfg, tiles)
+    if tiles is not None:
+        out_k, id_k = out_k[tiles], id_k[tiles]
+    torch.cuda.synchronize()
+    out_k = out_k.detach()
+    if blend_st(c, cfg).model == "gut3dp":
+        return gut_fwd_gate(label, out_k, id_k, out_r, id_r)
+    err = (out_k[:, :4] - out_r[:, :4]).abs().max().item() if out_k.numel() else 0.0
+    same = id_k == id_r
+    agree = same.float().mean().item()
+    log(f"  {label}: max abs {err:.3e} (gate {KERNEL_ATOL:g}), id agreement {agree:.6f}")
+    check(torch.equal(out_k[:, 4][same], out_r[:, 4][same]),
+          f"{label}: kernel and twin picked the same splat at different depths")
+    check(err <= KERNEL_ATOL and agree >= ID_AGREE, f"{label} outside the gates: {err}, {agree}")
+    return err
+
+
+def packed_vs_f32(label, got, f32):
+    """Packed frame against the f32 frame: PSNR > 55 dB, ids > 99 %."""
+    psnr = psnr_against(got.image, f32.image)
+    agree = (got.splat_id == f32.splat_id).float().mean().item()
+    log(f"  {label} packed vs f32 frame: psnr_db={psnr:.3f} (gate {PACKED_PSNR_DB}) "
+        f"id_agree={agree:.6f} (gate {PACKED_ID_AGREE}) max_abs="
+        f"{(got.image - f32.image).abs().max().item():.4e}")
+    check(psnr > PACKED_PSNR_DB and agree > PACKED_ID_AGREE,
+          f"{label} packed vs f32: {psnr} dB, ids {agree}")
+    return psnr
+
+
+def golden_packed(dev):
+    """The golden scene at 256x192 in the packed tier, 3DGS and 3DGUT on
+    both paths at caps fitted to the frame: against the port's f32 frame
+    (> 55 dB, ids > 99 %), the PSNR against golden_view0.npy beside the f32
+    frame's, and each packed kernel against its twin over the frame.
+    Returns {kernel name: max abs err}."""
+    meta = json.load(open(os.path.join(GOLDEN, "meta.json")))
+    w, h = meta["recipe"]["res"]
+    prepared = load_ply(os.path.join(GOLDEN, "golden_scene.ply"), device=dev).prepare()
+    cam = gt.look_at([0, -1.5, -7.0], [0, 0.5, 0], [0, 1, 0], w, h, fov_y_rad=0.9, device=dev)
+    base = gt.RenderConfig(width=w, height=h, sh_degree=0)
+    caps, _ = fitted_caps(prepared, [cam], base)
+    ref = torch.from_numpy(np.load(os.path.join(GOLDEN, "golden_view0.npy"))
+                           .astype(np.float32)).to(dev)
+    errs = {}
+    for label, pipeline, method in PACKED_FRAMES[:4]:
+        f32_cfg = gut_cfg(base, pipeline, method, caps)
+        cfg = with_format(f32_cfg, "packed")
+        got, f32 = render(prepared, cam, cfg), render(prepared, cam, f32_cfg)
+        torch.cuda.synchronize()
+        check(method == "pairs" or not bool(got.overflow), f"golden packed {label} overflowed")
+        log(f"golden packed {label} {method} {w}x{h}: psnr_vs_golden_view0_db packed="
+            f"{psnr_against(got.image.clamp(0, 1), ref):.3f} f32="
+            f"{psnr_against(f32.image.clamp(0, 1), ref):.3f}")
+        packed_vs_f32(f"golden {label} {method}", got, f32)
+        stages, c = frame_stages_of(prepared, cam, cfg)
+        run_stages(stages)
+        name = packed_name(method, blend_st(c, cfg).model)
+        errs[name] = compare_packed_kernel(f"golden {name} vs twin over the frame", c, cfg)
+    return errs
+
+
+def check_packed_rows(label, prepared, proj, cfg):
+    """Packed rows made on the card bit-equal to those made on the CPU from
+    the same f32 rows (``ops/response.pack_rows``: bf16 rounding to nearest
+    even, the u16 round half to even)."""
+    if cfg.pipeline == gt.Pipeline.MESH:
+        model, rows = "gs2dp", gs_attr_rows(proj)[0].detach()
+    else:
+        model, rows = "gut3dp", gut_attr_rows(prepared, proj, cfg)[0].detach()
+    words = [pack_rows(model, r).cpu().view(torch.int32) for r in (rows, rows.cpu())]
+    high = words[1] & -65536
+    subnormal = int(((high == 0) | (high == -2 ** 31)).sum())
+    same = torch.equal(words[0], words[1])
+    log(f"  {label} packed rows card vs CPU: {tuple(words[0].shape)} words bit-equal: {same} "
+        f"(words with a +-0 high half: {subnormal})")
+    check(same, f"{label}: packed rows made on the card differ from the CPU's")
+
+
+def abba(fn_a, fn_b):
+    """((a, a), (b, b)) from calls in the order a, b, b, a."""
+    a1, b1, b2, a2 = fn_a(), fn_b(), fn_b(), fn_a()
+    return (a1, a2), (b1, b2)
+
+
+def packed_timings(label, prepared, cam, cfg, f32_cfg, card, method):
+    """Stage and frame times of the packed frame beside the f32 frame
+    (CUDA events, medians of 10, turns f32, packed, packed, f32), and each
+    blend kernel alone (the profiler's per-kernel medians over the records
+    of ALONE_CALLS calls, summed over the wrapper's kernels, same turns).
+    Returns (the packed
+    blend's event ms, its alone ms)."""
+    runs = {}
+    for tag, c_ in (("f32", f32_cfg), ("packed", cfg)):
+        stages, c = frame_stages_of(prepared, cam, c_)
+        run_stages(stages)
+        runs[tag] = (stages, c, c_)
+
+    def stage_times(tag):
+        stages, _, c_ = runs[tag]
+        t = {stage: median(time_ms(step, 10)) for stage, step in stages}
+        t["frame"] = median(time_ms(lambda: render(prepared, cam, c_), 10))
+        return t
+
+    t_f32, t_packed = abba(lambda: stage_times("f32"), lambda: stage_times("packed"))
+    log(f"timing 1080p/1M {label} {method} packed beside f32 ({card}; turns f32, packed, "
+        f"packed, f32): " + " ".join(
+            f"{k}_ms f32={t_f32[0][k]:.4f}/{t_f32[1][k]:.4f} packed={t_packed[0][k]:.4f}/"
+            f"{t_packed[1][k]:.4f}" for k in t_packed[0]))
+
+    def alone(tag):
+        _, c, c_ = runs[tag]
+        call, st, _ = blend_of(c, c_)
+        wrapper = rb.rasterize_buckets if method == "bucket" else tr.rasterize_tiles
+        split = kernel_split(call, lambda: getattr(wrapper, tr.LAUNCH_COUNTER[st.model]),
+                             BLEND_KERNELS[method], calls=ALONE_CALLS,
+                             min_records=ALONE_CALLS - 3)
+        return sum(split.values()), split
+
+    a_f32, a_packed = abba(lambda: alone("f32"), lambda: alone("packed"))
+    log(f"timing {label} {method} blend kernel alone ({card}; profiler, median over "
+        f"{ALONE_CALLS} calls less lost records, turns "
+        f"f32, packed, packed, f32): f32=" + "/".join(f"{a:.4f}" for a, _ in a_f32)
+        + " packed=" + "/".join(f"{a:.4f}" for a, _ in a_packed)
+        + " (per kernel, packed: " + " ".join(f"{k}={v:.4f}" for k, v in a_packed[0][1].items())
+        + ")")
+    return median([t["blend"] for t in t_packed]), median([a for a, _ in a_packed])
+
+
+def packed_full_size(dev, card: str, prepared, caps, seed: int):
+    """The packed tier at 1080p with 1M splats, SH 3, at the headline caps:
+    3DGS and 3DGUT on both paths, 3DGRT on the pair path. Per frame: the
+    main path through ``render`` with every launch counter of the blend's
+    wrapper zeroed before and read after (only the packed model's may
+    move), finite frames, no bucket overflow, a bit-equal repeat, packed
+    against f32 (> 55 dB, ids > 99 %), packed rows made on the card against
+    the CPU's, the packed kernel against its twin (every tile; K3gp also on
+    64 sampled tiles), its kept count against the plain predicate's and the
+    audit of every tile for a culled (warp, pair) or lane that hits, its
+    bound, its plain twin's time, and stage and kernel times beside the f32
+    frame's (``packed_timings``). Returns (report entries, bounds)."""
+    base = gt.RenderConfig(width=WIDTH, height=HEIGHT, sh_degree=3)
+    cam = gt.look_at([0, 0, -7], [0, 0, 0], [0, 1, 0], WIDTH, HEIGHT, fov_y_rad=0.9, device=dev)
+    entries, bounds = {}, {}
+    for label, pipeline, method in PACKED_FRAMES:
+        f32_cfg = gut_cfg(base, pipeline, method, caps)
+        cfg = with_format(f32_cfg, "packed")
+        frames = PACKED_GRT_FRAMES if label == "3dgrt" else FRAMES
+        fwd = rb.rasterize_buckets if method == "bucket" else tr.rasterize_tiles
+        model = "gs2dp" if pipeline == gt.Pipeline.MESH else "gut3dp"
+        name = packed_name(method, model)
+        torch.cuda.synchronize()
+        # ---- the main path: frames through render(), every counter zeroed
+        tr.zero_counters(fwd)
+        outs = [render(prepared, jitter(cam, i), cfg) for i in range(frames)]
+        torch.cuda.synchronize()
+        launches = {m: getattr(fwd, tr.LAUNCH_COUNTER[m]) for m in tr.LAUNCH_COUNTER}
+        log(f"packed {label} {method} main path: {frames} frames, launches {launches}")
+        check(launches == {m: frames * (m == model) for m in launches},
+              f"packed {label} {method}: launches {launches} for {frames} frames")
+        for o in outs:
+            check(tuple(o.image.shape) == (HEIGHT, WIDTH, 3), f"packed {label} image shape")
+            check(bool(torch.isfinite(o.image).all()), f"non-finite packed {label} image")
+            check(bool(((o.transmittance >= 0) & (o.transmittance <= 1)).all()),
+                  f"packed {label} transmittance outside [0, 1]")
+            check(method == "pairs" or not bool(o.overflow),
+                  f"a packed {label} bucket frame overflowed at the headline caps")
+        o0 = outs[0]
+        del outs
+        again = render(prepared, jitter(cam, 0), cfg)
+        f32 = render(prepared, jitter(cam, 0), f32_cfg)
+        torch.cuda.synchronize()
+        bit_equal = all(torch.equal(getattr(again, f), getattr(o0, f))
+                        for f in ("image", "transmittance", "depth", "splat_id"))
+        log(f"packed {label} {method} frame: overflow={bool(o0.overflow)} num_pairs="
+            f"{int(o0.num_pairs)} covered_frac={(o0.transmittance < 0.5).float().mean().item():.4f}"
+            f" repeat bit-equal: {bit_equal}")
+        check(bit_equal, f"repeat packed {label} {method} render differs")
+        packed_vs_f32(f"1080p/1M {label} {method}", o0, f32)
+        del again, f32, o0
+        # ---- the kernel against its twin, its cull, its bound
+        stages, c = frame_stages_of(prepared, cam, cfg)
+        run_stages(stages)
+        st, pix = blend_st(c, cfg), c["pix"]
+        if method == "pairs" and label != "3dgrt":
+            check_packed_rows(f"1080p/1M {label}", prepared, c["proj"], cfg)
+        err = compare_packed_kernel(f"{name} vs twin on all 1080p {label} tiles", c, cfg)
+        n_tiles = st.tiles_x * st.tiles_y
+        rows = MODELS[model].rows
+        rays = 0 if pix is None else n_tiles * tr.PIX * 6 * 4
+        out_bytes = n_tiles * tr.PIX * (tr.OUT_ROWS * 4 + 4) + rays
+        if method == "bucket":
+            tiles = sample_bucket_tiles(c["bins"], st, dev, seed)
+            err = max(err, compare_packed_kernel(f"{name} vs twin on {tiles.numel()} sampled "
+                                                 "1080p tiles", c, cfg, tiles))
+            parts = [rb.bucket_work(c["bins"].attrs.detach(), c["bins"].bucket_starts, st, caps,
+                                    tiles=t, pix_ctx=pix) for t in tile_batches(st, dev)]
+            work = rb.BucketWork(*(sum(p[i] for p in parts) for i in range(len(parts[0]))))
+            fwd_bytes = work.live * (rows * 4 + 4) + n_tiles * (12 * 4 + 12 * 4) + out_bytes
+            frame_bounds, text = bucket_bound(model, work, fwd_bytes, None, 0, n_tiles)
+            log(f"bound 1080p/1M packed {label} bucket: live_candidates={work.live} "
+                f"pixel_lane_evaluations={work.evals} kept_lane_evaluations={work.kept_evals} "
+                f"hits={work.hits} {text}")
+            kept = check_cull(f"packed {label}", work, blend_of(c, cfg)[0], None, model,
+                              c["bins"], st, caps, tile_batches(st, dev), pix)
+            kept_share = kept / work.live
+        else:
+            batches = tile_batches(st, dev)
+            blend_of(c, cfg)[0]()  # the kept counter of a launch on this frame
+            work, kept = check_warp_cull(f"packed {label} {name}", c["bins"], st, batches, pix)
+            n_pairs = int(c["bins"].num_pairs)
+            fwd_bytes = n_pairs * (rows * 4 + 4) + n_tiles * 8 + out_bytes
+            bound, text = warp_cull_bound(name, work, fwd_bytes, n_tiles)
+            frame_bounds = {name: bound}
+            log(f"bound 1080p/1M packed {label} pairs: live_pairs={n_pairs} "
+                f"pixel_pair_evaluations={work[0]} kept_evaluations={work[4]} hits={work[1]} "
+                + text)
+            kept_share = kept / (tr.WARPS * work[2])
+        if label == "3dgrt":  # K1gp again, at 3DGRT's order and cutoffs: its gates, no entry
+            entries[name]["max_abs_err"] = max(entries[name]["max_abs_err"], err)
+            del stages, c
+            continue
+        bounds.update(frame_bounds)
+        t_plain = median(time_ms(lambda: gut_twin(c, cfg), 1, warmup=1))
+        del stages, c
+        t_blend, t_alone = packed_timings(label, prepared, cam, cfg, f32_cfg, card, method)
+        log(f"timing {name} 1080p/1M ({card}): kernel_ms={t_blend:.4f} alone_ms={t_alone:.4f} "
+            f"plain_twin_ms={t_plain:.4f}")
+        entries[name] = dict(launches=launches[model], max_abs_err=err, ms=t_blend,
+                             plain_ms=t_plain, kept_share=kept_share, alone_ms=t_alone)
+    return entries, bounds
+
+
 def bit_equal(label: str, got: torch.Tensor, want: torch.Tensor) -> float:
     """Max abs difference of a probe kernel's output against its twin's, 0:
     fails unless they are equal bit for bit, NaN keys included (the probes
@@ -2249,6 +2588,13 @@ def main() -> int:
     results.update(gut_bwd)
     bounds.update(gut_bounds_)
     bounds.update(gut_bwd_bounds)
+
+    golden_packed_errs = golden_packed(dev)
+    packed_entries, packed_bounds = packed_full_size(dev, card, truth.prepare(), caps, seed=0)
+    for name, err in golden_packed_errs.items():
+        packed_entries[name]["max_abs_err"] = max(packed_entries[name]["max_abs_err"], err)
+    results.update(packed_entries)
+    bounds.update(packed_bounds)
     probe_entries, probe_bounds, library = probes(dev, card)
     results.update(probe_entries)
     bounds.update(probe_bounds)

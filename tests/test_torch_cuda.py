@@ -45,6 +45,7 @@ twin bit for bit.
 """
 
 import dataclasses
+import os
 
 import numpy as np
 import pytest
@@ -998,6 +999,163 @@ def test_gut3d_pair_fwd_kernel_culls_exactly(cuda, degree, camera, chunk):
     torch.cuda.synchronize()
     assert torch.equal(out_k, again) and torch.equal(id_k, again_id)
     assert int(tr.rasterize_tiles.kept_gut3d) == kept
+
+
+# ---- the packed tier: K1 and K3 for gs2dp and gut3dp (forward only) -----
+#
+# Each packed kernel against its twin (the f32 twin after ops/response
+# unpack_rows) on the golden scene and on an adversarial one: mixed scales
+# exp(-5 .. 0.5) and splats whose packed words are f32 subnormals (a red or
+# blue of 0, a quaternion x or z of 0: the word's high bf16 half is +-0), at
+# K1's and K3's gates (gut3dp: the flip-aware gut3d gates); the kept count
+# equal to the plain predicate's, no culled (warp, pair) or lane that hits;
+# repeats bit-equal; the packed launch counter, and no other, up by one per
+# launch. Through ``render``: one packed launch per frame, packed rows made
+# on the card bit-equal to those made on the CPU from the same f32 rows, and
+# a backward that raises NotImplementedError.
+
+from vk_gaussian_splatting_tpu_torch.io import load_ply  # noqa: E402
+from vk_gaussian_splatting_tpu_torch.ops.bucket_grid import (  # noqa: E402
+    BucketGridSpec,
+    fit_caps,
+    measure_required_caps,
+)
+from vk_gaussian_splatting_tpu_torch.ops.response import pack_rows  # noqa: E402
+from vk_gaussian_splatting_tpu_torch.render.pipelines import (  # noqa: E402
+    gs_attr_rows_packed,
+    gut_bin,
+)
+
+GOLDEN_PLY = os.path.join(os.path.dirname(__file__), "..", "assets", "golden",
+                          "golden_scene.ply")
+PACKED_MODELS = {"gs2dp": gt.Pipeline.MESH, "gut3dp": gt.Pipeline.MESH_3DGUT}
+
+
+def adversarial_arrays(seed=3, n=3000):
+    """Mixed scales, and a third of the splats with packed words that are
+    f32 subnormals: red or blue clamped to 0, quaternion x or z 0."""
+    d = interop.random_splat_arrays(seed, n, sh_degree=1, scale_range=(-5.0, 0.5))
+    d["sh_dc"][0::3, 0] = -6.0
+    d["sh_dc"][1::3, 2] = -6.0
+    d["sh_rest"][0::3, :, 0] = 0.0
+    d["sh_rest"][1::3, :, 2] = 0.0
+    d["quats"][0::4, 1] = 0.0
+    d["quats"][1::4, 3] = 0.0
+    return d
+
+
+def packed_setup(device, model, method, scene, w=128, h=96):
+    """(cfg, prepared, camera) of a packed frame on ``device``: the golden
+    scene (SH 0) or ``adversarial_arrays``; bucket caps fitted to the frame."""
+    if scene == "golden":
+        prep = load_ply(GOLDEN_PLY, device=device).prepare()
+        cam = gt.look_at([0, -1.5, -7.0], [0, 0.5, 0], [0, 1, 0], w, h, fov_y_rad=0.9,
+                         device=device)
+        sh = 0
+    else:
+        prep = interop.splat_set_from_numpy(adversarial_arrays(), device).prepare()
+        cam = gt.look_at([0.2, -0.3, -9.0], [0, 0, 0], [0, 1, 0], w, h, fov_y_rad=0.9,
+                         device=device)
+        sh = 1
+    cfg = gt.RenderConfig(width=w, height=h, sh_degree=sh, pipeline=PACKED_MODELS[model],
+                          raster=gt.RasterConfig(method=method, pair_format="packed"))
+    if method == "bucket":
+        spec = BucketGridSpec.build(-(-w // 16), -(-h // 16))
+        proj = (ut_project_splats if model == "gut3dp" else project_splats)(prep, cam, cfg)
+        caps = fit_caps(measure_required_caps(proj, spec))
+        cfg = cfg.replace(raster=dataclasses.replace(cfg.raster, bucket_caps=caps))
+    return cfg, prep, cam
+
+
+def packed_bins(cfg, prep, cam):
+    """(bins, blend statics, caps, pixel context) of ``packed_setup``'s frame,
+    as render() makes them."""
+    if cfg.pipeline == gt.Pipeline.MESH_3DGUT:
+        bins, st = gut_bin(prep, ut_project_splats(prep, cam, cfg), cam, cfg)
+        pix = build_tile_rays(cam, cfg)
+    else:
+        proj = project_splats(prep, cam, cfg)
+        rows, ids = gs_attr_rows_packed(proj)
+        st = raster_statics(cfg)
+        bins = bin_for_cfg(proj, rows, ids, cfg, 0, st)
+        pix = None
+    if cfg.raster.method == "bucket":
+        st = dataclasses.replace(st, chunk=cfg.raster.bucket_chunk)
+    return bins, st, cfg.raster.bucket_caps, pix
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scene", ["golden", "adversarial"])
+@pytest.mark.parametrize("model, method", [("gs2dp", "pairs"), ("gs2dp", "bucket"),
+                                           ("gut3dp", "pairs"), ("gut3dp", "bucket")])
+def test_packed_kernels_match_twins(cuda, model, method, scene):
+    bins, st, caps, pix = packed_bins(*packed_setup(cuda, model, method, scene))
+    assert st.model == model and not bool(bins.overflow) or method == "pairs"
+    bucket = method == "bucket"
+    fwd = rb.rasterize_buckets if bucket else tr.rasterize_tiles
+    before = {m: getattr(fwd, tr.LAUNCH_COUNTER[m]) for m in tr.LAUNCH_COUNTER}
+    out_k, id_k = gut_fwd(bins, st, caps, pix)
+    kept = int(getattr(fwd, tr.KEPT_COUNTER[model]))
+    again, again_id = gut_fwd(bins, st, caps, pix)
+    out_r, id_r = gut_fwd(bins, st, caps, pix, twin=True)
+    torch.cuda.synchronize()
+    after = {m: getattr(fwd, tr.LAUNCH_COUNTER[m]) for m in tr.LAUNCH_COUNTER}
+    assert after == {m: before[m] + 2 * (m == model) for m in before}
+    assert torch.equal(out_k, again) and torch.equal(id_k, again_id)
+    assert int(getattr(fwd, tr.KEPT_COUNTER[model])) == kept
+    if model == "gs2dp":
+        assert (out_k[:, :4] - out_r[:, :4]).abs().max().item() <= ATOL
+        same = id_k == id_r
+        assert same.float().mean().item() >= ID_AGREE
+        assert torch.equal(out_k[:, 4][same], out_r[:, 4][same])
+    else:
+        assert_gut_fwd_matches(out_k, id_k, out_r, id_r)
+    assert out_k[:, 3].min().item() < 1e-3  # opaque pixels
+    if bucket:
+        work = rb.bucket_work(bins.attrs, bins.bucket_starts, st, caps, pix_ctx=pix)
+        assert kept == work.kept and 0 < kept < work.live, (kept, work)
+        may = rb.tile_may_hit(bins.attrs, bins.bucket_starts, st, caps, pix_ctx=pix)
+        hits = rb.tile_lane_hits(bins.attrs, bins.bucket_starts, st, caps, pix_ctx=pix)
+        assert int((hits & ~may).sum()) == 0
+    else:
+        assert_warp_kept_matches_plain(bins, st, model, pix)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model, method", [("gs2dp", "pairs"), ("gs2dp", "bucket"),
+                                           ("gut3dp", "pairs"), ("gut3dp", "bucket")])
+def test_packed_render_on_card_launches_once_and_refuses_backward(cuda, model, method):
+    cfg, _, cam = packed_setup(cuda, model, method, "adversarial", w=120, h=90)
+    splats = interop.splat_set_from_numpy(adversarial_arrays(), cuda)
+    for f in interop.SPLAT_FIELDS:
+        getattr(splats, f).requires_grad_()
+    fwd = rb.rasterize_buckets if method == "bucket" else tr.rasterize_tiles
+    before = {m: getattr(fwd, tr.LAUNCH_COUNTER[m]) for m in tr.LAUNCH_COUNTER}
+    out = render(splats.prepare(), cam, cfg)
+    torch.cuda.synchronize()
+    after = {m: getattr(fwd, tr.LAUNCH_COUNTER[m]) for m in tr.LAUNCH_COUNTER}
+    assert after == {m: before[m] + (m == model) for m in before}
+    assert torch.isfinite(out.image).all() and float(out.transmittance.min()) < 0.5
+    with pytest.raises(NotImplementedError, match="forward-only"):
+        out.image.sum().backward()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model", list(PACKED_MODELS))
+def test_packed_rows_on_card_equal_cpu_rows(cuda, model):
+    """The same f32 rows packed on the card and on the CPU
+    (``ops/response.pack_rows``): bit-equal words (bf16 rounding to nearest
+    even and the u16 round half to even on both), the subnormal words of
+    the adversarial scene included."""
+    cfg, prep, cam = packed_setup(cuda, model, "pairs", "adversarial")
+    if model == "gut3dp":
+        rows = gut_attr_rows(prep, ut_project_splats(prep, cam, cfg), cfg)[0].detach()
+    else:
+        rows = gs_attr_rows(project_splats(prep, cam, cfg))[0].detach()
+    words = [pack_rows(model, r).cpu().view(torch.int32) for r in (rows, rows.cpu())]
+    assert torch.equal(words[0], words[1])
+    high = words[1] & -65536
+    assert int(((high == 0) | (high == -2**31)).sum()) > 100  # subnormal words were there
 
 
 # ---- the probes P1-P3: bitonic sort (csrc/bench_roll.cu), sort stages

@@ -20,7 +20,9 @@ import pytest
 import torch
 
 import vk_gaussian_splatting_tpu.config as jc
+from vk_gaussian_splatting_tpu.render.pipelines import render_3dgrt as j_grt
 from vk_gaussian_splatting_tpu.render.pipelines import render_3dgs as j_render
+from vk_gaussian_splatting_tpu.render.pipelines import render_3dgut as j_gut
 from vk_gaussian_splatting_tpu.scene import cameras as jcam
 from vk_gaussian_splatting_tpu.scene import splat_set as jss
 import vk_gaussian_splatting_tpu_torch as gt
@@ -125,29 +127,27 @@ def test_repeat_render_is_bit_equal():
 
 
 # MESH_3DGUT and RTX render now (tests/test_torch_gut.py), and so does a
-# fisheye camera_type on 3DGS (pinhole EWA, as in the JAX package); what
-# those pipelines still refuse stands under their old names
+# fisheye camera_type on 3DGS (pinhole EWA, as in the JAX package), and the
+# packed tier (tests/test_torch_packed.py; its four cases below); what those
+# pipelines still refuse stands under their old names
 UNPORTED = {
-    "bucket_packed": dict(raster=tc.RasterConfig(method="bucket", pair_format="packed")),
     "stochastic": dict(stochastic=tc.StochasticMode.SPLAT),
     "temporal": dict(temporal_samples=2),
-    "packed": dict(raster=tc.RasterConfig(pair_format="packed")),
     "atrous": dict(denoise="atrous"),
     "fisheye": dict(pipeline=tc.Pipeline.HYBRID_3DGUT, camera_type=tc.CameraType.FISHEYE),
-    "rtx": dict(pipeline=tc.Pipeline.RTX, raster=tc.RasterConfig(pair_format="packed")),
     "gut": dict(pipeline=tc.Pipeline.MESH_3DGUT, stochastic=tc.StochasticMode.SPLAT),
-    "gut_bucket_packed": dict(pipeline=tc.Pipeline.MESH_3DGUT, raster=tc.RasterConfig(
-        method="bucket", pair_format="packed")),
     "gut_atrous": dict(pipeline=tc.Pipeline.MESH_3DGUT, denoise="atrous"),
     "rtx_stochastic": dict(pipeline=tc.Pipeline.RTX, stochastic=tc.StochasticMode.ANYHIT),
     "hybrid": dict(pipeline=tc.Pipeline.HYBRID),
     "hybrid_gut": dict(pipeline=tc.Pipeline.HYBRID_3DGUT),
 }
 
+TINY = (6, 50)  # scene seed and splats of the 32x32 probes
+
 
 @pytest.fixture(scope="module")
 def tiny():
-    d = interop.random_splat_arrays(6, 50, sh_degree=0)
+    d = interop.random_splat_arrays(*TINY, sh_degree=0)
     cam = gt.look_at([0, 0, -9.0], [0, 0, 0], [0, 1, 0], 32, 32, device="cpu")
     return interop.splat_set_from_numpy(d, "cpu").prepare(), cam
 
@@ -158,6 +158,43 @@ def test_unported_config_raises(tiny, name):
     cfg = tc.RenderConfig(width=32, height=32, **UNPORTED[name])
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
         render(prep, cam, cfg)
+
+
+# the former UNPORTED cases of the packed tier: (pipeline, raster method)
+PACKED = {
+    "bucket_packed": ("MESH", "bucket"),
+    "packed": ("MESH", "pairs"),
+    "rtx": ("RTX", "pairs"),
+    "gut_bucket_packed": ("MESH_3DGUT", "bucket"),
+}
+
+
+@pytest.mark.parametrize("name", list(PACKED))
+def test_packed_config_renders_and_matches_jax(tiny, name):
+    """Each config renders on the CPU and matches the JAX package's packed
+    frame: 3DGS at this file's tolerances, the gut3d frames at the
+    flip-aware gates of tests/test_torch_gut.py (>= 99.9 % of channels
+    within 5e-5, none beyond 1.2e-2); ids >= 99.9 %."""
+    prep, cam = tiny
+    pipeline, method = PACKED[name]
+    kw = dict(width=32, height=32)
+    cj = jc.RenderConfig(**kw, pipeline=jc.Pipeline[pipeline], raster=jc.RasterConfig(
+        method=method, pair_format="packed"))
+    ct = tc.RenderConfig(**kw, pipeline=tc.Pipeline[pipeline], raster=tc.RasterConfig(
+        method=method, pair_format="packed"))
+    d = interop.random_splat_arrays(*TINY, sh_degree=0)
+    sj = jss.SplatSet(**{k: jnp.asarray(v) for k, v in d.items()}).prepare()
+    fn = {"MESH": j_render, "RTX": j_grt, "MESH_3DGUT": j_gut}[pipeline]
+    oj = fn(sj, jcam.make_camera(**interop.camera_to_numpy(cam)), cj)
+    ot = render(prep, cam, ct)
+    assert float(ot.transmittance.min()) < 0.5  # the scene covers pixels
+    assert bool(oj.overflow) == bool(ot.overflow)
+    diff = np.abs(ot.image.numpy() - np.asarray(oj.image))
+    if pipeline == "MESH":
+        assert diff.max() <= IMG_ATOL, diff.max()
+    else:
+        assert (diff <= IMG_ATOL).mean() >= ID_AGREE and diff.max() <= 1.2e-2, diff.max()
+    assert (ot.splat_id.numpy() == np.asarray(oj.splat_id)).mean() >= ID_AGREE
 
 
 def test_host_order_raises(tiny):

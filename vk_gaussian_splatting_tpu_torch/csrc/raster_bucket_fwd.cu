@@ -1,5 +1,5 @@
 // Bucket-grid tile rasterizer, forward, for the gs2d and gut3d response
-// models: K3.
+// models and their packed forms gs2dp and gut3dp: K3.
 //
 // Replaces the Pallas kernel raster_bucket._make_kernel
 // (vk_gaussian_splatting_tpu/ops/raster_bucket.py:469). It computes what
@@ -9,7 +9,9 @@
 // and keeps the two things the outputs depend on exactly: the capacity
 // accounting with its 128-alignment head and the freeze positions
 // (csrc/raster_bucket.cuh). The model is a template parameter
-// (csrc/response.cuh); one C entry point per model.
+// (csrc/response.cuh); one C entry point per model. A packed model merges
+// on its exact sort-depth row and stages fewer words per lane (gs2dp 6-7
+// instead of 9-10, gut3dp 9-10 instead of 14-15) into the same slots.
 //
 // Design: one thread block per 16x16 tile, one thread per pixel.
 // 1. Thread 0 reads the tile's six window spans from bucket_starts.
@@ -210,10 +212,18 @@ extern "C" int raster_bucket_fwd_smem(int c_total, int chunk) {
 extern "C" int raster_bucket_fwd_gut3d_smem(int c_total, int chunk) {
   return smem_of<response::Gut3d>(c_total, chunk);
 }
+extern "C" int raster_bucket_fwd_gs2dp_smem(int c_total, int chunk) {
+  return smem_of<response::Gs2dp>(c_total, chunk);
+}
+extern "C" int raster_bucket_fwd_gut3dp_smem(int c_total, int chunk) {
+  return smem_of<response::Gut3dp>(c_total, chunk);
+}
 
 // The most dynamic shared memory a block may take on the current device.
 extern "C" int raster_bucket_fwd_smem_limit() { return smem_limit_of<response::Gs2d>(); }
 extern "C" int raster_bucket_fwd_gut3d_smem_limit() { return smem_limit_of<response::Gut3d>(); }
+extern "C" int raster_bucket_fwd_gs2dp_smem_limit() { return smem_limit_of<response::Gs2dp>(); }
+extern "C" int raster_bucket_fwd_gut3dp_smem_limit() { return smem_limit_of<response::Gut3dp>(); }
 
 // Launch one block per tile on `stream`; return cudaGetLastError(). gs2d
 // reads no pixel context (pix_ctx may be null); gut3d reads the (T, 8, 256)
@@ -238,4 +248,15 @@ extern "C" int raster_bucket_fwd(RASTER_BUCKET_FWD_PARAMS) {
 extern "C" int raster_bucket_fwd_gut3d(RASTER_BUCKET_FWD_PARAMS) {
   if (pix_ctx == nullptr) return (int)cudaErrorInvalidValue;
   return launch<response::Gut3d>(RASTER_BUCKET_FWD_ARGS);
+}
+
+// The packed tier (forward only): gs2dp's 7 rows, gut3dp's 10.
+extern "C" int raster_bucket_fwd_gs2dp(RASTER_BUCKET_FWD_PARAMS) {
+  pix_ctx = nullptr;
+  return launch<response::Gs2dp>(RASTER_BUCKET_FWD_ARGS);
+}
+
+extern "C" int raster_bucket_fwd_gut3dp(RASTER_BUCKET_FWD_PARAMS) {
+  if (pix_ctx == nullptr) return (int)cudaErrorInvalidValue;
+  return launch<response::Gut3dp>(RASTER_BUCKET_FWD_ARGS);
 }

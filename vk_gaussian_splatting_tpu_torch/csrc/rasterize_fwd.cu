@@ -1,5 +1,5 @@
-// Pair-list tile blender, forward, for the gs2d and gut3d response models:
-// K1.
+// Pair-list tile blender, forward, for the gs2d and gut3d response models
+// and their packed forms gs2dp and gut3dp: K1.
 //
 // Replaces the Pallas kernel rasterize_pallas._make_fwd_kernel
 // (vk_gaussian_splatting_tpu/ops/rasterize_pallas.py:202) on the 3DGS,
@@ -8,7 +8,9 @@
 // a packed schedule, 128-lane DMA blocks, a log-shift transmittance scan,
 // the gut3d pixel context DMA'd and transposed per tile), which exists for
 // the TPU. The model is a template parameter (csrc/response.cuh); one C
-// entry point per model.
+// entry point per model. A packed model changes only what a lane's staging
+// reads (gs2dp 6-7 words instead of 9-10, gut3dp 9-10 instead of 14-15) and
+// unpacks into the same slots; the kernels are the same code.
 //
 // Design: two launches, each one thread block per 16x16 tile with one
 // thread per pixel and the block's eight warps each on an 8x4 block of the
@@ -277,4 +279,15 @@ extern "C" int rasterize_fwd(RASTERIZE_FWD_PARAMS) {
 extern "C" int rasterize_fwd_gut3d(RASTERIZE_FWD_PARAMS) {
   if (pix_ctx == nullptr) return (int)cudaErrorInvalidValue;
   return launch<response::Gut3d>(RASTERIZE_FWD_ARGS);
+}
+
+// The packed tier (forward only): gs2dp's 7 rows, gut3dp's 10.
+extern "C" int rasterize_fwd_gs2dp(RASTERIZE_FWD_PARAMS) {
+  pix_ctx = nullptr;
+  return launch<response::Gs2dp>(RASTERIZE_FWD_ARGS);
+}
+
+extern "C" int rasterize_fwd_gut3dp(RASTERIZE_FWD_PARAMS) {
+  if (pix_ctx == nullptr) return (int)cudaErrorInvalidValue;
+  return launch<response::Gut3dp>(RASTERIZE_FWD_ARGS);
 }

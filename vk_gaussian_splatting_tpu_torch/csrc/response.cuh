@@ -33,6 +33,13 @@
 //   dh = dc rsqrt(|dc|^2 + 1e-30), D = |dh x oc|^2,
 //   resp = K_degree(D), a_raw = opacity resp,
 //   kept where a_raw > alpha_min and resp > kernel_min_response.
+// gs2dp and gut3dp, the packed tier (forward only; ops/response.py): the
+// same two models on fewer rows, most attributes as two bf16 halves of an
+// f32 word and opacity as 16-bit fixed point beside bf16 blue. Each is its
+// parent with its own ROWS, DEPTH_ROW (the exact f32 sort depth) and
+// staging, which reads the packed words and unpacks them into the parent's
+// slots by mask, shift and bitcast (gut3dp renormalising the quaternion as
+// the twin does); eval, the bounds, reach and reach_hits are the parent's.
 // Built without fast math and with -fmad=false (ops/_build.py): expf,
 // sqrtf, rsqrtf and IEEE division, each operation rounded where the twin
 // rounds it (constants are the twin's Python doubles cast to float), so a
@@ -124,6 +131,18 @@ __device__ inline Pixel load_pixel(int t, int tiles_x, int i, const float* __res
     p.o[k] = c == nullptr ? 0.0f : c[(3 + k) * PIX];
   }
   return p;
+}
+
+// The packed tier's words (ops/response.py unpack2bf16, unpack_bf16_u16):
+// the high bf16 half by a mask, the low one by a shift, the 16-bit fixed
+// point as u16 * f32(1/65535). Nothing touches a word before this but
+// moves: a word whose high half is +-0 is an f32 subnormal.
+__device__ inline float bf16_hi(float w) {
+  return __uint_as_float(__float_as_uint(w) & 0xFFFF0000u);
+}
+__device__ inline float bf16_lo(float w) { return __uint_as_float(__float_as_uint(w) << 16); }
+__device__ inline float u16_lo(float w) {
+  return (float)(__float_as_uint(w) & 0xFFFFu) * static_cast<float>(1.0 / 65535.0);
 }
 
 struct Gs2d {
@@ -256,6 +275,44 @@ struct Gs2d {
   }
 };
 
+// gs2d on the packed rows 0 x, 1 y, 2 (a, b), 3 (c, depth), 4 (r, g), 5
+// (b, opacity u16), 6 the sort depth: 6 words staged for gs2d's 9 backward
+// slots, 7 for its 10 forward ones.
+struct Gs2dp : Gs2d {
+  static constexpr int ROWS = 7;
+  static constexpr int DEPTH_ROW = 6;
+
+  // gs2d's slots 0-8 from the packed words
+  __device__ static void unpack(const float* __restrict__ attrs, long long stride, long long col,
+                                float* v) {
+    const float ab = attrs[2 * stride + col], cd = attrs[3 * stride + col];
+    const float rg = attrs[4 * stride + col], bo = attrs[5 * stride + col];
+    v[0] = attrs[col];
+    v[1] = attrs[stride + col];
+    v[2] = bf16_hi(ab);
+    v[3] = bf16_lo(ab);
+    v[4] = bf16_hi(cd);
+    v[5] = u16_lo(bo);
+    v[6] = bf16_hi(rg);
+    v[7] = bf16_lo(rg);
+    v[8] = bf16_hi(bo);
+  }
+
+  __device__ static void stage_fwd(const float* __restrict__ attrs, long long stride,
+                                   long long col, float* s, int ss, int j) {
+    stage_bwd(attrs, stride, col, s, ss, j);
+    s[DEPTH_SLOT * ss + j] = attrs[DEPTH_ROW * stride + col];
+  }
+
+  __device__ static void stage_bwd(const float* __restrict__ attrs, long long stride,
+                                   long long col, float* s, int ss, int j) {
+    float v[BWD_SLOTS];
+    unpack(attrs, stride, col, v);
+    #pragma unroll
+    for (int r = 0; r < BWD_SLOTS; ++r) s[r * ss + j] = v[r];
+  }
+};
+
 // The generalized Gaussian of degree n (threedgrt.h.slang:83-127) and its
 // slope dK/dD (where the degree-0 kernel is above its floor, as the cutoff
 // resp > min_response >= 0 ensures).
@@ -320,41 +377,63 @@ struct Gut3d {
     r[8] = 1.0f - 2.0f * (qx * qx + qy * qy);
   }
 
-  // slots 0-18, common to both directions
-  __device__ static void stage_common(const float* __restrict__ attrs, long long stride,
-                                      long long col, float* s, int ss, int j) {
+  // A lane's values as the twin's f32 rows hold them.
+  struct Lane {
+    float p[3], sc[3], rgb[3], q[4], op;
+  };
+
+  __device__ static Lane lane_of(const float* __restrict__ attrs, long long stride,
+                                 long long col) {
+    Lane l;
     #pragma unroll
     for (int k = 0; k < 3; ++k) {
-      s[(S_POS + k) * ss + j] = attrs[k * stride + col];
-      s[(S_INV + k) * ss + j] =
-          1.0f / fmaxf(attrs[(R_SCALE + k) * stride + col], static_cast<float>(1e-12));
-      s[(6 + k) * ss + j] = attrs[(6 + k) * stride + col];
+      l.p[k] = attrs[k * stride + col];
+      l.sc[k] = attrs[(R_SCALE + k) * stride + col];
+      l.rgb[k] = attrs[(6 + k) * stride + col];
+    }
+    #pragma unroll
+    for (int k = 0; k < 4; ++k) l.q[k] = attrs[(R_QUAT + k) * stride + col];
+    l.op = attrs[R_OPACITY * stride + col];
+    return l;
+  }
+
+  // slots 0-18, common to both directions
+  __device__ static void put_common(const Lane& l, float* s, int ss, int j) {
+    #pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      s[(S_POS + k) * ss + j] = l.p[k];
+      s[(S_INV + k) * ss + j] = 1.0f / fmaxf(l.sc[k], static_cast<float>(1e-12));
+      s[(6 + k) * ss + j] = l.rgb[k];
     }
     float r[9];
-    rotation(attrs[R_QUAT * stride + col], attrs[(R_QUAT + 1) * stride + col],
-             attrs[(R_QUAT + 2) * stride + col], attrs[(R_QUAT + 3) * stride + col], r);
+    rotation(l.q[0], l.q[1], l.q[2], l.q[3], r);
     #pragma unroll
     for (int k = 0; k < 9; ++k) s[(S_R + k) * ss + j] = r[k];
-    s[S_OP * ss + j] = attrs[R_OPACITY * stride + col];
+    s[S_OP * ss + j] = l.op;
+  }
+
+  // the backward's slots 19-25: q and the scale chain factor
+  __device__ static void put_bwd(const Lane& l, float* s, int ss, int j) {
+    #pragma unroll
+    for (int k = 0; k < 4; ++k) s[(S_Q + k) * ss + j] = l.q[k];
+    #pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      const float inv = s[(S_INV + k) * ss + j];
+      s[(S_DS + k) * ss + j] = l.sc[k] > static_cast<float>(1e-12) ? -(inv * inv) : 0.0f;
+    }
   }
 
   __device__ static void stage_fwd(const float* __restrict__ attrs, long long stride,
                                    long long col, float* s, int ss, int j) {
-    stage_common(attrs, stride, col, s, ss, j);
+    put_common(lane_of(attrs, stride, col), s, ss, j);
     s[DEPTH_SLOT * ss + j] = attrs[DEPTH_ROW * stride + col];
   }
 
   __device__ static void stage_bwd(const float* __restrict__ attrs, long long stride,
                                    long long col, float* s, int ss, int j) {
-    stage_common(attrs, stride, col, s, ss, j);
-    #pragma unroll
-    for (int k = 0; k < 4; ++k) s[(S_Q + k) * ss + j] = attrs[(R_QUAT + k) * stride + col];
-    #pragma unroll
-    for (int k = 0; k < 3; ++k) {
-      const float inv = s[(S_INV + k) * ss + j];
-      s[(S_DS + k) * ss + j] =
-          attrs[(R_SCALE + k) * stride + col] > static_cast<float>(1e-12) ? -(inv * inv) : 0.0f;
-    }
+    const Lane l = lane_of(attrs, stride, col);
+    put_common(l, s, ss, j);
+    put_bwd(l, s, ss, j);
   }
 
   __device__ static float rot(const float* s, int ss, int j, int i, int c) {
@@ -644,6 +723,53 @@ struct Gut3d {
   __device__ static bool may_hit(const float* s, int ss, int j, const TileBound& b,
                                  const Params& prm) {
     return reach_hits(reach(s, ss, j, prm), b);
+  }
+};
+
+// gut3d on the packed rows 0-2 position, 3 (sx, sy), 4 (sz, qw), 5 (qx, qy),
+// 6 (qz, depth), 7 (r, g), 8 (b, opacity u16), 9 the sort depth: 9 words
+// staged for gut3d's 26 backward slots, 10 for its 20 forward ones. The
+// unpacked quaternion is renormalised, q rsqrt(qw^2 + qx^2 + qy^2 + qz^2 +
+// 1e-30), the twin's torch.rsqrt in its order of sums, before rotation.
+struct Gut3dp : Gut3d {
+  static constexpr int ROWS = 10;
+  static constexpr int DEPTH_ROW = 9;
+
+  __device__ static Lane lane_of(const float* __restrict__ attrs, long long stride,
+                                 long long col) {
+    Lane l;
+    #pragma unroll
+    for (int k = 0; k < 3; ++k) l.p[k] = attrs[k * stride + col];
+    const float sxy = attrs[3 * stride + col], szw = attrs[4 * stride + col];
+    const float qxy = attrs[5 * stride + col], qzd = attrs[6 * stride + col];
+    const float rg = attrs[7 * stride + col], bo = attrs[8 * stride + col];
+    l.sc[0] = bf16_hi(sxy);
+    l.sc[1] = bf16_lo(sxy);
+    l.sc[2] = bf16_hi(szw);
+    const float qw = bf16_lo(szw), qx = bf16_hi(qxy), qy = bf16_lo(qxy), qz = bf16_hi(qzd);
+    const float qn = rsqrtf(qw * qw + qx * qx + qy * qy + qz * qz + static_cast<float>(1e-30));
+    l.q[0] = qw * qn;
+    l.q[1] = qx * qn;
+    l.q[2] = qy * qn;
+    l.q[3] = qz * qn;
+    l.rgb[0] = bf16_hi(rg);
+    l.rgb[1] = bf16_lo(rg);
+    l.rgb[2] = bf16_hi(bo);
+    l.op = u16_lo(bo);
+    return l;
+  }
+
+  __device__ static void stage_fwd(const float* __restrict__ attrs, long long stride,
+                                   long long col, float* s, int ss, int j) {
+    put_common(lane_of(attrs, stride, col), s, ss, j);
+    s[DEPTH_SLOT * ss + j] = attrs[DEPTH_ROW * stride + col];
+  }
+
+  __device__ static void stage_bwd(const float* __restrict__ attrs, long long stride,
+                                   long long col, float* s, int ss, int j) {
+    const Lane l = lane_of(attrs, stride, col);
+    put_common(l, s, ss, j);
+    put_bwd(l, s, ss, j);
   }
 };
 

@@ -256,7 +256,9 @@ def bin_splats(proj: ProjectedSplats, rows: torch.Tensor, ids: torch.Tensor, *,
 
     rows: (R, N) f32 per-splat attribute rows, differentiable in their
     first ``grad_rows`` rows (the gather's backward is sort-based, see the
-    module docstring); ids: (N,) i32 splat ids. max_pairs: the pair budget
+    module docstring; the response model's ``Model.grad_rows``, 0 for
+    packed rows, whose words the gather only moves); ids: (N,) i32 splat
+    ids. max_pairs: the pair budget
     of the exact expansion (unused by slots). sort_depth: (N,) a depth that
     replaces ``proj.depth`` in the sort key alone (3DGRT's radial distance,
     as the JAX ``bin_for_cfg``'s depth_override); the rows are not touched.

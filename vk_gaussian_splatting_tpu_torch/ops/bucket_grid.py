@@ -268,8 +268,9 @@ def bucket_splats(proj: ProjectedSplats, rows: torch.Tensor, ids: torch.Tensor, 
     """Bucket and depth-sort the splats for the bucket tile rasterizer.
 
     rows: (R, N) f32 per-splat attribute rows (ops/response.py), whose first
-    ``grad_rows`` get gradients through the sort-based backward; ids: (N,)
-    i32 splat ids. caps: per-class window-span capacities (fine, mid row,
+    ``grad_rows`` get gradients through the sort-based backward (the
+    model's ``Model.grad_rows``: 0 for packed rows, which are only moved);
+    ids: (N,) i32 splat ids. caps: per-class window-span capacities (fine, mid row,
     coarse row, global), which only decide ``overflow`` here. sort_depth:
     (N,) a depth that replaces ``proj.depth`` in the sort key (the JAX
     ``_bucket_impl``'s depth_override); the kernel merges on the model's

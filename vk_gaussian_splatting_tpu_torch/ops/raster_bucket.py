@@ -5,7 +5,8 @@ them.
 Counterpart of ``vk_gaussian_splatting_tpu/ops/raster_bucket.py``: K3
 (``_make_kernel``, :469) and K4 (``_make_bwd_kernel``, :927, with the slot
 reduction of ``_br_bwd``, :1367) for the gs2d and gut3d response models
-(``RasterStatics.model``). The CUDA kernels are ``csrc/raster_bucket_fwd.cu``
+(``RasterStatics.model``), and K3 for the packed models gs2dp and gut3dp,
+which are forward only. The CUDA kernels are ``csrc/raster_bucket_fwd.cu``
 and ``csrc/raster_bucket_bwd.cu``, one entry point per model in each; they
 share ``csrc/raster_bucket.cuh`` and ``csrc/response.cuh``.
 
@@ -58,6 +59,7 @@ from vk_gaussian_splatting_tpu_torch.ops.rasterize import (
     KEPT_COUNTER,
     OUT_ROWS,
     PIX,
+    TRAINED,
     RasterStatics,
     _check,
     _ptr,
@@ -70,8 +72,16 @@ from vk_gaussian_splatting_tpu_torch.ops.rasterize import (
     model_args,
     rasterize_tiles_bwd_ref,
     rasterize_tiles_ref,
+    zero_counters,
 )
-from vk_gaussian_splatting_tpu_torch.ops.response import alpha, may_hit, model_of, tile_bound
+from vk_gaussian_splatting_tpu_torch.ops.response import (
+    alpha,
+    may_hit,
+    model_of,
+    refuse_backward,
+    tile_bound,
+    unpack_rows,
+)
 
 MAX_BUCKET_CHUNK = 1024  # csrc/raster_bucket_{fwd,bwd}.cu stage at most this many lanes
 READER_SEGMENT = 64      # K4's reduce sums a shared column over at most this many tiles per pass
@@ -251,7 +261,7 @@ def _lanes_may_hit(attrs, lists: _TileLists, st: RasterStatics, tiles, pix_ctx):
     lane lies."""
     n = tiles.shape[0]
     cols = lists.cols.view(n, -1) if n else lists.cols.view(0, 0)
-    blk = attrs.detach()[:, cols.clamp(min=0)]                       # (rows, n, L)
+    blk = unpack_rows(st.model, attrs.detach()[:, cols.clamp(min=0)])  # (rows, n, L)
     may = may_hit(blk, tile_bound(st, tiles, pix_ctx), st)
     return (may & (cols >= 0)).flatten()
 
@@ -288,7 +298,7 @@ def tile_lane_hits(attrs: torch.Tensor, bucket_starts: torch.Tensor, st: RasterS
     hits = []
     for k in range(0, cols.shape[1], c):
         part = cols[:, k:k + c]
-        block = attrs.detach()[:, part.clamp(min=0)].permute(1, 0, 2)  # (n, rows, c)
+        block = unpack_rows(st.model, attrs.detach()[:, part.clamp(min=0)]).permute(1, 0, 2)
         hits.append((alpha(block, px, py, pix, (part >= 0)[:, None, :], st) > 0).any(dim=1))
     return torch.cat(hits, dim=1).flatten() if hits else lists.cols >= 0
 
@@ -405,7 +415,9 @@ def rasterize_buckets_bwd(attrs: torch.Tensor, bucket_starts: torch.Tensor,
     ``rasterize_buckets_bwd.kept`` (gs2d) or ``.kept_gut3d`` a one-element
     int32 tensor on the card: the (tile, lane) pairs it kept over the blend
     steps it entered (``BucketWork.kept``), to be read with ``int()``
-    after a synchronise."""
+    after a synchronise. A forward-only (packed) model raises
+    NotImplementedError."""
+    refuse_backward(st)
     caps = check_caps(caps)
     p = _check_inputs(attrs, bucket_starts, st, caps, ctx=ctx, pix_ctx=pix_ctx)
     dev = attrs.device
@@ -440,13 +452,13 @@ def rasterize_buckets_bwd(attrs: torch.Tensor, bucket_starts: torch.Tensor,
     return d_attrs
 
 
-rasterize_buckets_bwd.launches = rasterize_buckets_bwd.launches_gut3d = 0
-rasterize_buckets_bwd.kept = rasterize_buckets_bwd.kept_gut3d = 0
+zero_counters(rasterize_buckets_bwd, TRAINED)
 
 
 class _RasterizeBuckets(torch.autograd.Function):
     """The bucket blend with its backward kernel (raster_bucket.bucket_render's
-    custom VJP): K3 / K4 on CUDA tensors, the twins on CPU tensors."""
+    custom VJP): K3 / K4 on CUDA tensors, the twins on CPU tensors; the
+    backward of a packed model raises NotImplementedError."""
 
     @staticmethod
     def forward(ctx, attrs, ids, bucket_starts, pix_ctx, st, caps):
@@ -474,18 +486,18 @@ def rasterize_buckets(bins: BucketBins, st: RasterStatics, caps: tuple,
     context of gut3d (None for gs2d). Returns ((T, 5, 256) f32 rows r, g,
     b, T, depth; (T, 256) i32 ids), every tile written. CUDA tensors launch
     csrc/raster_bucket_fwd.cu's entry for the model and count one launch in
-    ``rasterize_buckets.launches`` (gs2d) or ``.launches_gut3d``; CPU
-    tensors run the plain twin. The kernel blends only the lanes its
+    ``rasterize_buckets.launches`` (gs2d), or the model's
+    ``LAUNCH_COUNTER`` (``.launches_gut3d``, ``.launches_gs2dp``,
+    ``.launches_gut3dp``); CPU tensors run the plain twin. The kernel blends only the lanes its
     per-tile cull keeps (``tile_may_hit``; the outputs are bit for bit the
     sweep over every lane) and leaves the kept count in
-    ``rasterize_buckets.kept`` or ``.kept_gut3d``, as
+    ``rasterize_buckets.kept`` or the model's ``KEPT_COUNTER``, as
     ``rasterize_buckets_bwd`` does. Gradients reach ``bins.attrs`` through
     rgb and T."""
     return _RasterizeBuckets.apply(bins.attrs, bins.ids, bins.bucket_starts, pix_ctx, st, caps)
 
 
-rasterize_buckets.launches = rasterize_buckets.launches_gut3d = 0
-rasterize_buckets.kept = rasterize_buckets.kept_gut3d = 0
+zero_counters(rasterize_buckets)
 
 _P, _L, _I, _F = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
 _MODEL = [_F, _F, _F, _F, _I]  # alpha_min, alpha_clamp, qmax, kernel_min_response, degree

@@ -7,7 +7,10 @@ Counterpart of ``vk_gaussian_splatting_tpu/ops/rasterize_pallas.py``: K1
 wrapped by ``_rt_bwd``, :599-633) for the gs2d and gut3d response models
 (``RasterStatics.model``, ops/response.py), and ``assemble_image``
 (:645-680). The CUDA kernels are ``csrc/rasterize_fwd.cu`` and
-``csrc/rasterize_bwd.cu``, one entry point per model in each.
+``csrc/rasterize_bwd.cu``, one entry point per model in each. The packed
+models gs2dp and gut3dp (ops/response.py) are forward only: K1 has an entry
+for each, and a backward through them raises NotImplementedError, as
+``rasterize_pallas._rt_bwd`` does.
 
 The gut3d model reads a per-tile pixel context ``pix_ctx``, (T, 8, 256) f32
 rays (render/rays.py); it gets no gradient, as in the JAX package, where
@@ -24,7 +27,8 @@ picked depth and id are not differentiated (as in the JAX package). On CUDA
 tensors the forward launches K1 and the backward K2; on CPU tensors both
 run the plain twins; nothing else decides which. A failed build or launch
 raises. Each wrapper counts its launches per model: ``launches`` for gs2d,
-``launches_gut3d`` for gut3d.
+``launches_gut3d`` for gut3d, ``launches_gs2dp`` and ``launches_gut3dp``
+for the packed models.
 """
 
 from __future__ import annotations
@@ -45,14 +49,18 @@ from vk_gaussian_splatting_tpu_torch.ops.response import (
     WARP_OF_PIXEL,
     WARP_PIXELS,
     WARPS,
+    MODELS,
     alpha,
     alpha_vjp,
     bound_of_warp,
+    f32_model,
     may_hit,
     model_of,
     pair_reach,
     reach_may_hit,
+    refuse_backward,
     tile_bound,
+    unpack_rows,
     warp_bound,
 )
 
@@ -61,10 +69,22 @@ CTX_ROWS = 5       # backward context: g_r, g_g, g_b, S_total, g_T * T_final
 GRAD_ROWS = ATTR_B + 1  # gs2d: rows 0-8 get gradients; the depth row gets none
 MAX_CHUNK = 256    # csrc/rasterize_{fwd,bwd}.cu stage at most this many pairs
 # the launch counter of each model, an attribute of each kernel's wrapper
-LAUNCH_COUNTER = {"gs2d": "launches", "gut3d": "launches_gut3d"}
+LAUNCH_COUNTER = {"gs2d": "launches", "gut3d": "launches_gut3d",
+                  "gs2dp": "launches_gs2dp", "gut3dp": "launches_gut3dp"}
 # the kept count of the last launch of each culling kernel (K1, K2, K3, K4),
 # an attribute of its wrapper, per model
-KEPT_COUNTER = {"gs2d": "kept", "gut3d": "kept_gut3d"}
+KEPT_COUNTER = {"gs2d": "kept", "gut3d": "kept_gut3d",
+                "gs2dp": "kept_gs2dp", "gut3dp": "kept_gut3dp"}
+
+
+def zero_counters(wrapper, models=tuple(MODELS)) -> None:
+    """Set ``wrapper``'s launch and kept counters of ``models`` to 0."""
+    for m in models:
+        setattr(wrapper, LAUNCH_COUNTER[m], 0)
+        setattr(wrapper, KEPT_COUNTER[m], 0)
+
+
+TRAINED = ("gs2d", "gut3d")  # the models with a backward
 
 
 @dataclasses.dataclass(frozen=True)
@@ -129,7 +149,8 @@ def _chunks(attrs, tile_start, tile_count, st: RasterStatics, tiles):
     """Each blend step's pairs of the given tiles, vectorized over tiles:
     (p, pc, in_range, rows): the (n, c) global pair index of each lane, the
     same clamped to a valid column, whether it lies in its tile's [start,
-    end), and the lanes' (rows, n, c) attribute rows. For tile t, step k
+    end), and the lanes' (rows, n, c) attribute rows, in the f32 layout of
+    ``f32_model(st)`` (a packed model's rows unpacked). For tile t, step k
     covers the global chunk ``first_block[t] + k``."""
     c = st.chunk
     start, end, first_block, nsteps = _tile_steps(tile_start, tile_count, tiles, c)
@@ -138,7 +159,8 @@ def _chunks(attrs, tile_start, tile_count, st: RasterStatics, tiles):
     for k in range(int(nsteps.max()) if tiles.shape[0] else 0):
         p = (first_block + k)[:, None] * c + lane                       # (n, c)
         pc = p.clamp(max=p_max)
-        yield p, pc, (p >= start[:, None]) & (p < end[:, None]), attrs[:, pc]
+        rows = unpack_rows(st.model, attrs[:, pc])
+        yield p, pc, (p >= start[:, None]) & (p < end[:, None]), rows
 
 
 def _blend_steps(attrs, tile_start, tile_count, st: RasterStatics, tiles, pix_ctx=None):
@@ -186,7 +208,7 @@ def rasterize_tiles_ref(attrs: torch.Tensor, ids: torch.Tensor,
     """
     c = st.chunk
     dev = attrs.device
-    depth_row = model_of(st).depth_row
+    depth_row = f32_model(st).depth_row
     tiles = _all_tiles(tile_start, tiles)
     n = tiles.shape[0]
     lane = torch.arange(c, device=dev)
@@ -347,8 +369,10 @@ def rasterize_tiles_bwd_ref(attrs: torch.Tensor, tile_start: torch.Tensor,
     geometry rows. Each pair lies in one tile's range, so its gradient is
     written once. The depth row and pairs no tile visits stay zero. ``tiles``
     restricts the sweep to a subset of tiles (all by default); pairs of the
-    other tiles then stay zero too.
+    other tiles then stay zero too. A forward-only (packed) model raises
+    NotImplementedError.
     """
+    refuse_backward(st)
     model = model_of(st)
     tiles = _all_tiles(tile_start, tiles)
     pctx = ctx[tiles]
@@ -472,7 +496,9 @@ def rasterize_tiles_bwd(attrs: torch.Tensor, tile_start: torch.Tensor,
     ``rasterize_tiles_bwd.kept`` (gs2d) or ``.kept_gut3d`` a one-element
     int32 tensor on the card: the pairs it kept (all, where it does not
     cull) over the blend steps it entered (``blend_work``'s ``kept``, or
-    ``tested``), to be read with ``int()`` after a synchronise."""
+    ``tested``), to be read with ``int()`` after a synchronise. A
+    forward-only (packed) model raises NotImplementedError."""
+    refuse_backward(st)
     p = _check_pairs(attrs, tile_start, tile_count, st, pix_ctx=pix_ctx)
     dev = attrs.device
     num_tiles = st.tiles_x * st.tiles_y
@@ -495,14 +521,15 @@ def rasterize_tiles_bwd(attrs: torch.Tensor, tile_start: torch.Tensor,
     return d_attrs
 
 
-rasterize_tiles_bwd.launches = rasterize_tiles_bwd.launches_gut3d = 0
-rasterize_tiles_bwd.kept = rasterize_tiles_bwd.kept_gut3d = 0
+zero_counters(rasterize_tiles_bwd, TRAINED)
 
 
 class _RasterizeTiles(torch.autograd.Function):
     """The blend with its backward kernel (rasterize_pallas.rasterize_tiles'
     custom VJP): K1 / K2 on CUDA tensors, the twins on CPU tensors. The
-    pixel context gets no gradient (the JAX VJP returns zeros for it)."""
+    pixel context gets no gradient (the JAX VJP returns zeros for it). The
+    backward of a packed model raises NotImplementedError (its rows are bit
+    patterns; ``rasterize_pallas._rt_bwd``)."""
 
     @staticmethod
     def forward(ctx, attrs, ids, tile_start, tile_count, pix_ctx, st):
@@ -530,11 +557,13 @@ def rasterize_tiles(attrs: torch.Tensor, ids: torch.Tensor,
     pix_ctx: the (T, 8, 256) f32 pixel context of gut3d (None for gs2d).
     Returns ((T, 5, 256) f32 rows r, g, b, T, depth; (T, 256) i32 ids).
     CUDA tensors launch csrc/rasterize_fwd.cu's entry for the model and
-    count one launch in ``rasterize_tiles.launches`` (gs2d) or
-    ``.launches_gut3d``; CPU tensors run the plain twin. The kernel's warps
+    count one launch in ``rasterize_tiles.launches`` (gs2d),
+    ``.launches_gut3d``, ``.launches_gs2dp`` or ``.launches_gut3dp``; CPU
+    tensors run the plain twin. The kernel's warps
     skip the pairs its per-warp cull drops (``pair_warp_may_hit``), and it
-    leaves in ``rasterize_tiles.kept`` (gs2d) or ``.kept_gut3d`` a
-    one-element int32 tensor on the card: the kept (warp, pair) bits over
+    leaves in ``rasterize_tiles.kept`` (gs2d), or the model's
+    ``KEPT_COUNTER``, a one-element int32 tensor on the card: the kept
+    (warp, pair) bits over
     the blend steps it entered (``blend_work``'s ``kept`` with that mask),
     to be read with ``int()`` after a synchronise. Gradients reach
     ``attrs`` through rgb and T (``rasterize_tiles_bwd``).
@@ -542,8 +571,7 @@ def rasterize_tiles(attrs: torch.Tensor, ids: torch.Tensor,
     return _RasterizeTiles.apply(attrs, ids, tile_start, tile_count, pix_ctx, st)
 
 
-rasterize_tiles.launches = rasterize_tiles.launches_gut3d = 0
-rasterize_tiles.kept = rasterize_tiles.kept_gut3d = 0
+zero_counters(rasterize_tiles)
 
 _P, _L, _I, _F = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
 _MODEL = [_F, _F, _F, _F, _I]  # alpha_min, alpha_clamp, qmax, kernel_min_response, degree
@@ -555,8 +583,8 @@ _ARGTYPES = {  # the C entry points' parameters, in order (csrc/*.cu)
 
 def entry_name(name: str, st) -> str:
     """The C entry point of kernel ``name`` for ``st.model``: ``name`` for
-    gs2d, ``name + "_gut3d"`` for gut3d (the same source, another
-    instantiation of its model template)."""
+    gs2d, ``name + "_" + st.model`` for the others (the same source,
+    another instantiation of its model template)."""
     model_of(st)
     return name if st.model == "gs2d" else f"{name}_{st.model}"
 

@@ -18,7 +18,9 @@ backwards need, and of the per-tile cull K2, K3 and K4 share
 (``tile_bound``, ``may_hit``) and K1 asks per warp (``warp_bound``,
 ``WARP_PIXELS``). The JAX kernels take those VJPs with in-kernel
 ``jax.vjp``.
-The packed, clip and triangle models are not ported yet.
+The packed models gs2dp and gut3dp (``RasterConfig.pair_format="packed"``,
+the JAX ``response.py:60-109,201-264``) are the same two responses on
+fewer rows, forward only; the clip and triangle models are not ported yet.
 
 Attribute rows, shape (rows, P) f32:
   gs2d : 0 x, 1 y, 2-4 conic (a, b, c), 5 opacity, 6-8 rgb, 9 depth
@@ -28,6 +30,21 @@ Color rows are 6-8 in both (the blender contracts them); the depth row is
 the aux pick and the bucket merge key, and gets no gradient. The splat id
 does not ride as a float row (the JAX layouts' f32 id rows): it travels
 beside the rows as its own int32 array, exact for every id.
+
+Packed rows (the reference's fp16 SH-format tier): most attributes ride as
+two bf16 halves of one word (``pack2bf16``), opacity as 16-bit fixed point
+beside bf16 blue (``pack_bf16_u16``); positions and the sort depth stay
+exact f32, and the sort depth is the model's depth row (``pack_rows``
+makes them from the parent's f32 rows):
+  gs2dp : 0 x, 1 y, 2 (a, b), 3 (c, depth), 4 (r, g), 5 (b, opacity),
+          6 sort depth
+  gut3dp: 0-2 position, 3 (sx, sy), 4 (sz, qw), 5 (qx, qy), 6 (qz, depth),
+          7 (r, g), 8 (b, opacity), 9 sort depth
+A packed word is a bit pattern: binning and the twins only move it (a word
+whose high half is +-0 is an f32 subnormal, and any arithmetic could flush
+it). ``unpack_rows`` turns packed rows into the parent model's f32 rows
+(the quaternion renormalised as the JAX ``gut3dp_alpha`` does), and every
+twin of a packed model is ``unpack_rows`` followed by the parent's twin.
 
 The gut3d model reads a per-tile pixel context (T, 8, 256): rows 0-2 the
 unit ray direction, 3-5 the ray origin (render/rays.py); rows 6-7 unused.
@@ -59,6 +76,14 @@ PIX = TILE * TILE  # 256 pixels per tile
 KERNEL_DEGREES = (0, 1, 2, 3, 4, 5, 8)
 
 
+GSP_X, GSP_Y, GSP_AB, GSP_CD, GSP_RG, GSP_BO, GSP_SORTD = 0, 1, 2, 3, 4, 5, 6
+GSP_ROWS = 7
+
+GUTP_PX, GUTP_PY, GUTP_PZ = 0, 1, 2
+GUTP_SXY, GUTP_SZW, GUTP_QXY, GUTP_QZD, GUTP_RG, GUTP_BO, GUTP_SORTD = 3, 4, 5, 6, 7, 8, 9
+GUTP_ROWS = 10
+
+
 @dataclasses.dataclass(frozen=True)
 class Model:
     """A response model's row layout."""
@@ -68,16 +93,20 @@ class Model:
     geo_rows: tuple        # rows the model's VJP fills, in its output order
     uses_pix: bool         # reads the per-tile pixel context
     cull_pairs: bool       # K2 culls its pair lists (csrc/response.cuh CULL_PAIRS)
+    parent: str | None = None  # a packed model: the f32 model its rows unpack into
 
     @property
     def grad_rows(self) -> int:
-        """Rows 0 .. grad_rows-1 get gradients: all before the depth row."""
-        return self.depth_row
+        """Rows 0 .. grad_rows-1 get gradients: all before the depth row,
+        none of a packed model's (forward only)."""
+        return 0 if self.parent else self.depth_row
 
 
 MODELS = {
     "gs2d": Model(GS_ROWS, GS_DEPTH, (0, 1, 2, 3, 4, 5), False, True),
     "gut3d": Model(GUT_ROWS, GUT_DEPTH, (0, 1, 2, 3, 4, 5, 9, 10, 11, 12, 13), True, False),
+    "gs2dp": Model(GSP_ROWS, GSP_SORTD, (), False, False, parent="gs2d"),
+    "gut3dp": Model(GUTP_ROWS, GUTP_SORTD, (), True, False, parent="gut3d"),
 }
 
 
@@ -86,6 +115,110 @@ def model_of(st) -> Model:
         raise NotImplementedError(f"response model {st.model!r} is not ported yet "
                                   "(ROADMAP.md queue 2)")
     return MODELS[st.model]
+
+
+def f32_model(st) -> Model:
+    """The model whose f32 rows the twins compute on: the parent of a
+    packed model (``unpack_rows``), else the model itself."""
+    model = model_of(st)
+    return MODELS[model.parent] if model.parent else model
+
+
+def refuse_backward(st) -> None:
+    """Raise for a forward-only model (rasterize_pallas.py:600-606)."""
+    if model_of(st).parent:
+        raise NotImplementedError("this response model is forward-only; use "
+                                  "pair_format='f32' splat models for training")
+
+
+# ---- the packed tier: bf16 halves and 16-bit fixed point in f32 words ------
+
+U16_SCALE = float(torch.tensor(1.0 / 65535.0, dtype=torch.float32))  # f32(1/65535), as a double
+
+def _bf16_bits(x: torch.Tensor) -> torch.Tensor:
+    """bf16(x), rounded to nearest even, as its 16 bits in an int32."""
+    return x.detach().to(torch.bfloat16).view(torch.int16).to(torch.int32) & 0xFFFF
+
+
+def pack2bf16(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
+    """Two f32 -> one f32 word holding bf16(hi) << 16 | bf16(lo) (the JAX
+    ``pack2bf16``). The high half is bf16(hi) as an f32 bit pattern, so a
+    mask unpacks it. No gradient: the word is a bit pattern."""
+    return ((_bf16_bits(hi) << 16) | _bf16_bits(lo)).view(torch.float32)
+
+
+def unpack2bf16(word: torch.Tensor):
+    """(hi, lo) f32 from a ``pack2bf16`` word, by mask, shift and bitcast."""
+    iw = word.view(torch.int32)
+    return (iw & -65536).view(torch.float32), (iw << 16).view(torch.float32)
+
+
+def pack_bf16_u16(hi: torch.Tensor, unit_lo: torch.Tensor) -> torch.Tensor:
+    """bf16(hi) << 16 | clamp(round(unit_lo * 65535), 0, 65535), the round
+    half to even (the JAX ``pack_bf16_u16``)."""
+    lb = torch.clamp(torch.round(unit_lo.detach() * 65535.0), 0, 65535).to(torch.int32)
+    return ((_bf16_bits(hi) << 16) | lb).view(torch.float32)
+
+
+def unpack_bf16_u16(word: torch.Tensor):
+    """(hi, lo) f32 from a ``pack_bf16_u16`` word: lo = u16 * f32(1/65535)."""
+    iw = word.view(torch.int32)
+    return (iw & -65536).view(torch.float32), (iw & 0xFFFF).to(torch.float32) * U16_SCALE
+
+
+
+def pack_rows(model: str, rows: torch.Tensor) -> torch.Tensor:
+    """A packed model's (rows, N) words from its parent's (rows, N) f32
+    rows, in the JAX ``gs_attr_rows_packed`` / ``gut_attr_rows_packed``
+    layouts without their id rows. The exact rows (position, sort depth)
+    are the f32 rows themselves and keep their graph; the packed words
+    carry none."""
+    def row(r):
+        return rows[r]
+
+    if model == "gs2dp":
+        return torch.stack([
+            row(GS_X), row(GS_Y),
+            pack2bf16(row(GS_CA), row(GS_CB)), pack2bf16(row(GS_CC), row(GS_DEPTH)),
+            pack2bf16(row(ATTR_R), row(ATTR_G)), pack_bf16_u16(row(ATTR_B), row(GS_OPACITY)),
+            row(GS_DEPTH)])
+    return torch.stack([
+        row(GUT_PX), row(GUT_PY), row(GUT_PZ),
+        pack2bf16(row(GUT_SX), row(GUT_SY)), pack2bf16(row(GUT_SZ), row(GUT_QW)),
+        pack2bf16(row(GUT_QX), row(GUT_QY)), pack2bf16(row(GUT_QZ), row(GUT_DEPTH)),
+        pack2bf16(row(ATTR_R), row(ATTR_G)), pack_bf16_u16(row(ATTR_B), row(GUT_OPACITY)),
+        row(GUT_DEPTH)])
+
+
+def unpack_rows(model: str, block: torch.Tensor, dim: int = 0) -> torch.Tensor:
+    """A block of ``model``'s rows, the rows on axis ``dim``, in the f32
+    layout of its parent model (gs2d, gut3d); the block itself for an
+    unpacked model. The depth row is the exact sort-depth row. gut3dp's
+    quaternion is renormalised as the JAX ``gut3dp_alpha`` renormalises it,
+    q * rsqrt(qw^2 + qx^2 + qy^2 + qz^2 + 1e-30), so R(q) stays a rotation."""
+    if not MODELS[model].parent:
+        return block
+
+    def row(r):
+        return block.select(dim, r)
+
+    if model == "gs2dp":
+        ca, cb = unpack2bf16(row(GSP_AB))
+        cc, _ = unpack2bf16(row(GSP_CD))
+        r, g = unpack2bf16(row(GSP_RG))
+        b, op = unpack_bf16_u16(row(GSP_BO))
+        rows = [row(GSP_X), row(GSP_Y), ca, cb, cc, op, r, g, b, row(GSP_SORTD)]
+    else:
+        sx, sy = unpack2bf16(row(GUTP_SXY))
+        sz, qw = unpack2bf16(row(GUTP_SZW))
+        qx, qy = unpack2bf16(row(GUTP_QXY))
+        qz, _ = unpack2bf16(row(GUTP_QZD))
+        r, g = unpack2bf16(row(GUTP_RG))
+        b, op = unpack_bf16_u16(row(GUTP_BO))
+        qn = torch.rsqrt(qw * qw + qx * qx + qy * qy + qz * qz + 1e-30)
+        rows = [row(GUTP_PX), row(GUTP_PY), row(GUTP_PZ), sx, sy, sz, r, g, b,
+                qw * qn, qx * qn, qy * qn, qz * qn, op, row(GUTP_SORTD)]
+    return torch.stack(rows, dim=dim)
 
 
 def _row(block: torch.Tensor, r: int) -> torch.Tensor:
@@ -314,6 +447,9 @@ def gut3d_alpha_vjp(block: torch.Tensor, pix: torch.Tensor, live: torch.Tensor, 
 
 
 # ---- dispatch on the model --------------------------------------------------
+#
+# Each takes blocks in the f32 layout of ``f32_model(st)``: a packed model's
+# rows pass through ``unpack_rows`` first.
 
 def alpha(block, px, py, pix, live, st) -> torch.Tensor:
     """The alpha block of ``st.model``; gs2d reads px, py, gut3d the pixel
@@ -400,7 +536,7 @@ def bound_of_warp(bound: tuple, w: int) -> tuple:
 
 def pair_reach(blk: torch.Tensor, st) -> tuple:
     """The model's reach (the lane's part of may_hit) over (rows, n, L) f32
-    lane rows."""
+    lane rows (``f32_model``'s layout)."""
     if model_of(st).uses_pix:
         return gut3d_reach(blk, st)
     return gs2d_reach(blk, st)

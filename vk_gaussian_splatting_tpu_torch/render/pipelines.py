@@ -25,7 +25,11 @@ Each bins by one of two architectures (``RasterConfig.method``):
 
 The frame is differentiable: gradients of the image and transmittance
 reach ``PreparedSplats`` (and the SplatSet behind it) through the blend's
-backward kernel and the binning's sort-based backward. Configurations this
+backward kernel and the binning's sort-based backward. The packed tier
+(``RasterConfig.pair_format="packed"``: bf16 pairs and 16-bit opacity in
+f32 words, ``gs_attr_rows_packed`` / ``gut_attr_rows_packed``, the response
+models gs2dp and gut3dp) renders on both binning methods and is forward
+only: a backward through it raises NotImplementedError. Configurations this
 port does not run yet raise ``NotImplementedError`` naming their
 ROADMAP.md item; none of them quietly takes another path.
 """
@@ -57,7 +61,7 @@ from vk_gaussian_splatting_tpu_torch.ops.rasterize import (
     assemble_image,
     rasterize_bins,
 )
-from vk_gaussian_splatting_tpu_torch.ops.response import deg0_min_response, model_of
+from vk_gaussian_splatting_tpu_torch.ops.response import deg0_min_response, model_of, pack_rows
 from vk_gaussian_splatting_tpu_torch.render.rays import build_tile_rays
 from vk_gaussian_splatting_tpu_torch.scene.cameras import Camera
 from vk_gaussian_splatting_tpu_torch.scene.splat_set import PreparedSplats
@@ -91,7 +95,28 @@ def gs_attr_rows(proj: ProjectedSplats):
     return rows, torch.arange(n, dtype=torch.int32, device=proj.xy.device)
 
 
-GUT_ID_LIMIT = 1 << 24  # the JAX gut3d layout's single f32 id row is exact below it
+SINGLE_ROW_ID_LIMIT = 1 << 24  # the JAX single-row id layouts' f32 ids are exact below it
+
+
+def check_single_row_ids(n: int) -> None:
+    """The gut3d and packed layouts of the JAX package carry one f32 id row,
+    exact only below 2^24 (its ``_id_row``). The port's int32 ids would be
+    exact to 2^31, but both packages refuse the same inputs."""
+    if n >= SINGLE_ROW_ID_LIMIT:
+        raise ValueError(f"{n} splats exceed the 2^24 f32-exact id limit of a single-row "
+                         "id layout; use the gs2d f32 path or shard the set")
+
+
+def gs_attr_rows_packed(proj: ProjectedSplats):
+    """Per-splat gs2dp rows (ops/response.py) and splat ids: ((7, N) f32
+    rows, (N,) i32 ids), the JAX ``gs_attr_rows_packed`` without its id
+    row: ``gs_attr_rows`` packed (``pack_rows``). x, y and the sort depth
+    stay exact f32; conic, colour and opacity ride as bf16 / u16 halves of
+    f32 words, which carry no gradient. More than 2^24 splats raise
+    ValueError (``check_single_row_ids``)."""
+    check_single_row_ids(proj.xy.shape[0])
+    rows, ids = gs_attr_rows(proj)
+    return pack_rows("gs2dp", rows), ids
 
 
 def gut_attr_rows(prepared: PreparedSplats, proj: ProjectedSplats, cfg: RenderConfig,
@@ -103,13 +128,10 @@ def gut_attr_rows(prepared: PreparedSplats, proj: ProjectedSplats, cfg: RenderCo
     gradient reaches means, scales and quats through them; color, opacity
     and depth from the UT projection. depth: replaces the depth row (3DGRT
     passes radial distance on the bucket path, where that row is the
-    merge key). The int32 ids would be exact to 2^31, but the JAX layout's
-    single f32 id row is exact only below 2^24, and both packages refuse the
-    same inputs: more splats raise ValueError (the JAX ``_id_row``)."""
+    merge key). More than 2^24 splats raise ValueError
+    (``check_single_row_ids``)."""
     n = proj.xy.shape[0]
-    if n >= GUT_ID_LIMIT:
-        raise ValueError(f"{n} splats exceed the 2^24 f32-exact id limit of a single-row "
-                         "id layout; use the gs2d f32 path or shard the set")
+    check_single_row_ids(n)
     quats = prepared.quats / torch.linalg.norm(prepared.quats, dim=-1,
                                                keepdim=True).clamp_min(1e-12)
     scl = torch.exp(prepared.scales_log) * cfg.splat_scale
@@ -124,7 +146,25 @@ def gut_attr_rows(prepared: PreparedSplats, proj: ProjectedSplats, cfg: RenderCo
     return rows, torch.arange(n, dtype=torch.int32, device=proj.xy.device)
 
 
+def gut_attr_rows_packed(prepared: PreparedSplats, proj: ProjectedSplats, cfg: RenderConfig,
+                         depth: torch.Tensor | None = None):
+    """Per-splat gut3dp rows (ops/response.py) and splat ids: ((10, N) f32
+    rows, (N,) i32 ids), the JAX ``gut_attr_rows_packed`` without its id
+    row: ``gut_attr_rows`` packed (``pack_rows``), exact f32 positions and
+    sort depth, bf16 / u16 halves for scale, quaternion, colour and
+    opacity. depth: replaces the depth in both the packed word and the
+    sort row, as in ``gut_attr_rows``."""
+    rows, ids = gut_attr_rows(prepared, proj, cfg, depth)
+    return pack_rows("gut3dp", rows), ids
+
+
+def packed(cfg: RenderConfig) -> bool:
+    return cfg.raster.pair_format == "packed"
+
+
 def raster_statics(cfg: RenderConfig) -> RasterStatics:
+    """The blend statics of a 3DGS frame: the gs2d model, or gs2dp for the
+    packed tier."""
     return RasterStatics(
         tiles_x=tiles_x(cfg),
         tiles_y=tiles_y(cfg),
@@ -133,15 +173,16 @@ def raster_statics(cfg: RenderConfig) -> RasterStatics:
         alpha_clamp=cfg.raster.alpha_clamp,
         qmax=cfg.raster.alpha_cull_qmax,
         depth_iso=cfg.raster.depth_iso_threshold,
+        model="gs2dp" if packed(cfg) else "gs2d",
     )
 
 
 def gut_statics(st: RasterStatics, cfg: RenderConfig, **kw) -> RasterStatics:
-    """gut3d statics: the response model, its generalized-Gaussian degree,
-    and the degree-0 support cull from rt.kernel_scale_deg0 (the JAX
-    ``_gut_statics``)."""
+    """gut3d statics: the response model (gut3dp for the packed tier), its
+    generalized-Gaussian degree, and the degree-0 support cull from
+    rt.kernel_scale_deg0 (the JAX ``_gut_statics``)."""
     return dataclasses.replace(
-        st, model="gut3d", kernel_degree=cfg.rt.kernel_degree,
+        st, model="gut3dp" if packed(cfg) else "gut3d", kernel_degree=cfg.rt.kernel_degree,
         kernel_min_response=max(st.kernel_min_response, deg0_min_response(cfg.rt)), **kw)
 
 
@@ -201,7 +242,6 @@ def _reject_unported(cfg: RenderConfig, host_order=None) -> None:
         # temporal samples average only stochastic 3DGS frames, or DoF gut frames
         (cfg.temporal_samples > 1 and not gut, "temporal_samples > 1 on 3DGS",
          "stochastic and post"),
-        (rc.pair_format == "packed", "raster.pair_format='packed'", "packed tier"),
         (cfg.denoise == "atrous", "denoise='atrous'", "stochastic and post"),
     ]
     for hit, what, item in unported:
@@ -210,7 +250,7 @@ def _reject_unported(cfg: RenderConfig, host_order=None) -> None:
                 f"{what} is not ported yet (ROADMAP.md queue 1: {item})")
     if rc.method not in ("pairs", "bucket"):
         raise ValueError(f"unknown raster.method {rc.method!r}")
-    if rc.pair_format != "f32":
+    if rc.pair_format not in ("f32", "packed"):
         raise ValueError(f"unknown raster.pair_format {rc.pair_format!r}")
     if rc.tile_size != 16:
         raise ValueError("the tile blender requires tile_size == 16")
@@ -225,19 +265,21 @@ def render_3dgs(prepared: PreparedSplats, cam: Camera, cfg: RenderConfig,
                 max_pairs: int = 0, host_order: torch.Tensor | None = None) -> RenderOutput:
     """3DGS raster pipeline (PIPELINE_VERT / PIPELINE_MESH), differentiable
     in ``prepared`` through image and transmittance (depth and splat id are
-    not differentiated). Each stage runs under a ``torch.profiler`` span
-    named project, bin, blend or assemble. The EWA projection is pinhole
-    whatever ``cfg.camera_type`` says, as in the JAX package.
+    not differentiated; nothing of the packed tier is). Each stage runs
+    under a ``torch.profiler`` span named project, bin, blend or assemble.
+    The EWA projection is pinhole whatever ``cfg.camera_type`` says, as in
+    the JAX package.
 
     max_pairs: pair budget of ``raster.expansion="exact"`` (pair path)."""
     _reject_unported(cfg, host_order)
+    st = raster_statics(cfg)
     with record_function("project"):
         proj = project_splats(prepared, cam, cfg)
     with record_function("bin"):
-        rows, ids = gs_attr_rows(proj)
-        bins = bin_for_cfg(proj, rows, ids, cfg, max_pairs)
+        rows, ids = (gs_attr_rows_packed if packed(cfg) else gs_attr_rows)(proj)
+        bins = bin_for_cfg(proj, rows, ids, cfg, max_pairs, st)
     with record_function("blend"):
-        out, out_id = blend_bins(bins, cfg, raster_statics(cfg))
+        out, out_id = blend_bins(bins, cfg, st)
     with record_function("assemble"):
         img, trans, depth, splat_id = _assemble(out, out_id, cfg)
     num_pairs, overflow = _bin_counts(bins)
@@ -284,17 +326,19 @@ def gut_bin(prepared: PreparedSplats, proj: ProjectedSplats, cam: Camera, cfg: R
     JAX package: on the pair path it replaces the depth in the sort key
     only, so the picked depth stays view z; on the bucket path, whose kernel
     merges on the depth row, it is the depth row, so the picked depth is
-    the radial distance."""
+    the radial distance (in the packed tier both the packed depth and the
+    sort row)."""
     st = raster_statics(cfg)
+    attr_rows = gut_attr_rows_packed if packed(cfg) else gut_attr_rows
     if not radial_order:
         st = gut_statics(st, cfg)
-        rows, ids = gut_attr_rows(prepared, proj, cfg)
+        rows, ids = attr_rows(prepared, proj, cfg)
         return bin_for_cfg(proj, rows, ids, cfg, max_pairs, st), st
     st = gut_statics(st, cfg, alpha_clamp=cfg.rt.alpha_clamp,
                      min_transmittance=cfg.rt.min_transmittance)
     radial = torch.linalg.norm(prepared.means.detach() - cam.position, dim=-1)
     bucket = cfg.raster.method == "bucket"
-    rows, ids = gut_attr_rows(prepared, proj, cfg, depth=radial if bucket else None)
+    rows, ids = attr_rows(prepared, proj, cfg, depth=radial if bucket else None)
     return bin_for_cfg(proj, rows, ids, cfg, max_pairs, st, sort_depth=radial), st
 
 

@@ -123,7 +123,9 @@ def train_step(splats: SplatSet, optimizer: torch.optim.Optimizer, cam: Camera,
     against truncated splat coverage; the caller should re-render with
     expansion="exact" / a larger slots_k or treat the step as suspect.
     Its stages run under ``torch.profiler`` spans: prepare, render's own
-    (project, bin, blend, assemble), loss, backward and optimizer."""
+    (project, bin, blend, assemble), loss, backward and optimizer. A packed
+    config (``pair_format="packed"``, forward only) raises
+    NotImplementedError at the backward, before the optimizer moves."""
     with record_function("prepare"):
         optimizer.zero_grad(set_to_none=True)
         prepared = prepare_splats(splats, cfg.sh_format)
