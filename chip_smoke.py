@@ -8,8 +8,9 @@ backward, Adam), each by the pair path (the default RenderConfig) and by
 the bucket path (``RasterConfig(method="bucket")``); then the 3DGUT and
 3DGRT raster frames (``Pipeline.MESH_3DGUT``, ``Pipeline.RTX``) and 3DGUT
 training on both paths; the packed tier of all three
-(``RasterConfig(pair_format="packed")``, forward only); and the design
-probes P1-P3 through their own entry points — and checks them:
+(``RasterConfig(pair_format="packed")``, forward only); stochastic
+transparency and its a-trous pass on all three and in training; and the
+design probes P1-P3 through their own entry points — and checks them:
 
 1. builds the CUDA kernels from the checkout, one nvcc per source, all at
    once: the pair blender K1 (csrc/rasterize_fwd.cu) and its backward K2
@@ -111,6 +112,29 @@ probes P1-P3 through their own entry points — and checks them:
    the unpacking, packed bytes: ``OPS_UNPACK``), its plain twin's time, and
    the stage and frame times of the packed frame and each packed kernel
    alone beside the f32 frame's and kernel's, in turns (``packed_timings``);
+11. stochastic transparency (``cfg.stochastic`` SPLAT: the ``_stoch``
+   forms of K1 and K3 for gs2d, gut3d, gs2dp and gut3dp, of K2 and K4 for
+   gs2d and gut3d; ``stochastic``): at the headline cell and caps, 3DGS
+   pairs and bucket at temporal_samples=4, 3DGUT pairs and bucket and 3DGRT
+   pairs at 2, and the four packed frames at 1: the main path through
+   ``render`` with every launch counter of the blend's wrapper zeroed and
+   read (only the stochastic form moves, once a sample), T a multiple of 1
+   / samples, a bit-equal repeat; sample 0's blend against its twin on
+   every tile (gs2d and gs2dp bit for bit, gut3d >= 99.9 % of pixels bit
+   for bit, the others counted), its kept counter against the plain count
+   of the same stochastic sweep, its bound (the deterministic form's work
+   on this run's stochastic sweep plus the hash and the accept per draw,
+   an evaluation whose alpha passes the cutoffs: ``OPS_HASH_INT`` at the
+   INT32 rate, ``OPS_HASH_F32``), its twin's time and the kernel alone beside its
+   deterministic form in turns; 3 stochastic ``train_step``s on 3DGS and
+   3DGUT on both methods (launches counted; opacities, scales and
+   quaternions get exactly 0), each backward form against its twin with
+   the loss's own cotangent on every tile (colour rows at K2's / K4's
+   gates, every other row exactly 0), its kept counter, bound, times; the
+   PSNR of 3DGS pairs
+   against the deterministic frame rising from 1 to 4 to 16 samples per
+   pixel, and the a-trous pass at 1080p (equal to ``denoise_output``,
+   timed);
 9. the probes (vk_gaussian_splatting_tpu_torch/probes): each probe's entry
    point at its script's default arguments (``bench_roll.run``,
    ``bench_sort_stage.run`` per variant, ``bench_radix_ab.run``: their
@@ -164,6 +188,7 @@ from vk_gaussian_splatting_tpu_torch.io import load_ply  # noqa: E402
 from vk_gaussian_splatting_tpu_torch.ops import _build  # noqa: E402
 from vk_gaussian_splatting_tpu_torch.ops import raster_bucket as rb  # noqa: E402
 from vk_gaussian_splatting_tpu_torch.ops import rasterize as tr  # noqa: E402
+from vk_gaussian_splatting_tpu_torch.ops.denoise import denoise_output  # noqa: E402
 from vk_gaussian_splatting_tpu_torch.ops.bucket_grid import (  # noqa: E402
     BucketGridSpec,
     fit_caps,
@@ -232,6 +257,11 @@ PACKED_KERNELS = {f"{name}_{model}": (name, *_SOURCES[name])
                   for name in ("rasterize_fwd", "raster_bucket_fwd")
                   for model in ("gs2dp", "gut3dp")}
 KERNELS.update(PACKED_KERNELS)
+# the stochastic forms (cfg.stochastic SPLAT / ANYHIT): entries <name>_stoch
+# of every form of K1 and K3 and of the gs2d and gut3d forms of K2 and K4
+STOCH_KERNELS = {name + tr.STOCH: spec for name, spec in KERNELS.items()
+                 if "_fwd" in name or not name.endswith(("_gs2dp", "_gut3dp"))}
+KERNELS.update(STOCH_KERNELS)
 KERNELS.update({"bench_roll": ("bench_roll", *_SOURCES["bench_roll"])})
 KERNELS.update({stage_name(v): ("bench_sort_stage", *_SOURCES["bench_sort_stage"])
                 for v in probe_stage.VARIANTS})
@@ -305,6 +335,20 @@ OPS_PER_HIT = {"rasterize_fwd": 10, "rasterize_bwd": 53,
                "rasterize_fwd_gut3d": 10, "rasterize_bwd_gut3d": 210,
                "raster_bucket_fwd_gut3d": 10, "raster_bucket_bwd_gut3d": 210}
 OPS_PER_HIT.update({name: 10 for name in PACKED_KERNELS})
+# The stochastic forms (phase 11) do their parent's work per evaluation plus,
+# per draw (an evaluation whose alpha passes the cutoffs: only there do the
+# kernels hash), the hash and the accept: OPS_HASH_INT integer operations
+# (the mix's 3 multiplies and 2 xors, 3 xor-shifts of 2, 2 multiplies, the
+# shift) at the INT32 rate and OPS_HASH_F32 (the convert, the scale, 2
+# compares, the select); a hit is an accepted pair. The forward blends it as before (10). The backward
+# skips the model's VJP and dalpha: the weight 1, the colour dot 5, the
+# running sum 2, q 1, the 3 colour gradients, T 1 (13), plus one add per
+# gradient row to reduce it over the tile: gs2d 13 + 9, gut3d 13 + 14.
+OPS_HASH_INT, OPS_HASH_F32 = 14, 5
+OPS_PER_HIT.update({name + tr.STOCH: ops for name, ops in OPS_PER_HIT.items()
+                    if "_fwd" in name})
+OPS_PER_HIT.update({"rasterize_bwd_stoch": 22, "raster_bucket_bwd_stoch": 22,
+                    "rasterize_bwd_gut3d_stoch": 27, "raster_bucket_bwd_gut3d_stoch": 27})
 # The packed forms do their parent's work on the unpacked slots, plus the
 # unpacking once per pair or lane their staging reads (the least work; K1
 # and K3 stage a kept lane twice, for the cull and for the blend): gs2dp 9
@@ -326,6 +370,11 @@ PEAK_BYTES = 3.35e12   # H100 SXM HBM3
 # shared memory fills at 128 B per clock on each SM (32 banks of 4 B): 132
 # SMs at the 1.98 GHz boost clock of the H100 SXM (NVIDIA's specifications)
 SM_COUNT, SMEM_BYTES_PER_CLOCK, BOOST_HZ = 132, 128, 1.98e9
+# 64 INT32 lanes on each SM, one operation a clock (NVIDIA's H100 whitepaper)
+PEAK_INT32_OPS = SM_COUNT * 64 * BOOST_HZ
+# profiler windows kernel_split traces at most: a window can lose records
+# even after its warm-up step (PERF.md §7)
+PROFILE_WINDOWS = 3
 # The probes P1 and P3 (phase 9), the least work of the function: per column
 # and stage the network's want_min (lane-iota: an and and a compare; from
 # the mask table: one compare), its take test (two key compares and a
@@ -442,7 +491,7 @@ def compare_bwd_with_twin(bins, st, ctx):
 def check_pair_cull(label: str, bins, st, batches, pix=None):
     """K2's or K2g's kept-pair counter on a whole frame, after a launch of
     it on that frame: (blend_work's (evaluations, hits, tested, kept, kept
-    evaluations) over ``batches`` of tiles, the counter). Where the model
+    evaluations, draws) over ``batches`` of tiles, the counter). Where the model
     culls its pair lists (``Model.cull_pairs``), ``kept`` counts the pairs
     ``ops/rasterize.pair_may_hit`` keeps over the steps each tile enters and
     the counter must equal it; then, over every tile in ``batches``, the
@@ -453,7 +502,7 @@ def check_pair_cull(label: str, bins, st, batches, pix=None):
     attrs = bins.attrs.detach()
     args = (attrs, bins.tile_start, bins.tile_count, st)
     every = torch.ones(attrs.shape[1], dtype=torch.bool, device=attrs.device)
-    work, may, hit, bad = [0] * 5, 0, 0, 0
+    work, may, hit, bad = [0] * 6, 0, 0, 0
     for tiles in batches:
         m = tr.pair_may_hit(*args, tiles, pix) if culls else every
         if culls:
@@ -477,7 +526,7 @@ def check_pair_cull(label: str, bins, st, batches, pix=None):
 def check_warp_cull(label: str, bins, st, batches, pix=None):
     """K1's or K1g's kept (warp, pair) counter on a whole frame, after a
     launch of it on that frame: (blend_work's (evaluations, hits, tested,
-    kept, kept evaluations) over ``batches`` of tiles with the plain per-warp
+    kept, kept evaluations, draws) over ``batches`` of tiles with the plain per-warp
     predicate ``ops/rasterize.pair_warp_may_hit``, the counter). The counter
     must equal the plain count of kept (warp, pair) bits over the steps each
     tile enters; and over every tile in ``batches``, the (warp, pair)s the
@@ -485,7 +534,7 @@ def check_warp_cull(label: str, bins, st, batches, pix=None):
     warp (``pair_hits(per_warp=True)``, frozen pixels too): none allowed."""
     attrs = bins.attrs.detach()
     args = (attrs, bins.tile_start, bins.tile_count, st)
-    work, may, hit, bad = [0] * 5, 0, 0, 0
+    work, may, hit, bad = [0] * 6, 0, 0, 0
     for tiles in batches:
         m = tr.pair_warp_may_hit(*args, tiles, pix)
         h = tr.pair_hits(*args, tiles, pix, per_warp=True)
@@ -506,6 +555,7 @@ def check_warp_cull(label: str, bins, st, batches, pix=None):
 
 def model_of_name(name: str) -> str:
     """The response model of a raster kernel's report name."""
+    name = name.removesuffix(tr.STOCH)
     return next((m for m in ("gut3dp", "gs2dp", "gut3d") if name.endswith("_" + m)), "gs2d")
 
 
@@ -522,13 +572,13 @@ def warp_cull_bound(name: str, work, bytes_moved: int, n_tiles: int):
     pair) (OPS_WARP_TEST) and, for gut3d, per pixel (OPS_WARP_BOUND). The
     all-pair figure prices every live (pixel, pair), as the sweep before the
     cull made them."""
-    evals, hits, tested, _, kept_evals = work
+    evals, hits, tested, _, kept_evals, draws = work
     model = f32_of_name(name)
     unpack = tested * OPS_UNPACK.get(model_of_name(name), 0)
-    all_pairs = kernel_bound(name, evals, hits, bytes_moved, unpack)
+    all_pairs = kernel_bound(name, evals, hits, draws, bytes_moved, unpack)
     cull = (tested * (OPS_REACH[model] + tr.WARPS * OPS_WARP_TEST[model])
             + n_tiles * tr.PIX * OPS_WARP_BOUND[model])
-    bound = kernel_bound(name, kept_evals, hits, bytes_moved, unpack, f64_ops=cull)
+    bound = kernel_bound(name, kept_evals, hits, draws, bytes_moved, unpack, f64_ops=cull)
     return bound, (f"{name}_bound_ms={bound[0]:.4f} ({bound[1]}; the kept (warp, pair)s) "
                    f"{name}_all_pair_bound_ms={all_pairs[0]:.4f} ({all_pairs[1]})")
 
@@ -540,28 +590,32 @@ def pair_bound(name: str, work, bytes_moved: int, n_tiles: int):
     the cull costs its own f64 operations per tested pair (OPS_CULL) and,
     for gut3d, per pixel (OPS_TILE_BOUND); the all-pair figure prices every
     pair's evaluations, as the sweep before the cull made them."""
-    evals, hits, tested, _, kept_evals = work
+    evals, hits, tested, _, kept_evals, draws = work
     model = f32_of_name(name)
-    all_pairs = kernel_bound(name, evals, hits, bytes_moved)
+    all_pairs = kernel_bound(name, evals, hits, draws, bytes_moved)
     if not MODELS[model].cull_pairs:
         return all_pairs, f"{name}_bound_ms={all_pairs[0]:.4f} ({all_pairs[1]}; no cull)"
     cull = tested * OPS_CULL[model] + n_tiles * tr.PIX * OPS_TILE_BOUND[model]
-    bound = kernel_bound(name, kept_evals, hits, bytes_moved, f64_ops=cull)
+    bound = kernel_bound(name, kept_evals, hits, draws, bytes_moved, f64_ops=cull)
     return bound, (f"{name}_bound_ms={bound[0]:.4f} ({bound[1]}; the kept pairs) "
                    f"{name}_all_pair_bound_ms={all_pairs[0]:.4f} ({all_pairs[1]})")
 
 
-def kernel_bound(name: str, evals: int, hits: int, bytes_moved: int, extra_ops: int = 0,
-                 f64_ops: int = 0):
+def kernel_bound(name: str, evals: int, hits: int, draws: int, bytes_moved: int,
+                 extra_ops: int = 0, f64_ops: int = 0):
     """(bound ms, what bounds it): the larger of the operations over the
-    card's peak for their type and the bytes over its memory rate."""
-    per_eval = OPS_ALPHA[f32_of_name(name)]
-    return roofline(evals * per_eval + hits * OPS_PER_HIT[name] + extra_ops, bytes_moved,
-                    f64_ops)
+    card's peak for their type and the bytes over its memory rate. A
+    stochastic form (``_stoch``) adds the hash and the accept per draw, an
+    evaluation whose alpha passes the cutoffs (OPS_HASH_INT at the INT32
+    rate, OPS_HASH_F32)."""
+    stoch = name.endswith(tr.STOCH)
+    f32_ops = (evals * OPS_ALPHA[f32_of_name(name)] + hits * OPS_PER_HIT[name] + extra_ops
+               + stoch * draws * OPS_HASH_F32)
+    return roofline(f32_ops, bytes_moved, f64_ops, int_ops=stoch * draws * OPS_HASH_INT)
 
 
-def bucket_bound(model: str, work, bytes_fwd: int, bytes_bwd: int | None, grad_rows: int,
-                 n_tiles: int):
+def bucket_bound(model: str, work, bytes_fwd: int | None, bytes_bwd: int | None,
+                 grad_rows: int, n_tiles: int, form: str = ""):
     """({name: (ms, what bounds it)} of K3 and K4 (K3 alone for a packed,
     forward-only model, ``bytes_bwd`` None) at one frame, a log fragment
     with those and the all-lane figures). Both kernels evaluate the lanes
@@ -570,8 +624,9 @@ def bucket_bound(model: str, work, bytes_fwd: int, bytes_bwd: int | None, grad_r
     OPS_UNPACK) and, in K4, the reduce; the cull costs its own f64
     operations per tested lane and, for gut3d, per pixel (OPS_CULL,
     OPS_TILE_BOUND). The all-lane figure prices every live lane's
-    evaluations, as the sweep before the cull made them."""
-    suffix = "" if model == "gs2d" else "_" + model
+    evaluations, as the sweep before the cull made them. ``form``: the
+    suffix of a kernel form's names (``tr.STOCH``)."""
+    suffix = ("" if model == "gs2d" else "_" + model) + form
     f32_model = MODELS[model].parent or model
     cull = work.tested * OPS_CULL[f32_model] + n_tiles * tr.PIX * OPS_TILE_BOUND[f32_model]
     unpack = work.tested * OPS_UNPACK.get(model, 0)
@@ -582,8 +637,10 @@ def bucket_bound(model: str, work, bytes_fwd: int, bytes_bwd: int | None, grad_r
         if bytes_moved is None:
             continue
         name = base + suffix
-        bounds[name] = kernel_bound(name, work.kept_evals, work.hits, bytes_moved, extra, cull)
-        all_lanes[name] = kernel_bound(name, work.evals, work.hits, bytes_moved, extra)
+        bounds[name] = kernel_bound(name, work.kept_evals, work.hits, work.draws, bytes_moved,
+                                    extra, cull)
+        all_lanes[name] = kernel_bound(name, work.evals, work.hits, work.draws, bytes_moved,
+                                       extra)
     text = (" ".join(f"{k}_bound_ms={v[0]:.4f} ({v[1]})" for k, v in bounds.items())
             + " (the kept lanes; every live lane's evaluations: "
             + " ".join(f"{k}_all_lane_bound_ms={v[0]:.4f} ({v[1]})" for k, v in all_lanes.items())
@@ -591,11 +648,11 @@ def bucket_bound(model: str, work, bytes_fwd: int, bytes_bwd: int | None, grad_r
     return bounds, text
 
 
-def roofline(ops: float, bytes_moved: float, f64_ops: float = 0.0):
+def roofline(ops: float, bytes_moved: float, f64_ops: float = 0.0, int_ops: float = 0.0):
     """(bound ms, what bounds it): the larger of the operations over the
-    card's peak for their type (f32, and f64 where given) and the bytes over
-    its memory rate."""
-    t_ops = (ops / PEAK_F32_OPS + f64_ops / PEAK_F64_OPS) * 1e3
+    card's peak for their type (f32, and f64 and int32 where given) and the
+    bytes over its memory rate."""
+    t_ops = (ops / PEAK_F32_OPS + f64_ops / PEAK_F64_OPS + int_ops / PEAK_INT32_OPS) * 1e3
     t_bytes = bytes_moved / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -684,18 +741,23 @@ def kernel_split(call, counter, names=K4_KERNELS, calls=7, min_records=None):
     the warm-up, and the trace must hold a record of every kernel of every
     call, or of ``min_records`` calls at least where given (a window can
     lose records even after its warm-up step, PERF.md §7; the median is
-    then over the records it kept)."""
-    before = counter()
-    _, kernels = traced_events(call, calls)
-    launched = counter() - before
-    check(launched == calls + 1, f"kernel_split: {launched} launches in {calls + 1} calls")
-    split = {}
-    for name in names:
-        durs = [(e - s) / 1e3 for s, e, kname, _ in kernels if name in kname]
-        check((min_records or calls) <= len(durs) <= calls,
-              f"{len(durs)} records of {name} in {calls} calls")
-        split[name] = median(durs)
-    return split
+    then over the records it kept). A window that kept too few records is
+    traced again, up to PROFILE_WINDOWS windows in all; the last one's
+    count is the check."""
+    for attempt in range(1, PROFILE_WINDOWS + 1):
+        before = counter()
+        _, kernels = traced_events(call, calls)
+        launched = counter() - before
+        check(launched == calls + 1, f"kernel_split: {launched} launches in {calls + 1} calls")
+        durs = {name: [(e - s) / 1e3 for s, e, kname, _ in kernels if name in kname]
+                for name in names}
+        short = {name: len(d) for name, d in durs.items()
+                 if not (min_records or calls) <= len(d) <= calls}
+        if not short:
+            return {name: median(d) for name, d in durs.items()}
+        log(f"  kernel_split: profiler window {attempt} of {PROFILE_WINDOWS} kept {short} "
+            f"records in {calls} calls")
+    check(False, f"{short} records in {calls} calls, {PROFILE_WINDOWS} windows")
 
 
 def profile_calls(name, call, card, calls=3):
@@ -1515,10 +1577,11 @@ def tile_batches(st, dev, tiles=None):
 
 
 @torch.no_grad()
-def gut_twin(c, cfg, tiles=None):
+def gut_twin(c, cfg, tiles=None, seed=0):
     """The twin of the blend ``c`` ran (K1g's, K3g's, or a packed form's)
     over ``tiles`` (all by default), in batches (of TWIN_BATCH tiles
-    without a pixel context, as the gs2d twins run)."""
+    without a pixel context, as the gs2d twins run); ``seed`` keys a
+    stochastic blend."""
     bins, st, pix = c["bins"], blend_st(c, cfg), c["pix"]
     parts = []
     batches = twin_tiles if pix is None else tile_batches
@@ -1526,38 +1589,39 @@ def gut_twin(c, cfg, tiles=None):
         if cfg.raster.method == "bucket":
             parts.append(rb.rasterize_buckets_ref(bins.attrs.detach(), bins.ids,
                                                   bins.bucket_starts, st, cfg.raster.bucket_caps,
-                                                  tiles=t, pix_ctx=pix))
+                                                  tiles=t, pix_ctx=pix, seed=seed))
         else:
             parts.append(tr.rasterize_tiles_ref(bins.attrs.detach(), bins.pair_id,
                                                 bins.tile_start, bins.tile_count, st, tiles=t,
-                                                pix_ctx=pix))
+                                                pix_ctx=pix, seed=seed))
     return torch.cat([o for o, _ in parts]), torch.cat([i for _, i in parts])
 
 
 @torch.no_grad()
-def gut_twin_bwd(c, cfg, ctx, tiles=None):
-    """K2g's or K4g's twin over ``tiles`` (all by default), in batches."""
+def gut_twin_bwd(c, cfg, ctx, tiles=None, seed=0):
+    """K2g's or K4g's twin (or a gs2d form's: ``c`` without a pixel
+    context) over ``tiles`` (all by default), in batches."""
     bins, st, pix = c["bins"], blend_st(c, cfg), c["pix"]
     total = 0
-    for t in tile_batches(st, pix.device, tiles):
+    for t in tile_batches(st, bins.attrs.device, tiles):
         if cfg.raster.method == "bucket":
             total = total + rb.rasterize_buckets_bwd_ref(
                 bins.attrs.detach(), bins.bucket_starts, ctx, st, cfg.raster.bucket_caps,
-                tiles=t, pix_ctx=pix)
+                tiles=t, pix_ctx=pix, seed=seed)
         else:
             total = total + tr.rasterize_tiles_bwd_ref(
                 bins.attrs.detach(), bins.tile_start, bins.tile_count, ctx, st, tiles=t,
-                pix_ctx=pix)
+                pix_ctx=pix, seed=seed)
     return total
 
 
-def gut_kernel_bwd(c, cfg, ctx):
+def gut_kernel_bwd(c, cfg, ctx, seed=0):
     bins, st, pix = c["bins"], blend_st(c, cfg), c["pix"]
     if cfg.raster.method == "bucket":
         return rb.rasterize_buckets_bwd(bins.attrs.detach(), bins.bucket_starts, ctx, st,
-                                        cfg.raster.bucket_caps, pix)
+                                        cfg.raster.bucket_caps, pix, seed)
     return tr.rasterize_tiles_bwd(bins.attrs.detach(), bins.tile_start, bins.tile_count, ctx,
-                                  st, pix)
+                                  st, pix, seed)
 
 
 def gut_fwd_gate(label, out_k, id_k, out_r, id_r):
@@ -2285,6 +2349,371 @@ def packed_full_size(dev, card: str, prepared, caps, seed: int):
     return entries, bounds
 
 
+# ---- stochastic transparency (cfg.stochastic SPLAT): the _stoch forms ------
+#
+# One binary-accept estimator for SPLAT and ANYHIT: each pair that passes
+# the cutoffs is opaque where a hashed uniform of (key, pixel, lane) falls
+# below its alpha (csrc/response.cuh hash_uniform, stochastic_accept). T is
+# then exactly 0 or 1 per sample, and a pixel is one splat's colour. The
+# gs2d and gs2dp forms round every alpha as their twins, so they must equal
+# them bit for bit; a gut3d accept flips where the kernel and the twin round
+# an alpha apart across its uniform, so >= 99.9 % of pixels bit-equal, the
+# others counted. The backward forms give the colour rows K2's and K4's
+# gates (gut3d: the flip-aware ones) and every other row exactly 0.
+
+STOCH_FRAMES = (  # label, pipeline, method, pair format, temporal samples
+    ("3dgs", gt.Pipeline.MESH, "pairs", "f32", 4), ("3dgs", gt.Pipeline.MESH, "bucket", "f32", 4),
+    ("3dgut", gt.Pipeline.MESH_3DGUT, "pairs", "f32", 2),
+    ("3dgut", gt.Pipeline.MESH_3DGUT, "bucket", "f32", 2),
+    ("3dgrt", gt.Pipeline.RTX, "pairs", "f32", 2),
+    ("3dgs", gt.Pipeline.MESH, "pairs", "packed", 1),
+    ("3dgs", gt.Pipeline.MESH, "bucket", "packed", 1),
+    ("3dgut", gt.Pipeline.MESH_3DGUT, "pairs", "packed", 1),
+    ("3dgut", gt.Pipeline.MESH_3DGUT, "bucket", "packed", 1))
+STOCH_TRAIN_STEPS = 3
+STOCH_SEED = 1           # temporal sample 0's (render/pipelines.sample_seed)
+STOCH_SPPS = (1, 4, 16)  # the convergence check's samples per pixel
+STOCH_ALONE_CALLS = 5    # profiled calls per kernel-alone time; up to 2 records may be lost
+COLOUR_ROWS = slice(tr.ATTR_R, tr.ATTR_B + 1)
+
+
+def stoch_name(method: str, model: str, pass_: str = "fwd") -> str:
+    base = ("raster_bucket_" if method == "bucket" else "rasterize_") + pass_
+    return base + ("" if model == "gs2d" else "_" + model) + tr.STOCH
+
+
+def stoch_cfg(cfg, samples: int = 1):
+    return cfg.replace(stochastic=gt.StochasticMode.SPLAT, temporal_samples=samples)
+
+
+def stoch_blend_inputs(prepared, cam, cfg):
+    """(c, blend) of a stochastic frame: the stages up to the blend run
+    (``c`` holds bins, the pair statics, the pixel context), and
+    ``blend(seed)`` launches the frame's stochastic blend on them."""
+    stages, c = frame_stages_of(prepared, cam, cfg)
+    for name, step in stages:
+        if name not in ("blend", "assemble"):
+            step()
+    check(c["st"].stochastic, "the statics of a stochastic frame are not stochastic")
+    return c, lambda seed=STOCH_SEED: blend_bins(c["bins"], cfg, c["st"], c["pix"], seed)
+
+
+def timed(fn):
+    """(fn(), its device ms by CUDA events)."""
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    out = fn()
+    b.record()
+    b.synchronize()
+    return out, a.elapsed_time(b)
+
+
+@torch.no_grad()
+def stoch_work(c, cfg, kernel: str):
+    """The plain counts of ``kernel`` ("K1" .. "K4") over the stochastic
+    sweep of STOCH_SEED on every tile: BucketWork for K3 and K4, else
+    blend_work's (evaluations, hits, tested, kept, kept evaluations,
+    draws) under K1's per-warp or K2's per-tile predicate."""
+    bins, st, pix = c["bins"], blend_st(c, cfg), c["pix"]
+    attrs = bins.attrs.detach()
+    batches = tile_batches(st, attrs.device)
+    if kernel in ("K3", "K4"):
+        parts = [rb.bucket_work(attrs, bins.bucket_starts, st, cfg.raster.bucket_caps, tiles=t,
+                                pix_ctx=pix, seed=STOCH_SEED) for t in batches]
+        return rb.BucketWork(*(sum(p[i] for p in parts) for i in range(len(parts[0]))))
+    args = (attrs, bins.tile_start, bins.tile_count, st)
+    may = tr.pair_warp_may_hit if kernel == "K1" else tr.pair_may_hit
+    work = [0] * 6
+    for t in batches:
+        keep = may(*args, t, pix)
+        if kernel == "K2" and not model_of(st).cull_pairs:
+            keep = torch.ones_like(keep)
+        work = [a + b for a, b in zip(work, tr.blend_work(*args, t, pix, keep=keep,
+                                                          seed=STOCH_SEED))]
+    return work
+
+
+def draw_counts(work) -> str:
+    """A log fragment with a stochastic sweep's draws (kept evaluations
+    whose alpha passes the cutoffs, where the kernels hash), kept
+    evaluations and accepts (``stoch_work``'s counts)."""
+    kept_evals, hits, draws = ((work.kept_evals, work.hits, work.draws)
+                               if isinstance(work, rb.BucketWork) else (work[4], work[1], work[5]))
+    return (f"draws={draws} of kept evaluations {kept_evals} "
+            f"({draws / max(kept_evals, 1):.4f}), accepts={hits}")
+
+
+def stoch_kept_gate(label, kept, plain, exact):
+    """A stochastic form's kept counter against the plain count of the same
+    sweep: equal where kernel and twin drew the same accepts; else (gut3d,
+    flipped accepts) within 1 %, as a tile may stay live a step more or
+    less."""
+    log(f"  {label} kept={kept} plain count over the stochastic sweep={plain} "
+        f"(gate: {'equal' if exact else 'within 1 %'})")
+    check(kept == plain if exact else abs(kept - plain) <= 0.01 * plain,
+          f"{label} kept {kept}, the plain count {plain}")
+
+
+def stoch_alone(label, call_of, counter_of, names, card):
+    """The deterministic and the stochastic form of one kernel alone, in
+    turns (deterministic, stochastic, stochastic, deterministic): the
+    profiler's per-kernel medians summed over the wrapper's kernels.
+    ``call_of(stochastic)`` makes a call, ``counter_of(stochastic)`` reads
+    its launch counter. Returns the stochastic form's median."""
+    def alone(stoch):
+        split = kernel_split(call_of(stoch), lambda: counter_of(stoch), names,
+                             calls=STOCH_ALONE_CALLS, min_records=STOCH_ALONE_CALLS - 2)
+        return sum(split.values())
+
+    det, sto = abba(lambda: alone(False), lambda: alone(True))
+    log(f"timing {label} kernel alone beside its deterministic form ({card}; profiler, "
+        f"median over {STOCH_ALONE_CALLS} calls less lost records, turns deterministic, "
+        f"stochastic, stochastic, deterministic): deterministic="
+        + "/".join(f"{a:.4f}" for a in det) + " stochastic=" + "/".join(f"{a:.4f}" for a in sto))
+    return median(sto)
+
+
+def stoch_frame(dev, card, prepared, cam, base, caps, frame):
+    """One stochastic headline frame: the main path through ``render`` with
+    every launch counter of the blend's wrapper zeroed (only the stochastic
+    form moves, once per temporal sample), finite, T a multiple of 1 /
+    samples, no bucket overflow, a bit-equal repeat; then sample 0's blend
+    against its twin on every tile, the kept counter, the bound, the twin's
+    time and the kernel alone beside its deterministic form. Returns (name,
+    report entry, bound)."""
+    label, pipeline, method, fmt, samples = frame
+    cfg = stoch_cfg(with_format(gut_cfg(base, pipeline, method, caps), fmt), samples)
+    fwd = rb.rasterize_buckets if method == "bucket" else tr.rasterize_tiles
+    model = ("gs2d" if pipeline == gt.Pipeline.MESH else "gut3d") + ("p" if fmt == "packed"
+                                                                      else "")
+    name, form = stoch_name(method, model), model + tr.STOCH
+    tag = f"stochastic {label} {method} {fmt}"
+    torch.cuda.synchronize()
+    tr.zero_counters(fwd)
+    out = render(prepared, cam, cfg)
+    torch.cuda.synchronize()
+    launches = {m: getattr(fwd, tr.LAUNCH_COUNTER[m]) for m in tr.LAUNCH_COUNTER}
+    log(f"{tag} main path: 1 frame of {samples} samples, launches "
+        f"{ {m: n for m, n in launches.items() if n} }")
+    check(launches == {m: samples * (m == form) for m in launches},
+          f"{tag}: launches {launches} for {samples} samples")
+    trans = out.transmittance
+    check(tuple(out.image.shape) == (HEIGHT, WIDTH, 3) and bool(torch.isfinite(out.image).all()),
+          f"{tag}: image shape or values")
+    check(torch.equal(trans * samples, torch.round(trans * samples)),
+          f"{tag}: T is not a multiple of 1 / {samples}")
+    check(method == "pairs" or not bool(out.overflow), f"{tag}: a bucket frame overflowed")
+    again = render(prepared, cam, cfg)
+    torch.cuda.synchronize()
+    same = all(torch.equal(getattr(again, f), getattr(out, f))
+               for f in ("image", "transmittance", "depth", "splat_id"))
+    log(f"{tag} frame: covered_frac={(trans < 0.5).float().mean().item():.4f} "
+        f"T levels={torch.unique(trans).numel()} repeat bit-equal: {same}")
+    check(same, f"{tag}: the repeat frame differs")
+    del out, again
+
+    c, blend = stoch_blend_inputs(prepared, cam, cfg)
+    st = blend_st(c, cfg)
+    out_k, id_k = blend()
+    torch.cuda.synchronize()
+    kept = int(getattr(fwd, tr.KEPT_COUNTER[form]))
+    (out_r, id_r), t_plain = timed(lambda: gut_twin(c, cfg, seed=STOCH_SEED))
+    out_k = out_k.detach()
+    same_px = (out_k == out_r).all(dim=1) & (id_k == id_r)
+    err = (out_k[:, :4] - out_r[:, :4]).abs().max().item()
+    levels = set(out_k[:, 3].unique().tolist())
+    log(f"  {name} vs twin on all {same_px.numel() // tr.PIX} tiles (seed {STOCH_SEED}): "
+        f"pixels bit-equal {same_px.float().mean().item():.6f} ({int((~same_px).sum())} "
+        f"differ), max abs {err:.3e}, T values {sorted(levels)}")
+    check(levels <= {0.0, 1.0}, f"{name}: T is not 0 or 1 in one sample")
+    if model in ("gs2d", "gs2dp"):
+        check(torch.equal(out_k, out_r) and torch.equal(id_k, id_r),
+              f"{name} differs from its twin")
+    else:
+        check(same_px.float().mean().item() >= ID_AGREE, f"{name}: too many flipped pixels")
+    kernel = "K3" if method == "bucket" else "K1"
+    work = stoch_work(c, cfg, kernel)
+    stoch_kept_gate(name, kept, work.kept if kernel == "K3" else work[3], bool(same_px.all()))
+    n_tiles = st.tiles_x * st.tiles_y
+    rows = MODELS[model].rows
+    out_bytes = n_tiles * tr.PIX * (tr.OUT_ROWS * 4 + 4) + (0 if c["pix"] is None
+                                                            else n_tiles * tr.PIX * 6 * 4)
+    if method == "bucket":
+        fwd_bytes = work.live * (rows * 4 + 4) + n_tiles * (12 * 4 + 12 * 4) + out_bytes
+        frame_bounds, text = bucket_bound(model, work, fwd_bytes, None, 0, n_tiles, tr.STOCH)
+        bound = frame_bounds[name]
+    else:
+        fwd_bytes = int(c["bins"].num_pairs) * (rows * 4 + 4) + n_tiles * 8 + out_bytes
+        bound, text = warp_cull_bound(name, work, fwd_bytes, n_tiles)
+    log(f"  bound {name}: {draw_counts(work)}; " + text)
+    t_kernel = median(time_ms(blend, 10))
+    det_st = dataclasses.replace(c["st"], stochastic=False)
+    t_alone = stoch_alone(
+        name, lambda stoch: (blend if stoch else
+                             lambda: blend_bins(c["bins"], cfg, det_st, c["pix"])),
+        lambda stoch: getattr(fwd, tr.LAUNCH_COUNTER[form if stoch else model]),
+        BLEND_KERNELS[method], card)
+    log(f"timing {name} 1080p/1M ({card}): kernel_ms={t_kernel:.4f} alone_ms={t_alone:.4f} "
+        f"plain_twin_ms={t_plain:.4f}")
+    return name, dict(launches=launches[form], max_abs_err=err, ms=t_kernel, plain_ms=t_plain,
+                      alone_ms=t_alone), bound
+
+
+def stoch_train(dev, card, truth, base, caps, label, pipeline, method):
+    """STOCH_TRAIN_STEPS stochastic train steps (one sample each) at 1080p:
+    the launches of both wrappers' forms counted (only the stochastic ones
+    move, once a step), finite losses, only colour-path gradients
+    (opacities, scales and quaternions exactly 0); then the backward form
+    against its twin with the loss's own cotangent at sample 0's blend on
+    every tile, its kept counter, bound, twin time and alone beside its
+    deterministic form.
+    Returns (name, report entry, bound)."""
+    det = gut_cfg(base, pipeline, method, caps)
+    cfg = stoch_cfg(det)
+    model = "gs2d" if pipeline == gt.Pipeline.MESH else "gut3d"
+    name, form = stoch_name(method, model, "bwd"), model + tr.STOCH
+    fwd = rb.rasterize_buckets if method == "bucket" else tr.rasterize_tiles
+    bwd = rb.rasterize_buckets_bwd if method == "bucket" else tr.rasterize_tiles_bwd
+    tag = f"stochastic {label} {method}"
+    tc = gt.TrainConfig(scene_extent=4.0)
+    cam = gt.look_at([0, 0, -7], [0, 0, 0], [0, 1, 0], WIDTH, HEIGHT, fov_y_rad=0.9, device=dev)
+    with torch.no_grad():
+        target = render(truth.prepare(), cam, det).image
+    splats = jittered_start(truth, dev, 0)
+    opt = gt.make_optimizer(splats, tc)
+    torch.cuda.synchronize()
+    tr.zero_counters(fwd)
+    tr.zero_counters(bwd, tr.TRAINED)
+    steps = [gt.train_step(splats, opt, cam, target, cfg, 0, tc)
+             for _ in range(STOCH_TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    launches = {w: {m: getattr(wr, tr.LAUNCH_COUNTER[m]) for m in counters}
+                for w, wr, counters in (("fwd", fwd, tr.LAUNCH_COUNTER),
+                                        ("bwd", bwd, ("gs2d", "gut3d", "gs2d_stoch",
+                                                      "gut3d_stoch")))}
+    losses = [loss.item() for loss, _ in steps]
+    zero = {f: bool((getattr(splats, f).grad == 0).all()) for f in ("opacities", "scales", "quats")}
+    log(f"{tag} training path: {STOCH_TRAIN_STEPS} steps, launches "
+        f"{ {w: {m: n for m, n in d.items() if n} for w, d in launches.items()} }; losses "
+        f"{' '.join(f'{x:.6f}' for x in losses)}; zero gradients {zero}")
+    for w, d in launches.items():
+        check(d == {m: STOCH_TRAIN_STEPS * (m == form) for m in d},
+              f"{tag}: {w} launches {d} in {STOCH_TRAIN_STEPS} steps")
+    check(all(math.isfinite(x) for x in losses), f"{tag}: non-finite loss")
+    check(all(bool(torch.isfinite(x).all()) for x in grads_of(splats)),
+          f"{tag}: non-finite gradient")
+    check(all(zero.values()), f"{tag}: a gradient through alpha is not 0: {zero}")
+    check(splats.sh_dc.grad.abs().max().item() > 0, f"{tag}: no colour gradient")
+
+    c, blend = stoch_blend_inputs(splats.prepare(), cam, cfg)
+    st = blend_st(c, cfg)
+    out = blend()
+    image = tr.assemble_image(*out, st.tiles_x, st.tiles_y, WIDTH, HEIGHT, cfg.background)[0]
+    (g_out,) = torch.autograd.grad(gt.rgb_loss(image, target, tc.ssim_lambda), out[0])
+    ctx = tr.bwd_context(out[0].detach(), g_out)
+    del out, image, g_out
+    d_k = gut_kernel_bwd(c, cfg, ctx, STOCH_SEED)
+    torch.cuda.synchronize()
+    kept = int(getattr(bwd, tr.KEPT_COUNTER[form]))
+    d_r, t_plain = timed(lambda: gut_twin_bwd(c, cfg, ctx, seed=STOCH_SEED))
+    cols = ((d_k != 0) | (d_r != 0)).any(dim=0)
+    grad_rows = MODELS[model].grad_rows
+    other = [r for r in range(d_k.shape[0]) if not COLOUR_ROWS.start <= r < COLOUR_ROWS.stop]
+    check(bool((d_k[other] == 0).all()) and bool((d_r[other] == 0).all()),
+          f"{name}: a row other than the colour rows is not 0")
+    rtol = BWD_RTOL if model == "gs2d" else GUT_BWD_RTOL
+    ok, abs_err, rel, share, p999 = bwd_gate(d_k[COLOUR_ROWS][:, cols], d_r[COLOUR_ROWS][:, cols],
+                                             rtol)
+    log(f"  {name} vs twin on {int(cols.sum())} columns of all tiles (seed {STOCH_SEED}): "
+        f"colour rows "
+        f"max err / row max {rel:.3e} (gate {rtol:g}), least share within {BWD_ELEM_RTOL:g} "
+        f"{share:.6f} (gate {BWD_ELEM_SHARE}), p99.9 " + " ".join(f"{x:.2e}" for x in p999)
+        + f"; the other {grad_rows - 3} gradient rows and the depth row exactly 0 in both")
+    check(ok, f"{name} vs twin outside the gates: {rel} / {share}")
+    kernel = "K4" if method == "bucket" else "K2"
+    work = stoch_work(c, cfg, kernel)
+    stoch_kept_gate(name, kept, work.kept if kernel == "K4" else work[3], model == "gs2d")
+    n_tiles = st.tiles_x * st.tiles_y
+    rays = 0 if c["pix"] is None else n_tiles * tr.PIX * 6 * 4
+    if method == "bucket":
+        p = c["bins"].attrs.shape[1]
+        bwd_bytes = (work.live * grad_rows * 4 + n_tiles * (12 * 4 + 12 * 4)
+                     + n_tiles * tr.PIX * tr.CTX_ROWS * 4 + rays + p * grad_rows * 4)
+        frame_bounds, text = bucket_bound(model, work, None, bwd_bytes, grad_rows, n_tiles,
+                                          tr.STOCH)
+        bound = frame_bounds[name]
+    else:
+        bwd_bytes = (int(c["bins"].num_pairs) * 2 * grad_rows * 4
+                     + n_tiles * (2 * 4 + tr.PIX * tr.CTX_ROWS * 4) + rays)
+        bound, text = pair_bound(name, work, bwd_bytes, n_tiles)
+    log(f"  bound {name}: {draw_counts(work)}; " + text)
+    t_kernel = median(time_ms(lambda: gut_kernel_bwd(c, cfg, ctx, STOCH_SEED), 10))
+    det_c = dict(c, st=dataclasses.replace(c["st"], stochastic=False))
+    t_alone = stoch_alone(
+        name, lambda stoch: (lambda: gut_kernel_bwd(c, cfg, ctx, STOCH_SEED)) if stoch
+        else (lambda: gut_kernel_bwd(det_c, cfg, ctx)),
+        lambda stoch: getattr(bwd, tr.LAUNCH_COUNTER[form if stoch else model]),
+        K4_KERNELS if method == "bucket" else ("rasterize_bwd_kernel",), card)
+    log(f"timing {name} 1080p/1M ({card}): kernel_ms={t_kernel:.4f} alone_ms={t_alone:.4f} "
+        f"plain_twin_ms={t_plain:.4f}")
+    return name, dict(launches=launches["bwd"][form], max_abs_err=abs_err, ms=t_kernel,
+                      plain_ms=t_plain, alone_ms=t_alone), bound
+
+
+def stoch_convergence(dev, card, prepared, base):
+    """3DGS pairs at 1080p: the PSNR of the stochastic frame against the
+    deterministic one must rise from 1 to 4 to 16 samples per pixel; the
+    a-trous pass at 4 samples through ``render`` equals ``denoise_output``
+    of the undenoised frame bit for bit, is finite, and is timed."""
+    cam = gt.look_at([0, 0, -7], [0, 0, 0], [0, 1, 0], WIDTH, HEIGHT, fov_y_rad=0.9, device=dev)
+    with torch.no_grad():
+        ref = render(prepared, cam, base).image.clamp(0, 1)
+        psnr = [psnr_against(render(prepared, cam, stoch_cfg(base, spp)).image.clamp(0, 1), ref)
+                for spp in STOCH_SPPS]
+        cfg4 = stoch_cfg(base, 4)
+        raw = render(prepared, cam, cfg4)
+        den = render(prepared, cam, cfg4.replace(denoise="atrous")).image
+        again = denoise_output(raw)
+        torch.cuda.synchronize()
+    log(f"stochastic convergence 1080p/1M 3dgs pairs: psnr_db vs the deterministic frame at "
+        + " ".join(f"{spp} spp={p:.3f}" for spp, p in zip(STOCH_SPPS, psnr))
+        + f"; atrous at 4 spp {psnr_against(den.clamp(0, 1), ref):.3f} (undenoised "
+        f"{psnr[1]:.3f})")
+    check(all(a < b for a, b in zip(psnr, psnr[1:])), f"PSNR does not rise with samples: {psnr}")
+    check(bool(torch.isfinite(den).all()) and tuple(den.shape) == (HEIGHT, WIDTH, 3),
+          "the a-trous frame's shape or values")
+    check(torch.equal(den, again), "render's a-trous frame differs from denoise_output's")
+    t_den = median(time_ms(lambda: denoise_output(raw), 10))
+    t_frame = median(time_ms(lambda: render(prepared, cam, cfg4.replace(denoise="atrous")), 5))
+    log(f"timing atrous 1080p ({card}): denoise_ms={t_den:.4f} frame_4spp_atrous_ms="
+        f"{t_frame:.4f}")
+
+
+def stochastic(dev, card: str, truth: gt.SplatSet, caps):
+    """Phase 11: stochastic transparency at 1080p with 1M splats, SH 3, at
+    the headline caps. Returns (report entries, bounds)."""
+    t0 = time.perf_counter()
+    base = gt.RenderConfig(width=WIDTH, height=HEIGHT, sh_degree=3)
+    cam = gt.look_at([0, 0, -7], [0, 0, 0], [0, 1, 0], WIDTH, HEIGHT, fov_y_rad=0.9, device=dev)
+    prepared = truth.prepare()
+    entries, bounds = {}, {}
+    for frame in STOCH_FRAMES:
+        name, entry, bound = stoch_frame(dev, card, prepared, cam, base, caps, frame)
+        if name in entries:  # K1gs again on the 3DGRT frame: its gates, no entry
+            entries[name]["max_abs_err"] = max(entries[name]["max_abs_err"],
+                                               entry["max_abs_err"])
+            continue
+        entries[name], bounds[name] = entry, bound
+    for label, pipeline in (("3dgs", gt.Pipeline.MESH), ("3dgut", gt.Pipeline.MESH_3DGUT)):
+        for method in ("pairs", "bucket"):
+            name, entries_, bound = stoch_train(dev, card, truth, base, caps, label, pipeline,
+                                                method)
+            entries[name], bounds[name] = entries_, bound
+    stoch_convergence(dev, card, prepared, base)
+    log(f"stochastic phase {time.perf_counter() - t0:.1f} s")
+    return entries, bounds
+
+
 def bit_equal(label: str, got: torch.Tensor, want: torch.Tensor) -> float:
     """Max abs difference of a probe kernel's output against its twin's, 0:
     fails unless they are equal bit for bit, NaN keys included (the probes
@@ -2595,6 +3024,9 @@ def main() -> int:
         packed_entries[name]["max_abs_err"] = max(packed_entries[name]["max_abs_err"], err)
     results.update(packed_entries)
     bounds.update(packed_bounds)
+    stoch_entries, stoch_bounds = stochastic(dev, card, truth, caps)
+    results.update(stoch_entries)
+    bounds.update(stoch_bounds)
     probe_entries, probe_bounds, library = probes(dev, card)
     results.update(probe_entries)
     bounds.update(probe_bounds)

@@ -451,24 +451,24 @@ def gut_setup(device, method="pairs", degree=2, fisheye=False, w=128, h=96, seed
     return bins, st, raster.bucket_caps, build_tile_rays(cam, cfg)
 
 
-def gut_fwd(bins, st, caps, pix, twin=False):
+def gut_fwd(bins, st, caps, pix, twin=False, seed=0):
     if isinstance(bins, rb.BucketBins):
         if twin:
             return rb.rasterize_buckets_ref(bins.attrs, bins.ids, bins.bucket_starts, st, caps,
-                                            pix_ctx=pix)
-        return rb.rasterize_buckets(bins, st, caps, pix)
+                                            pix_ctx=pix, seed=seed)
+        return rb.rasterize_buckets(bins, st, caps, pix, seed)
     if twin:
         return tr.rasterize_tiles_ref(bins.attrs, bins.pair_id, bins.tile_start,
-                                      bins.tile_count, st, pix_ctx=pix)
-    return tr.rasterize_bins(bins, st, pix)
+                                      bins.tile_count, st, pix_ctx=pix, seed=seed)
+    return tr.rasterize_bins(bins, st, pix, seed)
 
 
-def gut_bwd(bins, st, caps, ctx, pix, twin=False):
+def gut_bwd(bins, st, caps, ctx, pix, twin=False, seed=0):
     if isinstance(bins, rb.BucketBins):
         fn = rb.rasterize_buckets_bwd_ref if twin else rb.rasterize_buckets_bwd
-        return fn(bins.attrs, bins.bucket_starts, ctx, st, caps, pix_ctx=pix)
+        return fn(bins.attrs, bins.bucket_starts, ctx, st, caps, pix_ctx=pix, seed=seed)
     fn = tr.rasterize_tiles_bwd_ref if twin else tr.rasterize_tiles_bwd
-    return fn(bins.attrs, bins.tile_start, bins.tile_count, ctx, st, pix_ctx=pix)
+    return fn(bins.attrs, bins.tile_start, bins.tile_count, ctx, st, pix_ctx=pix, seed=seed)
 
 
 def assert_gut_fwd_matches(out_k, id_k, out_r, id_r):
@@ -782,7 +782,7 @@ def assert_pair_kept_matches_plain(bins, st, model, pix=None):
     that hits; returns the count."""
     args = (bins.attrs, bins.tile_start, bins.tile_count, st)
     may = tr.pair_may_hit(*args, pix_ctx=pix)
-    _, _, tested, kept_plain, _ = tr.blend_work(*args, pix_ctx=pix, keep=may)
+    _, _, tested, kept_plain, _, _ = tr.blend_work(*args, pix_ctx=pix, keep=may)
     want = kept_plain if tr.model_of(st).cull_pairs else tested
     kept = int(getattr(tr.rasterize_tiles_bwd, tr.KEPT_COUNTER[model]))
     assert 0 < kept <= tested
@@ -951,7 +951,7 @@ def assert_warp_kept_matches_plain(bins, st, model, pix=None):
     count, and no culled (warp, pair) that hits; returns the count."""
     args = (bins.attrs, bins.tile_start, bins.tile_count, st)
     may = tr.pair_warp_may_hit(*args, pix_ctx=pix)
-    _, _, tested, kept_plain, _ = tr.blend_work(*args, pix_ctx=pix, keep=may)
+    _, _, tested, kept_plain, _, _ = tr.blend_work(*args, pix_ctx=pix, keep=may)
     kept = int(getattr(tr.rasterize_tiles, tr.KEPT_COUNTER[model]))
     assert 0 < kept < tr.WARPS * tested
     assert kept == kept_plain, (kept, kept_plain)
@@ -1156,6 +1156,166 @@ def test_packed_rows_on_card_equal_cpu_rows(cuda, model):
     assert torch.equal(words[0], words[1])
     high = words[1] & -65536
     assert int(((high == 0) | (high == -2**31)).sum()) > 100  # subnormal words were there
+
+
+# ---- the stochastic forms of K1-K4 (RasterStatics.stochastic) -------------
+#
+# Each against its twin on one card. An accepted pair is opaque, so T is
+# exactly 0 or 1 and each pixel is one splat's colour, depth and id. gs2d
+# and gs2dp alphas equal the twins' bit for bit (-fmad=false, expf as
+# torch's), so their frames are bit-equal; a gut3d accept flips where an
+# alpha the two round apart straddles its uniform, so >= 99.9 % of pixels
+# bit-equal (all five rows and the id), the others counted. The backward
+# forms give the colour rows their sums (K2's and K4's gates, the gut3d
+# ones for gut3d) and every other row exactly 0, and repeat bit for bit.
+# The kept counters equal the plain counts over the same stochastic sweep
+# (the culls keep what they keep in the deterministic form; a stochastic
+# tile freezes sooner, so it enters fewer steps).
+
+STOCH_SEED = 7920
+STOCH_FORMS = [("gs2d", "pairs"), ("gs2d", "bucket"), ("gs2dp", "pairs"), ("gs2dp", "bucket"),
+               ("gut3d", "pairs"), ("gut3d", "bucket"), ("gut3dp", "pairs"),
+               ("gut3dp", "bucket")]
+
+
+def stoch_setup(device, model, method, w=128, h=96):
+    """(bins, stochastic statics, caps, pixel context) of a frame of ``model``."""
+    caps = pix = None
+    if model in PACKED_MODELS:
+        bins, st, caps, pix = packed_bins(*packed_setup(device, model, method, "adversarial",
+                                                        w, h))
+    elif model == "gut3d":
+        bins, st, caps, pix = gut_setup(device, method, w=w, h=h)
+    elif method == "bucket":
+        cfg = bucket_cfg(w, h)
+        bins, st = bucket_bins_on(device, cfg)
+        caps = cfg.raster.bucket_caps
+    else:
+        cfg = gt.RenderConfig(width=w, height=h, sh_degree=1)
+        bins, st = bins_on(device, cfg), raster_statics(cfg)
+    return bins, dataclasses.replace(st, stochastic=True), caps, pix
+
+
+def stoch_kept_plain(bins, st, caps, pix, kernel):
+    """The plain kept count of ``kernel`` ("K1" to "K4") over the
+    stochastic sweep of STOCH_SEED."""
+    if kernel in ("K3", "K4"):
+        return rb.bucket_work(bins.attrs, bins.bucket_starts, st, caps, pix_ctx=pix,
+                              seed=STOCH_SEED).kept
+    args = (bins.attrs, bins.tile_start, bins.tile_count, st)
+    may = (tr.pair_warp_may_hit if kernel == "K1" else tr.pair_may_hit)(*args, pix_ctx=pix)
+    _, _, tested, kept, _, _ = tr.blend_work(*args, pix_ctx=pix, keep=may, seed=STOCH_SEED)
+    return kept if kernel == "K1" or tr.model_of(st).cull_pairs else tested
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model, method", STOCH_FORMS)
+def test_stochastic_fwd_kernels_match_twins(cuda, model, method):
+    bins, st, caps, pix = stoch_setup(cuda, model, method)
+    bucket = method == "bucket"
+    fwd = rb.rasterize_buckets if bucket else tr.rasterize_tiles
+    form = model + tr.STOCH
+    before = {m: getattr(fwd, tr.LAUNCH_COUNTER[m]) for m in tr.LAUNCH_COUNTER}
+    out_k, id_k = gut_fwd(bins, st, caps, pix, seed=STOCH_SEED)
+    kept = int(getattr(fwd, tr.KEPT_COUNTER[form]))
+    again, again_id = gut_fwd(bins, st, caps, pix, seed=STOCH_SEED)
+    other, _ = gut_fwd(bins, st, caps, pix, seed=STOCH_SEED + 1)
+    out_r, id_r = gut_fwd(bins, st, caps, pix, twin=True, seed=STOCH_SEED)
+    torch.cuda.synchronize()
+    after = {m: getattr(fwd, tr.LAUNCH_COUNTER[m]) for m in tr.LAUNCH_COUNTER}
+    assert after == {m: before[m] + 3 * (m == form) for m in before}
+    assert torch.equal(out_k, again) and torch.equal(id_k, again_id)
+    assert not torch.equal(out_k, other)  # another seed, another frame
+    assert set(out_k[:, 3].unique().tolist()) == {0.0, 1.0}  # opaque accepts, T exact
+    same = (out_k == out_r).all(dim=1) & (id_k == id_r)            # (T, 256) pixels
+    if model in ("gs2d", "gs2dp"):
+        assert torch.equal(out_k, out_r) and torch.equal(id_k, id_r)
+    else:
+        assert same.float().mean().item() >= ID_AGREE, int((~same).sum())
+    plain = stoch_kept_plain(bins, st, caps, pix, "K3" if bucket else "K1")
+    if bool(same.all()):
+        assert kept == plain, (kept, plain)
+    else:  # a flipped accept may keep a tile live for a step more or less
+        assert abs(kept - plain) <= 0.01 * plain, (kept, plain)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model, method", [("gs2d", "pairs"), ("gs2d", "bucket"),
+                                           ("gut3d", "pairs"), ("gut3d", "bucket")])
+def test_stochastic_bwd_kernels_match_twins(cuda, model, method):
+    bins, st, caps, pix = stoch_setup(cuda, model, method)
+    bucket = method == "bucket"
+    bwd = rb.rasterize_buckets_bwd if bucket else tr.rasterize_tiles_bwd
+    form = model + tr.STOCH
+    out, _ = gut_fwd(bins, st, caps, pix, twin=True, seed=STOCH_SEED)
+    g = torch.randn(out.shape, generator=torch.Generator(device=cuda).manual_seed(0),
+                    device=cuda)
+    ctx = tr.bwd_context(out, g)
+    before = {m: getattr(bwd, tr.LAUNCH_COUNTER[m]) for m in ("gs2d", "gut3d", "gs2d_stoch",
+                                                              "gut3d_stoch")}
+    d_k = gut_bwd(bins, st, caps, ctx, pix, seed=STOCH_SEED)
+    kept = int(getattr(bwd, tr.KEPT_COUNTER[form]))
+    again = gut_bwd(bins, st, caps, ctx, pix, seed=STOCH_SEED)
+    d_r = gut_bwd(bins, st, caps, ctx, pix, twin=True, seed=STOCH_SEED)
+    torch.cuda.synchronize()
+    after = {m: getattr(bwd, tr.LAUNCH_COUNTER[m]) for m in before}
+    assert after == {m: before[m] + 2 * (m == form) for m in before}
+    assert torch.equal(d_k, again)
+    assert bool(torch.isfinite(d_k).all())
+    colour = range(tr.ATTR_R, tr.ATTR_B + 1)
+    for r in range(d_k.shape[0]):
+        if r not in colour:
+            assert (d_k[r] == 0).all() and (d_r[r] == 0).all(), r
+            continue
+        k, ref = d_k[r], d_r[r]
+        scale = ref.abs().max().item()
+        assert scale > 0, r
+        rtol = BWD_RTOL if model == "gs2d" else GUT_BWD_MAX
+        assert (k - ref).abs().max().item() <= rtol * scale, r
+        limit = 1e-2 * (ref.abs() + ref.abs()[ref != 0].median())
+        assert ((k - ref).abs() <= limit).float().mean().item() >= 0.999, r
+    plain = stoch_kept_plain(bins, st, caps, pix, "K4" if bucket else "K2")
+    assert abs(kept - plain) <= (0 if model == "gs2d" else 0.01 * plain), (kept, plain)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pipeline, method", [("MESH", "pairs"), ("MESH", "bucket"),
+                                              ("MESH_3DGUT", "pairs"), ("RTX", "bucket")])
+def test_stochastic_render_and_train_step_on_card(cuda, pipeline, method):
+    """A 2-sample stochastic frame launches the stochastic forward and
+    backward forms once per sample and no other form; only the colour path
+    carries gradients (opacities, scales and quaternions exactly 0); it
+    repeats bit for bit; a train step on it is finite."""
+    cfg = gt.RenderConfig(width=120, height=90, sh_degree=1, pipeline=gt.Pipeline[pipeline],
+                          stochastic=gt.StochasticMode.SPLAT, temporal_samples=2,
+                          raster=gt.RasterConfig(method=method))
+    cam = gt.look_at([0.2, -0.3, -9.0], [0, 0, 0], [0, 1, 0], 120, 90, fov_y_rad=0.9,
+                     device=cuda)
+    form = ("gs2d" if pipeline == "MESH" else "gut3d") + tr.STOCH
+    fwd = rb.rasterize_buckets if method == "bucket" else tr.rasterize_tiles
+    bwd = rb.rasterize_buckets_bwd if method == "bucket" else tr.rasterize_tiles_bwd
+    counters = ("gs2d", "gut3d", "gs2d_stoch", "gut3d_stoch")
+    grads = []
+    for _ in range(2):
+        s = splats_on(cuda, seed=1, n=1500)
+        before = [getattr(w, tr.LAUNCH_COUNTER[m]) for w in (fwd, bwd) for m in counters]
+        out = render(s.prepare(), cam, cfg)
+        gt.rgb_loss(out.image, torch.full_like(out.image, 0.5)).backward()
+        torch.cuda.synchronize()
+        after = [getattr(w, tr.LAUNCH_COUNTER[m]) for w in (fwd, bwd) for m in counters]
+        assert after == [b + 2 * (m == form) for b, m in zip(before, counters * 2)]
+        grads.append([getattr(s, f).grad for f in interop.SPLAT_FIELDS])
+    for f, a, b in zip(interop.SPLAT_FIELDS, *grads):
+        assert torch.equal(a, b) and bool(torch.isfinite(a).all()), f
+        if f in ("opacities", "scales", "quats"):
+            assert (a == 0).all(), f
+    assert grads[0][interop.SPLAT_FIELDS.index("sh_dc")].abs().max().item() > 0
+    tcfg = gt.TrainConfig(scene_extent=3.0)
+    opt = gt.make_optimizer(s, tcfg)
+    loss, _ = gt.train_step(s, opt, cam, torch.full((90, 120, 3), 0.5, device=cuda), cfg, 0, tcfg)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(loss)) and all(
+        bool(torch.isfinite(getattr(s, f)).all()) for f in interop.SPLAT_FIELDS)
 
 
 # ---- the probes P1-P3: bitonic sort (csrc/bench_roll.cu), sort stages

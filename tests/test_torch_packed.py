@@ -413,9 +413,7 @@ def test_packed_backward_twins_raise(method):
 
 
 @pytest.mark.parametrize("what, kw, item", [
-    ("host_order", dict(host_order=torch.arange(50)), "remaining IO"),
-    ("stochastic", dict(cfg=dict(stochastic=tc.StochasticMode.SPLAT)), "stochastic and post"),
-    ("atrous", dict(cfg=dict(denoise="atrous")), "stochastic and post")])
+    ("host_order", dict(host_order=torch.arange(50)), "remaining IO")])
 def test_packed_with_unported_options_raises(what, kw, item):
     cam, _ = camera(32, 32)
     cfg = tc.RenderConfig(width=32, height=32, raster=tc.RasterConfig(pair_format="packed"),
@@ -424,6 +422,29 @@ def test_packed_with_unported_options_raises(what, kw, item):
     extra = {"host_order": kw["host_order"]} if "host_order" in kw else {}
     with pytest.raises(NotImplementedError, match=item):
         tp.render_3dgs(prep, cam, cfg, **extra)
+
+
+# the options packed frames refused before stochastic transparency was ported
+@pytest.mark.parametrize("what, cfg", [
+    ("stochastic", dict(stochastic="SPLAT")),
+    ("atrous", dict(denoise="atrous"))])
+def test_packed_with_stochastic_options_matches_jax(what, cfg):
+    """A packed 3DGS frame with a stochastic mode or the a-trous pass
+    against the JAX package's packed frame: the f32 gates of this file."""
+    cam_t, cam_j = camera(32, 32)
+    kw = dict(cfg)
+    mode = kw.pop("stochastic", "NONE")
+    d = scene(50, 8)
+    oj = jp.render_3dgs(jss.SplatSet(**{k: jnp.asarray(v) for k, v in d.items()}).prepare(),
+                        cam_j, jc.RenderConfig(width=32, height=32,
+                                               stochastic=jc.StochasticMode[mode], **kw,
+                                               raster=jc.RasterConfig(pair_format="packed")))
+    ot = tp.render_3dgs(interop.splat_set_from_numpy(d, "cpu").prepare(), cam_t,
+                        tc.RenderConfig(width=32, height=32, stochastic=tc.StochasticMode[mode],
+                                        **kw, raster=tc.RasterConfig(pair_format="packed")))
+    assert float(ot.transmittance.min()) < 0.5  # the scene covers pixels
+    np.testing.assert_allclose(ot.image.numpy(), np.asarray(oj.image), rtol=0, atol=IMG_ATOL)
+    assert (ot.splat_id.numpy() == np.asarray(oj.splat_id)).mean() >= ID_AGREE
 
 
 @pytest.mark.parametrize("model", ["gs2dp", "gut3dp"])

@@ -164,23 +164,27 @@ def test_blend_work_counts(blended):
 
 def test_blend_work_counts_a_cull(blended):
     """blend_work with a cull's ``keep`` mask: (tested, kept, kept
-    evaluations) over the steps a tile enters. Keeping every pair keeps
-    what is tested and every evaluation; keeping none keeps nothing; and
-    keeping every other pair splits the tested pairs and evaluations."""
+    evaluations, draws) over the steps a tile enters. Keeping every pair
+    keeps what is tested, every evaluation and every hit (a deterministic
+    sweep draws where it hits); keeping none keeps nothing; and keeping
+    every other pair splits the tested pairs, evaluations and draws."""
     name, _, _, (attrs, _, start, count), _ = blended
     st = statics()
     evals, hits = tr.blend_work(attrs, start, count, st)
     everyone = torch.ones(attrs.shape[1], dtype=torch.bool)
-    e, h, tested, kept, kept_evals = tr.blend_work(attrs, start, count, st, keep=everyone)
-    assert (e, h) == (evals, hits) and kept == tested and kept_evals == evals
+    e, h, tested, kept, kept_evals, draws = tr.blend_work(attrs, start, count, st,
+                                                           keep=everyone)
+    assert (e, h) == (evals, hits) and kept == tested and (kept_evals, draws) == (evals, hits)
     assert 0 < tested <= int(count.sum())
     if name != "dense":  # no tile freezes: every pair is tested
         assert tested == int(count.sum())
-    assert tr.blend_work(attrs, start, count, st, keep=~everyone)[2:] == (tested, 0, 0)
+    assert tr.blend_work(attrs, start, count, st, keep=~everyone)[2:] == (tested, 0, 0, 0)
     odd = torch.arange(attrs.shape[1]) % 2 == 1
-    _, _, _, kept_odd, evals_odd = tr.blend_work(attrs, start, count, st, keep=odd)
-    _, _, _, kept_even, evals_even = tr.blend_work(attrs, start, count, st, keep=~odd)
+    _, _, _, kept_odd, evals_odd, draws_odd = tr.blend_work(attrs, start, count, st, keep=odd)
+    _, _, _, kept_even, evals_even, draws_even = tr.blend_work(attrs, start, count, st,
+                                                               keep=~odd)
     assert (kept_odd + kept_even, evals_odd + evals_even) == (tested, evals)
+    assert draws_odd + draws_even == hits
 
 
 def test_empty_tiles_are_background():
@@ -619,22 +623,23 @@ def test_blend_work_counts_a_warp_cull(blended):
     """blend_work with a (P, 8) ``keep``: kept counts (warp, pair) bits over
     the steps a tile enters and kept evaluations the live (pixel, pair)s
     whose warp keeps the pair. Every bit keeps 8 per tested pair and every
-    evaluation; none keeps nothing; the eight one-warp masks split both."""
+    evaluation and draw; none keeps nothing; the eight one-warp masks split
+    the evaluations and the draws."""
     _, _, _, (attrs, _, start, count), _ = blended
     st = statics()
-    evals, hits, tested, _, _ = tr.blend_work(attrs, start, count, st,
-                                              keep=torch.ones(attrs.shape[1], dtype=torch.bool))
+    evals, hits, tested, _, _, _ = tr.blend_work(
+        attrs, start, count, st, keep=torch.ones(attrs.shape[1], dtype=torch.bool))
     every = torch.ones((attrs.shape[1], tresp.WARPS), dtype=torch.bool)
     assert tr.blend_work(attrs, start, count, st, keep=every) == (
-        evals, hits, tested, tresp.WARPS * tested, evals)
-    assert tr.blend_work(attrs, start, count, st, keep=~every)[2:] == (tested, 0, 0)
+        evals, hits, tested, tresp.WARPS * tested, evals, hits)
+    assert tr.blend_work(attrs, start, count, st, keep=~every)[2:] == (tested, 0, 0, 0)
     parts = []
     for w in range(tresp.WARPS):
         one_warp = torch.zeros_like(every)
         one_warp[:, w] = True
         parts.append(tr.blend_work(attrs, start, count, st, keep=one_warp)[3:])
         assert parts[-1][0] == tested and 0 < parts[-1][1] < evals
-    assert sum(k for _, k in parts) == evals
+    assert sum(k for _, k, _ in parts) == evals and sum(d for _, _, d in parts) == hits
 
 
 @pytest.mark.parametrize("scene", ["golden", "dense", "adversarial"])

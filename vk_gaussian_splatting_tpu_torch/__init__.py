@@ -9,7 +9,9 @@ backward — ``render(prepared, camera, cfg)`` in
 ``vk_gaussian_splatting_tpu_torch.render`` for the VERT/MESH, MESH_3DGUT
 and RTX pipelines with pair binning (``RasterConfig.method="pairs"``, the
 default) or bucket-grid binning (``method="bucket"``) — and the training
-step (``train_step``, Adam, the loss, densification, checkpoints). Plain
+step (``train_step``, Adam, the loss, densification, checkpoints); the
+packed tier (forward only) and stochastic transparency with its a-trous
+pass (``cfg.stochastic``, ``cfg.denoise``) on each of them. Plain
 tensor code runs on any torch device; the two tile blenders and their
 backwards are hand-written CUDA kernels (csrc/rasterize_{fwd,bwd}.cu,
 csrc/raster_bucket_{fwd,bwd}.cu, each for the gs2d and the gut3d response
@@ -24,9 +26,9 @@ Layout:
            parameters, DoF, distortion, rolling shutter)
   ops/     SH, EWA and UT projections, depth keys, pair binning and
            bucket-grid binning (each with its sort-based backward), the
-           gs2d and gut3d responses, the pair blender and the bucket
-           rasterizer (kernel wrappers, twins, autograd Functions), kernel
-           build
+           gs2d and gut3d responses and the stochastic stream, the pair
+           blender and the bucket rasterizer (kernel wrappers, twins,
+           autograd Functions), the a-trous denoiser, kernel build
   render/  render_3dgs, render_3dgut, render_3dgrt, the per-tile rays and
            the pipeline dispatch
   train.py loss, Adam, train_step, densify / prune, checkpoints

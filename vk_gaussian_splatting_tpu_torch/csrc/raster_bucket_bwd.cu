@@ -56,6 +56,12 @@
 // bit for bit what the uncompacted sweep gives (its plain twin,
 // ops/raster_bucket.rasterize_buckets_bwd_ref, sweeps every lane).
 // Built like the forward with exact expf, no fast math and -fmad=false.
+// The stochastic form (template flag STOCH; entries <name>_stoch) draws
+// K3's accepts (key seed + t * n_chunks + m / chunk, lane m % chunk, m the
+// lane's merged place, staged beside its column) and, as jax.vjp of the
+// JAX accept gives none, takes no gradient through alpha: M::vjp is not
+// called, the geometry rows sum exact zeros and the colour rows g_rgb * w.
+// The _partial and _reduce passes are the same launches.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -87,7 +93,7 @@ __device__ __forceinline__ int shared_slot(int i, int k, int cap1, int cap2) {
   return base + k;
 }
 
-template <class M>
+template <class M, bool STOCH>
 __global__ void __launch_bounds__(PIX)
 raster_bucket_bwd_tiles(const float* __restrict__ attrs, long long stride,
                         const int* __restrict__ bucket_starts,
@@ -96,7 +102,8 @@ raster_bucket_bwd_tiles(const float* __restrict__ attrs, long long stride,
                         int tiles_x, int c_total, int cap0, int cap1, int cap2, int cap3,
                         int chunk, response::Params prm, float min_transmittance,
                         float* __restrict__ scratch, long long scratch_stride,
-                        float* __restrict__ d_attrs, int* __restrict__ kept) {
+                        float* __restrict__ d_attrs, int* __restrict__ kept,
+                        unsigned seed) {
   constexpr int GRAD_ROWS = M::GRAD_ROWS;
   extern __shared__ float smem[];
   float* keys = smem;                                    // [c_total]
@@ -104,6 +111,7 @@ raster_bucket_bwd_tiles(const float* __restrict__ attrs, long long stride,
   float* s_attr = (float*)(order + c_total);             // [BWD_SLOTS][chunk]
   int* s_col = (int*)(s_attr + M::BWD_SLOTS * chunk);    // [chunk] fine column or -1
   int* s_slot = s_col + chunk;                           // [chunk] scratch slot or -1
+  int* s_lane = s_slot + chunk;                          // [chunk] STOCH: m % chunk
   __shared__ float s_part[WARPS][GRAD_ROWS][SUB];
   __shared__ int s_count[2][WARPS];                      // response::kept_place's buffers
   __shared__ bucket::Spans sp;
@@ -172,11 +180,14 @@ raster_bucket_bwd_tiles(const float* __restrict__ attrs, long long stride,
         for (int r = 0; r < M::BWD_SLOTS; ++r) s_attr[r * chunk + before] = lane_slots[r];
         s_col[before] = col;
         s_slot[before] = slot;
+        if constexpr (STOCH) s_lane[before] = lo + j - s;  // s is a multiple of chunk
       }
     }
     n_kept_tile += n_kept;
     __syncthreads();
     const bool live = T > min_transmittance;  // per-step freeze, as the forward
+    // STOCH: the chunk's key, raster_bucket.py:1106-1107
+    const unsigned key = seed + (unsigned)(t * ((c_total + chunk - 1) / chunk) + s / chunk);
     for (int j0 = 0; j0 < n_kept; j0 += SUB) {
       const int m = min(SUB, n_kept - j0);
       for (int jj = 0; jj < m; ++jj) {
@@ -189,15 +200,20 @@ raster_bucket_bwd_tiles(const float* __restrict__ attrs, long long stride,
         typename M::Hit h;
         if (live && M::eval(s_attr, chunk, j, pix, prm, a_raw, h)) {
           hit = true;
-          const float a = fminf(a_raw, prm.alpha_clamp);
+          float a = fminf(a_raw, prm.alpha_clamp);
+          if constexpr (STOCH) {
+            a = response::stochastic_accept(a, response::hash_uniform(key, i, s_lane[j]));
+          }
           const float w = a * T;
           const float cgv = gr * s_attr[6 * chunk + j] + gg * s_attr[7 * chunk + j] +
                             gb * s_attr[8 * chunk + j];
           s_run += w * cgv;
           const float q = 1.0f - a;
-          const float dalpha = T * cgv - ((s_total - s_run) + gt_tn) / fmaxf(q, q_min);
-          const float da = a_raw <= prm.alpha_clamp ? dalpha : 0.0f;
-          M::vjp(s_attr, chunk, j, pix, prm, h, a_raw, da, g);
+          if constexpr (!STOCH) {
+            const float dalpha = T * cgv - ((s_total - s_run) + gt_tn) / fmaxf(q, q_min);
+            const float da = a_raw <= prm.alpha_clamp ? dalpha : 0.0f;
+            M::vjp(s_attr, chunk, j, pix, prm, h, a_raw, da, g);
+          }
           g[6] = gr * w;
           g[7] = gg * w;
           g[8] = gb * w;
@@ -314,17 +330,17 @@ raster_bucket_bwd_reduce(const int* __restrict__ bucket_starts,
   }
 }
 
-template <class M>
+template <class M, bool STOCH = false>
 int smem_of(int c_total, int chunk) {
-  return bucket::smem_bytes(c_total, chunk, M::BWD_SLOTS, 2);
+  return bucket::smem_bytes(c_total, chunk, M::BWD_SLOTS, STOCH ? 3 : 2);
 }
 
-template <class M>
+template <class M, bool STOCH = false>
 int smem_limit_of() {
-  return dynamic_smem_limit((const void*)raster_bucket_bwd_tiles<M>);
+  return dynamic_smem_limit((const void*)raster_bucket_bwd_tiles<M, STOCH>);
 }
 
-template <class M>
+template <class M, bool STOCH = false>
 int launch(const float* attrs, long long stride, const int* bucket_starts,
            const int* span_buckets, const int* reader_code, const int* seg_bucket,
            const int* seg_first, const int* seg_last, const int* bucket_seg, int num_segments,
@@ -332,20 +348,21 @@ int launch(const float* attrs, long long stride, const int* bucket_starts,
            int cap1, int cap2, int cap3, int first_bucket, int global_bucket, int chunk,
            float alpha_min, float alpha_clamp, float qmax, float min_response, int degree,
            float min_transmittance, float* scratch, float* partial, float* d_attrs, int* kept,
-           void* stream) {
+           int seed, void* stream) {
   if (chunk < 1 || chunk > bucket::MAX_CHUNK) return (int)cudaErrorInvalidValue;
   const int c_total = cap0 + 2 * cap1 + 2 * cap2 + cap3;
-  const int smem = smem_of<M>(c_total, chunk);
-  if (smem > smem_limit_of<M>()) return (int)cudaErrorInvalidValue;
+  const int smem = smem_of<M, STOCH>(c_total, chunk);
+  if (smem > smem_limit_of<M, STOCH>()) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      raster_bucket_bwd_tiles<M>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      raster_bucket_bwd_tiles<M, STOCH>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   const response::Params prm{alpha_min, alpha_clamp, qmax, min_response, degree};
   const long long scratch_stride = (long long)num_tiles * (2 * cap1 + 2 * cap2 + cap3);
   if (num_tiles > 0) {
-    raster_bucket_bwd_tiles<M><<<num_tiles, PIX, smem, (cudaStream_t)stream>>>(
+    raster_bucket_bwd_tiles<M, STOCH><<<num_tiles, PIX, smem, (cudaStream_t)stream>>>(
         attrs, stride, bucket_starts, span_buckets, ctx, pix_ctx, tiles_x, c_total, cap0, cap1,
-        cap2, cap3, chunk, prm, min_transmittance, scratch, scratch_stride, d_attrs, kept);
+        cap2, cap3, chunk, prm, min_transmittance, scratch, scratch_stride, d_attrs, kept,
+        (unsigned)seed);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     const int partial_lanes = max(cap1, max(cap2, cap3));
@@ -391,6 +408,7 @@ extern "C" int raster_bucket_bwd_gut3d_smem_limit() { return smem_limit_of<respo
 // pixel context (pix_ctx may be null); gut3d reads the (T, 8, 256) one.
 // kept must hold 0 on entry: each tile block adds the number of lanes its
 // cull kept, over the blend steps it entered (one integer atomic each).
+// seed: the stochastic stream's (read by the _stoch entries alone).
 #define RASTER_BUCKET_BWD_PARAMS                                                             \
   const float *attrs, long long stride, const int *bucket_starts, const int *span_buckets,  \
       const int *reader_code, const int *seg_bucket, const int *seg_first,                  \
@@ -399,12 +417,12 @@ extern "C" int raster_bucket_bwd_gut3d_smem_limit() { return smem_limit_of<respo
       int cap3, int first_bucket, int global_bucket, int chunk, float alpha_min,            \
       float alpha_clamp, float qmax, float min_response, int degree,                        \
       float min_transmittance, float *scratch, float *partial, float *d_attrs, int *kept,  \
-      void *stream
+      int seed, void *stream
 #define RASTER_BUCKET_BWD_ARGS                                                               \
   attrs, stride, bucket_starts, span_buckets, reader_code, seg_bucket, seg_first, seg_last, \
       bucket_seg, num_segments, ctx, pix_ctx, num_tiles, tiles_x, cap0, cap1, cap2, cap3,   \
       first_bucket, global_bucket, chunk, alpha_min, alpha_clamp, qmax, min_response,       \
-      degree, min_transmittance, scratch, partial, d_attrs, kept, stream
+      degree, min_transmittance, scratch, partial, d_attrs, kept, seed, stream
 
 extern "C" int raster_bucket_bwd(RASTER_BUCKET_BWD_PARAMS) {
   pix_ctx = nullptr;
@@ -414,4 +432,28 @@ extern "C" int raster_bucket_bwd(RASTER_BUCKET_BWD_PARAMS) {
 extern "C" int raster_bucket_bwd_gut3d(RASTER_BUCKET_BWD_PARAMS) {
   if (pix_ctx == nullptr) return (int)cudaErrorInvalidValue;
   return launch<response::Gut3d>(RASTER_BUCKET_BWD_ARGS);
+}
+
+// The stochastic forms, with their shared memory queries.
+extern "C" int raster_bucket_bwd_stoch(RASTER_BUCKET_BWD_PARAMS) {
+  pix_ctx = nullptr;
+  return launch<response::Gs2d, true>(RASTER_BUCKET_BWD_ARGS);
+}
+
+extern "C" int raster_bucket_bwd_gut3d_stoch(RASTER_BUCKET_BWD_PARAMS) {
+  if (pix_ctx == nullptr) return (int)cudaErrorInvalidValue;
+  return launch<response::Gut3d, true>(RASTER_BUCKET_BWD_ARGS);
+}
+
+extern "C" int raster_bucket_bwd_stoch_smem(int c_total, int chunk) {
+  return smem_of<response::Gs2d, true>(c_total, chunk);
+}
+extern "C" int raster_bucket_bwd_gut3d_stoch_smem(int c_total, int chunk) {
+  return smem_of<response::Gut3d, true>(c_total, chunk);
+}
+extern "C" int raster_bucket_bwd_stoch_smem_limit() {
+  return smem_limit_of<response::Gs2d, true>();
+}
+extern "C" int raster_bucket_bwd_gut3d_stoch_smem_limit() {
+  return smem_limit_of<response::Gut3d, true>();
 }

@@ -52,6 +52,14 @@
 // shared memory are refused (raster_bucket_fwd*_smem_limit), never
 // truncated. Making it fast (sharing a cell's spans, TMA staging) is later
 // work.
+// The stochastic form (template flag STOCH; entries <name>_stoch) replaces
+// each clamped alpha by the binary accept of the TPU kernel's stream
+// (response::hash_uniform, stochastic_accept) keyed per merged chunk as it
+// keys it (raster_bucket.py:744-745): key seed + t * n_chunks + m / chunk,
+// lane m % chunk, where m is the lane's merged place (dead head lanes
+// counted: lo + j before the cull compacts it, staged beside the id) and
+// n_chunks the chunks of all six spans' caps. A rejected lane is skipped
+// as a failed cutoff is. The deterministic form compiles as it did.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -65,7 +73,7 @@ namespace {
 using bucket::PIX;
 constexpr int OUT_ROWS = 5;        // rgb, T, depth
 
-template <class M>
+template <class M, bool STOCH>
 __global__ void __launch_bounds__(PIX)
 raster_bucket_fwd_kernel(const float* __restrict__ attrs, long long stride,
                          const int* __restrict__ ids,
@@ -75,7 +83,7 @@ raster_bucket_fwd_kernel(const float* __restrict__ attrs, long long stride,
                          int cap0, int cap1, int cap2, int cap3, int chunk,
                          response::Params prm, float min_transmittance, float depth_iso,
                          float* __restrict__ out, int* __restrict__ out_id,
-                         int* __restrict__ kept) {
+                         int* __restrict__ kept, unsigned seed) {
   // the forward slots are the backward slots before DEPTH_SLOT, then the depth
   static_assert(M::FWD_SLOTS == M::DEPTH_SLOT + 1 && M::DEPTH_SLOT <= M::BWD_SLOTS,
                 "forward slots are not the backward ones plus the depth");
@@ -84,6 +92,7 @@ raster_bucket_fwd_kernel(const float* __restrict__ attrs, long long stride,
   int* order = (int*)(keys + c_total);                   // [c_total]
   float* s_attr = (float*)(order + c_total);             // [FWD_SLOTS][chunk]
   int* s_id = (int*)(s_attr + M::FWD_SLOTS * chunk);     // [chunk]
+  int* s_lane = s_id + chunk;                            // [chunk] STOCH: m % chunk
   __shared__ int s_count[2][bucket::WARPS];              // response::kept_place's buffers
   __shared__ bucket::Spans sp;
   __shared__ typename M::TileBound bound;
@@ -132,16 +141,23 @@ raster_bucket_fwd_kernel(const float* __restrict__ attrs, long long stride,
         for (int r = 0; r < M::DEPTH_SLOT; ++r) s_attr[r * chunk + at] = lane_slots[r];
         s_attr[M::DEPTH_SLOT * chunk + at] = attrs[M::DEPTH_ROW * stride + col];
         s_id[at] = ids[col];
+        if constexpr (STOCH) s_lane[at] = lo + j - s;  // s is a multiple of chunk
       }
     }
     n_kept_tile += n_kept;
     __syncthreads();
+    // STOCH: the chunk's key, raster_bucket.py:744-745
+    const unsigned key = seed + (unsigned)(t * ((c_total + chunk - 1) / chunk) + s / chunk);
     if (T > min_transmittance) {  // per-step freeze, rasterize_pallas.py:286
       for (int j = 0; j < n_kept; ++j) {
         float a;
         typename M::Hit h;
         if (!M::eval(s_attr, chunk, j, pix, prm, a, h)) continue;  // alpha = 0
         a = fminf(a, prm.alpha_clamp);
+        if constexpr (STOCH) {
+          a = response::stochastic_accept(a, response::hash_uniform(key, i, s_lane[j]));
+          if (a == 0.0f) continue;  // rejected: alpha = 0
+        }
         const float w = a * T;
         cr += w * s_attr[6 * chunk + j];
         cg += w * s_attr[7 * chunk + j];
@@ -170,34 +186,35 @@ raster_bucket_fwd_kernel(const float* __restrict__ attrs, long long stride,
   if (i == 0 && n_kept_tile > 0) atomicAdd(kept, n_kept_tile);  // integers: deterministic
 }
 
-template <class M>
+template <class M, bool STOCH = false>
 int smem_of(int c_total, int chunk) {
-  return bucket::smem_bytes(c_total, chunk, M::FWD_SLOTS, 1);
+  return bucket::smem_bytes(c_total, chunk, M::FWD_SLOTS, STOCH ? 2 : 1);
 }
 
-template <class M>
+template <class M, bool STOCH = false>
 int smem_limit_of() {
-  return dynamic_smem_limit((const void*)raster_bucket_fwd_kernel<M>);
+  return dynamic_smem_limit((const void*)raster_bucket_fwd_kernel<M, STOCH>);
 }
 
-template <class M>
+template <class M, bool STOCH = false>
 int launch(const float* attrs, long long stride, const int* ids, const int* bucket_starts,
            const int* span_buckets, const float* pix_ctx, int num_tiles, int tiles_x, int cap0,
            int cap1, int cap2, int cap3, int chunk, float alpha_min, float alpha_clamp,
            float qmax, float min_response, int degree, float min_transmittance,
-           float depth_iso, float* out, int* out_id, int* kept, void* stream) {
+           float depth_iso, float* out, int* out_id, int* kept, int seed, void* stream) {
   if (chunk < 1 || chunk > bucket::MAX_CHUNK) return (int)cudaErrorInvalidValue;
   const int c_total = cap0 + 2 * cap1 + 2 * cap2 + cap3;
-  const int smem = smem_of<M>(c_total, chunk);
-  if (smem > smem_limit_of<M>()) return (int)cudaErrorInvalidValue;
+  const int smem = smem_of<M, STOCH>(c_total, chunk);
+  if (smem > smem_limit_of<M, STOCH>()) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      raster_bucket_fwd_kernel<M>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      raster_bucket_fwd_kernel<M, STOCH>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   const response::Params prm{alpha_min, alpha_clamp, qmax, min_response, degree};
   if (num_tiles > 0) {
-    raster_bucket_fwd_kernel<M><<<num_tiles, PIX, smem, (cudaStream_t)stream>>>(
+    raster_bucket_fwd_kernel<M, STOCH><<<num_tiles, PIX, smem, (cudaStream_t)stream>>>(
         attrs, stride, ids, bucket_starts, span_buckets, pix_ctx, tiles_x, c_total, cap0,
-        cap1, cap2, cap3, chunk, prm, min_transmittance, depth_iso, out, out_id, kept);
+        cap1, cap2, cap3, chunk, prm, min_transmittance, depth_iso, out, out_id, kept,
+        (unsigned)seed);
   }
   return (int)cudaGetLastError();
 }
@@ -229,16 +246,17 @@ extern "C" int raster_bucket_fwd_gut3dp_smem_limit() { return smem_limit_of<resp
 // reads no pixel context (pix_ctx may be null); gut3d reads the (T, 8, 256)
 // one. kept must hold 0 on entry: each tile block adds the number of lanes
 // its cull kept, over the blend steps it entered (one integer atomic each).
+// seed: the stochastic stream's (read by the _stoch entries alone).
 #define RASTER_BUCKET_FWD_PARAMS                                                             \
   const float *attrs, long long stride, const int *ids, const int *bucket_starts,          \
       const int *span_buckets, const float *pix_ctx, int num_tiles, int tiles_x, int cap0, \
       int cap1, int cap2, int cap3, int chunk, float alpha_min, float alpha_clamp,          \
       float qmax, float min_response, int degree, float min_transmittance,                  \
-      float depth_iso, float *out, int *out_id, int *kept, void *stream
+      float depth_iso, float *out, int *out_id, int *kept, int seed, void *stream
 #define RASTER_BUCKET_FWD_ARGS                                                               \
   attrs, stride, ids, bucket_starts, span_buckets, pix_ctx, num_tiles, tiles_x, cap0, cap1, \
       cap2, cap3, chunk, alpha_min, alpha_clamp, qmax, min_response, degree,                \
-      min_transmittance, depth_iso, out, out_id, kept, stream
+      min_transmittance, depth_iso, out, out_id, kept, seed, stream
 
 extern "C" int raster_bucket_fwd(RASTER_BUCKET_FWD_PARAMS) {
   pix_ctx = nullptr;
@@ -259,4 +277,50 @@ extern "C" int raster_bucket_fwd_gs2dp(RASTER_BUCKET_FWD_PARAMS) {
 extern "C" int raster_bucket_fwd_gut3dp(RASTER_BUCKET_FWD_PARAMS) {
   if (pix_ctx == nullptr) return (int)cudaErrorInvalidValue;
   return launch<response::Gut3dp>(RASTER_BUCKET_FWD_ARGS);
+}
+
+// The stochastic forms of the four, with their shared memory queries.
+extern "C" int raster_bucket_fwd_stoch(RASTER_BUCKET_FWD_PARAMS) {
+  pix_ctx = nullptr;
+  return launch<response::Gs2d, true>(RASTER_BUCKET_FWD_ARGS);
+}
+
+extern "C" int raster_bucket_fwd_gut3d_stoch(RASTER_BUCKET_FWD_PARAMS) {
+  if (pix_ctx == nullptr) return (int)cudaErrorInvalidValue;
+  return launch<response::Gut3d, true>(RASTER_BUCKET_FWD_ARGS);
+}
+
+extern "C" int raster_bucket_fwd_gs2dp_stoch(RASTER_BUCKET_FWD_PARAMS) {
+  pix_ctx = nullptr;
+  return launch<response::Gs2dp, true>(RASTER_BUCKET_FWD_ARGS);
+}
+
+extern "C" int raster_bucket_fwd_gut3dp_stoch(RASTER_BUCKET_FWD_PARAMS) {
+  if (pix_ctx == nullptr) return (int)cudaErrorInvalidValue;
+  return launch<response::Gut3dp, true>(RASTER_BUCKET_FWD_ARGS);
+}
+
+extern "C" int raster_bucket_fwd_stoch_smem(int c_total, int chunk) {
+  return smem_of<response::Gs2d, true>(c_total, chunk);
+}
+extern "C" int raster_bucket_fwd_gut3d_stoch_smem(int c_total, int chunk) {
+  return smem_of<response::Gut3d, true>(c_total, chunk);
+}
+extern "C" int raster_bucket_fwd_gs2dp_stoch_smem(int c_total, int chunk) {
+  return smem_of<response::Gs2dp, true>(c_total, chunk);
+}
+extern "C" int raster_bucket_fwd_gut3dp_stoch_smem(int c_total, int chunk) {
+  return smem_of<response::Gut3dp, true>(c_total, chunk);
+}
+extern "C" int raster_bucket_fwd_stoch_smem_limit() {
+  return smem_limit_of<response::Gs2d, true>();
+}
+extern "C" int raster_bucket_fwd_gut3d_stoch_smem_limit() {
+  return smem_limit_of<response::Gut3d, true>();
+}
+extern "C" int raster_bucket_fwd_gs2dp_stoch_smem_limit() {
+  return smem_limit_of<response::Gs2dp, true>();
+}
+extern "C" int raster_bucket_fwd_gut3dp_stoch_smem_limit() {
+  return smem_limit_of<response::Gut3dp, true>();
 }

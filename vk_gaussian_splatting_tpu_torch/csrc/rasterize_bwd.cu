@@ -71,6 +71,12 @@
 // row is never written. Built like the forward with exact expf, no fast
 // math and -fmad=false, so its alphas equal K1's and the plain twin's bit
 // for bit.
+// The stochastic form (template flag STOCH; entries <name>_stoch) draws
+// K1's accepts (key seed + p / chunk, lane p % chunk, p = s + the kept
+// pair's offset in its step, which the staging keeps) and, as jax.vjp of
+// the JAX accept gives none, takes no gradient through alpha: M::vjp is not
+// called, the geometry rows sum exact zeros and the colour rows g_rgb * w.
+// The reductions are unchanged, so it repeats bit for bit too.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -110,7 +116,7 @@ __device__ __forceinline__ void reduce_scatter(float (&v)[N], int lane) {
   if constexpr (H > 1) reduce_scatter<N, H / 2>(v, lane);
 }
 
-template <class M>
+template <class M, bool STOCH>
 __global__ void __launch_bounds__(PIX, MIN_BLOCKS)
 rasterize_bwd_kernel(const float* __restrict__ attrs, long long pair_stride,
                      const int* __restrict__ tile_start,
@@ -118,7 +124,7 @@ rasterize_bwd_kernel(const float* __restrict__ attrs, long long pair_stride,
                      const float* __restrict__ ctx, const float* __restrict__ pix_ctx,
                      int tiles_x, int chunk, response::Params prm,
                      float min_transmittance, float* __restrict__ d_attrs,
-                     int* __restrict__ kept) {
+                     int* __restrict__ kept, unsigned seed) {
   constexpr int GRAD_ROWS = M::GRAD_ROWS;
   constexpr int G = M::PAIR_GROUP;               // pairs per warp reduction
   static_assert(G >= 1 && G * GRAD_ROWS <= 32, "a reduction sums at most 32 values");
@@ -202,15 +208,22 @@ rasterize_bwd_kernel(const float* __restrict__ attrs, long long pair_stride,
           if (live && jj + p < m && M::eval(s_attr, MAX_CHUNK, j, pix, prm, a_raw, h)) {
             hit = true;
             float* g = v + p * GRAD_ROWS;
-            const float a = fminf(a_raw, prm.alpha_clamp);
+            float a = fminf(a_raw, prm.alpha_clamp);
+            if constexpr (STOCH) {
+              const int pair = s + s_col[j];
+              a = response::stochastic_accept(
+                  a, response::hash_uniform(seed + (unsigned)(pair / chunk), i, pair % chunk));
+            }
             const float w = a * T;
             const float cgv = gr * s_attr[6 * MAX_CHUNK + j] + gg * s_attr[7 * MAX_CHUNK + j] +
                               gb * s_attr[8 * MAX_CHUNK + j];
             s_run += w * cgv;
             const float q = 1.0f - a;
-            const float dalpha = T * cgv - ((s_total - s_run) + gt_tn) / fmaxf(q, q_min);
-            const float da = a_raw <= prm.alpha_clamp ? dalpha : 0.0f;
-            M::vjp(s_attr, MAX_CHUNK, j, pix, prm, h, a_raw, da, g);
+            if constexpr (!STOCH) {
+              const float dalpha = T * cgv - ((s_total - s_run) + gt_tn) / fmaxf(q, q_min);
+              const float da = a_raw <= prm.alpha_clamp ? dalpha : 0.0f;
+              M::vjp(s_attr, MAX_CHUNK, j, pix, prm, h, a_raw, da, g);
+            }
             g[6] = gr * w;
             g[7] = gg * w;
             g[8] = gb * w;
@@ -242,18 +255,18 @@ rasterize_bwd_kernel(const float* __restrict__ attrs, long long pair_stride,
   if (i == 0 && n_kept_tile > 0) atomicAdd(kept, n_kept_tile);  // integers: deterministic
 }
 
-template <class M>
+template <class M, bool STOCH = false>
 int launch(const float* attrs, long long pair_stride, const int* tile_start,
            const int* tile_count, const float* ctx, const float* pix_ctx, int num_tiles,
            int tiles_x, int chunk, float alpha_min, float alpha_clamp, float qmax,
            float min_response, int degree, float min_transmittance, float* d_attrs, int* kept,
-           void* stream) {
+           int seed, void* stream) {
   if (chunk < 1 || chunk > MAX_CHUNK) return (int)cudaErrorInvalidValue;
   const response::Params prm{alpha_min, alpha_clamp, qmax, min_response, degree};
   if (num_tiles > 0) {
-    rasterize_bwd_kernel<M><<<num_tiles, PIX, 0, (cudaStream_t)stream>>>(
+    rasterize_bwd_kernel<M, STOCH><<<num_tiles, PIX, 0, (cudaStream_t)stream>>>(
         attrs, pair_stride, tile_start, tile_count, ctx, pix_ctx, tiles_x, chunk, prm,
-        min_transmittance, d_attrs, kept);
+        min_transmittance, d_attrs, kept, (unsigned)seed);
   }
   return (int)cudaGetLastError();
 }
@@ -264,26 +277,35 @@ int launch(const float* attrs, long long pair_stride, const int* tile_start,
 // d_attrs must hold zeros on entry. gs2d reads no pixel context (pix_ctx
 // may be null); gut3d reads the (T, 8, 256) one. kept must hold 0 on
 // entry: each block adds the number of pairs its cull kept, over the blend
-// steps it entered (one integer atomic each).
-extern "C" int rasterize_bwd(const float* attrs, long long pair_stride, const int* tile_start,
-                             const int* tile_count, const float* ctx, const float* pix_ctx,
-                             int num_tiles, int tiles_x, int chunk, float alpha_min,
-                             float alpha_clamp, float qmax, float min_response, int degree,
-                             float min_transmittance, float* d_attrs, int* kept, void* stream) {
-  return launch<response::Gs2d>(attrs, pair_stride, tile_start, tile_count, ctx, nullptr,
-                                num_tiles, tiles_x, chunk, alpha_min, alpha_clamp, qmax,
-                                min_response, degree, min_transmittance, d_attrs, kept, stream);
+// steps it entered (one integer atomic each). seed: the stochastic
+// stream's (read by the _stoch entries alone).
+#define RASTERIZE_BWD_PARAMS                                                                  \
+  const float *attrs, long long pair_stride, const int *tile_start, const int *tile_count,  \
+      const float *ctx, const float *pix_ctx, int num_tiles, int tiles_x, int chunk,         \
+      float alpha_min, float alpha_clamp, float qmax, float min_response, int degree,        \
+      float min_transmittance, float *d_attrs, int *kept, int seed, void *stream
+#define RASTERIZE_BWD_ARGS                                                                    \
+  attrs, pair_stride, tile_start, tile_count, ctx, pix_ctx, num_tiles, tiles_x, chunk,       \
+      alpha_min, alpha_clamp, qmax, min_response, degree, min_transmittance, d_attrs, kept,  \
+      seed, stream
+
+extern "C" int rasterize_bwd(RASTERIZE_BWD_PARAMS) {
+  pix_ctx = nullptr;
+  return launch<response::Gs2d>(RASTERIZE_BWD_ARGS);
 }
 
-extern "C" int rasterize_bwd_gut3d(const float* attrs, long long pair_stride,
-                                   const int* tile_start, const int* tile_count,
-                                   const float* ctx, const float* pix_ctx, int num_tiles,
-                                   int tiles_x, int chunk, float alpha_min, float alpha_clamp,
-                                   float qmax, float min_response, int degree,
-                                   float min_transmittance, float* d_attrs, int* kept,
-                                   void* stream) {
+extern "C" int rasterize_bwd_gut3d(RASTERIZE_BWD_PARAMS) {
   if (pix_ctx == nullptr) return (int)cudaErrorInvalidValue;
-  return launch<response::Gut3d>(attrs, pair_stride, tile_start, tile_count, ctx, pix_ctx,
-                                 num_tiles, tiles_x, chunk, alpha_min, alpha_clamp, qmax,
-                                 min_response, degree, min_transmittance, d_attrs, kept, stream);
+  return launch<response::Gut3d>(RASTERIZE_BWD_ARGS);
+}
+
+// The stochastic forms.
+extern "C" int rasterize_bwd_stoch(RASTERIZE_BWD_PARAMS) {
+  pix_ctx = nullptr;
+  return launch<response::Gs2d, true>(RASTERIZE_BWD_ARGS);
+}
+
+extern "C" int rasterize_bwd_gut3d_stoch(RASTERIZE_BWD_PARAMS) {
+  if (pix_ctx == nullptr) return (int)cudaErrorInvalidValue;
+  return launch<response::Gut3d, true>(RASTERIZE_BWD_ARGS);
 }

@@ -52,6 +52,15 @@
 // as rgb 0, T 1, depth 0, id -1, row-major over the tile's pixels whatever
 // thread holds them. Each block adds its kept (warp, pair) bits over the
 // steps it entered to a counter (one integer atomic).
+// The stochastic form (template flag STOCH; entries <name>_stoch) replaces
+// each clamped alpha by the binary accept of the TPU kernel's stream
+// (response::hash_uniform, stochastic_accept): key seed + p / chunk, lane
+// p % chunk, with p the pair's global index (rasterize_pallas.py:237). The
+// staging compacts the kept pairs, so it stages each kept pair's p beside
+// its id; a rejected pair is skipped as a failed cutoff is. An accepted
+// pair is opaque: T falls to exactly 0 and the pixel takes its colour,
+// depth and id. The deterministic form compiles as it did (the flag is a
+// constant, the seed its kernel's last parameter, unread).
 //
 // What bounds it on the H100: f32 operations per (pixel, pair) evaluation,
 // about 17 for gs2d and 68 for gut3d (the canonical ray, an rsqrtf and an
@@ -125,7 +134,7 @@ warp_mask_kernel(const float* __restrict__ attrs, long long pair_stride,
   }
 }
 
-template <class M>
+template <class M, bool STOCH>
 __global__ void __launch_bounds__(PIX, MIN_BLOCKS)
 rasterize_fwd_kernel(const float* __restrict__ attrs, long long pair_stride,
                      const int* __restrict__ ids,
@@ -135,10 +144,11 @@ rasterize_fwd_kernel(const float* __restrict__ attrs, long long pair_stride,
                      const float* __restrict__ pix_ctx, int tiles_x, int chunk,
                      response::Params prm, float min_transmittance,
                      float depth_iso, float* __restrict__ out,
-                     int* __restrict__ out_id, int* __restrict__ kept) {
+                     int* __restrict__ out_id, int* __restrict__ kept, unsigned seed) {
   constexpr int LS = LANE_STRIDE<M>;
   __shared__ __align__(16) float s_attr[MAX_CHUNK * LS];  // pair j's slots at j * LS
   __shared__ int s_id[MAX_CHUNK];
+  __shared__ int s_p[STOCH ? MAX_CHUNK : 1];  // STOCH: kept pair j's global index
   __shared__ unsigned s_mask[MAX_CHUNK];     // bit w: warp w may be hit
   __shared__ int s_count[2][WARPS];          // response::kept_place's buffers
   __shared__ int s_kept;
@@ -172,6 +182,7 @@ rasterize_fwd_kernel(const float* __restrict__ attrs, long long pair_stride,
       if (mask != 0) {
         M::stage_fwd(attrs, pair_stride, s + j, s_attr, 1, at * LS);
         s_id[at] = ids[s + j];
+        if constexpr (STOCH) s_p[at] = s + j;
         s_mask[at] = mask;
         n_bits += __popc(mask);
       }
@@ -198,6 +209,12 @@ rasterize_fwd_kernel(const float* __restrict__ attrs, long long pair_stride,
         typename M::Hit h;
         if (!M::eval(v, 1, 0, pix, prm, a, h)) continue;  // alpha = 0
         a = fminf(a, prm.alpha_clamp);
+        if constexpr (STOCH) {
+          const int p = s_p[j];
+          a = response::stochastic_accept(
+              a, response::hash_uniform(seed + (unsigned)(p / chunk), px, p % chunk));
+          if (a == 0.0f) continue;  // rejected: alpha = 0
+        }
         const float w = a * T;
         cr += w * v[6];
         cg += w * v[7];
@@ -231,12 +248,12 @@ rasterize_fwd_kernel(const float* __restrict__ attrs, long long pair_stride,
   if (i == 0 && s_kept > 0) atomicAdd(kept, s_kept);
 }
 
-template <class M>
+template <class M, bool STOCH = false>
 int launch(const float* attrs, long long pair_stride, const int* ids, const int* tile_start,
            const int* tile_count, const float* pix_ctx, int num_tiles, int tiles_x, int chunk,
            float alpha_min, float alpha_clamp, float qmax, float min_response, int degree,
            float min_transmittance, float depth_iso, float* out, int* out_id, int* kept,
-           unsigned char* masks, void* stream) {
+           unsigned char* masks, int seed, void* stream) {
   if (chunk < 1 || chunk > MAX_CHUNK) return (int)cudaErrorInvalidValue;
   const response::Params prm{alpha_min, alpha_clamp, qmax, min_response, degree};
   if (num_tiles > 0) {
@@ -244,9 +261,9 @@ int launch(const float* attrs, long long pair_stride, const int* ids, const int*
         attrs, pair_stride, tile_start, tile_count, pix_ctx, tiles_x, prm, masks);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
-    rasterize_fwd_kernel<M><<<num_tiles, PIX, 0, (cudaStream_t)stream>>>(
+    rasterize_fwd_kernel<M, STOCH><<<num_tiles, PIX, 0, (cudaStream_t)stream>>>(
         attrs, pair_stride, ids, tile_start, tile_count, masks, pix_ctx, tiles_x, chunk, prm,
-        min_transmittance, depth_iso, out, out_id, kept);
+        min_transmittance, depth_iso, out, out_id, kept, (unsigned)seed);
   }
   return (int)cudaGetLastError();
 }
@@ -259,17 +276,18 @@ int launch(const float* attrs, long long pair_stride, const int* ids, const int*
 // (pair_stride of them), scratch the cull writes for the pairs of the
 // tiles' ranges and the blend reads. kept must hold 0 on entry: each block
 // of the blend adds the (warp, pair) bits it kept, over the blend steps it
-// entered (one integer atomic each).
+// entered (one integer atomic each). seed: the stochastic stream's (read by
+// the _stoch entries alone).
 #define RASTERIZE_FWD_PARAMS                                                                  \
   const float *attrs, long long pair_stride, const int *ids, const int *tile_start,          \
       const int *tile_count, const float *pix_ctx, int num_tiles, int tiles_x, int chunk,    \
       float alpha_min, float alpha_clamp, float qmax, float min_response, int degree,        \
       float min_transmittance, float depth_iso, float *out, int *out_id, int *kept,          \
-      unsigned char *masks, void *stream
+      unsigned char *masks, int seed, void *stream
 #define RASTERIZE_FWD_ARGS                                                                    \
   attrs, pair_stride, ids, tile_start, tile_count, pix_ctx, num_tiles, tiles_x, chunk,       \
       alpha_min, alpha_clamp, qmax, min_response, degree, min_transmittance, depth_iso, out,  \
-      out_id, kept, masks, stream
+      out_id, kept, masks, seed, stream
 
 extern "C" int rasterize_fwd(RASTERIZE_FWD_PARAMS) {
   pix_ctx = nullptr;
@@ -290,4 +308,25 @@ extern "C" int rasterize_fwd_gs2dp(RASTERIZE_FWD_PARAMS) {
 extern "C" int rasterize_fwd_gut3dp(RASTERIZE_FWD_PARAMS) {
   if (pix_ctx == nullptr) return (int)cudaErrorInvalidValue;
   return launch<response::Gut3dp>(RASTERIZE_FWD_ARGS);
+}
+
+// The stochastic forms of the four.
+extern "C" int rasterize_fwd_stoch(RASTERIZE_FWD_PARAMS) {
+  pix_ctx = nullptr;
+  return launch<response::Gs2d, true>(RASTERIZE_FWD_ARGS);
+}
+
+extern "C" int rasterize_fwd_gut3d_stoch(RASTERIZE_FWD_PARAMS) {
+  if (pix_ctx == nullptr) return (int)cudaErrorInvalidValue;
+  return launch<response::Gut3d, true>(RASTERIZE_FWD_ARGS);
+}
+
+extern "C" int rasterize_fwd_gs2dp_stoch(RASTERIZE_FWD_PARAMS) {
+  pix_ctx = nullptr;
+  return launch<response::Gs2dp, true>(RASTERIZE_FWD_ARGS);
+}
+
+extern "C" int rasterize_fwd_gut3dp_stoch(RASTERIZE_FWD_PARAMS) {
+  if (pix_ctx == nullptr) return (int)cudaErrorInvalidValue;
+  return launch<response::Gut3dp, true>(RASTERIZE_FWD_ARGS);
 }

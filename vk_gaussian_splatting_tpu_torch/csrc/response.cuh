@@ -772,6 +772,27 @@ struct Gut3dp : Gut3d {
     put_bwd(l, s, ss, j);
   }
 };
+// Stochastic transparency (the kernels' STOCH forms; ops/response.py
+// hash_uniform and stochastic_accept, bit for bit): the JAX kernels'
+// uniform from (key, pixel, lane), an xxhash32-flavoured uint32 mix whose
+// top 24 bits times 2^-24 is exact in f32 (rasterize_pallas.py:161-177),
+// and the binary accept of an alpha after its clamp: exactly 1 where
+// u < a and a > 0, else 0 (:180-194). `pix` is the tile's row-major pixel,
+// `lane` the pair's place in its blend chunk; each kernel keys as the TPU
+// kernel it replaces keys its chunk.
+__device__ inline float hash_uniform(unsigned key, unsigned pix, unsigned lane) {
+  unsigned h = pix * 0x9E3779B1u ^ lane * 0x85EBCA77u ^ key * 0xC2B2AE3Du;
+  h ^= h >> 15;
+  h *= 0x2C1B3C6Du;
+  h ^= h >> 12;
+  h *= 0x297A2D39u;
+  h ^= h >> 15;
+  return (float)(int)(h >> 8) * (1.0f / 16777216.0f);
+}
+
+__device__ inline float stochastic_accept(float a, float u) {
+  return (u < a && a > 0.0f) ? 1.0f : 0.0f;
+}
 
 // One round of a blend step's cull: thread i holds lane r0 + i of the step
 // (round r0 / PIX), in list order, and `keep` says whether the model's

@@ -28,6 +28,12 @@ array, starting at a multiple of the chunk, and run the pair twins'
 sweep (``rasterize._blend_steps``) over it: one sweep serves all four
 twins. The backward sums each (tile, lane) gradient into its slot column.
 
+The stochastic form (``RasterStatics.stochastic``) keys merged lane m of
+tile t as the TPU kernels key their chunks (raster_bucket.py:744-745,
+:1106-1107): ``key = seed + t * n_chunks + m // chunk`` and ``lane = m %
+chunk``, m counting the dead head lanes too and n_chunks the chunks of the
+kernel's whole merged buffer (``n_chunks``; its ``_chunk_bounds``).
+
 On CUDA tensors the forward launches K3 and the backward K4; on CPU
 tensors both run the twins; nothing else decides which. A failed build or
 launch raises. gut3d reads the per-tile pixel context (T, 8, 256), which
@@ -69,6 +75,7 @@ from vk_gaussian_splatting_tpu_torch.ops.rasterize import (
     check_pix_ctx,
     count_launch,
     entry_name,
+    form_of,
     model_args,
     rasterize_tiles_bwd_ref,
     rasterize_tiles_ref,
@@ -169,6 +176,14 @@ class _TileLists:
     tile_start: torch.Tensor  # (T,) i32 first live lane of each listed tile
     tile_count: torch.Tensor  # (T,) i32 its live lanes
     n_eff: torch.Tensor       # (n, 6) i64 live candidates per span
+    key_offset: torch.Tensor  # (n,) i64 the stochastic key of lane p is seed + p // chunk + this
+
+
+def n_chunks(caps: tuple, chunk: int) -> int:
+    """Blend chunks of the TPU kernel's merged buffer of all six spans'
+    caps (``len(raster_bucket._chunk_bounds(c_total, chunk))``): the
+    stride of the stochastic keys from one tile to the next."""
+    return -(-sum(_span_sizes(caps)) // chunk)
 
 
 def _tile_lists(attrs: torch.Tensor, bucket_starts: torch.Tensor, st: RasterStatics,
@@ -206,7 +221,10 @@ def _tile_lists(attrs: torch.Tensor, bucket_starts: torch.Tensor, st: RasterStat
     tile_count = torch.zeros((num_tiles,), dtype=torch.int32, device=dev)
     tile_start[tiles] = (torch.arange(n, device=dev) * lanes + n_head).to(torch.int32)
     tile_count[tiles] = n_live.to(torch.int32)
-    return _TileLists(cols, tile_start, tile_count, n_eff)
+    # tile b's lane b * L + m has chunk b * L / c + m // c in the flat array
+    key_offset = (tiles.to(torch.int64) * n_chunks(caps, c)
+                  - torch.arange(n, device=dev) * (lanes // c))
+    return _TileLists(cols, tile_start, tile_count, n_eff, key_offset)
 
 
 def _all_tiles(st: RasterStatics, device, tiles):
@@ -218,23 +236,25 @@ def _all_tiles(st: RasterStatics, device, tiles):
 def rasterize_buckets_ref(attrs: torch.Tensor, ids: torch.Tensor,
                           bucket_starts: torch.Tensor, st: RasterStatics, caps: tuple,
                           tiles: torch.Tensor | None = None,
-                          pix_ctx: torch.Tensor | None = None):
+                          pix_ctx: torch.Tensor | None = None, seed: int = 0):
     """Plain PyTorch twin of K3: the pair twin over the merged lists.
 
     Returns ((n, 5, 256) f32, (n, 256) i32) for the tiles of ``tiles`` (all
     by default, in that order). Differentiable in ``attrs``. ``pix_ctx``:
-    the (T, 8, 256) pixel context of gut3d."""
+    the (T, 8, 256) pixel context of gut3d; ``seed``: the stochastic
+    stream's."""
     tiles = _all_tiles(st, attrs.device, tiles)
     lists = _tile_lists(attrs, bucket_starts, st, caps, tiles)
     c = lists.cols.clamp(min=0)
     return rasterize_tiles_ref(attrs[:, c], ids[c], lists.tile_start, lists.tile_count,
-                               st, tiles, pix_ctx)
+                               st, tiles, pix_ctx, seed, lists.key_offset)
 
 
 def rasterize_buckets_bwd_ref(attrs: torch.Tensor, bucket_starts: torch.Tensor,
                               ctx: torch.Tensor, st: RasterStatics, caps: tuple,
                               tiles: torch.Tensor | None = None,
-                              pix_ctx: torch.Tensor | None = None) -> torch.Tensor:
+                              pix_ctx: torch.Tensor | None = None,
+                              seed: int = 0) -> torch.Tensor:
     """Plain PyTorch twin of K4: (rows, P) d_attrs.
 
     The pair twin backward over the merged lists (``rasterize_tiles_bwd_ref``),
@@ -245,7 +265,8 @@ def rasterize_buckets_bwd_ref(attrs: torch.Tensor, bucket_starts: torch.Tensor,
     tiles = _all_tiles(st, attrs.device, tiles)
     lists = _tile_lists(attrs, bucket_starts, st, caps, tiles)
     d_lanes = rasterize_tiles_bwd_ref(attrs[:, lists.cols.clamp(min=0)], lists.tile_start,
-                                      lists.tile_count, ctx, st, tiles, pix_ctx)
+                                      lists.tile_count, ctx, st, tiles, pix_ctx, seed,
+                                      lists.key_offset)
     live = lists.cols >= 0
     cols, order = torch.sort(lists.cols[live], stable=True)
     p = attrs.shape[1]
@@ -314,12 +335,13 @@ class BucketWork(typing.NamedTuple):
     tested: int       # lanes the cull (K3, K4) tests: the live lanes of the steps each tile enters
     kept: int         # the lanes of those it keeps
     kept_evals: int   # the evaluations of those lanes up to each pixel's freeze
+    draws: int        # those whose alpha passes the cutoffs (before a stochastic accept)
 
 
 @torch.no_grad()
 def bucket_work(attrs: torch.Tensor, bucket_starts: torch.Tensor, st: RasterStatics,
                 caps: tuple, tiles: torch.Tensor | None = None,
-                pix_ctx: torch.Tensor | None = None) -> BucketWork:
+                pix_ctx: torch.Tensor | None = None, seed: int = 0) -> BucketWork:
     """The work of the given tiles (all by default): the alpha evaluations
     both kernels make and the hits (as ``rasterize.blend_work`` counts them
     over the merged lists), the live candidates, the merge's key
@@ -327,16 +349,18 @@ def bucket_work(attrs: torch.Tensor, bucket_starts: torch.Tensor, st: RasterStat
     (ceil(log2(m + 1)) steps for a span of m), and the lanes the cull of K3
     and K4 tests and keeps (``tile_may_hit``) with the kept lanes'
     evaluations. A tile enters a blend step while some pixel is not frozen
-    at its start (the kernels' early exit)."""
+    at its start (the kernels' early exit); a stochastic ``st`` sweeps the
+    stream of ``seed`` (``draws``: where the kernels hash a uniform)."""
     tiles = _all_tiles(st, attrs.device, tiles)
     lists = _tile_lists(attrs, bucket_starts, st, caps, tiles)
-    evals, hits, tested, kept, kept_evals = blend_work(
+    evals, hits, tested, kept, kept_evals, draws = blend_work(
         attrs[:, lists.cols.clamp(min=0)], lists.tile_start, lists.tile_count, st, tiles,
-        pix_ctx, keep=_lanes_may_hit(attrs, lists, st, tiles, pix_ctx))
+        pix_ctx, keep=_lanes_may_hit(attrs, lists, st, tiles, pix_ctx), seed=seed,
+        key_offset=lists.key_offset)
     steps = torch.ceil(torch.log2(lists.n_eff.double() + 1))
     others = steps.sum(dim=1, keepdim=True) - steps
     return BucketWork(evals, hits, int(lists.n_eff.sum()), int(lists.n_eff[:, 1:].sum()),
-                      int((lists.n_eff * others).sum()), tested, kept, kept_evals)
+                      int((lists.n_eff * others).sum()), tested, kept, kept_evals, draws)
 
 
 def _check_inputs(attrs, bucket_starts, st, caps, ids=None, ctx=None, pix_ctx=None) -> int:
@@ -370,15 +394,15 @@ def _check_shared_memory(name: str, caps: tuple, st: RasterStatics) -> None:
                          f"memory per {st.model} block; the card allows {limit} B")
 
 
-def _bucket_fwd(attrs, ids, bucket_starts, st, caps, pix_ctx):
+def _bucket_fwd(attrs, ids, bucket_starts, st, caps, pix_ctx, seed):
     """K3 on CUDA tensors (one launch counted, its kept-lane count left in
-    ``rasterize_buckets.kept`` or ``.kept_gut3d``), the twin on CPU
-    tensors."""
+    the form's ``KEPT_COUNTER``), the twin on CPU tensors."""
     caps = check_caps(caps)
     p = _check_inputs(attrs, bucket_starts, st, caps, ids=ids, pix_ctx=pix_ctx)
     dev = attrs.device
     if dev.type == "cpu":
-        return rasterize_buckets_ref(attrs, ids, bucket_starts, st, caps, pix_ctx=pix_ctx)
+        return rasterize_buckets_ref(attrs, ids, bucket_starts, st, caps, pix_ctx=pix_ctx,
+                                     seed=seed)
     num_tiles = st.tiles_x * st.tiles_y
     spans = _span_table(st.tiles_x, st.tiles_y, dev)
     out = torch.empty((num_tiles, OUT_ROWS, PIX), dtype=torch.float32, device=dev)
@@ -391,22 +415,23 @@ def _bucket_fwd(attrs, ids, bucket_starts, st, caps, pix_ctx):
             attrs.data_ptr(), p, ids.data_ptr(), bucket_starts.data_ptr(), spans.data_ptr(),
             _ptr(pix_ctx), num_tiles, st.tiles_x, *caps, st.chunk, *model_args(st),
             st.min_transmittance, st.depth_iso, out.data_ptr(), out_id.data_ptr(),
-            kept.data_ptr(), stream)
+            kept.data_ptr(), seed, stream)
     if err != 0:
-        raise RuntimeError(f"raster_bucket_fwd ({st.model}) launch failed: cudaError {err}")
+        raise RuntimeError(f"raster_bucket_fwd ({form_of(st)}) launch failed: cudaError {err}")
     count_launch(rasterize_buckets, st)
-    setattr(rasterize_buckets, KEPT_COUNTER[st.model], kept)
+    setattr(rasterize_buckets, KEPT_COUNTER[form_of(st)], kept)
     return out, out_id
 
 
 def rasterize_buckets_bwd(attrs: torch.Tensor, bucket_starts: torch.Tensor,
                           ctx: torch.Tensor, st: RasterStatics, caps: tuple,
-                          pix_ctx: torch.Tensor | None = None) -> torch.Tensor:
+                          pix_ctx: torch.Tensor | None = None, seed: int = 0) -> torch.Tensor:
     """(rows, P) d_attrs from the (T, 5, 256) ``bwd_context``.
 
-    CUDA tensors launch csrc/raster_bucket_bwd.cu's entry for ``st.model``
-    and count one launch in ``rasterize_buckets_bwd.launches`` (gs2d) or
-    ``.launches_gut3d``; CPU tensors run the plain twin. The kernel stores
+    CUDA tensors launch csrc/raster_bucket_bwd.cu's entry for the form of
+    ``st`` and count one launch in ``rasterize_buckets_bwd.launches``
+    (gs2d), ``.launches_gut3d`` or their ``_stoch`` forms (``seed``: the
+    forward's); CPU tensors run the plain twin. The kernel stores
     each fine column's gradient once; the gradients of a shared span's
     lanes go to a per-tile scratch that two more passes sum over each
     column's reading tiles in a fixed order (``_readers``). No float
@@ -422,7 +447,8 @@ def rasterize_buckets_bwd(attrs: torch.Tensor, bucket_starts: torch.Tensor,
     p = _check_inputs(attrs, bucket_starts, st, caps, ctx=ctx, pix_ctx=pix_ctx)
     dev = attrs.device
     if dev.type == "cpu":
-        return rasterize_buckets_bwd_ref(attrs, bucket_starts, ctx, st, caps, pix_ctx=pix_ctx)
+        return rasterize_buckets_bwd_ref(attrs, bucket_starts, ctx, st, caps, pix_ctx=pix_ctx,
+                                         seed=seed)
     spec = BucketGridSpec.build(st.tiles_x, st.tiles_y)
     num_tiles = st.tiles_x * st.tiles_y
     spans = _span_table(st.tiles_x, st.tiles_y, dev)
@@ -444,11 +470,11 @@ def rasterize_buckets_bwd(attrs: torch.Tensor, bucket_starts: torch.Tensor,
             *(x.data_ptr() for x in readers), n_seg, ctx.data_ptr(), _ptr(pix_ctx), num_tiles,
             st.tiles_x, *caps, spec.offsets[1], spec.offsets[3], st.chunk, *model_args(st),
             st.min_transmittance, scratch.data_ptr(), partial.data_ptr(), d_attrs.data_ptr(),
-            kept.data_ptr(), stream)
+            kept.data_ptr(), seed, stream)
     if err != 0:
-        raise RuntimeError(f"raster_bucket_bwd ({st.model}) launch failed: cudaError {err}")
+        raise RuntimeError(f"raster_bucket_bwd ({form_of(st)}) launch failed: cudaError {err}")
     count_launch(rasterize_buckets_bwd, st)
-    setattr(rasterize_buckets_bwd, KEPT_COUNTER[st.model], kept)
+    setattr(rasterize_buckets_bwd, KEPT_COUNTER[form_of(st)], kept)
     return d_attrs
 
 
@@ -461,40 +487,43 @@ class _RasterizeBuckets(torch.autograd.Function):
     backward of a packed model raises NotImplementedError."""
 
     @staticmethod
-    def forward(ctx, attrs, ids, bucket_starts, pix_ctx, st, caps):
-        out, out_id = _bucket_fwd(attrs, ids, bucket_starts, st, caps, pix_ctx)
+    def forward(ctx, attrs, ids, bucket_starts, pix_ctx, st, caps, seed):
+        out, out_id = _bucket_fwd(attrs, ids, bucket_starts, st, caps, pix_ctx, seed)
         ctx.mark_non_differentiable(out_id)
         ctx.save_for_backward(attrs, bucket_starts, pix_ctx, out)
-        ctx.st, ctx.caps = st, caps
+        ctx.st, ctx.caps, ctx.seed = st, caps, seed
         return out, out_id
 
     @staticmethod
     def backward(ctx, g_out, g_id):
         attrs, bucket_starts, pix_ctx, out = ctx.saved_tensors
         d_attrs = rasterize_buckets_bwd(attrs, bucket_starts, bwd_context(out, g_out),
-                                        ctx.st, ctx.caps, pix_ctx)
-        return d_attrs, None, None, None, None, None
+                                        ctx.st, ctx.caps, pix_ctx, ctx.seed)
+        return d_attrs, None, None, None, None, None, None
 
 
 def rasterize_buckets(bins: BucketBins, st: RasterStatics, caps: tuple,
-                      pix_ctx: torch.Tensor | None = None):
+                      pix_ctx: torch.Tensor | None = None, seed: int = 0):
     """Blend bucketed splats into per-tile outputs.
 
     bins: from ops/bucket_grid.bucket_splats at the same tiles_x/y, rows of
     ``st.model``; st: the blend statics with ``chunk`` = the bucket blend
     chunk; caps: the four class caps; pix_ctx: the (T, 8, 256) pixel
-    context of gut3d (None for gs2d). Returns ((T, 5, 256) f32 rows r, g,
-    b, T, depth; (T, 256) i32 ids), every tile written. CUDA tensors launch
-    csrc/raster_bucket_fwd.cu's entry for the model and count one launch in
-    ``rasterize_buckets.launches`` (gs2d), or the model's
+    context of gut3d (None for gs2d); seed: the stochastic stream's (read
+    only if ``st.stochastic``). Returns ((T, 5, 256) f32 rows r, g, b, T,
+    depth; (T, 256) i32 ids), every tile written. CUDA tensors launch
+    csrc/raster_bucket_fwd.cu's entry for the form of ``st`` and count one
+    launch in ``rasterize_buckets.launches`` (gs2d), or the form's
     ``LAUNCH_COUNTER`` (``.launches_gut3d``, ``.launches_gs2dp``,
-    ``.launches_gut3dp``); CPU tensors run the plain twin. The kernel blends only the lanes its
+    ``.launches_gut3dp``, each also with ``_stoch``); CPU tensors run the
+    plain twin. The kernel blends only the lanes its
     per-tile cull keeps (``tile_may_hit``; the outputs are bit for bit the
     sweep over every lane) and leaves the kept count in
-    ``rasterize_buckets.kept`` or the model's ``KEPT_COUNTER``, as
+    ``rasterize_buckets.kept`` or the form's ``KEPT_COUNTER``, as
     ``rasterize_buckets_bwd`` does. Gradients reach ``bins.attrs`` through
     rgb and T."""
-    return _RasterizeBuckets.apply(bins.attrs, bins.ids, bins.bucket_starts, pix_ctx, st, caps)
+    return _RasterizeBuckets.apply(bins.attrs, bins.ids, bins.bucket_starts, pix_ctx, st, caps,
+                                   int(seed))
 
 
 zero_counters(rasterize_buckets)
@@ -503,16 +532,17 @@ _P, _L, _I, _F = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_floa
 _MODEL = [_F, _F, _F, _F, _I]  # alpha_min, alpha_clamp, qmax, kernel_min_response, degree
 _ARGTYPES = {  # the C entry points' parameters, in order (csrc/raster_bucket_*.cu)
     "raster_bucket_fwd": [_P, _L, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, *_MODEL,
-                          _F, _F, _P, _P, _P, _P],
+                          _F, _F, _P, _P, _P, _I, _P],
     "raster_bucket_bwd": [_P, _L, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I,
-                          _I, _I, _I, _I, *_MODEL, _F, _P, _P, _P, _P, _P],
+                          _I, _I, _I, _I, *_MODEL, _F, _P, _P, _P, _P, _I, _P],
     "_smem": [_I, _I],
     "_smem_limit": [],
 }
 
 
 def _fn(name: str, suffix: str = "", st: RasterStatics | None = None):
-    """The C function of csrc/<name>.cu for ``st.model`` (gs2d without
-    ``st``), or its ``_smem`` / ``_smem_limit`` query with ``suffix``."""
+    """The C function of csrc/<name>.cu for the form of ``st`` (gs2d
+    without ``st``), or its ``_smem`` / ``_smem_limit`` query with
+    ``suffix``."""
     symbol = (name if st is None else entry_name(name, st)) + suffix
     return _build.entry(name, symbol, _ARGTYPES[suffix or name])

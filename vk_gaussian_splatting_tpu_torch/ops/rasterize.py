@@ -26,9 +26,21 @@ written: an empty tile is rgb 0, T 1, depth 0, id -1.
 picked depth and id are not differentiated (as in the JAX package). On CUDA
 tensors the forward launches K1 and the backward K2; on CPU tensors both
 run the plain twins; nothing else decides which. A failed build or launch
-raises. Each wrapper counts its launches per model: ``launches`` for gs2d,
+raises. Each wrapper counts its launches per form: ``launches`` for gs2d,
 ``launches_gut3d`` for gut3d, ``launches_gs2dp`` and ``launches_gut3dp``
-for the packed models.
+for the packed models, and each of those with ``_stoch`` appended for the
+stochastic form (``RasterStatics.stochastic``).
+
+Stochastic transparency (``RasterStatics.stochastic``, the JAX
+``_alpha_closure``, rasterize_pallas.py:180-194): each pair that passes the
+cutoffs is accepted as opaque (alpha exactly 1) where a uniform
+``hash_uniform(key, pixel, lane)`` (ops/response.py) falls below its alpha,
+else dropped. On the pair path the key is ``seed + p // chunk`` and the lane
+``p % chunk``, p the global pair index, as the TPU kernel keys its 128-lane
+blocks (:237, :393); the bucket twins key by their own layout
+(``key_offset``, ops/raster_bucket.py). ``seed`` is per temporal sample.
+The accept has no gradient: the backward gives the colour rows theirs and
+every other row 0, as ``jax.vjp`` of the JAX ``where`` does.
 """
 
 from __future__ import annotations
@@ -54,11 +66,13 @@ from vk_gaussian_splatting_tpu_torch.ops.response import (
     alpha_vjp,
     bound_of_warp,
     f32_model,
+    hash_uniform,
     may_hit,
     model_of,
     pair_reach,
     reach_may_hit,
     refuse_backward,
+    stochastic_accept,
     tile_bound,
     unpack_rows,
     warp_bound,
@@ -68,20 +82,31 @@ OUT_ROWS = 5       # r, g, b, T, depth
 CTX_ROWS = 5       # backward context: g_r, g_g, g_b, S_total, g_T * T_final
 GRAD_ROWS = ATTR_B + 1  # gs2d: rows 0-8 get gradients; the depth row gets none
 MAX_CHUNK = 256    # csrc/rasterize_{fwd,bwd}.cu stage at most this many pairs
-# the launch counter of each model, an attribute of each kernel's wrapper
+STOCH = "_stoch"  # the suffix of a stochastic form's counters and C entries
+# the launch counter of each form (a model, or a model + STOCH for its
+# stochastic form), an attribute of each kernel's wrapper
 LAUNCH_COUNTER = {"gs2d": "launches", "gut3d": "launches_gut3d",
                   "gs2dp": "launches_gs2dp", "gut3dp": "launches_gut3dp"}
 # the kept count of the last launch of each culling kernel (K1, K2, K3, K4),
-# an attribute of its wrapper, per model
+# an attribute of its wrapper, per form
 KEPT_COUNTER = {"gs2d": "kept", "gut3d": "kept_gut3d",
                 "gs2dp": "kept_gs2dp", "gut3dp": "kept_gut3dp"}
+for _counters in (LAUNCH_COUNTER, KEPT_COUNTER):
+    _counters.update({m + STOCH: name + STOCH for m, name in list(_counters.items())})
+
+
+def form_of(st) -> str:
+    """The kernel form of ``st``: its model, + ``STOCH`` if stochastic."""
+    return st.model + (STOCH if st.stochastic else "")
 
 
 def zero_counters(wrapper, models=tuple(MODELS)) -> None:
-    """Set ``wrapper``'s launch and kept counters of ``models`` to 0."""
+    """Set ``wrapper``'s launch and kept counters of ``models`` to 0, both
+    forms of each."""
     for m in models:
-        setattr(wrapper, LAUNCH_COUNTER[m], 0)
-        setattr(wrapper, KEPT_COUNTER[m], 0)
+        for f in (m, m + STOCH):
+            setattr(wrapper, LAUNCH_COUNTER[f], 0)
+            setattr(wrapper, KEPT_COUNTER[f], 0)
 
 
 TRAINED = ("gs2d", "gut3d")  # the models with a backward
@@ -102,6 +127,7 @@ class RasterStatics:
     model: str = "gs2d"          # response model (ops/response.py)
     kernel_degree: int = 2       # gut3d generalized-Gaussian degree
     kernel_min_response: float = 0.0113  # gut3d response cutoff
+    stochastic: bool = False     # binary accept per (pixel, pair), keyed by the sample seed
 
 
 def _tile_pixel_coords(tiles: torch.Tensor, tiles_x: int, dtype=torch.float32):
@@ -132,6 +158,7 @@ class _Step(typing.NamedTuple):
     live: torch.Tensor       # (n, 256, c) lane live and pixel not frozen
     block: torch.Tensor      # (n, rows, c) the lanes' attribute rows
     alpha: torch.Tensor      # (n, 256, c), 0 where not live or cut off
+    drawn: torch.Tensor      # (n, 256, c) bool, alpha passed the cutoffs before an accept
     q: torch.Tensor          # 1 - alpha
     excl: torch.Tensor       # exclusive product of q along the lanes
     tcol: torch.Tensor       # (n, 256, 1) T at the step's start
@@ -163,16 +190,22 @@ def _chunks(attrs, tile_start, tile_count, st: RasterStatics, tiles):
         yield p, pc, (p >= start[:, None]) & (p < end[:, None]), rows
 
 
-def _blend_steps(attrs, tile_start, tile_count, st: RasterStatics, tiles, pix_ctx=None):
+def _blend_steps(attrs, tile_start, tile_count, st: RasterStatics, tiles, pix_ctx=None,
+                 seed: int = 0, key_offset: torch.Tensor | None = None):
     """The front-to-back sweep both twins walk, one ``_Step`` per blend
     step (``_chunks``), with the TPU kernel's chunk semantics.
 
     A pixel is frozen for a whole step when its T at the step's start is
     <= min_transmittance. T advances after each step is yielded. Returns
-    the tiles' ``_Pixels`` too."""
+    the tiles' ``_Pixels`` too. A stochastic ``st`` accepts each alpha by
+    ``hash_uniform(seed + p // chunk + key_offset, pixel, p % chunk)``;
+    ``key_offset`` (n,), per listed tile, is 0 on the pair path."""
     n = tiles.shape[0]
+    c = st.chunk
     px, py = _tile_pixel_coords(tiles, st.tiles_x)
     pixels = _Pixels(px, py, pix_ctx[tiles] if model_of(st).uses_pix else None)
+    pixel = torch.arange(PIX, device=attrs.device)[None, :, None]
+    offset = 0 if key_offset is None else key_offset[:, None, None]
 
     def steps():
         tcol = torch.ones((n, PIX, 1), dtype=attrs.dtype, device=attrs.device)
@@ -180,10 +213,14 @@ def _blend_steps(attrs, tile_start, tile_count, st: RasterStatics, tiles, pix_ct
             live = lane_live[:, None, :] & (tcol > st.min_transmittance)
             block = rows.permute(1, 0, 2)                               # (n, R, c)
             a = alpha(block, px, py, pixels.pix, live, st)              # (n, 256, c)
+            drawn = a > 0
+            if st.stochastic:
+                key = seed + p[:, None, :1] // c + offset
+                a = stochastic_accept(a, hash_uniform(key, pixel, p[:, None, :] % c))
             q = 1.0 - a
             incl = torch.cumprod(q, dim=-1)
             excl = torch.cat([torch.ones_like(q[..., :1]), incl[..., :-1]], dim=-1)
-            yield _Step(p, pc, lane_live, live, block, a, q, excl, tcol)
+            yield _Step(p, pc, lane_live, live, block, a, drawn, q, excl, tcol)
             tcol = tcol * excl[..., -1:] * q[..., -1:]
 
     return pixels, steps()
@@ -198,13 +235,15 @@ def _all_tiles(tile_start, tiles):
 def rasterize_tiles_ref(attrs: torch.Tensor, ids: torch.Tensor,
                         tile_start: torch.Tensor, tile_count: torch.Tensor,
                         st: RasterStatics, tiles: torch.Tensor | None = None,
-                        pix_ctx: torch.Tensor | None = None):
+                        pix_ctx: torch.Tensor | None = None, seed: int = 0,
+                        key_offset: torch.Tensor | None = None):
     """Plain PyTorch twin of the kernel, with the TPU kernel's chunk semantics.
 
     Each step of the sweep (``_blend_steps``) is an ``(n, 256, chunk)``
     alpha block of ``st.model`` with an exclusive product along the lanes.
     ``tiles`` selects a subset of tiles (all by default); the result rows
     follow it. ``pix_ctx``: the (T, 8, 256) pixel context of gut3d.
+    ``seed``, ``key_offset``: the stochastic stream (``_blend_steps``).
     """
     c = st.chunk
     dev = attrs.device
@@ -217,7 +256,8 @@ def rasterize_tiles_ref(attrs: torch.Tensor, ids: torch.Tensor,
     pick_d = torch.zeros((n, PIX), dtype=attrs.dtype, device=dev)
     pick_id = torch.full((n, PIX), -1, dtype=torch.int32, device=dev)
     picked = torch.zeros((n, PIX), dtype=torch.bool, device=dev)
-    for s in _blend_steps(attrs, tile_start, tile_count, st, tiles, pix_ctx)[1]:
+    for s in _blend_steps(attrs, tile_start, tile_count, st, tiles, pix_ctx, seed,
+                          key_offset)[1]:
         w = s.alpha * s.excl * s.tcol
         acc = acc + torch.stack(
             [(w * s.block[:, ch:ch + 1, :]).sum(-1) for ch in range(ATTR_R, ATTR_B + 1)],
@@ -242,23 +282,28 @@ def rasterize_tiles_ref(attrs: torch.Tensor, ids: torch.Tensor,
 def blend_work(attrs: torch.Tensor, tile_start: torch.Tensor, tile_count: torch.Tensor,
                st: RasterStatics, tiles: torch.Tensor | None = None,
                pix_ctx: torch.Tensor | None = None,
-               keep: torch.Tensor | None = None) -> tuple[int, ...]:
+               keep: torch.Tensor | None = None, seed: int = 0,
+               key_offset: torch.Tensor | None = None) -> tuple[int, ...]:
     """(evaluations, hits) of a frame: the (pixel, pair) alpha evaluations
     both kernels make (every pair of each step a pixel enters live), and
     those whose alpha passes the cutoffs, where the kernels do the blend
     or gradient work. What a kernel's bound counts. ``tiles`` restricts
     the count to a subset of tiles (all by default).
 
-    ``keep``, a bool per pair (a kernel's cull), adds three counts over the
+    ``keep``, a bool per pair (a kernel's cull), adds four counts over the
     steps a tile enters (some pixel live at the step's start): (tested,
-    kept, kept evaluations), the pairs the cull tests, those it keeps, and
-    the kept pairs' evaluations. A (P, WARPS) ``keep`` (K1's per-warp cull,
-    ``pair_warp_may_hit``) counts the kept (warp, pair) bits instead, and
-    as kept evaluations the live (pixel, pair)s whose warp keeps the pair
-    (``WARP_OF_PIXEL``)."""
-    evals = hits = tested = kept = kept_evals = 0
+    kept, kept evaluations, draws), the pairs the cull tests, those it
+    keeps, the kept pairs' evaluations, and those of them whose alpha
+    passes the cutoffs before a stochastic accept (where the stochastic
+    kernels hash a uniform; the hits of a deterministic sweep). A (P,
+    WARPS) ``keep`` (K1's per-warp cull, ``pair_warp_may_hit``) counts the
+    kept (warp, pair) bits instead, and as kept evaluations the live
+    (pixel, pair)s whose warp keeps the pair (``WARP_OF_PIXEL``). A
+    stochastic ``st`` sweeps the stream of ``seed`` and ``key_offset`` (its
+    hits are the accepted pairs)."""
+    evals = hits = tested = kept = kept_evals = draws = 0
     for s in _blend_steps(attrs, tile_start, tile_count, st, _all_tiles(tile_start, tiles),
-                          pix_ctx)[1]:
+                          pix_ctx, seed, key_offset)[1]:
         evals += int(s.live.sum())
         hits += int((s.alpha > 0).sum())
         if keep is not None:
@@ -267,12 +312,13 @@ def blend_work(attrs: torch.Tensor, tile_start: torch.Tensor, tile_count: torch.
             k = keep[s.pc]                                              # (n, c[, WARPS])
             if keep.dim() == 2:
                 kept += int((lanes[..., None] & k).sum())
-                kept_evals += int((s.live & k[..., WARP_OF_PIXEL.to(k.device)]
-                                   .transpose(1, 2)).sum())
+                k_px = s.live & k[..., WARP_OF_PIXEL.to(k.device)].transpose(1, 2)
             else:
                 kept += int((lanes & k).sum())
-                kept_evals += int((s.live & k[:, None, :]).sum())
-    return (evals, hits) if keep is None else (evals, hits, tested, kept, kept_evals)
+                k_px = s.live & k[:, None, :]
+            kept_evals += int(k_px.sum())
+            draws += int((k_px & s.drawn).sum())
+    return (evals, hits) if keep is None else (evals, hits, tested, kept, kept_evals, draws)
 
 
 @torch.no_grad()
@@ -354,7 +400,8 @@ def bwd_context(out: torch.Tensor, g_out: torch.Tensor) -> torch.Tensor:
 def rasterize_tiles_bwd_ref(attrs: torch.Tensor, tile_start: torch.Tensor,
                             tile_count: torch.Tensor, ctx: torch.Tensor,
                             st: RasterStatics, tiles: torch.Tensor | None = None,
-                            pix_ctx: torch.Tensor | None = None):
+                            pix_ctx: torch.Tensor | None = None, seed: int = 0,
+                            key_offset: torch.Tensor | None = None):
     """Plain PyTorch twin of the backward kernel: (rows, P) d_attrs.
 
     Hand-derived, vectorized like the forward twin: the same forward-order
@@ -370,7 +417,9 @@ def rasterize_tiles_bwd_ref(attrs: torch.Tensor, tile_start: torch.Tensor,
     written once. The depth row and pairs no tile visits stay zero. ``tiles``
     restricts the sweep to a subset of tiles (all by default); pairs of the
     other tiles then stay zero too. A forward-only (packed) model raises
-    NotImplementedError.
+    NotImplementedError. A stochastic ``st`` sweeps the stream of ``seed``
+    and ``key_offset``; its accepted alphas have no gradient, so only the
+    colour rows get one (every division still by the clamped q).
     """
     refuse_backward(st)
     model = model_of(st)
@@ -382,7 +431,8 @@ def rasterize_tiles_bwd_ref(attrs: torch.Tensor, tile_start: torch.Tensor,
 
     d_attrs = torch.zeros_like(attrs)
     s_run = torch.zeros_like(s_total)
-    pixels, steps = _blend_steps(attrs, tile_start, tile_count, st, tiles, pix_ctx)
+    pixels, steps = _blend_steps(attrs, tile_start, tile_count, st, tiles, pix_ctx, seed,
+                                 key_offset)
     for s in steps:
         t_k = s.excl * s.tcol
         w = s.alpha * t_k
@@ -395,8 +445,9 @@ def rasterize_tiles_bwd_ref(attrs: torch.Tensor, tile_start: torch.Tensor,
         qsafe = torch.clamp(s.q, min=1.0 - st.alpha_clamp)
         dalpha = t_k * cg - (suffix + gt_tn) / qsafe
         d_blk = blk.new_zeros((blk.shape[0], model.grad_rows, blk.shape[2]))
-        d_blk[:, list(model.geo_rows)] = alpha_vjp(blk, pixels.px, pixels.py, pixels.pix,
-                                                   s.live, st, dalpha)
+        if not st.stochastic:
+            d_blk[:, list(model.geo_rows)] = alpha_vjp(blk, pixels.px, pixels.py, pixels.pix,
+                                                       s.live, st, dalpha)
         d_blk[:, ATTR_R:ATTR_B + 1] = torch.stack(
             [(g_rgb[..., ch:ch + 1] * w).sum(dim=1) for ch in range(3)], dim=1)
         d_attrs[:model.grad_rows, s.p[s.lane_live]] = d_blk.permute(1, 0, 2)[:, s.lane_live]
@@ -444,8 +495,8 @@ def _check_pairs(attrs, tile_start, tile_count, st, ids=None, pix_ctx=None) -> i
 
 
 def count_launch(wrapper, st) -> None:
-    """One more launch of ``wrapper``'s kernel for ``st.model``."""
-    name = LAUNCH_COUNTER[st.model]
+    """One more launch of ``wrapper``'s kernel in the form of ``st``."""
+    name = LAUNCH_COUNTER[form_of(st)]
     setattr(wrapper, name, getattr(wrapper, name) + 1)
 
 
@@ -455,13 +506,14 @@ def model_args(st):
     return (st.alpha_min, st.alpha_clamp, st.qmax, st.kernel_min_response, st.kernel_degree)
 
 
-def _blend_fwd(attrs, ids, tile_start, tile_count, st, pix_ctx):
+def _blend_fwd(attrs, ids, tile_start, tile_count, st, pix_ctx, seed):
     """K1 on CUDA tensors (its cull and blend kernels, one launch counted),
     the twin on CPU tensors."""
     p = _check_pairs(attrs, tile_start, tile_count, st, ids, pix_ctx)
     dev = attrs.device
     if dev.type == "cpu":
-        return rasterize_tiles_ref(attrs, ids, tile_start, tile_count, st, pix_ctx=pix_ctx)
+        return rasterize_tiles_ref(attrs, ids, tile_start, tile_count, st, pix_ctx=pix_ctx,
+                                   seed=seed)
     num_tiles = st.tiles_x * st.tiles_y
     fn = _kernel("rasterize_fwd", st)
     out = torch.empty((num_tiles, OUT_ROWS, PIX), dtype=torch.float32, device=dev)
@@ -473,22 +525,25 @@ def _blend_fwd(attrs, ids, tile_start, tile_count, st, pix_ctx):
         err = fn(attrs.data_ptr(), p, ids.data_ptr(), tile_start.data_ptr(),
                  tile_count.data_ptr(), _ptr(pix_ctx), num_tiles, st.tiles_x, st.chunk,
                  *model_args(st), st.min_transmittance, st.depth_iso,
-                 out.data_ptr(), out_id.data_ptr(), kept.data_ptr(), masks.data_ptr(), stream)
+                 out.data_ptr(), out_id.data_ptr(), kept.data_ptr(), masks.data_ptr(), seed,
+                 stream)
     if err != 0:
-        raise RuntimeError(f"rasterize_fwd ({st.model}) launch failed: cudaError {err}")
+        raise RuntimeError(f"rasterize_fwd ({form_of(st)}) launch failed: cudaError {err}")
     count_launch(rasterize_tiles, st)
-    setattr(rasterize_tiles, KEPT_COUNTER[st.model], kept)
+    setattr(rasterize_tiles, KEPT_COUNTER[form_of(st)], kept)
     return out, out_id
 
 
 def rasterize_tiles_bwd(attrs: torch.Tensor, tile_start: torch.Tensor,
                         tile_count: torch.Tensor, ctx: torch.Tensor,
-                        st: RasterStatics, pix_ctx: torch.Tensor | None = None) -> torch.Tensor:
+                        st: RasterStatics, pix_ctx: torch.Tensor | None = None,
+                        seed: int = 0) -> torch.Tensor:
     """(rows, P) d_attrs from the (T, 5, 256) ``bwd_context``.
 
-    CUDA tensors launch csrc/rasterize_bwd.cu's entry for ``st.model`` and
-    count one launch in ``rasterize_tiles_bwd.launches`` (gs2d) or
-    ``.launches_gut3d``; CPU tensors run the plain twin. The kernel writes
+    CUDA tensors launch csrc/rasterize_bwd.cu's entry for the form of
+    ``st`` and count one launch in ``rasterize_tiles_bwd.launches`` (gs2d),
+    ``.launches_gut3d`` or their ``_stoch`` forms (``seed``: the forward's);
+    CPU tensors run the plain twin. The kernel writes
     each visited pair's gradient once with a plain store, in a fixed
     reduction order, so its result repeats bit for bit. Where it culls the
     model's pair lists (``Model.cull_pairs``: gs2d) it sweeps only the
@@ -504,7 +559,8 @@ def rasterize_tiles_bwd(attrs: torch.Tensor, tile_start: torch.Tensor,
     num_tiles = st.tiles_x * st.tiles_y
     _check("ctx", ctx, torch.float32, (num_tiles, CTX_ROWS, PIX), dev)
     if dev.type == "cpu":
-        return rasterize_tiles_bwd_ref(attrs, tile_start, tile_count, ctx, st, pix_ctx=pix_ctx)
+        return rasterize_tiles_bwd_ref(attrs, tile_start, tile_count, ctx, st, pix_ctx=pix_ctx,
+                                       seed=seed)
     fn = _kernel("rasterize_bwd", st)
     d_attrs = torch.zeros_like(attrs)  # the kernel writes visited, kept pairs only
     with torch.cuda.device(dev):
@@ -513,11 +569,11 @@ def rasterize_tiles_bwd(attrs: torch.Tensor, tile_start: torch.Tensor,
         err = fn(attrs.data_ptr(), p, tile_start.data_ptr(), tile_count.data_ptr(),
                  ctx.data_ptr(), _ptr(pix_ctx), num_tiles, st.tiles_x, st.chunk,
                  *model_args(st), st.min_transmittance, d_attrs.data_ptr(), kept.data_ptr(),
-                 stream)
+                 seed, stream)
     if err != 0:
-        raise RuntimeError(f"rasterize_bwd ({st.model}) launch failed: cudaError {err}")
+        raise RuntimeError(f"rasterize_bwd ({form_of(st)}) launch failed: cudaError {err}")
     count_launch(rasterize_tiles_bwd, st)
-    setattr(rasterize_tiles_bwd, KEPT_COUNTER[st.model], kept)
+    setattr(rasterize_tiles_bwd, KEPT_COUNTER[form_of(st)], kept)
     return d_attrs
 
 
@@ -532,34 +588,35 @@ class _RasterizeTiles(torch.autograd.Function):
     patterns; ``rasterize_pallas._rt_bwd``)."""
 
     @staticmethod
-    def forward(ctx, attrs, ids, tile_start, tile_count, pix_ctx, st):
-        out, out_id = _blend_fwd(attrs, ids, tile_start, tile_count, st, pix_ctx)
+    def forward(ctx, attrs, ids, tile_start, tile_count, pix_ctx, st, seed):
+        out, out_id = _blend_fwd(attrs, ids, tile_start, tile_count, st, pix_ctx, seed)
         ctx.mark_non_differentiable(out_id)
         ctx.save_for_backward(attrs, tile_start, tile_count, pix_ctx, out)
-        ctx.st = st
+        ctx.st, ctx.seed = st, seed
         return out, out_id
 
     @staticmethod
     def backward(ctx, g_out, g_id):
         attrs, tile_start, tile_count, pix_ctx, out = ctx.saved_tensors
         d_attrs = rasterize_tiles_bwd(attrs, tile_start, tile_count,
-                                      bwd_context(out, g_out), ctx.st, pix_ctx)
-        return d_attrs, None, None, None, None, None
+                                      bwd_context(out, g_out), ctx.st, pix_ctx, ctx.seed)
+        return d_attrs, None, None, None, None, None, None
 
 
 def rasterize_tiles(attrs: torch.Tensor, ids: torch.Tensor,
                     tile_start: torch.Tensor, tile_count: torch.Tensor,
-                    st: RasterStatics, pix_ctx: torch.Tensor | None = None):
+                    st: RasterStatics, pix_ctx: torch.Tensor | None = None, seed: int = 0):
     """Blend sorted pair attributes into per-tile outputs.
 
     attrs: (rows, P) f32 rows of ``st.model`` in (tile, depth) order; ids:
     (P,) i32; tile_start, tile_count: (T,) i32, T = tiles_x * tiles_y;
-    pix_ctx: the (T, 8, 256) f32 pixel context of gut3d (None for gs2d).
+    pix_ctx: the (T, 8, 256) f32 pixel context of gut3d (None for gs2d);
+    seed: the stochastic stream's seed (read only if ``st.stochastic``).
     Returns ((T, 5, 256) f32 rows r, g, b, T, depth; (T, 256) i32 ids).
-    CUDA tensors launch csrc/rasterize_fwd.cu's entry for the model and
-    count one launch in ``rasterize_tiles.launches`` (gs2d),
-    ``.launches_gut3d``, ``.launches_gs2dp`` or ``.launches_gut3dp``; CPU
-    tensors run the plain twin. The kernel's warps
+    CUDA tensors launch csrc/rasterize_fwd.cu's entry for the form of
+    ``st`` and count one launch in ``rasterize_tiles.launches`` (gs2d),
+    ``.launches_gut3d``, ``.launches_gs2dp``, ``.launches_gut3dp`` or their
+    ``_stoch`` forms; CPU tensors run the plain twin. The kernel's warps
     skip the pairs its per-warp cull drops (``pair_warp_may_hit``), and it
     leaves in ``rasterize_tiles.kept`` (gs2d), or the model's
     ``KEPT_COUNTER``, a one-element int32 tensor on the card: the kept
@@ -568,7 +625,7 @@ def rasterize_tiles(attrs: torch.Tensor, ids: torch.Tensor,
     to be read with ``int()`` after a synchronise. Gradients reach
     ``attrs`` through rgb and T (``rasterize_tiles_bwd``).
     """
-    return _RasterizeTiles.apply(attrs, ids, tile_start, tile_count, pix_ctx, st)
+    return _RasterizeTiles.apply(attrs, ids, tile_start, tile_count, pix_ctx, st, int(seed))
 
 
 zero_counters(rasterize_tiles)
@@ -576,17 +633,20 @@ zero_counters(rasterize_tiles)
 _P, _L, _I, _F = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
 _MODEL = [_F, _F, _F, _F, _I]  # alpha_min, alpha_clamp, qmax, kernel_min_response, degree
 _ARGTYPES = {  # the C entry points' parameters, in order (csrc/*.cu)
-    "rasterize_fwd": [_P, _L, _P, _P, _P, _P, _I, _I, _I, *_MODEL, _F, _F, _P, _P, _P, _P, _P],
-    "rasterize_bwd": [_P, _L, _P, _P, _P, _P, _I, _I, _I, *_MODEL, _F, _P, _P, _P],
+    "rasterize_fwd": [_P, _L, _P, _P, _P, _P, _I, _I, _I, *_MODEL, _F, _F, _P, _P, _P, _P, _I,
+                      _P],
+    "rasterize_bwd": [_P, _L, _P, _P, _P, _P, _I, _I, _I, *_MODEL, _F, _P, _P, _I, _P],
 }
 
 
 def entry_name(name: str, st) -> str:
-    """The C entry point of kernel ``name`` for ``st.model``: ``name`` for
-    gs2d, ``name + "_" + st.model`` for the others (the same source,
-    another instantiation of its model template)."""
+    """The C entry point of kernel ``name`` for the form of ``st``: ``name``
+    for gs2d, ``name + "_" + st.model`` for the others (the same source,
+    another instantiation of its model template), then ``_stoch`` for the
+    stochastic form (its stochastic template flag)."""
     model_of(st)
-    return name if st.model == "gs2d" else f"{name}_{st.model}"
+    base = name if st.model == "gs2d" else f"{name}_{st.model}"
+    return base + (STOCH if st.stochastic else "")
 
 
 def _kernel(name: str, st):
@@ -597,10 +657,11 @@ def _ptr(t: torch.Tensor | None):
     return None if t is None else t.data_ptr()
 
 
-def rasterize_bins(bins, st: RasterStatics, pix_ctx: torch.Tensor | None = None):
+def rasterize_bins(bins, st: RasterStatics, pix_ctx: torch.Tensor | None = None,
+                   seed: int = 0):
     """Convenience wrapper over a TileBins (ops/binning.py)."""
     return rasterize_tiles(bins.attrs, bins.pair_id, bins.tile_start,
-                           bins.tile_count, st, pix_ctx)
+                           bins.tile_count, st, pix_ctx, seed)
 
 
 def assemble_image(out: torch.Tensor, out_id: torch.Tensor, tiles_x: int,

@@ -466,6 +466,40 @@ def alpha_vjp(block, px, py, pix, live, st, d_alpha) -> torch.Tensor:
     return gs2d_alpha_vjp(block, px, py, live, st, d_alpha)
 
 
+# ---- stochastic transparency (RasterStatics.stochastic) --------------------
+#
+# The JAX kernels' binary accept (rasterize_pallas._alpha_closure, :180-194;
+# threedgs_raster.frag.slang:265-290): a pair whose alpha passes the cutoffs
+# becomes opaque with probability alpha, by a uniform that is a pure
+# function of (key, pixel, lane); csrc/response.cuh has the same two
+# functions, bit for bit.
+
+_U32 = 0xFFFFFFFF
+
+
+def hash_uniform(key: torch.Tensor, pix: torch.Tensor, lane: torch.Tensor) -> torch.Tensor:
+    """Uniforms in [0, 1) from broadcastable int64 (key, pixel, lane), the
+    JAX ``_hash_uniform`` (rasterize_pallas.py:161-177) bit for bit: its
+    xxhash32-flavoured uint32 mix in int64, each product masked to 32 bits,
+    then the top 24 bits times 2^-24 in f32. ``pix`` is the tile's
+    row-major pixel (0-255), ``lane`` the pair's lane in its blend chunk."""
+    h = (((pix * 0x9E3779B1) & _U32) ^ ((lane * 0x85EBCA77) & _U32)
+         ^ (((key & _U32) * 0xC2B2AE3D) & _U32))
+    h = h ^ (h >> 15)
+    h = (h * 0x2C1B3C6D) & _U32
+    h = h ^ (h >> 12)
+    h = (h * 0x297A2D39) & _U32
+    h = h ^ (h >> 15)
+    return (h >> 8).to(torch.float32) * (1.0 / (1 << 24))
+
+
+def stochastic_accept(a: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """The accepted alpha: exactly 1 where u < a and a > 0, else 0 (``a``
+    after the alpha_clamp, so an accepted splat takes T to exactly 0). It
+    has no gradient, as ``jax.vjp`` of the JAX ``where`` has none."""
+    return torch.where((u < a) & (a > 0.0), 1.0, 0.0).to(a.dtype)
+
+
 # ---- the per-tile cull (csrc/response.cuh tile_bound, may_hit), plainly ----
 #
 # K2 culls the pairs of each tile's list, K3 and K4 the lanes of each tile's

@@ -29,9 +29,14 @@ backward kernel and the binning's sort-based backward. The packed tier
 (``RasterConfig.pair_format="packed"``: bf16 pairs and 16-bit opacity in
 f32 words, ``gs_attr_rows_packed`` / ``gut_attr_rows_packed``, the response
 models gs2dp and gut3dp) renders on both binning methods and is forward
-only: a backward through it raises NotImplementedError. Configurations this
-port does not run yet raise ``NotImplementedError`` naming their
-ROADMAP.md item; none of them quietly takes another path.
+only: a backward through it raises NotImplementedError. Stochastic
+transparency (``cfg.stochastic`` SPLAT or ANYHIT, one binary-accept
+estimator; the blend's stochastic form, ops/rasterize.py) renders every
+pipeline on both methods, f32 and packed, each temporal sample with seed
+``sample * 7919 + 1``; ``cfg.denoise="atrous"`` filters the averaged frame
+(ops/denoise.py). Configurations this port does not run yet raise
+``NotImplementedError`` naming their ROADMAP.md item; none of them quietly
+takes another path.
 """
 
 from __future__ import annotations
@@ -49,6 +54,7 @@ from vk_gaussian_splatting_tpu_torch.config import (
     tiles_y,
 )
 from vk_gaussian_splatting_tpu_torch.ops.binning import TileBins, bin_splats
+from vk_gaussian_splatting_tpu_torch.ops.denoise import atrous_denoise
 from vk_gaussian_splatting_tpu_torch.ops.bucket_grid import bucket_splats
 from vk_gaussian_splatting_tpu_torch.ops.projection import (
     ProjectedSplats,
@@ -164,7 +170,10 @@ def packed(cfg: RenderConfig) -> bool:
 
 def raster_statics(cfg: RenderConfig) -> RasterStatics:
     """The blend statics of a 3DGS frame: the gs2d model, or gs2dp for the
-    packed tier."""
+    packed tier. SPLAT and ANYHIT are one estimator, the binary accept
+    (the JAX ``raster_statics``: ANYHIT's first accepted hit saturates T in
+    a sorted front-to-back loop); PASS renders the deterministic frame
+    here, as there."""
     return RasterStatics(
         tiles_x=tiles_x(cfg),
         tiles_y=tiles_y(cfg),
@@ -174,6 +183,7 @@ def raster_statics(cfg: RenderConfig) -> RasterStatics:
         qmax=cfg.raster.alpha_cull_qmax,
         depth_iso=cfg.raster.depth_iso_threshold,
         model="gs2dp" if packed(cfg) else "gs2d",
+        stochastic=cfg.stochastic in (StochasticMode.SPLAT, StochasticMode.ANYHIT),
     )
 
 
@@ -216,13 +226,20 @@ def bin_for_cfg(proj: ProjectedSplats, rows: torch.Tensor, ids: torch.Tensor,
     )
 
 
-def blend_bins(bins, cfg: RenderConfig, st: RasterStatics, pix_ctx=None):
+def sample_seed(sample: int) -> int:
+    """The stochastic stream's seed of temporal sample ``sample`` (the JAX
+    pipelines')."""
+    return sample * 7919 + 1
+
+
+def blend_bins(bins, cfg: RenderConfig, st: RasterStatics, pix_ctx=None, seed: int = 0):
     """The blend stage of ``cfg.raster.method``: (out, out_id). ``st`` is
-    the pair statics; the bucket path swaps in the bucket chunk."""
+    the pair statics; the bucket path swaps in the bucket chunk. ``seed``
+    keys a stochastic ``st``."""
     if cfg.raster.method == "bucket":
         st = dataclasses.replace(st, chunk=cfg.raster.bucket_chunk)
-        return rasterize_buckets(bins, st, tuple(cfg.raster.bucket_caps), pix_ctx)
-    return rasterize_bins(bins, st, pix_ctx)
+        return rasterize_buckets(bins, st, tuple(cfg.raster.bucket_caps), pix_ctx, seed)
+    return rasterize_bins(bins, st, pix_ctx, seed)
 
 
 def _bin_counts(bins):
@@ -232,17 +249,10 @@ def _bin_counts(bins):
 
 def _reject_unported(cfg: RenderConfig, host_order=None) -> None:
     rc = cfg.raster
-    gut = cfg.pipeline in (Pipeline.MESH_3DGUT, Pipeline.RTX)
     unported = [
         (cfg.pipeline in (Pipeline.HYBRID, Pipeline.HYBRID_3DGUT),
          f"pipeline {cfg.pipeline.name}", "lighting and shadows"),
         (host_order is not None, "host_order", "remaining IO (AsyncHostSorter)"),
-        (cfg.stochastic != StochasticMode.NONE, f"stochastic={cfg.stochastic.name}",
-         "stochastic and post"),
-        # temporal samples average only stochastic 3DGS frames, or DoF gut frames
-        (cfg.temporal_samples > 1 and not gut, "temporal_samples > 1 on 3DGS",
-         "stochastic and post"),
-        (cfg.denoise == "atrous", "denoise='atrous'", "stochastic and post"),
     ]
     for hit, what, item in unported:
         if hit:
@@ -261,45 +271,33 @@ def _assemble(out, out_id, cfg: RenderConfig):
                           cfg.background)
 
 
-def render_3dgs(prepared: PreparedSplats, cam: Camera, cfg: RenderConfig,
-                max_pairs: int = 0, host_order: torch.Tensor | None = None) -> RenderOutput:
-    """3DGS raster pipeline (PIPELINE_VERT / PIPELINE_MESH), differentiable
-    in ``prepared`` through image and transmittance (depth and splat id are
-    not differentiated; nothing of the packed tier is). Each stage runs
-    under a ``torch.profiler`` span named project, bin, blend or assemble.
-    The EWA projection is pinhole whatever ``cfg.camera_type`` says, as in
-    the JAX package.
-
-    max_pairs: pair budget of ``raster.expansion="exact"`` (pair path)."""
-    _reject_unported(cfg, host_order)
-    st = raster_statics(cfg)
-    with record_function("project"):
-        proj = project_splats(prepared, cam, cfg)
-    with record_function("bin"):
-        rows, ids = (gs_attr_rows_packed if packed(cfg) else gs_attr_rows)(proj)
-        bins = bin_for_cfg(proj, rows, ids, cfg, max_pairs, st)
-    with record_function("blend"):
-        out, out_id = blend_bins(bins, cfg, st)
-    with record_function("assemble"):
-        img, trans, depth, splat_id = _assemble(out, out_id, cfg)
-    num_pairs, overflow = _bin_counts(bins)
-    return RenderOutput(image=img, transmittance=trans, depth=depth,
-                        splat_id=splat_id, num_pairs=num_pairs, overflow=overflow)
+def _maybe_denoise(out: RenderOutput, cfg: RenderConfig) -> RenderOutput:
+    """``cfg.denoise="atrous"``: the averaged image filtered by its own guide
+    buffers (ops/denoise.py, the JAX ``_maybe_denoise``); aux buffers pass
+    through."""
+    if cfg.denoise != "atrous":
+        return out
+    with record_function("denoise"):
+        img = atrous_denoise(out.image, out.depth, out.splat_id, out.transmittance)
+    return dataclasses.replace(out, image=img)
 
 
-def _blend_samples(bins, cam: Camera, cfg: RenderConfig, st: RasterStatics) -> RenderOutput:
-    """Blend the gut3d frame once per temporal sample, each with its own
-    rays (thin-lens DoF draws new lens samples per sample id), and average
-    image and transmittance; the aux picks come from the first sample
-    (post.comp.slang temporal accumulation; the JAX ``_blend_samples`` and
-    ``_blend_samples_bucket``)."""
-    samples = max(cfg.temporal_samples, 1)
+def _blend_samples(bins, cfg: RenderConfig, st: RasterStatics, samples: int,
+                   cam: Camera | None = None) -> RenderOutput:
+    """Blend the frame once per temporal sample, each with its own seed and,
+    for gut3d (``cam`` given), its own rays (thin-lens DoF draws new lens
+    samples per sample id); average image and transmittance, take the aux
+    picks from the first sample (post.comp.slang temporal accumulation; the
+    JAX ``render_3dgs`` loops, ``_blend_samples`` and
+    ``_blend_samples_bucket``), then ``_maybe_denoise``."""
     img = trans = depth = splat_id = None
     for sample in range(samples):
-        with record_function("rays"):
-            pix_ctx = build_tile_rays(cam, cfg, sample_id=sample)
+        pix_ctx = None
+        if cam is not None:
+            with record_function("rays"):
+                pix_ctx = build_tile_rays(cam, cfg, sample_id=sample)
         with record_function("blend"):
-            out, out_id = blend_bins(bins, cfg, st, pix_ctx)
+            out, out_id = blend_bins(bins, cfg, st, pix_ctx, sample_seed(sample))
         with record_function("assemble"):
             i, t, d, s = _assemble(out, out_id, cfg)
         img = i if img is None else img + i
@@ -309,8 +307,32 @@ def _blend_samples(bins, cam: Camera, cfg: RenderConfig, st: RasterStatics) -> R
     if samples > 1:
         img, trans = img / samples, trans / samples
     num_pairs, overflow = _bin_counts(bins)
-    return RenderOutput(image=img, transmittance=trans, depth=depth, splat_id=splat_id,
-                        num_pairs=num_pairs, overflow=overflow)
+    return _maybe_denoise(RenderOutput(image=img, transmittance=trans, depth=depth,
+                                       splat_id=splat_id, num_pairs=num_pairs,
+                                       overflow=overflow), cfg)
+
+
+def render_3dgs(prepared: PreparedSplats, cam: Camera, cfg: RenderConfig,
+                max_pairs: int = 0, host_order: torch.Tensor | None = None) -> RenderOutput:
+    """3DGS raster pipeline (PIPELINE_VERT / PIPELINE_MESH), differentiable
+    in ``prepared`` through image and transmittance (depth and splat id are
+    not differentiated; nothing of the packed tier is). Each stage runs
+    under a ``torch.profiler`` span named project, bin, blend or assemble
+    (then denoise, for ``cfg.denoise="atrous"``). The EWA projection is
+    pinhole whatever ``cfg.camera_type`` says, as in the JAX package. A
+    stochastic frame blends ``cfg.temporal_samples`` times, a deterministic
+    one once (``_blend_samples``).
+
+    max_pairs: pair budget of ``raster.expansion="exact"`` (pair path)."""
+    _reject_unported(cfg, host_order)
+    st = raster_statics(cfg)
+    with record_function("project"):
+        proj = project_splats(prepared, cam, cfg)
+    with record_function("bin"):
+        rows, ids = (gs_attr_rows_packed if packed(cfg) else gs_attr_rows)(proj)
+        bins = bin_for_cfg(proj, rows, ids, cfg, max_pairs, st)
+    samples = max(cfg.temporal_samples, 1) if st.stochastic else 1
+    return _blend_samples(bins, cfg, st, samples)
 
 
 def gut_bin(prepared: PreparedSplats, proj: ProjectedSplats, cam: Camera, cfg: RenderConfig,
@@ -348,15 +370,16 @@ def _render_gut(prepared, cam, cfg, max_pairs, radial_order):
         proj = ut_project_splats(prepared, cam, cfg)
     with record_function("bin"):
         bins, st = gut_bin(prepared, proj, cam, cfg, max_pairs, radial_order)
-    return _blend_samples(bins, cam, cfg, st)
+    return _blend_samples(bins, cfg, st, max(cfg.temporal_samples, 1), cam)
 
 
 def render_3dgut(prepared: PreparedSplats, cam: Camera, cfg: RenderConfig,
                  max_pairs: int = 0) -> RenderOutput:
     """3DGUT raster pipeline (PIPELINE_MESH_3DGUT): unscented-transform
     projection for binning + the exact per-pixel 3D ray response in the
-    blender, with thin-lens DoF and temporal-sample averaging. Stage spans:
-    project, bin, then rays, blend and assemble per sample."""
+    blender, with thin-lens DoF and temporal-sample averaging (each sample
+    also keys a stochastic blend). Stage spans: project, bin, then rays,
+    blend and assemble per sample (and denoise)."""
     return _render_gut(prepared, cam, cfg, max_pairs, radial_order=False)
 
 
