@@ -9,8 +9,11 @@ the bucket path (``RasterConfig(method="bucket")``); then the 3DGUT and
 3DGRT raster frames (``Pipeline.MESH_3DGUT``, ``Pipeline.RTX``) and 3DGUT
 training on both paths; the packed tier of all three
 (``RasterConfig(pair_format="packed")``, forward only); stochastic
-transparency and its a-trous pass on all three and in training; and the
-design probes P1-P3 through their own entry points — and checks them:
+transparency and its a-trous pass on all three and in training; the
+host-sorted frame (``render(..., host_order=)`` fed by
+``io/async_loader.AsyncHostSorter``, ``SortMethod.HOST``) forward and
+backward with the splat IO (PLY, spz, .splat); and the design probes P1-P3
+through their own entry points — and checks them:
 
 1. builds the CUDA kernels from the checkout, one nvcc per source, all at
    once: the pair blender K1 (csrc/rasterize_fwd.cu) and its backward K2
@@ -19,8 +22,9 @@ design probes P1-P3 through their own entry points — and checks them:
    (csrc/raster_bucket_bwd.cu), each source holding the gs2d and the gut3d
    form of its kernel (csrc/response.cuh), and the probe kernels P1
    (csrc/bench_roll.cu), P3 (csrc/bench_sort_stage.cu, three variants)
-   and P2 (csrc/bench_radix_ab.cu); prints their -Xptxas -v reports and
-   the card's name and power limit;
+   and P2 (csrc/bench_radix_ab.cu), and beside them the native host library
+   (native/fast_splats.cpp, c++ into build/native/); prints the kernels'
+   -Xptxas -v reports and the card's name and power limit;
 2. golden gate: the checked-in trained scene at 256x192 through K1, PSNR
    > 45 dB against assets/golden/golden_view0.npy, and K1 against its plain
    PyTorch twin over the whole frame; golden gradients at 128x96, SH 0: K2
@@ -135,6 +139,32 @@ design probes P1-P3 through their own entry points — and checks them:
    against the deterministic frame rising from 1 to 4 to 16 samples per
    pixel, and the a-trous pass at 1080p (equal to ``denoise_output``,
    timed);
+12. the host-sorted path and the IO (``host_sorted``), at the headline cell
+   and caps: the native library built, its radix sort of the 1 M plane
+   distances equal to numpy's stable argsort, both timed, and the sorter's
+   wall time from request to consume, the means' copy to the host and the
+   order's to the card; 8 jittered frames through ``render(...,
+   host_order=)`` on the bucket path, each sorted by the sorter, with only
+   ``rasterize_buckets.launches_keyrow`` moving (the key-row form of K3,
+   csrc/raster_bucket_fwd.cu ``raster_bucket_fwd_keyrow``), no overflow, a
+   bit-equal repeat, the frame against the device-sorted bucket frame
+   (share within 2e-4, max, PSNR, ids, the picked depth the model's), a
+   reversed order moving it by more than 1e-3, K3 _keyrow against its twin
+   on every tile, the kept counters of K3 and K4 _keyrow against
+   ``tile_may_hit`` over the key-row merge and the audit, their bounds, the
+   stage, frame and twin times and K3 _keyrow alone beside K3 in turns; the
+   pair path with the order (K1 moves) against the device-sorted pair
+   frame; packed rows on the bucket config with the order (K1p moves, not
+   K3p; the packed pair frame); 3 fwd_bwd through ``render(...,
+   host_order=)`` (K3 and K4 _keyrow once a step, a bit-equal repeat), K4
+   _keyrow against its twin with the loss's cotangent on every tile and on
+   64 sampled tiles (``bwd_gate``), the key row's gradient exactly 0, its
+   times and alone beside K4; a 2-sample stochastic host-sorted frame
+   (``_stoch_keyrow`` moves) whose sample-0 blend equals its twin bit for
+   bit, and one stochastic fwd_bwd (K4 ``_stoch_keyrow``) against its twin,
+   each with its kept counter, bound, times and alone beside its ``_stoch``
+   form; then the 1 M scene through save and ``load_scene`` in PLY (exact,
+   the native reader), spz and .splat (within their quantisation), timed;
 9. the probes (vk_gaussian_splatting_tpu_torch/probes): each probe's entry
    point at its script's default arguments (``bench_roll.run``,
    ``bench_sort_stage.run`` per variant, ``bench_radix_ab.run``: their
@@ -184,7 +214,16 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
 import vk_gaussian_splatting_tpu_torch as gt  # noqa: E402
-from vk_gaussian_splatting_tpu_torch.io import load_ply  # noqa: E402
+from vk_gaussian_splatting_tpu_torch import native  # noqa: E402
+from vk_gaussian_splatting_tpu_torch.io import (  # noqa: E402
+    load_ply,
+    load_scene,
+    save_ply,
+    save_splat_file,
+    save_spz,
+)
+from vk_gaussian_splatting_tpu_torch.io import ply as tply  # noqa: E402
+from vk_gaussian_splatting_tpu_torch.io.async_loader import AsyncHostSorter  # noqa: E402
 from vk_gaussian_splatting_tpu_torch.ops import _build  # noqa: E402
 from vk_gaussian_splatting_tpu_torch.ops import raster_bucket as rb  # noqa: E402
 from vk_gaussian_splatting_tpu_torch.ops import rasterize as tr  # noqa: E402
@@ -199,7 +238,12 @@ from vk_gaussian_splatting_tpu_torch.ops.projection import (  # noqa: E402
     project_splats,
     ut_project_splats,
 )
-from vk_gaussian_splatting_tpu_torch.ops.response import MODELS, model_of, pack_rows  # noqa: E402
+from vk_gaussian_splatting_tpu_torch.ops.response import (  # noqa: E402
+    GS_KEY,
+    MODELS,
+    model_of,
+    pack_rows,
+)
 from vk_gaussian_splatting_tpu_torch.probes import bench_radix_ab as probe_radix  # noqa: E402
 from vk_gaussian_splatting_tpu_torch.probes import bench_roll as probe_roll  # noqa: E402
 from vk_gaussian_splatting_tpu_torch.probes import bench_sort_stage as probe_stage  # noqa: E402
@@ -213,11 +257,12 @@ from vk_gaussian_splatting_tpu_torch.render.pipelines import (  # noqa: E402
     gs_attr_rows_packed,
     gut_attr_rows,
     gut_bin,
+    host_rank,
     packed,
     raster_statics,
 )
 from vk_gaussian_splatting_tpu_torch.render.rays import build_tile_rays  # noqa: E402
-from vk_gaussian_splatting_tpu_torch.scene.splat_set import random_splats  # noqa: E402
+from vk_gaussian_splatting_tpu_torch.scene.splat_set import SH_C0, random_splats  # noqa: E402
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 FIELDS = ("means", "scales", "quats", "opacities", "sh_dc", "sh_rest")
@@ -262,6 +307,12 @@ KERNELS.update(PACKED_KERNELS)
 STOCH_KERNELS = {name + tr.STOCH: spec for name, spec in KERNELS.items()
                  if "_fwd" in name or not name.endswith(("_gs2dp", "_gut3dp"))}
 KERNELS.update(STOCH_KERNELS)
+# the key-row forms of K3 and K4 (render_3dgs(host_order=...) on the bucket
+# path, gs2d): entries <name>_keyrow and <name>_stoch_keyrow of the same sources
+KEYROW_KERNELS = {name + form: (name, *_SOURCES[name])
+                  for name in ("raster_bucket_fwd", "raster_bucket_bwd")
+                  for form in (tr.KEYROW, tr.STOCH + tr.KEYROW)}
+KERNELS.update(KEYROW_KERNELS)
 KERNELS.update({"bench_roll": ("bench_roll", *_SOURCES["bench_roll"])})
 KERNELS.update({stage_name(v): ("bench_sort_stage", *_SOURCES["bench_sort_stage"])
                 for v in probe_stage.VARIANTS})
@@ -349,6 +400,11 @@ OPS_PER_HIT.update({name + tr.STOCH: ops for name, ops in OPS_PER_HIT.items()
                     if "_fwd" in name})
 OPS_PER_HIT.update({"rasterize_bwd_stoch": 22, "raster_bucket_bwd_stoch": 22,
                     "rasterize_bwd_gut3d_stoch": 27, "raster_bucket_bwd_gut3d_stoch": 27})
+# The key-row forms (phase 12) do their parent's work; their merge reads the
+# key row in place of the depth row
+OPS_PER_HIT.update({name + tr.KEYROW: OPS_PER_HIT[name]
+                    for name in ("raster_bucket_fwd", "raster_bucket_bwd",
+                                 "raster_bucket_fwd_stoch", "raster_bucket_bwd_stoch")})
 # The packed forms do their parent's work on the unpacked slots, plus the
 # unpacking once per pair or lane their staging reads (the least work; K1
 # and K3 stage a kept lane twice, for the cull and for the blend): gs2dp 9
@@ -374,7 +430,7 @@ SM_COUNT, SMEM_BYTES_PER_CLOCK, BOOST_HZ = 132, 128, 1.98e9
 PEAK_INT32_OPS = SM_COUNT * 64 * BOOST_HZ
 # profiler windows kernel_split traces at most: a window can lose records
 # even after its warm-up step (PERF.md §7)
-PROFILE_WINDOWS = 3
+PROFILE_WINDOWS = 6
 # The probes P1 and P3 (phase 9), the least work of the function: per column
 # and stage the network's want_min (lane-iota: an and and a compare; from
 # the mask table: one compare), its take test (two key compares and a
@@ -555,7 +611,7 @@ def check_warp_cull(label: str, bins, st, batches, pix=None):
 
 def model_of_name(name: str) -> str:
     """The response model of a raster kernel's report name."""
-    name = name.removesuffix(tr.STOCH)
+    name = name.removesuffix(tr.KEYROW).removesuffix(tr.STOCH)
     return next((m for m in ("gut3dp", "gs2dp", "gut3d") if name.endswith("_" + m)), "gs2d")
 
 
@@ -608,7 +664,7 @@ def kernel_bound(name: str, evals: int, hits: int, draws: int, bytes_moved: int,
     stochastic form (``_stoch``) adds the hash and the accept per draw, an
     evaluation whose alpha passes the cutoffs (OPS_HASH_INT at the INT32
     rate, OPS_HASH_F32)."""
-    stoch = name.endswith(tr.STOCH)
+    stoch = name.removesuffix(tr.KEYROW).endswith(tr.STOCH)
     f32_ops = (evals * OPS_ALPHA[f32_of_name(name)] + hits * OPS_PER_HIT[name] + extra_ops
                + stoch * draws * OPS_HASH_F32)
     return roofline(f32_ops, bytes_moved, f64_ops, int_ops=stoch * draws * OPS_HASH_INT)
@@ -625,7 +681,7 @@ def bucket_bound(model: str, work, bytes_fwd: int | None, bytes_bwd: int | None,
     operations per tested lane and, for gut3d, per pixel (OPS_CULL,
     OPS_TILE_BOUND). The all-lane figure prices every live lane's
     evaluations, as the sweep before the cull made them. ``form``: the
-    suffix of a kernel form's names (``tr.STOCH``)."""
+    suffix of a kernel form's names (``tr.STOCH``, ``tr.KEYROW``)."""
     suffix = ("" if model == "gs2d" else "_" + model) + form
     f32_model = MODELS[model].parent or model
     cull = work.tested * OPS_CULL[f32_model] + n_tiles * tr.PIX * OPS_TILE_BOUND[f32_model]
@@ -738,12 +794,14 @@ def kernel_split(call, counter, names=K4_KERNELS, calls=7, min_records=None):
     each of ``names``, from the profiler's per-kernel durations over
     ``calls`` calls, each launching each kernel once. ``counter()`` reads
     the wrapper's launch count: it must advance by exactly the calls and
-    the warm-up, and the trace must hold a record of every kernel of every
-    call, or of ``min_records`` calls at least where given (a window can
-    lose records even after its warm-up step, PERF.md §7; the median is
-    then over the records it kept). A window that kept too few records is
-    traced again, up to PROFILE_WINDOWS windows in all; the last one's
-    count is the check."""
+    the warm-up in each window, and no window may hold more records of a
+    kernel than calls. The median is over ``calls`` records of every
+    kernel, or ``min_records`` at least where given: a window can lose
+    records even after its warm-up step (PERF.md §7), so while too few
+    were kept the same calls are traced again, up to PROFILE_WINDOWS
+    windows in all, and the records of the windows are pooled."""
+    need = min_records or calls
+    pooled = {name: [] for name in names}
     for attempt in range(1, PROFILE_WINDOWS + 1):
         before = counter()
         _, kernels = traced_events(call, calls)
@@ -751,13 +809,16 @@ def kernel_split(call, counter, names=K4_KERNELS, calls=7, min_records=None):
         check(launched == calls + 1, f"kernel_split: {launched} launches in {calls + 1} calls")
         durs = {name: [(e - s) / 1e3 for s, e, kname, _ in kernels if name in kname]
                 for name in names}
-        short = {name: len(d) for name, d in durs.items()
-                 if not (min_records or calls) <= len(d) <= calls}
+        extra = {name: len(d) for name, d in durs.items() if len(d) > calls}
+        check(not extra, f"kernel_split: {extra} records in {calls} calls")
+        for name, d in durs.items():
+            pooled[name] += d
+        short = {name: len(d) for name, d in pooled.items() if len(d) < need}
         if not short:
-            return {name: median(d) for name, d in durs.items()}
-        log(f"  kernel_split: profiler window {attempt} of {PROFILE_WINDOWS} kept {short} "
-            f"records in {calls} calls")
-    check(False, f"{short} records in {calls} calls, {PROFILE_WINDOWS} windows")
+            return {name: median(d) for name, d in pooled.items()}
+        log(f"  kernel_split: {attempt} profiler window(s) of {calls} calls kept {short} "
+            f"records, {need} needed")
+    check(False, f"{short} records in {PROFILE_WINDOWS} windows of {calls} calls")
 
 
 def profile_calls(name, call, card, calls=3):
@@ -1138,7 +1199,8 @@ def bucket_work(bins, st, caps):
     return rb.BucketWork(*(sum(p[i] for p in parts) for i in range(len(rb.BucketWork._fields))))
 
 
-def check_cull(label: str, work, k3, k4, model: str, bins, st, caps, batches, pix=None) -> int:
+def check_cull(label: str, work, k3, k4, model: str, bins, st, caps, batches, pix=None,
+               form: str | None = None) -> int:
     """The cull of K3 and K4 on a whole frame; returns the kept-lane count.
     Each kernel's kept-lane counter after one launch, ``k3()`` and ``k4(ctx)``
     (any cotangent: what the cull keeps reads the rows and the freeze
@@ -1150,15 +1212,18 @@ def check_cull(label: str, work, k3, k4, model: str, bins, st, caps, batches, pi
     and freeze.
     Then, over every tile in ``batches``, the lanes the plain predicate
     culls that the twin's alpha passes at some pixel of the tile
-    (ops/raster_bucket.tile_lane_hits, frozen pixels too): none allowed."""
+    (ops/raster_bucket.tile_lane_hits, frozen pixels too): none allowed.
+    ``form``: the kernels' form whose kept counters to read (``model`` by
+    default; the key-row form ``gs2d_keyrow``)."""
     n_tiles = st.tiles_x * st.tiles_y
     g = {"gs2d": "", "gut3d": "g", "gs2dp": "p", "gut3dp": "gp"}[model]
+    form = form or model
     k3()
-    kept = {f"K3{g}": int(getattr(rb.rasterize_buckets, rb.KEPT_COUNTER[model]))}
+    kept = {f"K3{g}": int(getattr(rb.rasterize_buckets, rb.KEPT_COUNTER[form]))}
     if k4 is not None:
         k4(torch.ones((n_tiles, tr.CTX_ROWS, tr.PIX), device=bins.attrs.device))
         torch.cuda.synchronize()
-        kept[f"K4{g}"] = int(getattr(rb.rasterize_buckets_bwd, rb.KEPT_COUNTER[model]))
+        kept[f"K4{g}"] = int(getattr(rb.rasterize_buckets_bwd, rb.KEPT_COUNTER[form]))
     for kname, n in kept.items():
         log(f"{kname} cull 1080p/1M: kept={n} of live={work.live} (kept share "
             f"{n / work.live:.4f}), tested={work.tested}; tile_may_hit over the steps each "
@@ -2714,6 +2779,603 @@ def stochastic(dev, card: str, truth: gt.SplatSet, caps):
     return entries, bounds
 
 
+# ---- the host-sorted path (SortMethod.HOST) and the IO: K3 and K4 _keyrow ---
+#
+# render_3dgs(host_order=...) blends in an order sorted on the host
+# (io/async_loader.AsyncHostSorter: view-plane distances in f32, the native
+# radix sort of native/fast_splats.cpp). On the bucket path with f32 rows
+# the order's rank rides as the key row (ops/response.GS_KEY) on which the
+# key-row forms of K3 and K4 merge. Their gates are K3's and K4's (the
+# stochastic forward bit for bit); the key row's gradient is exactly 0; the
+# kept counts are exact. The host keys dot(mean, view_dir) and the device
+# view z, equal up to f32 rounding, so a fresh order may swap splats whose
+# depths tie: against the device-sorted frame a share of pixels
+# (BUCKET_VS_PAIR_*), the max and the PSNR.
+
+KEYROW_FORM, STOCH_KEYROW_FORM = "gs2d" + tr.KEYROW, "gs2d" + tr.STOCH + tr.KEYROW
+KEYROW_FWD, KEYROW_BWD = "raster_bucket_fwd" + tr.KEYROW, "raster_bucket_bwd" + tr.KEYROW
+HOST_TRAIN_STEPS = 3
+HOST_SAMPLES = 2           # the stochastic host-sorted frame's temporal samples
+HOST_REVERSED_MIN = 1e-3   # a reversed order must move the frame by more
+
+
+def view_dir(cam) -> np.ndarray:
+    """The camera's forward row: the host sorter's plane normal."""
+    return cam.viewmat[2, :3].detach().cpu().numpy().astype(np.float64)
+
+
+def host_order(sorter, cam):
+    """(order as numpy int32, wall ms from the request to its consume) of one
+    sort for ``cam``."""
+    t0 = time.perf_counter()
+    sorter.sort_async(view_dir(cam))
+    while (res := sorter.consume()) is None:
+        time.sleep(2e-4)
+    return res[0], (time.perf_counter() - t0) * 1e3
+
+
+def host_ms(fn, iters: int = 3) -> float:
+    """Median host wall ms of ``fn`` (host code: no device work)."""
+    times = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return median(times)
+
+
+def counts(wrapper) -> dict:
+    """Every launch counter the wrapper keeps (a backward's: the trained models')."""
+    return {m: getattr(wrapper, name) for m, name in tr.LAUNCH_COUNTER.items()
+            if hasattr(wrapper, name)}
+
+
+def only(label: str, wrapper, form: str, n: int) -> dict:
+    """Fail unless ``wrapper``'s launch counters show ``n`` launches of
+    ``form`` and none of another form; returns the nonzero counts."""
+    got = counts(wrapper)
+    check(got == {m: n * (m == form) for m in got}, f"{label}: launches {got}")
+    return {m: k for m, k in got.items() if k}
+
+
+def host_stages(prepared, cam, cfg, order, seed: int = 0):
+    """render_3dgs's stages of a host-sorted bucket frame with f32 rows, as
+    ``frame_stages``: project; bin (the rank, appended as the key row, and
+    the bucket bins sorted by it); blend (the key-row form); assemble.
+    ``c["st"]`` holds the key-row statics (``blend_st`` adds the bucket
+    chunk)."""
+    c = {"st": dataclasses.replace(raster_statics(cfg), key_is_row=True), "pix": None}
+    st = blend_st(c, cfg)
+
+    def project():
+        c["proj"] = project_splats(prepared, cam, cfg)
+
+    def bin_():
+        rows, ids = gs_attr_rows(c["proj"])
+        rank = host_rank(order, rows.shape[1], rows.device)
+        c["bins"] = bin_for_cfg(c["proj"], torch.cat([rows, rank[None]]), ids, cfg, 0, c["st"],
+                                sort_depth=rank)
+
+    def blend():
+        c["out"] = rb.rasterize_buckets(c["bins"], st, cfg.raster.bucket_caps, None, seed)
+
+    def assemble():
+        c["image"] = tr.assemble_image(*c["out"], st.tiles_x, st.tiles_y, cfg.width,
+                                       cfg.height, cfg.background)[0]
+
+    return [("project", project), ("bin", bin_), ("blend", blend), ("assemble", assemble)], c
+
+
+def agreement(label: str, got, ref) -> float:
+    """Log and gate a host-sorted frame against a device-sorted one: the
+    share of pixels within BUCKET_VS_PAIR_ATOL, the max and the PSNR; ids
+    on ID_AGREE of the pixels, and the picked depth (the model's, not the
+    rank) equal where the ids are. Returns the share."""
+    diff = (got.image - ref.image).abs().amax(dim=-1)
+    share = (diff <= BUCKET_VS_PAIR_ATOL).float().mean().item()
+    same = got.splat_id == ref.splat_id
+    agree = same.float().mean().item()
+    log(f"  {label}: share of pixels within {BUCKET_VS_PAIR_ATOL:g} {share:.6f} (gate "
+        f"{BUCKET_VS_PAIR_SHARE}), max abs {diff.max().item():.4e}, psnr_db "
+        f"{psnr_against(got.image, ref.image):.3f}, id agreement {agree:.6f}")
+    check(share >= BUCKET_VS_PAIR_SHARE and agree >= ID_AGREE, f"{label}: {share}, {agree}")
+    check(torch.equal(got.depth[same], ref.depth[same]),
+          f"{label}: the same splat picked at another depth")
+    return share
+
+
+def host_sort_checks(dev, card, truth, cam):
+    """The native library and the sorter at 1 M splats: the library built;
+    its radix sort of the plane distances equal to numpy's stable argsort;
+    host sort times, native and numpy; the sorter's wall time from request
+    to consume; the means' copy to the host and the order's to the card.
+    Returns the sorter."""
+    check(native.available(), "the native library did not build")
+    log(f"native library: build/native/{native.library_path().name}")
+    means = truth.means.detach()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    host_means = means.cpu().numpy()
+    t_d2h = (time.perf_counter() - t0) * 1e3
+    dist = host_means @ view_dir(cam).astype(np.float32)
+    radix = native.radix_argsort_f32(dist)
+    stable = np.argsort(dist, kind="stable")
+    check(np.array_equal(radix, stable), "the radix sort differs from numpy's stable argsort")
+    t_radix = host_ms(lambda: native.radix_argsort_f32(dist))
+    t_numpy = host_ms(lambda: np.argsort(dist, kind="stable"))
+    t0 = time.perf_counter()
+    sorter = AsyncHostSorter(means)
+    t_make = (time.perf_counter() - t0) * 1e3
+    walls = [host_order(sorter, cam)[1] for _ in range(3)]
+    order = host_order(sorter, cam)[0]
+    check(np.array_equal(order, radix), "the sorter's order differs from the radix sort's")
+    up = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        torch.from_numpy(order).to(dev)
+        torch.cuda.synchronize()
+        up.append((time.perf_counter() - t0) * 1e3)
+    log(f"timing host sort 1M ({card}, host clock, medians of 3): radix_ms={t_radix:.3f} "
+        f"numpy_stable_argsort_ms={t_numpy:.3f} sorter_request_to_consume_ms="
+        + "/".join(f"{w:.3f}" for w in walls)
+        + f" means_to_host_ms={t_d2h:.3f} sorter_construction_ms={t_make:.3f} (the copy "
+        f"included) order_to_card_ms={median(up):.3f}; radix equal to the stable argsort "
+        f"on {dist.size} distances ({int((dist == 0).sum())} zeros)")
+    return sorter
+
+
+def keyrow_forward(dev, card, prepared, cam, base, caps, sorter):
+    """K3's key-row form at the headline cell: FRAMES jittered frames through
+    ``render(..., host_order=)``, each with its own sort; only
+    ``launches_keyrow`` moves, once a frame; no overflow; a bit-equal
+    repeat; against the device-sorted bucket frame; a reversed order; K3
+    _keyrow against its twin on every tile; the kept counters of K3 and K4
+    _keyrow against ``tile_may_hit`` over the key-row merge and the audit;
+    both bounds; stage, frame and twin times; K3 _keyrow alone beside K3
+    in turns. Then the pair path and the packed bucket config with a host
+    order. Returns (K3 _keyrow's entry, the bounds of K3 and K4 _keyrow,
+    frame 0's order)."""
+    bcfg = bucket_cfg(base, caps)
+    tr.zero_counters(rb.rasterize_buckets)
+    outs, walls, orders = [], [], []
+    for i in range(FRAMES):
+        order, wall = host_order(sorter, jitter(cam, i))
+        walls.append(wall)
+        orders.append(order)
+        outs.append(render(prepared, jitter(cam, i), bcfg, host_order=order))
+    torch.cuda.synchronize()
+    seen = only("host-sorted bucket main path", rb.rasterize_buckets, KEYROW_FORM, FRAMES)
+    log(f"host-sorted bucket main path: {FRAMES} frames, each sorted on the host "
+        f"(request to consume " + "/".join(f"{w:.1f}" for w in walls) + f" ms), launches {seen}")
+    for o in outs:
+        check(tuple(o.image.shape) == (HEIGHT, WIDTH, 3) and bool(torch.isfinite(o.image).all()),
+              "host-sorted frame: image shape or values")
+        check(not bool(o.overflow), "a host-sorted bucket frame overflowed at the headline caps")
+    o0, order0 = outs[0], orders[0]
+    del outs
+    again = render(prepared, jitter(cam, 0), bcfg, host_order=order0)
+    torch.cuda.synchronize()
+    same = all(torch.equal(getattr(again, f), getattr(o0, f))
+               for f in ("image", "transmittance", "depth", "splat_id"))
+    log(f"host-sorted bucket frame: covered_frac={(o0.transmittance < 0.5).float().mean():.4f} "
+        f"repeat bit-equal: {same}")
+    check(same, "the repeat host-sorted frame differs")
+    agreement("host-sorted bucket vs device-sorted bucket frame", o0,
+              render(prepared, jitter(cam, 0), bcfg))
+    rev = render(prepared, jitter(cam, 0), bcfg, host_order=order0[::-1].copy())
+    moved = (rev.image - o0.image).abs().max().item()
+    log(f"  reversed host order: max abs change {moved:.4e} (gate > {HOST_REVERSED_MIN:g})")
+    check(moved > HOST_REVERSED_MIN, "a reversed host order left the frame unchanged")
+    del again, rev
+
+    # ---- K3 _keyrow against its twin on every tile; both kernels' culls
+    stages, c = host_stages(prepared, cam, bcfg, order0)
+    run_stages(stages[:2])
+    bins, st = c["bins"], blend_st(c, bcfg)
+    n_tiles, p = st.tiles_x * st.tiles_y, bins.attrs.shape[1]
+    err, agree = compare_k3_with_twin(bins, st, caps)
+    log(f"host-sorted bucket all {n_tiles} tiles: K3_keyrow_vs_twin_max_abs={err:.3e} "
+        f"id_agree={agree:.6f}")
+    check(err <= KERNEL_ATOL and agree >= ID_AGREE, f"K3 _keyrow vs twin: {err}, {agree}")
+    work = bucket_work(bins, st, caps)
+    head_bytes = n_tiles * (12 * 4 + 12 * 4)
+    bytes_fwd = (work.live * (11 * 4 + 4) + head_bytes
+                 + n_tiles * tr.PIX * (tr.OUT_ROWS * 4 + 4))
+    bytes_bwd = (work.live * (tr.GRAD_ROWS + 1) * 4 + head_bytes
+                 + n_tiles * tr.PIX * tr.CTX_ROWS * 4 + p * tr.GRAD_ROWS * 4)
+    bounds, text = bucket_bound("gs2d", work, bytes_fwd, bytes_bwd, tr.GRAD_ROWS, n_tiles,
+                                tr.KEYROW)
+    log(f"bound 1080p/1M host-sorted bucket: live={work.live} kept_evaluations="
+        f"{work.kept_evals} hits={work.hits} merge_comparisons={work.comparisons} {text} "
+        f"(the key row read by the merge, the depth row staged for the pick)")
+    kept = check_cull("K3 _keyrow, K4 _keyrow", work, lambda: rb.rasterize_buckets(bins, st, caps),
+                      lambda ctx: rb.rasterize_buckets_bwd(bins.attrs, bins.bucket_starts, ctx,
+                                                           st, caps),
+                      "gs2d", bins, st, caps, twin_tiles(st, dev), form=KEYROW_FORM)
+
+    # ---- times: stages and frames (events), the twin, K3 _keyrow alone
+    # beside K3 on the device-sorted bins of the same frame
+    t = {stage: median(time_ms(step, 10)) for stage, step in stages}
+    order_dev = torch.from_numpy(order0).to(dev)
+    t_host = median(time_ms(lambda: render(prepared, cam, bcfg, host_order=order0), 10))
+    t_dev = median(time_ms(lambda: render(prepared, cam, bcfg, host_order=order_dev), 10))
+    t_device_sort = median(time_ms(lambda: render(prepared, cam, bcfg), 10))
+    log(f"timing 1080p/1M host-sorted bucket ({card}): " + " ".join(
+        f"{k}_ms={v:.4f}" for k, v in t.items()) + f" frame_ms={t_host:.4f} (the order "
+        f"from numpy, its copy to the card included) frame_order_on_card_ms={t_dev:.4f} "
+        f"device_sorted_frame_ms={t_device_sort:.4f}")
+    t_plain = median(time_ms(lambda: bucket_twin(bins, st, caps), 1, warmup=0))
+    plain_bins, plain_st = bins_of(prepared, cam, bcfg), bucket_statics(bcfg)
+
+    def alone(key: bool):
+        b, s, form = (bins, st, KEYROW_FORM) if key else (plain_bins, plain_st, "gs2d")
+        split = kernel_split(lambda: rb.rasterize_buckets(b, s, caps),
+                             lambda: getattr(rb.rasterize_buckets, tr.LAUNCH_COUNTER[form]),
+                             BLEND_KERNELS["bucket"], calls=STOCH_ALONE_CALLS,
+                             min_records=STOCH_ALONE_CALLS - 2)
+        return sum(split.values())
+
+    a_plain, a_key = abba(lambda: alone(False), lambda: alone(True))
+    log(f"timing {KEYROW_FWD} 1080p/1M ({card}): kernel_ms={t['blend']:.4f} "
+        f"plain_twin_ms={t_plain:.4f}; alone (profiler, turns K3, K3 _keyrow, K3 _keyrow, K3) "
+        f"K3=" + "/".join(f"{a:.4f}" for a in a_plain) + " K3_keyrow="
+        + "/".join(f"{a:.4f}" for a in a_key))
+    entry = dict(launches=seen[KEYROW_FORM], max_abs_err=err, ms=t["blend"], plain_ms=t_plain,
+                 alone_ms=median(a_key), kept_share=kept / work.live)
+    del bins, plain_bins, c, stages
+
+    # ---- the pair path, and packed rows on the bucket config, with the order
+    tr.zero_counters(tr.rasterize_tiles)
+    pair = render(prepared, cam, base, host_order=order0)
+    torch.cuda.synchronize()
+    log(f"host-sorted pair path: launches {only('host-sorted pairs', tr.rasterize_tiles, 'gs2d', 1)}")
+    agreement("host-sorted pairs vs device-sorted pair frame", pair, render(prepared, cam, base))
+    packed_bucket = with_format(bcfg, "packed")
+    tr.zero_counters(tr.rasterize_tiles)
+    tr.zero_counters(rb.rasterize_buckets)
+    got = render(prepared, cam, packed_bucket, host_order=order0)
+    torch.cuda.synchronize()
+    k1p = only("packed bucket with a host order", tr.rasterize_tiles, "gs2dp", 1)
+    only("packed bucket with a host order (K3)", rb.rasterize_buckets, "gs2dp", 0)
+    want = render(prepared, cam, with_format(base, "packed"), host_order=order0)
+    same = all(torch.equal(getattr(got, f), getattr(want, f))
+               for f in ("image", "transmittance", "depth", "splat_id"))
+    log(f"host-sorted packed, method=bucket: K1 launches {k1p}, K3 none; equal to the packed "
+        f"pair frame: {same}")
+    check(same, "the packed bucket host-sorted frame is not the packed pair frame")
+    return entry, bounds, order0
+
+
+def keyrow_backward(dev, card, truth, cam, base, caps):
+    """K4's key-row form: HOST_TRAIN_STEPS fwd_bwd (render with the host
+    order, rgb_loss, backward) from the jittered start, the order sorted
+    for its means; only the key-row forms of K3 and K4 move, once a step;
+    finite; a bit-equal repeat. K4 _keyrow against its twin with the loss's
+    own cotangent on every tile and on 64 sampled tiles (``bwd_gate``), the
+    key row's gradient exactly 0, its time, its twin's, and alone beside K4
+    on the device-sorted bins of the same frame. Returns its entry."""
+    cfg = bucket_cfg(base, caps)
+    tc = gt.TrainConfig(scene_extent=4.0)
+    with torch.no_grad():
+        target = render(truth.prepare(), cam, cfg).image
+    splats = jittered_start(truth, dev, 0)
+    order, _ = host_order(AsyncHostSorter(splats.means), cam)
+
+    def fwd_bwd():
+        for f in FIELDS:
+            getattr(splats, f).grad = None
+        out = render(splats.prepare(), cam, cfg, host_order=order)
+        loss = gt.rgb_loss(out.image, target, tc.ssim_lambda)
+        loss.backward()
+        return loss
+
+    for f in FIELDS:
+        getattr(splats, f).requires_grad_()
+    torch.cuda.synchronize()
+    tr.zero_counters(rb.rasterize_buckets)
+    tr.zero_counters(rb.rasterize_buckets_bwd, tr.TRAINED)
+    losses = [fwd_bwd().item() for _ in range(HOST_TRAIN_STEPS)]
+    first = [g.clone() for g in grads_of(splats)]
+    seen = {w: only(f"host-sorted training ({w})", wr, KEYROW_FORM, HOST_TRAIN_STEPS)
+            for w, wr in (("fwd", rb.rasterize_buckets), ("bwd", rb.rasterize_buckets_bwd))}
+    fwd_bwd()
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(first, grads_of(splats)))
+    log(f"host-sorted bucket training path: {HOST_TRAIN_STEPS} fwd_bwd, launches {seen}; "
+        f"losses {' '.join(f'{x:.6f}' for x in losses)}; repeat backward bit-equal: {same}")
+    check(all(math.isfinite(x) for x in losses), "non-finite host-sorted loss")
+    check(all(bool(torch.isfinite(g).all()) for g in first), "non-finite host-sorted gradient")
+    check(same, "the repeat host-sorted backward differs")
+    del first
+
+    stages, c = host_stages(splats.prepare(), cam, cfg, order)
+    run_stages(stages)
+    bins, st = c["bins"], blend_st(c, cfg)
+    (g_out,) = torch.autograd.grad(gt.rgb_loss(c["image"], target, tc.ssim_lambda),
+                                   c["out"][0])
+    ctx = tr.bwd_context(c["out"][0].detach(), g_out)
+    del c, stages, g_out
+    attrs = bins.attrs.detach()
+
+    def k4():
+        return rb.rasterize_buckets_bwd(attrs, bins.bucket_starts, ctx, st, caps)
+
+    d_k = k4()
+    torch.cuda.synchronize()
+    key_zero = bool((d_k[GS_KEY] == 0).all())
+    log(f"  K4 _keyrow d_attrs: {tuple(d_k.shape)}, the key row (row {GS_KEY}) exactly 0: "
+        f"{key_zero}")
+    check(d_k.shape[0] == GS_KEY + 1 and key_zero, "K4 _keyrow wrote the key row")
+    del d_k
+    abs_all, rel_all = compare_k4_with_twin(bins, st, caps, ctx)
+    tiles = sample_bucket_tiles(bins, st, dev, 0)
+    abs_s, rel_s = compare_k4_with_twin(bins, st, caps, ctx, tiles=tiles)
+    log(f"host-sorted K4 _keyrow vs twin: every tile max_abs={abs_all:.3e} "
+        f"max_rel_to_row_max={rel_all:.3e}; {tiles.numel()} sampled tiles max_abs={abs_s:.3e} "
+        f"max_rel_to_row_max={rel_s:.3e}")
+    t_k4 = median(time_ms(k4, 10))
+    t_twin = median(time_ms(lambda: bucket_twin_bwd(bins, st, caps, ctx), 1, warmup=0))
+    plain_bins, plain_st = bins_of(splats.prepare(), cam, cfg), bucket_statics(cfg)
+    out_p, _ = rb.rasterize_buckets(plain_bins, plain_st, caps)
+    ctx_p = tr.bwd_context(out_p.detach(), torch.ones_like(out_p))
+
+    def alone(key: bool):
+        b, s, cx, form = ((bins, st, ctx, KEYROW_FORM) if key
+                          else (plain_bins, plain_st, ctx_p, "gs2d"))
+        split = kernel_split(
+            lambda: rb.rasterize_buckets_bwd(b.attrs.detach(), b.bucket_starts, cx, s, caps),
+            lambda: getattr(rb.rasterize_buckets_bwd, tr.LAUNCH_COUNTER[form]), K4_KERNELS,
+            calls=STOCH_ALONE_CALLS, min_records=STOCH_ALONE_CALLS - 2)
+        return sum(split.values())
+
+    a_plain, a_key = abba(lambda: alone(False), lambda: alone(True))
+    log(f"timing {KEYROW_BWD} 1080p/1M ({card}): kernel_ms={t_k4:.4f} plain_twin_ms="
+        f"{t_twin:.4f}; alone (profiler, three launches summed, turns K4, K4 _keyrow, K4 "
+        f"_keyrow, K4) K4=" + "/".join(f"{a:.4f}" for a in a_plain) + " K4_keyrow="
+        + "/".join(f"{a:.4f}" for a in a_key))
+    return dict(launches=seen["bwd"][KEYROW_FORM], max_abs_err=max(abs_all, abs_s), ms=t_k4,
+                plain_ms=t_twin, alone_ms=median(a_key))
+
+
+def keyrow_stochastic(dev, card, truth, cam, base, caps, order0):
+    """The stochastic key-row forms: a HOST_SAMPLES-sample host-sorted
+    bucket frame (only ``launches_stoch_keyrow`` moves, once a sample; T a
+    multiple of 1 / samples; a bit-equal repeat), sample 0's blend equal to
+    its twin bit for bit on every tile, its kept counter, bound, twin time
+    and alone beside K3 _stoch; one stochastic fwd_bwd with a host order
+    (K4 _stoch_keyrow once), its backward form against its twin with the
+    loss's cotangent on every tile (colour rows at K4's gates, every other
+    row and the key row exactly 0), its kept counter, bound, times and
+    alone beside K4 _stoch. Returns ({name: entry}, {name: bound})."""
+    prepared = truth.prepare()
+    cfg = stoch_cfg(bucket_cfg(base, caps), HOST_SAMPLES)
+    fwd_name, bwd_name = (name + tr.STOCH + tr.KEYROW
+                          for name in ("raster_bucket_fwd", "raster_bucket_bwd"))
+    tr.zero_counters(rb.rasterize_buckets)
+    out = render(prepared, cam, cfg, host_order=order0)
+    torch.cuda.synchronize()
+    seen = only("stochastic host-sorted frame", rb.rasterize_buckets, STOCH_KEYROW_FORM,
+                HOST_SAMPLES)
+    again = render(prepared, cam, cfg, host_order=order0)
+    torch.cuda.synchronize()
+    same = all(torch.equal(getattr(again, f), getattr(out, f))
+               for f in ("image", "transmittance", "depth", "splat_id"))
+    trans = out.transmittance
+    log(f"stochastic host-sorted bucket frame ({HOST_SAMPLES} samples): launches {seen}, "
+        f"T levels {torch.unique(trans).numel()}, repeat bit-equal: {same}")
+    check(torch.equal(trans * HOST_SAMPLES, torch.round(trans * HOST_SAMPLES)),
+          "stochastic host-sorted frame: T not a multiple of 1 / samples")
+    check(not bool(out.overflow) and same, "stochastic host-sorted frame: overflow or repeat")
+    del out, again
+
+    entries, bounds = {}, {}
+    stages, c = host_stages(prepared, cam, cfg, order0, STOCH_SEED)
+    run_stages(stages[:3])
+    st = blend_st(c, cfg)
+    out_k, id_k = c["out"]
+    torch.cuda.synchronize()
+    kept = int(getattr(rb.rasterize_buckets, tr.KEPT_COUNTER[STOCH_KEYROW_FORM]))
+    (out_r, id_r), t_plain = timed(lambda: gut_twin(c, cfg, seed=STOCH_SEED))
+    check(torch.equal(out_k, out_r) and torch.equal(id_k, id_r),
+          f"{fwd_name} differs from its twin")
+    work = stoch_work(c, cfg, "K3")
+    log(f"  {fwd_name} vs twin on all {out_k.shape[0]} tiles (seed {STOCH_SEED}): bit-equal")
+    stoch_kept_gate(fwd_name, kept, work.kept, True)
+    n_tiles = st.tiles_x * st.tiles_y
+    fwd_bytes = (work.live * (11 * 4 + 4) + n_tiles * (12 * 4 + 12 * 4)
+                 + n_tiles * tr.PIX * (tr.OUT_ROWS * 4 + 4))
+    frame_bounds, text = bucket_bound("gs2d", work, fwd_bytes, None, 0, n_tiles,
+                                      tr.STOCH + tr.KEYROW)
+    bounds[fwd_name] = frame_bounds[fwd_name]
+    log(f"  bound {fwd_name}: {draw_counts(work)}; " + text)
+    bins = c["bins"]
+    blend = stages[2][1]
+    t_kernel = median(time_ms(blend, 10))
+    plain_bins, plain_st = bins_of(prepared, cam, cfg), bucket_statics(cfg)
+    t_alone = stoch_alone_beside(
+        fwd_name, lambda key: (lambda: rb.rasterize_buckets(bins, st, caps, None, STOCH_SEED))
+        if key else (lambda: rb.rasterize_buckets(plain_bins, plain_st, caps, None, STOCH_SEED)),
+        rb.rasterize_buckets, BLEND_KERNELS["bucket"], card)
+    log(f"timing {fwd_name} 1080p/1M ({card}): kernel_ms={t_kernel:.4f} alone_ms={t_alone:.4f} "
+        f"plain_twin_ms={t_plain:.4f}")
+    entries[fwd_name] = dict(launches=seen[STOCH_KEYROW_FORM], max_abs_err=0.0, ms=t_kernel,
+                             plain_ms=t_plain, alone_ms=t_alone)
+    del c, stages, bins, plain_bins, out_k, out_r
+
+    # ---- the backward form: one stochastic fwd_bwd with a host order
+    tcfg = gt.TrainConfig(scene_extent=4.0)
+    one = stoch_cfg(bucket_cfg(base, caps))
+    with torch.no_grad():
+        target = render(prepared, cam, bucket_cfg(base, caps)).image
+    splats = jittered_start(truth, dev, 0)
+    order, _ = host_order(AsyncHostSorter(splats.means), cam)
+    for f in FIELDS:
+        getattr(splats, f).requires_grad_()
+    tr.zero_counters(rb.rasterize_buckets_bwd, tr.TRAINED)
+    loss = gt.rgb_loss(render(splats.prepare(), cam, one, host_order=order).image, target,
+                       tcfg.ssim_lambda)
+    loss.backward()
+    torch.cuda.synchronize()
+    seen_bwd = only("stochastic host-sorted fwd_bwd", rb.rasterize_buckets_bwd,
+                    STOCH_KEYROW_FORM, 1)
+    zero = {f: bool((getattr(splats, f).grad == 0).all()) for f in ("opacities", "scales", "quats")}
+    log(f"stochastic host-sorted fwd_bwd: loss {loss.item():.6f}, K4 launches {seen_bwd}, zero "
+        f"gradients {zero}")
+    check(math.isfinite(loss.item()) and all(zero.values()),
+          "stochastic host-sorted fwd_bwd: a non-finite loss or a gradient through alpha")
+    stages, c = host_stages(splats.prepare(), cam, one, order, STOCH_SEED)
+    run_stages(stages)
+    st = blend_st(c, one)
+    (g_out,) = torch.autograd.grad(gt.rgb_loss(c["image"], target, tcfg.ssim_lambda),
+                                   c["out"][0])
+    ctx = tr.bwd_context(c["out"][0].detach(), g_out)
+    d_k = gut_kernel_bwd(c, one, ctx, STOCH_SEED)
+    torch.cuda.synchronize()
+    kept = int(getattr(rb.rasterize_buckets_bwd, tr.KEPT_COUNTER[STOCH_KEYROW_FORM]))
+    d_r, t_twin = timed(lambda: gut_twin_bwd(c, one, ctx, seed=STOCH_SEED))
+    other = [r for r in range(d_k.shape[0]) if not COLOUR_ROWS.start <= r < COLOUR_ROWS.stop]
+    check(bool((d_k[other] == 0).all()) and bool((d_r[other] == 0).all()),
+          f"{bwd_name}: a row other than the colour rows (the key row included) is not 0")
+    cols = ((d_k != 0) | (d_r != 0)).any(dim=0)
+    ok, abs_err, rel, share, _ = bwd_gate(d_k[COLOUR_ROWS][:, cols], d_r[COLOUR_ROWS][:, cols])
+    log(f"  {bwd_name} vs twin on {int(cols.sum())} columns of all tiles: colour rows max err "
+        f"/ row max {rel:.3e} (gate {BWD_RTOL:g}), least share {share:.6f}; every other row "
+        f"and the key row exactly 0 in both")
+    check(ok, f"{bwd_name} vs twin outside the gates: {rel} / {share}")
+    work = stoch_work(c, one, "K4")
+    stoch_kept_gate(bwd_name, kept, work.kept, True)
+    p = c["bins"].attrs.shape[1]
+    bwd_bytes = (work.live * (tr.GRAD_ROWS + 1) * 4 + n_tiles * (12 * 4 + 12 * 4)
+                 + n_tiles * tr.PIX * tr.CTX_ROWS * 4 + p * tr.GRAD_ROWS * 4)
+    frame_bounds, text = bucket_bound("gs2d", work, None, bwd_bytes, tr.GRAD_ROWS, n_tiles,
+                                      tr.STOCH + tr.KEYROW)
+    bounds[bwd_name] = frame_bounds[bwd_name]
+    log(f"  bound {bwd_name}: {draw_counts(work)}; " + text)
+    t_kernel = median(time_ms(lambda: gut_kernel_bwd(c, one, ctx, STOCH_SEED), 10))
+    plain = dict(c, bins=bins_of(splats.prepare(), cam, one),
+                 st=dataclasses.replace(c["st"], key_is_row=False))
+    t_alone = stoch_alone_beside(
+        bwd_name, lambda key: (lambda: gut_kernel_bwd(c if key else plain, one, ctx, STOCH_SEED)),
+        rb.rasterize_buckets_bwd, K4_KERNELS, card)
+    log(f"timing {bwd_name} 1080p/1M ({card}): kernel_ms={t_kernel:.4f} alone_ms={t_alone:.4f} "
+        f"plain_twin_ms={t_twin:.4f}")
+    entries[bwd_name] = dict(launches=seen_bwd[STOCH_KEYROW_FORM], max_abs_err=abs_err,
+                             ms=t_kernel, plain_ms=t_twin, alone_ms=t_alone)
+    return entries, bounds
+
+
+def stoch_alone_beside(label, call_of, wrapper, names, card):
+    """A stochastic key-row form alone beside the stochastic form on the
+    device-sorted bins, in turns (stochastic, key-row, key-row,
+    stochastic): the profiler's per-kernel medians summed over the
+    wrapper's kernels. ``call_of(key)`` makes a call. Returns the key-row
+    form's median."""
+    def alone(key):
+        form = STOCH_KEYROW_FORM if key else "gs2d" + tr.STOCH
+        split = kernel_split(call_of(key), lambda: getattr(wrapper, tr.LAUNCH_COUNTER[form]),
+                             names, calls=STOCH_ALONE_CALLS, min_records=STOCH_ALONE_CALLS - 2)
+        return sum(split.values())
+
+    plain, key = abba(lambda: alone(False), lambda: alone(True))
+    log(f"timing {label} kernel alone beside its _stoch form ({card}; profiler, turns _stoch, "
+        f"_stoch_keyrow, _stoch_keyrow, _stoch): _stoch=" + "/".join(f"{a:.4f}" for a in plain)
+        + " _stoch_keyrow=" + "/".join(f"{a:.4f}" for a in key))
+    return median(key)
+
+
+def io_within(label: str, got: torch.Tensor, want: torch.Tensor, atol: float) -> float:
+    err = (got - want).abs().max().item() if got.numel() else 0.0
+    check(err <= atol, f"{label}: {err} > {atol}")
+    return err
+
+
+def sign_canonical(q: torch.Tensor) -> torch.Tensor:
+    """Unit quaternions with the largest component positive (spz's storage)."""
+    q = q / q.norm(dim=1, keepdim=True).clamp_min(1e-12)
+    big = q.gather(1, q.abs().argmax(dim=1, keepdim=True))
+    return q * torch.where(big < 0, -1.0, 1.0)
+
+
+def io_phase(dev, card, truth):
+    """The 1 M scene through save_ply -> load_ply (the native extractor),
+    save_spz -> load_spz and save_splat_file -> load_splat_file, each read
+    by ``load_scene``, in a temporary directory: the PLY exact; spz and
+    .splat within their quantisation (IO_TOL's reasons), values outside a
+    format's range compared at its clamp; write and read times."""
+    with torch.no_grad():
+        t = {f: getattr(truth, f).detach() for f in FIELDS}
+        alpha = torch.sigmoid(t["opacities"])
+        unit = t["quats"] / t["quats"].norm(dim=1, keepdim=True).clamp_min(1e-12)
+    check(tply._groups_contiguous(["x", "y", "z", "f_dc_0", "f_dc_1", "f_dc_2"]
+                                  + [f"f_rest_{i}" for i in range(45)] + ["opacity"]
+                                  + [f"scale_{i}" for i in range(3)]
+                                  + [f"rot_{i}" for i in range(4)]) and native.available(),
+          "save_ply's layout would not take the native reader")
+    lines = []
+    with tempfile.TemporaryDirectory() as tmp:
+        for ext, save in ((".ply", save_ply), (".spz", save_spz), (".splat", save_splat_file)):
+            path = os.path.join(tmp, "scene" + ext)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            save(path, truth)
+            t1 = time.perf_counter()
+            got = load_scene(path, device=dev)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            g = {f: getattr(got, f) for f in FIELDS}
+            a = torch.sigmoid(g["opacities"])
+            if ext == ".ply":
+                errs = {f: 0.0 for f in FIELDS}
+                check(all(torch.equal(g[f], t[f]) for f in FIELDS), "the PLY round trip")
+            elif ext == ".spz":
+                errs = dict(
+                    means=io_within("spz means", g["means"], t["means"], 2.0 ** -13 + 1e-7),
+                    scales=io_within("spz scales", g["scales"], t["scales"], 1 / 32 + 1e-5),
+                    quats=io_within("spz quats", g["quats"], sign_canonical(t["quats"]), 4e-3),
+                    sh_dc=io_within("spz sh_dc", g["sh_dc"], t["sh_dc"].clamp(
+                        -127.5 / 38.25, 127.5 / 38.25), 0.5 / 38.25 + 1e-5),
+                    sh_rest=io_within("spz sh_rest", g["sh_rest"],
+                                      t["sh_rest"].clamp(-1.0, 127 / 128), 0.5 / 128 + 1e-6),
+                    opacities=io_within("spz alpha", a, alpha, 0.5 / 255 + 1e-5))
+            else:
+                errs = dict(
+                    means=io_within("splat means", g["means"], t["means"], 0.0),
+                    scales=io_within("splat scales", g["scales"], t["scales"], 2e-6),
+                    quats=io_within("splat quats", g["quats"], unit, 1 / 128 + 1e-6),
+                    sh_dc=io_within("splat sh_dc", g["sh_dc"], t["sh_dc"].clamp(
+                        -0.5 / SH_C0, 0.5 / SH_C0), 0.5 / 255 / SH_C0 + 1e-5),
+                    opacities=io_within("splat alpha", a, alpha, 0.5 / 255 + 1e-5))
+                check(tuple(g["sh_rest"].shape) == (truth.means.shape[0], 0, 3),
+                      ".splat carries SH degree 0")
+            lines.append(f"{ext} {os.path.getsize(path) / 1e6:.1f} MB write_ms="
+                         f"{(t1 - t0) * 1e3:.1f} read_ms={(t2 - t1) * 1e3:.1f} (load_scene, "
+                         f"to the card) max errors " + " ".join(
+                             f"{k}={v:.3e}" for k, v in errs.items()))
+            del got, g
+    log(f"io 1M splats SH 3 ({card}, host clock): " + "; ".join(lines))
+
+
+def host_sorted(dev, card: str, truth: gt.SplatSet, caps):
+    """Phase 12: the host-sorted path and the IO at the headline cell and
+    caps. Returns (report entries, bounds) of the four key-row forms."""
+    t0 = time.perf_counter()
+    base = gt.RenderConfig(width=WIDTH, height=HEIGHT, sh_degree=3)
+    cam = gt.look_at([0, 0, -7], [0, 0, 0], [0, 1, 0], WIDTH, HEIGHT, fov_y_rad=0.9, device=dev)
+    prepared = truth.prepare()
+    sorter = host_sort_checks(dev, card, truth, cam)
+    k3, bounds, order0 = keyrow_forward(dev, card, prepared, cam, base, caps, sorter)
+    k4 = keyrow_backward(dev, card, truth, cam, base, caps)
+    k4["kept_share"] = k3["kept_share"]  # the same lanes on the headline frame (check_cull)
+    entries = {KEYROW_FWD: k3, KEYROW_BWD: k4}
+    stoch_entries, stoch_bounds = keyrow_stochastic(dev, card, truth, cam, base, caps, order0)
+    entries.update(stoch_entries)
+    bounds.update(stoch_bounds)
+    torch.cuda.empty_cache()
+    io_phase(dev, card, truth)
+    log(f"host-sorted phase {time.perf_counter() - t0:.1f} s")
+    return entries, bounds
+
+
 def bit_equal(label: str, got: torch.Tensor, want: torch.Tensor) -> float:
     """Max abs difference of a probe kernel's output against its twin's, 0:
     fails unless they are equal bit for bit, NaN keys included (the probes
@@ -2961,8 +3623,10 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     t0 = time.perf_counter()
     was_built = {name: _build.library_path(name).exists() for name in _SOURCES}
-    with concurrent.futures.ThreadPoolExecutor(len(_SOURCES)) as pool:
+    with concurrent.futures.ThreadPoolExecutor(len(_SOURCES) + 1) as pool:
+        host_lib = pool.submit(native.available)  # c++ of native/fast_splats.cpp
         list(pool.map(_build.load, _SOURCES))  # one nvcc per source, all at once
+        check(host_lib.result(), "the native host library did not build")
     for name in _SOURCES:
         log(f"{'loaded prebuilt' if was_built[name] else 'built'} "
             f"{_build.library_path(name).name}")
@@ -3027,6 +3691,9 @@ def main() -> int:
     stoch_entries, stoch_bounds = stochastic(dev, card, truth, caps)
     results.update(stoch_entries)
     bounds.update(stoch_bounds)
+    host_entries, host_bounds = host_sorted(dev, card, truth, caps)
+    results.update(host_entries)
+    bounds.update(host_bounds)
     probe_entries, probe_bounds, library = probes(dev, card)
     results.update(probe_entries)
     bounds.update(probe_bounds)

@@ -1461,3 +1461,147 @@ def test_l2_fill_launches_and_refuses(cuda):
     torch.cuda.synchronize()
     with pytest.raises(RuntimeError, match="cudaError"):   # a 512 KB ring
         lf.fill(src, method="bulk", grid=4, per_sm=1, copies=64, w=16, piece=8, depth=8)
+
+
+# ---- the key-row forms of K3 and K4 (RasterStatics.key_is_row, gs2d): the
+# host-sorted bucket frame, render_3dgs(host_order=...). The bins carry the
+# host order's rank as the key row (ops/response.GS_KEY) and are sorted by
+# it; the kernels merge on that row. Gates: K3's and K4's (the deterministic
+# forms), bit for bit for the stochastic forward; the key row's gradient
+# exactly 0; the kept counters equal to the plain predicate's count over
+# the key-row merge; only the key-row form's launch counter moves.
+
+from vk_gaussian_splatting_tpu_torch.io.async_loader import sort_order  # noqa: E402
+from vk_gaussian_splatting_tpu_torch.ops.response import GS_KEY  # noqa: E402
+from vk_gaussian_splatting_tpu_torch.render.pipelines import host_rank, render_3dgs  # noqa: E402
+
+KEYROW_FORMS = ("gs2d" + tr.KEYROW, "gs2d" + tr.STOCH + tr.KEYROW)
+
+
+def keyrow_setup(device, reverse=False, seed=0, n=3000):
+    """(bins, key-row statics, caps) of a host-sorted bucket frame: the order
+    of the host sorter (``sort_order``) for the camera's view direction,
+    reversed with ``reverse`` (a back-to-front blend)."""
+    cfg = bucket_cfg()
+    d = interop.random_splat_arrays(seed, n, sh_degree=1, scale_range=(-5.0, 0.0))
+    cam = gt.look_at([0.2, -0.3, -9.0], [0, 0, 0], [0, 1, 0], cfg.width, cfg.height,
+                     fov_y_rad=0.9, device=device)
+    order = sort_order(d["means"], cam.viewmat.cpu().numpy()[2, :3])
+    if reverse:
+        order = order[::-1].copy()
+    proj = project_splats(interop.splat_set_from_numpy(d, device).prepare(), cam, cfg)
+    rows, ids = gs_attr_rows(proj)
+    rank = host_rank(order, rows.shape[1], device)
+    st = dataclasses.replace(bucket_statics(cfg), key_is_row=True)
+    bins = bucket_splats(proj, torch.cat([rows, rank[None]]), ids, tiles_x=st.tiles_x,
+                         tiles_y=st.tiles_y, caps=cfg.raster.bucket_caps, sort_depth=rank)
+    return bins, st, cfg.raster.bucket_caps
+
+
+def launch_counts(wrapper):
+    """Every launch counter the wrapper keeps (a backward's: the trained models')."""
+    return {m: getattr(wrapper, name) for m, name in tr.LAUNCH_COUNTER.items()
+            if hasattr(wrapper, name)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stochastic", [False, True])
+@pytest.mark.parametrize("reverse", [False, True])
+def test_keyrow_kernels_match_twins(cuda, stochastic, reverse):
+    bins, st, caps = keyrow_setup(cuda, reverse)
+    st = dataclasses.replace(st, stochastic=stochastic)
+    seed = STOCH_SEED if stochastic else 0
+    form = tr.form_of(st)
+    assert form == KEYROW_FORMS[stochastic]
+    fwd_before, bwd_before = launch_counts(rb.rasterize_buckets), launch_counts(
+        rb.rasterize_buckets_bwd)
+    out_k, id_k = rb.rasterize_buckets(bins, st, caps, None, seed)
+    torch.cuda.synchronize()
+    kept_fwd = int(getattr(rb.rasterize_buckets, tr.KEPT_COUNTER[form]))
+    again = rb.rasterize_buckets(bins, st, caps, None, seed)
+    out_r, id_r = rb.rasterize_buckets_ref(bins.attrs, bins.ids, bins.bucket_starts, st, caps,
+                                           seed=seed)
+    torch.cuda.synchronize()
+    assert torch.equal(out_k, again[0]) and torch.equal(id_k, again[1])
+    if stochastic:
+        assert torch.equal(out_k, out_r) and torch.equal(id_k, id_r)
+    else:
+        assert (out_k[:, :4] - out_r[:, :4]).abs().max().item() <= ATOL
+        same = id_k == id_r
+        assert same.float().mean().item() >= ID_AGREE
+        assert torch.equal(out_k[:, 4][same], out_r[:, 4][same])
+    assert out_k[:, 3].min().item() < 0.5  # the frame covers pixels
+    work = rb.bucket_work(bins.attrs, bins.bucket_starts, st, caps, seed=seed)
+    assert kept_fwd == work.kept, (kept_fwd, work.kept)
+
+    g = torch.randn(out_k.shape, generator=torch.Generator(device=cuda).manual_seed(0),
+                    device=cuda)
+    ctx = tr.bwd_context(out_r, g)
+    d_k = rb.rasterize_buckets_bwd(bins.attrs, bins.bucket_starts, ctx, st, caps, None, seed)
+    torch.cuda.synchronize()
+    kept_bwd = int(getattr(rb.rasterize_buckets_bwd, tr.KEPT_COUNTER[form]))
+    d_again = rb.rasterize_buckets_bwd(bins.attrs, bins.bucket_starts, ctx, st, caps, None, seed)
+    d_r = rb.rasterize_buckets_bwd_ref(bins.attrs, bins.bucket_starts, ctx, st, caps, seed=seed)
+    torch.cuda.synchronize()
+    assert torch.equal(d_k, d_again) and d_k.shape[0] == GS_KEY + 1
+    assert (d_k[GS_KEY] == 0).all() and (d_k[tr.GRAD_ROWS:] == 0).all()
+    rows = range(tr.ATTR_R, tr.ATTR_B + 1) if stochastic else range(tr.GRAD_ROWS)
+    for r in range(tr.GRAD_ROWS):
+        k, ref = d_k[r], d_r[r]
+        if r not in rows:
+            assert (k == 0).all() and (ref == 0).all(), r
+            continue
+        scale = ref.abs().max().item()
+        assert scale > 0, r
+        assert (k - ref).abs().max().item() <= BWD_RTOL * scale, r
+        limit = 1e-2 * (ref.abs() + ref.abs()[ref != 0].median())
+        assert ((k - ref).abs() <= limit).float().mean().item() >= 0.999, r
+    assert kept_bwd == kept_fwd
+    for wrapper, before in ((rb.rasterize_buckets, fwd_before),
+                            (rb.rasterize_buckets_bwd, bwd_before)):
+        after = launch_counts(wrapper)
+        assert after == {m: before[m] + 2 * (m == form) for m in before}
+
+
+@pytest.mark.cuda
+def test_keyrow_merge_follows_the_key_row(cuda):
+    """A reversed host order blends back to front: the frame differs from
+    the fresh order's by more than 1e-3, and the fresh order's frame equals
+    the device-sorted bucket frame's within K3's gate."""
+    fresh, st, caps = keyrow_setup(cuda)
+    rev, _, _ = keyrow_setup(cuda, reverse=True)
+    a, _ = rb.rasterize_buckets(fresh, st, caps)
+    b, _ = rb.rasterize_buckets(rev, st, caps)
+    plain, st_plain = bucket_bins_on(cuda, bucket_cfg())
+    c, _ = rb.rasterize_buckets(plain, st_plain, caps)
+    torch.cuda.synchronize()
+    assert (a[:, :3] - b[:, :3]).abs().max().item() > 1e-3
+    assert (a[:, :4] - c[:, :4]).abs().max().item() <= ATOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stochastic", [False, True])
+def test_host_order_render_on_card_launches_keyrow_forms_once(cuda, stochastic):
+    """render_3dgs(host_order=...) on the bucket path: one launch of the
+    key-row form forward and backward per sample, no other form; finite
+    gradients that repeat bit for bit."""
+    cfg = bucket_cfg(w=120, h=90).replace(
+        stochastic=gt.StochasticMode.SPLAT if stochastic else gt.StochasticMode.NONE,
+        temporal_samples=2 if stochastic else 1)
+    cam = gt.look_at([0.2, -0.3, -9.0], [0, 0, 0], [0, 1, 0], 120, 90, fov_y_rad=0.9,
+                     device=cuda)
+    form = KEYROW_FORMS[stochastic]
+    samples = 2 if stochastic else 1
+    grads = []
+    for _ in range(2):
+        s = splats_on(cuda, seed=1, n=1500)
+        order = sort_order(s.means.detach().cpu().numpy(), cam.viewmat.cpu().numpy()[2, :3])
+        before = [launch_counts(w) for w in (rb.rasterize_buckets, rb.rasterize_buckets_bwd)]
+        out = render_3dgs(s.prepare(), cam, cfg, host_order=order)
+        gt.rgb_loss(out.image, torch.full_like(out.image, 0.5)).backward()
+        torch.cuda.synchronize()
+        for w, b in zip((rb.rasterize_buckets, rb.rasterize_buckets_bwd), before):
+            assert launch_counts(w) == {m: b[m] + samples * (m == form) for m in b}
+        grads.append([getattr(s, f).grad for f in interop.SPLAT_FIELDS])
+    for f, a, b in zip(interop.SPLAT_FIELDS, *grads):
+        assert torch.equal(a, b) and bool(torch.isfinite(a).all()), f

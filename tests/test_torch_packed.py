@@ -412,16 +412,23 @@ def test_packed_backward_twins_raise(method):
             tr.rasterize_tiles_bwd(bins.attrs, bins.tile_start, bins.tile_count, ctx, st)
 
 
-@pytest.mark.parametrize("what, kw, item", [
-    ("host_order", dict(host_order=torch.arange(50)), "remaining IO")])
-def test_packed_with_unported_options_raises(what, kw, item):
+@pytest.mark.parametrize("method", ["pairs", "bucket"])
+def test_packed_host_order_takes_the_pair_path(method):
+    """The packed frame with a host order (refused before the host-sorted
+    path was ported): packed rows have no room for the key row, so both
+    methods render the packed pair frame in the host order, as the JAX
+    ``render_3dgs`` does (its ``use_bucket``); a fresh order gives the
+    device-sorted packed pair frame (tests/test_torch_host_order.py holds
+    it against the JAX package)."""
     cam, _ = camera(32, 32)
-    cfg = tc.RenderConfig(width=32, height=32, raster=tc.RasterConfig(pair_format="packed"),
-                          **kw.get("cfg", {}))
     prep = interop.splat_set_from_numpy(scene(50, 8), "cpu").prepare()
-    extra = {"host_order": kw["host_order"]} if "host_order" in kw else {}
-    with pytest.raises(NotImplementedError, match=item):
-        tp.render_3dgs(prep, cam, cfg, **extra)
+    cfg = tc.RenderConfig(width=32, height=32,
+                          raster=tc.RasterConfig(pair_format="packed", method=method))
+    order = torch.argsort(prep.means[:, 2], stable=True)
+    out = tp.render_3dgs(prep, cam, cfg, host_order=order)
+    ref = tp.render_3dgs(prep, cam, cfg.replace(raster=tc.RasterConfig(pair_format="packed")))
+    assert float(out.transmittance.min()) < 0.5
+    assert (out.image - ref.image).abs().max().item() <= 1e-5
 
 
 # the options packed frames refused before stochastic transparency was ported

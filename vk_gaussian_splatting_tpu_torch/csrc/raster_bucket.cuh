@@ -19,7 +19,10 @@
 // The merge orders the live candidates by (depth, span, position in span),
 // the order the plain twin's stable sort gives (ops/raster_bucket.py); the
 // depth is the response model's depth row (csrc/response.cuh), which holds
-// the radial distance on the 3DGRT bucket path.
+// the radial distance on the 3DGRT bucket path, or, in the key-row form
+// (merge_row, KEYROW), the key row after the model's rows, which holds the
+// host sorter's rank (ops/response.GS_KEY). Either row must hold the depth
+// the slots were sorted by.
 // Each span is ascending in depth, so a candidate's rank is its position
 // in its own span plus, for every other span, the count of that span's
 // keys before it: keys <= its own for a lower span index, keys < its own
@@ -74,6 +77,14 @@ __device__ inline void tile_spans(Spans& sp, const int* __restrict__ bucket_star
   }
   sp.off[NUM_SPANS] = off;
   sp.n_head = n_head;
+}
+
+// The row of the attrs the spans merge on: the model M's depth row, or,
+// for the key-row form (KEYROW: the JAX kernel's key_is_row), the key row
+// one after M's rows.
+template <class M, bool KEYROW>
+__host__ __device__ constexpr int merge_row() {
+  return KEYROW ? M::ROWS : M::DEPTH_ROW;
 }
 
 __device__ inline int span_of(const Spans& sp, int g) {

@@ -62,6 +62,12 @@
 // JAX accept gives none, takes no gradient through alpha: M::vjp is not
 // called, the geometry rows sum exact zeros and the colour rows g_rgb * w.
 // The _partial and _reduce passes are the same launches.
+// The key-row form (template flag KEYROW; entries <name>_keyrow and
+// <name>_stoch_keyrow, gs2d: raster_bucket.py:1059-1063) merges on the key
+// row after the model's rows (the host sorter's rank, bucket::merge_row),
+// as K3's does. The key row lies past GRAD_ROWS, so its d_attrs row keeps
+// the zeros it arrives with (the JAX kernel zeroes it, :1174). The forms
+// without the flag compile as they did (probes/sass_diff.py).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -93,7 +99,7 @@ __device__ __forceinline__ int shared_slot(int i, int k, int cap1, int cap2) {
   return base + k;
 }
 
-template <class M, bool STOCH>
+template <class M, bool STOCH, bool KEYROW>
 __global__ void __launch_bounds__(PIX)
 raster_bucket_bwd_tiles(const float* __restrict__ attrs, long long stride,
                         const int* __restrict__ bucket_starts,
@@ -123,7 +129,7 @@ raster_bucket_bwd_tiles(const float* __restrict__ attrs, long long stride,
   const int warp = i >> 5;
   if (i == 0) bucket::tile_spans(sp, bucket_starts, span_buckets, t, cap0, cap1, cap2, cap3);
   __syncthreads();
-  bucket::merge_spans(sp, attrs + M::DEPTH_ROW * stride, keys, order);
+  bucket::merge_spans(sp, attrs + bucket::merge_row<M, KEYROW>() * stride, keys, order);
 
   const response::Pixel pix = response::load_pixel(t, tiles_x, i, pix_ctx);
   M::tile_bound(bound, t, tiles_x, pix);
@@ -335,12 +341,12 @@ int smem_of(int c_total, int chunk) {
   return bucket::smem_bytes(c_total, chunk, M::BWD_SLOTS, STOCH ? 3 : 2);
 }
 
-template <class M, bool STOCH = false>
+template <class M, bool STOCH = false, bool KEYROW = false>
 int smem_limit_of() {
-  return dynamic_smem_limit((const void*)raster_bucket_bwd_tiles<M, STOCH>);
+  return dynamic_smem_limit((const void*)raster_bucket_bwd_tiles<M, STOCH, KEYROW>);
 }
 
-template <class M, bool STOCH = false>
+template <class M, bool STOCH = false, bool KEYROW = false>
 int launch(const float* attrs, long long stride, const int* bucket_starts,
            const int* span_buckets, const int* reader_code, const int* seg_bucket,
            const int* seg_first, const int* seg_last, const int* bucket_seg, int num_segments,
@@ -352,14 +358,15 @@ int launch(const float* attrs, long long stride, const int* bucket_starts,
   if (chunk < 1 || chunk > bucket::MAX_CHUNK) return (int)cudaErrorInvalidValue;
   const int c_total = cap0 + 2 * cap1 + 2 * cap2 + cap3;
   const int smem = smem_of<M, STOCH>(c_total, chunk);
-  if (smem > smem_limit_of<M, STOCH>()) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      raster_bucket_bwd_tiles<M, STOCH>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (smem > smem_limit_of<M, STOCH, KEYROW>()) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(raster_bucket_bwd_tiles<M, STOCH, KEYROW>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   const response::Params prm{alpha_min, alpha_clamp, qmax, min_response, degree};
   const long long scratch_stride = (long long)num_tiles * (2 * cap1 + 2 * cap2 + cap3);
   if (num_tiles > 0) {
-    raster_bucket_bwd_tiles<M, STOCH><<<num_tiles, PIX, smem, (cudaStream_t)stream>>>(
+    raster_bucket_bwd_tiles<M, STOCH, KEYROW><<<num_tiles, PIX, smem,
+                                                (cudaStream_t)stream>>>(
         attrs, stride, bucket_starts, span_buckets, ctx, pix_ctx, tiles_x, c_total, cap0, cap1,
         cap2, cap3, chunk, prm, min_transmittance, scratch, scratch_stride, d_attrs, kept,
         (unsigned)seed);
@@ -456,4 +463,30 @@ extern "C" int raster_bucket_bwd_stoch_smem_limit() {
 }
 extern "C" int raster_bucket_bwd_gut3d_stoch_smem_limit() {
   return smem_limit_of<response::Gut3d, true>();
+}
+
+// The key-row forms of gs2d (deterministic and stochastic): the attrs and
+// d_attrs carry one row more, the key row 10, on which the spans merge and
+// whose gradient stays the zero d_attrs holds on entry.
+extern "C" int raster_bucket_bwd_keyrow(RASTER_BUCKET_BWD_PARAMS) {
+  pix_ctx = nullptr;
+  return launch<response::Gs2d, false, true>(RASTER_BUCKET_BWD_ARGS);
+}
+
+extern "C" int raster_bucket_bwd_stoch_keyrow(RASTER_BUCKET_BWD_PARAMS) {
+  pix_ctx = nullptr;
+  return launch<response::Gs2d, true, true>(RASTER_BUCKET_BWD_ARGS);
+}
+
+extern "C" int raster_bucket_bwd_keyrow_smem(int c_total, int chunk) {
+  return smem_of<response::Gs2d>(c_total, chunk);
+}
+extern "C" int raster_bucket_bwd_stoch_keyrow_smem(int c_total, int chunk) {
+  return smem_of<response::Gs2d, true>(c_total, chunk);
+}
+extern "C" int raster_bucket_bwd_keyrow_smem_limit() {
+  return smem_limit_of<response::Gs2d, false, true>();
+}
+extern "C" int raster_bucket_bwd_stoch_keyrow_smem_limit() {
+  return smem_limit_of<response::Gs2d, true, true>();
 }

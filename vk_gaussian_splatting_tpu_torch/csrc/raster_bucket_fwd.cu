@@ -60,6 +60,13 @@
 // counted: lo + j before the cull compacts it, staged beside the id) and
 // n_chunks the chunks of all six spans' caps. A rejected lane is skipped
 // as a failed cutoff is. The deterministic form compiles as it did.
+// The key-row form (template flag KEYROW; entries <name>_keyrow and
+// <name>_stoch_keyrow, gs2d) replaces raster_bucket.py:653-660's
+// key_is_row: the merge reads the key row after the model's rows (the
+// host sorter's rank, one more row of the attrs, bucket::merge_row) in
+// place of the depth row; the blend, the cull and the depth pick read the
+// model's rows as before. The flag moves one address, so the forms
+// without it compile as they did (probes/sass_diff.py).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -73,7 +80,7 @@ namespace {
 using bucket::PIX;
 constexpr int OUT_ROWS = 5;        // rgb, T, depth
 
-template <class M, bool STOCH>
+template <class M, bool STOCH, bool KEYROW>
 __global__ void __launch_bounds__(PIX)
 raster_bucket_fwd_kernel(const float* __restrict__ attrs, long long stride,
                          const int* __restrict__ ids,
@@ -101,7 +108,7 @@ raster_bucket_fwd_kernel(const float* __restrict__ attrs, long long stride,
   const int i = threadIdx.x;
   if (i == 0) bucket::tile_spans(sp, bucket_starts, span_buckets, t, cap0, cap1, cap2, cap3);
   __syncthreads();
-  bucket::merge_spans(sp, attrs + M::DEPTH_ROW * stride, keys, order);
+  bucket::merge_spans(sp, attrs + bucket::merge_row<M, KEYROW>() * stride, keys, order);
 
   const response::Pixel pix = response::load_pixel(t, tiles_x, i, pix_ctx);
   M::tile_bound(bound, t, tiles_x, pix);
@@ -191,12 +198,12 @@ int smem_of(int c_total, int chunk) {
   return bucket::smem_bytes(c_total, chunk, M::FWD_SLOTS, STOCH ? 2 : 1);
 }
 
-template <class M, bool STOCH = false>
+template <class M, bool STOCH = false, bool KEYROW = false>
 int smem_limit_of() {
-  return dynamic_smem_limit((const void*)raster_bucket_fwd_kernel<M, STOCH>);
+  return dynamic_smem_limit((const void*)raster_bucket_fwd_kernel<M, STOCH, KEYROW>);
 }
 
-template <class M, bool STOCH = false>
+template <class M, bool STOCH = false, bool KEYROW = false>
 int launch(const float* attrs, long long stride, const int* ids, const int* bucket_starts,
            const int* span_buckets, const float* pix_ctx, int num_tiles, int tiles_x, int cap0,
            int cap1, int cap2, int cap3, int chunk, float alpha_min, float alpha_clamp,
@@ -205,13 +212,14 @@ int launch(const float* attrs, long long stride, const int* ids, const int* buck
   if (chunk < 1 || chunk > bucket::MAX_CHUNK) return (int)cudaErrorInvalidValue;
   const int c_total = cap0 + 2 * cap1 + 2 * cap2 + cap3;
   const int smem = smem_of<M, STOCH>(c_total, chunk);
-  if (smem > smem_limit_of<M, STOCH>()) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      raster_bucket_fwd_kernel<M, STOCH>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (smem > smem_limit_of<M, STOCH, KEYROW>()) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(raster_bucket_fwd_kernel<M, STOCH, KEYROW>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   const response::Params prm{alpha_min, alpha_clamp, qmax, min_response, degree};
   if (num_tiles > 0) {
-    raster_bucket_fwd_kernel<M, STOCH><<<num_tiles, PIX, smem, (cudaStream_t)stream>>>(
+    raster_bucket_fwd_kernel<M, STOCH, KEYROW><<<num_tiles, PIX, smem,
+                                                 (cudaStream_t)stream>>>(
         attrs, stride, ids, bucket_starts, span_buckets, pix_ctx, tiles_x, c_total, cap0,
         cap1, cap2, cap3, chunk, prm, min_transmittance, depth_iso, out, out_id, kept,
         (unsigned)seed);
@@ -323,4 +331,29 @@ extern "C" int raster_bucket_fwd_gs2dp_stoch_smem_limit() {
 }
 extern "C" int raster_bucket_fwd_gut3dp_stoch_smem_limit() {
   return smem_limit_of<response::Gut3dp, true>();
+}
+
+// The key-row forms of gs2d (deterministic and stochastic): the attrs carry
+// one row more, the key row 10, on which the spans merge.
+extern "C" int raster_bucket_fwd_keyrow(RASTER_BUCKET_FWD_PARAMS) {
+  pix_ctx = nullptr;
+  return launch<response::Gs2d, false, true>(RASTER_BUCKET_FWD_ARGS);
+}
+
+extern "C" int raster_bucket_fwd_stoch_keyrow(RASTER_BUCKET_FWD_PARAMS) {
+  pix_ctx = nullptr;
+  return launch<response::Gs2d, true, true>(RASTER_BUCKET_FWD_ARGS);
+}
+
+extern "C" int raster_bucket_fwd_keyrow_smem(int c_total, int chunk) {
+  return smem_of<response::Gs2d>(c_total, chunk);
+}
+extern "C" int raster_bucket_fwd_stoch_keyrow_smem(int c_total, int chunk) {
+  return smem_of<response::Gs2d, true>(c_total, chunk);
+}
+extern "C" int raster_bucket_fwd_keyrow_smem_limit() {
+  return smem_limit_of<response::Gs2d, false, true>();
+}
+extern "C" int raster_bucket_fwd_stoch_keyrow_smem_limit() {
+  return smem_limit_of<response::Gs2d, true, true>();
 }

@@ -273,8 +273,14 @@ def bucket_splats(proj: ProjectedSplats, rows: torch.Tensor, ids: torch.Tensor, 
     ids: (N,) i32 splat ids. caps: per-class window-span capacities (fine, mid row,
     coarse row, global), which only decide ``overflow`` here. sort_depth:
     (N,) a depth that replaces ``proj.depth`` in the sort key (the JAX
-    ``_bucket_impl``'s depth_override); the kernel merges on the model's
-    depth row, so the caller puts the same depth there."""
+    ``_bucket_impl``'s depth_override). The kernel merges each window on
+    the row it is told to (``ops/response.merge_row``): the model's depth
+    row, or the key row ``GS_KEY`` where ``key_is_row`` is set (the host
+    order's rank). That row must hold the sort_depth itself, or a span's
+    keys do not ascend and the merge breaks: 3DGRT puts its radial
+    distance in the depth row; the host-sorted frame appends its rank as
+    the key row and sorts by the same rank. The key row rides the gather
+    as a payload and, lying past ``grad_rows``, gets no gradient."""
     spec = BucketGridSpec.build(tiles_x, tiles_y)
     bucket = assign_buckets(proj, spec).reshape(-1)          # slot-major (4N,)
     depth = proj.depth if sort_depth is None else sort_depth

@@ -15,8 +15,12 @@ Each 16x16 tile reads its six window spans of the bucket-sorted slot array
 the global bucket. Span i holds ``n_eff = min(len, cap_i - start % 128)``
 candidates, the TPU kernel's capacity with its 128-alignment head, and the
 spans' depth-sorted runs are merged into one list ordered by (depth, span,
-position in span), the depth being the model's depth row (KEY_ROW of the
-JAX kernel: for 3DGRT the radial distance render/pipelines puts there). Then the tile blends that list front to back with the
+position in span), the depth being the model's depth row (for 3DGRT the
+radial distance render/pipelines puts there), or, in the key-row form
+(``RasterStatics.key_is_row``, gs2d: the JAX kernel's ``key_is_row``,
+raster_bucket.py:653-660, :1059-1063), the key row ``GS_KEY`` after the
+model's rows, which holds the host sorter's rank (render/pipelines.py,
+``host_order``) and gets no gradient. Then the tile blends that list front to back with the
 pair blender's math (ops/rasterize.py), in steps of ``st.chunk`` lanes
 (``RasterConfig.bucket_chunk``): live candidate k sits at lane
 ``n_head + k``, where ``n_head`` sums the heads of the non-empty spans, so a
@@ -83,7 +87,9 @@ from vk_gaussian_splatting_tpu_torch.ops.rasterize import (
 )
 from vk_gaussian_splatting_tpu_torch.ops.response import (
     alpha,
+    attr_rows,
     may_hit,
+    merge_row,
     model_of,
     refuse_backward,
     tile_bound,
@@ -186,10 +192,23 @@ def n_chunks(caps: tuple, chunk: int) -> int:
     return -(-sum(_span_sizes(caps)) // chunk)
 
 
+def _check_key_order(key: torch.Tensor, live: torch.Tensor, span: torch.Tensor) -> None:
+    """Raise unless each span's live keys ascend. The merge ranks a lane by
+    counting the keys of the other spans before it, which is right only
+    for ascending spans: the key row must be the depth the slots were
+    sorted by (``bucket_splats(sort_depth=...)``), else the order breaks
+    without a sign."""
+    same = (span[1:] == span[:-1]) & live[:, 1:]
+    if bool((same & (key[:, 1:] < key[:, :-1])).any()):
+        raise ValueError("a window span's key row does not ascend: the key row must hold "
+                         "the sort_depth the slots were sorted by")
+
+
 def _tile_lists(attrs: torch.Tensor, bucket_starts: torch.Tensor, st: RasterStatics,
                 caps: tuple, tiles: torch.Tensor) -> _TileLists:
     """Merge each tile's six spans by (depth, span, position in span): one
-    stable sort of the depth keys laid out span after span. Tile b's region
+    stable sort of the depth keys laid out span after span (the key row's
+    values with ``st.key_is_row``, whose spans must ascend). Tile b's region
     starts at lane b * L, L a multiple of the chunk, and live candidate k
     sits at b * L + n_head + k, so the chunk boundaries fall at the TPU
     kernel's lanes."""
@@ -200,9 +219,11 @@ def _tile_lists(attrs: torch.Tensor, bucket_starts: torch.Tensor, st: RasterStat
     pos = torch.arange(span.shape[0], device=dev) - (torch.cumsum(sizes, 0) - sizes)[span]
     col = start[:, span] + pos                                      # (n, c_total)
     live = pos < n_eff[:, span]
-    depth = attrs[model_of(st).depth_row].detach()
+    depth = attrs[merge_row(st)].detach()
     key = depth[col.clamp(0, depth.shape[0] - 1)] if depth.numel() else col.float()
     key = torch.where(live, key, float("inf"))
+    if st.key_is_row:
+        _check_key_order(key, live, span)
     merged = torch.gather(torch.where(live, col, -1), 1,
                           torch.sort(key, dim=1, stable=True).indices)
     n = tiles.shape[0]
@@ -368,7 +389,7 @@ def _check_inputs(attrs, bucket_starts, st, caps, ids=None, ctx=None, pix_ctx=No
     spec = BucketGridSpec.build(st.tiles_x, st.tiles_y)
     dev = attrs.device
     p = attrs.shape[1] if attrs.dim() == 2 else -1
-    _check("attrs", attrs, torch.float32, (model_of(st).rows, p), dev)
+    _check("attrs", attrs, torch.float32, (attr_rows(st), p), dev)
     check_pix_ctx(pix_ctx, st, dev)
     if ids is not None:
         _check("ids", ids, torch.int32, (p,), dev)
@@ -430,8 +451,10 @@ def rasterize_buckets_bwd(attrs: torch.Tensor, bucket_starts: torch.Tensor,
 
     CUDA tensors launch csrc/raster_bucket_bwd.cu's entry for the form of
     ``st`` and count one launch in ``rasterize_buckets_bwd.launches``
-    (gs2d), ``.launches_gut3d`` or their ``_stoch`` forms (``seed``: the
-    forward's); CPU tensors run the plain twin. The kernel stores
+    (gs2d), ``.launches_gut3d``, their ``_stoch`` forms (``seed``: the
+    forward's) or gs2d's key-row forms (``.launches_keyrow``,
+    ``.launches_stoch_keyrow``: the key row gets exact zeros); CPU tensors
+    run the plain twin. The kernel stores
     each fine column's gradient once; the gradients of a shared span's
     lanes go to a per-tile scratch that two more passes sum over each
     column's reading tiles in a fixed order (``_readers``). No float
@@ -515,7 +538,9 @@ def rasterize_buckets(bins: BucketBins, st: RasterStatics, caps: tuple,
     csrc/raster_bucket_fwd.cu's entry for the form of ``st`` and count one
     launch in ``rasterize_buckets.launches`` (gs2d), or the form's
     ``LAUNCH_COUNTER`` (``.launches_gut3d``, ``.launches_gs2dp``,
-    ``.launches_gut3dp``, each also with ``_stoch``); CPU tensors run the
+    ``.launches_gut3dp``, each also with ``_stoch``; ``.launches_keyrow`` and
+    ``.launches_stoch_keyrow`` for gs2d's key-row form, whose bins carry
+    the key row ``GS_KEY`` and were sorted by it); CPU tensors run the
     plain twin. The kernel blends only the lanes its
     per-tile cull keeps (``tile_may_hit``; the outputs are bit for bit the
     sweep over every lane) and leaves the kept count in

@@ -83,8 +83,10 @@ CTX_ROWS = 5       # backward context: g_r, g_g, g_b, S_total, g_T * T_final
 GRAD_ROWS = ATTR_B + 1  # gs2d: rows 0-8 get gradients; the depth row gets none
 MAX_CHUNK = 256    # csrc/rasterize_{fwd,bwd}.cu stage at most this many pairs
 STOCH = "_stoch"  # the suffix of a stochastic form's counters and C entries
-# the launch counter of each form (a model, or a model + STOCH for its
-# stochastic form), an attribute of each kernel's wrapper
+KEYROW = "_keyrow"  # the suffix of a key-row form's (RasterStatics.key_is_row, gs2d)
+# the launch counter of each form (a model, + STOCH for its stochastic
+# form, + KEYROW for the bucket kernels' key-row form of gs2d), an
+# attribute of each kernel's wrapper
 LAUNCH_COUNTER = {"gs2d": "launches", "gut3d": "launches_gut3d",
                   "gs2dp": "launches_gs2dp", "gut3dp": "launches_gut3dp"}
 # the kept count of the last launch of each culling kernel (K1, K2, K3, K4),
@@ -93,18 +95,21 @@ KEPT_COUNTER = {"gs2d": "kept", "gut3d": "kept_gut3d",
                 "gs2dp": "kept_gs2dp", "gut3dp": "kept_gut3dp"}
 for _counters in (LAUNCH_COUNTER, KEPT_COUNTER):
     _counters.update({m + STOCH: name + STOCH for m, name in list(_counters.items())})
+    _counters.update({m + KEYROW: _counters[m] + KEYROW for m in ("gs2d", "gs2d" + STOCH)})
 
 
 def form_of(st) -> str:
-    """The kernel form of ``st``: its model, + ``STOCH`` if stochastic."""
-    return st.model + (STOCH if st.stochastic else "")
+    """The kernel form of ``st``: its model, + ``STOCH`` if stochastic,
+    + ``KEYROW`` if it merges on the key row."""
+    return st.model + (STOCH if st.stochastic else "") + (KEYROW if st.key_is_row else "")
 
 
 def zero_counters(wrapper, models=tuple(MODELS)) -> None:
-    """Set ``wrapper``'s launch and kept counters of ``models`` to 0, both
-    forms of each."""
-    for m in models:
-        for f in (m, m + STOCH):
+    """Set ``wrapper``'s launch and kept counters of ``models`` to 0, every
+    form of each (a pair wrapper's key-row counters stay 0: only the
+    bucket kernels have that form)."""
+    for f in LAUNCH_COUNTER:
+        if f.split("_")[0] in models:
             setattr(wrapper, LAUNCH_COUNTER[f], 0)
             setattr(wrapper, KEPT_COUNTER[f], 0)
 
@@ -128,6 +133,7 @@ class RasterStatics:
     kernel_degree: int = 2       # gut3d generalized-Gaussian degree
     kernel_min_response: float = 0.0113  # gut3d response cutoff
     stochastic: bool = False     # binary accept per (pixel, pair), keyed by the sample seed
+    key_is_row: bool = False     # bucket kernels: merge on the key row (ops/response.GS_KEY)
 
 
 def _tile_pixel_coords(tiles: torch.Tensor, tiles_x: int, dtype=torch.float32):
@@ -481,6 +487,8 @@ def _check_pairs(attrs, tile_start, tile_count, st, ids=None, pix_ctx=None) -> i
     num_tiles = st.tiles_x * st.tiles_y
     dev = attrs.device
     p = attrs.shape[1] if attrs.dim() == 2 else -1
+    if st.key_is_row:
+        raise ValueError("the pair blender sorts by its pair keys and takes no key row")
     _check("attrs", attrs, torch.float32, (model_of(st).rows, p), dev)
     if ids is not None:
         _check("ids", ids, torch.int32, (p,), dev)
@@ -643,10 +651,11 @@ def entry_name(name: str, st) -> str:
     """The C entry point of kernel ``name`` for the form of ``st``: ``name``
     for gs2d, ``name + "_" + st.model`` for the others (the same source,
     another instantiation of its model template), then ``_stoch`` for the
-    stochastic form (its stochastic template flag)."""
+    stochastic form (its stochastic template flag) and ``_keyrow`` for the
+    key-row form (its key-row flag; K3 and K4 of gs2d alone)."""
     model_of(st)
     base = name if st.model == "gs2d" else f"{name}_{st.model}"
-    return base + (STOCH if st.stochastic else "")
+    return base + (STOCH if st.stochastic else "") + (KEYROW if st.key_is_row else "")
 
 
 def _kernel(name: str, st):

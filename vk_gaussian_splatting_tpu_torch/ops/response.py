@@ -27,7 +27,11 @@ Attribute rows, shape (rows, P) f32:
   gut3d: 0-2 position, 3-5 scale (linear), 6-8 rgb, 9-12 quat (w, x, y, z,
          unit), 13 opacity, 14 depth
 Color rows are 6-8 in both (the blender contracts them); the depth row is
-the aux pick and the bucket merge key, and gets no gradient. The splat id
+the aux pick and the bucket merge key, and gets no gradient. Where
+``RasterStatics.key_is_row`` is set (the host-sorted bucket frame), gs2d
+rows carry one row more, the key row 10 (``GS_KEY``, the JAX ``KEY_ROW``):
+the host sorter's rank, on which the bucket kernels merge in place of the
+depth row; it lies past ``grad_rows`` and gets no gradient. The splat id
 does not ride as a float row (the JAX layouts' f32 id rows): it travels
 beside the rows as its own int32 array, exact for every id.
 
@@ -60,6 +64,7 @@ GS_X, GS_Y, GS_CA, GS_CB, GS_CC, GS_OPACITY = 0, 1, 2, 3, 4, 5
 ATTR_R, ATTR_G, ATTR_B = 6, 7, 8
 GS_DEPTH = 9
 GS_ROWS = 10
+GS_KEY = GS_ROWS  # the host order's rank row (key_is_row): one row after the model's
 
 GUT_PX, GUT_PY, GUT_PZ = 0, 1, 2
 GUT_SX, GUT_SY, GUT_SZ = 3, 4, 5
@@ -122,6 +127,25 @@ def f32_model(st) -> Model:
     packed model (``unpack_rows``), else the model itself."""
     model = model_of(st)
     return MODELS[model.parent] if model.parent else model
+
+
+def merge_row(st) -> int:
+    """The row the bucket kernels merge a tile's spans on: the key row
+    ``GS_KEY`` where ``st.key_is_row`` is set (gs2d alone has that form),
+    else the model's depth row."""
+    model = model_of(st)
+    if not st.key_is_row:
+        return model.depth_row
+    if st.model != "gs2d":
+        raise NotImplementedError(f"key_is_row is ported for gs2d, not {st.model!r}")
+    return GS_KEY
+
+
+def attr_rows(st) -> int:
+    """The attribute rows a blend of ``st`` reads: the model's, and the key
+    row where ``st.key_is_row`` is set."""
+    merge_row(st)  # raises for a model without the key-row form
+    return model_of(st).rows + int(st.key_is_row)
 
 
 def refuse_backward(st) -> None:

@@ -34,7 +34,10 @@ transparency (``cfg.stochastic`` SPLAT or ANYHIT, one binary-accept
 estimator; the blend's stochastic form, ops/rasterize.py) renders every
 pipeline on both methods, f32 and packed, each temporal sample with seed
 ``sample * 7919 + 1``; ``cfg.denoise="atrous"`` filters the averaged frame
-(ops/denoise.py). Configurations this port does not run yet raise
+(ops/denoise.py). ``render_3dgs(host_order=...)`` blends in a splat order
+sorted on the host (``SortMethod.HOST``: io/async_loader.AsyncHostSorter),
+through the bucket kernels' key-row form on the bucket path (f32 rows).
+Configurations this port does not run yet raise
 ``NotImplementedError`` naming their ROADMAP.md item; none of them quietly
 takes another path.
 """
@@ -102,6 +105,21 @@ def gs_attr_rows(proj: ProjectedSplats):
 
 
 SINGLE_ROW_ID_LIMIT = 1 << 24  # the JAX single-row id layouts' f32 ids are exact below it
+
+
+def host_rank(host_order, n: int, device) -> torch.Tensor:
+    """(N,) f32 rank of each splat in a host order: ``rank[host_order[i]] =
+    i`` (the JAX ``render_3dgs``'s ``zeros(n).at[host_order].set(arange(n))``:
+    a splat the order leaves out keeps rank 0). host_order: (N,) integers,
+    a tensor or a numpy array (``AsyncHostSorter.consume``'s), moved to
+    ``device``. Ranks are exact below 2^24 and round above it, as the JAX
+    package's f32 ranks do."""
+    order = torch.as_tensor(host_order, device=device)
+    if order.shape != (n,) or order.dtype.is_floating_point:
+        raise ValueError(f"host_order must be ({n},) integers, got {order.dtype} "
+                         f"{tuple(order.shape)}")
+    return torch.zeros(n, dtype=torch.float32, device=device).index_put_(
+        (order.long(),), torch.arange(n, dtype=torch.float32, device=device))
 
 
 def check_single_row_ids(n: int) -> None:
@@ -206,7 +224,8 @@ def bin_for_cfg(proj: ProjectedSplats, rows: torch.Tensor, ids: torch.Tensor,
                 sort_depth: torch.Tensor | None = None):
     """The bin stage of ``cfg.raster.method``: TileBins (pairs) or
     BucketBins (bucket), for rows of ``st.model`` (gs2d by default).
-    sort_depth replaces ``proj.depth`` in the sort key only (3DGRT)."""
+    sort_depth replaces ``proj.depth`` in the sort key only (3DGRT's radial
+    distance, a host order's rank)."""
     grad_rows = model_of(st or raster_statics(cfg)).grad_rows
     if cfg.raster.method == "bucket":
         return bucket_splats(proj, rows, ids, tiles_x=tiles_x(cfg), tiles_y=tiles_y(cfg),
@@ -247,17 +266,11 @@ def _bin_counts(bins):
     return (bins.num_pairs if isinstance(bins, TileBins) else bins.num_valid), bins.overflow
 
 
-def _reject_unported(cfg: RenderConfig, host_order=None) -> None:
+def _reject_unported(cfg: RenderConfig) -> None:
     rc = cfg.raster
-    unported = [
-        (cfg.pipeline in (Pipeline.HYBRID, Pipeline.HYBRID_3DGUT),
-         f"pipeline {cfg.pipeline.name}", "lighting and shadows"),
-        (host_order is not None, "host_order", "remaining IO (AsyncHostSorter)"),
-    ]
-    for hit, what, item in unported:
-        if hit:
-            raise NotImplementedError(
-                f"{what} is not ported yet (ROADMAP.md queue 1: {item})")
+    if cfg.pipeline in (Pipeline.HYBRID, Pipeline.HYBRID_3DGUT):
+        raise NotImplementedError(f"pipeline {cfg.pipeline.name} is not ported yet "
+                                  "(ROADMAP.md queue 1: lighting and shadows)")
     if rc.method not in ("pairs", "bucket"):
         raise ValueError(f"unknown raster.method {rc.method!r}")
     if rc.pair_format not in ("f32", "packed"):
@@ -323,14 +336,30 @@ def render_3dgs(prepared: PreparedSplats, cam: Camera, cfg: RenderConfig,
     stochastic frame blends ``cfg.temporal_samples`` times, a deterministic
     one once (``_blend_samples``).
 
-    max_pairs: pair budget of ``raster.expansion="exact"`` (pair path)."""
-    _reject_unported(cfg, host_order)
+    max_pairs: pair budget of ``raster.expansion="exact"`` (pair path).
+    host_order: (N,) integers, a splat order sorted on the host
+    (``SortMethod.HOST``, io/async_loader.AsyncHostSorter; it may be a
+    camera move stale), as a tensor or numpy array. Its rank
+    (``host_rank``) replaces the depth in the sort key; the picked depth
+    stays the model's. On the bucket path with f32 rows the rank also rides
+    as the key row (``GS_KEY``) on which the bucket kernels' key-row form
+    merges (``RasterStatics.key_is_row``); packed rows have no room for it
+    and take the pair path, as in the JAX package."""
+    _reject_unported(cfg)
     st = raster_statics(cfg)
     with record_function("project"):
         proj = project_splats(prepared, cam, cfg)
     with record_function("bin"):
         rows, ids = (gs_attr_rows_packed if packed(cfg) else gs_attr_rows)(proj)
-        bins = bin_for_cfg(proj, rows, ids, cfg, max_pairs, st)
+        rank = None
+        if host_order is not None:
+            rank = host_rank(host_order, rows.shape[1], rows.device)
+            if cfg.raster.method == "bucket" and packed(cfg):
+                cfg = cfg.replace(raster=dataclasses.replace(cfg.raster, method="pairs"))
+            elif cfg.raster.method == "bucket":
+                rows = torch.cat([rows, rank[None]])
+                st = dataclasses.replace(st, key_is_row=True)
+        bins = bin_for_cfg(proj, rows, ids, cfg, max_pairs, st, sort_depth=rank)
     samples = max(cfg.temporal_samples, 1) if st.stochastic else 1
     return _blend_samples(bins, cfg, st, samples)
 
