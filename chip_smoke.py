@@ -1,6 +1,7 @@
 """Smoke test of the PyTorch port on one NVIDIA card (Hopper, sm_90a).
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --mesh-views ROUNDS   # phase 13's view sweep alone
 
 Drives the port's main paths — the 3DGS raster frame, ``render(prepared,
 camera, cfg)``, and the training step, ``train_step`` (render, loss,
@@ -12,8 +13,10 @@ training on both paths; the packed tier of all three
 transparency and its a-trous pass on all three and in training; the
 host-sorted frame (``render(..., host_order=)`` fed by
 ``io/async_loader.AsyncHostSorter``, ``SortMethod.HOST``) forward and
-backward with the splat IO (PLY, spz, .splat); and the design probes P1-P3
-through their own entry points — and checks them:
+backward with the splat IO (PLY, spz, .splat); meshes (``render_mesh``,
+smooth and flat, and the mesh-composited 3DGS frame
+``render_3dgs_composed``, forward and backward); and the design probes
+P1-P3 through their own entry points — and checks them:
 
 1. builds the CUDA kernels from the checkout, one nvcc per source, all at
    once: the pair blender K1 (csrc/rasterize_fwd.cu) and its backward K2
@@ -165,6 +168,38 @@ through their own entry points — and checks them:
    each with its kept counter, bound, times and alone beside its ``_stoch``
    form; then the 1 M scene through save and ``load_scene`` in PLY (exact,
    the native reader), spz and .splat (within their quantisation), timed;
+13. meshes (``meshes``), at the headline cell: a mesh built in code
+   (``headline_mesh``: an octahedron sphere of 131,072 faces and a ground
+   grid of 20,000, about half the pixels, splats in front of, inside and
+   under it), lit by the headlight. First the view sweep (``mesh_views``,
+   ``MESH_VIEWS``: faces on and just past the near plane, through the
+   camera plane and edge-on): both mesh passes and the composed frame at
+   each view, each synchronised and checked alone (finite, T 0 or 1, both
+   passes' tile ranges and pair ids in range; ``--mesh-views ROUNDS`` runs
+   it alone, ROUNDS times). ``render_mesh`` smooth and flat (K1
+   tri2d_smooth, tri2d), 4 jittered frames each with only the form's
+   launch counter moving, T exactly 0 or 1, the coverage, the face, slot
+   and pair counts and the bin time, no overflow, a bit-equal repeat; each
+   form against its twin on 64 sampled tiles, its kept counter against
+   ``pair_warp_may_hit``'s count and the audit over every tile, its bound
+   (``OPS_ALPHA``, ``setup_ops``, ``OPS_REACH``, ``OPS_WARP_TEST`` of the
+   triangles), its
+   time, alone and its twin's. The composed frame (exact expansion,
+   2^22 pairs; deterministic and ``cfg.stochastic`` SPLAT), 8 jittered
+   frames each with only K1 tri2d_smooth and the splat pass's form
+   (gs2d_clip, gs2d_clip_stoch) moving, no overflow, a bit-equal repeat,
+   the share of splat picks the mesh changed; K1's form against its twin
+   on sampled tiles, its kept counter and audit, the limit 0 everywhere
+   equal to gs2d's form bit for bit, bound, times beside gs2d's form in
+   turns (events and alone), the composed frame beside the 3DGS frame, a
+   profile. One loss step through each composed frame (K2 gs2d_clip,
+   gs2d_clip_stoch once; a bit-equal repeat) and K2's form against its
+   twin with the loss's cotangent on sampled tiles (``bwd_gate``; the
+   stochastic form's colour rows, every other row 0), its kept counter
+   and audit, bound and times beside K2's gs2d form. One gradient of the
+   flat mesh's image in its face colours (K2 tri2d once, repeatable), K2
+   tri2d against its twin (colour rows; the vertex rows exactly 0), its
+   kept counter (every tested pair), bound and times;
 9. the probes (vk_gaussian_splatting_tpu_torch/probes): each probe's entry
    point at its script's default arguments (``bench_roll.run``,
    ``bench_sort_stage.run`` per variant, ``bench_radix_ab.run``: their
@@ -224,6 +259,7 @@ from vk_gaussian_splatting_tpu_torch.io import (  # noqa: E402
 )
 from vk_gaussian_splatting_tpu_torch.io import ply as tply  # noqa: E402
 from vk_gaussian_splatting_tpu_torch.io.async_loader import AsyncHostSorter  # noqa: E402
+from vk_gaussian_splatting_tpu_torch.io.obj import ObjMaterial, ObjMesh, octa_sphere  # noqa: E402
 from vk_gaussian_splatting_tpu_torch.ops import _build  # noqa: E402
 from vk_gaussian_splatting_tpu_torch.ops import raster_bucket as rb  # noqa: E402
 from vk_gaussian_splatting_tpu_torch.ops import rasterize as tr  # noqa: E402
@@ -248,7 +284,8 @@ from vk_gaussian_splatting_tpu_torch.probes import bench_radix_ab as probe_radix
 from vk_gaussian_splatting_tpu_torch.probes import bench_roll as probe_roll  # noqa: E402
 from vk_gaussian_splatting_tpu_torch.probes import bench_sort_stage as probe_stage  # noqa: E402
 from vk_gaussian_splatting_tpu_torch.timing import call_ms, device_label  # noqa: E402
-from vk_gaussian_splatting_tpu_torch.render import render  # noqa: E402
+from vk_gaussian_splatting_tpu_torch.render import render, render_3dgs_composed  # noqa: E402
+from vk_gaussian_splatting_tpu_torch.render import mesh_raster as mr  # noqa: E402
 from vk_gaussian_splatting_tpu_torch.render.pipelines import (  # noqa: E402
     bin_for_cfg,
     blend_bins,
@@ -313,6 +350,15 @@ KEYROW_KERNELS = {name + form: (name, *_SOURCES[name])
                   for name in ("raster_bucket_fwd", "raster_bucket_bwd")
                   for form in (tr.KEYROW, tr.STOCH + tr.KEYROW)}
 KERNELS.update(KEYROW_KERNELS)
+# the mesh forms (render_mesh, render_3dgs_composed): entries <name>_gs2d_clip,
+# <name>_gs2d_clip_stoch and <name>_tri2d of K1 and K2, <name>_tri2d_smooth of K1
+MESH_KERNELS = {name + "_" + form: (name, *_SOURCES[name])
+                for name, forms in (("rasterize_fwd", ("tri2d", "tri2d_smooth", "gs2d_clip",
+                                                       "gs2d_clip" + tr.STOCH)),
+                                    ("rasterize_bwd", ("gs2d_clip", "gs2d_clip" + tr.STOCH,
+                                                       "tri2d")))
+                for form in forms}
+KERNELS.update(MESH_KERNELS)
 KERNELS.update({"bench_roll": ("bench_roll", *_SOURCES["bench_roll"])})
 KERNELS.update({stage_name(v): ("bench_sort_stage", *_SOURCES["bench_sort_stage"])
                 for v in probe_stage.VARIANTS})
@@ -377,10 +423,27 @@ BWD_ELEM_RTOL, BWD_ELEM_SHARE = 1e-2, 0.999
 # 31, the radius with its rounding term 7, the nearest distance 5, the
 # test 1); and per pixel gut3d's warp bound, 79 (the tile bound's 67, and
 # the centre and axis, which every lane computes, 12).
-OPS_ALPHA = {"gs2d": 17, "gut3d": 68}
-OPS_CULL, OPS_TILE_BOUND = {"gs2d": 45, "gut3d": 96}, {"gs2d": 0, "gut3d": 67}
-OPS_REACH, OPS_WARP_TEST = {"gs2d": 37, "gut3d": 52}, {"gs2d": 8, "gut3d": 45}
-OPS_WARP_BOUND = {"gs2d": 0, "gut3d": 79}
+# The mesh models (phase 13): gs2d_clip evaluates gs2d's 17 and its keep
+# (the limit's two compares and the select, 3: 20), and culls as gs2d. The
+# triangles' coverage, tri2d and tri2d_smooth, counts each term once where
+# it varies: per (pixel, pair) evaluation 23 (per edge the pixel less a
+# vertex 2, two multiplies and a subtraction; the tests 8); per tested
+# (tile, pair) 24 (OPS_PAIR_SETUP: the vertices less the tile origin 6, the
+# edge differences 6, three tolerances of 4: two abs, an add, a multiply);
+# per pixel 10 (OPS_PIXEL_SETUP: the tile origin, per axis a divide, a
+# floor, a multiply, a subtraction; the origin 2). Their reach (f64): per tested pair
+# 41 (finiteness 6, per edge the coefficients 5 and the tolerance 4, the
+# vertex box 8), per tested (warp, pair) 69 (the extent S 8, the rounding
+# term 2, per edge the extremes over the rectangle 13, the slack 2 and the
+# tests 4, the answer 2).
+OPS_ALPHA = {"gs2d": 17, "gut3d": 68, "gs2d_clip": 20, "tri2d": 23, "tri2d_smooth": 23}
+OPS_PAIR_SETUP = {"tri2d": 24, "tri2d_smooth": 24}
+OPS_PIXEL_SETUP = {"tri2d": 10, "tri2d_smooth": 10}
+OPS_CULL = {"gs2d": 45, "gut3d": 96, "gs2d_clip": 45}
+OPS_TILE_BOUND = {"gs2d": 0, "gut3d": 67, "gs2d_clip": 0}
+OPS_REACH = {"gs2d": 37, "gut3d": 52, "gs2d_clip": 37, "tri2d": 41, "tri2d_smooth": 41}
+OPS_WARP_TEST = {"gs2d": 8, "gut3d": 45, "gs2d_clip": 8, "tri2d": 69, "tri2d_smooth": 69}
+OPS_WARP_BOUND = {"gs2d": 0, "gut3d": 79, "gs2d_clip": 0, "tri2d": 0, "tri2d_smooth": 0}
 OPS_PER_HIT = {"rasterize_fwd": 10, "rasterize_bwd": 53,
                "raster_bucket_fwd": 10, "raster_bucket_bwd": 53,
                "rasterize_fwd_gut3d": 10, "rasterize_bwd_gut3d": 210,
@@ -400,6 +463,17 @@ OPS_PER_HIT.update({name + tr.STOCH: ops for name, ops in OPS_PER_HIT.items()
                     if "_fwd" in name})
 OPS_PER_HIT.update({"rasterize_bwd_stoch": 22, "raster_bucket_bwd_stoch": 22,
                     "rasterize_bwd_gut3d_stoch": 27, "raster_bucket_bwd_gut3d_stoch": 27})
+# The mesh forms (phase 13): K1 blends a hit as before (10); tri2d_smooth
+# adds its per-pixel colour and depth (the area 2, its guard 3, the inverse
+# 1, the barycentrics 3, the perspective weights 6, the depth 4, the colours
+# 18: 37). K2 gs2d_clip does gs2d's work per hit (53, its stochastic form
+# 22); K2 tri2d's least work per hit is the colour gradients' (the weight,
+# the colour dot, the running sum, q, 3 colour gradients, T: 13, and 9 adds
+# to reduce the rows; its vertex rows are zeros: 22)
+OPS_PER_HIT.update({"rasterize_fwd_tri2d": 10, "rasterize_fwd_tri2d_smooth": 47,
+                    "rasterize_fwd_gs2d_clip": 10, "rasterize_fwd_gs2d_clip_stoch": 10,
+                    "rasterize_bwd_gs2d_clip": 53, "rasterize_bwd_gs2d_clip_stoch": 22,
+                    "rasterize_bwd_tri2d": 22})
 # The key-row forms (phase 12) do their parent's work; their merge reads the
 # key row in place of the depth row
 OPS_PER_HIT.update({name + tr.KEYROW: OPS_PER_HIT[name]
@@ -566,7 +640,7 @@ def check_pair_cull(label: str, bins, st, batches, pix=None):
             may, hit, bad = may + int(m.sum()), hit + int(h.sum()), bad + int((h & ~m).sum())
         work = [a + b for a, b in zip(work, tr.blend_work(*args, tiles, pix, keep=m))]
     torch.cuda.synchronize()
-    kept = int(getattr(tr.rasterize_tiles_bwd, tr.KEPT_COUNTER[st.model]))
+    kept = int(getattr(tr.rasterize_tiles_bwd, tr.KEPT_COUNTER[tr.form_of(st)]))
     log(f"{label} cull 1080p/1M: kept={kept} of tested={work[2]} (kept share "
         f"{kept / work[2]:.4f}; the model culls: {culls}); the plain count over the steps "
         f"each tile enters: {work[3]} (must be equal); kept pairs' pixel evaluations "
@@ -597,7 +671,7 @@ def check_warp_cull(label: str, bins, st, batches, pix=None):
         may, hit, bad = may + int(m.sum()), hit + int(h.sum()), bad + int((h & ~m).sum())
         work = [a + b for a, b in zip(work, tr.blend_work(*args, tiles, pix, keep=m))]
     torch.cuda.synchronize()
-    kept = int(getattr(tr.rasterize_tiles, tr.KEPT_COUNTER[st.model]))
+    kept = int(getattr(tr.rasterize_tiles, tr.KEPT_COUNTER[tr.form_of(st)]))
     log(f"{label} per-warp cull 1080p/1M: kept (warp, pair)s={kept} of tested pairs "
         f"{work[2]} x {tr.WARPS} warps (kept share {kept / (tr.WARPS * work[2]):.4f}); the "
         f"plain count over the steps each tile enters: {work[3]} (must be equal); kept "
@@ -610,14 +684,24 @@ def check_warp_cull(label: str, bins, st, batches, pix=None):
 
 
 def model_of_name(name: str) -> str:
-    """The response model of a raster kernel's report name."""
+    """The response model of a raster kernel's report name: the longest
+    model name it ends in (tri2d_smooth before tri2d), gs2d where none."""
     name = name.removesuffix(tr.KEYROW).removesuffix(tr.STOCH)
-    return next((m for m in ("gut3dp", "gs2dp", "gut3d") if name.endswith("_" + m)), "gs2d")
+    return next((m for m in sorted(MODELS, key=len, reverse=True) if name.endswith("_" + m)),
+                "gs2d")
 
 
 def f32_of_name(name: str) -> str:
     """The f32 model (gs2d or gut3d) whose operations a raster kernel does."""
     return MODELS[model_of_name(name)].parent or model_of_name(name)
+
+
+def setup_ops(model: str, tested: int, n_tiles: int) -> int:
+    """The f32 operations of a model's alpha done once per tested (tile,
+    pair) and once per pixel (the triangles' OPS_PAIR_SETUP and
+    OPS_PIXEL_SETUP; 0 for the splat models)."""
+    return (tested * OPS_PAIR_SETUP.get(model, 0)
+            + n_tiles * tr.PIX * OPS_PIXEL_SETUP.get(model, 0))
 
 
 def warp_cull_bound(name: str, work, bytes_moved: int, n_tiles: int):
@@ -627,14 +711,16 @@ def warp_cull_bound(name: str, work, bytes_moved: int, n_tiles: int):
     costs f64 operations per tested pair (OPS_REACH), per tested (warp,
     pair) (OPS_WARP_TEST) and, for gut3d, per pixel (OPS_WARP_BOUND). The
     all-pair figure prices every live (pixel, pair), as the sweep before the
-    cull made them."""
+    cull made them. Both add the model's ``setup_ops`` (every tested pair:
+    a little more than the kept pairs need)."""
     evals, hits, tested, _, kept_evals, draws = work
     model = f32_of_name(name)
-    unpack = tested * OPS_UNPACK.get(model_of_name(name), 0)
-    all_pairs = kernel_bound(name, evals, hits, draws, bytes_moved, unpack)
+    extra = (tested * OPS_UNPACK.get(model_of_name(name), 0)
+             + setup_ops(model, tested, n_tiles))
+    all_pairs = kernel_bound(name, evals, hits, draws, bytes_moved, extra)
     cull = (tested * (OPS_REACH[model] + tr.WARPS * OPS_WARP_TEST[model])
             + n_tiles * tr.PIX * OPS_WARP_BOUND[model])
-    bound = kernel_bound(name, kept_evals, hits, draws, bytes_moved, unpack, f64_ops=cull)
+    bound = kernel_bound(name, kept_evals, hits, draws, bytes_moved, extra, f64_ops=cull)
     return bound, (f"{name}_bound_ms={bound[0]:.4f} ({bound[1]}; the kept (warp, pair)s) "
                    f"{name}_all_pair_bound_ms={all_pairs[0]:.4f} ({all_pairs[1]})")
 
@@ -645,14 +731,16 @@ def pair_bound(name: str, work, bytes_moved: int, n_tiles: int):
     kernel evaluates the kept pairs (``work[4]``) and blends the hits, and
     the cull costs its own f64 operations per tested pair (OPS_CULL) and,
     for gut3d, per pixel (OPS_TILE_BOUND); the all-pair figure prices every
-    pair's evaluations, as the sweep before the cull made them."""
+    pair's evaluations, as the sweep before the cull made them. Both add
+    the model's ``setup_ops``."""
     evals, hits, tested, _, kept_evals, draws = work
     model = f32_of_name(name)
-    all_pairs = kernel_bound(name, evals, hits, draws, bytes_moved)
+    setup = setup_ops(model, tested, n_tiles)
+    all_pairs = kernel_bound(name, evals, hits, draws, bytes_moved, setup)
     if not MODELS[model].cull_pairs:
         return all_pairs, f"{name}_bound_ms={all_pairs[0]:.4f} ({all_pairs[1]}; no cull)"
     cull = tested * OPS_CULL[model] + n_tiles * tr.PIX * OPS_TILE_BOUND[model]
-    bound = kernel_bound(name, kept_evals, hits, draws, bytes_moved, f64_ops=cull)
+    bound = kernel_bound(name, kept_evals, hits, draws, bytes_moved, setup, f64_ops=cull)
     return bound, (f"{name}_bound_ms={bound[0]:.4f} ({bound[1]}; the kept pairs) "
                    f"{name}_all_pair_bound_ms={all_pairs[0]:.4f} ({all_pairs[1]})")
 
@@ -2519,23 +2607,21 @@ def stoch_kept_gate(label, kept, plain, exact):
           f"{label} kept {kept}, the plain count {plain}")
 
 
-def stoch_alone(label, call_of, counter_of, names, card):
-    """The deterministic and the stochastic form of one kernel alone, in
-    turns (deterministic, stochastic, stochastic, deterministic): the
-    profiler's per-kernel medians summed over the wrapper's kernels.
-    ``call_of(stochastic)`` makes a call, ``counter_of(stochastic)`` reads
-    its launch counter. Returns the stochastic form's median."""
-    def alone(stoch):
-        split = kernel_split(call_of(stoch), lambda: counter_of(stoch), names,
-                             calls=STOCH_ALONE_CALLS, min_records=STOCH_ALONE_CALLS - 2)
+def alone_in_turns(label, calls, counters, names, card, tags=("a", "b")):
+    """Two calls' kernels alone in turns a, b, b, a (``calls``,
+    ``counters``: pairs of (a, b); ``tags`` name them in the log): the
+    profiler's per-kernel medians summed over the wrapper's kernels
+    (``names``). Returns (a's, b's) medians."""
+    def alone(k):
+        split = kernel_split(calls[k], counters[k], names, calls=STOCH_ALONE_CALLS,
+                             min_records=STOCH_ALONE_CALLS - 2)
         return sum(split.values())
 
-    det, sto = abba(lambda: alone(False), lambda: alone(True))
-    log(f"timing {label} kernel alone beside its deterministic form ({card}; profiler, "
-        f"median over {STOCH_ALONE_CALLS} calls less lost records, turns deterministic, "
-        f"stochastic, stochastic, deterministic): deterministic="
-        + "/".join(f"{a:.4f}" for a in det) + " stochastic=" + "/".join(f"{a:.4f}" for a in sto))
-    return median(sto)
+    a, b = abba(lambda: alone(0), lambda: alone(1))
+    log(f"timing {label} alone ({card}; profiler, medians over {STOCH_ALONE_CALLS} calls less "
+        f"lost records, turns {tags[0]}, {tags[1]}, {tags[1]}, {tags[0]}): {tags[0]}="
+        + "/".join(f"{x:.4f}" for x in a) + f" {tags[1]}=" + "/".join(f"{x:.4f}" for x in b))
+    return median(a), median(b)
 
 
 def stoch_frame(dev, card, prepared, cam, base, caps, frame):
@@ -2613,11 +2699,12 @@ def stoch_frame(dev, card, prepared, cam, base, caps, frame):
     log(f"  bound {name}: {draw_counts(work)}; " + text)
     t_kernel = median(time_ms(blend, 10))
     det_st = dataclasses.replace(c["st"], stochastic=False)
-    t_alone = stoch_alone(
-        name, lambda stoch: (blend if stoch else
-                             lambda: blend_bins(c["bins"], cfg, det_st, c["pix"])),
-        lambda stoch: getattr(fwd, tr.LAUNCH_COUNTER[form if stoch else model]),
-        BLEND_KERNELS[method], card)
+    _, t_alone = alone_in_turns(
+        f"{name} kernel beside its deterministic form",
+        (lambda: blend_bins(c["bins"], cfg, det_st, c["pix"]), blend),
+        (lambda: getattr(fwd, tr.LAUNCH_COUNTER[model]),
+         lambda: getattr(fwd, tr.LAUNCH_COUNTER[form])),
+        BLEND_KERNELS[method], card, ("deterministic", "stochastic"))
     log(f"timing {name} 1080p/1M ({card}): kernel_ms={t_kernel:.4f} alone_ms={t_alone:.4f} "
         f"plain_twin_ms={t_plain:.4f}")
     return name, dict(launches=launches[form], max_abs_err=err, ms=t_kernel, plain_ms=t_plain,
@@ -2714,11 +2801,13 @@ def stoch_train(dev, card, truth, base, caps, label, pipeline, method):
     log(f"  bound {name}: {draw_counts(work)}; " + text)
     t_kernel = median(time_ms(lambda: gut_kernel_bwd(c, cfg, ctx, STOCH_SEED), 10))
     det_c = dict(c, st=dataclasses.replace(c["st"], stochastic=False))
-    t_alone = stoch_alone(
-        name, lambda stoch: (lambda: gut_kernel_bwd(c, cfg, ctx, STOCH_SEED)) if stoch
-        else (lambda: gut_kernel_bwd(det_c, cfg, ctx)),
-        lambda stoch: getattr(bwd, tr.LAUNCH_COUNTER[form if stoch else model]),
-        K4_KERNELS if method == "bucket" else ("rasterize_bwd_kernel",), card)
+    _, t_alone = alone_in_turns(
+        f"{name} kernel beside its deterministic form",
+        (lambda: gut_kernel_bwd(det_c, cfg, ctx), lambda: gut_kernel_bwd(c, cfg, ctx, STOCH_SEED)),
+        (lambda: getattr(bwd, tr.LAUNCH_COUNTER[model]),
+         lambda: getattr(bwd, tr.LAUNCH_COUNTER[form])),
+        K4_KERNELS if method == "bucket" else ("rasterize_bwd_kernel",), card,
+        ("deterministic", "stochastic"))
     log(f"timing {name} 1080p/1M ({card}): kernel_ms={t_kernel:.4f} alone_ms={t_alone:.4f} "
         f"plain_twin_ms={t_plain:.4f}")
     return name, dict(launches=launches["bwd"][form], max_abs_err=abs_err, ms=t_kernel,
@@ -2793,10 +2882,18 @@ def stochastic(dev, card: str, truth: gt.SplatSet, caps):
 # (BUCKET_VS_PAIR_*), the max and the PSNR.
 
 KEYROW_FORM, STOCH_KEYROW_FORM = "gs2d" + tr.KEYROW, "gs2d" + tr.STOCH + tr.KEYROW
+STOCH_KEYROW_TAGS = ("_stoch", "_stoch_keyrow")
 KEYROW_FWD, KEYROW_BWD = "raster_bucket_fwd" + tr.KEYROW, "raster_bucket_bwd" + tr.KEYROW
 HOST_TRAIN_STEPS = 3
 HOST_SAMPLES = 2           # the stochastic host-sorted frame's temporal samples
 HOST_REVERSED_MIN = 1e-3   # a reversed order must move the frame by more
+
+
+def beside_stoch_counters(wrapper):
+    """The launch counters of ``wrapper``'s stochastic form and its
+    stochastic key-row form, as ``alone_in_turns`` reads them."""
+    return (lambda: getattr(wrapper, tr.LAUNCH_COUNTER["gs2d" + tr.STOCH]),
+            lambda: getattr(wrapper, tr.LAUNCH_COUNTER[STOCH_KEYROW_FORM]))
 
 
 def view_dir(cam) -> np.ndarray:
@@ -3192,10 +3289,12 @@ def keyrow_stochastic(dev, card, truth, cam, base, caps, order0):
     blend = stages[2][1]
     t_kernel = median(time_ms(blend, 10))
     plain_bins, plain_st = bins_of(prepared, cam, cfg), bucket_statics(cfg)
-    t_alone = stoch_alone_beside(
-        fwd_name, lambda key: (lambda: rb.rasterize_buckets(bins, st, caps, None, STOCH_SEED))
-        if key else (lambda: rb.rasterize_buckets(plain_bins, plain_st, caps, None, STOCH_SEED)),
-        rb.rasterize_buckets, BLEND_KERNELS["bucket"], card)
+    _, t_alone = alone_in_turns(
+        f"{fwd_name} kernel beside its _stoch form",
+        (lambda: rb.rasterize_buckets(plain_bins, plain_st, caps, None, STOCH_SEED),
+         lambda: rb.rasterize_buckets(bins, st, caps, None, STOCH_SEED)),
+        beside_stoch_counters(rb.rasterize_buckets), BLEND_KERNELS["bucket"], card,
+        STOCH_KEYROW_TAGS)
     log(f"timing {fwd_name} 1080p/1M ({card}): kernel_ms={t_kernel:.4f} alone_ms={t_alone:.4f} "
         f"plain_twin_ms={t_plain:.4f}")
     entries[fwd_name] = dict(launches=seen[STOCH_KEYROW_FORM], max_abs_err=0.0, ms=t_kernel,
@@ -3254,33 +3353,16 @@ def keyrow_stochastic(dev, card, truth, cam, base, caps, order0):
     t_kernel = median(time_ms(lambda: gut_kernel_bwd(c, one, ctx, STOCH_SEED), 10))
     plain = dict(c, bins=bins_of(splats.prepare(), cam, one),
                  st=dataclasses.replace(c["st"], key_is_row=False))
-    t_alone = stoch_alone_beside(
-        bwd_name, lambda key: (lambda: gut_kernel_bwd(c if key else plain, one, ctx, STOCH_SEED)),
-        rb.rasterize_buckets_bwd, K4_KERNELS, card)
+    _, t_alone = alone_in_turns(
+        f"{bwd_name} kernel beside its _stoch form",
+        (lambda: gut_kernel_bwd(plain, one, ctx, STOCH_SEED),
+         lambda: gut_kernel_bwd(c, one, ctx, STOCH_SEED)),
+        beside_stoch_counters(rb.rasterize_buckets_bwd), K4_KERNELS, card, STOCH_KEYROW_TAGS)
     log(f"timing {bwd_name} 1080p/1M ({card}): kernel_ms={t_kernel:.4f} alone_ms={t_alone:.4f} "
         f"plain_twin_ms={t_twin:.4f}")
     entries[bwd_name] = dict(launches=seen_bwd[STOCH_KEYROW_FORM], max_abs_err=abs_err,
                              ms=t_kernel, plain_ms=t_twin, alone_ms=t_alone)
     return entries, bounds
-
-
-def stoch_alone_beside(label, call_of, wrapper, names, card):
-    """A stochastic key-row form alone beside the stochastic form on the
-    device-sorted bins, in turns (stochastic, key-row, key-row,
-    stochastic): the profiler's per-kernel medians summed over the
-    wrapper's kernels. ``call_of(key)`` makes a call. Returns the key-row
-    form's median."""
-    def alone(key):
-        form = STOCH_KEYROW_FORM if key else "gs2d" + tr.STOCH
-        split = kernel_split(call_of(key), lambda: getattr(wrapper, tr.LAUNCH_COUNTER[form]),
-                             names, calls=STOCH_ALONE_CALLS, min_records=STOCH_ALONE_CALLS - 2)
-        return sum(split.values())
-
-    plain, key = abba(lambda: alone(False), lambda: alone(True))
-    log(f"timing {label} kernel alone beside its _stoch form ({card}; profiler, turns _stoch, "
-        f"_stoch_keyrow, _stoch_keyrow, _stoch): _stoch=" + "/".join(f"{a:.4f}" for a in plain)
-        + " _stoch_keyrow=" + "/".join(f"{a:.4f}" for a in key))
-    return median(key)
 
 
 def io_within(label: str, got: torch.Tensor, want: torch.Tensor, atol: float) -> float:
@@ -3617,7 +3699,530 @@ def probes(dev, card: str):
     return entries, bounds, library
 
 
-def main() -> int:
+# ---- meshes (render_mesh, render_3dgs_composed): K1 tri2d, tri2d_smooth,
+# gs2d_clip (+ _stoch); K2 gs2d_clip (+ _stoch), tri2d -------------------------
+#
+# The mesh pass blends each pixel's depth-sorted faces with an opaque,
+# unclamped alpha (T exactly 0 or 1); the composed frame's splat pass
+# blends behind the mesh's per-pixel depth (pixel-context row 6). Each form
+# against its twin on 64 sampled tiles (``sample_tiles``) at K1's and K2's
+# gates; its kept counter against the plain per-warp or per-tile count over
+# every tile, exactly, and the audit of every tile; gs2d_clip with the
+# limit 0 everywhere equals gs2d bit for bit. The mesh: a ground grid and an
+# octahedron sphere built in code (``headline_mesh``), lit by the headlight.
+
+MESH_FRAMES = 4            # jittered frames per mesh main path
+MESH_SPHERE_SUBDIV = 7     # 8 * 4^7 = 131,072 faces
+MESH_GRID = (100, 100)     # cells of the ground grid, two faces each
+# the composed frame bins by the exact expansion: the headline scene's slot
+# expansion overflows by design (PERF.md §4), and neither pass may here
+COMPOSED_MAX_PAIRS = 1 << 22
+# The view sweep (``mesh_views``): (eye, target, up) that put faces on and
+# just past the near plane, through the camera plane and edge-on, besides
+# the headline view
+MESH_VIEWS = {
+    "headline": ([0, 0, -7], [0, 0, 0], [0, 1, 0]),
+    "on the sphere": ([0, 0, -2.005], [0, 0, 0], [0, 1, 0]),
+    "in the sphere": ([0, 0, 0.5], [0, 0, 5], [0, 1, 0]),
+    "grazing the ground": ([0.5, -2.49, -6], [0, -2.49, 0], [0, 1, 0]),
+    "in the ground plane": ([0, -2.5, -6], [0, -2.5, 0], [0, 1, 0]),
+    "above": ([3, 8, -10], [0, 0, 0], [0, 1, 0]),
+    "looking away": ([0, 0, -7], [0, 0, -8], [0, 1, 0]),
+    "top down": ([0, 30, 0], [0, 0, 0], [0, 0, 1]),
+}
+
+
+def headline_mesh() -> ObjMesh:
+    """The mesh of phase 13 in world units (the headline camera at z = -7
+    looks at the origin, world +y up on screen): an octahedron subdivided
+    MESH_SPHERE_SUBDIV times onto a sphere of radius 2 at the origin, exact
+    normals; a ground grid at y = -2.5 over x in [-15, 15], z in [-4, 30],
+    MESH_GRID cells, normals up. Splats of the 1 M scene (means in [-4, 4]^3)
+    lie in front of the sphere, inside it and under the ground."""
+    sphere = octa_sphere(MESH_SPHERE_SUBDIV, 2.0)
+    unit, faces = sphere.normals, sphere.indices
+    nx, nz = MESH_GRID
+    gx, gz = np.meshgrid(np.linspace(-15, 15, nx + 1), np.linspace(-4, 30, nz + 1))
+    ground = np.stack([gx.ravel(), np.full(gx.size, -2.5), gz.ravel()], 1).astype(np.float32)
+    i = (np.arange(nz)[:, None] * (nx + 1) + np.arange(nx)[None, :]).ravel() + len(unit)
+    quads = np.concatenate([np.stack([i, i + 1, i + nx + 2], 1),
+                            np.stack([i, i + nx + 2, i + nx + 1], 1)])
+    idx = np.concatenate([faces, quads.astype(np.int32)])
+    mats = np.concatenate([np.zeros(len(faces), np.int32), np.ones(len(quads), np.int32)])
+    return ObjMesh(np.concatenate([sphere.positions, ground]),
+                   np.concatenate([unit, np.tile([[0, 1, 0]], (len(ground), 1))]).astype(
+                       np.float32), idx, mats,
+                   [ObjMaterial(diffuse=(0.85, 0.55, 0.35)), ObjMaterial(diffuse=(0.3, 0.6, 0.3))])
+
+
+def mesh_cfg(cfg, shading):
+    return cfg.replace(raster=dataclasses.replace(cfg.raster, mesh_shading=shading))
+
+
+def sample_tiles(bins, st, dev, seed: int):
+    """Up to 64 tiles of a pair frame, from a seeded generator: 48 with
+    pairs and 16 of any, without repeats."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    busy = torch.nonzero(bins.tile_count > 0).flatten()
+    pick = torch.cat([busy[torch.randperm(busy.numel(), generator=g, device=dev)[:48]],
+                      torch.randperm(st.tiles_x * st.tiles_y, generator=g, device=dev)[:16]])
+    return torch.unique(pick)
+
+
+@torch.no_grad()
+def mesh_fwd_gate(label, bins, st, pix, tiles):
+    """K1 (the form of ``st``; seed 0) against its twin on ``tiles``: rgb
+    and T within KERNEL_ATOL, ids on ID_AGREE, the same depth where the
+    same id. Returns the max abs error."""
+    out_k, id_k = tr.rasterize_bins(bins, st, pix, 0)
+    out_r, id_r = tr.rasterize_tiles_ref(bins.attrs.detach(), bins.pair_id, bins.tile_start,
+                                         bins.tile_count, st, tiles=tiles, pix_ctx=pix)
+    out_k, id_k = out_k[tiles], id_k[tiles]
+    torch.cuda.synchronize()
+    err = (out_k[:, :4] - out_r[:, :4]).abs().max().item()
+    same = id_k == id_r
+    agree = same.float().mean().item()
+    log(f"  {label} vs twin on {tiles.numel()} sampled tiles: max abs {err:.3e} (gate "
+        f"{KERNEL_ATOL:g}), id agreement {agree:.6f}, bit-equal {torch.equal(out_k, out_r)}")
+    check(err <= KERNEL_ATOL and agree >= ID_AGREE, f"{label} outside the gates: {err}, {agree}")
+    check(torch.equal(out_k[:, 4][same], out_r[:, 4][same]),
+          f"{label}: the same pair picked at another depth")
+    return err
+
+
+def colour_rows_gate(label, d_k, d_r):
+    """A backward form whose alpha takes no gradient (a stochastic accept,
+    tri2d's coverage) against its twin: every row but the colour rows
+    exactly 0 in both, the colour rows at K2's gates (``bwd_gate``) on the
+    columns either touches. Returns the max abs error."""
+    other = [r for r in range(d_k.shape[0]) if not COLOUR_ROWS.start <= r < COLOUR_ROWS.stop]
+    check(bool((d_k[other] == 0).all()) and bool((d_r[other] == 0).all()),
+          f"{label}: a row other than the colour rows is not 0")
+    cols = ((d_k != 0) | (d_r != 0)).any(dim=0)
+    ok, abs_err, rel, share, p999 = bwd_gate(d_k[COLOUR_ROWS][:, cols], d_r[COLOUR_ROWS][:, cols])
+    log(f"  {label} vs twin on {int(cols.sum())} columns: colour rows max err / row max "
+        f"{rel:.3e} (gate {BWD_RTOL:g}), least share within {BWD_ELEM_RTOL:g} {share:.6f} (gate "
+        f"{BWD_ELEM_SHARE}), p99.9 " + " ".join(f"{x:.2e}" for x in p999)
+        + "; every other row exactly 0 in both")
+    check(ok, f"{label} vs twin outside the gates: {rel} / {share}")
+    return abs_err
+
+
+def mesh_forward(dev, card, mesh, cam, base, shading):
+    """render_mesh at the headline cell with ``shading``: MESH_FRAMES
+    jittered frames with every launch counter zeroed (only the form's
+    moves, once a frame); T exactly 0 or 1; the coverage; a bit-equal
+    repeat; the pass's face, slot and pair counts, no overflow, its bin
+    time; K1's form against its twin on sampled tiles, its kept counter
+    and audit over every tile, its bound, times (the kernel, its twin over
+    the frame, alone by the profiler) and the frame time. Returns (entry,
+    bound)."""
+    cfg = mesh_cfg(base, shading)
+    form = mr.mesh_statics(cfg).model
+    name = "rasterize_fwd_" + form
+    tr.zero_counters(tr.rasterize_tiles)
+    outs = [mr.render_mesh(mesh, jitter(cam, i), cfg) for i in range(MESH_FRAMES)]
+    torch.cuda.synchronize()
+    seen = only(f"render_mesh {shading}", tr.rasterize_tiles, form, MESH_FRAMES)
+    for img, trans, depth, fid in outs:
+        check(tuple(img.shape) == (HEIGHT, WIDTH, 3) and bool(torch.isfinite(img).all()),
+              f"render_mesh {shading}: image shape or values")
+        check(bool(((trans == 0) | (trans == 1)).all()), f"{shading}: T not exactly 0 or 1")
+    _, trans, _, fid = outs[0]
+    covered = (trans == 0).float().mean().item()
+    again = mr.render_mesh(mesh, jitter(cam, 0), cfg)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(again, outs[0]))
+    del outs, again
+    bins, st = mr.mesh_bins(mesh, cam, cfg)
+    _, t_bin = timed(lambda: mr.mesh_bins(mesh, cam, cfg))
+    n_faces, n_pairs = mesh.indices.shape[0], int(bins.num_pairs)
+    log(f"render_mesh {shading} 1080p: {n_faces} faces, {n_faces * mr.MESH_SLOTS_K} slots "
+        f"before the sort, {n_pairs} pairs, overflow {bool(bins.overflow)}, bin_ms={t_bin:.3f}; "
+        f"covered {covered:.4f}, faces picked {int(fid.unique().numel()) - 1}, launches {seen}, "
+        f"repeat bit-equal {same}")
+    check(not bool(bins.overflow), f"the {shading} mesh pass overflowed")
+    check(0.2 <= covered <= 0.8, f"the mesh covers {covered} of the pixels")
+    check(same, f"the repeat {shading} mesh frame differs")
+    tiles = sample_tiles(bins, st, dev, seed=13)
+    err = mesh_fwd_gate(f"K1 {form}", bins, st, None, tiles)
+    work, kept = check_warp_cull(f"K1 {form}", bins, st, twin_tiles(st, dev))
+    n_tiles, rows = st.tiles_x * st.tiles_y, MODELS[form].rows
+    bytes_fwd = n_pairs * (rows * 4 + 4) + n_tiles * (2 * 4 + tr.PIX * (tr.OUT_ROWS * 4 + 4))
+    bound, text = warp_cull_bound(name, work, bytes_fwd, n_tiles)
+    log(f"bound 1080p mesh {shading}: pairs={n_pairs} pixel_pair_evaluations={work[0]} "
+        f"kept_evaluations={work[4]} hits={work[1]} " + text)
+    t_k = median(time_ms(lambda: tr.rasterize_bins(bins, st), 10))
+    t_frame = median(time_ms(lambda: mr.render_mesh(mesh, cam, cfg), 10))
+    t_plain = median(time_ms(lambda: compare_twin_frame(bins, st), 1, warmup=0))
+    alone = kernel_split(lambda: tr.rasterize_bins(bins, st),
+                         lambda: getattr(tr.rasterize_tiles, tr.LAUNCH_COUNTER[form]),
+                         BLEND_KERNELS["pairs"], calls=STOCH_ALONE_CALLS,
+                         min_records=STOCH_ALONE_CALLS - 2)
+    log(f"timing {name} 1080p ({card}): kernel_ms={t_k:.4f} plain_twin_ms={t_plain:.4f} "
+        f"render_mesh_frame_ms={t_frame:.4f}; alone (profiler, medians over "
+        f"{STOCH_ALONE_CALLS} calls less lost records) " + " ".join(
+            f"{k}={v:.4f}" for k, v in alone.items()))
+    return dict(launches=seen[form], max_abs_err=err, ms=t_k, plain_ms=t_plain,
+                kept_share=kept / (tr.WARPS * work[2]), frame_ms=t_frame,
+                alone_ms=sum(alone.values())), bound
+
+
+@torch.no_grad()
+def compare_twin_frame(bins, st, pix=None):
+    """The twin over every tile (seed 0), in batches of TWIN_BATCH (its
+    time is the plain time)."""
+    return [tr.rasterize_tiles_ref(bins.attrs.detach(), bins.pair_id, bins.tile_start,
+                                   bins.tile_count, st, tiles=t, pix_ctx=pix)
+            for t in twin_tiles(st, bins.attrs.device)]
+
+
+def composed_stages(prepared, cam, cfg, mesh, overflow_ok=False):
+    """render_3dgs_composed's splat pass up to its blend, on a mesh pass run
+    here: (bins, clip statics, the pixel context of the mesh depth). The
+    mesh pass must not overflow unless ``overflow_ok``."""
+    mesh_bins, _ = mr.mesh_bins(mesh, cam, cfg, COMPOSED_MAX_PAIRS)
+    check(overflow_ok or not bool(mesh_bins.overflow), "the composed frame's mesh pass overflowed")
+    depth = mr.render_mesh(mesh, cam, cfg, COMPOSED_MAX_PAIRS)[2]
+    st = dataclasses.replace(raster_statics(cfg), model="gs2d_clip")
+    return (bins_of(prepared, cam, cfg, COMPOSED_MAX_PAIRS), st,
+            mr.depth_limit_pix_ctx(depth, cfg))
+
+
+def composed_forward(dev, card, prepared, mesh, cam, base):
+    """The composed frame, deterministic and stochastic (``cfg.stochastic``
+    SPLAT: the splat pass's _stoch form, seed 0): FRAMES jittered frames
+    each through ``render_3dgs_composed`` (only K1 tri2d_smooth and the
+    splat pass's form move, once a frame each), finite, no overflow, a
+    bit-equal repeat, the share of picks the mesh changed; K1's form
+    against its twin on sampled tiles, its kept counter and audit, the
+    limit 0 everywhere equal to gs2d's form bit for bit; bounds; times
+    beside gs2d's form (events and alone, in turns); the composed frame
+    beside the plain 3DGS frame. Returns ({name: entry}, {name: bound})."""
+    entries, bounds = {}, {}
+    for stoch in (False, True):
+        cfg = base.replace(stochastic=gt.StochasticMode.SPLAT) if stoch else base
+        p_st = raster_statics(cfg)
+        s = dataclasses.replace(p_st, model="gs2d_clip")
+        form, p_form, name = tr.form_of(s), tr.form_of(p_st), "rasterize_fwd_" + tr.form_of(s)
+        tr.zero_counters(tr.rasterize_tiles)
+        outs = [render_3dgs_composed(prepared, jitter(cam, i), cfg, COMPOSED_MAX_PAIRS, mesh)
+                for i in range(FRAMES)]
+        torch.cuda.synchronize()
+        seen = counts(tr.rasterize_tiles)
+        check(seen == {m: FRAMES * (m in ("tri2d_smooth", form)) for m in seen},
+              f"composed main path ({form}): launches {seen}")
+        for o in outs:
+            check(tuple(o.image.shape) == (HEIGHT, WIDTH, 3)
+                  and bool(torch.isfinite(o.image).all()), "composed frame: image shape or values")
+            check(not bool(o.overflow), "the composed frame's splat pass overflowed")
+        o0 = outs[0]
+        del outs
+        again = render_3dgs_composed(prepared, jitter(cam, 0), cfg, COMPOSED_MAX_PAIRS, mesh)
+        plain = render(prepared, jitter(cam, 0), base, COMPOSED_MAX_PAIRS)
+        torch.cuda.synchronize()
+        same = all(torch.equal(getattr(again, f), getattr(o0, f))
+                   for f in ("image", "transmittance", "depth", "splat_id"))
+        moved = ((plain.splat_id >= 0) & (o0.splat_id != plain.splat_id)).float().mean().item()
+        log(f"composed main path ({form}): {FRAMES} frames, launches "
+            f"{ {m: n for m, n in seen.items() if n} }; num_pairs={int(o0.num_pairs)} T==0 share "
+            f"{(o0.transmittance == 0).float().mean():.4f}, share of pixels whose splat pick the "
+            f"mesh changed {moved:.4f}; repeat bit-equal {same}")
+        check(same, f"the repeat composed frame ({form}) differs")
+        check(moved > 0.01, "the mesh hides no splats")
+        del again, plain, o0
+
+        bins, _, pix = composed_stages(prepared, cam, cfg, mesh)
+        n_pairs, n_tiles = int(bins.num_pairs), s.tiles_x * s.tiles_y
+        err = mesh_fwd_gate(f"K1 {form}", bins, s, pix, sample_tiles(bins, s, dev, seed=17))
+        work, kept = check_warp_cull(f"K1 {form}", bins, s, twin_tiles(s, dev), pix)
+        off = tr.rasterize_bins(bins, s, torch.zeros_like(pix), 0)
+        ref = tr.rasterize_bins(bins, p_st, None, 0)
+        torch.cuda.synchronize()
+        equal = torch.equal(off[0], ref[0]) and torch.equal(off[1], ref[1])
+        log(f"  K1 {form} with the limit 0 everywhere equals K1 {p_form} bit for bit: {equal}")
+        check(equal, f"{form} without a limit differs from {p_form}")
+        bytes_fwd = (n_pairs * (10 * 4 + 4)
+                     + n_tiles * (2 * 4 + tr.PIX * (tr.OUT_ROWS * 4 + 4 + 4)))
+        bounds[name], text = warp_cull_bound(name, work, bytes_fwd, n_tiles)
+        log(f"bound 1080p/1M composed {form}: pairs={n_pairs} pixel_pair_evaluations={work[0]} "
+            f"kept_evaluations={work[4]} hits={work[1]} draws={work[5]} " + text)
+        t_k = median(time_ms(lambda: tr.rasterize_bins(bins, s, pix, 0), 10))
+        t_plain = median(time_ms(lambda: compare_twin_frame(bins, s, pix), 1, warmup=0))
+        ev_p, ev_k = abba(lambda: median(time_ms(lambda: tr.rasterize_bins(bins, p_st), 10)),
+                          lambda: median(time_ms(lambda: tr.rasterize_bins(bins, s, pix, 0), 10)))
+        log(f"timing {name} 1080p/1M ({card}): kernel_ms={t_k:.4f} plain_twin_ms={t_plain:.4f}; "
+            f"events beside K1 {p_form} on the same bins (turns {p_form}, {form}, {form}, "
+            f"{p_form}): {p_form}=" + "/".join(f"{x:.4f}" for x in ev_p) + f" {form}="
+            + "/".join(f"{x:.4f}" for x in ev_k))
+        _, alone = alone_in_turns(
+            f"K1 {p_form} (a) beside K1 {form} (b)",
+            (lambda: tr.rasterize_bins(bins, p_st), lambda: tr.rasterize_bins(bins, s, pix, 0)),
+            (lambda: getattr(tr.rasterize_tiles, tr.LAUNCH_COUNTER[p_form]),
+             lambda: getattr(tr.rasterize_tiles, tr.LAUNCH_COUNTER[form])),
+            BLEND_KERNELS["pairs"], card)
+        entries[name] = dict(launches=seen[form], max_abs_err=err, ms=t_k, plain_ms=t_plain,
+                             kept_share=kept / (tr.WARPS * work[2]), alone_ms=alone)
+        del bins, pix
+    t_plain_frame, t_composed = abba(
+        lambda: median(time_ms(lambda: render(prepared, cam, base, COMPOSED_MAX_PAIRS), 10)),
+        lambda: median(time_ms(lambda: render_3dgs_composed(prepared, cam, base, COMPOSED_MAX_PAIRS, mesh), 10)))
+    log(f"timing 1080p/1M composed frame beside the 3DGS frame ({card}; events, turns 3DGS, "
+        f"composed, composed, 3DGS): 3dgs_frame_ms=" + "/".join(f"{x:.4f}" for x in t_plain_frame)
+        + " composed_frame_ms=" + "/".join(f"{x:.4f}" for x in t_composed))
+    entries["rasterize_fwd_gs2d_clip"]["frame_ms"] = median(t_composed)
+    profile_calls("composed", lambda: render_3dgs_composed(prepared, cam, base, COMPOSED_MAX_PAIRS, mesh), card)
+    return entries, bounds
+
+
+def composed_backward(dev, card, truth, mesh, cam, base):
+    """One loss step through the composed frame from the jittered start,
+    deterministic and stochastic: only K2's form of the splat pass moves,
+    once; finite; a bit-equal repeat; K2's form against its twin with the
+    loss's cotangent on sampled tiles (``bwd_gate``; the stochastic form's
+    colour rows, every other row exactly 0), its kept counter and audit over
+    every tile, its bound and times beside gs2d's form. Returns ({name:
+    entry}, {name: bound})."""
+    entries, bounds = {}, {}
+    for stoch in (False, True):
+        cfg = base.replace(stochastic=gt.StochasticMode.SPLAT) if stoch else base
+        p_st = raster_statics(cfg)
+        s = dataclasses.replace(p_st, model="gs2d_clip")
+        form, p_form, name = tr.form_of(s), tr.form_of(p_st), "rasterize_bwd_" + tr.form_of(s)
+        with torch.no_grad():
+            target = render_3dgs_composed(truth.prepare(), cam, base, COMPOSED_MAX_PAIRS,
+                                          mesh).image
+        splats = jittered_start(truth, dev, seed=0)
+        for f in FIELDS:
+            getattr(splats, f).requires_grad_()
+
+        def fwd_bwd():
+            for f in FIELDS:
+                getattr(splats, f).grad = None
+            out = render_3dgs_composed(splats.prepare(), cam, cfg, COMPOSED_MAX_PAIRS, mesh)
+            loss = gt.rgb_loss(out.image, target)
+            loss.backward()
+            return loss
+
+        tr.zero_counters(tr.rasterize_tiles_bwd, tr.TRAINED)
+        loss = fwd_bwd()
+        torch.cuda.synchronize()
+        seen = only(f"composed loss step ({form})", tr.rasterize_tiles_bwd, form, 1)
+        first = [x.clone() for x in grads_of(splats)]
+        fwd_bwd()
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(first, grads_of(splats)))
+        finite = all(bool(torch.isfinite(x).all()) for x in first)
+        zero = [f for f, x in zip(FIELDS, first) if bool((x == 0).all())]
+        log(f"composed loss step ({form}): loss={loss.item():.6f} launches {seen}, gradients "
+            f"finite {finite}, fields exactly 0: {zero}, repeat backward bit-equal {same}")
+        check(same and finite, f"the composed backward ({form}): not finite or not repeatable")
+        del first
+
+        bins, _, pix = composed_stages(splats.prepare(), cam, cfg, mesh)
+        attrs = bins.attrs.detach()
+        n_pairs, n_tiles = int(bins.num_pairs), s.tiles_x * s.tiles_y
+        out, out_id = tr.rasterize_bins(bins, s, pix, 0)
+        out = out.detach().requires_grad_()
+        img, trans = tr.assemble_image(out, out_id, s.tiles_x, s.tiles_y, WIDTH, HEIGHT)[:2]
+        mesh_img = mr.render_mesh(mesh, cam, cfg, COMPOSED_MAX_PAIRS)[0]
+        (g_out,) = torch.autograd.grad(gt.rgb_loss(img + trans[..., None] * mesh_img, target),
+                                       out)
+        full = tr.bwd_context(out.detach(), g_out)
+        tiles = sample_tiles(bins, s, dev, seed=19)
+        keep = torch.zeros(n_tiles, dtype=torch.bool, device=dev)
+        keep[tiles] = True
+        ctx = full * keep[:, None, None]
+        d_k = tr.rasterize_tiles_bwd(attrs, bins.tile_start, bins.tile_count, ctx, s, pix, 0)
+
+        def twin(cx, s=s, pix=pix, tiles=tiles):
+            return sum(tr.rasterize_tiles_bwd_ref(bins.attrs.detach(), bins.tile_start,
+                                                  bins.tile_count, cx, s, tiles=t, pix_ctx=pix)
+                       for t in twin_tiles(s, dev, tiles))
+
+        if stoch:
+            abs_err = colour_rows_gate(f"K2 {form}", d_k, twin(ctx))
+        else:
+            cols = ((d_k != 0) | (twin(ctx) != 0)).any(dim=0)
+            abs_err, _ = gate_bwd_against_twin(f"K2 {form}", d_k, twin, ctx, cols)
+        tr.rasterize_tiles_bwd(attrs, bins.tile_start, bins.tile_count, full, s, pix, 0)
+        work, kept = check_pair_cull(f"K2 {form}", bins, s, twin_tiles(s, dev), pix)
+        bytes_bwd = (n_pairs * (2 * tr.GRAD_ROWS + 1) * 4
+                     + n_tiles * (2 * 4 + tr.PIX * (tr.CTX_ROWS + 1) * 4))
+        bounds[name], text = pair_bound(name, work, bytes_bwd, n_tiles)
+        log(f"bound 1080p/1M composed {form} backward: pairs={n_pairs} "
+            f"pixel_pair_evaluations={work[0]} kept_pair_evaluations={work[4]} hits={work[1]} "
+            + text)
+        t_k = median(time_ms(lambda: tr.rasterize_tiles_bwd(
+            attrs, bins.tile_start, bins.tile_count, full, s, pix, 0), 10))
+        t_plain = median(time_ms(lambda: twin(full, tiles=None), 1, warmup=0))
+        _, alone = alone_in_turns(
+            f"K2 {p_form} (a) beside K2 {form} (b)",
+            (lambda: tr.rasterize_tiles_bwd(attrs, bins.tile_start, bins.tile_count, full, p_st),
+             lambda: tr.rasterize_tiles_bwd(attrs, bins.tile_start, bins.tile_count, full, s,
+                                            pix)),
+            (lambda: getattr(tr.rasterize_tiles_bwd, tr.LAUNCH_COUNTER[p_form]),
+             lambda: getattr(tr.rasterize_tiles_bwd, tr.LAUNCH_COUNTER[form])),
+            ("rasterize_bwd_kernel",), card)
+        log(f"timing {name} 1080p/1M ({card}): kernel_ms={t_k:.4f} plain_twin_ms={t_plain:.4f}")
+        entries[name] = dict(launches=seen[form], max_abs_err=abs_err, ms=t_k, plain_ms=t_plain,
+                             kept_share=kept / max(work[2], 1), alone_ms=alone)
+        del bins, attrs, pix, out, g_out, full, ctx, d_k, splats
+    return entries, bounds
+
+
+def flat_mesh_backward(dev, card, mesh_obj, cam, base):
+    """One gradient of the flat mesh's image with respect to its face
+    colours: K2 tri2d once; finite and repeatable; K2 tri2d against its twin
+    on sampled tiles (``bwd_gate``, the colour rows; the vertex rows exactly
+    0 in both), its kept counter (every tested pair: it does not cull), its
+    bound and times. Returns (entry, bound)."""
+    cfg = mesh_cfg(base, "flat")
+    w = torch.randn((HEIGHT, WIDTH, 3), generator=torch.Generator(device=dev).manual_seed(5),
+                    device=dev)
+    def gradient():
+        mesh = mr.mesh_buffers_from_obj(mesh_obj, device=dev)
+        mesh.face_colors.requires_grad_()
+        (mr.render_mesh(mesh, cam, cfg)[0] * w).sum().backward()
+        return mesh.face_colors.grad
+
+    tr.zero_counters(tr.rasterize_tiles_bwd, tr.TRAINED)
+    grads = [gradient()]
+    torch.cuda.synchronize()
+    seen = only("flat mesh face-colour gradient (K2)", tr.rasterize_tiles_bwd, "tri2d", 1)
+    grads.append(gradient())
+    torch.cuda.synchronize()
+    same = torch.equal(grads[0], grads[1])
+    log(f"flat mesh face-colour gradient: launches {seen}, finite "
+        f"{bool(torch.isfinite(grads[0]).all())}, nonzero faces "
+        f"{int((grads[0] != 0).any(dim=1).sum())}, repeat bit-equal {same}")
+    check(same and bool(torch.isfinite(grads[0]).all()), "the face-colour gradient")
+    mesh = mr.mesh_buffers_from_obj(mesh_obj, device=dev)
+    bins, st = mr.mesh_bins(mesh, cam, cfg)
+    attrs = bins.attrs.detach()
+    n_pairs, n_tiles = int(bins.num_pairs), st.tiles_x * st.tiles_y
+    out = tr.rasterize_bins(bins, st)[0]
+    g = torch.randn(out.shape, generator=torch.Generator(device=dev).manual_seed(6), device=dev)
+    full = tr.bwd_context(out, g)
+    tiles = sample_tiles(bins, st, dev, seed=23)
+    keep = torch.zeros(n_tiles, dtype=torch.bool, device=dev)
+    keep[tiles] = True
+    ctx = full * keep[:, None, None]
+    d_k = tr.rasterize_tiles_bwd(attrs, bins.tile_start, bins.tile_count, ctx, st)
+
+    def twin(cx):
+        return sum(tr.rasterize_tiles_bwd_ref(attrs, bins.tile_start, bins.tile_count, cx, st,
+                                              tiles=t) for t in twin_tiles(st, dev, tiles))
+
+    abs_err = colour_rows_gate("K2 tri2d", d_k, twin(ctx))
+    tr.rasterize_tiles_bwd(attrs, bins.tile_start, bins.tile_count, full, st)
+    work, kept = check_pair_cull("K2 tri2d", bins, st, twin_tiles(st, dev))
+    bytes_bwd = n_pairs * 2 * tr.GRAD_ROWS * 4 + n_tiles * (2 * 4 + tr.PIX * tr.CTX_ROWS * 4)
+    bound, text = pair_bound("rasterize_bwd_tri2d", work, bytes_bwd, n_tiles)
+    log(f"bound 1080p mesh flat backward: pairs={n_pairs} pixel_pair_evaluations={work[0]} "
+        f"hits={work[1]} " + text)
+    t_k = median(time_ms(lambda: tr.rasterize_tiles_bwd(attrs, bins.tile_start, bins.tile_count,
+                                                        full, st), 10))
+    t_plain = median(time_ms(lambda: sum(tr.rasterize_tiles_bwd_ref(
+        attrs, bins.tile_start, bins.tile_count, full, st, tiles=t)
+        for t in twin_tiles(st, dev)), 1, warmup=0))
+    alone = kernel_split(lambda: tr.rasterize_tiles_bwd(attrs, bins.tile_start, bins.tile_count,
+                                                        full, st),
+                         lambda: tr.rasterize_tiles_bwd.launches_tri2d, ("rasterize_bwd_kernel",),
+                         calls=STOCH_ALONE_CALLS, min_records=STOCH_ALONE_CALLS - 2)
+    log(f"timing rasterize_bwd_tri2d 1080p ({card}): kernel_ms={t_k:.4f} "
+        f"plain_twin_ms={t_plain:.4f} alone_ms={sum(alone.values()):.4f}")
+    return dict(launches=seen["tri2d"], max_abs_err=abs_err, ms=t_k, plain_ms=t_plain,
+                kept_share=kept / max(work[2], 1), alone_ms=sum(alone.values())), bound
+
+
+def bins_in_range(label, bins, sources: int):
+    """The index invariants the kernels and the gathers rely on: every
+    tile's range inside the pair arrays, the live pairs' ids in [0,
+    sources) and their vertex or centre rows finite."""
+    p, live = bins.attrs.shape[1], int(bins.num_pairs)
+    start, count = bins.tile_start.long(), bins.tile_count.long()
+    ids = bins.pair_id[:live]
+    ok = (bool((count >= 0).all()) and bool((start >= 0).all())
+          and bool((start + count <= p).all()) and live == int(count.sum())
+          and bool(((ids >= 0) & (ids < sources)).all())
+          and bool(torch.isfinite(bins.attrs[:2, :live]).all()))
+    check(ok, f"{label}: a tile range or a pair index out of range")
+
+
+def mesh_views(dev, mesh, prepared, base, rounds: int = 1):
+    """render_mesh smooth and flat and the composed frame at every view of
+    MESH_VIEWS, ``rounds`` times (round r nudged by ``jitter``), each frame
+    synchronised and checked on its own: finite, T of the mesh exactly 0 or
+    1, both passes' bins in range (``bins_in_range``). A device-side
+    assertion surfaces at the view's synchronisation. Returns (frames, the
+    passes that overflowed)."""
+    frames, overflowed = 0, collections.Counter()
+    exact = base.replace(raster=dataclasses.replace(base.raster, expansion="exact"))
+    faces = mesh.indices.shape[0]
+    for r in range(rounds):
+        for label, (eye, target, up) in MESH_VIEWS.items():
+            cam = jitter(gt.look_at(eye, target, up, WIDTH, HEIGHT, fov_y_rad=0.9, device=dev), r)
+            for shading in ("smooth", "flat"):
+                cfg = mesh_cfg(base, shading)
+                bins, _ = mr.mesh_bins(mesh, cam, cfg)
+                torch.cuda.synchronize()
+                bins_in_range(f"{label} ({shading})", bins, faces)
+                overflowed[f"mesh {shading}"] += bool(bins.overflow)
+                img, trans, _, _ = mr.render_mesh(mesh, cam, cfg)
+                torch.cuda.synchronize()
+                check(bool(torch.isfinite(img).all()) and bool(((trans == 0) | (trans == 1)).all()),
+                      f"render_mesh {shading} at the view {label}: not finite or T not 0 or 1")
+                frames += 1
+            bins, _, _ = composed_stages(prepared, cam, exact, mesh, overflow_ok=True)
+            torch.cuda.synchronize()
+            bins_in_range(f"{label} (splat pass)", bins, prepared.means.shape[0])
+            overflowed["splat pass"] += bool(bins.overflow)
+            out = render_3dgs_composed(prepared, cam, exact, COMPOSED_MAX_PAIRS, mesh)
+            torch.cuda.synchronize()
+            check(bool(torch.isfinite(out.image).all()),
+                  f"the composed frame at the view {label}: not finite")
+            frames += 1
+    log(f"mesh views: {frames} frames at {len(MESH_VIEWS)} views x {rounds} rounds, each "
+        f"synchronised and checked; passes that overflowed {dict(overflowed)}")
+    return frames, overflowed
+
+
+def meshes(dev, card: str, truth: gt.SplatSet):
+    """Phase 13 at the headline cell: ``render_mesh`` smooth and flat, the
+    composed frame forward and backward, the flat mesh's face-colour
+    gradient (``mesh_forward``, ``composed_forward``, ``composed_backward``,
+    ``flat_mesh_backward``). Returns ({name: entry}, {name: bound}) of the
+    seven mesh forms."""
+    t0 = time.perf_counter()
+    base = gt.RenderConfig(width=WIDTH, height=HEIGHT, sh_degree=3)
+    cam = gt.look_at([0, 0, -7], [0, 0, 0], [0, 1, 0], WIDTH, HEIGHT, fov_y_rad=0.9, device=dev)
+    obj = headline_mesh()
+    mesh = mr.mesh_buffers_from_obj(obj, device=dev)
+    log(f"meshes: {obj.indices.shape[0]} faces ({8 * 4 ** MESH_SPHERE_SUBDIV} sphere, "
+        f"{2 * MESH_GRID[0] * MESH_GRID[1]} ground), {obj.positions.shape[0]} vertices")
+    mesh_views(dev, mesh, truth.prepare(), base)
+    entries, bounds = {}, {}
+    for shading in ("smooth", "flat"):
+        entry, bound = mesh_forward(dev, card, mesh, cam, base, shading)
+        name = "rasterize_fwd_" + mr.mesh_statics(mesh_cfg(base, shading)).model
+        entries[name], bounds[name] = entry, bound
+    exact = base.replace(raster=dataclasses.replace(base.raster, expansion="exact"))
+    e, b = composed_forward(dev, card, truth.prepare(), mesh, cam, exact)
+    entries.update(e)
+    bounds.update(b)
+    e, b = composed_backward(dev, card, truth, mesh, cam, exact)
+    entries.update(e)
+    bounds.update(b)
+    entries["rasterize_bwd_tri2d"], bounds["rasterize_bwd_tri2d"] = flat_mesh_backward(
+        dev, card, obj, cam, base)
+    log(f"meshes phase {time.perf_counter() - t0:.1f} s")
+    return entries, bounds
+
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    views = int(argv[argv.index("--mesh-views") + 1]) if "--mesh-views" in argv else 0
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: chip_smoke.py runs only on a card")
     dev = torch.device("cuda", 0)
@@ -3643,6 +4248,12 @@ def main() -> int:
             pass
     log(f"host cost of one stage span, profiler off: "
         f"{(time.perf_counter() - t_span) * 1e2:.3f} us")
+    if views:
+        mesh = mr.mesh_buffers_from_obj(headline_mesh(), device=dev)
+        mesh_views(dev, mesh, bench_scene(dev, SPLATS, seed=0).prepare(),
+                   gt.RenderConfig(width=WIDTH, height=HEIGHT, sh_degree=3), views)
+        log(f"total {time.perf_counter() - t0:.1f} s")
+        return 0
 
     err_golden = golden_gate(dev)
     err_golden_bwd = golden_gradients(dev)
@@ -3694,6 +4305,9 @@ def main() -> int:
     host_entries, host_bounds = host_sorted(dev, card, truth, caps)
     results.update(host_entries)
     bounds.update(host_bounds)
+    mesh_entries, mesh_bounds = meshes(dev, card, truth)
+    results.update(mesh_entries)
+    bounds.update(mesh_bounds)
     probe_entries, probe_bounds, library = probes(dev, card)
     results.update(probe_entries)
     bounds.update(probe_bounds)

@@ -1,5 +1,6 @@
 """The CUDA tile blenders (pair blender K1, K2; bucket rasterizer K3, K4;
-each for the gs2d and the gut3d response model) and the probe kernels P1-P3
+each for the gs2d and the gut3d response model, K1 and K2 also for the
+mesh models gs2d_clip, tri2d and tri2d_smooth) and the probe kernels P1-P3
 (vk_gaussian_splatting_tpu_torch/probes) on a card, against their plain
 PyTorch twins.
 
@@ -46,6 +47,7 @@ twin bit for bit.
 
 import dataclasses
 import os
+import types
 
 import numpy as np
 import pytest
@@ -1605,3 +1607,234 @@ def test_host_order_render_on_card_launches_keyrow_forms_once(cuda, stochastic):
         grads.append([getattr(s, f).grad for f in interop.SPLAT_FIELDS])
     for f, a, b in zip(interop.SPLAT_FIELDS, *grads):
         assert torch.equal(a, b) and bool(torch.isfinite(a).all()), f
+
+
+# ---- meshes: K1 gs2d_clip (+ _stoch), tri2d, tri2d_smooth; K2 gs2d_clip (+ _stoch), tri2d
+#
+# render_mesh blends a depth-sorted triangle list with an opaque, unclamped
+# alpha (T exactly 0 or 1); the composed frame blends the splats behind the
+# mesh depth (gs2d_clip). The kernels against their twins at K1's and K2's
+# gates, the kept counters against the plain culls exactly and no culled
+# (warp, pair) that hits, on a sphere and on lists of slivers, collinear and
+# coincident triangles in every tile; gs2d_clip with no limit equals gs2d
+# bit for bit.
+
+from vk_gaussian_splatting_tpu_torch.io.obj import ObjMaterial, octa_sphere  # noqa: E402
+from vk_gaussian_splatting_tpu_torch.render import mesh_raster as mr  # noqa: E402
+from vk_gaussian_splatting_tpu_torch.render.pipelines import render_3dgs_composed  # noqa: E402
+
+MESH_FORMS = ("tri2d", "tri2d_smooth", "gs2d_clip", "gs2d_clip" + tr.STOCH)
+
+
+def octa_sphere_mesh(subdiv=3, radius=1.5):
+    return octa_sphere(subdiv, radius, ObjMaterial(diffuse=(0.8, 0.6, 0.4)))
+
+
+def mesh_cfg(shading="smooth", w=128, h=96):
+    return gt.RenderConfig(width=w, height=h, sh_degree=1,
+                           raster=gt.RasterConfig(mesh_shading=shading))
+
+
+def mesh_camera(device, w=128, h=96):
+    return gt.look_at([0.4, -0.6, -7.0], [0, 0, 0], [0, 1, 0], w, h, fov_y_rad=0.9,
+                      device=device)
+
+
+def adversarial_triangles(device, tiles_x=8, tiles_y=6, n=96):
+    """tri2d lists with every one of ``n`` slivers, collinear and coincident
+    triangles (and large ones across the tiles) in every tile's list."""
+    rng = np.random.default_rng(4)
+    a = rng.uniform(-20, 16 * tiles_x + 20, (n, 2))
+    b = rng.uniform(-20, 16 * tiles_y + 20, (n, 2))
+    c = a + (b - a) * rng.uniform(-0.3, 1.3, (n, 1))
+    c[: n // 3] += rng.normal(scale=0.05, size=(n // 3, 2))           # slivers
+    c[n // 3: n // 2] = a[n // 3: n // 2]                              # coincident pairs
+    c[n // 2: 2 * n // 3] = np.round(c[n // 2: 2 * n // 3]) + 0.5     # on pixel centres
+    c[2 * n // 3:] += rng.normal(scale=30.0, size=(n - 2 * n // 3, 2))  # ordinary
+    rows = np.zeros((10, n), np.float32)
+    rows[:6] = np.stack([a, b, c], axis=1).reshape(n, 6).T
+    rows[6:9] = rng.uniform(0.1, 1.0, (3, n))
+    rows[9] = rng.uniform(1.0, 5.0, n)
+    rows = rows[:, np.argsort(rows[9])]
+    t = tiles_x * tiles_y
+    attrs = torch.from_numpy(np.tile(rows, (1, t))).to(device)
+    start = (torch.arange(t, dtype=torch.int32) * n).to(device)
+    count = torch.full((t,), n, dtype=torch.int32, device=device)
+    bins = types.SimpleNamespace(attrs=attrs, pair_id=torch.arange(n * t, dtype=torch.int32,
+                                                                   device=device),
+                                 tile_start=start, tile_count=count)
+    return bins, tr.RasterStatics(tiles_x, tiles_y, model="tri2d", depth_iso=0.999)
+
+
+def mesh_setup(device, form, scene="sphere"):
+    """(bins, statics, pixel context) of one mesh form's blend: the sphere's
+    faces (tri2d, tri2d_smooth) or the adversarial lists, or the splats of
+    a 128x96 frame behind the smooth sphere's depth (gs2d_clip)."""
+    model = form.removesuffix(tr.STOCH)
+    if scene == "adversarial":
+        bins, st = adversarial_triangles(device)
+        return bins, dataclasses.replace(st, model=model), None
+    cfg = mesh_cfg("flat" if model == "tri2d" else "smooth")
+    cam = mesh_camera(device)
+    mesh = mr.mesh_buffers_from_obj(octa_sphere_mesh(), device=device)
+    if model != "gs2d_clip":
+        bins, st = mr.mesh_bins(mesh, cam, cfg)
+        return bins, st, None
+    depth = mr.render_mesh(mesh, cam, cfg)[2]
+    st = dataclasses.replace(raster_statics(cfg), model=model, stochastic=form != model)
+    return bins_on(device, cfg), st, mr.depth_limit_pix_ctx(depth, cfg)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form, scene", [(f, "sphere") for f in MESH_FORMS]
+                         + [("tri2d", "adversarial"), ("tri2d_smooth", "adversarial")])
+def test_mesh_fwd_kernels_match_twins(cuda, form, scene):
+    bins, st, pix = mesh_setup(cuda, form, scene)
+    if st.model == "tri2d_smooth" and scene == "adversarial":  # its 18 rows from tri2d's
+        a = bins.attrs
+        bins.attrs = torch.cat([a[:6], a[6:9].repeat(3, 1), a[9:10].repeat(3, 1)]).contiguous()
+    before = launch_counts(tr.rasterize_tiles)
+    out_k, id_k = tr.rasterize_tiles(bins.attrs, bins.pair_id, bins.tile_start,
+                                     bins.tile_count, st, pix, STOCH_SEED)
+    kept = assert_warp_kept_matches_plain_stream(bins, st, form, pix)
+    again, again_id = tr.rasterize_tiles(bins.attrs, bins.pair_id, bins.tile_start,
+                                         bins.tile_count, st, pix, STOCH_SEED)
+    out_r, id_r = tr.rasterize_tiles_ref(bins.attrs, bins.pair_id, bins.tile_start,
+                                         bins.tile_count, st, pix_ctx=pix, seed=STOCH_SEED)
+    torch.cuda.synchronize()
+    after = launch_counts(tr.rasterize_tiles)
+    assert after == {m: before[m] + 2 * (m == form) for m in before}
+    assert torch.equal(out_k, again) and torch.equal(id_k, again_id)
+    assert int(getattr(tr.rasterize_tiles, tr.KEPT_COUNTER[form])) == kept
+    err = (out_k[:, :4] - out_r[:, :4]).abs().max().item()
+    assert err <= ATOL, err
+    same = id_k == id_r
+    assert same.float().mean().item() >= ID_AGREE
+    assert torch.equal(out_k[:, 4][same], out_r[:, 4][same])
+    if st.model != "gs2d_clip":  # opaque and unclamped: T is exactly 0 or 1
+        assert set(out_k[:, 3].unique().tolist()) == {0.0, 1.0}
+
+
+def assert_warp_kept_matches_plain_stream(bins, st, form, pix):
+    """K1's kept count for ``form`` against the plain count of the sweep of
+    STOCH_SEED (the stream only matters to a stochastic form), and no
+    culled (warp, pair) that hits."""
+    args = (bins.attrs, bins.tile_start, bins.tile_count, st)
+    may = tr.pair_warp_may_hit(*args, pix_ctx=pix)
+    _, _, tested, plain, _, _ = tr.blend_work(*args, pix_ctx=pix, keep=may, seed=STOCH_SEED)
+    torch.cuda.synchronize()
+    kept = int(getattr(tr.rasterize_tiles, tr.KEPT_COUNTER[form]))
+    assert 0 < kept < tr.WARPS * tested and kept == plain, (kept, plain, tested)
+    assert int((tr.pair_hits(*args, pix_ctx=pix, per_warp=True) & ~may).sum()) == 0
+    return kept
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stochastic", [False, True])
+def test_clip_without_limit_is_gs2d_bit_for_bit(cuda, stochastic):
+    bins, st, pix = mesh_setup(cuda, "gs2d_clip" + (tr.STOCH if stochastic else ""))
+    clip = tr.rasterize_tiles(bins.attrs, bins.pair_id, bins.tile_start, bins.tile_count, st,
+                              torch.zeros_like(pix), STOCH_SEED)
+    plain = tr.rasterize_tiles(bins.attrs, bins.pair_id, bins.tile_start, bins.tile_count,
+                               dataclasses.replace(st, model="gs2d"), None, STOCH_SEED)
+    limited = tr.rasterize_tiles(bins.attrs, bins.pair_id, bins.tile_start, bins.tile_count,
+                                 st, pix, STOCH_SEED)
+    torch.cuda.synchronize()
+    assert torch.equal(clip[0], plain[0]) and torch.equal(clip[1], plain[1])
+    assert (limited[0][:, 3] > plain[0][:, 3]).any()  # the sphere hides splats
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["gs2d_clip", "gs2d_clip" + tr.STOCH, "tri2d"])
+def test_mesh_bwd_kernels_match_twins(cuda, form):
+    bins, st, pix = mesh_setup(cuda, form)
+    out, _ = tr.rasterize_tiles(bins.attrs, bins.pair_id, bins.tile_start, bins.tile_count,
+                                st, pix, STOCH_SEED)
+    g = torch.randn(out.shape, generator=torch.Generator(device=cuda).manual_seed(1),
+                    device=cuda)
+    ctx = tr.bwd_context(out, g)
+    before = launch_counts(tr.rasterize_tiles_bwd)
+    d_k = tr.rasterize_tiles_bwd(bins.attrs, bins.tile_start, bins.tile_count, ctx, st, pix,
+                                 STOCH_SEED)
+    assert_pair_kept_matches_plain_stream(bins, st, form, pix)
+    again = tr.rasterize_tiles_bwd(bins.attrs, bins.tile_start, bins.tile_count, ctx, st, pix,
+                                   STOCH_SEED)
+    d_r = tr.rasterize_tiles_bwd_ref(bins.attrs, bins.tile_start, bins.tile_count, ctx, st,
+                                     pix_ctx=pix, seed=STOCH_SEED)
+    torch.cuda.synchronize()
+    after = launch_counts(tr.rasterize_tiles_bwd)
+    assert after == {m: before[m] + 2 * (m == form) for m in before}
+    assert torch.equal(d_k, again)
+    zero = list(range(6)) if st.model == "tri2d" or st.stochastic else []
+    assert (d_k[zero] == 0).all() and (d_r[zero] == 0).all()  # no gradient through alpha
+    assert (d_k[tr.GRAD_ROWS:] == 0).all()                      # the depth row
+    for r in range(tr.GRAD_ROWS):
+        if r in zero:
+            continue
+        scale = d_r[r].abs().max().item()
+        assert scale > 0, r
+        assert (d_k[r] - d_r[r]).abs().max().item() <= BWD_RTOL * scale, r
+        limit = 1e-2 * (d_r[r].abs() + d_r[r].abs()[d_r[r] != 0].median())
+        assert ((d_k[r] - d_r[r]).abs() <= limit).float().mean().item() >= 0.999, r
+
+
+def assert_pair_kept_matches_plain_stream(bins, st, form, pix):
+    """K2's kept count for ``form``: the plain predicate's where the model
+    culls (gs2d_clip), every tested pair where it does not (tri2d)."""
+    args = (bins.attrs, bins.tile_start, bins.tile_count, st)
+    may = tr.pair_may_hit(*args, pix_ctx=pix)
+    _, _, tested, plain, _, _ = tr.blend_work(*args, pix_ctx=pix, keep=may, seed=STOCH_SEED)
+    torch.cuda.synchronize()
+    kept = int(getattr(tr.rasterize_tiles_bwd, tr.KEPT_COUNTER[form]))
+    want = plain if tr.model_of(st).cull_pairs else tested
+    assert 0 < kept <= tested and kept == want, (kept, want, tested)
+    assert int((tr.pair_hits(*args, pix_ctx=pix) & ~may).sum()) == 0
+
+
+@pytest.mark.cuda
+def test_mesh_render_on_card_launches_once_and_matches_cpu(cuda):
+    """render_mesh (smooth: K1 tri2d_smooth; flat: K1 and K2 tri2d) and the
+    composed frame (K1 tri2d_smooth and gs2d_clip; backward K2 gs2d_clip)
+    launch each form once a call; the card's composed frame matches the CPU
+    twin's at the card-against-CPU gate (tests/test_torch_cuda.py
+    test_render_on_card_matches_cpu); the face colours' gradient repeats."""
+    cfg = mesh_cfg()
+    cam = mesh_camera(cuda)
+    obj = octa_sphere_mesh()
+    mesh = mr.mesh_buffers_from_obj(obj, device=cuda)
+    fwd, bwd = tr.rasterize_tiles, tr.rasterize_tiles_bwd
+    before = launch_counts(fwd)
+    img, trans, depth, fid = mr.render_mesh(mesh, cam, cfg)
+    torch.cuda.synchronize()
+    assert launch_counts(fwd) == {m: before[m] + (m == "tri2d_smooth") for m in before}
+    assert set(trans.unique().tolist()) == {0.0, 1.0} and bool((fid[trans == 0] >= 0).all())
+    grads = []
+    for _ in range(2):
+        flat = mr.mesh_buffers_from_obj(obj, device=cuda)
+        flat.face_colors.requires_grad_()
+        b = [launch_counts(w) for w in (fwd, bwd)]
+        out = mr.render_mesh(flat, cam, mesh_cfg("flat"))[0]
+        (out * out).sum().backward()
+        torch.cuda.synchronize()
+        for w, c in zip((fwd, bwd), b):
+            assert launch_counts(w) == {m: c[m] + (m == "tri2d") for m in c}
+        grads.append(flat.face_colors.grad)
+    assert torch.equal(grads[0], grads[1]) and bool((grads[0] != 0).any())
+    s = splats_on(cuda, n=3000)
+    b = [launch_counts(w) for w in (fwd, bwd)]
+    got = render_3dgs_composed(s.prepare(), cam, cfg, 0, mesh)
+    gt.rgb_loss(got.image, torch.full_like(got.image, 0.5)).backward()
+    torch.cuda.synchronize()
+    assert launch_counts(fwd) == {m: b[0][m] + (m in ("tri2d_smooth", "gs2d_clip"))
+                                  for m in b[0]}
+    assert launch_counts(bwd) == {m: b[1][m] + (m == "gs2d_clip") for m in b[1]}
+    for f in interop.SPLAT_FIELDS:
+        assert bool(torch.isfinite(getattr(s, f).grad).all()), f
+    d = interop.random_splat_arrays(0, 3000, sh_degree=1, scale_range=(-3.5, -1.5))
+    cpu = render_3dgs_composed(interop.splat_set_from_numpy(d, "cpu").prepare(),
+                               mesh_camera("cpu"), cfg, 0,
+                               mr.mesh_buffers_from_obj(obj, device="cpu"))
+    diff = (got.image.detach().cpu() - cpu.image).abs()
+    assert (diff > 5e-5).float().mean().item() <= 1e-3 and diff.max().item() <= 2e-3
+    cover = (got.transmittance.cpu() == 0) == (cpu.transmittance == 0)
+    assert cover.float().mean().item() >= 0.999

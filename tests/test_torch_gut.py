@@ -585,7 +585,7 @@ def test_entry_points_per_model():
     gut = dataclasses.replace(st, model="gut3d")
     assert tr.entry_name("raster_bucket_bwd", gut) == "raster_bucket_bwd_gut3d"
     with pytest.raises(NotImplementedError, match="queue 2"):
-        tr.entry_name("rasterize_fwd", dataclasses.replace(st, model="tri2d"))
+        tr.entry_name("raster_bucket_fwd", dataclasses.replace(st, model="tri2d"))
     with pytest.raises(ValueError, match="pixel context"):
         tr.rasterize_tiles(torch.zeros((15, 0)), torch.zeros((0,), dtype=torch.int32),
                            torch.zeros((1,), dtype=torch.int32),

@@ -11,7 +11,8 @@ and RTX pipelines with pair binning (``RasterConfig.method="pairs"``, the
 default) or bucket-grid binning (``method="bucket"``) — and the training
 step (``train_step``, Adam, the loss, densification, checkpoints); the
 packed tier (forward only) and stochastic transparency with its a-trous
-pass (``cfg.stochastic``, ``cfg.denoise``) on each of them. Plain
+pass (``cfg.stochastic``, ``cfg.denoise``) on each of them; meshes on the
+raster path (``render_mesh``, ``render_3dgs_composed``). Plain
 tensor code runs on any torch device; the two tile blenders and their
 backwards are hand-written CUDA kernels (csrc/rasterize_{fwd,bwd}.cu,
 csrc/raster_bucket_{fwd,bwd}.cu, each for the gs2d and the gut3d response
@@ -21,16 +22,16 @@ Entry points that make tensors use the card unless given another device.
 The names exported here are the JAX package's.
 
 Layout:
-  io/      PLY loader
+  io/      PLY, spz, .splat, OBJ, cameras.json loaders
   scene/   SplatSet / PreparedSplats, cameras (pinhole and fisheye
-           parameters, DoF, distortion, rolling shutter)
+           parameters, DoF, distortion, rolling shutter), lights
   ops/     SH, EWA and UT projections, depth keys, pair binning and
            bucket-grid binning (each with its sort-based backward), the
            gs2d and gut3d responses and the stochastic stream, the pair
            blender and the bucket rasterizer (kernel wrappers, twins,
            autograd Functions), the a-trous denoiser, kernel build
-  render/  render_3dgs, render_3dgut, render_3dgrt, the per-tile rays and
-           the pipeline dispatch
+  render/  render_3dgs, render_3dgut, render_3dgrt, the per-tile rays, the
+           pipeline dispatch, render_mesh and render_3dgs_composed
   train.py loss, Adam, train_step, densify / prune, checkpoints
   probes/  the design probes P1-P3 (the scripts/ Pallas probes) on the card
   csrc/    CUDA sources

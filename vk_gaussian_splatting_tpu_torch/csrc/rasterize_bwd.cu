@@ -1,5 +1,5 @@
 // Pair-list tile blender, backward, for the gs2d and gut3d response
-// models: K2.
+// models and the mesh-composited frame's gs2d_clip and tri2d: K2.
 //
 // Replaces the Pallas kernel rasterize_pallas._make_bwd_kernel
 // (vk_gaussian_splatting_tpu/ops/rasterize_pallas.py:367) and the custom
@@ -77,6 +77,11 @@
 // the JAX accept gives none, takes no gradient through alpha: M::vjp is not
 // called, the geometry rows sum exact zeros and the colour rows g_rgb * w.
 // The reductions are unchanged, so it repeats bit for bit too.
+// The mesh forms (csrc/response.cuh): gs2d_clip is gs2d's VJP where the
+// pixel's depth limit keeps the pair (its backward slots carry the depth);
+// tri2d blends an unclamped alpha of 1 (CLAMP: T after a covering face is
+// exactly 0, so later faces get w = 0), its VJP writes zeros on the vertex
+// rows and the colour rows get g_rgb * w; it does not cull its pair lists.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -141,7 +146,7 @@ rasterize_bwd_kernel(const float* __restrict__ attrs, long long pair_stride,
   const int i = threadIdx.x;
   const int lane = i & 31;
   const int warp = i >> 5;
-  const response::Pixel pix = response::load_pixel(t, tiles_x, i, pix_ctx);
+  const response::Pixel pix = response::model_pixel<M>(t, tiles_x, i, pix_ctx);
   if constexpr (M::CULL_PAIRS) M::tile_bound(bound, t, tiles_x, pix);
   const int start = tile_start[t];
   const int end = start + tile_count[t];
@@ -208,7 +213,7 @@ rasterize_bwd_kernel(const float* __restrict__ attrs, long long pair_stride,
           if (live && jj + p < m && M::eval(s_attr, MAX_CHUNK, j, pix, prm, a_raw, h)) {
             hit = true;
             float* g = v + p * GRAD_ROWS;
-            float a = fminf(a_raw, prm.alpha_clamp);
+            float a = M::CLAMP ? fminf(a_raw, prm.alpha_clamp) : a_raw;
             if constexpr (STOCH) {
               const int pair = s + s_col[j];
               a = response::stochastic_accept(
@@ -274,8 +279,8 @@ int launch(const float* attrs, long long pair_stride, const int* tile_start,
 }  // namespace
 
 // Launch one block per tile on `stream`; return cudaGetLastError().
-// d_attrs must hold zeros on entry. gs2d reads no pixel context (pix_ctx
-// may be null); gut3d reads the (T, 8, 256) one. kept must hold 0 on
+// d_attrs must hold zeros on entry. gs2d and tri2d read no pixel context
+// (pix_ctx may be null); gut3d and gs2d_clip read the (T, 8, 256) one. kept must hold 0 on
 // entry: each block adds the number of pairs its cull kept, over the blend
 // steps it entered (one integer atomic each). seed: the stochastic
 // stream's (read by the _stoch entries alone).
@@ -308,4 +313,21 @@ extern "C" int rasterize_bwd_stoch(RASTERIZE_BWD_PARAMS) {
 extern "C" int rasterize_bwd_gut3d_stoch(RASTERIZE_BWD_PARAMS) {
   if (pix_ctx == nullptr) return (int)cudaErrorInvalidValue;
   return launch<response::Gut3d, true>(RASTERIZE_BWD_ARGS);
+}
+
+// The mesh-composited frame: the splat pass behind the mesh depth (and its
+// stochastic form), and the flat triangles' face colours.
+extern "C" int rasterize_bwd_gs2d_clip(RASTERIZE_BWD_PARAMS) {
+  if (pix_ctx == nullptr) return (int)cudaErrorInvalidValue;
+  return launch<response::Gs2dClip>(RASTERIZE_BWD_ARGS);
+}
+
+extern "C" int rasterize_bwd_gs2d_clip_stoch(RASTERIZE_BWD_PARAMS) {
+  if (pix_ctx == nullptr) return (int)cudaErrorInvalidValue;
+  return launch<response::Gs2dClip, true>(RASTERIZE_BWD_ARGS);
+}
+
+extern "C" int rasterize_bwd_tri2d(RASTERIZE_BWD_PARAMS) {
+  pix_ctx = nullptr;
+  return launch<response::Tri2d>(RASTERIZE_BWD_ARGS);
 }

@@ -1,5 +1,6 @@
-// Pair-list tile blender, forward, for the gs2d and gut3d response models
-// and their packed forms gs2dp and gut3dp: K1.
+// Pair-list tile blender, forward, for the gs2d and gut3d response models,
+// their packed forms gs2dp and gut3dp, and the mesh-composited frame's
+// gs2d_clip, tri2d and tri2d_smooth: K1.
 //
 // Replaces the Pallas kernel rasterize_pallas._make_fwd_kernel
 // (vk_gaussian_splatting_tpu/ops/rasterize_pallas.py:202) on the 3DGS,
@@ -61,6 +62,15 @@
 // pair is opaque: T falls to exactly 0 and the pixel takes its colour,
 // depth and id. The deterministic form compiles as it did (the flag is a
 // constant, the seed its kernel's last parameter, unread).
+// The mesh forms are compile-time hooks of the same kernels
+// (csrc/response.cuh): gs2d_clip reads each pixel's depth limit
+// (model_pixel) and fails eval behind it; tri2d and tri2d_smooth blend an
+// unclamped alpha of exactly 1 (CLAMP), so the first covering face takes T
+// to 0, and tri2d_smooth takes its colour and picked depth per pixel from
+// the face's barycentrics (PIXEL_ATTRS; every model's blend reads both
+// through response::blend_attrs). The triangles' reach is the edge
+// functions' over the warp's rectangle. Every other form compiles as it
+// did.
 //
 // What bounds it on the H100: f32 operations per (pixel, pair) evaluation,
 // about 17 for gs2d and 68 for gut3d (the canonical ray, an rsqrtf and an
@@ -111,7 +121,7 @@ warp_mask_kernel(const float* __restrict__ attrs, long long pair_stride,
   const int t = blockIdx.x;
   const int i = threadIdx.x;
   const response::Pixel pix =
-      response::load_pixel(t, tiles_x, response::warp_pixel(i), pix_ctx);
+      response::model_pixel<M>(t, tiles_x, response::warp_pixel(i), pix_ctx);
   M::warp_bound(bound[i >> 5], t, tiles_x, pix);
   __syncthreads();
   const int start = tile_start[t];
@@ -158,7 +168,7 @@ rasterize_fwd_kernel(const float* __restrict__ attrs, long long pair_stride,
   const int lane = i & 31;
   const int warp = i >> 5;
   const int px = response::warp_pixel(i);    // this thread's pixel in the tile
-  const response::Pixel pix = response::load_pixel(t, tiles_x, px, pix_ctx);
+  const response::Pixel pix = response::model_pixel<M>(t, tiles_x, px, pix_ctx);
   if (i == 0) s_kept = 0;
   const int start = tile_start[t];
   const int end = start + tile_count[t];
@@ -208,7 +218,7 @@ rasterize_fwd_kernel(const float* __restrict__ attrs, long long pair_stride,
         float a;
         typename M::Hit h;
         if (!M::eval(v, 1, 0, pix, prm, a, h)) continue;  // alpha = 0
-        a = fminf(a, prm.alpha_clamp);
+        if constexpr (M::CLAMP) a = fminf(a, prm.alpha_clamp);
         if constexpr (STOCH) {
           const int p = s_p[j];
           a = response::stochastic_accept(
@@ -216,13 +226,15 @@ rasterize_fwd_kernel(const float* __restrict__ attrs, long long pair_stride,
           if (a == 0.0f) continue;  // rejected: alpha = 0
         }
         const float w = a * T;
-        cr += w * v[6];
-        cg += w * v[7];
-        cb += w * v[8];
+        float rgb[3], d;
+        response::blend_attrs<M>(v, h, rgb, d);
+        cr += w * rgb[0];
+        cg += w * rgb[1];
+        cb += w * rgb[2];
         T *= 1.0f - a;
         if (!picked && T < depth_iso) {
           picked = true;
-          depth = v[M::DEPTH_SLOT];
+          depth = d;
           pick = s_id[j];
         }
       }
@@ -271,8 +283,9 @@ int launch(const float* attrs, long long pair_stride, const int* ids, const int*
 }  // namespace
 
 // Launch the per-warp cull and the blend, one block per tile each, on
-// `stream`; return cudaGetLastError(). gs2d reads no pixel context (pix_ctx
-// may be null); gut3d reads the (T, 8, 256) one. masks: a byte per pair
+// `stream`; return cudaGetLastError(). gs2d and the triangles read no pixel
+// context (pix_ctx may be null); gut3d and gs2d_clip read the (T, 8, 256)
+// one. masks: a byte per pair
 // (pair_stride of them), scratch the cull writes for the pairs of the
 // tiles' ranges and the blend reads. kept must hold 0 on entry: each block
 // of the blend adds the (warp, pair) bits it kept, over the blend steps it
@@ -329,4 +342,26 @@ extern "C" int rasterize_fwd_gs2dp_stoch(RASTERIZE_FWD_PARAMS) {
 extern "C" int rasterize_fwd_gut3dp_stoch(RASTERIZE_FWD_PARAMS) {
   if (pix_ctx == nullptr) return (int)cudaErrorInvalidValue;
   return launch<response::Gut3dp, true>(RASTERIZE_FWD_ARGS);
+}
+
+// The mesh-composited frame: the splat pass behind the mesh depth (and its
+// stochastic form), the flat and the smooth triangles.
+extern "C" int rasterize_fwd_gs2d_clip(RASTERIZE_FWD_PARAMS) {
+  if (pix_ctx == nullptr) return (int)cudaErrorInvalidValue;
+  return launch<response::Gs2dClip>(RASTERIZE_FWD_ARGS);
+}
+
+extern "C" int rasterize_fwd_gs2d_clip_stoch(RASTERIZE_FWD_PARAMS) {
+  if (pix_ctx == nullptr) return (int)cudaErrorInvalidValue;
+  return launch<response::Gs2dClip, true>(RASTERIZE_FWD_ARGS);
+}
+
+extern "C" int rasterize_fwd_tri2d(RASTERIZE_FWD_PARAMS) {
+  pix_ctx = nullptr;
+  return launch<response::Tri2d>(RASTERIZE_FWD_ARGS);
+}
+
+extern "C" int rasterize_fwd_tri2d_smooth(RASTERIZE_FWD_PARAMS) {
+  pix_ctx = nullptr;
+  return launch<response::Tri2dSmooth>(RASTERIZE_FWD_ARGS);
 }

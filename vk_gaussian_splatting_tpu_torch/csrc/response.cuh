@@ -33,6 +33,21 @@
 //   dh = dc rsqrt(|dc|^2 + 1e-30), D = |dh x oc|^2,
 //   resp = K_degree(D), a_raw = opacity resp,
 //   kept where a_raw > alpha_min and resp > kernel_min_response.
+// gs2d_clip (the mesh-composited frame's splat pass): gs2d, and where the
+// pixel's depth limit (pixel-context row 6; Pixel::limit, loaded for this
+// model alone by model_pixel) is > 0 a lane whose depth is not below it
+// fails eval. Its backward stages the depth to rebuild that keep.
+// tri2d and tri2d_smooth (the mesh pass): opaque triangles, rows 0-5 the
+// vertices' absolute pixel xy. eval computes the three edge functions on
+// vertices recentred on the tile origin and passes where the pixel centre
+// is inside in either winding, each edge pushed out by 0.05 of its L1
+// length; a_raw is exactly 1 and is not clamped (CLAMP), so the first
+// covering face takes T to exactly 0. tri2d: rows 6-8 the flat colour, 9
+// the centroid depth; its VJP writes zeros (the coverage is a select of
+// constants), only the blend's colour gradients remain. tri2d_smooth
+// (forward only): rows 6-14 the vertices' colours, 15-17 their view z; the
+// blend takes a per-pixel colour and depth (PIXEL_ATTRS, pixel_attrs) from
+// the perspective-correct barycentrics of the edge functions eval keeps.
 // gs2dp and gut3dp, the packed tier (forward only; ops/response.py): the
 // same two models on fewer rows, most attributes as two bf16 halves of an
 // f32 word and opacity as 16-bit fixed point beside bf16 blue. Each is its
@@ -81,6 +96,7 @@ constexpr int TILE = 16;
 constexpr int PIX = TILE * TILE;   // threads per block, pixels per tile
 constexpr int WARPS = PIX / 32;
 constexpr int PIX_ROWS = 8;        // pixel-context rows per tile: 0-2 d, 3-5 o
+constexpr int PIX_DEPTH_LIMIT = 6; // pixel-context row of gs2d_clip's depth limit
 constexpr double CULL_REL = 1e-3;  // relative growth of every cull radius
 constexpr int WARP_W = 8, WARP_H = 4;  // K1's warps: 8x4 pixel blocks
 
@@ -113,10 +129,12 @@ struct Params {
   int degree;
 };
 
-// What a thread knows of its pixel: its center, and its ray (gut3d).
+// What a thread knows of its pixel: its center, its ray (gut3d), and its
+// depth limit (gs2d_clip).
 struct Pixel {
   float px, py;
   float d[3], o[3];
+  float limit;
 };
 
 // Pixel i of tile t; the ray from the pixel context when there is one.
@@ -131,6 +149,37 @@ __device__ inline Pixel load_pixel(int t, int tiles_x, int i, const float* __res
     p.o[k] = c == nullptr ? 0.0f : c[(3 + k) * PIX];
   }
   return p;
+}
+
+// Pixel i of tile t as model M reads it: load_pixel, or for a model with a
+// depth limit (DEPTH_LIMIT) the centre and row PIX_DEPTH_LIMIT of the
+// context alone.
+template <class M>
+__device__ inline Pixel model_pixel(int t, int tiles_x, int i,
+                                    const float* __restrict__ pix_ctx) {
+  if constexpr (M::DEPTH_LIMIT) {
+    Pixel p = load_pixel(t, tiles_x, i, nullptr);
+    p.limit = pix_ctx[((size_t)t * PIX_ROWS + PIX_DEPTH_LIMIT) * PIX + i];
+    return p;
+  } else {
+    return load_pixel(t, tiles_x, i, pix_ctx);
+  }
+}
+
+// The colour and the picked depth a pair gives a pixel in the blend, from
+// its staged slots v: slots 6-8 and DEPTH_SLOT, or the model's own per
+// pixel (PIXEL_ATTRS: tri2d_smooth's barycentric colour and depth).
+template <class M>
+__device__ inline void blend_attrs(const float* v, const typename M::Hit& h, float* rgb,
+                                   float& depth) {
+  if constexpr (M::PIXEL_ATTRS) {
+    M::pixel_attrs(v, 1, 0, h, rgb, depth);
+  } else {
+    rgb[0] = v[6];
+    rgb[1] = v[7];
+    rgb[2] = v[8];
+    depth = v[M::DEPTH_SLOT];
+  }
 }
 
 // The packed tier's words (ops/response.py unpack2bf16, unpack_bf16_u16):
@@ -150,6 +199,10 @@ struct Gs2d {
   // reduces 3 pairs' 9 gradient rows at once
   static constexpr bool CULL_PAIRS = true;
   static constexpr int PAIR_GROUP = 3;
+  // compile-time hooks of the blends: alpha clamped at alpha_clamp; a
+  // per-pixel colour and depth (pixel_attrs) in place of the rows; the
+  // pixel's depth limit loaded (model_pixel)
+  static constexpr bool CLAMP = true, PIXEL_ATTRS = false, DEPTH_LIMIT = false;
   static constexpr int ROWS = 10;       // f32 attribute rows
   static constexpr int DEPTH_ROW = 9;   // aux pick and bucket merge key
   static constexpr int GRAD_ROWS = 9;   // rows 0-8 get gradients
@@ -313,6 +366,194 @@ struct Gs2dp : Gs2d {
   }
 };
 
+// gs2d behind the pixel's depth limit: gs2d's eval, and the lane kept where
+// limit <= 0 or depth < limit (ops/response.depth_keep, the JAX
+// _depth_clip); everything else is gs2d's, the backward slots with the
+// depth.
+struct Gs2dClip : Gs2d {
+  static constexpr bool DEPTH_LIMIT = true;
+  static constexpr int BWD_SLOTS = 10;  // gs2d's 9 and the depth, which the keep reads
+
+  __device__ static void stage_bwd(const float* __restrict__ attrs, long long stride,
+                                   long long col, float* s, int ss, int j) {
+    #pragma unroll
+    for (int r = 0; r < BWD_SLOTS; ++r) s[r * ss + j] = attrs[r * stride + col];
+  }
+
+  __device__ static bool eval(const float* s, int ss, int j, const Pixel& p, const Params& prm,
+                              float& a_raw, Hit& h) {
+    const bool hit = Gs2d::eval(s, ss, j, p, prm, a_raw, h);
+    return hit && (p.limit <= 0.0f || s[DEPTH_SLOT * ss + j] < p.limit);
+  }
+};
+
+// Flat opaque triangles (ops/response.tri2d_alpha): rows 0-5 the vertices'
+// absolute pixel xy, 6-8 the colour, 9 the centroid depth, staged as they
+// are. The bounds are gs2d's rectangles of pixel centres; K2 does not cull
+// the pair lists (a triangle's rect is its box, and its cull costs f64
+// tests per pair).
+struct Tri2d : Gs2d {
+  static constexpr bool CULL_PAIRS = false;
+  static constexpr bool CLAMP = false;
+  static constexpr int ROWS = 10;
+  static constexpr int DEPTH_ROW = 9;
+  static constexpr int GRAD_ROWS = 9;   // rows 0-8: the vertices' zeros and the colours
+  static constexpr int FWD_SLOTS = 10;
+  static constexpr int BWD_SLOTS = 9;
+  static constexpr int DEPTH_SLOT = 9;
+
+  struct Hit {
+    float e[3];  // the edge functions
+  };
+
+  // The edge functions and their tolerances at the pixel centre, the
+  // twin's operations in its order: the tile origin is exact (px - 16
+  // floor(px / 16)), each vertex coordinate less it rounds once.
+  __device__ static void edges(const float* s, int ss, int j, const Pixel& p, float* e,
+                               float* tol) {
+    const float lx = p.px - 16.0f * floorf(p.px / 16.0f);
+    const float ly = p.py - 16.0f * floorf(p.py / 16.0f);
+    const float ox = p.px - lx, oy = p.py - ly;
+    float x[3], y[3];
+    #pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      x[k] = s[(2 * k) * ss + j] - ox;
+      y[k] = s[(2 * k + 1) * ss + j] - oy;
+    }
+    #pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      const int b = a == 2 ? 0 : a + 1;
+      e[a] = (x[b] - x[a]) * (ly - y[a]) - (y[b] - y[a]) * (lx - x[a]);
+      tol[a] = 0.05f * (fabsf(x[b] - x[a]) + fabsf(y[b] - y[a]));
+    }
+  }
+
+  __device__ static bool eval(const float* s, int ss, int j, const Pixel& p, const Params&,
+                              float& a_raw, Hit& h) {
+    float t[3];
+    edges(s, ss, j, p, h.e, t);
+    a_raw = 1.0f;
+    return (h.e[0] >= -t[0] && h.e[1] >= -t[1] && h.e[2] >= -t[2]) ||
+           (h.e[0] <= t[0] && h.e[1] <= t[1] && h.e[2] <= t[2]);
+  }
+
+  __device__ static void vjp(const float*, int, int, const Pixel&, const Params&, const Hit&,
+                             float, float, float* g) {
+    #pragma unroll
+    for (int r = 0; r < 6; ++r) g[r] = 0.0f;
+  }
+
+  // The triangle's reach. eval passes at a pixel only where all three f32
+  // edge functions are >= -t_f32 or all <= t_f32. Each f32 e_k lies within
+  // 26 eps S^2 (eps = 2^-24) of the exact edge function E_k(p) = a_k (py -
+  // y_k) - b_k (px - x_k) in absolute pixels, with S the largest |vertex -
+  // tile origin| per axis (>= 16): the recentring rounds each coordinate by
+  // eps S, the differences, products and the subtraction add 24 eps S^2 in
+  // all, and t_f32 lies within eps S of the exact 0.05 (|a_k| + |b_k|). So a
+  // culled pair needs, over the bound's rectangle of pixel centres (whose
+  // tile origin lies within 16 of it: S <= the largest vertex distance from
+  // the rectangle's corners + 16), some E_i's maximum below -(t_i + err) and
+  // some E_j's minimum above t_j + err, err = TRI_ERR S^2 = 1e-5 S^2 (six
+  // times the bound); E is affine, so its extremes over the rectangle are
+  // corner sums. A degenerate triangle (collinear or coincident vertices)
+  // keeps the pixels near its line, where its E_k are 0; rows that are not
+  // finite are kept.
+  struct Reach {
+    double a[3], b[3], c[3], t[3], x0, x1, y0, y1;  // E_k = a_k py - b_k px + c_k
+    bool fixed, answer;
+  };
+
+  __device__ static Reach reach(const float* s, int ss, int j, const Params&) {
+    double v[6];
+    #pragma unroll
+    for (int k = 0; k < 6; ++k) v[k] = s[k * ss + j];
+    Reach r;
+    r.fixed = true;
+    r.answer = true;
+    if (!finite_all(v, 6)) return r;
+    #pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      const int n = k == 2 ? 0 : k + 1;
+      r.a[k] = v[2 * n] - v[2 * k];
+      r.b[k] = v[2 * n + 1] - v[2 * k + 1];
+      r.c[k] = r.b[k] * v[2 * k] - r.a[k] * v[2 * k + 1];
+      r.t[k] = 0.05 * (fabs(r.a[k]) + fabs(r.b[k]));
+    }
+    r.x0 = fmin(fmin(v[0], v[2]), v[4]);
+    r.x1 = fmax(fmax(v[0], v[2]), v[4]);
+    r.y0 = fmin(fmin(v[1], v[3]), v[5]);
+    r.y1 = fmax(fmax(v[1], v[3]), v[5]);
+    r.fixed = false;
+    return r;
+  }
+
+  __device__ static bool reach_hits(const Reach& r, const TileBound& b) {
+    if (r.fixed) return r.answer;
+    const double s = fmax(fmax(fmax(r.x1 - b.x0, b.x1 - r.x0), r.y1 - b.y0), b.y1 - r.y0) + 16.0;
+    const double err = 1e-5 * s * s;
+    bool below = false, above = false;
+    #pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      const double hi = r.c[k] + fmax(r.a[k] * b.y0, r.a[k] * b.y1) +
+                        fmax(-r.b[k] * b.x0, -r.b[k] * b.x1);
+      const double lo = r.c[k] + fmin(r.a[k] * b.y0, r.a[k] * b.y1) +
+                        fmin(-r.b[k] * b.x0, -r.b[k] * b.x1);
+      const double slack = r.t[k] * (1.0 + 1e-6) + err;
+      below = below || hi < -slack;
+      above = above || lo > slack;
+    }
+    return !(below && above);
+  }
+
+  __device__ static bool may_hit(const float* s, int ss, int j, const TileBound& b,
+                                 const Params& prm) {
+    return reach_hits(reach(s, ss, j, prm), b);
+  }
+};
+
+// Smooth opaque triangles (forward only): tri2d's coverage, rows 6-14 the
+// vertices' colours (vertex k's channel c at 6 + 3 k + c), 15-17 their view
+// z; the blend reads pixel_attrs. K1's cull stages rows 0-5 alone.
+struct Tri2dSmooth : Tri2d {
+  static constexpr bool PIXEL_ATTRS = true;
+  static constexpr int ROWS = 18;
+  static constexpr int DEPTH_ROW = 15;
+  static constexpr int FWD_SLOTS = 18;
+  static constexpr int BWD_SLOTS = 6;
+  static constexpr int DEPTH_SLOT = 15;
+
+  __device__ static void stage_fwd(const float* __restrict__ attrs, long long stride,
+                                   long long col, float* s, int ss, int j) {
+    #pragma unroll
+    for (int r = 0; r < FWD_SLOTS; ++r) s[r * ss + j] = attrs[r * stride + col];
+  }
+
+  __device__ static void stage_bwd(const float* __restrict__ attrs, long long stride,
+                                   long long col, float* s, int ss, int j) {
+    #pragma unroll
+    for (int r = 0; r < BWD_SLOTS; ++r) s[r * ss + j] = attrs[r * stride + col];
+  }
+
+  // ops/response.tri2d_smooth_pixel, term for term: barycentrics w =
+  // (e1, e2, e0) / (e0 + e1 + e2), a_k = w_k / max(z_k, 1e-6), the depth
+  // 1 / max(a_0 + a_1 + a_2, 1e-12) and the colour sum a_k c_k times it.
+  __device__ static void pixel_attrs(const float* s, int ss, int j, const Hit& h, float* rgb,
+                                     float& depth) {
+    const float area = h.e[0] + h.e[1] + h.e[2];
+    const float inv = 1.0f / (fabsf(area) < 1e-12f ? 1.0f : area);
+    const float w[3] = {h.e[1] * inv, h.e[2] * inv, h.e[0] * inv};
+    float a[3];
+    #pragma unroll
+    for (int k = 0; k < 3; ++k) a[k] = w[k] / fmaxf(s[(DEPTH_SLOT + k) * ss + j], 1e-6f);
+    depth = 1.0f / fmaxf(a[0] + a[1] + a[2], 1e-12f);
+    #pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      rgb[c] = (a[0] * s[(6 + c) * ss + j] + a[1] * s[(9 + c) * ss + j] +
+                a[2] * s[(12 + c) * ss + j]) * depth;
+    }
+  }
+};
+
 // The generalized Gaussian of degree n (threedgrt.h.slang:83-127) and its
 // slope dK/dD (where the degree-0 kernel is above its floor, as the cutoff
 // resp > min_response >= 0 ensures).
@@ -348,6 +589,7 @@ struct Gut3d {
   // first pair's 14 rows hold through the second's VJP (PERF.md §6).
   static constexpr bool CULL_PAIRS = false;
   static constexpr int PAIR_GROUP = 1;
+  static constexpr bool CLAMP = true, PIXEL_ATTRS = false, DEPTH_LIMIT = false;
   static constexpr int ROWS = 15;
   static constexpr int DEPTH_ROW = 14;
   static constexpr int GRAD_ROWS = 14;  // rows 0-13; rows 6-8 from the blend

@@ -1,6 +1,7 @@
 import os
 
 from vk_gaussian_splatting_tpu_torch.io.cameras_json import import_cameras_inria
+from vk_gaussian_splatting_tpu_torch.io.obj import load_obj
 from vk_gaussian_splatting_tpu_torch.io.ply import load_ply, save_ply
 from vk_gaussian_splatting_tpu_torch.io.splat_file import load_splat_file, save_splat_file
 from vk_gaussian_splatting_tpu_torch.io.spz import load_spz, save_spz
@@ -21,8 +22,7 @@ def load_scene(path: str, **kw):
     raise ValueError(f"unsupported splat file extension: {ext}")
 
 
-# load_obj (meshes) waits for ROADMAP.md queue 1 item 15
 __all__ = [
     "load_ply", "save_ply", "load_splat_file", "save_splat_file",
-    "load_spz", "save_spz", "import_cameras_inria", "load_scene",
+    "load_spz", "save_spz", "import_cameras_inria", "load_obj", "load_scene",
 ]

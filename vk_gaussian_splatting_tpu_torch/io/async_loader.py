@@ -154,24 +154,24 @@ class AsyncHostSorter:
                 self._pending_dir = view_dir
                 return
             self._running = True
-        self._start(view_dir)
+            self._start(view_dir)
 
     def _start(self, view_dir):
+        """Start a sort of ``view_dir``. The caller holds the lock, so
+        ``join`` never sees a thread that has not started."""
         self._thread = threading.Thread(target=self._inner_sort, args=(view_dir,), daemon=True)
         self._thread.start()
 
     def _inner_sort(self, view_dir):
         order = sort_order(self.means, view_dir)
-        restart = None
         with self._lock:
             self._result = order
             self._result_dir = view_dir
             if self._pending_dir is not None:
                 restart, self._pending_dir = self._pending_dir, None
+                self._start(restart)
             else:
                 self._running = False
-        if restart is not None:
-            self._start(restart)
 
     def consume(self):
         """(order, view_dir) of the most recent finished sort, or None."""

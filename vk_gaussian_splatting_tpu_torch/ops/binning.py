@@ -7,7 +7,8 @@ covers. Two expansions, both plain tensor code:
 1. **slots** (the default): every splat gets a fixed run of tile slots
    around its own tile. Splats are ranked by tile coverage, largest first
    (the rank ladder): the top n/64 get a 4K-slot window, the next (to n/4) a
-   K-slot window, the rest min(4, K). A splat whose rectangle exceeds its
+   K-slot window, the rest min(4, K). With ``classes=False`` (triangles:
+   few and large) there is no ladder: every splat gets a K-slot window. A splat whose rectangle exceeds its
    window is truncated and ``overflow`` is set — the JAX package does the
    same, and so does this port, on the same splats.
 2. **exact**: the precise rectangle of every splat, up to a ``max_pairs``
@@ -172,9 +173,10 @@ def _window(x0, y0, x1, y1, cx, cy, gate, k: int, tiles_x: int, num_tiles: int):
 
 
 def _expand_slots(x0, y0, x1, y1, xy, valid0, *, tile_size, tiles_x,
-                  num_tiles, slots_k):
+                  num_tiles, slots_k, classes=True):
     """Rank-ladder slot expansion -> (pair_tile, pair_src, num_pairs,
-    overflow, EmitLayout)."""
+    overflow, EmitLayout); without ``classes`` (or with K <= 4) one K-slot
+    window per splat (the JAX ``use_classes = classes and k_m > k_a``)."""
     n = x0.shape[0]
     dev = x0.device
     k_m = slots_k
@@ -189,7 +191,7 @@ def _expand_slots(x0, y0, x1, y1, xy, valid0, *, tile_size, tiles_x,
         return _window(x0[idx], y0[idx], x1[idx], y1[idx], cx[idx], cy[idx],
                        valid0[idx], k, tiles_x, num_tiles)
 
-    if k_m <= k_a:
+    if not classes or k_m <= k_a:
         # no ladder: every splat gets the same K-slot window
         tile, sv, trunc = win(slice(None), k_m)
         src = torch.arange(n, device=dev)[:, None].expand(n, k_m)
@@ -251,7 +253,7 @@ def bin_splats(proj: ProjectedSplats, rows: torch.Tensor, ids: torch.Tensor, *,
                tile_size: int, tiles_x: int, tiles_y: int, chunk: int = 128,
                slots_k: int = 16, max_pairs: int = 0,
                expansion: str = "slots", grad_rows: int = GS_DEPTH,
-               sort_depth: torch.Tensor | None = None) -> TileBins:
+               sort_depth: torch.Tensor | None = None, classes: bool = True) -> TileBins:
     """Expand, sort and range the (splat, tile) pairs.
 
     rows: (R, N) f32 per-splat attribute rows, differentiable in their
@@ -262,6 +264,8 @@ def bin_splats(proj: ProjectedSplats, rows: torch.Tensor, ids: torch.Tensor, *,
     of the exact expansion (unused by slots). sort_depth: (N,) a depth that
     replaces ``proj.depth`` in the sort key alone (3DGRT's radial distance,
     as the JAX ``bin_for_cfg``'s depth_override); the rows are not touched.
+    classes: the slots expansion's rank ladder (False: one ``slots_k``
+    window per splat, as ``render_mesh`` bins its triangles).
     """
     num_tiles = tiles_x * tiles_y
     depth = proj.depth if sort_depth is None else sort_depth
@@ -272,7 +276,7 @@ def bin_splats(proj: ProjectedSplats, rows: torch.Tensor, ids: torch.Tensor, *,
     if expansion == "slots":
         tile, src, num_pairs, overflow, layout = _expand_slots(
             x0, y0, x1, y1, proj.xy, valid0, tile_size=tile_size,
-            tiles_x=tiles_x, num_tiles=num_tiles, slots_k=slots_k)
+            tiles_x=tiles_x, num_tiles=num_tiles, slots_k=slots_k, classes=classes)
     elif expansion == "exact":
         tile, src, num_pairs, overflow, layout = _expand_exact(
             x0, y0, x1, y1, valid0, tiles_x=tiles_x, num_tiles=num_tiles,

@@ -75,6 +75,7 @@ from vk_gaussian_splatting_tpu_torch.ops.rasterize import (
     _ptr,
     _tile_pixel_coords,
     blend_work,
+    check_bucket_model,
     bwd_context,
     check_pix_ctx,
     count_launch,
@@ -386,6 +387,7 @@ def bucket_work(attrs: torch.Tensor, bucket_starts: torch.Tensor, st: RasterStat
 
 def _check_inputs(attrs, bucket_starts, st, caps, ids=None, ctx=None, pix_ctx=None) -> int:
     """Validate the blend inputs; returns the slot count P."""
+    check_bucket_model(st)
     spec = BucketGridSpec.build(st.tiles_x, st.tiles_y)
     dev = attrs.device
     p = attrs.shape[1] if attrs.dim() == 2 else -1

@@ -8,14 +8,16 @@ wrapped by ``_rt_bwd``, :599-633) for the gs2d and gut3d response models
 (``RasterStatics.model``, ops/response.py), and ``assemble_image``
 (:645-680). The CUDA kernels are ``csrc/rasterize_fwd.cu`` and
 ``csrc/rasterize_bwd.cu``, one entry point per model in each. The packed
-models gs2dp and gut3dp (ops/response.py) are forward only: K1 has an entry
-for each, and a backward through them raises NotImplementedError, as
-``rasterize_pallas._rt_bwd`` does.
+models gs2dp and gut3dp and the smooth triangles tri2d_smooth
+(ops/response.py) are forward only: K1 has an entry for each, and a
+backward through them raises NotImplementedError, as
+``rasterize_pallas._rt_bwd`` does. The mesh models gs2d_clip (gs2d behind
+a per-pixel depth limit) and tri2d (flat opaque triangles) have both.
 
 The gut3d model reads a per-tile pixel context ``pix_ctx``, (T, 8, 256) f32
-rays (render/rays.py); it gets no gradient, as in the JAX package, where
-the rays depend on the camera alone. Its attributes are 15 f32 rows,
-gs2d's 10 (ops/response.py).
+rays (render/rays.py), and gs2d_clip one whose row 6 is the depth limit; it
+gets no gradient, as in the JAX package. gut3d's attributes are 15 f32
+rows, gs2d's 10 (ops/response.py).
 
 Per tile the output is rows ``(r, g, b, T, depth)`` over the tile's 256
 pixels, ``(T, 5, 256)`` f32, plus the picked splat ids ``(T, 256)`` int32 —
@@ -27,9 +29,9 @@ picked depth and id are not differentiated (as in the JAX package). On CUDA
 tensors the forward launches K1 and the backward K2; on CPU tensors both
 run the plain twins; nothing else decides which. A failed build or launch
 raises. Each wrapper counts its launches per form: ``launches`` for gs2d,
-``launches_gut3d`` for gut3d, ``launches_gs2dp`` and ``launches_gut3dp``
-for the packed models, and each of those with ``_stoch`` appended for the
-stochastic form (``RasterStatics.stochastic``).
+``launches_<model>`` for each other model (``LAUNCH_COUNTER``), and each of
+those with ``_stoch`` appended for the stochastic form
+(``RasterStatics.stochastic``; the triangles have none).
 
 Stochastic transparency (``RasterStatics.stochastic``, the JAX
 ``_alpha_closure``, rasterize_pallas.py:180-194): each pair that passes the
@@ -65,11 +67,11 @@ from vk_gaussian_splatting_tpu_torch.ops.response import (
     alpha,
     alpha_vjp,
     bound_of_warp,
-    f32_model,
     hash_uniform,
     may_hit,
     model_of,
     pair_reach,
+    pixel_attrs,
     reach_may_hit,
     refuse_backward,
     stochastic_accept,
@@ -84,18 +86,17 @@ GRAD_ROWS = ATTR_B + 1  # gs2d: rows 0-8 get gradients; the depth row gets none
 MAX_CHUNK = 256    # csrc/rasterize_{fwd,bwd}.cu stage at most this many pairs
 STOCH = "_stoch"  # the suffix of a stochastic form's counters and C entries
 KEYROW = "_keyrow"  # the suffix of a key-row form's (RasterStatics.key_is_row, gs2d)
-# the launch counter of each form (a model, + STOCH for its stochastic
-# form, + KEYROW for the bucket kernels' key-row form of gs2d), an
-# attribute of each kernel's wrapper
-LAUNCH_COUNTER = {"gs2d": "launches", "gut3d": "launches_gut3d",
-                  "gs2dp": "launches_gs2dp", "gut3dp": "launches_gut3dp"}
-# the kept count of the last launch of each culling kernel (K1, K2, K3, K4),
-# an attribute of its wrapper, per form
-KEPT_COUNTER = {"gs2d": "kept", "gut3d": "kept_gut3d",
-                "gs2dp": "kept_gs2dp", "gut3dp": "kept_gut3dp"}
-for _counters in (LAUNCH_COUNTER, KEPT_COUNTER):
-    _counters.update({m + STOCH: name + STOCH for m, name in list(_counters.items())})
-    _counters.update({m + KEYROW: _counters[m] + KEYROW for m in ("gs2d", "gs2d" + STOCH)})
+# the model of each kernel form (a model, + STOCH for its stochastic form,
+# + KEYROW for the bucket kernels' key-row form of gs2d)
+FORM_MODEL = {m: m for m in MODELS}
+FORM_MODEL.update({m + STOCH: m for m in MODELS if MODELS[m].stochastic})
+FORM_MODEL.update({"gs2d" + KEYROW: "gs2d", "gs2d" + STOCH + KEYROW: "gs2d"})
+# the launch counter of each form, an attribute of each kernel's wrapper;
+# and the kept count of the last launch of each culling kernel (K1, K2, K3,
+# K4), an attribute of its wrapper, per form
+LAUNCH_COUNTER = {f: "launches" + f.removeprefix("gs2d") if FORM_MODEL[f] == "gs2d"
+                  else "launches_" + f for f in FORM_MODEL}
+KEPT_COUNTER = {f: "kept" + name.removeprefix("launches") for f, name in LAUNCH_COUNTER.items()}
 
 
 def form_of(st) -> str:
@@ -106,15 +107,25 @@ def form_of(st) -> str:
 
 def zero_counters(wrapper, models=tuple(MODELS)) -> None:
     """Set ``wrapper``'s launch and kept counters of ``models`` to 0, every
-    form of each (a pair wrapper's key-row counters stay 0: only the
-    bucket kernels have that form)."""
-    for f in LAUNCH_COUNTER:
-        if f.split("_")[0] in models:
-            setattr(wrapper, LAUNCH_COUNTER[f], 0)
+    form of each and no form of another model (a pair wrapper's key-row
+    counters stay 0: only the bucket kernels have that form)."""
+    for f, name in LAUNCH_COUNTER.items():
+        if FORM_MODEL[f] in models:
+            setattr(wrapper, name, 0)
             setattr(wrapper, KEPT_COUNTER[f], 0)
 
 
-TRAINED = ("gs2d", "gut3d")  # the models with a backward
+TRAINED = tuple(m for m, spec in MODELS.items() if spec.trained)  # the models with a backward
+BUCKET_MODELS = ("gs2d", "gut3d", "gs2dp", "gut3dp")  # the models K3 and K4 have forms of
+
+
+def check_bucket_model(st) -> None:
+    """Raise for a model the bucket kernels have no form of: gs2d_clip and
+    the triangles (their JAX bucket forms have no caller)."""
+    model_of(st)
+    if st.model not in BUCKET_MODELS:
+        raise NotImplementedError(f"the bucket kernels have no {st.model} form "
+                                  "(ROADMAP.md queue 2)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -250,10 +261,11 @@ def rasterize_tiles_ref(attrs: torch.Tensor, ids: torch.Tensor,
     ``tiles`` selects a subset of tiles (all by default); the result rows
     follow it. ``pix_ctx``: the (T, 8, 256) pixel context of gut3d.
     ``seed``, ``key_offset``: the stochastic stream (``_blend_steps``).
+    Each pair's colour and picked depth are the model's (``pixel_attrs``:
+    its rows, or tri2d_smooth's per pixel).
     """
     c = st.chunk
     dev = attrs.device
-    depth_row = f32_model(st).depth_row
     tiles = _all_tiles(tile_start, tiles)
     n = tiles.shape[0]
     lane = torch.arange(c, device=dev)
@@ -262,19 +274,22 @@ def rasterize_tiles_ref(attrs: torch.Tensor, ids: torch.Tensor,
     pick_d = torch.zeros((n, PIX), dtype=attrs.dtype, device=dev)
     pick_id = torch.full((n, PIX), -1, dtype=torch.int32, device=dev)
     picked = torch.zeros((n, PIX), dtype=torch.bool, device=dev)
-    for s in _blend_steps(attrs, tile_start, tile_count, st, tiles, pix_ctx, seed,
-                          key_offset)[1]:
+    pixels, steps = _blend_steps(attrs, tile_start, tile_count, st, tiles, pix_ctx, seed,
+                                 key_offset)
+    for s in steps:
         w = s.alpha * s.excl * s.tcol
-        acc = acc + torch.stack(
-            [(w * s.block[:, ch:ch + 1, :]).sum(-1) for ch in range(ATTR_R, ATTR_B + 1)],
-            dim=-1)
+        colours, depth = pixel_attrs(s.block, pixels.px, pixels.py, st)
+        acc = acc + torch.stack([(w * col).sum(-1) for col in colours], dim=-1)
         # depth and id at the first lane where T drops below depth_iso
         t_after = s.tcol * s.excl * s.q
         cond = (t_after < st.depth_iso) & (s.alpha > 0.0)
         first = torch.where(cond, lane, c).amin(dim=-1)             # (n, 256)
         upd = (first < c) & ~picked
         fl = first.clamp(max=c - 1)
-        d_sel = torch.gather(s.block[:, depth_row, :], 1, fl)
+        if depth.shape[1] == 1:
+            d_sel = torch.gather(depth[:, 0], 1, fl)
+        else:
+            d_sel = torch.gather(depth, 2, fl[..., None])[..., 0]
         id_sel = ids[torch.gather(s.pc, 1, fl)]
         pick_d = torch.where(upd, d_sel, pick_d)
         pick_id = torch.where(upd, id_sel, pick_id)
@@ -653,6 +668,8 @@ def entry_name(name: str, st) -> str:
     another instantiation of its model template), then ``_stoch`` for the
     stochastic form (its stochastic template flag) and ``_keyrow`` for the
     key-row form (its key-row flag; K3 and K4 of gs2d alone)."""
+    if name.startswith("raster_bucket"):
+        check_bucket_model(st)
     model_of(st)
     base = name if st.model == "gs2d" else f"{name}_{st.model}"
     return base + (STOCH if st.stochastic else "") + (KEYROW if st.key_is_row else "")

@@ -20,14 +20,26 @@ backwards need, and of the per-tile cull K2, K3 and K4 share
 ``jax.vjp``.
 The packed models gs2dp and gut3dp (``RasterConfig.pair_format="packed"``,
 the JAX ``response.py:60-109,201-264``) are the same two responses on
-fewer rows, forward only; the clip and triangle models are not ported yet.
+fewer rows, forward only. The mesh-composited frame adds three more (the
+JAX ``response.py:157-169,267-393``): gs2d_clip, gs2d behind a per-pixel
+depth limit, and the opaque triangles tri2d (flat colour) and tri2d_smooth
+(a perspective-correct Gouraud colour and view depth per pixel; forward
+only).
 
 Attribute rows, shape (rows, P) f32:
   gs2d : 0 x, 1 y, 2-4 conic (a, b, c), 5 opacity, 6-8 rgb, 9 depth
   gut3d: 0-2 position, 3-5 scale (linear), 6-8 rgb, 9-12 quat (w, x, y, z,
          unit), 13 opacity, 14 depth
-Color rows are 6-8 in both (the blender contracts them); the depth row is
-the aux pick and the bucket merge key, and gets no gradient. Where
+  gs2d_clip: gs2d's rows; its alpha is gs2d's, zeroed where the pixel's
+         depth limit (pixel-context row 6, ``PIX_DEPTH_LIMIT``) is > 0 and
+         the splat's depth is not below it
+  tri2d: 0-5 vertex xy (absolute pixels), 6-8 flat rgb, 9 centroid depth
+  tri2d_smooth: 0-5 vertex xy, 6-14 the three vertices' rgb (vertex-major,
+         each value rounded to bf16 as the JAX layout's packed words round
+         it, kept as an f32), 15-17 the vertices' view z
+Color rows are 6-8 in gs2d, gut3d and tri2d (the blender contracts them);
+tri2d_smooth's colour and picked depth are per pixel (``pixel_attrs``). The
+depth row is the aux pick and the bucket merge key, and gets no gradient. Where
 ``RasterStatics.key_is_row`` is set (the host-sorted bucket frame), gs2d
 rows carry one row more, the key row 10 (``GS_KEY``, the JAX ``KEY_ROW``):
 the host sorter's rank, on which the bucket kernels merge in place of the
@@ -51,7 +63,14 @@ it). ``unpack_rows`` turns packed rows into the parent model's f32 rows
 twin of a packed model is ``unpack_rows`` followed by the parent's twin.
 
 The gut3d model reads a per-tile pixel context (T, 8, 256): rows 0-2 the
-unit ray direction, 3-5 the ray origin (render/rays.py); rows 6-7 unused.
+unit ray direction, 3-5 the ray origin (render/rays.py); gs2d_clip reads
+row 6, the depth limit (<= 0: none; render/mesh_raster.depth_limit_pix_ctx).
+
+The triangles are opaque: alpha is exactly 1 inside (the edge functions on
+tile-recentred coordinates, either winding, each edge pushed out by 0.05
+of its L1 length) and 0 outside, never clamped at alpha_clamp, so the
+first covering face of a depth-sorted list takes T to exactly 0: a
+z-buffer as front-to-back blending. Their coverage has no gradient.
 """
 
 from __future__ import annotations
@@ -74,6 +93,7 @@ GUT_ROWS = 15
 
 # pixel-context rows, in the (8, 256) per-tile block
 RAY_DX, RAY_DY, RAY_DZ, RAY_OX, RAY_OY, RAY_OZ = 0, 1, 2, 3, 4, 5
+PIX_DEPTH_LIMIT = 6  # gs2d_clip: the mesh depth; <= 0 means no limit
 PIX_ROWS = 8
 TILE = 16
 PIX = TILE * TILE  # 256 pixels per tile
@@ -88,6 +108,13 @@ GUTP_PX, GUTP_PY, GUTP_PZ = 0, 1, 2
 GUTP_SXY, GUTP_SZW, GUTP_QXY, GUTP_QZD, GUTP_RG, GUTP_BO, GUTP_SORTD = 3, 4, 5, 6, 7, 8, 9
 GUTP_ROWS = 10
 
+TRI_X0, TRI_Y0, TRI_X1, TRI_Y1, TRI_X2, TRI_Y2 = 0, 1, 2, 3, 4, 5
+TRI_DEPTH = 9
+TRI_ROWS = 10
+TRIS_RGB = 6  # vertex k's channel ch at row TRIS_RGB + 3 k + ch
+TRIS_Z0 = 15  # vertex k's view z at row TRIS_Z0 + k
+TRIS_ROWS = 18
+
 
 @dataclasses.dataclass(frozen=True)
 class Model:
@@ -99,27 +126,49 @@ class Model:
     uses_pix: bool         # reads the per-tile pixel context
     cull_pairs: bool       # K2 culls its pair lists (csrc/response.cuh CULL_PAIRS)
     parent: str | None = None  # a packed model: the f32 model its rows unpack into
+    trained: bool = True   # has a backward (the packed models and tri2d_smooth do not)
+    stochastic: bool = True  # has a stochastic form (the triangles have none)
 
     @property
     def grad_rows(self) -> int:
         """Rows 0 .. grad_rows-1 get gradients: all before the depth row,
-        none of a packed model's (forward only)."""
-        return 0 if self.parent else self.depth_row
+        none of a forward-only model's."""
+        return self.depth_row if self.trained else 0
 
 
 MODELS = {
     "gs2d": Model(GS_ROWS, GS_DEPTH, (0, 1, 2, 3, 4, 5), False, True),
     "gut3d": Model(GUT_ROWS, GUT_DEPTH, (0, 1, 2, 3, 4, 5, 9, 10, 11, 12, 13), True, False),
-    "gs2dp": Model(GSP_ROWS, GSP_SORTD, (), False, False, parent="gs2d"),
-    "gut3dp": Model(GUTP_ROWS, GUTP_SORTD, (), True, False, parent="gut3d"),
+    "gs2dp": Model(GSP_ROWS, GSP_SORTD, (), False, False, parent="gs2d", trained=False),
+    "gut3dp": Model(GUTP_ROWS, GUTP_SORTD, (), True, False, parent="gut3d", trained=False),
+    "gs2d_clip": Model(GS_ROWS, GS_DEPTH, (0, 1, 2, 3, 4, 5), True, True),
+    "tri2d": Model(TRI_ROWS, TRI_DEPTH, (0, 1, 2, 3, 4, 5), False, False, stochastic=False),
+    "tri2d_smooth": Model(TRIS_ROWS, TRIS_Z0, (), False, False, trained=False,
+                          stochastic=False),
 }
+# the geometry (bounds and reach) each model's cull shares
+_GEOMETRY = {"gs2d_clip": "gs2d", "tri2d_smooth": "tri2d"}
 
 
 def model_of(st) -> Model:
     if st.model not in MODELS:
         raise NotImplementedError(f"response model {st.model!r} is not ported yet "
                                   "(ROADMAP.md queue 2)")
-    return MODELS[st.model]
+    model = MODELS[st.model]
+    if st.stochastic and not model.stochastic:
+        raise ValueError(f"the {st.model} model has no stochastic form")
+    return model
+
+
+def _f32_name(st) -> str:
+    """The model whose f32 rows the twins compute on (``f32_model``), by name."""
+    return model_of(st).parent or st.model
+
+
+def geometry(st) -> str:
+    """gs2d, gut3d or tri2d: whose bounds and reach ``st``'s cull uses."""
+    name = _f32_name(st)
+    return _GEOMETRY.get(name, name)
 
 
 def f32_model(st) -> Model:
@@ -150,7 +199,7 @@ def attr_rows(st) -> int:
 
 def refuse_backward(st) -> None:
     """Raise for a forward-only model (rasterize_pallas.py:600-606)."""
-    if model_of(st).parent:
+    if not model_of(st).trained:
         raise NotImplementedError("this response model is forward-only; use "
                                   "pair_format='f32' splat models for training")
 
@@ -297,6 +346,71 @@ def gs2d_alpha_vjp(block: torch.Tensor, px: torch.Tensor, py: torch.Tensor,
         da * g,                                    # opacity
     )
     return torch.stack([r.sum(dim=-2) for r in rows], dim=-2)
+
+
+# ---- gs2d_clip: gs2d behind the mesh depth ----------------------------------
+
+def depth_keep(block: torch.Tensor, pix: torch.Tensor) -> torch.Tensor:
+    """(..., 256, C) where the (..., 8, 256) pixel context's depth limit
+    lets a gs2d lane through: no limit (<= 0) or the lane's depth below it
+    (the JAX ``_depth_clip``, the FTB mesh depth prepass)."""
+    limit = _pix(pix, PIX_DEPTH_LIMIT)
+    return (limit <= 0.0) | (_row(block, GS_DEPTH) < limit)
+
+
+def gs2d_clip_alpha(block, px, py, pix, live, st) -> torch.Tensor:
+    """gs2d's alpha where ``depth_keep`` holds, else 0."""
+    return torch.where(depth_keep(block, pix), gs2d_alpha(block, px, py, live, st), 0.0)
+
+
+def gs2d_clip_alpha_vjp(block, px, py, pix, live, st, d_alpha) -> torch.Tensor:
+    """gs2d's VJP where ``depth_keep`` holds; the depth row and the limit
+    get none (the keep is a comparison)."""
+    return gs2d_alpha_vjp(block, px, py, live & depth_keep(block, pix), st, d_alpha)
+
+
+# ---- tri2d, tri2d_smooth: opaque triangles --------------------------------------
+
+def _tri_edges(block: torch.Tensor, px: torch.Tensor, py: torch.Tensor):
+    """((e0, e1, e2), (t0, t1, t2)): the edge functions and their
+    tolerances, (..., 256, C), on vertices recentred on the tile origin,
+    the JAX ``_tri_edges`` and ``tri2d_alpha`` term for term (px - 16
+    floor(px / 16) is exact, so is the origin; each x_k - origin rounds)."""
+    lx = px - 16.0 * torch.floor(px / 16.0)
+    ly = py - 16.0 * torch.floor(py / 16.0)
+    ox, oy = px - lx, py - ly
+    x = [_row(block, TRI_X0 + 2 * k) - ox for k in range(3)]
+    y = [_row(block, TRI_Y0 + 2 * k) - oy for k in range(3)]
+    e, t = [], []
+    for a, b in ((0, 1), (1, 2), (2, 0)):
+        e.append((x[b] - x[a]) * (ly - y[a]) - (y[b] - y[a]) * (lx - x[a]))
+        t.append(0.05 * (torch.abs(x[b] - x[a]) + torch.abs(y[b] - y[a])))
+    return e, t
+
+
+def tri2d_alpha(block, px, py, live) -> torch.Tensor:
+    """Exactly 1 where the pixel centre is inside the triangle (either
+    winding, within the tolerances), else 0; no clamp."""
+    (e0, e1, e2), (t0, t1, t2) = _tri_edges(block, px, py)
+    inside = (((e0 >= -t0) & (e1 >= -t1) & (e2 >= -t2))
+              | ((e0 <= t0) & (e1 <= t1) & (e2 <= t2)))
+    return torch.where(inside & live, 1.0, 0.0)
+
+
+def tri2d_smooth_pixel(block, px, py):
+    """([r, g, b], depth), each (..., 256, C): the perspective-correct
+    barycentric colour and view depth of every (pixel, face), the JAX
+    ``tri2d_smooth_pixel_colors`` and ``tri2d_smooth_pixel_depth`` term
+    for term (their depth is the colours' 1 / sum w_k / z_k)."""
+    e0, e1, e2 = _tri_edges(block, px, py)[0]
+    area = e0 + e1 + e2
+    inv = 1.0 / torch.where(torch.abs(area) < 1e-12, 1.0, area)
+    w = (e1 * inv, e2 * inv, e0 * inv)
+    a = [w[k] / torch.clamp(_row(block, TRIS_Z0 + k), min=1e-6) for k in range(3)]
+    zp = 1.0 / torch.clamp(a[0] + a[1] + a[2], min=1e-12)
+    rgb = [(a[0] * _row(block, TRIS_RGB + ch) + a[1] * _row(block, TRIS_RGB + 3 + ch)
+            + a[2] * _row(block, TRIS_RGB + 6 + ch)) * zp for ch in range(3)]
+    return rgb, zp
 
 
 # ---- gut3d ------------------------------------------------------------------
@@ -476,18 +590,41 @@ def gut3d_alpha_vjp(block: torch.Tensor, pix: torch.Tensor, live: torch.Tensor, 
 # rows pass through ``unpack_rows`` first.
 
 def alpha(block, px, py, pix, live, st) -> torch.Tensor:
-    """The alpha block of ``st.model``; gs2d reads px, py, gut3d the pixel
-    context ``pix``."""
-    if model_of(st).uses_pix:
+    """The alpha block of ``st.model``; gs2d and the triangles read px, py,
+    gut3d the pixel context ``pix``, gs2d_clip both."""
+    name = _f32_name(st)
+    if name == "gut3d":
         return gut3d_alpha(block, pix, live, st)
+    if name == "gs2d_clip":
+        return gs2d_clip_alpha(block, px, py, pix, live, st)
+    if geometry(st) == "tri2d":
+        return tri2d_alpha(block, px, py, live)
     return gs2d_alpha(block, px, py, live, st)
 
 
 def alpha_vjp(block, px, py, pix, live, st, d_alpha) -> torch.Tensor:
-    """The VJP of :func:`alpha`: (..., len(geo_rows), C)."""
-    if model_of(st).uses_pix:
+    """The VJP of :func:`alpha`: (..., len(geo_rows), C); tri2d's coverage
+    gives its vertex rows exact zeros."""
+    name = _f32_name(st)
+    if name == "gut3d":
         return gut3d_alpha_vjp(block, pix, live, st, d_alpha)
+    if name == "gs2d_clip":
+        return gs2d_clip_alpha_vjp(block, px, py, pix, live, st, d_alpha)
+    if name == "tri2d":
+        return d_alpha.new_zeros(d_alpha.shape[:-2] + (len(MODELS[name].geo_rows),
+                                                        d_alpha.shape[-1]))
     return gs2d_alpha_vjp(block, px, py, live, st, d_alpha)
+
+
+def pixel_attrs(block, px, py, st):
+    """([r, g, b], depth) the blend of ``st.model`` weights and picks: the
+    colour rows and the depth row, (..., 1, C) each, or tri2d_smooth's
+    per-pixel colour and depth (..., 256, C)."""
+    if _f32_name(st) == "tri2d_smooth":
+        return tri2d_smooth_pixel(block, px, py)
+    depth_row = f32_model(st).depth_row
+    return ([_row(block, ch) for ch in (ATTR_R, ATTR_G, ATTR_B)],
+            _row(block, depth_row))
 
 
 # ---- stochastic transparency (RasterStatics.stochastic) --------------------
@@ -563,8 +700,8 @@ def tile_bound(st, tiles: torch.Tensor, pix_ctx: torch.Tensor | None = None) -> 
     """The model's TileBound of each tile of ``tiles`` (n,), in double, as
     (n, 1) columns: gs2d the box of the tile's pixel centres (x0, y0, x1,
     y1); gut3d the cone of its rays from the (T, 8, 256) ``pix_ctx``
-    (``gut3d_tile_bound``)."""
-    if model_of(st).uses_pix:
+    (``gut3d_tile_bound``). gs2d_clip and the triangles take gs2d's."""
+    if geometry(st) == "gut3d":
         return tuple(x[:, None] if x.dim() == 1 else x[:, :, None]
                      for x in gut3d_tile_bound(pix_ctx[tiles]))
     x0 = ((tiles % st.tiles_x) * TILE).double()[:, None] + 0.5
@@ -578,7 +715,7 @@ def warp_bound(st, tiles: torch.Tensor, pix_ctx: torch.Tensor | None = None) -> 
     the last axis: gs2d the box of the warp's 32 pixel centres, (n, WARPS)
     each; gut3d the cone of its 32 rays (``gut3d_warp_bound``). Warp w's
     bound, shaped as ``tile_bound``'s: ``bound_of_warp``."""
-    if model_of(st).uses_pix:
+    if geometry(st) == "gut3d":
         return gut3d_warp_bound(pix_ctx[tiles])
     w = torch.arange(WARPS, device=tiles.device)
     across = TILE // WARP_W
@@ -595,16 +732,22 @@ def bound_of_warp(bound: tuple, w: int) -> tuple:
 def pair_reach(blk: torch.Tensor, st) -> tuple:
     """The model's reach (the lane's part of may_hit) over (rows, n, L) f32
     lane rows (``f32_model``'s layout)."""
-    if model_of(st).uses_pix:
+    kind = geometry(st)
+    if kind == "gut3d":
         return gut3d_reach(blk, st)
+    if kind == "tri2d":
+        return tri2d_reach(blk)
     return gs2d_reach(blk, st)
 
 
 def reach_may_hit(reach: tuple, bound: tuple, st) -> torch.Tensor:
     """(n, L) bool: ``pair_reach``'s lanes tested against one bound per row
     (``tile_bound``'s shape), as csrc/response.cuh reach_hits."""
-    if model_of(st).uses_pix:
+    kind = geometry(st)
+    if kind == "gut3d":
         return gut3d_reach_may_hit(reach, bound)
+    if kind == "tri2d":
+        return tri2d_reach_may_hit(reach, bound)
     return gs2d_reach_may_hit(reach, bound)
 
 
@@ -644,6 +787,47 @@ def gs2d_reach_may_hit(reach: tuple, bound: tuple) -> torch.Tensor:
     x0, y0, x1, y1 = bound
     miss = (x + rx < x0) | (x - rx > x1) | (y + ry < y0) | (y - ry > y1)
     return ~(sure & (never | miss))
+
+
+TRI_ERR = 1e-5  # the triangle reach's rounding term, per squared pixel of extent
+
+
+def tri2d_reach(blk: torch.Tensor) -> tuple:
+    """Tri2d::reach over (rows, n, L) lane rows: per edge k -> k + 1 (rows
+    (n, L) stacked on a first axis of 3) the exact edge function's affine
+    coefficients a = dx, b = dy, c = b x_k - a y_k (E(px, py) = a py - b px
+    + c, the edge function in absolute pixels) and its tolerance t = 0.05
+    (|dx| + |dy|); the vertices' box (x0, x1, y0, y1); whether the rows are
+    finite. In double from the f32 rows."""
+    v = blk[:6].double()
+    x, y = v[0::2], v[1::2]
+    nxt = [1, 2, 0]
+    a = x[nxt] - x
+    b = y[nxt] - y
+    c = b * x - a * y
+    t = 0.05 * (torch.abs(a) + torch.abs(b))
+    return (a, b, c, t, torch.fmin(torch.fmin(x[0], x[1]), x[2]),
+            torch.fmax(torch.fmax(x[0], x[1]), x[2]), torch.fmin(torch.fmin(y[0], y[1]), y[2]),
+            torch.fmax(torch.fmax(y[0], y[1]), y[2]), torch.isfinite(v).all(dim=0))
+
+
+def tri2d_reach_may_hit(reach: tuple, bound: tuple) -> torch.Tensor:
+    """Tri2d::reach_hits: False only where some edge function is below minus
+    its tolerance and some edge function above its tolerance all over the
+    bound's rectangle of pixel centres (then neither winding's test passes
+    at any of them), each by more than a bound of the f32 evaluation's
+    rounding, TRI_ERR S^2 with S the largest distance from a vertex to the
+    rectangle plus 16 (csrc/response.cuh derives it)."""
+    a, b, c, t, vx0, vx1, vy0, vy1, finite = reach
+    x0, y0, x1, y1 = bound
+    s = torch.fmax(torch.fmax(torch.fmax(vx1 - x0, x1 - vx0), vy1 - y0), y1 - vy0) + 16.0
+    err = TRI_ERR * s * s
+    hi = c + torch.fmax(a * y0, a * y1) + torch.fmax(-b * x0, -b * x1)
+    lo = c + torch.fmin(a * y0, a * y1) + torch.fmin(-b * x0, -b * x1)
+    slack = t * (1.0 + 1e-6) + err
+    below = (hi < -slack).any(dim=0)
+    above = (lo > slack).any(dim=0)
+    return ~(finite & below & above)
 
 
 def gut3d_tile_bound(pix: torch.Tensor):

@@ -37,6 +37,9 @@ pipeline on both methods, f32 and packed, each temporal sample with seed
 (ops/denoise.py). ``render_3dgs(host_order=...)`` blends in a splat order
 sorted on the host (``SortMethod.HOST``: io/async_loader.AsyncHostSorter),
 through the bucket kernels' key-row form on the bucket path (f32 rows).
+``render_3dgs_composed`` composites the 3DGS frame with an opaque triangle
+mesh (render/mesh_raster.py): the mesh pass, the splat pass clipped by the
+mesh depth (the gs2d_clip model), the mesh under the splats' transmittance.
 Configurations this port does not run yet raise
 ``NotImplementedError`` naming their ROADMAP.md item; none of them quietly
 takes another path.
@@ -71,6 +74,7 @@ from vk_gaussian_splatting_tpu_torch.ops.rasterize import (
     rasterize_bins,
 )
 from vk_gaussian_splatting_tpu_torch.ops.response import deg0_min_response, model_of, pack_rows
+from vk_gaussian_splatting_tpu_torch.render.mesh_raster import depth_limit_pix_ctx, render_mesh
 from vk_gaussian_splatting_tpu_torch.render.rays import build_tile_rays
 from vk_gaussian_splatting_tpu_torch.scene.cameras import Camera
 from vk_gaussian_splatting_tpu_torch.scene.splat_set import PreparedSplats
@@ -417,6 +421,42 @@ def render_3dgrt(prepared: PreparedSplats, cam: Camera, cfg: RenderConfig,
     """3DGRT primary rays (PIPELINE_RTX) as a raster pass: 3DGUT's frame in
     radial order (``gut_bin``), the stage spans of ``render_3dgut``."""
     return _render_gut(prepared, cam, cfg, max_pairs, radial_order=True)
+
+
+def render_3dgs_composed(prepared: PreparedSplats, cam: Camera, cfg: RenderConfig,
+                         max_pairs: int = 0, mesh=None, lights=()) -> RenderOutput:
+    """3DGS raster composited with an opaque triangle mesh (the FTB
+    mesh-composited frame, gaussian_splatting.cpp:705-850; the JAX
+    ``render_3dgs_composed``): the mesh pass (``render_mesh``, its depth
+    prepass), then the splat pass clipped by the mesh depth, then the mesh
+    colour under the splats' remaining transmittance. The splat pass bins
+    pairs whatever ``raster.method`` says and blends f32 gs2d rows with the
+    gs2d_clip model whatever ``pair_format`` says, over a black background,
+    once (a stochastic one with seed 0: no temporal samples, no denoise),
+    as the JAX function does. Differentiable in ``prepared`` (K2's gs2d_clip
+    form) and, through a flat mesh, in its face colours. ``num_pairs`` and
+    ``overflow`` are the splat pass's. The depth falls back to the mesh's
+    where the splats picked none and the mesh covers."""
+    _reject_unported(cfg)
+    with record_function("mesh"):
+        mesh_img, mesh_trans, mesh_depth, _ = render_mesh(mesh, cam, cfg, max_pairs, lights)
+    pairs = cfg.replace(raster=dataclasses.replace(cfg.raster, method="pairs"))
+    st = dataclasses.replace(raster_statics(cfg), model="gs2d_clip")
+    with record_function("project"):
+        proj = project_splats(prepared, cam, cfg)
+    with record_function("bin"):
+        rows, ids = gs_attr_rows(proj)
+        bins = bin_for_cfg(proj, rows, ids, pairs, max_pairs, st)
+    with record_function("blend"):
+        out, out_id = rasterize_bins(bins, st, depth_limit_pix_ctx(mesh_depth, cfg), 0)
+    with record_function("assemble"):
+        img, trans, depth, splat_id = assemble_image(out, out_id, st.tiles_x, st.tiles_y,
+                                                     cfg.width, cfg.height)
+        covered = mesh_trans < 0.5
+        return RenderOutput(image=img + trans[..., None] * mesh_img,
+                            transmittance=trans * mesh_trans,
+                            depth=torch.where((depth == 0) & covered, mesh_depth, depth),
+                            splat_id=splat_id, num_pairs=bins.num_pairs, overflow=bins.overflow)
 
 
 def render_3dgrt_exact(prepared: PreparedSplats, cam: Camera, cfg: RenderConfig,
