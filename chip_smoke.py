@@ -2,6 +2,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --mesh-views ROUNDS   # phase 13's view sweep alone
+    python3 chip_smoke.py --lighting            # phase 14 alone (no report)
 
 Drives the port's main paths — the 3DGS raster frame, ``render(prepared,
 camera, cfg)``, and the training step, ``train_step`` (render, loss,
@@ -15,7 +16,9 @@ host-sorted frame (``render(..., host_order=)`` fed by
 ``io/async_loader.AsyncHostSorter``, ``SortMethod.HOST``) forward and
 backward with the splat IO (PLY, spz, .splat); meshes (``render_mesh``,
 smooth and flat, and the mesh-composited 3DGS frame
-``render_3dgs_composed``, forward and backward); and the design probes
+``render_3dgs_composed``, forward and backward); lighting and shadows (the
+lit 3DGS frame ``render_3dgs_lit`` and the hybrid frames ``render_hybrid``,
+HYBRID and HYBRID_3DGUT, with deep shadow maps); and the design probes
 P1-P3 through their own entry points — and checks them:
 
 1. builds the CUDA kernels from the checkout, one nvcc per source, all at
@@ -200,6 +203,29 @@ P1-P3 through their own entry points — and checks them:
    flat mesh's image in its face colours (K2 tri2d once, repeatable), K2
    tri2d against its twin (colour rows; the vertex rows exactly 0), its
    kept counter (every tested pair), bound and times;
+14. lighting and shadows (``lighting``), at the headline cell with two
+   lights (``headline_lights``: a directional light from above, which gets
+   a 512^2 cone map, and a point light inside the scene's bounding sphere,
+   which gets six 256^2 cube faces): ``render_3dgs_lit`` with two per-set
+   materials over the two halves of the splats (K1 gs2d twice: the pass and
+   its normal buffer; a bit-equal repeat, finite, covered pixels changed by
+   the shade); ``render_hybrid`` HYBRID and HYBRID_3DGUT on 8 jittered
+   frames each with every launch counter zeroed (per frame the blend's form
+   twice and K1's multi-iso form, csrc/rasterize_fwd.cu
+   ``rasterize_fwd_iso``, seven times), a bit-equal repeat, the shaded frame
+   unlike the one with no light, each light's lookups over the covered
+   pixels at two staircase levels or more; each map's pairs, overflow and
+   longest tile list; K1's multi-iso form on the cone map and on a 2048^2
+   map against its twin on sampled tiles, on the card bit for bit against
+   K1 gs2d (rows 0-3; row 4 + k against the pick at depth_iso =
+   ISO_LEVELS[k]), its kept counter against ``pair_warp_may_hit``'s count
+   and the audit of every tile, its bound (``OPS_PER_HIT``: four picks),
+   its twin's time and alone beside K1 gs2d in turns; ``render_hybrid`` at
+   128x96 with 2,000 splats on the card against the CPU (a shaded pixel
+   beyond 1e-4 must read another staircase level); one gradient of the lit
+   frame's shaded image (K2 gs2d twice, each launch against its twin with
+   its own context, ``bwd_gate``); the lit and hybrid frames beside the
+   3DGS frame and the hybrid frame's stages by events, and its profile;
 9. the probes (vk_gaussian_splatting_tpu_torch/probes): each probe's entry
    point at its script's default arguments (``bench_roll.run``,
    ``bench_sort_stage.run`` per variant, ``bench_radix_ab.run``: their
@@ -286,6 +312,15 @@ from vk_gaussian_splatting_tpu_torch.probes import bench_sort_stage as probe_sta
 from vk_gaussian_splatting_tpu_torch.timing import call_ms, device_label  # noqa: E402
 from vk_gaussian_splatting_tpu_torch.render import render, render_3dgs_composed  # noqa: E402
 from vk_gaussian_splatting_tpu_torch.render import mesh_raster as mr  # noqa: E402
+from vk_gaussian_splatting_tpu_torch.render.deferred import (  # noqa: E402
+    DeferredMaterial,
+    deferred_shade,
+    instance_index_image,
+    normal_bins,
+    normals_from_blend,
+    render_normal_buffer,
+    surface_points,
+)
 from vk_gaussian_splatting_tpu_torch.render.pipelines import (  # noqa: E402
     bin_for_cfg,
     blend_bins,
@@ -296,8 +331,22 @@ from vk_gaussian_splatting_tpu_torch.render.pipelines import (  # noqa: E402
     gut_bin,
     host_rank,
     packed,
+    pairs_cfg,
     raster_statics,
+    render_3dgs_lit,
+    render_hybrid,
 )
+from vk_gaussian_splatting_tpu_torch.render.shadows import (  # noqa: E402
+    ISO_LEVELS,
+    cube_cameras,
+    light_camera,
+    make_shadow_fn,
+    render_cube_shadow_map,
+    render_deep_shadow_map,
+    scene_bounds,
+    shadow_map_bins,
+)
+from vk_gaussian_splatting_tpu_torch.scene.lights import LightType, make_light  # noqa: E402
 from vk_gaussian_splatting_tpu_torch.render.rays import build_tile_rays  # noqa: E402
 from vk_gaussian_splatting_tpu_torch.scene.splat_set import SH_C0, random_splats  # noqa: E402
 
@@ -359,6 +408,9 @@ MESH_KERNELS = {name + "_" + form: (name, *_SOURCES[name])
                                                        "tri2d")))
                 for form in forms}
 KERNELS.update(MESH_KERNELS)
+# K1's multi-iso form (the deep shadow maps of render_hybrid): entry
+# rasterize_fwd_iso of the same source
+KERNELS.update({"rasterize_fwd" + tr.ISO: ("rasterize_fwd", *_SOURCES["rasterize_fwd"])})
 KERNELS.update({"bench_roll": ("bench_roll", *_SOURCES["bench_roll"])})
 KERNELS.update({stage_name(v): ("bench_sort_stage", *_SOURCES["bench_sort_stage"])
                 for v in probe_stage.VARIANTS})
@@ -474,6 +526,9 @@ OPS_PER_HIT.update({"rasterize_fwd_tri2d": 10, "rasterize_fwd_tri2d_smooth": 47,
                     "rasterize_fwd_gs2d_clip": 10, "rasterize_fwd_gs2d_clip_stoch": 10,
                     "rasterize_bwd_gs2d_clip": 53, "rasterize_bwd_gs2d_clip_stoch": 22,
                     "rasterize_bwd_tri2d": 22})
+# K1's multi-iso form (phase 14) blends a hit as gs2d does, with four picks
+# in place of one (three more compares and selects: 13)
+OPS_PER_HIT.update({"rasterize_fwd" + tr.ISO: 13})
 # The key-row forms (phase 12) do their parent's work; their merge reads the
 # key row in place of the depth row
 OPS_PER_HIT.update({name + tr.KEYROW: OPS_PER_HIT[name]
@@ -492,8 +547,8 @@ OPS_UNPACK = {"gs2dp": 9, "gut3dp": 26}
 BUCKET_VS_PAIR_ATOL, BUCKET_VS_PAIR_SHARE = 2e-4, 0.999
 TWIN_BATCH = 1024  # tiles per twin call at 1080p: a (1024, 256, 384) f32 step is 0.4 GB
 # the stage spans that render_3dgs and train_step open, in step order
-STAGES = ("prepare", "project", "bin", "rays", "blend", "assemble", "loss", "backward",
-          "optimizer")
+STAGES = ("prepare", "project", "bin", "rays", "blend", "assemble", "normals", "shadow_map",
+          "shade", "loss", "backward", "optimizer")
 PEAK_F32_OPS = 67e12   # H100 SXM, f32 outside the tensor cores
 PEAK_F64_OPS = 34e12   # H100 SXM, f64 outside the tensor cores (NVIDIA's data sheet)
 PEAK_BYTES = 3.35e12   # H100 SXM HBM3
@@ -575,11 +630,15 @@ def bwd_gate(d_k, d_r, rtol=BWD_RTOL):
 
 
 def gate_bwd_against_twin(label, d_k, twin, ctx, cols, grad_rows=tr.GRAD_ROWS,
-                          rtol=BWD_RTOL):
+                          rtol=BWD_RTOL, swap_not_suffix=False):
     """(max abs err, max err relative to each row's max) of a backward
     kernel's d_attrs ``d_k`` against ``twin(ctx)`` on the columns ``cols``,
     over its ``grad_rows`` gradient rows. Fails unless ``bwd_gate`` passes
-    (at ``rtol``), and unless it rejects the twin on two broken contexts."""
+    (at ``rtol``), and unless it rejects the twin on two broken contexts:
+    one warp's cotangent zeroed, and S_total zeroed or, with
+    ``swap_not_suffix``, the red and green cotangents swapped (for a pass
+    whose S_total vanishes by itself: the normal buffer is normalised after
+    the blend, so its cotangent is orthogonal to the blended colour)."""
     d_k, d_r = d_k[:, cols], twin(ctx)[:, cols]
     check(bool((d_k[grad_rows:] == 0).all()), f"{label} wrote the depth row")
     d_k, d_r = d_k[:grad_rows], d_r[:grad_rows]
@@ -591,10 +650,14 @@ def gate_bwd_against_twin(label, d_k, twin, ctx, cols, grad_rows=tr.GRAD_ROWS,
         + " ".join(f"{x:.2e}" for x in p999) + "; median nonzero |ref| / row max: "
         + " ".join(f"{x:.2e}" for x in typical.flatten().tolist()))
     check(ok, f"{label} vs twin outside the gates: {rel_err} / {share}")
-    warp_out, no_suffix = ctx.clone(), ctx.clone()
+    warp_out, other = ctx.clone(), ctx.clone()
     warp_out[:, :, 96:128] = 0.0
-    no_suffix[:, 3] = 0.0
-    for what, bad in (("one warp's cotangent zeroed", warp_out), ("S_total zeroed", no_suffix)):
+    if swap_not_suffix:
+        other[:, [0, 1]] = ctx[:, [1, 0]]
+    else:
+        other[:, 3] = 0.0
+    broken = "red and green swapped" if swap_not_suffix else "S_total zeroed"
+    for what, bad in (("one warp's cotangent zeroed", warp_out), (broken, other)):
         ok, _, bad_rel, bad_share, _ = bwd_gate(twin(bad)[:grad_rows, cols], d_r, rtol)
         log(f"  gate self-check, twin with {what}: max err / row max {bad_rel:.3e}, "
             f"share within {bad_share:.6f}, rejected={not ok}")
@@ -4220,9 +4283,409 @@ def meshes(dev, card: str, truth: gt.SplatSet):
     return entries, bounds
 
 
+# ---- lighting and shadows (render_3dgs_lit, render_hybrid): K1's multi-iso
+# form ------------------------------------------------------------------------
+#
+# The lit frame shades the 3DGS pass by its normal buffer (a second gs2d
+# blend) and two per-set materials; the hybrid frames (HYBRID: gs2d,
+# HYBRID_3DGUT: gut3d) add per-light deep shadow maps, each a gs2d blend by
+# K1's multi-iso form from the light (make_shadow_fn: a 512^2 cone for the
+# directional light, six 256^2 cube faces for the enclosed point light).
+# K1's multi-iso form against its twin on sampled tiles, and on the card
+# bit for bit against K1 gs2d: rows 0-3 its rgb and T, row 4 + k its pick at
+# depth_iso = ISO_LEVELS[k]; its kept counter and the audit over every tile.
+
+LIT_FRAMES = 8             # jittered frames per hybrid main path
+SHADOW_RES = 512           # the cone map (make_shadow_fn's default)
+CUBE_RES = 256             # each cube face (make_shadow_fn: min(res, 256))
+BIG_SHADOW_RES = 2048      # one more cone map for K1's multi-iso form
+ISO_FORM, ISO_NAME = "gs2d" + tr.ISO, "rasterize_fwd" + tr.ISO
+LIT_MATERIALS = (DeferredMaterial(diffuse=(0.9, 0.85, 0.8), specular=(0.3, 0.3, 0.3),
+                                  shininess=24.0),
+                 DeferredMaterial(diffuse=(0.5, 0.7, 1.0), ambient=(0.15, 0.15, 0.2),
+                                  specular=(0.6, 0.6, 0.6), shininess=8.0,
+                                  emission=(0.02, 0.02, 0.0)))
+CARD_CPU_SPLATS, CARD_CPU_SIZE = 2000, (128, 96)
+# each hybrid frame: the main pass and the normal buffer (the blend's model)
+# and seven shadow maps (one cone, six cube faces) by the multi-iso form
+HYBRID_LAUNCHES = {gt.Pipeline.HYBRID: {"gs2d": 2, ISO_FORM: 7},
+                   gt.Pipeline.HYBRID_3DGUT: {"gut3d": 2, ISO_FORM: 7}}
+
+
+def headline_lights(dev):
+    """A directional light from above (world +y is up on screen) and a point
+    light inside the scene's bounding sphere (means in [-4, 4]^3)."""
+    return (make_light(LightType.DIRECTIONAL, direction=(0.3, -1.0, 0.2), intensity=1.2,
+                       device=dev),
+            make_light(LightType.POINT, position=(0.5, 1.0, -0.5), intensity=3.0, device=dev))
+
+
+def instance_bases(prepared):
+    """The two per-set materials' instances: the two halves of the splats."""
+    n = prepared.means.shape[0]
+    return (0, n // 2, n)
+
+
+def lit_frame(dev, card, prepared, cam, base, lights):
+    """``render_3dgs_lit`` at the headline cell with two per-set materials
+    over the two halves of the splats: only K1 gs2d moves (twice: the pass
+    and its normal buffer), finite, a bit-equal repeat, covered pixels
+    changed by the shade, both materials in view."""
+    bases = instance_bases(prepared)
+    tr.zero_counters(tr.rasterize_tiles)
+    out, shaded, normals = render_3dgs_lit(prepared, cam, base, 0, lights, LIT_MATERIALS, bases)
+    torch.cuda.synchronize()
+    seen = only("render_3dgs_lit", tr.rasterize_tiles, "gs2d", 2)
+    again = render_3dgs_lit(prepared, cam, base, 0, lights, LIT_MATERIALS, bases)
+    torch.cuda.synchronize()
+    same = (torch.equal(again[0].image, out.image) and torch.equal(again[1], shaded)
+            and torch.equal(again[2], normals))
+    covered = out.depth > 0
+    changed = ((shaded - out.image).abs().amax(dim=-1) > 1e-3)[covered].float().mean().item()
+    sets = instance_index_image(out.splat_id, bases)[covered]
+    share = (sets == 1).float().mean().item()
+    finite = bool(torch.isfinite(shaded).all()) and bool(torch.isfinite(normals).all())
+    log(f"render_3dgs_lit 1080p/1M: launches {seen}; covered {covered.float().mean():.4f}, "
+        f"covered pixels the shade changes by > 1e-3 {changed:.4f}, share of covered pixels "
+        f"with the second material {share:.4f}; finite {finite}; repeat bit-equal {same}")
+    check(same and finite, "render_3dgs_lit: not finite or not repeatable")
+    check(changed > 0.5 and 0.01 < share < 0.99, "render_3dgs_lit: the shade or the materials")
+
+
+def shadow_lookups(prepared, cfg, lights, out, cam):
+    """{light index: (H,W) its shadow lookups}, by ``make_shadow_fn`` (the
+    maps rendered again) at the frame's picked depths (``surface_points``)."""
+    fn = make_shadow_fn(prepared, lights, cfg, SHADOW_RES)
+    world = surface_points(out.depth, cam)
+    return {i: fn(world, light) for i, light in enumerate(lights)}
+
+
+def shadow_levels(prepared, cfg, lights, out, cam):
+    """{light index: the staircase levels its shadow lookups take over the
+    frame's covered pixels}."""
+    covered = out.depth > 0
+    return {i: sorted(torch.unique(t[covered]).tolist())
+            for i, t in shadow_lookups(prepared, cfg, lights, out, cam).items()}
+
+
+def hybrid_main_path(dev, card, prepared, cam, base, lights, pipeline):
+    """LIT_FRAMES jittered frames through ``render_hybrid`` with every launch
+    counter of K1's wrapper zeroed (HYBRID_LAUNCHES a frame), finite, a
+    bit-equal repeat, the shaded frame unlike the one with no light, and
+    each light's lookups over the covered pixels at two staircase levels or
+    more. Returns the multi-iso form's launches."""
+    cfg = base.replace(pipeline=pipeline)
+    tr.zero_counters(tr.rasterize_tiles)
+    outs = [render_hybrid(prepared, jitter(cam, i), cfg, 0, lights) for i in range(LIT_FRAMES)]
+    torch.cuda.synchronize()
+    seen = counts(tr.rasterize_tiles)
+    want = {m: LIT_FRAMES * HYBRID_LAUNCHES[pipeline].get(m, 0) for m in seen}
+    check(seen == want, f"render_hybrid {pipeline.name}: launches {seen}")
+    for o, s, n in outs:
+        check(tuple(s.shape) == (HEIGHT, WIDTH, 3) and bool(torch.isfinite(s).all())
+              and bool(torch.isfinite(n).all()), f"{pipeline.name}: shaded or normals")
+    o0, s0, _ = outs[0]
+    del outs
+    again = render_hybrid(prepared, jitter(cam, 0), cfg, 0, lights)[1]
+    unlit = render_hybrid(prepared, jitter(cam, 0), cfg, 0, ())[1]
+    torch.cuda.synchronize()
+    same = torch.equal(again, s0)
+    moved = (s0 - unlit).abs().max().item()
+    levels = shadow_levels(prepared, cfg, lights, o0, jitter(cam, 0))
+    log(f"render_hybrid {pipeline.name} 1080p/1M: {LIT_FRAMES} frames, launches "
+        f"{ {m: k for m, k in seen.items() if k} } ({HYBRID_LAUNCHES[pipeline]} a frame); main "
+        f"pass num_pairs={int(o0.num_pairs)} overflow={bool(o0.overflow)}; shaded max change "
+        f"from no light {moved:.4f}; staircase levels over the covered pixels {levels}; repeat "
+        f"bit-equal {same}")
+    check(same, f"the repeat {pipeline.name} frame differs")
+    check(moved > 1e-3, f"{pipeline.name}: the lights change nothing")
+    check(all(len(v) >= 2 for v in levels.values()), f"{pipeline.name}: one level only")
+    return seen[ISO_FORM]
+
+
+def shadow_map_sizes(prepared, base, lights):
+    """Each map's num_pairs, overflow and longest tile list (the cone of
+    lights[0], the cube faces of lights[1])."""
+    center, radius = scene_bounds(prepared)
+    max_pairs = max(4 * prepared.means.shape[0], 1 << 18)
+    cams = [("cone", light_camera(lights[0], center, radius, SHADOW_RES), SHADOW_RES)]
+    cams += [(f"cube face {k}", c, CUBE_RES)
+             for k, c in enumerate(cube_cameras(lights[1], radius, CUBE_RES))]
+    for label, cam, res in cams:
+        bins, _ = shadow_map_bins(prepared, cam, base.replace(width=res, height=res), max_pairs)
+        log(f"shadow map {label} {res}^2: num_pairs={int(bins.num_pairs)} "
+            f"overflow={bool(bins.overflow)} longest tile list={int(bins.tile_count.max())}")
+
+
+def iso_kernel(dev, card, prepared, base, light, res, seed):
+    """K1's multi-iso form on the cone map of ``light`` at res^2: against
+    its twin on sampled tiles (rgb and T at K1's gate, the picks equal on
+    ID_AGREE of (pixel, level)s); on the card, every tile, rows 0-3 equal
+    to K1 gs2d's and row 4 + k to its pick at depth_iso = ISO_LEVELS[k], bit
+    for bit; its kept counter and audit over every tile. Returns (max abs
+    err, bins, statics, blend_work's counts, kept)."""
+    center, radius = scene_bounds(prepared)
+    cam = light_camera(light, center, radius, res)
+    bins, st = shadow_map_bins(prepared, cam, base.replace(width=res, height=res),
+                               max(4 * prepared.means.shape[0], 1 << 18))
+    tiles = sample_tiles(bins, st, dev, seed)
+    out, out_id = tr.rasterize_bins(bins, st)
+    ref, _ = tr.rasterize_tiles_ref(bins.attrs, bins.pair_id, bins.tile_start, bins.tile_count,
+                                    st, tiles=tiles)
+    torch.cuda.synchronize()
+    err = (out[tiles, :4] - ref[:, :4]).abs().max().item()
+    agree = (out[tiles, 4:] == ref[:, 4:]).float().mean().item()
+    picked = [(out[:, 4 + k] > 0).float().mean().item() for k in range(tr.ISO_PICKS)]
+    log(f"  K1 iso {res}^2 vs twin on {tiles.numel()} sampled tiles: max abs {err:.3e} (gate "
+        f"{KERNEL_ATOL:g}), picks equal {agree:.6f} (gate {ID_AGREE}); ids all -1 "
+        f"{bool((out_id == -1).all())}; share of texels picked per level "
+        + " ".join(f"{x:.4f}" for x in picked))
+    check(err <= KERNEL_ATOL and agree >= ID_AGREE, f"K1 iso {res}^2 vs twin: {err}, {agree}")
+    check(bool((out_id == -1).all()), "K1 iso wrote an id")
+    gs2d = dataclasses.replace(st, multi_iso=False)
+    rows = torch.equal(out[:, :4], tr.rasterize_bins(bins, gs2d)[0][:, :4])
+    picks = [torch.equal(out[:, 4 + k], tr.rasterize_bins(
+        bins, dataclasses.replace(gs2d, depth_iso=level))[0][:, 4])
+        for k, level in enumerate(ISO_LEVELS)]
+    torch.cuda.synchronize()
+    log(f"  K1 iso {res}^2 on the card, every tile: rows 0-3 equal K1 gs2d's bit for bit "
+        f"{rows}; row 4 + k equals K1 gs2d's pick at depth_iso = ISO_LEVELS[k] {picks}")
+    check(rows and all(picks), f"K1 iso {res}^2 differs from K1 gs2d")
+    tr.rasterize_bins(bins, st)  # the kept counter of this launch
+    work, kept = check_warp_cull(f"K1 iso {res}^2", bins, st, twin_tiles(st, dev))
+    return err, bins, st, work, kept
+
+
+def card_against_cpu(dev):
+    """render_hybrid, HYBRID and HYBRID_3DGUT, at CARD_CPU_SIZE with
+    CARD_CPU_SPLATS of the headline mix, on the card and on the CPU (the
+    twins), with the headline lights: image and T at the card-against-CPU
+    gate (at most 0.1 % of channels beyond 5e-5, none beyond 2e-3), the
+    normals where 1 - T > 1e-2 likewise, and a shaded pixel beyond 1e-4 of
+    the CPU's must read another staircase level on one of the devices or
+    sit on a raster flip (its image beyond 5e-5; at most 0.1 % of pixels
+    neither). Returns the max abs error of the images."""
+    w, h = CARD_CPU_SIZE
+    cpu = torch.device("cpu")
+    scene = bench_scene(dev, CARD_CPU_SPLATS, seed=1)
+    worst = 0.0
+    for pipeline in (gt.Pipeline.HYBRID, gt.Pipeline.HYBRID_3DGUT):
+        cfg = gt.RenderConfig(width=w, height=h, sh_degree=3, pipeline=pipeline)
+        got = []
+        for d in (dev, cpu):
+            prepared = dataclasses.replace(
+                scene, **{f: getattr(scene, f).detach().to(d) for f in FIELDS}).prepare()
+            cam = gt.look_at([0, 0, -7], [0, 0, 0], [0, 1, 0], w, h, fov_y_rad=0.9, device=d)
+            lights = headline_lights(d)
+            out, shaded, normals = render_hybrid(prepared, cam, cfg, 0, lights)
+            got.append([x.detach().cpu() for x in (out.image, out.transmittance, normals,
+                                                    shaded)]
+                       + [(prepared, cfg, lights, out, cam)])
+        (img_k, t_k, n_k, s_k, args_k), (img_c, t_c, n_c, s_c, args_c) = got
+        diffs = [(img_k - img_c).abs(), (t_k - t_c).abs()]
+        cover = (1 - t_k > 1e-2) & (1 - t_c > 1e-2)
+        diffs.append((n_k - n_c).abs()[cover])
+        beyond = ((s_k - s_c).abs() > 1e-4).any(dim=-1)
+        other = torch.zeros_like(beyond)
+        if bool(beyond.any()):  # the lookups (each device's maps again), only where needed
+            lk, lc = (torch.stack(list(shadow_lookups(*a).values()), dim=-1).cpu()
+                      for a in (args_k, args_c))
+            other = (lk != lc).any(dim=-1)
+        flip = ((img_k - img_c).abs() > 5e-5).any(dim=-1)  # a flipped cutoff in the raster pass
+        unexplained = int((beyond & ~other & ~flip).sum())
+        shares = [(x > 5e-5).float().mean().item() for x in diffs]
+        log(f"card against CPU, render_hybrid {pipeline.name} {w}x{h}, {CARD_CPU_SPLATS} "
+            f"splats: share beyond 5e-5 (image, T, normals) "
+            + " ".join(f"{x:.2e}" for x in shares) + ", max "
+            + " ".join(f"{x.max().item():.2e}" for x in diffs)
+            + f"; shaded pixels beyond 1e-4 {int(beyond.sum())}, with another staircase "
+            f"level {int((beyond & other).sum())}, on a raster flip {int((beyond & flip).sum())}"
+            f", unexplained {unexplained}")
+        check(all(x <= 1e-3 for x in shares) and all(x.max().item() <= 2e-3 for x in diffs),
+              f"card against CPU ({pipeline.name}) outside the gate")
+        check(unexplained <= 1e-3 * beyond.numel(), f"{pipeline.name}: unexplained shade")
+        worst = max(worst, diffs[0].max().item())
+    return worst
+
+
+def lit_backward(dev, card, truth, cam, base, lights):
+    """One gradient of the lit frame's shaded image (a seeded weighting)
+    from the jittered start: only K2 gs2d moves, twice (the pass and its
+    normal buffer); finite and repeatable; each launch's context rebuilt
+    from the two passes (``normal_bins``, ``normals_from_blend``) and K2
+    against its twin with it on sampled tiles (``gate_bwd_against_twin``).
+    Returns the max abs error."""
+    splats = jittered_start(truth, dev, seed=0)
+    for f in FIELDS:
+        getattr(splats, f).requires_grad_()
+    bases = instance_bases(truth)
+    w = torch.randn((HEIGHT, WIDTH, 3), generator=torch.Generator(device=dev).manual_seed(7),
+                    device=dev)
+
+    def gradient():
+        for f in FIELDS:
+            getattr(splats, f).grad = None
+        shaded = render_3dgs_lit(splats.prepare(), cam, base, 0, lights, LIT_MATERIALS, bases)[1]
+        (shaded * w).sum().backward()
+        return [x.clone() for x in grads_of(splats)]
+
+    tr.zero_counters(tr.rasterize_tiles_bwd, tr.TRAINED)
+    first = gradient()
+    torch.cuda.synchronize()
+    seen = only("the lit frame's gradient", tr.rasterize_tiles_bwd, "gs2d", 2)
+    same = all(torch.equal(a, b) for a, b in zip(first, gradient()))
+    finite = all(bool(torch.isfinite(x).all()) for x in first)
+    log(f"lit frame gradient: launches {seen}, finite {finite}, repeat bit-equal {same}")
+    check(same and finite, "the lit frame's gradient: not finite or not repeatable")
+    del first
+
+    prepared = splats.prepare()
+    st = dataclasses.replace(raster_statics(base), model="gs2d")
+    proj = project_splats(prepared, cam, base)
+    rows, ids = gs_attr_rows(proj)
+    main = bin_for_cfg(proj, rows, ids, pairs_cfg(base), 0, st)
+    norm = normal_bins(prepared, proj, cam, base, st)
+    out, out_id = tr.rasterize_bins(main, st)
+    out_n, id_n = tr.rasterize_bins(norm, st)
+    out, out_n = out.detach().requires_grad_(), out_n.detach().requires_grad_()
+    img, trans, depth, sid = tr.assemble_image(out, out_id, st.tiles_x, st.tiles_y, WIDTH,
+                                               HEIGHT, base.background)
+    shaded = deferred_shade(img, trans, normals_from_blend(out_n, id_n, st, base), depth, cam,
+                            base, list(lights), LIT_MATERIALS,
+                            set_index_img=instance_index_image(sid, bases))
+    grads = torch.autograd.grad((shaded * w).sum(), [out, out_n])
+    worst = 0.0
+    for (label, bins, o, g), seed in zip((("main pass", main, out, grads[0]),
+                                          ("normal buffer", norm, out_n, grads[1])), (29, 31)):
+        full = tr.bwd_context(o.detach(), g)
+        tiles = sample_tiles(bins, st, dev, seed)
+        keep = torch.zeros(st.tiles_x * st.tiles_y, dtype=torch.bool, device=dev)
+        keep[tiles] = True
+        ctx = full * keep[:, None, None]
+        attrs = bins.attrs.detach()
+        d_k = tr.rasterize_tiles_bwd(attrs, bins.tile_start, bins.tile_count, ctx, st)
+
+        def twin(cx, bins=bins, attrs=attrs, tiles=tiles):
+            return sum(tr.rasterize_tiles_bwd_ref(attrs, bins.tile_start, bins.tile_count, cx,
+                                                  st, tiles=t)
+                       for t in twin_tiles(st, dev, tiles))
+
+        cols = ((d_k != 0) | (twin(ctx) != 0)).any(dim=0)
+        s_total = full[:, 3].abs().max().item()
+        log(f"  the {label}'s S_total: max |S_total| {s_total:.3e}")
+        abs_err, _ = gate_bwd_against_twin(f"K2 ({label} of the lit frame)", d_k, twin, ctx,
+                                           cols, swap_not_suffix=label == "normal buffer")
+        worst = max(worst, abs_err)
+    return worst
+
+
+def lighting_timings(card, prepared, cam, base, lights):
+    """CUDA-event medians: the lit and the hybrid frames beside the plain
+    3DGS frame in turns, and the hybrid frame's stages (the main pass, the
+    normal buffer, the cone map, the cube map, the
+    shade; a face is a sixth of the cube map); a profile of the HYBRID
+    frame by its spans. Returns the HYBRID
+    frame's median ms."""
+    bases = instance_bases(prepared)
+    hyb = base.replace(pipeline=gt.Pipeline.HYBRID)
+    plain = lambda: median(time_ms(lambda: render(prepared, cam, base), 5))  # noqa: E731
+    t_plain, t_lit = abba(plain, lambda: median(time_ms(lambda: render_3dgs_lit(
+        prepared, cam, base, 0, lights, LIT_MATERIALS, bases), 5)))
+    t_plain2, t_hyb = abba(plain, lambda: median(time_ms(lambda: render_hybrid(
+        prepared, cam, hyb, 0, lights), 5)))
+    log(f"timing 1080p/1M lighting ({card}; events, medians of 5, turns 3DGS, lit, lit, 3DGS "
+        f"and 3DGS, hybrid, hybrid, 3DGS): 3dgs_frame_ms=" + "/".join(
+            f"{x:.4f}" for x in t_plain + t_plain2) + " lit_frame_ms="
+        + "/".join(f"{x:.4f}" for x in t_lit) + " hybrid_frame_ms="
+        + "/".join(f"{x:.4f}" for x in t_hyb))
+    st = dataclasses.replace(raster_statics(base), model="gs2d")
+    proj = project_splats(prepared, cam, base)
+    out, shaded, normals = render_hybrid(prepared, cam, hyb, 0, lights)
+    fn = make_shadow_fn(prepared, lights, hyb, SHADOW_RES)
+    stages = {
+        "main_pass": lambda: render(prepared, cam, base),
+        "normal_buffer": lambda: render_normal_buffer(prepared, proj, cam, base, st),
+        "cone_map": lambda: render_deep_shadow_map(prepared, lights[0], hyb, SHADOW_RES),
+        "cube_map": lambda: render_cube_shadow_map(prepared, lights[1], hyb, CUBE_RES),
+        "shade": lambda: deferred_shade(out.image, out.transmittance, normals, out.depth, cam,
+                                        hyb, list(lights), shadow_fn=fn),
+    }
+    t = {k: median(time_ms(f, 5)) for k, f in stages.items()}
+    log(f"timing 1080p/1M hybrid stages ({card}; events, medians of 5): "
+        + " ".join(f"{k}_ms={v:.4f}" for k, v in t.items()))
+    profile_calls("hybrid", lambda: render_hybrid(prepared, cam, hyb, 0, lights), card, calls=1)
+    return median(t_hyb)
+
+
+def lighting(dev, card: str, truth: gt.SplatSet):
+    """Phase 14 at the headline cell: ``render_3dgs_lit`` (``lit_frame``),
+    ``render_hybrid`` HYBRID and HYBRID_3DGUT (``hybrid_main_path``), the
+    shadow maps' sizes, K1's multi-iso form on the cone map and a 2048^2
+    map (``iso_kernel``) with its bound, times and alone beside K1 gs2d, the
+    card against the CPU (``card_against_cpu``), the lit frame's gradient
+    (``lit_backward``) and the frame and stage times
+    (``lighting_timings``). Returns ({name: entry}, {name: bound})."""
+    t0 = time.perf_counter()
+    base = gt.RenderConfig(width=WIDTH, height=HEIGHT, sh_degree=3)
+    cam = gt.look_at([0, 0, -7], [0, 0, 0], [0, 1, 0], WIDTH, HEIGHT, fov_y_rad=0.9, device=dev)
+    lights = headline_lights(dev)
+    prepared = truth.prepare()
+    center, radius = scene_bounds(prepared)
+    log(f"lighting: lights directional {lights[0].direction.tolist()} and point "
+        f"{lights[1].position.tolist()} ({float(torch.linalg.norm(lights[1].position - center)):.3f}"
+        f" from the centre of a bounding sphere of radius {float(radius):.3f})")
+    marks = [("start", time.perf_counter())]
+    lit_frame(dev, card, prepared, cam, base, lights)
+    launches = sum(hybrid_main_path(dev, card, prepared, cam, base, lights, p)
+                   for p in (gt.Pipeline.HYBRID, gt.Pipeline.HYBRID_3DGUT))
+    marks.append(("frames", time.perf_counter()))
+    shadow_map_sizes(prepared, base, lights)
+    err, bins, st, work, kept = iso_kernel(dev, card, prepared, base, lights[0], SHADOW_RES, 37)
+    n_pairs, n_tiles = int(bins.num_pairs), st.tiles_x * st.tiles_y
+    bytes_fwd = (n_pairs * (10 * 4 + 4)
+                 + n_tiles * (2 * 4 + tr.PIX * (tr.ISO_OUT_ROWS * 4 + 4)))
+    bound, text = warp_cull_bound(ISO_NAME, work, bytes_fwd, n_tiles)
+    log(f"bound {ISO_NAME} cone map {SHADOW_RES}^2, 1M splats: pairs={n_pairs} "
+        f"pixel_pair_evaluations={work[0]} kept_evaluations={work[4]} hits={work[1]} " + text)
+    gs2d = dataclasses.replace(st, multi_iso=False)
+    t_k = median(time_ms(lambda: tr.rasterize_bins(bins, st), 10))
+    t_plain = median(time_ms(lambda: compare_twin_frame(bins, st), 1, warmup=0))
+    ev_g, ev_i = abba(lambda: median(time_ms(lambda: tr.rasterize_bins(bins, gs2d), 10)),
+                      lambda: median(time_ms(lambda: tr.rasterize_bins(bins, st), 10)))
+    _, alone = alone_in_turns(
+        "K1 gs2d (a) beside K1 iso (b) on the cone map's bins",
+        (lambda: tr.rasterize_bins(bins, gs2d), lambda: tr.rasterize_bins(bins, st)),
+        (lambda: tr.rasterize_tiles.launches, lambda: tr.rasterize_tiles.launches_iso),
+        BLEND_KERNELS["pairs"], card)
+    log(f"timing {ISO_NAME} cone map {SHADOW_RES}^2 ({card}): kernel_ms={t_k:.4f} "
+        f"plain_twin_ms={t_plain:.4f}; events beside K1 gs2d on the same bins (turns gs2d, "
+        f"iso, iso, gs2d): gs2d=" + "/".join(f"{x:.4f}" for x in ev_g) + " iso="
+        + "/".join(f"{x:.4f}" for x in ev_i))
+    share = kept / (tr.WARPS * work[2])
+    del bins
+    err_big, big, _, _, _ = iso_kernel(dev, card, prepared, base, lights[0], BIG_SHADOW_RES, 41)
+    log(f"shadow map {BIG_SHADOW_RES}^2: num_pairs={int(big.num_pairs)} "
+        f"longest tile list={int(big.tile_count.max())}")
+    del big
+    marks.append(("K1 iso", time.perf_counter()))
+    err_cpu = card_against_cpu(dev)
+    marks.append(("card against CPU", time.perf_counter()))
+    err_bwd = lit_backward(dev, card, truth, cam, base, lights)
+    marks.append(("gradient", time.perf_counter()))
+    t_frame = lighting_timings(card, prepared, cam, base, lights)
+    marks.append(("timings", time.perf_counter()))
+    log(f"lighting phase {time.perf_counter() - t0:.1f} s ("
+        + ", ".join(f"{b[0]} {b[1] - a[1]:.1f} s" for a, b in zip(marks, marks[1:]))
+        + f"); card against CPU max {err_cpu:.3e}, K2 in the lit gradient max {err_bwd:.3e}")
+    return {ISO_NAME: dict(launches=launches, max_abs_err=max(err, err_big), ms=t_k,
+                           plain_ms=t_plain, kept_share=share, alone_ms=alone,
+                           hybrid_frame_ms=t_frame)}, {ISO_NAME: bound}
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     views = int(argv[argv.index("--mesh-views") + 1]) if "--mesh-views" in argv else 0
+    lighting_only = "--lighting" in argv
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: chip_smoke.py runs only on a card")
     dev = torch.device("cuda", 0)
@@ -4252,6 +4715,10 @@ def main(argv=None) -> int:
         mesh = mr.mesh_buffers_from_obj(headline_mesh(), device=dev)
         mesh_views(dev, mesh, bench_scene(dev, SPLATS, seed=0).prepare(),
                    gt.RenderConfig(width=WIDTH, height=HEIGHT, sh_degree=3), views)
+        log(f"total {time.perf_counter() - t0:.1f} s")
+        return 0
+    if lighting_only:
+        lighting(dev, card, bench_scene(dev, SPLATS, seed=0))
         log(f"total {time.perf_counter() - t0:.1f} s")
         return 0
 
@@ -4308,6 +4775,9 @@ def main(argv=None) -> int:
     mesh_entries, mesh_bounds = meshes(dev, card, truth)
     results.update(mesh_entries)
     bounds.update(mesh_bounds)
+    lit_entries, lit_bounds = lighting(dev, card, truth)
+    results.update(lit_entries)
+    bounds.update(lit_bounds)
     probe_entries, probe_bounds, library = probes(dev, card)
     results.update(probe_entries)
     bounds.update(probe_bounds)

@@ -1838,3 +1838,143 @@ def test_mesh_render_on_card_launches_once_and_matches_cpu(cuda):
     assert (diff > 5e-5).float().mean().item() <= 1e-3 and diff.max().item() <= 2e-3
     cover = (got.transmittance.cpu() == 0) == (cpu.transmittance == 0)
     assert cover.float().mean().item() >= 0.999
+
+
+# ---- lighting and shadows: K1's multi-iso form (the deep shadow maps) -------------------
+
+from vk_gaussian_splatting_tpu_torch.render import shadows as sh  # noqa: E402
+from vk_gaussian_splatting_tpu_torch.render.deferred import surface_points  # noqa: E402
+from vk_gaussian_splatting_tpu_torch.render.pipelines import (  # noqa: E402
+    render_3dgs_lit,
+    render_hybrid,
+)
+from vk_gaussian_splatting_tpu_torch.scene.lights import LightType, make_light  # noqa: E402
+
+
+def shadow_scene(device, n_blob=600, n_slab=1500):
+    """A dense blob over a receiver slab (tests/test_torch_shadows.py's
+    hybrid scene, more splats)."""
+    blob = interop.random_splat_arrays(0, n_blob, sh_degree=0, extent=0.6,
+                                       scale_range=(-2.0, -1.2))
+    blob["opacities"][:] = 5.0
+    slab = interop.random_splat_arrays(1, n_slab, sh_degree=0, extent=4.0,
+                                       scale_range=(-2.0, -1.3))
+    slab["means"] = (slab["means"] * np.float32([1.0, 0.05, 1.0])
+                     + np.float32([0.0, 4.0, 0.0])).astype(np.float32)
+    slab["opacities"][:] = 4.0
+    d = {k: np.concatenate([blob[k], slab[k]]) for k in blob}
+    return interop.splat_set_from_numpy(d, device)
+
+
+def shadow_lights(device):
+    """A directional light from above (the cone map) and a point light inside
+    the scene's bounding sphere (the cube map)."""
+    return (make_light(LightType.DIRECTIONAL, direction=(0.1, 1.0, 0.2), intensity=1.2,
+                       device=device),
+            make_light(LightType.POINT, position=(1.5, 2.5, 1.0), intensity=2.0, device=device))
+
+
+def shadow_map_setup(device, res=128):
+    prepared = shadow_scene(device).prepare()
+    center, radius = sh.scene_bounds(prepared)
+    cam = sh.light_camera(shadow_lights(device)[0], center, radius, res)
+    cfg = gt.RenderConfig(width=res, height=res, sh_degree=0)
+    return sh.shadow_map_bins(prepared, cam, cfg, 1 << 18)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("res", [128, 64])
+def test_multi_iso_kernel_matches_twin(cuda, res):
+    bins, st = shadow_map_setup(cuda, res)
+    before = launch_counts(tr.rasterize_tiles)
+    out_k, id_k = tr.rasterize_bins(bins, st)
+    kept = assert_warp_kept_matches_plain_stream(bins, st, "gs2d_iso", None)
+    again, _ = tr.rasterize_bins(bins, st)
+    out_r, id_r = tr.rasterize_tiles_ref(bins.attrs, bins.pair_id, bins.tile_start,
+                                         bins.tile_count, st)
+    torch.cuda.synchronize()
+    after = launch_counts(tr.rasterize_tiles)
+    assert after == {m: before[m] + 2 * (m == "gs2d_iso") for m in before}
+    assert int(tr.rasterize_tiles.kept_iso) == kept
+    assert out_k.shape == (st.tiles_x * st.tiles_y, tr.ISO_OUT_ROWS, tr.PIX)
+    assert torch.equal(out_k, again) and bool((id_k == -1).all())
+    assert (out_k[:, :4] - out_r[:, :4]).abs().max().item() <= ATOL
+    # the picks: equal where T does not land within rounding of a level
+    assert (out_k[:, 4:] == out_r[:, 4:]).float().mean().item() >= ID_AGREE
+    assert bool((out_k[:, 4:] > 0).any(dim=(0, 2)).all())  # every level picked somewhere
+
+
+@pytest.mark.cuda
+def test_multi_iso_kernel_rows_equal_gs2d_kernel(cuda):
+    """Rows 0-3 equal K1 gs2d's bit for bit, row 4 + k K1 gs2d's pick at
+    depth_iso = ISO_LEVELS[k]; the empty tiles rgb 0, T 1, depths 0."""
+    bins, st = shadow_map_setup(cuda)
+    out, _ = tr.rasterize_bins(bins, st)
+    gs2d = dataclasses.replace(st, multi_iso=False)
+    ref, _ = tr.rasterize_bins(bins, gs2d)
+    torch.cuda.synchronize()
+    assert torch.equal(out[:, :4], ref[:, :4])
+    for k, level in enumerate(sh.ISO_LEVELS):
+        pick, _ = tr.rasterize_bins(bins, dataclasses.replace(gs2d, depth_iso=level))
+        torch.cuda.synchronize()
+        assert torch.equal(out[:, 4 + k], pick[:, 4]), k
+    z = torch.zeros((st.tiles_x * st.tiles_y,), dtype=torch.int32, device=cuda)
+    empty, ids = tr.rasterize_tiles(torch.zeros((10, 0), device=cuda),
+                                    torch.zeros((0,), dtype=torch.int32, device=cuda), z, z, st)
+    assert (empty[:, :3] == 0).all() and (empty[:, 3] == 1).all()
+    assert (empty[:, 4:] == 0).all() and (ids == -1).all()
+
+
+@pytest.mark.cuda
+def test_hybrid_render_on_card_launches_iso_and_matches_cpu(cuda):
+    """render_hybrid on the card: K1 gs2d twice (main pass, normal buffer)
+    and K1's multi-iso form seven times (one cone, six cube faces) a frame;
+    against the CPU twins at the card-against-CPU gate; a shaded pixel
+    beyond 1e-4 reads another staircase level on one of the two devices."""
+    cfg = gt.RenderConfig(width=96, height=64, sh_degree=0, pipeline=gt.Pipeline.HYBRID)
+    frames = {}
+    for dev in (cuda, torch.device("cpu")):
+        prepared = shadow_scene(dev).prepare()
+        cam = gt.look_at([0, -2.0, -12.0], [0, 2.0, 0], [0, 1, 0], 96, 64, device=dev)
+        lights = shadow_lights(dev)
+        before = launch_counts(tr.rasterize_tiles)
+        out, shaded, _ = render_hybrid(prepared, cam, cfg, 1 << 16, lights=lights,
+                                       shadow_res=128)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            after = launch_counts(tr.rasterize_tiles)
+            assert after == {m: before[m] + {"gs2d": 2, "gs2d_iso": 7}.get(m, 0) for m in before}
+            again = render_hybrid(prepared, cam, cfg, 1 << 16, lights=lights, shadow_res=128)[1]
+            assert torch.equal(again, shaded)
+        fn = sh.make_shadow_fn(prepared, lights, cfg, 128)
+        world = surface_points(out.depth, cam)
+        levels = torch.stack([fn(world, light) for light in lights], -1)
+        frames[dev.type] = [x.detach().cpu() for x in (out.image, shaded, levels)]
+    (img_k, sh_k, lv_k), (img_c, sh_c, lv_c) = frames["cuda"], frames["cpu"]
+    diff = (img_k - img_c).abs()
+    assert (diff > 5e-5).float().mean().item() <= 1e-3 and diff.max().item() <= 2e-3
+    beyond = ((sh_k - sh_c).abs() > 1e-4).any(-1)
+    other_level = (lv_k != lv_c).any(-1)
+    assert int((beyond & ~other_level).sum()) <= 1e-3 * beyond.numel()
+    assert len(lv_k[..., 0].unique()) >= 2  # the cone map shadows some covered pixels
+
+
+@pytest.mark.cuda
+def test_lit_backward_launches_k2_twice(cuda):
+    cfg = gt.RenderConfig(width=96, height=64, sh_degree=1)
+    s = splats_on(cuda, n=3000)
+    cam = gt.look_at([0.2, -0.3, -9.0], [0, 0, 0], [0, 1, 0], 96, 64, fov_y_rad=0.9,
+                     device=cuda)
+    grads = []
+    for _ in range(2):
+        for f in interop.SPLAT_FIELDS:
+            getattr(s, f).grad = None
+        before = launch_counts(tr.rasterize_tiles_bwd)
+        shaded = render_3dgs_lit(s.prepare(), cam, cfg, lights=shadow_lights(cuda)[:1])[1]
+        (shaded * shaded).sum().backward()
+        torch.cuda.synchronize()
+        after = launch_counts(tr.rasterize_tiles_bwd)
+        assert after == {m: before[m] + 2 * (m == "gs2d") for m in before}
+        grads.append([getattr(s, f).grad.clone() for f in interop.SPLAT_FIELDS])
+    for a, b in zip(*grads):
+        assert bool(torch.isfinite(a).all()) and torch.equal(a, b)

@@ -26,6 +26,7 @@ import pytest
 import torch
 
 import vk_gaussian_splatting_tpu.config as jc
+from vk_gaussian_splatting_tpu.render.pipelines import render as j_dispatch
 from vk_gaussian_splatting_tpu.render.pipelines import render_3dgrt as j_grt
 from vk_gaussian_splatting_tpu.render.pipelines import render_3dgs as j_render
 from vk_gaussian_splatting_tpu.render.pipelines import render_3dgut as j_gut
@@ -135,14 +136,17 @@ def test_repeat_render_is_bit_equal():
 
 # MESH_3DGUT and RTX render now (tests/test_torch_gut.py), and so does a
 # fisheye camera_type on 3DGS (pinhole EWA, as in the JAX package), the
-# packed tier (tests/test_torch_packed.py; its four cases below) and
+# packed tier (tests/test_torch_packed.py; its four cases below),
 # stochastic transparency with its post pass (tests/test_torch_stochastic.py;
-# its six cases below); what those pipelines still refuse stands under
-# their old names
+# its six cases below) and the hybrid pipelines (tests/test_torch_shadows.py;
+# the three former cases of this table below). What the hybrid pipelines
+# still refuse is the per-ray shadows (``rt.shadows="ray"``) where a light
+# casts them: they need the 3DGRT tracer
 UNPORTED = {
-    "fisheye": dict(pipeline=tc.Pipeline.HYBRID_3DGUT, camera_type=tc.CameraType.FISHEYE),
-    "hybrid": dict(pipeline=tc.Pipeline.HYBRID),
-    "hybrid_gut": dict(pipeline=tc.Pipeline.HYBRID_3DGUT),
+    "fisheye": dict(pipeline=tc.Pipeline.HYBRID_3DGUT, camera_type=tc.CameraType.FISHEYE,
+                    rt=tc.RtConfig(shadows="ray")),
+    "hybrid": dict(pipeline=tc.Pipeline.HYBRID, rt=tc.RtConfig(shadows="ray")),
+    "hybrid_gut": dict(pipeline=tc.Pipeline.HYBRID_3DGUT, rt=tc.RtConfig(shadows="ray")),
 }
 
 TINY = (6, 50)  # scene seed and splats of the 32x32 probes
@@ -159,8 +163,46 @@ def tiny():
 def test_unported_config_raises(tiny, name):
     prep, cam = tiny
     cfg = tc.RenderConfig(width=32, height=32, **UNPORTED[name])
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
-        render(prep, cam, cfg)
+    light = gt.scene.lights.make_light(position=(0.0, -6.0, 0.0), device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1: 3DGRT"):
+        render(prep, cam, cfg, lights=(light,))
+
+
+# the former UNPORTED cases of the hybrid pipelines: the RenderConfig fields
+# of each (no light: the headlight shades, unshadowed)
+HYBRID = {
+    "fisheye": dict(pipeline="HYBRID_3DGUT", camera_type="FISHEYE"),
+    "hybrid": dict(pipeline="HYBRID"),
+    "hybrid_gut": dict(pipeline="HYBRID_3DGUT"),
+}
+
+
+@pytest.mark.parametrize("name", list(HYBRID))
+def test_hybrid_config_renders_and_matches_jax(tiny, name):
+    """Each config renders through ``render`` on the CPU (its RenderOutput,
+    as the JAX dispatch returns ``render_hybrid(...)[0]``) and matches the
+    JAX package's frame: 3DGS at this file's gates, the gut3d frames at the
+    flip-aware ones (>= 99.9 % of channels within 5e-5, none beyond
+    1.2e-2); ids >= 99.9 %."""
+    prep, cam = tiny
+    kw = HYBRID[name]
+    camera = kw.get("camera_type", "PINHOLE")
+    cj = jc.RenderConfig(width=32, height=32, pipeline=jc.Pipeline[kw["pipeline"]],
+                         camera_type=jc.CameraType[camera])
+    ct = tc.RenderConfig(width=32, height=32, pipeline=tc.Pipeline[kw["pipeline"]],
+                         camera_type=tc.CameraType[camera])
+    d = interop.random_splat_arrays(*TINY, sh_degree=0)
+    sj = jss.SplatSet(**{k: jnp.asarray(v) for k, v in d.items()}).prepare()
+    oj = j_dispatch(sj, jcam.make_camera(**interop.camera_to_numpy(cam)), cj, 1 << 14)
+    ot = render(prep, cam, ct, 1 << 14)
+    assert isinstance(ot, gt.render.RenderOutput)
+    # the scene covers pixels (under the fisheye lens it is small and faint)
+    assert float(ot.transmittance.min()) < (0.95 if camera == "FISHEYE" else 0.5)
+    assert bool(oj.overflow) == bool(ot.overflow) and int(oj.num_pairs) == int(ot.num_pairs)
+    for a, b in ((ot.image, oj.image), (ot.transmittance, oj.transmittance)):
+        diff = np.abs(a.numpy() - np.asarray(b))
+        assert (diff <= IMG_ATOL).mean() >= IMG_SHARE and diff.max() <= IMG_MAX, diff.max()
+    assert (ot.splat_id.numpy() == np.asarray(oj.splat_id)).mean() >= ID_AGREE
 
 
 # the former UNPORTED cases of the packed tier: (pipeline, raster method)

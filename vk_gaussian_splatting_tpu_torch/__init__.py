@@ -12,7 +12,11 @@ default) or bucket-grid binning (``method="bucket"``) — and the training
 step (``train_step``, Adam, the loss, densification, checkpoints); the
 packed tier (forward only) and stochastic transparency with its a-trous
 pass (``cfg.stochastic``, ``cfg.denoise``) on each of them; meshes on the
-raster path (``render_mesh``, ``render_3dgs_composed``). Plain
+raster path (``render_mesh``, ``render_3dgs_composed``); lighting and
+shadows on the raster path (``render_3dgs_lit``, ``render_hybrid`` for the
+HYBRID and HYBRID_3DGUT pipelines, ``DeferredMaterial``,
+``make_shadow_fn``: deferred Phong shading and per-light deep shadow
+maps). Plain
 tensor code runs on any torch device; the two tile blenders and their
 backwards are hand-written CUDA kernels (csrc/rasterize_{fwd,bwd}.cu,
 csrc/raster_bucket_{fwd,bwd}.cu, each for the gs2d and the gut3d response
@@ -31,7 +35,9 @@ Layout:
            blender and the bucket rasterizer (kernel wrappers, twins,
            autograd Functions), the a-trous denoiser, kernel build
   render/  render_3dgs, render_3dgut, render_3dgrt, the per-tile rays, the
-           pipeline dispatch, render_mesh and render_3dgs_composed
+           pipeline dispatch, render_mesh and render_3dgs_composed,
+           render_3dgs_lit and render_hybrid with deferred shading and
+           deep shadow maps
   train.py loss, Adam, train_step, densify / prune, checkpoints
   probes/  the design probes P1-P3 (the scripts/ Pallas probes) on the card
   csrc/    CUDA sources
@@ -49,6 +55,13 @@ from vk_gaussian_splatting_tpu_torch.config import (
     ShutterType,
     StochasticMode,
 )
+from vk_gaussian_splatting_tpu_torch.render.deferred import DeferredMaterial
+from vk_gaussian_splatting_tpu_torch.render.pipelines import (
+    render_3dgs_composed,
+    render_3dgs_lit,
+    render_hybrid,
+)
+from vk_gaussian_splatting_tpu_torch.render.shadows import make_shadow_fn
 from vk_gaussian_splatting_tpu_torch.scene.cameras import Camera, look_at, make_camera
 from vk_gaussian_splatting_tpu_torch.scene.splat_set import SplatSet, PreparedSplats
 from vk_gaussian_splatting_tpu_torch.train import (
@@ -68,6 +81,7 @@ from vk_gaussian_splatting_tpu_torch.train import (
 __all__ = [
     "Camera",
     "CameraType",
+    "DeferredMaterial",
     "Pipeline",
     "PreparedSplats",
     "RasterConfig",
@@ -84,7 +98,11 @@ __all__ = [
     "look_at",
     "make_camera",
     "make_optimizer",
+    "make_shadow_fn",
     "prune_splats",
+    "render_3dgs_composed",
+    "render_3dgs_lit",
+    "render_hybrid",
     "reset_opacities",
     "rgb_loss",
     "save_checkpoint",

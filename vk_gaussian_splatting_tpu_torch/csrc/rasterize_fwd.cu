@@ -71,6 +71,16 @@
 // through response::blend_attrs). The triangles' reach is the edge
 // functions' over the warp's rectangle. Every other form compiles as it
 // did.
+// The multi-iso form (template flag ISO, gs2d alone; entry
+// rasterize_fwd_iso) is the deep shadow map's (rasterize_pallas.py:304-356):
+// in place of the (depth, id) pick at depth_iso it keeps four picks in
+// registers, each set at the first blended pair after which T falls below
+// its own threshold (iso.x > iso.y > iso.z > iso.w; one pair may cross
+// several), and writes them as rows 4-7 of an (8, 256) tile block, 0 where
+// nothing was picked, ids -1. The blend, the freeze and the cull are gs2d's,
+// so row 4 + k is the depth the gs2d form picks at depth_iso = iso[k], bit
+// for bit. Every other form compiles as it did (the flag is a constant, the
+// thresholds the kernel's last parameter, unread).
 //
 // What bounds it on the H100: f32 operations per (pixel, pair) evaluation,
 // about 17 for gs2d and 68 for gut3d (the canonical ray, an rsqrtf and an
@@ -98,6 +108,8 @@ using response::PIX;
 using response::WARPS;
 constexpr int MAX_CHUNK = 256;     // largest blend step staged at once: one pair per thread
 constexpr int OUT_ROWS = 5;        // rgb, T, depth
+constexpr int ISO_ROWS = 8;        // the multi-iso form: rgb, T, four iso depths
+constexpr int ISO_PICKS = 4;
 // Blocks per SM both kernels are built for: at most 40 registers a thread,
 // a few spilled in gut3d's cull. On an H100 6 blocks ran faster than 4 or 5
 // in both kernels and both models (PERF.md §6).
@@ -144,7 +156,7 @@ warp_mask_kernel(const float* __restrict__ attrs, long long pair_stride,
   }
 }
 
-template <class M, bool STOCH>
+template <class M, bool STOCH, bool ISO = false>
 __global__ void __launch_bounds__(PIX, MIN_BLOCKS)
 rasterize_fwd_kernel(const float* __restrict__ attrs, long long pair_stride,
                      const int* __restrict__ ids,
@@ -154,7 +166,10 @@ rasterize_fwd_kernel(const float* __restrict__ attrs, long long pair_stride,
                      const float* __restrict__ pix_ctx, int tiles_x, int chunk,
                      response::Params prm, float min_transmittance,
                      float depth_iso, float* __restrict__ out,
-                     int* __restrict__ out_id, int* __restrict__ kept, unsigned seed) {
+                     int* __restrict__ out_id, int* __restrict__ kept, unsigned seed,
+                     float4 iso) {
+  static_assert(!ISO || (!STOCH && !M::PIXEL_ATTRS && !M::DEPTH_LIMIT),
+                "the multi-iso form is the deterministic gs2d blend's");
   constexpr int LS = LANE_STRIDE<M>;
   __shared__ __align__(16) float s_attr[MAX_CHUNK * LS];  // pair j's slots at j * LS
   __shared__ int s_id[MAX_CHUNK];
@@ -176,6 +191,8 @@ rasterize_fwd_kernel(const float* __restrict__ attrs, long long pair_stride,
   float T = 1.0f, cr = 0.0f, cg = 0.0f, cb = 0.0f, depth = 0.0f;
   int pick = -1;
   bool picked = false;
+  float iso_d[ISO_PICKS] = {0.0f, 0.0f, 0.0f, 0.0f};  // ISO: the depth at each level
+  unsigned iso_picked = 0;                             // ISO: bit k, level k picked
   int n_bits = 0;  // kept (warp, pair) bits of the pairs this thread staged
 
   for (int s = start; s < end;) {
@@ -232,7 +249,16 @@ rasterize_fwd_kernel(const float* __restrict__ attrs, long long pair_stride,
         cg += w * rgb[1];
         cb += w * rgb[2];
         T *= 1.0f - a;
-        if (!picked && T < depth_iso) {
+        if constexpr (ISO) {
+          const float lv[ISO_PICKS] = {iso.x, iso.y, iso.z, iso.w};
+          #pragma unroll
+          for (int k = 0; k < ISO_PICKS; ++k) {
+            if (!((iso_picked >> k) & 1u) && T < lv[k]) {
+              iso_picked |= 1u << k;
+              iso_d[k] = d;
+            }
+          }
+        } else if (!picked && T < depth_iso) {
           picked = true;
           depth = d;
           pick = s_id[j];
@@ -245,12 +271,17 @@ rasterize_fwd_kernel(const float* __restrict__ attrs, long long pair_stride,
     if (!__syncthreads_or(T > min_transmittance)) break;
   }
 
-  float* o = out + (size_t)t * OUT_ROWS * PIX;
+  float* o = out + (size_t)t * (ISO ? ISO_ROWS : OUT_ROWS) * PIX;
   o[0 * PIX + px] = cr;
   o[1 * PIX + px] = cg;
   o[2 * PIX + px] = cb;
   o[3 * PIX + px] = T;
-  o[4 * PIX + px] = depth;
+  if constexpr (ISO) {
+    #pragma unroll
+    for (int k = 0; k < ISO_PICKS; ++k) o[(4 + k) * PIX + px] = iso_d[k];
+  } else {
+    o[4 * PIX + px] = depth;
+  }
   out_id[(size_t)t * PIX + px] = pick;
   // integers: the count is the same whatever the order of the adds
   n_bits = __reduce_add_sync(0xffffffffu, n_bits);
@@ -260,12 +291,13 @@ rasterize_fwd_kernel(const float* __restrict__ attrs, long long pair_stride,
   if (i == 0 && s_kept > 0) atomicAdd(kept, s_kept);
 }
 
-template <class M, bool STOCH = false>
+template <class M, bool STOCH = false, bool ISO = false>
 int launch(const float* attrs, long long pair_stride, const int* ids, const int* tile_start,
            const int* tile_count, const float* pix_ctx, int num_tiles, int tiles_x, int chunk,
            float alpha_min, float alpha_clamp, float qmax, float min_response, int degree,
            float min_transmittance, float depth_iso, float* out, int* out_id, int* kept,
-           unsigned char* masks, int seed, void* stream) {
+           unsigned char* masks, int seed, void* stream,
+           float4 iso = make_float4(0.0f, 0.0f, 0.0f, 0.0f)) {
   if (chunk < 1 || chunk > MAX_CHUNK) return (int)cudaErrorInvalidValue;
   const response::Params prm{alpha_min, alpha_clamp, qmax, min_response, degree};
   if (num_tiles > 0) {
@@ -273,9 +305,9 @@ int launch(const float* attrs, long long pair_stride, const int* ids, const int*
         attrs, pair_stride, tile_start, tile_count, pix_ctx, tiles_x, prm, masks);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
-    rasterize_fwd_kernel<M, STOCH><<<num_tiles, PIX, 0, (cudaStream_t)stream>>>(
+    rasterize_fwd_kernel<M, STOCH, ISO><<<num_tiles, PIX, 0, (cudaStream_t)stream>>>(
         attrs, pair_stride, ids, tile_start, tile_count, masks, pix_ctx, tiles_x, chunk, prm,
-        min_transmittance, depth_iso, out, out_id, kept, (unsigned)seed);
+        min_transmittance, depth_iso, out, out_id, kept, (unsigned)seed, iso);
   }
   return (int)cudaGetLastError();
 }
@@ -364,4 +396,13 @@ extern "C" int rasterize_fwd_tri2d(RASTERIZE_FWD_PARAMS) {
 extern "C" int rasterize_fwd_tri2d_smooth(RASTERIZE_FWD_PARAMS) {
   pix_ctx = nullptr;
   return launch<response::Tri2dSmooth>(RASTERIZE_FWD_ARGS);
+}
+
+// The deep shadow map's multi-iso form of gs2d: the four transmittance levels
+// after the common parameters (depth_iso unread), out (T, 8, 256), ids -1.
+extern "C" int rasterize_fwd_iso(RASTERIZE_FWD_PARAMS, float iso0, float iso1, float iso2,
+                                 float iso3) {
+  pix_ctx = nullptr;
+  return launch<response::Gs2d, false, true>(RASTERIZE_FWD_ARGS,
+                                             make_float4(iso0, iso1, iso2, iso3));
 }

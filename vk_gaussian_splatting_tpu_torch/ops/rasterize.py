@@ -43,6 +43,14 @@ blocks (:237, :393); the bucket twins key by their own layout
 (``key_offset``, ops/raster_bucket.py). ``seed`` is per temporal sample.
 The accept has no gradient: the backward gives the colour rows theirs and
 every other row 0, as ``jax.vjp`` of the JAX ``where`` does.
+
+The multi-iso form (``RasterStatics.multi_iso``, gs2d alone, deterministic;
+the deep shadow map's, rasterize_pallas.py:304-356, render/shadows.py)
+records per pixel the depths at which T first falls below each of the four
+``iso_thresholds`` in place of the (depth, id) pick: its output is
+``(T, 8, 256)``, rows 0-3 gs2d's rgb and T, rows 4-7 the four depths (0
+where nothing was picked), and its ids are -1. Its backward is gs2d's (the
+JAX ``_rt_bwd`` reads rows 0-3 alone).
 """
 
 from __future__ import annotations
@@ -86,11 +94,16 @@ GRAD_ROWS = ATTR_B + 1  # gs2d: rows 0-8 get gradients; the depth row gets none
 MAX_CHUNK = 256    # csrc/rasterize_{fwd,bwd}.cu stage at most this many pairs
 STOCH = "_stoch"  # the suffix of a stochastic form's counters and C entries
 KEYROW = "_keyrow"  # the suffix of a key-row form's (RasterStatics.key_is_row, gs2d)
+ISO = "_iso"  # the suffix of the multi-iso form's (RasterStatics.multi_iso, gs2d)
+ISO_OUT_ROWS = 8   # the multi-iso form: r, g, b, T, four iso depths
+ISO_PICKS = 4      # its picks: one per transmittance level
 # the model of each kernel form (a model, + STOCH for its stochastic form,
-# + KEYROW for the bucket kernels' key-row form of gs2d)
+# + KEYROW for the bucket kernels' key-row form of gs2d, + ISO for K1's
+# multi-iso form of gs2d)
 FORM_MODEL = {m: m for m in MODELS}
 FORM_MODEL.update({m + STOCH: m for m in MODELS if MODELS[m].stochastic})
-FORM_MODEL.update({"gs2d" + KEYROW: "gs2d", "gs2d" + STOCH + KEYROW: "gs2d"})
+FORM_MODEL.update({"gs2d" + KEYROW: "gs2d", "gs2d" + STOCH + KEYROW: "gs2d",
+                   "gs2d" + ISO: "gs2d"})
 # the launch counter of each form, an attribute of each kernel's wrapper;
 # and the kept count of the last launch of each culling kernel (K1, K2, K3,
 # K4), an attribute of its wrapper, per form
@@ -101,8 +114,9 @@ KEPT_COUNTER = {f: "kept" + name.removeprefix("launches") for f, name in LAUNCH_
 
 def form_of(st) -> str:
     """The kernel form of ``st``: its model, + ``STOCH`` if stochastic,
-    + ``KEYROW`` if it merges on the key row."""
-    return st.model + (STOCH if st.stochastic else "") + (KEYROW if st.key_is_row else "")
+    + ``KEYROW`` if it merges on the key row, + ``ISO`` if multi-iso."""
+    return (st.model + (STOCH if st.stochastic else "") + (KEYROW if st.key_is_row else "")
+            + (ISO if st.multi_iso else ""))
 
 
 def zero_counters(wrapper, models=tuple(MODELS)) -> None:
@@ -121,11 +135,30 @@ BUCKET_MODELS = ("gs2d", "gut3d", "gs2dp", "gut3dp")  # the models K3 and K4 hav
 
 def check_bucket_model(st) -> None:
     """Raise for a model the bucket kernels have no form of: gs2d_clip and
-    the triangles (their JAX bucket forms have no caller)."""
+    the triangles, and the multi-iso form (their JAX bucket forms have no
+    caller: the deep shadow map bins pairs)."""
     model_of(st)
     if st.model not in BUCKET_MODELS:
         raise NotImplementedError(f"the bucket kernels have no {st.model} form "
                                   "(ROADMAP.md queue 2)")
+    if st.multi_iso:
+        raise NotImplementedError("the bucket kernels have no multi-iso form: the deep "
+                                  "shadow map bins pairs (ROADMAP.md queue 2)")
+
+
+def check_multi_iso(st) -> None:
+    """Raise for a multi-iso ``st`` K1 has no form of: one not gs2d or
+    stochastic (the JAX deep shadow map blends deterministic gs2d rows,
+    shadows.py:145-148), or thresholds that are not ISO_PICKS of them."""
+    if not st.multi_iso:
+        return
+    if st.model != "gs2d" or st.stochastic or st.key_is_row:
+        raise NotImplementedError(
+            f"the multi-iso form is the deterministic gs2d blend's (the deep shadow map's), "
+            f"not {form_of(dataclasses.replace(st, multi_iso=False))}'s")
+    if len(st.iso_thresholds) != ISO_PICKS:
+        raise ValueError(f"the multi-iso form takes {ISO_PICKS} thresholds, got "
+                         f"{st.iso_thresholds!r}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -145,6 +178,8 @@ class RasterStatics:
     kernel_min_response: float = 0.0113  # gut3d response cutoff
     stochastic: bool = False     # binary accept per (pixel, pair), keyed by the sample seed
     key_is_row: bool = False     # bucket kernels: merge on the key row (ops/response.GS_KEY)
+    multi_iso: bool = False      # four depth picks (rows 4-7) in place of (depth, id)
+    iso_thresholds: tuple = (0.75, 0.5, 0.25, 0.05)  # the multi-iso picks' T levels
 
 
 def _tile_pixel_coords(tiles: torch.Tensor, tiles_x: int, dtype=torch.float32):
@@ -262,8 +297,11 @@ def rasterize_tiles_ref(attrs: torch.Tensor, ids: torch.Tensor,
     follow it. ``pix_ctx``: the (T, 8, 256) pixel context of gut3d.
     ``seed``, ``key_offset``: the stochastic stream (``_blend_steps``).
     Each pair's colour and picked depth are the model's (``pixel_attrs``:
-    its rows, or tri2d_smooth's per pixel).
+    its rows, or tri2d_smooth's per pixel). A multi-iso ``st`` picks once
+    per threshold, each as the single pick at ``depth_iso`` (one pair may
+    cross several), and returns (n, 8, 256) rows with ids -1.
     """
+    check_multi_iso(st)
     c = st.chunk
     dev = attrs.device
     tiles = _all_tiles(tile_start, tiles)
@@ -271,31 +309,33 @@ def rasterize_tiles_ref(attrs: torch.Tensor, ids: torch.Tensor,
     lane = torch.arange(c, device=dev)
     acc = torch.zeros((n, PIX, 3), dtype=attrs.dtype, device=dev)
     tcol = torch.ones((n, PIX, 1), dtype=attrs.dtype, device=dev)
-    pick_d = torch.zeros((n, PIX), dtype=attrs.dtype, device=dev)
+    levels = st.iso_thresholds if st.multi_iso else (st.depth_iso,)
+    pick_d = [torch.zeros((n, PIX), dtype=attrs.dtype, device=dev) for _ in levels]
     pick_id = torch.full((n, PIX), -1, dtype=torch.int32, device=dev)
-    picked = torch.zeros((n, PIX), dtype=torch.bool, device=dev)
+    picked = [torch.zeros((n, PIX), dtype=torch.bool, device=dev) for _ in levels]
     pixels, steps = _blend_steps(attrs, tile_start, tile_count, st, tiles, pix_ctx, seed,
                                  key_offset)
     for s in steps:
         w = s.alpha * s.excl * s.tcol
         colours, depth = pixel_attrs(s.block, pixels.px, pixels.py, st)
         acc = acc + torch.stack([(w * col).sum(-1) for col in colours], dim=-1)
-        # depth and id at the first lane where T drops below depth_iso
+        # depth (and id) at the first lane where T drops below each level
         t_after = s.tcol * s.excl * s.q
-        cond = (t_after < st.depth_iso) & (s.alpha > 0.0)
-        first = torch.where(cond, lane, c).amin(dim=-1)             # (n, 256)
-        upd = (first < c) & ~picked
-        fl = first.clamp(max=c - 1)
-        if depth.shape[1] == 1:
-            d_sel = torch.gather(depth[:, 0], 1, fl)
-        else:
-            d_sel = torch.gather(depth, 2, fl[..., None])[..., 0]
-        id_sel = ids[torch.gather(s.pc, 1, fl)]
-        pick_d = torch.where(upd, d_sel, pick_d)
-        pick_id = torch.where(upd, id_sel, pick_id)
-        picked = picked | upd
+        for k, level in enumerate(levels):
+            cond = (t_after < level) & (s.alpha > 0.0)
+            first = torch.where(cond, lane, c).amin(dim=-1)             # (n, 256)
+            upd = (first < c) & ~picked[k]
+            fl = first.clamp(max=c - 1)
+            if depth.shape[1] == 1:
+                d_sel = torch.gather(depth[:, 0], 1, fl)
+            else:
+                d_sel = torch.gather(depth, 2, fl[..., None])[..., 0]
+            pick_d[k] = torch.where(upd, d_sel, pick_d[k])
+            if not st.multi_iso:
+                pick_id = torch.where(upd, ids[torch.gather(s.pc, 1, fl)], pick_id)
+            picked[k] = picked[k] | upd
         tcol = s.tcol * s.excl[..., -1:] * s.q[..., -1:]
-    out = torch.cat([acc.transpose(1, 2), tcol.transpose(1, 2), pick_d[:, None, :]], 1)
+    out = torch.cat([acc.transpose(1, 2), tcol.transpose(1, 2), torch.stack(pick_d, 1)], 1)
     return out, pick_id
 
 
@@ -539,7 +579,8 @@ def _blend_fwd(attrs, ids, tile_start, tile_count, st, pix_ctx, seed):
                                    seed=seed)
     num_tiles = st.tiles_x * st.tiles_y
     fn = _kernel("rasterize_fwd", st)
-    out = torch.empty((num_tiles, OUT_ROWS, PIX), dtype=torch.float32, device=dev)
+    rows = ISO_OUT_ROWS if st.multi_iso else OUT_ROWS
+    out = torch.empty((num_tiles, rows, PIX), dtype=torch.float32, device=dev)
     out_id = torch.empty((num_tiles, PIX), dtype=torch.int32, device=dev)
     masks = torch.empty((p,), dtype=torch.uint8, device=dev)  # the cull's byte per pair
     with torch.cuda.device(dev):
@@ -549,7 +590,7 @@ def _blend_fwd(attrs, ids, tile_start, tile_count, st, pix_ctx, seed):
                  tile_count.data_ptr(), _ptr(pix_ctx), num_tiles, st.tiles_x, st.chunk,
                  *model_args(st), st.min_transmittance, st.depth_iso,
                  out.data_ptr(), out_id.data_ptr(), kept.data_ptr(), masks.data_ptr(), seed,
-                 stream)
+                 stream, *(st.iso_thresholds if st.multi_iso else ()))
     if err != 0:
         raise RuntimeError(f"rasterize_fwd ({form_of(st)}) launch failed: cudaError {err}")
     count_launch(rasterize_tiles, st)
@@ -621,8 +662,10 @@ class _RasterizeTiles(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g_out, g_id):
         attrs, tile_start, tile_count, pix_ctx, out = ctx.saved_tensors
+        # the multi-iso form's rgb and T are gs2d's: K2's gs2d form
+        st = dataclasses.replace(ctx.st, multi_iso=False)
         d_attrs = rasterize_tiles_bwd(attrs, tile_start, tile_count,
-                                      bwd_context(out, g_out), ctx.st, pix_ctx, ctx.seed)
+                                      bwd_context(out, g_out), st, pix_ctx, ctx.seed)
         return d_attrs, None, None, None, None, None, None
 
 
@@ -635,7 +678,9 @@ def rasterize_tiles(attrs: torch.Tensor, ids: torch.Tensor,
     (P,) i32; tile_start, tile_count: (T,) i32, T = tiles_x * tiles_y;
     pix_ctx: the (T, 8, 256) f32 pixel context of gut3d (None for gs2d);
     seed: the stochastic stream's seed (read only if ``st.stochastic``).
-    Returns ((T, 5, 256) f32 rows r, g, b, T, depth; (T, 256) i32 ids).
+    Returns ((T, 5, 256) f32 rows r, g, b, T, depth; (T, 256) i32 ids), or
+    for a multi-iso ``st`` ((T, 8, 256) rows r, g, b, T and the four iso
+    depths; ids -1), counted in ``rasterize_tiles.launches_iso``.
     CUDA tensors launch csrc/rasterize_fwd.cu's entry for the form of
     ``st`` and count one launch in ``rasterize_tiles.launches`` (gs2d),
     ``.launches_gut3d``, ``.launches_gs2dp``, ``.launches_gut3dp`` or their
@@ -666,17 +711,24 @@ def entry_name(name: str, st) -> str:
     """The C entry point of kernel ``name`` for the form of ``st``: ``name``
     for gs2d, ``name + "_" + st.model`` for the others (the same source,
     another instantiation of its model template), then ``_stoch`` for the
-    stochastic form (its stochastic template flag) and ``_keyrow`` for the
-    key-row form (its key-row flag; K3 and K4 of gs2d alone)."""
+    stochastic form (its stochastic template flag), ``_keyrow`` for the
+    key-row form (its key-row flag; K3 and K4 of gs2d alone) and ``_iso``
+    for the multi-iso form (K1 of gs2d alone)."""
     if name.startswith("raster_bucket"):
         check_bucket_model(st)
     model_of(st)
+    check_multi_iso(st)
+    if st.multi_iso and name != "rasterize_fwd":
+        raise NotImplementedError(f"{name} has no multi-iso form: its backward is gs2d's")
     base = name if st.model == "gs2d" else f"{name}_{st.model}"
-    return base + (STOCH if st.stochastic else "") + (KEYROW if st.key_is_row else "")
+    return (base + (STOCH if st.stochastic else "") + (KEYROW if st.key_is_row else "")
+            + (ISO if st.multi_iso else ""))
 
 
 def _kernel(name: str, st):
-    return _build.entry(name, entry_name(name, st), _ARGTYPES[name])
+    # the multi-iso entry takes its four thresholds after the common parameters
+    argtypes = _ARGTYPES[name] + [_F] * (ISO_PICKS if st.multi_iso else 0)
+    return _build.entry(name, entry_name(name, st), argtypes)
 
 
 def _ptr(t: torch.Tensor | None):

@@ -1,3 +1,4 @@
+from vk_gaussian_splatting_tpu_torch.render.deferred import DeferredMaterial
 from vk_gaussian_splatting_tpu_torch.render.mesh_raster import (
     MeshBuffers,
     mesh_buffers_from_obj,
@@ -9,8 +10,13 @@ from vk_gaussian_splatting_tpu_torch.render.pipelines import (
     render_3dgrt,
     render_3dgs,
     render_3dgs_composed,
+    render_3dgs_lit,
     render_3dgut,
+    render_hybrid,
 )
+from vk_gaussian_splatting_tpu_torch.render.shadows import make_shadow_fn
 
-__all__ = ["MeshBuffers", "RenderOutput", "mesh_buffers_from_obj", "render", "render_3dgrt",
-           "render_3dgs", "render_3dgs_composed", "render_3dgut", "render_mesh"]
+__all__ = ["DeferredMaterial", "MeshBuffers", "RenderOutput", "make_shadow_fn",
+           "mesh_buffers_from_obj", "render", "render_3dgrt", "render_3dgs",
+           "render_3dgs_composed", "render_3dgs_lit", "render_3dgut", "render_hybrid",
+           "render_mesh"]

@@ -40,6 +40,10 @@ through the bucket kernels' key-row form on the bucket path (f32 rows).
 ``render_3dgs_composed`` composites the 3DGS frame with an opaque triangle
 mesh (render/mesh_raster.py): the mesh pass, the splat pass clipped by the
 mesh depth (the gs2d_clip model), the mesh under the splats' transmittance.
+``render_3dgs_lit`` and ``render_hybrid`` (HYBRID, HYBRID_3DGUT) light the
+raster frame: its normal buffer, deferred Phong shading
+(render/deferred.py) and, in the hybrid frame, per-light deep shadow maps
+(render/shadows.py, the blend's multi-iso form).
 Configurations this port does not run yet raise
 ``NotImplementedError`` naming their ROADMAP.md item; none of them quietly
 takes another path.
@@ -270,11 +274,15 @@ def _bin_counts(bins):
     return (bins.num_pairs if isinstance(bins, TileBins) else bins.num_valid), bins.overflow
 
 
+def pairs_cfg(cfg: RenderConfig) -> RenderConfig:
+    """``cfg`` binning pairs: the JAX ``bin_for_cfg`` bins pairs whatever
+    the method, so every pass that calls it there (the composed, lit and
+    hybrid frames, the normal buffer, the shadow maps) bins pairs here."""
+    return cfg.replace(raster=dataclasses.replace(cfg.raster, method="pairs"))
+
+
 def _reject_unported(cfg: RenderConfig) -> None:
     rc = cfg.raster
-    if cfg.pipeline in (Pipeline.HYBRID, Pipeline.HYBRID_3DGUT):
-        raise NotImplementedError(f"pipeline {cfg.pipeline.name} is not ported yet "
-                                  "(ROADMAP.md queue 1: lighting and shadows)")
     if rc.method not in ("pairs", "bucket"):
         raise ValueError(f"unknown raster.method {rc.method!r}")
     if rc.pair_format not in ("f32", "packed"):
@@ -440,7 +448,7 @@ def render_3dgs_composed(prepared: PreparedSplats, cam: Camera, cfg: RenderConfi
     _reject_unported(cfg)
     with record_function("mesh"):
         mesh_img, mesh_trans, mesh_depth, _ = render_mesh(mesh, cam, cfg, max_pairs, lights)
-    pairs = cfg.replace(raster=dataclasses.replace(cfg.raster, method="pairs"))
+    pairs = pairs_cfg(cfg)
     st = dataclasses.replace(raster_statics(cfg), model="gs2d_clip")
     with record_function("project"):
         proj = project_splats(prepared, cam, cfg)
@@ -459,6 +467,114 @@ def render_3dgs_composed(prepared: PreparedSplats, cam: Camera, cfg: RenderConfi
                             splat_id=splat_id, num_pairs=bins.num_pairs, overflow=bins.overflow)
 
 
+def _set_index_for(material, splat_id, instance_base):
+    """(H,W) int32 set index of each pixel where ``material`` is per set (a
+    tuple), else None: the global-index-table material routing of
+    deferred_shading.comp.slang:107-124."""
+    from vk_gaussian_splatting_tpu_torch.render.deferred import (
+        DeferredMaterial,
+        instance_index_image,
+    )
+    if isinstance(material, DeferredMaterial):
+        return None
+    if not instance_base:
+        raise ValueError("per-set materials need instance_base (the "
+                         "GlobalIndexTable.instance_base offsets)")
+    return instance_index_image(splat_id, instance_base)
+
+
+def _lit_frame(prepared, cam, cfg, max_pairs, lights, material, instance_base, use_gut,
+               shadow_res=None):
+    """The lit frames' common body: the primary pass (f32 gs2d or gut3d rows,
+    pairs, seed 0, over the background), the normal buffer, then with a
+    ``shadow_res`` the lights' shadow maps, then the shade. Returns
+    (RenderOutput, shaded, normal image)."""
+    from vk_gaussian_splatting_tpu_torch.render.deferred import (
+        DeferredMaterial,
+        deferred_shade,
+        render_normal_buffer,
+    )
+    _reject_unported(cfg)
+    if material is None:
+        material = DeferredMaterial()
+    st = raster_statics(cfg)
+    if use_gut:
+        st = dataclasses.replace(gut_statics(st, cfg), model="gut3d")
+    else:
+        st = dataclasses.replace(st, model="gs2d")
+    pix_ctx = None
+    with record_function("project"):
+        proj = (ut_project_splats if use_gut else project_splats)(prepared, cam, cfg)
+    with record_function("bin"):
+        rows, ids = gut_attr_rows(prepared, proj, cfg) if use_gut else gs_attr_rows(proj)
+        bins = bin_for_cfg(proj, rows, ids, pairs_cfg(cfg), max_pairs, st)
+    if use_gut:
+        with record_function("rays"):
+            pix_ctx = build_tile_rays(cam, cfg, sample_id=0)
+    with record_function("blend"):
+        out, out_id = rasterize_bins(bins, st, pix_ctx, 0)
+    with record_function("assemble"):
+        img, trans, depth, splat_id = _assemble(out, out_id, cfg)
+    with record_function("normals"):
+        normal_img = render_normal_buffer(prepared, proj, cam, cfg, st, max_pairs, pix_ctx,
+                                          use_gut_rows=use_gut)
+    shadow_fn = None
+    if shadow_res is not None and lights:
+        from vk_gaussian_splatting_tpu_torch.render.shadows import (
+            make_ray_shadow_fn,
+            make_shadow_fn,
+        )
+        shadow_fn = (make_ray_shadow_fn(prepared, cfg) if cfg.rt.shadows == "ray"
+                     else make_shadow_fn(prepared, tuple(lights), cfg, shadow_res))
+    with record_function("shade"):
+        shaded = deferred_shade(img, trans, normal_img, depth, cam, cfg, list(lights), material,
+                                shadow_fn=shadow_fn,
+                                set_index_img=_set_index_for(material, splat_id, instance_base))
+    return (RenderOutput(image=img, transmittance=trans, depth=depth, splat_id=splat_id,
+                         num_pairs=bins.num_pairs, overflow=bins.overflow), shaded, normal_img)
+
+
+def render_3dgs_lit(prepared: PreparedSplats, cam: Camera, cfg: RenderConfig,
+                    max_pairs: int = 0, lights=(), material=None, instance_base=()):
+    """3DGS raster + surface reconstruction + deferred Phong shading (the
+    raster frame with lighting, gaussian_splatting.cpp:888-908 + S11; the
+    JAX ``render_3dgs_lit``): the 3DGS pass (f32 gs2d rows binned as pairs
+    whatever the config's method and format; a stochastic one blends once
+    with seed 0), its opacity-weighted normal buffer
+    (``render_normal_buffer``) and ``deferred_shade``.
+
+    material: one DeferredMaterial (the default one if None), or a tuple
+    of them, one per instance, routed per pixel by the splat-id pick and
+    ``instance_base`` (the global index table's instance offsets, (0, n1,
+    n1 + n2, ..., N)). Stage spans: project, bin, blend, assemble, normals,
+    shade. Differentiable in ``prepared`` through the image, the normal
+    buffer and the shade. Returns (RenderOutput, shaded (H,W,3), normals
+    (H,W,3))."""
+    return _lit_frame(prepared, cam, cfg, max_pairs, lights, material, instance_base,
+                      use_gut=False)
+
+
+def render_hybrid(prepared: PreparedSplats, cam: Camera, cfg: RenderConfig,
+                  max_pairs: int = 0, lights=(), material=None, instance_base=(),
+                  shadow_res: int = 512):
+    """The hybrid pipelines (PIPELINE_HYBRID, PIPELINE_HYBRID_3DGUT; the JAX
+    ``render_hybrid``): raster primary visibility, by the 3DGS pass or, on
+    HYBRID_3DGUT, the 3DGUT pass (UT projection, rays of sample 0, f32
+    gut3d rows), binned as pairs; its normal buffer; then deferred shading
+    with per-light deep-shadow-map transmittance (render/shadows.py
+    ``make_shadow_fn``: a cone map of ``shadow_res``, a six-face cube map
+    for a point light inside the scene's bounding sphere) — the raster +
+    secondary-ray structure of rgen:343-460/1261-1464 with light-space
+    rendering in place of per-ray marching. With no light it shades by
+    the headlight, unshadowed. ``cfg.rt.shadows == "ray"`` with a light
+    raises NotImplementedError (the per-ray shadows need the 3DGRT
+    tracer). Stage spans as ``render_3dgs_lit``, with rays (3DGUT) and a
+    shadow_map span per light before shade. Returns (RenderOutput, shaded,
+    normals)."""
+    return _lit_frame(prepared, cam, cfg, max_pairs, lights, material, instance_base,
+                      use_gut=cfg.pipeline == Pipeline.HYBRID_3DGUT, shadow_res=shadow_res)
+
+
 def render_3dgrt_exact(prepared: PreparedSplats, cam: Camera, cfg: RenderConfig,
                        ray_block: int = 4096, chunk: int = 512) -> RenderOutput:
     """3DGRT primaries in exact per-ray-t order (the JAX package's strict
@@ -470,8 +586,11 @@ def render_3dgrt_exact(prepared: PreparedSplats, cam: Camera, cfg: RenderConfig,
 def render(prepared: PreparedSplats, cam: Camera, cfg: RenderConfig,
            max_pairs: int = 0, **kw) -> RenderOutput:
     """Pipeline dispatch (shaderio.h:61-66 pipeline ids): VERT and MESH to
-    ``render_3dgs``, MESH_3DGUT to ``render_3dgut``, RTX to ``render_3dgrt``;
-    HYBRID and HYBRID_3DGUT raise NotImplementedError."""
+    ``render_3dgs``, MESH_3DGUT to ``render_3dgut``, RTX to ``render_3dgrt``,
+    HYBRID and HYBRID_3DGUT to ``render_hybrid``, whose RenderOutput it
+    returns (``kw``: its lights, material, instance_base, shadow_res)."""
+    if cfg.pipeline in (Pipeline.HYBRID, Pipeline.HYBRID_3DGUT):
+        return render_hybrid(prepared, cam, cfg, max_pairs, **kw)[0]
     if cfg.pipeline == Pipeline.MESH_3DGUT:
         return render_3dgut(prepared, cam, cfg, max_pairs, **kw)
     if cfg.pipeline == Pipeline.RTX:

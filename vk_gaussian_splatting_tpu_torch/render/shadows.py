@@ -1,0 +1,324 @@
+"""Splat shadows: per-light deep shadow maps (counterpart of
+``vk_gaussian_splatting_tpu/render/shadows.py``).
+
+The reference traces per-pixel shadow rays through the particle BVH
+(rgen:1261-1464: any-hit transmittance toward each light with
+``particleShadowOffset`` self-shadow bias). The raster form renders, per
+light, a *deep shadow map*: one gs2d pass from the light's viewpoint by the
+tile blender's multi-iso form (ops/rasterize.py; K1's ``rasterize_fwd_iso``
+on a card), which records per texel the depths at which transmittance
+crosses ISO_LEVELS = (0.75, 0.5, 0.25, 0.05): a staircase T(depth). The
+deferred pass projects each shade point into the light's frustum and reads
+off its level.
+
+- Coloured shadows: ``shadow_tint`` is the reference's per-channel tinting
+  after the shadow loop (rgen:1446-1460), fed by the map's normalised
+  radiance (its rows 0-2).
+- Enclosed point lights: a point light inside the scene's bounding sphere
+  gets a six-face cube map (``render_cube_shadow_map``) in place of the
+  fitted cone; ``make_shadow_fn`` chooses, reading the light's distance on
+  the host (one synchronisation per light, as the JAX package does outside
+  jit).
+
+Every map bins pairs, blends deterministic gs2d rows at the RasterStatics
+defaults (alpha_min, alpha_clamp, qmax, min_transmittance: not the
+config's) and projects EWA whatever the pipeline, as the JAX module does.
+The sampling functions take ``shadow_offset=0.05`` by default and
+``make_shadow_fn`` never passes another, as in the JAX module (it does not
+read ``cfg.rt.shadow_offset``). The per-ray shadows (``make_ray_shadow_fn``,
+``rt.shadows="ray"``) need the ray tracer and are not ported yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+from torch.profiler import record_function
+
+from vk_gaussian_splatting_tpu_torch.config import RenderConfig, tiles_x, tiles_y
+from vk_gaussian_splatting_tpu_torch.ops.projection import project_splats
+from vk_gaussian_splatting_tpu_torch.ops.rasterize import (
+    ISO_OUT_ROWS,
+    RasterStatics,
+    rasterize_bins,
+)
+from vk_gaussian_splatting_tpu_torch.ops.response import TILE
+from vk_gaussian_splatting_tpu_torch.scene.cameras import Camera
+from vk_gaussian_splatting_tpu_torch.scene.lights import LightSource, LightType
+from vk_gaussian_splatting_tpu_torch.scene.splat_set import PreparedSplats
+
+ISO_LEVELS = (0.75, 0.5, 0.25, 0.05)
+
+
+def shadow_tint(t, radiance, threshold: float, strength: float):
+    """The reference's coloured-shadow post-process (rgen:1446-1460).
+
+    t (...): scalar shadow transmittance; radiance (..., 3): the shadow
+    ray's radiance. T in [0, threshold] -> black; (threshold, 1) -> tinted
+    by the normalised radiance with ``strength``, fading to no tint at
+    scaled T = 1. Returns (..., 3)."""
+    t = torch.clamp(t, 0.0, 1.0)
+    scaled = torch.clamp((t - threshold) / (1.0 - threshold), 0.0, 1.0)
+    max_rad = torch.amax(radiance, dim=-1, keepdim=True)
+    norm_color = torch.where(max_rad > 1e-3, radiance / torch.clamp(max_rad, min=1e-3), 1.0)
+    s = scaled[..., None]
+    mix = 1.0 + (norm_color - 1.0) * (strength * (1.0 - s))
+    return torch.clamp(s * mix, 0.0, 1.0)
+
+
+def scene_bounds(prepared: PreparedSplats):
+    """(centre (3,), radius ()) of the splat means' bounding box's sphere."""
+    lo = prepared.means.amin(dim=0)
+    hi = prepared.means.amax(dim=0)
+    center = 0.5 * (lo + hi)
+    radius = torch.clamp(torch.linalg.norm(hi - lo) * 0.5, min=1e-3)
+    return center, radius
+
+
+def _matvec(r: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """r @ v for a (3,3) r and (3,) v as a sum of products (no TF32)."""
+    return r[:, 0] * v[0] + r[:, 1] * v[1] + r[:, 2] * v[2]
+
+
+def _light_view(r: torch.Tensor, pos: torch.Tensor, f, res: int, near, far) -> Camera:
+    """A pinhole camera of rotation rows ``r`` at ``pos``, focal ``f``, centred
+    on a res x res map (the JAX ``make_camera``'s other defaults)."""
+    dev = r.device
+    top = torch.cat([r, (-_matvec(r, pos))[:, None]], dim=1)
+    viewmat = torch.cat([top, torch.tensor([[0.0, 0.0, 0.0, 1.0]], device=dev)], dim=0)
+
+    def f32(v):
+        return torch.as_tensor(v, dtype=torch.float32, device=dev)
+
+    return Camera(viewmat=viewmat, fx=f32(f), fy=f32(f), cx=f32(res * 0.5), cy=f32(res * 0.5),
+                  near=f32(near), far=f32(far), focus_dist=f32(1.0), aperture=f32(0.0),
+                  distortion=torch.zeros((18,), dtype=torch.float32, device=dev),
+                  viewmat_end=viewmat)
+
+
+def light_camera(light: LightSource, center, radius, res: int) -> Camera:
+    """Perspective frustum from the light covering the scene bounding
+    sphere (a directional light stands 20 radii back along its direction)."""
+    is_dir = light.type == LightType.DIRECTIONAL
+    dirn = light.direction / torch.clamp(torch.linalg.norm(light.direction), min=1e-9)
+    pos = torch.where(is_dir, center - dirn * (20.0 * radius), light.position)
+
+    fwd = center - pos
+    dist = torch.clamp(torch.linalg.norm(fwd), min=1e-6)
+    fwd = fwd / dist
+    dev = fwd.device
+    upw = torch.where(torch.abs(fwd[1]) > 0.95, torch.tensor([1.0, 0.0, 0.0], device=dev),
+                      torch.tensor([0.0, 1.0, 0.0], device=dev))
+    right = torch.linalg.cross(fwd, upw)
+    right = right / torch.clamp(torch.linalg.norm(right), min=1e-9)
+    down = torch.linalg.cross(fwd, right)
+    r = torch.stack([right, down, fwd], dim=0)
+
+    # focal so the bounding sphere fits with margin (tan fov/2 = r*1.1/dist)
+    tan_half = torch.clamp(radius * 1.1 / dist, 0.05, 3.0)
+    f = 0.5 * res / tan_half
+    near = torch.clamp(dist - radius * 1.2, min=1e-3)
+    far = dist + radius * 1.2
+    return _light_view(r, pos, f, res, near, far)
+
+
+@dataclasses.dataclass
+class DeepShadowMap:
+    cam: Camera
+    breakpoints: torch.Tensor         # (res, res, 4) depth at T crossing ISO_LEVELS (0 = none)
+    tint: torch.Tensor | None = None  # (res, res, 3) normalised radiance (the coloured tint)
+
+
+def shadow_map_bins(prepared: PreparedSplats, cam: Camera, light_cfg: RenderConfig,
+                    max_pairs: int):
+    """(TileBins, statics) of one map: the EWA projection from ``cam`` at
+    ``light_cfg``'s size, gs2d rows binned as pairs; the statics
+    (shadows.py:145-148) gs2d, multi-iso at ISO_LEVELS, the config's chunk
+    and the RasterStatics defaults for the rest, never stochastic."""
+    from vk_gaussian_splatting_tpu_torch.render.pipelines import (
+        bin_for_cfg,
+        gs_attr_rows,
+        pairs_cfg,
+    )
+
+    st = RasterStatics(tiles_x=tiles_x(light_cfg), tiles_y=tiles_y(light_cfg),
+                       chunk=light_cfg.raster.chunk, model="gs2d", multi_iso=True,
+                       iso_thresholds=ISO_LEVELS)
+    proj = project_splats(prepared, cam, light_cfg)
+    rows, ids = gs_attr_rows(proj)
+    return bin_for_cfg(proj, rows, ids, pairs_cfg(light_cfg), max_pairs, st), st
+
+
+def render_deep_shadow_map(prepared: PreparedSplats, light: LightSource, cfg: RenderConfig,
+                           res: int = 512, max_pairs: int | None = None) -> DeepShadowMap:
+    """The light's cone map over the scene's bounding sphere, res x res."""
+    center, radius = scene_bounds(prepared)
+    cam = light_camera(light, center, radius, res)
+    return _render_dsm_for_camera(prepared, cam, cfg, res, max_pairs)
+
+
+def _render_dsm_for_camera(prepared: PreparedSplats, cam: Camera, cfg: RenderConfig, res: int,
+                           max_pairs: int | None = None) -> DeepShadowMap:
+    light_cfg = cfg.replace(width=res, height=res)
+    if max_pairs is None:
+        max_pairs = max(4 * prepared.means.shape[0], 1 << 18)
+    bins, st = shadow_map_bins(prepared, cam, light_cfg, max_pairs)
+    out, _ = rasterize_bins(bins, st)
+    # every tile is written (an empty one as rgb 0, T 1, depths 0)
+    ty, tx = st.tiles_y, st.tiles_x
+    full = out.reshape(ty, tx, ISO_OUT_ROWS, TILE, TILE).permute(0, 3, 1, 4, 2)
+    full = full.reshape(ty * TILE, tx * TILE, ISO_OUT_ROWS)[:res, :res]
+    # rows 0-2: the radiance blended from the light's viewpoint, the
+    # coloured-shadow tint source (shadowRadiance, rgen:1409-1441), normalised
+    rad = full[..., 0:3]
+    max_rad = torch.amax(rad, dim=-1, keepdim=True)
+    tint = torch.where(max_rad > 1e-3, rad / torch.clamp(max_rad, min=1e-3), 1.0)
+    return DeepShadowMap(cam=cam, breakpoints=full[..., 4:8], tint=tint)
+
+
+def _texels(world_pos: torch.Tensor, dsm: DeepShadowMap):
+    """(view z, u, v, texel row, texel column) of world points in the map.
+    The texel indices are u and v truncated and clipped to the map, as the
+    JAX ``astype(int32)`` then ``clip``; the clamp comes first here, so no
+    float outside int32's range is cast (a point behind the light; the
+    caller masks those)."""
+    cam = dsm.cam
+    r, t = cam.viewmat[:3, :3], cam.viewmat[:3, 3]
+    p_view = (world_pos[..., 0:1] * r[:, 0] + world_pos[..., 1:2] * r[:, 1]
+              + world_pos[..., 2:3] * r[:, 2]) + t
+    z = p_view[..., 2]
+    zs = torch.clamp(z, min=1e-6)
+    u = cam.fx * p_view[..., 0] / zs + cam.cx
+    v = cam.fy * p_view[..., 1] / zs + cam.cy
+    res_y, res_x = dsm.breakpoints.shape[:2]
+
+    def texel(x, n):
+        return torch.clamp(torch.nan_to_num(x, nan=0.0), 0, n - 1).to(torch.int64)
+
+    return z, u, v, texel(v, res_y), texel(u, res_x)
+
+
+def sample_shadow(world_pos: torch.Tensor, dsm: DeepShadowMap,
+                  shadow_offset: float = 0.05) -> torch.Tensor:
+    """(..., 3) world points -> (...) transmittance toward the light: the
+    staircase level of the point's depth less ``shadow_offset`` (the
+    particleShadowOffset self-shadow bias); 1 outside the map's frustum."""
+    z, u, v, vi, ui = _texels(world_pos, dsm)
+    res_y, res_x = dsm.breakpoints.shape[:2]
+    bp = dsm.breakpoints[vi, ui]                        # (..., 4)
+
+    zb = z - shadow_offset
+    t = torch.ones_like(z)
+    for i, level in enumerate(ISO_LEVELS):
+        crossed = (bp[..., i] > 0) & (zb > bp[..., i])
+        t = torch.where(crossed, level, t)
+    # behind the deepest breakpoint: opaque
+    deep = (bp[..., 3] > 0) & (zb > bp[..., 3])
+    t = torch.where(deep, 0.0, t)
+    # outside the frustum (behind the light or off the map): unshadowed
+    inside = (z > 0) & (u >= 0) & (u < res_x) & (v >= 0) & (v < res_y)
+    return torch.where(inside, t, 1.0)
+
+
+def sample_shadow_colored(world_pos: torch.Tensor, dsm: DeepShadowMap, threshold: float,
+                          strength: float, shadow_offset: float = 0.05) -> torch.Tensor:
+    """(..., 3) per-channel transmittance: the staircase T through
+    ``shadow_tint`` with the map's normalised-radiance tint."""
+    t = sample_shadow(world_pos, dsm, shadow_offset)
+    _, _, _, vi, ui = _texels(world_pos, dsm)
+    rad = (dsm.tint[vi, ui] if dsm.tint is not None
+           else torch.ones(t.shape + (3,), dtype=torch.float32, device=t.device))
+    # the tint is stored normalised; shadow_tint only uses the normalised colour
+    return shadow_tint(t, rad, threshold, strength)
+
+
+# face basis (right, down, forward) per +x, -x, +y, -y, +z, -z
+_CUBE_AXES = (
+    ((0, 0, -1), (0, 1, 0), (1, 0, 0)),
+    ((0, 0, 1), (0, 1, 0), (-1, 0, 0)),
+    ((1, 0, 0), (0, 0, -1), (0, 1, 0)),
+    ((1, 0, 0), (0, 0, 1), (0, -1, 0)),
+    ((1, 0, 0), (0, 1, 0), (0, 0, 1)),
+    ((-1, 0, 0), (0, 1, 0), (0, 0, -1)),
+)
+
+
+@dataclasses.dataclass
+class CubeShadowMap:
+    faces: list  # 6 DeepShadowMaps (+x, -x, +y, -y, +z, -z)
+
+
+def render_cube_shadow_map(prepared: PreparedSplats, light: LightSource, cfg: RenderConfig,
+                           res: int = 256, max_pairs: int | None = None) -> CubeShadowMap:
+    """Six deep-shadow-map faces from the light's position, each a little
+    wider than 90 degrees (tan(fov/2) = 1.05) so the seams stay covered:
+    the enclosed point light a single cone cannot cover."""
+    _center, radius = scene_bounds(prepared)
+    return CubeShadowMap(faces=[_render_dsm_for_camera(prepared, cam, cfg, res, max_pairs)
+                                for cam in cube_cameras(light, radius, res)])
+
+
+def cube_cameras(light: LightSource, radius, res: int) -> list[Camera]:
+    """The six face cameras of a cube map at the light's position (+x, -x,
+    +y, -y, +z, -z), tan(fov/2) = 1.05, depth range [1e-3, 4 radius]."""
+    f = 0.5 * res / 1.05
+    return [_light_view(torch.tensor(axes, dtype=torch.float32, device=light.position.device),
+                        light.position, f, res, 1e-3, 4.0 * radius) for axes in _CUBE_AXES]
+
+
+def sample_shadow_cube(world_pos: torch.Tensor, csm: CubeShadowMap,
+                       shadow_offset: float = 0.05) -> torch.Tensor:
+    """(..., 3) world points -> (...) transmittance toward the enclosed
+    light: each face answers 1 outside its frustum, so the minimum over
+    the faces is the covering face's (the seam overlap sees the same
+    blockers)."""
+    t = torch.ones(world_pos.shape[:-1], dtype=torch.float32, device=world_pos.device)
+    for face in csm.faces:
+        t = torch.minimum(t, sample_shadow(world_pos, face, shadow_offset))
+    return t
+
+
+def make_shadow_fn(prepared: PreparedSplats, lights, cfg: RenderConfig, res: int = 512):
+    """``deferred_shade``'s shadow_fn: one deep shadow map per light, each
+    rendered here under a ``shadow_map`` profiler span.
+
+    A POINT light inside the scene's bounding sphere gets a six-face cube
+    map of min(res, 256) (the choice reads the light's distance on the
+    host); the others the fitted cone of res. With
+    ``rt.shadow_color_strength`` or ``rt.shadow_transmittance_threshold``
+    above 0, a cone map answers (..., 3) coloured transmittance
+    (``shadow_tint``). Maps are keyed by ``id(light)``: call the result
+    with the same light objects."""
+    center, radius = scene_bounds(prepared)
+    maps = {}
+    for light in lights:
+        with record_function("shadow_map"):
+            enclosed = (int(light.type) == int(LightType.POINT) and float(
+                torch.linalg.norm(light.position - center)) < float(radius))
+            if enclosed:
+                maps[id(light)] = render_cube_shadow_map(prepared, light, cfg, min(res, 256))
+            else:
+                maps[id(light)] = render_deep_shadow_map(prepared, light, cfg, res)
+    strength = cfg.rt.shadow_color_strength
+    threshold = cfg.rt.shadow_transmittance_threshold
+
+    def shadow_fn(world_pos, light):
+        m = maps[id(light)]
+        if isinstance(m, CubeShadowMap):
+            return sample_shadow_cube(world_pos, m)
+        if strength > 0.0 or threshold > 0.0:
+            return sample_shadow_colored(world_pos, m, threshold, strength)
+        return sample_shadow(world_pos, m)
+
+    return shadow_fn
+
+
+def make_ray_shadow_fn(prepared: PreparedSplats, cfg: RenderConfig, shadow_offset: float = 0.05,
+                       chunk: int = 256, ray_block: int = 2048, meshes=None):
+    """Per-ray shadow transmittance (the reference's per-pixel shadow trace,
+    rgen:1261-1464; ``rt.shadows="ray"``): it traces each shade point's ray
+    through the splats (ops/raytrace.trace_splats), which is not ported
+    yet."""
+    raise NotImplementedError("ray-traced shadows (rt.shadows='ray') are not ported yet "
+                              "(ROADMAP.md queue 1: 3DGRT)")

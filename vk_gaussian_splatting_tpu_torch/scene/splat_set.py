@@ -109,6 +109,21 @@ class SplatSet:
         return prepare_splats(self, sh_format)
 
 
+def quat_to_rotmat(quats: torch.Tensor) -> torch.Tensor:
+    """(N,4) (w,x,y,z) quaternions -> (N,3,3) rotation matrices (the JAX
+    ``quat_to_rotmat``, its operations in its order). Normalizes first."""
+    q = quats / torch.linalg.norm(quats, dim=-1, keepdim=True).clamp_min(1e-12)
+    w, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    return torch.stack(
+        [
+            torch.stack([1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)], -1),
+            torch.stack([2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)], -1),
+            torch.stack([2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)], -1),
+        ],
+        dim=-2,
+    )
+
+
 def covariance_from_scale_rot(scales_log: torch.Tensor, quats: torch.Tensor,
                               scale_multiplier: float = 1.0) -> torch.Tensor:
     """3D covariance Σ = R S Sᵀ Rᵀ packed as (N,6): xx,xy,xz,yy,yz,zz.
