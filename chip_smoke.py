@@ -3,6 +3,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --mesh-views ROUNDS   # phase 13's view sweep alone
     python3 chip_smoke.py --lighting            # phase 14 alone (no report)
+    python3 chip_smoke.py --raytrace            # phase 15 alone (no report)
 
 Drives the port's main paths — the 3DGS raster frame, ``render(prepared,
 camera, cfg)``, and the training step, ``train_step`` (render, loss,
@@ -18,8 +19,12 @@ backward with the splat IO (PLY, spz, .splat); meshes (``render_mesh``,
 smooth and flat, and the mesh-composited 3DGS frame
 ``render_3dgs_composed``, forward and backward); lighting and shadows (the
 lit 3DGS frame ``render_3dgs_lit`` and the hybrid frames ``render_hybrid``,
-HYBRID and HYBRID_3DGUT, with deep shadow maps); and the design probes
-P1-P3 through their own entry points — and checks them:
+HYBRID and HYBRID_3DGUT, with deep shadow maps); ray tracing (3DGRT's
+strict tier ``render_3dgrt_exact``, ``render_hybrid`` with
+``rt.shadows="ray"`` and the wavefront bounces of
+``render_composed_wavefront``: the plain-torch tracer of ops/raytrace.py);
+and the design probes P1-P3 through their own entry points — and checks
+them:
 
 1. builds the CUDA kernels from the checkout, one nvcc per source, all at
    once: the pair blender K1 (csrc/rasterize_fwd.cu) and its backward K2
@@ -226,6 +231,21 @@ P1-P3 through their own entry points — and checks them:
    frame's shaded image (K2 gs2d twice, each launch against its twin with
    its own context, ``bwd_gate``); the lit and hybrid frames beside the
    3DGS frame and the hybrid frame's stages by events, and its profile;
+15. ray tracing (``raytracing``; no kernel of its own, so no report entry):
+   ``render_3dgrt_exact`` on tests/test_grt.py's 150-splat scene above 35
+   dB against ``render_3dgrt`` (no blend launched; profiled), and on the
+   golden scene at 256x192 (timed, its PSNR against the raster frame
+   logged); ``render_hybrid`` with ``rt.shadows="ray"`` at 160x90 on the
+   headline scene with phase 14's two lights, HYBRID and HYBRID_3DGUT, one
+   frame each with the launch counters zeroed (the blend's form twice),
+   each light's shadow trace timed; ``render_composed_wavefront`` at 1080p
+   with phase 13's mesh, the sphere glass and the ground a mirror, stride 16,
+   3 bounces (the launch counters zeroed: tri2d_smooth and gs2d_clip once),
+   then the same bounces step by step (spawn, trace_mesh, trace_splats,
+   the rest, the live rays) equal to the frame bit for bit; on 128 rays of
+   each batch (primary, shadow, first bounce) the card against the CPU at
+   the tracer's gates, repeats bit-equal, the pass and any-hit estimators
+   finite with T 0 or 1. The cuts are listed beside ``RT_SHADE_SIZE``;
 9. the probes (vk_gaussian_splatting_tpu_torch/probes): each probe's entry
    point at its script's default arguments (``bench_roll.run``,
    ``bench_sort_stage.run`` per variant, ``bench_radix_ab.run``: their
@@ -275,7 +295,7 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
 import vk_gaussian_splatting_tpu_torch as gt  # noqa: E402
-from vk_gaussian_splatting_tpu_torch import native  # noqa: E402
+from vk_gaussian_splatting_tpu_torch import interop, native  # noqa: E402
 from vk_gaussian_splatting_tpu_torch.io import (  # noqa: E402
     load_ply,
     load_scene,
@@ -289,6 +309,7 @@ from vk_gaussian_splatting_tpu_torch.io.obj import ObjMaterial, ObjMesh, octa_sp
 from vk_gaussian_splatting_tpu_torch.ops import _build  # noqa: E402
 from vk_gaussian_splatting_tpu_torch.ops import raster_bucket as rb  # noqa: E402
 from vk_gaussian_splatting_tpu_torch.ops import rasterize as tr  # noqa: E402
+from vk_gaussian_splatting_tpu_torch.ops import raytrace as rt  # noqa: E402
 from vk_gaussian_splatting_tpu_torch.ops.denoise import denoise_output  # noqa: E402
 from vk_gaussian_splatting_tpu_torch.ops.bucket_grid import (  # noqa: E402
     BucketGridSpec,
@@ -310,8 +331,15 @@ from vk_gaussian_splatting_tpu_torch.probes import bench_radix_ab as probe_radix
 from vk_gaussian_splatting_tpu_torch.probes import bench_roll as probe_roll  # noqa: E402
 from vk_gaussian_splatting_tpu_torch.probes import bench_sort_stage as probe_stage  # noqa: E402
 from vk_gaussian_splatting_tpu_torch.timing import call_ms, device_label  # noqa: E402
-from vk_gaussian_splatting_tpu_torch.render import render, render_3dgs_composed  # noqa: E402
+from vk_gaussian_splatting_tpu_torch.render import (  # noqa: E402
+    render,
+    render_3dgrt,
+    render_3dgrt_exact,
+    render_3dgs_composed,
+    render_composed_wavefront,
+)
 from vk_gaussian_splatting_tpu_torch.render import mesh_raster as mr  # noqa: E402
+from vk_gaussian_splatting_tpu_torch.render import pipelines, shadows, wavefront  # noqa: E402
 from vk_gaussian_splatting_tpu_torch.render.deferred import (  # noqa: E402
     DeferredMaterial,
     deferred_shade,
@@ -340,6 +368,7 @@ from vk_gaussian_splatting_tpu_torch.render.shadows import (  # noqa: E402
     ISO_LEVELS,
     cube_cameras,
     light_camera,
+    make_ray_shadow_fn,
     make_shadow_fn,
     render_cube_shadow_map,
     render_deep_shadow_map,
@@ -548,7 +577,7 @@ BUCKET_VS_PAIR_ATOL, BUCKET_VS_PAIR_SHARE = 2e-4, 0.999
 TWIN_BATCH = 1024  # tiles per twin call at 1080p: a (1024, 256, 384) f32 step is 0.4 GB
 # the stage spans that render_3dgs and train_step open, in step order
 STAGES = ("prepare", "project", "bin", "rays", "blend", "assemble", "normals", "shadow_map",
-          "shade", "loss", "backward", "optimizer")
+          "shade", "trace", "loss", "backward", "optimizer")
 PEAK_F32_OPS = 67e12   # H100 SXM, f32 outside the tensor cores
 PEAK_F64_OPS = 34e12   # H100 SXM, f64 outside the tensor cores (NVIDIA's data sheet)
 PEAK_BYTES = 3.35e12   # H100 SXM HBM3
@@ -4682,10 +4711,373 @@ def lighting(dev, card: str, truth: gt.SplatSet):
                            hybrid_frame_ms=t_frame)}, {ISO_NAME: bound}
 
 
+
+# ---- ray tracing (render_3dgrt_exact, render_hybrid with rt.shadows="ray",
+# render_composed_wavefront): the tracer of ops/raytrace.py -----------------------
+#
+# The tracer is plain torch (the JAX tracer reaches no Pallas call): each
+# sweep step is some 50 elementwise launches over a (rays, splats of the
+# chunk) tensor, and its times here are the baseline a tracer kernel must
+# beat. A step runs at some 2.7e9 (ray, splat) evaluations a second on an
+# H100 (21.1 s per light of 320x180 shadow rays through 1 M splats; PERF.md
+# §6), so the phase cuts, each logged where it applies:
+# - the ray-shadowed hybrid frames at RT_SHADE_SIZE, 160x90: the shade
+#   points, not the splats (users load the whole scene; the cost grows with
+#   both); at 320x180 a frame took 42.3 s;
+# - the wavefront's secondary rays at stride RT_STRIDE, 16 (120 x 68 rays):
+#   at stride 8 the frame took 37.9 s;
+# - the wavefront's secondary rays in the radial order: rt.order "auto"
+#   picks the windowed order on this batch (its origins spread over the
+#   mirror and the glass), which costs rt.max_passes times as much;
+# - the card against the port's CPU run on RT_CHECK_RAYS evenly spaced rays
+#   of each batch: the CPU traces a million splats at some 3e7 (ray, splat)
+#   evaluations a second.
+
+RT_SHADE_SIZE = (160, 90)      # the ray-shadowed hybrid frames
+RT_STRIDE, RT_BOUNCES = 16, 3  # the wavefront: 120 x 68 secondary rays, 3 bounces
+RT_CHECK_RAYS = 128            # rays of each batch the CPU run checks
+RT_TEST_SCENE = (13, 150)     # tests/test_grt.py:99-103's scene: seed, splats
+RT_TEST_PASSES = 48
+RT_PSNR_MIN = 35.0
+RT_ATOL, RT_AGREE, RT_FLIP = 1e-4, 0.999, 1.2e-2  # tests/test_torch_raytrace.py's gates
+
+
+def wavefront_mesh() -> ObjMesh:
+    """Phase 13's ``headline_mesh`` with the sphere glass (illum 2, ior 1.5,
+    transmittance 0.9) and the ground grid a mirror (illum 1, specular
+    0.9): the materials of tests/test_raytrace.py."""
+    glass = ObjMaterial(name="glass", diffuse=(0.02, 0.02, 0.02), specular=(0.1, 0.1, 0.1),
+                        transmittance=(0.9, 0.9, 0.9), ior=1.5, illum=2)
+    mirror = ObjMaterial(name="mirror", diffuse=(0.05, 0.05, 0.05), specular=(0.9, 0.9, 0.9),
+                         illum=1)
+    return dataclasses.replace(headline_mesh(), materials=[glass, mirror])
+
+
+def every_nth(r: int) -> torch.Tensor:
+    """RT_CHECK_RAYS evenly spaced indices of a batch of r rays."""
+    return torch.linspace(0, r - 1, min(r, RT_CHECK_RAYS)).long()
+
+
+def cpu_copy(obj):
+    """A dataclass of tensors (splats, lights, meshes) on the CPU."""
+    return dataclasses.replace(obj, **{f.name: getattr(obj, f.name).cpu()
+                                       for f in dataclasses.fields(obj)})
+
+
+def trace_agreement(label, got, want) -> float:
+    """The tracer's gate on (rays, ...) values: within RT_ATOL on >= 99.9 %
+    of rays, none beyond RT_FLIP. Returns the max."""
+    per = (got.detach().cpu() - want).abs().reshape(want.shape[0], -1).amax(dim=1)
+    share = (per <= RT_ATOL).float().mean().item()
+    log(f"{label}: card against CPU max {per.max().item():.3e}, share within {RT_ATOL} "
+        f"{share:.6f} of {per.numel()} rays")
+    check(share >= RT_AGREE and per.max().item() <= RT_FLIP, f"{label}: card against CPU")
+    return per.max().item()
+
+
+def check_splat_trace(label, prepared, o, d, tmin, tmax, cfg, **kw) -> float:
+    """trace_splats on a batch's checked rays: the card against the CPU
+    (radiance, T, the iso depth's pick), a bit-equal repeat, and the pass
+    and any-hit estimators finite with T 0 or 1 (tests/test_torch_cuda.py
+    repeats each estimator bit for bit). Returns the max difference."""
+    t0 = time.perf_counter()
+    pick = every_nth(o.shape[0]).to(o.device)
+    args = [x[pick] for x in (o, d, tmin, tmax)]
+    card = rt.trace_splats(prepared, *args, cfg, **kw)
+    again = rt.trace_splats(prepared, *args, cfg, **kw)
+    cpu = rt.trace_splats(cpu_copy(prepared), *[x.cpu() for x in args], cfg, **kw)
+    same = all(torch.equal(getattr(card, f), getattr(again, f))
+               for f in ("radiance", "transmittance", "depth"))
+    err = max(trace_agreement(f"{label} radiance", card.radiance, cpu.radiance),
+              trace_agreement(f"{label} T", card.transmittance, cpu.transmittance))
+    dc = cpu.depth
+    depth_same = ((card.depth.cpu() - dc).abs() <= 1e-5 * dc.abs().clamp(min=1.0)).float().mean()
+    est = {}
+    for mode in ("pass", "anyhit"):
+        a = rt.trace_splats(prepared, *args, cfg, stochastic=mode, seed=3, **kw)
+        t = a.transmittance
+        est[mode] = (bool(torch.isfinite(a.radiance).all()) and bool(((t == 0) | (t == 1)).all()),
+                     float((t == 0).float().mean()))
+    log(f"{label}: {pick.numel()} rays, iso-depth picks equal {depth_same.item():.6f}, card repeat "
+        f"bit-equal {same}; estimators finite with T in (0, 1) (share T = 0): "
+        + ", ".join(f"{m} {ok} ({z:.4f})" for m, (ok, z) in est.items())
+        + f"; checks {time.perf_counter() - t0:.1f} s (host clock)")
+    check(same and depth_same.item() >= RT_AGREE, f"{label}: repeat or iso depth")
+    check(all(ok for ok, _ in est.values()), f"{label}: an estimator")
+    return err
+
+
+def exact_tier(dev, card):
+    """``render_3dgrt_exact``: the 150-splat scene of tests/test_grt.py
+    (max_passes 48) above RT_PSNR_MIN against the raster ``render_3dgrt``
+    (gated) and profiled; the golden scene at its 256x192 (max_passes 32)
+    timed by events, its PSNR against the raster frame logged (not gated),
+    and its primary rays checked. Returns (max difference, ms)."""
+    seed, n = RT_TEST_SCENE
+    d = interop.random_splat_arrays(seed, n, sh_degree=0, scale_range=(-2.2, -1.2))
+    small = interop.splat_set_from_numpy(d, dev).prepare()
+    cfg = gt.RenderConfig(width=64, height=48, sh_degree=0)
+    cfg = cfg.replace(rt=dataclasses.replace(cfg.rt, max_passes=RT_TEST_PASSES))
+    cam = gt.look_at([0, 0, -9], [0, 0, 0], [0, 1, 0], 64, 48, fov_y_rad=0.9, device=dev)
+    tr.zero_counters(tr.rasterize_tiles)
+    exact = render_3dgrt_exact(small, cam, cfg)
+    torch.cuda.synchronize()
+    seen = counts(tr.rasterize_tiles)
+    check(not any(seen.values()), f"render_3dgrt_exact launched a blend: {seen}")
+    raster = render_3dgrt(small, cam, cfg, 1 << 16)
+    psnr = psnr_against(exact.image.clamp(0, 1), raster.image.clamp(0, 1))
+    log(f"render_3dgrt_exact {n} splats 64x48 max_passes {RT_TEST_PASSES}: {psnr:.3f} dB "
+        f"against render_3dgrt (gate > {RT_PSNR_MIN})")
+    check(psnr > RT_PSNR_MIN, f"render_3dgrt_exact: {psnr} dB")
+    profile_calls("render_3dgrt_exact 64x48", lambda: render_3dgrt_exact(small, cam, cfg), card,
+                  calls=1)
+
+    meta = json.load(open(os.path.join(GOLDEN, "meta.json")))
+    w, h = meta["recipe"]["res"]
+    gcfg = gt.RenderConfig(width=w, height=h, sh_degree=0)
+    gcam = gt.look_at([0, -1.5, -7.0], [0, 0.5, 0], [0, 1, 0], w, h, fov_y_rad=0.9, device=dev)
+    golden = load_ply(os.path.join(GOLDEN, "golden_scene.ply"), device=dev).prepare()
+    out, ms = timed(lambda: render_3dgrt_exact(golden, gcam, gcfg))
+    raster = render_3dgrt(golden, gcam, gcfg)
+    psnr = psnr_against(out.image.clamp(0, 1), raster.image.clamp(0, 1))
+    finite = bool(torch.isfinite(out.image).all()) and bool(torch.isfinite(out.depth).all())
+    steps = gcfg.rt.max_passes * -(-golden.means.shape[0] // 512)
+    log(f"timing render_3dgrt_exact golden {w}x{h}, {golden.means.shape[0]} splats, max_passes "
+        f"{gcfg.rt.max_passes} ({card}; events, one call): frame_ms={ms:.4f} ({steps} sweep steps "
+        f"of {w * h} rays x 512 splats: {ms / steps:.4f} ms a step); {psnr:.3f} dB against "
+        f"render_3dgrt (reported, not gated); finite {finite}")
+    check(finite, "render_3dgrt_exact golden: not finite")
+    # its primary rays, as render_3dgrt_exact makes them
+    ys, xs = torch.meshgrid(torch.arange(h, device=dev) + 0.5, torch.arange(w, device=dev) + 0.5,
+                            indexing="ij")
+    d_cam = torch.stack([(xs - gcam.cx) / gcam.fx, (ys - gcam.cy) / gcam.fy,
+                         torch.ones_like(xs)], -1)
+    d_cam = d_cam / torch.linalg.norm(d_cam, dim=-1, keepdim=True)
+    dirs = (d_cam.reshape(-1, 3)[:, :, None] * gcam.viewmat[None, :3, :3]).sum(dim=1)
+    o = gcam.position.expand(dirs.shape)
+    err = check_splat_trace("exact tier golden primary rays (windowed)", golden, o, dirs,
+                            torch.zeros(w * h, device=dev),
+                            torch.full((w * h,), float("inf"), device=dev), gcfg,
+                            chunk=512, ray_block=4096, order="windowed")
+    return err, ms
+
+
+def timed_ray_shadows(records: list):
+    """``render/shadows.make_ray_shadow_fn`` whose shadow functions record
+    (CUDA events around the call, its answer) into ``records``
+    (render_hybrid builds its shadow function when it is called, so the
+    frame's own traces are timed, without a synchronisation)."""
+    real = shadows.make_ray_shadow_fn
+
+    def make(*a, **kw):
+        fn = real(*a, **kw)
+
+        def shadow_fn(world_pos, light):
+            s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            s.record()
+            out = fn(world_pos, light)
+            e.record()
+            records.append((s, e, out))
+            return out
+        return shadow_fn
+    return make
+
+
+def ray_shadowed_hybrid(dev, card, prepared, lights):
+    """``render_hybrid`` with ``rt.shadows="ray"`` at RT_SHADE_SIZE, HYBRID
+    and HYBRID_3DGUT, one frame each through ``render_hybrid`` with every
+    launch counter of K1's wrapper zeroed (the blend's form twice: the
+    pass and its normal buffer; no shadow map), timed by events, each
+    light's shadow trace within it too (``timed_ray_shadows``), the shaded
+    frame finite and unlike the one with no light; HYBRID's shadow rays of
+    one light checked on the CPU. Returns (max difference, {pipeline:
+    frame ms})."""
+    w, h = RT_SHADE_SIZE
+    cam = gt.look_at([0, 0, -7], [0, 0, 0], [0, 1, 0], w, h, fov_y_rad=0.9, device=dev)
+    errs, frame_ms = [], {}
+    for pipeline, form in ((gt.Pipeline.HYBRID, "gs2d"), (gt.Pipeline.HYBRID_3DGUT, "gut3d")):
+        cfg = gt.RenderConfig(width=w, height=h, sh_degree=3, pipeline=pipeline,
+                              rt=gt.RtConfig(shadows="ray"))
+        records = []
+        shadows.make_ray_shadow_fn = timed_ray_shadows(records)
+        tr.zero_counters(tr.rasterize_tiles)
+        try:
+            (out, shaded, normals), ms = timed(lambda: render_hybrid(prepared, cam, cfg, 0,
+                                                                      lights))
+        finally:
+            shadows.make_ray_shadow_fn = make_ray_shadow_fn
+        seen = only(f"render_hybrid {pipeline.name} ray shadows", tr.rasterize_tiles, form, 2)
+        check(len(records) == len(lights), f"{len(records)} shadow traces")
+        unlit = render_hybrid(prepared, cam, cfg, 0, ())[1]
+        covered = out.depth > 0
+        traces = [(t[covered], s.elapsed_time(e)) for s, e, t in records]
+        finite = bool(torch.isfinite(shaded).all()) and bool(torch.isfinite(normals).all())
+        moved = (shaded - unlit).abs().max().item()
+        log(f"timing render_hybrid {pipeline.name} rt.shadows=ray {w}x{h}, 1M splats, "
+            f"{len(lights)} lights ({card}; events, one frame): frame_ms={ms:.4f}; its shadow "
+            f"trace per light (the frame's {w * h} shade points, chunk 256, radial): "
+            + ", ".join(f"light {i} {t_ms:.4f} ms" for i, (_, t_ms) in enumerate(traces))
+            + f"; the rest of the frame {ms - sum(t for _, t in traces):.4f} ms; launches {seen}")
+        log(f"render_hybrid {pipeline.name} ray shadows: covered {covered.float().mean():.4f}; "
+            + ", ".join(f"light {i} shadowed (T < 0.5) share of covered pixels "
+                        f"{(t < 0.5).float().mean():.4f}" for i, (t, _) in enumerate(traces))
+            + f"; shaded max change from no light {moved:.4f}; finite {finite}")
+        check(finite and moved > 1e-3, f"render_hybrid {pipeline.name} ray shadows")
+        frame_ms[pipeline.name] = ms
+        if pipeline != gt.Pipeline.HYBRID:
+            continue
+        # the shadow rays of light 1 (the enclosed point light) on the CPU
+        fn = make_ray_shadow_fn(prepared, cfg)
+        p = surface_points(out.depth, cam).reshape(-1, 3)[every_nth(w * h).to(dev)]
+        got = fn(p, lights[1])
+        want = make_ray_shadow_fn(cpu_copy(prepared), cfg)(p.cpu(), cpu_copy(lights[1]))
+        errs.append(trace_agreement(f"{pipeline.name} shadow rays of light 1", got, want))
+        again = fn(p, lights[1])
+        check(torch.equal(again, got), f"{pipeline.name} shadow rays: repeat")
+    return max(errs), frame_ms
+
+
+def wavefront_frame(dev, card, prepared, lights):
+    """``render_composed_wavefront`` at the headline cell: the mesh of
+    ``wavefront_mesh``, stride RT_STRIDE, RT_BOUNCES bounces, the exact
+    expansion at COMPOSED_MAX_PAIRS, one frame through the entry point with
+    every launch counter of K1's wrapper zeroed (tri2d_smooth and
+    gs2d_clip once each: the tracer launches no kernel), timed; then the
+    same frame's bounces step by step (spawn; per bounce trace_mesh,
+    trace_splats, the rest), each by events, with the live rays per bounce;
+    the step-by-step radiance equal to the entry point's bit for bit; the
+    first bounce's rays checked on the CPU. Returns (max difference, frame ms)."""
+    mesh = mr.mesh_buffers_from_obj(wavefront_mesh(), device=dev)
+    cam = gt.look_at([0, 0, -7], [0, 0, 0], [0, 1, 0], WIDTH, HEIGHT, fov_y_rad=0.9, device=dev)
+    cfg = gt.RenderConfig(width=WIDTH, height=HEIGHT, sh_degree=3)
+    cfg = cfg.replace(raster=dataclasses.replace(cfg.raster, expansion="exact"),
+                      rt=dataclasses.replace(cfg.rt, order="radial"))
+    tr.zero_counters(tr.rasterize_tiles)
+    (frame, final), ms = timed(lambda: render_composed_wavefront(
+        prepared, cam, cfg, COMPOSED_MAX_PAIRS, mesh, lights, RT_BOUNCES, RT_STRIDE))
+    seen = counts(tr.rasterize_tiles)
+    check(seen == {m: int(m in ("tri2d_smooth", "gs2d_clip")) for m in seen},
+          f"render_composed_wavefront: launches {seen}")
+    finite = bool(torch.isfinite(final).all())
+    added = (final - frame.image).amax(dim=-1)
+    log(f"timing render_composed_wavefront {WIDTH}x{HEIGHT}, 1M splats, "
+        f"{mesh.indices.shape[0]} faces (glass sphere, mirror ground), stride {RT_STRIDE}, "
+        f"{RT_BOUNCES} bounces, rt.order radial ({card}; events, one frame): frame_ms={ms:.4f}; "
+        f"launches { {m: k for m, k in seen.items() if k} }; splat pass overflow "
+        f"{bool(frame.overflow)}; pixels the bounces brighten by > 1e-3 "
+        f"{(added > 1e-3).float().mean():.4f}; finite {finite}")
+    check(finite and not bool(frame.overflow) and (added > 1e-3).any(),
+          "render_composed_wavefront: not finite, overflowed or no bounce light")
+
+    # the same frame step by step
+    (composed, splat_trans, face_id), composed_ms = timed(lambda: pipelines._composed_frame(
+        prepared, cam, cfg, COMPOSED_MAX_PAIRS, mesh, lights))
+    (o, d, thr, mask, shape_lr), spawn_ms = timed(lambda: wavefront.secondary_spawn(
+        cam, cfg, mesh, face_id, splat_trans, RT_STRIDE))
+    r = o.shape[0]
+    auto = gt.RenderConfig(sh_degree=3)
+    centroid = o.mean(dim=0)
+    spread = torch.linalg.norm(o - centroid, dim=-1).mean().item()
+    med = torch.linalg.norm(prepared.means - centroid, dim=-1).median().item()
+    log(f"wavefront spawn: {r} secondary rays ({shape_lr[0]}x{shape_lr[1]}), "
+        f"{int(mask.sum())} on mirror or glass; composed_frame_ms={composed_ms:.4f} "
+        f"spawn_ms={spawn_ms:.4f}; origin spread "
+        f"{spread:.3f} against 0.1 x the splats' median distance {0.1 * med:.3f}: rt.order "
+        f"{auto.rt.order!r} would trace them "
+        f"{'windowed' if spread > 0.1 * med else 'radial'} (cut: radial)")
+    face_nrm = wavefront._face_geometric_normals(mesh)
+    radiance = torch.zeros_like(thr)
+    err = 0.0
+    for b in range(RT_BOUNCES):
+        live = int((thr.amax(dim=-1) > 0).sum())
+        eps = o.new_full((r,), wavefront.EPS_T)
+        mh, mesh_ms = timed(lambda: rt.trace_mesh(mesh.positions, mesh.indices, o, d, eps))
+        ts, splat_ms = timed(lambda: rt.trace_splats(prepared, o, d, eps, mh.t, cfg))
+        if b == 0:
+            err = wavefront_check(prepared, mesh, o, d, eps, cfg)
+
+        def rest():
+            nonlocal radiance, thr, o, d
+            radiance = radiance + thr * ts.radiance
+            thr = thr * ts.transmittance[:, None]
+            face = torch.clamp(mh.face, min=0).long()
+            hit_pos = o + d * torch.where(mh.hit, mh.t, 0.0)[:, None]
+            nrm = face_nrm[face]
+            shade = wavefront._shade_mesh_hit(hit_pos, nrm, d, mesh, face, lights, cam)
+            radiance = radiance + torch.where(mh.hit[:, None], thr * shade, 0.0)
+            new_d, factor, alive = wavefront._bounce_dispatch(d, nrm, mesh, face)
+            cont = mh.hit & alive
+            thr = torch.where(cont[:, None], thr * factor, 0.0)
+            keep = torch.amax(thr, dim=-1) > cfg.rt.min_transmittance
+            thr = torch.where(keep[:, None], thr, 0.0)
+            o, d = hit_pos, torch.where(cont[:, None], new_d, d)
+
+        _, rest_ms = timed(rest)
+        log(f"timing wavefront bounce {b + 1} ({card}; events): live rays {live} of {r}, mesh "
+            f"hits {int(mh.hit.sum())}; trace_mesh_ms={mesh_ms:.4f} trace_splats_ms="
+            f"{splat_ms:.4f} shade_and_dispatch_ms={rest_ms:.4f}")
+    stepwise = wavefront.add_secondary_radiance(composed.image, radiance, shape_lr, cfg)
+    same = torch.equal(stepwise, final)
+    log(f"wavefront step by step equals the entry point's frame bit for bit: {same}")
+    check(same, "wavefront: the step-by-step frame differs")
+    return err, ms
+
+
+def wavefront_check(prepared, mesh, o, d, eps, cfg) -> float:
+    """The first bounce's checked rays: trace_mesh (face ids equal, t within
+    1e-5 relative, a bit-equal repeat) and trace_splats within the CPU's
+    mesh hits, card against CPU."""
+    pick = every_nth(o.shape[0]).to(o.device)
+    args = [x[pick] for x in (o, d, eps)]
+    card = rt.trace_mesh(mesh.positions, mesh.indices, *args)
+    again = rt.trace_mesh(mesh.positions, mesh.indices, *args)
+    cpu_mesh = cpu_copy(mesh)
+    cpu = rt.trace_mesh(cpu_mesh.positions, cpu_mesh.indices, *[x.cpu() for x in args])
+    hit = cpu.hit
+    faces = torch.equal(card.face.cpu(), cpu.face) and torch.equal(card.hit.cpu(), hit)
+    t_err = ((card.t.cpu()[hit] - cpu.t[hit]).abs() / cpu.t[hit].abs()).max().item() \
+        if hit.any() else 0.0
+    same = torch.equal(card.t, again.t) and torch.equal(card.face, again.face)
+    log(f"wavefront bounce 1 trace_mesh: {pick.numel()} rays, {int(hit.sum())} hits, face ids "
+        f"equal {faces}, t max relative difference {t_err:.3e}, repeat bit-equal {same}")
+    check(faces and t_err <= 1e-5 and same, "wavefront trace_mesh: card against CPU")
+    tmax = cpu.t.to(o.device)
+    full = torch.full((o.shape[0],), float("inf"), device=o.device)
+    full[pick] = tmax
+    return check_splat_trace("wavefront bounce 1 splat rays (radial)", prepared, o, d, eps, full,
+                             cfg, order="radial")
+
+
+def raytracing(dev, card: str, truth: gt.SplatSet):
+    """Phase 15: the exact tier (``exact_tier``), the ray-shadowed hybrid
+    frames (``ray_shadowed_hybrid``) with phase 14's two lights, and the
+    wavefront frame (``wavefront_frame``) with them, on the headline scene
+    (1M splats, SH 3). Every image finite; each batch's checked rays on the
+    card against the CPU; no kernel of this slice (the tracer is plain
+    torch), so the report gains no entry."""
+    t0 = time.perf_counter()
+    lights = headline_lights(dev)
+    prepared = truth.prepare()
+    marks = [("start", time.perf_counter())]
+    with torch.no_grad():
+        err_exact, exact_ms = exact_tier(dev, card)
+        marks.append(("exact tier", time.perf_counter()))
+        err_shadow, hybrid_ms = ray_shadowed_hybrid(dev, card, prepared, lights)
+        marks.append(("ray shadows", time.perf_counter()))
+        err_wave, wave_ms = wavefront_frame(dev, card, prepared, lights)
+        marks.append(("wavefront", time.perf_counter()))
+    log(f"ray tracing phase {time.perf_counter() - t0:.1f} s ("
+        + ", ".join(f"{b[0]} {b[1] - a[1]:.1f} s" for a, b in zip(marks, marks[1:]))
+        + f"); card against CPU max: exact {err_exact:.3e}, shadow rays {err_shadow:.3e}, "
+        f"wavefront {err_wave:.3e}; frame_ms exact golden {exact_ms:.1f}, hybrid "
+        + ", ".join(f"{k} {v:.1f}" for k, v in hybrid_ms.items()) + f", wavefront {wave_ms:.1f}")
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     views = int(argv[argv.index("--mesh-views") + 1]) if "--mesh-views" in argv else 0
     lighting_only = "--lighting" in argv
+    raytrace_only = "--raytrace" in argv
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: chip_smoke.py runs only on a card")
     dev = torch.device("cuda", 0)
@@ -4719,6 +5111,10 @@ def main(argv=None) -> int:
         return 0
     if lighting_only:
         lighting(dev, card, bench_scene(dev, SPLATS, seed=0))
+        log(f"total {time.perf_counter() - t0:.1f} s")
+        return 0
+    if raytrace_only:
+        raytracing(dev, card, bench_scene(dev, SPLATS, seed=0))
         log(f"total {time.perf_counter() - t0:.1f} s")
         return 0
 
@@ -4778,6 +5174,7 @@ def main(argv=None) -> int:
     lit_entries, lit_bounds = lighting(dev, card, truth)
     results.update(lit_entries)
     bounds.update(lit_bounds)
+    raytracing(dev, card, truth)
     probe_entries, probe_bounds, library = probes(dev, card)
     results.update(probe_entries)
     bounds.update(probe_bounds)

@@ -1978,3 +1978,155 @@ def test_lit_backward_launches_k2_twice(cuda):
         grads.append([getattr(s, f).grad.clone() for f in interop.SPLAT_FIELDS])
     for a, b in zip(*grads):
         assert bool(torch.isfinite(a).all()) and torch.equal(a, b)
+
+
+# ---- the ray tracer (ops/raytrace.py: plain torch, no kernel of its own) ----------
+#
+# trace_splats and trace_mesh on the card against the same calls on the CPU,
+# at the tracer's gates (tests/test_torch_raytrace.py): radiance and T within
+# 1e-4 on >= 99.9 % of rays, none beyond 1.2e-2 (a contribution flipped at a
+# response cutoff by another exp or rsqrt); the iso depth the same pick on
+# >= 99.9 %; mesh face ids equal and t within 1e-5 relative. The estimators
+# draw from one fixed CPU stream on both devices. An any-hit draw belongs to
+# a place in the radial order, and two splats whose distances to the ray
+# centroid lie within rounding of each other (the centroid is a sum, in
+# another order on each device) may trade places and so draws: the
+# estimators are compared on a scene of splats on shells 2e-3 apart, where
+# the order is the same on both devices. Repeats are bit-equal.
+
+from vk_gaussian_splatting_tpu_torch.io.obj import ObjMaterial, ObjMesh, octa_sphere  # noqa: E402
+from vk_gaussian_splatting_tpu_torch.ops import raytrace as rt  # noqa: E402
+from vk_gaussian_splatting_tpu_torch.render import render_3dgrt_exact  # noqa: E402
+from vk_gaussian_splatting_tpu_torch.render.pipelines import (  # noqa: E402
+    render_composed_wavefront,
+)
+
+TRACE_ATOL, TRACE_AGREE, TRACE_FLIP = 1e-4, 0.999, 1.2e-2
+
+
+def fixed_uniforms(stream, seed, shape, device, pass_id=0, chunk_id=0):
+    """One CPU stream per (stream, seed, pass, chunk), moved to the device."""
+    gen = torch.Generator().manual_seed(hash((stream, seed, pass_id, chunk_id)) % (1 << 62))
+    return torch.rand(shape, generator=gen).to(device)
+
+
+def trace_gate(got, want):
+    per = (got.cpu() - want).abs().reshape(want.shape[0], -1).amax(dim=1)
+    assert (per <= TRACE_ATOL).float().mean().item() >= TRACE_AGREE, per.max()
+    assert per.max().item() <= TRACE_FLIP, per.max()
+
+
+def trace_rays(device, r=2048, seed=3):
+    g = torch.Generator().manual_seed(seed)
+    o = torch.tensor([0.0, -0.5, -9.0]) + 0.5 * torch.randn((r, 3), generator=g)
+    d = torch.tensor([0.0, 0.1, 1.0]) + 0.3 * torch.randn((r, 3), generator=g)
+    return o.to(device), (d / d.norm(dim=-1, keepdim=True)).to(device)
+
+
+def shell_splats(device, n=3000, seed=4):
+    """Splats in the rays' cone at distances 4 + 2e-3 i from the rays'
+    centroid (one splat a shell): the radial order cannot depend on how a
+    device rounds the centroid."""
+    d = interop.random_splat_arrays(seed, n, sh_degree=1, scale_range=(-3.0, -1.5))
+    centroid = trace_rays("cpu")[0].double().mean(dim=0).numpy()
+    rng = np.random.default_rng(seed)
+    u = np.float64([0.0, 0.1, 1.0]) + 0.3 * rng.normal(size=(n, 3))
+    u /= np.linalg.norm(u, axis=-1, keepdims=True)
+    d["means"] = (centroid + (4.0 + 2e-3 * rng.permutation(n))[:, None] * u).astype(np.float32)
+    return interop.splat_set_from_numpy(d, device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("order, stochastic", [("radial", False), ("windowed", False),
+                                               ("auto", False), ("radial", "pass"),
+                                               ("radial", "anyhit"), ("windowed", "anyhit")])
+def test_trace_splats_on_card_matches_cpu(cuda, monkeypatch, order, stochastic):
+    monkeypatch.setattr(rt, "trace_uniforms", fixed_uniforms)
+    cfg = gt.RenderConfig(width=64, height=32, sh_degree=1)
+    cfg = cfg.replace(rt=dataclasses.replace(cfg.rt, max_passes=8))
+    res = {}
+    for dev in (cuda, torch.device("cpu")):
+        prepared = (shell_splats(dev) if stochastic else
+                    splats_on(dev, n=3000, scale_range=(-3.0, -1.5))).prepare()
+        o, d = trace_rays(dev)
+        tmin = torch.full((o.shape[0],), 1e-3, device=dev)
+        tmax = torch.full((o.shape[0],), float("inf"), device=dev)
+        call = lambda: rt.trace_splats(prepared, o, d, tmin, tmax, cfg, chunk=256,  # noqa: E731
+                                       ray_block=512, stochastic=stochastic, seed=7, order=order)
+        with torch.no_grad():
+            res[dev.type] = call()
+            again = call()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            for f in ("radiance", "transmittance", "depth"):
+                assert torch.equal(getattr(again, f), getattr(res["cuda"], f)), f
+    k, c = res["cuda"], res["cpu"]
+    trace_gate(k.radiance, c.radiance)
+    trace_gate(k.transmittance, c.transmittance)
+    dk, dc = k.depth.cpu(), c.depth
+    same = (dk - dc).abs() <= 1e-5 * dc.abs().clamp(min=1.0)
+    assert same.float().mean().item() >= TRACE_AGREE
+    assert float(c.transmittance.detach().min()) < 0.5
+    if stochastic:
+        assert bool(torch.isin(k.transmittance.cpu(), torch.tensor([0.0, 1.0])).all())
+
+
+@pytest.mark.cuda
+def test_trace_mesh_on_card_matches_cpu(cuda):
+    sphere = octa_sphere(5, 2.0)
+    res = {}
+    for dev in (cuda, torch.device("cpu")):
+        pos = torch.as_tensor(sphere.positions, device=dev)
+        idx = torch.as_tensor(sphere.indices, device=dev)
+        g = torch.Generator().manual_seed(9)
+        o = torch.nn.functional.normalize(torch.randn((3000, 3), generator=g), dim=-1) * 6.0
+        d = torch.nn.functional.normalize(torch.rand((3000, 3), generator=g) * 5.0 - 2.5 - o,
+                                          dim=-1)
+        call = lambda: rt.trace_mesh(pos, idx, o.to(dev), d.to(dev),  # noqa: E731
+                                     torch.full((3000,), 1e-3, device=dev), ray_block=512)
+        res[dev.type] = call()
+        if dev.type == "cuda":
+            again = call()
+            assert torch.equal(again.t, res["cuda"].t) and torch.equal(again.face,
+                                                                       res["cuda"].face)
+    k, c = res["cuda"], res["cpu"]
+    assert torch.equal(k.face.cpu(), c.face) and torch.equal(k.hit.cpu(), c.hit)
+    hit = c.hit
+    assert 0.3 < hit.float().mean().item() < 0.95
+    torch.testing.assert_close(k.t.cpu()[hit], c.t[hit], rtol=1e-5, atol=0)
+
+
+@pytest.mark.cuda
+def test_traced_frames_on_card_match_cpu(cuda):
+    """render_3dgrt_exact, render_hybrid with ray shadows and
+    render_composed_wavefront (a mirror floor) on the card against the CPU:
+    images at the tracer's per-pixel gate, each repeat bit-equal."""
+    w, h = 64, 48
+    grt = gt.RenderConfig(width=w, height=h, sh_degree=0)
+    grt = grt.replace(rt=dataclasses.replace(grt.rt, max_passes=16))
+    hyb = gt.RenderConfig(width=w, height=h, sh_degree=0, pipeline=gt.Pipeline.HYBRID,
+                          rt=gt.RtConfig(shadows="ray"))
+    wav = gt.RenderConfig(width=w, height=h, sh_degree=1)
+    mirror = ObjMesh(np.float32([[-6, -2, -6], [6, -2, -6], [6, -2, 6], [-6, -2, 6]]),
+                     np.tile(np.float32([[0, 1, 0]]), (4, 1)), np.int32([[0, 1, 2], [0, 2, 3]]),
+                     np.zeros(2, np.int32),
+                     [ObjMaterial(diffuse=(0.05, 0.05, 0.05), specular=(0.9, 0.9, 0.9),
+                                  illum=1)])
+    frames = {}
+    for dev in (cuda, torch.device("cpu")):
+        cam = gt.look_at([0, 0.5, -9], [0, -0.5, 0], [0, 1, 0], w, h, fov_y_rad=0.9, device=dev)
+        prepared = shadow_scene(dev, 300, 600).prepare()
+        calls = (
+            lambda: render_3dgrt_exact(prepared, cam, grt).image,
+            lambda: render_hybrid(prepared, cam, hyb, 1 << 16, lights=shadow_lights(dev))[1],
+            lambda: render_composed_wavefront(
+                prepared, cam, wav, 1 << 16, mesh=mr.mesh_buffers_from_obj(mirror, device=dev),
+                max_bounces=2, stride=2)[1],
+        )
+        frames[dev.type] = [f() for f in calls]
+        if dev.type == "cuda":
+            for f, first in zip(calls, frames["cuda"]):
+                assert torch.equal(f(), first)
+    for k, c in zip(frames["cuda"], frames["cpu"]):
+        assert bool(torch.isfinite(k).all())
+        trace_gate(k.reshape(-1, 3), c.reshape(-1, 3))

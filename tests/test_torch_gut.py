@@ -590,8 +590,6 @@ def test_entry_points_per_model():
         tr.rasterize_tiles(torch.zeros((15, 0)), torch.zeros((0,), dtype=torch.int32),
                            torch.zeros((1,), dtype=torch.int32),
                            torch.zeros((1,), dtype=torch.int32), gut)
-    with pytest.raises(NotImplementedError, match="3DGRT"):
-        tp.render_3dgrt_exact(None, None, tc.RenderConfig())
 
 
 def test_bucket_path_adds_the_tails_beyond_the_ut_rect():

@@ -1,7 +1,7 @@
 """render_3dgs end to end: the PyTorch port (its CPU twin of the blender)
 against the JAX package (interpret-mode kernel), plus the golden gate, the
 probes (empty scene, a size not a multiple of 16, a tiny slot budget) and
-what the port must refuse.
+the configs earlier slices of the port refused, through ``render``.
 
 Tolerances as tests/test_torch_rasterize.py: image and transmittance 5e-5
 abs, on at least 99.9 % of channels and none beyond 1.2e-2 (the flip-aware
@@ -31,6 +31,7 @@ from vk_gaussian_splatting_tpu.render.pipelines import render_3dgrt as j_grt
 from vk_gaussian_splatting_tpu.render.pipelines import render_3dgs as j_render
 from vk_gaussian_splatting_tpu.render.pipelines import render_3dgut as j_gut
 from vk_gaussian_splatting_tpu.scene import cameras as jcam
+from vk_gaussian_splatting_tpu.scene import lights as jl
 from vk_gaussian_splatting_tpu.scene import splat_set as jss
 import vk_gaussian_splatting_tpu_torch as gt
 import vk_gaussian_splatting_tpu_torch.config as tc
@@ -138,15 +139,14 @@ def test_repeat_render_is_bit_equal():
 # fisheye camera_type on 3DGS (pinhole EWA, as in the JAX package), the
 # packed tier (tests/test_torch_packed.py; its four cases below),
 # stochastic transparency with its post pass (tests/test_torch_stochastic.py;
-# its six cases below) and the hybrid pipelines (tests/test_torch_shadows.py;
-# the three former cases of this table below). What the hybrid pipelines
-# still refuse is the per-ray shadows (``rt.shadows="ray"``) where a light
-# casts them: they need the 3DGRT tracer
-UNPORTED = {
-    "fisheye": dict(pipeline=tc.Pipeline.HYBRID_3DGUT, camera_type=tc.CameraType.FISHEYE,
-                    rt=tc.RtConfig(shadows="ray")),
-    "hybrid": dict(pipeline=tc.Pipeline.HYBRID, rt=tc.RtConfig(shadows="ray")),
-    "hybrid_gut": dict(pipeline=tc.Pipeline.HYBRID_3DGUT, rt=tc.RtConfig(shadows="ray")),
+# its six cases below), the hybrid pipelines (tests/test_torch_shadows.py;
+# their three cases below) and their per-ray shadows (``rt.shadows="ray"``
+# with a light, the 3DGRT tracer: the three former cases of this table,
+# now RAY_SHADOWS below). No config value is refused any more.
+RAY_SHADOWS = {
+    "fisheye": dict(pipeline="HYBRID_3DGUT", camera_type="FISHEYE"),
+    "hybrid": dict(pipeline="HYBRID"),
+    "hybrid_gut": dict(pipeline="HYBRID_3DGUT"),
 }
 
 TINY = (6, 50)  # scene seed and splats of the 32x32 probes
@@ -159,13 +159,35 @@ def tiny():
     return interop.splat_set_from_numpy(d, "cpu").prepare(), cam
 
 
-@pytest.mark.parametrize("name", list(UNPORTED))
-def test_unported_config_raises(tiny, name):
+@pytest.mark.parametrize("name", list(RAY_SHADOWS))
+def test_ray_shadow_config_renders_and_matches_jax(tiny, name):
+    """The per-ray shadows with a light (``rt.shadows="ray"``) render
+    through ``render`` on the CPU and its frame matches the JAX package's,
+    at the gates of ``test_hybrid_config_renders_and_matches_jax``
+    (tests/test_torch_shadows.py holds the shaded frames and the shadow
+    rays to JAX's)."""
     prep, cam = tiny
-    cfg = tc.RenderConfig(width=32, height=32, **UNPORTED[name])
-    light = gt.scene.lights.make_light(position=(0.0, -6.0, 0.0), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1: 3DGRT"):
-        render(prep, cam, cfg, lights=(light,))
+    kw = RAY_SHADOWS[name]
+    camera = kw.get("camera_type", "PINHOLE")
+    common = dict(width=32, height=32)
+    cj = jc.RenderConfig(**common, pipeline=jc.Pipeline[kw["pipeline"]],
+                         camera_type=jc.CameraType[camera], rt=jc.RtConfig(shadows="ray"))
+    ct = tc.RenderConfig(**common, pipeline=tc.Pipeline[kw["pipeline"]],
+                         camera_type=tc.CameraType[camera], rt=tc.RtConfig(shadows="ray"))
+    d = interop.random_splat_arrays(*TINY, sh_degree=0)
+    sj = jss.SplatSet(**{k: jnp.asarray(v) for k, v in d.items()}).prepare()
+    light_t = gt.scene.lights.make_light(position=(0.0, -6.0, 0.0), device="cpu")
+    light_j = jl.make_light(position=(0.0, -6.0, 0.0))
+    oj = j_dispatch(sj, jcam.make_camera(**interop.camera_to_numpy(cam)), cj, 1 << 14,
+                    lights=(light_j,))
+    ot = render(prep, cam, ct, 1 << 14, lights=(light_t,))
+    assert isinstance(ot, gt.render.RenderOutput)
+    assert float(ot.transmittance.min()) < (0.95 if camera == "FISHEYE" else 0.5)
+    assert bool(oj.overflow) == bool(ot.overflow) and int(oj.num_pairs) == int(ot.num_pairs)
+    for a, b in ((ot.image, oj.image), (ot.transmittance, oj.transmittance)):
+        diff = np.abs(a.numpy() - np.asarray(b))
+        assert (diff <= IMG_ATOL).mean() >= IMG_SHARE and diff.max() <= IMG_MAX, diff.max()
+    assert (ot.splat_id.numpy() == np.asarray(oj.splat_id)).mean() >= ID_AGREE
 
 
 # the former UNPORTED cases of the hybrid pipelines: the RenderConfig fields

@@ -395,19 +395,16 @@ def test_make_shadow_fn_matches_jax(blocker, name, strength, cube):
     assert (lit < 0.5).any() and (lit == 1.0).any()  # shadowed and unshadowed points
 
 
-def test_ray_shadows_raise_naming_3dgrt_and_no_light_renders(blocker):
+def test_ray_shadows_without_lights_render(blocker):
+    """``rt.shadows="ray"`` with no light: the headlight shades, unshadowed,
+    on both hybrid pipelines (no shadow function is built)."""
     _, pt = blocker
-    _, lt = both_lights("point")
     cam = gt.look_at([0, -2.0, -12.0], [0, 2.0, 0], [0, 1, 0], 32, 32, device="cpu")
     for pipeline in (tc.Pipeline.HYBRID, tc.Pipeline.HYBRID_3DGUT):
         cfg = tc.RenderConfig(width=32, height=32, sh_degree=0, pipeline=pipeline)
         cfg = cfg.replace(rt=dataclasses.replace(cfg.rt, shadows="ray"))
-        with pytest.raises(NotImplementedError, match="3DGRT"):
-            render_hybrid(pt, cam, cfg, lights=(lt,))
         out, shaded, _ = render_hybrid(pt, cam, cfg, lights=())
         assert torch.isfinite(shaded).all() and float(out.transmittance.min()) < 0.5
-    with pytest.raises(NotImplementedError, match="3DGRT"):
-        ts.make_ray_shadow_fn(pt, cfg)
 
 
 # ---- render_hybrid against JAX --------------------------------------------------------
@@ -516,4 +513,123 @@ def test_render_hybrid_matches_jax(hybrid_inputs, name):
     assert len(shaded_levels) >= 2  # the lights' maps shadow some covered pixels
     # shadows change the shaded frame (tests/test_shadows.py:62-68)
     unlit = render_hybrid(pt, cam_t, ct, 1 << 16, lights=(), shadow_res=HYBRID_RES)[1]
+    assert np.abs(np_(st_) - np_(unlit)).max() > 1e-3
+
+
+# ---- per-ray shadows (rt.shadows="ray") ------------------------------------------------
+#
+# make_ray_shadow_fn traces one ray per point toward the light
+# (ops/raytrace.trace_splats; tests/test_torch_raytrace.py holds the tracer
+# to JAX's): its answers within 1e-4 on >= 99.9 % of the points and none
+# beyond 1.2e-2 (a contribution flipped at a response cutoff); the hybrid
+# frames with it at this file's hybrid gates.
+
+RAY_ATOL, RAY_MAX = 1e-4, 1.2e-2
+
+
+def ray_shadow_gate(got, want, label):
+    per = np.abs(np_(got) - np.asarray(want)).reshape(len(want), -1).max(axis=1)
+    print(f"{label}: max {per.max():.3e}, {int((per > RAY_ATOL).sum())} of {len(per)} beyond "
+          f"{RAY_ATOL}")
+    assert (per <= RAY_ATOL).mean() >= BP_AGREE and per.max() <= RAY_MAX, per.max()
+
+
+def occluder_quads(illum, transmittance):
+    """tests/test_shadows.py:188's quad as a mesh occluder, in both
+    packages: a 2 x 2 square at y = -6 over the point light (0, -8, 0),
+    whose shadow on the plane y = -4 is the square |x|, |z| < 2."""
+    from vk_gaussian_splatting_tpu.io.obj import ObjMaterial as JObjMaterial
+    from vk_gaussian_splatting_tpu.io.obj import ObjMesh as JObjMesh
+    from vk_gaussian_splatting_tpu.render import mesh_raster as jmr
+    from vk_gaussian_splatting_tpu_torch.io.obj import ObjMaterial, ObjMesh
+    from vk_gaussian_splatting_tpu_torch.render import mesh_buffers_from_obj
+
+    pos = np.float32([[-1, -6, -1], [1, -6, -1], [1, -6, 1], [-1, -6, 1]])
+    nrm = np.tile(np.float32([[0, -1, 0]]), (4, 1))
+    idx, mats = np.int32([[0, 1, 2], [0, 2, 3]]), np.zeros(2, np.int32)
+    mat = dict(diffuse=(0.5, 0.5, 0.5), transmittance=transmittance, ior=1.5, illum=illum)
+    return (jmr.mesh_buffers_from_obj(JObjMesh(pos, nrm, idx, mats, [JObjMaterial(**mat)])),
+            mesh_buffers_from_obj(ObjMesh(pos, nrm, idx, mats, [ObjMaterial(**mat)]),
+                                  device="cpu"))
+
+
+RAY_SHADOW_CASES = {  # name: (lights, rt fields, mesh occluder (illum, transmittance))
+    "scalar": (("point", "directional", "enclosed"), {}, None),
+    "colored": (("point", "overhead"), dict(shadow_transmittance_threshold=0.2,
+                                            shadow_color_strength=1.0), None),
+    "glass": (("point",), {}, (4, (0.9, 0.1, 0.1))),
+    "opaque": (("point",), {}, (0, (0.0, 0.0, 0.0))),
+}
+
+
+@pytest.mark.parametrize("case", list(RAY_SHADOW_CASES))
+def test_make_ray_shadow_fn_matches_jax(hybrid_inputs, case):
+    """make_ray_shadow_fn against JAX on the hybrid scene at 2000 points:
+    scalar T for a point, a directional and an enclosed light; the coloured
+    (..., 3) answer; a glass and an opaque quad as mesh occluders
+    (tests/test_shadows.py:80, :152, :188). The answers shadow some points
+    and (but for the light inside the blocker) not others; under the quad
+    glass tints by its transmittance and opaque blacks out, beside it the
+    points on y = -4 (below the splats) are lit."""
+    pj, pt = hybrid_inputs
+    light_names, rt_kw, occluder = RAY_SHADOW_CASES[case]
+    cj, ct = cfgs()
+    cj = cj.replace(rt=dataclasses.replace(cj.rt, shadows="ray", **rt_kw))
+    ct = ct.replace(rt=dataclasses.replace(ct.rt, shadows="ray", **rt_kw))
+    kw_j, kw_t = {}, {}
+    if occluder is not None:
+        kw_j["meshes"], kw_t["meshes"] = occluder_quads(*occluder)
+    fn_j = js.make_ray_shadow_fn(pj, cj, **kw_j)
+    fn_t = ts.make_ray_shadow_fn(pt, ct, **kw_t)
+    rng = np.random.default_rng(7)
+    pts = rng.uniform(-3.0, 3.0, (2000, 3)).astype(np.float32)
+    pts[:200, 1] = -4.0  # on the plane of the quad's shadow, below the splats
+    for name in light_names:
+        lj, lt = both_lights(name)
+        got, want = fn_t(torch.from_numpy(pts), lt), fn_j(jnp.asarray(pts), lj)
+        assert got.shape == want.shape == ((2000,) if case == "scalar" else (2000, 3))
+        ray_shadow_gate(got, want, f"{case} {name}")
+        lit = np_(got).reshape(2000, -1).min(axis=1)
+        assert (lit < 0.5).any() and (name == "enclosed" or (lit > 0.9).any())
+    if occluder is not None:
+        t = np_(got)[:200]
+        side = np.abs(pts[:200, [0, 2]]).max(axis=1)
+        under, beside = side < 1.9, side > 2.1
+        assert under.sum() > 10 and beside.sum() > 10
+        assert (t[beside] > 0.99).all()
+        if case == "glass":
+            assert (t[under, 0] > 4 * t[under, 1]).all()
+        else:
+            assert (t[under] == 0.0).all()
+
+
+@pytest.mark.parametrize("pipeline", ["HYBRID", "HYBRID_3DGUT"])
+def test_render_hybrid_ray_shadows_matches_jax(hybrid_inputs, pipeline):
+    """render_hybrid with ``rt.shadows="ray"`` and two lights against the
+    JAX frame: image, T, ids and normals as ``test_render_hybrid_matches_jax``,
+    the shaded frame at the hybrid gates; the ray shadows darken the frame
+    (against the unlit one)."""
+    from vk_gaussian_splatting_tpu.render.pipelines import render_hybrid as j_hybrid
+    pj, pt = hybrid_inputs
+    cj, ct = cfgs()
+    cj = cj.replace(pipeline=jc.Pipeline[pipeline], rt=dataclasses.replace(cj.rt, shadows="ray"))
+    ct = ct.replace(pipeline=tc.Pipeline[pipeline], rt=dataclasses.replace(ct.rt, shadows="ray"))
+    cam_t = gt.look_at([0, -2.0, -12.0], [0, 2.0, 0], [0, 1, 0], 64, 64, device="cpu")
+    cam_j = jcam.make_camera(**interop.camera_to_numpy(cam_t))
+    lights = [both_lights(n) for n in ("point", "overhead")]
+    lj, lt = tuple(a for a, _ in lights), tuple(b for _, b in lights)
+    oj, sj, nj = j_hybrid(pj, cam_j, cj, 1 << 16, lights=lj)
+    ot, st_, nt = render_hybrid(pt, cam_t, ct, 1 << 16, lights=lt)
+    gut = pipeline == "HYBRID_3DGUT"
+    for a, b in ((ot.image, oj.image), (ot.transmittance, oj.transmittance)):
+        assert frame_gate(np.abs(np_(a) - np.asarray(b)), IMG_ATOL_H, gut)
+    same = np.asarray(oj.splat_id) == np_(ot.splat_id)
+    assert same.mean() >= BP_AGREE
+    cover = ((1 - np_(ot.transmittance) > 1e-2) & (1 - np.asarray(oj.transmittance) > 1e-2))
+    assert frame_gate(np.abs(np_(nt) - np.asarray(nj))[cover], 1e-4, gut)
+    diff = np.abs(np_(st_) - np.asarray(sj))
+    print(f"{pipeline} ray-shadowed frame: max {diff.max():.3e}, "
+          f"{int((diff.max(-1) > 1e-4).sum())} pixels beyond 1e-4, {int((~same).sum())} picks apart")
+    assert frame_gate(diff, 1e-4, gut)
+    unlit = render_hybrid(pt, cam_t, ct, 1 << 16, lights=())[1]
     assert np.abs(np_(st_) - np_(unlit)).max() > 1e-3

@@ -16,7 +16,10 @@ raster path (``render_mesh``, ``render_3dgs_composed``); lighting and
 shadows on the raster path (``render_3dgs_lit``, ``render_hybrid`` for the
 HYBRID and HYBRID_3DGUT pipelines, ``DeferredMaterial``,
 ``make_shadow_fn``: deferred Phong shading and per-light deep shadow
-maps). Plain
+maps); 3DGRT's ray-traced tier (``render_3dgrt_exact``, the per-ray
+shadows of ``make_ray_shadow_fn``, the wavefront bounces of
+``render_composed_wavefront``: the splat and mesh tracer of
+ops/raytrace.py, plain torch). Plain
 tensor code runs on any torch device; the two tile blenders and their
 backwards are hand-written CUDA kernels (csrc/rasterize_{fwd,bwd}.cu,
 csrc/raster_bucket_{fwd,bwd}.cu, each for the gs2d and the gut3d response
@@ -29,7 +32,7 @@ Layout:
   io/      PLY, spz, .splat, OBJ, cameras.json loaders
   scene/   SplatSet / PreparedSplats, cameras (pinhole and fisheye
            parameters, DoF, distortion, rolling shutter), lights
-  ops/     SH, EWA and UT projections, depth keys, pair binning and
+  ops/     SH, EWA and UT projections, the splat and mesh ray tracer, depth keys, pair binning and
            bucket-grid binning (each with its sort-based backward), the
            gs2d and gut3d responses and the stochastic stream, the pair
            blender and the bucket rasterizer (kernel wrappers, twins,
@@ -37,7 +40,8 @@ Layout:
   render/  render_3dgs, render_3dgut, render_3dgrt, the per-tile rays, the
            pipeline dispatch, render_mesh and render_3dgs_composed,
            render_3dgs_lit and render_hybrid with deferred shading and
-           deep shadow maps
+           deep shadow maps or ray shadows, render_3dgrt_exact, the
+           wavefront bounces (render_composed_wavefront)
   train.py loss, Adam, train_step, densify / prune, checkpoints
   probes/  the design probes P1-P3 (the scripts/ Pallas probes) on the card
   csrc/    CUDA sources
@@ -57,11 +61,13 @@ from vk_gaussian_splatting_tpu_torch.config import (
 )
 from vk_gaussian_splatting_tpu_torch.render.deferred import DeferredMaterial
 from vk_gaussian_splatting_tpu_torch.render.pipelines import (
+    render_3dgrt_exact,
     render_3dgs_composed,
     render_3dgs_lit,
+    render_composed_wavefront,
     render_hybrid,
 )
-from vk_gaussian_splatting_tpu_torch.render.shadows import make_shadow_fn
+from vk_gaussian_splatting_tpu_torch.render.shadows import make_ray_shadow_fn, make_shadow_fn
 from vk_gaussian_splatting_tpu_torch.scene.cameras import Camera, look_at, make_camera
 from vk_gaussian_splatting_tpu_torch.scene.splat_set import SplatSet, PreparedSplats
 from vk_gaussian_splatting_tpu_torch.train import (
@@ -98,10 +104,13 @@ __all__ = [
     "look_at",
     "make_camera",
     "make_optimizer",
+    "make_ray_shadow_fn",
     "make_shadow_fn",
     "prune_splats",
+    "render_3dgrt_exact",
     "render_3dgs_composed",
     "render_3dgs_lit",
+    "render_composed_wavefront",
     "render_hybrid",
     "reset_opacities",
     "rgb_loss",

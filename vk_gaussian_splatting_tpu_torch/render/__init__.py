@@ -8,15 +8,17 @@ from vk_gaussian_splatting_tpu_torch.render.pipelines import (
     RenderOutput,
     render,
     render_3dgrt,
+    render_3dgrt_exact,
     render_3dgs,
     render_3dgs_composed,
     render_3dgs_lit,
     render_3dgut,
+    render_composed_wavefront,
     render_hybrid,
 )
-from vk_gaussian_splatting_tpu_torch.render.shadows import make_shadow_fn
+from vk_gaussian_splatting_tpu_torch.render.shadows import make_ray_shadow_fn, make_shadow_fn
 
-__all__ = ["DeferredMaterial", "MeshBuffers", "RenderOutput", "make_shadow_fn",
-           "mesh_buffers_from_obj", "render", "render_3dgrt", "render_3dgs",
-           "render_3dgs_composed", "render_3dgs_lit", "render_3dgut", "render_hybrid",
-           "render_mesh"]
+__all__ = ["DeferredMaterial", "MeshBuffers", "RenderOutput", "make_ray_shadow_fn",
+           "make_shadow_fn", "mesh_buffers_from_obj", "render", "render_3dgrt",
+           "render_3dgrt_exact", "render_3dgs", "render_3dgs_composed", "render_3dgs_lit",
+           "render_3dgut", "render_composed_wavefront", "render_hybrid", "render_mesh"]

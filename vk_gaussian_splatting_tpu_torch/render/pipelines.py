@@ -43,8 +43,13 @@ mesh depth (the gs2d_clip model), the mesh under the splats' transmittance.
 ``render_3dgs_lit`` and ``render_hybrid`` (HYBRID, HYBRID_3DGUT) light the
 raster frame: its normal buffer, deferred Phong shading
 (render/deferred.py) and, in the hybrid frame, per-light deep shadow maps
-(render/shadows.py, the blend's multi-iso form).
-Configurations this port does not run yet raise
+(render/shadows.py, the blend's multi-iso form) or per-ray shadows
+(``rt.shadows="ray"``: the splat tracer, ops/raytrace.py).
+``render_3dgrt_exact`` is 3DGRT's strict tier: every pixel ray traced
+through the splats in the windowed per-ray t order (ops/raytrace.py, plain
+torch). ``render_composed_wavefront`` adds to the composed frame the
+reflect / refract bounces off its mirror and glass faces
+(render/wavefront.py). Configurations this port does not run yet raise
 ``NotImplementedError`` naming their ROADMAP.md item; none of them quietly
 takes another path.
 """
@@ -77,9 +82,15 @@ from vk_gaussian_splatting_tpu_torch.ops.rasterize import (
     assemble_image,
     rasterize_bins,
 )
+from vk_gaussian_splatting_tpu_torch.ops.raytrace import trace_splats
 from vk_gaussian_splatting_tpu_torch.ops.response import deg0_min_response, model_of, pack_rows
 from vk_gaussian_splatting_tpu_torch.render.mesh_raster import depth_limit_pix_ctx, render_mesh
 from vk_gaussian_splatting_tpu_torch.render.rays import build_tile_rays
+from vk_gaussian_splatting_tpu_torch.render.wavefront import (
+    add_secondary_radiance,
+    secondary_spawn,
+    trace_secondary,
+)
 from vk_gaussian_splatting_tpu_torch.scene.cameras import Camera
 from vk_gaussian_splatting_tpu_torch.scene.splat_set import PreparedSplats
 
@@ -431,6 +442,34 @@ def render_3dgrt(prepared: PreparedSplats, cam: Camera, cfg: RenderConfig,
     return _render_gut(prepared, cam, cfg, max_pairs, radial_order=True)
 
 
+def _composed_frame(prepared: PreparedSplats, cam: Camera, cfg: RenderConfig, max_pairs: int,
+                    mesh, lights):
+    """The mesh-composited frame of ``render_3dgs_composed``: (RenderOutput,
+    the splats' transmittance in front of the mesh (H,W), the mesh pass's
+    face id (H,W) int32)."""
+    _reject_unported(cfg)
+    with record_function("mesh"):
+        mesh_img, mesh_trans, mesh_depth, face_id = render_mesh(mesh, cam, cfg, max_pairs, lights)
+    pairs = pairs_cfg(cfg)
+    st = dataclasses.replace(raster_statics(cfg), model="gs2d_clip")
+    with record_function("project"):
+        proj = project_splats(prepared, cam, cfg)
+    with record_function("bin"):
+        rows, ids = gs_attr_rows(proj)
+        bins = bin_for_cfg(proj, rows, ids, pairs, max_pairs, st)
+    with record_function("blend"):
+        out, out_id = rasterize_bins(bins, st, depth_limit_pix_ctx(mesh_depth, cfg), 0)
+    with record_function("assemble"):
+        img, trans, depth, splat_id = assemble_image(out, out_id, st.tiles_x, st.tiles_y,
+                                                     cfg.width, cfg.height)
+        covered = mesh_trans < 0.5
+        frame = RenderOutput(image=img + trans[..., None] * mesh_img,
+                             transmittance=trans * mesh_trans,
+                             depth=torch.where((depth == 0) & covered, mesh_depth, depth),
+                             splat_id=splat_id, num_pairs=bins.num_pairs, overflow=bins.overflow)
+    return frame, trans, face_id
+
+
 def render_3dgs_composed(prepared: PreparedSplats, cam: Camera, cfg: RenderConfig,
                          max_pairs: int = 0, mesh=None, lights=()) -> RenderOutput:
     """3DGS raster composited with an opaque triangle mesh (the FTB
@@ -445,26 +484,31 @@ def render_3dgs_composed(prepared: PreparedSplats, cam: Camera, cfg: RenderConfi
     form) and, through a flat mesh, in its face colours. ``num_pairs`` and
     ``overflow`` are the splat pass's. The depth falls back to the mesh's
     where the splats picked none and the mesh covers."""
-    _reject_unported(cfg)
-    with record_function("mesh"):
-        mesh_img, mesh_trans, mesh_depth, _ = render_mesh(mesh, cam, cfg, max_pairs, lights)
-    pairs = pairs_cfg(cfg)
-    st = dataclasses.replace(raster_statics(cfg), model="gs2d_clip")
-    with record_function("project"):
-        proj = project_splats(prepared, cam, cfg)
-    with record_function("bin"):
-        rows, ids = gs_attr_rows(proj)
-        bins = bin_for_cfg(proj, rows, ids, pairs, max_pairs, st)
-    with record_function("blend"):
-        out, out_id = rasterize_bins(bins, st, depth_limit_pix_ctx(mesh_depth, cfg), 0)
-    with record_function("assemble"):
-        img, trans, depth, splat_id = assemble_image(out, out_id, st.tiles_x, st.tiles_y,
-                                                     cfg.width, cfg.height)
-        covered = mesh_trans < 0.5
-        return RenderOutput(image=img + trans[..., None] * mesh_img,
-                            transmittance=trans * mesh_trans,
-                            depth=torch.where((depth == 0) & covered, mesh_depth, depth),
-                            splat_id=splat_id, num_pairs=bins.num_pairs, overflow=bins.overflow)
+    return _composed_frame(prepared, cam, cfg, max_pairs, mesh, lights)[0]
+
+
+def render_composed_wavefront(prepared: PreparedSplats, cam: Camera, cfg: RenderConfig,
+                              max_pairs: int = 0, mesh=None, lights=(),
+                              max_bounces: int | None = None, stride: int = 1, shadow_fn=None):
+    """The mesh-composited frame plus wavefront secondary bounces (the
+    reflect / refract bounce loop of rgen:244-337 on the raster primary
+    pass; the JAX ``render_composed_wavefront`` without its ``interpret``):
+    pixels whose mesh face is reflective (illum 1) or refractive (illum >=
+    2), every ``stride``-th in each axis, continue as one batch of rays
+    traced against the mesh and the splats for ``max_bounces`` bounces
+    (default ``cfg.rt.max_bounces``; render/wavefront.py), their radiance
+    upsampled and added. shadow_fn: a scalar shadow function for the
+    bounces' mesh shading (a per-channel one raises ValueError, as in the
+    JAX package). Spans: those of ``render_3dgs_composed``, then spawn and
+    per bounce bounce (trace, shade). Returns (RenderOutput of the composed
+    frame, the image with the bounces (H,W,3))."""
+    frame, splat_trans, face_id = _composed_frame(prepared, cam, cfg, max_pairs, mesh, lights)
+    with record_function("spawn"):
+        origins, dirs, throughput, _, shape_lr = secondary_spawn(cam, cfg, mesh, face_id,
+                                                                 splat_trans, stride)
+    radiance = trace_secondary(prepared, cam, cfg, mesh, origins, dirs, throughput, lights,
+                               shadow_fn, max_bounces)
+    return frame, add_secondary_radiance(frame.image, radiance, shape_lr, cfg)
 
 
 def _set_index_for(material, splat_id, instance_base):
@@ -561,26 +605,55 @@ def render_hybrid(prepared: PreparedSplats, cam: Camera, cfg: RenderConfig,
     ``render_hybrid``): raster primary visibility, by the 3DGS pass or, on
     HYBRID_3DGUT, the 3DGUT pass (UT projection, rays of sample 0, f32
     gut3d rows), binned as pairs; its normal buffer; then deferred shading
-    with per-light deep-shadow-map transmittance (render/shadows.py
-    ``make_shadow_fn``: a cone map of ``shadow_res``, a six-face cube map
-    for a point light inside the scene's bounding sphere) — the raster +
-    secondary-ray structure of rgen:343-460/1261-1464 with light-space
-    rendering in place of per-ray marching. With no light it shades by
-    the headlight, unshadowed. ``cfg.rt.shadows == "ray"`` with a light
-    raises NotImplementedError (the per-ray shadows need the 3DGRT
-    tracer). Stage spans as ``render_3dgs_lit``, with rays (3DGUT) and a
-    shadow_map span per light before shade. Returns (RenderOutput, shaded,
-    normals)."""
+    with per-light shadow transmittance — the raster + secondary-ray structure
+    of rgen:343-460/1261-1464. ``cfg.rt.shadows == "map"``: deep shadow
+    maps (render/shadows.py ``make_shadow_fn``: a cone map of
+    ``shadow_res``, a six-face cube map for a point light inside the
+    scene's bounding sphere); ``"ray"``: a shadow ray per shade point and
+    light through the splats (``make_ray_shadow_fn``). With no light it
+    shades by the headlight, unshadowed. Stage spans as
+    ``render_3dgs_lit``, with rays (3DGUT) and a shadow_map span per light
+    before shade (ray shadows: a trace span per light within shade).
+    Returns (RenderOutput, shaded, normals)."""
     return _lit_frame(prepared, cam, cfg, max_pairs, lights, material, instance_base,
                       use_gut=cfg.pipeline == Pipeline.HYBRID_3DGUT, shadow_res=shadow_res)
 
 
 def render_3dgrt_exact(prepared: PreparedSplats, cam: Camera, cfg: RenderConfig,
                        ray_block: int = 4096, chunk: int = 512) -> RenderOutput:
-    """3DGRT primaries in exact per-ray-t order (the JAX package's strict
-    tier, ``ops/raytrace.trace_splats``): not ported yet."""
-    raise NotImplementedError("render_3dgrt_exact is not ported yet "
-                              "(ROADMAP.md queue 1: 3DGRT)")
+    """3DGRT primaries in exact per-ray t order: the strict tier (the JAX
+    ``render_3dgrt_exact``). Every pixel ray (pinhole, from ``cam.fx``,
+    ``fy``, ``cx``, ``cy``, through the pixel centre) is traced through
+    the splats by ``ops/raytrace.trace_splats`` in the windowed order
+    (``rt.max_passes`` per-ray t-slabs, the tMin advance of rgen:676-818),
+    at a trace's cost and with no tile raster. The depth is each ray's
+    iso-depth (rgen:728-741); no splat id is picked (-1); ``num_pairs`` is
+    N and ``overflow`` False. Span: trace."""
+    _reject_unported(cfg)
+    h, w = cfg.height, cfg.width
+    dev = cam.viewmat.device
+    ys, xs = torch.meshgrid(torch.arange(h, dtype=torch.float32, device=dev) + 0.5,
+                            torch.arange(w, dtype=torch.float32, device=dev) + 0.5,
+                            indexing="ij")
+    d_cam = torch.stack([(xs - cam.cx) / cam.fx, (ys - cam.cy) / cam.fy,
+                         torch.ones_like(xs)], -1)
+    d_cam = d_cam / torch.linalg.norm(d_cam, dim=-1, keepdim=True)
+    # d_cam @ viewmat[:3, :3] as f32 sums of products (the JAX matmul)
+    flat_d = (d_cam.reshape(-1, 3)[:, :, None] * cam.viewmat[None, :3, :3]).sum(dim=1)
+    flat_o = cam.position.expand(flat_d.shape)
+    r = flat_d.shape[0]
+    res = trace_splats(prepared, flat_o, flat_d, flat_d.new_zeros(r),
+                       flat_d.new_full((r,), float("inf")), cfg, chunk=chunk,
+                       ray_block=ray_block, order="windowed")
+    img = res.radiance.reshape(h, w, 3)
+    trans = res.transmittance.reshape(h, w)
+    bg = torch.tensor(cfg.background, dtype=torch.float32, device=dev)
+    return RenderOutput(
+        image=img + trans[..., None] * bg, transmittance=trans,
+        depth=res.depth.reshape(h, w),
+        splat_id=torch.full((h, w), -1, dtype=torch.int32, device=dev),
+        num_pairs=torch.tensor(prepared.means.shape[0], dtype=torch.int32, device=dev),
+        overflow=torch.tensor(False, device=dev))
 
 
 def render(prepared: PreparedSplats, cam: Camera, cfg: RenderConfig,
