@@ -4,6 +4,7 @@
     python3 chip_smoke.py --mesh-views ROUNDS   # phase 13's view sweep alone
     python3 chip_smoke.py --lighting            # phase 14 alone (no report)
     python3 chip_smoke.py --raytrace            # phase 15 alone (no report)
+    python3 chip_smoke.py --instances           # phase 16 alone (no report)
 
 Drives the port's main paths — the 3DGS raster frame, ``render(prepared,
 camera, cfg)``, and the training step, ``train_step`` (render, loss,
@@ -23,7 +24,9 @@ HYBRID and HYBRID_3DGUT, with deep shadow maps); ray tracing (3DGRT's
 strict tier ``render_3dgrt_exact``, ``render_hybrid`` with
 ``rt.shadows="ray"`` and the wavefront bounces of
 ``render_composed_wavefront``: the plain-torch tracer of ops/raytrace.py);
-and the design probes P1-P3 through their own entry points — and checks
+a multi-instance scene with its project file and the inspection tools
+(``SplatScene.flatten``, ``save_project`` / ``load_project``, the metrics,
+``ImageCompare``, the overlays, the pixel traces); and the design probes P1-P3 through their own entry points — and checks
 them:
 
 1. builds the CUDA kernels from the checkout, one nvcc per source, all at
@@ -211,8 +214,10 @@ them:
 14. lighting and shadows (``lighting``), at the headline cell with two
    lights (``headline_lights``: a directional light from above, which gets
    a 512^2 cone map, and a point light inside the scene's bounding sphere,
-   which gets six 256^2 cube faces): ``render_3dgs_lit`` with two per-set
-   materials over the two halves of the splats (K1 gs2d twice: the pass and
+   which gets six 256^2 cube faces): ``render_3dgs_lit`` with two
+   per-instance materials over the two halves of the splats, placed as two
+   instances and routed by their flatten's global index table
+   (``halves_scene``; K1 gs2d twice: the pass and
    its normal buffer; a bit-equal repeat, finite, covered pixels changed by
    the shade); ``render_hybrid`` HYBRID and HYBRID_3DGUT on 8 jittered
    frames each with every launch counter zeroed (per frame the blend's form
@@ -246,6 +251,32 @@ them:
    each batch (primary, shadow, first bounce) the card against the CPU at
    the tracer's gates, repeats bit-equal, the pass and any-hit estimators
    finite with T 0 or 1. The cuts are listed beside ``RT_SHADE_SIZE``;
+16. instances, project files and the inspection tools (``instances``; no
+   kernel of their own, so no report entry; ``--instances`` runs it alone
+   after the builds): the headline mix at 250,000 splats placed five times
+   (identity; a 35 degree turn, scale 0.8; a sheared non-uniform transform,
+   the general bake; a rigid one with opacity_gain 0.6 and splat_scale
+   1.25; an invisible one), 1 M splats after ``SplatScene.flatten``, whose
+   host times (and each bake's alone) are logged; the flatten on the card
+   against the port on the CPU (the table exactly, the fields within 1e-6
+   of each row's scale); 8 jittered frames on pairs (exact expansion) and
+   on bucket (caps fitted over them), each main path with its wrapper's
+   counters zeroed (one K1 or K3 gs2d launch a frame), bit-equal repeats,
+   each instance's share of the pixels, K1 and K3 against their twins on
+   sampled tiles, both frames beside the headline 1 M frame in turns; the
+   lit frame with four per-instance materials routed by the real table
+   (K1 gs2d twice; the material index = the table's instance of each
+   picked splat); the session saved (the asset as PLY, the headline camera
+   and a fisheye rolling-shutter one, phase 14's lights) and reopened on
+   the card, its flatten's frame bit-equal, a second save the same JSON;
+   MSE, PSNR and FLIP (both modes) at 1080p against the frame with the
+   rigid instance moved by 0.05, timed, and on a 256x144 crop the card
+   against the CPU within 1e-5; ``ImageCompare`` with three samples and
+   the six composites; the grid and the three gizmo modes over the frame,
+   timed, and at 320x180 the card against the CPU within 1e-5;
+   ``pixel_trace`` at 16 pixels of the exact pair frame (T above 1e-3,
+   fewer than 200 contributors) within 2e-5 of it, ``pixel_trace_gut``
+   at 4 pixels each within 2e-2 of ``render_3dgut`` and ``render_3dgrt``;
 9. the probes (vk_gaussian_splatting_tpu_torch/probes): each probe's entry
    point at its script's default arguments (``bench_roll.run``,
    ``bench_sort_stage.run`` per variant, ``bench_radix_ab.run``: their
@@ -295,7 +326,7 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
 import vk_gaussian_splatting_tpu_torch as gt  # noqa: E402
-from vk_gaussian_splatting_tpu_torch import interop, native  # noqa: E402
+from vk_gaussian_splatting_tpu_torch import debug, interop, native  # noqa: E402
 from vk_gaussian_splatting_tpu_torch.io import (  # noqa: E402
     load_ply,
     load_scene,
@@ -305,11 +336,18 @@ from vk_gaussian_splatting_tpu_torch.io import (  # noqa: E402
 )
 from vk_gaussian_splatting_tpu_torch.io import ply as tply  # noqa: E402
 from vk_gaussian_splatting_tpu_torch.io.async_loader import AsyncHostSorter  # noqa: E402
+from vk_gaussian_splatting_tpu_torch.io.project import (  # noqa: E402
+    Project,
+    load_project,
+    save_project,
+)
 from vk_gaussian_splatting_tpu_torch.io.obj import ObjMaterial, ObjMesh, octa_sphere  # noqa: E402
 from vk_gaussian_splatting_tpu_torch.ops import _build  # noqa: E402
+from vk_gaussian_splatting_tpu_torch.ops import metrics  # noqa: E402
 from vk_gaussian_splatting_tpu_torch.ops import raster_bucket as rb  # noqa: E402
 from vk_gaussian_splatting_tpu_torch.ops import rasterize as tr  # noqa: E402
 from vk_gaussian_splatting_tpu_torch.ops import raytrace as rt  # noqa: E402
+from vk_gaussian_splatting_tpu_torch.ops.compare import CompareMode, ImageCompare  # noqa: E402
 from vk_gaussian_splatting_tpu_torch.ops.denoise import denoise_output  # noqa: E402
 from vk_gaussian_splatting_tpu_torch.ops.bucket_grid import (  # noqa: E402
     BucketGridSpec,
@@ -336,8 +374,10 @@ from vk_gaussian_splatting_tpu_torch.render import (  # noqa: E402
     render_3dgrt,
     render_3dgrt_exact,
     render_3dgs_composed,
+    render_3dgut,
     render_composed_wavefront,
 )
+from vk_gaussian_splatting_tpu_torch.render import helpers  # noqa: E402
 from vk_gaussian_splatting_tpu_torch.render import mesh_raster as mr  # noqa: E402
 from vk_gaussian_splatting_tpu_torch.render import pipelines, shadows, wavefront  # noqa: E402
 from vk_gaussian_splatting_tpu_torch.render.deferred import (  # noqa: E402
@@ -375,9 +415,15 @@ from vk_gaussian_splatting_tpu_torch.render.shadows import (  # noqa: E402
     scene_bounds,
     shadow_map_bins,
 )
+from vk_gaussian_splatting_tpu_torch.scene.cameras import CameraSet  # noqa: E402
+from vk_gaussian_splatting_tpu_torch.scene.instances import SplatScene  # noqa: E402
 from vk_gaussian_splatting_tpu_torch.scene.lights import LightType, make_light  # noqa: E402
 from vk_gaussian_splatting_tpu_torch.render.rays import build_tile_rays  # noqa: E402
-from vk_gaussian_splatting_tpu_torch.scene.splat_set import SH_C0, random_splats  # noqa: E402
+from vk_gaussian_splatting_tpu_torch.scene.splat_set import (  # noqa: E402
+    SH_C0,
+    covariance_from_scale_rot,
+    random_splats,
+)
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 FIELDS = ("means", "scales", "quats", "opacities", "sh_dc", "sh_rest")
@@ -4349,18 +4395,24 @@ def headline_lights(dev):
             make_light(LightType.POINT, position=(0.5, 1.0, -0.5), intensity=3.0, device=dev))
 
 
-def instance_bases(prepared):
-    """The two per-set materials' instances: the two halves of the splats."""
-    n = prepared.means.shape[0]
-    return (0, n // 2, n)
+def halves_scene(truth) -> SplatScene:
+    """The headline splats as two assets, their halves, each placed once as
+    it is: the flatten is the lit frame's scene, and its global index table
+    routes the two per-instance materials."""
+    n = truth.means.shape[0]
+    scene = SplatScene()
+    for part in (slice(0, n // 2), slice(n // 2, n)):
+        scene.add_instance(scene.add_asset(gt.SplatSet(**{f: getattr(truth, f)[part]
+                                                          for f in FIELDS})))
+    return scene
 
 
-def lit_frame(dev, card, prepared, cam, base, lights):
-    """``render_3dgs_lit`` at the headline cell with two per-set materials
-    over the two halves of the splats: only K1 gs2d moves (twice: the pass
-    and its normal buffer), finite, a bit-equal repeat, covered pixels
-    changed by the shade, both materials in view."""
-    bases = instance_bases(prepared)
+def lit_frame(dev, card, prepared, cam, base, lights, bases):
+    """``render_3dgs_lit`` at the headline cell with two per-instance
+    materials over the two halves of the splats (``halves_scene``'s
+    flatten, routed by its table's ``bases``): only K1 gs2d moves (twice:
+    the pass and its normal buffer), finite, a bit-equal repeat, covered
+    pixels changed by the shade, both materials in view."""
     tr.zero_counters(tr.rasterize_tiles)
     out, shaded, normals = render_3dgs_lit(prepared, cam, base, 0, lights, LIT_MATERIALS, bases)
     torch.cuda.synchronize()
@@ -4537,7 +4589,7 @@ def card_against_cpu(dev):
     return worst
 
 
-def lit_backward(dev, card, truth, cam, base, lights):
+def lit_backward(dev, card, truth, cam, base, lights, bases):
     """One gradient of the lit frame's shaded image (a seeded weighting)
     from the jittered start: only K2 gs2d moves, twice (the pass and its
     normal buffer); finite and repeatable; each launch's context rebuilt
@@ -4547,7 +4599,6 @@ def lit_backward(dev, card, truth, cam, base, lights):
     splats = jittered_start(truth, dev, seed=0)
     for f in FIELDS:
         getattr(splats, f).requires_grad_()
-    bases = instance_bases(truth)
     w = torch.randn((HEIGHT, WIDTH, 3), generator=torch.Generator(device=dev).manual_seed(7),
                     device=dev)
 
@@ -4608,18 +4659,17 @@ def lit_backward(dev, card, truth, cam, base, lights):
     return worst
 
 
-def lighting_timings(card, prepared, cam, base, lights):
-    """CUDA-event medians: the lit and the hybrid frames beside the plain
-    3DGS frame in turns, and the hybrid frame's stages (the main pass, the
-    normal buffer, the cone map, the cube map, the
-    shade; a face is a sixth of the cube map); a profile of the HYBRID
-    frame by its spans. Returns the HYBRID
-    frame's median ms."""
-    bases = instance_bases(prepared)
+def lighting_timings(card, prepared, cam, base, lights, lit_prepared, bases):
+    """CUDA-event medians: the lit frame (of ``lit_prepared``, the halves'
+    flatten, its materials routed by ``bases``) and the hybrid frame beside
+    the plain 3DGS frame in turns, and the hybrid frame's stages (the main
+    pass, the normal buffer, the cone map, the cube map, the shade; a face
+    is a sixth of the cube map); a profile of the HYBRID frame by its
+    spans. Returns the HYBRID frame's median ms."""
     hyb = base.replace(pipeline=gt.Pipeline.HYBRID)
     plain = lambda: median(time_ms(lambda: render(prepared, cam, base), 5))  # noqa: E731
     t_plain, t_lit = abba(plain, lambda: median(time_ms(lambda: render_3dgs_lit(
-        prepared, cam, base, 0, lights, LIT_MATERIALS, bases), 5)))
+        lit_prepared, cam, base, 0, lights, LIT_MATERIALS, bases), 5)))
     t_plain2, t_hyb = abba(plain, lambda: median(time_ms(lambda: render_hybrid(
         prepared, cam, hyb, 0, lights), 5)))
     log(f"timing 1080p/1M lighting ({card}; events, medians of 5, turns 3DGS, lit, lit, 3DGS "
@@ -4664,7 +4714,8 @@ def lighting(dev, card: str, truth: gt.SplatSet):
         f"{lights[1].position.tolist()} ({float(torch.linalg.norm(lights[1].position - center)):.3f}"
         f" from the centre of a bounding sphere of radius {float(radius):.3f})")
     marks = [("start", time.perf_counter())]
-    lit_frame(dev, card, prepared, cam, base, lights)
+    lit_prepared, table = halves_scene(truth).flatten()
+    lit_frame(dev, card, lit_prepared, cam, base, lights, table.instance_base)
     launches = sum(hybrid_main_path(dev, card, prepared, cam, base, lights, p)
                    for p in (gt.Pipeline.HYBRID, gt.Pipeline.HYBRID_3DGUT))
     marks.append(("frames", time.perf_counter()))
@@ -4699,9 +4750,11 @@ def lighting(dev, card: str, truth: gt.SplatSet):
     marks.append(("K1 iso", time.perf_counter()))
     err_cpu = card_against_cpu(dev)
     marks.append(("card against CPU", time.perf_counter()))
-    err_bwd = lit_backward(dev, card, truth, cam, base, lights)
+    err_bwd = lit_backward(dev, card, truth, cam, base, lights, table.instance_base)
     marks.append(("gradient", time.perf_counter()))
-    t_frame = lighting_timings(card, prepared, cam, base, lights)
+    t_frame = lighting_timings(card, prepared, cam, base, lights, lit_prepared,
+                               table.instance_base)
+    del lit_prepared
     marks.append(("timings", time.perf_counter()))
     log(f"lighting phase {time.perf_counter() - t0:.1f} s ("
         + ", ".join(f"{b[0]} {b[1] - a[1]:.1f} s" for a, b in zip(marks, marks[1:]))
@@ -5073,11 +5126,512 @@ def raytracing(dev, card: str, truth: gt.SplatSet):
         + ", ".join(f"{k} {v:.1f}" for k, v in hybrid_ms.items()) + f", wavefront {wave_ms:.1f}")
 
 
+# ---- instances, project files and the inspection tools (SplatScene.flatten,
+# io/project, ops/metrics, ops/compare, render/helpers, debug) -------------
+#
+# Plain torch on top of the raster path: the instanced frames launch K1 gs2d
+# (pairs, exact expansion), K3 gs2d (bucket) and, in the lit frame with one
+# material per instance, K1 gs2d twice; the pixel-trace checks render 3DGUT
+# and 3DGRT (K1g). The asset is the headline mix at a quarter of its splats,
+# placed four times (identity, rigid, general, rigid with an opacity gain
+# and a splat scale) and once invisibly: 1 M splats after the flatten. The
+# card is held to the port on the CPU (the flatten at the CPU tests'
+# tolerances; the metrics and the overlays on crops within INST_ATOL), the
+# frames to the kernels' twins, the project round trip and the repeats bit
+# for bit, the traces to the frames (pixels the blend never freezes).
+
+INST_SPLATS = 250_000          # the asset; four visible instances flatten to 1 M
+INST_MAX_PAIRS = 1 << 23       # the exact expansion's budget on the instanced frame
+INST_ATOL = 1e-5               # card against CPU: metrics and overlays on crops
+INST_RTOL = 1e-6               # card against CPU: the flatten, of a row's scale
+METRIC_CROP, HELPER_SIZE = (256, 144), (320, 180)
+TRACE_PIXELS, GUT_TRACE_PIXELS = 16, 4
+TRACE_ATOL, GUT_TRACE_ATOL = 2e-5, 2e-2  # tests/test_torch_inspect.py's gates
+TRACE_T_MIN = 1e-3             # 10x above the blend's freeze at T < 1e-4
+INST_MATERIALS = LIT_MATERIALS + (
+    DeferredMaterial(diffuse=(1.0, 0.4, 0.3), emission=(0.03, 0.0, 0.0)),
+    DeferredMaterial(diffuse=(0.4, 1.0, 0.5), specular=(0.8, 0.8, 0.8), shininess=48.0))
+
+
+def axis_angle(axis, angle) -> np.ndarray:
+    a = np.asarray(axis, np.float64)
+    a = a / np.linalg.norm(a)
+    k = np.array([[0, -a[2], a[1]], [a[2], 0, -a[0]], [-a[1], a[0], 0]])
+    return np.eye(3) + np.sin(angle) * k + (1 - np.cos(angle)) * k @ k
+
+
+def affine(linear, t) -> np.ndarray:
+    m = np.eye(4)
+    m[:3, :3] = linear
+    m[:3, 3] = t
+    return m
+
+
+def instance_specs():
+    """The five instances (SplatScene.add_instance keywords): identity; a
+    35 degree turn about an oblique axis, scale 0.8; diag(1.4, 0.7, 1.0)
+    with a 0.25 shear (the general bake); a rigid one with opacity_gain 0.6
+    and splat_scale 1.25; an invisible one. Each visible one shows in the
+    headline camera (asset means in [-4, 4]^3)."""
+    return [dict(name="identity"),
+            dict(transform=affine(0.8 * axis_angle([1.0, 2.0, 0.5], np.radians(35.0)),
+                                  (5.0, 1.5, 2.5)), name="rigid"),
+            dict(transform=affine([[1.4, 0.25, 0.0], [0.0, 0.7, 0.0], [0.0, 0.0, 1.0]],
+                                  (-5.5, -1.5, 2.5)), name="general"),
+            dict(transform=affine(0.7 * axis_angle([0.0, 1.0, 0.3], 0.9), (0.5, 4.0, 5.0)),
+                 opacity_gain=0.6, splat_scale=1.25, name="faded"),
+            dict(transform=affine(np.eye(3), (0.0, -3.0, 0.0)), visible=False, name="hidden")]
+
+
+def instanced_scene(asset) -> SplatScene:
+    scene = SplatScene()
+    a = scene.add_asset(asset, "headline quarter")
+    for kw in instance_specs():
+        scene.add_instance(a, **kw)
+    return scene
+
+
+def rows_rel(a: torch.Tensor, b: torch.Tensor, scale=None) -> float:
+    """max |a - b| / scale row by row (scale: the row's largest |a|)."""
+    a, b = a.reshape(a.shape[0], -1).double(), b.to(a.device).reshape(b.shape[0], -1).double()
+    if scale is None:
+        scale = a.abs().amax(dim=1, keepdim=True)
+    return ((a - b).abs() / scale.clamp_min(1e-30)).max().item() if a.numel() else 0.0
+
+
+def cov_rel_f64(prepared) -> float:
+    """max over splats of |cov3d - its float64 value| / trace, the float64
+    covariance formed from the same (scales_log, quats)."""
+    c64 = covariance_from_scale_rot(prepared.scales_log.double(), prepared.quats.double())
+    return rows_rel(c64, prepared.cov3d, c64[:, [0, 3, 5]].sum(dim=1, keepdim=True))
+
+
+def flatten_on_card_and_cpu(scene, scene_cpu):
+    """The flatten on the card against the port on the CPU: the table
+    exactly; means, scales, quats, colour and SH within INST_RTOL of the
+    row's scale (the general instance by its means, colour and SH: its
+    scales and quats come from one host bake); cov3d on each device within
+    INST_RTOL of its trace from the float64 covariance of its own scales
+    and quats (tests/test_torch_scene.py's bound; the card's and the CPU's
+    roundings of exp add up between them, so that difference is logged).
+    Returns the card's (prepared, table)."""
+    prepared, table = scene.flatten()
+    p_cpu, t_cpu = scene_cpu.flatten()
+    torch.cuda.synchronize()
+    check(torch.equal(table.instance_id.cpu(), t_cpu.instance_id)
+          and torch.equal(table.local_id.cpu(), t_cpu.local_id)
+          and np.array_equal(table.instance_base, t_cpu.instance_base),
+          "the global index table differs between the card and the CPU")
+    worst = {}
+    live = [i for i in scene.instances if i.visible]
+    for k, inst in enumerate(live):
+        rows = slice(int(table.instance_base[k]), int(table.instance_base[k + 1]))
+        general = inst.name == "general"
+        for f in ("means", "color", "sh") + (() if general else ("scales_log", "quats")):
+            worst[f] = max(worst.get(f, 0.0), rows_rel(getattr(prepared, f)[rows],
+                                                       getattr(p_cpu, f)[rows]))
+    worst["cov3d_card_f64"] = cov_rel_f64(prepared)
+    worst["cov3d_cpu_f64"] = cov_rel_f64(p_cpu)
+    apart = rows_rel(prepared.cov3d, p_cpu.cov3d,
+                     prepared.cov3d[:, [0, 3, 5]].sum(dim=1, keepdim=True).double())
+    log(f"flatten card against CPU: table equal; worst of a row's scale "
+        + " ".join(f"{f}={e:.3e}" for f, e in worst.items()) + f" (gate {INST_RTOL:g}); "
+        f"cov3d card against CPU {apart:.3e} of the trace")
+    check(max(worst.values()) <= INST_RTOL, f"the flatten on the card: {worst}")
+    return prepared, table
+
+
+def flatten_times(scene):
+    """Host-clock medians of 3 (the card synchronised) of the flatten and of
+    each visible instance's bake alone."""
+    def flat(s):
+        def run():
+            s.flatten()
+            torch.cuda.synchronize()
+        return run
+
+    t = {"all": host_ms(flat(scene))}
+    for inst in scene.instances:
+        if inst.visible:
+            alone = SplatScene()
+            alone.add_instance(alone.add_asset(scene.assets[inst.asset]),
+                               transform=inst.transform, splat_scale=inst.splat_scale,
+                               opacity_gain=inst.opacity_gain)
+            t[inst.name] = host_ms(flat(alone))
+    return t
+
+
+def instance_shares(out, table) -> list[float]:
+    """Each visible instance's share of the frame's pixels (its splats
+    picked)."""
+    sid = out.splat_id.flatten()
+    picked = sid[sid >= 0].long()
+    n = len(table.instance_base) - 1
+    counts = torch.bincount(table.instance_id[picked], minlength=n)
+    return (counts.double() / sid.numel()).tolist()
+
+
+def instanced_frames(dev, card, prepared, table, head, cam, cfg):
+    """INST frames on pairs (exact expansion) and on bucket (caps fitted over
+    the jittered cameras): each main path with the wrapper's counters zeroed
+    (one gs2d launch a frame), finite, no overflow, a bit-equal repeat;
+    K1 and K3 against their twins on sampled tiles; both frames beside the
+    headline 1 M frame in turns. Returns (pairs frame 0, K1's and K3's
+    (launches, error))."""
+    pcfg = cfg.replace(raster=gt.RasterConfig(expansion="exact"))
+    cams = [jitter(cam, i) for i in range(FRAMES)]
+    tr.zero_counters(tr.rasterize_tiles)
+    outs = [render(prepared, c, pcfg, max_pairs=INST_MAX_PAIRS) for c in cams]
+    torch.cuda.synchronize()
+    seen1 = only("instanced pairs frames", tr.rasterize_tiles, "gs2d", FRAMES)
+    for o in outs:
+        check(bool(torch.isfinite(o.image).all()) and not bool(o.overflow),
+              "an instanced pairs frame: not finite or overflowed")
+    o0 = outs[0]
+    del outs
+    again = render(prepared, cams[0], pcfg, max_pairs=INST_MAX_PAIRS)
+    same_p = all(torch.equal(getattr(again, f), getattr(o0, f))
+                 for f in ("image", "transmittance", "depth", "splat_id"))
+    shares = instance_shares(o0, table)
+    log(f"instanced pairs 1080p/1M (exact, {INST_MAX_PAIRS} pairs): launches {seen1}, "
+        f"num_pairs={int(o0.num_pairs)}, covered {(o0.transmittance < 0.5).float().mean():.4f}, "
+        f"instances' shares of the pixels " + "/".join(f"{s:.4f}" for s in shares)
+        + f", repeat bit-equal {same_p}")
+    check(same_p, "the instanced pairs frame's repeat differs")
+    check(all(s > 1e-3 for s in shares), f"an instance does not show: {shares}")
+
+    caps, req = fitted_caps(prepared, cams, cfg)
+    bcfg = bucket_cfg(cfg, caps)
+    if any(bool(render(prepared, c, bcfg).overflow) for c in cams):
+        caps = tuple(2 * c for c in caps)
+        bcfg = bucket_cfg(cfg, caps)
+    tr.zero_counters(rb.rasterize_buckets)
+    outs = [render(prepared, c, bcfg) for c in cams]
+    torch.cuda.synchronize()
+    seen3 = only("instanced bucket frames", rb.rasterize_buckets, "gs2d", FRAMES)
+    for o in outs:
+        check(bool(torch.isfinite(o.image).all()) and not bool(o.overflow),
+              "an instanced bucket frame: not finite or overflowed")
+    b0 = outs[0]
+    del outs
+    again = render(prepared, cams[0], bcfg)
+    same_b = all(torch.equal(getattr(again, f), getattr(b0, f))
+                 for f in ("image", "transmittance", "depth", "splat_id"))
+    diff = (b0.image - o0.image).abs().amax(dim=-1)
+    share = (diff <= BUCKET_VS_PAIR_ATOL).float().mean().item()
+    log(f"instanced bucket 1080p/1M: required caps {req}, caps {list(caps)}, launches {seen3}, "
+        f"against the exact pair frame {share:.6f} of pixels within {BUCKET_VS_PAIR_ATOL:g}, "
+        f"repeat bit-equal {same_b}")
+    check(same_b and share >= BUCKET_VS_PAIR_SHARE, "the instanced bucket frame")
+    del again, b0, diff
+
+    st = raster_statics(pcfg)
+    bins = bins_of(prepared, cam, pcfg, INST_MAX_PAIRS)
+    err1 = mesh_fwd_gate("K1 gs2d, instanced frame", bins, st, None,
+                         sample_tiles(bins, st, dev, 19))
+    del bins
+    bst = bucket_statics(bcfg)
+    bbins = bins_of(prepared, cam, bcfg)
+    tiles = sample_bucket_tiles(bbins, bst, dev, 19)
+    err3, agree3 = compare_k3_with_twin(bbins, bst, caps, tiles=tiles)
+    log(f"  K3 gs2d vs twin on {tiles.numel()} sampled tiles of the instanced frame: max abs "
+        f"{err3:.3e}, id agreement {agree3:.6f}")
+    check(err3 <= KERNEL_ATOL and agree3 >= ID_AGREE, f"instanced K3 vs twin {err3}, {agree3}")
+    del bbins
+
+    hcaps, _ = fitted_caps(head, cams, cfg)
+    hcfg = bucket_cfg(cfg, hcaps)
+    for label, a, b in (
+            ("pairs exact", lambda: render(head, cam, pcfg, max_pairs=INST_MAX_PAIRS),
+             lambda: render(prepared, cam, pcfg, max_pairs=INST_MAX_PAIRS)),
+            ("bucket", lambda: render(head, cam, hcfg), lambda: render(prepared, cam, bcfg))):
+        t_head, t_inst = abba(lambda: median(time_ms(a, 10)), lambda: median(time_ms(b, 10)))
+        log(f"timing {label} 1080p ({card}; events, medians of 10, turns headline, instanced, "
+            f"instanced, headline): headline 1M frame_ms=" + "/".join(f"{x:.4f}" for x in t_head)
+            + " instanced 1M frame_ms=" + "/".join(f"{x:.4f}" for x in t_inst))
+    return o0, (seen1["gs2d"], err1), (seen3["gs2d"], err3)
+
+
+def instanced_lit(dev, card, prepared, table, cam, cfg, lights):
+    """render_3dgs_lit with one material per instance, routed by the real
+    table: only K1 gs2d moves (twice), finite, repeatable, every material
+    in view, and the material index image equal to the table's instance of
+    each picked splat. Returns K1's launches."""
+    base = table.instance_base
+    tr.zero_counters(tr.rasterize_tiles)
+    out, shaded, normals = render_3dgs_lit(prepared, cam, cfg, 0, lights, INST_MATERIALS, base)
+    torch.cuda.synchronize()
+    seen = only("the instanced lit frame", tr.rasterize_tiles, "gs2d", 2)
+    again = render_3dgs_lit(prepared, cam, cfg, 0, lights, INST_MATERIALS, base)
+    same = torch.equal(again[1], shaded) and torch.equal(again[0].splat_id, out.splat_id)
+    picked = out.splat_id >= 0
+    sets = instance_index_image(out.splat_id, base)
+    routed = torch.equal(sets[picked], table.instance_id[out.splat_id[picked].long()])
+    used = torch.unique(sets[picked]).tolist()
+    finite = bool(torch.isfinite(shaded).all()) and bool(torch.isfinite(normals).all())
+    log(f"instanced render_3dgs_lit 1080p/1M: launches {seen}, materials in view {used}, "
+        f"material index = the table's instance of the picked splat {routed}, finite {finite}, "
+        f"repeat bit-equal {same}")
+    check(routed and finite and same and used == list(range(len(INST_MATERIALS))),
+          "the instanced lit frame")
+    return seen["gs2d"]
+
+
+def fisheye_camera(cam):
+    """The headline camera as a fisheye rolling-shutter one: a distortion
+    pack and an end pose 0.05 to the side."""
+    arr = interop.camera_to_numpy(cam)
+    arr["viewmat_end"][0, 3] += 0.05
+    arr["distortion"][[0, 6, 12, 16]] = (0.1, -0.02, 0.3, 1.4)
+    return interop.camera_from_numpy(arr, device=cam.viewmat.device)
+
+
+def project_round_trip(dev, scene, cam, cfg, lights, frame):
+    """Save the session (the asset as PLY, two cameras, two lights), reopen
+    it on the card, flatten again: the frame bit-equal to the in-memory
+    scene's, a second save the same JSON; the save, load and flatten
+    timed by the host clock."""
+    pcfg = cfg.replace(raster=gt.RasterConfig(expansion="exact"))
+    with tempfile.TemporaryDirectory() as d:
+        ply, path, path2 = (os.path.join(d, f) for f in ("asset.ply", "a.vkgs.json",
+                                                          "b.vkgs.json"))
+        t0 = time.perf_counter()
+        save_ply(ply, scene.assets[0])
+        cams = CameraSet()
+        cams.add(cam, "headline")
+        cams.add(fisheye_camera(cam), "fisheye rolling")
+        save_project(path, Project(scene=scene, cameras=cams, lights=list(lights), config=cfg,
+                                   asset_paths=[ply]))
+        t1 = time.perf_counter()
+        loaded = load_project(path, device=dev)
+        t2 = time.perf_counter()
+        prepared, _ = loaded.scene.flatten(loaded.config.sh_format)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        out = render(prepared, loaded.cameras.get(), pcfg, max_pairs=INST_MAX_PAIRS)
+        apart = [f for f in ("image", "transmittance", "depth", "splat_id")
+                 if not torch.equal(getattr(out, f), getattr(frame, f))]
+        same = not apart
+        save_project(path2, loaded)
+        with open(path) as f, open(path2) as g:
+            same_json = f.read() == g.read()
+        fish = loaded.cameras.cameras[1]
+        kept = (torch.equal(fish.distortion, cams.cameras[1].distortion)
+                and torch.equal(fish.viewmat_end, cams.cameras[1].viewmat_end))
+    log(f"project round trip: save {1e3 * (t1 - t0):.1f} ms (PLY of {scene.assets[0].num_splats}"
+        f" splats and the JSON), load {1e3 * (t2 - t1):.1f} ms, flatten {1e3 * (t3 - t2):.1f} ms"
+        f" (host clock); frame bit-equal {same} {apart}, second save the same JSON {same_json}, fisheye "
+        f"distortion and end pose kept {kept}")
+    check(same and same_json and kept, "the project round trip")
+
+
+def crop(x, size):
+    """The centre crop (w, h) of an (H, W, ...) image."""
+    w, h = size
+    y0, x0 = (x.shape[0] - h) // 2, (x.shape[1] - w) // 2
+    return x[y0:y0 + h, x0:x0 + w].contiguous()
+
+
+METRICS = {"mse": metrics.mse, "psnr": metrics.psnr,
+           "flip": metrics.flip, "flip_approx": lambda a, b: metrics.flip(a, b, approx=True),
+           "flip_mean": metrics.flip_mean,
+           "flip_mean_approx": lambda a, b: metrics.flip_mean(a, b, approx=True)}
+
+
+def metrics_phase(card, a, b):
+    """The metrics at 1080p (events, medians of 3) between two frames, and on
+    a METRIC_CROP centre crop the card against the CPU within INST_ATOL."""
+    t = {k: median(time_ms(lambda f=f: f(a, b), 3, warmup=1)) for k, f in METRICS.items()}
+    vals = {k: float(METRICS[k](a, b)) for k in ("mse", "psnr", "flip_mean", "flip_mean_approx")}
+    ca, cb = crop(a, METRIC_CROP), crop(b, METRIC_CROP)
+    worst = 0.0
+    for k, f in METRICS.items():
+        got, want = f(ca, cb), f(ca.cpu(), cb.cpu())
+        err = (got.cpu() - want).abs().max().item()
+        if k == "psnr":
+            err /= max(abs(want.item()), 1.0)
+        worst = max(worst, err)
+    log(f"metrics 1080p, the instanced frame against the rigid instance moved 0.05: "
+        + " ".join(f"{k}={v:.6g}" for k, v in vals.items()) + f"; timing ({card}; events, "
+        f"medians of 3) " + " ".join(f"{k}_ms={v:.4f}" for k, v in t.items())
+        + f"; card against CPU on a {METRIC_CROP[0]}x{METRIC_CROP[1]} crop: worst {worst:.3e} "
+        f"(gate {INST_ATOL:g}; psnr relative)")
+    check(worst <= INST_ATOL and all(math.isfinite(v) for v in vals.values()),
+          "the metrics: the card against the CPU")
+    check(vals["mse"] > 0 and vals["flip_mean"] > 0, "the moved instance changes nothing")
+
+
+def compare_phase(card, a, b):
+    """ImageCompare: capture, three compute_metrics, all six modes at 1080p:
+    finite, left of the split the capture exactly; each composite timed
+    (events, one call)."""
+    tool = ImageCompare()
+    tool.capture(a)
+    samples = [tool.compute_metrics(b) for _ in range(3)]
+    t = {}
+    for mode in CompareMode:
+        out, t[mode.name] = timed(lambda mode=mode: tool.render(b, mode, split_x=0.5,
+                                                                amplify=4.0))
+        cut = int(0.5 * a.shape[1])
+        check(bool(torch.isfinite(out).all()) and torch.equal(out[:, :cut], a[:, :cut]),
+              f"composite {mode.name}: not finite or the left side is not the capture")
+    check(len(tool.history) == 3 and [s.frame for s in samples] == [0, 1, 2]
+          and samples[0] == dataclasses.replace(samples[2], frame=0), "the history")
+    log(f"ImageCompare 1080p: samples {samples[0]}; composites finite, left side the capture; "
+        f"timing ({card}; events, one call) " + " ".join(f"{k}_ms={v:.4f}" for k, v in t.items()))
+
+
+def helpers_phase(dev, card, frame, cam, cfg, anchor):
+    """The grid and the three gizmo modes over the 1080p frame with its
+    depth, the gizmo at ``anchor`` (events, medians of 3); at HELPER_SIZE
+    the card against the CPU within INST_ATOL."""
+    img, depth = frame.image, frame.depth
+    calls = {"grid": lambda: helpers.render_grid_overlay(img, depth, cam, cfg, plane_y=-4.0)}
+    for mode in ("translate", "scale", "rotate"):
+        calls[mode] = (lambda m=mode: helpers.render_gizmo_overlay(
+            img, depth, cam, cfg, origin=anchor, size=1.5, mode=m))
+    t = {k: median(time_ms(f, 3, warmup=1)) for k, f in calls.items()}
+    for k, f in calls.items():
+        out = f()
+        check(bool(torch.isfinite(out).all()) and (out - img).abs().max().item() > 0.1,
+              f"the {k} overlay: not finite or not drawn")
+    w, h = HELPER_SIZE
+    small = gt.RenderConfig(width=w, height=h)
+    worst = 0.0
+    for device in (dev, torch.device("cpu")):
+        c = gt.look_at([0, 2.0, -7], [0, 0, 0], [0, 1, 0], w, h, fov_y_rad=0.9, device=device)
+        ci, cd = crop(img, HELPER_SIZE).to(device), crop(depth, HELPER_SIZE).to(device)
+        outs = [helpers.render_grid_overlay(ci, cd, c, small, plane_y=-4.0)]
+        outs += [helpers.render_gizmo_overlay(ci, cd, c, small, origin=anchor, size=1.5, mode=m)
+                 for m in ("translate", "scale", "rotate")]
+        if device == dev:
+            card_outs = [o.cpu() for o in outs]
+        else:
+            worst = max((a - b).abs().max().item() for a, b in zip(card_outs, outs))
+    log(f"overlays 1080p: timing ({card}; events, medians of 3) "
+        + " ".join(f"{k}_ms={v:.4f}" for k, v in t.items()) + f"; card against CPU at "
+        f"{w}x{h}: worst {worst:.3e} (gate {INST_ATOL:g})")
+    check(worst <= INST_ATOL, f"the overlays: card against CPU {worst}")
+
+
+def pick_pixels(out, n, seed, t_min):
+    """Up to 4n candidate pixels (x, y) of a frame with t_min < T < 0.9,
+    from a seeded generator."""
+    ok = torch.nonzero((out.transmittance > t_min) & (out.transmittance < 0.9))
+    g = torch.Generator(device=ok.device).manual_seed(seed)
+    pick = ok[torch.randperm(ok.shape[0], generator=g, device=ok.device)[:4 * n]]
+    return [(int(x), int(y)) for y, x in pick.tolist()]
+
+
+def traces_phase(dev, card, prepared, cam, cfg, frame):
+    """pixel_trace at TRACE_PIXELS pixels of the exact pairs frame (pixels
+    whose T stays above TRACE_T_MIN, so the blend never froze them, and
+    that have fewer than 200 contributors, the trace's cap) against the
+    frame within TRACE_ATOL; pixel_trace_gut, depth and radial, at
+    GUT_TRACE_PIXELS pixels each against render_3dgut / render_3dgrt
+    (pairs, exact) within GUT_TRACE_ATOL."""
+    pcfg = cfg.replace(raster=gt.RasterConfig(expansion="exact"))
+    proj = project_splats(prepared, cam, pcfg)
+    cand = pick_pixels(frame, TRACE_PIXELS, 23, TRACE_T_MIN)
+    worst, used, examined, t0 = 0.0, [], 0, time.perf_counter()
+    for x, y in cand:
+        tr_ = debug.pixel_trace(proj, x, y, pcfg)
+        examined += 1
+        if len(tr_.splat_id) >= 200:
+            continue
+        worst = max(worst, float(np.abs(tr_.final_color - frame.image[y, x].cpu().numpy()).max()),
+                    abs(tr_.final_transmittance - frame.transmittance[y, x].item()))
+        used.append(len(tr_.splat_id))
+        if len(used) == TRACE_PIXELS:
+            break
+    t_trace = (time.perf_counter() - t0) * 1e3 / max(examined, 1)
+    log(f"pixel_trace: {len(used)} of {examined} examined pixels with T > {TRACE_T_MIN:g} had "
+        f"fewer than 200 contributors ({used}); worst against the exact pairs frame {worst:.3e} (gate "
+        f"{TRACE_ATOL:g}); {t_trace:.2f} ms a trace (host clock)")
+    check(len(used) == TRACE_PIXELS and worst <= TRACE_ATOL, "pixel_trace against the frame")
+    worst_gut = {}
+    for order, fn, pipeline in (("depth", render_3dgut, gt.Pipeline.MESH_3DGUT),
+                                ("radial", render_3dgrt, gt.Pipeline.RTX)):
+        gcfg = pcfg.replace(pipeline=pipeline)
+        tr.zero_counters(tr.rasterize_tiles)
+        out = fn(prepared, cam, gcfg, max_pairs=INST_MAX_PAIRS)
+        check(not bool(out.overflow), f"the {order} trace's frame overflowed")
+        seen = only(f"the {order} trace's frame", tr.rasterize_tiles, "gut3d", 1)
+        errs, n = [], []
+        for x, y in pick_pixels(out, GUT_TRACE_PIXELS, 29, 1e-2):
+            tr_ = debug.pixel_trace_gut(prepared, cam, x, y, gcfg, order=order)
+            if len(tr_.splat_id) >= 200:
+                continue
+            errs.append(float(np.abs(tr_.final_color - out.image[y, x].cpu().numpy()).max()))
+            n.append(len(tr_.splat_id))
+            if len(errs) == GUT_TRACE_PIXELS:
+                break
+        worst_gut[order] = max(errs) if errs else math.inf
+        log(f"pixel_trace_gut {order}: launches {seen}; {len(errs)} pixels ({n} contributors), "
+            f"worst against {fn.__name__} {worst_gut[order]:.3e} (gate {GUT_TRACE_ATOL:g})")
+        check(len(errs) == GUT_TRACE_PIXELS and worst_gut[order] <= GUT_TRACE_ATOL,
+              f"pixel_trace_gut {order}")
+
+
+def instances(dev, card: str, head_prepared):
+    """Phase 16: the instanced scene (``instanced_scene``, 1 M splats after
+    the flatten) at the headline cell: the flatten's times and the card
+    against the CPU, the instanced frames (``instanced_frames``), the lit
+    frame with four per-instance materials, the project round trip, the
+    metrics, ImageCompare and the overlays over the frames, and the pixel
+    traces. ``head_prepared``: the headline 1 M scene the frames are timed
+    beside. Returns {kernel: phase-16 launches and error}."""
+    t0 = time.perf_counter()
+    marks = [("start", t0)]
+    cfg = gt.RenderConfig(width=WIDTH, height=HEIGHT, sh_degree=3)
+    cam = gt.look_at([0, 0, -7], [0, 0, 0], [0, 1, 0], WIDTH, HEIGHT, fov_y_rad=0.9, device=dev)
+    asset = bench_scene(dev, INST_SPLATS, seed=1)
+    scene = instanced_scene(asset)
+    scene_cpu = instanced_scene(gt.SplatSet(**{f: getattr(asset, f).cpu() for f in FIELDS}))
+    t_flat = flatten_times(scene)
+    prepared, table = flatten_on_card_and_cpu(scene, scene_cpu)
+    del scene_cpu
+    log(f"flatten of {scene.total_splats} splats ({len(scene.instances)} instances, "
+        f"{len(table.instance_base) - 1} visible; host clock, medians of 3, the card "
+        f"synchronised): " + " ".join(f"{k}_ms={v:.1f}" for k, v in t_flat.items()))
+    check(prepared.num_splats == 4 * INST_SPLATS, "the instanced scene's size")
+    marks.append(("flatten", time.perf_counter()))
+
+    frame, k1, k3 = instanced_frames(dev, card, prepared, table, head_prepared, cam, cfg)
+    marks.append(("frames", time.perf_counter()))
+    lights = headline_lights(dev)
+    k1_lit = instanced_lit(dev, card, prepared, table, cam, cfg, lights)
+    marks.append(("lit", time.perf_counter()))
+    project_round_trip(dev, scene, cam, cfg, lights, frame)
+    marks.append(("project", time.perf_counter()))
+
+    moved = scene.instances[1].transform.copy()
+    moved[0, 3] += 0.05
+    scene.instances[1].transform = moved
+    prepared_moved, _ = scene.flatten()
+    pcfg = cfg.replace(raster=gt.RasterConfig(expansion="exact"))
+    frame_moved = render(prepared_moved, cam, pcfg, max_pairs=INST_MAX_PAIRS)
+    del prepared_moved
+    metrics_phase(card, frame.image, frame_moved.image)
+    compare_phase(card, frame.image, frame_moved.image)
+    marks.append(("metrics, compare", time.perf_counter()))
+    helpers_phase(dev, card, frame, cam, cfg, scene.instances[1].transform[:3, 3])
+    marks.append(("overlays", time.perf_counter()))
+    traces_phase(dev, card, prepared, cam, cfg, frame)
+    marks.append(("traces", time.perf_counter()))
+    log(f"instances phase {time.perf_counter() - t0:.1f} s ("
+        + ", ".join(f"{b[0]} {b[1] - a[1]:.1f} s" for a, b in zip(marks, marks[1:])) + ")")
+    return {"rasterize_fwd": dict(instances_launches=k1[0] + k1_lit,
+                                  instances_max_abs_err=k1[1]),
+            "raster_bucket_fwd": dict(instances_launches=k3[0], instances_max_abs_err=k3[1])}
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     views = int(argv[argv.index("--mesh-views") + 1]) if "--mesh-views" in argv else 0
     lighting_only = "--lighting" in argv
     raytrace_only = "--raytrace" in argv
+    instances_only = "--instances" in argv
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: chip_smoke.py runs only on a card")
     dev = torch.device("cuda", 0)
@@ -5115,6 +5669,10 @@ def main(argv=None) -> int:
         return 0
     if raytrace_only:
         raytracing(dev, card, bench_scene(dev, SPLATS, seed=0))
+        log(f"total {time.perf_counter() - t0:.1f} s")
+        return 0
+    if instances_only:
+        instances(dev, card, bench_scene(dev, SPLATS, seed=0).prepare())
         log(f"total {time.perf_counter() - t0:.1f} s")
         return 0
 
@@ -5175,6 +5733,8 @@ def main(argv=None) -> int:
     results.update(lit_entries)
     bounds.update(lit_bounds)
     raytracing(dev, card, truth)
+    for name, extra in instances(dev, card, truth.prepare()).items():
+        results[name].update(extra)
     probe_entries, probe_bounds, library = probes(dev, card)
     results.update(probe_entries)
     bounds.update(probe_bounds)

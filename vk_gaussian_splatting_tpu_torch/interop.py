@@ -15,6 +15,7 @@ import torch
 
 from vk_gaussian_splatting_tpu_torch.devices import resolve_device
 from vk_gaussian_splatting_tpu_torch.scene.cameras import Camera, make_camera
+from vk_gaussian_splatting_tpu_torch.scene.instances import SplatInstance, SplatScene
 from vk_gaussian_splatting_tpu_torch.scene.splat_set import SplatSet
 
 SPLAT_FIELDS = ("means", "scales", "quats", "opacities", "sh_dc", "sh_rest")
@@ -61,5 +62,33 @@ def camera_from_numpy(d: dict, device: torch.device | str | None = None) -> Came
 
 
 def camera_to_numpy(c: Camera) -> dict:
-    """The camera as make_camera arguments (also the JAX ``make_camera``'s)."""
-    return {k: getattr(c, k).detach().cpu().numpy() for k in CAMERA_FIELDS}
+    """The camera as make_camera arguments (also the JAX ``make_camera``'s),
+    copies that share no memory with the camera."""
+    return {k: getattr(c, k).detach().cpu().numpy().copy() for k in CAMERA_FIELDS}
+
+
+INSTANCE_FIELDS = ("asset", "transform", "splat_scale", "opacity_gain", "visible", "name")
+
+
+def splat_scene_from_numpy(assets, instances,
+                           device: torch.device | str | None = None) -> SplatScene:
+    """SplatScene from a list of asset dicts (``splat_set_from_numpy``'s) and
+    a list of instance dicts keyed by SplatInstance's fields (missing ones
+    take their defaults), the assets on ``device`` (default: the card)."""
+    device = resolve_device(device)
+    scene = SplatScene()
+    for d in assets:
+        scene.add_asset(splat_set_from_numpy(d, device))
+    for d in instances:
+        kw = {k: d[k] for k in INSTANCE_FIELDS if k in d}
+        if "transform" in kw:
+            kw["transform"] = np.asarray(kw["transform"])
+        scene.instances.append(SplatInstance(**kw))
+    return scene
+
+
+def splat_scene_to_numpy(scene: SplatScene) -> tuple[list, list]:
+    """(asset dicts, instance dicts) of a SplatScene: the inverse of
+    ``splat_scene_from_numpy``."""
+    return ([splat_set_to_numpy(a) for a in scene.assets],
+            [{k: getattr(i, k) for k in INSTANCE_FIELDS} for i in scene.instances])

@@ -1,15 +1,17 @@
-"""Spherical-harmonics radiance evaluation (counterpart of
-``vk_gaussian_splatting_tpu/ops/sh.py:32-63,119-136``).
+"""Spherical-harmonics radiance evaluation and band rotation (counterpart
+of ``vk_gaussian_splatting_tpu/ops/sh.py``).
 
 Matches the reference polynomial and sign conventions exactly
 (shaders/threedgs_particle_storage.h.slang:48-159, fetchViewDependentRadiance):
 degree-0 is folded into the base color at prepare time (splat_set.py), so
-this module only evaluates degrees 1..3 as an additive radiance term. Band
-rotation for rotated instances is not ported yet.
+this module only evaluates degrees 1..3 as an additive radiance term.
+``band_rotation`` and ``rotate_sh_rest`` rotate the stored bands into world
+space for rotated instances (scene/instances.py).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 SH_C1 = 0.4886025119029199
@@ -56,6 +58,58 @@ def sh_basis(dirs: torch.Tensor, degree: int) -> torch.Tensor:
     if not cols:
         return dirs.new_zeros(dirs.shape[:-1] + (0,))
     return torch.stack(cols, dim=-1)
+
+
+def _band_slices(stored_m: int):
+    """[(start, count, degree)] band blocks present in an (N, M, 3) layout."""
+    out = []
+    if stored_m >= 3:
+        out.append((0, 3, 1))
+    if stored_m >= 8:
+        out.append((3, 5, 2))
+    if stored_m >= 15:
+        out.append((8, 7, 3))
+    return out
+
+
+def band_rotation(rotmat, degree: int) -> np.ndarray:
+    """(2l+1, 2l+1) float64 rotation of band-l coefficients for a world
+    rotation R (numpy (3, 3)).
+
+    Sampling construction: 4(2l+1) unit directions d_i from the JAX
+    package's seeded generator; with A[i,j] = Y_j(d_i) and At[i,j] =
+    Y_j(R^-1 d_i), the rotated function f'(d) = f(R^-1 d) satisfies
+    A c' = At c, solved by least squares. The basis is evaluated on float32
+    directions, as the JAX package (x64 off) evaluates it, then widened to
+    float64 for the solve."""
+    n = 2 * degree + 1
+    rng = np.random.default_rng(degree * 7919 + 11)
+    d = rng.normal(size=(4 * n, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    r = np.asarray(rotmat, np.float64)
+    lo, cnt, _ = {1: (0, 3, 1), 2: (3, 5, 2), 3: (8, 7, 3)}[degree]
+
+    def basis(dirs):
+        b = sh_basis(torch.as_tensor(np.asarray(dirs, np.float32)), degree)
+        return b.numpy().astype(np.float64)[:, lo:lo + cnt]
+
+    m, *_ = np.linalg.lstsq(basis(d), basis(d @ r), rcond=None)
+    return m
+
+
+def rotate_sh_rest(sh_rest: torch.Tensor, rotmat) -> torch.Tensor:
+    """(N, M, 3) model-space SH coefficients -> world space under the
+    instance rotation R (model->world): block-diagonal per-band rotation,
+    each band a float32 multiply-and-sum (no matmul, so no TF32 path)."""
+    parts = []
+    for lo, cnt, deg in _band_slices(sh_rest.shape[1]):
+        m = torch.as_tensor(band_rotation(rotmat, deg), dtype=torch.float32,
+                            device=sh_rest.device)
+        block = sh_rest[:, lo:lo + cnt, :].to(torch.float32)
+        parts.append((m[None, :, :, None] * block[:, None, :, :]).sum(dim=2))
+    if not parts:
+        return sh_rest
+    return torch.cat(parts, dim=1)
 
 
 def eval_sh_radiance(sh_rest: torch.Tensor, dirs: torch.Tensor, degree: int) -> torch.Tensor:

@@ -521,7 +521,7 @@ def _set_index_for(material, splat_id, instance_base):
     )
     if isinstance(material, DeferredMaterial):
         return None
-    if not instance_base:
+    if instance_base is None or len(instance_base) == 0:
         raise ValueError("per-set materials need instance_base (the "
                          "GlobalIndexTable.instance_base offsets)")
     return instance_index_image(splat_id, instance_base)
@@ -590,7 +590,8 @@ def render_3dgs_lit(prepared: PreparedSplats, cam: Camera, cfg: RenderConfig,
     material: one DeferredMaterial (the default one if None), or a tuple
     of them, one per instance, routed per pixel by the splat-id pick and
     ``instance_base`` (the global index table's instance offsets, (0, n1,
-    n1 + n2, ..., N)). Stage spans: project, bin, blend, assemble, normals,
+    n1 + n2, ..., N): a sequence, or ``GlobalIndexTable.instance_base``
+    itself). Stage spans: project, bin, blend, assemble, normals,
     shade. Differentiable in ``prepared`` through the image, the normal
     buffer and the shade. Returns (RenderOutput, shaded (H,W,3), normals
     (H,W,3))."""

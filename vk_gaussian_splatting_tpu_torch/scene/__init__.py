@@ -1,4 +1,4 @@
 from vk_gaussian_splatting_tpu_torch.scene.splat_set import SplatSet, PreparedSplats
-from vk_gaussian_splatting_tpu_torch.scene.cameras import Camera
+from vk_gaussian_splatting_tpu_torch.scene.cameras import Camera, CameraSet
 
-__all__ = ["SplatSet", "PreparedSplats", "Camera"]
+__all__ = ["SplatSet", "PreparedSplats", "Camera", "CameraSet"]

@@ -1,4 +1,4 @@
-"""Cameras (counterpart of ``vk_gaussian_splatting_tpu/scene/cameras.py:24-125,196-266``).
+"""Cameras (counterpart of ``vk_gaussian_splatting_tpu/scene/cameras.py``).
 
 OpenCV-convention cameras: the view matrix maps world -> camera with +x
 right, +y down, +z forward. No projection matrix is built — the tile
@@ -6,7 +6,8 @@ rasterizer works directly in pixel space with (fx, fy, cx, cy). A camera
 carries what the 3DGUT and 3DGRT pipelines read besides: thin-lens depth of
 field (focus distance, aperture), the OpenCV / fisheye distortion pack, and
 the rolling-shutter end pose with the shutter helpers below. Whether the
-sensor is pinhole or fisheye is ``RenderConfig.camera_type``.
+sensor is pinhole or fisheye is ``RenderConfig.camera_type``. ``CameraSet``
+holds the host-side presets (an active camera and a named list).
 """
 
 from __future__ import annotations
@@ -60,11 +61,13 @@ def make_camera(viewmat, fx, fy, cx, cy, near=0.01, far=1e4, focus_dist=1.0,
                 aperture=0.0, distortion=None, viewmat_end=None,
                 device: torch.device | str | None = None) -> Camera:
     """Camera from pixel-space intrinsics, on ``device`` (default: the card).
-    The JAX defaults: no DoF, an ideal lens, a global shutter."""
+    The JAX defaults: no DoF, an ideal lens, a global shutter. Every field
+    is a copy: on the CPU no field shares memory with the caller's arrays or
+    with another field (viewmat_end defaults to viewmat's values)."""
     device = resolve_device(device)
 
     def f32(v):
-        return torch.as_tensor(np.asarray(v, np.float32), device=device)
+        return torch.tensor(np.asarray(v, np.float32), device=device)
 
     if distortion is None:
         distortion = np.zeros((18,), np.float32)
@@ -190,3 +193,22 @@ def shutter_transform_cols(cam: Camera, alpha: torch.Tensor, px, py, pz):
            + (1 - 2 * (x * x + y * y)) * pz)
     tt = t0 + alpha[..., None] * (t1 - t0)            # (..., 3)
     return (cxx + tt[..., 0], cyy + tt[..., 1], czz + tt[..., 2])
+
+
+class CameraSet:
+    """Host-side camera presets (camera_set.h:116-216): active camera + named list."""
+
+    def __init__(self):
+        self.cameras: list[Camera] = []
+        self.names: list[str] = []
+        self.active: int = -1
+
+    def add(self, cam: Camera, name: str = "") -> int:
+        self.cameras.append(cam)
+        self.names.append(name or f"camera {len(self.cameras) - 1}")
+        if self.active < 0:
+            self.active = 0
+        return len(self.cameras) - 1
+
+    def get(self) -> Camera:
+        return self.cameras[self.active]
