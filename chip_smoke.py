@@ -5,6 +5,7 @@
     python3 chip_smoke.py --lighting            # phase 14 alone (no report)
     python3 chip_smoke.py --raytrace            # phase 15 alone (no report)
     python3 chip_smoke.py --instances           # phase 16 alone (no report)
+    python3 chip_smoke.py --tools               # phase 17 alone (no report)
 
 Drives the port's main paths — the 3DGS raster frame, ``render(prepared,
 camera, cfg)``, and the training step, ``train_step`` (render, loss,
@@ -26,7 +27,10 @@ strict tier ``render_3dgrt_exact``, ``render_hybrid`` with
 ``render_composed_wavefront``: the plain-torch tracer of ops/raytrace.py);
 a multi-instance scene with its project file and the inspection tools
 (``SplatScene.flatten``, ``save_project`` / ``load_project``, the metrics,
-``ImageCompare``, the overlays, the pixel traces); and the design probes P1-P3 through their own entry points — and checks
+``ImageCompare``, the overlays, the pixel traces); the tools around them
+(the benchmark sequencer ``python -m vk_gaussian_splatting_tpu_torch.bench``,
+the orbit and web viewers, the naive oracle, the sharded frames and train
+step over ``torch.distributed``); and the design probes P1-P3 through their own entry points — and checks
 them:
 
 1. builds the CUDA kernels from the checkout, one nvcc per source, all at
@@ -277,6 +281,37 @@ them:
    ``pixel_trace`` at 16 pixels of the exact pair frame (T above 1e-3,
    fewer than 200 contributors) within 2e-5 of it, ``pixel_trace_gut``
    at 4 pixels each within 2e-2 of ``render_3dgut`` and ``render_3dgrt``;
+17. the tools and multi-device (``tools``; no kernel of their own, their
+   launches and frame differences added to the K1, K1g, K3, K3g and K2
+   entries as ``tools_launches`` and ``tools_max_abs_err``; ``--tools``
+   runs it alone after the builds): the headline scene written once as a
+   PLY with ``save_ply``; ``python -m vk_gaussian_splatting_tpu_torch.bench``
+   in-process on a cfg of the reference grammar (MESH at shformat 0, 1, 2,
+   MESH_3DGUT, RTX, each with --updateData, one --screenshot) with
+   ``--method pairs`` and ``bucket``: stdout parsed by ``bench/report.py``,
+   every block's four timers (both columns logged), one K1 / K3 (K1g / K3g)
+   launch for each frame it ran, the screenshot's PNG decoded equal to the
+   8-bit image of ``render`` bit for bit, the Rasterization bytes beside
+   the allocator's peak rise over one frame, the timers beside the smoke's
+   own stage times; the orbit viewer
+   (4 frames at 1080p) and the web viewer on 127.0.0.1, port 0, in a thread
+   (the page and three frames: 3DGS rgb, 3DGUT depth, 3DGRT trans), each
+   PNG decoded (zlib where Pillow is absent) equal to the 8-bit image of
+   ``render`` / ``RenderSession.render``, each request's latency and a
+   frame's render and PNG times; the naive oracle on 2,000 splats at
+   128x96 (``rasterize_naive`` against K1's frame within 3e-5 where the
+   blender never froze a pixel, 1.5e-4 where it did; ``rasterize_naive_gut``
+   against K1g's at the gut3d gates); world size 1 over NCCL: the sharded
+   3DGS, 3DGUT and 3DGRT frames on both methods against the single-device
+   ones (bit-equal, else the gates), the sharded frame's time beside the
+   single-device one in turns and both profiled, ``train_step_sharded``
+   against one single-device step, and ``python -m
+   ...parallel.distributed --num-processes 1``; two ranks on the one card
+   over gloo with CUDA tensors (this script as ``--gloo-rank`` subprocesses,
+   each with a timeout; first the collectives on small CUDA tensors, which
+   must give the right results): the 3DGS pairs (exact expansion) and
+   bucket bands against the single-device frame (3e-5 on pixels never
+   frozen, 1.5e-4 on frozen ones);
 9. the probes (vk_gaussian_splatting_tpu_torch/probes): each probe's entry
    point at its script's default arguments (``bench_roll.run``,
    ``bench_sort_stage.run`` per variant, ``bench_radix_ab.run``: their
@@ -309,10 +344,13 @@ from __future__ import annotations
 
 import collections
 import concurrent.futures
+import contextlib
 import dataclasses
+import io
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -622,8 +660,8 @@ OPS_UNPACK = {"gs2dp": 9, "gut3dp": 26}
 BUCKET_VS_PAIR_ATOL, BUCKET_VS_PAIR_SHARE = 2e-4, 0.999
 TWIN_BATCH = 1024  # tiles per twin call at 1080p: a (1024, 256, 384) f32 step is 0.4 GB
 # the stage spans that render_3dgs and train_step open, in step order
-STAGES = ("prepare", "project", "bin", "rays", "blend", "assemble", "normals", "shadow_map",
-          "shade", "trace", "loss", "backward", "optimizer")
+STAGES = ("prepare", "project", "gather", "bin", "rays", "blend", "assemble", "normals",
+          "shadow_map", "shade", "trace", "loss", "backward", "optimizer")
 PEAK_F32_OPS = 67e12   # H100 SXM, f32 outside the tensor cores
 PEAK_F64_OPS = 34e12   # H100 SXM, f64 outside the tensor cores (NVIDIA's data sheet)
 PEAK_BYTES = 3.35e12   # H100 SXM HBM3
@@ -5626,14 +5664,629 @@ def instances(dev, card: str, head_prepared):
             "raster_bucket_fwd": dict(instances_launches=k3[0], instances_max_abs_err=k3[1])}
 
 
+# ---- phase 17: the sequencer, the viewers, the oracle and multi-device --------
+
+TOOLS_SEQ_FRAMES = 8   # --sequenceframes, with --sequenceaverages 1: 8 timed frames a block
+TOOLS_BLOCKS = (("Mesh pipeline fp32", 1, 0), ("Mesh pipeline fp16", 1, 1),
+                ("Mesh pipeline uint8", 1, 2), ("3DGUT", 4, 0), ("3DGRT", 2, 0))
+TOOLS_ORBIT_FRAMES = 4
+TOOLS_WEB_QUERIES = (dict(pipeline=1, mode="rgb"), dict(pipeline=4, mode="depth"),
+                     dict(pipeline=2, mode="trans"))
+ORACLE_SIZE, ORACLE_SPLATS = (128, 96), 2000
+MIN_TRANSMITTANCE = 1e-4     # the blenders freeze a pixel below it (rasterize.py)
+ORACLE_ATOL = 3e-5           # 3DGS oracle on pixels the blender never froze
+FREEZE_ATOL = 1.5e-4         # on frozen pixels, in the oracle's and the two ranks' checks: a
+                             # pixel frozen a step earlier or later than its reference
+                             # differs by its residual T < 1e-4 times its colour
+                             # (tests/test_rasterize.py:34-39)
+SHARD_TIMEOUT_S = 240        # each subprocess of the phase; each collective: TIMEOUT_S
+SHARD_ATOL = 3e-5            # two ranks' bands against the single-device frame
+SHARD_MAX_PAIRS = 1 << 22    # two ranks' pair frames: the exact expansion, which must not
+                             # overflow (the slots expansion truncates each band's splats
+                             # at other tiles than the whole frame's)
+TIMER_LINE = re.compile(r'Timer "([^"]+)"; GPU; avg (\d+);.*CPU; avg (\d+);')
+SHARD_TIMING_CALLS = 10
+
+
+def decode_png(data: bytes) -> np.ndarray:
+    """(H, W, 3) uint8 of a PNG: by Pillow where it is installed, else the
+    stdlib writer's form (one IDAT, filter 0 on every row) by zlib."""
+    try:
+        from PIL import Image
+    except ImportError:
+        import struct
+        import zlib
+        check(data[:8] == b"\x89PNG\r\n\x1a\n" and data[12:16] == b"IHDR", "not a PNG")
+        w, h = struct.unpack(">II", data[16:24])
+        n = struct.unpack(">I", data[33:37])[0]
+        check(data[37:41] == b"IDAT", "the PNG's second chunk is not its image")
+        raw = np.frombuffer(zlib.decompress(data[41:41 + n]), np.uint8).reshape(h, 1 + 3 * w)
+        check(bool((raw[:, 0] == 0).all()), "a PNG row with a filter")
+        return raw[:, 1:].reshape(h, w, 3)
+    return np.asarray(Image.open(io.BytesIO(data)).convert("RGB"))
+
+
+def quantised(img: torch.Tensor) -> np.ndarray:
+    """The viewers' 8-bit image of a frame (``encode_png``'s truncation)."""
+    return (img.clamp(0, 1).cpu().numpy() * 255).astype(np.uint8)
+
+
+def cli_camera(means: torch.Tensor, dev):
+    """bench/__main__.py's camera without ``--camera``: 4 mean spreads in
+    front of the means' centre."""
+    m = means.cpu().numpy()
+    center = m.mean(axis=0)
+    spread = float(np.abs(m - center).mean()) or 1.0
+    return gt.look_at(center + np.asarray([0.0, 0.0, -4.0 * spread]), center, [0, 1, 0],
+                      WIDTH, HEIGHT, fov_y_rad=0.9, device=dev)
+
+
+def frame_counts() -> dict:
+    """Every forward launch counter of the pair and bucket wrappers."""
+    return {"K1": counts(tr.rasterize_tiles), "K3": counts(rb.rasterize_buckets)}
+
+
+def zero_frame_counters():
+    for w in (tr.rasterize_tiles, rb.rasterize_buckets, tr.rasterize_tiles_bwd,
+              rb.rasterize_buckets_bwd):
+        tr.zero_counters(w)
+
+
+def expect_frames(label: str, want: dict):
+    """Fail unless the forward counters show exactly ``want`` ({"K1": {form:
+    n}, "K3": {...}}, missing forms 0); returns the launches by kernel name."""
+    got = frame_counts()
+    for k in ("K1", "K3"):
+        exp = {m: want.get(k, {}).get(m, 0) for m in got[k]}
+        check(got[k] == exp, f"{label}: {k} launches {got[k]}, want {exp}")
+    names = {("K1", "gs2d"): "rasterize_fwd", ("K1", "gut3d"): "rasterize_fwd_gut3d",
+             ("K3", "gs2d"): "raster_bucket_fwd", ("K3", "gut3d"): "raster_bucket_fwd_gut3d"}
+    return {names[(k, m)]: n for k, forms in want.items() for m, n in forms.items() if n}
+
+
+def add_launches(total: dict, more: dict):
+    for k, v in more.items():
+        total[k] = total.get(k, 0) + v
+
+
+def sequencer_phase(dev, card, truth, ply, tmp):
+    """``python -m vk_gaussian_splatting_tpu_torch.bench`` in-process on a
+    cfg of the reference grammar (MESH at shformat 0, 1, 2, MESH_3DGUT,
+    RTX, each with --updateData; one --screenshot), with --method pairs and
+    bucket: its stdout parsed by ``bench.report``, every block's timers,
+    one K1 / K3 (K1g / K3g) launch per frame it ran, the screenshot's PNG
+    decoded equal to the 8-bit image of ``render``, the Rasterization bytes
+    beside the rise of the allocator's peak over one frame, its timers
+    beside the smoke's own stage times. Returns the launches by kernel."""
+    from vk_gaussian_splatting_tpu_torch.bench import report
+    from vk_gaussian_splatting_tpu_torch.bench.__main__ import main as bench_main
+
+    shot = os.path.join(tmp, "shot.png")
+    lines = ['SEQUENCE "Load scene and common settings"',
+             f"--sequenceframes {TOOLS_SEQ_FRAMES}", "--sequenceaverages 1", "--maxShDegree 3"]
+    for name, pipe, fmt in TOOLS_BLOCKS:
+        lines += [f'SEQUENCE "{name}"', f"--pipeline {pipe} --shformat {fmt}", "--updateData"]
+        if name == TOOLS_BLOCKS[0][0]:
+            lines.append(f'--screenshot "{shot}"')
+    seq_file = os.path.join(tmp, "tools.cfg")
+    with open(seq_file, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    n = TOOLS_SEQ_FRAMES
+    per_block = 1 + 1 + n + max(n, 3)  # warm-up, the bytes' blend, timed frames, "Frame"
+    gs_blocks = sum(1 for b in TOOLS_BLOCKS if b[1] == 1)
+    cam = cli_camera(truth.means, dev)
+    base = gt.RenderConfig(width=WIDTH, height=HEIGHT, sh_degree=3)
+    launches = {}
+    for method in ("pairs", "bucket"):
+        zero_frame_counters()
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            bench_main(["--size", str(WIDTH), str(HEIGHT), "--sequencefile", seq_file,
+                        "--method", method, ply])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        text = buf.getvalue()
+        k = "K1" if method == "pairs" else "K3"
+        add_launches(launches, expect_frames(f"sequencer {method}", {k: {
+            "gs2d": gs_blocks * per_block + 1, "gut3d": (len(TOOLS_BLOCKS) - gs_blocks)
+            * per_block}}))
+        recs = [r for r in report.parse_benchmark_output(text) if r["timers"]]
+        check([r["name"] for r in recs] == [b[0] for b in TOOLS_BLOCKS],
+              f"sequencer {method}: blocks {[r['name'] for r in recs]}")
+        log(f"sequencer --method {method} {WIDTH}x{HEIGHT}/{SPLATS} ({n} timed frames a block; {wall:.1f} s "
+            f"with the scene's load; {text.splitlines()[1]}):")
+        cpu_cols = [(m.group(1), int(m.group(2)), int(m.group(3)))
+                    for m in map(TIMER_LINE.match, text.splitlines()) if m]
+        for i, (r, (name, pipe, _)) in enumerate(zip(recs, TOOLS_BLOCKS)):
+            stage = "Raytracing" if pipe == 2 else "Rasterization"
+            check(list(r["timers"]) == ["GPU Dist", "GPU Sort", stage, "Frame"],
+                  f"sequencer {method} {name}: timers {list(r['timers'])}")
+            mem = r["memory"]
+            cols = cpu_cols[4 * i:4 * i + 4]
+            log(f"  {name} (GPU / CPU column, us): "
+                + ", ".join(f"{t} {g} / {c}" for t, g, c in cols)
+                + f"; Scene {mem['Scene'][1]} B, Rasterization {mem['Rasterization'][1]} B")
+        cfg = base if method == "pairs" else bucket_cfg(base, base.raster.bucket_caps)
+        out = render(truth.prepare(), cam, cfg, max(4 * SPLATS, 1 << 20))
+        with open(shot, "rb") as f:
+            same = np.array_equal(decode_png(f.read()), quantised(out.image))
+        os.remove(shot)
+        log(f"  screenshot {os.path.basename(shot)} (decoded) equal to render's 8-bit image: "
+            f"{same}")
+        check(same, f"sequencer {method}: the screenshot differs from render")
+        # the Rasterization bytes beside what the allocator's peak rises by over one frame
+        prepared = truth.prepare()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        before = torch.cuda.memory_allocated(dev)
+        render(prepared, cam, cfg)
+        torch.cuda.synchronize()
+        rise = torch.cuda.max_memory_allocated(dev) - before
+        counted = recs[0]["memory"]["Rasterization"][1]
+        log(f"  Mesh fp32 Rasterization bytes counted {counted}, allocator peak rise over "
+            f"one frame {rise} ({counted / max(rise, 1):.3f} of it)")
+        stages, c = frame_stages(prepared, cam, cfg)
+        own = {s: median(time_ms(step, 5)) for s, step in stages}
+        frame_ms = median(time_ms(lambda: render(prepared, cam, cfg), 5))
+        log(f"  the smoke's own times of that block's frame (events, medians of 5): "
+            + ", ".join(f"{s} {v:.4f} ms" for s, v in own.items())
+            + f", frame {frame_ms:.4f} ms; the sequencer's: GPU Dist "
+            f"{recs[0]['timers']['GPU Dist'] / 1e3:.4f}, GPU Sort "
+            f"{recs[0]['timers']['GPU Sort'] / 1e3:.4f}, Rasterization "
+            f"{recs[0]['timers']['Rasterization'] / 1e3:.4f}, Frame "
+            f"{recs[0]['timers']['Frame'] / 1e3:.4f} ms ({card})")
+    return launches
+
+
+def viewers_phase(dev, card, truth, ply, tmp):
+    """The orbit viewer (``viewer.main``, TOOLS_ORBIT_FRAMES frames at 1080p)
+    and the web viewer served on 127.0.0.1, port 0, in a thread (the page,
+    then TOOLS_WEB_QUERIES at 1080p): each PNG decoded equal to the 8-bit
+    image of ``render`` / ``RenderSession.render`` of its camera, one K1 or
+    K1g launch a frame, each request's latency logged. Returns the launches."""
+    import threading
+    import urllib.request
+
+    from vk_gaussian_splatting_tpu_torch import viewer, viewer_web
+
+    launches = {}
+    out_dir = os.path.join(tmp, "orbit")
+    zero_frame_counters()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        viewer.main([ply, "-o", out_dir, "--frames", str(TOOLS_ORBIT_FRAMES), "--size",
+                     str(WIDTH), str(HEIGHT)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    add_launches(launches, expect_frames("orbit viewer", {"K1": {"gs2d": TOOLS_ORBIT_FRAMES}}))
+    printed = buf.getvalue().splitlines()
+    prepared = truth.prepare()
+    means = prepared.means.cpu().numpy()
+    center = means.mean(axis=0)
+    radius = 4.0 * max(float(np.abs(means - center).mean()), 1e-3)
+    cfg = gt.RenderConfig(width=WIDTH, height=HEIGHT, sh_degree=3)
+    for i in range(TOOLS_ORBIT_FRAMES):
+        cam = viewer.orbit_camera(center, radius, 2 * np.pi * i / TOOLS_ORBIT_FRAMES, 0.3,
+                                  WIDTH, HEIGHT, device=dev)
+        want = quantised(render(prepared, cam, cfg, max(4 * SPLATS, 1 << 20)).image)
+        png = open(os.path.join(out_dir, f"frame_{i:03d}.png"), "rb").read()
+        check(np.array_equal(decode_png(png), want), f"orbit frame {i} differs from render")
+    log(f"orbit viewer: {TOOLS_ORBIT_FRAMES} frames at {WIDTH}x{HEIGHT}, each PNG equal to render's "
+        f"8-bit image; {wall:.1f} s with the scene's load and the PNG writes; "
+        f"first line: {printed[0]}")
+
+    means_t = truth.means.cpu().numpy()
+    c = means_t.mean(axis=0)
+    r = float(np.linalg.norm(means_t - c, axis=1).mean())
+    httpd = viewer_web.serve(prepared, c, r, port=0, host="127.0.0.1", width=WIDTH,
+                             height=HEIGHT)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    try:
+        url = f"http://127.0.0.1:{httpd.server_address[1]}"
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(url + "/", timeout=SHARD_TIMEOUT_S) as resp:
+            page = resp.read().decode()
+        check("%RADIUS%" not in page and "frame.png" in page, "the viewer page")
+        lat = [("/", (time.perf_counter() - t0) * 1e3)]
+        session = httpd.RequestHandlerClass.session
+        for q in TOOLS_WEB_QUERIES:
+            query = "&".join(f"{k}={v}" for k, v in dict(az=0.4, el=0.2, r=r * 2.2, sh=3,
+                                                         **q).items())
+            zero_frame_counters()
+            t0 = time.perf_counter()
+            with urllib.request.urlopen(f"{url}/frame.png?{query}",
+                                        timeout=SHARD_TIMEOUT_S) as resp:
+                check(resp.status == 200 and resp.headers["Content-Type"] == "image/png",
+                      f"web frame {query}: {resp.status}")
+                body = resp.read()
+            lat.append((query, (time.perf_counter() - t0) * 1e3))
+            form = "gs2d" if q["pipeline"] == 1 else "gut3d"
+            add_launches(launches, expect_frames(f"web frame {query}", {"K1": {form: 1}}))
+            want = session.render(0.4, 0.2, r * 2.2, sh=3, **q)
+            check(np.array_equal(decode_png(body), (want * 255).astype(np.uint8)),
+                  f"web frame {query} differs from RenderSession.render")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=SHARD_TIMEOUT_S)
+    check(not thread.is_alive(), "the web viewer's thread did not stop")
+    log(f"web viewer {WIDTH}x{HEIGHT} on 127.0.0.1 (host clock, request to last byte; each frame equal "
+        f"to RenderSession.render quantised; {card}): "
+        + "; ".join(f"{q} {ms:.1f} ms" for q, ms in lat))
+    parts = []
+    for q in TOOLS_WEB_QUERIES:
+        t0 = time.perf_counter()
+        img = session.render(0.4, 0.2, r * 2.2, sh=3, **q)
+        t1 = time.perf_counter()
+        viewer_web.encode_png(img)
+        parts.append(f"{q['mode']}: RenderSession.render {(t1 - t0) * 1e3:.1f} ms, encode_png "
+                     f"{(time.perf_counter() - t1) * 1e3:.1f} ms")
+    log("  a web frame's parts again (host clock; the render returns numpy, so it has "
+        "synchronised): " + "; ".join(parts))
+    return launches
+
+
+def oracle_phase(dev, card):
+    """``ops/rasterize_ref``'s naive oracles against the frames on the card,
+    ORACLE_SPLATS splats at ORACLE_SIZE (tests/test_rasterize.py's shapes):
+    ``rasterize_naive`` against ``render_3dgs`` (K1) within ORACLE_ATOL where
+    the blender never froze the pixel (T >= MIN_TRANSMITTANCE) and
+    FREEZE_ATOL where it did; ``rasterize_naive_gut`` against
+    ``render_3dgut`` (K1g) at the gut3d gates (p99.9 within KERNEL_ATOL,
+    none beyond GUT_MAX). Returns {kernel: (launches, max abs err)}."""
+    from vk_gaussian_splatting_tpu_torch.ops import rasterize_ref
+
+    w, h = ORACLE_SIZE
+    cfg = gt.RenderConfig(width=w, height=h, sh_degree=1)
+    cam = gt.look_at([0, 0, -10], [0, 0, 0], [0, 1, 0], w, h, fov_y_rad=0.9, device=dev)
+    prepared = interop.splat_set_from_numpy(interop.random_splat_arrays(
+        0, ORACLE_SPLATS, sh_degree=1, scale_range=(-3.0, -1.0)), dev).prepare()
+    zero_frame_counters()
+    out = render(prepared, cam, cfg)
+    torch.cuda.synchronize()
+    expect_frames("oracle 3DGS frame", {"K1": {"gs2d": 1}})
+    img, t = rasterize_ref.rasterize_naive(project_splats(prepared, cam, cfg), w, h, cfg.raster)
+    live = out.transmittance >= MIN_TRANSMITTANCE
+    d = (out.image - img).abs()
+    err_live, err_all = d[live].max().item(), d.max().item()
+    t_err = (out.transmittance - t).abs()[live].max().item()
+    log(f"oracle: render_3dgs (K1) against rasterize_naive, {ORACLE_SPLATS} splats at {w}x{h}: "
+        f"max abs {err_live:.3e} on the {int(live.sum())} pixels never frozen (T {t_err:.3e}; "
+        f"gate {ORACLE_ATOL:g}), {err_all:.3e} over all (gate {FREEZE_ATOL:g}: "
+        f"{int((~live).sum())} pixels frozen at T < {MIN_TRANSMITTANCE:g})")
+    check(err_live <= ORACLE_ATOL and t_err <= ORACLE_ATOL and err_all <= FREEZE_ATOL,
+          "render_3dgs against rasterize_naive outside its gates")
+    check(float(t.min()) < 0.9, "the oracle scene covers nothing")
+    zero_frame_counters()
+    out = render_3dgut(prepared, cam, cfg)
+    torch.cuda.synchronize()
+    expect_frames("oracle 3DGUT frame", {"K1": {"gut3d": 1}})
+    rays = build_tile_rays(cam, cfg)
+    full = rays.reshape(h // 16, w // 16, 8, 16, 16).permute(0, 3, 1, 4, 2).reshape(h, w, 8)
+    img, t = rasterize_ref.rasterize_naive_gut(prepared, ut_project_splats(prepared, cam, cfg),
+                                               full[..., 0:3], full[..., 3:6], cfg.raster,
+                                               kernel_degree=cfg.rt.kernel_degree)
+    d = torch.cat([(out.image - img).abs().flatten(), (out.transmittance - t).abs().flatten()])
+    med, p999, gut_err = (d.median().item(), torch.quantile(d, 0.999).item(), d.max().item())
+    log(f"oracle: render_3dgut (K1g) against rasterize_naive_gut: median {med:.3e}, p99.9 "
+        f"{p999:.3e} (gate {KERNEL_ATOL:g}), max {gut_err:.3e} (gate {GUT_MAX:g})")
+    check(p999 <= KERNEL_ATOL and gut_err <= GUT_MAX, "render_3dgut against the oracle")
+    return {"rasterize_fwd": (1, err_all), "rasterize_fwd_gut3d": (1, gut_err)}
+
+
+def frame_diff(label, got, want, gut: bool) -> float:
+    """Max abs difference of a sharded frame against the single-device one;
+    fails outside the f32 gate (KERNEL_ATOL) or, for gut3d, the gut3d gates."""
+    d = (got - want).abs()
+    err = d.max().item()
+    share = (d <= KERNEL_ATOL).float().mean().item()
+    log(f"  {label}: {'bit-equal' if err == 0 else f'max abs {err:.3e}, share within {KERNEL_ATOL:g} {share:.6f}'}")
+    check(share >= GUT_SHARE and err <= GUT_MAX if gut else err <= KERNEL_ATOL,
+          f"{label} outside its gates")
+    return err
+
+
+def world_one(dev, card, truth, caps):
+    """World size 1 over NCCL (``parallel.distributed.initialize`` on
+    tcp://127.0.0.1 and a free port): the sharded 3DGS (pairs, bucket),
+    3DGUT and 3DGRT (both methods) frames at 1080p / 1 M against the
+    single-device frames, one launch each; the sharded frame's time beside
+    the single-device one in turns; ``train_step_sharded`` against one
+    single-device step (K2's gate, 1e-4 of each component's max gradient);
+    then ``python -m ...parallel.distributed --num-processes 1`` in a
+    subprocess. Returns {kernel: (launches, max abs err)}."""
+    import socket
+
+    import torch.distributed as dist
+
+    from vk_gaussian_splatting_tpu_torch.parallel import distributed as pdist
+    from vk_gaussian_splatting_tpu_torch.parallel import sharded_render as sr
+
+    def free_port():
+        s = socket.socket()
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+        s.close()
+        return port
+
+    res = {}
+    t0 = time.perf_counter()
+    pdist.initialize(f"127.0.0.1:{free_port()}", 1, 0)
+    try:
+        mesh = sr.make_mesh(1)
+        log(f"world size 1: {dist.get_backend()} group up in {time.perf_counter() - t0:.1f} s, "
+            f"mesh {mesh}")
+        base = gt.RenderConfig(width=WIDTH, height=HEIGHT, sh_degree=3)
+        cam = gt.look_at([0, 0, -7], [0, 0, 0], [0, 1, 0], WIDTH, HEIGHT, fov_y_rad=0.9,
+                         device=dev)
+        prepared = truth.prepare()
+        frames = (("3DGS", sr.render_3dgs_sharded, render, gt.Pipeline.MESH),
+                  ("3DGUT", sr.render_3dgut_sharded, render_3dgut, gt.Pipeline.MESH_3DGUT),
+                  ("3DGRT", sr.render_3dgrt_sharded, render_3dgrt, gt.Pipeline.RTX))
+        for label, sharded, single, pipeline in frames:
+            for method in ("pairs", "bucket"):
+                cfg = gut_cfg(base, pipeline, method, caps)
+                k, form = ("K1" if method == "pairs" else "K3",
+                           "gs2d" if pipeline == gt.Pipeline.MESH else "gut3d")
+                zero_frame_counters()
+                img, trans, ov = sharded(truth, cam, cfg, 0, mesh)
+                torch.cuda.synchronize()
+                name = next(iter(expect_frames(f"sharded {label} {method}", {k: {form: 1}})))
+                ref = single(prepared, cam, cfg)
+                check(bool(ov) == bool(ref.overflow), f"sharded {label} {method} overflow")
+                err = max(frame_diff(f"sharded {label} {method} image", img, ref.image,
+                                     form == "gut3d"),
+                          frame_diff(f"sharded {label} {method} transmittance", trans,
+                                     ref.transmittance, form == "gut3d"))
+                old = res.get(name, (0, 0.0))
+                res[name] = (old[0] + 1, max(old[1], err))
+        cfg = base
+        a = lambda: render(truth.prepare(), cam, cfg)  # noqa: E731
+        b = lambda: sr.render_3dgs_sharded(truth, cam, cfg, 0, mesh)  # noqa: E731
+        t_a1, t_b1, t_b2, t_a2 = (time_ms(a, SHARD_TIMING_CALLS), time_ms(b, SHARD_TIMING_CALLS),
+                                  time_ms(b, SHARD_TIMING_CALLS), time_ms(a, SHARD_TIMING_CALLS))
+        log(f"3DGS pairs {WIDTH}x{HEIGHT}/{SPLATS} frame with prepare_splats, events, medians of "
+            f"{SHARD_TIMING_CALLS}, in turns (single, sharded, sharded, single): "
+            f"{median(t_a1):.4f} / {median(t_b1):.4f} / {median(t_b2):.4f} / {median(t_a2):.4f} "
+            f"ms; the sharded frame at world size 1 adds one all-gather of the projected fields "
+            f"and one all-reduce of the overflow flag ({card})")
+        profile_calls("single-device 3DGS pairs frame (prepare_splats unattributed)", a, card)
+        profile_calls("sharded 3DGS pairs frame, world size 1", b, card)
+
+        target = render(prepared, jitter(cam, 3), cfg).image.detach()
+        lr = 1.0
+        zero_frame_counters()
+        new, loss = sr.train_step_sharded(truth, cam, target, cfg, 0, mesh, lr=lr)
+        torch.cuda.synchronize()
+        step = expect_frames("sharded train step", {"K1": {"gs2d": 1}})
+        check(only("sharded train step backward", tr.rasterize_tiles_bwd, "gs2d", 1),
+              "sharded train step: K2 launches")
+        old = res.get("rasterize_fwd", (0, 0.0))
+        res["rasterize_fwd"] = (old[0] + step["rasterize_fwd"], old[1])
+        params = {f: getattr(truth, f).detach().clone().requires_grad_(True) for f in FIELDS}
+        img = render(gt.SplatSet(**params).prepare(), cam, cfg).image
+        loss_ref = torch.sum((img - target) ** 2)
+        loss_ref.backward()
+        rel_loss = abs(loss.item() - loss_ref.item()) / abs(loss_ref.item())
+        worst = 0.0
+        for f in FIELDS:
+            p, g = params[f].detach(), params[f].grad
+            want = p - lr * g
+            n = p.shape[0]
+            rows = (lr * g).reshape(n, -1).abs().amax(dim=0)  # each component's max
+            eps = torch.finfo(torch.float32).eps
+            slack = 2 * eps * (p.abs() + (lr * g).abs())
+            d = (getattr(new, f) - want).abs()
+            over = (d - slack).reshape(n, -1) / rows.clamp_min(1e-30)
+            worst = max(worst, over.max().item() if over.numel() else 0.0)
+        log(f"train_step_sharded at world size 1 against one single-device step (lr {lr}): loss "
+            f"{loss.item():.6e} vs {loss_ref.item():.6e} (rel {rel_loss:.2e}); the updated shard "
+            f"within {worst:.3e} of each component's max step beyond rounding (gate {BWD_RTOL:g})")
+        check(rel_loss <= 1e-5 and worst <= BWD_RTOL, "train_step_sharded against one step")
+        res["rasterize_bwd"] = (1, worst)
+    finally:
+        dist.destroy_process_group()
+
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=HERE + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    run = subprocess.run(
+        [sys.executable, "-m", "vk_gaussian_splatting_tpu_torch.parallel.distributed",
+         "--coordinator", f"127.0.0.1:{free_port()}", "--num-processes", "1",
+         "--process-id", "0"], cwd=HERE, env=env, capture_output=True, text=True,
+        timeout=SHARD_TIMEOUT_S)
+    line = [s for s in run.stdout.splitlines() if s.startswith("MULTIHOST_")]
+    log(f"parallel.distributed --num-processes 1 (NCCL; {time.perf_counter() - t0:.1f} s, "
+        f"rc {run.returncode}): {line[-1] if line else run.stdout[-500:] + run.stderr[-2000:]}")
+    check(run.returncode == 0 and line and line[-1].startswith("MULTIHOST_OK process=0"),
+          "the distributed main at world size 1")
+    return res
+
+
+def two_rank_cfg(base, method: str, caps):
+    """The two-rank frames' config: pairs by the exact expansion
+    (SHARD_MAX_PAIRS), or bucket at the headline caps."""
+    if method == "pairs":
+        return base.replace(raster=dataclasses.replace(base.raster, expansion="exact"))
+    return bucket_cfg(base, caps)
+
+
+def gloo_rank(argv, dev) -> int:
+    """One rank of the two-rank run on the one card ``dev`` (a subprocess of
+    ``two_ranks``): gloo on CUDA tensors, ``--gloo-rank R --port P --out DIR
+    --caps a,b,c,d``. First the collectives the sharded frame needs, on
+    small CUDA tensors (an error or a wrong result fails the rank), then the
+    headline scene's half (``shard_leading``) through ``render_3dgs_sharded``
+    on both methods; its bands to DIR/rank<R>.pt."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from vk_gaussian_splatting_tpu_torch.parallel import distributed as pdist
+    from vk_gaussian_splatting_tpu_torch.parallel import sharded_render as sr
+
+    rank = int(argv[argv.index("--gloo-rank") + 1])
+    port = int(argv[argv.index("--port") + 1])
+    out = argv[argv.index("--out") + 1]
+    caps = tuple(int(c) for c in argv[argv.index("--caps") + 1].split(","))
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=2,
+                            rank=rank, timeout=datetime.timedelta(seconds=pdist.TIMEOUT_S))
+    path = os.path.join(out, f"rank{rank}.pt")
+    try:
+        mesh = sr.make_mesh(2, device_type=dev.type)
+        x = torch.arange(4, dtype=torch.float32, device=dev) + 10 * rank
+        g = sr.all_gather(x[:, None], mesh.get_group())
+        ids = sr.all_gather(torch.arange(3, dtype=torch.int32, device=dev), mesh.get_group())
+        flag = torch.tensor([rank], dtype=torch.int32, device=dev)
+        dist.all_reduce(flag, group=mesh.get_group())
+        torch.cuda.synchronize()
+        check(g.device == dev and ids.device == dev and flag.device == dev
+              and g.shape == (8, 1) and g.flatten().tolist() == [0, 1, 2, 3, 10, 11, 12, 13]
+              and ids.tolist() == [0, 1, 2, 0, 1, 2] and flag.item() == 1,
+              f"gloo rank {rank}: the collectives on CUDA tensors gave {g.flatten().tolist()}, "
+              f"{ids.tolist()}, {flag.item()}")
+        truth = bench_scene(dev, SPLATS, seed=0)
+        shard = gt.SplatSet(**pdist.shard_leading({f: getattr(truth, f) for f in FIELDS}, mesh))
+        del truth
+        cam = gt.look_at([0, 0, -7], [0, 0, 0], [0, 1, 0], WIDTH, HEIGHT, fov_y_rad=0.9,
+                         device=dev)
+        base = gt.RenderConfig(width=WIDTH, height=HEIGHT, sh_degree=3)
+        res = {}
+        for method in ("pairs", "bucket"):
+            cfg = two_rank_cfg(base, method, caps)
+            t0 = time.perf_counter()
+            img, trans, ov = sr.render_3dgs_sharded(shard, cam, cfg, SHARD_MAX_PAIRS, mesh)
+            torch.cuda.synchronize()
+            res[method] = dict(img=img.cpu(), trans=trans.cpu(), ov=bool(ov),
+                               s=time.perf_counter() - t0)
+        torch.save(res, path)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def two_ranks(dev, card, truth, caps, tmp):
+    """Two ranks on the one card: gloo carries CUDA tensors (NCCL refuses
+    two ranks on one device), each rank a subprocess of this script
+    (``gloo_rank``) with a timeout. Where gloo runs the collectives, the
+    3DGS pairs (exact expansion) and bucket frames at 1080p / 1 M: the two
+    bands against the single-device frame within SHARD_ATOL on every pixel
+    the blender did not freeze (T >= MIN_TRANSMITTANCE) and within
+    FREEZE_ATOL on frozen ones, no overflow. A band's tiles start at other
+    places of its pair (or slot) array than in the whole frame's, and the
+    freeze is checked at the steps of that array: a pixel may freeze a step
+    apart. A rank that fails (its collectives included) fails the phase.
+    Returns {kernel: max abs err}."""
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    env = dict(os.environ, PYTHONPATH=HERE + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, os.path.join(HERE, "chip_smoke.py"),
+                               "--gloo-rank", str(r), "--port", str(port), "--out", tmp,
+                               "--caps", ",".join(str(c) for c in caps)],
+                              cwd=HERE, env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=SHARD_TIMEOUT_S)[0])
+    finally:
+        for p in procs:
+            p.kill()
+    for r, (p, o) in enumerate(zip(procs, outs)):
+        check(p.returncode == 0, f"gloo rank {r} failed (rc {p.returncode}): {o[-3000:]}")
+    ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt")) for r in range(2)]
+    wall = time.perf_counter() - t0
+    cam = gt.look_at([0, 0, -7], [0, 0, 0], [0, 1, 0], WIDTH, HEIGHT, fov_y_rad=0.9, device=dev)
+    base = gt.RenderConfig(width=WIDTH, height=HEIGHT, sh_degree=3)
+    prepared = truth.prepare()
+    errs = {}
+    for method, name in (("pairs", "rasterize_fwd"), ("bucket", "raster_bucket_fwd")):
+        ref = render(prepared, cam, two_rank_cfg(base, method, caps), SHARD_MAX_PAIRS)
+        img = torch.cat([r[method]["img"] for r in ranks]).to(dev)
+        trans = torch.cat([r[method]["trans"] for r in ranks]).to(dev)
+        check(img.shape == ref.image.shape, f"two-rank bands {tuple(img.shape)}")
+        d = torch.cat([(img - ref.image).abs(), (trans - ref.transmittance).abs()[..., None]], -1)
+        live = ref.transmittance >= MIN_TRANSMITTANCE
+        err, err_live = d.max().item(), d[live].max().item()
+        off = d.amax(dim=-1) > SHARD_ATOL
+        rows = off.nonzero()[:, 0]
+        log(f"two ranks (gloo, CUDA tensors) 3DGS {method} {WIDTH}x{HEIGHT}/{SPLATS}: bands of "
+            f"{[r[method]['img'].shape[0] for r in ranks]} rows, against the single-device "
+            f"frame: max abs {err_live:.3e} on the pixels never frozen (gate {SHARD_ATOL:g}), "
+            f"{err:.3e} over all (gate {FREEZE_ATOL:g}); {int(off.sum())} pixels beyond "
+            f"{SHARD_ATOL:g}"
+            + (f" (rows {int(rows.min())}-{int(rows.max())}, their T "
+               f"{ref.transmittance[off].min().item():.3e}-"
+               f"{ref.transmittance[off].max().item():.3e})" if off.any() else "")
+            + f"; overflow {[r[method]['ov'] for r in ranks]} / {bool(ref.overflow)}; first "
+            f"frame {max(r[method]['s'] for r in ranks):.2f} s a rank (host clock, with the "
+            f"gloo all-gather)")
+        check(err_live <= SHARD_ATOL and err <= FREEZE_ATOL,
+              f"two-rank {method} frame outside the gates ({err_live}, {err})")
+        check(not bool(ref.overflow) and not any(r[method]["ov"] for r in ranks),
+              "a two-rank frame or its reference overflowed")
+        errs[name] = err
+    log(f"two ranks: {wall:.1f} s with the subprocesses' start ({card})")
+    return errs
+
+
+def tools(dev, card: str, truth, caps):
+    """Phase 17: the sequencer (``sequencer_phase``), the viewers
+    (``viewers_phase``), the naive oracle (``oracle_phase``) and multi-device
+    rendering on the one card (``world_one``, ``two_ranks``), on the
+    headline scene written once as a PLY with ``save_ply``. ``caps``: the
+    headline bucket caps. Returns {kernel: phase-17 fields}: ``tools_launches``
+    counts the main paths' launches (the sequencer's, the viewers', the
+    sharded frames' and step's), ``tools_max_abs_err`` the largest frame
+    difference measured here through the kernel (oracle, sharded against
+    single-device; the sequencer's and viewers' frames are bit-equal)."""
+    t0 = time.perf_counter()
+    marks = [("start", t0)]
+    launches = {}
+    errs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        ply = os.path.join(tmp, "headline.ply")
+        save_ply(ply, truth)
+        marks.append(("ply", time.perf_counter()))
+        add_launches(launches, sequencer_phase(dev, card, truth, ply, tmp))
+        marks.append(("sequencer", time.perf_counter()))
+        add_launches(launches, viewers_phase(dev, card, truth, ply, tmp))
+        marks.append(("viewers", time.perf_counter()))
+    for name, (n, err) in oracle_phase(dev, card).items():
+        errs[name] = max(errs.get(name, 0.0), err)
+    marks.append(("oracle", time.perf_counter()))
+    for name, (n, err) in world_one(dev, card, truth, caps).items():
+        add_launches(launches, {name: n})
+        errs[name] = max(errs.get(name, 0.0), err)
+    marks.append(("world size 1", time.perf_counter()))
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, err in two_ranks(dev, card, truth, caps, tmp).items():
+            errs[name] = max(errs.get(name, 0.0), err)
+    marks.append(("two ranks", time.perf_counter()))
+    log(f"tools phase {time.perf_counter() - t0:.1f} s ("
+        + ", ".join(f"{b[0]} {b[1] - a[1]:.1f} s" for a, b in zip(marks, marks[1:])) + ")")
+    return {name: dict(tools_launches=launches.get(name, 0), tools_max_abs_err=errs.get(name, 0.0))
+            for name in sorted(set(launches) | set(errs))}
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     views = int(argv[argv.index("--mesh-views") + 1]) if "--mesh-views" in argv else 0
     lighting_only = "--lighting" in argv
     raytrace_only = "--raytrace" in argv
     instances_only = "--instances" in argv
+    tools_only = "--tools" in argv
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: chip_smoke.py runs only on a card")
+    if "--gloo-rank" in argv:
+        return gloo_rank(argv, torch.device("cuda", 0))
     dev = torch.device("cuda", 0)
     t0 = time.perf_counter()
     was_built = {name: _build.library_path(name).exists() for name in _SOURCES}
@@ -5673,6 +6326,15 @@ def main(argv=None) -> int:
         return 0
     if instances_only:
         instances(dev, card, bench_scene(dev, SPLATS, seed=0).prepare())
+        log(f"total {time.perf_counter() - t0:.1f} s")
+        return 0
+    if tools_only:
+        truth = bench_scene(dev, SPLATS, seed=0)
+        cam = gt.look_at([0, 0, -7], [0, 0, 0], [0, 1, 0], WIDTH, HEIGHT, fov_y_rad=0.9,
+                         device=dev)
+        tools(dev, card, truth, headline_caps(truth.prepare(), cam,
+                                              gt.RenderConfig(width=WIDTH, height=HEIGHT,
+                                                              sh_degree=3)))
         log(f"total {time.perf_counter() - t0:.1f} s")
         return 0
 
@@ -5734,6 +6396,8 @@ def main(argv=None) -> int:
     bounds.update(lit_bounds)
     raytracing(dev, card, truth)
     for name, extra in instances(dev, card, truth.prepare()).items():
+        results[name].update(extra)
+    for name, extra in tools(dev, card, truth, caps).items():
         results[name].update(extra)
     probe_entries, probe_bounds, library = probes(dev, card)
     results.update(probe_entries)

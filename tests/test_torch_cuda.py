@@ -43,6 +43,11 @@ count, no culled (warp, pair) that hits, repeats bit-equal.
 
 The probe kernels only compare, select and copy, so each must equal its
 twin bit for bit.
+
+Three checks of the tools around the kernels close the file: FrameTimers'
+CUDA-event column and the device memory summary, the sequencer's one
+launch a frame on both methods, and the naive oracle against the card's
+K1 and K1g frames.
 """
 
 import dataclasses
@@ -2130,3 +2135,89 @@ def test_traced_frames_on_card_match_cpu(cuda):
     for k, c in zip(frames["cuda"], frames["cpu"]):
         assert bool(torch.isfinite(k).all())
         trace_gate(k.reshape(-1, 3), c.reshape(-1, 3))
+
+
+@pytest.mark.cuda
+def test_frame_timers_and_memory_summary_on_card(cuda):
+    """FrameTimers' GPU column from CUDA events, its CPU column the host
+    clock after the synchronisation (so not below it); the memory summary
+    from the allocator and cudaMemGetInfo, empty only off the card."""
+    from vk_gaussian_splatting_tpu_torch.utils.memstats import MemoryStatistics
+    from vk_gaussian_splatting_tpu_torch.utils.profiling import FrameTimers
+
+    timers = FrameTimers(cuda)
+    x = torch.ones(1 << 22, device=cuda)
+    for _ in range(3):
+        with timers.section("work"):
+            for _ in range(20):
+                x = x * 1.0001
+    gpu, cpu = timers.gpu["work"], timers.cpu["work"]
+    assert all(g > 0 for g in gpu) and all(c >= g * 0.9 for g, c in zip(gpu, cpu))
+    s = MemoryStatistics.device_memory_summary(cuda)
+    assert s["bytes_in_use"] >= x.numel() * 4 and s["bytes_limit"] > s["bytes_free"] > 0
+    assert s["peak_bytes_in_use"] >= s["bytes_in_use"]
+    assert MemoryStatistics.device_memory_summary("cpu") == {}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["pairs", "bucket"])
+def test_sequencer_on_card_launches_once_a_frame(cuda, method):
+    """A two-block sequence at 64x48: one K1 / K3 (gs2d, then gut3d)
+    launch for every frame the block runs (warm-up, the bytes' blend, n
+    timed, max(n, 3) in "Frame"), timers and the Rasterization bytes."""
+    from vk_gaussian_splatting_tpu_torch.bench import report
+    from vk_gaussian_splatting_tpu_torch.bench.sequencer import BenchmarkSequencer
+    from vk_gaussian_splatting_tpu_torch.ops import raster_bucket as rb
+
+    wrapper = tr.rasterize_tiles if method == "pairs" else rb.rasterize_buckets
+    tr.zero_counters(wrapper)
+    splats = interop.splat_set_from_numpy(
+        interop.random_splat_arrays(0, 200, sh_degree=1, scale_range=(-2.5, -1.2)), cuda)
+    cam = gt.look_at([0, 0, -9], [0, 0, 0], [0, 1, 0], 64, 48, device=cuda)
+    lines = []
+    seq = BenchmarkSequencer(splats, 64, 48, cam, out=lines.append, device=cuda)
+    seq.cfg = seq.cfg.replace(raster=dataclasses.replace(seq.cfg.raster, method=method))
+    seq.run([("setup", {"sequenceframes": "4", "sequenceaverages": "1", "maxShDegree": "1"}),
+             ("gs", {"pipeline": "1", "updateData": ""}),
+             ("gut", {"pipeline": "4", "updateData": ""})])
+    torch.cuda.synchronize()
+    per_block = 1 + 1 + 4 + 4
+    assert wrapper.launches == per_block and wrapper.launches_gut3d == per_block
+    recs = [r for r in report.parse_benchmark_output("\n".join(lines)) if r["timers"]]
+    assert [list(r["timers"]) for r in recs] == [["GPU Dist", "GPU Sort", "Rasterization",
+                                                  "Frame"]] * 2
+    assert all(r["memory"]["Rasterization"][1] > 0 for r in recs)
+
+
+@pytest.mark.cuda
+def test_naive_oracle_bounds_the_card_frames(cuda):
+    """K1 within 3e-5 of rasterize_naive on pixels the blender never froze
+    (T >= 1e-4) and within 1.5e-4 on frozen ones; K1g against
+    rasterize_naive_gut at the gut3d gates (p99.9 within 1e-4, none beyond
+    1.2e-2: on the card the oracle's own rounding may flip a splat-pixel at
+    the response cutoff); tests/test_rasterize.py's and tests/test_gut.py's
+    scene shapes, 300 splats at 96x64."""
+    from vk_gaussian_splatting_tpu_torch.ops import rasterize_ref
+    from vk_gaussian_splatting_tpu_torch.ops.projection import ut_project_splats
+    from vk_gaussian_splatting_tpu_torch.render import render_3dgut
+    from vk_gaussian_splatting_tpu_torch.render.rays import build_tile_rays
+
+    w, h = 96, 64
+    cfg = gt.RenderConfig(width=w, height=h, sh_degree=1)
+    cam = gt.look_at([0, 0, -10], [0, 0, 0], [0, 1, 0], w, h, fov_y_rad=0.9, device=cuda)
+    prepared = interop.splat_set_from_numpy(interop.random_splat_arrays(
+        0, 300, sh_degree=1, scale_range=(-3.0, -1.0)), cuda).prepare()
+    out = render(prepared, cam, cfg)
+    img, t = rasterize_ref.rasterize_naive(project_splats(prepared, cam, cfg), w, h, cfg.raster)
+    live = out.transmittance >= 1e-4
+    d = (out.image - img).abs()
+    assert d[live].max().item() <= 3e-5 and d.max().item() <= 1.5e-4
+    assert float(t.min()) < 0.9
+    out = render_3dgut(prepared, cam, cfg)
+    full = build_tile_rays(cam, cfg).reshape(h // 16, w // 16, 8, 16, 16)
+    full = full.permute(0, 3, 1, 4, 2).reshape(h, w, 8)
+    img, t = rasterize_ref.rasterize_naive_gut(prepared, ut_project_splats(prepared, cam, cfg),
+                                               full[..., 0:3], full[..., 3:6], cfg.raster,
+                                               kernel_degree=cfg.rt.kernel_degree)
+    d = torch.cat([(out.image - img).abs().flatten(), (out.transmittance - t).abs().flatten()])
+    assert torch.quantile(d, 0.999).item() <= 1e-4 and d.max().item() <= 1.2e-2
