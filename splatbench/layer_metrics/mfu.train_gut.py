@@ -1,0 +1,6 @@
+"""``mfu.train``'s reading in the 3DGUT training cells, which report
+``train_steps_per_s.gut`` (layer_metrics/mfu.train.py)."""
+
+from splatbench import spec
+
+read = spec.load_reader("mfu.train")
