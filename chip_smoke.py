@@ -407,6 +407,7 @@ from vk_gaussian_splatting_tpu_torch.probes import bench_radix_ab as probe_radix
 from vk_gaussian_splatting_tpu_torch.probes import bench_roll as probe_roll  # noqa: E402
 from vk_gaussian_splatting_tpu_torch.probes import bench_sort_stage as probe_stage  # noqa: E402
 from vk_gaussian_splatting_tpu_torch.timing import call_ms, device_label  # noqa: E402
+from vk_gaussian_splatting_tpu_torch import timing  # noqa: E402
 from vk_gaussian_splatting_tpu_torch.render import (  # noqa: E402
     render,
     render_3dgrt,
@@ -6304,12 +6305,16 @@ def main(argv=None) -> int:
     card = device_label(dev)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
     log(f"card: {card}")
-    t_span = time.perf_counter()
-    for _ in range(10000):
-        with torch.profiler.record_function("project"):
-            pass
-    log(f"host cost of one stage span, profiler off: "
-        f"{(time.perf_counter() - t_span) * 1e2:.3f} us")
+    span_us = {}
+    for name, open_span in (("timing.span", timing.span),
+                            ("record_function", torch.profiler.record_function)):
+        t_span = time.perf_counter()
+        for _ in range(10000):
+            with open_span("project"):
+                pass
+        span_us[name] = (time.perf_counter() - t_span) * 1e2
+    log(f"host cost of one stage span, profiler off: {span_us['timing.span']:.3f} us "
+        f"(a bare record_function: {span_us['record_function']:.3f} us)")
     if views:
         mesh = mr.mesh_buffers_from_obj(headline_mesh(), device=dev)
         mesh_views(dev, mesh, bench_scene(dev, SPLATS, seed=0).prepare(),

@@ -44,6 +44,7 @@ import dataclasses
 
 import torch
 
+from vk_gaussian_splatting_tpu_torch import timing
 from vk_gaussian_splatting_tpu_torch.ops.projection import ProjectedSplats
 from vk_gaussian_splatting_tpu_torch.ops.response import GS_DEPTH
 from vk_gaussian_splatting_tpu_torch.ops.sort import encode_minmax_f32
@@ -117,12 +118,13 @@ class _GatherPairs(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        (perm,) = ctx.saved_tensors
-        g = g[:ctx.grad_rows]
-        d_emit = torch.empty_like(g).index_copy_(1, perm, g)  # each position once
-        sums = ctx.layout.splat_sums(d_emit)
-        zeros = sums.new_zeros((ctx.num_rows - ctx.grad_rows, ctx.layout.n))
-        return torch.cat([sums, zeros]), None, None, None, None
+        with timing.span("backward.gather"):
+            (perm,) = ctx.saved_tensors
+            g = g[:ctx.grad_rows]
+            d_emit = torch.empty_like(g).index_copy_(1, perm, g)  # each position once
+            sums = ctx.layout.splat_sums(d_emit)
+            zeros = sums.new_zeros((ctx.num_rows - ctx.grad_rows, ctx.layout.n))
+            return torch.cat([sums, zeros]), None, None, None, None
 
 
 def tile_rect(xy: torch.Tensor, radius: torch.Tensor, tile_size: int,
@@ -266,36 +268,41 @@ def bin_splats(proj: ProjectedSplats, rows: torch.Tensor, ids: torch.Tensor, *,
     as the JAX ``bin_for_cfg``'s depth_override); the rows are not touched.
     classes: the slots expansion's rank ladder (False: one ``slots_k``
     window per splat, as ``render_mesh`` bins its triangles).
+
+    Child spans of the caller's bin span: bin.expand, bin.sort, bin.gather.
     """
     num_tiles = tiles_x * tiles_y
-    depth = proj.depth if sort_depth is None else sort_depth
-    dkey = torch.where(proj.valid, depth.detach(), float("inf"))
-    x0, y0, x1, y1 = tile_rect(proj.xy, proj.radius, tile_size, tiles_x, tiles_y)
-    valid0 = (proj.valid & (proj.radius.amax(dim=1) > 0)
-              & (x1 > x0) & (y1 > y0))
-    if expansion == "slots":
-        tile, src, num_pairs, overflow, layout = _expand_slots(
-            x0, y0, x1, y1, proj.xy, valid0, tile_size=tile_size,
-            tiles_x=tiles_x, num_tiles=num_tiles, slots_k=slots_k, classes=classes)
-    elif expansion == "exact":
-        tile, src, num_pairs, overflow, layout = _expand_exact(
-            x0, y0, x1, y1, valid0, tiles_x=tiles_x, num_tiles=num_tiles,
-            chunk=chunk, max_pairs=max_pairs)
-    else:
-        raise ValueError(f"unknown expansion {expansion!r}")
+    with timing.span("bin.expand"):
+        x0, y0, x1, y1 = tile_rect(proj.xy, proj.radius, tile_size, tiles_x, tiles_y)
+        valid0 = (proj.valid & (proj.radius.amax(dim=1) > 0)
+                  & (x1 > x0) & (y1 > y0))
+        if expansion == "slots":
+            tile, src, num_pairs, overflow, layout = _expand_slots(
+                x0, y0, x1, y1, proj.xy, valid0, tile_size=tile_size,
+                tiles_x=tiles_x, num_tiles=num_tiles, slots_k=slots_k, classes=classes)
+        elif expansion == "exact":
+            tile, src, num_pairs, overflow, layout = _expand_exact(
+                x0, y0, x1, y1, valid0, tiles_x=tiles_x, num_tiles=num_tiles,
+                chunk=chunk, max_pairs=max_pairs)
+        else:
+            raise ValueError(f"unknown expansion {expansion!r}")
 
-    key = (tile << 32) | encode_minmax_f32(dkey[src])
-    skey, perm = torch.sort(key, stable=True)
-    src_sorted = src[perm]
-    tile_sorted = skey >> 32
-    bounds = torch.searchsorted(
-        tile_sorted, torch.arange(num_tiles + 1, device=tile_sorted.device))
-    return TileBins(
-        attrs=_GatherPairs.apply(rows, src_sorted, perm, layout, grad_rows),
-        pair_id=ids.index_select(0, src_sorted),
-        pair_valid=tile_sorted < num_tiles,
-        tile_start=bounds[:-1].to(torch.int32),
-        tile_count=(bounds[1:] - bounds[:-1]).to(torch.int32),
-        num_pairs=num_pairs,
-        overflow=overflow,
-    )
+    with timing.span("bin.sort"):
+        depth = proj.depth if sort_depth is None else sort_depth
+        dkey = torch.where(proj.valid, depth.detach(), float("inf"))
+        key = (tile << 32) | encode_minmax_f32(dkey[src])
+        skey, perm = torch.sort(key, stable=True)
+        src_sorted = src[perm]
+        tile_sorted = skey >> 32
+        bounds = torch.searchsorted(
+            tile_sorted, torch.arange(num_tiles + 1, device=tile_sorted.device))
+    with timing.span("bin.gather"):
+        return TileBins(
+            attrs=_GatherPairs.apply(rows, src_sorted, perm, layout, grad_rows),
+            pair_id=ids.index_select(0, src_sorted),
+            pair_valid=tile_sorted < num_tiles,
+            tile_start=bounds[:-1].to(torch.int32),
+            tile_count=(bounds[1:] - bounds[:-1]).to(torch.int32),
+            num_pairs=num_pairs,
+            overflow=overflow,
+        )

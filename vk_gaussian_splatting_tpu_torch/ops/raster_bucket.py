@@ -55,6 +55,7 @@ import typing
 
 import torch
 
+from vk_gaussian_splatting_tpu_torch import timing
 from vk_gaussian_splatting_tpu_torch.ops import _build
 from vk_gaussian_splatting_tpu_torch.ops.binning import EmitLayout
 from vk_gaussian_splatting_tpu_torch.ops.bucket_grid import (
@@ -521,10 +522,11 @@ class _RasterizeBuckets(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g_out, g_id):
-        attrs, bucket_starts, pix_ctx, out = ctx.saved_tensors
-        d_attrs = rasterize_buckets_bwd(attrs, bucket_starts, bwd_context(out, g_out),
-                                        ctx.st, ctx.caps, pix_ctx, ctx.seed)
-        return d_attrs, None, None, None, None, None, None
+        with timing.span("backward.blend"):
+            attrs, bucket_starts, pix_ctx, out = ctx.saved_tensors
+            d_attrs = rasterize_buckets_bwd(attrs, bucket_starts, bwd_context(out, g_out),
+                                            ctx.st, ctx.caps, pix_ctx, ctx.seed)
+            return d_attrs, None, None, None, None, None, None
 
 
 def rasterize_buckets(bins: BucketBins, st: RasterStatics, caps: tuple,

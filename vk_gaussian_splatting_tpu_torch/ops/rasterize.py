@@ -61,6 +61,7 @@ import typing
 
 import torch
 
+from vk_gaussian_splatting_tpu_torch import timing
 from vk_gaussian_splatting_tpu_torch.ops import _build
 from vk_gaussian_splatting_tpu_torch.ops.response import (
     ATTR_B,
@@ -661,12 +662,13 @@ class _RasterizeTiles(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g_out, g_id):
-        attrs, tile_start, tile_count, pix_ctx, out = ctx.saved_tensors
-        # the multi-iso form's rgb and T are gs2d's: K2's gs2d form
-        st = dataclasses.replace(ctx.st, multi_iso=False)
-        d_attrs = rasterize_tiles_bwd(attrs, tile_start, tile_count,
-                                      bwd_context(out, g_out), st, pix_ctx, ctx.seed)
-        return d_attrs, None, None, None, None, None, None
+        with timing.span("backward.blend"):
+            attrs, tile_start, tile_count, pix_ctx, out = ctx.saved_tensors
+            # the multi-iso form's rgb and T are gs2d's: K2's gs2d form
+            st = dataclasses.replace(ctx.st, multi_iso=False)
+            d_attrs = rasterize_tiles_bwd(attrs, tile_start, tile_count,
+                                          bwd_context(out, g_out), st, pix_ctx, ctx.seed)
+            return d_attrs, None, None, None, None, None, None
 
 
 def rasterize_tiles(attrs: torch.Tensor, ids: torch.Tensor,

@@ -36,8 +36,8 @@ from __future__ import annotations
 import dataclasses
 
 import torch
-from torch.profiler import record_function
 
+from vk_gaussian_splatting_tpu_torch import timing
 from vk_gaussian_splatting_tpu_torch.config import RenderConfig
 from vk_gaussian_splatting_tpu_torch.ops.response import deg0_min_response, kernel_response
 from vk_gaussian_splatting_tpu_torch.ops.sh import eval_sh_radiance
@@ -209,7 +209,7 @@ def trace_splats(prepared: PreparedSplats, origins: torch.Tensor, dirs: torch.Te
         order = cfg.rt.order
     if stochastic is True:
         stochastic = "pass"
-    with record_function("trace"):
+    with timing.span("trace"):
         return _trace_splats(prepared, origins, dirs, t_min, t_max, cfg, chunk, ray_block,
                              stochastic, int(seed), order)
 
@@ -337,7 +337,7 @@ def trace_mesh(positions: torch.Tensor, indices: torch.Tensor, origins: torch.Te
     block of ``ray_block`` rays none of which can reach the box skips the
     chunk (the JAX ``lax.cond``; one host read per chunk and batch of
     blocks). Face ids map back to the caller's order."""
-    with record_function("trace"):
+    with timing.span("trace"):
         return _trace_mesh(positions, indices, origins, dirs, t_min, chunk, ray_block)
 
 

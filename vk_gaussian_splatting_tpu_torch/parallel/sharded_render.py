@@ -36,8 +36,8 @@ import dataclasses
 import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
-from torch.profiler import record_function
 
+from vk_gaussian_splatting_tpu_torch import timing
 from vk_gaussian_splatting_tpu_torch.config import RenderConfig, tiles_y
 from vk_gaussian_splatting_tpu_torch.ops.projection import (
     ProjectedSplats,
@@ -160,11 +160,11 @@ def _band_raster(shifted: ProjectedSplats, rows, ids, local_cfg: RenderConfig, s
     pair binning, or on method="bucket" a band-local bucket grid — once
     (sample 0's seed where ``st`` is stochastic). Returns (img, trans,
     overflow)."""
-    with record_function("bin"):
+    with timing.span("bin"):
         bins = bin_for_cfg(shifted, rows, ids, local_cfg, max_pairs, st, sort_depth)
-    with record_function("blend"):
+    with timing.span("blend"):
         out, out_id = blend_bins(bins, local_cfg, st, pix_ctx, sample_seed(0))
-    with record_function("assemble"):
+    with timing.span("assemble"):
         img, trans, _, _ = assemble_image(out, out_id, st.tiles_x, st.tiles_y, local_cfg.width,
                                           local_cfg.height, local_cfg.background)
     return img, trans, bins.overflow
@@ -186,7 +186,7 @@ def _gather_proj(proj: ProjectedSplats, group) -> ProjectedSplats:
     columns more slowly)."""
     packed = torch.cat([proj.xy, proj.conic, proj.depth[:, None], proj.radius, proj.color,
                         proj.alpha[:, None], proj.valid[:, None].to(torch.float32)], dim=1)
-    with record_function("gather"):
+    with timing.span("gather"):
         g = all_gather(packed, group)
         xy, conic, depth, radius, color, alpha, valid = (
             f.contiguous() for f in torch.split(g, [2, 3, 1, 2, 3, 1, 1], dim=1))
@@ -208,9 +208,9 @@ def render_3dgs_sharded(splats: SplatSet, cam: Camera, cfg: RenderConfig,
     ``band_span(cfg, rank, mesh.size())`` of the (H, W, 3) image and (H, W)
     transmittance, plus the OR of all bands' overflow flags."""
     group, nd, band = mesh.get_group(), mesh.size(), mesh.get_local_rank()
-    with record_function("prepare"):
+    with timing.span("prepare"):
         prepared = prepare_splats(splats, cfg.sh_format)
-    with record_function("project"):
+    with timing.span("project"):
         proj = project_splats(prepared, cam, cfg)
     img, trans, ov = _render_band(_gather_proj(proj, group), cfg, max_pairs, band, nd)
     return (*_crop(img, trans, cfg, band, nd), _any(ov, group))
@@ -223,9 +223,9 @@ def _gut_band(splats: SplatSet, cam: Camera, cfg: RenderConfig, max_pairs: int,
     the id row offset by the shard base before the gather, the rays of the
     band's sub-viewport (cy shifted: the pixel context never crosses bands)."""
     group, nd, band = mesh.get_group(), mesh.size(), mesh.get_local_rank()
-    with record_function("prepare"):
+    with timing.span("prepare"):
         prepared = prepare_splats(splats, cfg.sh_format)
-    with record_function("project"):
+    with timing.span("project"):
         proj = ut_project_splats(prepared, cam, cfg)
     local_cfg = _band_cfg(cfg, nd)
     st = raster_statics(local_cfg)
@@ -240,13 +240,13 @@ def _gut_band(splats: SplatSet, cam: Camera, cfg: RenderConfig, max_pairs: int,
     else:
         st = gut_statics(st, local_cfg)
         rows, ids = gut_attr_rows(prepared, proj, local_cfg)
-    with record_function("gather"):
+    with timing.span("gather"):
         ids = all_gather(ids + band * ids.shape[0], group)
         rows = all_gather(rows, group, dim=1)
     y_off = _band_offset(cfg, band, nd)
     shifted = _shift(_gather_proj(proj, group), y_off)
     band_cam = dataclasses.replace(cam, cy=cam.cy - y_off)
-    with record_function("rays"):
+    with timing.span("rays"):
         pix_ctx = build_tile_rays(band_cam, local_cfg)
     img, trans, ov = _band_raster(shifted, rows, ids, local_cfg, st, max_pairs, pix_ctx,
                                   sort_depth=radial)
@@ -290,14 +290,14 @@ def train_step_sharded(splats: SplatSet, cam: Camera, target: torch.Tensor,
         raise ValueError(f"target band of {target.shape[0]} rows, band {band} holds {y1 - y0}")
     params = {f.name: getattr(splats, f.name).detach().requires_grad_(True)
               for f in dataclasses.fields(splats)}
-    with record_function("prepare"):
+    with timing.span("prepare"):
         prepared = prepare_splats(SplatSet(**params), cfg.sh_format)
-    with record_function("project"):
+    with timing.span("project"):
         proj = project_splats(prepared, cam, cfg)
     img, _, _ = _render_band(_gather_proj(proj, group), cfg, max_pairs, band, nd)
-    with record_function("loss"):
+    with timing.span("loss"):
         loss = torch.sum((img[:y1 - y0] - target) ** 2)
-    with record_function("backward"):
+    with timing.span("backward"):
         loss.backward()
     new = SplatSet(**{k: (p - lr * p.grad).detach() for k, p in params.items()})
     total = loss.detach().clone()

@@ -27,8 +27,8 @@ import dataclasses
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
+from vk_gaussian_splatting_tpu_torch import timing
 from vk_gaussian_splatting_tpu_torch.config import RenderConfig, tiles_x, tiles_y
 from vk_gaussian_splatting_tpu_torch.devices import resolve_device
 from vk_gaussian_splatting_tpu_torch.io.obj import ObjMesh
@@ -197,9 +197,9 @@ def mesh_bins(mesh: MeshBuffers, cam: Camera, cfg: RenderConfig, max_pairs: int 
     if cfg.raster.tile_size != TILE:
         raise ValueError("the tile blender requires tile_size == 16")
     st = mesh_statics(cfg)
-    with record_function("project"):
+    with timing.span("project"):
         proj, tri_uv, tri_z, vcol = _project_triangles(mesh, cam, cfg, lights)
-    with record_function("bin"):
+    with timing.span("bin"):
         rows = (_tri_smooth_attr_rows(tri_uv, tri_z, vcol) if st.model == "tri2d_smooth"
                 else _tri_attr_rows(tri_uv, proj))
         ids = torch.arange(rows.shape[1], dtype=torch.int32, device=rows.device)
@@ -222,9 +222,9 @@ def render_mesh(mesh: MeshBuffers, cam: Camera, cfg: RenderConfig, max_pairs: in
     model is forward only. max_pairs: the budget of
     ``raster.expansion="exact"``."""
     bins, st = mesh_bins(mesh, cam, cfg, max_pairs, lights)
-    with record_function("blend"):
+    with timing.span("blend"):
         out, out_id = rasterize_bins(bins, st)
-    with record_function("assemble"):
+    with timing.span("assemble"):
         return assemble_image(out, out_id, st.tiles_x, st.tiles_y, cfg.width, cfg.height,
                               cfg.background)
 

@@ -59,8 +59,8 @@ from __future__ import annotations
 import dataclasses
 
 import torch
-from torch.profiler import record_function
 
+from vk_gaussian_splatting_tpu_torch import timing
 from vk_gaussian_splatting_tpu_torch.config import (
     Pipeline,
     RenderConfig,
@@ -313,7 +313,7 @@ def _maybe_denoise(out: RenderOutput, cfg: RenderConfig) -> RenderOutput:
     through."""
     if cfg.denoise != "atrous":
         return out
-    with record_function("denoise"):
+    with timing.span("denoise"):
         img = atrous_denoise(out.image, out.depth, out.splat_id, out.transmittance)
     return dataclasses.replace(out, image=img)
 
@@ -330,11 +330,11 @@ def _blend_samples(bins, cfg: RenderConfig, st: RasterStatics, samples: int,
     for sample in range(samples):
         pix_ctx = None
         if cam is not None:
-            with record_function("rays"):
+            with timing.span("rays"):
                 pix_ctx = build_tile_rays(cam, cfg, sample_id=sample)
-        with record_function("blend"):
+        with timing.span("blend"):
             out, out_id = blend_bins(bins, cfg, st, pix_ctx, sample_seed(sample))
-        with record_function("assemble"):
+        with timing.span("assemble"):
             i, t, d, s = _assemble(out, out_id, cfg)
         img = i if img is None else img + i
         trans = t if trans is None else trans + t
@@ -353,8 +353,11 @@ def render_3dgs(prepared: PreparedSplats, cam: Camera, cfg: RenderConfig,
     """3DGS raster pipeline (PIPELINE_VERT / PIPELINE_MESH), differentiable
     in ``prepared`` through image and transmittance (depth and splat id are
     not differentiated; nothing of the packed tier is). Each stage runs
-    under a ``torch.profiler`` span named project, bin, blend or assemble
-    (then denoise, for ``cfg.denoise="atrous"``). The EWA projection is
+    under a ``torch.profiler`` span (``timing.span``) named project, bin,
+    blend or assemble (then denoise, for ``cfg.denoise="atrous"``), with
+    the child spans project.sh (the SH radiance, SH degree 1 and up) and,
+    on the pair path, bin.rows, bin.expand, bin.sort and bin.gather (the
+    bucket path: bin.rows). The EWA projection is
     pinhole whatever ``cfg.camera_type`` says, as in the JAX package. A
     stochastic frame blends ``cfg.temporal_samples`` times, a deterministic
     one once (``_blend_samples``).
@@ -370,10 +373,11 @@ def render_3dgs(prepared: PreparedSplats, cam: Camera, cfg: RenderConfig,
     and take the pair path, as in the JAX package."""
     _reject_unported(cfg)
     st = raster_statics(cfg)
-    with record_function("project"):
+    with timing.span("project"):
         proj = project_splats(prepared, cam, cfg)
-    with record_function("bin"):
-        rows, ids = (gs_attr_rows_packed if packed(cfg) else gs_attr_rows)(proj)
+    with timing.span("bin"):
+        with timing.span("bin.rows"):
+            rows, ids = (gs_attr_rows_packed if packed(cfg) else gs_attr_rows)(proj)
         rank = None
         if host_order is not None:
             rank = host_rank(host_order, rows.shape[1], rows.device)
@@ -406,21 +410,23 @@ def gut_bin(prepared: PreparedSplats, proj: ProjectedSplats, cam: Camera, cfg: R
     attr_rows = gut_attr_rows_packed if packed(cfg) else gut_attr_rows
     if not radial_order:
         st = gut_statics(st, cfg)
-        rows, ids = attr_rows(prepared, proj, cfg)
+        with timing.span("bin.rows"):
+            rows, ids = attr_rows(prepared, proj, cfg)
         return bin_for_cfg(proj, rows, ids, cfg, max_pairs, st), st
     st = gut_statics(st, cfg, alpha_clamp=cfg.rt.alpha_clamp,
                      min_transmittance=cfg.rt.min_transmittance)
     radial = torch.linalg.norm(prepared.means.detach() - cam.position, dim=-1)
     bucket = cfg.raster.method == "bucket"
-    rows, ids = attr_rows(prepared, proj, cfg, depth=radial if bucket else None)
+    with timing.span("bin.rows"):
+        rows, ids = attr_rows(prepared, proj, cfg, depth=radial if bucket else None)
     return bin_for_cfg(proj, rows, ids, cfg, max_pairs, st, sort_depth=radial), st
 
 
 def _render_gut(prepared, cam, cfg, max_pairs, radial_order):
     _reject_unported(cfg)
-    with record_function("project"):
+    with timing.span("project"):
         proj = ut_project_splats(prepared, cam, cfg)
-    with record_function("bin"):
+    with timing.span("bin"):
         bins, st = gut_bin(prepared, proj, cam, cfg, max_pairs, radial_order)
     return _blend_samples(bins, cfg, st, max(cfg.temporal_samples, 1), cam)
 
@@ -431,7 +437,9 @@ def render_3dgut(prepared: PreparedSplats, cam: Camera, cfg: RenderConfig,
     projection for binning + the exact per-pixel 3D ray response in the
     blender, with thin-lens DoF and temporal-sample averaging (each sample
     also keys a stochastic blend). Stage spans: project, bin, then rays,
-    blend and assemble per sample (and denoise)."""
+    blend and assemble per sample (and denoise); child spans as
+    ``render_3dgs``'s: project.sh, bin.rows and, on the pair path,
+    bin.expand, bin.sort and bin.gather."""
     return _render_gut(prepared, cam, cfg, max_pairs, radial_order=False)
 
 
@@ -448,18 +456,18 @@ def _composed_frame(prepared: PreparedSplats, cam: Camera, cfg: RenderConfig, ma
     the splats' transmittance in front of the mesh (H,W), the mesh pass's
     face id (H,W) int32)."""
     _reject_unported(cfg)
-    with record_function("mesh"):
+    with timing.span("mesh"):
         mesh_img, mesh_trans, mesh_depth, face_id = render_mesh(mesh, cam, cfg, max_pairs, lights)
     pairs = pairs_cfg(cfg)
     st = dataclasses.replace(raster_statics(cfg), model="gs2d_clip")
-    with record_function("project"):
+    with timing.span("project"):
         proj = project_splats(prepared, cam, cfg)
-    with record_function("bin"):
+    with timing.span("bin"):
         rows, ids = gs_attr_rows(proj)
         bins = bin_for_cfg(proj, rows, ids, pairs, max_pairs, st)
-    with record_function("blend"):
+    with timing.span("blend"):
         out, out_id = rasterize_bins(bins, st, depth_limit_pix_ctx(mesh_depth, cfg), 0)
-    with record_function("assemble"):
+    with timing.span("assemble"):
         img, trans, depth, splat_id = assemble_image(out, out_id, st.tiles_x, st.tiles_y,
                                                      cfg.width, cfg.height)
         covered = mesh_trans < 0.5
@@ -503,7 +511,7 @@ def render_composed_wavefront(prepared: PreparedSplats, cam: Camera, cfg: Render
     per bounce bounce (trace, shade). Returns (RenderOutput of the composed
     frame, the image with the bounces (H,W,3))."""
     frame, splat_trans, face_id = _composed_frame(prepared, cam, cfg, max_pairs, mesh, lights)
-    with record_function("spawn"):
+    with timing.span("spawn"):
         origins, dirs, throughput, _, shape_lr = secondary_spawn(cam, cfg, mesh, face_id,
                                                                  splat_trans, stride)
     radiance = trace_secondary(prepared, cam, cfg, mesh, origins, dirs, throughput, lights,
@@ -547,19 +555,19 @@ def _lit_frame(prepared, cam, cfg, max_pairs, lights, material, instance_base, u
     else:
         st = dataclasses.replace(st, model="gs2d")
     pix_ctx = None
-    with record_function("project"):
+    with timing.span("project"):
         proj = (ut_project_splats if use_gut else project_splats)(prepared, cam, cfg)
-    with record_function("bin"):
+    with timing.span("bin"):
         rows, ids = gut_attr_rows(prepared, proj, cfg) if use_gut else gs_attr_rows(proj)
         bins = bin_for_cfg(proj, rows, ids, pairs_cfg(cfg), max_pairs, st)
     if use_gut:
-        with record_function("rays"):
+        with timing.span("rays"):
             pix_ctx = build_tile_rays(cam, cfg, sample_id=0)
-    with record_function("blend"):
+    with timing.span("blend"):
         out, out_id = rasterize_bins(bins, st, pix_ctx, 0)
-    with record_function("assemble"):
+    with timing.span("assemble"):
         img, trans, depth, splat_id = _assemble(out, out_id, cfg)
-    with record_function("normals"):
+    with timing.span("normals"):
         normal_img = render_normal_buffer(prepared, proj, cam, cfg, st, max_pairs, pix_ctx,
                                           use_gut_rows=use_gut)
     shadow_fn = None
@@ -570,7 +578,7 @@ def _lit_frame(prepared, cam, cfg, max_pairs, lights, material, instance_base, u
         )
         shadow_fn = (make_ray_shadow_fn(prepared, cfg) if cfg.rt.shadows == "ray"
                      else make_shadow_fn(prepared, tuple(lights), cfg, shadow_res))
-    with record_function("shade"):
+    with timing.span("shade"):
         shaded = deferred_shade(img, trans, normal_img, depth, cam, cfg, list(lights), material,
                                 shadow_fn=shadow_fn,
                                 set_index_img=_set_index_for(material, splat_id, instance_base))

@@ -38,8 +38,8 @@ from __future__ import annotations
 import dataclasses
 
 import torch
-from torch.profiler import record_function
 
+from vk_gaussian_splatting_tpu_torch import timing
 from vk_gaussian_splatting_tpu_torch.config import RenderConfig, tiles_x, tiles_y
 from vk_gaussian_splatting_tpu_torch.ops.projection import project_splats
 from vk_gaussian_splatting_tpu_torch.ops.rasterize import (
@@ -298,7 +298,7 @@ def make_shadow_fn(prepared: PreparedSplats, lights, cfg: RenderConfig, res: int
     center, radius = scene_bounds(prepared)
     maps = {}
     for light in lights:
-        with record_function("shadow_map"):
+        with timing.span("shadow_map"):
             enclosed = (int(light.type) == int(LightType.POINT) and float(
                 torch.linalg.norm(light.position - center)) < float(radius))
             if enclosed:

@@ -18,8 +18,8 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
-from torch.profiler import record_function
 
+from vk_gaussian_splatting_tpu_torch import timing
 from vk_gaussian_splatting_tpu_torch.config import RenderConfig, tiles_x, tiles_y
 from vk_gaussian_splatting_tpu_torch.ops.raytrace import (
     reflect,
@@ -122,7 +122,7 @@ def trace_secondary(prepared, cam: Camera, cfg: RenderConfig, mesh: MeshBuffers,
     r = o.shape[0]
 
     for _ in range(max_bounces):
-        with record_function("bounce"):
+        with timing.span("bounce"):
             eps = o.new_full((r,), EPS_T)
             mh = trace_mesh(mesh.positions, mesh.indices, o, d, eps)
             ts = trace_splats(prepared, o, d, eps, mh.t, cfg)
@@ -132,7 +132,7 @@ def trace_secondary(prepared, cam: Camera, cfg: RenderConfig, mesh: MeshBuffers,
             face = torch.clamp(mh.face, min=0).long()
             hit_pos = o + d * torch.where(mh.hit, mh.t, 0.0)[:, None]
             nrm = face_nrm[face]
-            with record_function("shade"):
+            with timing.span("shade"):
                 shade = _shade_mesh_hit(hit_pos, nrm, d, mesh, face, lights, cam, shadow_fn)
             radiance = radiance + torch.where(mh.hit[:, None], thr * shade, 0.0)
 

@@ -24,8 +24,8 @@ import os
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
+from vk_gaussian_splatting_tpu_torch import timing
 from vk_gaussian_splatting_tpu_torch.config import RenderConfig
 from vk_gaussian_splatting_tpu_torch.devices import resolve_device
 from vk_gaussian_splatting_tpu_torch.render.pipelines import render
@@ -122,19 +122,23 @@ def train_step(splats: SplatSet, optimizer: torch.optim.Optimizer, cam: Camera,
     flag of the rendered frame — when it fires, part of the image trained
     against truncated splat coverage; the caller should re-render with
     expansion="exact" / a larger slots_k or treat the step as suspect.
-    Its stages run under ``torch.profiler`` spans: prepare, render's own
-    (project, bin, blend, assemble), loss, backward and optimizer. A packed
+    Its stages run under ``torch.profiler`` spans (``timing.span``):
+    prepare, render's own (project, bin, rays for 3DGUT, blend, assemble,
+    and their children), loss, backward and optimizer. Inside backward
+    (on a card, on autograd's device thread): backward.gather (the
+    binning's sort-based gather backward) and backward.blend (the blend's
+    backward kernel, K2 / K2g / K4 / K4g, with its context). A packed
     config (``pair_format="packed"``, forward only) raises
     NotImplementedError at the backward, before the optimizer moves."""
-    with record_function("prepare"):
+    with timing.span("prepare"):
         optimizer.zero_grad(set_to_none=True)
         prepared = prepare_splats(splats, cfg.sh_format)
     out = render(prepared, cam, cfg, max_pairs)
-    with record_function("loss"):
+    with timing.span("loss"):
         loss = rgb_loss(out.image, target, tc.ssim_lambda)
-    with record_function("backward"):
+    with timing.span("backward"):
         loss.backward()
-    with record_function("optimizer"):
+    with timing.span("optimizer"):
         optimizer.step()
     return loss.detach(), out.overflow
 
