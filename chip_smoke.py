@@ -6,6 +6,7 @@
     python3 chip_smoke.py --raytrace            # phase 15 alone (no report)
     python3 chip_smoke.py --instances           # phase 16 alone (no report)
     python3 chip_smoke.py --tools               # phase 17 alone (no report)
+    python3 chip_smoke.py --sh-radiance         # phase 18 alone (no report)
 
 Drives the port's main paths — the 3DGS raster frame, ``render(prepared,
 camera, cfg)``, and the training step, ``train_step`` (render, loss,
@@ -51,8 +52,8 @@ them:
    difference of 4 high-gradient opacities through ``render`` on the card;
 3. forward at full size: 1,000,000 splats at SH degree 3 (96.9 / 2.5 / 0.6 %
    small / mid / large scales) at 1920x1080, made on the card from a seeded
-   generator; 8 jittered frames through ``render``, with K1's launch count
-   read around them; the exact expansion (max_pairs = 2^22), which must not
+   generator; 8 jittered frames through ``render``, with K1's and the SH
+   forward kernel's launch counts read around them (one each a frame); the exact expansion (max_pairs = 2^22), which must not
    overflow; a bit-equal repeat frame; K1 against the twin over every tile;
    K1's per-warp cull on that frame: its kept (warp, pair) counter equal to
    the plain count (``ops/rasterize.pair_warp_may_hit`` over the steps each
@@ -61,8 +62,8 @@ them:
    True)``; none allowed); K1's bound counts the kept evaluations and the
    cull (``warp_cull_bound``, the all-pair figure beside it);
 4. training at full size: the same scene is the target, the start has
-   seeded jitter on means and sh_dc; 5 ``train_step``s with both kernels'
-   launch counts read around them, a falling finite loss and finite
+   seeded jitter on means and sh_dc; 5 ``train_step``s with K1's, K2's and
+   the SH pair's launch counts read around them (one each a step), a falling finite loss and finite
    gradients; one exact-expansion step; a bit-equal repeat backward; K2
    against the twin backward over every tile of the training frame, in
    tile batches; K2's per-tile cull of the pair lists on that frame: its
@@ -330,7 +331,16 @@ them:
    (``probe_bound``: the (key, index) network and one permutation, the
    bound of the row-moving form logged beside it, and the share of the
    bound; P2's ``copy_bound``: its offsets reach 8 MB of the source, and
-   every copy lands in shared memory).
+   every copy lands in shared memory);
+18. the SH radiance pass (``sh_radiance_phase``; ``--sh-radiance`` runs it
+   alone after the builds): csrc/sh_radiance.cu's forward and backward at
+   6,130,000 and 1,000,000 splats at SH 3 in f32 (the two cells' scenes),
+   the forward against the plain ``sh_radiance_ref`` on the card (within
+   2e-6), the backward against autograd through it and against the
+   closed-form ``sh_radiance_bwd_ref`` (each gradient within 1e-5 of its
+   largest entry); each kernel alone (profiler) and with events around its
+   wrapper beside its byte bound and the plain versions' times (the
+   pair's report entries take their launches from phases 3 and 4).
 
 Without a CUDA device it raises and prints no result. The last line is
 ``{"ok": true, "device": {...}}``; the line before it holds the kernel
@@ -384,6 +394,7 @@ from vk_gaussian_splatting_tpu_torch.ops import _build  # noqa: E402
 from vk_gaussian_splatting_tpu_torch.ops import metrics  # noqa: E402
 from vk_gaussian_splatting_tpu_torch.ops import raster_bucket as rb  # noqa: E402
 from vk_gaussian_splatting_tpu_torch.ops import rasterize as tr  # noqa: E402
+from vk_gaussian_splatting_tpu_torch.ops import sh as tsh  # noqa: E402
 from vk_gaussian_splatting_tpu_torch.ops import raytrace as rt  # noqa: E402
 from vk_gaussian_splatting_tpu_torch.ops.compare import CompareMode, ImageCompare  # noqa: E402
 from vk_gaussian_splatting_tpu_torch.ops.denoise import denoise_output  # noqa: E402
@@ -482,6 +493,8 @@ _SOURCES = {  # library: (source, the TPU kernel it replaces)
                          "scripts/bench_sort_stage.py:115"),
     "bench_radix_ab": ("vk_gaussian_splatting_tpu_torch/csrc/bench_radix_ab.cu",
                        "scripts/bench_radix_ab.py:89"),
+    "sh_radiance": ("vk_gaussian_splatting_tpu_torch/csrc/sh_radiance.cu",
+                    "none: the JAX package's ops/sh.py is jnp"),
 }
 
 
@@ -529,6 +542,8 @@ KERNELS.update({"bench_roll": ("bench_roll", *_SOURCES["bench_roll"])})
 KERNELS.update({stage_name(v): ("bench_sort_stage", *_SOURCES["bench_sort_stage"])
                 for v in probe_stage.VARIANTS})
 KERNELS.update({"bench_radix_ab": ("bench_radix_ab", *_SOURCES["bench_radix_ab"])})
+KERNELS.update({name: ("sh_radiance", *_SOURCES["sh_radiance"])
+                for name in ("sh_radiance_fwd", "sh_radiance_bwd")})
 WIDTH, HEIGHT, SPLATS = 1920, 1080, 1_000_000  # the headline cell
 FRAMES = 8
 TRAIN_STEPS = 5
@@ -1226,8 +1241,9 @@ def jitter(cam, i: int):
 
 
 def full_size(dev, card: str, prepared, seed: int):
-    """The forward path at 1080p with 1M splats; returns K1's report entry
-    and its bound at this frame."""
+    """The forward path at 1080p with 1M splats; returns K1's report entry,
+    its bound at this frame and the SH forward kernel's launches in the
+    main path."""
     cfg = gt.RenderConfig(width=WIDTH, height=HEIGHT, sh_degree=3)
     cam = gt.look_at([0, 0, -7], [0, 0, 0], [0, 1, 0], cfg.width, cfg.height,
                      fov_y_rad=0.9, device=dev)
@@ -1235,11 +1251,15 @@ def full_size(dev, card: str, prepared, seed: int):
 
     # ---- the main path: FRAMES frames through render(), launches counted
     tr.rasterize_tiles.launches = 0
+    tsh.sh_radiance.launches = tsh.sh_radiance_bwd.launches = 0
     outs = [render(prepared, jitter(cam, i), cfg) for i in range(FRAMES)]
     torch.cuda.synchronize()
     launches = tr.rasterize_tiles.launches
-    log(f"main path: {FRAMES} frames, rasterize_fwd launches={launches}")
+    sh_launches = (tsh.sh_radiance.launches, tsh.sh_radiance_bwd.launches)
+    log(f"main path: {FRAMES} frames, rasterize_fwd launches={launches} "
+        f"sh_radiance_fwd launches={sh_launches[0]} sh_radiance_bwd launches={sh_launches[1]}")
     check(launches == FRAMES, f"{launches} kernel launches for {FRAMES} frames")
+    check(sh_launches == (FRAMES, 0), f"{sh_launches} SH kernel launches for {FRAMES} frames")
     for o in outs:
         check(tuple(o.image.shape) == (cfg.height, cfg.width, 3), "image shape")
         check(bool(torch.isfinite(o.image).all()), "non-finite image")
@@ -1306,7 +1326,7 @@ def full_size(dev, card: str, prepared, seed: int):
     profile_calls("slots", lambda: render(prepared, cam, cfg), card)
     profile_calls("exact", lambda: render(prepared, cam, exact_cfg, max_pairs=1 << 22), card)
     return dict(launches=launches, max_abs_err=err, ms=t["blend"], plain_ms=t_plain,
-                kept_share=kept / (tr.WARPS * work[2])), bounds
+                kept_share=kept / (tr.WARPS * work[2])), bounds, sh_launches[0]
 
 
 def grads_of(splats):
@@ -1326,7 +1346,8 @@ def jittered_start(truth: gt.SplatSet, dev, seed: int) -> gt.SplatSet:
 def train_full_size(dev, card: str, truth: gt.SplatSet, seed: int):
     """The training path at 1080p with 1M splats: the scene renders its own
     target; training starts from seeded jitter on means and sh_dc. Returns
-    K2's report entry and its bound at the training frame."""
+    K2's report entry, its bound at the training frame and the SH backward
+    kernel's launches in the training path."""
     cfg = gt.RenderConfig(width=WIDTH, height=HEIGHT, sh_degree=3)
     cam = gt.look_at([0, 0, -7], [0, 0, 0], [0, 1, 0], cfg.width, cfg.height,
                      fov_y_rad=0.9, device=dev)
@@ -1337,18 +1358,23 @@ def train_full_size(dev, card: str, truth: gt.SplatSet, seed: int):
     opt = gt.make_optimizer(splats, tc)
     torch.cuda.synchronize()
 
-    # ---- the training path: TRAIN_STEPS steps, both kernels' launches counted
+    # ---- the training path: TRAIN_STEPS steps, the four kernels' launches counted
     tr.rasterize_tiles.launches = tr.rasterize_tiles_bwd.launches = 0
+    tsh.sh_radiance.launches = tsh.sh_radiance_bwd.launches = 0
     steps = [gt.train_step(splats, opt, cam, target, cfg, 0, tc) for _ in range(TRAIN_STEPS)]
     torch.cuda.synchronize()
     launches = (tr.rasterize_tiles.launches, tr.rasterize_tiles_bwd.launches)
+    sh_launches = (tsh.sh_radiance.launches, tsh.sh_radiance_bwd.launches)
     losses = [loss.item() for loss, _ in steps]
     log(f"training path: {TRAIN_STEPS} steps, rasterize_fwd launches={launches[0]} "
-        f"rasterize_bwd launches={launches[1]}")
+        f"rasterize_bwd launches={launches[1]} sh_radiance_fwd launches={sh_launches[0]} "
+        f"sh_radiance_bwd launches={sh_launches[1]}")
     log(f"train losses: {' '.join(f'{x:.6f}' for x in losses)} overflow="
         f"{[bool(o) for _, o in steps]} (slots truncates wide splats by design)")
     check(launches == (TRAIN_STEPS, TRAIN_STEPS),
           f"{launches} kernel launches for {TRAIN_STEPS} train steps")
+    check(sh_launches == (TRAIN_STEPS, TRAIN_STEPS),
+          f"{sh_launches} SH kernel launches for {TRAIN_STEPS} train steps")
     check(all(math.isfinite(x) for x in losses), "non-finite training loss")
     check(losses[-1] < losses[0], f"the loss did not fall: {losses}")
     check(all(bool(torch.isfinite(x).all()) for x in grads_of(splats)),
@@ -1423,7 +1449,7 @@ def train_full_size(dev, card: str, truth: gt.SplatSet, seed: int):
     profile_calls("train_step", lambda: gt.train_step(splats, opt, cam, target, cfg, 0, tc),
                   card)
     return dict(launches=launches[1], max_abs_err=abs_err, ms=t_k2, plain_ms=t_twin,
-                kept_share=kept / work[2]), bound
+                kept_share=kept / work[2]), bound, sh_launches[1]
 
 
 # ---- the bucket path (RasterConfig.method="bucket"): K3 and K4 ----------
@@ -6277,6 +6303,102 @@ def tools(dev, card: str, truth, caps):
             for name in sorted(set(launches) | set(errs))}
 
 
+# The SH radiance pass (phase 18): the two cells' scenes at SH 3 in f32; a
+# splat's bytes, each read or written once (csrc/sh_radiance.cu's note)
+SH_SPLATS = (6_130_000, 1_000_000)
+SH_FWD_BYTES = 15 * 3 * 4 + 12 + 16 + 12           # sh, mean, colour; rgb
+SH_BWD_BYTES = 15 * 3 * 4 + 12 + 16 + 12 + 15 * 3 * 4 + 12 + 16  # + d_rgb; d_sh, d_mean, d_colour
+SH_FWD_ATOL = 2e-6   # tests/test_torch_cuda.py's SH_ATOL
+SH_BWD_RTOL = 1e-5   # of each gradient's largest entry
+
+
+def sh_radiance_phase(dev, card: str):
+    """Phase 18: the forward and backward kernels of the SH radiance pass
+    at each of SH_SPLATS against the plain versions, timed alone and with
+    events, beside their byte bounds; returns the two kernels' report
+    entries and bounds (the 6.13M-splat figures; the 1M ones beside them)."""
+    t0 = time.perf_counter()
+    entries, bounds = {}, {}
+    for n in SH_SPLATS:
+        g = torch.Generator(device=dev).manual_seed(n)
+        sh = torch.randn((n, 15, 3), generator=g, device=dev) * 0.3
+        means = torch.rand((n, 3), generator=g, device=dev) * 6.0 - 3.0
+        color = torch.rand((n, 4), generator=g, device=dev) * 1.3 - 0.3
+        pos = torch.tensor([0.3, -0.2, -7.0], device=dev)
+        d_rgb = torch.randn((n, 3), generator=g, device=dev)
+        args = (sh, means, color, pos, 15, False)
+
+        def fwd():
+            return tsh.sh_radiance_fwd(*args)
+
+        def bwd():
+            return tsh.sh_radiance_bwd(*args, d_rgb)
+
+        def plain_fwd():
+            return tsh.sh_radiance_ref(sh, means, color, pos, 3)
+
+        leaves = [t.detach().clone().requires_grad_() for t in (sh, means, color)]
+
+        def plain_bwd():  # autograd through the plain version, its forward included
+            rgb = tsh.sh_radiance_ref(*leaves, pos, 3)
+            return torch.autograd.grad(rgb, leaves, d_rgb)
+
+        def kernel_fwd_bwd():  # the pair through autograd, as training runs it
+            rgb = tsh.sh_radiance(*leaves, pos, 3)
+            return torch.autograd.grad(rgb, leaves, d_rgb)
+
+        err_fwd = (fwd() - plain_fwd()).abs().max().item()
+        got, plain, twin = bwd(), plain_bwd(), tsh.sh_radiance_bwd_ref(*args[:4], 3, False, d_rgb)
+        err_bwd, abs_bwd = {}, 0.0
+        for name, k, p, t in zip(("d_sh", "d_means", "d_color"), got, plain, twin):
+            scale = p.abs().max().item()
+            err = (k - p).abs().max().item()
+            abs_bwd = max(abs_bwd, err)
+            err_bwd[name] = (err / scale, (k - t).abs().max().item() / scale)
+        del got, plain, twin
+        log(f"sh_radiance n={n}: forward max abs err {err_fwd:.3e} against the plain version; "
+            f"backward max abs err {abs_bwd:.3e} against autograd through it; "
+            "backward, of each gradient's largest entry, against autograd / the twin: "
+            + ", ".join(f"{k} {a:.3e} / {b:.3e}" for k, (a, b) in err_bwd.items()))
+        check(err_fwd <= SH_FWD_ATOL, f"sh_radiance_fwd n={n}: {err_fwd} from the plain version")
+        check(all(max(e) <= SH_BWD_RTOL for e in err_bwd.values()),
+              f"sh_radiance_bwd n={n}: {err_bwd}")
+        torch.cuda.synchronize()
+        alone_f = kernel_split(fwd, lambda: tsh.sh_radiance.launches,
+                               ("sh_radiance_fwd_kernel",), calls=10)["sh_radiance_fwd_kernel"]
+        alone_b = kernel_split(bwd, lambda: tsh.sh_radiance_bwd.launches,
+                               ("sh_radiance_bwd_kernel",), calls=10)["sh_radiance_bwd_kernel"]
+        ev_f, ev_b = median(time_ms(fwd, 20)), median(time_ms(bwd, 20))
+        ev_pair = median(time_ms(kernel_fwd_bwd, 10))
+        pl_f, pl_b = median(time_ms(plain_fwd, 5)), median(time_ms(plain_bwd, 5))
+        twin_b = median(time_ms(lambda: tsh.sh_radiance_bwd_ref(*args[:4], 3, False, d_rgb), 5))
+        b_f = roofline(0.0, n * SH_FWD_BYTES)
+        b_b = roofline(0.0, n * SH_BWD_BYTES)
+        log(f"timing sh_radiance n={n} ({card}): forward alone {alone_f:.4f} ms, events "
+            f"{ev_f:.4f}, bound {b_f[0]:.4f} ({b_f[1]}, {n * SH_FWD_BYTES / 1e9:.4f} GB), share "
+            f"of bound {b_f[0] / alone_f:.4f}; plain forward {pl_f:.4f} ms")
+        log(f"timing sh_radiance_bwd n={n} ({card}): backward alone {alone_b:.4f} ms, events "
+            f"{ev_b:.4f}, bound {b_b[0]:.4f} ({b_b[1]}, {n * SH_BWD_BYTES / 1e9:.4f} GB), share "
+            f"of bound {b_b[0] / alone_b:.4f}; the kernel pair through autograd {ev_pair:.4f} ms "
+            f"against autograd through the plain version (forward and backward) {pl_b:.4f} ms; "
+            f"the closed-form twin {twin_b:.4f} ms")
+        if n == SH_SPLATS[0]:
+            entries["sh_radiance_fwd"] = dict(max_abs_err=err_fwd, ms=ev_f, alone_ms=alone_f,
+                                              plain_ms=pl_f, share_of_bound=b_f[0] / alone_f)
+            entries["sh_radiance_bwd"] = dict(
+                max_abs_err=abs_bwd, max_rel_err=max(max(e) for e in err_bwd.values()),
+                ms=ev_b, alone_ms=alone_b, plain_ms=pl_b, twin_ms=twin_b,
+                share_of_bound=b_b[0] / alone_b)
+            bounds["sh_radiance_fwd"], bounds["sh_radiance_bwd"] = b_f, b_b
+        else:
+            entries["sh_radiance_fwd"]["alone_ms_1m"] = alone_f
+            entries["sh_radiance_bwd"]["alone_ms_1m"] = alone_b
+        del sh, means, color, d_rgb, leaves
+        torch.cuda.empty_cache()
+    log(f"sh_radiance phase {time.perf_counter() - t0:.1f} s")
+    return entries, bounds
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     views = int(argv[argv.index("--mesh-views") + 1]) if "--mesh-views" in argv else 0
@@ -6284,6 +6406,7 @@ def main(argv=None) -> int:
     raytrace_only = "--raytrace" in argv
     instances_only = "--instances" in argv
     tools_only = "--tools" in argv
+    sh_only = "--sh-radiance" in argv
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: chip_smoke.py runs only on a card")
     if "--gloo-rank" in argv:
@@ -6333,6 +6456,10 @@ def main(argv=None) -> int:
         instances(dev, card, bench_scene(dev, SPLATS, seed=0).prepare())
         log(f"total {time.perf_counter() - t0:.1f} s")
         return 0
+    if sh_only:
+        sh_radiance_phase(dev, card)
+        log(f"total {time.perf_counter() - t0:.1f} s")
+        return 0
     if tools_only:
         truth = bench_scene(dev, SPLATS, seed=0)
         cam = gt.look_at([0, 0, -7], [0, 0, 0], [0, 1, 0], WIDTH, HEIGHT, fov_y_rad=0.9,
@@ -6346,9 +6473,9 @@ def main(argv=None) -> int:
     err_golden = golden_gate(dev)
     err_golden_bwd = golden_gradients(dev)
     truth = bench_scene(dev, SPLATS, seed=0)
-    fwd, bounds = full_size(dev, card, truth.prepare(), seed=0)
+    fwd, bounds, sh_frame_launches = full_size(dev, card, truth.prepare(), seed=0)
     fwd["max_abs_err"] = max(fwd["max_abs_err"], err_golden)
-    bwd, bounds["rasterize_bwd"] = train_full_size(dev, card, truth, seed=0)
+    bwd, bounds["rasterize_bwd"], sh_step_launches = train_full_size(dev, card, truth, seed=0)
     bwd["max_abs_err"] = max(bwd["max_abs_err"], err_golden_bwd)
 
     err_golden_k3 = golden_bucket(dev)
@@ -6407,6 +6534,11 @@ def main(argv=None) -> int:
     probe_entries, probe_bounds, library = probes(dev, card)
     results.update(probe_entries)
     bounds.update(probe_bounds)
+    sh_entries, sh_bounds = sh_radiance_phase(dev, card)
+    sh_entries["sh_radiance_fwd"]["launches"] = sh_frame_launches
+    sh_entries["sh_radiance_bwd"]["launches"] = sh_step_launches
+    results.update(sh_entries)
+    bounds.update(sh_bounds)
 
     report = {"kernels": [{
         "name": name, "route": "cuda", "source": KERNELS[name][1],

@@ -1,8 +1,9 @@
 """The CUDA tile blenders (pair blender K1, K2; bucket rasterizer K3, K4;
 each for the gs2d and the gut3d response model, K1 and K2 also for the
-mesh models gs2d_clip, tri2d and tri2d_smooth) and the probe kernels P1-P3
-(vk_gaussian_splatting_tpu_torch/probes) on a card, against their plain
-PyTorch twins.
+mesh models gs2d_clip, tri2d and tri2d_smooth), the probe kernels P1-P3
+(vk_gaussian_splatting_tpu_torch/probes) and the SH radiance pair
+(csrc/sh_radiance.cu; its tolerances where its tests begin) on a card,
+against their plain PyTorch twins.
 
 Every test here is marked ``cuda`` and skips without a card. The file
 imports no JAX, so it also runs where only the port is installed:
@@ -2221,3 +2222,203 @@ def test_naive_oracle_bounds_the_card_frames(cuda):
                                                kernel_degree=cfg.rt.kernel_degree)
     d = torch.cat([(out.image - img).abs().flatten(), (out.transmittance - t).abs().flatten()])
     assert torch.quantile(d, 0.999).item() <= 1e-4 and d.max().item() <= 1.2e-2
+
+
+# ---- the SH radiance pass: csrc/sh_radiance.cu's forward and backward ----
+#
+# Forward kernel against the plain version on the card (sh_radiance_ref):
+# within 2e-6 abs. The kernel sums the up to 15 products per channel in
+# ascending order and takes the norm as sqrt(x*x + y*y + z*z); the plain
+# version's reduction over m and torch.linalg.norm may order their sums
+# otherwise, so a channel (|rgb| below 5 here) may differ in its last few
+# f32 bits. Backward kernel against autograd through the plain version on
+# the card: d_sh and d_color within 1e-6 of their largest entry (one f16
+# ulp, 1e-3, for an f16 d_sh), d_means within 1e-5 of its largest (the
+# closed form (g - u (u . g)) / n cancels in another order than autograd's
+# chain through the norm); against the closed-form twin sh_radiance_bwd_ref
+# on the card, which repeats the kernel's arithmetic, within 1e-6 of each
+# largest entry.
+
+from vk_gaussian_splatting_tpu_torch.ops import sh as tsh  # noqa: E402
+from vk_gaussian_splatting_tpu_torch.ops.projection import splat_rgb  # noqa: E402
+
+SH_ATOL = 2e-6
+SH_FORMATS = {"f32": torch.float32, "f16": torch.float16, "u8": torch.uint8}
+
+
+def sh_case(device, stored, fmt, n, seed=0, grad=False):
+    """(sh, means, color, position) with base colours in [-0.3, 1] and SH of
+    spread 0.3, so that some rgb clamp at 0; float leaves require grad if
+    ``grad``."""
+    g = torch.Generator().manual_seed(seed)
+    coeffs = torch.randn((n, {1: 3, 2: 8, 3: 15}[stored], 3), generator=g) * 0.3
+    sh = (torch.round((coeffs.clamp(-1.0, 1.0) + 1.0) * 127.5).to(torch.uint8) if fmt == "u8"
+          else coeffs.to(SH_FORMATS[fmt]))
+    means = torch.rand((n, 3), generator=g) * 6.0 - 3.0
+    color = torch.rand((n, 4), generator=g) * 1.3 - 0.3
+    out = [t.to(device) for t in (sh, means, color, torch.tensor([0.3, -0.2, -6.0]))]
+    if grad:
+        for t in out[:3]:
+            if t.is_floating_point():
+                t.requires_grad_()
+    return out
+
+
+def assert_sh_fwd_matches(sh, means, color, pos, degree, show):
+    before = tsh.sh_radiance.launches
+    got = tsh.sh_radiance(sh, means, color, pos, degree, show)
+    want = tsh.sh_radiance_ref(sh, means, color, pos, degree, show)
+    torch.cuda.synchronize()
+    assert tsh.sh_radiance.launches == before + (means.shape[0] > 0)
+    assert got.shape == want.shape and got.dtype == torch.float32
+    if got.numel():
+        err = (got - want).abs().max().item()
+        assert err <= SH_ATOL, err
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("show", [False, True])
+@pytest.mark.parametrize("fmt", ["f32", "f16", "u8"])
+@pytest.mark.parametrize("degree", [1, 2, 3])
+def test_sh_kernel_matches_plain(cuda, degree, fmt, show):
+    """1000 splats: seven full tiles of 128 and a ragged one."""
+    got = assert_sh_fwd_matches(*sh_case(cuda, degree, fmt, 1000), degree, show)
+    assert (got > 0).any() and (show or (got == 0).any())  # the clamp bites
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stored, requested", [(1, 3), (2, 3), (3, 2), (3, 1)])
+@pytest.mark.parametrize("fmt", ["f32", "f16", "u8"])
+def test_sh_kernel_degree_above_and_below_the_stored(cuda, stored, requested, fmt):
+    assert_sh_fwd_matches(*sh_case(cuda, stored, fmt, 777), requested, False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [0, 1, 128, 129, 4096])
+def test_sh_kernel_at_edge_sizes(cuda, n):
+    assert_sh_fwd_matches(*sh_case(cuda, 3, "f32", n), 3, False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stored_m, degree", [(1, 3), (2, 3), (15, 0)])
+@pytest.mark.parametrize("show", [False, True])
+def test_sh_radiance_with_no_band_launches_nothing(cuda, stored_m, degree, show):
+    """Where the stored SH holds no whole band (1 or 2 coefficients) or the
+    degree is 0, no SH term is evaluated: no launch, and the plain
+    version's clamped base colour (0.5 under show_sh_only), its gradient
+    to the colour too."""
+    g = torch.Generator().manual_seed(2)
+    sh = (torch.randn((500, stored_m, 3), generator=g) * 0.3).to(cuda)
+    means = (torch.rand((500, 3), generator=g) * 6.0 - 3.0).to(cuda)
+    color = (torch.rand((500, 4), generator=g) * 1.3 - 0.3).to(cuda).requires_grad_()
+    pos = torch.tensor([0.3, -0.2, -6.0], device=cuda)
+    before = (tsh.sh_radiance.launches, tsh.sh_radiance_bwd.launches)
+    got = tsh.sh_radiance(sh, means, color, pos, degree, show)
+    want = tsh.sh_radiance_ref(sh, means, color, pos, degree, show)
+    assert torch.equal(got, want) and (show or (got == 0).any())
+    if not show:
+        cot = torch.linspace(-1.0, 1.0, 1500, device=cuda).reshape(500, 3)
+        (a,) = torch.autograd.grad(got, color, cot)
+        (b,) = torch.autograd.grad(want, color, cot)
+        assert torch.equal(a, b)
+    torch.cuda.synchronize()
+    assert (tsh.sh_radiance.launches, tsh.sh_radiance_bwd.launches) == before
+
+
+def sh_grads(inputs, degree, show, fn, g):
+    sh, means, color, pos = inputs
+    rgb = fn(sh, means, color, pos, degree, show)
+    wanted = [t for t in (sh, means, color) if t.requires_grad]
+    got = dict(zip(map(id, wanted), torch.autograd.grad(rgb, wanted, g, allow_unused=True)))
+    return rgb, [got.get(id(t)) for t in (sh, means, color)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stored, requested, fmt, show", [
+    (3, 3, "f32", False), (3, 3, "f16", False), (2, 2, "f32", True), (1, 1, "f16", False),
+    (3, 2, "f32", False), (2, 3, "f16", False), (3, 3, "u8", False)])
+def test_sh_bwd_kernel_matches_autograd_through_plain(cuda, stored, requested, fmt, show):
+    inputs = sh_case(cuda, stored, fmt, 1000, grad=True)
+    g = torch.randn((1000, 3), generator=torch.Generator(device=cuda).manual_seed(1),
+                    device=cuda)
+    before = tsh.sh_radiance_bwd.launches
+    rgb, kernel = sh_grads(inputs, requested, show, tsh.sh_radiance, g)
+    _, plain = sh_grads(inputs, requested, show, tsh.sh_radiance_ref, g)
+    twin = tsh.sh_radiance_bwd_ref(*[t.detach() for t in inputs], requested, show, g)
+    torch.cuda.synchronize()
+    assert tsh.sh_radiance_bwd.launches == before + 1
+    assert (rgb == 0).any()  # the clamp's mask matters
+    if show:
+        plain[2] = None  # the base colour takes no part
+    for name, k, p, t in zip(("d_sh", "d_means", "d_color"), kernel, plain, twin):
+        assert (k is None) == (p is None) == (t is None), name
+        if k is None:
+            continue
+        assert k.dtype == p.dtype == t.dtype and k.shape == p.shape, name
+        k, p, t = k.float(), p.float(), t.float()
+        scale = p.abs().max().item()
+        rel = 1e-3 if fmt == "f16" and name == "d_sh" else 1e-5 if name == "d_means" else 1e-6
+        assert (k - p).abs().max().item() <= rel * scale, name
+        rel_twin = 1e-3 if fmt == "f16" and name == "d_sh" else 1e-6
+        assert (k - t).abs().max().item() <= rel_twin * scale, name
+        if name == "d_sh" and requested < stored:
+            assert (k[:, {1: 3, 2: 8}[requested]:] == 0).all()
+
+
+@pytest.mark.cuda
+def test_sh_kernels_repeat_bit_equal(cuda):
+    runs = []
+    for _ in range(2):
+        inputs = sh_case(cuda, 3, "f32", 3000, seed=5, grad=True)
+        g = torch.linspace(-1.0, 1.0, 9000, device=cuda).reshape(3000, 3)
+        rgb, grads = sh_grads(inputs, 3, False, tsh.sh_radiance, g)
+        runs.append([rgb.detach()] + grads)
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pipeline", ["MESH", "MESH_3DGUT"])
+@pytest.mark.parametrize("show", [False, True])
+def test_sh_kernel_through_both_projections(cuda, pipeline, show):
+    """project_splats (EWA) and ut_project_splats take their colour from
+    the forward kernel, one launch each, as the plain version gives it."""
+    cfg = gt.RenderConfig(width=128, height=96, sh_degree=3, show_sh_only=show,
+                          pipeline=getattr(gt.Pipeline, pipeline))
+    cam = gt.look_at([0.2, -0.3, -9.0], [0, 0, 0], [0, 1, 0], 128, 96, fov_y_rad=0.9,
+                     device=cuda)
+    prep = interop.splat_set_from_numpy(
+        interop.random_splat_arrays(3, 2000, sh_degree=3), cuda).prepare()
+    project = project_splats if pipeline == "MESH" else ut_project_splats
+    before = tsh.sh_radiance.launches
+    color = project(prep, cam, cfg).color
+    want = tsh.sh_radiance_ref(prep.sh, prep.means, prep.color, cam.position, 3, show)
+    torch.cuda.synchronize()
+    assert tsh.sh_radiance.launches == before + 1
+    assert (color - want).abs().max().item() <= SH_ATOL
+    assert torch.equal(splat_rgb(prep, cam, cfg), color)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pipeline", ["MESH", "MESH_3DGUT"])
+def test_sh_kernels_launch_once_a_frame_and_a_train_step(cuda, pipeline):
+    cfg = gt.RenderConfig(width=120, height=90, sh_degree=3,
+                          pipeline=getattr(gt.Pipeline, pipeline))
+    cam = gt.look_at([0.2, -0.3, -9.0], [0, 0, 0], [0, 1, 0], 120, 90, fov_y_rad=0.9,
+                     device=cuda)
+    s = splats_on(cuda, seed=1, n=1500, sh_degree=3)
+    fwd, bwd = tsh.sh_radiance.launches, tsh.sh_radiance_bwd.launches
+    with torch.no_grad():
+        render(s.prepare(), cam, cfg)
+    torch.cuda.synchronize()
+    assert (tsh.sh_radiance.launches, tsh.sh_radiance_bwd.launches) == (fwd + 1, bwd)
+    tcfg = gt.TrainConfig(scene_extent=3.0)
+    opt = gt.make_optimizer(s, tcfg)
+    loss, _ = gt.train_step(s, opt, cam, torch.full((90, 120, 3), 0.5, device=cuda), cfg, 0,
+                            tcfg)
+    torch.cuda.synchronize()
+    assert (tsh.sh_radiance.launches, tsh.sh_radiance_bwd.launches) == (fwd + 2, bwd + 1)
+    assert bool(torch.isfinite(loss))
+    assert s.sh_rest.grad.abs().max().item() > 0 and bool(torch.isfinite(s.sh_rest.grad).all())

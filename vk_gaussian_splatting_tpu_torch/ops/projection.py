@@ -29,14 +29,14 @@ import torch
 
 from vk_gaussian_splatting_tpu_torch import timing
 from vk_gaussian_splatting_tpu_torch.config import CameraType, RenderConfig, ShutterType
-from vk_gaussian_splatting_tpu_torch.ops.sh import eval_sh_radiance
+from vk_gaussian_splatting_tpu_torch.ops.sh import sh_radiance
 from vk_gaussian_splatting_tpu_torch.scene.cameras import (
     Camera,
     shutter_time,
     shutter_transform_cols,
     view_transform_points,
 )
-from vk_gaussian_splatting_tpu_torch.scene.splat_set import PreparedSplats, dequantize_sh
+from vk_gaussian_splatting_tpu_torch.scene.splat_set import PreparedSplats
 
 
 @dataclasses.dataclass
@@ -179,19 +179,13 @@ def project_splats(prepared: PreparedSplats, cam: Camera,
 def splat_rgb(prepared: PreparedSplats, cam: Camera, cfg: RenderConfig) -> torch.Tensor:
     """(N,3) color = activated base + SH radiance along camera->splat dir
     (threedgs_raster.mesh.slang:238-243), for both projections, under the
-    child span project.sh."""
-    rgb = prepared.color[:, :3]
+    child span project.sh: ``ops/sh.sh_radiance`` (on the card the kernel
+    pair of csrc/sh_radiance.cu)."""
     if cfg.sh_degree >= 1 and prepared.sh.shape[1] > 0:
         with timing.span("project.sh"):
-            dirs = prepared.means - cam.position
-            dirs = dirs / torch.linalg.norm(dirs, dim=-1, keepdim=True).clamp_min(1e-12)
-            sh_rad = eval_sh_radiance(dequantize_sh(prepared.sh), dirs, cfg.sh_degree)
-            if cfg.show_sh_only:
-                rgb = torch.full_like(rgb, 0.5) + sh_rad
-            else:
-                rgb = rgb + sh_rad
-            rgb = torch.clamp(rgb, min=0.0)
-    return rgb
+            return sh_radiance(prepared.sh, prepared.means, prepared.color, cam.position,
+                               cfg.sh_degree, cfg.show_sh_only)
+    return prepared.color[:, :3]
 
 
 # ---------------------------------------------------------------------------

@@ -40,8 +40,8 @@ import torch
 from vk_gaussian_splatting_tpu_torch import timing
 from vk_gaussian_splatting_tpu_torch.config import RenderConfig
 from vk_gaussian_splatting_tpu_torch.ops.response import deg0_min_response, kernel_response
-from vk_gaussian_splatting_tpu_torch.ops.sh import eval_sh_radiance
-from vk_gaussian_splatting_tpu_torch.scene.splat_set import PreparedSplats, dequantize_sh
+from vk_gaussian_splatting_tpu_torch.ops.sh import sh_radiance
+from vk_gaussian_splatting_tpu_torch.scene.splat_set import PreparedSplats
 
 KERNEL_MIN_RESPONSE = 0.0113  # particleProcessHit cull (threedgrt.h.slang:160)
 ANYHIT_STREAM = 0xA247        # the JAX keys of the two estimators' draws
@@ -55,13 +55,10 @@ def splat_view_colors(prepared: PreparedSplats, origin: torch.Tensor, cfg: Rende
     """(colour (N,3), opacity (N,)) as seen from ``origin``: the SH radiance
     of particleProcessHit (threedgrt.h.slang:196-214) with the per-ray
     direction taken as origin -> splat (exact at the splat centre, where
-    the kernel peaks)."""
+    the kernel peaks), by ``ops/sh.sh_radiance`` as the projections take it."""
     rgb = prepared.color[:, :3]
     if cfg.sh_degree >= 1 and prepared.sh.shape[1] > 0:
-        dirs = prepared.means - origin
-        dirs = dirs / torch.clamp(torch.linalg.norm(dirs, dim=-1, keepdim=True), min=1e-12)
-        rgb = rgb + eval_sh_radiance(dequantize_sh(prepared.sh), dirs, cfg.sh_degree)
-        rgb = torch.clamp(rgb, min=0.0)
+        rgb = sh_radiance(prepared.sh, prepared.means, prepared.color, origin, cfg.sh_degree)
     return rgb, prepared.color[:, 3] * cfg.opacity_gain
 
 
