@@ -151,7 +151,8 @@ def _material_fields(material, set_index_img, device):
     DeferredMaterial, or per-pixel gathers from a tuple of them by
     ``set_index_img``."""
     def f32(v):
-        return torch.as_tensor(v, dtype=torch.float32, device=device)
+        # copied behind the stream's work: the shade does not wait for the card
+        return torch.as_tensor(v, dtype=torch.float32).to(device, non_blocking=True)
 
     if isinstance(material, DeferredMaterial):
         return (f32(material.diffuse), f32(material.ambient), f32(material.specular),

@@ -103,6 +103,11 @@ class RenderOutput:
     splat_id: torch.Tensor       # (H, W) i32 picked splat id (-1 = none)
     num_pairs: torch.Tensor      # () live pairs (bucket path: live slots)
     overflow: torch.Tensor       # () bool — slot/pair budget or bucket cap truncated coverage
+    # the hybrid frame's deep shadow maps (None on frames with none): the
+    # live pairs of every map face, summed, and the maps, one per light
+    # (render/shadows.DeepShadowMap or CubeShadowMap) in the lights' order
+    shadow_pairs: torch.Tensor | None = None
+    shadow_maps: tuple | None = None
 
 
 def gs_attr_rows(proj: ProjectedSplats):
@@ -536,11 +541,13 @@ def _set_index_for(material, splat_id, instance_base):
 
 
 def _lit_frame(prepared, cam, cfg, max_pairs, lights, material, instance_base, use_gut,
-               shadow_res=None):
+               shadow_res=None, shadow_max_pairs=None):
     """The lit frames' common body: the primary pass (f32 gs2d or gut3d rows,
     pairs, seed 0, over the background), the normal buffer, then with a
-    ``shadow_res`` the lights' shadow maps, then the shade. Returns
-    (RenderOutput, shaded, normal image)."""
+    ``shadow_res`` the lights' shadow maps (each in a pair budget of
+    ``shadow_max_pairs``), then the shade. Returns (RenderOutput, shaded,
+    normal image); the RenderOutput's ``overflow`` is the primary's or any
+    map's, and its ``shadow_pairs`` and ``shadow_maps`` are the maps'."""
     from vk_gaussian_splatting_tpu_torch.render.deferred import (
         DeferredMaterial,
         deferred_shade,
@@ -577,13 +584,19 @@ def _lit_frame(prepared, cam, cfg, max_pairs, lights, material, instance_base, u
             make_shadow_fn,
         )
         shadow_fn = (make_ray_shadow_fn(prepared, cfg) if cfg.rt.shadows == "ray"
-                     else make_shadow_fn(prepared, tuple(lights), cfg, shadow_res))
+                     else make_shadow_fn(prepared, tuple(lights), cfg, shadow_res,
+                                         shadow_max_pairs))
     with timing.span("shade"):
         shaded = deferred_shade(img, trans, normal_img, depth, cam, cfg, list(lights), material,
                                 shadow_fn=shadow_fn,
                                 set_index_img=_set_index_for(material, splat_id, instance_base))
-    return (RenderOutput(image=img, transmittance=trans, depth=depth, splat_id=splat_id,
-                         num_pairs=bins.num_pairs, overflow=bins.overflow), shaded, normal_img)
+    frame = RenderOutput(image=img, transmittance=trans, depth=depth, splat_id=splat_id,
+                         num_pairs=bins.num_pairs, overflow=bins.overflow)
+    if shadow_fn is not None and cfg.rt.shadows != "ray":
+        frame = dataclasses.replace(frame, overflow=frame.overflow | shadow_fn.overflow,
+                                    shadow_pairs=shadow_fn.num_pairs,
+                                    shadow_maps=tuple(shadow_fn.maps.values()))
+    return frame, shaded, normal_img
 
 
 def render_3dgs_lit(prepared: PreparedSplats, cam: Camera, cfg: RenderConfig,
@@ -609,7 +622,7 @@ def render_3dgs_lit(prepared: PreparedSplats, cam: Camera, cfg: RenderConfig,
 
 def render_hybrid(prepared: PreparedSplats, cam: Camera, cfg: RenderConfig,
                   max_pairs: int = 0, lights=(), material=None, instance_base=(),
-                  shadow_res: int = 512):
+                  shadow_res: int = 512, shadow_max_pairs: int | None = None):
     """The hybrid pipelines (PIPELINE_HYBRID, PIPELINE_HYBRID_3DGUT; the JAX
     ``render_hybrid``): raster primary visibility, by the 3DGS pass or, on
     HYBRID_3DGUT, the 3DGUT pass (UT projection, rays of sample 0, f32
@@ -622,10 +635,17 @@ def render_hybrid(prepared: PreparedSplats, cam: Camera, cfg: RenderConfig,
     light through the splats (``make_ray_shadow_fn``). With no light it
     shades by the headlight, unshadowed. Stage spans as
     ``render_3dgs_lit``, with rays (3DGUT) and a shadow_map span per light
-    before shade (ray shadows: a trace span per light within shade).
-    Returns (RenderOutput, shaded, normals)."""
+    before shade, holding each map's shadow_map.project, shadow_map.bin and
+    shadow_map.blend (ray shadows: a trace span per light within shade).
+
+    max_pairs: the primary's pair budget (the normal buffer's too);
+    shadow_max_pairs: every map's (None: max(4 N, 2^18)). With maps the
+    RenderOutput's ``overflow`` fires if the primary or any map
+    overflowed, ``shadow_pairs`` holds the maps' live pairs, summed, and
+    ``shadow_maps`` the maps. Returns (RenderOutput, shaded, normals)."""
     return _lit_frame(prepared, cam, cfg, max_pairs, lights, material, instance_base,
-                      use_gut=cfg.pipeline == Pipeline.HYBRID_3DGUT, shadow_res=shadow_res)
+                      use_gut=cfg.pipeline == Pipeline.HYBRID_3DGUT, shadow_res=shadow_res,
+                      shadow_max_pairs=shadow_max_pairs)
 
 
 def render_3dgrt_exact(prepared: PreparedSplats, cam: Camera, cfg: RenderConfig,
@@ -670,7 +690,8 @@ def render(prepared: PreparedSplats, cam: Camera, cfg: RenderConfig,
     """Pipeline dispatch (shaderio.h:61-66 pipeline ids): VERT and MESH to
     ``render_3dgs``, MESH_3DGUT to ``render_3dgut``, RTX to ``render_3dgrt``,
     HYBRID and HYBRID_3DGUT to ``render_hybrid``, whose RenderOutput it
-    returns (``kw``: its lights, material, instance_base, shadow_res)."""
+    returns (``kw``: its lights, material, instance_base, shadow_res,
+    shadow_max_pairs)."""
     if cfg.pipeline in (Pipeline.HYBRID, Pipeline.HYBRID_3DGUT):
         return render_hybrid(prepared, cam, cfg, max_pairs, **kw)[0]
     if cfg.pipeline == Pipeline.MESH_3DGUT:

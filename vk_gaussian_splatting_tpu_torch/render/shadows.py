@@ -16,9 +16,17 @@ off its level.
   radiance (its rows 0-2).
 - Enclosed point lights: a point light inside the scene's bounding sphere
   gets a six-face cube map (``render_cube_shadow_map``) in place of the
-  fitted cone; ``make_shadow_fn`` chooses, reading the light's distance on
-  the host (one synchronisation per light, as the JAX package does outside
-  jit).
+  fitted cone; ``make_shadow_fn`` chooses, reading every light's type and
+  distance on the host at once (one synchronisation per frame, where the
+  JAX package reads each light's outside jit). The maps' cameras are made
+  without waiting for the device (``_const``), so the host stays ahead of
+  the card through the maps.
+- Budgets and counters: every map bins into one pair budget
+  (``max_pairs``, by default ``max(4 N, 2^18)``) and keeps its live pairs
+  and its ``overflow`` (``DeepShadowMap.num_pairs``, ``.overflow``);
+  ``ShadowMaps`` sums and ors them over a frame's maps. Each map opens the
+  child spans ``shadow_map.project``, ``shadow_map.bin`` and
+  ``shadow_map.blend``.
 
 Every map bins pairs, blends deterministic gs2d rows at the RasterStatics
 defaults (alpha_min, alpha_clamp, qmax, min_transmittance: not the
@@ -86,15 +94,24 @@ def _matvec(r: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return r[:, 0] * v[0] + r[:, 1] * v[1] + r[:, 2] * v[2]
 
 
+def _const(values, dev) -> torch.Tensor:
+    """float32 ``values`` on ``dev``, copied behind the stream's work: a
+    copy from pageable host memory is staged at once and does not wait for
+    the device, as a blocking copy would."""
+    return torch.tensor(values, dtype=torch.float32).to(dev, non_blocking=True)
+
+
 def _light_view(r: torch.Tensor, pos: torch.Tensor, f, res: int, near, far) -> Camera:
     """A pinhole camera of rotation rows ``r`` at ``pos``, focal ``f``, centred
     on a res x res map (the JAX ``make_camera``'s other defaults)."""
     dev = r.device
     top = torch.cat([r, (-_matvec(r, pos))[:, None]], dim=1)
-    viewmat = torch.cat([top, torch.tensor([[0.0, 0.0, 0.0, 1.0]], device=dev)], dim=0)
+    viewmat = torch.cat([top, _const([[0.0, 0.0, 0.0, 1.0]], dev)], dim=0)
 
     def f32(v):
-        return torch.as_tensor(v, dtype=torch.float32, device=dev)
+        if isinstance(v, torch.Tensor):
+            return v.to(torch.float32)
+        return torch.full((), v, dtype=torch.float32, device=dev)
 
     return Camera(viewmat=viewmat, fx=f32(f), fy=f32(f), cx=f32(res * 0.5), cy=f32(res * 0.5),
                   near=f32(near), far=f32(far), focus_dist=f32(1.0), aperture=f32(0.0),
@@ -113,8 +130,8 @@ def light_camera(light: LightSource, center, radius, res: int) -> Camera:
     dist = torch.clamp(torch.linalg.norm(fwd), min=1e-6)
     fwd = fwd / dist
     dev = fwd.device
-    upw = torch.where(torch.abs(fwd[1]) > 0.95, torch.tensor([1.0, 0.0, 0.0], device=dev),
-                      torch.tensor([0.0, 1.0, 0.0], device=dev))
+    upw = torch.where(torch.abs(fwd[1]) > 0.95, _const([1.0, 0.0, 0.0], dev),
+                      _const([0.0, 1.0, 0.0], dev))
     right = torch.linalg.cross(fwd, upw)
     right = right / torch.clamp(torch.linalg.norm(right), min=1e-9)
     down = torch.linalg.cross(fwd, right)
@@ -133,12 +150,15 @@ class DeepShadowMap:
     cam: Camera
     breakpoints: torch.Tensor         # (res, res, 4) depth at T crossing ISO_LEVELS (0 = none)
     tint: torch.Tensor | None = None  # (res, res, 3) normalised radiance (the coloured tint)
+    num_pairs: torch.Tensor | None = None  # () live pairs of the map's bins
+    overflow: torch.Tensor | None = None   # () bool: the pair budget truncated the map
 
 
 def shadow_map_bins(prepared: PreparedSplats, cam: Camera, light_cfg: RenderConfig,
                     max_pairs: int):
     """(TileBins, statics) of one map: the EWA projection from ``cam`` at
-    ``light_cfg``'s size, gs2d rows binned as pairs; the statics
+    ``light_cfg``'s size (span ``shadow_map.project``), gs2d rows binned as
+    pairs (``shadow_map.bin``); the statics
     (shadows.py:145-148) gs2d, multi-iso at ISO_LEVELS, the config's chunk
     and the RasterStatics defaults for the rest, never stochastic."""
     from vk_gaussian_splatting_tpu_torch.render.pipelines import (
@@ -150,17 +170,19 @@ def shadow_map_bins(prepared: PreparedSplats, cam: Camera, light_cfg: RenderConf
     st = RasterStatics(tiles_x=tiles_x(light_cfg), tiles_y=tiles_y(light_cfg),
                        chunk=light_cfg.raster.chunk, model="gs2d", multi_iso=True,
                        iso_thresholds=ISO_LEVELS)
-    proj = project_splats(prepared, cam, light_cfg)
-    rows, ids = gs_attr_rows(proj)
-    return bin_for_cfg(proj, rows, ids, pairs_cfg(light_cfg), max_pairs, st), st
+    with timing.span("shadow_map.project"):
+        proj = project_splats(prepared, cam, light_cfg)
+    with timing.span("shadow_map.bin"):
+        rows, ids = gs_attr_rows(proj)
+        return bin_for_cfg(proj, rows, ids, pairs_cfg(light_cfg), max_pairs, st), st
 
 
 def render_deep_shadow_map(prepared: PreparedSplats, light: LightSource, cfg: RenderConfig,
                            res: int = 512, max_pairs: int | None = None) -> DeepShadowMap:
     """The light's cone map over the scene's bounding sphere, res x res."""
     center, radius = scene_bounds(prepared)
-    cam = light_camera(light, center, radius, res)
-    return _render_dsm_for_camera(prepared, cam, cfg, res, max_pairs)
+    return _render_dsm_for_camera(prepared, light_camera(light, center, radius, res), cfg, res,
+                                  max_pairs)
 
 
 def _render_dsm_for_camera(prepared: PreparedSplats, cam: Camera, cfg: RenderConfig, res: int,
@@ -169,7 +191,8 @@ def _render_dsm_for_camera(prepared: PreparedSplats, cam: Camera, cfg: RenderCon
     if max_pairs is None:
         max_pairs = max(4 * prepared.means.shape[0], 1 << 18)
     bins, st = shadow_map_bins(prepared, cam, light_cfg, max_pairs)
-    out, _ = rasterize_bins(bins, st)
+    with timing.span("shadow_map.blend"):
+        out, _ = rasterize_bins(bins, st)
     # every tile is written (an empty one as rgb 0, T 1, depths 0)
     ty, tx = st.tiles_y, st.tiles_x
     full = out.reshape(ty, tx, ISO_OUT_ROWS, TILE, TILE).permute(0, 3, 1, 4, 2)
@@ -179,7 +202,8 @@ def _render_dsm_for_camera(prepared: PreparedSplats, cam: Camera, cfg: RenderCon
     rad = full[..., 0:3]
     max_rad = torch.amax(rad, dim=-1, keepdim=True)
     tint = torch.where(max_rad > 1e-3, rad / torch.clamp(max_rad, min=1e-3), 1.0)
-    return DeepShadowMap(cam=cam, breakpoints=full[..., 4:8], tint=tint)
+    return DeepShadowMap(cam=cam, breakpoints=full[..., 4:8], tint=tint,
+                         num_pairs=bins.num_pairs, overflow=bins.overflow)
 
 
 def _texels(world_pos: torch.Tensor, dsm: DeepShadowMap):
@@ -259,7 +283,10 @@ def render_cube_shadow_map(prepared: PreparedSplats, light: LightSource, cfg: Re
     """Six deep-shadow-map faces from the light's position, each a little
     wider than 90 degrees (tan(fov/2) = 1.05) so the seams stay covered:
     the enclosed point light a single cone cannot cover."""
-    _center, radius = scene_bounds(prepared)
+    return _cube_map(prepared, light, cfg, res, max_pairs, scene_bounds(prepared)[1])
+
+
+def _cube_map(prepared, light, cfg, res, max_pairs, radius) -> CubeShadowMap:
     return CubeShadowMap(faces=[_render_dsm_for_camera(prepared, cam, cfg, res, max_pairs)
                                 for cam in cube_cameras(light, radius, res)])
 
@@ -268,8 +295,8 @@ def cube_cameras(light: LightSource, radius, res: int) -> list[Camera]:
     """The six face cameras of a cube map at the light's position (+x, -x,
     +y, -y, +z, -z), tan(fov/2) = 1.05, depth range [1e-3, 4 radius]."""
     f = 0.5 * res / 1.05
-    return [_light_view(torch.tensor(axes, dtype=torch.float32, device=light.position.device),
-                        light.position, f, res, 1e-3, 4.0 * radius) for axes in _CUBE_AXES]
+    return [_light_view(_const(axes, light.position.device), light.position, f, res, 1e-3,
+                        4.0 * radius) for axes in _CUBE_AXES]
 
 
 def sample_shadow_cube(world_pos: torch.Tensor, csm: CubeShadowMap,
@@ -284,39 +311,66 @@ def sample_shadow_cube(world_pos: torch.Tensor, csm: CubeShadowMap,
     return t
 
 
-def make_shadow_fn(prepared: PreparedSplats, lights, cfg: RenderConfig, res: int = 512):
-    """``deferred_shade``'s shadow_fn: one deep shadow map per light, each
-    rendered here under a ``shadow_map`` profiler span.
+@dataclasses.dataclass
+class ShadowMaps:
+    """``deferred_shade``'s shadow_fn over one map per light
+    (``make_shadow_fn``): called as ``shadow_fn(world_pos, light)`` with the
+    light objects it was made with (maps are keyed by ``id(light)``)."""
 
-    A POINT light inside the scene's bounding sphere gets a six-face cube
-    map of min(res, 256) (the choice reads the light's distance on the
-    host); the others the fitted cone of res. With
-    ``rt.shadow_color_strength`` or ``rt.shadow_transmittance_threshold``
-    above 0, a cone map answers (..., 3) coloured transmittance
-    (``shadow_tint``). Maps are keyed by ``id(light)``: call the result
-    with the same light objects."""
-    center, radius = scene_bounds(prepared)
-    maps = {}
-    for light in lights:
-        with timing.span("shadow_map"):
-            enclosed = (int(light.type) == int(LightType.POINT) and float(
-                torch.linalg.norm(light.position - center)) < float(radius))
-            if enclosed:
-                maps[id(light)] = render_cube_shadow_map(prepared, light, cfg, min(res, 256))
-            else:
-                maps[id(light)] = render_deep_shadow_map(prepared, light, cfg, res)
-    strength = cfg.rt.shadow_color_strength
-    threshold = cfg.rt.shadow_transmittance_threshold
+    maps: dict        # id(light) -> DeepShadowMap or CubeShadowMap, in the lights' order
+    strength: float   # rt.shadow_color_strength
+    threshold: float  # rt.shadow_transmittance_threshold
 
-    def shadow_fn(world_pos, light):
-        m = maps[id(light)]
+    def faces(self) -> list:
+        """Every map face in the lights' order: a cone map, a cube's six."""
+        return [f for m in self.maps.values()
+                for f in (m.faces if isinstance(m, CubeShadowMap) else [m])]
+
+    @property
+    def num_pairs(self) -> torch.Tensor:
+        """() the live pairs of every face, summed."""
+        return torch.stack([f.num_pairs for f in self.faces()]).sum()
+
+    @property
+    def overflow(self) -> torch.Tensor:
+        """() bool: some face's pair budget truncated it."""
+        return torch.stack([f.overflow for f in self.faces()]).any()
+
+    def __call__(self, world_pos, light):
+        m = self.maps[id(light)]
         if isinstance(m, CubeShadowMap):
             return sample_shadow_cube(world_pos, m)
-        if strength > 0.0 or threshold > 0.0:
-            return sample_shadow_colored(world_pos, m, threshold, strength)
+        if self.strength > 0.0 or self.threshold > 0.0:
+            return sample_shadow_colored(world_pos, m, self.threshold, self.strength)
         return sample_shadow(world_pos, m)
 
-    return shadow_fn
+
+def make_shadow_fn(prepared: PreparedSplats, lights, cfg: RenderConfig, res: int = 512,
+                   max_pairs: int | None = None) -> ShadowMaps:
+    """``deferred_shade``'s shadow_fn: one deep shadow map per light, each
+    rendered here under a ``shadow_map`` profiler span, into a pair budget
+    of ``max_pairs`` (max(4 N, 2^18) if None) each.
+
+    A POINT light inside the scene's bounding sphere gets a six-face cube
+    map of min(res, 256) (the choice reads every light's type and distance
+    on the host in one read); the others the fitted cone of res. With
+    ``rt.shadow_color_strength`` or ``rt.shadow_transmittance_threshold``
+    above 0, a cone map answers (..., 3) coloured transmittance
+    (``shadow_tint``)."""
+    center, radius = scene_bounds(prepared)
+    enclosed = ((torch.stack([light.type for light in lights]) == int(LightType.POINT))
+                & (torch.stack([torch.linalg.norm(light.position - center) for light in lights])
+                   < radius)).tolist() if lights else []
+    maps = {}
+    for light, inside in zip(lights, enclosed):
+        with timing.span("shadow_map"):
+            if inside:
+                maps[id(light)] = _cube_map(prepared, light, cfg, min(res, 256), max_pairs,
+                                            radius)
+            else:
+                maps[id(light)] = _render_dsm_for_camera(
+                    prepared, light_camera(light, center, radius, res), cfg, res, max_pairs)
+    return ShadowMaps(maps, cfg.rt.shadow_color_strength, cfg.rt.shadow_transmittance_threshold)
 
 
 def make_ray_shadow_fn(prepared: PreparedSplats, cfg: RenderConfig, shadow_offset: float = 0.05,
