@@ -7,6 +7,7 @@
     python3 chip_smoke.py --instances           # phase 16 alone (no report)
     python3 chip_smoke.py --tools               # phase 17 alone (no report)
     python3 chip_smoke.py --sh-radiance         # phase 18 alone (no report)
+    python3 chip_smoke.py --ewa-project         # phase 19 alone (no report)
 
 Drives the port's main paths — the 3DGS raster frame, ``render(prepared,
 camera, cfg)``, and the training step, ``train_step`` (render, loss,
@@ -340,7 +341,15 @@ them:
    closed-form ``sh_radiance_bwd_ref`` (each gradient within 1e-5 of its
    largest entry); each kernel alone (profiler) and with events around its
    wrapper beside its byte bound and the plain versions' times (the
-   pair's report entries take their launches from phases 3 and 4).
+   pair's report entries take their launches from phases 3 and 4);
+19. the EWA projection (``ewa_project_phase``; ``--ewa-project`` runs it
+   alone after the builds): csrc/ewa_project.cu's forward and backward at
+   6,130,000 and 15,300,000 splats (the two 3DGS cells' counts) at 1080p,
+   the forward against the plain ``project_splats_ref`` on the card, the
+   backward against autograd through it and against the closed-form
+   ``project_splats_bwd_ref``, at tests/test_torch_cuda.py's gates; each
+   kernel alone (profiler) and with events beside its byte bound and the
+   plain versions' times (launches from phases 3 and 4, as phase 18's).
 
 Without a CUDA device it raises and prints no result. The last line is
 ``{"ok": true, "device": {...}}``; the line before it holds the kernel
@@ -394,6 +403,7 @@ from vk_gaussian_splatting_tpu_torch.ops import _build  # noqa: E402
 from vk_gaussian_splatting_tpu_torch.ops import metrics  # noqa: E402
 from vk_gaussian_splatting_tpu_torch.ops import raster_bucket as rb  # noqa: E402
 from vk_gaussian_splatting_tpu_torch.ops import rasterize as tr  # noqa: E402
+from vk_gaussian_splatting_tpu_torch.ops import projection as tproj  # noqa: E402
 from vk_gaussian_splatting_tpu_torch.ops import sh as tsh  # noqa: E402
 from vk_gaussian_splatting_tpu_torch.ops import raytrace as rt  # noqa: E402
 from vk_gaussian_splatting_tpu_torch.ops.compare import CompareMode, ImageCompare  # noqa: E402
@@ -495,6 +505,8 @@ _SOURCES = {  # library: (source, the TPU kernel it replaces)
                        "scripts/bench_radix_ab.py:89"),
     "sh_radiance": ("vk_gaussian_splatting_tpu_torch/csrc/sh_radiance.cu",
                     "none: the JAX package's ops/sh.py is jnp"),
+    "ewa_project": ("vk_gaussian_splatting_tpu_torch/csrc/ewa_project.cu",
+                    "none: the JAX package's ops/projection.py is jnp"),
 }
 
 
@@ -544,6 +556,8 @@ KERNELS.update({stage_name(v): ("bench_sort_stage", *_SOURCES["bench_sort_stage"
 KERNELS.update({"bench_radix_ab": ("bench_radix_ab", *_SOURCES["bench_radix_ab"])})
 KERNELS.update({name: ("sh_radiance", *_SOURCES["sh_radiance"])
                 for name in ("sh_radiance_fwd", "sh_radiance_bwd")})
+KERNELS.update({name: ("ewa_project", *_SOURCES["ewa_project"])
+                for name in ("ewa_project_fwd", "ewa_project_bwd")})
 WIDTH, HEIGHT, SPLATS = 1920, 1080, 1_000_000  # the headline cell
 FRAMES = 8
 TRAIN_STEPS = 5
@@ -1219,15 +1233,17 @@ def golden_gradients(dev):
     return abs_err
 
 
-def bench_scene(dev, n: int, seed: int) -> gt.SplatSet:
+def bench_scene(dev, n: int, seed: int, sh_degree: int = 3) -> gt.SplatSet:
     """The repository's headline scene: small / mid / large splats in a
-    96.9 / 2.5 / 0.6 % mix, SH degree 3, made on the card."""
+    96.9 / 2.5 / 0.6 % mix, SH degree 3 (or ``sh_degree``), made on the
+    card."""
     n_s, n_m = int(n * 0.969), int(n * 0.025)
     parts = []
     for i, (count, scales) in enumerate(((n_s, (-7.0, -5.0)), (n_m, (-5.0, -3.5)),
                                          (n - n_s - n_m, (-3.5, -2.0)))):
         g = torch.Generator(device=dev).manual_seed(seed * 3 + i)
-        parts.append(random_splats(g, count, sh_degree=3, extent=4.0, scale_range=scales))
+        parts.append(random_splats(g, count, sh_degree=sh_degree, extent=4.0,
+                                   scale_range=scales))
     fields = {f: torch.cat([getattr(p, f) for p in parts]) for f in
               ("means", "scales", "quats", "opacities", "sh_dc", "sh_rest")}
     return gt.SplatSet(**fields)
@@ -1252,14 +1268,18 @@ def full_size(dev, card: str, prepared, seed: int):
     # ---- the main path: FRAMES frames through render(), launches counted
     tr.rasterize_tiles.launches = 0
     tsh.sh_radiance.launches = tsh.sh_radiance_bwd.launches = 0
+    tproj.ewa_project.launches = tproj.ewa_project_bwd.launches = 0
     outs = [render(prepared, jitter(cam, i), cfg) for i in range(FRAMES)]
     torch.cuda.synchronize()
     launches = tr.rasterize_tiles.launches
     sh_launches = (tsh.sh_radiance.launches, tsh.sh_radiance_bwd.launches)
+    ewa_launches = (tproj.ewa_project.launches, tproj.ewa_project_bwd.launches)
     log(f"main path: {FRAMES} frames, rasterize_fwd launches={launches} "
-        f"sh_radiance_fwd launches={sh_launches[0]} sh_radiance_bwd launches={sh_launches[1]}")
+        f"sh_radiance_fwd launches={sh_launches[0]} sh_radiance_bwd launches={sh_launches[1]} "
+        f"ewa_project_fwd launches={ewa_launches[0]} ewa_project_bwd launches={ewa_launches[1]}")
     check(launches == FRAMES, f"{launches} kernel launches for {FRAMES} frames")
     check(sh_launches == (FRAMES, 0), f"{sh_launches} SH kernel launches for {FRAMES} frames")
+    check(ewa_launches == (FRAMES, 0), f"{ewa_launches} EWA kernel launches for {FRAMES} frames")
     for o in outs:
         check(tuple(o.image.shape) == (cfg.height, cfg.width, 3), "image shape")
         check(bool(torch.isfinite(o.image).all()), "non-finite image")
@@ -1326,7 +1346,8 @@ def full_size(dev, card: str, prepared, seed: int):
     profile_calls("slots", lambda: render(prepared, cam, cfg), card)
     profile_calls("exact", lambda: render(prepared, cam, exact_cfg, max_pairs=1 << 22), card)
     return dict(launches=launches, max_abs_err=err, ms=t["blend"], plain_ms=t_plain,
-                kept_share=kept / (tr.WARPS * work[2])), bounds, sh_launches[0]
+                kept_share=kept / (tr.WARPS * work[2])), bounds, \
+        {"sh_radiance_fwd": sh_launches[0], "ewa_project_fwd": ewa_launches[0]}
 
 
 def grads_of(splats):
@@ -1361,20 +1382,25 @@ def train_full_size(dev, card: str, truth: gt.SplatSet, seed: int):
     # ---- the training path: TRAIN_STEPS steps, the four kernels' launches counted
     tr.rasterize_tiles.launches = tr.rasterize_tiles_bwd.launches = 0
     tsh.sh_radiance.launches = tsh.sh_radiance_bwd.launches = 0
+    tproj.ewa_project.launches = tproj.ewa_project_bwd.launches = 0
     steps = [gt.train_step(splats, opt, cam, target, cfg, 0, tc) for _ in range(TRAIN_STEPS)]
     torch.cuda.synchronize()
     launches = (tr.rasterize_tiles.launches, tr.rasterize_tiles_bwd.launches)
     sh_launches = (tsh.sh_radiance.launches, tsh.sh_radiance_bwd.launches)
+    ewa_launches = (tproj.ewa_project.launches, tproj.ewa_project_bwd.launches)
     losses = [loss.item() for loss, _ in steps]
     log(f"training path: {TRAIN_STEPS} steps, rasterize_fwd launches={launches[0]} "
         f"rasterize_bwd launches={launches[1]} sh_radiance_fwd launches={sh_launches[0]} "
-        f"sh_radiance_bwd launches={sh_launches[1]}")
+        f"sh_radiance_bwd launches={sh_launches[1]} ewa_project_fwd launches={ewa_launches[0]} "
+        f"ewa_project_bwd launches={ewa_launches[1]}")
     log(f"train losses: {' '.join(f'{x:.6f}' for x in losses)} overflow="
         f"{[bool(o) for _, o in steps]} (slots truncates wide splats by design)")
     check(launches == (TRAIN_STEPS, TRAIN_STEPS),
           f"{launches} kernel launches for {TRAIN_STEPS} train steps")
     check(sh_launches == (TRAIN_STEPS, TRAIN_STEPS),
           f"{sh_launches} SH kernel launches for {TRAIN_STEPS} train steps")
+    check(ewa_launches == (TRAIN_STEPS, TRAIN_STEPS),
+          f"{ewa_launches} EWA kernel launches for {TRAIN_STEPS} train steps")
     check(all(math.isfinite(x) for x in losses), "non-finite training loss")
     check(losses[-1] < losses[0], f"the loss did not fall: {losses}")
     check(all(bool(torch.isfinite(x).all()) for x in grads_of(splats)),
@@ -1449,7 +1475,8 @@ def train_full_size(dev, card: str, truth: gt.SplatSet, seed: int):
     profile_calls("train_step", lambda: gt.train_step(splats, opt, cam, target, cfg, 0, tc),
                   card)
     return dict(launches=launches[1], max_abs_err=abs_err, ms=t_k2, plain_ms=t_twin,
-                kept_share=kept / work[2]), bound, sh_launches[1]
+                kept_share=kept / work[2]), bound, \
+        {"sh_radiance_bwd": sh_launches[1], "ewa_project_bwd": ewa_launches[1]}
 
 
 # ---- the bucket path (RasterConfig.method="bucket"): K3 and K4 ----------
@@ -6399,6 +6426,127 @@ def sh_radiance_phase(dev, card: str):
     return entries, bounds
 
 
+# The EWA projection (phase 19): the splat counts of the two 3DGS cells'
+# scenes; a splat's bytes, each read or written once (csrc/ewa_project.cu's
+# note)
+EWA_SPLATS = (6_130_000, 15_300_000)
+EWA_FWD_BYTES = 12 + 24 + 16 + 8 + 12 + 4 + 8 + 4 + 1  # mean, cov, colour; xy .. valid
+EWA_BWD_BYTES = 12 + 24 + 16 + 8 + 12 + 4 + 4 + 12 + 24 + 16  # + cotangents; gradients
+# tests/test_torch_cuda.py's gates: relative (xy, depth), of the largest
+# entry (conic), relative (alpha), the share of flipped splats, of each
+# leaf's norm (gradients)
+EWA_REL, EWA_CONIC, EWA_ALPHA, EWA_FLIPS, EWA_GRAD = 1e-6, 1e-5, 1e-5, 1e-5, 1e-5
+
+
+def ewa_project_phase(dev, card: str):
+    """Phase 19: the forward and backward kernels of the EWA projection at
+    each of EWA_SPLATS, the headline 1080p camera over the headline mix,
+    against the plain versions on the card (``project_splats_ref``,
+    autograd through it, the closed-form ``project_splats_bwd_ref``),
+    timed alone and with events beside their byte bounds and the plain
+    versions' times; returns the two kernels' report entries and bounds
+    (the 6.13M-splat figures; the 15.3M ones beside them)."""
+    t0 = time.perf_counter()
+    entries, bounds = {}, {}
+    cfg = gt.RenderConfig(width=WIDTH, height=HEIGHT, sh_degree=0)
+    cam = gt.look_at([0, 0, -7], [0, 0, 0], [0, 1, 0], WIDTH, HEIGHT, fov_y_rad=0.9, device=dev)
+    for n in EWA_SPLATS:
+        prep = bench_scene(dev, n, seed=1, sh_degree=0).prepare()
+        means, cov3d, color, scales = prep.means, prep.cov3d, prep.color, prep.scales_log
+        g = torch.Generator(device=dev).manual_seed(n)
+        cots = [torch.randn(shape, generator=g, device=dev)
+                for shape in ((n, 2), (n, 3), (n,), (n,))]
+        leaves = [t.detach().clone().requires_grad_() for t in (means, cov3d, color)]
+        lp = dataclasses.replace(prep, means=leaves[0], cov3d=leaves[1], color=leaves[2])
+
+        def fwd():
+            return tproj.ewa_project(means, cov3d, color, scales, cam, cfg)
+
+        def bwd():
+            return tproj.ewa_project_bwd(means, cov3d, color, cam, cfg, *cots)
+
+        def plain_fwd():
+            return tproj.project_splats_ref(prep, cam, cfg)
+
+        def grads(project):
+            out = project(lp, cam, cfg)
+            return torch.autograd.grad([out.xy, out.conic, out.depth, out.alpha], leaves, cots)
+
+        def plain_bwd():  # autograd through the plain version, its forward included
+            return grads(tproj.project_splats_ref)
+
+        def kernel_fwd_bwd():  # the pair through autograd, as training runs it
+            return grads(tproj.project_splats)
+
+        def twin_bwd():
+            return tproj.project_splats_bwd_ref(means, cov3d, color, cam, cfg, *cots)
+
+        xy, conic, depth, radius, alpha, valid = fwd()
+        want = plain_fwd()
+        flips = int(((valid != want.valid) | (radius != want.radius).any(-1)).sum())
+        keep = valid & want.valid
+        xy_scale = torch.maximum(want.xy[keep].abs(), torch.stack([cam.cx, cam.cy]).abs())
+        err_fwd = {
+            "xy": ((xy[keep] - want.xy[keep]).abs() / xy_scale).max().item(),
+            "depth": ((depth[keep] - want.depth[keep]).abs() / want.depth[keep].abs()).max()
+            .item(),
+            "conic": ((conic[keep] - want.conic[keep]).abs().amax(-1)
+                      / want.conic[keep].abs().amax(-1)).max().item(),
+            "alpha": ((alpha[keep] - want.alpha[keep]).abs() / want.alpha[keep]).max().item()}
+        gates = {"xy": EWA_REL, "depth": EWA_REL, "conic": EWA_CONIC, "alpha": EWA_ALPHA}
+        log(f"ewa_project n={n}: {int(keep.sum())} splats kept by both, {flips} with another "
+            f"valid or radius (gate {math.ceil(EWA_FLIPS * n)}); forward against the plain "
+            "version: " + ", ".join(f"{k} {v:.3e}" for k, v in err_fwd.items()))
+        check(flips <= math.ceil(EWA_FLIPS * n), f"ewa_project_fwd n={n}: {flips} flips")
+        check(all(err_fwd[k] <= gates[k] for k in gates), f"ewa_project_fwd n={n}: {err_fwd}")
+        del xy, conic, depth, radius, alpha, valid, want, keep, xy_scale
+        got, plain, twin = bwd(), plain_bwd(), twin_bwd()
+        err_bwd = {}
+        for name, k, p, t in zip(("d_means", "d_cov3d", "d_color"), got, plain, twin):
+            scale = p.norm().item()
+            err_bwd[name] = ((k - p).norm().item() / scale, (k - t).norm().item() / scale)
+        del got, plain, twin
+        log(f"ewa_project_bwd n={n}: of each gradient's norm, against autograd through the "
+            "plain version / the twin: "
+            + ", ".join(f"{k} {a:.3e} / {b:.3e}" for k, (a, b) in err_bwd.items()))
+        check(all(max(e) <= EWA_GRAD for e in err_bwd.values()),
+              f"ewa_project_bwd n={n}: {err_bwd}")
+        torch.cuda.synchronize()
+        alone_f = kernel_split(fwd, lambda: tproj.ewa_project.launches,
+                               ("ewa_project_fwd_kernel",), calls=10)["ewa_project_fwd_kernel"]
+        alone_b = kernel_split(bwd, lambda: tproj.ewa_project_bwd.launches,
+                               ("ewa_project_bwd_kernel",), calls=10)["ewa_project_bwd_kernel"]
+        ev_f, ev_b = median(time_ms(fwd, 20)), median(time_ms(bwd, 20))
+        ev_pair = median(time_ms(kernel_fwd_bwd, 10))
+        pl_f, pl_b = median(time_ms(plain_fwd, 5)), median(time_ms(plain_bwd, 5))
+        twin_b = median(time_ms(twin_bwd, 5))
+        b_f = roofline(0.0, n * EWA_FWD_BYTES)
+        b_b = roofline(0.0, n * EWA_BWD_BYTES)
+        log(f"timing ewa_project n={n} ({card}): forward alone {alone_f:.4f} ms, events "
+            f"{ev_f:.4f}, bound {b_f[0]:.4f} ({b_f[1]}, {n * EWA_FWD_BYTES / 1e9:.4f} GB), share "
+            f"of bound {b_f[0] / alone_f:.4f}; plain forward {pl_f:.4f} ms")
+        log(f"timing ewa_project_bwd n={n} ({card}): backward alone {alone_b:.4f} ms, events "
+            f"{ev_b:.4f}, bound {b_b[0]:.4f} ({b_b[1]}, {n * EWA_BWD_BYTES / 1e9:.4f} GB), share "
+            f"of bound {b_b[0] / alone_b:.4f}; the kernel pair through autograd {ev_pair:.4f} ms "
+            f"against autograd through the plain version (forward and backward) {pl_b:.4f} ms; "
+            f"the closed-form twin {twin_b:.4f} ms")
+        if n == EWA_SPLATS[0]:
+            entries["ewa_project_fwd"] = dict(
+                max_rel_err=max(err_fwd.values()), flips=flips, ms=ev_f, alone_ms=alone_f,
+                plain_ms=pl_f, share_of_bound=b_f[0] / alone_f)
+            entries["ewa_project_bwd"] = dict(
+                max_rel_err=max(max(e) for e in err_bwd.values()), ms=ev_b, alone_ms=alone_b,
+                plain_ms=pl_b, twin_ms=twin_b, pair_ms=ev_pair, share_of_bound=b_b[0] / alone_b)
+            bounds["ewa_project_fwd"], bounds["ewa_project_bwd"] = b_f, b_b
+        else:
+            entries["ewa_project_fwd"]["alone_ms_15m"] = alone_f
+            entries["ewa_project_bwd"]["alone_ms_15m"] = alone_b
+        del prep, lp, means, cov3d, color, scales, cots, leaves
+        torch.cuda.empty_cache()
+    log(f"ewa_project phase {time.perf_counter() - t0:.1f} s")
+    return entries, bounds
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     views = int(argv[argv.index("--mesh-views") + 1]) if "--mesh-views" in argv else 0
@@ -6407,6 +6555,7 @@ def main(argv=None) -> int:
     instances_only = "--instances" in argv
     tools_only = "--tools" in argv
     sh_only = "--sh-radiance" in argv
+    ewa_only = "--ewa-project" in argv
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: chip_smoke.py runs only on a card")
     if "--gloo-rank" in argv:
@@ -6460,6 +6609,10 @@ def main(argv=None) -> int:
         sh_radiance_phase(dev, card)
         log(f"total {time.perf_counter() - t0:.1f} s")
         return 0
+    if ewa_only:
+        ewa_project_phase(dev, card)
+        log(f"total {time.perf_counter() - t0:.1f} s")
+        return 0
     if tools_only:
         truth = bench_scene(dev, SPLATS, seed=0)
         cam = gt.look_at([0, 0, -7], [0, 0, 0], [0, 1, 0], WIDTH, HEIGHT, fov_y_rad=0.9,
@@ -6473,9 +6626,9 @@ def main(argv=None) -> int:
     err_golden = golden_gate(dev)
     err_golden_bwd = golden_gradients(dev)
     truth = bench_scene(dev, SPLATS, seed=0)
-    fwd, bounds, sh_frame_launches = full_size(dev, card, truth.prepare(), seed=0)
+    fwd, bounds, frame_launches = full_size(dev, card, truth.prepare(), seed=0)
     fwd["max_abs_err"] = max(fwd["max_abs_err"], err_golden)
-    bwd, bounds["rasterize_bwd"], sh_step_launches = train_full_size(dev, card, truth, seed=0)
+    bwd, bounds["rasterize_bwd"], step_launches = train_full_size(dev, card, truth, seed=0)
     bwd["max_abs_err"] = max(bwd["max_abs_err"], err_golden_bwd)
 
     err_golden_k3 = golden_bucket(dev)
@@ -6535,10 +6688,13 @@ def main(argv=None) -> int:
     results.update(probe_entries)
     bounds.update(probe_bounds)
     sh_entries, sh_bounds = sh_radiance_phase(dev, card)
-    sh_entries["sh_radiance_fwd"]["launches"] = sh_frame_launches
-    sh_entries["sh_radiance_bwd"]["launches"] = sh_step_launches
-    results.update(sh_entries)
+    ewa_entries, ewa_bounds = ewa_project_phase(dev, card)
+    for entries in (sh_entries, ewa_entries):
+        for name, entry in entries.items():
+            entry["launches"] = {**frame_launches, **step_launches}[name]
+        results.update(entries)
     bounds.update(sh_bounds)
+    bounds.update(ewa_bounds)
 
     report = {"kernels": [{
         "name": name, "route": "cuda", "source": KERNELS[name][1],

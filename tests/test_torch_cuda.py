@@ -1,9 +1,10 @@
 """The CUDA tile blenders (pair blender K1, K2; bucket rasterizer K3, K4;
 each for the gs2d and the gut3d response model, K1 and K2 also for the
 mesh models gs2d_clip, tri2d and tri2d_smooth), the probe kernels P1-P3
-(vk_gaussian_splatting_tpu_torch/probes) and the SH radiance pair
-(csrc/sh_radiance.cu; its tolerances where its tests begin) on a card,
-against their plain PyTorch twins.
+(vk_gaussian_splatting_tpu_torch/probes), the SH radiance pair
+(csrc/sh_radiance.cu) and the EWA projection pair (csrc/ewa_project.cu;
+each pair's tolerances where its tests begin) on a card, against their
+plain PyTorch twins.
 
 Every test here is marked ``cuda`` and skips without a card. The file
 imports no JAX, so it also runs where only the port is installed:
@@ -2422,3 +2423,260 @@ def test_sh_kernels_launch_once_a_frame_and_a_train_step(cuda, pipeline):
     assert (tsh.sh_radiance.launches, tsh.sh_radiance_bwd.launches) == (fwd + 2, bwd + 1)
     assert bool(torch.isfinite(loss))
     assert s.sh_rest.grad.abs().max().item() > 0 and bool(torch.isfinite(s.sh_rest.grad).all())
+
+
+# ---- the EWA projection: csrc/ewa_project.cu's forward and backward ----------
+#
+# Forward kernel against the plain version on the card (project_splats_ref).
+# Both evaluate every step with the same f32 operations in the same order
+# (-fmad=false; the kernel's scalar divisions as PyTorch's CUDA kernels make
+# them), but the plain version's view transform is a cuBLAS GEMM, whose sums
+# may differ from the kernel's FMA chain by an ulp of the largest term. So:
+# on the splats both keep, xy within 1e-6 of the larger of its size and the
+# principal point's (u = fx x / z + cx may cancel towards 0), depth within
+# 1e-6 relative, conic within 1e-5 of the splat's largest entry (its
+# determinant amplifies an ulp of the view transform), alpha within 1e-5
+# relative (the Mip-Splatting compensation reads the determinants); radius
+# and valid equal but on at most 1e-5 of the splats (at least one), where an
+# ulp flips a ceil or a threshold. Backward kernel against autograd through
+# the plain version on the card, and against the closed-form twin
+# project_splats_bwd_ref: each gradient within 1e-5 of its leaf's norm over
+# the finite entries, inf and NaN where autograd has them (the zero
+# covariances under Mip-Splatting: sqrt's gradient at 0).
+
+import math  # noqa: E402
+
+from vk_gaussian_splatting_tpu_torch.ops import projection as tproj  # noqa: E402
+
+EWA_REL = 1e-6
+EWA_CONIC = 1e-5
+EWA_ALPHA = 1e-5
+EWA_FLIPS = 1e-5
+EWA_GRAD = 1e-5
+
+
+def ewa_case(device, n, width=128, height=96, seed=0, grad=False):
+    """(prepared, camera) on ``device``, SH 0: n random splats around the
+    origin seen from 9 units away, of which a tenth each (at most 1000) lie
+    on the camera plane (|z| < 1e-6, replaced by 1e-6), far outside the
+    frustum (the Jacobian's clamp), or have indefinite (det <= 0) or zero
+    covariances. The leaves means, cov3d and color require grad if
+    ``grad``."""
+    d = interop.random_splat_arrays(seed, max(n, 1), sh_degree=0, extent=3.0,
+                                    scale_range=(-4.0, -1.0))
+    prep = interop.splat_set_from_numpy({k: v[:n] for k, v in d.items()}, "cpu").prepare()
+    cam = gt.look_at([0.3, -0.5, -9.0], [0, 0, 0], [0, 1, 0], width, height, fov_y_rad=0.9,
+                     device="cpu")
+    rng = np.random.default_rng(seed)
+    vm = cam.viewmat.double().numpy()
+    means, cov = prep.means.double().numpy(), prep.cov3d.numpy().copy()
+    k = min(n // 10, 1000)
+    plane = np.concatenate([rng.uniform(-1, 1, (k, 2)), rng.choice([0.0, 3e-7, -4e-7], (k, 1))],
+                           1)
+    means[:k] = (plane - vm[:3, 3]) @ vm[:3, :3]
+    off = np.concatenate([rng.choice([-1, 1], (k, 1)) * rng.uniform(5, 40, (k, 1)),
+                          rng.uniform(-1, 1, (k, 1)), rng.uniform(0.5, 4, (k, 1))], 1)
+    means[k:2 * k] = (off - vm[:3, 3]) @ vm[:3, :3]
+    cov[2 * k:3 * k] = rng.normal(0, 0.3, (k, 6))
+    cov[3 * k:3 * k + k // 2] = 0.0
+    prep = dataclasses.replace(prep, means=torch.from_numpy(means).float(),
+                               cov3d=torch.from_numpy(cov))
+    prep = dataclasses.replace(prep, **{f.name: getattr(prep, f.name).to(device)
+                                        for f in dataclasses.fields(prep)})
+    if grad:
+        for f in ("means", "cov3d", "color"):
+            getattr(prep, f).requires_grad_()
+    cam = dataclasses.replace(cam, **{f.name: getattr(cam, f.name).to(device)
+                                      for f in dataclasses.fields(cam)})
+    return prep, cam
+
+
+def ewa_cfg(width=128, height=96, **raster):
+    return gt.RenderConfig(width=width, height=height, sh_degree=0,
+                           raster=dataclasses.replace(gt.RenderConfig().raster, **raster))
+
+
+def assert_ewa_fwd_matches(prep, cam, cfg):
+    n = prep.means.shape[0]
+    before = tproj.ewa_project.launches
+    got = tproj.project_splats(prep, cam, cfg)
+    want = tproj.project_splats_ref(prep, cam, cfg)
+    torch.cuda.synchronize()
+    assert tproj.ewa_project.launches == before + (n > 0)
+    for f in dataclasses.fields(want):
+        a, b = getattr(got, f.name), getattr(want, f.name)
+        assert a.shape == b.shape and a.dtype == b.dtype and a.device == b.device, f.name
+    flips = (got.valid != want.valid) | (got.radius != want.radius).any(-1)
+    assert int(flips.sum()) <= math.ceil(EWA_FLIPS * n), int(flips.sum())
+    keep = got.valid & want.valid
+    if not bool(keep.any()):
+        return got
+    xy, xy_w = got.xy[keep], want.xy[keep]
+    scale = torch.maximum(xy_w.abs(), torch.stack([cam.cx, cam.cy]).abs())
+    assert ((xy - xy_w).abs() / scale).max().item() <= EWA_REL
+    z, z_w = got.depth[keep], want.depth[keep]
+    assert ((z - z_w).abs() / z_w.abs()).max().item() <= EWA_REL
+    con, con_w = got.conic[keep], want.conic[keep]
+    assert ((con - con_w).abs().amax(-1) / con_w.abs().amax(-1)).max().item() <= EWA_CONIC
+    al, al_w = got.alpha[keep], want.alpha[keep]
+    assert ((al - al_w).abs() / al_w.abs()).max().item() <= EWA_ALPHA
+    assert torch.equal(got.color, want.color)
+    return got
+
+
+EWA_FLAG_CASES = [dict(ms_antialiasing=ms, point_cloud_mode=pcm, size_culling=sc)
+                  for ms in (False, True) for pcm in (False, True) for sc in (False, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flags", EWA_FLAG_CASES,
+                         ids=lambda f: "-".join(k for k, v in f.items() if v) or "default")
+def test_ewa_kernel_matches_plain(cuda, flags):
+    """1001 splats (seven full tiles of 128 and a ragged one) under each
+    combination of the config's flags."""
+    prep, cam = ewa_case(cuda, 1001)
+    got = assert_ewa_fwd_matches(prep, cam, ewa_cfg(size_culling_min_px=2.0, **flags))
+    assert 100 < int(got.valid.sum()) < 1001
+
+
+@pytest.mark.cuda
+def test_ewa_kernel_follows_the_config_scalars(cuda):
+    """Every scalar the kernel takes as a launch argument, away from its
+    default (the extent clamp biting at 6 px)."""
+    prep, cam = ewa_case(cuda, 1001, seed=3)
+    cfg = ewa_cfg(dilation=0.8, extent_sigma=3.0, max_basis_px=6.0, frustum_dilation=0.05,
+                  alpha_min=0.05, size_culling=True, size_culling_min_px=4.0,
+                  ms_antialiasing=True)
+    cfg = cfg.replace(splat_scale=1.5, opacity_gain=0.6)
+    got = assert_ewa_fwd_matches(prep, cam, cfg)
+    assert (got.radius == math.ceil(6.0 * 1.5)).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [0, 1, 127, 129, 1001, 1_000_000])
+def test_ewa_kernel_at_edge_sizes(cuda, n):
+    assert_ewa_fwd_matches(*ewa_case(cuda, n), ewa_cfg())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width, height", [(512, 512), (256, 256), (1920, 1080)])
+def test_ewa_kernel_at_map_and_frame_sizes(cuda, width, height):
+    """The deep shadow maps' square sizes and the 1080p frame."""
+    prep, cam = ewa_case(cuda, 20_000, width, height, seed=1)
+    assert_ewa_fwd_matches(prep, cam, ewa_cfg(width, height))
+
+
+def ewa_grads(prep, cam, cfg, cots, fn):
+    out = fn(prep, cam, cfg)
+    leaves = [prep.means, prep.cov3d, prep.color]
+    return torch.autograd.grad([out.xy, out.conic, out.depth, out.alpha], leaves, cots)
+
+
+def assert_ewa_grads_close(got, want):
+    for name, k, p in zip(("d_means", "d_cov3d", "d_color"), got, want):
+        assert k.shape == p.shape and k.dtype == p.dtype, name
+        assert torch.equal(torch.isfinite(k), torch.isfinite(p)), name
+        finite = torch.isfinite(p)
+        scale = float(p[finite].norm())
+        torch.testing.assert_close(k, p, rtol=0, atol=EWA_GRAD * scale, equal_nan=True, msg=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flags", EWA_FLAG_CASES,
+                         ids=lambda f: "-".join(k for k, v in f.items() if v) or "default")
+def test_ewa_bwd_kernel_matches_autograd_through_plain(cuda, flags):
+    prep, cam = ewa_case(cuda, 1001, grad=True)
+    cfg = ewa_cfg(size_culling_min_px=2.0, **flags)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    n = prep.means.shape[0]
+    cots = [torch.randn(shape, generator=g, device=cuda) for shape in ((n, 2), (n, 3), (n,),
+                                                                       (n,))]
+    before = tproj.ewa_project_bwd.launches
+    kernel = ewa_grads(prep, cam, cfg, cots, tproj.project_splats)
+    torch.cuda.synchronize()
+    assert tproj.ewa_project_bwd.launches == before + 1
+    plain = ewa_grads(prep, cam, cfg, cots, tproj.project_splats_ref)
+    twin = tproj.project_splats_bwd_ref(*[t.detach() for t in (prep.means, prep.cov3d,
+                                                                prep.color)], cam, cfg, *cots)
+    assert_ewa_grads_close(kernel, plain)
+    assert_ewa_grads_close(kernel, twin)
+    assert (kernel[2][:, :3] == 0).all()
+    assert flags["ms_antialiasing"] == (not bool(torch.isfinite(kernel[1]).all()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("used", [("xy",), ("conic", "alpha"), ("depth",), ("alpha",)])
+def test_ewa_bwd_kernel_with_outputs_left_unused(cuda, used):
+    """Outputs that the loss does not read send no cotangent (None to the
+    kernel): the gradients autograd gives through the plain version, and
+    with no cotangent of alpha no NaN from the zero covariances."""
+    prep, cam = ewa_case(cuda, 1001, grad=True)
+    cfg = ewa_cfg(ms_antialiasing=True)
+
+    def grads(fn):
+        out = fn(prep, cam, cfg)
+        loss = sum((getattr(out, f) * torch.linspace(-1, 1, getattr(out, f).numel(),
+                                                     device=cuda).reshape(getattr(out, f).shape)
+                    ).sum() for f in used)
+        return torch.autograd.grad(loss, [prep.means, prep.cov3d, prep.color], allow_unused=True)
+
+    kernel, plain = grads(tproj.project_splats), grads(tproj.project_splats_ref)
+    torch.cuda.synchronize()
+    assert plain[2] is None or "alpha" in used
+    plain = [torch.zeros_like(k) if p is None else p for k, p in zip(kernel, plain)]
+    assert_ewa_grads_close(kernel, plain)
+    if "alpha" not in used:
+        assert all(bool(torch.isfinite(k).all()) for k in kernel)
+
+
+@pytest.mark.cuda
+def test_ewa_kernels_repeat_bit_equal(cuda):
+    runs = []
+    for _ in range(2):
+        prep, cam = ewa_case(cuda, 3000, seed=5, grad=True)
+        cfg = ewa_cfg(ms_antialiasing=True)
+        out = tproj.project_splats(prep, cam, cfg)
+        cots = [torch.linspace(-1, 1, t.numel(), device=cuda).reshape(t.shape)
+                for t in (out.xy, out.conic, out.depth, out.alpha)]
+        grads = torch.autograd.grad([out.xy, out.conic, out.depth, out.alpha],
+                                    [prep.means, prep.cov3d, prep.color], cots)
+        runs.append([getattr(out, f.name).detach() for f in dataclasses.fields(out)]
+                    + list(grads))
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a.isnan(), b.isnan()) and torch.equal(a[~a.isnan()], b[~b.isnan()])
+
+
+@pytest.mark.cuda
+def test_ewa_kernels_launch_once_a_projection_and_a_train_step(cuda):
+    cfg = gt.RenderConfig(width=120, height=90, sh_degree=3)
+    cam = gt.look_at([0.2, -0.3, -9.0], [0, 0, 0], [0, 1, 0], 120, 90, fov_y_rad=0.9,
+                     device=cuda)
+    s = splats_on(cuda, seed=1, n=1500, sh_degree=3)
+    fwd, bwd = tproj.ewa_project.launches, tproj.ewa_project_bwd.launches
+    with torch.no_grad():
+        render(s.prepare(), cam, cfg)
+    torch.cuda.synchronize()
+    assert (tproj.ewa_project.launches, tproj.ewa_project_bwd.launches) == (fwd + 1, bwd)
+    tcfg = gt.TrainConfig(scene_extent=3.0)
+    opt = gt.make_optimizer(s, tcfg)
+    loss, _ = gt.train_step(s, opt, cam, torch.full((90, 120, 3), 0.5, device=cuda), cfg, 0,
+                            tcfg)
+    torch.cuda.synchronize()
+    assert (tproj.ewa_project.launches, tproj.ewa_project_bwd.launches) == (fwd + 2, bwd + 1)
+    assert bool(torch.isfinite(loss))
+    for leaf in (s.means, s.scales, s.quats, s.opacities):
+        assert leaf.grad.abs().max().item() > 0 and bool(torch.isfinite(leaf.grad).all())
+
+
+@pytest.mark.cuda
+def test_ewa_kernel_projects_eight_times_a_hybrid_frame(cuda):
+    """The hybrid frame with a cone-mapped and a cube-mapped light: the
+    primary's projection and one per map face (1 + 1 + 6)."""
+    cfg = gt.RenderConfig(width=96, height=64, sh_degree=0, pipeline=gt.Pipeline.HYBRID)
+    prepared = shadow_scene(cuda).prepare()
+    cam = gt.look_at([0, -2.0, -12.0], [0, 2.0, 0], [0, 1, 0], 96, 64, device=cuda)
+    before = tproj.ewa_project.launches
+    render_hybrid(prepared, cam, cfg, 1 << 16, lights=shadow_lights(cuda), shadow_res=128)
+    torch.cuda.synchronize()
+    assert tproj.ewa_project.launches == before + 8

@@ -264,3 +264,212 @@ def test_sh_radiance_refuses_a_position_that_requires_grad():
     sh, means, color, position, _ = sh_inputs(3, "f32", torch.float32, n=8)
     with pytest.raises(NotImplementedError, match="camera position"):
         tsh.sh_radiance(sh, means, color, position.requires_grad_(), 3)
+
+
+# ---------------------------------------------------------------------------
+# project_splats: the plain version the CPU runs, the closed-form VJP twin of
+# csrc/ewa_project.cu's backward and the kernel wrappers' refusals (the
+# kernels themselves: tests/test_torch_cuda.py).
+# ---------------------------------------------------------------------------
+
+EWA_FLAGS = [(ms, pcm, sc) for ms in (False, True) for pcm in (False, True)
+             for sc in (False, True)]
+
+
+def ewa_scene(dtype, n=600, seed=0):
+    """(prepared, camera, leaves) in ``dtype``, 96x64: random splats and, a
+    tenth each, splats on the camera plane (|z| < 1e-6, replaced) and just
+    off it (z = +-2e-3), splats far outside the frustum (|x/z| beyond the
+    Jacobian's clamp), indefinite covariances (det <= 0, a negative
+    det_orig / det) and zero ones (det_orig = 0: the Mip-Splatting
+    compensation's sqrt at 0, whose gradient autograd makes inf or NaN).
+    The leaves (means, cov3d, color) require grad; no SH."""
+    from vk_gaussian_splatting_tpu_torch.scene.splat_set import (
+        PreparedSplats,
+        covariance_from_scale_rot,
+    )
+
+    rng = np.random.default_rng(seed)
+    cam = tcam.look_at([0.3, -0.5, -6.0], [0, 0, 0], [0, 1, 0], 96, 64, fov_y_rad=0.9,
+                       device="cpu")
+    cam = dataclasses.replace(cam, **{f.name: getattr(cam, f.name).to(dtype)
+                                      for f in dataclasses.fields(cam)})
+    vm = cam.viewmat.double().numpy()
+    rot, trans = vm[:3, :3], vm[:3, 3]
+    k = n // 10
+    means = rng.uniform(-3, 3, (n, 3))
+    z = rng.choice([0.0, 3e-7, -4e-7, 2e-3, -2e-3], (k, 1))
+    means[:k] = (np.concatenate([rng.uniform(-1, 1, (k, 2)), z], 1) - trans) @ rot
+    far_x = rng.choice([-1, 1], (k, 1)) * rng.uniform(5, 40, (k, 1))
+    means[k:2 * k] = (np.concatenate([far_x, rng.uniform(-1, 1, (k, 1)),
+                                      rng.uniform(0.5, 4, (k, 1))], 1) - trans) @ rot
+    scales = torch.from_numpy(rng.uniform(-4, -0.5, (n, 3)))
+    quats = torch.from_numpy(rng.normal(size=(n, 4)))
+    cov = covariance_from_scale_rot(scales.float(), quats.float(), 1.0).double().numpy()
+    cov[2 * k:3 * k] = rng.normal(0, 0.3, (k, 6))
+    cov[3 * k:3 * k + k // 2] = 0.0
+    color = rng.uniform(0, 1, (n, 4))
+    color[:, 3] = rng.uniform(1e-3, 1, n)
+    leaves = [torch.tensor(a, dtype=dtype, requires_grad=True) for a in (means, cov, color)]
+    prep = PreparedSplats(means=leaves[0], cov3d=leaves[1], color=leaves[2],
+                          sh=torch.zeros((n, 0, 3), dtype=dtype), scales_log=scales.to(dtype),
+                          quats=quats.to(dtype))
+    return prep, cam, leaves
+
+
+def ewa_cfg(ms, pcm, sc):
+    return tc.RenderConfig(width=96, height=64, sh_degree=0, raster=tc.RasterConfig(
+        ms_antialiasing=ms, point_cloud_mode=pcm, size_culling=sc, size_culling_min_px=2.0))
+
+
+def ewa_vjp_pair(dtype, ms, pcm, sc):
+    """(autograd through project_splats_ref, the closed-form twin), each as
+    (d_means, d_cov3d, d_color), for random cotangents of xy, conic, depth
+    and alpha on every splat."""
+    prep, cam, leaves = ewa_scene(dtype)
+    cfg = ewa_cfg(ms, pcm, sc)
+    out = tproj.project_splats_ref(prep, cam, cfg)
+    p = tcam.view_transform_points(cam.viewmat, prep.means.detach())
+    cov2d = tproj.ewa_project_cov(prep.cov3d.detach(), p, cam.fx, cam.fy, cam.viewmat[:3, :3],
+                                  0.5 * cfg.width / cam.fx, 0.5 * cfg.height / cam.fy)
+    dil = cfg.raster.dilation
+    a, b, c = cov2d[:, 0] + dil, cov2d[:, 1], cov2d[:, 2] + dil
+    tan_x = 0.5 * cfg.width / cam.fx
+    assert (p[:, 2].abs() < 1e-6).any()  # the z replacement bites
+    assert ((p[:, 0] / p[:, 2]).abs() > 1.3 * tan_x).any()  # the Jacobian's clamp bites
+    assert (a * c - b * b <= 0).any() and (out.valid.sum() > 100)
+    g = torch.Generator().manual_seed(1)
+    cots = [torch.randn(t.shape, generator=g, dtype=torch.float64).to(dtype)
+            for t in (out.xy, out.conic, out.depth, out.alpha)]
+    auto = torch.autograd.grad([out.xy, out.conic, out.depth, out.alpha], leaves, cots)
+    twin = tproj.project_splats_bwd_ref(*[t.detach() for t in leaves], cam, cfg, *cots)
+    return auto, twin
+
+
+def assert_grads_close(auto, twin, rel):
+    """Each gradient within ``rel`` of its leaf's norm (over its finite
+    entries); inf and NaN where autograd has them (the zero covariances
+    under Mip-Splatting), and the colour's columns 0-2 zero."""
+    for name, a, t in zip(("d_means", "d_cov3d", "d_color"), auto, twin):
+        assert a.dtype == t.dtype and a.shape == t.shape, name
+        finite = torch.isfinite(a)
+        scale = float(a[finite].norm())
+        torch.testing.assert_close(t, a, rtol=0, atol=rel * scale, equal_nan=True, msg=name)
+    assert (twin[2][:, :3] == 0).all()
+
+
+@pytest.mark.parametrize("ms, pcm, sc", EWA_FLAGS)
+def test_ewa_vjp_twin_equals_autograd_float64(ms, pcm, sc):
+    """In float64 the closed form and autograd differ only by rounding: each
+    gradient to 1e-12 of its leaf's norm (measured: 2.3e-16 at most)."""
+    auto, twin = ewa_vjp_pair(torch.float64, ms, pcm, sc)
+    assert_grads_close(auto, twin, 1e-12)
+    assert ms == (not bool(torch.isfinite(auto[1]).all()))  # sqrt(0)'s gradient only with MS
+
+
+@pytest.mark.parametrize("ms, pcm, sc", EWA_FLAGS)
+def test_ewa_vjp_twin_equals_autograd_float32(ms, pcm, sc):
+    """In float32, each gradient to 1e-6 of its leaf's norm (measured:
+    1.4e-7 at most): the closed form sums the chain rule's terms in
+    another order than autograd's graph."""
+    auto, twin = ewa_vjp_pair(torch.float32, ms, pcm, sc)
+    assert_grads_close(auto, twin, 1e-6)
+
+
+def test_ewa_vjp_twin_with_absent_cotangents():
+    """A cotangent left out counts as zero; with none for alpha, nothing
+    flows through the Mip-Splatting compensation (no NaN from the zero
+    covariances), as autograd gives it when alpha is not used."""
+    prep, cam, leaves = ewa_scene(torch.float64)
+    cfg = ewa_cfg(True, False, False)
+    out = tproj.project_splats_ref(prep, cam, cfg)
+    g = torch.Generator().manual_seed(2)
+    d_xy = torch.randn(out.xy.shape, generator=g, dtype=torch.float64)
+    d_conic = torch.randn(out.conic.shape, generator=g, dtype=torch.float64)
+    auto = torch.autograd.grad([out.xy, out.conic], leaves, [d_xy, d_conic], allow_unused=True)
+    twin = tproj.project_splats_bwd_ref(*[t.detach() for t in leaves], cam, cfg, d_xy, d_conic)
+    assert auto[2] is None and (twin[2] == 0).all()
+    for a, t in zip(auto[:2], twin[:2]):
+        assert bool(torch.isfinite(a).all())
+        torch.testing.assert_close(t, a, rtol=0, atol=1e-12 * float(a.norm()))
+
+
+@pytest.mark.parametrize("field", list(tproj.CAMERA_FIELDS))
+def test_project_splats_refuses_a_camera_that_requires_grad(field):
+    prep, cam, _ = ewa_scene(torch.float32, n=40)
+    cam = dataclasses.replace(cam, **{field: getattr(cam, field).clone().requires_grad_()})
+    with pytest.raises(NotImplementedError, match="camera"):
+        tproj.project_splats(prep, cam, ewa_cfg(False, False, False))
+
+
+def ewa_wrapper_inputs(n=40):
+    prep, cam, _ = ewa_scene(torch.float32, n=n)
+    return ([t.detach() for t in (prep.means, prep.cov3d, prep.color, prep.scales_log)], cam,
+            ewa_cfg(False, False, True))
+
+
+@pytest.mark.parametrize("what, err, match", [
+    ("means_f64", TypeError, "means of dtype"),
+    ("cov3d_shape", ValueError, "cov3d of shape"),
+    ("color_shape", ValueError, "color of shape"),
+    ("viewmat_shape", ValueError, "viewmat of shape"),
+    ("fx_f64", TypeError, "fx of dtype"),
+    ("near_shape", ValueError, "near of shape"),
+    ("scales_shape", ValueError, "scales_log"),
+    ("on_cpu", ValueError, "CUDA device"),
+])
+def test_ewa_project_refuses_bad_inputs(what, err, match):
+    """The forward wrapper checks dtypes, shapes and the device before any
+    launch, so the refusals show without a card."""
+    (means, cov3d, color, scales), cam, cfg = ewa_wrapper_inputs()
+    if what == "means_f64":
+        means = means.double()
+    elif what == "cov3d_shape":
+        cov3d = cov3d[:, :5]
+    elif what == "color_shape":
+        color = color[:-1]
+    elif what == "viewmat_shape":
+        cam = dataclasses.replace(cam, viewmat=cam.viewmat[:3])
+    elif what == "fx_f64":
+        cam = dataclasses.replace(cam, fx=cam.fx.double())
+    elif what == "near_shape":
+        cam = dataclasses.replace(cam, near=cam.near[None])
+    elif what == "scales_shape":
+        scales = scales[:, :2]
+    with pytest.raises(err, match=match):
+        tproj.ewa_project(means, cov3d, color, scales, cam, cfg)
+
+
+@pytest.mark.parametrize("what, match", [("d_xy", "d_xy"), ("d_conic", "d_conic"),
+                                         ("d_depth", "d_depth"), ("d_alpha", "d_alpha"),
+                                         ("none", "CUDA device")])
+def test_ewa_project_bwd_refuses_bad_cotangents(what, match):
+    (means, cov3d, color, _), cam, cfg = ewa_wrapper_inputs()
+    n = means.shape[0]
+    cots = dict(d_xy=torch.zeros((n, 2)), d_conic=torch.zeros((n, 3)), d_depth=torch.zeros(n),
+                d_alpha=torch.zeros(n))
+    if what != "none":
+        cots[what] = cots[what][:-1]
+    with pytest.raises(ValueError, match=match):
+        tproj.ewa_project_bwd(means, cov3d, color, cam, cfg, **cots)
+
+
+@pytest.mark.parametrize("ms, pcm, sc", [(False, False, False), (True, True, True)])
+def test_project_splats_on_cpu_takes_the_plain_path(ms, pcm, sc):
+    """CPU tensors: project_splats is project_splats_ref, forward and
+    gradients bit for bit, and no kernel is launched."""
+    launches = (tproj.ewa_project.launches, tproj.ewa_project_bwd.launches)
+    results = []
+    for fn in (tproj.project_splats, tproj.project_splats_ref):
+        prep, cam, leaves = ewa_scene(torch.float32)
+        out = fn(prep, cam, ewa_cfg(ms, pcm, sc))
+        g = torch.Generator().manual_seed(3)
+        fields = [out.xy, out.conic, out.depth, out.alpha]
+        cots = [torch.randn(t.shape, generator=g) for t in fields]
+        grads = torch.autograd.grad(fields, leaves, cots)
+        results.append([getattr(out, f.name).detach() for f in dataclasses.fields(out)]
+                       + list(grads))
+    for a, b in zip(*results):
+        assert torch.equal(a, b) or (torch.equal(a.isnan(), b.isnan())
+                                     and torch.equal(a[~a.isnan()], b[~b.isnan()]))
+    assert (tproj.ewa_project.launches, tproj.ewa_project_bwd.launches) == launches

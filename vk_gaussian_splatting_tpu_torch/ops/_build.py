@@ -19,6 +19,8 @@ import shutil
 import subprocess
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 # No fast math, and no multiply-add contraction: the kernels round each
@@ -75,3 +77,10 @@ def entry(name: str, symbol: str, argtypes):
     fn.argtypes = argtypes
     fn.restype = ctypes.c_int
     return fn
+
+
+def aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` detached, contiguous and 16-byte aligned (copied only where it
+    is not), as the kernels' vector loads want their inputs."""
+    t = t.detach().contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()

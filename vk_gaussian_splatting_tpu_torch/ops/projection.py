@@ -16,12 +16,19 @@ The tile blender consumes the *conic* (inverse 2D covariance) directly.
 of ``RenderConfig.camera_type`` (pinhole with OpenCV distortion, or the
 fisheye theta polynomial), with the rolling-shutter fixed point, for the
 binning of the gut3d pipelines. ``project_splats`` is pinhole EWA whatever
-``camera_type`` says, as in the JAX package. Everything is column
+``camera_type`` says, as in the JAX package. The plain versions are column
 arithmetic in the JAX package's order, so both packages round alike.
+
+``project_splats`` on CUDA tensors runs the EWA part as the kernel pair of
+csrc/ewa_project.cu (``ewa_project``, its backward ``ewa_project_bwd`` as
+the autograd backward); on CPU tensors the plain ``project_splats_ref``,
+through autograd. ``project_splats_bwd_ref`` is the backward kernel's
+arithmetic in closed form.
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 
 import numpy as np
@@ -29,6 +36,7 @@ import torch
 
 from vk_gaussian_splatting_tpu_torch import timing
 from vk_gaussian_splatting_tpu_torch.config import CameraType, RenderConfig, ShutterType
+from vk_gaussian_splatting_tpu_torch.ops import _build
 from vk_gaussian_splatting_tpu_torch.ops.sh import sh_radiance
 from vk_gaussian_splatting_tpu_torch.scene.cameras import (
     Camera,
@@ -104,9 +112,11 @@ def ewa_project_cov(cov6: torch.Tensor, p_view: torch.Tensor, fx, fy,
     return torch.stack([a, b, c], -1)
 
 
-def project_splats(prepared: PreparedSplats, cam: Camera,
-                   cfg: RenderConfig) -> ProjectedSplats:
-    """Full per-splat preprocessing stage (dist.comp + raster mesh-shader math)."""
+def project_splats_ref(prepared: PreparedSplats, cam: Camera,
+                       cfg: RenderConfig) -> ProjectedSplats:
+    """The plain version of ``project_splats``: the full per-splat
+    preprocessing stage (dist.comp + raster mesh-shader math) as column
+    arithmetic, in the dtype of the splats and camera."""
     rc = cfg.raster
     means = prepared.means
     p_view = view_transform_points(cam.viewmat, means)
@@ -186,6 +196,301 @@ def splat_rgb(prepared: PreparedSplats, cam: Camera, cfg: RenderConfig) -> torch
             return sh_radiance(prepared.sh, prepared.means, prepared.color, cam.position,
                                cfg.sh_degree, cfg.show_sh_only)
     return prepared.color[:, :3]
+
+
+CAMERA_FIELDS = ("viewmat", "fx", "fy", "cx", "cy", "near", "far")  # what EWA reads
+
+
+def project_splats_bwd_ref(means: torch.Tensor, cov3d: torch.Tensor, color: torch.Tensor,
+                           cam: Camera, cfg: RenderConfig, d_xy=None, d_conic=None,
+                           d_depth=None, d_alpha=None):
+    """The VJP of ``project_splats_ref``'s xy, conic, depth and alpha in
+    closed form, with the arithmetic of csrc/ewa_project.cu's backward:
+    (d_means (N, 3), d_cov3d (N, 6), d_color (N, 4), its columns 0-2 zero),
+    in the means' dtype. An absent cotangent (None) counts as zero, and
+    with no cotangent of alpha nothing flows through its Mip-Splatting
+    compensation. The forward's intermediates are recomputed as
+    ``project_splats_ref`` computes them; at its clamps and selections the
+    gradient takes autograd's conventions (torch.clamp passes it inside
+    its bounds, edges included; torch.where to the branch taken; sqrt's
+    derivative is g / (2 sqrt(x)), at 0 too)."""
+    rc = cfg.raster
+    zero = means.new_zeros(means.shape[:1])
+    gu, gv = d_xy.unbind(-1) if d_xy is not None else (zero, zero)
+    gc0, gc1, gc2 = d_conic.unbind(-1) if d_conic is not None else (zero, zero, zero)
+    gz = d_depth if d_depth is not None else zero
+    ga = d_alpha if d_alpha is not None else zero
+
+    p = view_transform_points(cam.viewmat, means)
+    px, py, pz = p.unbind(-1)
+    zs = torch.where(torch.abs(pz) < 1e-6, 1e-6, pz)
+    iz = 1.0 / zs
+    fx, fy = cam.fx, cam.fy
+    lim_x = 1.3 * (0.5 * cfg.width / fx)
+    lim_y = 1.3 * (0.5 * cfg.height / fy)
+    rx, ry = px * iz, py * iz
+    rxc = torch.clamp(rx, -lim_x, lim_x)
+    ryc = torch.clamp(ry, -lim_y, lim_y)
+    tx, ty = rxc * zs, ryc * zs
+    j00, j11 = fx * iz, fy * iz
+    q1x, q1y = -fx * tx, -fy * ty
+    q2x, q2y = q1x * iz, q1y * iz
+    j02, j12 = q2x * iz, q2y * iz
+
+    w = cam.viewmat[:3, :3]
+    s = cov3d.unbind(-1)  # xx, xy, xz, yy, yz, zz
+    t = [(w[i, 0] * s[0] + w[i, 1] * s[1] + w[i, 2] * s[2],
+          w[i, 0] * s[1] + w[i, 1] * s[3] + w[i, 2] * s[4],
+          w[i, 0] * s[2] + w[i, 1] * s[4] + w[i, 2] * s[5]) for i in range(3)]
+
+    def m_entry(i, j):
+        return t[i][0] * w[j, 0] + t[i][1] * w[j, 1] + t[i][2] * w[j, 2]
+
+    m00, m01, m02 = m_entry(0, 0), m_entry(0, 1), m_entry(0, 2)
+    m11, m12, m22 = m_entry(1, 1), m_entry(1, 2), m_entry(2, 2)
+    a = j00 * j00 * m00 + 2.0 * j00 * j02 * m02 + j02 * j02 * m22
+    b = j00 * j11 * m01 + j00 * j12 * m02 + j02 * j11 * m12 + j02 * j12 * m22
+    c = j11 * j11 * m11 + 2.0 * j11 * j12 * m12 + j12 * j12 * m22
+    det_orig = a * c - b * b
+    A, B, C = a + rc.dilation, b, c + rc.dilation
+    det = A * C - B * B
+
+    # alpha = opacity * gain [* sqrt(max(det_orig / den, 0))]
+    d_op, d_det, d_do = ga, zero, zero
+    if rc.ms_antialiasing and d_alpha is not None:
+        op = color[:, 3] * cfg.opacity_gain
+        den = torch.where(det == 0, 1.0, det)
+        ratio = det_orig / den
+        sq = torch.sqrt(torch.clamp(ratio, min=0.0))
+        d_op = ga * sq
+        d_ratio = torch.where(ratio >= 0, (ga * op) / (2.0 * sq), 0.0)
+        d_do = d_ratio / den
+        d_det = torch.where(det != 0, -d_ratio * (ratio / den), 0.0)
+    d_color = torch.zeros_like(color)
+    d_color[:, 3] = d_op * cfg.opacity_gain
+
+    # conic = (C, -B, A) / ds
+    ds = torch.where(det <= 0, 1.0, det)
+    c0, c1, c2 = C / ds, -B / ds, A / ds
+    d_A, d_B, d_C = gc2 / ds, -(gc1 / ds), gc0 / ds
+    d_det = torch.where(det <= 0, d_det, d_det - (gc0 * c0 + gc1 * c1 + gc2 * c2) / ds)
+    # det = A C - B B; det_orig = a c - b b
+    d_A = d_A + d_det * C
+    d_C = d_C + d_det * A
+    d_B = d_B - 2.0 * B * d_det
+    d_a = d_A + d_do * c
+    d_c = d_C + d_do * a
+    d_b = d_B - 2.0 * b * d_do
+
+    # cov2d = J M J^T
+    d_j00 = d_a * (2.0 * j00 * m00 + 2.0 * j02 * m02) + d_b * (j11 * m01 + j12 * m02)
+    d_j02 = d_a * (2.0 * j00 * m02 + 2.0 * j02 * m22) + d_b * (j11 * m12 + j12 * m22)
+    d_j11 = d_c * (2.0 * j11 * m11 + 2.0 * j12 * m12) + d_b * (j00 * m01 + j02 * m12)
+    d_j12 = d_c * (2.0 * j11 * m12 + 2.0 * j12 * m22) + d_b * (j00 * m02 + j02 * m22)
+    d_m00 = d_a * j00 * j00
+    d_m01 = d_b * j00 * j11
+    d_m02 = d_a * 2.0 * j00 * j02 + d_b * j00 * j12
+    d_m11 = d_c * j11 * j11
+    d_m12 = d_b * j02 * j11 + d_c * 2.0 * j11 * j12
+    d_m22 = d_a * j02 * j02 + d_b * j02 * j12 + d_c * j12 * j12
+    # m_ij = t_i . W_j, t_i = W_i S
+    dt = [[d_m00 * w[0, k] + d_m01 * w[1, k] + d_m02 * w[2, k] for k in range(3)],
+          [d_m11 * w[1, k] + d_m12 * w[2, k] for k in range(3)],
+          [d_m22 * w[2, k] for k in range(3)]]
+    d_s = [zero] * 6
+    for r in range(3):
+        d_s[0] = d_s[0] + dt[r][0] * w[r, 0]
+        d_s[1] = d_s[1] + (dt[r][0] * w[r, 1] + dt[r][1] * w[r, 0])
+        d_s[2] = d_s[2] + (dt[r][0] * w[r, 2] + dt[r][2] * w[r, 0])
+        d_s[3] = d_s[3] + dt[r][1] * w[r, 1]
+        d_s[4] = d_s[4] + (dt[r][1] * w[r, 2] + dt[r][2] * w[r, 1])
+        d_s[5] = d_s[5] + dt[r][2] * w[r, 2]
+    d_cov3d = torch.stack(d_s, -1)
+
+    # j00 = fx / z; j02 = ((-fx tx) / z) / z; the same in y
+    d_iz = d_j00 * fx + d_j11 * fy
+    d_iz = d_iz + d_j02 * q2x + (d_j02 * iz) * q1x
+    d_iz = d_iz + d_j12 * q2y + (d_j12 * iz) * q1y
+    d_tx = ((d_j02 * iz) * iz) * -fx
+    d_ty = ((d_j12 * iz) * iz) * -fy
+    # tx = clamp(x / z) z
+    d_zs = d_tx * rxc + d_ty * ryc
+    d_rx = torch.where((rx >= -lim_x) & (rx <= lim_x), d_tx * zs, 0.0)
+    d_ry = torch.where((ry >= -lim_y) & (ry <= lim_y), d_ty * zs, 0.0)
+    d_px, d_py = d_rx * iz, d_ry * iz
+    d_iz = d_iz + d_rx * px + d_ry * py
+    # u = fx x / z + cx, v alike
+    d_px = d_px + (gu / zs) * fx
+    d_py = d_py + (gv / zs) * fy
+    d_zs = d_zs - gu * (fx * px / zs / zs) - gv * (fy * py / zs / zs)
+    d_zs = d_zs - d_iz * (iz * iz)  # iz = 1 / z
+    d_pz = torch.where(torch.abs(pz) < 1e-6, 0.0, d_zs) + gz
+    # p = W m + t
+    d_p = torch.stack([d_px, d_py, d_pz], -1)
+    d_means = torch.stack([w[0, k] * d_p[:, 0] + w[1, k] * d_p[:, 1] + w[2, k] * d_p[:, 2]
+                           for k in range(3)], -1)
+    return d_means, d_cov3d, d_color
+
+
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+
+
+def _ewa_inputs(means, cov3d, color, cam: Camera):
+    """The kernels' inputs checked (float32, their shapes, one device):
+    ((name, tensor, shape) of the splat rows, the same of the camera's
+    fields ``CAMERA_FIELDS``)."""
+    dev = means.device
+    n = means.shape[0] if means.dim() == 2 else -1
+    rows = (("means", means, (n, 3)), ("cov3d", cov3d, (n, 6)), ("color", color, (n, 4)))
+    fields = tuple((f, getattr(cam, f), (4, 4) if f == "viewmat" else ()) for f in CAMERA_FIELDS)
+    for name, t, shape in rows + fields:
+        if t.dtype != torch.float32:
+            raise TypeError(f"ewa_project: {name} of dtype {t.dtype}, wants float32")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"ewa_project: {name} of shape {tuple(t.shape)}, wants {shape}")
+        if t.device != dev:
+            raise ValueError(f"ewa_project: {name} on {t.device}, means on {dev}")
+    return rows, fields
+
+
+def _on_card(rows, fields):
+    """The checked inputs contiguous and 16-byte aligned, once they are
+    known to be on a CUDA device."""
+    dev = rows[0][1].device
+    if dev.type != "cuda":
+        raise ValueError(f"ewa_project: tensors on {dev}; the kernels run on a CUDA device")
+    return [_build.aligned(t) for _, t, _ in rows], [_build.aligned(t) for _, t, _ in fields]
+
+
+def ewa_project(means, cov3d, color, scales_log, cam: Camera, cfg: RenderConfig):
+    """csrc/ewa_project.cu's forward on CUDA tensors: (xy (N, 2), conic (N,
+    3), depth (N,), radius (N, 2), alpha (N,), valid (N,) bool) as
+    ``project_splats_ref`` gives them; scales_log (N, 3) is read only under
+    ``cfg.raster.size_culling``. One launch, counted in
+    ``ewa_project.launches`` (none for N = 0)."""
+    rc = cfg.raster
+    checked = _ewa_inputs(means, cov3d, color, cam)
+    n, dev = means.shape[0], means.device
+    if rc.size_culling and (scales_log.dtype != torch.float32
+                            or tuple(scales_log.shape) != (n, 3) or scales_log.device != dev):
+        raise ValueError(f"ewa_project: scales_log {scales_log.dtype} "
+                         f"{tuple(scales_log.shape)} on {scales_log.device}, wants float32 "
+                         f"({n}, 3) on {dev}")
+    (means, cov3d, color), camera = _on_card(*checked)
+    if rc.size_culling:
+        scales_log = _build.aligned(scales_log)
+    f32 = dict(dtype=torch.float32, device=dev)
+    out = (torch.empty((n, 2), **f32), torch.empty((n, 3), **f32), torch.empty((n,), **f32),
+           torch.empty((n, 2), **f32), torch.empty((n,), **f32),
+           torch.empty((n,), dtype=torch.bool, device=dev))
+    if n == 0:
+        return out
+    fn = _build.entry("ewa_project", "ewa_project_fwd",
+                      [_P] * 11 + [_I, _I] + [_F] * 8 + [_I, _I, _I, _L] + [_P] * 7)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(means.data_ptr(), cov3d.data_ptr(), color.data_ptr(),
+                 scales_log.data_ptr() if rc.size_culling else None,
+                 *[t.data_ptr() for t in camera], cfg.width, cfg.height, rc.dilation,
+                 rc.extent_sigma, rc.max_basis_px, 1.0 + rc.frustum_dilation, rc.alpha_min,
+                 rc.size_culling_min_px, cfg.opacity_gain, cfg.splat_scale,
+                 int(rc.ms_antialiasing), int(rc.point_cloud_mode), int(rc.size_culling), n,
+                 *[t.data_ptr() for t in out], stream)
+    if err != 0:
+        raise RuntimeError(f"ewa_project_fwd launch failed: cudaError {err}")
+    ewa_project.launches += 1
+    return out
+
+
+ewa_project.launches = 0
+
+
+def ewa_project_bwd(means, cov3d, color, cam: Camera, cfg: RenderConfig, d_xy=None,
+                    d_conic=None, d_depth=None, d_alpha=None, needs=(True, True, True)):
+    """csrc/ewa_project.cu's backward on CUDA tensors: (d_means, d_cov3d,
+    d_color) as ``project_splats_bwd_ref`` gives them, each None where
+    ``needs`` (means, cov3d, color) does not ask for it; absent cotangents
+    (None) count as zero. One launch, counted in
+    ``ewa_project_bwd.launches`` (none for N = 0)."""
+    checked = _ewa_inputs(means, cov3d, color, cam)
+    n, dev = means.shape[0], means.device
+    cots = (("d_xy", d_xy, (n, 2)), ("d_conic", d_conic, (n, 3)), ("d_depth", d_depth, (n,)),
+            ("d_alpha", d_alpha, (n,)))
+    for name, t, shape in cots:
+        if t is not None and (t.dtype != torch.float32 or tuple(t.shape) != shape
+                              or t.device != dev):
+            raise ValueError(f"ewa_project_bwd: {name} {t.dtype} {tuple(t.shape)} on "
+                             f"{t.device}, wants float32 {shape} on {dev}")
+    (means, cov3d, color), camera = _on_card(*checked)
+    cots = [None if t is None else _build.aligned(t) for _, t, _ in cots]
+    d_means = torch.empty_like(means) if needs[0] else None
+    d_cov3d = torch.empty_like(cov3d) if needs[1] else None
+    d_color = torch.empty_like(color) if needs[2] else None
+    if n == 0:
+        return d_means, d_cov3d, d_color
+    fn = _build.entry("ewa_project", "ewa_project_bwd",
+                      [_P] * 8 + [_I, _I, _F, _F, _I] + [_P] * 4 + [_L] + [_P] * 4)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(means.data_ptr(), cov3d.data_ptr(), color.data_ptr(),
+                 *[t.data_ptr() for t in camera[:5]], cfg.width, cfg.height,
+                 cfg.raster.dilation, cfg.opacity_gain, int(cfg.raster.ms_antialiasing),
+                 *[ptr(t) for t in cots], n, ptr(d_means), ptr(d_cov3d), ptr(d_color), stream)
+    if err != 0:
+        raise RuntimeError(f"ewa_project_bwd launch failed: cudaError {err}")
+    ewa_project_bwd.launches += 1
+    return d_means, d_cov3d, d_color
+
+
+ewa_project_bwd.launches = 0
+
+
+class _EwaProject(torch.autograd.Function):
+    """The kernel pair: the forward kernel, and the backward kernel for the
+    gradients of means, cov3d and color that autograd asks for. radius and
+    valid carry no gradient; a cotangent that no caller sends stays None."""
+
+    @staticmethod
+    def forward(ctx, means, cov3d, color, scales_log, cam, cfg):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(means, cov3d, color)
+        ctx.cam, ctx.cfg = cam, cfg
+        out = ewa_project(means, cov3d, color, scales_log, cam, cfg)
+        ctx.mark_non_differentiable(out[3], out[5])
+        return out
+
+    @staticmethod
+    def backward(ctx, d_xy, d_conic, d_depth, _d_radius, d_alpha, _d_valid):
+        means, cov3d, color = ctx.saved_tensors
+        grads = ewa_project_bwd(means, cov3d, color, ctx.cam, ctx.cfg, d_xy, d_conic, d_depth,
+                                d_alpha, ctx.needs_input_grad[:3])
+        return (*grads, None, None, None)
+
+
+def project_splats(prepared: PreparedSplats, cam: Camera,
+                   cfg: RenderConfig) -> ProjectedSplats:
+    """Full per-splat preprocessing stage (dist.comp + raster mesh-shader
+    math): the EWA projection and the SH colour (``splat_rgb``).
+
+    On CUDA tensors the EWA part is the forward kernel of
+    csrc/ewa_project.cu, one launch counted in ``ewa_project.launches``,
+    and gradients to means, cov3d and color come from its backward kernel
+    (``ewa_project_bwd``); on CPU tensors the plain ``project_splats_ref``
+    runs under autograd. A camera field that requires a gradient raises
+    NotImplementedError: nothing trains the camera."""
+    for f in CAMERA_FIELDS:
+        if getattr(cam, f).requires_grad:
+            raise NotImplementedError(f"project_splats: no gradient reaches the camera ({f})")
+    if prepared.means.device.type == "cpu":
+        return project_splats_ref(prepared, cam, cfg)
+    xy, conic, depth, radius, alpha, valid = _EwaProject.apply(
+        prepared.means, prepared.cov3d, prepared.color, prepared.scales_log, cam, cfg)
+    return ProjectedSplats(xy=xy, conic=conic, depth=depth, radius=radius,
+                           color=splat_rgb(prepared, cam, cfg), alpha=alpha, valid=valid)
 
 
 # ---------------------------------------------------------------------------

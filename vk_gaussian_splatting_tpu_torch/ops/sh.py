@@ -272,12 +272,7 @@ def _kernel_inputs(sh, means, color, position):
             raise ValueError(f"sh_radiance: {name} of shape {tuple(t.shape)}, wants {shape}")
         if name != "sh" and t.dtype != torch.float32:
             raise TypeError(f"sh_radiance: {name} of dtype {t.dtype}, wants float32")
-    return tuple(_aligned(t) for t in (sh, means, color, position))
-
-
-def _aligned(t: torch.Tensor) -> torch.Tensor:
-    t = t.detach().contiguous()
-    return t if t.data_ptr() % 16 == 0 else t.clone()
+    return tuple(_build.aligned(t) for t in (sh, means, color, position))
 
 
 def sh_radiance_fwd(sh, means, color, position, m: int, show_sh_only: bool) -> torch.Tensor:
@@ -314,7 +309,7 @@ def sh_radiance_bwd(sh, means, color, position, m: int, show_sh_only: bool, d_rg
     if d_rgb.dtype != torch.float32 or tuple(d_rgb.shape) != (n, 3) or d_rgb.device != dev:
         raise ValueError(f"sh_radiance_bwd: d_rgb {d_rgb.dtype} {tuple(d_rgb.shape)} on "
                          f"{d_rgb.device}, wants float32 ({n}, 3) on {dev}")
-    d_rgb = _aligned(d_rgb)
+    d_rgb = _build.aligned(d_rgb)
     d_sh = torch.empty_like(sh) if needs[0] and sh.dtype != torch.uint8 else None
     d_means = torch.empty_like(means) if needs[1] else None
     d_color = torch.empty_like(color) if needs[2] and not show_sh_only else None
