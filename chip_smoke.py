@@ -1,23 +1,21 @@
 """Smoke test of the PyTorch port on one NVIDIA card (Hopper, sm_90a).
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --mesh-views ROUNDS   # phase 13's view sweep alone
-    python3 chip_smoke.py --lighting            # phase 14 alone (no report)
-    python3 chip_smoke.py --raytrace            # phase 15 alone (no report)
-    python3 chip_smoke.py --instances           # phase 16 alone (no report)
-    python3 chip_smoke.py --tools               # phase 17 alone (no report)
-    python3 chip_smoke.py --sh-radiance         # phase 18 alone (no report)
-    python3 chip_smoke.py --ewa-project         # phase 19 alone (no report)
+    python3 chip_smoke.py --mesh-views ROUNDS   # phase 10's view sweep alone
+    python3 chip_smoke.py --lighting            # phase 11 alone (no report)
+    python3 chip_smoke.py --raytrace            # phase 12 alone (no report)
+    python3 chip_smoke.py --instances           # phase 13 alone (no report)
+    python3 chip_smoke.py --tools               # phase 14 alone (no report)
 
-Drives the port's main paths — the 3DGS raster frame, ``render(prepared,
-camera, cfg)``, and the training step, ``train_step`` (render, loss,
-backward, Adam), each by the pair path (the default RenderConfig) and by
-the bucket path (``RasterConfig(method="bucket")``); then the 3DGUT and
-3DGRT raster frames (``Pipeline.MESH_3DGUT``, ``Pipeline.RTX``) and 3DGUT
-training on both paths; the packed tier of all three
-(``RasterConfig(pair_format="packed")``, forward only); stochastic
-transparency and its a-trous pass on all three and in training; the
-host-sorted frame (``render(..., host_order=)`` fed by
+Drives the port's main paths at full size on the card and checks them: the
+3DGS raster frame, ``render(prepared, camera, cfg)``, and the training
+step, ``train_step`` (render, loss, backward, Adam), each by the pair path
+(the default RenderConfig) and by the bucket path
+(``RasterConfig(method="bucket")``); then the 3DGUT and 3DGRT raster frames
+(``Pipeline.MESH_3DGUT``, ``Pipeline.RTX``) and 3DGUT training on both
+paths; the packed tier of all three (``RasterConfig(pair_format="packed")``,
+forward only); stochastic transparency and its a-trous pass on all three
+and in training; the host-sorted frame (``render(..., host_order=)`` fed by
 ``io/async_loader.AsyncHostSorter``, ``SortMethod.HOST``) forward and
 backward with the splat IO (PLY, spz, .splat); meshes (``render_mesh``,
 smooth and flat, and the mesh-composited 3DGS frame
@@ -32,17 +30,28 @@ a multi-instance scene with its project file and the inspection tools
 ``ImageCompare``, the overlays, the pixel traces); the tools around them
 (the benchmark sequencer ``python -m vk_gaussian_splatting_tpu_torch.bench``,
 the orbit and web viewers, the naive oracle, the sharded frames and train
-step over ``torch.distributed``); and the design probes P1-P3 through their own entry points — and checks
-them:
+step over ``torch.distributed``); the design probes P1-P3 through their
+own entry points; and the SH radiance and EWA projection pairs against
+their plain versions at the cells' splat counts. It measures no speed: the
+benchmark (``python3 -m splatbench.run``) does, end to end and per layer,
+and ``python -m vk_gaussian_splatting_tpu_torch.kernel_time`` times the
+bandwidth kernels alone beside their byte bounds. The smoke's scene and training start
+are the cells' (``splatbench.scene`` at inria_bicycle_6m.json's extent and
+mix, train_3dgs.json's jitter), at 1,000,000 splats. So the inputs of its
+full-size gates (the exact expansion's no-overflow check, the fitted caps,
+the kept counts) follow those benchmark files: tests/test_torch_inspect.py
+pins the extent, mix and jitter the gates were set on.
 
 1. builds the CUDA kernels from the checkout, one nvcc per source, all at
    once: the pair blender K1 (csrc/rasterize_fwd.cu) and its backward K2
    (csrc/rasterize_bwd.cu), the bucket rasterizer K3
    (csrc/raster_bucket_fwd.cu) and its backward K4
    (csrc/raster_bucket_bwd.cu), each source holding the gs2d and the gut3d
-   form of its kernel (csrc/response.cuh), and the probe kernels P1
-   (csrc/bench_roll.cu), P3 (csrc/bench_sort_stage.cu, three variants)
-   and P2 (csrc/bench_radix_ab.cu), and beside them the native host library
+   form of its kernel (csrc/response.cuh), the SH radiance pair
+   (csrc/sh_radiance.cu) and the EWA projection pair (csrc/ewa_project.cu),
+   and the probe kernels P1 (csrc/bench_roll.cu), P3
+   (csrc/bench_sort_stage.cu, three variants) and P2
+   (csrc/bench_radix_ab.cu), and beside them the native host library
    (native/fast_splats.cpp, c++ into build/native/); prints the kernels'
    -Xptxas -v reports and the card's name and power limit;
 2. golden gate: the checked-in trained scene at 256x192 through K1, PSNR
@@ -53,36 +62,26 @@ them:
    difference of 4 high-gradient opacities through ``render`` on the card;
 3. forward at full size: 1,000,000 splats at SH degree 3 (96.9 / 2.5 / 0.6 %
    small / mid / large scales) at 1920x1080, made on the card from a seeded
-   generator; 8 jittered frames through ``render``, with K1's and the SH
-   forward kernel's launch counts read around them (one each a frame); the exact expansion (max_pairs = 2^22), which must not
-   overflow; a bit-equal repeat frame; K1 against the twin over every tile;
-   K1's per-warp cull on that frame: its kept (warp, pair) counter equal to
-   the plain count (``ops/rasterize.pair_warp_may_hit`` over the steps each
-   tile enters), the kept share, and an audit of every tile for culled
-   (warp, pair)s that hit some pixel of the warp (``pair_hits(per_warp=
-   True)``; none allowed); K1's bound counts the kept evaluations and the
-   cull (``warp_cull_bound``, the all-pair figure beside it);
-4. training at full size: the same scene is the target, the start has
-   seeded jitter on means and sh_dc; 5 ``train_step``s with K1's, K2's and
-   the SH pair's launch counts read around them (one each a step), a falling finite loss and finite
-   gradients; one exact-expansion step; a bit-equal repeat backward; K2
-   against the twin backward over every tile of the training frame, in
-   tile batches; K2's per-tile cull of the pair lists on that frame: its
-   kept-pair counter against the plain predicate's count
-   (``ops/rasterize.pair_may_hit`` over the steps each tile enters,
-   exactly), the kept share, and an audit of every tile
-   for culled pairs that hit (``pair_hits``; none allowed); K2's bound
-   counts the kept pairs and the cull (``pair_bound``, the all-pair figure
-   beside it);
-5. CUDA-event timings after warm-up: project, bin, blend and the whole
-   frame; K1 and K2 against their twins at the frame's shape; fwd_bwd and
-   train_step; the (pixel, pair) evaluations and hits that both kernels'
-   bounds count;
-6. torch.profiler traces of three ``render`` calls per expansion and of
-   three ``train_step`` calls: kernels and kernel time per stage (the
-   entry points' own spans), the eight costliest kernels, and the device's
-   idle share;
-7. the bucket path, as 2-6 for the pair path: the golden frame at caps
+   generator; 8 jittered frames through ``render``, with K1's, the SH
+   forward kernel's and the EWA forward kernel's launch counts read around
+   them (one each a frame); the exact expansion (max_pairs = 2^22), which
+   must not overflow; a bit-equal repeat frame; K1 against the twin over
+   every tile; K1's per-warp cull on that frame: its kept (warp, pair)
+   counter equal to the plain count (``ops/rasterize.pair_warp_may_hit``
+   over the steps each tile enters), the kept share, and an audit of every
+   tile for culled (warp, pair)s that hit some pixel of the warp
+   (``pair_hits(per_warp=True)``; none allowed);
+4. training at full size: the same scene is the target, the start the
+   train cells' jittered one; 5 ``train_step``s with K1's, K2's, the SH
+   pair's and the EWA pair's launch counts read around them (one each a
+   step), a falling finite loss and finite gradients; one exact-expansion
+   step; a bit-equal repeat backward; K2 against the twin backward over
+   every tile of the training frame, in tile batches; K2's per-tile cull
+   of the pair lists on that frame: its kept-pair counter against the
+   plain predicate's count (``ops/rasterize.pair_may_hit`` over the steps
+   each tile enters, exactly), the kept share, and an audit of every tile
+   for culled pairs that hit (``pair_hits``; none allowed);
+5. the bucket path, as 2-4 for the pair path: the golden frame at caps
    fitted to it (``measure_required_caps`` -> ``fit_caps``), PSNR > 45 dB,
    no overflow, within 1e-4 of the pair frame, K3 against its twin over the
    frame; golden gradients, K4 against its twin (``bwd_gate``) and a
@@ -93,14 +92,12 @@ them:
    64 sampled tiles and every tile against the twin, the share of pixels
    within 2e-4 of the exact pair frame; 5 train steps with K3's and K4's
    launches counted, K4 against its twin on 64 sampled tiles, a bit-equal
-   repeat backward; timings and profiles as above. The per-tile cull of K3
-   and K4, on the headline frame: each kernel's kept-lane counter against
-   the plain predicate's count (``ops/raster_bucket.tile_may_hit``,
-   exactly) and the two equal, the kept share, and an audit
-   of all its tiles for culled lanes that hit (none allowed); K3's and K4's
-   bounds count the kept lanes (``bucket_bound``, the all-lane figures
-   beside them); K4's three launches timed apart by the profiler;
-8. the gut3d forms K1g-K4g (3DGUT, 3DGRT): golden-size 3DGUT frames on
+   repeat backward. The per-tile cull of K3 and K4, on the headline frame:
+   each kernel's kept-lane counter against the plain predicate's count
+   (``ops/raster_bucket.tile_may_hit``, exactly) and the two equal, the
+   kept share, and an audit of all its tiles for culled lanes that hit
+   (none allowed);
+6. the gut3d forms K1g-K4g (3DGUT, 3DGRT): golden-size 3DGUT frames on
    both paths, K1g and K3g against their twins over the frame, bucket
    against pair, the card against the CPU twin (flip-aware, with the
    flipped pair-pixels counted); golden gradients, K2g and K4g against
@@ -108,19 +105,15 @@ them:
    each path; one golden-size frame with fisheye, rolling shutter and DoF
    at temporal_samples=4; at full size, 8 frames of 3DGUT and of 3DGRT on
    each path with the gut3d launches counted, overflow reported, a
-   bit-equal repeat, frame_ms, K1g against its twin over every tile of the
-   3DGUT and 3DGRT pair frames with its per-warp cull checked as K1's, K3g
-   on 64 sampled tiles and on every tile, K3g's and K4g's cull checked on
-   the 3DGUT bucket frame as K3's and K4's; 3DGUT
-   training on each path (5 steps, launches counted, loss falling,
-   bit-equal repeat backward, K2g against its twin over every tile and
-   K4g on 64 sampled tiles, K2g's kept counter (it culls no pair: equal
-   to the tested pairs), fwd_bwd_ms, train_step_ms,
-   K4g's three launches);
-   profiles of a 3DGUT and a 3DGRT pair frame and a 3DGUT train step by
-   stage (each frame's kernel-busy time). The gut3d gates are
-   flip-aware (``GUT_*``);
-10. the packed tier, the forward-only forms K1p, K1gp (csrc/rasterize_fwd.cu
+   bit-equal repeat, K1g against its twin over every tile of the 3DGUT
+   and 3DGRT pair frames with its per-warp cull checked as K1's, K3g on 64
+   sampled tiles and on every tile, K3g's and K4g's cull checked on the
+   3DGUT bucket frame as K3's and K4's; 3DGUT training on each path (5
+   steps, launches counted, loss falling, bit-equal repeat backward, K2g
+   against its twin over every tile and K4g on 64 sampled tiles, K2g's
+   kept counter: it culls no pair, so equal to the tested pairs). The
+   gut3d gates are flip-aware (``GUT_*``);
+7. the packed tier, the forward-only forms K1p, K1gp (csrc/rasterize_fwd.cu
    ``rasterize_fwd_gs2dp``, ``_gut3dp``), K3p and K3gp
    (csrc/raster_bucket_fwd.cu): the golden scene at 256x192, 3DGS and 3DGUT
    on both paths, against the port's f32 frame (> 55 dB, ids > 99 %), the
@@ -132,11 +125,8 @@ them:
    against f32, packed rows made on the card bit-equal to the CPU's from
    the same f32 quantities, each packed kernel against its twin over every
    tile (K3gp on 64 sampled tiles too), its kept count against the plain
-   predicate's and the audit of every tile, its bound (the kept lanes and
-   the unpacking, packed bytes: ``OPS_UNPACK``), its plain twin's time, and
-   the stage and frame times of the packed frame and each packed kernel
-   alone beside the f32 frame's and kernel's, in turns (``packed_timings``);
-11. stochastic transparency (``cfg.stochastic`` SPLAT: the ``_stoch``
+   predicate's and the audit of every tile;
+8. stochastic transparency (``cfg.stochastic`` SPLAT: the ``_stoch``
    forms of K1 and K3 for gs2d, gut3d, gs2dp and gut3dp, of K2 and K4 for
    gs2d and gut3d; ``stochastic``): at the headline cell and caps, 3DGS
    pairs and bucket at temporal_samples=4, 3DGUT pairs and bucket and 3DGRT
@@ -146,46 +136,38 @@ them:
    / samples, a bit-equal repeat; sample 0's blend against its twin on
    every tile (gs2d and gs2dp bit for bit, gut3d >= 99.9 % of pixels bit
    for bit, the others counted), its kept counter against the plain count
-   of the same stochastic sweep, its bound (the deterministic form's work
-   on this run's stochastic sweep plus the hash and the accept per draw,
-   an evaluation whose alpha passes the cutoffs: ``OPS_HASH_INT`` at the
-   INT32 rate, ``OPS_HASH_F32``), its twin's time and the kernel alone beside its
-   deterministic form in turns; 3 stochastic ``train_step``s on 3DGS and
+   of the same stochastic sweep; 3 stochastic ``train_step``s on 3DGS and
    3DGUT on both methods (launches counted; opacities, scales and
    quaternions get exactly 0), each backward form against its twin with
    the loss's own cotangent on every tile (colour rows at K2's / K4's
-   gates, every other row exactly 0), its kept counter, bound, times; the
-   PSNR of 3DGS pairs
-   against the deterministic frame rising from 1 to 4 to 16 samples per
-   pixel, and the a-trous pass at 1080p (equal to ``denoise_output``,
-   timed);
-12. the host-sorted path and the IO (``host_sorted``), at the headline cell
+   gates, every other row exactly 0) and its kept counter; the PSNR of
+   3DGS pairs against the deterministic frame rising from 1 to 4 to 16
+   samples per pixel, and the a-trous pass at 1080p equal to
+   ``denoise_output``;
+9. the host-sorted path and the IO (``host_sorted``), at the headline cell
    and caps: the native library built, its radix sort of the 1 M plane
-   distances equal to numpy's stable argsort, both timed, and the sorter's
-   wall time from request to consume, the means' copy to the host and the
-   order's to the card; 8 jittered frames through ``render(...,
-   host_order=)`` on the bucket path, each sorted by the sorter, with only
+   distances equal to numpy's stable argsort and the sorter's order equal
+   to it; 8 jittered frames through ``render(..., host_order=)`` on the
+   bucket path, each sorted by the sorter, with only
    ``rasterize_buckets.launches_keyrow`` moving (the key-row form of K3,
    csrc/raster_bucket_fwd.cu ``raster_bucket_fwd_keyrow``), no overflow, a
    bit-equal repeat, the frame against the device-sorted bucket frame
    (share within 2e-4, max, PSNR, ids, the picked depth the model's), a
    reversed order moving it by more than 1e-3, K3 _keyrow against its twin
    on every tile, the kept counters of K3 and K4 _keyrow against
-   ``tile_may_hit`` over the key-row merge and the audit, their bounds, the
-   stage, frame and twin times and K3 _keyrow alone beside K3 in turns; the
-   pair path with the order (K1 moves) against the device-sorted pair
-   frame; packed rows on the bucket config with the order (K1p moves, not
-   K3p; the packed pair frame); 3 fwd_bwd through ``render(...,
-   host_order=)`` (K3 and K4 _keyrow once a step, a bit-equal repeat), K4
-   _keyrow against its twin with the loss's cotangent on every tile and on
-   64 sampled tiles (``bwd_gate``), the key row's gradient exactly 0, its
-   times and alone beside K4; a 2-sample stochastic host-sorted frame
-   (``_stoch_keyrow`` moves) whose sample-0 blend equals its twin bit for
-   bit, and one stochastic fwd_bwd (K4 ``_stoch_keyrow``) against its twin,
-   each with its kept counter, bound, times and alone beside its ``_stoch``
-   form; then the 1 M scene through save and ``load_scene`` in PLY (exact,
-   the native reader), spz and .splat (within their quantisation), timed;
-13. meshes (``meshes``), at the headline cell: a mesh built in code
+   ``tile_may_hit`` over the key-row merge and the audit; the pair path
+   with the order (K1 moves) against the device-sorted pair frame; packed
+   rows on the bucket config with the order (K1p moves, not K3p; the
+   packed pair frame); 3 fwd_bwd through ``render(..., host_order=)`` (K3
+   and K4 _keyrow once a step, a bit-equal repeat), K4 _keyrow against its
+   twin with the loss's cotangent on every tile and on 64 sampled tiles
+   (``bwd_gate``), the key row's gradient exactly 0; a 2-sample stochastic
+   host-sorted frame (``_stoch_keyrow`` moves) whose sample-0 blend equals
+   its twin bit for bit, and one stochastic fwd_bwd (K4 ``_stoch_keyrow``)
+   against its twin, each with its kept counter; then the 1 M scene
+   through save and ``load_scene`` in PLY (exact, the native reader), spz
+   and .splat (within their quantisation);
+10. meshes (``meshes``), at the headline cell: a mesh built in code
    (``headline_mesh``: an octahedron sphere of 131,072 faces and a ground
    grid of 20,000, about half the pixels, splats in front of, inside and
    under it), lit by the headlight. First the view sweep (``mesh_views``,
@@ -196,94 +178,85 @@ them:
    it alone, ROUNDS times). ``render_mesh`` smooth and flat (K1
    tri2d_smooth, tri2d), 4 jittered frames each with only the form's
    launch counter moving, T exactly 0 or 1, the coverage, the face, slot
-   and pair counts and the bin time, no overflow, a bit-equal repeat; each
-   form against its twin on 64 sampled tiles, its kept counter against
-   ``pair_warp_may_hit``'s count and the audit over every tile, its bound
-   (``OPS_ALPHA``, ``setup_ops``, ``OPS_REACH``, ``OPS_WARP_TEST`` of the
-   triangles), its
-   time, alone and its twin's. The composed frame (exact expansion,
-   2^22 pairs; deterministic and ``cfg.stochastic`` SPLAT), 8 jittered
-   frames each with only K1 tri2d_smooth and the splat pass's form
-   (gs2d_clip, gs2d_clip_stoch) moving, no overflow, a bit-equal repeat,
-   the share of splat picks the mesh changed; K1's form against its twin
-   on sampled tiles, its kept counter and audit, the limit 0 everywhere
-   equal to gs2d's form bit for bit, bound, times beside gs2d's form in
-   turns (events and alone), the composed frame beside the 3DGS frame, a
-   profile. One loss step through each composed frame (K2 gs2d_clip,
+   and pair counts, no overflow, a bit-equal repeat; each form against its
+   twin on 64 sampled tiles, its kept counter against
+   ``pair_warp_may_hit``'s count and the audit over every tile. The
+   composed frame (exact expansion, 2^22 pairs; deterministic and
+   ``cfg.stochastic`` SPLAT), 8 jittered frames each with only K1
+   tri2d_smooth and the splat pass's form (gs2d_clip, gs2d_clip_stoch)
+   moving, no overflow, a bit-equal repeat, the share of splat picks the
+   mesh changed; K1's form against its twin on sampled tiles, its kept
+   counter and audit, the limit 0 everywhere equal to gs2d's form bit for
+   bit. One loss step through each composed frame (K2 gs2d_clip,
    gs2d_clip_stoch once; a bit-equal repeat) and K2's form against its
    twin with the loss's cotangent on sampled tiles (``bwd_gate``; the
    stochastic form's colour rows, every other row 0), its kept counter
-   and audit, bound and times beside K2's gs2d form. One gradient of the
-   flat mesh's image in its face colours (K2 tri2d once, repeatable), K2
-   tri2d against its twin (colour rows; the vertex rows exactly 0), its
-   kept counter (every tested pair), bound and times;
-14. lighting and shadows (``lighting``), at the headline cell with two
+   and audit. One gradient of the flat mesh's image in its face colours
+   (K2 tri2d once, repeatable), K2 tri2d against its twin (colour rows;
+   the vertex rows exactly 0) and its kept counter (every tested pair);
+11. lighting and shadows (``lighting``), at the headline cell with two
    lights (``headline_lights``: a directional light from above, which gets
    a 512^2 cone map, and a point light inside the scene's bounding sphere,
    which gets six 256^2 cube faces): ``render_3dgs_lit`` with two
    per-instance materials over the two halves of the splats, placed as two
    instances and routed by their flatten's global index table
-   (``halves_scene``; K1 gs2d twice: the pass and
-   its normal buffer; a bit-equal repeat, finite, covered pixels changed by
-   the shade); ``render_hybrid`` HYBRID and HYBRID_3DGUT on 8 jittered
-   frames each with every launch counter zeroed (per frame the blend's form
-   twice and K1's multi-iso form, csrc/rasterize_fwd.cu
-   ``rasterize_fwd_iso``, seven times), a bit-equal repeat, the shaded frame
-   unlike the one with no light, each light's lookups over the covered
-   pixels at two staircase levels or more; each map's pairs, overflow and
-   longest tile list; K1's multi-iso form on the cone map and on a 2048^2
-   map against its twin on sampled tiles, on the card bit for bit against
-   K1 gs2d (rows 0-3; row 4 + k against the pick at depth_iso =
-   ISO_LEVELS[k]), its kept counter against ``pair_warp_may_hit``'s count
-   and the audit of every tile, its bound (``OPS_PER_HIT``: four picks),
-   its twin's time and alone beside K1 gs2d in turns; ``render_hybrid`` at
-   128x96 with 2,000 splats on the card against the CPU (a shaded pixel
-   beyond 1e-4 must read another staircase level); one gradient of the lit
-   frame's shaded image (K2 gs2d twice, each launch against its twin with
-   its own context, ``bwd_gate``); the lit and hybrid frames beside the
-   3DGS frame and the hybrid frame's stages by events, and its profile;
-15. ray tracing (``raytracing``; no kernel of its own, so no report entry):
+   (``halves_scene``; K1 gs2d twice: the pass and its normal buffer; a
+   bit-equal repeat, finite, covered pixels changed by the shade);
+   ``render_hybrid`` HYBRID and HYBRID_3DGUT on 8 jittered frames each
+   with every launch counter zeroed (per frame the blend's form twice and
+   K1's multi-iso form, csrc/rasterize_fwd.cu ``rasterize_fwd_iso``, seven
+   times), a bit-equal repeat, the shaded frame unlike the one with no
+   light, each light's lookups over the covered pixels at two staircase
+   levels or more; each map's pairs, overflow and longest tile list; K1's
+   multi-iso form on the cone map and on a 2048^2 map against its twin on
+   sampled tiles, on the card bit for bit against K1 gs2d (rows 0-3; row 4
+   + k against the pick at depth_iso = ISO_LEVELS[k]), its kept counter
+   against ``pair_warp_may_hit``'s count and the audit of every tile;
+   ``render_hybrid`` at 128x96 with 2,000 splats on the card against the
+   CPU (a shaded pixel beyond 1e-4 must read another staircase level); one
+   gradient of the lit frame's shaded image (K2 gs2d twice, each launch
+   against its twin with its own context, ``bwd_gate``);
+12. ray tracing (``raytracing``; no kernel of its own, so no report entry):
    ``render_3dgrt_exact`` on tests/test_grt.py's 150-splat scene above 35
-   dB against ``render_3dgrt`` (no blend launched; profiled), and on the
-   golden scene at 256x192 (timed, its PSNR against the raster frame
-   logged); ``render_hybrid`` with ``rt.shadows="ray"`` at 160x90 on the
-   headline scene with phase 14's two lights, HYBRID and HYBRID_3DGUT, one
-   frame each with the launch counters zeroed (the blend's form twice),
-   each light's shadow trace timed; ``render_composed_wavefront`` at 1080p
-   with phase 13's mesh, the sphere glass and the ground a mirror, stride 16,
-   3 bounces (the launch counters zeroed: tri2d_smooth and gs2d_clip once),
+   dB against ``render_3dgrt`` (no blend launched), and on the golden scene
+   at 256x192 (its PSNR against the raster frame logged);
+   ``render_hybrid`` with ``rt.shadows="ray"`` at 160x90 on the headline
+   scene with phase 11's two lights, HYBRID and HYBRID_3DGUT, one frame
+   each with the launch counters zeroed (the blend's form twice), one
+   shadow trace per light; ``render_composed_wavefront`` at 1080p with
+   phase 10's mesh, the sphere glass and the ground a mirror, stride 16, 3
+   bounces (the launch counters zeroed: tri2d_smooth and gs2d_clip once),
    then the same bounces step by step (spawn, trace_mesh, trace_splats,
    the rest, the live rays) equal to the frame bit for bit; on 128 rays of
    each batch (primary, shadow, first bounce) the card against the CPU at
    the tracer's gates, repeats bit-equal, the pass and any-hit estimators
    finite with T 0 or 1. The cuts are listed beside ``RT_SHADE_SIZE``;
-16. instances, project files and the inspection tools (``instances``; no
+13. instances, project files and the inspection tools (``instances``; no
    kernel of their own, so no report entry; ``--instances`` runs it alone
    after the builds): the headline mix at 250,000 splats placed five times
    (identity; a 35 degree turn, scale 0.8; a sheared non-uniform transform,
    the general bake; a rigid one with opacity_gain 0.6 and splat_scale
-   1.25; an invisible one), 1 M splats after ``SplatScene.flatten``, whose
-   host times (and each bake's alone) are logged; the flatten on the card
-   against the port on the CPU (the table exactly, the fields within 1e-6
-   of each row's scale); 8 jittered frames on pairs (exact expansion) and
-   on bucket (caps fitted over them), each main path with its wrapper's
-   counters zeroed (one K1 or K3 gs2d launch a frame), bit-equal repeats,
-   each instance's share of the pixels, K1 and K3 against their twins on
-   sampled tiles, both frames beside the headline 1 M frame in turns; the
-   lit frame with four per-instance materials routed by the real table
-   (K1 gs2d twice; the material index = the table's instance of each
-   picked splat); the session saved (the asset as PLY, the headline camera
-   and a fisheye rolling-shutter one, phase 14's lights) and reopened on
-   the card, its flatten's frame bit-equal, a second save the same JSON;
-   MSE, PSNR and FLIP (both modes) at 1080p against the frame with the
-   rigid instance moved by 0.05, timed, and on a 256x144 crop the card
-   against the CPU within 1e-5; ``ImageCompare`` with three samples and
-   the six composites; the grid and the three gizmo modes over the frame,
-   timed, and at 320x180 the card against the CPU within 1e-5;
-   ``pixel_trace`` at 16 pixels of the exact pair frame (T above 1e-3,
-   fewer than 200 contributors) within 2e-5 of it, ``pixel_trace_gut``
-   at 4 pixels each within 2e-2 of ``render_3dgut`` and ``render_3dgrt``;
-17. the tools and multi-device (``tools``; no kernel of their own, their
+   1.25; an invisible one), 1 M splats after ``SplatScene.flatten``; the
+   flatten on the card against the port on the CPU (the table exactly, the
+   fields within 1e-6 of each row's scale); 8 jittered frames on pairs
+   (exact expansion) and on bucket (caps fitted over them), each main path
+   with its wrapper's counters zeroed (one K1 or K3 gs2d launch a frame),
+   bit-equal repeats, each instance's share of the pixels, K1 and K3
+   against their twins on sampled tiles; the lit frame with four
+   per-instance materials routed by the real table (K1 gs2d twice; the
+   material index = the table's instance of each picked splat); the
+   session saved (the asset as PLY, the headline camera and a fisheye
+   rolling-shutter one, phase 11's lights) and reopened on the card, its
+   flatten's frame bit-equal, a second save the same JSON; MSE, PSNR and
+   FLIP (both modes) at 1080p against the frame with the rigid instance
+   moved by 0.05, and on a 256x144 crop the card against the CPU within
+   1e-5; ``ImageCompare`` with three samples and the six composites; the
+   grid and the three gizmo modes over the frame, and at 320x180 the card
+   against the CPU within 1e-5; ``pixel_trace`` at 16 pixels of the exact
+   pair frame (T above 1e-3, fewer than 200 contributors) within 2e-5 of
+   it, ``pixel_trace_gut`` at 4 pixels each within 2e-2 of
+   ``render_3dgut`` and ``render_3dgrt``;
+14. the tools and multi-device (``tools``; no kernel of their own, their
    launches and frame differences added to the K1, K1g, K3, K3g and K2
    entries as ``tools_launches`` and ``tools_max_abs_err``; ``--tools``
    runs it alone after the builds): the headline scene written once as a
@@ -291,30 +264,27 @@ them:
    in-process on a cfg of the reference grammar (MESH at shformat 0, 1, 2,
    MESH_3DGUT, RTX, each with --updateData, one --screenshot) with
    ``--method pairs`` and ``bucket``: stdout parsed by ``bench/report.py``,
-   every block's four timers (both columns logged), one K1 / K3 (K1g / K3g)
-   launch for each frame it ran, the screenshot's PNG decoded equal to the
-   8-bit image of ``render`` bit for bit, the Rasterization bytes beside
-   the allocator's peak rise over one frame, the timers beside the smoke's
-   own stage times; the orbit viewer
-   (4 frames at 1080p) and the web viewer on 127.0.0.1, port 0, in a thread
-   (the page and three frames: 3DGS rgb, 3DGUT depth, 3DGRT trans), each
-   PNG decoded (zlib where Pillow is absent) equal to the 8-bit image of
-   ``render`` / ``RenderSession.render``, each request's latency and a
-   frame's render and PNG times; the naive oracle on 2,000 splats at
-   128x96 (``rasterize_naive`` against K1's frame within 3e-5 where the
-   blender never froze a pixel, 1.5e-4 where it did; ``rasterize_naive_gut``
+   every block's four timers named, one K1 / K3 (K1g / K3g) launch for
+   each frame it ran, the screenshot's PNG decoded equal to the 8-bit
+   image of ``render`` bit for bit, the Rasterization bytes beside the
+   allocator's peak rise over one frame; the orbit viewer (4 frames at
+   1080p) and the web viewer on 127.0.0.1, port 0, in a thread (the page
+   and three frames: 3DGS rgb, 3DGUT depth, 3DGRT trans), each PNG decoded
+   (zlib where Pillow is absent) equal to the 8-bit image of ``render`` /
+   ``RenderSession.render``; the naive oracle on 2,000 splats at 128x96
+   (``rasterize_naive`` against K1's frame within 3e-5 where the blender
+   never froze a pixel, 1.5e-4 where it did; ``rasterize_naive_gut``
    against K1g's at the gut3d gates); world size 1 over NCCL: the sharded
    3DGS, 3DGUT and 3DGRT frames on both methods against the single-device
-   ones (bit-equal, else the gates), the sharded frame's time beside the
-   single-device one in turns and both profiled, ``train_step_sharded``
-   against one single-device step, and ``python -m
-   ...parallel.distributed --num-processes 1``; two ranks on the one card
-   over gloo with CUDA tensors (this script as ``--gloo-rank`` subprocesses,
-   each with a timeout; first the collectives on small CUDA tensors, which
-   must give the right results): the 3DGS pairs (exact expansion) and
-   bucket bands against the single-device frame (3e-5 on pixels never
-   frozen, 1.5e-4 on frozen ones);
-9. the probes (vk_gaussian_splatting_tpu_torch/probes): each probe's entry
+   ones (bit-equal, else the gates), ``train_step_sharded`` against one
+   single-device step, and ``python -m ...parallel.distributed
+   --num-processes 1``; two ranks on the one card over gloo with CUDA
+   tensors (this script as ``--gloo-rank`` subprocesses, each with a
+   timeout; first the collectives on small CUDA tensors, which must give
+   the right results): the 3DGS pairs (exact expansion) and bucket bands
+   against the single-device frame (3e-5 on pixels never frozen, 1.5e-4
+   on frozen ones);
+15. the probes (vk_gaussian_splatting_tpu_torch/probes): each probe's entry
    point at its script's default arguments (``bench_roll.run``,
    ``bench_sort_stage.run`` per variant, ``bench_radix_ab.run``: their
    lines are printed), with every probe's launch count zeroed before and
@@ -326,37 +296,26 @@ them:
    keys; a mask table that duplicates columns) and at the default (4096
    blocks); P2's output at every W for one block and for 256, and every
    copied block of 4-step check runs (one block, two) against the twin's;
-   each timed with CUDA events beside its twin, a library yardstick
-   (torch.sort + take_along_dim of the key rows, or index_select of the
-   same blocks), the key network alone (P1 and P3 at 2 rows) and its bound
-   (``probe_bound``: the (key, index) network and one permutation, the
-   bound of the row-moving form logged beside it, and the share of the
-   bound; P2's ``copy_bound``: its offsets reach 8 MB of the source, and
-   every copy lands in shared memory);
-18. the SH radiance pass (``sh_radiance_phase``; ``--sh-radiance`` runs it
-   alone after the builds): csrc/sh_radiance.cu's forward and backward at
-   6,130,000 and 1,000,000 splats at SH 3 in f32 (the two cells' scenes),
-   the forward against the plain ``sh_radiance_ref`` on the card (within
-   2e-6), the backward against autograd through it and against the
-   closed-form ``sh_radiance_bwd_ref`` (each gradient within 1e-5 of its
-   largest entry); each kernel alone (profiler) and with events around its
-   wrapper beside its byte bound and the plain versions' times (the
-   pair's report entries take their launches from phases 3 and 4);
-19. the EWA projection (``ewa_project_phase``; ``--ewa-project`` runs it
-   alone after the builds): csrc/ewa_project.cu's forward and backward at
-   6,130,000 and 15,300,000 splats (the two 3DGS cells' counts) at 1080p,
-   the forward against the plain ``project_splats_ref`` on the card, the
-   backward against autograd through it and against the closed-form
-   ``project_splats_bwd_ref``, at tests/test_torch_cuda.py's gates; each
-   kernel alone (profiler) and with events beside its byte bound and the
-   plain versions' times (launches from phases 3 and 4, as phase 18's).
+16. the SH radiance pair (``sh_radiance_phase``): csrc/sh_radiance.cu's
+   forward and backward at 6,130,000 and 1,000,000 splats at SH 3 in f32
+   (the 3DGS cells' and the 3DGUT trainer's counts), the forward against
+   the plain ``sh_radiance_ref`` on the card (within 2e-6), the backward
+   against autograd through it and against the closed-form
+   ``sh_radiance_bwd_ref`` (each gradient within 1e-5 of its largest
+   entry); the pair's report entries take their launches from phases 3
+   and 4;
+17. the EWA projection pair (``ewa_project_phase``): csrc/ewa_project.cu's
+   forward and backward at 6,130,000 and 15,300,000 splats (the 3DGS
+   cells' and the hybrid cell's counts) at 1080p, the forward against the
+   plain ``project_splats_ref`` on the card, the backward against autograd
+   through it and against the closed-form ``project_splats_bwd_ref``, at
+   tests/test_torch_cuda.py's gates (launches from phases 3 and 4).
 
 Without a CUDA device it raises and prints no result. The last line is
 ``{"ok": true, "device": {...}}``; the line before it holds the kernel
-report as JSON, and the line before that the card's name and power limit.
-Every number printed was measured in this run; each kernel's bound is
-computed from this run's inputs (``kernel_bound``, ``roofline``,
-``copy_bound``).
+report as JSON (each kernel's launches, its largest errors against its
+references and the kept share of its cull), and the line before that the
+card's name and power limit.
 """
 
 from __future__ import annotations
@@ -369,7 +328,6 @@ import io
 import json
 import math
 import os
-import re
 import subprocess
 import sys
 import tempfile
@@ -427,8 +385,7 @@ from vk_gaussian_splatting_tpu_torch.ops.response import (  # noqa: E402
 from vk_gaussian_splatting_tpu_torch.probes import bench_radix_ab as probe_radix  # noqa: E402
 from vk_gaussian_splatting_tpu_torch.probes import bench_roll as probe_roll  # noqa: E402
 from vk_gaussian_splatting_tpu_torch.probes import bench_sort_stage as probe_stage  # noqa: E402
-from vk_gaussian_splatting_tpu_torch.timing import call_ms, device_label  # noqa: E402
-from vk_gaussian_splatting_tpu_torch import timing  # noqa: E402
+from vk_gaussian_splatting_tpu_torch.timing import device_label  # noqa: E402
 from vk_gaussian_splatting_tpu_torch.render import (  # noqa: E402
     render,
     render_3dgrt,
@@ -446,7 +403,6 @@ from vk_gaussian_splatting_tpu_torch.render.deferred import (  # noqa: E402
     instance_index_image,
     normal_bins,
     normals_from_blend,
-    render_normal_buffer,
     surface_points,
 )
 from vk_gaussian_splatting_tpu_torch.render.pipelines import (  # noqa: E402
@@ -470,8 +426,6 @@ from vk_gaussian_splatting_tpu_torch.render.shadows import (  # noqa: E402
     light_camera,
     make_ray_shadow_fn,
     make_shadow_fn,
-    render_cube_shadow_map,
-    render_deep_shadow_map,
     scene_bounds,
     shadow_map_bins,
 )
@@ -482,8 +436,8 @@ from vk_gaussian_splatting_tpu_torch.render.rays import build_tile_rays  # noqa:
 from vk_gaussian_splatting_tpu_torch.scene.splat_set import (  # noqa: E402
     SH_C0,
     covariance_from_scale_rot,
-    random_splats,
 )
+from splatbench import scene as cell_scene  # noqa: E402
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 FIELDS = ("means", "scales", "quats", "opacities", "sh_dc", "sh_rest")
@@ -583,139 +537,11 @@ ID_AGREE = 0.999
 # zeroed (a wrong suffix).
 BWD_RTOL = 1e-4
 BWD_ELEM_RTOL, BWD_ELEM_SHARE = 1e-2, 0.999
-# The bound: f32 operations, each add, multiply, compare, select, exp,
-# sqrt and rsqrt counted as one, as the kernels' sources spell them
-# (csrc/response.cuh). Every (pixel, pair) evaluation costs the alpha test:
-# gs2d 17 (offsets 2, quadratic form 9, scale, exp, opacity, 2 cutoffs,
-# clamp), gut3d 68 (o - p 3, R^T (o - p) and R^T d 30, the two scalings 6,
-# the norm 6, rsqrt, normalising 3, the cross product 9, its square 5,
-# the degree-2 response 2, opacity, 2 cutoffs). A hit, an evaluation whose
-# alpha passes the cutoffs, adds the blend in K1 (10: weight, 3 colour
-# multiply-adds, T update, depth pick) and in K2 the blend's backward and
-# the model's VJP plus one add per gradient row to reduce it over the
-# tile: gs2d 44 + 9 = 53; gut3d 20 (dalpha, colours, T) + 176 (the VJP:
-# cross products 18, normalisation 37, R and the scales 45, position 18,
-# quaternion 58) + 14 = 210 (``ops/rasterize.blend_work`` counts
-# evaluations and hits). The bucket kernels K3 and K4 do the same per
-# evaluation and hit, over each tile's merged window
-# (``ops/raster_bucket.bucket_work``), plus one operation per key
-# comparison of the merge and, in K4, one add per (row, tile, shared lane)
-# of the reduce over the reading tiles. K3 and K4 evaluate only the lanes
-# their cull keeps (``bucket_bound``), and the cull (csrc/response.cuh
-# may_hit) costs f64 operations, as its source spells them without the
-# conversions: per
-# tested (tile, lane) gs2d 45 (finiteness 7, the conic's tests 5, the
-# rounding term 7, the opacity test 1, tau 5, the two radii 12, the box 8),
-# gut3d 96 (|q|^2 7, finiteness 19, the thresholds 5, the scales 12, the
-# distances to the cone 41, the cut distance 5, the radius 6, the test 1);
-# and per pixel of a tile gut3d's TileBound, 67 (|d|^2 5, finiteness 7, the
-# warp sums 30, rho 8, cos theta 7, the warp max and min 10).
-# K1 and K1g split the cull: per tested pair the pair's part (reach: gs2d
-# 37, the box's 8 less; gut3d 52: |q|^2 7, finiteness 19, the thresholds
-# 5, the scales 12, kappa 3, the cut distance with its margin 6), per
-# tested (warp, pair) the test against the warp's bound (reach_hits: gs2d
-# the box 8; gut3d 45: the bound's validity 1, the distances to the cone
-# 31, the radius with its rounding term 7, the nearest distance 5, the
-# test 1); and per pixel gut3d's warp bound, 79 (the tile bound's 67, and
-# the centre and axis, which every lane computes, 12).
-# The mesh models (phase 13): gs2d_clip evaluates gs2d's 17 and its keep
-# (the limit's two compares and the select, 3: 20), and culls as gs2d. The
-# triangles' coverage, tri2d and tri2d_smooth, counts each term once where
-# it varies: per (pixel, pair) evaluation 23 (per edge the pixel less a
-# vertex 2, two multiplies and a subtraction; the tests 8); per tested
-# (tile, pair) 24 (OPS_PAIR_SETUP: the vertices less the tile origin 6, the
-# edge differences 6, three tolerances of 4: two abs, an add, a multiply);
-# per pixel 10 (OPS_PIXEL_SETUP: the tile origin, per axis a divide, a
-# floor, a multiply, a subtraction; the origin 2). Their reach (f64): per tested pair
-# 41 (finiteness 6, per edge the coefficients 5 and the tolerance 4, the
-# vertex box 8), per tested (warp, pair) 69 (the extent S 8, the rounding
-# term 2, per edge the extremes over the rectangle 13, the slack 2 and the
-# tests 4, the answer 2).
-OPS_ALPHA = {"gs2d": 17, "gut3d": 68, "gs2d_clip": 20, "tri2d": 23, "tri2d_smooth": 23}
-OPS_PAIR_SETUP = {"tri2d": 24, "tri2d_smooth": 24}
-OPS_PIXEL_SETUP = {"tri2d": 10, "tri2d_smooth": 10}
-OPS_CULL = {"gs2d": 45, "gut3d": 96, "gs2d_clip": 45}
-OPS_TILE_BOUND = {"gs2d": 0, "gut3d": 67, "gs2d_clip": 0}
-OPS_REACH = {"gs2d": 37, "gut3d": 52, "gs2d_clip": 37, "tri2d": 41, "tri2d_smooth": 41}
-OPS_WARP_TEST = {"gs2d": 8, "gut3d": 45, "gs2d_clip": 8, "tri2d": 69, "tri2d_smooth": 69}
-OPS_WARP_BOUND = {"gs2d": 0, "gut3d": 79, "gs2d_clip": 0, "tri2d": 0, "tri2d_smooth": 0}
-OPS_PER_HIT = {"rasterize_fwd": 10, "rasterize_bwd": 53,
-               "raster_bucket_fwd": 10, "raster_bucket_bwd": 53,
-               "rasterize_fwd_gut3d": 10, "rasterize_bwd_gut3d": 210,
-               "raster_bucket_fwd_gut3d": 10, "raster_bucket_bwd_gut3d": 210}
-OPS_PER_HIT.update({name: 10 for name in PACKED_KERNELS})
-# The stochastic forms (phase 11) do their parent's work per evaluation plus,
-# per draw (an evaluation whose alpha passes the cutoffs: only there do the
-# kernels hash), the hash and the accept: OPS_HASH_INT integer operations
-# (the mix's 3 multiplies and 2 xors, 3 xor-shifts of 2, 2 multiplies, the
-# shift) at the INT32 rate and OPS_HASH_F32 (the convert, the scale, 2
-# compares, the select); a hit is an accepted pair. The forward blends it as before (10). The backward
-# skips the model's VJP and dalpha: the weight 1, the colour dot 5, the
-# running sum 2, q 1, the 3 colour gradients, T 1 (13), plus one add per
-# gradient row to reduce it over the tile: gs2d 13 + 9, gut3d 13 + 14.
-OPS_HASH_INT, OPS_HASH_F32 = 14, 5
-OPS_PER_HIT.update({name + tr.STOCH: ops for name, ops in OPS_PER_HIT.items()
-                    if "_fwd" in name})
-OPS_PER_HIT.update({"rasterize_bwd_stoch": 22, "raster_bucket_bwd_stoch": 22,
-                    "rasterize_bwd_gut3d_stoch": 27, "raster_bucket_bwd_gut3d_stoch": 27})
-# The mesh forms (phase 13): K1 blends a hit as before (10); tri2d_smooth
-# adds its per-pixel colour and depth (the area 2, its guard 3, the inverse
-# 1, the barycentrics 3, the perspective weights 6, the depth 4, the colours
-# 18: 37). K2 gs2d_clip does gs2d's work per hit (53, its stochastic form
-# 22); K2 tri2d's least work per hit is the colour gradients' (the weight,
-# the colour dot, the running sum, q, 3 colour gradients, T: 13, and 9 adds
-# to reduce the rows; its vertex rows are zeros: 22)
-OPS_PER_HIT.update({"rasterize_fwd_tri2d": 10, "rasterize_fwd_tri2d_smooth": 47,
-                    "rasterize_fwd_gs2d_clip": 10, "rasterize_fwd_gs2d_clip_stoch": 10,
-                    "rasterize_bwd_gs2d_clip": 53, "rasterize_bwd_gs2d_clip_stoch": 22,
-                    "rasterize_bwd_tri2d": 22})
-# K1's multi-iso form (phase 14) blends a hit as gs2d does, with four picks
-# in place of one (three more compares and selects: 13)
-OPS_PER_HIT.update({"rasterize_fwd" + tr.ISO: 13})
-# The key-row forms (phase 12) do their parent's work; their merge reads the
-# key row in place of the depth row
-OPS_PER_HIT.update({name + tr.KEYROW: OPS_PER_HIT[name]
-                    for name in ("raster_bucket_fwd", "raster_bucket_bwd",
-                                 "raster_bucket_fwd_stoch", "raster_bucket_bwd_stoch")})
-# The packed forms do their parent's work on the unpacked slots, plus the
-# unpacking once per pair or lane their staging reads (the least work; K1
-# and K3 stage a kept lane twice, for the cull and for the blend): gs2dp 9
-# (a mask or a shift for each of 5 bf16 halves, the u16's mask, convert and
-# scale, 1 more mask), gut3dp 26 (7 bf16 halves, the u16's 3, 3 more, and
-# the quaternion's renormalisation: 4 squares, 4 adds, rsqrt, 4 scalings).
-OPS_UNPACK = {"gs2dp": 9, "gut3dp": 26}
 # the bucket frame against the exact pair frame: they freeze pixels at
 # different lanes (bucket_chunk 384 against chunk 128) and may order exactly
 # equal depths apart, so a share of pixels, not the max
 BUCKET_VS_PAIR_ATOL, BUCKET_VS_PAIR_SHARE = 2e-4, 0.999
 TWIN_BATCH = 1024  # tiles per twin call at 1080p: a (1024, 256, 384) f32 step is 0.4 GB
-# the stage spans that render_3dgs and train_step open, in step order
-STAGES = ("prepare", "project", "gather", "bin", "rays", "blend", "assemble", "normals",
-          "shadow_map", "shade", "trace", "loss", "backward", "optimizer")
-PEAK_F32_OPS = 67e12   # H100 SXM, f32 outside the tensor cores
-PEAK_F64_OPS = 34e12   # H100 SXM, f64 outside the tensor cores (NVIDIA's data sheet)
-PEAK_BYTES = 3.35e12   # H100 SXM HBM3
-# shared memory fills at 128 B per clock on each SM (32 banks of 4 B): 132
-# SMs at the 1.98 GHz boost clock of the H100 SXM (NVIDIA's specifications)
-SM_COUNT, SMEM_BYTES_PER_CLOCK, BOOST_HZ = 132, 128, 1.98e9
-# 64 INT32 lanes on each SM, one operation a clock (NVIDIA's H100 whitepaper)
-PEAK_INT32_OPS = SM_COUNT * 64 * BOOST_HZ
-# profiler windows kernel_split traces at most: a window can lose records
-# even after its warm-up step (PERF.md §7)
-PROFILE_WINDOWS = 6
-# The probes P1 and P3 (phase 9), the least work of the function: per column
-# and stage the network's want_min (lane-iota: an and and a compare; from
-# the mask table: one compare), its take test (two key compares and a
-# select) and the move of the (key, index) pair (two selects); plus one
-# permutation, each payload element read and written once (2). The bytes:
-# each input read once, each output written once. The count of the
-# row-moving form, which moves every row of each column that takes its
-# partner at every stage, is logged beside it (PROBE_OPS_ROW_FORM, plus one select per row
-# for each take on this data). P2 moves bytes and counts none.
-PROBE_OPS_PER_COLUMN = {"lane-iota": 7, "lane-const": 6, "sub8": 6}
-PROBE_OPS_PER_ELEMENT = 2
-PROBE_OPS_ROW_FORM = {"lane-iota": 5, "lane-const": 4, "sub8": 4}
-KEY_NETWORK_ROWS = 2  # the key network alone: the key row and one payload row
 
 
 def log(*a):
@@ -725,15 +551,6 @@ def log(*a):
 def check(cond: bool, what: str):
     if not cond:
         raise AssertionError(what)
-
-
-def time_ms(fn, iters: int, warmup: int = 2) -> list[float]:
-    """Per-call device milliseconds from CUDA events, after warm-up."""
-    return call_ms(fn, torch.device("cuda", 0), iters, warmup)
-
-
-def median(xs):
-    return float(np.median(np.asarray(xs)))
 
 
 @torch.no_grad()
@@ -889,133 +706,6 @@ def check_warp_cull(label: str, bins, st, batches, pix=None):
     return work, kept
 
 
-def model_of_name(name: str) -> str:
-    """The response model of a raster kernel's report name: the longest
-    model name it ends in (tri2d_smooth before tri2d), gs2d where none."""
-    name = name.removesuffix(tr.KEYROW).removesuffix(tr.STOCH)
-    return next((m for m in sorted(MODELS, key=len, reverse=True) if name.endswith("_" + m)),
-                "gs2d")
-
-
-def f32_of_name(name: str) -> str:
-    """The f32 model (gs2d or gut3d) whose operations a raster kernel does."""
-    return MODELS[model_of_name(name)].parent or model_of_name(name)
-
-
-def setup_ops(model: str, tested: int, n_tiles: int) -> int:
-    """The f32 operations of a model's alpha done once per tested (tile,
-    pair) and once per pixel (the triangles' OPS_PAIR_SETUP and
-    OPS_PIXEL_SETUP; 0 for the splat models)."""
-    return (tested * OPS_PAIR_SETUP.get(model, 0)
-            + n_tiles * tr.PIX * OPS_PIXEL_SETUP.get(model, 0))
-
-
-def warp_cull_bound(name: str, work, bytes_moved: int, n_tiles: int):
-    """((ms, what bounds it) of K1 or K1g at one frame, a log fragment with
-    it and the all-pair figure). The kernel evaluates the (pixel, pair)s of
-    the (warp, pair)s it keeps (``work[4]``) and blends the hits; its cull
-    costs f64 operations per tested pair (OPS_REACH), per tested (warp,
-    pair) (OPS_WARP_TEST) and, for gut3d, per pixel (OPS_WARP_BOUND). The
-    all-pair figure prices every live (pixel, pair), as the sweep before the
-    cull made them. Both add the model's ``setup_ops`` (every tested pair:
-    a little more than the kept pairs need)."""
-    evals, hits, tested, _, kept_evals, draws = work
-    model = f32_of_name(name)
-    extra = (tested * OPS_UNPACK.get(model_of_name(name), 0)
-             + setup_ops(model, tested, n_tiles))
-    all_pairs = kernel_bound(name, evals, hits, draws, bytes_moved, extra)
-    cull = (tested * (OPS_REACH[model] + tr.WARPS * OPS_WARP_TEST[model])
-            + n_tiles * tr.PIX * OPS_WARP_BOUND[model])
-    bound = kernel_bound(name, kept_evals, hits, draws, bytes_moved, extra, f64_ops=cull)
-    return bound, (f"{name}_bound_ms={bound[0]:.4f} ({bound[1]}; the kept (warp, pair)s) "
-                   f"{name}_all_pair_bound_ms={all_pairs[0]:.4f} ({all_pairs[1]})")
-
-
-def pair_bound(name: str, work, bytes_moved: int, n_tiles: int):
-    """((ms, what bounds it) of K2 or K2g at one frame, a log fragment with
-    it and the all-pair figure). Where the model culls its pair lists, the
-    kernel evaluates the kept pairs (``work[4]``) and blends the hits, and
-    the cull costs its own f64 operations per tested pair (OPS_CULL) and,
-    for gut3d, per pixel (OPS_TILE_BOUND); the all-pair figure prices every
-    pair's evaluations, as the sweep before the cull made them. Both add
-    the model's ``setup_ops``."""
-    evals, hits, tested, _, kept_evals, draws = work
-    model = f32_of_name(name)
-    setup = setup_ops(model, tested, n_tiles)
-    all_pairs = kernel_bound(name, evals, hits, draws, bytes_moved, setup)
-    if not MODELS[model].cull_pairs:
-        return all_pairs, f"{name}_bound_ms={all_pairs[0]:.4f} ({all_pairs[1]}; no cull)"
-    cull = tested * OPS_CULL[model] + n_tiles * tr.PIX * OPS_TILE_BOUND[model]
-    bound = kernel_bound(name, kept_evals, hits, draws, bytes_moved, setup, f64_ops=cull)
-    return bound, (f"{name}_bound_ms={bound[0]:.4f} ({bound[1]}; the kept pairs) "
-                   f"{name}_all_pair_bound_ms={all_pairs[0]:.4f} ({all_pairs[1]})")
-
-
-def kernel_bound(name: str, evals: int, hits: int, draws: int, bytes_moved: int,
-                 extra_ops: int = 0, f64_ops: int = 0):
-    """(bound ms, what bounds it): the larger of the operations over the
-    card's peak for their type and the bytes over its memory rate. A
-    stochastic form (``_stoch``) adds the hash and the accept per draw, an
-    evaluation whose alpha passes the cutoffs (OPS_HASH_INT at the INT32
-    rate, OPS_HASH_F32)."""
-    stoch = name.removesuffix(tr.KEYROW).endswith(tr.STOCH)
-    f32_ops = (evals * OPS_ALPHA[f32_of_name(name)] + hits * OPS_PER_HIT[name] + extra_ops
-               + stoch * draws * OPS_HASH_F32)
-    return roofline(f32_ops, bytes_moved, f64_ops, int_ops=stoch * draws * OPS_HASH_INT)
-
-
-def bucket_bound(model: str, work, bytes_fwd: int | None, bytes_bwd: int | None,
-                 grad_rows: int, n_tiles: int, form: str = ""):
-    """({name: (ms, what bounds it)} of K3 and K4 (K3 alone for a packed,
-    forward-only model, ``bytes_bwd`` None) at one frame, a log fragment
-    with those and the all-lane figures). Both kernels evaluate the lanes
-    their cull keeps (``work.kept_evals``) and blend the hits, plus the
-    merge's comparisons (and a packed model's unpacking per tested lane,
-    OPS_UNPACK) and, in K4, the reduce; the cull costs its own f64
-    operations per tested lane and, for gut3d, per pixel (OPS_CULL,
-    OPS_TILE_BOUND). The all-lane figure prices every live lane's
-    evaluations, as the sweep before the cull made them. ``form``: the
-    suffix of a kernel form's names (``tr.STOCH``, ``tr.KEYROW``)."""
-    suffix = ("" if model == "gs2d" else "_" + model) + form
-    f32_model = MODELS[model].parent or model
-    cull = work.tested * OPS_CULL[f32_model] + n_tiles * tr.PIX * OPS_TILE_BOUND[f32_model]
-    unpack = work.tested * OPS_UNPACK.get(model, 0)
-    bounds, all_lanes = {}, {}
-    for base, bytes_moved, extra in (
-            ("raster_bucket_fwd", bytes_fwd, work.comparisons + unpack),
-            ("raster_bucket_bwd", bytes_bwd, work.comparisons + work.shared * grad_rows)):
-        if bytes_moved is None:
-            continue
-        name = base + suffix
-        bounds[name] = kernel_bound(name, work.kept_evals, work.hits, work.draws, bytes_moved,
-                                    extra, cull)
-        all_lanes[name] = kernel_bound(name, work.evals, work.hits, work.draws, bytes_moved,
-                                       extra)
-    text = (" ".join(f"{k}_bound_ms={v[0]:.4f} ({v[1]})" for k, v in bounds.items())
-            + " (the kept lanes; every live lane's evaluations: "
-            + " ".join(f"{k}_all_lane_bound_ms={v[0]:.4f} ({v[1]})" for k, v in all_lanes.items())
-            + ")")
-    return bounds, text
-
-
-def roofline(ops: float, bytes_moved: float, f64_ops: float = 0.0, int_ops: float = 0.0):
-    """(bound ms, what bounds it): the larger of the operations over the
-    card's peak for their type (f32, and f64 and int32 where given) and the
-    bytes over its memory rate."""
-    t_ops = (ops / PEAK_F32_OPS + f64_ops / PEAK_F64_OPS + int_ops / PEAK_INT32_OPS) * 1e3
-    t_bytes = bytes_moved / PEAK_BYTES * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
-
-
-def copy_bound(fresh_bytes: float, landed_bytes: float):
-    """(bound ms, "bytes") of copies into shared memory: the larger of the
-    bytes that must come from device memory (each distinct source byte read
-    once, the output written once) over its rate, and every copied byte
-    landing in shared memory over the card's fill rate."""
-    fill = SM_COUNT * SMEM_BYTES_PER_CLOCK * BOOST_HZ
-    return max(fresh_bytes / PEAK_BYTES, landed_bytes / fill) * 1e3, "bytes"
-
-
 def bin_stage(proj, cfg, max_pairs=0):
     """render_3dgs's bin stage for either method and pair format: TileBins
     or BucketBins."""
@@ -1029,8 +719,8 @@ def bins_of(prepared, cam, cfg, max_pairs=0):
 
 def frame_stages(prepared, cam, cfg, max_pairs=0):
     """render_3dgs's stages as (name, step) pairs, each step reading what
-    the one before it left in the returned dict: for per-stage CUDA-event
-    timings and for the blend's own inputs and outputs."""
+    the one before it left in the returned dict: the blend's own inputs and
+    outputs."""
     bucket = cfg.raster.method == "bucket"
     st = bucket_statics(cfg) if bucket else raster_statics(cfg)
     c = {}
@@ -1051,119 +741,6 @@ def frame_stages(prepared, cam, cfg, max_pairs=0):
 
     return [("project", project), ("bin", bin_), ("blend", blend),
             ("assemble", assemble)], c
-
-
-def traced_events(call, calls):
-    """The torch.profiler trace events of ``calls`` calls of ``call`` and
-    its kernels as sorted (start us, end us, name, correlation id). The
-    profiler's schedule traces one warm-up call first and throws it away:
-    on an H100 a window without that step has lost the records of its
-    first one to three kernels (PERF.md §6, PR 9)."""
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    once = torch.profiler.schedule(wait=0, warmup=1, active=1, repeat=1)
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "trace.json")
-        with torch.profiler.profile(activities=acts, schedule=once,
-                                    on_trace_ready=lambda p: p.export_chrome_trace(path)) as prof:
-            call()  # warm-up
-            torch.cuda.synchronize()
-            prof.step()
-            for _ in range(calls):
-                call()
-            torch.cuda.synchronize()
-            prof.step()
-        events = json.load(open(path))["traceEvents"]
-    kernels = sorted((e["ts"], e["ts"] + e["dur"], e["name"],
-                      e.get("args", {}).get("correlation")) for e in events
-                     if e.get("cat") == "kernel")
-    return events, kernels
-
-
-# K4's wrapper launches three kernels (csrc/raster_bucket_bwd.cu)
-K4_KERNELS = ("raster_bucket_bwd_tiles", "raster_bucket_bwd_partial", "raster_bucket_bwd_reduce")
-
-
-def kernel_split(call, counter, names=K4_KERNELS, calls=7, min_records=None):
-    """{name: median device ms per call} of the kernels whose names hold
-    each of ``names``, from the profiler's per-kernel durations over
-    ``calls`` calls, each launching each kernel once. ``counter()`` reads
-    the wrapper's launch count: it must advance by exactly the calls and
-    the warm-up in each window, and no window may hold more records of a
-    kernel than calls. The median is over ``calls`` records of every
-    kernel, or ``min_records`` at least where given: a window can lose
-    records even after its warm-up step (PERF.md §7), so while too few
-    were kept the same calls are traced again, up to PROFILE_WINDOWS
-    windows in all, and the records of the windows are pooled."""
-    need = min_records or calls
-    pooled = {name: [] for name in names}
-    for attempt in range(1, PROFILE_WINDOWS + 1):
-        before = counter()
-        _, kernels = traced_events(call, calls)
-        launched = counter() - before
-        check(launched == calls + 1, f"kernel_split: {launched} launches in {calls + 1} calls")
-        durs = {name: [(e - s) / 1e3 for s, e, kname, _ in kernels if name in kname]
-                for name in names}
-        extra = {name: len(d) for name, d in durs.items() if len(d) > calls}
-        check(not extra, f"kernel_split: {extra} records in {calls} calls")
-        for name, d in durs.items():
-            pooled[name] += d
-        short = {name: len(d) for name, d in pooled.items() if len(d) < need}
-        if not short:
-            return {name: median(d) for name, d in pooled.items()}
-        log(f"  kernel_split: {attempt} profiler window(s) of {calls} calls kept {short} "
-            f"records, {need} needed")
-    check(False, f"{short} records in {PROFILE_WINDOWS} windows of {calls} calls")
-
-
-def profile_calls(name, call, card, calls=3):
-    """Device busy and idle share over `calls` calls of an entry point, from
-    the torch.profiler trace: busy is the union of kernel intervals, the
-    span runs from the first kernel's start to the last one's end. Each
-    kernel belongs to the stage span (STAGES, opened by render_3dgs and
-    train_step themselves) that holds its launch call, matched by the
-    trace's correlation id, so the kernels autograd launches from its own
-    thread count in the backward stage."""
-    events, kernels = traced_events(call, calls)
-    launched_at = {e["args"]["correlation"]: e["ts"] for e in events
-                   if e.get("cat") in ("cuda_runtime", "cuda_driver")
-                   and "correlation" in e.get("args", {})}
-    spans = [(e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
-             if e.get("cat") == "user_annotation" and e["name"] in STAGES]
-    if not kernels:
-        log(f"profile {name}: the profiler traced no kernels; idle share not measured")
-        return
-    busy, (cur_s, cur_e, _, _) = 0.0, kernels[0]
-    for s, e, _, _ in kernels[1:]:
-        if s > cur_e:
-            busy, cur_s = busy + cur_e - cur_s, s
-        cur_e = max(cur_e, e)
-    busy += cur_e - cur_s
-    span = max(k[1] for k in kernels) - kernels[0][0]
-    log(f"profile {name} ({card}): {calls} calls, {len(kernels)} kernels, device span "
-        f"{span / 1e3:.3f} ms, kernel-busy {busy / 1e3:.3f} ms, idle share "
-        f"{1 - busy / span:.4f}")
-
-    def stage_of(corr):
-        t = launched_at.get(corr)
-        return next((n for a, b, n in spans if t is not None and a <= t <= b), None)
-
-    per_stage = collections.defaultdict(list)
-    for s, e, _, corr in kernels:
-        per_stage[stage_of(corr)].append(e - s)
-    for stage in (*STAGES, None):
-        inside = per_stage.get(stage, [])
-        host = sum(b - a for a, b, n in spans if n == stage)
-        if not inside and not host:
-            continue
-        log(f"profile {name} stage {stage or 'unattributed'}: "
-            f"kernels/call={len(inside) / calls:.1f} "
-            f"kernel_ms/call={sum(inside) / 1e3 / calls:.4f} "
-            f"host_span_ms/call={host / 1e3 / calls:.4f}")
-    by_name = collections.Counter()
-    for s, e, kname, _ in kernels:
-        by_name[kname[:72]] += e - s
-    for kname, us in by_name.most_common(8):
-        log(f"profile {name} kernel: ms/call={us / 1e3 / calls:.4f} {kname}")
 
 
 def golden_gate(dev):
@@ -1233,20 +810,21 @@ def golden_gradients(dev):
     return abs_err
 
 
+def cell_file(*parts) -> dict:
+    """A JSON file of the benchmark (splatbench/configs, splatbench/traffic):
+    the smoke's scene and training start are the cells', so that what it
+    checks is what they measure."""
+    with open(os.path.join(HERE, "splatbench", *parts)) as f:
+        return json.load(f)
+
+
 def bench_scene(dev, n: int, seed: int, sh_degree: int = 3) -> gt.SplatSet:
-    """The repository's headline scene: small / mid / large splats in a
-    96.9 / 2.5 / 0.6 % mix, SH degree 3 (or ``sh_degree``), made on the
-    card."""
-    n_s, n_m = int(n * 0.969), int(n * 0.025)
-    parts = []
-    for i, (count, scales) in enumerate(((n_s, (-7.0, -5.0)), (n_m, (-5.0, -3.5)),
-                                         (n - n_s - n_m, (-3.5, -2.0)))):
-        g = torch.Generator(device=dev).manual_seed(seed * 3 + i)
-        parts.append(random_splats(g, count, sh_degree=sh_degree, extent=4.0,
-                                   scale_range=scales))
-    fields = {f: torch.cat([getattr(p, f) for p in parts]) for f in
-              ("means", "scales", "quats", "opacities", "sh_dc", "sh_rest")}
-    return gt.SplatSet(**fields)
+    """The view cells' scene (``splatbench.scene.bench_scene`` at
+    inria_bicycle_6m.json's extent and mix) with ``n`` splats, made on
+    ``dev``."""
+    spec = cell_file("configs", "inria_bicycle_6m.json")
+    return gt.SplatSet(**cell_scene.bench_scene(dev, n, seed, sh_degree, spec["extent"],
+                                                spec["mix"]))
 
 
 def jitter(cam, i: int):
@@ -1256,10 +834,9 @@ def jitter(cam, i: int):
     return dataclasses.replace(cam, viewmat=vm)
 
 
-def full_size(dev, card: str, prepared, seed: int):
-    """The forward path at 1080p with 1M splats; returns K1's report entry,
-    its bound at this frame and the SH forward kernel's launches in the
-    main path."""
+def full_size(dev, prepared):
+    """The forward path at 1080p with 1M splats; returns K1's report entry
+    and the SH and EWA forward kernels' launches in the main path."""
     cfg = gt.RenderConfig(width=WIDTH, height=HEIGHT, sh_degree=3)
     cam = gt.look_at([0, 0, -7], [0, 0, 0], [0, 1, 0], cfg.width, cfg.height,
                      fov_y_rad=0.9, device=dev)
@@ -1309,44 +886,17 @@ def full_size(dev, card: str, prepared, seed: int):
     del ex, again
 
     # ---- K1 against its twin over every tile of the slots frame; its
-    # per-warp cull and its bound at this frame's shape and data (K2's: the
-    # training frame)
+    # per-warp cull on this frame (K2's: the training frame)
     st = raster_statics(cfg)
     bins = bins_of(prepared, cam, cfg)
-    n_pairs, n_tiles = int(bins.num_pairs), st.tiles_x * st.tiles_y
+    n_tiles = st.tiles_x * st.tiles_y
     err, agree = compare_kernel_with_twin(bins, st)
     log(f"all {n_tiles} tiles: kernel_vs_twin_max_abs={err:.3e} id_agree={agree:.6f} "
         f"max_tile_pairs={int(bins.tile_count.max())}")
     check(err <= KERNEL_ATOL, f"1080p tiles kernel vs twin {err} > {KERNEL_ATOL}")
     check(agree >= ID_AGREE, f"1080p tiles id agreement {agree}")
     work, kept = check_warp_cull("K1", bins, st, twin_tiles(st, dev))
-    bytes_fwd = n_pairs * (10 * 4 + 4) + n_tiles * (2 * 4 + tr.PIX * (tr.OUT_ROWS * 4 + 4))
-    bound, text = warp_cull_bound("rasterize_fwd", work, bytes_fwd, n_tiles)
-    bounds = {"rasterize_fwd": bound}
-    log(f"bound 1080p/1M slots: live_pairs={n_pairs} pixel_pair_evaluations={work[0]} "
-        f"kept_evaluations={work[4]} hits={work[1]} hit_share={work[1] / max(work[0], 1):.4f} "
-        + text)
-    del bins
-
-    # ---- timings (CUDA events; medians over 10 after 2 warm-up), stages in order
-    stages, c = frame_stages(prepared, cam, cfg)
-    t = {stage: median(time_ms(step, 10)) for stage, step in stages}
-    t_frame = median(time_ms(lambda: render(prepared, cam, cfg), 10))
-    t_exact = median(time_ms(lambda: render(prepared, cam, exact_cfg, max_pairs=1 << 22), 5))
-    log(f"timing 1080p/1M slots ({card}): project_ms={t['project']:.4f} "
-        f"bin_ms={t['bin']:.4f} blend_ms={t['blend']:.4f} assemble_ms={t['assemble']:.4f} "
-        f"frame_ms={t_frame:.4f} exact_frame_ms={t_exact:.4f}")
-    bins = c["bins"]
-    t_plain = median(time_ms(lambda: tr.rasterize_tiles_ref(
-        bins.attrs, bins.pair_id, bins.tile_start, bins.tile_count, st), 3, warmup=1))
-    log(f"timing rasterize_fwd 1080p/1M ({card}): kernel_ms={t['blend']:.4f} "
-        f"plain_twin_ms={t_plain:.4f}")
-    del bins, c
-
-    profile_calls("slots", lambda: render(prepared, cam, cfg), card)
-    profile_calls("exact", lambda: render(prepared, cam, exact_cfg, max_pairs=1 << 22), card)
-    return dict(launches=launches, max_abs_err=err, ms=t["blend"], plain_ms=t_plain,
-                kept_share=kept / (tr.WARPS * work[2])), bounds, \
+    return dict(launches=launches, max_abs_err=err, kept_share=kept / (tr.WARPS * work[2])), \
         {"sh_radiance_fwd": sh_launches[0], "ewa_project_fwd": ewa_launches[0]}
 
 
@@ -1355,20 +905,17 @@ def grads_of(splats):
 
 
 def jittered_start(truth: gt.SplatSet, dev, seed: int) -> gt.SplatSet:
-    """Where training starts: the scene with seeded jitter on means (1e-3)
-    and sh_dc (0.3)."""
-    g = torch.Generator(device=dev).manual_seed(seed + 100)
-    fields = {f: getattr(truth, f).detach().clone() for f in FIELDS}
-    fields["means"] += 1e-3 * torch.randn(fields["means"].shape, generator=g, device=dev)
-    fields["sh_dc"] += 0.3 * torch.randn(fields["sh_dc"].shape, generator=g, device=dev)
-    return gt.SplatSet(**fields)
+    """Where training starts: the train cells' start
+    (``splatbench.scene.jittered_start`` at train_3dgs.json's jitter)."""
+    jit = cell_file("traffic", "train_3dgs.json")["jitter"]
+    return gt.SplatSet(**cell_scene.jittered_start({f: getattr(truth, f) for f in FIELDS}, dev,
+                                                   seed, jit["means"], jit["sh_dc"]))
 
 
-def train_full_size(dev, card: str, truth: gt.SplatSet, seed: int):
+def train_full_size(dev, truth: gt.SplatSet, seed: int):
     """The training path at 1080p with 1M splats: the scene renders its own
-    target; training starts from seeded jitter on means and sh_dc. Returns
-    K2's report entry, its bound at the training frame and the SH backward
-    kernel's launches in the training path."""
+    target; training starts from the train cells' jittered start. Returns
+    K2's report entry and the SH and EWA backward kernels' launches."""
     cfg = gt.RenderConfig(width=WIDTH, height=HEIGHT, sh_degree=3)
     cam = gt.look_at([0, 0, -7], [0, 0, 0], [0, 1, 0], cfg.width, cfg.height,
                      fov_y_rad=0.9, device=dev)
@@ -1436,7 +983,7 @@ def train_full_size(dev, card: str, truth: gt.SplatSet, seed: int):
     del first
 
     # ---- K2 against the twin backward over every tile, with the loss's own
-    # cotangent at the blend; its cull and bound on this frame
+    # cotangent at the blend; its cull on this frame
     st = raster_statics(cfg)
     stages, c = frame_stages(splats.prepare(), cam, cfg)
     for _, step in stages:
@@ -1446,36 +993,13 @@ def train_full_size(dev, card: str, truth: gt.SplatSet, seed: int):
     out = c["out"][0].detach()
     ctx = tr.bwd_context(out, g_out)
     bins = c["bins"]
-    n_pairs, n_tiles = int(bins.num_pairs), st.tiles_x * st.tiles_y
+    n_tiles = st.tiles_x * st.tiles_y
     abs_err, rel_err = compare_bwd_with_twin(bins, st, ctx)
     log(f"all {n_tiles} tiles: K2_vs_twin_max_abs={abs_err:.3e} "
         f"max_rel_to_row_max={rel_err:.3e}")
     check(rel_err <= BWD_RTOL, f"1080p frame K2 vs twin {rel_err} > {BWD_RTOL}")
     work, kept = check_pair_cull("K2", bins, st, twin_tiles(st, dev))
-    bytes_bwd = n_pairs * 2 * tr.GRAD_ROWS * 4 + n_tiles * (2 * 4 + tr.PIX * tr.CTX_ROWS * 4)
-    bound, text = pair_bound("rasterize_bwd", work, bytes_bwd, n_tiles)
-    log(f"bound 1080p/1M slots training frame: live_pairs={n_pairs} "
-        f"pixel_pair_evaluations={work[0]} kept_pair_evaluations={work[4]} hits={work[1]} "
-        + text)
-
-    # ---- timings (CUDA events, medians after warm-up)
-    attrs = bins.attrs.detach()
-    t_k2 = median(time_ms(lambda: tr.rasterize_tiles_bwd(
-        attrs, bins.tile_start, bins.tile_count, ctx, st), 10))
-    t_twin = median(time_ms(lambda: tr.rasterize_tiles_bwd_ref(
-        attrs, bins.tile_start, bins.tile_count, ctx, st), 2, warmup=1))
-    log(f"timing rasterize_bwd 1080p/1M ({card}): kernel_ms={t_k2:.4f} "
-        f"plain_twin_ms={t_twin:.4f}")
-    del stages, c, bins, attrs, ctx, out, g_out
-    t_fb = median(time_ms(fwd_bwd, 10))
-    t_step = median(time_ms(lambda: gt.train_step(splats, opt, cam, target, cfg, 0, tc), 10))
-    log(f"timing training 1080p/1M slots ({card}): fwd_bwd_ms={t_fb:.4f} "
-        f"train_step_ms={t_step:.4f}")
-
-    profile_calls("train_step", lambda: gt.train_step(splats, opt, cam, target, cfg, 0, tc),
-                  card)
-    return dict(launches=launches[1], max_abs_err=abs_err, ms=t_k2, plain_ms=t_twin,
-                kept_share=kept / work[2]), bound, \
+    return dict(launches=launches[1], max_abs_err=abs_err, kept_share=kept / work[2]), \
         {"sh_radiance_bwd": sh_launches[1], "ewa_project_bwd": ewa_launches[1]}
 
 
@@ -1559,19 +1083,6 @@ def check_cull(label: str, work, k3, k4, model: str, bins, st, caps, batches, pi
         f"kept, {hit} hit some pixel, culled lanes that hit: {bad}")
     check(bad == 0, f"{label}: the cull dropped {bad} lanes that hit")
     return kept[f"K3{g}"]
-
-
-def k4_launches(k4, model: str, bins, st, caps) -> str:
-    """K4's three launches (``kernel_split``) and the kept share of its last
-    launch, as a log fragment."""
-    split = kernel_split(k4, lambda: getattr(rb.rasterize_buckets_bwd, tr.LAUNCH_COUNTER[model]))
-    torch.cuda.synchronize()
-    kept = int(getattr(rb.rasterize_buckets_bwd, rb.KEPT_COUNTER[model]))
-    live = int(rb._tile_spans(bins.bucket_starts, st, caps,
-                              torch.arange(st.tiles_x * st.tiles_y, device="cuda"))[1].sum())
-    return (" ".join(f"{k}_ms={v:.4f}" for k, v in split.items())
-            + f" (median of 7 profiled calls) kept={kept} of live={live} "
-            f"(kept share {kept / live:.4f})")
 
 
 def compare_k3_with_twin(bins, st, caps, tiles=None):
@@ -1718,9 +1229,9 @@ def golden_bucket_gradients(dev):
     return abs_err
 
 
-def bucket_full_size(dev, card: str, prepared, seed: int):
+def bucket_full_size(dev, prepared, seed: int):
     """The bucket frame at 1080p with 1M splats; returns (caps, K3's report
-    entry, both bucket kernels' bounds)."""
+    entry)."""
     cfg = gt.RenderConfig(width=WIDTH, height=HEIGHT, sh_degree=3)
     cam = gt.look_at([0, 0, -7], [0, 0, 0], [0, 1, 0], cfg.width, cfg.height,
                      fov_y_rad=0.9, device=dev)
@@ -1765,53 +1276,31 @@ def bucket_full_size(dev, card: str, prepared, seed: int):
     check(err <= KERNEL_ATOL, f"1080p tiles K3 vs twin {err} > {KERNEL_ATOL}")
     check(agree >= ID_AGREE, f"1080p tiles K3 id agreement {agree}")
 
-    # ---- the bound of both bucket kernels at this frame's shape and data
-    work = bucket_work(bins, st, caps)
-    n_tiles, p = st.tiles_x * st.tiles_y, bins.attrs.shape[1]
-    head_bytes = n_tiles * (12 * 4 + 12 * 4)  # span buckets and their starts
-    bytes_fwd = work.live * (10 * 4 + 4) + head_bytes + n_tiles * tr.PIX * (tr.OUT_ROWS * 4 + 4)
-    bytes_bwd = (work.live * tr.GRAD_ROWS * 4 + head_bytes + n_tiles * tr.PIX * tr.CTX_ROWS * 4
-                 + p * tr.GRAD_ROWS * 4)
-    bounds, text = bucket_bound("gs2d", work, bytes_fwd, bytes_bwd, tr.GRAD_ROWS, n_tiles)
-    log(f"bound 1080p/1M bucket: live_candidates={work.live} shared={work.shared} "
-        f"per_tile={work.live / n_tiles:.1f} pixel_lane_evaluations={work.evals} "
-        f"kept_lane_evaluations={work.kept_evals} "
-        f"hits={work.hits} hit_share={work.hits / max(work.evals, 1):.4f} "
-        f"merge_comparisons={work.comparisons} {text} (rows read once per slot, not per tile: "
-        f"{int(bins.num_valid) * 44 / PEAK_BYTES * 1e3:.4f} ms)")
-    kept = check_cull("K3, K4", work, lambda: rb.rasterize_buckets(bins, st, caps),
-                      lambda ctx: rb.rasterize_buckets_bwd(bins.attrs.detach(),
-                                                           bins.bucket_starts, ctx, st, caps),
-                      "gs2d", bins, st, caps, twin_tiles(st, dev))
-    del bins
-
-    # ---- timings (CUDA events; medians over 10 after 2 warm-up), stages in
-    # order; K3 against its twin over every tile of the frame
-    stages, c = frame_stages(prepared, cam, bcfg)
-    t = {stage: median(time_ms(step, 10)) for stage, step in stages}
-    t_frame = median(time_ms(lambda: render(prepared, cam, bcfg), 10))
-    log(f"timing 1080p/1M bucket ({card}): project_ms={t['project']:.4f} "
-        f"bin_ms={t['bin']:.4f} blend_ms={t['blend']:.4f} assemble_ms={t['assemble']:.4f} "
-        f"frame_ms={t_frame:.4f}")
-    bins = c["bins"]
+    # ---- K3 against its twin over every tile of the frame; the cull of
+    # both bucket kernels on it
+    n_tiles = st.tiles_x * st.tiles_y
     err_all, agree_all = compare_k3_with_twin(bins, st, caps)
     log(f"bucket all {n_tiles} tiles: K3_vs_twin_max_abs={err_all:.3e} "
         f"id_agree={agree_all:.6f}")
     check(err_all <= KERNEL_ATOL, f"1080p frame K3 vs twin {err_all} > {KERNEL_ATOL}")
     check(agree_all >= ID_AGREE, f"1080p frame K3 id agreement {agree_all}")
-    t_plain = median(time_ms(lambda: bucket_twin(bins, st, caps), 2, warmup=1))
-    log(f"timing raster_bucket_fwd 1080p/1M ({card}): kernel_ms={t['blend']:.4f} "
-        f"plain_twin_ms={t_plain:.4f}")
-    del bins, c
-    profile_calls("bucket", lambda: render(prepared, cam, bcfg), card)
-    return caps, dict(launches=launches, max_abs_err=max(err, err_all), ms=t["blend"],
-                      plain_ms=t_plain, kept_share=kept / work.live), bounds
+    work = bucket_work(bins, st, caps)
+    log(f"bucket work 1080p/1M: live_candidates={work.live} shared={work.shared} "
+        f"per_tile={work.live / n_tiles:.1f} pixel_lane_evaluations={work.evals} "
+        f"kept_lane_evaluations={work.kept_evals} hits={work.hits} "
+        f"merge_comparisons={work.comparisons}")
+    kept = check_cull("K3, K4", work, lambda: rb.rasterize_buckets(bins, st, caps),
+                      lambda ctx: rb.rasterize_buckets_bwd(bins.attrs.detach(),
+                                                           bins.bucket_starts, ctx, st, caps),
+                      "gs2d", bins, st, caps, twin_tiles(st, dev))
+    return caps, dict(launches=launches, max_abs_err=max(err, err_all),
+                      kept_share=kept / work.live)
 
 
-def bucket_train_full_size(dev, card: str, truth: gt.SplatSet, caps, seed: int):
+def bucket_train_full_size(dev, truth: gt.SplatSet, caps, seed: int):
     """The training path on the bucket path at 1080p with 1M splats, at the
     caps of the forward phase: the scene renders its own target; training
-    starts from the forward phase's seeded jitter."""
+    starts from the train cells' jittered start."""
     cfg = bucket_cfg(gt.RenderConfig(width=WIDTH, height=HEIGHT, sh_degree=3), caps)
     cam = gt.look_at([0, 0, -7], [0, 0, 0], [0, 1, 0], cfg.width, cfg.height,
                      fov_y_rad=0.9, device=dev)
@@ -1869,26 +1358,7 @@ def bucket_train_full_size(dev, card: str, truth: gt.SplatSet, caps, seed: int):
     abs_err, rel_err = compare_k4_with_twin(bins, st, caps, ctx, tiles=tiles)
     log(f"bucket 64 sampled tiles: K4_vs_twin_max_abs={abs_err:.3e} "
         f"max_rel_to_row_max={rel_err:.3e}")
-
-    # ---- timings (CUDA events, medians after warm-up; the profiler's
-    # per-kernel durations for K4's three launches)
-    attrs = bins.attrs.detach()
-
-    def k4():
-        return rb.rasterize_buckets_bwd(attrs, bins.bucket_starts, ctx, st, caps)
-
-    t_k4 = median(time_ms(k4, 10))
-    t_twin = median(time_ms(lambda: bucket_twin_bwd(bins, st, caps, ctx), 1, warmup=1))
-    log(f"timing raster_bucket_bwd 1080p/1M ({card}): kernel_ms={t_k4:.4f} "
-        f"plain_twin_ms={t_twin:.4f} " + k4_launches(k4, "gs2d", bins, st, caps))
-    del stages, c, bins, attrs, ctx, g_out
-    t_fb = median(time_ms(fwd_bwd, 10))
-    t_step = median(time_ms(lambda: gt.train_step(splats, opt, cam, target, cfg, 0, tc), 10))
-    log(f"timing training 1080p/1M bucket ({card}): fwd_bwd_ms={t_fb:.4f} "
-        f"train_step_ms={t_step:.4f}")
-    profile_calls("bucket train_step",
-                  lambda: gt.train_step(splats, opt, cam, target, cfg, 0, tc), card)
-    return dict(launches=launches[1], max_abs_err=abs_err, ms=t_k4, plain_ms=t_twin)
+    return dict(launches=launches[1], max_abs_err=abs_err)
 
 
 # ---- the gut3d model: 3DGUT (MESH_3DGUT) and 3DGRT (RTX), K1g-K4g --------
@@ -2192,49 +1662,32 @@ def gut_camera_effects(dev):
     check(change > 1e-3, "the aperture did not change the frame")
 
 
-def gut_pair_bounds(label, c):
-    """({K1g's bound at this pair frame}, the kept share of its per-warp
-    cull), after the cull's checks (``check_warp_cull``; K2g's bound comes
-    from the training frame)."""
+def gut_pair_cull(label, c):
+    """The kept share of K1g's per-warp cull at a pair frame, after the
+    cull's checks (``check_warp_cull``)."""
     st, pix = c["st"], c["pix"]
     work, kept = check_warp_cull(f"{label} K1g", c["bins"], st, tile_batches(st, pix.device),
                                  pix)
-    n_tiles, n_pairs = st.tiles_x * st.tiles_y, int(c["bins"].num_pairs)
-    fwd = (n_pairs * (15 * 4 + 4) + n_tiles * (8 + tr.PIX * (tr.OUT_ROWS * 4 + 4))
-           + n_tiles * tr.PIX * 6 * 4)
-    bound, text = warp_cull_bound("rasterize_fwd_gut3d", work, fwd, n_tiles)
-    log(f"bound {label} pairs: live_pairs={n_pairs} pixel_pair_evaluations={work[0]} "
-        f"kept_evaluations={work[4]} hits={work[1]} hit_share={work[1] / max(work[0], 1):.4f} "
-        + text)
-    return {"rasterize_fwd_gut3d": bound}, kept / (tr.WARPS * work[2])
+    return kept / (tr.WARPS * work[2])
 
 
 @torch.no_grad()
-def gut_bounds(c, cfg):
-    """(K3g's and K4g's bounds at a 3DGUT bucket frame, the kept share of
-    their cull)."""
+def gut_bucket_cull(c, cfg):
+    """The kept share of K3g's and K4g's cull at a 3DGUT bucket frame, after
+    the cull's checks (``check_cull``)."""
     bins, st, pix = c["bins"], blend_st(c, cfg), c["pix"]
     parts = [rb.bucket_work(bins.attrs.detach(), bins.bucket_starts, st, cfg.raster.bucket_caps,
                             tiles=t, pix_ctx=pix)
              for t in tile_batches(st, pix.device)]
     work = rb.BucketWork(*(sum(p[i] for p in parts) for i in range(len(parts[0]))))
-    evals, hits = work.evals, work.hits
-    n_tiles = c["st"].tiles_x * c["st"].tiles_y
-    rays = n_tiles * tr.PIX * 6 * 4
-    p = c["bins"].attrs.shape[1]
-    head = n_tiles * (12 * 4 + 12 * 4)
-    fwd = work.live * (15 * 4 + 4) + head + n_tiles * tr.PIX * (tr.OUT_ROWS * 4 + 4) + rays
-    bwd = (work.live * GRAD_ROWS_GUT * 4 + head + n_tiles * tr.PIX * tr.CTX_ROWS * 4 + rays
-           + p * GRAD_ROWS_GUT * 4)
-    bounds, text = bucket_bound("gut3d", work, fwd, bwd, GRAD_ROWS_GUT, n_tiles)
-    log(f"bound gut3d bucket: live_candidates={work.live} shared={work.shared} "
-        f"pixel_lane_evaluations={evals} kept_lane_evaluations={work.kept_evals} hits={hits} "
-        f"hit_share={hits / max(evals, 1):.4f} merge_comparisons={work.comparisons} {text}")
-    st, caps, pix = blend_st(c, cfg), cfg.raster.bucket_caps, c["pix"]
-    kept = check_cull("K3g, K4g", work, lambda: rb.rasterize_buckets(c["bins"], st, caps, pix),
-                      lambda ctx: gut_kernel_bwd(c, cfg, ctx), "gut3d", c["bins"], st, caps,
+    log(f"gut3d bucket work: live_candidates={work.live} shared={work.shared} "
+        f"pixel_lane_evaluations={work.evals} kept_lane_evaluations={work.kept_evals} "
+        f"hits={work.hits} merge_comparisons={work.comparisons}")
+    caps = cfg.raster.bucket_caps
+    kept = check_cull("K3g, K4g", work, lambda: rb.rasterize_buckets(bins, st, caps, pix),
+                      lambda ctx: gut_kernel_bwd(c, cfg, ctx), "gut3d", bins, st, caps,
                       tile_batches(st, pix.device), pix)
-    return bounds, kept / work.live
+    return kept / work.live
 
 
 def gut_bucket_vs_pairs(prepared, cam, cfg, bucket_out):
@@ -2267,13 +1720,13 @@ def gut_bucket_vs_pairs(prepared, cam, cfg, bucket_out):
               f"3dgut bucket vs pair at alpha_min {alpha_min}: share {share}")
 
 
-def gut_full_size(dev, card: str, prepared, caps, seed: int):
+def gut_full_size(dev, prepared, caps, seed: int):
     """3DGUT and 3DGRT frames at 1080p with 1M splats on both paths, at the
     caps derived over both projections; returns K1g's and K3g's report
-    entries and the four gut3d kernels' bounds."""
+    entries."""
     base = gt.RenderConfig(width=WIDTH, height=HEIGHT, sh_degree=3)
     cam = gt.look_at([0, 0, -7], [0, 0, 0], [0, 1, 0], WIDTH, HEIGHT, fov_y_rad=0.9, device=dev)
-    entries, bounds = {}, {}
+    entries = {}
     for label, pipeline in GUT_PIPELINES:
         for method in ("pairs", "bucket"):
             cfg = gut_cfg(base, pipeline, method, caps)
@@ -2308,57 +1761,39 @@ def gut_full_size(dev, card: str, prepared, caps, seed: int):
             if label == "3dgut" and method == "bucket":
                 gut_bucket_vs_pairs(prepared, jitter(cam, 0), cfg, o0)
             del again, o0
-            t_frame = median(time_ms(lambda: render(prepared, cam, cfg), 10))
-            log(f"timing 1080p/1M {label} {method} ({card}): frame_ms={t_frame:.4f}")
             if label != "3dgut" and method == "bucket":
                 continue
-            # ---- the kernel against its twin (K3g on 64 sampled tiles too),
-            # stages, bounds; K1g on every tile of the 3DGUT and 3DGRT frames
+            # ---- the kernel against its twin (K3g on 64 sampled tiles too)
+            # and its cull; K1g on every tile of the 3DGUT and 3DGRT frames
             stages, c = gut_stages(prepared, cam, cfg)
-            if label == "3dgut":
-                t = {stage: median(time_ms(step, 10)) for stage, step in stages}
-                log(f"timing 1080p/1M 3dgut {method} stages ({card}): "
-                    + " ".join(f"{k}_ms={v:.4f}" for k, v in t.items()))
-            else:
-                run_stages(stages)
+            run_stages(stages)
             if method == "bucket":
                 tiles = sample_bucket_tiles(c["bins"], c["st"], dev, seed)
                 err = compare_gut_kernel(f"K3g vs twin on {tiles.numel()} sampled 1080p tiles",
                                          c, cfg, tiles)
                 err = max(err, compare_gut_kernel("K3g vs twin on all 1080p tiles", c, cfg))
-                frame_bounds, kept_share = gut_bounds(c, cfg)
+                kept_share = gut_bucket_cull(c, cfg)
             else:
                 err = compare_gut_kernel(f"{label} K1g vs twin on all 1080p tiles", c, cfg)
-                frame_bounds, kept_share = gut_pair_bounds(label, c)
+                kept_share = gut_pair_cull(label, c)
+            del stages, c
             if label != "3dgut":  # the 3DGRT pairs frame: K1g's gates and cull, no entry
                 entries["rasterize_fwd_gut3d"]["max_abs_err"] = max(
                     entries["rasterize_fwd_gut3d"]["max_abs_err"], err)
-                del stages, c
-                profile_calls("3dgrt pairs", lambda: render(prepared, cam, cfg), card)
                 continue
-            bounds.update(frame_bounds)
-            kname = "K3g" if method == "bucket" else "K1g"
-            t_plain = median(time_ms(lambda: gut_twin(c, cfg), 1, warmup=1))
-            log(f"timing {kname} 1080p/1M ({card}): kernel_ms={t['blend']:.4f} "
-                f"plain_twin_ms={t_plain:.4f}")
             name = "raster_bucket_fwd_gut3d" if method == "bucket" else "rasterize_fwd_gut3d"
-            entries[name] = dict(launches=launches[0], max_abs_err=err, ms=t["blend"],
-                                 plain_ms=t_plain, kept_share=kept_share)
-            del stages, c
-            if method == "pairs":
-                profile_calls("3dgut pairs", lambda: render(prepared, cam, cfg), card)
-    return entries, bounds
+            entries[name] = dict(launches=launches[0], max_abs_err=err, kept_share=kept_share)
+    return entries
 
 
-def gut_train_full_size(dev, card: str, truth: gt.SplatSet, caps, seed: int):
+def gut_train_full_size(dev, truth: gt.SplatSet, caps, seed: int):
     """3DGUT training at 1080p with 1M splats on both paths: the scene
-    renders its own target; training starts from seeded jitter on means and
-    sh_dc. Returns K2g's and K4g's report entries and K2g's bound at the
-    pair path's training frame."""
+    renders its own target; training starts from the train cells' jittered
+    start. Returns K2g's and K4g's report entries."""
     base = gt.RenderConfig(width=WIDTH, height=HEIGHT, sh_degree=3)
     cam = gt.look_at([0, 0, -7], [0, 0, 0], [0, 1, 0], WIDTH, HEIGHT, fov_y_rad=0.9, device=dev)
     tc = gt.TrainConfig(scene_extent=4.0)
-    entries, bounds = {}, {}
+    entries = {}
     for method in ("pairs", "bucket"):
         cfg = gut_cfg(base, method=method, caps=caps)
         fwd = rb.rasterize_buckets if method == "bucket" else tr.rasterize_tiles
@@ -2402,7 +1837,7 @@ def gut_train_full_size(dev, card: str, truth: gt.SplatSet, caps, seed: int):
 
         # ---- the backward kernel against its twin (K4g on 64 sampled tiles,
         # K2g over every tile), with the loss's own cotangent at the blend;
-        # K2g's cull and bound on this frame
+        # K2g's cull on this frame
         stages, c = gut_stages(splats.prepare(), cam, cfg)
         run_stages(stages)
         (g_out,) = torch.autograd.grad(gt.rgb_loss(c["image"], target, tc.ssim_lambda),
@@ -2413,39 +1848,17 @@ def gut_train_full_size(dev, card: str, truth: gt.SplatSet, caps, seed: int):
             abs_err, _ = compare_gut_bwd(f"K4g on {tiles.numel()} sampled 1080p tiles", c, cfg,
                                          ctx, tiles)
         else:
-            bins, st = c["bins"], c["st"]
-            n_pairs, n_tiles = int(bins.num_pairs), st.tiles_x * st.tiles_y
+            st = c["st"]
+            n_tiles = st.tiles_x * st.tiles_y
             abs_err, _ = compare_gut_bwd(f"K2g on all {n_tiles} 1080p tiles", c, cfg, ctx)
-            work, kept = check_pair_cull("K2g", bins, st, tile_batches(st, dev), c["pix"])
-            bwd = (n_pairs * 2 * GRAD_ROWS_GUT * 4 + n_tiles * (8 + tr.PIX * tr.CTX_ROWS * 4)
-                   + n_tiles * tr.PIX * 6 * 4)
-            bounds["rasterize_bwd_gut3d"], text = pair_bound("rasterize_bwd_gut3d", work, bwd,
-                                                             n_tiles)
-            log(f"bound gut3d pairs training frame: live_pairs={n_pairs} "
-                f"pixel_pair_evaluations={work[0]} hits={work[1]} " + text)
-        kname = "K4g" if method == "bucket" else "K2g"
-        t_k = median(time_ms(lambda: gut_kernel_bwd(c, cfg, ctx), 10))
-        t_twin = median(time_ms(lambda: gut_twin_bwd(c, cfg, ctx), 1, warmup=1))
-        split = ""
-        if method == "bucket":
-            split = k4_launches(lambda: gut_kernel_bwd(c, cfg, ctx), "gut3d", c["bins"],
-                                blend_st(c, cfg), caps)
-        log(f"timing {kname} 1080p/1M ({card}): kernel_ms={t_k:.4f} plain_twin_ms={t_twin:.4f} "
-            + split)
+            work, kept = check_pair_cull("K2g", c["bins"], st, tile_batches(st, dev), c["pix"])
         del stages, c, ctx, g_out
-        t_fb = median(time_ms(fwd_bwd, 10))
-        t_step = median(time_ms(lambda: gt.train_step(splats, opt, cam, target, cfg, 0, tc), 10))
-        log(f"timing training 1080p/1M 3dgut {method} ({card}): fwd_bwd_ms={t_fb:.4f} "
-            f"train_step_ms={t_step:.4f}")
-        if method == "pairs":
-            profile_calls("3dgut train_step",
-                          lambda: gt.train_step(splats, opt, cam, target, cfg, 0, tc), card)
         name = "raster_bucket_bwd_gut3d" if method == "bucket" else "rasterize_bwd_gut3d"
-        entries[name] = dict(launches=launches[1], max_abs_err=abs_err, ms=t_k, plain_ms=t_twin)
+        entries[name] = dict(launches=launches[1], max_abs_err=abs_err)
         if method == "pairs":
             entries[name]["kept_share"] = kept / work[2]
         del splats, opt, target
-    return entries, bounds
+    return entries
 
 
 # ---- the packed tier (pair_format="packed"): K1p, K1gp, K3p, K3gp ----------
@@ -2455,10 +1868,6 @@ PACKED_FRAMES = (("3dgs", gt.Pipeline.MESH, "pairs"), ("3dgs", gt.Pipeline.MESH,
                  ("3dgut", gt.Pipeline.MESH_3DGUT, "bucket"), ("3dgrt", gt.Pipeline.RTX, "pairs"))
 PACKED_PSNR_DB, PACKED_ID_AGREE = 55.0, 0.99  # against f32 (tests/test_rasterize.py:178)
 PACKED_GRT_FRAMES = FRAMES // 2  # 3DGRT at a smaller depth: the same kernel as 3DGUT pairs
-ALONE_CALLS = 9  # profiled calls per kernel-alone time; up to 3 records may be lost
-# the kernels each blend wrapper launches, by the names the profiler records
-BLEND_KERNELS = {"pairs": ("warp_mask_kernel", "rasterize_fwd_kernel"),
-                 "bucket": ("raster_bucket_fwd_kernel",)}
 
 
 def with_format(cfg, pair_format):
@@ -2487,11 +1896,11 @@ def frame_stages_of(prepared, cam, cfg):
 
 
 def blend_of(c, cfg):
-    """A call of the blend ``c`` ran: (call, its statics, pixel context)."""
+    """A call of the blend ``c`` ran."""
     st, pix = blend_st(c, cfg), c["pix"]
     if cfg.raster.method == "bucket":
-        return lambda: rb.rasterize_buckets(c["bins"], st, cfg.raster.bucket_caps, pix), st, pix
-    return lambda: tr.rasterize_bins(c["bins"], st, pix), st, pix
+        return lambda: rb.rasterize_buckets(c["bins"], st, cfg.raster.bucket_caps, pix)
+    return lambda: tr.rasterize_bins(c["bins"], st, pix)
 
 
 def compare_packed_kernel(label, c, cfg, tiles=None):
@@ -2578,57 +1987,7 @@ def check_packed_rows(label, prepared, proj, cfg):
     check(same, f"{label}: packed rows made on the card differ from the CPU's")
 
 
-def abba(fn_a, fn_b):
-    """((a, a), (b, b)) from calls in the order a, b, b, a."""
-    a1, b1, b2, a2 = fn_a(), fn_b(), fn_b(), fn_a()
-    return (a1, a2), (b1, b2)
-
-
-def packed_timings(label, prepared, cam, cfg, f32_cfg, card, method):
-    """Stage and frame times of the packed frame beside the f32 frame
-    (CUDA events, medians of 10, turns f32, packed, packed, f32), and each
-    blend kernel alone (the profiler's per-kernel medians over the records
-    of ALONE_CALLS calls, summed over the wrapper's kernels, same turns).
-    Returns (the packed
-    blend's event ms, its alone ms)."""
-    runs = {}
-    for tag, c_ in (("f32", f32_cfg), ("packed", cfg)):
-        stages, c = frame_stages_of(prepared, cam, c_)
-        run_stages(stages)
-        runs[tag] = (stages, c, c_)
-
-    def stage_times(tag):
-        stages, _, c_ = runs[tag]
-        t = {stage: median(time_ms(step, 10)) for stage, step in stages}
-        t["frame"] = median(time_ms(lambda: render(prepared, cam, c_), 10))
-        return t
-
-    t_f32, t_packed = abba(lambda: stage_times("f32"), lambda: stage_times("packed"))
-    log(f"timing 1080p/1M {label} {method} packed beside f32 ({card}; turns f32, packed, "
-        f"packed, f32): " + " ".join(
-            f"{k}_ms f32={t_f32[0][k]:.4f}/{t_f32[1][k]:.4f} packed={t_packed[0][k]:.4f}/"
-            f"{t_packed[1][k]:.4f}" for k in t_packed[0]))
-
-    def alone(tag):
-        _, c, c_ = runs[tag]
-        call, st, _ = blend_of(c, c_)
-        wrapper = rb.rasterize_buckets if method == "bucket" else tr.rasterize_tiles
-        split = kernel_split(call, lambda: getattr(wrapper, tr.LAUNCH_COUNTER[st.model]),
-                             BLEND_KERNELS[method], calls=ALONE_CALLS,
-                             min_records=ALONE_CALLS - 3)
-        return sum(split.values()), split
-
-    a_f32, a_packed = abba(lambda: alone("f32"), lambda: alone("packed"))
-    log(f"timing {label} {method} blend kernel alone ({card}; profiler, median over "
-        f"{ALONE_CALLS} calls less lost records, turns "
-        f"f32, packed, packed, f32): f32=" + "/".join(f"{a:.4f}" for a, _ in a_f32)
-        + " packed=" + "/".join(f"{a:.4f}" for a, _ in a_packed)
-        + " (per kernel, packed: " + " ".join(f"{k}={v:.4f}" for k, v in a_packed[0][1].items())
-        + ")")
-    return median([t["blend"] for t in t_packed]), median([a for a, _ in a_packed])
-
-
-def packed_full_size(dev, card: str, prepared, caps, seed: int):
+def packed_full_size(dev, prepared, caps, seed: int):
     """The packed tier at 1080p with 1M splats, SH 3, at the headline caps:
     3DGS and 3DGUT on both paths, 3DGRT on the pair path. Per frame: the
     main path through ``render`` with every launch counter of the blend's
@@ -2637,12 +1996,11 @@ def packed_full_size(dev, card: str, prepared, caps, seed: int):
     against f32 (> 55 dB, ids > 99 %), packed rows made on the card against
     the CPU's, the packed kernel against its twin (every tile; K3gp also on
     64 sampled tiles), its kept count against the plain predicate's and the
-    audit of every tile for a culled (warp, pair) or lane that hits, its
-    bound, its plain twin's time, and stage and kernel times beside the f32
-    frame's (``packed_timings``). Returns (report entries, bounds)."""
+    audit of every tile for a culled (warp, pair) or lane that hits.
+    Returns the report entries."""
     base = gt.RenderConfig(width=WIDTH, height=HEIGHT, sh_degree=3)
     cam = gt.look_at([0, 0, -7], [0, 0, 0], [0, 1, 0], WIDTH, HEIGHT, fov_y_rad=0.9, device=dev)
-    entries, bounds = {}, {}
+    entries = {}
     for label, pipeline, method in PACKED_FRAMES:
         f32_cfg = gut_cfg(base, pipeline, method, caps)
         cfg = with_format(f32_cfg, "packed")
@@ -2679,17 +2037,13 @@ def packed_full_size(dev, card: str, prepared, caps, seed: int):
         check(bit_equal, f"repeat packed {label} {method} render differs")
         packed_vs_f32(f"1080p/1M {label} {method}", o0, f32)
         del again, f32, o0
-        # ---- the kernel against its twin, its cull, its bound
+        # ---- the kernel against its twin, its cull
         stages, c = frame_stages_of(prepared, cam, cfg)
         run_stages(stages)
         st, pix = blend_st(c, cfg), c["pix"]
         if method == "pairs" and label != "3dgrt":
             check_packed_rows(f"1080p/1M {label}", prepared, c["proj"], cfg)
         err = compare_packed_kernel(f"{name} vs twin on all 1080p {label} tiles", c, cfg)
-        n_tiles = st.tiles_x * st.tiles_y
-        rows = MODELS[model].rows
-        rays = 0 if pix is None else n_tiles * tr.PIX * 6 * 4
-        out_bytes = n_tiles * tr.PIX * (tr.OUT_ROWS * 4 + 4) + rays
         if method == "bucket":
             tiles = sample_bucket_tiles(c["bins"], st, dev, seed)
             err = max(err, compare_packed_kernel(f"{name} vs twin on {tiles.numel()} sampled "
@@ -2697,39 +2051,20 @@ def packed_full_size(dev, card: str, prepared, caps, seed: int):
             parts = [rb.bucket_work(c["bins"].attrs.detach(), c["bins"].bucket_starts, st, caps,
                                     tiles=t, pix_ctx=pix) for t in tile_batches(st, dev)]
             work = rb.BucketWork(*(sum(p[i] for p in parts) for i in range(len(parts[0]))))
-            fwd_bytes = work.live * (rows * 4 + 4) + n_tiles * (12 * 4 + 12 * 4) + out_bytes
-            frame_bounds, text = bucket_bound(model, work, fwd_bytes, None, 0, n_tiles)
-            log(f"bound 1080p/1M packed {label} bucket: live_candidates={work.live} "
-                f"pixel_lane_evaluations={work.evals} kept_lane_evaluations={work.kept_evals} "
-                f"hits={work.hits} {text}")
-            kept = check_cull(f"packed {label}", work, blend_of(c, cfg)[0], None, model,
+            kept = check_cull(f"packed {label}", work, blend_of(c, cfg), None, model,
                               c["bins"], st, caps, tile_batches(st, dev), pix)
             kept_share = kept / work.live
         else:
-            batches = tile_batches(st, dev)
-            blend_of(c, cfg)[0]()  # the kept counter of a launch on this frame
-            work, kept = check_warp_cull(f"packed {label} {name}", c["bins"], st, batches, pix)
-            n_pairs = int(c["bins"].num_pairs)
-            fwd_bytes = n_pairs * (rows * 4 + 4) + n_tiles * 8 + out_bytes
-            bound, text = warp_cull_bound(name, work, fwd_bytes, n_tiles)
-            frame_bounds = {name: bound}
-            log(f"bound 1080p/1M packed {label} pairs: live_pairs={n_pairs} "
-                f"pixel_pair_evaluations={work[0]} kept_evaluations={work[4]} hits={work[1]} "
-                + text)
+            blend_of(c, cfg)()  # the kept counter of a launch on this frame
+            work, kept = check_warp_cull(f"packed {label} {name}", c["bins"], st,
+                                         tile_batches(st, dev), pix)
             kept_share = kept / (tr.WARPS * work[2])
+        del stages, c
         if label == "3dgrt":  # K1gp again, at 3DGRT's order and cutoffs: its gates, no entry
             entries[name]["max_abs_err"] = max(entries[name]["max_abs_err"], err)
-            del stages, c
             continue
-        bounds.update(frame_bounds)
-        t_plain = median(time_ms(lambda: gut_twin(c, cfg), 1, warmup=1))
-        del stages, c
-        t_blend, t_alone = packed_timings(label, prepared, cam, cfg, f32_cfg, card, method)
-        log(f"timing {name} 1080p/1M ({card}): kernel_ms={t_blend:.4f} alone_ms={t_alone:.4f} "
-            f"plain_twin_ms={t_plain:.4f}")
-        entries[name] = dict(launches=launches[model], max_abs_err=err, ms=t_blend,
-                             plain_ms=t_plain, kept_share=kept_share, alone_ms=t_alone)
-    return entries, bounds
+        entries[name] = dict(launches=launches[model], max_abs_err=err, kept_share=kept_share)
+    return entries
 
 
 # ---- stochastic transparency (cfg.stochastic SPLAT): the _stoch forms ------
@@ -2756,7 +2091,6 @@ STOCH_FRAMES = (  # label, pipeline, method, pair format, temporal samples
 STOCH_TRAIN_STEPS = 3
 STOCH_SEED = 1           # temporal sample 0's (render/pipelines.sample_seed)
 STOCH_SPPS = (1, 4, 16)  # the convergence check's samples per pixel
-STOCH_ALONE_CALLS = 5    # profiled calls per kernel-alone time; up to 2 records may be lost
 COLOUR_ROWS = slice(tr.ATTR_R, tr.ATTR_B + 1)
 
 
@@ -2779,16 +2113,6 @@ def stoch_blend_inputs(prepared, cam, cfg):
             step()
     check(c["st"].stochastic, "the statics of a stochastic frame are not stochastic")
     return c, lambda seed=STOCH_SEED: blend_bins(c["bins"], cfg, c["st"], c["pix"], seed)
-
-
-def timed(fn):
-    """(fn(), its device ms by CUDA events)."""
-    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    a.record()
-    out = fn()
-    b.record()
-    b.synchronize()
-    return out, a.elapsed_time(b)
 
 
 @torch.no_grad()
@@ -2837,31 +2161,13 @@ def stoch_kept_gate(label, kept, plain, exact):
           f"{label} kept {kept}, the plain count {plain}")
 
 
-def alone_in_turns(label, calls, counters, names, card, tags=("a", "b")):
-    """Two calls' kernels alone in turns a, b, b, a (``calls``,
-    ``counters``: pairs of (a, b); ``tags`` name them in the log): the
-    profiler's per-kernel medians summed over the wrapper's kernels
-    (``names``). Returns (a's, b's) medians."""
-    def alone(k):
-        split = kernel_split(calls[k], counters[k], names, calls=STOCH_ALONE_CALLS,
-                             min_records=STOCH_ALONE_CALLS - 2)
-        return sum(split.values())
-
-    a, b = abba(lambda: alone(0), lambda: alone(1))
-    log(f"timing {label} alone ({card}; profiler, medians over {STOCH_ALONE_CALLS} calls less "
-        f"lost records, turns {tags[0]}, {tags[1]}, {tags[1]}, {tags[0]}): {tags[0]}="
-        + "/".join(f"{x:.4f}" for x in a) + f" {tags[1]}=" + "/".join(f"{x:.4f}" for x in b))
-    return median(a), median(b)
-
-
-def stoch_frame(dev, card, prepared, cam, base, caps, frame):
+def stoch_frame(prepared, cam, base, caps, frame):
     """One stochastic headline frame: the main path through ``render`` with
     every launch counter of the blend's wrapper zeroed (only the stochastic
     form moves, once per temporal sample), finite, T a multiple of 1 /
     samples, no bucket overflow, a bit-equal repeat; then sample 0's blend
-    against its twin on every tile, the kept counter, the bound, the twin's
-    time and the kernel alone beside its deterministic form. Returns (name,
-    report entry, bound)."""
+    against its twin on every tile and the kept counter. Returns (name,
+    report entry)."""
     label, pipeline, method, fmt, samples = frame
     cfg = stoch_cfg(with_format(gut_cfg(base, pipeline, method, caps), fmt), samples)
     fwd = rb.rasterize_buckets if method == "bucket" else tr.rasterize_tiles
@@ -2894,11 +2200,10 @@ def stoch_frame(dev, card, prepared, cam, base, caps, frame):
     del out, again
 
     c, blend = stoch_blend_inputs(prepared, cam, cfg)
-    st = blend_st(c, cfg)
     out_k, id_k = blend()
     torch.cuda.synchronize()
     kept = int(getattr(fwd, tr.KEPT_COUNTER[form]))
-    (out_r, id_r), t_plain = timed(lambda: gut_twin(c, cfg, seed=STOCH_SEED))
+    out_r, id_r = gut_twin(c, cfg, seed=STOCH_SEED)
     out_k = out_k.detach()
     same_px = (out_k == out_r).all(dim=1) & (id_k == id_r)
     err = (out_k[:, :4] - out_r[:, :4]).abs().max().item()
@@ -2915,41 +2220,17 @@ def stoch_frame(dev, card, prepared, cam, base, caps, frame):
     kernel = "K3" if method == "bucket" else "K1"
     work = stoch_work(c, cfg, kernel)
     stoch_kept_gate(name, kept, work.kept if kernel == "K3" else work[3], bool(same_px.all()))
-    n_tiles = st.tiles_x * st.tiles_y
-    rows = MODELS[model].rows
-    out_bytes = n_tiles * tr.PIX * (tr.OUT_ROWS * 4 + 4) + (0 if c["pix"] is None
-                                                            else n_tiles * tr.PIX * 6 * 4)
-    if method == "bucket":
-        fwd_bytes = work.live * (rows * 4 + 4) + n_tiles * (12 * 4 + 12 * 4) + out_bytes
-        frame_bounds, text = bucket_bound(model, work, fwd_bytes, None, 0, n_tiles, tr.STOCH)
-        bound = frame_bounds[name]
-    else:
-        fwd_bytes = int(c["bins"].num_pairs) * (rows * 4 + 4) + n_tiles * 8 + out_bytes
-        bound, text = warp_cull_bound(name, work, fwd_bytes, n_tiles)
-    log(f"  bound {name}: {draw_counts(work)}; " + text)
-    t_kernel = median(time_ms(blend, 10))
-    det_st = dataclasses.replace(c["st"], stochastic=False)
-    _, t_alone = alone_in_turns(
-        f"{name} kernel beside its deterministic form",
-        (lambda: blend_bins(c["bins"], cfg, det_st, c["pix"]), blend),
-        (lambda: getattr(fwd, tr.LAUNCH_COUNTER[model]),
-         lambda: getattr(fwd, tr.LAUNCH_COUNTER[form])),
-        BLEND_KERNELS[method], card, ("deterministic", "stochastic"))
-    log(f"timing {name} 1080p/1M ({card}): kernel_ms={t_kernel:.4f} alone_ms={t_alone:.4f} "
-        f"plain_twin_ms={t_plain:.4f}")
-    return name, dict(launches=launches[form], max_abs_err=err, ms=t_kernel, plain_ms=t_plain,
-                      alone_ms=t_alone), bound
+    log(f"  {name} stochastic sweep: {draw_counts(work)}")
+    return name, dict(launches=launches[form], max_abs_err=err)
 
 
-def stoch_train(dev, card, truth, base, caps, label, pipeline, method):
+def stoch_train(dev, truth, base, caps, label, pipeline, method):
     """STOCH_TRAIN_STEPS stochastic train steps (one sample each) at 1080p:
     the launches of both wrappers' forms counted (only the stochastic ones
     move, once a step), finite losses, only colour-path gradients
     (opacities, scales and quaternions exactly 0); then the backward form
     against its twin with the loss's own cotangent at sample 0's blend on
-    every tile, its kept counter, bound, twin time and alone beside its
-    deterministic form.
-    Returns (name, report entry, bound)."""
+    every tile and its kept counter. Returns (name, report entry)."""
     det = gut_cfg(base, pipeline, method, caps)
     cfg = stoch_cfg(det)
     model = "gs2d" if pipeline == gt.Pipeline.MESH else "gut3d"
@@ -2997,7 +2278,7 @@ def stoch_train(dev, card, truth, base, caps, label, pipeline, method):
     d_k = gut_kernel_bwd(c, cfg, ctx, STOCH_SEED)
     torch.cuda.synchronize()
     kept = int(getattr(bwd, tr.KEPT_COUNTER[form]))
-    d_r, t_plain = timed(lambda: gut_twin_bwd(c, cfg, ctx, seed=STOCH_SEED))
+    d_r = gut_twin_bwd(c, cfg, ctx, seed=STOCH_SEED)
     cols = ((d_k != 0) | (d_r != 0)).any(dim=0)
     grad_rows = MODELS[model].grad_rows
     other = [r for r in range(d_k.shape[0]) if not COLOUR_ROWS.start <= r < COLOUR_ROWS.stop]
@@ -3015,40 +2296,15 @@ def stoch_train(dev, card, truth, base, caps, label, pipeline, method):
     kernel = "K4" if method == "bucket" else "K2"
     work = stoch_work(c, cfg, kernel)
     stoch_kept_gate(name, kept, work.kept if kernel == "K4" else work[3], model == "gs2d")
-    n_tiles = st.tiles_x * st.tiles_y
-    rays = 0 if c["pix"] is None else n_tiles * tr.PIX * 6 * 4
-    if method == "bucket":
-        p = c["bins"].attrs.shape[1]
-        bwd_bytes = (work.live * grad_rows * 4 + n_tiles * (12 * 4 + 12 * 4)
-                     + n_tiles * tr.PIX * tr.CTX_ROWS * 4 + rays + p * grad_rows * 4)
-        frame_bounds, text = bucket_bound(model, work, None, bwd_bytes, grad_rows, n_tiles,
-                                          tr.STOCH)
-        bound = frame_bounds[name]
-    else:
-        bwd_bytes = (int(c["bins"].num_pairs) * 2 * grad_rows * 4
-                     + n_tiles * (2 * 4 + tr.PIX * tr.CTX_ROWS * 4) + rays)
-        bound, text = pair_bound(name, work, bwd_bytes, n_tiles)
-    log(f"  bound {name}: {draw_counts(work)}; " + text)
-    t_kernel = median(time_ms(lambda: gut_kernel_bwd(c, cfg, ctx, STOCH_SEED), 10))
-    det_c = dict(c, st=dataclasses.replace(c["st"], stochastic=False))
-    _, t_alone = alone_in_turns(
-        f"{name} kernel beside its deterministic form",
-        (lambda: gut_kernel_bwd(det_c, cfg, ctx), lambda: gut_kernel_bwd(c, cfg, ctx, STOCH_SEED)),
-        (lambda: getattr(bwd, tr.LAUNCH_COUNTER[model]),
-         lambda: getattr(bwd, tr.LAUNCH_COUNTER[form])),
-        K4_KERNELS if method == "bucket" else ("rasterize_bwd_kernel",), card,
-        ("deterministic", "stochastic"))
-    log(f"timing {name} 1080p/1M ({card}): kernel_ms={t_kernel:.4f} alone_ms={t_alone:.4f} "
-        f"plain_twin_ms={t_plain:.4f}")
-    return name, dict(launches=launches["bwd"][form], max_abs_err=abs_err, ms=t_kernel,
-                      plain_ms=t_plain, alone_ms=t_alone), bound
+    log(f"  {name} stochastic sweep: {draw_counts(work)}")
+    return name, dict(launches=launches["bwd"][form], max_abs_err=abs_err)
 
 
-def stoch_convergence(dev, card, prepared, base):
+def stoch_convergence(dev, prepared, base):
     """3DGS pairs at 1080p: the PSNR of the stochastic frame against the
     deterministic one must rise from 1 to 4 to 16 samples per pixel; the
     a-trous pass at 4 samples through ``render`` equals ``denoise_output``
-    of the undenoised frame bit for bit, is finite, and is timed."""
+    of the undenoised frame bit for bit and is finite."""
     cam = gt.look_at([0, 0, -7], [0, 0, 0], [0, 1, 0], WIDTH, HEIGHT, fov_y_rad=0.9, device=dev)
     with torch.no_grad():
         ref = render(prepared, cam, base).image.clamp(0, 1)
@@ -3067,35 +2323,29 @@ def stoch_convergence(dev, card, prepared, base):
     check(bool(torch.isfinite(den).all()) and tuple(den.shape) == (HEIGHT, WIDTH, 3),
           "the a-trous frame's shape or values")
     check(torch.equal(den, again), "render's a-trous frame differs from denoise_output's")
-    t_den = median(time_ms(lambda: denoise_output(raw), 10))
-    t_frame = median(time_ms(lambda: render(prepared, cam, cfg4.replace(denoise="atrous")), 5))
-    log(f"timing atrous 1080p ({card}): denoise_ms={t_den:.4f} frame_4spp_atrous_ms="
-        f"{t_frame:.4f}")
 
 
-def stochastic(dev, card: str, truth: gt.SplatSet, caps):
-    """Phase 11: stochastic transparency at 1080p with 1M splats, SH 3, at
-    the headline caps. Returns (report entries, bounds)."""
+def stochastic(dev, truth: gt.SplatSet, caps):
+    """Phase 8: stochastic transparency at 1080p with 1M splats, SH 3, at
+    the headline caps. Returns the report entries."""
     t0 = time.perf_counter()
     base = gt.RenderConfig(width=WIDTH, height=HEIGHT, sh_degree=3)
     cam = gt.look_at([0, 0, -7], [0, 0, 0], [0, 1, 0], WIDTH, HEIGHT, fov_y_rad=0.9, device=dev)
     prepared = truth.prepare()
-    entries, bounds = {}, {}
+    entries = {}
     for frame in STOCH_FRAMES:
-        name, entry, bound = stoch_frame(dev, card, prepared, cam, base, caps, frame)
+        name, entry = stoch_frame(prepared, cam, base, caps, frame)
         if name in entries:  # K1gs again on the 3DGRT frame: its gates, no entry
             entries[name]["max_abs_err"] = max(entries[name]["max_abs_err"],
                                                entry["max_abs_err"])
             continue
-        entries[name], bounds[name] = entry, bound
+        entries[name] = entry
     for label, pipeline in (("3dgs", gt.Pipeline.MESH), ("3dgut", gt.Pipeline.MESH_3DGUT)):
         for method in ("pairs", "bucket"):
-            name, entries_, bound = stoch_train(dev, card, truth, base, caps, label, pipeline,
-                                                method)
-            entries[name], bounds[name] = entries_, bound
-    stoch_convergence(dev, card, prepared, base)
+            name, entries[name] = stoch_train(dev, truth, base, caps, label, pipeline, method)
+    stoch_convergence(dev, prepared, base)
     log(f"stochastic phase {time.perf_counter() - t0:.1f} s")
-    return entries, bounds
+    return entries
 
 
 # ---- the host-sorted path (SortMethod.HOST) and the IO: K3 and K4 _keyrow ---
@@ -3112,18 +2362,10 @@ def stochastic(dev, card: str, truth: gt.SplatSet, caps):
 # (BUCKET_VS_PAIR_*), the max and the PSNR.
 
 KEYROW_FORM, STOCH_KEYROW_FORM = "gs2d" + tr.KEYROW, "gs2d" + tr.STOCH + tr.KEYROW
-STOCH_KEYROW_TAGS = ("_stoch", "_stoch_keyrow")
 KEYROW_FWD, KEYROW_BWD = "raster_bucket_fwd" + tr.KEYROW, "raster_bucket_bwd" + tr.KEYROW
 HOST_TRAIN_STEPS = 3
 HOST_SAMPLES = 2           # the stochastic host-sorted frame's temporal samples
 HOST_REVERSED_MIN = 1e-3   # a reversed order must move the frame by more
-
-
-def beside_stoch_counters(wrapper):
-    """The launch counters of ``wrapper``'s stochastic form and its
-    stochastic key-row form, as ``alone_in_turns`` reads them."""
-    return (lambda: getattr(wrapper, tr.LAUNCH_COUNTER["gs2d" + tr.STOCH]),
-            lambda: getattr(wrapper, tr.LAUNCH_COUNTER[STOCH_KEYROW_FORM]))
 
 
 def view_dir(cam) -> np.ndarray:
@@ -3132,23 +2374,12 @@ def view_dir(cam) -> np.ndarray:
 
 
 def host_order(sorter, cam):
-    """(order as numpy int32, wall ms from the request to its consume) of one
-    sort for ``cam``."""
-    t0 = time.perf_counter()
+    """The order (numpy int32) of one sort for ``cam``, from the request to
+    its consume."""
     sorter.sort_async(view_dir(cam))
     while (res := sorter.consume()) is None:
         time.sleep(2e-4)
-    return res[0], (time.perf_counter() - t0) * 1e3
-
-
-def host_ms(fn, iters: int = 3) -> float:
-    """Median host wall ms of ``fn`` (host code: no device work)."""
-    times = []
-    for _ in range(iters):
-        t0 = time.perf_counter()
-        fn()
-        times.append((time.perf_counter() - t0) * 1e3)
-    return median(times)
+    return res[0]
 
 
 def counts(wrapper) -> dict:
@@ -3211,69 +2442,44 @@ def agreement(label: str, got, ref) -> float:
     return share
 
 
-def host_sort_checks(dev, card, truth, cam):
+def host_sort_checks(truth, cam):
     """The native library and the sorter at 1 M splats: the library built;
-    its radix sort of the plane distances equal to numpy's stable argsort;
-    host sort times, native and numpy; the sorter's wall time from request
-    to consume; the means' copy to the host and the order's to the card.
-    Returns the sorter."""
+    its radix sort of the plane distances equal to numpy's stable argsort,
+    and the sorter's order equal to it. Returns the sorter."""
     check(native.available(), "the native library did not build")
     log(f"native library: build/native/{native.library_path().name}")
     means = truth.means.detach()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    host_means = means.cpu().numpy()
-    t_d2h = (time.perf_counter() - t0) * 1e3
-    dist = host_means @ view_dir(cam).astype(np.float32)
+    dist = means.cpu().numpy() @ view_dir(cam).astype(np.float32)
     radix = native.radix_argsort_f32(dist)
-    stable = np.argsort(dist, kind="stable")
-    check(np.array_equal(radix, stable), "the radix sort differs from numpy's stable argsort")
-    t_radix = host_ms(lambda: native.radix_argsort_f32(dist))
-    t_numpy = host_ms(lambda: np.argsort(dist, kind="stable"))
-    t0 = time.perf_counter()
+    check(np.array_equal(radix, np.argsort(dist, kind="stable")),
+          "the radix sort differs from numpy's stable argsort")
     sorter = AsyncHostSorter(means)
-    t_make = (time.perf_counter() - t0) * 1e3
-    walls = [host_order(sorter, cam)[1] for _ in range(3)]
-    order = host_order(sorter, cam)[0]
-    check(np.array_equal(order, radix), "the sorter's order differs from the radix sort's")
-    up = []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        torch.from_numpy(order).to(dev)
-        torch.cuda.synchronize()
-        up.append((time.perf_counter() - t0) * 1e3)
-    log(f"timing host sort 1M ({card}, host clock, medians of 3): radix_ms={t_radix:.3f} "
-        f"numpy_stable_argsort_ms={t_numpy:.3f} sorter_request_to_consume_ms="
-        + "/".join(f"{w:.3f}" for w in walls)
-        + f" means_to_host_ms={t_d2h:.3f} sorter_construction_ms={t_make:.3f} (the copy "
-        f"included) order_to_card_ms={median(up):.3f}; radix equal to the stable argsort "
-        f"on {dist.size} distances ({int((dist == 0).sum())} zeros)")
+    check(np.array_equal(host_order(sorter, cam), radix),
+          "the sorter's order differs from the radix sort's")
+    log(f"host sort 1M: radix equal to the stable argsort on {dist.size} distances "
+        f"({int((dist == 0).sum())} zeros), the sorter's order equal to it")
     return sorter
 
 
-def keyrow_forward(dev, card, prepared, cam, base, caps, sorter):
+def keyrow_forward(dev, prepared, cam, base, caps, sorter):
     """K3's key-row form at the headline cell: FRAMES jittered frames through
     ``render(..., host_order=)``, each with its own sort; only
     ``launches_keyrow`` moves, once a frame; no overflow; a bit-equal
     repeat; against the device-sorted bucket frame; a reversed order; K3
     _keyrow against its twin on every tile; the kept counters of K3 and K4
-    _keyrow against ``tile_may_hit`` over the key-row merge and the audit;
-    both bounds; stage, frame and twin times; K3 _keyrow alone beside K3
-    in turns. Then the pair path and the packed bucket config with a host
-    order. Returns (K3 _keyrow's entry, the bounds of K3 and K4 _keyrow,
-    frame 0's order)."""
+    _keyrow against ``tile_may_hit`` over the key-row merge and the audit.
+    Then the pair path and the packed bucket config with a host order.
+    Returns (K3 _keyrow's entry, frame 0's order)."""
     bcfg = bucket_cfg(base, caps)
     tr.zero_counters(rb.rasterize_buckets)
-    outs, walls, orders = [], [], []
+    outs, orders = [], []
     for i in range(FRAMES):
-        order, wall = host_order(sorter, jitter(cam, i))
-        walls.append(wall)
-        orders.append(order)
-        outs.append(render(prepared, jitter(cam, i), bcfg, host_order=order))
+        orders.append(host_order(sorter, jitter(cam, i)))
+        outs.append(render(prepared, jitter(cam, i), bcfg, host_order=orders[-1]))
     torch.cuda.synchronize()
     seen = only("host-sorted bucket main path", rb.rasterize_buckets, KEYROW_FORM, FRAMES)
-    log(f"host-sorted bucket main path: {FRAMES} frames, each sorted on the host "
-        f"(request to consume " + "/".join(f"{w:.1f}" for w in walls) + f" ms), launches {seen}")
+    log(f"host-sorted bucket main path: {FRAMES} frames, each sorted on the host, "
+        f"launches {seen}")
     for o in outs:
         check(tuple(o.image.shape) == (HEIGHT, WIDTH, 3) and bool(torch.isfinite(o.image).all()),
               "host-sorted frame: image shape or values")
@@ -3299,57 +2505,17 @@ def keyrow_forward(dev, card, prepared, cam, base, caps, sorter):
     stages, c = host_stages(prepared, cam, bcfg, order0)
     run_stages(stages[:2])
     bins, st = c["bins"], blend_st(c, bcfg)
-    n_tiles, p = st.tiles_x * st.tiles_y, bins.attrs.shape[1]
     err, agree = compare_k3_with_twin(bins, st, caps)
-    log(f"host-sorted bucket all {n_tiles} tiles: K3_keyrow_vs_twin_max_abs={err:.3e} "
-        f"id_agree={agree:.6f}")
+    log(f"host-sorted bucket all {st.tiles_x * st.tiles_y} tiles: "
+        f"K3_keyrow_vs_twin_max_abs={err:.3e} id_agree={agree:.6f}")
     check(err <= KERNEL_ATOL and agree >= ID_AGREE, f"K3 _keyrow vs twin: {err}, {agree}")
     work = bucket_work(bins, st, caps)
-    head_bytes = n_tiles * (12 * 4 + 12 * 4)
-    bytes_fwd = (work.live * (11 * 4 + 4) + head_bytes
-                 + n_tiles * tr.PIX * (tr.OUT_ROWS * 4 + 4))
-    bytes_bwd = (work.live * (tr.GRAD_ROWS + 1) * 4 + head_bytes
-                 + n_tiles * tr.PIX * tr.CTX_ROWS * 4 + p * tr.GRAD_ROWS * 4)
-    bounds, text = bucket_bound("gs2d", work, bytes_fwd, bytes_bwd, tr.GRAD_ROWS, n_tiles,
-                                tr.KEYROW)
-    log(f"bound 1080p/1M host-sorted bucket: live={work.live} kept_evaluations="
-        f"{work.kept_evals} hits={work.hits} merge_comparisons={work.comparisons} {text} "
-        f"(the key row read by the merge, the depth row staged for the pick)")
     kept = check_cull("K3 _keyrow, K4 _keyrow", work, lambda: rb.rasterize_buckets(bins, st, caps),
                       lambda ctx: rb.rasterize_buckets_bwd(bins.attrs, bins.bucket_starts, ctx,
                                                            st, caps),
                       "gs2d", bins, st, caps, twin_tiles(st, dev), form=KEYROW_FORM)
-
-    # ---- times: stages and frames (events), the twin, K3 _keyrow alone
-    # beside K3 on the device-sorted bins of the same frame
-    t = {stage: median(time_ms(step, 10)) for stage, step in stages}
-    order_dev = torch.from_numpy(order0).to(dev)
-    t_host = median(time_ms(lambda: render(prepared, cam, bcfg, host_order=order0), 10))
-    t_dev = median(time_ms(lambda: render(prepared, cam, bcfg, host_order=order_dev), 10))
-    t_device_sort = median(time_ms(lambda: render(prepared, cam, bcfg), 10))
-    log(f"timing 1080p/1M host-sorted bucket ({card}): " + " ".join(
-        f"{k}_ms={v:.4f}" for k, v in t.items()) + f" frame_ms={t_host:.4f} (the order "
-        f"from numpy, its copy to the card included) frame_order_on_card_ms={t_dev:.4f} "
-        f"device_sorted_frame_ms={t_device_sort:.4f}")
-    t_plain = median(time_ms(lambda: bucket_twin(bins, st, caps), 1, warmup=0))
-    plain_bins, plain_st = bins_of(prepared, cam, bcfg), bucket_statics(bcfg)
-
-    def alone(key: bool):
-        b, s, form = (bins, st, KEYROW_FORM) if key else (plain_bins, plain_st, "gs2d")
-        split = kernel_split(lambda: rb.rasterize_buckets(b, s, caps),
-                             lambda: getattr(rb.rasterize_buckets, tr.LAUNCH_COUNTER[form]),
-                             BLEND_KERNELS["bucket"], calls=STOCH_ALONE_CALLS,
-                             min_records=STOCH_ALONE_CALLS - 2)
-        return sum(split.values())
-
-    a_plain, a_key = abba(lambda: alone(False), lambda: alone(True))
-    log(f"timing {KEYROW_FWD} 1080p/1M ({card}): kernel_ms={t['blend']:.4f} "
-        f"plain_twin_ms={t_plain:.4f}; alone (profiler, turns K3, K3 _keyrow, K3 _keyrow, K3) "
-        f"K3=" + "/".join(f"{a:.4f}" for a in a_plain) + " K3_keyrow="
-        + "/".join(f"{a:.4f}" for a in a_key))
-    entry = dict(launches=seen[KEYROW_FORM], max_abs_err=err, ms=t["blend"], plain_ms=t_plain,
-                 alone_ms=median(a_key), kept_share=kept / work.live)
-    del bins, plain_bins, c, stages
+    entry = dict(launches=seen[KEYROW_FORM], max_abs_err=err, kept_share=kept / work.live)
+    del bins, c, stages
 
     # ---- the pair path, and packed rows on the bucket config, with the order
     tr.zero_counters(tr.rasterize_tiles)
@@ -3370,23 +2536,22 @@ def keyrow_forward(dev, card, prepared, cam, base, caps, sorter):
     log(f"host-sorted packed, method=bucket: K1 launches {k1p}, K3 none; equal to the packed "
         f"pair frame: {same}")
     check(same, "the packed bucket host-sorted frame is not the packed pair frame")
-    return entry, bounds, order0
+    return entry, order0
 
 
-def keyrow_backward(dev, card, truth, cam, base, caps):
+def keyrow_backward(dev, truth, cam, base, caps):
     """K4's key-row form: HOST_TRAIN_STEPS fwd_bwd (render with the host
     order, rgb_loss, backward) from the jittered start, the order sorted
     for its means; only the key-row forms of K3 and K4 move, once a step;
     finite; a bit-equal repeat. K4 _keyrow against its twin with the loss's
-    own cotangent on every tile and on 64 sampled tiles (``bwd_gate``), the
-    key row's gradient exactly 0, its time, its twin's, and alone beside K4
-    on the device-sorted bins of the same frame. Returns its entry."""
+    own cotangent on every tile and on 64 sampled tiles (``bwd_gate``) and
+    the key row's gradient exactly 0. Returns its entry."""
     cfg = bucket_cfg(base, caps)
     tc = gt.TrainConfig(scene_extent=4.0)
     with torch.no_grad():
         target = render(truth.prepare(), cam, cfg).image
     splats = jittered_start(truth, dev, 0)
-    order, _ = host_order(AsyncHostSorter(splats.means), cam)
+    order = host_order(AsyncHostSorter(splats.means), cam)
 
     def fwd_bwd():
         for f in FIELDS:
@@ -3422,12 +2587,7 @@ def keyrow_backward(dev, card, truth, cam, base, caps):
                                    c["out"][0])
     ctx = tr.bwd_context(c["out"][0].detach(), g_out)
     del c, stages, g_out
-    attrs = bins.attrs.detach()
-
-    def k4():
-        return rb.rasterize_buckets_bwd(attrs, bins.bucket_starts, ctx, st, caps)
-
-    d_k = k4()
+    d_k = rb.rasterize_buckets_bwd(bins.attrs.detach(), bins.bucket_starts, ctx, st, caps)
     torch.cuda.synchronize()
     key_zero = bool((d_k[GS_KEY] == 0).all())
     log(f"  K4 _keyrow d_attrs: {tuple(d_k.shape)}, the key row (row {GS_KEY}) exactly 0: "
@@ -3440,40 +2600,18 @@ def keyrow_backward(dev, card, truth, cam, base, caps):
     log(f"host-sorted K4 _keyrow vs twin: every tile max_abs={abs_all:.3e} "
         f"max_rel_to_row_max={rel_all:.3e}; {tiles.numel()} sampled tiles max_abs={abs_s:.3e} "
         f"max_rel_to_row_max={rel_s:.3e}")
-    t_k4 = median(time_ms(k4, 10))
-    t_twin = median(time_ms(lambda: bucket_twin_bwd(bins, st, caps, ctx), 1, warmup=0))
-    plain_bins, plain_st = bins_of(splats.prepare(), cam, cfg), bucket_statics(cfg)
-    out_p, _ = rb.rasterize_buckets(plain_bins, plain_st, caps)
-    ctx_p = tr.bwd_context(out_p.detach(), torch.ones_like(out_p))
-
-    def alone(key: bool):
-        b, s, cx, form = ((bins, st, ctx, KEYROW_FORM) if key
-                          else (plain_bins, plain_st, ctx_p, "gs2d"))
-        split = kernel_split(
-            lambda: rb.rasterize_buckets_bwd(b.attrs.detach(), b.bucket_starts, cx, s, caps),
-            lambda: getattr(rb.rasterize_buckets_bwd, tr.LAUNCH_COUNTER[form]), K4_KERNELS,
-            calls=STOCH_ALONE_CALLS, min_records=STOCH_ALONE_CALLS - 2)
-        return sum(split.values())
-
-    a_plain, a_key = abba(lambda: alone(False), lambda: alone(True))
-    log(f"timing {KEYROW_BWD} 1080p/1M ({card}): kernel_ms={t_k4:.4f} plain_twin_ms="
-        f"{t_twin:.4f}; alone (profiler, three launches summed, turns K4, K4 _keyrow, K4 "
-        f"_keyrow, K4) K4=" + "/".join(f"{a:.4f}" for a in a_plain) + " K4_keyrow="
-        + "/".join(f"{a:.4f}" for a in a_key))
-    return dict(launches=seen["bwd"][KEYROW_FORM], max_abs_err=max(abs_all, abs_s), ms=t_k4,
-                plain_ms=t_twin, alone_ms=median(a_key))
+    return dict(launches=seen["bwd"][KEYROW_FORM], max_abs_err=max(abs_all, abs_s))
 
 
-def keyrow_stochastic(dev, card, truth, cam, base, caps, order0):
+def keyrow_stochastic(dev, truth, cam, base, caps, order0):
     """The stochastic key-row forms: a HOST_SAMPLES-sample host-sorted
     bucket frame (only ``launches_stoch_keyrow`` moves, once a sample; T a
     multiple of 1 / samples; a bit-equal repeat), sample 0's blend equal to
-    its twin bit for bit on every tile, its kept counter, bound, twin time
-    and alone beside K3 _stoch; one stochastic fwd_bwd with a host order
-    (K4 _stoch_keyrow once), its backward form against its twin with the
-    loss's cotangent on every tile (colour rows at K4's gates, every other
-    row and the key row exactly 0), its kept counter, bound, times and
-    alone beside K4 _stoch. Returns ({name: entry}, {name: bound})."""
+    its twin bit for bit on every tile and its kept counter; one stochastic
+    fwd_bwd with a host order (K4 _stoch_keyrow once), its backward form
+    against its twin with the loss's cotangent on every tile (colour rows
+    at K4's gates, every other row and the key row exactly 0) and its kept
+    counter. Returns {name: entry}."""
     prepared = truth.prepare()
     cfg = stoch_cfg(bucket_cfg(base, caps), HOST_SAMPLES)
     fwd_name, bwd_name = (name + tr.STOCH + tr.KEYROW
@@ -3495,41 +2633,21 @@ def keyrow_stochastic(dev, card, truth, cam, base, caps, order0):
     check(not bool(out.overflow) and same, "stochastic host-sorted frame: overflow or repeat")
     del out, again
 
-    entries, bounds = {}, {}
+    entries = {}
     stages, c = host_stages(prepared, cam, cfg, order0, STOCH_SEED)
     run_stages(stages[:3])
-    st = blend_st(c, cfg)
     out_k, id_k = c["out"]
     torch.cuda.synchronize()
     kept = int(getattr(rb.rasterize_buckets, tr.KEPT_COUNTER[STOCH_KEYROW_FORM]))
-    (out_r, id_r), t_plain = timed(lambda: gut_twin(c, cfg, seed=STOCH_SEED))
+    out_r, id_r = gut_twin(c, cfg, seed=STOCH_SEED)
     check(torch.equal(out_k, out_r) and torch.equal(id_k, id_r),
           f"{fwd_name} differs from its twin")
     work = stoch_work(c, cfg, "K3")
     log(f"  {fwd_name} vs twin on all {out_k.shape[0]} tiles (seed {STOCH_SEED}): bit-equal")
     stoch_kept_gate(fwd_name, kept, work.kept, True)
-    n_tiles = st.tiles_x * st.tiles_y
-    fwd_bytes = (work.live * (11 * 4 + 4) + n_tiles * (12 * 4 + 12 * 4)
-                 + n_tiles * tr.PIX * (tr.OUT_ROWS * 4 + 4))
-    frame_bounds, text = bucket_bound("gs2d", work, fwd_bytes, None, 0, n_tiles,
-                                      tr.STOCH + tr.KEYROW)
-    bounds[fwd_name] = frame_bounds[fwd_name]
-    log(f"  bound {fwd_name}: {draw_counts(work)}; " + text)
-    bins = c["bins"]
-    blend = stages[2][1]
-    t_kernel = median(time_ms(blend, 10))
-    plain_bins, plain_st = bins_of(prepared, cam, cfg), bucket_statics(cfg)
-    _, t_alone = alone_in_turns(
-        f"{fwd_name} kernel beside its _stoch form",
-        (lambda: rb.rasterize_buckets(plain_bins, plain_st, caps, None, STOCH_SEED),
-         lambda: rb.rasterize_buckets(bins, st, caps, None, STOCH_SEED)),
-        beside_stoch_counters(rb.rasterize_buckets), BLEND_KERNELS["bucket"], card,
-        STOCH_KEYROW_TAGS)
-    log(f"timing {fwd_name} 1080p/1M ({card}): kernel_ms={t_kernel:.4f} alone_ms={t_alone:.4f} "
-        f"plain_twin_ms={t_plain:.4f}")
-    entries[fwd_name] = dict(launches=seen[STOCH_KEYROW_FORM], max_abs_err=0.0, ms=t_kernel,
-                             plain_ms=t_plain, alone_ms=t_alone)
-    del c, stages, bins, plain_bins, out_k, out_r
+    log(f"  {fwd_name} stochastic sweep: {draw_counts(work)}")
+    entries[fwd_name] = dict(launches=seen[STOCH_KEYROW_FORM], max_abs_err=0.0)
+    del c, stages, out_k, out_r
 
     # ---- the backward form: one stochastic fwd_bwd with a host order
     tcfg = gt.TrainConfig(scene_extent=4.0)
@@ -3537,7 +2655,7 @@ def keyrow_stochastic(dev, card, truth, cam, base, caps, order0):
     with torch.no_grad():
         target = render(prepared, cam, bucket_cfg(base, caps)).image
     splats = jittered_start(truth, dev, 0)
-    order, _ = host_order(AsyncHostSorter(splats.means), cam)
+    order = host_order(AsyncHostSorter(splats.means), cam)
     for f in FIELDS:
         getattr(splats, f).requires_grad_()
     tr.zero_counters(rb.rasterize_buckets_bwd, tr.TRAINED)
@@ -3554,14 +2672,13 @@ def keyrow_stochastic(dev, card, truth, cam, base, caps, order0):
           "stochastic host-sorted fwd_bwd: a non-finite loss or a gradient through alpha")
     stages, c = host_stages(splats.prepare(), cam, one, order, STOCH_SEED)
     run_stages(stages)
-    st = blend_st(c, one)
     (g_out,) = torch.autograd.grad(gt.rgb_loss(c["image"], target, tcfg.ssim_lambda),
                                    c["out"][0])
     ctx = tr.bwd_context(c["out"][0].detach(), g_out)
     d_k = gut_kernel_bwd(c, one, ctx, STOCH_SEED)
     torch.cuda.synchronize()
     kept = int(getattr(rb.rasterize_buckets_bwd, tr.KEPT_COUNTER[STOCH_KEYROW_FORM]))
-    d_r, t_twin = timed(lambda: gut_twin_bwd(c, one, ctx, seed=STOCH_SEED))
+    d_r = gut_twin_bwd(c, one, ctx, seed=STOCH_SEED)
     other = [r for r in range(d_k.shape[0]) if not COLOUR_ROWS.start <= r < COLOUR_ROWS.stop]
     check(bool((d_k[other] == 0).all()) and bool((d_r[other] == 0).all()),
           f"{bwd_name}: a row other than the colour rows (the key row included) is not 0")
@@ -3573,26 +2690,9 @@ def keyrow_stochastic(dev, card, truth, cam, base, caps, order0):
     check(ok, f"{bwd_name} vs twin outside the gates: {rel} / {share}")
     work = stoch_work(c, one, "K4")
     stoch_kept_gate(bwd_name, kept, work.kept, True)
-    p = c["bins"].attrs.shape[1]
-    bwd_bytes = (work.live * (tr.GRAD_ROWS + 1) * 4 + n_tiles * (12 * 4 + 12 * 4)
-                 + n_tiles * tr.PIX * tr.CTX_ROWS * 4 + p * tr.GRAD_ROWS * 4)
-    frame_bounds, text = bucket_bound("gs2d", work, None, bwd_bytes, tr.GRAD_ROWS, n_tiles,
-                                      tr.STOCH + tr.KEYROW)
-    bounds[bwd_name] = frame_bounds[bwd_name]
-    log(f"  bound {bwd_name}: {draw_counts(work)}; " + text)
-    t_kernel = median(time_ms(lambda: gut_kernel_bwd(c, one, ctx, STOCH_SEED), 10))
-    plain = dict(c, bins=bins_of(splats.prepare(), cam, one),
-                 st=dataclasses.replace(c["st"], key_is_row=False))
-    _, t_alone = alone_in_turns(
-        f"{bwd_name} kernel beside its _stoch form",
-        (lambda: gut_kernel_bwd(plain, one, ctx, STOCH_SEED),
-         lambda: gut_kernel_bwd(c, one, ctx, STOCH_SEED)),
-        beside_stoch_counters(rb.rasterize_buckets_bwd), K4_KERNELS, card, STOCH_KEYROW_TAGS)
-    log(f"timing {bwd_name} 1080p/1M ({card}): kernel_ms={t_kernel:.4f} alone_ms={t_alone:.4f} "
-        f"plain_twin_ms={t_twin:.4f}")
-    entries[bwd_name] = dict(launches=seen_bwd[STOCH_KEYROW_FORM], max_abs_err=abs_err,
-                             ms=t_kernel, plain_ms=t_twin, alone_ms=t_alone)
-    return entries, bounds
+    log(f"  {bwd_name} stochastic sweep: {draw_counts(work)}")
+    entries[bwd_name] = dict(launches=seen_bwd[STOCH_KEYROW_FORM], max_abs_err=abs_err)
+    return entries
 
 
 def io_within(label: str, got: torch.Tensor, want: torch.Tensor, atol: float) -> float:
@@ -3608,12 +2708,12 @@ def sign_canonical(q: torch.Tensor) -> torch.Tensor:
     return q * torch.where(big < 0, -1.0, 1.0)
 
 
-def io_phase(dev, card, truth):
+def io_phase(dev, truth):
     """The 1 M scene through save_ply -> load_ply (the native extractor),
     save_spz -> load_spz and save_splat_file -> load_splat_file, each read
     by ``load_scene``, in a temporary directory: the PLY exact; spz and
     .splat within their quantisation (IO_TOL's reasons), values outside a
-    format's range compared at its clamp; write and read times."""
+    format's range compared at its clamp."""
     with torch.no_grad():
         t = {f: getattr(truth, f).detach() for f in FIELDS}
         alpha = torch.sigmoid(t["opacities"])
@@ -3627,13 +2727,8 @@ def io_phase(dev, card, truth):
     with tempfile.TemporaryDirectory() as tmp:
         for ext, save in ((".ply", save_ply), (".spz", save_spz), (".splat", save_splat_file)):
             path = os.path.join(tmp, "scene" + ext)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
             save(path, truth)
-            t1 = time.perf_counter()
             got = load_scene(path, device=dev)
-            torch.cuda.synchronize()
-            t2 = time.perf_counter()
             g = {f: getattr(got, f) for f in FIELDS}
             a = torch.sigmoid(g["opacities"])
             if ext == ".ply":
@@ -3659,33 +2754,29 @@ def io_phase(dev, card, truth):
                     opacities=io_within("splat alpha", a, alpha, 0.5 / 255 + 1e-5))
                 check(tuple(g["sh_rest"].shape) == (truth.means.shape[0], 0, 3),
                       ".splat carries SH degree 0")
-            lines.append(f"{ext} {os.path.getsize(path) / 1e6:.1f} MB write_ms="
-                         f"{(t1 - t0) * 1e3:.1f} read_ms={(t2 - t1) * 1e3:.1f} (load_scene, "
-                         f"to the card) max errors " + " ".join(
-                             f"{k}={v:.3e}" for k, v in errs.items()))
+            lines.append(f"{ext} {os.path.getsize(path) / 1e6:.1f} MB (load_scene, to the card) "
+                         f"max errors " + " ".join(f"{k}={v:.3e}" for k, v in errs.items()))
             del got, g
-    log(f"io 1M splats SH 3 ({card}, host clock): " + "; ".join(lines))
+    log("io 1M splats SH 3: " + "; ".join(lines))
 
 
-def host_sorted(dev, card: str, truth: gt.SplatSet, caps):
-    """Phase 12: the host-sorted path and the IO at the headline cell and
-    caps. Returns (report entries, bounds) of the four key-row forms."""
+def host_sorted(dev, truth: gt.SplatSet, caps):
+    """Phase 9: the host-sorted path and the IO at the headline cell and
+    caps. Returns the report entries of the four key-row forms."""
     t0 = time.perf_counter()
     base = gt.RenderConfig(width=WIDTH, height=HEIGHT, sh_degree=3)
     cam = gt.look_at([0, 0, -7], [0, 0, 0], [0, 1, 0], WIDTH, HEIGHT, fov_y_rad=0.9, device=dev)
     prepared = truth.prepare()
-    sorter = host_sort_checks(dev, card, truth, cam)
-    k3, bounds, order0 = keyrow_forward(dev, card, prepared, cam, base, caps, sorter)
-    k4 = keyrow_backward(dev, card, truth, cam, base, caps)
+    sorter = host_sort_checks(truth, cam)
+    k3, order0 = keyrow_forward(dev, prepared, cam, base, caps, sorter)
+    k4 = keyrow_backward(dev, truth, cam, base, caps)
     k4["kept_share"] = k3["kept_share"]  # the same lanes on the headline frame (check_cull)
     entries = {KEYROW_FWD: k3, KEYROW_BWD: k4}
-    stoch_entries, stoch_bounds = keyrow_stochastic(dev, card, truth, cam, base, caps, order0)
-    entries.update(stoch_entries)
-    bounds.update(stoch_bounds)
+    entries.update(keyrow_stochastic(dev, truth, cam, base, caps, order0))
     torch.cuda.empty_cache()
-    io_phase(dev, card, truth)
+    io_phase(dev, truth)
     log(f"host-sorted phase {time.perf_counter() - t0:.1f} s")
-    return entries, bounds
+    return entries
 
 
 def bit_equal(label: str, got: torch.Tensor, want: torch.Tensor) -> float:
@@ -3696,21 +2787,6 @@ def bit_equal(label: str, got: torch.Tensor, want: torch.Tensor) -> float:
     check(got.shape == want.shape and torch.equal(got.view(torch.int32), want.view(torch.int32)),
           f"{label}: kernel and twin differ")
     return 0.0
-
-
-def probe_bound(label: str, columns: int, elements: int, bytes_moved: int, variant: str,
-                takes: int, rows: int, t_k: float):
-    """The probe's bound (``roofline``) over its least work: the (key,
-    index) network's operations per column and stage and one permutation
-    of the payload; logs it with the share the kernel reaches and the
-    bound of the row-moving form beside it."""
-    bound = roofline(columns * PROBE_OPS_PER_COLUMN[variant] + elements * PROBE_OPS_PER_ELEMENT,
-                     bytes_moved)
-    row_form = roofline(columns * PROBE_OPS_ROW_FORM[variant] + takes * rows, bytes_moved)
-    log(f"probe {label} bound: {bound[0]:.4f} ms ({bound[1]}), share of bound "
-        f"{bound[0] / t_k:.4f}; the row form's count {row_form[0]:.4f} ms ({row_form[1]}), "
-        f"columns taking their partner {takes} of {columns}")
-    return bound
 
 
 def ties_nan(x: torch.Tensor, key_row: int) -> torch.Tensor:
@@ -3758,11 +2834,10 @@ def probe_main_paths() -> dict:
     return launches
 
 
-def probe_roll_phase(dev, card: str):
+def probe_roll_phase(dev):
     """P1: bit-equal to the twin at small sizes (3 sorts; ties, signed zeros
     and NaN keys), at the script's (one 16 x 2048 tile, 200 sorts) and at
-    the frame's 8160 tiles sorted once, the launch this report times; the
-    key network alone at 8160 x (2, 2048)."""
+    the frame's 8160 tiles sorted once."""
     small = probe_roll.tiles_of(3, 4, 128, dev)
     err = max(bit_equal(f"bench_roll small {name}", probe_roll.bitonic_sort(y, 3),
                         probe_roll.bitonic_sort_ref(y, 3))
@@ -3771,31 +2846,11 @@ def probe_roll_phase(dev, card: str):
     err = max(err, bit_equal("bench_roll default", probe_roll.bitonic_sort(one, probe_roll.REPS),
                              probe_roll.bitonic_sort_ref(one, probe_roll.REPS)))
     x = probe_roll.tiles_of(probe_roll.FRAME_TILES, 16, 2048, dev, seed=1)
-    sched = probe_stage.full_schedule(2048)
     err = max(err, bit_equal("bench_roll 8160 tiles", probe_roll.bitonic_sort(x, 1),
                              probe_roll.bitonic_sort_ref(x, 1)))
-    t_k = median(time_ms(lambda: probe_roll.bitonic_sort(x, 1), 10))
-    t_twin = median(time_ms(lambda: probe_roll.bitonic_sort_ref(x, 1), 3, warmup=1))
-
-    def library():  # one sort of the key rows, one gather of the payload
-        order = torch.sort(x[:, 0], dim=-1).indices
-        return torch.take_along_dim(x, order[:, None], dim=-1)
-
-    t_lib = median(time_ms(library, 10))
-    keys = x[:, :KEY_NETWORK_ROWS].contiguous()
-    t_net = median(time_ms(lambda: probe_roll.bitonic_sort(keys, 1), 10))
-    del keys
-    takes = probe_stage.taking_columns(x, None, "lane-iota", sched, 0)
-    columns = x.shape[0] * x.shape[2] * len(sched)
-    label = f"bench_roll {x.shape[0]} x (16, 2048), 66 stages"
-    bound = probe_bound(label, columns, x.numel(), 2 * x.numel() * 4, "lane-iota", takes,
-                        x.shape[1], t_k)
-    log(f"probe {label} ({card}): kernel_ms={t_k:.4f} plain_twin_ms={t_twin:.4f} library_ms "
-        f"(torch.sort + torch.take_along_dim)={t_lib:.4f} bound_ms={bound[0]:.4f} "
-        f"({bound[1]}); key network alone (8160 x (2, 2048)) {t_net:.4f} ms; "
-        f"max_abs_err={err}")
-    return dict(max_abs_err=err, ms=t_k, plain_ms=t_twin, share_of_bound=bound[0] / t_k,
-                key_network_ms=t_net), bound, t_lib
+    log(f"probe bench_roll: bit-equal to its twin at 3 x (4, 128), 1 x (16, 2048) and "
+        f"{x.shape[0]} x (16, 2048); max_abs_err={err}")
+    return err
 
 
 def duplicating_table(m: torch.Tensor, sched) -> torch.Tensor:
@@ -3810,13 +2865,11 @@ def duplicating_table(m: torch.Tensor, sched) -> torch.Tensor:
     return flat.reshape(m.shape)
 
 
-def probe_stage_phase(dev, card: str, variant: str):
+def probe_stage_phase(dev, variant: str):
     """P3, one variant: bit-equal to the twin at small sizes (a cut and a
     repeated schedule; ties, signed zeros and NaN keys; a mask table that
     duplicates columns) and at the script's default (16 rows, 55 stages, 2
-    tiles in each of 4096 blocks), the launch this report times; the key
-    network alone at 2 rows. The twin and the library call run on the 4096
-    x 2 tiles the kernel sorts."""
+    tiles in each of 4096 blocks)."""
     err = 0.0
     for rows, n_stages, tpt in ((4, 20, 2), (8, 70, 3)):
         x, m, sched = probe_stage.inputs(variant, rows, n_stages, tpt, dev, seed=7)
@@ -3832,42 +2885,16 @@ def probe_stage_phase(dev, card: str, variant: str):
     err = max(err, bit_equal(f"{variant} default", probe_stage.sort_stages(
         x, m, variant, sched, rows - 1, blocks=steps), probe_stage.sort_stages_ref(
         x, m, variant, sched, rows - 1)))
-    t_k = median(time_ms(lambda: probe_stage.sort_stages(x, m, variant, sched, rows - 1,
-                                                         blocks=steps), 10))
-    batch = x.repeat(steps, *([1] * (x.dim() - 1)))
-    t_twin = median(time_ms(lambda: probe_stage.sort_stages_ref(batch, m, variant, sched,
-                                                                rows - 1), 3, warmup=1))
-    flat = batch.reshape(batch.shape[0], rows, -1)
-
-    def library():  # one sort of the key rows, one gather of the payload
-        order = torch.sort(flat[:, rows - 1], dim=-1).indices
-        return torch.take_along_dim(flat, order[:, None], dim=-1)
-
-    t_lib = median(time_ms(library, 10))
-    del batch, flat
-    keys = x[:, rows - KEY_NETWORK_ROWS:].contiguous()
-    t_net = median(time_ms(lambda: probe_stage.sort_stages(
-        keys, m, variant, sched, KEY_NETWORK_ROWS - 1, blocks=steps), 10))
-    takes = steps * probe_stage.taking_columns(x, m, variant, sched, rows - 1)
-    columns = steps * x.shape[0] * probe_stage.C * len(sched)
-    label = f"{variant} {steps} blocks x 2 x ({rows}, 1024), 55 stages"
-    bound = probe_bound(label, columns, steps * x.numel(),
-                        2 * x.numel() * 4 + (0 if m is None else m.numel() * 4), variant, takes,
-                        rows, t_k)
-    log(f"probe {label} ({card}): kernel_ms={t_k:.4f} plain_twin_ms={t_twin:.4f} library_ms "
-        f"(torch.sort + torch.take_along_dim)={t_lib:.4f} bound_ms={bound[0]:.4f} "
-        f"({bound[1]}); ns per stage and tile {t_k * 1e6 / steps / 55 / 2:.3f}; key network "
-        f"alone (2 rows) {t_net:.4f} ms; max_abs_err={err}")
-    return dict(max_abs_err=err, ms=t_k, plain_ms=t_twin, share_of_bound=bound[0] / t_k,
-                key_network_ms=t_net), bound, t_lib
+    log(f"probe {variant}: bit-equal to its twin at two small sizes and at {steps} blocks x 2 x "
+        f"({rows}, 1024), 55 stages; max_abs_err={err}")
+    return err
 
 
-def probe_radix_phase(dev, card: str, w: int = 16):
+def probe_radix_phase(dev):
     """P2: at the script's 256 steps x 64 copies, for each W, the output of
     one block and of 256 blocks against the block the last copy into ring
     slot 0 brought; at 4 steps x 64 copies, in one block and in two, every
-    copied block against the twin's copies; the launch this report times:
-    W = 16 across the card."""
+    copied block against the twin's copies."""
     g = torch.Generator(device=dev).manual_seed(3)
     src = torch.randn((probe_radix.SRC_BLOCKS, *probe_radix.BLOCK), generator=g, device=dev)
     n_steps, n_copies = probe_radix.N_STEPS, probe_radix.N_COPIES
@@ -3884,49 +2911,147 @@ def probe_radix_phase(dev, card: str, w: int = 16):
                       bit_equal(f"bench_radix_ab W={width} every copy", copies, ref_copies))
             del copies
         del ref_copies
-    t_k = median(time_ms(lambda: probe_radix.dma_copies(src, n_steps, n_copies, w, 1), 10))
-    t_twin = median(time_ms(lambda: probe_radix.dma_copies_ref(src, n_steps, n_copies, w), 3,
-                            warmup=1))
-    idx = torch.tensor([o + b for o in probe_radix.copy_offsets(n_steps, n_copies)
-                        for b in range(w)], device=dev)
-    t_lib = median(time_ms(lambda: torch.index_select(src, 0, idx), 10))
-    copied = n_steps * n_copies * w * probe_radix.BLOCK_BYTES
-    # the distinct source blocks the offsets reach, and the output block
-    fresh = (min(n_steps * n_copies, probe_radix.OFFSET_CYCLE) - 1 + w + 1) \
-        * probe_radix.BLOCK_BYTES
-    bound = copy_bound(fresh, copied)
-    props = torch.cuda.get_device_properties(dev)
-    log(f"probe bench_radix_ab W={w}, {n_steps} blocks x {n_copies} copies ({card}): "
-        f"kernel_ms={t_k:.4f} plain_twin_ms={t_twin:.4f} library_ms (torch.index_select)="
-        f"{t_lib:.4f} bound_ms={bound[0]:.4f} ({bound[1]}: {fresh} B from device memory, "
-        f"{copied} B into shared memory at {SM_COUNT} SMs x {SMEM_BYTES_PER_CLOCK} B x "
-        f"{BOOST_HZ / 1e9} GHz; the card reports {props.multi_processor_count} SMs, "
-        f"max SM clock {max_sm_clock()}); {copied / t_k / 1e6:.1f} GB/s; max_abs_err={err}")
-    return dict(max_abs_err=err, ms=t_k, plain_ms=t_twin), bound, t_lib
+    log(f"probe bench_radix_ab: every W {probe_radix.WIDTHS} bit-equal to its twin; "
+        f"max_abs_err={err}")
+    return err
 
 
-def max_sm_clock() -> str:
-    res = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader"],
-                         capture_output=True, text=True, timeout=60, check=True)
-    return res.stdout.strip().splitlines()[0]
-
-
-def probes(dev, card: str):
-    """Phase 9: the probes P1-P3. Returns their report entries, bounds and
-    library times."""
+def probes(dev):
+    """Phase 15: the probes P1-P3. Returns their report entries."""
     t0 = time.perf_counter()
     launches = probe_main_paths()
-    entries, bounds, library = {}, {}, {}
-    phases = [("bench_roll", lambda: probe_roll_phase(dev, card))]
-    phases += [(stage_name(v), lambda v=v: probe_stage_phase(dev, card, v))
+    entries = {}
+    phases = [("bench_roll", lambda: probe_roll_phase(dev))]
+    phases += [(stage_name(v), lambda v=v: probe_stage_phase(dev, v))
                for v in probe_stage.VARIANTS]
-    phases += [("bench_radix_ab", lambda: probe_radix_phase(dev, card))]
+    phases += [("bench_radix_ab", lambda: probe_radix_phase(dev))]
     for name, phase in phases:
-        entry, bounds[name], library[name] = phase()
-        entries[name] = dict(launches=launches[name], **entry)
+        entries[name] = dict(launches=launches[name], max_abs_err=phase())
         torch.cuda.empty_cache()
     log(f"probes phase {time.perf_counter() - t0:.1f} s")
-    return entries, bounds, library
+    return entries
+
+
+# ---- the SH radiance pair and the EWA projection pair at the cells' sizes --
+#
+# Each kernel of csrc/sh_radiance.cu and csrc/ewa_project.cu against its plain
+# version on the card, at the splat counts of the cells that run it; the
+# gates are tests/test_torch_cuda.py's, whose sizes stop at 4,096 (SH) and
+# 1,000,000 (EWA) splats.
+
+SH_SPLATS = (6_130_000, 1_000_000)   # the 3DGS cells' scene; the 3DGUT trainer's
+SH_FWD_ATOL = 2e-6   # tests/test_torch_cuda.py's SH_ATOL
+SH_BWD_RTOL = 1e-5   # of each gradient's largest entry
+EWA_SPLATS = (6_130_000, 15_300_000)  # the 3DGS cells' scene; the hybrid cell's
+# tests/test_torch_cuda.py's gates: relative (xy, depth), of the largest
+# entry (conic), relative (alpha), the share of flipped splats, of each
+# leaf's norm (gradients)
+EWA_REL, EWA_CONIC, EWA_ALPHA, EWA_FLIPS, EWA_GRAD = 1e-6, 1e-5, 1e-5, 1e-5, 1e-5
+
+
+def sh_radiance_phase(dev):
+    """Phase 16: the SH radiance kernels at each of SH_SPLATS (SH 3, f32)
+    against ``sh_radiance_ref`` (forward) and against autograd through it
+    and the closed-form ``sh_radiance_bwd_ref`` (backward). Returns the
+    pair's report entries (the 6.13M-splat errors)."""
+    t0 = time.perf_counter()
+    entries = {}
+    for n in SH_SPLATS:
+        g = torch.Generator(device=dev).manual_seed(n)
+        sh = torch.randn((n, 15, 3), generator=g, device=dev) * 0.3
+        means = torch.rand((n, 3), generator=g, device=dev) * 6.0 - 3.0
+        color = torch.rand((n, 4), generator=g, device=dev) * 1.3 - 0.3
+        pos = torch.tensor([0.3, -0.2, -7.0], device=dev)
+        d_rgb = torch.randn((n, 3), generator=g, device=dev)
+        args = (sh, means, color, pos, 15, False)
+        err_fwd = (tsh.sh_radiance_fwd(*args) - tsh.sh_radiance_ref(sh, means, color, pos, 3)
+                   ).abs().max().item()
+        leaves = [t.detach().clone().requires_grad_() for t in (sh, means, color)]
+        plain = torch.autograd.grad(tsh.sh_radiance_ref(*leaves, pos, 3), leaves, d_rgb)
+        got, twin = tsh.sh_radiance_bwd(*args, d_rgb), tsh.sh_radiance_bwd_ref(*args[:4], 3,
+                                                                                False, d_rgb)
+        err_bwd, abs_bwd = {}, 0.0
+        for name, k, p, t in zip(("d_sh", "d_means", "d_color"), got, plain, twin):
+            scale = p.abs().max().item()
+            err = (k - p).abs().max().item()
+            abs_bwd = max(abs_bwd, err)
+            err_bwd[name] = (err / scale, (k - t).abs().max().item() / scale)
+        log(f"sh_radiance n={n}: forward max abs err {err_fwd:.3e} against the plain version; "
+            f"backward max abs err {abs_bwd:.3e} against autograd through it; "
+            "backward, of each gradient's largest entry, against autograd / the twin: "
+            + ", ".join(f"{k} {a:.3e} / {b:.3e}" for k, (a, b) in err_bwd.items()))
+        check(err_fwd <= SH_FWD_ATOL, f"sh_radiance_fwd n={n}: {err_fwd} from the plain version")
+        check(all(max(e) <= SH_BWD_RTOL for e in err_bwd.values()),
+              f"sh_radiance_bwd n={n}: {err_bwd}")
+        if n == SH_SPLATS[0]:
+            entries["sh_radiance_fwd"] = dict(max_abs_err=err_fwd)
+            entries["sh_radiance_bwd"] = dict(
+                max_abs_err=abs_bwd, max_rel_err=max(max(e) for e in err_bwd.values()))
+        del sh, means, color, d_rgb, leaves, plain, got, twin
+        torch.cuda.empty_cache()
+    log(f"sh_radiance phase {time.perf_counter() - t0:.1f} s")
+    return entries
+
+
+def ewa_project_phase(dev):
+    """Phase 17: the EWA projection kernels at each of EWA_SPLATS, the
+    headline 1080p camera over the headline mix, against
+    ``project_splats_ref`` (forward) and against autograd through it and the
+    closed-form ``project_splats_bwd_ref`` (backward). Returns the pair's
+    report entries (the 6.13M-splat errors)."""
+    t0 = time.perf_counter()
+    entries = {}
+    cfg = gt.RenderConfig(width=WIDTH, height=HEIGHT, sh_degree=0)
+    cam = gt.look_at([0, 0, -7], [0, 0, 0], [0, 1, 0], WIDTH, HEIGHT, fov_y_rad=0.9, device=dev)
+    for n in EWA_SPLATS:
+        prep = bench_scene(dev, n, seed=1, sh_degree=0).prepare()
+        means, cov3d, color, scales = prep.means, prep.cov3d, prep.color, prep.scales_log
+        g = torch.Generator(device=dev).manual_seed(n)
+        cots = [torch.randn(shape, generator=g, device=dev)
+                for shape in ((n, 2), (n, 3), (n,), (n,))]
+        leaves = [t.detach().clone().requires_grad_() for t in (means, cov3d, color)]
+        lp = dataclasses.replace(prep, means=leaves[0], cov3d=leaves[1], color=leaves[2])
+
+        xy, conic, depth, radius, alpha, valid = tproj.ewa_project(means, cov3d, color, scales,
+                                                                   cam, cfg)
+        want = tproj.project_splats_ref(prep, cam, cfg)
+        flips = int(((valid != want.valid) | (radius != want.radius).any(-1)).sum())
+        keep = valid & want.valid
+        xy_scale = torch.maximum(want.xy[keep].abs(), torch.stack([cam.cx, cam.cy]).abs())
+        err_fwd = {
+            "xy": ((xy[keep] - want.xy[keep]).abs() / xy_scale).max().item(),
+            "depth": ((depth[keep] - want.depth[keep]).abs() / want.depth[keep].abs()).max()
+            .item(),
+            "conic": ((conic[keep] - want.conic[keep]).abs().amax(-1)
+                      / want.conic[keep].abs().amax(-1)).max().item(),
+            "alpha": ((alpha[keep] - want.alpha[keep]).abs() / want.alpha[keep]).max().item()}
+        gates = {"xy": EWA_REL, "depth": EWA_REL, "conic": EWA_CONIC, "alpha": EWA_ALPHA}
+        log(f"ewa_project n={n}: {int(keep.sum())} splats kept by both, {flips} with another "
+            f"valid or radius (gate {math.ceil(EWA_FLIPS * n)}); forward against the plain "
+            "version: " + ", ".join(f"{k} {v:.3e}" for k, v in err_fwd.items()))
+        check(flips <= math.ceil(EWA_FLIPS * n), f"ewa_project_fwd n={n}: {flips} flips")
+        check(all(err_fwd[k] <= gates[k] for k in gates), f"ewa_project_fwd n={n}: {err_fwd}")
+        del xy, conic, depth, radius, alpha, valid, want, keep, xy_scale
+        got = tproj.ewa_project_bwd(means, cov3d, color, cam, cfg, *cots)
+        out = tproj.project_splats_ref(lp, cam, cfg)
+        plain = torch.autograd.grad([out.xy, out.conic, out.depth, out.alpha], leaves, cots)
+        twin = tproj.project_splats_bwd_ref(means, cov3d, color, cam, cfg, *cots)
+        err_bwd = {}
+        for name, k, p, t in zip(("d_means", "d_cov3d", "d_color"), got, plain, twin):
+            scale = p.norm().item()
+            err_bwd[name] = ((k - p).norm().item() / scale, (k - t).norm().item() / scale)
+        log(f"ewa_project_bwd n={n}: of each gradient's norm, against autograd through the "
+            "plain version / the twin: "
+            + ", ".join(f"{k} {a:.3e} / {b:.3e}" for k, (a, b) in err_bwd.items()))
+        check(all(max(e) <= EWA_GRAD for e in err_bwd.values()),
+              f"ewa_project_bwd n={n}: {err_bwd}")
+        if n == EWA_SPLATS[0]:
+            entries["ewa_project_fwd"] = dict(max_rel_err=max(err_fwd.values()), flips=flips)
+            entries["ewa_project_bwd"] = dict(max_rel_err=max(max(e) for e in err_bwd.values()))
+        del prep, lp, means, cov3d, color, scales, cots, leaves, got, out, plain, twin
+        torch.cuda.empty_cache()
+    log(f"ewa_project phase {time.perf_counter() - t0:.1f} s")
+    return entries
 
 
 # ---- meshes (render_mesh, render_3dgs_composed): K1 tri2d, tri2d_smooth,
@@ -3963,7 +3088,7 @@ MESH_VIEWS = {
 
 
 def headline_mesh() -> ObjMesh:
-    """The mesh of phase 13 in world units (the headline camera at z = -7
+    """The mesh of phase 10 in world units (the headline camera at z = -7
     looks at the origin, world +y up on screen): an octahedron subdivided
     MESH_SPHERE_SUBDIV times onto a sphere of radius 2 at the origin, exact
     normals; a ground grid at y = -2.5 over x in [-15, 15], z in [-4, 30],
@@ -4038,18 +3163,15 @@ def colour_rows_gate(label, d_k, d_r):
     return abs_err
 
 
-def mesh_forward(dev, card, mesh, cam, base, shading):
+def mesh_forward(dev, mesh, cam, base, shading):
     """render_mesh at the headline cell with ``shading``: MESH_FRAMES
     jittered frames with every launch counter zeroed (only the form's
     moves, once a frame); T exactly 0 or 1; the coverage; a bit-equal
-    repeat; the pass's face, slot and pair counts, no overflow, its bin
-    time; K1's form against its twin on sampled tiles, its kept counter
-    and audit over every tile, its bound, times (the kernel, its twin over
-    the frame, alone by the profiler) and the frame time. Returns (entry,
-    bound)."""
+    repeat; the pass's face, slot and pair counts, no overflow; K1's form
+    against its twin on sampled tiles, its kept counter and audit over
+    every tile. Returns its entry."""
     cfg = mesh_cfg(base, shading)
     form = mr.mesh_statics(cfg).model
-    name = "rasterize_fwd_" + form
     tr.zero_counters(tr.rasterize_tiles)
     outs = [mr.render_mesh(mesh, jitter(cam, i), cfg) for i in range(MESH_FRAMES)]
     torch.cuda.synchronize()
@@ -4065,10 +3187,9 @@ def mesh_forward(dev, card, mesh, cam, base, shading):
     same = all(torch.equal(a, b) for a, b in zip(again, outs[0]))
     del outs, again
     bins, st = mr.mesh_bins(mesh, cam, cfg)
-    _, t_bin = timed(lambda: mr.mesh_bins(mesh, cam, cfg))
     n_faces, n_pairs = mesh.indices.shape[0], int(bins.num_pairs)
     log(f"render_mesh {shading} 1080p: {n_faces} faces, {n_faces * mr.MESH_SLOTS_K} slots "
-        f"before the sort, {n_pairs} pairs, overflow {bool(bins.overflow)}, bin_ms={t_bin:.3f}; "
+        f"before the sort, {n_pairs} pairs, overflow {bool(bins.overflow)}; "
         f"covered {covered:.4f}, faces picked {int(fid.unique().numel()) - 1}, launches {seen}, "
         f"repeat bit-equal {same}")
     check(not bool(bins.overflow), f"the {shading} mesh pass overflowed")
@@ -4077,34 +3198,7 @@ def mesh_forward(dev, card, mesh, cam, base, shading):
     tiles = sample_tiles(bins, st, dev, seed=13)
     err = mesh_fwd_gate(f"K1 {form}", bins, st, None, tiles)
     work, kept = check_warp_cull(f"K1 {form}", bins, st, twin_tiles(st, dev))
-    n_tiles, rows = st.tiles_x * st.tiles_y, MODELS[form].rows
-    bytes_fwd = n_pairs * (rows * 4 + 4) + n_tiles * (2 * 4 + tr.PIX * (tr.OUT_ROWS * 4 + 4))
-    bound, text = warp_cull_bound(name, work, bytes_fwd, n_tiles)
-    log(f"bound 1080p mesh {shading}: pairs={n_pairs} pixel_pair_evaluations={work[0]} "
-        f"kept_evaluations={work[4]} hits={work[1]} " + text)
-    t_k = median(time_ms(lambda: tr.rasterize_bins(bins, st), 10))
-    t_frame = median(time_ms(lambda: mr.render_mesh(mesh, cam, cfg), 10))
-    t_plain = median(time_ms(lambda: compare_twin_frame(bins, st), 1, warmup=0))
-    alone = kernel_split(lambda: tr.rasterize_bins(bins, st),
-                         lambda: getattr(tr.rasterize_tiles, tr.LAUNCH_COUNTER[form]),
-                         BLEND_KERNELS["pairs"], calls=STOCH_ALONE_CALLS,
-                         min_records=STOCH_ALONE_CALLS - 2)
-    log(f"timing {name} 1080p ({card}): kernel_ms={t_k:.4f} plain_twin_ms={t_plain:.4f} "
-        f"render_mesh_frame_ms={t_frame:.4f}; alone (profiler, medians over "
-        f"{STOCH_ALONE_CALLS} calls less lost records) " + " ".join(
-            f"{k}={v:.4f}" for k, v in alone.items()))
-    return dict(launches=seen[form], max_abs_err=err, ms=t_k, plain_ms=t_plain,
-                kept_share=kept / (tr.WARPS * work[2]), frame_ms=t_frame,
-                alone_ms=sum(alone.values())), bound
-
-
-@torch.no_grad()
-def compare_twin_frame(bins, st, pix=None):
-    """The twin over every tile (seed 0), in batches of TWIN_BATCH (its
-    time is the plain time)."""
-    return [tr.rasterize_tiles_ref(bins.attrs.detach(), bins.pair_id, bins.tile_start,
-                                   bins.tile_count, st, tiles=t, pix_ctx=pix)
-            for t in twin_tiles(st, bins.attrs.device)]
+    return dict(launches=seen[form], max_abs_err=err, kept_share=kept / (tr.WARPS * work[2]))
 
 
 def composed_stages(prepared, cam, cfg, mesh, overflow_ok=False):
@@ -4119,17 +3213,16 @@ def composed_stages(prepared, cam, cfg, mesh, overflow_ok=False):
             mr.depth_limit_pix_ctx(depth, cfg))
 
 
-def composed_forward(dev, card, prepared, mesh, cam, base):
+def composed_forward(dev, prepared, mesh, cam, base):
     """The composed frame, deterministic and stochastic (``cfg.stochastic``
     SPLAT: the splat pass's _stoch form, seed 0): FRAMES jittered frames
     each through ``render_3dgs_composed`` (only K1 tri2d_smooth and the
     splat pass's form move, once a frame each), finite, no overflow, a
     bit-equal repeat, the share of picks the mesh changed; K1's form
     against its twin on sampled tiles, its kept counter and audit, the
-    limit 0 everywhere equal to gs2d's form bit for bit; bounds; times
-    beside gs2d's form (events and alone, in turns); the composed frame
-    beside the plain 3DGS frame. Returns ({name: entry}, {name: bound})."""
-    entries, bounds = {}, {}
+    limit 0 everywhere equal to gs2d's form bit for bit. Returns {name:
+    entry}."""
+    entries = {}
     for stoch in (False, True):
         cfg = base.replace(stochastic=gt.StochasticMode.SPLAT) if stoch else base
         p_st = raster_statics(cfg)
@@ -4163,7 +3256,6 @@ def composed_forward(dev, card, prepared, mesh, cam, base):
         del again, plain, o0
 
         bins, _, pix = composed_stages(prepared, cam, cfg, mesh)
-        n_pairs, n_tiles = int(bins.num_pairs), s.tiles_x * s.tiles_y
         err = mesh_fwd_gate(f"K1 {form}", bins, s, pix, sample_tiles(bins, s, dev, seed=17))
         work, kept = check_warp_cull(f"K1 {form}", bins, s, twin_tiles(s, dev), pix)
         off = tr.rasterize_bins(bins, s, torch.zeros_like(pix), 0)
@@ -4172,53 +3264,24 @@ def composed_forward(dev, card, prepared, mesh, cam, base):
         equal = torch.equal(off[0], ref[0]) and torch.equal(off[1], ref[1])
         log(f"  K1 {form} with the limit 0 everywhere equals K1 {p_form} bit for bit: {equal}")
         check(equal, f"{form} without a limit differs from {p_form}")
-        bytes_fwd = (n_pairs * (10 * 4 + 4)
-                     + n_tiles * (2 * 4 + tr.PIX * (tr.OUT_ROWS * 4 + 4 + 4)))
-        bounds[name], text = warp_cull_bound(name, work, bytes_fwd, n_tiles)
-        log(f"bound 1080p/1M composed {form}: pairs={n_pairs} pixel_pair_evaluations={work[0]} "
-            f"kept_evaluations={work[4]} hits={work[1]} draws={work[5]} " + text)
-        t_k = median(time_ms(lambda: tr.rasterize_bins(bins, s, pix, 0), 10))
-        t_plain = median(time_ms(lambda: compare_twin_frame(bins, s, pix), 1, warmup=0))
-        ev_p, ev_k = abba(lambda: median(time_ms(lambda: tr.rasterize_bins(bins, p_st), 10)),
-                          lambda: median(time_ms(lambda: tr.rasterize_bins(bins, s, pix, 0), 10)))
-        log(f"timing {name} 1080p/1M ({card}): kernel_ms={t_k:.4f} plain_twin_ms={t_plain:.4f}; "
-            f"events beside K1 {p_form} on the same bins (turns {p_form}, {form}, {form}, "
-            f"{p_form}): {p_form}=" + "/".join(f"{x:.4f}" for x in ev_p) + f" {form}="
-            + "/".join(f"{x:.4f}" for x in ev_k))
-        _, alone = alone_in_turns(
-            f"K1 {p_form} (a) beside K1 {form} (b)",
-            (lambda: tr.rasterize_bins(bins, p_st), lambda: tr.rasterize_bins(bins, s, pix, 0)),
-            (lambda: getattr(tr.rasterize_tiles, tr.LAUNCH_COUNTER[p_form]),
-             lambda: getattr(tr.rasterize_tiles, tr.LAUNCH_COUNTER[form])),
-            BLEND_KERNELS["pairs"], card)
-        entries[name] = dict(launches=seen[form], max_abs_err=err, ms=t_k, plain_ms=t_plain,
-                             kept_share=kept / (tr.WARPS * work[2]), alone_ms=alone)
+        entries[name] = dict(launches=seen[form], max_abs_err=err,
+                             kept_share=kept / (tr.WARPS * work[2]))
         del bins, pix
-    t_plain_frame, t_composed = abba(
-        lambda: median(time_ms(lambda: render(prepared, cam, base, COMPOSED_MAX_PAIRS), 10)),
-        lambda: median(time_ms(lambda: render_3dgs_composed(prepared, cam, base, COMPOSED_MAX_PAIRS, mesh), 10)))
-    log(f"timing 1080p/1M composed frame beside the 3DGS frame ({card}; events, turns 3DGS, "
-        f"composed, composed, 3DGS): 3dgs_frame_ms=" + "/".join(f"{x:.4f}" for x in t_plain_frame)
-        + " composed_frame_ms=" + "/".join(f"{x:.4f}" for x in t_composed))
-    entries["rasterize_fwd_gs2d_clip"]["frame_ms"] = median(t_composed)
-    profile_calls("composed", lambda: render_3dgs_composed(prepared, cam, base, COMPOSED_MAX_PAIRS, mesh), card)
-    return entries, bounds
+    return entries
 
 
-def composed_backward(dev, card, truth, mesh, cam, base):
+def composed_backward(dev, truth, mesh, cam, base):
     """One loss step through the composed frame from the jittered start,
     deterministic and stochastic: only K2's form of the splat pass moves,
     once; finite; a bit-equal repeat; K2's form against its twin with the
     loss's cotangent on sampled tiles (``bwd_gate``; the stochastic form's
     colour rows, every other row exactly 0), its kept counter and audit over
-    every tile, its bound and times beside gs2d's form. Returns ({name:
-    entry}, {name: bound})."""
-    entries, bounds = {}, {}
+    every tile. Returns {name: entry}."""
+    entries = {}
     for stoch in (False, True):
         cfg = base.replace(stochastic=gt.StochasticMode.SPLAT) if stoch else base
-        p_st = raster_statics(cfg)
-        s = dataclasses.replace(p_st, model="gs2d_clip")
-        form, p_form, name = tr.form_of(s), tr.form_of(p_st), "rasterize_bwd_" + tr.form_of(s)
+        s = dataclasses.replace(raster_statics(cfg), model="gs2d_clip")
+        form, name = tr.form_of(s), "rasterize_bwd_" + tr.form_of(s)
         with torch.no_grad():
             target = render_3dgs_composed(truth.prepare(), cam, base, COMPOSED_MAX_PAIRS,
                                           mesh).image
@@ -4251,7 +3314,7 @@ def composed_backward(dev, card, truth, mesh, cam, base):
 
         bins, _, pix = composed_stages(splats.prepare(), cam, cfg, mesh)
         attrs = bins.attrs.detach()
-        n_pairs, n_tiles = int(bins.num_pairs), s.tiles_x * s.tiles_y
+        n_tiles = s.tiles_x * s.tiles_y
         out, out_id = tr.rasterize_bins(bins, s, pix, 0)
         out = out.detach().requires_grad_()
         img, trans = tr.assemble_image(out, out_id, s.tiles_x, s.tiles_y, WIDTH, HEIGHT)[:2]
@@ -4277,36 +3340,18 @@ def composed_backward(dev, card, truth, mesh, cam, base):
             abs_err, _ = gate_bwd_against_twin(f"K2 {form}", d_k, twin, ctx, cols)
         tr.rasterize_tiles_bwd(attrs, bins.tile_start, bins.tile_count, full, s, pix, 0)
         work, kept = check_pair_cull(f"K2 {form}", bins, s, twin_tiles(s, dev), pix)
-        bytes_bwd = (n_pairs * (2 * tr.GRAD_ROWS + 1) * 4
-                     + n_tiles * (2 * 4 + tr.PIX * (tr.CTX_ROWS + 1) * 4))
-        bounds[name], text = pair_bound(name, work, bytes_bwd, n_tiles)
-        log(f"bound 1080p/1M composed {form} backward: pairs={n_pairs} "
-            f"pixel_pair_evaluations={work[0]} kept_pair_evaluations={work[4]} hits={work[1]} "
-            + text)
-        t_k = median(time_ms(lambda: tr.rasterize_tiles_bwd(
-            attrs, bins.tile_start, bins.tile_count, full, s, pix, 0), 10))
-        t_plain = median(time_ms(lambda: twin(full, tiles=None), 1, warmup=0))
-        _, alone = alone_in_turns(
-            f"K2 {p_form} (a) beside K2 {form} (b)",
-            (lambda: tr.rasterize_tiles_bwd(attrs, bins.tile_start, bins.tile_count, full, p_st),
-             lambda: tr.rasterize_tiles_bwd(attrs, bins.tile_start, bins.tile_count, full, s,
-                                            pix)),
-            (lambda: getattr(tr.rasterize_tiles_bwd, tr.LAUNCH_COUNTER[p_form]),
-             lambda: getattr(tr.rasterize_tiles_bwd, tr.LAUNCH_COUNTER[form])),
-            ("rasterize_bwd_kernel",), card)
-        log(f"timing {name} 1080p/1M ({card}): kernel_ms={t_k:.4f} plain_twin_ms={t_plain:.4f}")
-        entries[name] = dict(launches=seen[form], max_abs_err=abs_err, ms=t_k, plain_ms=t_plain,
-                             kept_share=kept / max(work[2], 1), alone_ms=alone)
+        entries[name] = dict(launches=seen[form], max_abs_err=abs_err,
+                             kept_share=kept / max(work[2], 1))
         del bins, attrs, pix, out, g_out, full, ctx, d_k, splats
-    return entries, bounds
+    return entries
 
 
-def flat_mesh_backward(dev, card, mesh_obj, cam, base):
+def flat_mesh_backward(dev, mesh_obj, cam, base):
     """One gradient of the flat mesh's image with respect to its face
     colours: K2 tri2d once; finite and repeatable; K2 tri2d against its twin
     on sampled tiles (``bwd_gate``, the colour rows; the vertex rows exactly
-    0 in both), its kept counter (every tested pair: it does not cull), its
-    bound and times. Returns (entry, bound)."""
+    0 in both) and its kept counter (every tested pair: it does not cull).
+    Returns its entry."""
     cfg = mesh_cfg(base, "flat")
     w = torch.randn((HEIGHT, WIDTH, 3), generator=torch.Generator(device=dev).manual_seed(5),
                     device=dev)
@@ -4330,7 +3375,7 @@ def flat_mesh_backward(dev, card, mesh_obj, cam, base):
     mesh = mr.mesh_buffers_from_obj(mesh_obj, device=dev)
     bins, st = mr.mesh_bins(mesh, cam, cfg)
     attrs = bins.attrs.detach()
-    n_pairs, n_tiles = int(bins.num_pairs), st.tiles_x * st.tiles_y
+    n_tiles = st.tiles_x * st.tiles_y
     out = tr.rasterize_bins(bins, st)[0]
     g = torch.randn(out.shape, generator=torch.Generator(device=dev).manual_seed(6), device=dev)
     full = tr.bwd_context(out, g)
@@ -4347,23 +3392,7 @@ def flat_mesh_backward(dev, card, mesh_obj, cam, base):
     abs_err = colour_rows_gate("K2 tri2d", d_k, twin(ctx))
     tr.rasterize_tiles_bwd(attrs, bins.tile_start, bins.tile_count, full, st)
     work, kept = check_pair_cull("K2 tri2d", bins, st, twin_tiles(st, dev))
-    bytes_bwd = n_pairs * 2 * tr.GRAD_ROWS * 4 + n_tiles * (2 * 4 + tr.PIX * tr.CTX_ROWS * 4)
-    bound, text = pair_bound("rasterize_bwd_tri2d", work, bytes_bwd, n_tiles)
-    log(f"bound 1080p mesh flat backward: pairs={n_pairs} pixel_pair_evaluations={work[0]} "
-        f"hits={work[1]} " + text)
-    t_k = median(time_ms(lambda: tr.rasterize_tiles_bwd(attrs, bins.tile_start, bins.tile_count,
-                                                        full, st), 10))
-    t_plain = median(time_ms(lambda: sum(tr.rasterize_tiles_bwd_ref(
-        attrs, bins.tile_start, bins.tile_count, full, st, tiles=t)
-        for t in twin_tiles(st, dev)), 1, warmup=0))
-    alone = kernel_split(lambda: tr.rasterize_tiles_bwd(attrs, bins.tile_start, bins.tile_count,
-                                                        full, st),
-                         lambda: tr.rasterize_tiles_bwd.launches_tri2d, ("rasterize_bwd_kernel",),
-                         calls=STOCH_ALONE_CALLS, min_records=STOCH_ALONE_CALLS - 2)
-    log(f"timing rasterize_bwd_tri2d 1080p ({card}): kernel_ms={t_k:.4f} "
-        f"plain_twin_ms={t_plain:.4f} alone_ms={sum(alone.values()):.4f}")
-    return dict(launches=seen["tri2d"], max_abs_err=abs_err, ms=t_k, plain_ms=t_plain,
-                kept_share=kept / max(work[2], 1), alone_ms=sum(alone.values())), bound
+    return dict(launches=seen["tri2d"], max_abs_err=abs_err, kept_share=kept / max(work[2], 1))
 
 
 def bins_in_range(label, bins, sources: int):
@@ -4418,12 +3447,12 @@ def mesh_views(dev, mesh, prepared, base, rounds: int = 1):
     return frames, overflowed
 
 
-def meshes(dev, card: str, truth: gt.SplatSet):
-    """Phase 13 at the headline cell: ``render_mesh`` smooth and flat, the
+def meshes(dev, truth: gt.SplatSet):
+    """Phase 10 at the headline cell: ``render_mesh`` smooth and flat, the
     composed frame forward and backward, the flat mesh's face-colour
     gradient (``mesh_forward``, ``composed_forward``, ``composed_backward``,
-    ``flat_mesh_backward``). Returns ({name: entry}, {name: bound}) of the
-    seven mesh forms."""
+    ``flat_mesh_backward``). Returns {name: entry} of the seven mesh
+    forms."""
     t0 = time.perf_counter()
     base = gt.RenderConfig(width=WIDTH, height=HEIGHT, sh_degree=3)
     cam = gt.look_at([0, 0, -7], [0, 0, 0], [0, 1, 0], WIDTH, HEIGHT, fov_y_rad=0.9, device=dev)
@@ -4432,22 +3461,16 @@ def meshes(dev, card: str, truth: gt.SplatSet):
     log(f"meshes: {obj.indices.shape[0]} faces ({8 * 4 ** MESH_SPHERE_SUBDIV} sphere, "
         f"{2 * MESH_GRID[0] * MESH_GRID[1]} ground), {obj.positions.shape[0]} vertices")
     mesh_views(dev, mesh, truth.prepare(), base)
-    entries, bounds = {}, {}
+    entries = {}
     for shading in ("smooth", "flat"):
-        entry, bound = mesh_forward(dev, card, mesh, cam, base, shading)
         name = "rasterize_fwd_" + mr.mesh_statics(mesh_cfg(base, shading)).model
-        entries[name], bounds[name] = entry, bound
+        entries[name] = mesh_forward(dev, mesh, cam, base, shading)
     exact = base.replace(raster=dataclasses.replace(base.raster, expansion="exact"))
-    e, b = composed_forward(dev, card, truth.prepare(), mesh, cam, exact)
-    entries.update(e)
-    bounds.update(b)
-    e, b = composed_backward(dev, card, truth, mesh, cam, exact)
-    entries.update(e)
-    bounds.update(b)
-    entries["rasterize_bwd_tri2d"], bounds["rasterize_bwd_tri2d"] = flat_mesh_backward(
-        dev, card, obj, cam, base)
+    entries.update(composed_forward(dev, truth.prepare(), mesh, cam, exact))
+    entries.update(composed_backward(dev, truth, mesh, cam, exact))
+    entries["rasterize_bwd_tri2d"] = flat_mesh_backward(dev, obj, cam, base)
     log(f"meshes phase {time.perf_counter() - t0:.1f} s")
-    return entries, bounds
+    return entries
 
 
 # ---- lighting and shadows (render_3dgs_lit, render_hybrid): K1's multi-iso
@@ -4499,7 +3522,7 @@ def halves_scene(truth) -> SplatScene:
     return scene
 
 
-def lit_frame(dev, card, prepared, cam, base, lights, bases):
+def lit_frame(prepared, cam, base, lights, bases):
     """``render_3dgs_lit`` at the headline cell with two per-instance
     materials over the two halves of the splats (``halves_scene``'s
     flatten, routed by its table's ``bases``): only K1 gs2d moves (twice:
@@ -4541,7 +3564,7 @@ def shadow_levels(prepared, cfg, lights, out, cam):
             for i, t in shadow_lookups(prepared, cfg, lights, out, cam).items()}
 
 
-def hybrid_main_path(dev, card, prepared, cam, base, lights, pipeline):
+def hybrid_main_path(prepared, cam, base, lights, pipeline):
     """LIT_FRAMES jittered frames through ``render_hybrid`` with every launch
     counter of K1's wrapper zeroed (HYBRID_LAUNCHES a frame), finite, a
     bit-equal repeat, the shaded frame unlike the one with no light, and
@@ -4590,13 +3613,14 @@ def shadow_map_sizes(prepared, base, lights):
             f"overflow={bool(bins.overflow)} longest tile list={int(bins.tile_count.max())}")
 
 
-def iso_kernel(dev, card, prepared, base, light, res, seed):
+def iso_kernel(dev, prepared, base, light, res, seed):
     """K1's multi-iso form on the cone map of ``light`` at res^2: against
     its twin on sampled tiles (rgb and T at K1's gate, the picks equal on
     ID_AGREE of (pixel, level)s); on the card, every tile, rows 0-3 equal
     to K1 gs2d's and row 4 + k to its pick at depth_iso = ISO_LEVELS[k], bit
     for bit; its kept counter and audit over every tile. Returns (max abs
-    err, bins, statics, blend_work's counts, kept)."""
+    err, the kept share of its cull); logs the map's pairs and longest tile
+    list."""
     center, radius = scene_bounds(prepared)
     cam = light_camera(light, center, radius, res)
     bins, st = shadow_map_bins(prepared, cam, base.replace(width=res, height=res),
@@ -4626,7 +3650,9 @@ def iso_kernel(dev, card, prepared, base, light, res, seed):
     check(rows and all(picks), f"K1 iso {res}^2 differs from K1 gs2d")
     tr.rasterize_bins(bins, st)  # the kept counter of this launch
     work, kept = check_warp_cull(f"K1 iso {res}^2", bins, st, twin_tiles(st, dev))
-    return err, bins, st, work, kept
+    log(f"shadow map {res}^2: num_pairs={int(bins.num_pairs)} "
+        f"longest tile list={int(bins.tile_count.max())}")
+    return err, kept / (tr.WARPS * work[2])
 
 
 def card_against_cpu(dev):
@@ -4681,7 +3707,7 @@ def card_against_cpu(dev):
     return worst
 
 
-def lit_backward(dev, card, truth, cam, base, lights, bases):
+def lit_backward(dev, truth, cam, base, lights, bases):
     """One gradient of the lit frame's shaded image (a seeded weighting)
     from the jittered start: only K2 gs2d moves, twice (the pass and its
     normal buffer); finite and repeatable; each launch's context rebuilt
@@ -4751,51 +3777,13 @@ def lit_backward(dev, card, truth, cam, base, lights, bases):
     return worst
 
 
-def lighting_timings(card, prepared, cam, base, lights, lit_prepared, bases):
-    """CUDA-event medians: the lit frame (of ``lit_prepared``, the halves'
-    flatten, its materials routed by ``bases``) and the hybrid frame beside
-    the plain 3DGS frame in turns, and the hybrid frame's stages (the main
-    pass, the normal buffer, the cone map, the cube map, the shade; a face
-    is a sixth of the cube map); a profile of the HYBRID frame by its
-    spans. Returns the HYBRID frame's median ms."""
-    hyb = base.replace(pipeline=gt.Pipeline.HYBRID)
-    plain = lambda: median(time_ms(lambda: render(prepared, cam, base), 5))  # noqa: E731
-    t_plain, t_lit = abba(plain, lambda: median(time_ms(lambda: render_3dgs_lit(
-        lit_prepared, cam, base, 0, lights, LIT_MATERIALS, bases), 5)))
-    t_plain2, t_hyb = abba(plain, lambda: median(time_ms(lambda: render_hybrid(
-        prepared, cam, hyb, 0, lights), 5)))
-    log(f"timing 1080p/1M lighting ({card}; events, medians of 5, turns 3DGS, lit, lit, 3DGS "
-        f"and 3DGS, hybrid, hybrid, 3DGS): 3dgs_frame_ms=" + "/".join(
-            f"{x:.4f}" for x in t_plain + t_plain2) + " lit_frame_ms="
-        + "/".join(f"{x:.4f}" for x in t_lit) + " hybrid_frame_ms="
-        + "/".join(f"{x:.4f}" for x in t_hyb))
-    st = dataclasses.replace(raster_statics(base), model="gs2d")
-    proj = project_splats(prepared, cam, base)
-    out, shaded, normals = render_hybrid(prepared, cam, hyb, 0, lights)
-    fn = make_shadow_fn(prepared, lights, hyb, SHADOW_RES)
-    stages = {
-        "main_pass": lambda: render(prepared, cam, base),
-        "normal_buffer": lambda: render_normal_buffer(prepared, proj, cam, base, st),
-        "cone_map": lambda: render_deep_shadow_map(prepared, lights[0], hyb, SHADOW_RES),
-        "cube_map": lambda: render_cube_shadow_map(prepared, lights[1], hyb, CUBE_RES),
-        "shade": lambda: deferred_shade(out.image, out.transmittance, normals, out.depth, cam,
-                                        hyb, list(lights), shadow_fn=fn),
-    }
-    t = {k: median(time_ms(f, 5)) for k, f in stages.items()}
-    log(f"timing 1080p/1M hybrid stages ({card}; events, medians of 5): "
-        + " ".join(f"{k}_ms={v:.4f}" for k, v in t.items()))
-    profile_calls("hybrid", lambda: render_hybrid(prepared, cam, hyb, 0, lights), card, calls=1)
-    return median(t_hyb)
-
-
-def lighting(dev, card: str, truth: gt.SplatSet):
-    """Phase 14 at the headline cell: ``render_3dgs_lit`` (``lit_frame``),
+def lighting(dev, truth: gt.SplatSet):
+    """Phase 11 at the headline cell: ``render_3dgs_lit`` (``lit_frame``),
     ``render_hybrid`` HYBRID and HYBRID_3DGUT (``hybrid_main_path``), the
     shadow maps' sizes, K1's multi-iso form on the cone map and a 2048^2
-    map (``iso_kernel``) with its bound, times and alone beside K1 gs2d, the
-    card against the CPU (``card_against_cpu``), the lit frame's gradient
-    (``lit_backward``) and the frame and stage times
-    (``lighting_timings``). Returns ({name: entry}, {name: bound})."""
+    map (``iso_kernel``), the card against the CPU (``card_against_cpu``)
+    and the lit frame's gradient (``lit_backward``). Returns {name:
+    entry}."""
     t0 = time.perf_counter()
     base = gt.RenderConfig(width=WIDTH, height=HEIGHT, sh_degree=3)
     cam = gt.look_at([0, 0, -7], [0, 0, 0], [0, 1, 0], WIDTH, HEIGHT, fov_y_rad=0.9, device=dev)
@@ -4805,56 +3793,19 @@ def lighting(dev, card: str, truth: gt.SplatSet):
     log(f"lighting: lights directional {lights[0].direction.tolist()} and point "
         f"{lights[1].position.tolist()} ({float(torch.linalg.norm(lights[1].position - center)):.3f}"
         f" from the centre of a bounding sphere of radius {float(radius):.3f})")
-    marks = [("start", time.perf_counter())]
     lit_prepared, table = halves_scene(truth).flatten()
-    lit_frame(dev, card, lit_prepared, cam, base, lights, table.instance_base)
-    launches = sum(hybrid_main_path(dev, card, prepared, cam, base, lights, p)
-                   for p in (gt.Pipeline.HYBRID, gt.Pipeline.HYBRID_3DGUT))
-    marks.append(("frames", time.perf_counter()))
-    shadow_map_sizes(prepared, base, lights)
-    err, bins, st, work, kept = iso_kernel(dev, card, prepared, base, lights[0], SHADOW_RES, 37)
-    n_pairs, n_tiles = int(bins.num_pairs), st.tiles_x * st.tiles_y
-    bytes_fwd = (n_pairs * (10 * 4 + 4)
-                 + n_tiles * (2 * 4 + tr.PIX * (tr.ISO_OUT_ROWS * 4 + 4)))
-    bound, text = warp_cull_bound(ISO_NAME, work, bytes_fwd, n_tiles)
-    log(f"bound {ISO_NAME} cone map {SHADOW_RES}^2, 1M splats: pairs={n_pairs} "
-        f"pixel_pair_evaluations={work[0]} kept_evaluations={work[4]} hits={work[1]} " + text)
-    gs2d = dataclasses.replace(st, multi_iso=False)
-    t_k = median(time_ms(lambda: tr.rasterize_bins(bins, st), 10))
-    t_plain = median(time_ms(lambda: compare_twin_frame(bins, st), 1, warmup=0))
-    ev_g, ev_i = abba(lambda: median(time_ms(lambda: tr.rasterize_bins(bins, gs2d), 10)),
-                      lambda: median(time_ms(lambda: tr.rasterize_bins(bins, st), 10)))
-    _, alone = alone_in_turns(
-        "K1 gs2d (a) beside K1 iso (b) on the cone map's bins",
-        (lambda: tr.rasterize_bins(bins, gs2d), lambda: tr.rasterize_bins(bins, st)),
-        (lambda: tr.rasterize_tiles.launches, lambda: tr.rasterize_tiles.launches_iso),
-        BLEND_KERNELS["pairs"], card)
-    log(f"timing {ISO_NAME} cone map {SHADOW_RES}^2 ({card}): kernel_ms={t_k:.4f} "
-        f"plain_twin_ms={t_plain:.4f}; events beside K1 gs2d on the same bins (turns gs2d, "
-        f"iso, iso, gs2d): gs2d=" + "/".join(f"{x:.4f}" for x in ev_g) + " iso="
-        + "/".join(f"{x:.4f}" for x in ev_i))
-    share = kept / (tr.WARPS * work[2])
-    del bins
-    err_big, big, _, _, _ = iso_kernel(dev, card, prepared, base, lights[0], BIG_SHADOW_RES, 41)
-    log(f"shadow map {BIG_SHADOW_RES}^2: num_pairs={int(big.num_pairs)} "
-        f"longest tile list={int(big.tile_count.max())}")
-    del big
-    marks.append(("K1 iso", time.perf_counter()))
-    err_cpu = card_against_cpu(dev)
-    marks.append(("card against CPU", time.perf_counter()))
-    err_bwd = lit_backward(dev, card, truth, cam, base, lights, table.instance_base)
-    marks.append(("gradient", time.perf_counter()))
-    t_frame = lighting_timings(card, prepared, cam, base, lights, lit_prepared,
-                               table.instance_base)
+    lit_frame(lit_prepared, cam, base, lights, table.instance_base)
     del lit_prepared
-    marks.append(("timings", time.perf_counter()))
-    log(f"lighting phase {time.perf_counter() - t0:.1f} s ("
-        + ", ".join(f"{b[0]} {b[1] - a[1]:.1f} s" for a, b in zip(marks, marks[1:]))
-        + f"); card against CPU max {err_cpu:.3e}, K2 in the lit gradient max {err_bwd:.3e}")
-    return {ISO_NAME: dict(launches=launches, max_abs_err=max(err, err_big), ms=t_k,
-                           plain_ms=t_plain, kept_share=share, alone_ms=alone,
-                           hybrid_frame_ms=t_frame)}, {ISO_NAME: bound}
-
+    launches = sum(hybrid_main_path(prepared, cam, base, lights, p)
+                   for p in (gt.Pipeline.HYBRID, gt.Pipeline.HYBRID_3DGUT))
+    shadow_map_sizes(prepared, base, lights)
+    err, share = iso_kernel(dev, prepared, base, lights[0], SHADOW_RES, 37)
+    err_big, _ = iso_kernel(dev, prepared, base, lights[0], BIG_SHADOW_RES, 41)
+    err_cpu = card_against_cpu(dev)
+    err_bwd = lit_backward(dev, truth, cam, base, lights, table.instance_base)
+    log(f"lighting phase {time.perf_counter() - t0:.1f} s; card against CPU max {err_cpu:.3e}, "
+        f"K2 in the lit gradient max {err_bwd:.3e}")
+    return {ISO_NAME: dict(launches=launches, max_abs_err=max(err, err_big), kept_share=share)}
 
 
 # ---- ray tracing (render_3dgrt_exact, render_hybrid with rt.shadows="ray",
@@ -4862,10 +3813,9 @@ def lighting(dev, card: str, truth: gt.SplatSet):
 #
 # The tracer is plain torch (the JAX tracer reaches no Pallas call): each
 # sweep step is some 50 elementwise launches over a (rays, splats of the
-# chunk) tensor, and its times here are the baseline a tracer kernel must
-# beat. A step runs at some 2.7e9 (ray, splat) evaluations a second on an
-# H100 (21.1 s per light of 320x180 shadow rays through 1 M splats; PERF.md
-# §6), so the phase cuts, each logged where it applies:
+# chunk) tensor. A step runs at some 2.7e9 (ray, splat) evaluations a second
+# on an H100 (21.1 s per light of 320x180 shadow rays through 1 M splats;
+# PERF.md §6), so the phase cuts, each logged where it applies:
 # - the ray-shadowed hybrid frames at RT_SHADE_SIZE, 160x90: the shade
 #   points, not the splats (users load the whole scene; the cost grows with
 #   both); at 320x180 a frame took 42.3 s;
@@ -4888,7 +3838,7 @@ RT_ATOL, RT_AGREE, RT_FLIP = 1e-4, 0.999, 1.2e-2  # tests/test_torch_raytrace.py
 
 
 def wavefront_mesh() -> ObjMesh:
-    """Phase 13's ``headline_mesh`` with the sphere glass (illum 2, ior 1.5,
+    """Phase 10's ``headline_mesh`` with the sphere glass (illum 2, ior 1.5,
     transmittance 0.9) and the ground grid a mirror (illum 1, specular
     0.9): the materials of tests/test_raytrace.py."""
     glass = ObjMaterial(name="glass", diffuse=(0.02, 0.02, 0.02), specular=(0.1, 0.1, 0.1),
@@ -4925,7 +3875,6 @@ def check_splat_trace(label, prepared, o, d, tmin, tmax, cfg, **kw) -> float:
     (radiance, T, the iso depth's pick), a bit-equal repeat, and the pass
     and any-hit estimators finite with T 0 or 1 (tests/test_torch_cuda.py
     repeats each estimator bit for bit). Returns the max difference."""
-    t0 = time.perf_counter()
     pick = every_nth(o.shape[0]).to(o.device)
     args = [x[pick] for x in (o, d, tmin, tmax)]
     card = rt.trace_splats(prepared, *args, cfg, **kw)
@@ -4945,19 +3894,18 @@ def check_splat_trace(label, prepared, o, d, tmin, tmax, cfg, **kw) -> float:
                      float((t == 0).float().mean()))
     log(f"{label}: {pick.numel()} rays, iso-depth picks equal {depth_same.item():.6f}, card repeat "
         f"bit-equal {same}; estimators finite with T in (0, 1) (share T = 0): "
-        + ", ".join(f"{m} {ok} ({z:.4f})" for m, (ok, z) in est.items())
-        + f"; checks {time.perf_counter() - t0:.1f} s (host clock)")
+        + ", ".join(f"{m} {ok} ({z:.4f})" for m, (ok, z) in est.items()))
     check(same and depth_same.item() >= RT_AGREE, f"{label}: repeat or iso depth")
     check(all(ok for ok, _ in est.values()), f"{label}: an estimator")
     return err
 
 
-def exact_tier(dev, card):
+def exact_tier(dev):
     """``render_3dgrt_exact``: the 150-splat scene of tests/test_grt.py
     (max_passes 48) above RT_PSNR_MIN against the raster ``render_3dgrt``
-    (gated) and profiled; the golden scene at its 256x192 (max_passes 32)
-    timed by events, its PSNR against the raster frame logged (not gated),
-    and its primary rays checked. Returns (max difference, ms)."""
+    (gated); the golden scene at its 256x192 (max_passes 32), its PSNR
+    against the raster frame logged (not gated), and its primary rays
+    checked. Returns the max difference."""
     seed, n = RT_TEST_SCENE
     d = interop.random_splat_arrays(seed, n, sh_degree=0, scale_range=(-2.2, -1.2))
     small = interop.splat_set_from_numpy(d, dev).prepare()
@@ -4974,23 +3922,19 @@ def exact_tier(dev, card):
     log(f"render_3dgrt_exact {n} splats 64x48 max_passes {RT_TEST_PASSES}: {psnr:.3f} dB "
         f"against render_3dgrt (gate > {RT_PSNR_MIN})")
     check(psnr > RT_PSNR_MIN, f"render_3dgrt_exact: {psnr} dB")
-    profile_calls("render_3dgrt_exact 64x48", lambda: render_3dgrt_exact(small, cam, cfg), card,
-                  calls=1)
 
     meta = json.load(open(os.path.join(GOLDEN, "meta.json")))
     w, h = meta["recipe"]["res"]
     gcfg = gt.RenderConfig(width=w, height=h, sh_degree=0)
     gcam = gt.look_at([0, -1.5, -7.0], [0, 0.5, 0], [0, 1, 0], w, h, fov_y_rad=0.9, device=dev)
     golden = load_ply(os.path.join(GOLDEN, "golden_scene.ply"), device=dev).prepare()
-    out, ms = timed(lambda: render_3dgrt_exact(golden, gcam, gcfg))
+    out = render_3dgrt_exact(golden, gcam, gcfg)
     raster = render_3dgrt(golden, gcam, gcfg)
     psnr = psnr_against(out.image.clamp(0, 1), raster.image.clamp(0, 1))
     finite = bool(torch.isfinite(out.image).all()) and bool(torch.isfinite(out.depth).all())
-    steps = gcfg.rt.max_passes * -(-golden.means.shape[0] // 512)
-    log(f"timing render_3dgrt_exact golden {w}x{h}, {golden.means.shape[0]} splats, max_passes "
-        f"{gcfg.rt.max_passes} ({card}; events, one call): frame_ms={ms:.4f} ({steps} sweep steps "
-        f"of {w * h} rays x 512 splats: {ms / steps:.4f} ms a step); {psnr:.3f} dB against "
-        f"render_3dgrt (reported, not gated); finite {finite}")
+    log(f"render_3dgrt_exact golden {w}x{h}, {golden.means.shape[0]} splats, max_passes "
+        f"{gcfg.rt.max_passes}: {psnr:.3f} dB against render_3dgrt (reported, not gated); "
+        f"finite {finite}")
     check(finite, "render_3dgrt_exact golden: not finite")
     # its primary rays, as render_3dgrt_exact makes them
     ys, xs = torch.meshgrid(torch.arange(h, device=dev) + 0.5, torch.arange(w, device=dev) + 0.5,
@@ -5004,71 +3948,60 @@ def exact_tier(dev, card):
                             torch.zeros(w * h, device=dev),
                             torch.full((w * h,), float("inf"), device=dev), gcfg,
                             chunk=512, ray_block=4096, order="windowed")
-    return err, ms
+    return err
 
 
-def timed_ray_shadows(records: list):
-    """``render/shadows.make_ray_shadow_fn`` whose shadow functions record
-    (CUDA events around the call, its answer) into ``records``
-    (render_hybrid builds its shadow function when it is called, so the
-    frame's own traces are timed, without a synchronisation)."""
+def recorded_ray_shadows(records: list):
+    """``render/shadows.make_ray_shadow_fn`` whose shadow functions append
+    their answers to ``records`` (render_hybrid builds its shadow function
+    when it is called, so the frame's own traces are recorded)."""
     real = shadows.make_ray_shadow_fn
 
     def make(*a, **kw):
         fn = real(*a, **kw)
 
         def shadow_fn(world_pos, light):
-            s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            s.record()
             out = fn(world_pos, light)
-            e.record()
-            records.append((s, e, out))
+            records.append(out)
             return out
         return shadow_fn
     return make
 
 
-def ray_shadowed_hybrid(dev, card, prepared, lights):
+def ray_shadowed_hybrid(dev, prepared, lights):
     """``render_hybrid`` with ``rt.shadows="ray"`` at RT_SHADE_SIZE, HYBRID
     and HYBRID_3DGUT, one frame each through ``render_hybrid`` with every
     launch counter of K1's wrapper zeroed (the blend's form twice: the
-    pass and its normal buffer; no shadow map), timed by events, each
-    light's shadow trace within it too (``timed_ray_shadows``), the shaded
-    frame finite and unlike the one with no light; HYBRID's shadow rays of
-    one light checked on the CPU. Returns (max difference, {pipeline:
-    frame ms})."""
+    pass and its normal buffer; no shadow map), each light's shadow trace
+    within it recorded (``recorded_ray_shadows``), the shaded frame finite
+    and unlike the one with no light; HYBRID's shadow rays of one light
+    checked on the CPU. Returns the max difference."""
     w, h = RT_SHADE_SIZE
     cam = gt.look_at([0, 0, -7], [0, 0, 0], [0, 1, 0], w, h, fov_y_rad=0.9, device=dev)
-    errs, frame_ms = [], {}
+    errs = []
     for pipeline, form in ((gt.Pipeline.HYBRID, "gs2d"), (gt.Pipeline.HYBRID_3DGUT, "gut3d")):
         cfg = gt.RenderConfig(width=w, height=h, sh_degree=3, pipeline=pipeline,
                               rt=gt.RtConfig(shadows="ray"))
         records = []
-        shadows.make_ray_shadow_fn = timed_ray_shadows(records)
+        shadows.make_ray_shadow_fn = recorded_ray_shadows(records)
         tr.zero_counters(tr.rasterize_tiles)
         try:
-            (out, shaded, normals), ms = timed(lambda: render_hybrid(prepared, cam, cfg, 0,
-                                                                      lights))
+            out, shaded, normals = render_hybrid(prepared, cam, cfg, 0, lights)
         finally:
             shadows.make_ray_shadow_fn = make_ray_shadow_fn
         seen = only(f"render_hybrid {pipeline.name} ray shadows", tr.rasterize_tiles, form, 2)
         check(len(records) == len(lights), f"{len(records)} shadow traces")
         unlit = render_hybrid(prepared, cam, cfg, 0, ())[1]
         covered = out.depth > 0
-        traces = [(t[covered], s.elapsed_time(e)) for s, e, t in records]
         finite = bool(torch.isfinite(shaded).all()) and bool(torch.isfinite(normals).all())
         moved = (shaded - unlit).abs().max().item()
-        log(f"timing render_hybrid {pipeline.name} rt.shadows=ray {w}x{h}, 1M splats, "
-            f"{len(lights)} lights ({card}; events, one frame): frame_ms={ms:.4f}; its shadow "
-            f"trace per light (the frame's {w * h} shade points, chunk 256, radial): "
-            + ", ".join(f"light {i} {t_ms:.4f} ms" for i, (_, t_ms) in enumerate(traces))
-            + f"; the rest of the frame {ms - sum(t for _, t in traces):.4f} ms; launches {seen}")
-        log(f"render_hybrid {pipeline.name} ray shadows: covered {covered.float().mean():.4f}; "
+        log(f"render_hybrid {pipeline.name} rt.shadows=ray {w}x{h}, 1M splats, {len(lights)} "
+            f"lights (the frame's {w * h} shade points, chunk 256, radial): launches {seen}; "
+            f"covered {covered.float().mean():.4f}; "
             + ", ".join(f"light {i} shadowed (T < 0.5) share of covered pixels "
-                        f"{(t < 0.5).float().mean():.4f}" for i, (t, _) in enumerate(traces))
+                        f"{(t[covered] < 0.5).float().mean():.4f}" for i, t in enumerate(records))
             + f"; shaded max change from no light {moved:.4f}; finite {finite}")
         check(finite and moved > 1e-3, f"render_hybrid {pipeline.name} ray shadows")
-        frame_ms[pipeline.name] = ms
         if pipeline != gt.Pipeline.HYBRID:
             continue
         # the shadow rays of light 1 (the enclosed point light) on the CPU
@@ -5079,54 +4012,53 @@ def ray_shadowed_hybrid(dev, card, prepared, lights):
         errs.append(trace_agreement(f"{pipeline.name} shadow rays of light 1", got, want))
         again = fn(p, lights[1])
         check(torch.equal(again, got), f"{pipeline.name} shadow rays: repeat")
-    return max(errs), frame_ms
+    return max(errs)
 
 
-def wavefront_frame(dev, card, prepared, lights):
+def wavefront_frame(dev, prepared, lights):
     """``render_composed_wavefront`` at the headline cell: the mesh of
     ``wavefront_mesh``, stride RT_STRIDE, RT_BOUNCES bounces, the exact
     expansion at COMPOSED_MAX_PAIRS, one frame through the entry point with
     every launch counter of K1's wrapper zeroed (tri2d_smooth and
-    gs2d_clip once each: the tracer launches no kernel), timed; then the
-    same frame's bounces step by step (spawn; per bounce trace_mesh,
-    trace_splats, the rest), each by events, with the live rays per bounce;
-    the step-by-step radiance equal to the entry point's bit for bit; the
-    first bounce's rays checked on the CPU. Returns (max difference, frame ms)."""
+    gs2d_clip once each: the tracer launches no kernel); then the same
+    frame's bounces step by step (spawn; per bounce trace_mesh,
+    trace_splats, the rest), with the live rays per bounce; the
+    step-by-step radiance equal to the entry point's bit for bit; the first
+    bounce's rays checked on the CPU. Returns the max difference."""
     mesh = mr.mesh_buffers_from_obj(wavefront_mesh(), device=dev)
     cam = gt.look_at([0, 0, -7], [0, 0, 0], [0, 1, 0], WIDTH, HEIGHT, fov_y_rad=0.9, device=dev)
     cfg = gt.RenderConfig(width=WIDTH, height=HEIGHT, sh_degree=3)
     cfg = cfg.replace(raster=dataclasses.replace(cfg.raster, expansion="exact"),
                       rt=dataclasses.replace(cfg.rt, order="radial"))
     tr.zero_counters(tr.rasterize_tiles)
-    (frame, final), ms = timed(lambda: render_composed_wavefront(
-        prepared, cam, cfg, COMPOSED_MAX_PAIRS, mesh, lights, RT_BOUNCES, RT_STRIDE))
+    frame, final = render_composed_wavefront(prepared, cam, cfg, COMPOSED_MAX_PAIRS, mesh, lights,
+                                             RT_BOUNCES, RT_STRIDE)
     seen = counts(tr.rasterize_tiles)
     check(seen == {m: int(m in ("tri2d_smooth", "gs2d_clip")) for m in seen},
           f"render_composed_wavefront: launches {seen}")
     finite = bool(torch.isfinite(final).all())
     added = (final - frame.image).amax(dim=-1)
-    log(f"timing render_composed_wavefront {WIDTH}x{HEIGHT}, 1M splats, "
+    log(f"render_composed_wavefront {WIDTH}x{HEIGHT}, 1M splats, "
         f"{mesh.indices.shape[0]} faces (glass sphere, mirror ground), stride {RT_STRIDE}, "
-        f"{RT_BOUNCES} bounces, rt.order radial ({card}; events, one frame): frame_ms={ms:.4f}; "
-        f"launches { {m: k for m, k in seen.items() if k} }; splat pass overflow "
-        f"{bool(frame.overflow)}; pixels the bounces brighten by > 1e-3 "
+        f"{RT_BOUNCES} bounces, rt.order radial: launches "
+        f"{ {m: k for m, k in seen.items() if k} }; splat pass overflow {bool(frame.overflow)}; "
+        f"pixels the bounces brighten by > 1e-3 "
         f"{(added > 1e-3).float().mean():.4f}; finite {finite}")
     check(finite and not bool(frame.overflow) and (added > 1e-3).any(),
           "render_composed_wavefront: not finite, overflowed or no bounce light")
 
     # the same frame step by step
-    (composed, splat_trans, face_id), composed_ms = timed(lambda: pipelines._composed_frame(
-        prepared, cam, cfg, COMPOSED_MAX_PAIRS, mesh, lights))
-    (o, d, thr, mask, shape_lr), spawn_ms = timed(lambda: wavefront.secondary_spawn(
-        cam, cfg, mesh, face_id, splat_trans, RT_STRIDE))
+    composed, splat_trans, face_id = pipelines._composed_frame(prepared, cam, cfg,
+                                                               COMPOSED_MAX_PAIRS, mesh, lights)
+    o, d, thr, mask, shape_lr = wavefront.secondary_spawn(cam, cfg, mesh, face_id, splat_trans,
+                                                          RT_STRIDE)
     r = o.shape[0]
     auto = gt.RenderConfig(sh_degree=3)
     centroid = o.mean(dim=0)
     spread = torch.linalg.norm(o - centroid, dim=-1).mean().item()
     med = torch.linalg.norm(prepared.means - centroid, dim=-1).median().item()
     log(f"wavefront spawn: {r} secondary rays ({shape_lr[0]}x{shape_lr[1]}), "
-        f"{int(mask.sum())} on mirror or glass; composed_frame_ms={composed_ms:.4f} "
-        f"spawn_ms={spawn_ms:.4f}; origin spread "
+        f"{int(mask.sum())} on mirror or glass; origin spread "
         f"{spread:.3f} against 0.1 x the splats' median distance {0.1 * med:.3f}: rt.order "
         f"{auto.rt.order!r} would trace them "
         f"{'windowed' if spread > 0.1 * med else 'radial'} (cut: radial)")
@@ -5136,36 +4068,30 @@ def wavefront_frame(dev, card, prepared, lights):
     for b in range(RT_BOUNCES):
         live = int((thr.amax(dim=-1) > 0).sum())
         eps = o.new_full((r,), wavefront.EPS_T)
-        mh, mesh_ms = timed(lambda: rt.trace_mesh(mesh.positions, mesh.indices, o, d, eps))
-        ts, splat_ms = timed(lambda: rt.trace_splats(prepared, o, d, eps, mh.t, cfg))
+        mh = rt.trace_mesh(mesh.positions, mesh.indices, o, d, eps)
+        ts = rt.trace_splats(prepared, o, d, eps, mh.t, cfg)
         if b == 0:
             err = wavefront_check(prepared, mesh, o, d, eps, cfg)
-
-        def rest():
-            nonlocal radiance, thr, o, d
-            radiance = radiance + thr * ts.radiance
-            thr = thr * ts.transmittance[:, None]
-            face = torch.clamp(mh.face, min=0).long()
-            hit_pos = o + d * torch.where(mh.hit, mh.t, 0.0)[:, None]
-            nrm = face_nrm[face]
-            shade = wavefront._shade_mesh_hit(hit_pos, nrm, d, mesh, face, lights, cam)
-            radiance = radiance + torch.where(mh.hit[:, None], thr * shade, 0.0)
-            new_d, factor, alive = wavefront._bounce_dispatch(d, nrm, mesh, face)
-            cont = mh.hit & alive
-            thr = torch.where(cont[:, None], thr * factor, 0.0)
-            keep = torch.amax(thr, dim=-1) > cfg.rt.min_transmittance
-            thr = torch.where(keep[:, None], thr, 0.0)
-            o, d = hit_pos, torch.where(cont[:, None], new_d, d)
-
-        _, rest_ms = timed(rest)
-        log(f"timing wavefront bounce {b + 1} ({card}; events): live rays {live} of {r}, mesh "
-            f"hits {int(mh.hit.sum())}; trace_mesh_ms={mesh_ms:.4f} trace_splats_ms="
-            f"{splat_ms:.4f} shade_and_dispatch_ms={rest_ms:.4f}")
+        radiance = radiance + thr * ts.radiance
+        thr = thr * ts.transmittance[:, None]
+        face = torch.clamp(mh.face, min=0).long()
+        hit_pos = o + d * torch.where(mh.hit, mh.t, 0.0)[:, None]
+        nrm = face_nrm[face]
+        shade = wavefront._shade_mesh_hit(hit_pos, nrm, d, mesh, face, lights, cam)
+        radiance = radiance + torch.where(mh.hit[:, None], thr * shade, 0.0)
+        new_d, factor, alive = wavefront._bounce_dispatch(d, nrm, mesh, face)
+        cont = mh.hit & alive
+        thr = torch.where(cont[:, None], thr * factor, 0.0)
+        keep = torch.amax(thr, dim=-1) > cfg.rt.min_transmittance
+        thr = torch.where(keep[:, None], thr, 0.0)
+        o, d = hit_pos, torch.where(cont[:, None], new_d, d)
+        log(f"wavefront bounce {b + 1}: live rays {live} of {r}, mesh hits "
+            f"{int(mh.hit.sum())}")
     stepwise = wavefront.add_secondary_radiance(composed.image, radiance, shape_lr, cfg)
     same = torch.equal(stepwise, final)
     log(f"wavefront step by step equals the entry point's frame bit for bit: {same}")
     check(same, "wavefront: the step-by-step frame differs")
-    return err, ms
+    return err
 
 
 def wavefront_check(prepared, mesh, o, d, eps, cfg) -> float:
@@ -5193,9 +4119,9 @@ def wavefront_check(prepared, mesh, o, d, eps, cfg) -> float:
                              cfg, order="radial")
 
 
-def raytracing(dev, card: str, truth: gt.SplatSet):
-    """Phase 15: the exact tier (``exact_tier``), the ray-shadowed hybrid
-    frames (``ray_shadowed_hybrid``) with phase 14's two lights, and the
+def raytracing(dev, truth: gt.SplatSet):
+    """Phase 12: the exact tier (``exact_tier``), the ray-shadowed hybrid
+    frames (``ray_shadowed_hybrid``) with phase 11's two lights, and the
     wavefront frame (``wavefront_frame``) with them, on the headline scene
     (1M splats, SH 3). Every image finite; each batch's checked rays on the
     card against the CPU; no kernel of this slice (the tracer is plain
@@ -5203,19 +4129,12 @@ def raytracing(dev, card: str, truth: gt.SplatSet):
     t0 = time.perf_counter()
     lights = headline_lights(dev)
     prepared = truth.prepare()
-    marks = [("start", time.perf_counter())]
     with torch.no_grad():
-        err_exact, exact_ms = exact_tier(dev, card)
-        marks.append(("exact tier", time.perf_counter()))
-        err_shadow, hybrid_ms = ray_shadowed_hybrid(dev, card, prepared, lights)
-        marks.append(("ray shadows", time.perf_counter()))
-        err_wave, wave_ms = wavefront_frame(dev, card, prepared, lights)
-        marks.append(("wavefront", time.perf_counter()))
-    log(f"ray tracing phase {time.perf_counter() - t0:.1f} s ("
-        + ", ".join(f"{b[0]} {b[1] - a[1]:.1f} s" for a, b in zip(marks, marks[1:]))
-        + f"); card against CPU max: exact {err_exact:.3e}, shadow rays {err_shadow:.3e}, "
-        f"wavefront {err_wave:.3e}; frame_ms exact golden {exact_ms:.1f}, hybrid "
-        + ", ".join(f"{k} {v:.1f}" for k, v in hybrid_ms.items()) + f", wavefront {wave_ms:.1f}")
+        err_exact = exact_tier(dev)
+        err_shadow = ray_shadowed_hybrid(dev, prepared, lights)
+        err_wave = wavefront_frame(dev, prepared, lights)
+    log(f"ray tracing phase {time.perf_counter() - t0:.1f} s; card against CPU max: exact "
+        f"{err_exact:.3e}, shadow rays {err_shadow:.3e}, wavefront {err_wave:.3e}")
 
 
 # ---- instances, project files and the inspection tools (SplatScene.flatten,
@@ -5333,26 +4252,6 @@ def flatten_on_card_and_cpu(scene, scene_cpu):
     return prepared, table
 
 
-def flatten_times(scene):
-    """Host-clock medians of 3 (the card synchronised) of the flatten and of
-    each visible instance's bake alone."""
-    def flat(s):
-        def run():
-            s.flatten()
-            torch.cuda.synchronize()
-        return run
-
-    t = {"all": host_ms(flat(scene))}
-    for inst in scene.instances:
-        if inst.visible:
-            alone = SplatScene()
-            alone.add_instance(alone.add_asset(scene.assets[inst.asset]),
-                               transform=inst.transform, splat_scale=inst.splat_scale,
-                               opacity_gain=inst.opacity_gain)
-            t[inst.name] = host_ms(flat(alone))
-    return t
-
-
 def instance_shares(out, table) -> list[float]:
     """Each visible instance's share of the frame's pixels (its splats
     picked)."""
@@ -5363,13 +4262,12 @@ def instance_shares(out, table) -> list[float]:
     return (counts.double() / sid.numel()).tolist()
 
 
-def instanced_frames(dev, card, prepared, table, head, cam, cfg):
+def instanced_frames(dev, prepared, table, cam, cfg):
     """INST frames on pairs (exact expansion) and on bucket (caps fitted over
     the jittered cameras): each main path with the wrapper's counters zeroed
     (one gs2d launch a frame), finite, no overflow, a bit-equal repeat;
-    K1 and K3 against their twins on sampled tiles; both frames beside the
-    headline 1 M frame in turns. Returns (pairs frame 0, K1's and K3's
-    (launches, error))."""
+    K1 and K3 against their twins on sampled tiles. Returns (pairs frame 0,
+    K1's and K3's (launches, error))."""
     pcfg = cfg.replace(raster=gt.RasterConfig(expansion="exact"))
     cams = [jitter(cam, i) for i in range(FRAMES)]
     tr.zero_counters(tr.rasterize_tiles)
@@ -5430,21 +4328,10 @@ def instanced_frames(dev, card, prepared, table, head, cam, cfg):
         f"{err3:.3e}, id agreement {agree3:.6f}")
     check(err3 <= KERNEL_ATOL and agree3 >= ID_AGREE, f"instanced K3 vs twin {err3}, {agree3}")
     del bbins
-
-    hcaps, _ = fitted_caps(head, cams, cfg)
-    hcfg = bucket_cfg(cfg, hcaps)
-    for label, a, b in (
-            ("pairs exact", lambda: render(head, cam, pcfg, max_pairs=INST_MAX_PAIRS),
-             lambda: render(prepared, cam, pcfg, max_pairs=INST_MAX_PAIRS)),
-            ("bucket", lambda: render(head, cam, hcfg), lambda: render(prepared, cam, bcfg))):
-        t_head, t_inst = abba(lambda: median(time_ms(a, 10)), lambda: median(time_ms(b, 10)))
-        log(f"timing {label} 1080p ({card}; events, medians of 10, turns headline, instanced, "
-            f"instanced, headline): headline 1M frame_ms=" + "/".join(f"{x:.4f}" for x in t_head)
-            + " instanced 1M frame_ms=" + "/".join(f"{x:.4f}" for x in t_inst))
     return o0, (seen1["gs2d"], err1), (seen3["gs2d"], err3)
 
 
-def instanced_lit(dev, card, prepared, table, cam, cfg, lights):
+def instanced_lit(prepared, table, cam, cfg, lights):
     """render_3dgs_lit with one material per instance, routed by the real
     table: only K1 gs2d moves (twice), finite, repeatable, every material
     in view, and the material index image equal to the table's instance of
@@ -5481,25 +4368,19 @@ def fisheye_camera(cam):
 def project_round_trip(dev, scene, cam, cfg, lights, frame):
     """Save the session (the asset as PLY, two cameras, two lights), reopen
     it on the card, flatten again: the frame bit-equal to the in-memory
-    scene's, a second save the same JSON; the save, load and flatten
-    timed by the host clock."""
+    scene's, a second save the same JSON."""
     pcfg = cfg.replace(raster=gt.RasterConfig(expansion="exact"))
     with tempfile.TemporaryDirectory() as d:
         ply, path, path2 = (os.path.join(d, f) for f in ("asset.ply", "a.vkgs.json",
                                                           "b.vkgs.json"))
-        t0 = time.perf_counter()
         save_ply(ply, scene.assets[0])
         cams = CameraSet()
         cams.add(cam, "headline")
         cams.add(fisheye_camera(cam), "fisheye rolling")
         save_project(path, Project(scene=scene, cameras=cams, lights=list(lights), config=cfg,
                                    asset_paths=[ply]))
-        t1 = time.perf_counter()
         loaded = load_project(path, device=dev)
-        t2 = time.perf_counter()
         prepared, _ = loaded.scene.flatten(loaded.config.sh_format)
-        torch.cuda.synchronize()
-        t3 = time.perf_counter()
         out = render(prepared, loaded.cameras.get(), pcfg, max_pairs=INST_MAX_PAIRS)
         apart = [f for f in ("image", "transmittance", "depth", "splat_id")
                  if not torch.equal(getattr(out, f), getattr(frame, f))]
@@ -5510,10 +4391,9 @@ def project_round_trip(dev, scene, cam, cfg, lights, frame):
         fish = loaded.cameras.cameras[1]
         kept = (torch.equal(fish.distortion, cams.cameras[1].distortion)
                 and torch.equal(fish.viewmat_end, cams.cameras[1].viewmat_end))
-    log(f"project round trip: save {1e3 * (t1 - t0):.1f} ms (PLY of {scene.assets[0].num_splats}"
-        f" splats and the JSON), load {1e3 * (t2 - t1):.1f} ms, flatten {1e3 * (t3 - t2):.1f} ms"
-        f" (host clock); frame bit-equal {same} {apart}, second save the same JSON {same_json}, fisheye "
-        f"distortion and end pose kept {kept}")
+    log(f"project round trip (PLY of {scene.assets[0].num_splats} splats and the JSON): frame "
+        f"bit-equal {same} {apart}, second save the same JSON {same_json}, fisheye distortion "
+        f"and end pose kept {kept}")
     check(same and same_json and kept, "the project round trip")
 
 
@@ -5530,10 +4410,9 @@ METRICS = {"mse": metrics.mse, "psnr": metrics.psnr,
            "flip_mean_approx": lambda a, b: metrics.flip_mean(a, b, approx=True)}
 
 
-def metrics_phase(card, a, b):
-    """The metrics at 1080p (events, medians of 3) between two frames, and on
-    a METRIC_CROP centre crop the card against the CPU within INST_ATOL."""
-    t = {k: median(time_ms(lambda f=f: f(a, b), 3, warmup=1)) for k, f in METRICS.items()}
+def metrics_phase(a, b):
+    """The metrics at 1080p between two frames, and on a METRIC_CROP centre
+    crop the card against the CPU within INST_ATOL."""
     vals = {k: float(METRICS[k](a, b)) for k in ("mse", "psnr", "flip_mean", "flip_mean_approx")}
     ca, cb = crop(a, METRIC_CROP), crop(b, METRIC_CROP)
     worst = 0.0
@@ -5544,8 +4423,7 @@ def metrics_phase(card, a, b):
             err /= max(abs(want.item()), 1.0)
         worst = max(worst, err)
     log(f"metrics 1080p, the instanced frame against the rigid instance moved 0.05: "
-        + " ".join(f"{k}={v:.6g}" for k, v in vals.items()) + f"; timing ({card}; events, "
-        f"medians of 3) " + " ".join(f"{k}_ms={v:.4f}" for k, v in t.items())
+        + " ".join(f"{k}={v:.6g}" for k, v in vals.items())
         + f"; card against CPU on a {METRIC_CROP[0]}x{METRIC_CROP[1]} crop: worst {worst:.3e} "
         f"(gate {INST_ATOL:g}; psnr relative)")
     check(worst <= INST_ATOL and all(math.isfinite(v) for v in vals.values()),
@@ -5553,36 +4431,31 @@ def metrics_phase(card, a, b):
     check(vals["mse"] > 0 and vals["flip_mean"] > 0, "the moved instance changes nothing")
 
 
-def compare_phase(card, a, b):
+def compare_phase(a, b):
     """ImageCompare: capture, three compute_metrics, all six modes at 1080p:
-    finite, left of the split the capture exactly; each composite timed
-    (events, one call)."""
+    finite, left of the split the capture exactly."""
     tool = ImageCompare()
     tool.capture(a)
     samples = [tool.compute_metrics(b) for _ in range(3)]
-    t = {}
     for mode in CompareMode:
-        out, t[mode.name] = timed(lambda mode=mode: tool.render(b, mode, split_x=0.5,
-                                                                amplify=4.0))
+        out = tool.render(b, mode, split_x=0.5, amplify=4.0)
         cut = int(0.5 * a.shape[1])
         check(bool(torch.isfinite(out).all()) and torch.equal(out[:, :cut], a[:, :cut]),
               f"composite {mode.name}: not finite or the left side is not the capture")
     check(len(tool.history) == 3 and [s.frame for s in samples] == [0, 1, 2]
           and samples[0] == dataclasses.replace(samples[2], frame=0), "the history")
-    log(f"ImageCompare 1080p: samples {samples[0]}; composites finite, left side the capture; "
-        f"timing ({card}; events, one call) " + " ".join(f"{k}_ms={v:.4f}" for k, v in t.items()))
+    log(f"ImageCompare 1080p: samples {samples[0]}; composites finite, left side the capture")
 
 
-def helpers_phase(dev, card, frame, cam, cfg, anchor):
+def helpers_phase(dev, frame, cam, cfg, anchor):
     """The grid and the three gizmo modes over the 1080p frame with its
-    depth, the gizmo at ``anchor`` (events, medians of 3); at HELPER_SIZE
-    the card against the CPU within INST_ATOL."""
+    depth, the gizmo at ``anchor``; at HELPER_SIZE the card against the CPU
+    within INST_ATOL."""
     img, depth = frame.image, frame.depth
     calls = {"grid": lambda: helpers.render_grid_overlay(img, depth, cam, cfg, plane_y=-4.0)}
     for mode in ("translate", "scale", "rotate"):
         calls[mode] = (lambda m=mode: helpers.render_gizmo_overlay(
             img, depth, cam, cfg, origin=anchor, size=1.5, mode=m))
-    t = {k: median(time_ms(f, 3, warmup=1)) for k, f in calls.items()}
     for k, f in calls.items():
         out = f()
         check(bool(torch.isfinite(out).all()) and (out - img).abs().max().item() > 0.1,
@@ -5600,9 +4473,8 @@ def helpers_phase(dev, card, frame, cam, cfg, anchor):
             card_outs = [o.cpu() for o in outs]
         else:
             worst = max((a - b).abs().max().item() for a, b in zip(card_outs, outs))
-    log(f"overlays 1080p: timing ({card}; events, medians of 3) "
-        + " ".join(f"{k}_ms={v:.4f}" for k, v in t.items()) + f"; card against CPU at "
-        f"{w}x{h}: worst {worst:.3e} (gate {INST_ATOL:g})")
+    log(f"overlays 1080p: drawn and finite; card against CPU at {w}x{h}: worst {worst:.3e} "
+        f"(gate {INST_ATOL:g})")
     check(worst <= INST_ATOL, f"the overlays: card against CPU {worst}")
 
 
@@ -5615,7 +4487,7 @@ def pick_pixels(out, n, seed, t_min):
     return [(int(x), int(y)) for y, x in pick.tolist()]
 
 
-def traces_phase(dev, card, prepared, cam, cfg, frame):
+def traces_phase(prepared, cam, cfg, frame):
     """pixel_trace at TRACE_PIXELS pixels of the exact pairs frame (pixels
     whose T stays above TRACE_T_MIN, so the blend never froze them, and
     that have fewer than 200 contributors, the trace's cap) against the
@@ -5625,7 +4497,7 @@ def traces_phase(dev, card, prepared, cam, cfg, frame):
     pcfg = cfg.replace(raster=gt.RasterConfig(expansion="exact"))
     proj = project_splats(prepared, cam, pcfg)
     cand = pick_pixels(frame, TRACE_PIXELS, 23, TRACE_T_MIN)
-    worst, used, examined, t0 = 0.0, [], 0, time.perf_counter()
+    worst, used, examined = 0.0, [], 0
     for x, y in cand:
         tr_ = debug.pixel_trace(proj, x, y, pcfg)
         examined += 1
@@ -5636,10 +4508,9 @@ def traces_phase(dev, card, prepared, cam, cfg, frame):
         used.append(len(tr_.splat_id))
         if len(used) == TRACE_PIXELS:
             break
-    t_trace = (time.perf_counter() - t0) * 1e3 / max(examined, 1)
     log(f"pixel_trace: {len(used)} of {examined} examined pixels with T > {TRACE_T_MIN:g} had "
         f"fewer than 200 contributors ({used}); worst against the exact pairs frame {worst:.3e} (gate "
-        f"{TRACE_ATOL:g}); {t_trace:.2f} ms a trace (host clock)")
+        f"{TRACE_ATOL:g})")
     check(len(used) == TRACE_PIXELS and worst <= TRACE_ATOL, "pixel_trace against the frame")
     worst_gut = {}
     for order, fn, pipeline in (("depth", render_3dgut, gt.Pipeline.MESH_3DGUT),
@@ -5665,37 +4536,29 @@ def traces_phase(dev, card, prepared, cam, cfg, frame):
               f"pixel_trace_gut {order}")
 
 
-def instances(dev, card: str, head_prepared):
-    """Phase 16: the instanced scene (``instanced_scene``, 1 M splats after
-    the flatten) at the headline cell: the flatten's times and the card
-    against the CPU, the instanced frames (``instanced_frames``), the lit
-    frame with four per-instance materials, the project round trip, the
-    metrics, ImageCompare and the overlays over the frames, and the pixel
-    traces. ``head_prepared``: the headline 1 M scene the frames are timed
-    beside. Returns {kernel: phase-16 launches and error}."""
+def instances(dev):
+    """Phase 13: the instanced scene (``instanced_scene``, 1 M splats after
+    the flatten) at the headline cell: the flatten on the card against the
+    CPU, the instanced frames (``instanced_frames``), the lit frame with
+    four per-instance materials, the project round trip, the metrics,
+    ImageCompare and the overlays over the frames, and the pixel traces.
+    Returns {kernel: phase-13 launches and error}."""
     t0 = time.perf_counter()
-    marks = [("start", t0)]
     cfg = gt.RenderConfig(width=WIDTH, height=HEIGHT, sh_degree=3)
     cam = gt.look_at([0, 0, -7], [0, 0, 0], [0, 1, 0], WIDTH, HEIGHT, fov_y_rad=0.9, device=dev)
     asset = bench_scene(dev, INST_SPLATS, seed=1)
     scene = instanced_scene(asset)
     scene_cpu = instanced_scene(gt.SplatSet(**{f: getattr(asset, f).cpu() for f in FIELDS}))
-    t_flat = flatten_times(scene)
     prepared, table = flatten_on_card_and_cpu(scene, scene_cpu)
     del scene_cpu
     log(f"flatten of {scene.total_splats} splats ({len(scene.instances)} instances, "
-        f"{len(table.instance_base) - 1} visible; host clock, medians of 3, the card "
-        f"synchronised): " + " ".join(f"{k}_ms={v:.1f}" for k, v in t_flat.items()))
+        f"{len(table.instance_base) - 1} visible)")
     check(prepared.num_splats == 4 * INST_SPLATS, "the instanced scene's size")
-    marks.append(("flatten", time.perf_counter()))
 
-    frame, k1, k3 = instanced_frames(dev, card, prepared, table, head_prepared, cam, cfg)
-    marks.append(("frames", time.perf_counter()))
+    frame, k1, k3 = instanced_frames(dev, prepared, table, cam, cfg)
     lights = headline_lights(dev)
-    k1_lit = instanced_lit(dev, card, prepared, table, cam, cfg, lights)
-    marks.append(("lit", time.perf_counter()))
+    k1_lit = instanced_lit(prepared, table, cam, cfg, lights)
     project_round_trip(dev, scene, cam, cfg, lights, frame)
-    marks.append(("project", time.perf_counter()))
 
     moved = scene.instances[1].transform.copy()
     moved[0, 3] += 0.05
@@ -5704,23 +4567,19 @@ def instances(dev, card: str, head_prepared):
     pcfg = cfg.replace(raster=gt.RasterConfig(expansion="exact"))
     frame_moved = render(prepared_moved, cam, pcfg, max_pairs=INST_MAX_PAIRS)
     del prepared_moved
-    metrics_phase(card, frame.image, frame_moved.image)
-    compare_phase(card, frame.image, frame_moved.image)
-    marks.append(("metrics, compare", time.perf_counter()))
-    helpers_phase(dev, card, frame, cam, cfg, scene.instances[1].transform[:3, 3])
-    marks.append(("overlays", time.perf_counter()))
-    traces_phase(dev, card, prepared, cam, cfg, frame)
-    marks.append(("traces", time.perf_counter()))
-    log(f"instances phase {time.perf_counter() - t0:.1f} s ("
-        + ", ".join(f"{b[0]} {b[1] - a[1]:.1f} s" for a, b in zip(marks, marks[1:])) + ")")
+    metrics_phase(frame.image, frame_moved.image)
+    compare_phase(frame.image, frame_moved.image)
+    helpers_phase(dev, frame, cam, cfg, scene.instances[1].transform[:3, 3])
+    traces_phase(prepared, cam, cfg, frame)
+    log(f"instances phase {time.perf_counter() - t0:.1f} s")
     return {"rasterize_fwd": dict(instances_launches=k1[0] + k1_lit,
                                   instances_max_abs_err=k1[1]),
             "raster_bucket_fwd": dict(instances_launches=k3[0], instances_max_abs_err=k3[1])}
 
 
-# ---- phase 17: the sequencer, the viewers, the oracle and multi-device --------
+# ---- phase 14: the sequencer, the viewers, the oracle and multi-device --------
 
-TOOLS_SEQ_FRAMES = 8   # --sequenceframes, with --sequenceaverages 1: 8 timed frames a block
+TOOLS_SEQ_FRAMES = 8   # --sequenceframes, with --sequenceaverages 1: 8 frames a block
 TOOLS_BLOCKS = (("Mesh pipeline fp32", 1, 0), ("Mesh pipeline fp16", 1, 1),
                 ("Mesh pipeline uint8", 1, 2), ("3DGUT", 4, 0), ("3DGRT", 2, 0))
 TOOLS_ORBIT_FRAMES = 4
@@ -5738,8 +4597,6 @@ SHARD_ATOL = 3e-5            # two ranks' bands against the single-device frame
 SHARD_MAX_PAIRS = 1 << 22    # two ranks' pair frames: the exact expansion, which must not
                              # overflow (the slots expansion truncates each band's splats
                              # at other tiles than the whole frame's)
-TIMER_LINE = re.compile(r'Timer "([^"]+)"; GPU; avg (\d+);.*CPU; avg (\d+);')
-SHARD_TIMING_CALLS = 10
 
 
 def decode_png(data: bytes) -> np.ndarray:
@@ -5803,15 +4660,15 @@ def add_launches(total: dict, more: dict):
         total[k] = total.get(k, 0) + v
 
 
-def sequencer_phase(dev, card, truth, ply, tmp):
+def sequencer_phase(dev, truth, ply, tmp):
     """``python -m vk_gaussian_splatting_tpu_torch.bench`` in-process on a
     cfg of the reference grammar (MESH at shformat 0, 1, 2, MESH_3DGUT,
     RTX, each with --updateData; one --screenshot), with --method pairs and
-    bucket: its stdout parsed by ``bench.report``, every block's timers,
-    one K1 / K3 (K1g / K3g) launch per frame it ran, the screenshot's PNG
-    decoded equal to the 8-bit image of ``render``, the Rasterization bytes
-    beside the rise of the allocator's peak over one frame, its timers
-    beside the smoke's own stage times. Returns the launches by kernel."""
+    bucket: its stdout parsed by ``bench.report``, every block's four
+    timers named, one K1 / K3 (K1g / K3g) launch per frame it ran, the
+    screenshot's PNG decoded equal to the 8-bit image of ``render``, the
+    Rasterization bytes beside the rise of the allocator's peak over one
+    frame. Returns the launches by kernel."""
     from vk_gaussian_splatting_tpu_torch.bench import report
     from vk_gaussian_splatting_tpu_torch.bench.__main__ import main as bench_main
 
@@ -5826,7 +4683,7 @@ def sequencer_phase(dev, card, truth, ply, tmp):
     with open(seq_file, "w") as f:
         f.write("\n".join(lines) + "\n")
     n = TOOLS_SEQ_FRAMES
-    per_block = 1 + 1 + n + max(n, 3)  # warm-up, the bytes' blend, timed frames, "Frame"
+    per_block = 1 + 1 + n + max(n, 3)  # warm-up, the bytes' blend, the block's frames, "Frame"
     gs_blocks = sum(1 for b in TOOLS_BLOCKS if b[1] == 1)
     cam = cli_camera(truth.means, dev)
     base = gt.RenderConfig(width=WIDTH, height=HEIGHT, sh_degree=3)
@@ -5834,12 +4691,10 @@ def sequencer_phase(dev, card, truth, ply, tmp):
     for method in ("pairs", "bucket"):
         zero_frame_counters()
         buf = io.StringIO()
-        t0 = time.perf_counter()
         with contextlib.redirect_stdout(buf):
             bench_main(["--size", str(WIDTH), str(HEIGHT), "--sequencefile", seq_file,
                         "--method", method, ply])
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
         text = buf.getvalue()
         k = "K1" if method == "pairs" else "K3"
         add_launches(launches, expect_frames(f"sequencer {method}", {k: {
@@ -5848,19 +4703,14 @@ def sequencer_phase(dev, card, truth, ply, tmp):
         recs = [r for r in report.parse_benchmark_output(text) if r["timers"]]
         check([r["name"] for r in recs] == [b[0] for b in TOOLS_BLOCKS],
               f"sequencer {method}: blocks {[r['name'] for r in recs]}")
-        log(f"sequencer --method {method} {WIDTH}x{HEIGHT}/{SPLATS} ({n} timed frames a block; {wall:.1f} s "
-            f"with the scene's load; {text.splitlines()[1]}):")
-        cpu_cols = [(m.group(1), int(m.group(2)), int(m.group(3)))
-                    for m in map(TIMER_LINE.match, text.splitlines()) if m]
-        for i, (r, (name, pipe, _)) in enumerate(zip(recs, TOOLS_BLOCKS)):
+        log(f"sequencer --method {method} {WIDTH}x{HEIGHT}/{SPLATS} ({n} frames a block; "
+            f"{text.splitlines()[1]}):")
+        for r, (name, pipe, _) in zip(recs, TOOLS_BLOCKS):
             stage = "Raytracing" if pipe == 2 else "Rasterization"
             check(list(r["timers"]) == ["GPU Dist", "GPU Sort", stage, "Frame"],
                   f"sequencer {method} {name}: timers {list(r['timers'])}")
             mem = r["memory"]
-            cols = cpu_cols[4 * i:4 * i + 4]
-            log(f"  {name} (GPU / CPU column, us): "
-                + ", ".join(f"{t} {g} / {c}" for t, g, c in cols)
-                + f"; Scene {mem['Scene'][1]} B, Rasterization {mem['Rasterization'][1]} B")
+            log(f"  {name}: Scene {mem['Scene'][1]} B, Rasterization {mem['Rasterization'][1]} B")
         cfg = base if method == "pairs" else bucket_cfg(base, base.raster.bucket_caps)
         out = render(truth.prepare(), cam, cfg, max(4 * SPLATS, 1 << 20))
         with open(shot, "rb") as f:
@@ -5880,25 +4730,15 @@ def sequencer_phase(dev, card, truth, ply, tmp):
         counted = recs[0]["memory"]["Rasterization"][1]
         log(f"  Mesh fp32 Rasterization bytes counted {counted}, allocator peak rise over "
             f"one frame {rise} ({counted / max(rise, 1):.3f} of it)")
-        stages, c = frame_stages(prepared, cam, cfg)
-        own = {s: median(time_ms(step, 5)) for s, step in stages}
-        frame_ms = median(time_ms(lambda: render(prepared, cam, cfg), 5))
-        log(f"  the smoke's own times of that block's frame (events, medians of 5): "
-            + ", ".join(f"{s} {v:.4f} ms" for s, v in own.items())
-            + f", frame {frame_ms:.4f} ms; the sequencer's: GPU Dist "
-            f"{recs[0]['timers']['GPU Dist'] / 1e3:.4f}, GPU Sort "
-            f"{recs[0]['timers']['GPU Sort'] / 1e3:.4f}, Rasterization "
-            f"{recs[0]['timers']['Rasterization'] / 1e3:.4f}, Frame "
-            f"{recs[0]['timers']['Frame'] / 1e3:.4f} ms ({card})")
     return launches
 
 
-def viewers_phase(dev, card, truth, ply, tmp):
+def viewers_phase(dev, truth, ply, tmp):
     """The orbit viewer (``viewer.main``, TOOLS_ORBIT_FRAMES frames at 1080p)
     and the web viewer served on 127.0.0.1, port 0, in a thread (the page,
     then TOOLS_WEB_QUERIES at 1080p): each PNG decoded equal to the 8-bit
     image of ``render`` / ``RenderSession.render`` of its camera, one K1 or
-    K1g launch a frame, each request's latency logged. Returns the launches."""
+    K1g launch a frame. Returns the launches."""
     import threading
     import urllib.request
 
@@ -5908,12 +4748,10 @@ def viewers_phase(dev, card, truth, ply, tmp):
     out_dir = os.path.join(tmp, "orbit")
     zero_frame_counters()
     buf = io.StringIO()
-    t0 = time.perf_counter()
     with contextlib.redirect_stdout(buf):
         viewer.main([ply, "-o", out_dir, "--frames", str(TOOLS_ORBIT_FRAMES), "--size",
                      str(WIDTH), str(HEIGHT)])
     torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
     add_launches(launches, expect_frames("orbit viewer", {"K1": {"gs2d": TOOLS_ORBIT_FRAMES}}))
     printed = buf.getvalue().splitlines()
     prepared = truth.prepare()
@@ -5928,8 +4766,7 @@ def viewers_phase(dev, card, truth, ply, tmp):
         png = open(os.path.join(out_dir, f"frame_{i:03d}.png"), "rb").read()
         check(np.array_equal(decode_png(png), want), f"orbit frame {i} differs from render")
     log(f"orbit viewer: {TOOLS_ORBIT_FRAMES} frames at {WIDTH}x{HEIGHT}, each PNG equal to render's "
-        f"8-bit image; {wall:.1f} s with the scene's load and the PNG writes; "
-        f"first line: {printed[0]}")
+        f"8-bit image; first line: {printed[0]}")
 
     means_t = truth.means.cpu().numpy()
     c = means_t.mean(axis=0)
@@ -5940,23 +4777,19 @@ def viewers_phase(dev, card, truth, ply, tmp):
     thread.start()
     try:
         url = f"http://127.0.0.1:{httpd.server_address[1]}"
-        t0 = time.perf_counter()
         with urllib.request.urlopen(url + "/", timeout=SHARD_TIMEOUT_S) as resp:
             page = resp.read().decode()
         check("%RADIUS%" not in page and "frame.png" in page, "the viewer page")
-        lat = [("/", (time.perf_counter() - t0) * 1e3)]
         session = httpd.RequestHandlerClass.session
         for q in TOOLS_WEB_QUERIES:
             query = "&".join(f"{k}={v}" for k, v in dict(az=0.4, el=0.2, r=r * 2.2, sh=3,
                                                          **q).items())
             zero_frame_counters()
-            t0 = time.perf_counter()
             with urllib.request.urlopen(f"{url}/frame.png?{query}",
                                         timeout=SHARD_TIMEOUT_S) as resp:
                 check(resp.status == 200 and resp.headers["Content-Type"] == "image/png",
                       f"web frame {query}: {resp.status}")
                 body = resp.read()
-            lat.append((query, (time.perf_counter() - t0) * 1e3))
             form = "gs2d" if q["pipeline"] == 1 else "gut3d"
             add_launches(launches, expect_frames(f"web frame {query}", {"K1": {form: 1}}))
             want = session.render(0.4, 0.2, r * 2.2, sh=3, **q)
@@ -5967,23 +4800,12 @@ def viewers_phase(dev, card, truth, ply, tmp):
         httpd.server_close()
         thread.join(timeout=SHARD_TIMEOUT_S)
     check(not thread.is_alive(), "the web viewer's thread did not stop")
-    log(f"web viewer {WIDTH}x{HEIGHT} on 127.0.0.1 (host clock, request to last byte; each frame equal "
-        f"to RenderSession.render quantised; {card}): "
-        + "; ".join(f"{q} {ms:.1f} ms" for q, ms in lat))
-    parts = []
-    for q in TOOLS_WEB_QUERIES:
-        t0 = time.perf_counter()
-        img = session.render(0.4, 0.2, r * 2.2, sh=3, **q)
-        t1 = time.perf_counter()
-        viewer_web.encode_png(img)
-        parts.append(f"{q['mode']}: RenderSession.render {(t1 - t0) * 1e3:.1f} ms, encode_png "
-                     f"{(time.perf_counter() - t1) * 1e3:.1f} ms")
-    log("  a web frame's parts again (host clock; the render returns numpy, so it has "
-        "synchronised): " + "; ".join(parts))
+    log(f"web viewer {WIDTH}x{HEIGHT} on 127.0.0.1: the page and "
+        f"{len(TOOLS_WEB_QUERIES)} frames, each equal to RenderSession.render quantised")
     return launches
 
 
-def oracle_phase(dev, card):
+def oracle_phase(dev):
     """``ops/rasterize_ref``'s naive oracles against the frames on the card,
     ORACLE_SPLATS splats at ORACLE_SIZE (tests/test_rasterize.py's shapes):
     ``rasterize_naive`` against ``render_3dgs`` (K1) within ORACLE_ATOL where
@@ -6043,13 +4865,13 @@ def frame_diff(label, got, want, gut: bool) -> float:
     return err
 
 
-def world_one(dev, card, truth, caps):
+def world_one(dev, truth, caps):
     """World size 1 over NCCL (``parallel.distributed.initialize`` on
     tcp://127.0.0.1 and a free port): the sharded 3DGS (pairs, bucket),
     3DGUT and 3DGRT (both methods) frames at 1080p / 1 M against the
-    single-device frames, one launch each; the sharded frame's time beside
-    the single-device one in turns; ``train_step_sharded`` against one
-    single-device step (K2's gate, 1e-4 of each component's max gradient);
+    single-device frames, one launch each; ``train_step_sharded`` against
+    one single-device step (K2's gate, 1e-4 of each component's max
+    gradient);
     then ``python -m ...parallel.distributed --num-processes 1`` in a
     subprocess. Returns {kernel: (launches, max abs err)}."""
     import socket
@@ -6067,12 +4889,10 @@ def world_one(dev, card, truth, caps):
         return port
 
     res = {}
-    t0 = time.perf_counter()
     pdist.initialize(f"127.0.0.1:{free_port()}", 1, 0)
     try:
         mesh = sr.make_mesh(1)
-        log(f"world size 1: {dist.get_backend()} group up in {time.perf_counter() - t0:.1f} s, "
-            f"mesh {mesh}")
+        log(f"world size 1: {dist.get_backend()} group up, mesh {mesh}")
         base = gt.RenderConfig(width=WIDTH, height=HEIGHT, sh_degree=3)
         cam = gt.look_at([0, 0, -7], [0, 0, 0], [0, 1, 0], WIDTH, HEIGHT, fov_y_rad=0.9,
                          device=dev)
@@ -6098,18 +4918,6 @@ def world_one(dev, card, truth, caps):
                 old = res.get(name, (0, 0.0))
                 res[name] = (old[0] + 1, max(old[1], err))
         cfg = base
-        a = lambda: render(truth.prepare(), cam, cfg)  # noqa: E731
-        b = lambda: sr.render_3dgs_sharded(truth, cam, cfg, 0, mesh)  # noqa: E731
-        t_a1, t_b1, t_b2, t_a2 = (time_ms(a, SHARD_TIMING_CALLS), time_ms(b, SHARD_TIMING_CALLS),
-                                  time_ms(b, SHARD_TIMING_CALLS), time_ms(a, SHARD_TIMING_CALLS))
-        log(f"3DGS pairs {WIDTH}x{HEIGHT}/{SPLATS} frame with prepare_splats, events, medians of "
-            f"{SHARD_TIMING_CALLS}, in turns (single, sharded, sharded, single): "
-            f"{median(t_a1):.4f} / {median(t_b1):.4f} / {median(t_b2):.4f} / {median(t_a2):.4f} "
-            f"ms; the sharded frame at world size 1 adds one all-gather of the projected fields "
-            f"and one all-reduce of the overflow flag ({card})")
-        profile_calls("single-device 3DGS pairs frame (prepare_splats unattributed)", a, card)
-        profile_calls("sharded 3DGS pairs frame, world size 1", b, card)
-
         target = render(prepared, jitter(cam, 3), cfg).image.detach()
         lr = 1.0
         zero_frame_counters()
@@ -6144,7 +4952,6 @@ def world_one(dev, card, truth, caps):
     finally:
         dist.destroy_process_group()
 
-    t0 = time.perf_counter()
     env = dict(os.environ, PYTHONPATH=HERE + os.pathsep + os.environ.get("PYTHONPATH", ""))
     run = subprocess.run(
         [sys.executable, "-m", "vk_gaussian_splatting_tpu_torch.parallel.distributed",
@@ -6152,8 +4959,8 @@ def world_one(dev, card, truth, caps):
          "--process-id", "0"], cwd=HERE, env=env, capture_output=True, text=True,
         timeout=SHARD_TIMEOUT_S)
     line = [s for s in run.stdout.splitlines() if s.startswith("MULTIHOST_")]
-    log(f"parallel.distributed --num-processes 1 (NCCL; {time.perf_counter() - t0:.1f} s, "
-        f"rc {run.returncode}): {line[-1] if line else run.stdout[-500:] + run.stderr[-2000:]}")
+    log(f"parallel.distributed --num-processes 1 (NCCL; rc {run.returncode}): "
+        f"{line[-1] if line else run.stdout[-500:] + run.stderr[-2000:]}")
     check(run.returncode == 0 and line and line[-1].startswith("MULTIHOST_OK process=0"),
           "the distributed main at world size 1")
     return res
@@ -6210,18 +5017,15 @@ def gloo_rank(argv, dev) -> int:
         res = {}
         for method in ("pairs", "bucket"):
             cfg = two_rank_cfg(base, method, caps)
-            t0 = time.perf_counter()
             img, trans, ov = sr.render_3dgs_sharded(shard, cam, cfg, SHARD_MAX_PAIRS, mesh)
-            torch.cuda.synchronize()
-            res[method] = dict(img=img.cpu(), trans=trans.cpu(), ov=bool(ov),
-                               s=time.perf_counter() - t0)
+            res[method] = dict(img=img.cpu(), trans=trans.cpu(), ov=bool(ov))
         torch.save(res, path)
     finally:
         dist.destroy_process_group()
     return 0
 
 
-def two_ranks(dev, card, truth, caps, tmp):
+def two_ranks(dev, truth, caps, tmp):
     """Two ranks on the one card: gloo carries CUDA tensors (NCCL refuses
     two ranks on one device), each rank a subprocess of this script
     (``gloo_rank``) with a timeout. Where gloo runs the collectives, the
@@ -6240,7 +5044,6 @@ def two_ranks(dev, card, truth, caps, tmp):
     port = s.getsockname()[1]
     s.close()
     env = dict(os.environ, PYTHONPATH=HERE + os.pathsep + os.environ.get("PYTHONPATH", ""))
-    t0 = time.perf_counter()
     procs = [subprocess.Popen([sys.executable, os.path.join(HERE, "chip_smoke.py"),
                                "--gloo-rank", str(r), "--port", str(port), "--out", tmp,
                                "--caps", ",".join(str(c) for c in caps)],
@@ -6256,7 +5059,6 @@ def two_ranks(dev, card, truth, caps, tmp):
     for r, (p, o) in enumerate(zip(procs, outs)):
         check(p.returncode == 0, f"gloo rank {r} failed (rc {p.returncode}): {o[-3000:]}")
     ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt")) for r in range(2)]
-    wall = time.perf_counter() - t0
     cam = gt.look_at([0, 0, -7], [0, 0, 0], [0, 1, 0], WIDTH, HEIGHT, fov_y_rad=0.9, device=dev)
     base = gt.RenderConfig(width=WIDTH, height=HEIGHT, sh_degree=3)
     prepared = truth.prepare()
@@ -6279,283 +5081,49 @@ def two_ranks(dev, card, truth, caps, tmp):
             + (f" (rows {int(rows.min())}-{int(rows.max())}, their T "
                f"{ref.transmittance[off].min().item():.3e}-"
                f"{ref.transmittance[off].max().item():.3e})" if off.any() else "")
-            + f"; overflow {[r[method]['ov'] for r in ranks]} / {bool(ref.overflow)}; first "
-            f"frame {max(r[method]['s'] for r in ranks):.2f} s a rank (host clock, with the "
-            f"gloo all-gather)")
+            + f"; overflow {[r[method]['ov'] for r in ranks]} / {bool(ref.overflow)}")
         check(err_live <= SHARD_ATOL and err <= FREEZE_ATOL,
               f"two-rank {method} frame outside the gates ({err_live}, {err})")
         check(not bool(ref.overflow) and not any(r[method]["ov"] for r in ranks),
               "a two-rank frame or its reference overflowed")
         errs[name] = err
-    log(f"two ranks: {wall:.1f} s with the subprocesses' start ({card})")
     return errs
 
 
-def tools(dev, card: str, truth, caps):
-    """Phase 17: the sequencer (``sequencer_phase``), the viewers
+def tools(dev, truth, caps):
+    """Phase 14: the sequencer (``sequencer_phase``), the viewers
     (``viewers_phase``), the naive oracle (``oracle_phase``) and multi-device
     rendering on the one card (``world_one``, ``two_ranks``), on the
     headline scene written once as a PLY with ``save_ply``. ``caps``: the
-    headline bucket caps. Returns {kernel: phase-17 fields}: ``tools_launches``
+    headline bucket caps. Returns {kernel: phase-14 fields}: ``tools_launches``
     counts the main paths' launches (the sequencer's, the viewers', the
     sharded frames' and step's), ``tools_max_abs_err`` the largest frame
     difference measured here through the kernel (oracle, sharded against
     single-device; the sequencer's and viewers' frames are bit-equal)."""
     t0 = time.perf_counter()
-    marks = [("start", t0)]
     launches = {}
     errs = {}
     with tempfile.TemporaryDirectory() as tmp:
         ply = os.path.join(tmp, "headline.ply")
         save_ply(ply, truth)
-        marks.append(("ply", time.perf_counter()))
-        add_launches(launches, sequencer_phase(dev, card, truth, ply, tmp))
-        marks.append(("sequencer", time.perf_counter()))
-        add_launches(launches, viewers_phase(dev, card, truth, ply, tmp))
-        marks.append(("viewers", time.perf_counter()))
-    for name, (n, err) in oracle_phase(dev, card).items():
+        add_launches(launches, sequencer_phase(dev, truth, ply, tmp))
+        add_launches(launches, viewers_phase(dev, truth, ply, tmp))
+    for name, (n, err) in oracle_phase(dev).items():
         errs[name] = max(errs.get(name, 0.0), err)
-    marks.append(("oracle", time.perf_counter()))
-    for name, (n, err) in world_one(dev, card, truth, caps).items():
+    for name, (n, err) in world_one(dev, truth, caps).items():
         add_launches(launches, {name: n})
         errs[name] = max(errs.get(name, 0.0), err)
-    marks.append(("world size 1", time.perf_counter()))
     with tempfile.TemporaryDirectory() as tmp:
-        for name, err in two_ranks(dev, card, truth, caps, tmp).items():
+        for name, err in two_ranks(dev, truth, caps, tmp).items():
             errs[name] = max(errs.get(name, 0.0), err)
-    marks.append(("two ranks", time.perf_counter()))
-    log(f"tools phase {time.perf_counter() - t0:.1f} s ("
-        + ", ".join(f"{b[0]} {b[1] - a[1]:.1f} s" for a, b in zip(marks, marks[1:])) + ")")
+    log(f"tools phase {time.perf_counter() - t0:.1f} s")
     return {name: dict(tools_launches=launches.get(name, 0), tools_max_abs_err=errs.get(name, 0.0))
             for name in sorted(set(launches) | set(errs))}
-
-
-# The SH radiance pass (phase 18): the two cells' scenes at SH 3 in f32; a
-# splat's bytes, each read or written once (csrc/sh_radiance.cu's note)
-SH_SPLATS = (6_130_000, 1_000_000)
-SH_FWD_BYTES = 15 * 3 * 4 + 12 + 16 + 12           # sh, mean, colour; rgb
-SH_BWD_BYTES = 15 * 3 * 4 + 12 + 16 + 12 + 15 * 3 * 4 + 12 + 16  # + d_rgb; d_sh, d_mean, d_colour
-SH_FWD_ATOL = 2e-6   # tests/test_torch_cuda.py's SH_ATOL
-SH_BWD_RTOL = 1e-5   # of each gradient's largest entry
-
-
-def sh_radiance_phase(dev, card: str):
-    """Phase 18: the forward and backward kernels of the SH radiance pass
-    at each of SH_SPLATS against the plain versions, timed alone and with
-    events, beside their byte bounds; returns the two kernels' report
-    entries and bounds (the 6.13M-splat figures; the 1M ones beside them)."""
-    t0 = time.perf_counter()
-    entries, bounds = {}, {}
-    for n in SH_SPLATS:
-        g = torch.Generator(device=dev).manual_seed(n)
-        sh = torch.randn((n, 15, 3), generator=g, device=dev) * 0.3
-        means = torch.rand((n, 3), generator=g, device=dev) * 6.0 - 3.0
-        color = torch.rand((n, 4), generator=g, device=dev) * 1.3 - 0.3
-        pos = torch.tensor([0.3, -0.2, -7.0], device=dev)
-        d_rgb = torch.randn((n, 3), generator=g, device=dev)
-        args = (sh, means, color, pos, 15, False)
-
-        def fwd():
-            return tsh.sh_radiance_fwd(*args)
-
-        def bwd():
-            return tsh.sh_radiance_bwd(*args, d_rgb)
-
-        def plain_fwd():
-            return tsh.sh_radiance_ref(sh, means, color, pos, 3)
-
-        leaves = [t.detach().clone().requires_grad_() for t in (sh, means, color)]
-
-        def plain_bwd():  # autograd through the plain version, its forward included
-            rgb = tsh.sh_radiance_ref(*leaves, pos, 3)
-            return torch.autograd.grad(rgb, leaves, d_rgb)
-
-        def kernel_fwd_bwd():  # the pair through autograd, as training runs it
-            rgb = tsh.sh_radiance(*leaves, pos, 3)
-            return torch.autograd.grad(rgb, leaves, d_rgb)
-
-        err_fwd = (fwd() - plain_fwd()).abs().max().item()
-        got, plain, twin = bwd(), plain_bwd(), tsh.sh_radiance_bwd_ref(*args[:4], 3, False, d_rgb)
-        err_bwd, abs_bwd = {}, 0.0
-        for name, k, p, t in zip(("d_sh", "d_means", "d_color"), got, plain, twin):
-            scale = p.abs().max().item()
-            err = (k - p).abs().max().item()
-            abs_bwd = max(abs_bwd, err)
-            err_bwd[name] = (err / scale, (k - t).abs().max().item() / scale)
-        del got, plain, twin
-        log(f"sh_radiance n={n}: forward max abs err {err_fwd:.3e} against the plain version; "
-            f"backward max abs err {abs_bwd:.3e} against autograd through it; "
-            "backward, of each gradient's largest entry, against autograd / the twin: "
-            + ", ".join(f"{k} {a:.3e} / {b:.3e}" for k, (a, b) in err_bwd.items()))
-        check(err_fwd <= SH_FWD_ATOL, f"sh_radiance_fwd n={n}: {err_fwd} from the plain version")
-        check(all(max(e) <= SH_BWD_RTOL for e in err_bwd.values()),
-              f"sh_radiance_bwd n={n}: {err_bwd}")
-        torch.cuda.synchronize()
-        alone_f = kernel_split(fwd, lambda: tsh.sh_radiance.launches,
-                               ("sh_radiance_fwd_kernel",), calls=10)["sh_radiance_fwd_kernel"]
-        alone_b = kernel_split(bwd, lambda: tsh.sh_radiance_bwd.launches,
-                               ("sh_radiance_bwd_kernel",), calls=10)["sh_radiance_bwd_kernel"]
-        ev_f, ev_b = median(time_ms(fwd, 20)), median(time_ms(bwd, 20))
-        ev_pair = median(time_ms(kernel_fwd_bwd, 10))
-        pl_f, pl_b = median(time_ms(plain_fwd, 5)), median(time_ms(plain_bwd, 5))
-        twin_b = median(time_ms(lambda: tsh.sh_radiance_bwd_ref(*args[:4], 3, False, d_rgb), 5))
-        b_f = roofline(0.0, n * SH_FWD_BYTES)
-        b_b = roofline(0.0, n * SH_BWD_BYTES)
-        log(f"timing sh_radiance n={n} ({card}): forward alone {alone_f:.4f} ms, events "
-            f"{ev_f:.4f}, bound {b_f[0]:.4f} ({b_f[1]}, {n * SH_FWD_BYTES / 1e9:.4f} GB), share "
-            f"of bound {b_f[0] / alone_f:.4f}; plain forward {pl_f:.4f} ms")
-        log(f"timing sh_radiance_bwd n={n} ({card}): backward alone {alone_b:.4f} ms, events "
-            f"{ev_b:.4f}, bound {b_b[0]:.4f} ({b_b[1]}, {n * SH_BWD_BYTES / 1e9:.4f} GB), share "
-            f"of bound {b_b[0] / alone_b:.4f}; the kernel pair through autograd {ev_pair:.4f} ms "
-            f"against autograd through the plain version (forward and backward) {pl_b:.4f} ms; "
-            f"the closed-form twin {twin_b:.4f} ms")
-        if n == SH_SPLATS[0]:
-            entries["sh_radiance_fwd"] = dict(max_abs_err=err_fwd, ms=ev_f, alone_ms=alone_f,
-                                              plain_ms=pl_f, share_of_bound=b_f[0] / alone_f)
-            entries["sh_radiance_bwd"] = dict(
-                max_abs_err=abs_bwd, max_rel_err=max(max(e) for e in err_bwd.values()),
-                ms=ev_b, alone_ms=alone_b, plain_ms=pl_b, twin_ms=twin_b,
-                share_of_bound=b_b[0] / alone_b)
-            bounds["sh_radiance_fwd"], bounds["sh_radiance_bwd"] = b_f, b_b
-        else:
-            entries["sh_radiance_fwd"]["alone_ms_1m"] = alone_f
-            entries["sh_radiance_bwd"]["alone_ms_1m"] = alone_b
-        del sh, means, color, d_rgb, leaves
-        torch.cuda.empty_cache()
-    log(f"sh_radiance phase {time.perf_counter() - t0:.1f} s")
-    return entries, bounds
-
-
-# The EWA projection (phase 19): the splat counts of the two 3DGS cells'
-# scenes; a splat's bytes, each read or written once (csrc/ewa_project.cu's
-# note)
-EWA_SPLATS = (6_130_000, 15_300_000)
-EWA_FWD_BYTES = 12 + 24 + 16 + 8 + 12 + 4 + 8 + 4 + 1  # mean, cov, colour; xy .. valid
-EWA_BWD_BYTES = 12 + 24 + 16 + 8 + 12 + 4 + 4 + 12 + 24 + 16  # + cotangents; gradients
-# tests/test_torch_cuda.py's gates: relative (xy, depth), of the largest
-# entry (conic), relative (alpha), the share of flipped splats, of each
-# leaf's norm (gradients)
-EWA_REL, EWA_CONIC, EWA_ALPHA, EWA_FLIPS, EWA_GRAD = 1e-6, 1e-5, 1e-5, 1e-5, 1e-5
-
-
-def ewa_project_phase(dev, card: str):
-    """Phase 19: the forward and backward kernels of the EWA projection at
-    each of EWA_SPLATS, the headline 1080p camera over the headline mix,
-    against the plain versions on the card (``project_splats_ref``,
-    autograd through it, the closed-form ``project_splats_bwd_ref``),
-    timed alone and with events beside their byte bounds and the plain
-    versions' times; returns the two kernels' report entries and bounds
-    (the 6.13M-splat figures; the 15.3M ones beside them)."""
-    t0 = time.perf_counter()
-    entries, bounds = {}, {}
-    cfg = gt.RenderConfig(width=WIDTH, height=HEIGHT, sh_degree=0)
-    cam = gt.look_at([0, 0, -7], [0, 0, 0], [0, 1, 0], WIDTH, HEIGHT, fov_y_rad=0.9, device=dev)
-    for n in EWA_SPLATS:
-        prep = bench_scene(dev, n, seed=1, sh_degree=0).prepare()
-        means, cov3d, color, scales = prep.means, prep.cov3d, prep.color, prep.scales_log
-        g = torch.Generator(device=dev).manual_seed(n)
-        cots = [torch.randn(shape, generator=g, device=dev)
-                for shape in ((n, 2), (n, 3), (n,), (n,))]
-        leaves = [t.detach().clone().requires_grad_() for t in (means, cov3d, color)]
-        lp = dataclasses.replace(prep, means=leaves[0], cov3d=leaves[1], color=leaves[2])
-
-        def fwd():
-            return tproj.ewa_project(means, cov3d, color, scales, cam, cfg)
-
-        def bwd():
-            return tproj.ewa_project_bwd(means, cov3d, color, cam, cfg, *cots)
-
-        def plain_fwd():
-            return tproj.project_splats_ref(prep, cam, cfg)
-
-        def grads(project):
-            out = project(lp, cam, cfg)
-            return torch.autograd.grad([out.xy, out.conic, out.depth, out.alpha], leaves, cots)
-
-        def plain_bwd():  # autograd through the plain version, its forward included
-            return grads(tproj.project_splats_ref)
-
-        def kernel_fwd_bwd():  # the pair through autograd, as training runs it
-            return grads(tproj.project_splats)
-
-        def twin_bwd():
-            return tproj.project_splats_bwd_ref(means, cov3d, color, cam, cfg, *cots)
-
-        xy, conic, depth, radius, alpha, valid = fwd()
-        want = plain_fwd()
-        flips = int(((valid != want.valid) | (radius != want.radius).any(-1)).sum())
-        keep = valid & want.valid
-        xy_scale = torch.maximum(want.xy[keep].abs(), torch.stack([cam.cx, cam.cy]).abs())
-        err_fwd = {
-            "xy": ((xy[keep] - want.xy[keep]).abs() / xy_scale).max().item(),
-            "depth": ((depth[keep] - want.depth[keep]).abs() / want.depth[keep].abs()).max()
-            .item(),
-            "conic": ((conic[keep] - want.conic[keep]).abs().amax(-1)
-                      / want.conic[keep].abs().amax(-1)).max().item(),
-            "alpha": ((alpha[keep] - want.alpha[keep]).abs() / want.alpha[keep]).max().item()}
-        gates = {"xy": EWA_REL, "depth": EWA_REL, "conic": EWA_CONIC, "alpha": EWA_ALPHA}
-        log(f"ewa_project n={n}: {int(keep.sum())} splats kept by both, {flips} with another "
-            f"valid or radius (gate {math.ceil(EWA_FLIPS * n)}); forward against the plain "
-            "version: " + ", ".join(f"{k} {v:.3e}" for k, v in err_fwd.items()))
-        check(flips <= math.ceil(EWA_FLIPS * n), f"ewa_project_fwd n={n}: {flips} flips")
-        check(all(err_fwd[k] <= gates[k] for k in gates), f"ewa_project_fwd n={n}: {err_fwd}")
-        del xy, conic, depth, radius, alpha, valid, want, keep, xy_scale
-        got, plain, twin = bwd(), plain_bwd(), twin_bwd()
-        err_bwd = {}
-        for name, k, p, t in zip(("d_means", "d_cov3d", "d_color"), got, plain, twin):
-            scale = p.norm().item()
-            err_bwd[name] = ((k - p).norm().item() / scale, (k - t).norm().item() / scale)
-        del got, plain, twin
-        log(f"ewa_project_bwd n={n}: of each gradient's norm, against autograd through the "
-            "plain version / the twin: "
-            + ", ".join(f"{k} {a:.3e} / {b:.3e}" for k, (a, b) in err_bwd.items()))
-        check(all(max(e) <= EWA_GRAD for e in err_bwd.values()),
-              f"ewa_project_bwd n={n}: {err_bwd}")
-        torch.cuda.synchronize()
-        alone_f = kernel_split(fwd, lambda: tproj.ewa_project.launches,
-                               ("ewa_project_fwd_kernel",), calls=10)["ewa_project_fwd_kernel"]
-        alone_b = kernel_split(bwd, lambda: tproj.ewa_project_bwd.launches,
-                               ("ewa_project_bwd_kernel",), calls=10)["ewa_project_bwd_kernel"]
-        ev_f, ev_b = median(time_ms(fwd, 20)), median(time_ms(bwd, 20))
-        ev_pair = median(time_ms(kernel_fwd_bwd, 10))
-        pl_f, pl_b = median(time_ms(plain_fwd, 5)), median(time_ms(plain_bwd, 5))
-        twin_b = median(time_ms(twin_bwd, 5))
-        b_f = roofline(0.0, n * EWA_FWD_BYTES)
-        b_b = roofline(0.0, n * EWA_BWD_BYTES)
-        log(f"timing ewa_project n={n} ({card}): forward alone {alone_f:.4f} ms, events "
-            f"{ev_f:.4f}, bound {b_f[0]:.4f} ({b_f[1]}, {n * EWA_FWD_BYTES / 1e9:.4f} GB), share "
-            f"of bound {b_f[0] / alone_f:.4f}; plain forward {pl_f:.4f} ms")
-        log(f"timing ewa_project_bwd n={n} ({card}): backward alone {alone_b:.4f} ms, events "
-            f"{ev_b:.4f}, bound {b_b[0]:.4f} ({b_b[1]}, {n * EWA_BWD_BYTES / 1e9:.4f} GB), share "
-            f"of bound {b_b[0] / alone_b:.4f}; the kernel pair through autograd {ev_pair:.4f} ms "
-            f"against autograd through the plain version (forward and backward) {pl_b:.4f} ms; "
-            f"the closed-form twin {twin_b:.4f} ms")
-        if n == EWA_SPLATS[0]:
-            entries["ewa_project_fwd"] = dict(
-                max_rel_err=max(err_fwd.values()), flips=flips, ms=ev_f, alone_ms=alone_f,
-                plain_ms=pl_f, share_of_bound=b_f[0] / alone_f)
-            entries["ewa_project_bwd"] = dict(
-                max_rel_err=max(max(e) for e in err_bwd.values()), ms=ev_b, alone_ms=alone_b,
-                plain_ms=pl_b, twin_ms=twin_b, pair_ms=ev_pair, share_of_bound=b_b[0] / alone_b)
-            bounds["ewa_project_fwd"], bounds["ewa_project_bwd"] = b_f, b_b
-        else:
-            entries["ewa_project_fwd"]["alone_ms_15m"] = alone_f
-            entries["ewa_project_bwd"]["alone_ms_15m"] = alone_b
-        del prep, lp, means, cov3d, color, scales, cots, leaves
-        torch.cuda.empty_cache()
-    log(f"ewa_project phase {time.perf_counter() - t0:.1f} s")
-    return entries, bounds
 
 
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     views = int(argv[argv.index("--mesh-views") + 1]) if "--mesh-views" in argv else 0
-    lighting_only = "--lighting" in argv
-    raytrace_only = "--raytrace" in argv
-    instances_only = "--instances" in argv
-    tools_only = "--tools" in argv
-    sh_only = "--sh-radiance" in argv
-    ewa_only = "--ewa-project" in argv
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: chip_smoke.py runs only on a card")
     if "--gloo-rank" in argv:
@@ -6577,75 +5145,55 @@ def main(argv=None) -> int:
     card = device_label(dev)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
     log(f"card: {card}")
-    span_us = {}
-    for name, open_span in (("timing.span", timing.span),
-                            ("record_function", torch.profiler.record_function)):
-        t_span = time.perf_counter()
-        for _ in range(10000):
-            with open_span("project"):
-                pass
-        span_us[name] = (time.perf_counter() - t_span) * 1e2
-    log(f"host cost of one stage span, profiler off: {span_us['timing.span']:.3f} us "
-        f"(a bare record_function: {span_us['record_function']:.3f} us)")
     if views:
         mesh = mr.mesh_buffers_from_obj(headline_mesh(), device=dev)
         mesh_views(dev, mesh, bench_scene(dev, SPLATS, seed=0).prepare(),
                    gt.RenderConfig(width=WIDTH, height=HEIGHT, sh_degree=3), views)
         log(f"total {time.perf_counter() - t0:.1f} s")
         return 0
-    if lighting_only:
-        lighting(dev, card, bench_scene(dev, SPLATS, seed=0))
+    if "--lighting" in argv:
+        lighting(dev, bench_scene(dev, SPLATS, seed=0))
         log(f"total {time.perf_counter() - t0:.1f} s")
         return 0
-    if raytrace_only:
-        raytracing(dev, card, bench_scene(dev, SPLATS, seed=0))
+    if "--raytrace" in argv:
+        raytracing(dev, bench_scene(dev, SPLATS, seed=0))
         log(f"total {time.perf_counter() - t0:.1f} s")
         return 0
-    if instances_only:
-        instances(dev, card, bench_scene(dev, SPLATS, seed=0).prepare())
+    if "--instances" in argv:
+        instances(dev)
         log(f"total {time.perf_counter() - t0:.1f} s")
         return 0
-    if sh_only:
-        sh_radiance_phase(dev, card)
-        log(f"total {time.perf_counter() - t0:.1f} s")
-        return 0
-    if ewa_only:
-        ewa_project_phase(dev, card)
-        log(f"total {time.perf_counter() - t0:.1f} s")
-        return 0
-    if tools_only:
+    if "--tools" in argv:
         truth = bench_scene(dev, SPLATS, seed=0)
         cam = gt.look_at([0, 0, -7], [0, 0, 0], [0, 1, 0], WIDTH, HEIGHT, fov_y_rad=0.9,
                          device=dev)
-        tools(dev, card, truth, headline_caps(truth.prepare(), cam,
-                                              gt.RenderConfig(width=WIDTH, height=HEIGHT,
-                                                              sh_degree=3)))
+        tools(dev, truth, headline_caps(truth.prepare(), cam,
+                                        gt.RenderConfig(width=WIDTH, height=HEIGHT, sh_degree=3)))
         log(f"total {time.perf_counter() - t0:.1f} s")
         return 0
 
     err_golden = golden_gate(dev)
     err_golden_bwd = golden_gradients(dev)
     truth = bench_scene(dev, SPLATS, seed=0)
-    fwd, bounds, frame_launches = full_size(dev, card, truth.prepare(), seed=0)
+    fwd, frame_launches = full_size(dev, truth.prepare())
     fwd["max_abs_err"] = max(fwd["max_abs_err"], err_golden)
-    bwd, bounds["rasterize_bwd"], step_launches = train_full_size(dev, card, truth, seed=0)
+    bwd, step_launches = train_full_size(dev, truth, seed=0)
     bwd["max_abs_err"] = max(bwd["max_abs_err"], err_golden_bwd)
 
     err_golden_k3 = golden_bucket(dev)
     err_golden_k4 = golden_bucket_gradients(dev)
-    caps, k3, bucket_bounds = bucket_full_size(dev, card, truth.prepare(), seed=0)
+    caps, k3 = bucket_full_size(dev, truth.prepare(), seed=0)
     k3["max_abs_err"] = max(k3["max_abs_err"], err_golden_k3)
-    k4 = bucket_train_full_size(dev, card, truth, caps, seed=0)
+    k4 = bucket_train_full_size(dev, truth, caps, seed=0)
     k4["max_abs_err"] = max(k4["max_abs_err"], err_golden_k4)
     k4["kept_share"] = k3["kept_share"]  # the same lanes on the headline frame (check_cull)
-    bounds.update(bucket_bounds)
     results = {"rasterize_fwd": fwd, "rasterize_bwd": bwd, "raster_bucket_fwd": k3,
                "raster_bucket_bwd": k4}
 
     golden_fwd, golden_bwd = golden_gut(dev)
     gut_camera_effects(dev)
-    gut_fwd, gut_bounds_ = gut_full_size(dev, card, truth.prepare(), caps, seed=0)
-    gut_bwd, gut_bwd_bounds = gut_train_full_size(dev, card, truth, caps, seed=0)
+    gut_fwd = gut_full_size(dev, truth.prepare(), caps, seed=0)
+    gut_bwd = gut_train_full_size(dev, truth, caps, seed=0)
     # K4g's cull keeps the lanes K3g's keeps on the same frame (check_cull)
     gut_bwd["raster_bucket_bwd_gut3d"]["kept_share"] = gut_fwd["raster_bucket_fwd_gut3d"][
         "kept_share"]
@@ -6658,51 +5206,29 @@ def main(argv=None) -> int:
                                                golden_bwd[method])
     results.update(gut_fwd)
     results.update(gut_bwd)
-    bounds.update(gut_bounds_)
-    bounds.update(gut_bwd_bounds)
 
     golden_packed_errs = golden_packed(dev)
-    packed_entries, packed_bounds = packed_full_size(dev, card, truth.prepare(), caps, seed=0)
+    packed_entries = packed_full_size(dev, truth.prepare(), caps, seed=0)
     for name, err in golden_packed_errs.items():
         packed_entries[name]["max_abs_err"] = max(packed_entries[name]["max_abs_err"], err)
     results.update(packed_entries)
-    bounds.update(packed_bounds)
-    stoch_entries, stoch_bounds = stochastic(dev, card, truth, caps)
-    results.update(stoch_entries)
-    bounds.update(stoch_bounds)
-    host_entries, host_bounds = host_sorted(dev, card, truth, caps)
-    results.update(host_entries)
-    bounds.update(host_bounds)
-    mesh_entries, mesh_bounds = meshes(dev, card, truth)
-    results.update(mesh_entries)
-    bounds.update(mesh_bounds)
-    lit_entries, lit_bounds = lighting(dev, card, truth)
-    results.update(lit_entries)
-    bounds.update(lit_bounds)
-    raytracing(dev, card, truth)
-    for name, extra in instances(dev, card, truth.prepare()).items():
+    results.update(stochastic(dev, truth, caps))
+    results.update(host_sorted(dev, truth, caps))
+    results.update(meshes(dev, truth))
+    results.update(lighting(dev, truth))
+    raytracing(dev, truth)
+    for name, extra in instances(dev).items():
         results[name].update(extra)
-    for name, extra in tools(dev, card, truth, caps).items():
+    for name, extra in tools(dev, truth, caps).items():
         results[name].update(extra)
-    probe_entries, probe_bounds, library = probes(dev, card)
-    results.update(probe_entries)
-    bounds.update(probe_bounds)
-    sh_entries, sh_bounds = sh_radiance_phase(dev, card)
-    ewa_entries, ewa_bounds = ewa_project_phase(dev, card)
-    for entries in (sh_entries, ewa_entries):
+    results.update(probes(dev))
+    for entries in (sh_radiance_phase(dev), ewa_project_phase(dev)):
         for name, entry in entries.items():
             entry["launches"] = {**frame_launches, **step_launches}[name]
         results.update(entries)
-    bounds.update(sh_bounds)
-    bounds.update(ewa_bounds)
 
-    report = {"kernels": [{
-        "name": name, "route": "cuda", "source": KERNELS[name][1],
-        "replaces": KERNELS[name][2], **results[name],
-        "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
-        # no single PyTorch call computes a tile blend; the probes have one
-        "library_ms": library.get(name),
-    } for name in KERNELS]}
+    report = {"kernels": [{"name": name, "route": "cuda", "source": KERNELS[name][1],
+                           "replaces": KERNELS[name][2], **results[name]} for name in KERNELS]}
     log(f"total {time.perf_counter() - t0:.1f} s")
     print(card, flush=True)
     print(json.dumps(report), flush=True)

@@ -1333,7 +1333,6 @@ def test_stochastic_render_and_train_step_on_card(cuda, pipeline, method):
 from vk_gaussian_splatting_tpu_torch.probes import bench_radix_ab as pa  # noqa: E402
 from vk_gaussian_splatting_tpu_torch.probes import bench_roll as pr  # noqa: E402
 from vk_gaussian_splatting_tpu_torch.probes import bench_sort_stage as ps  # noqa: E402
-from vk_gaussian_splatting_tpu_torch.probes import l2_fill as lf  # noqa: E402
 
 
 def same_bits(a, b) -> bool:
@@ -1457,19 +1456,6 @@ def test_probe_copies_match_twin(cuda, w, n_steps, n_copies, steps_per_block):
     ref_out, ref_copies = pa.dma_copies_ref(src, n_steps, n_copies, w, trace=True)
     assert torch.equal(out, ref_out) and torch.equal(out_only, ref_out)
     assert torch.equal(copies, ref_copies)
-
-
-@pytest.mark.cuda
-def test_l2_fill_launches_and_refuses(cuda):
-    src = torch.randn((pa.SRC_BLOCKS, *pa.BLOCK), device=cuda)
-    for cfg in (dict(method="bulk", grid=4, per_sm=2, copies=64, w=16, piece=2, depth=3),
-                dict(method="bulk", grid=1, per_sm=1, copies=64, w=1, depth=16, lanes=8),
-                dict(method="vector", grid=4, per_sm=2, copies=64, w=16, u=8),
-                dict(method="cpasync", grid=4, per_sm=3, copies=64, w=16, u=2, stages=4)):
-        lf.fill(src, **cfg)
-    torch.cuda.synchronize()
-    with pytest.raises(RuntimeError, match="cudaError"):   # a 512 KB ring
-        lf.fill(src, method="bulk", grid=4, per_sm=1, copies=64, w=16, piece=8, depth=8)
 
 
 # ---- the key-row forms of K3 and K4 (RasterStatics.key_is_row, gs2d): the

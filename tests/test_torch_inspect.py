@@ -17,9 +17,14 @@ Tolerances:
   bins by the UT footprint and freezes per step);
 - ``format_trace``: the same text as JAX's for the same trace.
 
+Beside them, chip_smoke.py's scene and training start against the
+benchmark's (splatbench/scene.py at the cells' own parameters), field for
+field: what the smoke checks on the card is what the cells measure.
+
 No JAX raster program is built here (about 25 s alone).
 """
 
+import json
 import os
 import re
 
@@ -330,3 +335,54 @@ def test_package_sources_never_import_jax():
                  "import vk_gaussian_splatting_tpu_torch as gt",
                  '"""counterpart of ``vk_gaussian_splatting_tpu/debug.py``"""'):
         assert not jax_imports(line), line
+
+
+def cell_file(*parts) -> dict:
+    with open(os.path.join(REPO, "splatbench", *parts)) as f:
+        return json.load(f)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_smoke_scene_is_the_view_cells_scene(seed):
+    import chip_smoke
+    from splatbench import scene as cells
+
+    spec = cell_file("configs", "inria_bicycle_6m.json")
+    # the extent and mix chip_smoke.py's full-size gates were set on
+    assert spec["extent"] == 4.0
+    assert spec["mix"] == [[0.969, -7.0, -5.0], [0.025, -5.0, -3.5], [0.006, -3.5, -2.0]]
+    cpu = torch.device("cpu")
+    got = chip_smoke.bench_scene(cpu, 1000, seed)
+    want = cells.bench_scene(cpu, 1000, seed, 3, spec["extent"], spec["mix"])
+    for f in cells.FIELDS:
+        assert torch.equal(getattr(got, f), want[f]), f
+    # the 96.9 / 2.5 / 0.6 % small / mid / large mix, SH 3, in the cube of half-size 4
+    assert tuple(got.sh_rest.shape) == (1000, 15, 3)
+    assert float(got.means.abs().max()) <= spec["extent"]
+    start = 0
+    for share, lo, hi in spec["mix"][:-1]:
+        part = got.scales[start:start + int(1000 * share)]
+        assert bool(((part >= lo) & (part <= hi)).all())
+        start += int(1000 * share)
+    assert [int(1000 * s) for s, _, _ in spec["mix"][:-1]] == [969, 25]
+
+
+def test_smoke_start_is_the_train_cells_start():
+    import chip_smoke
+    from splatbench import scene as cells
+
+    jitter = cell_file("traffic", "train_3dgs.json")["jitter"]
+    assert jitter == {"means": 0.001, "sh_dc": 0.3}  # what the smoke's training gates saw
+    cpu = torch.device("cpu")
+    truth = chip_smoke.bench_scene(cpu, 1000, 0)
+    got = chip_smoke.jittered_start(truth, cpu, 7)
+    want = cells.jittered_start({f: getattr(truth, f) for f in cells.FIELDS}, cpu, 7,
+                                jitter["means"], jitter["sh_dc"])
+    for f in cells.FIELDS:
+        assert torch.equal(getattr(got, f), want[f]), f
+    # only the means and the base colours move, by the cell's jitter
+    for f in ("scales", "quats", "opacities", "sh_rest"):
+        assert torch.equal(getattr(got, f), getattr(truth, f)), f
+    for f, sigma in (("means", jitter["means"]), ("sh_dc", jitter["sh_dc"])):
+        step = (getattr(got, f) - getattr(truth, f)).std().item()
+        assert 0.8 * sigma < step < 1.2 * sigma, (f, step)

@@ -26,7 +26,6 @@ from jax.experimental import pallas as pl
 from vk_gaussian_splatting_tpu_torch.probes import bench_radix_ab as pa
 from vk_gaussian_splatting_tpu_torch.probes import bench_roll as pr
 from vk_gaussian_splatting_tpu_torch.probes import bench_sort_stage as ps
-from vk_gaussian_splatting_tpu_torch.probes import l2_fill as lf
 from test_torch_cuda import duplicating, same_bits, with_keys
 
 SCRIPTS = Path(__file__).resolve().parent.parent / "scripts"
@@ -270,26 +269,6 @@ def test_ring_plan(w, per_sm):
     # the lanes divide the slots, so one producer and one consumer lane own each
     assert plan.depth % plan.lanes == 0
     assert plan.lanes == 1 or (per_sm == 1 and plan.lanes <= pa.ONE_BLOCK_LANES)
-
-
-@pytest.mark.parametrize("sms", [132, 114])
-def test_l2_fill_sweep_fits_and_moves_p2s_bytes(sms):
-    cfgs = lf.configs(sms)
-    assert {c["method"] for c in cfgs} == {"bulk", "vector", "cpasync"}
-    for c in cfgs:
-        assert c["grid"] in (1, pa.N_STEPS, c["per_sm"] * sms)   # one block, P2's grid, full SMs
-        if c["grid"] > 1:   # P2's 2.15 GB at W = 16
-            assert (c["copies"], c["w"]) == (pa.N_STEPS * pa.N_COPIES, 16)
-        if c["method"] == "bulk":
-            assert c["w"] % c["piece"] == 0 and 1 <= c["lanes"] <= c["depth"] <= 32
-            assert c["depth"] * c["piece"] * pa.BLOCK_BYTES * c["per_sm"] <= 232448
-        else:
-            assert c["w"] * pa.BLOCK_BYTES % (c["threads"] * c["u"] * 16) == 0
-
-
-def test_l2_fill_needs_the_card():
-    with pytest.raises(RuntimeError, match="no CPU form"):
-        lf.run(device="cpu")
 
 
 def test_copies_reject_bad_inputs():

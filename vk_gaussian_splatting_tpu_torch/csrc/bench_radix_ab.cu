@@ -41,9 +41,9 @@
 // What bounds it on the H100: the offsets cycle over the first 8 MB of the
 // 16 MB source, which the 50 MB L2 holds after the first pass, so only
 // those 8 MB must come from device memory; every copied byte must land in
-// shared memory, at 128 B per clock on each SM (`copy_bound`). What L2
-// delivers into shared memory across the card is well below that
-// (probes/l2_fill.py; PERF.md, §6, P2); a single block is bound by how fast
+// shared memory, at 128 B per clock on each SM. What L2 delivers into
+// shared memory across the card is well below that (PERF.md, §6, the P2
+// row's measured ceiling); a single block is bound by how fast
 // its lanes issue and by what one SM takes in.
 
 #include <cuda_runtime.h>

@@ -64,6 +64,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "stage.cuh"
+
 namespace {
 
 constexpr int TILE = 128;
@@ -91,47 +93,6 @@ struct EwaParams {
 struct Cam {
   float w[9], t[3], fx, fy, cx, cy, near, far;
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// All threads of the block start copying `bytes` contiguous bytes (a
-// multiple of 4) from device memory (16-byte aligned) into shared memory
-// (16-byte aligned): 16-byte async copies on neighbouring addresses, the
-// last bytes % 16 a word at a time.
-__device__ __forceinline__ void stage_in(void* dst, const void* src, int bytes) {
-  unsigned char* d = static_cast<unsigned char*>(dst);
-  const unsigned char* s = static_cast<const unsigned char*>(src);
-  const int chunks = bytes >> 4;
-  for (int c = threadIdx.x; c < chunks; c += blockDim.x)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(smem_u32(d + 16 * c)),
-                 "l"(s + 16 * c)
-                 : "memory");
-  for (int b = (chunks << 4) + 4 * threadIdx.x; b < bytes; b += 4 * blockDim.x)
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(smem_u32(d + b)), "l"(s + b)
-                 : "memory");
-}
-
-__device__ __forceinline__ void commit() { asm volatile("cp.async.commit_group;" ::: "memory"); }
-
-// waits until all but the last of this thread's committed groups have
-// landed, then for the whole block
-__device__ __forceinline__ void landed_but_last() {
-  asm volatile("cp.async.wait_group 1;" ::: "memory");
-  __syncthreads();
-}
-
-// shared -> device memory, 16-byte stores on neighbouring addresses, the
-// last bytes % 16 a word at a time
-__device__ __forceinline__ void stage_out(void* dst, const void* src, int bytes) {
-  float* d = static_cast<float*>(dst);
-  const float* s = static_cast<const float*>(src);
-  const int chunks = bytes >> 4;
-  for (int c = threadIdx.x; c < chunks; c += blockDim.x)
-    reinterpret_cast<float4*>(d)[c] = reinterpret_cast<const float4*>(s)[c];
-  for (int w = 4 * chunks + threadIdx.x; w < (bytes >> 2); w += blockDim.x) d[w] = s[w];
-}
 
 // torch.clamp's forward on the card: NaN stays NaN
 __device__ __forceinline__ float clamp_min(float v, float lo) {
@@ -254,10 +215,10 @@ __global__ void __launch_bounds__(TILE)
   auto prefetch = [&](long long tile, int buf) {
     const long long n0 = tile * TILE;
     const int rows = (int)min((long long)TILE, n - n0);
-    stage_in(s_mean[buf], means + n0 * 3, rows * 12);
-    stage_in(s_cov[buf], cov3d + n0 * 6, rows * 24);
-    stage_in(s_col[buf], color + n0 * 4, rows * 16);
-    if (p.size_culling) stage_in(s_scl[buf], scales_log + n0 * 3, rows * 12);
+    stage_in<4>(s_mean[buf], means + n0 * 3, rows * 12);
+    stage_in<4>(s_cov[buf], cov3d + n0 * 6, rows * 24);
+    stage_in<4>(s_col[buf], color + n0 * 4, rows * 16);
+    if (p.size_culling) stage_in<4>(s_scl[buf], scales_log + n0 * 3, rows * 12);
   };
 
   long long tile = blockIdx.x;
@@ -267,7 +228,7 @@ __global__ void __launch_bounds__(TILE)
     const long long next = tile + gridDim.x;
     if (next < tiles) prefetch(next, buf ^ 1);
     commit();
-    landed_but_last();  // this tile's copies; the next tile's stay in flight
+    landed<1>();  // this tile's copies; the next tile's stay in flight
     const long long n0 = tile * TILE;
     const int rows = (int)min((long long)TILE, n - n0);
     if (i < rows) {
@@ -315,11 +276,11 @@ __global__ void __launch_bounds__(TILE)
       valid[g] = ok ? 1 : 0;
     }
     __syncthreads();
-    stage_out(conic + n0 * 3, s_out, rows * 12);
+    stage_out<4>(conic + n0 * 3, s_out, rows * 12);
     // the next pass overwrites s_out, and this buffer's copies, only after
-    // its own landed_but_last() barrier, which every thread reaches after this store
+    // its own landed<1>() barrier, which every thread reaches after this store
   }
-  asm volatile("cp.async.wait_group 0;" ::: "memory");
+  wait_group<0>();
 }
 
 __global__ void __launch_bounds__(TILE)
@@ -349,13 +310,13 @@ __global__ void __launch_bounds__(TILE)
   auto prefetch = [&](long long tile, int buf) {
     const long long n0 = tile * TILE;
     const int rows = (int)min((long long)TILE, n - n0);
-    stage_in(s_mean[buf], means + n0 * 3, rows * 12);
-    stage_in(s_cov[buf], cov3d + n0 * 6, rows * 24);
-    if (need_op) stage_in(s_col[buf], color + n0 * 4, rows * 16);
-    if (d_xy) stage_in(s_dxy[buf], d_xy + n0 * 2, rows * 8);
-    if (d_conic) stage_in(s_dcon[buf], d_conic + n0 * 3, rows * 12);
-    if (d_depth) stage_in(s_dz[buf], d_depth + n0, rows * 4);
-    if (d_alpha) stage_in(s_dal[buf], d_alpha + n0, rows * 4);
+    stage_in<4>(s_mean[buf], means + n0 * 3, rows * 12);
+    stage_in<4>(s_cov[buf], cov3d + n0 * 6, rows * 24);
+    if (need_op) stage_in<4>(s_col[buf], color + n0 * 4, rows * 16);
+    if (d_xy) stage_in<4>(s_dxy[buf], d_xy + n0 * 2, rows * 8);
+    if (d_conic) stage_in<4>(s_dcon[buf], d_conic + n0 * 3, rows * 12);
+    if (d_depth) stage_in<4>(s_dz[buf], d_depth + n0, rows * 4);
+    if (d_alpha) stage_in<4>(s_dal[buf], d_alpha + n0, rows * 4);
   };
 
   long long tile = blockIdx.x;
@@ -365,7 +326,7 @@ __global__ void __launch_bounds__(TILE)
     const long long next = tile + gridDim.x;
     if (next < tiles) prefetch(next, buf ^ 1);
     commit();
-    landed_but_last();
+    landed<1>();
     const long long n0 = tile * TILE;
     const int rows = (int)min((long long)TILE, n - n0);
     if (i < rows) {
@@ -483,11 +444,11 @@ __global__ void __launch_bounds__(TILE)
       }
     }
     __syncthreads();
-    if (d_means != nullptr) stage_out(d_means + n0 * 3, s_mean[buf], rows * 12);
-    if (d_cov3d != nullptr) stage_out(d_cov3d + n0 * 6, s_cov[buf], rows * 24);
+    if (d_means != nullptr) stage_out<4>(d_means + n0 * 3, s_mean[buf], rows * 12);
+    if (d_cov3d != nullptr) stage_out<4>(d_cov3d + n0 * 6, s_cov[buf], rows * 24);
     __syncthreads();  // the next pass's copies land in this tile's buffers
   }
-  asm volatile("cp.async.wait_group 0;" ::: "memory");
+  wait_group<0>();
 }
 
 // A persistent grid: as many blocks as fit on the card at once, at most one

@@ -60,6 +60,8 @@
 
 #include <type_traits>
 
+#include "stage.cuh"
+
 namespace {
 
 constexpr int TILE = 128;
@@ -75,48 +77,13 @@ constexpr float C3_0 = -0.5900435899266435f, C3_1 = 2.890611442640554f,
                 C3_4 = -0.4570457994644658f, C3_5 = 1.445305721320277f,
                 C3_6 = -0.5900435899266435f;
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// All threads of the block copy `bytes` contiguous bytes from device memory
-// (16-byte aligned) into shared memory (16-byte aligned): 16-byte async
-// copies on neighbouring addresses, the last bytes % 16 one at a time. The
-// caller waits with copies_landed().
-__device__ __forceinline__ void stage_in(void* dst, const void* src, int bytes) {
-  unsigned char* d = static_cast<unsigned char*>(dst);
-  const unsigned char* s = static_cast<const unsigned char*>(src);
-  const int chunks = bytes >> 4;
-  for (int c = threadIdx.x; c < chunks; c += blockDim.x)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(smem_u32(d + 16 * c)),
-                 "l"(s + 16 * c)
-                 : "memory");
-  for (int b = (chunks << 4) + threadIdx.x; b < bytes; b += blockDim.x) d[b] = s[b];
-}
-
-__device__ __forceinline__ void copies_landed() {
-  asm volatile("cp.async.commit_group;" ::: "memory");
-  asm volatile("cp.async.wait_group 0;" ::: "memory");
-  __syncthreads();
-}
-
-// shared -> device memory, 16-byte stores on neighbouring addresses
-__device__ __forceinline__ void stage_out(void* dst, const void* src, int bytes) {
-  unsigned char* d = static_cast<unsigned char*>(dst);
-  const unsigned char* s = static_cast<const unsigned char*>(src);
-  const int chunks = bytes >> 4;
-  for (int c = threadIdx.x; c < chunks; c += blockDim.x)
-    reinterpret_cast<uint4*>(d)[c] = reinterpret_cast<const uint4*>(s)[c];
-  for (int b = (chunks << 4) + threadIdx.x; b < bytes; b += blockDim.x) d[b] = s[b];
-}
-
 // The tile's first M coefficients of each of `rows` stored rows of
 // `stored` coefficients, packed M to a row: the whole rows when M is all
 // that is stored, else element by element (coalesced along each row).
 template <typename T, int M>
 __device__ __forceinline__ void stage_coeffs(T* dst, const T* src, int rows, int stored) {
   if (stored == M) {
-    stage_in(dst, src, rows * M * 3 * (int)sizeof(T));
+    stage_in<1>(dst, src, rows * M * 3 * (int)sizeof(T));
     return;
   }
   for (int e = threadIdx.x; e < rows * M * 3; e += blockDim.x) {
@@ -242,11 +209,12 @@ __global__ void __launch_bounds__(TILE)
   const long long n0 = (long long)blockIdx.x * TILE;
   const int rows = (int)min((long long)TILE, n - n0);
   stage_coeffs<T, M>(s_sh, sh + n0 * stored * 3, rows, stored);
-  stage_in(s_vec, means + n0 * 3, rows * 3 * (int)sizeof(float));
+  stage_in<1>(s_vec, means + n0 * 3, rows * 3 * (int)sizeof(float));
   const int i = threadIdx.x;
   float4 col = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
   if (!SH_ONLY && i < rows) col = reinterpret_cast<const float4*>(color)[n0 + i];
-  copies_landed();
+  commit();
+  landed<0>();
   if (i < rows) {
     float x, y, z, nrm, nc, b[M], pre[3];
     view_dir(&s_vec[3 * i], pos, x, y, z, nrm, nc);
@@ -257,7 +225,7 @@ __global__ void __launch_bounds__(TILE)
     for (int c = 0; c < 3; ++c) s_vec[3 * i + c] = pre[c] < 0.0f ? 0.0f : pre[c];
   }
   __syncthreads();
-  stage_out(rgb + n0 * 3, s_vec, rows * 3 * (int)sizeof(float));
+  stage_out<1>(rgb + n0 * 3, s_vec, rows * 3 * (int)sizeof(float));
 }
 
 template <typename T>
@@ -281,12 +249,13 @@ __global__ void __launch_bounds__(TILE)
   const long long n0 = (long long)blockIdx.x * TILE;
   const int rows = (int)min((long long)TILE, n - n0);
   stage_coeffs<T, M>(s_sh, sh + n0 * stored * 3, rows, stored);
-  stage_in(s_vec, means + n0 * 3, rows * 3 * (int)sizeof(float));
-  stage_in(s_g, d_rgb + n0 * 3, rows * 3 * (int)sizeof(float));
+  stage_in<1>(s_vec, means + n0 * 3, rows * 3 * (int)sizeof(float));
+  stage_in<1>(s_g, d_rgb + n0 * 3, rows * 3 * (int)sizeof(float));
   const int i = threadIdx.x;
   float4 col = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
   if (!SH_ONLY && i < rows) col = reinterpret_cast<const float4*>(color)[n0 + i];
-  copies_landed();
+  commit();
+  landed<0>();
   if (i < rows) {
     float x, y, z, nrm, nc, b[M], pre[3], g[3], db[M];
     view_dir(&s_vec[3 * i], pos, x, y, z, nrm, nc);
@@ -322,12 +291,12 @@ __global__ void __launch_bounds__(TILE)
     }
   }
   __syncthreads();
-  if (d_means != nullptr) stage_out(d_means + n0 * 3, s_vec, rows * 3 * (int)sizeof(float));
+  if (d_means != nullptr) stage_out<1>(d_means + n0 * 3, s_vec, rows * 3 * (int)sizeof(float));
   if constexpr (!std::is_same<T, uint8_t>::value) {
     if (d_sh != nullptr) {
       T* out = d_sh + n0 * stored * 3;
       if (stored == M) {
-        stage_out(out, s_sh, rows * M * 3 * (int)sizeof(T));
+        stage_out<1>(out, s_sh, rows * M * 3 * (int)sizeof(T));
       } else {  // zero beyond the M coefficients read
         for (int e = threadIdx.x; e < rows * stored * 3; e += blockDim.x) {
           const int r = e / (stored * 3), k = e - r * (stored * 3);

@@ -2,7 +2,7 @@
 // Memory Accelerator's cp.async.bulk), their completion counted in bytes on
 // an mbarrier in shared memory: one thread issues a copy, any thread waits
 // for it. Shared by the probes P1 (csrc/bench_roll.cu) and P2
-// (csrc/bench_radix_ab.cu) and by csrc/l2_fill.cu.
+// (csrc/bench_radix_ab.cu).
 
 #pragma once
 

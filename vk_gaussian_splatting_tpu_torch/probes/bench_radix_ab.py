@@ -55,7 +55,7 @@ BLOCKS_PER_SM = 2                      # blocks an SM of a launch of more than o
 SM_SHARED = 233472                     # an SM's shared memory, 228 KB
 BLOCK_RESERVED = 1024                  # shared memory the system keeps per block
 BARRIER_BYTES = 2 * MAX_SLOTS * 8      # a full and an empty mbarrier per slot
-# Measured (PERF.md, §6, P2; probes/l2_fill.py): across the card L2 sets the
+# Measured (PERF.md, §6, the P2 row's ceiling): across the card L2 sets the
 # rate and more bytes in flight only queue behind it, so each block keeps
 # CARD_DEPTH pieces of at most CARD_PIECE_BLOCKS blocks in flight; one lane
 # issues a bulk copy only every 100-200 ns and one SM takes in at most

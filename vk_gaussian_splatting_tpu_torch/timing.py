@@ -1,9 +1,9 @@
 """Timing on the card, and the card's label beside every number.
 
-``chip_smoke.py`` and the probes time with ``call_ms`` and print
-``device_label`` beside what they measured. The package's stage spans
-(project, bin, blend, ...) and their children (bin.sort, backward.gather,
-...) open through ``span``."""
+The probes P1-P3 time with ``call_ms`` and print ``device_label`` beside
+what they measured. The package's stage spans (project, bin, blend, ...)
+and their children (bin.sort, backward.gather, ...) open through
+``span``."""
 
 from __future__ import annotations
 
